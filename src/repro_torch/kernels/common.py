@@ -1,0 +1,69 @@
+"""Constants and mask helpers shared by the attention kernels.
+
+Port of ``repro/kernels/common.py``. Every plain version (and the CUDA
+kernels, which restate them in C) builds its masks from these, so the
+causal/padding semantics are defined once:
+
+* ``causal_tile_mask`` — the begin-aligned in-tile causal mask
+  (``cols <= rows``) for a (blk_q, blk_kv) tile at (row0, col0);
+* ``mask_kv_tail`` — score columns at absolute kv position >= ``kv_len``
+  are forced to ``NEG_INF``;
+* ``causal_tile_bounds`` — the three-band tile classification
+  (fully visible / straddling the diagonal / fully masked).
+
+``row0``, ``col0``, ``iq`` and ``kv_len`` may be Python ints or integer
+tensors that broadcast against the tile, so the plain versions can
+classify every Q row block of a call at once.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Finite stand-in for -inf: exp(NEG_INF - m) underflows to exactly 0 in
+# fp32 without producing NaNs when a whole row is masked.
+NEG_INF = -1e30
+
+
+def causal_tile_mask(blk_q: int, blk_kv: int, row0, col0,
+                     device=None) -> torch.Tensor:
+    """Begin-aligned causal mask for one (blk_q, blk_kv) score tile."""
+    rows = torch.arange(blk_q, device=device).view(blk_q, 1) + row0
+    cols = torch.arange(blk_kv, device=device).view(1, blk_kv) + col0
+    return cols <= rows
+
+
+def causal_tile_bounds(iq, blk_q: int, blk_kv: int, nkv: int):
+    """(n_full, n_needed) KV-tile counts for Q row block ``iq``.
+
+    Tiles [0, n_full) lie strictly below the causal diagonal (no in-tile
+    mask); tiles [n_full, n_needed) straddle it (in-tile mask); tiles
+    [n_needed, nkv) are fully masked and are never computed or loaded.
+    """
+    row0 = iq * blk_q
+    n_full = (row0 + 1) // blk_kv
+    n_needed = (row0 + blk_q - 1) // blk_kv + 1
+    if isinstance(iq, torch.Tensor):
+        return n_full.clamp(max=nkv), n_needed.clamp(max=nkv)
+    return min(n_full, nkv), min(n_needed, nkv)
+
+
+def mask_kv_tail(s: torch.Tensor, col0, kv_len) -> torch.Tensor:
+    """Mask score columns whose absolute kv position is >= ``kv_len``.
+
+    ``s`` is a (..., rows, blk_kv) score tile whose first column sits at
+    absolute kv position ``col0``.
+    """
+    blk_kv = s.shape[-1]
+    cols = torch.arange(blk_kv, device=s.device) + col0
+    return torch.where(cols < kv_len, s, NEG_INF)
+
+
+def check_prefill_tile(blk_q: int, e: int) -> None:
+    """Raise unless the prefill kernels' thread layout covers a
+    (blk_q, E) block: 256 threads, four score rows apart, E / 4 threads
+    on each output row (``csrc/mas_attention.cu``, ``flash_attention.cu``)."""
+    if (blk_q % 8 or not 8 <= blk_q <= 64 or e % 4 or e > 1024
+            or 256 % (e // 4) or blk_q * e > 8192):
+        raise ValueError(f"unsupported tile for the CUDA kernels: "
+                         f"blk_q={blk_q}, E={e}")

@@ -1,0 +1,149 @@
+// Shared device helpers for the attention kernels of repro_torch.
+//
+// Every kernel keeps its sums in fp32 and reads its operands as either
+// fp32 or bf16 (the storage type T). K/V rows staged in shared memory
+// are padded by KV_ROW_PAD elements: with E a multiple of 4 that makes a
+// row (2E + 8) or (4E + 16) bytes, so the 8- or 16-byte reads of one
+// warp, each on its own row, fall on distinct banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cstring>
+
+namespace repro {
+
+constexpr int KV_TILE = 64;     // kv rows per tile (policy.KV_TILE)
+constexpr int KV_ROW_PAD = 4;   // policy.KV_ROW_PAD
+constexpr float NEG_INF = -1e30f;
+
+// Four consecutive elements of T, moved as one 8- or 16-byte word.
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, 4);
+  memcpy(&hi, &u.y, 4);
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Copy `rows` rows of E elements from global memory (row stride E) into
+// shared memory (row stride E + KV_ROW_PAD); rows in [rows, zero_to) are
+// zero-filled so a masked column never multiplies stale bytes.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows,
+                                           int zero_to, int E) {
+  using V = typename Vec4<T>::type;
+  const int chunks = E / 4;
+  const int ld = E + KV_ROW_PAD;
+  for (int i = threadIdx.x; i < zero_to * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = (i - r * chunks) * 4;
+    V val;
+    if (r < rows) {
+      val = *reinterpret_cast<const V*>(src + (size_t)r * E + c);
+    } else {
+      memset(&val, 0, sizeof(V));
+    }
+    *reinterpret_cast<V*>(dst + r * ld + c) = val;
+  }
+}
+
+// Q block of `rows` rows into shared memory as fp32, row stride E.
+template <typename T>
+__device__ __forceinline__ void stage_q(float* dst, const T* src, int rows,
+                                        int E) {
+  for (int i = threadIdx.x; i < rows * E; i += blockDim.x) {
+    dst[i] = to_float(src[i]);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Dot products of one staged K row (column `c` of a score tile) with
+// `nr` Q rows rg, rg + rstep, ... held fp32 in shared memory.
+template <int MAXR, typename T>
+__device__ __forceinline__ void qk_dots(float (&acc)[MAXR], const float* Qs,
+                                        const T* krow, int E, int nr,
+                                        int rg, int rstep) {
+#pragma unroll
+  for (int i = 0; i < MAXR; ++i) acc[i] = 0.f;
+  for (int e = 0; e < E; e += 4) {
+    const float4 kv = load4(krow + e);
+#pragma unroll
+    for (int i = 0; i < MAXR; ++i) {
+      if (i < nr) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(Qs + (rg + i * rstep) * E + e);
+        acc[i] = fmaf(qv.x, kv.x, acc[i]);
+        acc[i] = fmaf(qv.y, kv.y, acc[i]);
+        acc[i] = fmaf(qv.z, kv.z, acc[i]);
+        acc[i] = fmaf(qv.w, kv.w, acc[i]);
+      }
+    }
+  }
+}
+
+// acc[i][0..3] = sum_{j in [0, n)} P[r_i][j] * V[j][ce..ce+3] for the rows
+// r_i = rg + i * rstep (i < nr) of a probability block P (fp32, row
+// stride ldp) and V rows staged at stride E + KV_ROW_PAD. n % 4 == 0.
+template <int MAXR, typename T>
+__device__ __forceinline__ void pv_sums(float (&acc)[MAXR][4], const float* P,
+                                        int ldp, const T* V, int n, int E,
+                                        int ce, int nr, int rg, int rstep) {
+  const int ld = E + KV_ROW_PAD;
+#pragma unroll
+  for (int i = 0; i < MAXR; ++i) {
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+  for (int j = 0; j < n; j += 4) {
+    const float4 v0 = load4(V + (j + 0) * ld + ce);
+    const float4 v1 = load4(V + (j + 1) * ld + ce);
+    const float4 v2 = load4(V + (j + 2) * ld + ce);
+    const float4 v3 = load4(V + (j + 3) * ld + ce);
+#pragma unroll
+    for (int i = 0; i < MAXR; ++i) {
+      if (i < nr) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(P + (rg + i * rstep) * ldp + j);
+        acc[i][0] = fmaf(p.w, v3.x, fmaf(p.z, v2.x, fmaf(p.y, v1.x, fmaf(p.x, v0.x, acc[i][0]))));
+        acc[i][1] = fmaf(p.w, v3.y, fmaf(p.z, v2.y, fmaf(p.y, v1.y, fmaf(p.x, v0.y, acc[i][1]))));
+        acc[i][2] = fmaf(p.w, v3.z, fmaf(p.z, v2.z, fmaf(p.y, v1.z, fmaf(p.x, v0.z, acc[i][2]))));
+        acc[i][3] = fmaf(p.w, v3.w, fmaf(p.z, v2.w, fmaf(p.y, v1.w, fmaf(p.x, v0.w, acc[i][3]))));
+      }
+    }
+  }
+}
+
+}  // namespace repro
+
+extern "C" const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

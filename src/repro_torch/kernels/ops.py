@@ -1,0 +1,120 @@
+"""Public wrappers around the attention kernels.
+
+Port of ``repro/kernels/ops.py`` for the dense slice: layout flattening
+(B, H, N, E) -> (B·H, N, E), GQA grouping (query row ``bh`` reads kv
+head ``bh // group``), padding to the kernels' block multiples with the
+padded kv columns masked through ``kv_len``, and method dispatch through
+the shared-memory policy of ``core/policy.py``. Padding follows what the
+port's kernels need: Q rows to a multiple of ``blk_q`` (itself a
+multiple of 8) and KV rows to the 64-row tile. The decode path pads
+nothing: the kernel reads only rows below ``kv_len``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.policy import (
+    DEFAULT_BLK_Q,
+    KV_TILE,
+    MIN_BLK_Q,
+    choose_attention_method,
+)
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mas_attention as _mas
+
+METHODS = ("auto", "mas_resident", "mas_streamed", "flash")
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every CUDA kernel since the last reset, by kernel."""
+    return {**_mas.LAUNCHES, **_flash.LAUNCHES, **_decode.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for counts in (_mas.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    pad = (-x.shape[1]) % multiple
+    if pad == 0:
+        return x.contiguous()
+    return torch.nn.functional.pad(x, (0, 0, 0, pad))
+
+
+def resolve_method(n_q: int, n_kv: int, e: int, itemsize: int, *,
+                   window: int | None = None,
+                   method: str = "auto") -> tuple[str, int]:
+    """(kernel, blk_q) that ``attention`` runs for these sizes."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if method == "auto":
+        decision = choose_attention_method(n_kv=n_kv, e=e, itemsize=itemsize)
+        method, bq = decision.method, decision.blk_q
+    else:
+        bq = DEFAULT_BLK_Q
+    if window is not None and method.startswith("mas"):
+        # A sliding window needs per-block skip bookkeeping the paper's
+        # dataflow does not define: the flash kernel serves it.
+        method = "flash"
+    # A short prompt needs no block taller than itself (rounded to 8).
+    bq = min(bq, max(MIN_BLK_Q, -(-n_q // MIN_BLK_Q) * MIN_BLK_Q))
+    return method, bq
+
+
+def attention(q, k, v, *, causal: bool = False, window: int | None = None,
+              sm_scale: float | None = None,
+              method: str = "auto") -> torch.Tensor:
+    """Exact attention. q: (B, Hq, Nq, E); k, v: (B, Hkv, Nkv, E)."""
+    b, hq, nq, e = q.shape
+    _, hkv, nkv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    method, bq = resolve_method(nq, nkv, e, q.element_size(), window=window,
+                                method=method)
+    qf = _pad_rows(q.reshape(b * hq, nq, e), bq)
+    kf = _pad_rows(k.reshape(b * hkv, nkv, e), KV_TILE)
+    vf = _pad_rows(v.reshape(b * hkv, nkv, e), KV_TILE)
+    kv_len = nkv if kf.shape[1] != nkv else None
+    common = dict(blk_q=bq, blk_kv=KV_TILE, causal=causal, sm_scale=sm_scale,
+                  kv_len=kv_len)
+    if method == "flash":
+        of = _flash.flash_attention_flat(qf, kf, vf, window=window, **common)
+    else:
+        of = _mas.mas_attention_flat(
+            qf, kf, vf, kv_resident=(method == "mas_resident"), **common)
+    return of[:, :nq].reshape(b, hq, nq, e)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *,
+                     sm_scale: float | None = None, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
+    """Single-token decode against a (partially filled) dense cache.
+
+    q: (B, Hq, E); caches: (B, Hkv, S, E); ``kv_len`` an int (every row)
+    or a (B,) integer tensor (a ragged batch).
+    """
+    b, hq, e = q.shape
+    _, hkv, s_len, _ = k_cache.shape
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    group = hq // hkv
+    # (B·Hkv, G, E): the query heads of one kv head share its cache rows.
+    qg = q.reshape(b * hkv, group, e).contiguous()
+    kf = k_cache.reshape(b * hkv, s_len, e)
+    vf = v_cache.reshape(b * hkv, s_len, e)
+    if isinstance(kv_len, torch.Tensor):
+        lens = kv_len.to(device=q.device, dtype=torch.int32).reshape(b)
+        lens = lens.repeat_interleave(hkv)
+        max_kv_len = None
+    else:
+        lens = torch.full((b * hkv,), int(kv_len), dtype=torch.int32,
+                          device=q.device)
+        max_kv_len = int(kv_len)
+    of = _decode.decode_attention_flat(
+        qg, kf, vf, lens, sm_scale=sm_scale, max_kv_len=max_kv_len,
+        k_scale=k_scale, v_scale=v_scale)
+    return of.reshape(b, hq, e)

@@ -1,0 +1,174 @@
+"""The port's ground rules.
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
+  JAX package ``repro``, so the port installs alone on a GPU host;
+* entry points default to ``device="cuda"`` and raise, rather than run
+  on the CPU, where CUDA is absent;
+* every TPU kernel the port has ported has its CUDA source, which opens
+  with a note naming the kernel it replaces;
+* ``chip_smoke.py`` refuses to run without a card or without the port,
+  and its bf16 limit admits one rounding of a kernel's output but not a
+  skipped KV tile.
+"""
+
+from __future__ import annotations
+
+import ast
+import ctypes
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import mas_attention as tmas
+from repro_torch.models.api import build_model
+from repro_torch.serving import ServingEngine
+from repro_torch.weights import params_from_jax
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+# TPU kernel (file, body) -> the port's CUDA source, for every ported kernel
+PORTED = {
+    "B1": ("src/repro/kernels/mas_attention.py", "_mas_resident_kernel",
+           "mas_attention.cu"),
+    "B2": ("src/repro/kernels/mas_attention.py", "_mas_streamed_kernel",
+           "mas_attention.cu"),
+    "B3": ("src/repro/kernels/flash_attention.py", "_flash_kernel",
+           "flash_attention.cu"),
+    "B4": ("src/repro/kernels/decode_attention.py", "_decode_kernel",
+           "decode_attention.cu"),
+}
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax_and_no_reference(path):
+    for name in _imports(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    cfg = get_smoke("internlm2-1.8b")
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init(seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.make_cache(1, 8)
+    params = model.init(seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(model, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_jax({}, cfg)
+
+
+@pytest.mark.parametrize("kernel", sorted(PORTED))
+def test_ported_kernel_has_cuda_source_naming_what_it_replaces(kernel):
+    tpu_file, body, source = PORTED[kernel]
+    assert body in (REPO / tpu_file).read_text()
+    cu = PORT / "kernels" / "csrc" / source
+    head = cu.read_text().split("#include")[0]
+    assert Path(tpu_file).relative_to("src").as_posix() in head
+    assert "bound" in head
+    assert source.removesuffix(".cu") in _build.SOURCES
+
+
+def test_kernel_build_is_keyed_by_source_and_refuses_without_nvcc():
+    for name in _build.SOURCES:
+        path = _build._library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-")
+        assert set(_build.SIGNATURES[name]) <= set(
+            (_build.CSRC / f"{name}.cu").read_text().replace("(", " ").split())
+    assert _build.dtype_code(torch.float32) == 0
+    assert _build.dtype_code(torch.bfloat16) == 1
+    with pytest.raises(TypeError):
+        _build.dtype_code(torch.float16)
+    pointer_args = [a for sig in _build.SIGNATURES.values()
+                    for args in sig.values() for a in args]
+    assert ctypes.c_void_p in pointer_args
+    if _build.shutil.which("nvcc") is None and not Path(
+            "/usr/local/cuda/bin/nvcc").exists():
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.nvcc()
+
+
+def test_chip_smoke_refuses_without_a_card_or_the_port(tmp_path):
+    _no_cuda()
+    here = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=REPO)
+    assert here.returncode != 0 and '"ok"' not in here.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    lone = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                          text=True, timeout=300, cwd=tmp_path)
+    assert lone.returncode != 0 and '"ok"' not in lone.stdout
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("kernel", ["mas", "flash", "decode"])
+def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
+        kernel):
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen)
+
+    if kernel == "decode":
+        q, k, v = rnd(4, 2, 64), rnd(4, 256, 64), rnd(4, 256, 64)
+        lens = torch.tensor([1, 70, 200, 256], dtype=torch.int32)
+
+        def plain(v):
+            return tdec.decode_attention_plain(q, k, v, lens, n_split=2,
+                                               tiles_per_split=2)
+    else:
+        q, k, v = rnd(8, 256, 64), rnd(4, 256, 64), rnd(4, 256, 64)
+        fn = (tmas.mas_attention_plain if kernel == "mas"
+              else tflash.flash_attention_plain)
+
+        def plain(v):
+            return fn(q, k, v, blk_q=32, blk_kv=64, causal=True)
+
+    want = plain(v)
+    # held_to_plain itself fails unless the skipped tile breaks the limit
+    check = smoke.held_to_plain(want.bfloat16(), want,
+                                plain(smoke.drop_v_tile(v, 2)))
+    assert 0 < check["row_rel_err"] <= smoke.BF16_ROW_RTOL
+    assert check["fault_row_rel_err"] > 10 * smoke.BF16_ROW_RTOL
