@@ -11,22 +11,37 @@ Phases, each printing one JSON line:
 1. device — the card, the software versions, and the ``nvcc`` build of
    every kernel from ``src/repro_torch/kernels/csrc``;
 2. fp32 checks — each kernel against its plain version in fp32 on small
-   ragged shapes (padding, kv tails, a sliding window, ragged decode);
+   ragged shapes (padding, kv tails, a sliding window, ragged decode; for
+   the paged kernels shuffled page tables, kv_len 0, 1 and mid-page, a
+   later chunk's q_offset, a ragged last chunk, GQA group 2);
 3. kernels — each kernel against its plain version at the shapes the main
-   path gives it (internlm2-1.8b widths, bf16; decode also through
-   ``ops.decode_attention`` at each wave's kv_len, as the model calls
-   it), every output row within about one bf16 rounding of its norm,
-   with its time, the plain version's, the bound for its work on the
-   card, and one PyTorch call computing the same function (timed as a
-   yardstick only);
-4. main path — full-width internlm2-1.8b (24 layers, random weights from
-   a seed) served by the port's ``ServingEngine`` in three waves whose
+   paths give it (internlm2-1.8b widths, bf16; decode also through
+   ``ops.decode_attention`` at each wave's kv_len, as the model calls it;
+   paged decode over a batch of 8 whose kv_lens spread over 1-3600 of a
+   4096-token budget, paged prefill of 512-row chunks at q_offset 0 and
+   3072, on pools of 2049 pages), every output row within about one bf16
+   rounding of its norm, with its time, the plain version's, the bound
+   for its work on the card, and one PyTorch call computing the same
+   function (timed as a yardstick only);
+4. main path (waves) — full-width internlm2-1.8b (random weights from a
+   seed) served by the port's ``ServingEngine`` in three waves whose
    prompts the shared-memory policy routes to the resident MAS, streamed
    MAS and flash kernels; every kernel's launch count must rise, and each
-   wave's prefill logits are held to the plain attention path.
+   wave's prefill logits are held to the plain attention path;
+5. continuous — the same model served by ``ContinuousBatchingEngine``
+   (batch 8, 4096-token budget, 16-token pages, 512-token chunks, the
+   default pool of 2049 pages): 16 requests of 32 tokens with prompts of
+   32-3500 tokens must all finish through the paged prefill and decode
+   kernels, two first-token logits are held to the plain attention path,
+   the same requests are served again under an injected pool-exhaustion
+   burst with a pool auditor (a preemption, no failure, no leaked page),
+   and at full width with 2 layers in fp32 the continuous engine on the
+   kernels, on plain attention, under the burst, and the wave engine must
+   emit the same greedy tokens. It prints TTFT and inter-token gaps,
+   tokens/s, steps by kind, peak memory and launches.
 
-The last three lines are the kernel table, the card's name and power
-limit, and the result. TF32 is switched off for matrix products and
+The last three lines are the kernel table (B1-B6), the card's name and
+power limit, and the result. TF32 is switched off for matrix products and
 convolutions so fp32 comparisons see fp32 arithmetic. The script exits
 non-zero, printing no result, when there is no CUDA device or no port
 beside it, or when any phase fails.
@@ -57,6 +72,22 @@ MAX_LEN = 8256
 WAVES = (("mas_resident", 256, BATCH), ("mas_streamed", 2048, BATCH),
          ("flash", 8192, 1))
 DECODE_KV_LENS = (1, 300, 2060, 8207)   # a ragged decode batch
+WAVE_KERNELS = ("mas_resident", "mas_streamed", "flash", "decode")
+PAGED_KERNELS = ("paged_decode", "paged_prefill")
+
+# The continuous engine's configuration and traffic.
+CONT = dict(batch_size=8, max_len=4096, page_size=16, chunk_size=512)
+CONT_REQUESTS = 16
+CONT_NEW_TOKENS = 32
+PROMPT_LENS = (32, 3500)            # drawn from default_rng(0), inclusive
+BURST = frozenset({40, 41, 42, 43})  # appends that report exhaustion
+FP32_LAYERS = 2
+FP32_REQUESTS = 6
+FP32_NEW_TOKENS = 16
+FP32_PROMPT_MAX = 1500     # several 512-token chunks, three kernel routes
+# Paged kernel shapes on the main path: 8 sequences over 2049 pages.
+PAGED_DECODE_KV_LENS = (1, 17, 300, 1000, 1777, 2500, 3100, 3600)
+PAGED_PREFILL = ((0, 512), (3072, 3584))   # (q_offset, kv_len), 512 rows
 
 # bf16 kernels against their plain versions: both sum in fp32 and round
 # once to bf16, so a row differs by at most about one bf16 rounding
@@ -117,6 +148,15 @@ def drop_v_tile(v, tile: int, blk_kv: int = 64):
     a kernel that skipped that tile's P·V product would compute with."""
     out = v.clone()
     out[..., tile * blk_kv:(tile + 1) * blk_kv, :] = 0
+    return out
+
+
+def drop_v_page(v_pages, page: int):
+    """``v_pages`` (Hkv, P, page, E) with physical page ``page`` zeroed:
+    what a paged kernel that skipped that page's P·V product would
+    compute with."""
+    out = v_pages.clone()
+    out[:, page] = 0
     return out
 
 
@@ -189,6 +229,8 @@ def phase_fp32(torch) -> dict:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import mas_attention as mas
+    from repro_torch.kernels import paged_decode_attention as pdec
+    from repro_torch.kernels import paged_prefill_attention as ppre
 
     g = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
@@ -226,6 +268,31 @@ def phase_fp32(torch) -> dict:
     ref = dec.decode_attention_plain(qd, kd, vd, lens, n_split=n_split,
                                      tiles_per_split=tps)
     errs["decode"] = max_err(out, ref)
+
+    # paged: 6 sequences of up to 10 pages of 16 rows on shuffled pages of
+    # a 64-page pool, GQA group 2; table entries past a sequence's live
+    # rows point at other sequences' pages, which masking must keep out
+    kp, vp = rnd(2, 64, 16, 64), rnd(2, 64, 16, 64)
+    table = (torch.randperm(63, generator=g, device=dev) + 1)[:60].view(
+        6, 10).to(torch.int32).contiguous()
+    lens = torch.tensor([0, 1, 9, 16, 100, 160], dtype=torch.int32,
+                        device=dev)
+    qd = rnd(6, 2, 2, 64)
+    out = pdec.paged_decode_attention_flat(qd, kp, vp, table, lens)
+    n_split, tps = dec.split_plan(12, 160)
+    ref = pdec.paged_decode_attention_plain(qd, kp, vp, table, lens,
+                                            n_split=n_split,
+                                            tiles_per_split=tps)
+    errs["paged_decode"] = max_err(out, ref)
+    # prefill chunks: the first, a later one ending mid-page (ragged, 86
+    # live rows of 96), and one live row
+    for q0, kv_len, chunk in ((0, 64, 64), (64, 150, 96), (0, 1, 32)):
+        qp = rnd(4, chunk, 64)
+        out = ppre.paged_prefill_attention_flat(
+            qp, kp, vp, table[5], q_offset=q0, kv_len=kv_len, blk_q=32)
+        ref = ppre.paged_prefill_attention_plain(
+            qp, kp, vp, table[5], q_offset=q0, kv_len=kv_len, blk_q=32)
+        errs[f"paged_prefill_{q0}_{kv_len}"] = max_err(out, ref)
     torch.cuda.synchronize()
     report = {"phase": "fp32", "atol": FP32_ATOL, "max_abs_err": errs}
     emit(report)
@@ -359,6 +426,7 @@ def phase_kernels(torch) -> list[dict]:
                   "dtype": "bf16"},
         "checks": decode_checks,
     })
+    rows += paged_kernel_rows(torch, rnd, cfg)
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
     for row in rows:
         require(row["row_rel_err"] <= BF16_ROW_RTOL,
@@ -367,15 +435,142 @@ def phase_kernels(torch) -> list[dict]:
     return rows
 
 
-def phase_main_path(torch) -> dict:
-    """Full-width internlm2-1.8b served in three waves on the card."""
-    import numpy as np
+def paged_library_call(torch, q, k_pages, v_pages, table, mask):
+    """The yardstick of a paged kernel: the pages gathered dense through
+    ``table`` (one indexing op each for K and V), then one
+    ``scaled_dot_product_attention`` call. q: (B, Hq, Nq, E)."""
+    from repro_torch.kernels.common import gather_pages
 
-    from repro_torch.configs import get_arch
+    F = torch.nn.functional
+    rep = q.shape[1] // k_pages.shape[0]
+
+    def call():
+        k, v = gather_pages(k_pages, table), gather_pages(v_pages, table)
+        if k.dim() == 3:
+            k, v = k[None], v[None]
+        try:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        except TypeError:   # no enable_gqa: expand the kv heads
+            k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    return call
+
+
+def paged_kernel_rows(torch, rnd, cfg) -> list[dict]:
+    """B6 and B5 against their plain versions at the continuous engine's
+    shapes: bf16 pools of 2049 pages of 16 rows, 8 sequences on shuffled
+    pages (256 pages each, 4096 tokens of budget)."""
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode_attention as pdec
+    from repro_torch.kernels import paged_prefill_attention as ppre
+
+    hq, hkv, e = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    page, b = CONT["page_size"], CONT["batch_size"]
+    max_pages = CONT["max_len"] // page
+    n_pages = b * max_pages + 1
+    kp, vp = rnd(hkv, n_pages, page, e), rnd(hkv, n_pages, page, e)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+             ).view(b, max_pages).to(torch.int32).contiguous()
+    rows = []
+
+    # B6: one decode step of the batch
+    lens = torch.tensor(PAGED_DECODE_KV_LENS, dtype=torch.int32,
+                        device="cuda")
+    qd = rnd(b, hq, e)
+    n_split, tps = dec.split_plan(b * hkv, max_pages * page)
+    kern = lambda: ops.paged_decode_attention(  # noqa: E731
+        qd, kp, vp, table, lens)
+
+    def plain(vp=vp):
+        return pdec.paged_decode_attention_plain(
+            qd.view(b, hkv, hq // hkv, e), kp, vp, table, lens,
+            n_split=n_split, tiles_per_split=tps).view(b, hq, e)
+
+    longest = max(range(b), key=lambda i: PAGED_DECODE_KV_LENS[i])
+    fault_page = int(table[longest, (PAGED_DECODE_KV_LENS[longest] - 1)
+                           // page - 1])
+    check = held_to_plain(kern(), plain(), plain(drop_v_page(vp, fault_page)))
+    live = float(sum(PAGED_DECODE_KV_LENS))
+    flops = 4.0 * e * hq * live
+    nbytes = 2.0 * (2 * hkv * live * e + 2 * b * hq * e)
+    bms, by = bound(flops, nbytes)
+    mask = (torch.arange(max_pages * page, device="cuda")[None, :]
+            < lens[:, None].long()).view(b, 1, 1, -1)
+    lib = paged_library_call(torch, qd.view(b, hq, 1, e), kp, vp, table,
+                             mask)
+    rows.append({
+        "name": "paged_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "replaces": "src/repro/kernels/paged_decode_attention.py:43",
+        "launches": 0, **check,
+        "ms": cuda_ms(torch, kern, 50), "plain_ms": cuda_ms(torch, plain, 3),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(torch, lib, 20),
+        "shape": {"b": b, "hq": hq, "hkv": hkv, "pages": n_pages,
+                  "page": page, "max_pages": max_pages, "e": e,
+                  "kv_lens": list(PAGED_DECODE_KV_LENS), "n_split": n_split,
+                  "dtype": "bf16"},
+    })
+
+    # B5: 512-row chunks of the longest sequence, first and late
+    chunk = CONT["chunk_size"]
+    bq = ops.paged_prefill_blk_q(chunk)
+    seq_table = table[longest]
+    checks = []
+    for q0, kv_len in PAGED_PREFILL:
+        qp = rnd(hq, chunk, e)
+        kern = lambda qp=qp, q0=q0, kv_len=kv_len: (  # noqa: E731
+            ops.paged_prefill_attention(qp, kp, vp, seq_table, q0, kv_len))
+
+        def plain(vp=vp, qp=qp, q0=q0, kv_len=kv_len):
+            return ppre.paged_prefill_attention_plain(
+                qp, kp, vp, seq_table, q_offset=q0, kv_len=kv_len, blk_q=bq)
+
+        fault_page = int(seq_table[kv_len // page - 2])
+        check = held_to_plain(kern(), plain(),
+                              plain(drop_v_page(vp, fault_page)))
+        # visible (query, key) pairs: row i sees min(q0 + i + 1, kv_len)
+        pairs = float(sum(min(q0 + i + 1, kv_len) for i in range(chunk)))
+        flops = 4.0 * e * hq * pairs
+        nbytes = 2.0 * (2 * hkv * kv_len * e + 2 * hq * chunk * e)
+        bms, by = bound(flops, nbytes)
+        cols = torch.arange(max_pages * page, device="cuda")
+        mask = ((cols[None, :] <= q0 + torch.arange(chunk, device="cuda")
+                 [:, None]) & (cols[None, :] < kv_len)).view(1, 1, chunk, -1)
+        lib = paged_library_call(torch, qp[None], kp, vp, seq_table, mask)
+        checks.append({"q_offset": q0, "kv_len": kv_len, **check,
+                       "ms": cuda_ms(torch, kern, 20),
+                       "plain_ms": cuda_ms(torch, plain, 2),
+                       "bound_ms": bms, "bound_by": by,
+                       "library_ms": cuda_ms(torch, lib, 20)})
+    late = checks[-1]
+    rows.append({
+        "name": "paged_prefill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
+        "replaces": "src/repro/kernels/paged_prefill_attention.py:52",
+        "launches": 0,
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "row_rel_err": max(c["row_rel_err"] for c in checks),
+        "fault_row_rel_err": min(c["fault_row_rel_err"] for c in checks),
+        "ms": late["ms"], "plain_ms": late["plain_ms"],
+        "bound_ms": late["bound_ms"], "bound_by": late["bound_by"],
+        "library_ms": late["library_ms"],
+        "shape": {"hq": hq, "hkv": hkv, "chunk": chunk, "blk_q": bq,
+                  "q_offset": late["q_offset"], "kv_len": late["kv_len"],
+                  "page": page, "e": e, "dtype": "bf16"},
+        "checks": checks,
+    })
+    return rows
+
+
+def full_width_model(torch) -> dict:
+    """Full-width internlm2-1.8b in bf16 with random weights from seed 0."""
+    from repro_torch.configs import get_arch
     from repro_torch.models.api import build_model
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.lifecycle import Request, RequestState
 
     cfg = get_arch(ARCH)
     require(cfg.attn_impl == "kernel", "the main path runs the kernels")
@@ -383,11 +578,26 @@ def phase_main_path(torch) -> dict:
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in
-                   [params["embed"], params["final_norm"]]
-                   + [t for layer in params["layers"]
-                      for blk in layer.values() for t in blk.values()])
+    return {"model": model, "params": params,
+            "init_s": time.perf_counter() - t0,
+            "n_params": sum(p.numel() for p in
+                            [params["embed"], params["final_norm"]]
+                            + [t for layer in params["layers"]
+                               for blk in layer.values()
+                               for t in blk.values()])}
+
+
+def phase_main_path(torch, full: dict) -> dict:
+    """Full-width internlm2-1.8b served in three waves on the card."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.lifecycle import Request, RequestState
+
+    model, params = full["model"], full["params"]
+    cfg = model.cfg
     engines = {b: ServingEngine(model, params, max_len=MAX_LEN, batch_size=b,
                                 device="cuda") for b in {BATCH, 1}}
     rng = np.random.default_rng(0)
@@ -436,8 +646,9 @@ def phase_main_path(torch) -> dict:
                 f"wave {n}: the {method} kernel was not launched")
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for name, count in counts.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+    for name in WAVE_KERNELS:
+        require(counts[name] > 0,
+                f"kernel {name} was not launched on the wave path")
 
     # prefill logits: kernel path vs plain attention, one request a wave
     plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
@@ -460,11 +671,221 @@ def phase_main_path(torch) -> dict:
         require(err <= LOGITS_RTOL * max(1.0, scale),
                 f"{method} prefill logits: {err} vs plain")
     report = {
-        "phase": "main_path", "arch": ARCH, "params": n_params,
-        "layers": cfg.num_layers, "dtype": "bf16", "init_s": init_s,
+        "phase": "main_path", "arch": ARCH, "params": full["n_params"],
+        "layers": cfg.num_layers, "dtype": "bf16", "init_s": full["init_s"],
         "max_len": MAX_LEN, "new_tokens": NEW_TOKENS, "waves": waves,
         "launches": counts, "peak_mem_bytes": peak,
         "prefill_vs_plain": logits_check,
+    }
+    emit(report)
+    return report
+
+
+def percentiles(values) -> dict:
+    import numpy as np
+
+    v = np.asarray(values, dtype=np.float64)
+    return {"p50": float(np.percentile(v, 50)),
+            "p95": float(np.percentile(v, 95)), "n": int(v.size)}
+
+
+def phase_continuous(torch, full: dict) -> dict:
+    """Full-width internlm2-1.8b served by the continuous engine on the page
+    pool, then under an exhaustion burst, then fp32 token parity."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import (
+        ContinuousBatchingEngine,
+        PoolAuditor,
+        Request,
+        RequestState,
+        ScriptedFaults,
+        ServingEngine,
+    )
+
+    model, params = full["model"], full["params"]
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    plens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                         size=CONT_REQUESTS)
+    prompts = [rng.integers(3, cfg.vocab_size, size=(int(n),))
+               .astype(np.int32) for n in plens]
+
+    def requests(ps=prompts, new=CONT_NEW_TOKENS) -> list:
+        return [Request(rid=i, prompt=p, max_new_tokens=new, eos_id=-1)
+                for i, p in enumerate(ps)]
+
+    def served(eng, reqs, out, new=CONT_NEW_TOKENS) -> None:
+        for r in reqs:
+            toks = out[r.rid]
+            require(eng.results[r.rid].state is RequestState.FINISHED,
+                    f"rid {r.rid}: {eng.results[r.rid].state}")
+            require(len(toks) == new, f"rid {r.rid}: {len(toks)} tokens")
+            require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                    f"rid {r.rid}: token out of range")
+
+    eng = ContinuousBatchingEngine(model, params, device="cuda", **CONT)
+    # warm-up: cuBLAS handles and the kernels' first loads
+    eng.serve([Request(rid=100 + i, prompt=prompts[i][:40], max_new_tokens=2,
+                       eos_id=-1) for i in range(2)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    reqs = requests()
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    served(eng, reqs, out)
+    for name in PAGED_KERNELS:
+        require(counts[name] > 0,
+                f"kernel {name} was not launched on the continuous path")
+    num_pages = eng.num_pages
+    stamps = eng.token_walltimes
+    ttft = [stamps[r.rid][0] - eng.serve_t0 for r in reqs]
+    gaps = [g for r in reqs for g in np.diff(stamps[r.rid])]
+    tokens = sum(len(out[r.rid]) for r in reqs)
+    steps = {k: eng.metrics.histogram(f"engine.step_s.{k}").summary()
+             for k in ("decode", "chunk", "chunk+decode")}
+
+    # first-token logits: the kernel path's chunked prefill vs the plain
+    # attention path's monolithic prefill, two requests
+    plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
+    page, chunk = CONT["page_size"], CONT["chunk_size"]
+    logits_check = []
+    for rid in (0, 1):
+        p = prompts[rid]
+        n = len(p)
+        cache = model.make_cache(1, n, device="cuda", cache_layout="paged",
+                                 page_size=page)
+        n_pg = -(-n // page)
+        table = torch.arange(1, n_pg + 1, dtype=torch.int32, device="cuda")
+        for q0 in range(0, n, chunk):
+            clen = min(chunk, n - q0)
+            toks = torch.ones((1, chunk), dtype=torch.long, device="cuda")
+            toks[0, :clen] = torch.from_numpy(p[q0:q0 + clen]).cuda()
+            cpages = torch.tensor(
+                [j + 1 if j < n_pg else 0
+                 for j in range(q0 // page, (q0 + chunk) // page)],
+                dtype=torch.int32, device="cuda")
+            got, cache = model.prefill_chunk(params, cfg, toks, cache, table,
+                                             cpages, q0, clen)
+        del cache
+        want, _ = plain_model.prefill(
+            params, plain_model.cfg,
+            torch.from_numpy(p[None].astype(np.int64)).cuda(), n)
+        got, want = got.float(), want[:, 0].float()
+        require(bool(torch.isfinite(got).all()), f"rid {rid}: logits")
+        scale = float(want.abs().max())
+        err = max_err(got, want)
+        logits_check.append({
+            "rid": rid, "prompt_len": n, "max_abs_err": err,
+            "max_abs_logit": scale, "tol": LOGITS_RTOL * max(1.0, scale),
+            "argmax_equal": bool(got.argmax(-1).eq(want.argmax(-1)).all()),
+            "engine_first_token_equal": int(got.argmax()) == int(out[rid][0]),
+        })
+        require(err <= LOGITS_RTOL * max(1.0, scale),
+                f"rid {rid} first-token logits: {err} vs plain")
+
+    # the same requests on a hot pool, under an exhaustion burst
+    hot = ContinuousBatchingEngine(model, params, device="cuda",
+                                   decode_reserve_frac=0.5, **CONT)
+    auditor = PoolAuditor()
+    hot.injector = ScriptedFaults(exhaust_at_appends=BURST)
+    hot.auditor = auditor     # final_check raises on a leaked page
+    t0 = time.perf_counter()
+    fout = hot.serve(requests())
+    torch.cuda.synchronize()
+    fwall = time.perf_counter() - t0
+    failed = sum(r.state is RequestState.FAILED for r in hot.results.values())
+    served(hot, reqs, fout)
+    require(hot.preemption_count >= 1, "the burst preempted nothing")
+    require(failed == 0, f"{failed} requests failed under the burst")
+    require(hot._mgr.pages_used == 0, "pages leaked")
+    agree = sum(int((fout[r.rid] == out[r.rid]).sum()) for r in reqs)
+    faulted = {
+        "decode_reserve_frac": 0.5, "burst_appends": sorted(BURST),
+        "preemptions": hot.preemption_count,
+        "recompute_tokens": hot.recompute_tokens, "failed": failed,
+        "pages_leaked": hot._mgr.pages_used,
+        "steps_audited": auditor.steps_checked, "wall_s": fwall,
+        "tokens_agreeing": agree / tokens,
+    }
+    del eng, hot
+
+    # fp32 parity at full width, 2 layers: kernels, plain attention, the
+    # wave engine and the burst give the same greedy tokens
+    cfg32 = dataclasses.replace(cfg, num_layers=FP32_LAYERS,
+                                compute_dtype=torch.float32)
+    m32 = build_model(cfg32)
+    p32 = m32.init(seed=0, device="cuda", dtype=torch.float32)
+    # norm scales from N(0, 4) so that greedy tokens vary
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for blk in [p32] + [b for layer in p32["layers"] for b in layer.values()]:
+        for key in ("norm", "final_norm"):
+            if key in blk:
+                blk[key] = 2.0 * torch.randn(blk[key].shape, generator=gen,
+                                             device="cuda")
+    rng32 = np.random.default_rng(1)
+    ps32 = [rng32.integers(3, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+            for n in rng32.integers(PROMPT_LENS[0], FP32_PROMPT_MAX,
+                                    size=FP32_REQUESTS)]
+
+    def reqs32():
+        return requests(ps32, FP32_NEW_TOKENS)
+
+    runs = {}
+    ops.reset_launch_counts()
+    runs["continuous_kernel"] = ContinuousBatchingEngine(
+        m32, p32, device="cuda", **CONT).serve(reqs32())
+    fp32_counts = ops.launch_counts()
+    runs["continuous_plain"] = ContinuousBatchingEngine(
+        build_model(dataclasses.replace(cfg32, attn_impl="plain")), p32,
+        device="cuda", **CONT).serve(reqs32())
+    runs["wave_kernel"] = ServingEngine(
+        m32, p32, max_len=CONT["max_len"], batch_size=1,
+        device="cuda").serve(reqs32())
+    burst = ContinuousBatchingEngine(m32, p32, device="cuda",
+                                     decode_reserve_frac=0.5, **CONT)
+    burst.injector = ScriptedFaults(exhaust_at_appends=frozenset({5, 6, 7}))
+    burst.auditor = PoolAuditor()
+    runs["continuous_burst"] = burst.serve(reqs32())
+    require(burst.preemption_count >= 1, "the fp32 burst preempted nothing")
+    ref = runs["continuous_kernel"]
+    require(all(len(ref[rid]) == FP32_NEW_TOKENS for rid in ref),
+            "fp32: a request did not get all its tokens")
+    mismatch = {name: [rid for rid in ref
+                       if not np.array_equal(run[rid], ref[rid])]
+                for name, run in runs.items()}
+    fp32 = {"layers": FP32_LAYERS, "requests": FP32_REQUESTS,
+            "prompt_lens": [len(p) for p in ps32],
+            "new_tokens": FP32_NEW_TOKENS,
+            "distinct_tokens": len({t for v in ref.values() for t in v}),
+            "burst_preemptions": burst.preemption_count,
+            "launches": fp32_counts, "mismatched_rids": mismatch}
+    for name, rids in mismatch.items():
+        require(not rids, f"fp32 {name}: tokens differ for rids {rids}")
+    for name in PAGED_KERNELS:
+        require(fp32_counts[name] > 0, f"fp32: kernel {name} not launched")
+
+    report = {
+        "phase": "continuous", "arch": ARCH, "layers": cfg.num_layers,
+        "dtype": "bf16", **CONT, "num_pages": num_pages,
+        "requests": CONT_REQUESTS, "new_tokens": CONT_NEW_TOKENS,
+        "prompt_lens": [int(n) for n in plens], "wall_s": wall,
+        "tokens": tokens, "tokens_per_s": tokens / wall,
+        "ttft_s": percentiles(ttft), "itl_s": percentiles(gaps),
+        "steps": {k: {"count": v["count"], "mean_s": v["mean"],
+                      "p50_s": v["p50"], "p95_s": v["p95"]}
+                  for k, v in steps.items()},
+        "peak_mem_bytes": peak, "launches": counts,
+        "first_token_vs_plain": logits_check, "faulted": faulted,
+        "fp32_parity": fp32,
     }
     emit(report)
     return report
@@ -488,9 +909,12 @@ def main() -> int:
     phase_device(torch, build)
     phase_fp32(torch)
     rows = phase_kernels(torch)
-    main_path = phase_main_path(torch)
+    full = full_width_model(torch)
+    main_path = phase_main_path(torch, full)
+    continuous = phase_continuous(torch, full)
     for row in rows:
-        row["launches"] = main_path["launches"][row["name"]]
+        path = continuous if row["name"] in PAGED_KERNELS else main_path
+        row["launches"] = path["launches"][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

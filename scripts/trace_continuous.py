@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Trace the continuous-batching path of the PyTorch port on one GPU.
+
+Serves the requests of ``chip_smoke.py``'s continuous phase (full-width
+internlm2-1.8b, bf16, random weights from seed 0; 16 requests with
+prompts of 32-3500 tokens from ``numpy.random.default_rng(0)`` and 32 new
+tokens each; batch 8, 4096-token budget, 16-token pages, 512-token
+chunks) once to warm up and once under ``torch.profiler``, and prints one
+JSON line: the serve's wall time untraced and traced, the device's busy
+share over the traced serve, the
+busy share and time of each step kind (``decode``, ``chunk``,
+``chunk+decode``), and device time by kernel group and by kernel.
+Tracing slows the host, not the device, so the device time is also set
+against the untraced serve's wall time.
+
+Run from the repository root on a machine with a CUDA card and ``nvcc``:
+
+    python3 scripts/trace_continuous.py
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+CONT = dict(batch_size=8, max_len=4096, page_size=16, chunk_size=512)
+REQUESTS, NEW_TOKENS, PROMPT_LENS = 16, 32, (32, 3500)
+# kernel name fragments -> group
+GROUPS = (("paged_prefill", "B5 paged_prefill"),
+          ("paged_decode", "B6 paged_decode"),
+          ("split_combine", "B6 paged_decode"),
+          ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
+          ("cutlass", "matmul"), ("Memcpy", "copies"), ("Memset", "copies"))
+
+
+def group_of(name: str) -> str:
+    for frag, group in GROUPS:
+        if frag in name:
+            return group
+    return "elementwise and other"
+
+
+def merged(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, Request
+
+    _build.build_all()
+    cfg = get_arch("internlm2-1.8b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    plens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=REQUESTS)
+    prompts = [rng.integers(3, cfg.vocab_size, size=(int(n),))
+               .astype(np.int32) for n in plens]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS, eos_id=-1)
+            for i, p in enumerate(prompts)]
+    eng = ContinuousBatchingEngine(model, params, device="cuda", **CONT)
+    eng.serve(reqs)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.serve(reqs)                       # the untraced time
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+
+    # mark each step on the host timeline: its device work ends before the
+    # next step starts (every step ends in a device->host copy)
+    step = eng._step
+
+    def marked(cache, host, decode, chunk):
+        kind = ("decode" if chunk is None
+                else "chunk+decode" if decode else "chunk")
+        with torch.profiler.record_function(f"step:{kind}"):
+            return step(cache, host, decode, chunk)
+
+    eng._step = marked
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # device events, without the device-side copies of the step marks
+    kernels = [e for e in events
+               if e.device_type == cuda and not e.name.startswith("step:")]
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    steps = sorted((e.time_range.start, e.name.split(":", 1)[1])
+                   for e in events
+                   if e.name.startswith("step:") and e.device_type != cuda)
+    end_all = max(e for _, e in spans) if spans else 0.0
+    by_kind: dict[str, dict] = {}
+    for i, (start, kind) in enumerate(steps):
+        stop = steps[i + 1][0] if i + 1 < len(steps) else end_all
+        busy = merged([(max(s, start), min(e, stop)) for s, e in spans
+                       if e > start and s < stop])
+        row = by_kind.setdefault(kind, {"steps": 0, "wall_ms": 0.0,
+                                        "device_ms": 0.0})
+        row["steps"] += 1
+        row["wall_ms"] += (stop - start) / 1e3
+        row["device_ms"] += busy / 1e3
+    for row in by_kind.values():
+        row["busy_share"] = row["device_ms"] / row["wall_ms"]
+        row["wall_ms_per_step"] = row["wall_ms"] / row["steps"]
+        row["device_ms_per_step"] = row["device_ms"] / row["steps"]
+    per_kernel: dict[str, list] = {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        entry = per_kernel.setdefault(e.name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += ms
+    groups: dict[str, float] = {}
+    for name, (_, ms) in per_kernel.items():
+        groups[group_of(name)] = groups.get(group_of(name), 0.0) + ms
+    device_ms = merged(spans) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), **CONT,
+        "requests": REQUESTS, "new_tokens": NEW_TOKENS,
+        "untraced_wall_s": untraced, "traced_wall_s": wall,
+        "device_busy_ms": device_ms,
+        "device_busy_share": device_ms / (wall * 1e3),
+        # device time hardly changes under tracing, host time does
+        "device_busy_share_of_untraced": device_ms / (untraced * 1e3),
+        "kernel_launches": len(kernels), "by_step_kind": by_kind,
+        "device_ms_by_group": groups,
+        "top_kernels": [{"name": n[:120], "count": c, "ms": ms}
+                        for n, (c, ms) in top],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

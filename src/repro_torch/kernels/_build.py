@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mas_attention", "flash_attention", "decode_attention")
+SOURCES = ("mas_attention", "flash_attention", "decode_attention",
+           "paged_decode_attention", "paged_prefill_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -54,6 +55,19 @@ SIGNATURES = {
         # n_split, tiles_per_split, sm_scale, dtype, stream
         "decode_attention_launch":
             [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+    },
+    "paged_decode_attention": {
+        # q, k_pages, v_pages, table, kv_lens, o, m_part, l_part, acc_part,
+        # B, Hkv, G, n_pages, page_size, max_pages, E, n_split,
+        # tiles_per_split, sm_scale, dtype, stream
+        "paged_decode_attention_launch":
+            [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P],
+    },
+    "paged_prefill_attention": {
+        # q, k_pages, v_pages, table, o, hq, nq, E, group, blk_q, n_pages,
+        # page_size, q_offset, kv_len, sm_scale, dtype, stream
+        "paged_prefill_attention_launch":
+            [P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P],
     },
 }
 

@@ -9,7 +9,10 @@ causal/padding semantics are defined once:
 * ``mask_kv_tail`` — score columns at absolute kv position >= ``kv_len``
   are forced to ``NEG_INF``;
 * ``causal_tile_bounds`` — the three-band tile classification
-  (fully visible / straddling the diagonal / fully masked).
+  (fully visible / straddling the diagonal / fully masked);
+* ``three_band_select`` — the fused causal-diagonal + kv-tail select of
+  a paged score tile whose rows start at a traced query offset;
+* ``gather_pages`` — the dense view of a page pool through page tables.
 
 ``row0``, ``col0``, ``iq`` and ``kv_len`` may be Python ints or integer
 tensors that broadcast against the tile, so the plain versions can
@@ -57,6 +60,37 @@ def mask_kv_tail(s: torch.Tensor, col0, kv_len) -> torch.Tensor:
     blk_kv = s.shape[-1]
     cols = torch.arange(blk_kv, device=s.device) + col0
     return torch.where(cols < kv_len, s, NEG_INF)
+
+
+def three_band_select(s: torch.Tensor, q0, col0, kv_len, *,
+                      rows_per_pos: int = 1) -> torch.Tensor:
+    """Fused straddling-band select for one paged score tile.
+
+    ``s`` is a (..., blk_q, blk_kv) score tile whose row ``i`` sits at
+    absolute query position ``q0 + i // rows_per_pos`` (grouped query
+    heads share one position when ``rows_per_pos`` is the GQA group) and
+    whose first column sits at absolute kv position ``col0``. Keeps
+    ``cols <= rows & cols < kv_len`` and forces the rest to ``NEG_INF``.
+    """
+    blk_q, blk_kv = s.shape[-2:]
+    rows = (torch.arange(blk_q, device=s.device).view(blk_q, 1)
+            // rows_per_pos + q0)
+    cols = torch.arange(blk_kv, device=s.device).view(1, blk_kv) + col0
+    keep = (cols <= rows) & (cols < kv_len)
+    return torch.where(keep, s, NEG_INF)
+
+
+def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Dense rows of a page pool (Hkv, P, page, E) through page tables.
+
+    ``table`` (..., max_pages) of physical page ids gives
+    (..., Hkv, max_pages·page, E): logical row ``r`` of a sequence is row
+    ``r % page`` of page ``table[..., r // page]``.
+    """
+    hkv, _, page, e = pages.shape
+    g = pages[:, table.long()]                 # (Hkv, ..., max_pages, page, E)
+    g = g.movedim(0, -4)                       # (..., Hkv, max_pages, page, E)
+    return g.reshape(*g.shape[:-3], g.shape[-3] * page, e)
 
 
 def check_prefill_tile(blk_q: int, e: int) -> None:

@@ -68,6 +68,36 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows,
   }
 }
 
+// Logical kv rows [col0, col0 + rows) of one kv head, gathered from a page
+// pool through one sequence's page table: logical row `pos` lives in
+// physical page table[pos / page_size], row pos % page_size, of
+// `head_pool` (that head's pages, each page_size rows of E elements). The
+// rows land in shared memory at stride E + KV_ROW_PAD; rows in
+// [rows, zero_to) are zero-filled, so pages past kv_len are never read.
+template <typename T>
+__device__ __forceinline__ void stage_paged_rows(T* dst, const T* head_pool,
+                                                 const int* table,
+                                                 int page_size, int col0,
+                                                 int rows, int zero_to,
+                                                 int E) {
+  using V = typename Vec4<T>::type;
+  const int chunks = E / 4;
+  const int ld = E + KV_ROW_PAD;
+  for (int i = threadIdx.x; i < zero_to * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = (i - r * chunks) * 4;
+    V val;
+    if (r < rows) {
+      const int pos = col0 + r;
+      const int page = table[pos / page_size];
+      val = *reinterpret_cast<const V*>(
+          head_pool + ((size_t)page * page_size + pos % page_size) * E + c);
+    } else {
+      memset(&val, 0, sizeof(V));
+    }
+    *reinterpret_cast<V*>(dst + r * ld + c) = val;
+  }
+}
+
 // Q block of `rows` rows into shared memory as fp32, row stride E.
 template <typename T>
 __device__ __forceinline__ void stage_q(float* dst, const T* src, int rows,
@@ -139,6 +169,34 @@ __device__ __forceinline__ void pv_sums(float (&acc)[MAXR][4], const float* P,
         acc[i][3] = fmaf(p.w, v3.w, fmaf(p.z, v2.w, fmaf(p.y, v1.w, fmaf(p.x, v0.w, acc[i][3]))));
       }
     }
+  }
+}
+
+// Second pass of the split-KV decode kernels (B4, B6): one block per
+// (b, kv head) row merges the n_split partial (m, l, acc) triples:
+// M = max m, L = sum l e^(m - M), O = sum acc e^(m - M) / L, with L == 0
+// (a row that saw no key) dividing by 1.
+template <typename T>
+__global__ void split_combine_kernel(const float* __restrict__ m_part,
+                                     const float* __restrict__ l_part,
+                                     const float* __restrict__ acc_part,
+                                     T* __restrict__ o, int G, int E,
+                                     int n_split) {
+  const int bh = blockIdx.x;
+  for (int i = threadIdx.x; i < G * E; i += blockDim.x) {
+    const int g = i / E, e = i - g * E;
+    float m_max = NEG_INF;
+    for (int sp = 0; sp < n_split; ++sp)
+      m_max = fmaxf(m_max, m_part[((size_t)bh * n_split + sp) * G + g]);
+    float l = 0.f, num = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const size_t row = ((size_t)bh * n_split + sp) * G + g;
+      const float w = expf(m_part[row] - m_max);
+      l = fmaf(l_part[row], w, l);
+      num = fmaf(acc_part[row * E + e], w, num);
+    }
+    l = l == 0.f ? 1.f : l;
+    store(o + ((size_t)bh * G + g) * E + e, num / l);
   }
 }
 

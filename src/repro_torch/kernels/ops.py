@@ -1,13 +1,17 @@
 """Public wrappers around the attention kernels.
 
-Port of ``repro/kernels/ops.py`` for the dense slice: layout flattening
+Port of ``repro/kernels/ops.py`` for the dense and paged slices: layout
+flattening
 (B, H, N, E) -> (B·H, N, E), GQA grouping (query row ``bh`` reads kv
 head ``bh // group``), padding to the kernels' block multiples with the
 padded kv columns masked through ``kv_len``, and method dispatch through
 the shared-memory policy of ``core/policy.py``. Padding follows what the
 port's kernels need: Q rows to a multiple of ``blk_q`` (itself a
-multiple of 8) and KV rows to the 64-row tile. The decode path pads
-nothing: the kernel reads only rows below ``kv_len``.
+multiple of 8) and KV rows to the 64-row tile. The decode paths pad
+nothing: the kernels read only rows below ``kv_len``. The paged wrappers
+group the query heads under their kv head (decode) or pad a prompt
+chunk's rows to the Q block (prefill); the TPU's padding of the GQA group
+to the 8-row sublane tile does not carry over.
 """
 
 from __future__ import annotations
@@ -23,17 +27,21 @@ from repro_torch.core.policy import (
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mas_attention as _mas
+from repro_torch.kernels import paged_decode_attention as _pdec
+from repro_torch.kernels import paged_prefill_attention as _ppre
 
 METHODS = ("auto", "mas_resident", "mas_streamed", "flash")
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of every CUDA kernel since the last reset, by kernel."""
-    return {**_mas.LAUNCHES, **_flash.LAUNCHES, **_decode.LAUNCHES}
+    return {**_mas.LAUNCHES, **_flash.LAUNCHES, **_decode.LAUNCHES,
+            **_pdec.LAUNCHES, **_ppre.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_mas.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES):
+    for counts in (_mas.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES,
+                   _pdec.LAUNCHES, _ppre.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -118,3 +126,46 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         qg, kf, vf, lens, sm_scale=sm_scale, max_kv_len=max_kv_len,
         k_scale=k_scale, v_scale=v_scale)
     return of.reshape(b, hq, e)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
+                           sm_scale: float | None = None, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
+    """Single-token decode against a block-table paged KV cache.
+
+    q: (B, Hq, E); pools: (Hkv, P, page, E); page_table: (B, max_pages)
+    and kv_lens: (B,), int32 tensors on q's device.
+    """
+    b, hq, e = q.shape
+    hkv = k_pages.shape[0]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    qg = q.reshape(b, hkv, hq // hkv, e).contiguous()
+    of = _pdec.paged_decode_attention_flat(
+        qg, k_pages, v_pages, page_table, kv_lens, sm_scale=sm_scale,
+        k_scales=k_scales, v_scales=v_scales)
+    return of.reshape(b, hq, e)
+
+
+def paged_prefill_blk_q(chunk: int) -> int:
+    """Q rows a block of B5 takes for a prompt chunk of ``chunk`` rows."""
+    return min(DEFAULT_BLK_Q, -(-chunk // MIN_BLK_Q) * MIN_BLK_Q)
+
+
+def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset: int,
+                            kv_len: int, *, sm_scale: float | None = None,
+                            k_scales=None, v_scales=None) -> torch.Tensor:
+    """One prompt chunk attending to all prior context in a paged cache.
+
+    q: (Hq, chunk, E) for one sequence; pools: (Hkv, P, page, E);
+    page_table: (max_pages,) int32 on q's device. The chunk's own K/V
+    must already be in its pages. Pad rows past ``kv_len - q_offset``
+    return values the caller slices off.
+    """
+    hq, chunk, e = q.shape
+    bq = paged_prefill_blk_q(chunk)
+    qf = _pad_rows(q, bq)
+    of = _ppre.paged_prefill_attention_flat(
+        qf, k_pages, v_pages, page_table, q_offset=q_offset, kv_len=kv_len,
+        blk_q=bq, sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
+    return of[:, :chunk]

@@ -1,0 +1,125 @@
+"""Split-KV one-token decode over a paged KV pool: kernel B6.
+
+Port of ``repro/kernels/paged_decode_attention.py``
+(``paged_decode_attention_flat``), the bf16/fp32 pool branch. The KV
+cache lives in fixed-size pages of a global pool (Hkv, P, page, E); a
+page table (B, max_pages) maps each sequence's logical page to a
+physical one, and ``kv_lens`` (B,) holds each sequence's live tokens.
+For each (b, kv head) the G query heads of its GQA group attend to the
+sequence's first ``kv_lens[b]`` logical rows.
+
+The CUDA kernel (``csrc/paged_decode_attention.cu``) reads the table and
+``kv_lens`` from device memory itself, so a decode step needs no host
+sync. It cuts the logical rows into 64-row tiles, splits the tiles over
+``n_split`` blocks per (b, kv head) as B4 does (B·Hkv blocks alone would
+leave most SMs idle), gathers each live tile through the table, stops at
+the first tile at or past ``kv_len`` (dead pages are never loaded) and
+merges the partial (m, l, acc) in a second pass. ``kv_len == 0`` gives
+zeros. The TPU's padding of the GQA group to 8 rows does not carry over.
+
+The int8 branch of the TPU kernel (``k_scales``/``v_scales``) is not
+ported yet: the wrapper raises ``NotImplementedError`` when given scales.
+
+``paged_decode_attention_plain`` computes the same function in PyTorch:
+the dense gather of the table's pages followed by B4's plain version,
+which has the kernel's split, tile order, masking and merge. The wrapper
+runs it for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import gather_pages
+from repro_torch.kernels.decode_attention import (
+    MAX_E,
+    MAX_G,
+    decode_attention_plain,
+    split_plan,
+)
+
+# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
+LAUNCHES = {"paged_decode": 0}
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_lens, *,
+                                 n_split: int, tiles_per_split: int,
+                                 sm_scale: float | None = None
+                                 ) -> torch.Tensor:
+    """q: (B, Hkv, G, E); pools: (Hkv, P, page, E); page_table:
+    (B, max_pages); kv_lens: (B,). Returns (B, Hkv, G, E)."""
+    b, hkv, g, e = q.shape
+    k = gather_pages(k_pages, page_table)           # (B, Hkv, S, E)
+    v = gather_pages(v_pages, page_table)
+    s_len = k.shape[2]
+    lens = kv_lens.to(q.device).repeat_interleave(hkv)
+    o = decode_attention_plain(
+        q.reshape(b * hkv, g, e), k.reshape(b * hkv, s_len, e),
+        v.reshape(b * hkv, s_len, e), lens, n_split=n_split,
+        tiles_per_split=tiles_per_split, sm_scale=sm_scale)
+    return o.reshape(b, hkv, g, e)
+
+
+def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
+                                sm_scale: float | None = None,
+                                k_scales=None, v_scales=None
+                                ) -> torch.Tensor:
+    """One-token decode: q (B, Hkv, G, E) against the page pools.
+
+    ``page_table`` (B, max_pages) and ``kv_lens`` (B,) are int32 tensors on
+    q's device. The split is planned over the table's capacity
+    (max_pages·page rows), so no host sync is needed; blocks past a
+    sequence's ``kv_len`` exit at once. A CUDA tensor launches B6; a CPU
+    tensor runs the plain version.
+    """
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "the int8 branch of paged decode attention is not ported yet")
+    b, hkv, g, e = q.shape
+    hkv_p, n_pages, page_size, e_p = k_pages.shape
+    if hkv_p != hkv or e_p != e or v_pages.shape != k_pages.shape:
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != b:
+        raise ValueError(f"page_table must be ({b}, max_pages), got "
+                         f"{tuple(page_table.shape)}")
+    if kv_lens.shape != (b,):
+        raise ValueError(f"kv_lens must be ({b},), got {tuple(kv_lens.shape)}")
+    max_pages = page_table.shape[1]
+    n_split, tps = split_plan(b * hkv, max_pages * page_size)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, page_table, kv_lens, n_split=n_split,
+            tiles_per_split=tps, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if g > MAX_G or e > MAX_E or e % 4:
+        raise ValueError(f"unsupported decode shape: G={g}, E={e}")
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous() and page_table.is_contiguous()):
+        raise ValueError("q, the pools and page_table must be contiguous")
+    if (k_pages.dtype != q.dtype or v_pages.dtype != q.dtype
+            or k_pages.device != q.device or v_pages.device != q.device):
+        raise ValueError("q and the pools must share one dtype and device")
+    for name, t in (("page_table", page_table), ("kv_lens", kv_lens)):
+        if t.dtype != torch.int32 or t.device != q.device:
+            raise ValueError(f"{name} must be int32 on q's device")
+    lib = _build.library("paged_decode_attention")
+    o = torch.empty_like(q)
+    m_part = torch.empty((b * hkv, n_split, g), dtype=torch.float32,
+                         device=q.device)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((b * hkv, n_split, g, e), dtype=torch.float32,
+                           device=q.device)
+    scale = (e ** -0.5) if sm_scale is None else sm_scale
+    err = lib.paged_decode_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), kv_lens.data_ptr(), o.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), b, hkv, g,
+        n_pages, page_size, max_pages, e, n_split, tps, float(scale),
+        _build.dtype_code(q.dtype), _build.stream_handle(q.device))
+    _build.check(lib, err, "paged_decode_attention_launch")
+    LAUNCHES["paged_decode"] += 1
+    return o

@@ -1,0 +1,120 @@
+"""Chunked prefill attention over a paged KV pool: kernel B5.
+
+Port of ``repro/kernels/paged_prefill_attention.py``
+(``paged_prefill_attention_flat``), the bf16/fp32 pool branch. One
+sequence's prompt chunk, q (Hq, chunk, E) with row ``i`` at absolute
+position ``q_offset + i``, attends causally to the sequence's first
+``kv_len`` logical rows: all earlier context and the chunk's own rows,
+which the caller writes into their pages just before the call. The rows
+are read from the pool (Hkv, P, page, E) through the sequence's page
+table (max_pages,); query head ``h`` reads kv head ``h // group``.
+
+The TPU kernel holds a (chunk, E) fp32 accumulator per head on chip,
+which at chunk 512 is more than a CUDA block's shared memory. So the
+CUDA kernel (``csrc/paged_prefill_attention.cu``) runs one block per
+(query head, block of ``blk_q`` rows), walking 64-row tiles of logical
+kv rows with an online softmax in the TPU kernel's three bands: tiles
+wholly visible to the block run unmasked, tiles that straddle the causal
+diagonal or the ``kv_len`` tail take the fused select of
+``three_band_select``, dead tiles are never loaded. ``q_offset`` and
+``kv_len`` are launch integers. Pad rows at or past ``kv_len`` see every
+live key and return values the caller drops.
+
+The int8 branch of the TPU kernel (``k_scales``/``v_scales``) is not
+ported yet: the wrapper raises ``NotImplementedError`` when given scales.
+
+``paged_prefill_attention_plain`` computes the same function in PyTorch:
+the live tiles gathered through the table, then B3's plain version with
+its tile order and masks (a dead tile it would visit is left out, as the
+kernel leaves it out). The wrapper runs it for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.policy import KV_TILE
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import check_prefill_tile, gather_pages
+from repro_torch.kernels.flash_attention import flash_attention_plain
+
+# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
+LAUNCHES = {"paged_prefill": 0}
+
+
+def live_tiles(kv_len: int, blk_kv: int = KV_TILE) -> int:
+    """64-row tiles of logical kv rows that hold a live row."""
+    return -(-max(kv_len, 0) // blk_kv)
+
+
+def paged_prefill_attention_plain(q, k_pages, v_pages, page_table, *,
+                                  q_offset: int, kv_len: int, blk_q: int,
+                                  blk_kv: int = KV_TILE,
+                                  sm_scale: float | None = None
+                                  ) -> torch.Tensor:
+    """q: (Hq, Nq, E), Nq % blk_q == 0; pools: (Hkv, P, page, E);
+    page_table: (max_pages,). Returns (Hq, Nq, E)."""
+    hq, nq, e = q.shape
+    n = live_tiles(kv_len, blk_kv) * blk_kv
+    if n == 0:
+        return torch.zeros_like(q)
+    k = gather_pages(k_pages, page_table)           # (Hkv, S, E)
+    v = gather_pages(v_pages, page_table)
+    pad = max(0, n - k.shape[1])
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad))[:, :n]
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))[:, :n]
+    return flash_attention_plain(q, k, v, blk_q=blk_q, blk_kv=blk_kv,
+                                 causal=True, sm_scale=sm_scale,
+                                 q_offset=q_offset,
+                                 kv_len=kv_len if kv_len < n else None)
+
+
+def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, *,
+                                 q_offset: int, kv_len: int, blk_q: int,
+                                 sm_scale: float | None = None,
+                                 k_scales=None, v_scales=None
+                                 ) -> torch.Tensor:
+    """One prompt chunk, q (Hq, Nq, E) with Nq % blk_q == 0, against the
+    page pools through ``page_table`` (max_pages,), an int32 tensor on q's
+    device covering at least ``kv_len`` rows. A CUDA tensor launches B5;
+    a CPU tensor runs the plain version."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "the int8 branch of paged prefill attention is not ported yet")
+    hq, nq, e = q.shape
+    hkv, n_pages, page_size, e_p = k_pages.shape
+    if hq % hkv or e_p != e or v_pages.shape != k_pages.shape:
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if nq % blk_q:
+        raise ValueError(f"{nq} query rows do not tile by {blk_q}")
+    if page_table.dim() != 1 or page_table.shape[0] * page_size < kv_len:
+        raise ValueError(f"page_table {tuple(page_table.shape)} does not "
+                         f"cover kv_len {kv_len}")
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(
+            q, k_pages, v_pages, page_table, q_offset=q_offset,
+            kv_len=kv_len, blk_q=blk_q, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    check_prefill_tile(blk_q, e)
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous() and page_table.is_contiguous()):
+        raise ValueError("q, the pools and page_table must be contiguous")
+    if (k_pages.dtype != q.dtype or v_pages.dtype != q.dtype
+            or k_pages.device != q.device or v_pages.device != q.device):
+        raise ValueError("q and the pools must share one dtype and device")
+    if page_table.dtype != torch.int32 or page_table.device != q.device:
+        raise ValueError("page_table must be int32 on q's device")
+    lib = _build.library("paged_prefill_attention")
+    o = torch.empty_like(q)
+    scale = (e ** -0.5) if sm_scale is None else sm_scale
+    err = lib.paged_prefill_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), o.data_ptr(), hq, nq, e, hq // hkv, blk_q,
+        n_pages, page_size, int(q_offset), int(kv_len), float(scale),
+        _build.dtype_code(q.dtype), _build.stream_handle(q.device))
+    _build.check(lib, err, "paged_prefill_attention_launch")
+    LAUNCHES["paged_prefill"] += 1
+    return o

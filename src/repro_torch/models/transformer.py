@@ -1,12 +1,20 @@
-"""The dense GQA decoder: init, full-sequence forward, prefill and decode.
+"""The dense GQA decoder: init, forward, prefill and decode on a dense or
+a paged KV cache.
 
-Port of the dense path of ``repro/models/transformer.py``. Parameters are
+Port of the dense and paged paths of ``repro/models/transformer.py``.
+Parameters are
 a plain dict of tensors with one entry per layer in ``params["layers"]``
 (the reference stacks them over a scanned axis); the layers run in a
 Python loop. The dense KV cache is ``{"layers": [{"k", "v"}, ...]}`` with
 (B, Hkv, max_len, E) tensors; unlike the reference's functional update,
 ``prefill`` fills a fresh cache and ``decode_step`` writes its row into
 the cache in place, which saves a copy of the cache per step.
+
+The paged cache is ``{"layers": [{"k", "v"}, ...]}`` with one
+(Hkv, P, page, E) pool pair per layer, shared by every sequence through
+its page table (one row per sequence, the same for every layer).
+``prefill_chunk`` writes one prompt chunk's K/V into its pages and
+``paged_decode_step`` writes each sequence's new row, both in place.
 
 The Q/K/V/O, MLP and unembedding projections are ``torch.matmul``, as
 the reference leaves them to XLA; attention goes through
@@ -130,6 +138,61 @@ def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int):
     return o.reshape(x.shape[0], 1, -1) @ params["wo"].to(x.dtype)
 
 
+def attn_paged_decode(params, x, cfg: ArchConfig, *, k_pages, v_pages,
+                      page_table, positions):
+    """One-token self-attention against a paged (block-table) cache.
+
+    x: (B, 1, D); pools: (Hkv, P, page, E); page_table: (B, max_pages)
+    int32; positions: (B,) int32 per-sequence absolute positions, so one
+    batch decodes sequences of different ages. Writes each sequence's new
+    K/V row at its position in place, then attends with
+    ``kv_len = position + 1``. Idle slots (a table row of scratch page 0,
+    position 0) all write row 0 of the scratch page; no live sequence
+    reads it, so the order in which those writes land does not matter.
+    """
+    b = x.shape[0]
+    page = k_pages.shape[2]
+    q, k, v = _qkv(params, x, cfg, positions[:, None, None])
+    pos = positions.long()
+    page_ids = page_table[torch.arange(b, device=x.device), pos // page]
+    slots = pos % page
+    k_pages[:, page_ids.long(), slots] = k[:, :, 0].transpose(0, 1)
+    v_pages[:, page_ids.long(), slots] = v[:, :, 0].transpose(0, 1)
+    o = attn_mod.paged_decode_attention(q[:, :, 0], k_pages, v_pages,
+                                        page_table, positions + 1,
+                                        impl=cfg.attn_impl)
+    return o.reshape(b, 1, -1) @ params["wo"].to(x.dtype)
+
+
+def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
+                       page_table, chunk_page_ids, q_offset: int,
+                       kv_len: int):
+    """One prompt chunk of self-attention against a paged cache.
+
+    x: (1, chunk, D), rows at absolute positions ``q_offset + i``; pools:
+    (Hkv, P, page, E); page_table: (max_pages,) for the one sequence;
+    chunk_page_ids: (chunk // page,) physical pages of the chunk's span
+    (entries past the allocation point at the scratch page);
+    ``kv_len`` = q_offset + live rows. The chunk's K/V rows are written
+    into their pages first, rows past ``kv_len`` zeroed, then the chunk's
+    Q attends through the page table and sees prior context and its own
+    keys alike (the write is enqueued on the same stream before the
+    kernel). Returns (1, chunk, D).
+    """
+    chunk = x.shape[1]
+    hkv, _, page, e = k_pages.shape
+    positions = q_offset + torch.arange(chunk, device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions)
+    live = (positions < kv_len).view(1, chunk, 1)
+    ids = chunk_page_ids.long()
+    for pages, rows in ((k_pages, k[0]), (v_pages, v[0])):
+        rows = torch.where(live, rows, 0).reshape(hkv, chunk // page, page, e)
+        pages[:, ids] = rows.to(pages.dtype)
+    o = attn_mod.paged_prefill_attention(q[0], k_pages, v_pages, page_table,
+                                         q_offset, kv_len, impl=cfg.attn_impl)
+    return _merge_heads(o[None]) @ params["wo"].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
@@ -195,3 +258,69 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
                             cache_v=blk["v"], pos=pos)
         x = x + mlp(layer["ffn"], x, cfg)
     return _unembed(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# paged cache
+# ---------------------------------------------------------------------------
+
+
+def _check_paged_support(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            "the paged cache layout supports dense rope decoder stacks only "
+            f"(got {cfg.name})")
+
+
+def make_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
+                     device="cuda") -> dict:
+    """Global page pools, one (Hkv, P, page, E) pair per layer. Page 0 is
+    the scratch page of the cache manager; the page table is not part of
+    the cache, it is an argument of every paged step."""
+    _check_paged_support(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_kv_heads, num_pages, page_size, cfg.hd)
+    return {"layers": [
+        {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+         "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+        for _ in range(cfg.num_layers)
+    ]}
+
+
+def paged_decode_step(params, cfg: ArchConfig, token, cache, page_table,
+                      positions):
+    """token: (B, 1) int; page_table: (B, max_pages) int32; positions:
+    (B,) int32 per sequence -> (logits (B, 1, V), cache). The pools are
+    updated in place and returned."""
+    _check_paged_support(cfg)
+    x = _embed(params, token, cfg)
+    for layer, blk in zip(params["layers"], cache["layers"]):
+        x = x + attn_paged_decode(layer["attn"], x, cfg, k_pages=blk["k"],
+                                  v_pages=blk["v"], page_table=page_table,
+                                  positions=positions)
+        x = x + mlp(layer["ffn"], x, cfg)
+    return _unembed(params, x, cfg), cache
+
+
+def prefill_chunk(params, cfg: ArchConfig, tokens, cache, page_table,
+                  chunk_page_ids, q_offset: int, chunk_len: int):
+    """One chunk of chunked paged prefill.
+
+    tokens: (1, chunk) int, rows at absolute positions ``q_offset + i``, a
+    ragged last chunk padded past ``chunk_len``; page_table: (max_pages,)
+    int32 for the one sequence; chunk_page_ids: (chunk // page,) physical
+    pages of the chunk's span. Writes the chunk's K/V into the pools in
+    place and returns ``(last_logits (1, V), cache)`` for the chunk's last
+    live row: on the final chunk, the logits of the first generated token.
+    """
+    _check_paged_support(cfg)
+    x = _embed(params, tokens, cfg)
+    kv_len = q_offset + chunk_len
+    for layer, blk in zip(params["layers"], cache["layers"]):
+        x = x + attn_paged_prefill(
+            layer["attn"], x, cfg, k_pages=blk["k"], v_pages=blk["v"],
+            page_table=page_table, chunk_page_ids=chunk_page_ids,
+            q_offset=q_offset, kv_len=kv_len)
+        x = x + mlp(layer["ffn"], x, cfg)
+    last = x[:, chunk_len - 1:chunk_len]
+    return _unembed(params, last, cfg)[:, 0], cache

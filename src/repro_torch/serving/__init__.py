@@ -1,5 +1,12 @@
-from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.faults import NO_FAULTS, FaultInjector
+from repro_torch.serving.engine import ContinuousBatchingEngine, ServingEngine
+from repro_torch.serving.faults import (
+    NO_FAULTS,
+    FaultInjector,
+    PoolAuditError,
+    PoolAuditor,
+    ScriptedFaults,
+    SeededFaults,
+)
 from repro_torch.serving.lifecycle import (
     LifecycleError,
     Request,
@@ -8,9 +15,20 @@ from repro_torch.serving.lifecycle import (
     TERMINAL_STATES,
     validate_request,
 )
+from repro_torch.serving.paged_cache import (
+    SCRATCH_PAGE,
+    PageAccountingError,
+    PagedKVCacheManager,
+    PagePoolExhausted,
+    PoolConfigError,
+    page_footprint_bytes,
+)
 
 __all__ = [
-    "ServingEngine", "FaultInjector", "NO_FAULTS", "LifecycleError",
-    "Request", "RequestRecord", "RequestState", "TERMINAL_STATES",
-    "validate_request",
+    "ServingEngine", "ContinuousBatchingEngine", "FaultInjector",
+    "NO_FAULTS", "ScriptedFaults", "SeededFaults", "PoolAuditor",
+    "PoolAuditError", "LifecycleError", "Request", "RequestRecord",
+    "RequestState", "TERMINAL_STATES", "validate_request", "SCRATCH_PAGE",
+    "PagedKVCacheManager", "PagePoolExhausted", "PageAccountingError",
+    "PoolConfigError", "page_footprint_bytes",
 ]

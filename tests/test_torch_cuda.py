@@ -7,8 +7,9 @@ only PyTorch:
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Each kernel runs in fp32 against its plain version on the same CUDA
-tensors (atol 3e-5: fp32 sums in another order), and the wave engine
-serves a smoke model on the card with the same tokens as on the CPU.
+tensors (atol 3e-5: fp32 sums in another order), and the wave and
+continuous engines serve a smoke model on the card with the same tokens
+as on the CPU.
 """
 
 from __future__ import annotations
@@ -24,8 +25,16 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fl
 from repro_torch.kernels import mas_attention as mas
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_decode_attention as pdec
+from repro_torch.kernels import paged_prefill_attention as ppre
 from repro_torch.models.api import build_model
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import (
+    ContinuousBatchingEngine,
+    PoolAuditor,
+    Request,
+    ScriptedFaults,
+    ServingEngine,
+)
 
 FP32_ATOL = 3e-5
 
@@ -82,7 +91,45 @@ def test_decode_kernel_matches_plain(cuda):
     assert float((got - want).abs().max()) <= FP32_ATOL
 
 
-def test_engine_on_the_card_matches_the_cpu(cuda):
+def _paged_pools(gen, hkv=2, n_pages=64, page=16, e=64):
+    """Pools and a shuffled (6, 8) page table over them."""
+    k, v = _rand(gen, hkv, n_pages, page, e), _rand(gen, hkv, n_pages, page, e)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=gen.device) + 1
+    return k, v, perm[:6 * 8].view(6, 8).to(torch.int32).contiguous()
+
+
+def test_paged_decode_kernel_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k, v, table = _paged_pools(g)
+    lens = torch.tensor([0, 1, 9, 16, 65, 128], dtype=torch.int32,
+                        device=cuda)
+    q = _rand(g, 6, 2, 2, 64)
+    got = pdec.paged_decode_attention_flat(q, k, v, table, lens)
+    n_split, tps = dec.split_plan(12, 8 * 16)
+    want = pdec.paged_decode_attention_plain(q, k, v, table, lens,
+                                             n_split=n_split,
+                                             tiles_per_split=tps)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FP32_ATOL
+    assert float(got[0].abs().max()) == 0.0       # kv_len 0 gives zeros
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("q0,kv_len,chunk", [(0, 64, 64), (64, 121, 64),
+                                             (32, 33, 32), (0, 0, 32)])
+def test_paged_prefill_kernel_matches_plain(cuda, group, q0, kv_len, chunk):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    k, v, table = _paged_pools(g)
+    q = _rand(g, 2 * group, chunk, 64)
+    got = ppre.paged_prefill_attention_flat(q, k, v, table[2], q_offset=q0,
+                                            kv_len=kv_len, blk_q=32)
+    want = ppre.paged_prefill_attention_plain(q, k, v, table[2], q_offset=q0,
+                                              kv_len=kv_len, blk_q=32)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FP32_ATOL
+
+
+def _smoke_on_both(cuda):
     cfg = dataclasses.replace(get_smoke("internlm2-1.8b"), attn_impl="kernel",
                               compute_dtype=torch.float32)
     model = build_model(cfg)
@@ -92,6 +139,33 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
                   "layers": [{blk: {k: t.to(cuda) for k, t in p.items()}
                               for blk, p in layer.items()}
                              for layer in cpu_params["layers"]]}
+    return cfg, model, cpu_params, gpu_params
+
+
+def test_continuous_engine_on_the_card_matches_the_cpu(cuda):
+    cfg, model, cpu_params, gpu_params = _smoke_on_both(cuda)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab_size, size=(n,))
+                    .astype(np.int32), max_new_tokens=6, eos_id=-1)
+            for i, n in enumerate([7, 30, 90, 5])]
+    kw = dict(max_len=128, batch_size=2, page_size=16, chunk_size=32)
+    ops.reset_launch_counts()
+    eng = ContinuousBatchingEngine(model, gpu_params, device=cuda,
+                                   decode_reserve_frac=0.5, **kw)
+    eng.injector = ScriptedFaults(exhaust_at_appends=frozenset({3}))
+    eng.auditor = PoolAuditor()
+    on_gpu = eng.serve(reqs)
+    counts = ops.launch_counts()
+    on_cpu = ContinuousBatchingEngine(model, cpu_params, device="cpu",
+                                      **kw).serve(reqs)
+    for rid in on_cpu:
+        np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
+    assert eng.preemption_count >= 1
+    assert counts["paged_prefill"] > 0 and counts["paged_decode"] > 0
+
+
+def test_engine_on_the_card_matches_the_cpu(cuda):
+    cfg, model, cpu_params, gpu_params = _smoke_on_both(cuda)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab_size, size=(n,))
                     .astype(np.int32), max_new_tokens=6, eos_id=-1)

@@ -76,16 +76,41 @@ class Pair:
     tparams: dict
 
 
-def model_pair(arch: str, seed: int = 0) -> Pair:
+def _vary_norms(tree, seed: int, std: float):
+    """``tree`` with every norm scale drawn from N(0, std²) by numpy.
+
+    The reference's init sets norm scales to 0, under which a smoke
+    model's greedy output repeats one token; random scales make the
+    token streams vary, so token-for-token comparisons mean something.
+    """
+    rng = np.random.default_rng(seed)
+
+    def visit(node, key=""):
+        if isinstance(node, dict):
+            return {k: visit(v, k) for k, v in node.items()}
+        if key.endswith("norm"):
+            return jnp.asarray(rng.standard_normal(node.shape) * std,
+                               node.dtype)
+        return node
+
+    return visit(tree)
+
+
+def model_pair(arch: str, seed: int = 0, *, jax_impl: str = "pallas",
+               norm_std: float | None = None) -> Pair:
     """fp32 smoke models: the reference with its Pallas kernels
-    (interpret mode), the port with its kernels' plain versions on the
-    CPU, both from the reference's init."""
-    jcfg = dataclasses.replace(jax_get_smoke(arch), attn_impl="pallas",
+    (interpret mode; ``jax_impl`` picks another of its attention
+    backends), the port with its kernels' plain versions on the CPU, both
+    from the reference's init (with random norm scales when ``norm_std``
+    is given)."""
+    jcfg = dataclasses.replace(jax_get_smoke(arch), attn_impl=jax_impl,
                                compute_dtype=jnp.float32)
     tcfg = dataclasses.replace(torch_get_smoke(arch), attn_impl="kernel",
                                compute_dtype=torch.float32)
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(seed))
+    if norm_std is not None:
+        jparams = _vary_norms(jparams, seed, norm_std)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
     return Pair(jcfg, jmodel, jparams, tcfg, torch_build_model(tcfg), tparams)

@@ -295,5 +295,12 @@ def test_launch_counts_only_count_kernel_launches():
     q, k, v = _qkv((1, 4, 2, 32, 32, 16), seed=9)
     tops.attention(to_torch(q), to_torch(k), to_torch(v), causal=True)
     tops.decode_attention(to_torch(q[:, :, 0]), to_torch(k), to_torch(v), 9)
+    pool = to_torch(k).reshape(2, 8, 4, 16)
+    table = torch.arange(8, dtype=torch.int32)
+    lens = torch.tensor([9], dtype=torch.int32)
+    tops.paged_decode_attention(to_torch(q[:, :, 0]), pool, pool,
+                                table[None], lens)
+    tops.paged_prefill_attention(to_torch(q[0]), pool, pool, table, 0, 32)
     assert tops.launch_counts() == {"mas_resident": 0, "mas_streamed": 0,
-                                    "flash": 0, "decode": 0}
+                                    "flash": 0, "decode": 0,
+                                    "paged_decode": 0, "paged_prefill": 0}

@@ -1,0 +1,260 @@
+"""The port's paged attention kernels (B5, B6) against the JAX Pallas kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; the
+reference runs its Pallas kernels in interpret mode and, separately, its
+XLA twins in ``models/attention.py``. Same inputs, made from a seed with
+numpy: shuffled page tables, dead pages holding large finite garbage that
+only masking keeps out, ragged ``kv_lens`` including 0, a ``q_offset``
+mid-prompt and ragged last chunks, GQA groups 1 and 2. Tolerance atol
+3e-5 in fp32 (sums in another order). ``three_band_select`` must equal
+the reference's helper exactly.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import common as jcommon
+from repro.kernels import ops as jops
+from repro.models import attention as jattn
+from repro_torch.kernels import common as tcommon
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_decode_attention as tpdec
+from repro_torch.kernels import paged_prefill_attention as tppre
+from repro_torch.models import attention as tattn
+from test_torch_harness import FP32_ATOL, assert_close, rand, to_jax, to_torch
+
+HKV, E = 2, 16
+N_PAGES = 24
+
+
+def _pools(seed: int, page: int):
+    """K/V pools whose every page is random; pages no sequence owns get
+    garbage 100x larger, so a dead page that leaks into a sum shows."""
+    k = rand(seed, (HKV, N_PAGES, page, E))
+    v = rand(seed + 1, (HKV, N_PAGES, page, E))
+    return k, v
+
+
+def _tables(seed: int, batch: int, max_pages: int, lens, page: int):
+    """Shuffled distinct pages for the live span of each sequence; the
+    entries past it point at other, garbage-filled pages."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(np.arange(1, N_PAGES))
+    table = np.zeros((batch, max_pages), np.int32)
+    used = 0
+    for b, n in enumerate(lens):
+        live = -(-n // page)
+        table[b, :live] = perm[used:used + live]
+        used += live
+    dead = perm[used:]
+    for b, n in enumerate(lens):
+        live = -(-n // page)
+        table[b, live:] = np.resize(dead if len(dead) else [0],
+                                    max_pages - live)
+    return table, dead
+
+
+def _spoil(pools, pages):
+    for pool in pools:
+        pool[:, pages] *= 100.0
+
+
+# ---------------------------------------------------------------------------
+# three_band_select: exact
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q0,col0,kv_len,rows_per_pos", [
+    (0, 0, 8, 1), (3, 2, 6, 1), (5, 0, 20, 2), (16, 12, 19, 4),
+    (7, 8, 7, 1), (0, 4, 0, 2),
+])
+def test_three_band_select_matches_reference(q0, col0, kv_len,
+                                             rows_per_pos):
+    s = rand(q0 + col0, (8, 8))
+    want = np.asarray(jcommon.three_band_select(
+        to_jax(s), jnp.int32(q0), jnp.int32(col0), jnp.int32(kv_len),
+        rows_per_pos=rows_per_pos))
+    got = tcommon.three_band_select(to_torch(s), q0, col0, kv_len,
+                                    rows_per_pos=rows_per_pos).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_gather_pages_follows_the_table():
+    k, _ = _pools(0, 4)
+    table = np.array([[3, 1], [2, 5]], np.int32)
+    got = tcommon.gather_pages(to_torch(k), torch.from_numpy(table))
+    assert got.shape == (2, HKV, 8, E)
+    np.testing.assert_array_equal(got[1, :, 4:].numpy(), k[:, 5])
+    one = tcommon.gather_pages(to_torch(k), torch.from_numpy(table[0]))
+    np.testing.assert_array_equal(one.numpy(), got[0].numpy())
+
+
+# ---------------------------------------------------------------------------
+# B6: paged decode
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [  # (group, page, max_pages, kv_lens)
+    (2, 4, 6, [0, 1, 7, 24]),
+    (1, 4, 6, [5, 16, 0, 3]),
+    (2, 8, 3, [9, 24, 1, 17]),
+    (2, 4, 20, [70, 1, 0, 2]),
+]
+
+
+@pytest.mark.parametrize("group,page,max_pages,lens", DECODE_CASES)
+def test_paged_decode_matches_pallas_and_twin(group, page, max_pages, lens):
+    seed = page * 31 + max_pages + group
+    b = len(lens)
+    k, v = _pools(seed, page)
+    table, dead = _tables(seed, b, max_pages, lens, page)
+    _spoil((k, v), dead)
+    q = rand(seed + 2, (b, HKV * group, E))
+    kv = np.asarray(lens, np.int32)
+    want = jops.paged_decode_attention(
+        to_jax(q), to_jax(k), to_jax(v), jnp.asarray(table), jnp.asarray(kv),
+        interpret=True)
+    got = tops.paged_decode_attention(
+        to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(table),
+        torch.from_numpy(kv))
+    assert got.shape == tuple(want.shape)
+    assert_close(got, want, FP32_ATOL)
+    # the XLA twin has no l == 0 guard: a kv_len 0 row is the mean of its
+    # gathered rows there, zeros in the kernels, so compare live rows only
+    twin = jattn.paged_decode_attention(
+        to_jax(q), to_jax(k), to_jax(v), jnp.asarray(table), jnp.asarray(kv),
+        impl="xla")
+    plain = tattn.paged_decode_attention(
+        to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(table),
+        torch.from_numpy(kv), impl="plain")
+    assert_close(plain, twin, FP32_ATOL)
+    live = kv > 0
+    assert_close(got[torch.from_numpy(live)], np.asarray(twin)[live],
+                 FP32_ATOL)
+    if not live.all():
+        assert float(got[torch.from_numpy(~live)].abs().max()) == 0.0
+
+
+def test_paged_decode_split_covers_the_table_capacity():
+    # 32 (b, kv head) rows over 80 pages of 16: the split is planned over
+    # the 1280 rows of the table without reading kv_lens
+    n_split, tps = tpdec.split_plan(4 * 8, 80 * 16)
+    assert n_split * tps * 64 >= 80 * 16 > (n_split - 1) * tps * 64
+    # and the merge of three one-tile splits equals one three-tile split
+    k, v = _pools(3, 8)
+    table = np.random.default_rng(3).integers(1, N_PAGES, size=(2, 20),
+                                              dtype=np.int32)
+    q = rand(4, (2, HKV, 2, E))
+    lens = torch.tensor([70, 150], dtype=torch.int32)
+    args = (to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(table),
+            lens)
+    whole = tpdec.paged_decode_attention_plain(*args, n_split=1,
+                                               tiles_per_split=3)
+    split = tpdec.paged_decode_attention_plain(*args, n_split=3,
+                                               tiles_per_split=1)
+    assert_close(split, whole, FP32_ATOL)
+    want = tattn.paged_decode_attention(
+        to_torch(q).reshape(2, HKV * 2, E), *args[1:],
+        impl="plain").reshape(2, HKV, 2, E)
+    assert_close(split, want, FP32_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# B5: paged prefill
+# ---------------------------------------------------------------------------
+
+PREFILL_CASES = [  # (group, page, chunk, q_offset, kv_len)
+    (2, 4, 8, 0, 8),       # first chunk, full
+    (2, 4, 8, 8, 13),      # later chunk, ragged
+    (1, 4, 8, 12, 20),     # mid-prompt, page-unaligned offset
+    (2, 8, 16, 0, 5),      # a short prompt in one ragged chunk
+    (2, 4, 16, 64, 80),    # past the first 64-row tile
+    (1, 8, 8, 40, 41),     # one live row
+    (2, 4, 8, 0, 0),       # nothing live
+]
+
+
+@pytest.mark.parametrize("group,page,chunk,q0,kv_len", PREFILL_CASES)
+def test_paged_prefill_matches_pallas_and_twin(group, page, chunk, q0,
+                                              kv_len):
+    seed = page + chunk + q0 + kv_len + group
+    max_pages = -(-(q0 + chunk) // page) + 1
+    k, v = _pools(seed, page)
+    table, dead = _tables(seed, 1, max_pages, [kv_len], page)
+    _spoil((k, v), dead)
+    q = rand(seed + 2, (HKV * group, chunk, E))
+    want = jops.paged_prefill_attention(
+        to_jax(q), to_jax(k), to_jax(v), jnp.asarray(table[0]),
+        jnp.int32(q0), jnp.int32(kv_len), interpret=True)
+    got = tops.paged_prefill_attention(
+        to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(table[0]),
+        q0, kv_len)
+    assert got.shape == tuple(want.shape)
+    # pad rows at or past kv_len too: both see every live key there
+    assert_close(got, want, FP32_ATOL)
+    if kv_len == 0:
+        return  # the twin's softmax over nothing is not defined alike
+    twin = jattn.paged_prefill_attention(
+        to_jax(q), to_jax(k), to_jax(v), jnp.asarray(table[0]),
+        jnp.int32(q0), jnp.int32(kv_len), impl="xla")
+    plain = tattn.paged_prefill_attention(
+        to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(table[0]),
+        q0, kv_len, impl="plain")
+    assert_close(plain, twin, FP32_ATOL)
+    live = kv_len - q0
+    assert_close(got[:, :live], np.asarray(twin)[:, :live], FP32_ATOL)
+
+
+def test_paged_prefill_plain_reads_live_tiles_only():
+    # a table covering only the live rows suffices: dead tiles are never
+    # gathered, as the kernel never loads them
+    k, v = _pools(5, 4)
+    q = to_torch(rand(6, (HKV, 8, E)))
+    short = torch.tensor([3, 7, 1], dtype=torch.int32)      # 12 rows
+    got = tppre.paged_prefill_attention_plain(
+        q, to_torch(k), to_torch(v), short, q_offset=4, kv_len=12, blk_q=8)
+    assert tppre.live_tiles(12) == 1 and tppre.live_tiles(0) == 0
+    want = tattn.paged_prefill_attention(q, to_torch(k), to_torch(v), short,
+                                         4, 12, impl="plain")
+    assert_close(got, want, FP32_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def test_paged_int8_branches_are_not_ported():
+    k, v = (to_torch(x) for x in _pools(0, 4))
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    lens = torch.ones((1,), dtype=torch.int32)
+    scales = torch.ones((HKV, N_PAGES))
+    with pytest.raises(NotImplementedError):
+        tops.paged_decode_attention(torch.zeros(1, HKV, E), k, v, table,
+                                    lens, k_scales=scales, v_scales=scales)
+    with pytest.raises(NotImplementedError):
+        tops.paged_prefill_attention(torch.zeros(HKV, 8, E), k, v, table[0],
+                                     0, 1, k_scales=scales, v_scales=scales)
+
+
+def test_paged_wrappers_refuse_other_devices_and_bad_shapes():
+    k, v = (to_torch(x).to("meta") for x in _pools(0, 4))
+    table = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    lens = torch.ones((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tops.paged_decode_attention(torch.zeros(1, HKV, E, device="meta"),
+                                    k, v, table, lens)
+    with pytest.raises(ValueError, match="device"):
+        tops.paged_prefill_attention(torch.zeros(HKV, 8, E, device="meta"),
+                                     k, v, table[0], 0, 1)
+    kc, vc = (to_torch(x) for x in _pools(0, 4))
+    with pytest.raises(ValueError, match="cover"):
+        tops.paged_prefill_attention(torch.zeros(HKV, 8, E), kc, vc,
+                                     torch.zeros(2, dtype=torch.int32), 0, 9)
+    with pytest.raises(ValueError, match="kv_lens"):
+        tops.paged_decode_attention(torch.zeros(2, HKV, E), kc, vc,
+                                    torch.zeros((2, 2), dtype=torch.int32),
+                                    torch.ones(3, dtype=torch.int32))

@@ -29,8 +29,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import mas_attention as tmas
+from repro_torch.kernels import paged_decode_attention as ppdec
+from repro_torch.kernels import paged_prefill_attention as ppre
 from repro_torch.models.api import build_model
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import ContinuousBatchingEngine, ServingEngine
 from repro_torch.weights import params_from_jax
 
 REPO = Path(__file__).resolve().parents[1]
@@ -46,6 +48,10 @@ PORTED = {
            "flash_attention.cu"),
     "B4": ("src/repro/kernels/decode_attention.py", "_decode_kernel",
            "decode_attention.cu"),
+    "B5": ("src/repro/kernels/paged_prefill_attention.py",
+           "_paged_prefill_kernel", "paged_prefill_attention.cu"),
+    "B6": ("src/repro/kernels/paged_decode_attention.py",
+           "_paged_decode_kernel", "paged_decode_attention.cu"),
 }
 
 
@@ -60,7 +66,8 @@ def _imports(path: Path) -> list[str]:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "trace_continuous.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax_and_no_reference(path):
     for name in _imports(path):
@@ -83,9 +90,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         model.init(seed=0)
     with pytest.raises(RuntimeError, match="cuda"):
         model.make_cache(1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.make_cache(1, 8, cache_layout="paged")
     params = model.init(seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(model, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ContinuousBatchingEngine(model, params)
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_jax({}, cfg)
 
@@ -142,7 +153,8 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("kernel", ["mas", "flash", "decode"])
+@pytest.mark.parametrize("kernel", ["mas", "flash", "decode",
+                                    "paged_decode", "paged_prefill"])
 def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
         kernel):
     smoke = _chip_smoke()
@@ -151,6 +163,30 @@ def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
     def rnd(*shape):
         return torch.randn(shape, generator=gen)
 
+    if kernel.startswith("paged"):
+        kp, vp = rnd(2, 40, 16, 64), rnd(2, 40, 16, 64)
+        table = (torch.randperm(39, generator=gen) + 1)[:32].view(2, 16).to(
+            torch.int32)
+        if kernel == "paged_decode":
+            q = rnd(2, 2, 2, 64)
+            lens = torch.tensor([200, 256], dtype=torch.int32)
+
+            def plain(vp):
+                return ppdec.paged_decode_attention_plain(
+                    q, kp, vp, table, lens, n_split=2, tiles_per_split=2)
+        else:
+            q = rnd(4, 64, 64)
+
+            def plain(vp):
+                return ppre.paged_prefill_attention_plain(
+                    q, kp, vp, table[1], q_offset=192, kv_len=256, blk_q=32)
+        want = plain(vp)
+        # the second-last live page of the longest sequence skipped
+        check = smoke.held_to_plain(want.bfloat16(), want, plain(
+            smoke.drop_v_page(vp, int(table[1, 14]))))
+        assert 0 < check["row_rel_err"] <= smoke.BF16_ROW_RTOL
+        assert check["fault_row_rel_err"] > 10 * smoke.BF16_ROW_RTOL
+        return
     if kernel == "decode":
         q, k, v = rnd(4, 2, 64), rnd(4, 256, 64), rnd(4, 256, 64)
         lens = torch.tensor([1, 70, 200, 256], dtype=torch.int32)
