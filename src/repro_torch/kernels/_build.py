@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("mas_attention", "flash_attention", "decode_attention",
-           "paged_decode_attention", "paged_prefill_attention")
+           "paged_decode_attention", "paged_prefill_attention",
+           "paged_verify_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -51,23 +52,34 @@ SIGNATURES = {
             [P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, I, P],
     },
     "decode_attention": {
-        # q, k, v, kv_lens, o, m_part, l_part, acc_part, bh, G, s_len, E,
-        # n_split, tiles_per_split, sm_scale, dtype, stream
+        # q, k, v, k_scale, v_scale, kv_lens, o, m_part, l_part, acc_part,
+        # bh, G, s_len, E, n_split, tiles_per_split, sm_scale, dtype,
+        # quantized, stream
         "decode_attention_launch":
-            [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+            [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],
     },
     "paged_decode_attention": {
-        # q, k_pages, v_pages, table, kv_lens, o, m_part, l_part, acc_part,
-        # B, Hkv, G, n_pages, page_size, max_pages, E, n_split,
-        # tiles_per_split, sm_scale, dtype, stream
+        # q, k_pages, v_pages, k_scales, v_scales, table, kv_lens, o,
+        # m_part, l_part, acc_part, B, Hkv, G, n_pages, page_size,
+        # max_pages, E, n_split, tiles_per_split, sm_scale, dtype,
+        # quantized, stream
         "paged_decode_attention_launch":
-            [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P],
+            [P] * 11 + [I] * 9 + [F, I, I, P],
     },
     "paged_prefill_attention": {
-        # q, k_pages, v_pages, table, o, hq, nq, E, group, blk_q, n_pages,
-        # page_size, q_offset, kv_len, sm_scale, dtype, stream
+        # q, k_pages, v_pages, k_scales, v_scales, table, o, hq, nq, E,
+        # group, blk_q, n_pages, page_size, q_offset, kv_len, sm_scale,
+        # dtype, quantized, stream
         "paged_prefill_attention_launch":
-            [P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P],
+            [P] * 7 + [I] * 9 + [F, I, I, P],
+    },
+    "paged_verify_attention": {
+        # q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,
+        # q_starts, o, m_part, l_part, acc_part, B, Hkv, R, G, n_pages,
+        # page_size, max_pages, E, n_split, tiles_per_split, sm_scale,
+        # dtype, quantized, stream
+        "paged_verify_attention_launch":
+            [P] * 12 + [I] * 10 + [F, I, I, P],
     },
 }
 
@@ -159,6 +171,11 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.repro_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptr(t) -> int | None:
+    """A tensor's device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_handle(device) -> int:

@@ -12,7 +12,10 @@ causal/padding semantics are defined once:
   (fully visible / straddling the diagonal / fully masked);
 * ``three_band_select`` — the fused causal-diagonal + kv-tail select of
   a paged score tile whose rows start at a traced query offset;
-* ``gather_pages`` — the dense view of a page pool through page tables.
+* ``gather_pages`` — the dense view of a page pool through page tables;
+* ``quantize_q8`` / ``dequantize_q8`` — symmetric absmax int8 with one
+  fp32 scale per group, the storage of int8 KV caches;
+* ``page_scales`` — per-page scales as one factor per logical row.
 
 ``row0``, ``col0``, ``iq`` and ``kv_len`` may be Python ints or integer
 tensors that broadcast against the tile, so the plain versions can
@@ -91,6 +94,45 @@ def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     g = pages[:, table.long()]                 # (Hkv, ..., max_pages, page, E)
     g = g.movedim(0, -4)                       # (..., Hkv, max_pages, page, E)
     return g.reshape(*g.shape[:-3], g.shape[-3] * page, e)
+
+
+# ---------------------------------------------------------------------------
+# int8 symmetric-absmax quantization
+# ---------------------------------------------------------------------------
+
+Q8_LEVELS = 127.0
+
+
+def quantize_q8(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 quantization of ``x`` over ``dims``.
+
+    Returns ``(values int8, scales fp32)``; the scales drop the reduced
+    dims (one scale per group). In the reference's order, so the int8
+    values come out equal: ``x / scale`` in fp32, rounded half to even,
+    clipped to [-127, 127]. An all-zero group gets scale 0 and values 0.
+    """
+    xf = x.float()
+    scales = xf.abs().amax(dim=dims, keepdim=True) / Q8_LEVELS
+    denom = torch.where(scales == 0.0, 1.0, scales)
+    q = torch.clamp(torch.round(xf / denom), -Q8_LEVELS, Q8_LEVELS)
+    return q.to(torch.int8), scales.squeeze(dims)
+
+
+def dequantize_q8(values: torch.Tensor, scales: torch.Tensor,
+                  dims) -> torch.Tensor:
+    """Inverse of ``quantize_q8`` (up to the rounding error)."""
+    dims = (dims,) if isinstance(dims, int) else tuple(dims)
+    for d in sorted(d % values.dim() for d in dims):
+        scales = scales.unsqueeze(d)
+    return values.float() * scales
+
+
+def page_scales(scales: torch.Tensor, table: torch.Tensor,
+                page: int) -> torch.Tensor:
+    """Per-page scales (Hkv, P) read through page tables (..., max_pages):
+    one factor per logical row, (..., Hkv, max_pages·page)."""
+    g = scales[:, table.long()].movedim(0, -2)   # (..., Hkv, max_pages)
+    return g.repeat_interleave(page, dim=-1)
 
 
 def check_prefill_tile(blk_q: int, e: int) -> None:

@@ -12,6 +12,7 @@
 #include <stdint.h>
 
 #include <cstring>
+#include <type_traits>
 
 namespace repro {
 
@@ -95,6 +96,115 @@ __device__ __forceinline__ void stage_paged_rows(T* dst, const T* head_pool,
       memset(&val, 0, sizeof(V));
     }
     *reinterpret_cast<V*>(dst + r * ld + c) = val;
+  }
+}
+
+// Four int8 values packed in a 32-bit word, converted to fp32.
+__device__ __forceinline__ float4 q8x4(unsigned w) {
+  return make_float4(static_cast<float>(static_cast<int8_t>(w & 0xffu)),
+                     static_cast<float>(static_cast<int8_t>((w >> 8) & 0xffu)),
+                     static_cast<float>(static_cast<int8_t>((w >> 16) & 0xffu)),
+                     static_cast<float>(static_cast<int8_t>(w >> 24)));
+}
+
+// Sixteen int8 values (one 16-byte load) stored as fp32 at dst.
+__device__ __forceinline__ void store_q8x16(float* dst, uint4 u) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = q8x4(u.x);
+  d[1] = q8x4(u.y);
+  d[2] = q8x4(u.z);
+  d[3] = q8x4(u.w);
+}
+
+// One tile's K and V rows of an int8 cache, converted to fp32 in
+// registers and stored at stride E + KV_ROW_PAD; rows in [rows, zero_to)
+// are zero-filled. Row r of the tile starts at element row_off(r) of `k`
+// and of `v`. Each thread moves 16 values with one 16-byte load
+// (E % 16 == 0) and issues BATCH loads of K and as many of V before it
+// converts and stores any, so that many loads of a thread are in flight
+// at once and a tile waits on fewer round trips to memory.
+template <int BATCH, typename RowOff>
+__device__ __forceinline__ void stage_q8_kv(float* Kd, float* Vd,
+                                            const int8_t* k, const int8_t* v,
+                                            RowOff row_off, int rows,
+                                            int zero_to, int E) {
+  const int chunks = E / 16;
+  const int ld = E + KV_ROW_PAD;
+  const int n = zero_to * chunks;
+  for (int i0 = threadIdx.x; i0 < n; i0 += BATCH * blockDim.x) {
+    uint4 ku[BATCH], vu[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int i = i0 + b * blockDim.x;
+      const int r = i / chunks, c = (i - r * chunks) * 16;
+      ku[b] = vu[b] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < n && r < rows) {
+        const size_t off = row_off(r) + c;
+        ku[b] = *reinterpret_cast<const uint4*>(k + off);
+        vu[b] = *reinterpret_cast<const uint4*>(v + off);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int i = i0 + b * blockDim.x;
+      if (i < n) {
+        const int r = i / chunks, c = (i - r * chunks) * 16;
+        store_q8x16(Kd + r * ld + c, ku[b]);
+        store_q8x16(Vd + r * ld + c, vu[b]);
+      }
+    }
+  }
+}
+
+// Row offsets for stage_q8_kv: rows of a dense cache (row stride E) ...
+struct DenseRows {
+  int E;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return (size_t)r * E;
+  }
+};
+
+// ... and logical rows col0 + r of one kv head's pages, through one
+// sequence's page table (as stage_paged_rows reads them).
+struct PagedRows {
+  const int* table;
+  int page_size, col0, E;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    const int pos = col0 + r;
+    return ((size_t)table[pos / page_size] * page_size + pos % page_size) *
+           E;
+  }
+};
+
+// The type a K/V tile is held in shared memory: the storage type, or fp32
+// for int8 storage (converted while staging).
+template <typename T, typename KV> struct TileOf { using type = T; };
+template <typename T> struct TileOf<T, int8_t> { using type = float; };
+
+// Shared-memory floats a kernel reserves for one tile's K and V scales:
+// 2 * KV_TILE for int8 storage, none otherwise.
+template <typename KV> __host__ __device__ constexpr int scale_floats() {
+  return std::is_same<KV, int8_t>::value ? 2 * KV_TILE : 0;
+}
+
+// Per-page scales of one tile of logical rows [col0, col0 + rows), read
+// through the page table: KS[c] = k_scales[table[(col0 + c) / page]] (the
+// kv head's row of the (Hkv, P) side-table), likewise VS; 0 past `rows`.
+__device__ __forceinline__ void stage_page_scales(float* KS, float* VS,
+                                                  const float* ks_head,
+                                                  const float* vs_head,
+                                                  const int* table,
+                                                  int page_size, int col0,
+                                                  int rows) {
+  for (int c = threadIdx.x; c < KV_TILE; c += blockDim.x) {
+    float a = 0.f, b = 0.f;
+    if (c < rows) {
+      const int page = table[(col0 + c) / page_size];
+      a = ks_head[page];
+      b = vs_head[page];
+    }
+    KS[c] = a;
+    VS[c] = b;
   }
 }
 

@@ -1,8 +1,8 @@
 // Chunked prefill attention over a paged KV pool for Hopper: kernel B5.
 //
 // Replaces the Pallas kernel repro/kernels/paged_prefill_attention.py
-// (paged_prefill_attention_flat; body _paged_prefill_kernel), bf16/fp32
-// pool branch. The int8 branch (k_scales / v_scales) is not ported yet.
+// (paged_prefill_attention_flat; body _paged_prefill_kernel), both its
+// bf16/fp32 pool branch and its int8 branch with per-page scales.
 //
 // What it computes: one sequence's prompt chunk, q (Hq, chunk, E) with row
 // i at absolute position q_offset + i, attends causally to the first
@@ -21,7 +21,12 @@
 // first row and below kv_len run with no mask; tiles that straddle the
 // causal diagonal or the kv_len tail take the fused select
 // cols <= rows && cols < kv_len; tiles past the block's last row or at or
-// past kv_len are dead and never loaded.
+// past kv_len are dead and never loaded. An int8 pool is read as 16-byte
+// vectors, four K and four V loads of a thread in flight at once, and
+// converted to fp32 in registers while a tile is staged; each
+// tile column's per-page scales are looked up through the page table (a
+// 64-row tile spans several pages), the K scale multiplies the score
+// after q.k and sm_scale, the V scale folds into P after the row sum.
 //
 // What bounds it on an H100: like B3, the two products run on the CUDA
 // cores in fp32 in this first version, so it is bound by instructions and
@@ -38,13 +43,17 @@ constexpr int THREADS = 256;
 constexpr int MAXR_S = 16;
 constexpr int MAXR_PV = 8;
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ table,
-                     T* __restrict__ o, int nq, int E, int group, int blk_q,
-                     int n_pages, int page_size, int q_offset, int kv_len,
+paged_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                     const KV* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs,
+                     const int* __restrict__ table, T* __restrict__ o,
+                     int nq, int E, int group, int blk_q, int n_pages,
+                     int page_size, int q_offset, int kv_len,
                      float sm_scale) {
+  using S = typename TileOf<T, KV>::type;
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   const int iq = blockIdx.x, hq = blockIdx.y;
   const int row0 = q_offset + iq * blk_q;   // position of the block's row 0
   const int t = threadIdx.x;
@@ -60,8 +69,10 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* M = Qs + blk_q * E;                           // running max
   float* Lsum = M + blk_q;                             // running sum
   float* A = Lsum + blk_q;                             // this tile's rescale
-  T* Kt = reinterpret_cast<T*>(A + blk_q);             // (KV_TILE, E + pad)
-  T* Vt = Kt + KV_TILE * (E + KV_ROW_PAD);
+  float* KS = A + blk_q;              // int8 only: the tile's K, V scales
+  float* VS = KS + KV_TILE;
+  S* Kt = reinterpret_cast<S*>(KS + scale_floats<KV>());  // (KV_TILE, E + pad)
+  S* Vt = Kt + KV_TILE * (E + KV_ROW_PAD);
 
   // Thread layout: S tile column c, rows rg_s + 4 i; output columns
   // ce..ce+3, rows rg_pv + rstep_pv i.
@@ -80,14 +91,23 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < MAXR_PV; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  const T* k_head = k + (size_t)(hq / group) * n_pages * page_size * E;
-  const T* v_head = v + (size_t)(hq / group) * n_pages * page_size * E;
+  const int hkv = hq / group;
+  const KV* k_head = k + (size_t)hkv * n_pages * page_size * E;
+  const KV* v_head = v + (size_t)hkv * n_pages * page_size * E;
   for (int j = 0; j < n_live; ++j) {
     const int col0 = j * KV_TILE;
     const int rows = min(KV_TILE, kv_len - col0);
     __syncthreads();
-    stage_paged_rows(Kt, k_head, table, page_size, col0, rows, KV_TILE, E);
-    stage_paged_rows(Vt, v_head, table, page_size, col0, rows, KV_TILE, E);
+    if constexpr (Q8) {
+      stage_q8_kv<4>(Kt, Vt, k_head, v_head,
+                     PagedRows{table, page_size, col0, E}, rows, KV_TILE, E);
+      stage_page_scales(KS, VS, ks + (size_t)hkv * n_pages,
+                        vs + (size_t)hkv * n_pages, table, page_size, col0,
+                        rows);
+    } else {
+      stage_paged_rows(Kt, k_head, table, page_size, col0, rows, KV_TILE, E);
+      stage_paged_rows(Vt, v_head, table, page_size, col0, rows, KV_TILE, E);
+    }
     __syncthreads();
 
     const bool need_mask = j >= n_full;
@@ -99,6 +119,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (i < nr_s) {
         const int r = rg_s + 4 * i;
         float s = s_acc[i] * sm_scale;
+        if (Q8) s *= KS[c];
         if (need_mask && !(col <= row0 + r && col < kv_len)) s = NEG_INF;
         Ps[r * KV_TILE + c] = s;
       }
@@ -114,8 +135,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float m_prev = M[r];
         const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
         const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-        row[lane] = p0;
-        row[lane + 32] = p1;
+        // the V scales fold into P; the row sum takes P unscaled
+        row[lane] = Q8 ? p0 * VS[lane] : p0;
+        row[lane + 32] = Q8 ? p1 * VS[lane + 32] : p1;
         const float psum = warp_sum(p0 + p1);
         if (lane == 0) {
           const float alpha = expf(m_prev - m_new);
@@ -159,22 +181,24 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* table,
-           void* o, int hq, int nq, int E, int group, int blk_q, int n_pages,
-           int page_size, int q_offset, int kv_len, float sm_scale,
-           cudaStream_t stream) {
+template <typename T, typename KV>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const int* table, void* o, int hq, int nq, int E,
+           int group, int blk_q, int n_pages, int page_size, int q_offset,
+           int kv_len, float sm_scale, cudaStream_t stream) {
+  using S = typename TileOf<T, KV>::type;
   const size_t smem = 4ull * blk_q * KV_TILE + 4ull * blk_q * E +
-                      3ull * 4 * blk_q +
-                      2ull * KV_TILE * (E + KV_ROW_PAD) * sizeof(T);
+                      3ull * 4 * blk_q + 4ull * scale_floats<KV>() +
+                      2ull * KV_TILE * (E + KV_ROW_PAD) * sizeof(S);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_prefill_kernel<T, KV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nq / blk_q, hq);
-  paged_prefill_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), table, static_cast<T*>(o), nq, E, group,
+  paged_prefill_kernel<T, KV><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), table, static_cast<T*>(o), nq, E, group,
       blk_q, n_pages, page_size, q_offset, kv_len, sm_scale);
   return (int)cudaGetLastError();
 }
@@ -182,18 +206,23 @@ int launch(const void* q, const void* k, const void* v, const int* table,
 }  // namespace
 
 // q: (hq, nq, E), nq % blk_q == 0; k, v: (hq / group, n_pages, page_size,
-// E); table: (max_pages,) int32 on the device, covering at least kv_len
+// E) of q's type, or int8 when `quantized` with ks, vs the
+// (hq / group, n_pages) fp32 per-page scales; table: (max_pages,) int32 on the device, covering at least kv_len
 // rows; o: like q. Contiguous.
 extern "C" int paged_prefill_attention_launch(
-    const void* q, const void* k, const void* v, const void* table, void* o,
-    int hq, int nq, int E, int group, int blk_q, int n_pages, int page_size,
-    int q_offset, int kv_len, float sm_scale, int dtype, void* stream) {
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* table, void* o, int hq, int nq, int E,
+    int group, int blk_q, int n_pages, int page_size, int q_offset,
+    int kv_len, float sm_scale, int dtype, int quantized, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(table);
+#define REPRO_PREFILL_ARGS                                                \
+  q, k, v, ks, vs, tab, o, hq, nq, E, group, blk_q, n_pages, page_size,   \
+      q_offset, kv_len, sm_scale, s
   if (dtype == 0)
-    return launch<float>(q, k, v, tab, o, hq, nq, E, group, blk_q, n_pages,
-                         page_size, q_offset, kv_len, sm_scale, s);
-  return launch<__nv_bfloat16>(q, k, v, tab, o, hq, nq, E, group, blk_q,
-                               n_pages, page_size, q_offset, kv_len, sm_scale,
-                               s);
+    return quantized ? launch<float, int8_t>(REPRO_PREFILL_ARGS)
+                     : launch<float, float>(REPRO_PREFILL_ARGS);
+  return quantized ? launch<__nv_bfloat16, int8_t>(REPRO_PREFILL_ARGS)
+                   : launch<__nv_bfloat16, __nv_bfloat16>(REPRO_PREFILL_ARGS);
+#undef REPRO_PREFILL_ARGS
 }

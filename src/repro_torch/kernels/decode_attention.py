@@ -1,20 +1,22 @@
 """Split-KV one-token decode attention: kernel B4.
 
-Port of ``repro/kernels/decode_attention.py`` (``decode_attention_flat``),
-the bf16/fp32 cache branch. For each (b, kv head) the G query heads of
-its GQA group attend to the dense cache rows [0, kv_len), with one
-``kv_len`` per row of the batch read from a device tensor. The CUDA
-kernel (``csrc/decode_attention.cu``) splits the KV tiles over
-``n_split`` blocks per (b, kv head); each walks its tiles with an online
-max and sum, skipping tiles at or past ``kv_len``, and a second pass
-merges the partial (m, l, acc) triples.
+Port of ``repro/kernels/decode_attention.py`` (``decode_attention_flat``).
+For each (b, kv head) the G query heads of its GQA group attend to the
+dense cache rows [0, kv_len), with one ``kv_len`` per row of the batch
+read from a device tensor. The CUDA kernel (``csrc/decode_attention.cu``)
+splits the KV tiles over ``n_split`` blocks per (b, kv head); each walks
+its tiles with an online max and sum, skipping tiles at or past
+``kv_len``, and a second pass merges the partial (m, l, acc) triples.
 
-The int8 branch of the TPU kernel (``k_scale``/``v_scale``) is not
-ported yet: the wrapper raises ``NotImplementedError`` when given scales.
+An int8 cache carries one fp32 scale per row (``k_scale``/``v_scale``,
+(B·Hkv, S)): the K scale multiplies the score column after q·k, the V
+scale folds into P after the row sum and before the P·V product, as the
+TPU kernel does.
 
 ``decode_attention_plain`` computes the same function in PyTorch with the
 kernel's split, tile order, masking and merge; the wrapper runs it for
-CPU tensors only.
+CPU tensors only. It also serves the paged kernels B6 and B7 (through a
+gather of the pages), whose rows may sit at their own positions.
 """
 
 from __future__ import annotations
@@ -25,13 +27,34 @@ from repro_torch.core.policy import KV_TILE
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import NEG_INF
 
-# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
-LAUNCHES = {"decode": 0}
+# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
+# by branch: bf16/fp32 caches and int8 caches.
+LAUNCHES = {"decode": 0, "decode_int8": 0}
 
 # Enough (b·h, split) blocks to give each of the H100's 132 SMs two.
 TARGET_BLOCKS = 264
 MAX_G = 16
 MAX_E = 256
+
+
+def check_scales(k, v, k_scale, v_scale, scale_shape) -> bool:
+    """Whether the caches are int8 with scales; raises unless either both
+    scales of ``scale_shape`` come with int8 caches, or none do with
+    caches of the query's kind."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("give both k and v scales, or neither")
+    if k_scale is None:
+        if k.dtype == torch.int8 or v.dtype == torch.int8:
+            raise ValueError("int8 caches need their scales")
+        return False
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise ValueError("scales come with int8 caches only")
+    for t in (k_scale, v_scale):
+        if (tuple(t.shape) != tuple(scale_shape) or t.dtype != torch.float32
+                or t.device != k.device or not t.is_contiguous()):
+            raise ValueError(f"scales must be contiguous fp32 "
+                             f"{tuple(scale_shape)} on the caches' device")
+    return True
 
 
 def split_plan(bh: int, n_kv: int, blk_kv: int = KV_TILE) -> tuple[int, int]:
@@ -43,22 +66,38 @@ def split_plan(bh: int, n_kv: int, blk_kv: int = KV_TILE) -> tuple[int, int]:
     return n_split, tiles_per_split
 
 
+def _split_rows(x: torch.Tensor, n_split: int, span: int) -> torch.Tensor:
+    """(BH, S, ...) fp32, zero-padded or cut to n_split·span rows, as
+    (BH, n_split, span, ...)."""
+    pad = max(0, n_split * span - x.shape[1])
+    x = torch.nn.functional.pad(x.float(), (0, 0) * (x.dim() - 2) + (0, pad))
+    return x[:, :n_split * span].reshape(x.shape[0], n_split, span,
+                                         *x.shape[2:])
+
+
 def decode_attention_plain(q, k, v, kv_lens, *, n_split: int,
                            tiles_per_split: int, blk_kv: int = KV_TILE,
-                           sm_scale: float | None = None) -> torch.Tensor:
-    """q: (BH, G, E); k, v: (BH, S, E); kv_lens: (BH,) int. Split ``sp``
-    covers tiles [sp·tps, (sp+1)·tps); all splits advance together."""
+                           sm_scale: float | None = None, k_scale=None,
+                           v_scale=None, q_pos=None) -> torch.Tensor:
+    """q: (BH, R, E); k, v: (BH, S, E), int8 with ``k_scale``/``v_scale``
+    (BH, S) per-row fp32 scales; kv_lens: (BH,) int. Row r of q sees the
+    keys at positions <= min(q_pos[:, r], kv_len - 1); without ``q_pos``
+    every row sees the whole live context. Split ``sp`` covers tiles
+    [sp·tps, (sp+1)·tps); all splits advance together."""
     bh, g, e = q.shape
     s_len = k.shape[1]
     scale = (e ** -0.5) if sm_scale is None else sm_scale
     dev = q.device
     span = tiles_per_split * blk_kv
-    pad = n_split * span - s_len
-    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, max(pad, 0)))
-    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, max(pad, 0)))
-    kf = kf[:, :n_split * span].reshape(bh, n_split, span, e)
-    vf = vf[:, :n_split * span].reshape(bh, n_split, span, e)
+    kf = _split_rows(k, n_split, span)
+    vf = _split_rows(v, n_split, span)
+    quantized = k_scale is not None
+    if quantized:
+        ksf = _split_rows(k_scale, n_split, span)    # (BH, n_split, span)
+        vsf = _split_rows(v_scale, n_split, span)
     kv_len = kv_lens.to(dev).clamp(max=s_len).view(bh, 1, 1, 1)
+    pos = (q_pos.to(dev).view(bh, 1, g, 1) if q_pos is not None
+           else kv_len - 1)
     qf = q.float()
 
     m = torch.full((bh, n_split, g, 1), NEG_INF, device=dev)
@@ -73,13 +112,17 @@ def decode_attention_plain(q, k, v, kv_lens, *, n_split: int,
         if not bool(live.any()):
             break
         s = torch.einsum("bge,bske->bsgk", qf, kf[:, :, cols]) * scale
-        s = torch.where(col < kv_len, s, NEG_INF)
+        if quantized:
+            s = s * ksf[:, :, None, cols]
+        s = torch.where((col < kv_len) & (col <= pos), s, NEG_INF)
         # rows past kv_len are zero-filled before the P·V product
         vt = torch.where((col < kv_len).transpose(-1, -2), vf[:, :, cols], 0.0)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        if quantized:
+            p = p * vsf[:, :, None, cols]     # V scales fold into P
         acc_new = acc * alpha + torch.einsum("bsgk,bske->bsge", p, vt)
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
@@ -98,16 +141,15 @@ def decode_attention_plain(q, k, v, kv_lens, *, n_split: int,
 def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
                           max_kv_len: int | None = None, k_scale=None,
                           v_scale=None) -> torch.Tensor:
-    """One-token decode: q (BH, G, E) against caches (BH, S, E).
+    """One-token decode: q (BH, G, E) against caches (BH, S, E), of q's
+    dtype, or int8 with ``k_scale``/``v_scale`` (BH, S) fp32 per-row
+    scales.
 
     ``kv_lens`` is a (BH,) int32 tensor on q's device. ``max_kv_len``, when
     the caller knows it on the host, sizes the split to the live rows
     instead of the whole cache. A CUDA tensor launches B4; a CPU tensor
     runs the plain version.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the int8 branch of decode attention is not ported yet")
     bh, g, e = q.shape
     s_len = k.shape[1]
     if k.shape != (bh, s_len, e) or v.shape != k.shape:
@@ -116,19 +158,23 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
     if kv_lens.shape != (bh,):
         raise ValueError(
             f"kv_lens must be ({bh},), got {tuple(kv_lens.shape)}")
+    quantized = check_scales(k, v, k_scale, v_scale, (bh, s_len))
     n_kv = s_len if max_kv_len is None else min(max_kv_len, s_len)
     n_split, tps = split_plan(bh, n_kv)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_lens, n_split=n_split,
-                                      tiles_per_split=tps, sm_scale=sm_scale)
+                                      tiles_per_split=tps, sm_scale=sm_scale,
+                                      k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if g > MAX_G or e > MAX_E or e % 4:
+    if g > MAX_G or e > MAX_E or e % (16 if quantized else 4):
         raise ValueError(f"unsupported decode shape: G={g}, E={e}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device:
-        raise ValueError("q, k and v must share one dtype and device")
+    if k.device != q.device or v.device != q.device or (
+            not quantized and (k.dtype != q.dtype or v.dtype != q.dtype)):
+        raise ValueError("q, k and v must share one device, and one dtype "
+                         "unless the caches are int8")
     if kv_lens.dtype != torch.int32 or kv_lens.device != q.device:
         raise ValueError("kv_lens must be int32 on q's device")
     lib = _build.library("decode_attention")
@@ -140,10 +186,12 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
                            device=q.device)
     scale = (e ** -0.5) if sm_scale is None else sm_scale
     err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(),
-        o.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        acc_part.data_ptr(), bh, g, s_len, e, n_split, tps, float(scale),
-        _build.dtype_code(q.dtype), _build.stream_handle(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scale),
+        _build.ptr(v_scale), kv_lens.data_ptr(), o.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), bh, g,
+        s_len, e, n_split,
+        tps, float(scale), _build.dtype_code(q.dtype), int(quantized),
+        _build.stream_handle(q.device))
     _build.check(lib, err, "decode_attention_launch")
-    LAUNCHES["decode"] += 1
+    LAUNCHES["decode_int8" if quantized else "decode"] += 1
     return o

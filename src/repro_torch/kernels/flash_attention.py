@@ -29,10 +29,12 @@ LAUNCHES = {"flash": 0}
 def flash_attention_plain(q, k, v, *, blk_q: int, blk_kv: int,
                           causal: bool = False, window: int | None = None,
                           sm_scale: float | None = None, q_offset: int = 0,
-                          kv_len: int | None = None) -> torch.Tensor:
-    """q: (BHq, Nq, E); k, v: (BHkv, Nkv, E). Every Q row block advances
-    at once through the KV tiles; a block skips a tile by keeping its
-    running (m, l, acc) unchanged."""
+                          kv_len: int | None = None, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
+    """q: (BHq, Nq, E); k, v: (BHkv, Nkv, E), int8 with
+    ``k_scale``/``v_scale`` (BHkv, Nkv) per-row fp32 scales (B5's int8
+    branch). Every Q row block advances at once through the KV tiles; a
+    block skips a tile by keeping its running (m, l, acc) unchanged."""
     bhq, nq, e = q.shape
     bhkv, n, _ = k.shape
     group = bhq // bhkv
@@ -41,6 +43,10 @@ def flash_attention_plain(q, k, v, *, blk_q: int, blk_kv: int,
     dev = q.device
     kf = k.float().repeat_interleave(group, dim=0)
     vf = v.float().repeat_interleave(group, dim=0)
+    quantized = k_scale is not None
+    if quantized:
+        ks = k_scale.float().repeat_interleave(group, dim=0)[:, None, None]
+        vs = v_scale.float().repeat_interleave(group, dim=0)[:, None, None]
     qb = q.float().reshape(bhq, nqb, blk_q, e)
     row0 = torch.arange(nqb, device=dev) * blk_q + q_offset     # (nqb,)
     rows = (row0.view(nqb, 1) + torch.arange(blk_q, device=dev)).view(
@@ -61,6 +67,8 @@ def flash_attention_plain(q, k, v, *, blk_q: int, blk_kv: int,
             continue
         cols = slice(col0, col0 + blk_kv)
         s = torch.einsum("bnqe,bke->bnqk", qb, kf[:, cols]) * scale
+        if quantized:
+            s = s * ks[..., cols]
         col = torch.arange(col0, col0 + blk_kv, device=dev).view(1, 1, blk_kv)
         keep = torch.ones((nqb, blk_q, blk_kv), dtype=torch.bool, device=dev)
         if banded:
@@ -74,6 +82,8 @@ def flash_attention_plain(q, k, v, *, blk_q: int, blk_kv: int,
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        if quantized:
+            p = p * vs[..., cols]            # V scales fold into P
         acc_new = acc * alpha + torch.einsum("bnqk,bke->bnqe", p, vf[:, cols])
         run = run.view(nqb, 1, 1)
         m = torch.where(run, m_new, m)

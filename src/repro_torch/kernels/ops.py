@@ -9,9 +9,11 @@ the shared-memory policy of ``core/policy.py``. Padding follows what the
 port's kernels need: Q rows to a multiple of ``blk_q`` (itself a
 multiple of 8) and KV rows to the 64-row tile. The decode paths pad
 nothing: the kernels read only rows below ``kv_len``. The paged wrappers
-group the query heads under their kv head (decode) or pad a prompt
-chunk's rows to the Q block (prefill); the TPU's padding of the GQA group
-to the 8-row sublane tile does not carry over.
+group the query heads under their kv head (decode), lay a verify
+block out position-major (verify) or pad a prompt chunk's rows to the Q
+block (prefill); the TPU's padding of the GQA group to the 8-row sublane
+tile does not carry over. int8 caches pass their fp32 scales through:
+per row (B, Hkv, S) for the dense cache, per page (Hkv, P) for the pools.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mas_attention as _mas
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import paged_prefill_attention as _ppre
+from repro_torch.kernels import paged_verify_attention as _pver
 
 METHODS = ("auto", "mas_resident", "mas_streamed", "flash")
 
@@ -36,12 +39,12 @@ METHODS = ("auto", "mas_resident", "mas_streamed", "flash")
 def launch_counts() -> dict[str, int]:
     """Launches of every CUDA kernel since the last reset, by kernel."""
     return {**_mas.LAUNCHES, **_flash.LAUNCHES, **_decode.LAUNCHES,
-            **_pdec.LAUNCHES, **_ppre.LAUNCHES}
+            **_pdec.LAUNCHES, **_ppre.LAUNCHES, **_pver.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     for counts in (_mas.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES,
-                   _pdec.LAUNCHES, _ppre.LAUNCHES):
+                   _pdec.LAUNCHES, _ppre.LAUNCHES, _pver.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -102,8 +105,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
                      v_scale=None) -> torch.Tensor:
     """Single-token decode against a (partially filled) dense cache.
 
-    q: (B, Hq, E); caches: (B, Hkv, S, E); ``kv_len`` an int (every row)
-    or a (B,) integer tensor (a ragged batch).
+    q: (B, Hq, E); caches: (B, Hkv, S, E), int8 with ``k_scale``/
+    ``v_scale`` (B, Hkv, S) fp32 per-row scales; ``kv_len`` an int (every
+    row) or a (B,) integer tensor (a ragged batch).
     """
     b, hq, e = q.shape
     _, hkv, s_len, _ = k_cache.shape
@@ -122,6 +126,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         lens = torch.full((b * hkv,), int(kv_len), dtype=torch.int32,
                           device=q.device)
         max_kv_len = int(kv_len)
+    if k_scale is not None:
+        k_scale = k_scale.reshape(b * hkv, s_len)
+        v_scale = v_scale.reshape(b * hkv, s_len)
     of = _decode.decode_attention_flat(
         qg, kf, vf, lens, sm_scale=sm_scale, max_kv_len=max_kv_len,
         k_scale=k_scale, v_scale=v_scale)
@@ -133,8 +140,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
                            v_scales=None) -> torch.Tensor:
     """Single-token decode against a block-table paged KV cache.
 
-    q: (B, Hq, E); pools: (Hkv, P, page, E); page_table: (B, max_pages)
-    and kv_lens: (B,), int32 tensors on q's device.
+    q: (B, Hq, E); pools: (Hkv, P, page, E), int8 with
+    ``k_scales``/``v_scales`` (Hkv, P); page_table: (B, max_pages) and
+    kv_lens: (B,), int32 tensors on q's device.
     """
     b, hq, e = q.shape
     hkv = k_pages.shape[0]
@@ -147,6 +155,35 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
     return of.reshape(b, hq, e)
 
 
+def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
+                           q_starts, *, sm_scale: float | None = None,
+                           k_scales=None, v_scales=None) -> torch.Tensor:
+    """k-position speculative verify against a block-table paged cache.
+
+    q: (B, k, Hq, E), the k candidate positions of each slot, whose K/V
+    rows are already in the pages; position i of slot b sits at
+    ``q_starts[b] + i``. Pools (Hkv, P, page, E), int8 with
+    ``k_scales``/``v_scales`` (Hkv, P); page_table (B, max_pages),
+    kv_lens and q_starts (B,), int32 on q's device. Rows at or past
+    ``kv_lens[b]`` return values the host discards. Returns
+    (B, k, Hq, E).
+    """
+    b, spec, hq, e = q.shape
+    hkv = k_pages.shape[0]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    group = hq // hkv
+    # position-major (k·G, E) rows: row i = query head i % G of position
+    # i // G
+    qg = (q.reshape(b, spec, hkv, group, e).transpose(1, 2)
+          .reshape(b, hkv, spec * group, e).contiguous())
+    of = _pver.paged_verify_attention_flat(
+        qg, k_pages, v_pages, page_table, kv_lens, q_starts, spec=spec,
+        sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
+    return (of.reshape(b, hkv, spec, group, e).transpose(1, 2)
+            .reshape(b, spec, hq, e))
+
+
 def paged_prefill_blk_q(chunk: int) -> int:
     """Q rows a block of B5 takes for a prompt chunk of ``chunk`` rows."""
     return min(DEFAULT_BLK_Q, -(-chunk // MIN_BLK_Q) * MIN_BLK_Q)
@@ -157,8 +194,9 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset: int,
                             k_scales=None, v_scales=None) -> torch.Tensor:
     """One prompt chunk attending to all prior context in a paged cache.
 
-    q: (Hq, chunk, E) for one sequence; pools: (Hkv, P, page, E);
-    page_table: (max_pages,) int32 on q's device. The chunk's own K/V
+    q: (Hq, chunk, E) for one sequence; pools: (Hkv, P, page, E), int8
+    with ``k_scales``/``v_scales`` (Hkv, P); page_table: (max_pages,)
+    int32 on q's device. The chunk's own K/V
     must already be in its pages. Pad rows past ``kv_len - q_offset``
     return values the caller slices off.
     """

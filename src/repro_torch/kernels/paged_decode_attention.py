@@ -1,7 +1,7 @@
 """Split-KV one-token decode over a paged KV pool: kernel B6.
 
 Port of ``repro/kernels/paged_decode_attention.py``
-(``paged_decode_attention_flat``), the bf16/fp32 pool branch. The KV
+(``paged_decode_attention_flat``). The KV
 cache lives in fixed-size pages of a global pool (Hkv, P, page, E); a
 page table (B, max_pages) maps each sequence's logical page to a
 physical one, and ``kv_lens`` (B,) holds each sequence's live tokens.
@@ -16,9 +16,12 @@ leave most SMs idle), gathers each live tile through the table, stops at
 the first tile at or past ``kv_len`` (dead pages are never loaded) and
 merges the partial (m, l, acc) in a second pass. ``kv_len == 0`` gives
 zeros. The TPU's padding of the GQA group to 8 rows does not carry over.
+Its two passes are shared with B7 (``csrc/paged_split.cuh``).
 
-The int8 branch of the TPU kernel (``k_scales``/``v_scales``) is not
-ported yet: the wrapper raises ``NotImplementedError`` when given scales.
+An int8 pool carries one fp32 scale per (kv head, page),
+``k_scales``/``v_scales`` (Hkv, P). The kernel reads them through the
+page table per tile column (a 64-row tile spans several pages): the K
+scale multiplies the score, the V scale folds into P after the row sum.
 
 ``paged_decode_attention_plain`` computes the same function in PyTorch:
 the dense gather of the table's pages followed by B4's plain version,
@@ -31,34 +34,72 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import gather_pages
+from repro_torch.kernels.common import gather_pages, page_scales
 from repro_torch.kernels.decode_attention import (
     MAX_E,
     MAX_G,
+    check_scales,
     decode_attention_plain,
     split_plan,
 )
 
-# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
-LAUNCHES = {"paged_decode": 0}
+# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
+# by branch: bf16/fp32 caches and int8 caches.
+LAUNCHES = {"paged_decode": 0, "paged_decode_int8": 0}
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_lens, *,
                                  n_split: int, tiles_per_split: int,
-                                 sm_scale: float | None = None
-                                 ) -> torch.Tensor:
-    """q: (B, Hkv, G, E); pools: (Hkv, P, page, E); page_table:
-    (B, max_pages); kv_lens: (B,). Returns (B, Hkv, G, E)."""
+                                 sm_scale: float | None = None,
+                                 k_scales=None, v_scales=None,
+                                 q_pos=None) -> torch.Tensor:
+    """q: (B, Hkv, R, E); pools: (Hkv, P, page, E), int8 with
+    ``k_scales``/``v_scales`` (Hkv, P); page_table: (B, max_pages);
+    kv_lens: (B,); ``q_pos`` (B, R), when given, the position of each
+    query row (B7). Returns (B, Hkv, R, E)."""
     b, hkv, g, e = q.shape
+    page = k_pages.shape[2]
     k = gather_pages(k_pages, page_table)           # (B, Hkv, S, E)
     v = gather_pages(v_pages, page_table)
     s_len = k.shape[2]
     lens = kv_lens.to(q.device).repeat_interleave(hkv)
+    ks = vs = None
+    if k_scales is not None:
+        ks = page_scales(k_scales, page_table, page).reshape(b * hkv, s_len)
+        vs = page_scales(v_scales, page_table, page).reshape(b * hkv, s_len)
+    if q_pos is not None:
+        q_pos = q_pos.to(q.device).repeat_interleave(hkv, dim=0)
     o = decode_attention_plain(
         q.reshape(b * hkv, g, e), k.reshape(b * hkv, s_len, e),
         v.reshape(b * hkv, s_len, e), lens, n_split=n_split,
-        tiles_per_split=tiles_per_split, sm_scale=sm_scale)
+        tiles_per_split=tiles_per_split, sm_scale=sm_scale, k_scale=ks,
+        v_scale=vs, q_pos=q_pos)
     return o.reshape(b, hkv, g, e)
+
+
+def check_paged(q, k_pages, v_pages, page_table, k_scales, v_scales,
+                *int_args) -> bool:
+    """The kernel-side checks of B5-B7: contiguous operands on q's
+    device, int32 index tensors, a pool of q's dtype or int8 with its
+    scales. Returns whether the pool is int8."""
+    _, n_pages = k_pages.shape[:2]
+    quantized = check_scales(k_pages, v_pages, k_scales, v_scales,
+                             (k_pages.shape[0], n_pages))
+    if quantized and q.shape[-1] % 16:
+        raise ValueError(f"int8 pools need E % 16 == 0, got {q.shape[-1]}")
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous() and page_table.is_contiguous()):
+        raise ValueError("q, the pools and page_table must be contiguous")
+    if k_pages.device != q.device or v_pages.device != q.device or (
+            not quantized and (k_pages.dtype != q.dtype
+                               or v_pages.dtype != q.dtype)):
+        raise ValueError("q and the pools must share one device, and one "
+                         "dtype unless the pools are int8")
+    for t in (page_table,) + int_args:
+        if t.dtype != torch.int32 or t.device != q.device:
+            raise ValueError("page tables, lengths and starts must be "
+                             "int32 on q's device")
+    return quantized
 
 
 def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
@@ -70,12 +111,10 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     ``page_table`` (B, max_pages) and ``kv_lens`` (B,) are int32 tensors on
     q's device. The split is planned over the table's capacity
     (max_pages·page rows), so no host sync is needed; blocks past a
-    sequence's ``kv_len`` exit at once. A CUDA tensor launches B6; a CPU
-    tensor runs the plain version.
+    sequence's ``kv_len`` exit at once. Int8 pools come with their
+    (Hkv, P) fp32 ``k_scales``/``v_scales``. A CUDA tensor launches B6; a
+    CPU tensor runs the plain version.
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "the int8 branch of paged decode attention is not ported yet")
     b, hkv, g, e = q.shape
     hkv_p, n_pages, page_size, e_p = k_pages.shape
     if hkv_p != hkv or e_p != e or v_pages.shape != k_pages.shape:
@@ -92,20 +131,14 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, kv_lens, n_split=n_split,
-            tiles_per_split=tps, sm_scale=sm_scale)
+            tiles_per_split=tps, sm_scale=sm_scale, k_scales=k_scales,
+            v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if g > MAX_G or e > MAX_E or e % 4:
         raise ValueError(f"unsupported decode shape: G={g}, E={e}")
-    if not (q.is_contiguous() and k_pages.is_contiguous()
-            and v_pages.is_contiguous() and page_table.is_contiguous()):
-        raise ValueError("q, the pools and page_table must be contiguous")
-    if (k_pages.dtype != q.dtype or v_pages.dtype != q.dtype
-            or k_pages.device != q.device or v_pages.device != q.device):
-        raise ValueError("q and the pools must share one dtype and device")
-    for name, t in (("page_table", page_table), ("kv_lens", kv_lens)):
-        if t.dtype != torch.int32 or t.device != q.device:
-            raise ValueError(f"{name} must be int32 on q's device")
+    quantized = check_paged(q, k_pages, v_pages, page_table, k_scales,
+                            v_scales, kv_lens)
     lib = _build.library("paged_decode_attention")
     o = torch.empty_like(q)
     m_part = torch.empty((b * hkv, n_split, g), dtype=torch.float32,
@@ -116,10 +149,12 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     scale = (e ** -0.5) if sm_scale is None else sm_scale
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), kv_lens.data_ptr(), o.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), b, hkv, g,
-        n_pages, page_size, max_pages, e, n_split, tps, float(scale),
-        _build.dtype_code(q.dtype), _build.stream_handle(q.device))
+        _build.ptr(k_scales), _build.ptr(v_scales), page_table.data_ptr(),
+        kv_lens.data_ptr(), o.data_ptr(), m_part.data_ptr(),
+        l_part.data_ptr(), acc_part.data_ptr(), b, hkv, g, n_pages,
+        page_size, max_pages, e, n_split, tps, float(scale),
+        _build.dtype_code(q.dtype), int(quantized),
+        _build.stream_handle(q.device))
     _build.check(lib, err, "paged_decode_attention_launch")
-    LAUNCHES["paged_decode"] += 1
+    LAUNCHES["paged_decode_int8" if quantized else "paged_decode"] += 1
     return o

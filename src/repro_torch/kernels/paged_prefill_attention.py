@@ -1,7 +1,7 @@
 """Chunked prefill attention over a paged KV pool: kernel B5.
 
 Port of ``repro/kernels/paged_prefill_attention.py``
-(``paged_prefill_attention_flat``), the bf16/fp32 pool branch. One
+(``paged_prefill_attention_flat``). One
 sequence's prompt chunk, q (Hq, chunk, E) with row ``i`` at absolute
 position ``q_offset + i``, attends causally to the sequence's first
 ``kv_len`` logical rows: all earlier context and the chunk's own rows,
@@ -20,8 +20,10 @@ diagonal or the ``kv_len`` tail take the fused select of
 ``kv_len`` are launch integers. Pad rows at or past ``kv_len`` see every
 live key and return values the caller drops.
 
-The int8 branch of the TPU kernel (``k_scales``/``v_scales``) is not
-ported yet: the wrapper raises ``NotImplementedError`` when given scales.
+An int8 pool carries one fp32 scale per (kv head, page),
+``k_scales``/``v_scales`` (Hkv, P), which the kernel reads per tile
+column through the table: the K scale multiplies the score, the V scale
+folds into P after the row sum, in the TPU kernel's order.
 
 ``paged_prefill_attention_plain`` computes the same function in PyTorch:
 the live tiles gathered through the table, then B3's plain version with
@@ -35,11 +37,17 @@ import torch
 
 from repro_torch.core.policy import KV_TILE
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_prefill_tile, gather_pages
+from repro_torch.kernels.common import (
+    check_prefill_tile,
+    gather_pages,
+    page_scales,
+)
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.paged_decode_attention import check_paged
 
-# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
-LAUNCHES = {"paged_prefill": 0}
+# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
+# by branch: bf16/fp32 caches and int8 caches.
+LAUNCHES = {"paged_prefill": 0, "paged_prefill_int8": 0}
 
 
 def live_tiles(kv_len: int, blk_kv: int = KV_TILE) -> int:
@@ -50,23 +58,30 @@ def live_tiles(kv_len: int, blk_kv: int = KV_TILE) -> int:
 def paged_prefill_attention_plain(q, k_pages, v_pages, page_table, *,
                                   q_offset: int, kv_len: int, blk_q: int,
                                   blk_kv: int = KV_TILE,
-                                  sm_scale: float | None = None
+                                  sm_scale: float | None = None,
+                                  k_scales=None, v_scales=None
                                   ) -> torch.Tensor:
-    """q: (Hq, Nq, E), Nq % blk_q == 0; pools: (Hkv, P, page, E);
-    page_table: (max_pages,). Returns (Hq, Nq, E)."""
-    hq, nq, e = q.shape
+    """q: (Hq, Nq, E), Nq % blk_q == 0; pools: (Hkv, P, page, E), int8
+    with ``k_scales``/``v_scales`` (Hkv, P); page_table: (max_pages,).
+    Returns (Hq, Nq, E)."""
     n = live_tiles(kv_len, blk_kv) * blk_kv
     if n == 0:
         return torch.zeros_like(q)
-    k = gather_pages(k_pages, page_table)           # (Hkv, S, E)
-    v = gather_pages(v_pages, page_table)
-    pad = max(0, n - k.shape[1])
-    k = torch.nn.functional.pad(k, (0, 0, 0, pad))[:, :n]
-    v = torch.nn.functional.pad(v, (0, 0, 0, pad))[:, :n]
-    return flash_attention_plain(q, k, v, blk_q=blk_q, blk_kv=blk_kv,
-                                 causal=True, sm_scale=sm_scale,
-                                 q_offset=q_offset,
-                                 kv_len=kv_len if kv_len < n else None)
+    page = k_pages.shape[2]
+
+    def rows(x):          # (Hkv, S, ...) cut or zero-padded to n rows
+        pad = (0, 0) * (x.dim() - 2) + (0, max(0, n - x.shape[1]))
+        return torch.nn.functional.pad(x, pad)[:, :n]
+
+    ks = vs = None
+    if k_scales is not None:
+        ks = rows(page_scales(k_scales, page_table, page))
+        vs = rows(page_scales(v_scales, page_table, page))
+    return flash_attention_plain(
+        q, rows(gather_pages(k_pages, page_table)),
+        rows(gather_pages(v_pages, page_table)), blk_q=blk_q, blk_kv=blk_kv,
+        causal=True, sm_scale=sm_scale, q_offset=q_offset,
+        kv_len=kv_len if kv_len < n else None, k_scale=ks, v_scale=vs)
 
 
 def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, *,
@@ -76,11 +91,9 @@ def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, *,
                                  ) -> torch.Tensor:
     """One prompt chunk, q (Hq, Nq, E) with Nq % blk_q == 0, against the
     page pools through ``page_table`` (max_pages,), an int32 tensor on q's
-    device covering at least ``kv_len`` rows. A CUDA tensor launches B5;
-    a CPU tensor runs the plain version."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "the int8 branch of paged prefill attention is not ported yet")
+    device covering at least ``kv_len`` rows. Int8 pools come with their
+    (Hkv, P) fp32 ``k_scales``/``v_scales``. A CUDA tensor launches B5; a
+    CPU tensor runs the plain version."""
     hq, nq, e = q.shape
     hkv, n_pages, page_size, e_p = k_pages.shape
     if hq % hkv or e_p != e or v_pages.shape != k_pages.shape:
@@ -95,26 +108,22 @@ def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, *,
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, k_pages, v_pages, page_table, q_offset=q_offset,
-            kv_len=kv_len, blk_q=blk_q, sm_scale=sm_scale)
+            kv_len=kv_len, blk_q=blk_q, sm_scale=sm_scale,
+            k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     check_prefill_tile(blk_q, e)
-    if not (q.is_contiguous() and k_pages.is_contiguous()
-            and v_pages.is_contiguous() and page_table.is_contiguous()):
-        raise ValueError("q, the pools and page_table must be contiguous")
-    if (k_pages.dtype != q.dtype or v_pages.dtype != q.dtype
-            or k_pages.device != q.device or v_pages.device != q.device):
-        raise ValueError("q and the pools must share one dtype and device")
-    if page_table.dtype != torch.int32 or page_table.device != q.device:
-        raise ValueError("page_table must be int32 on q's device")
+    quantized = check_paged(q, k_pages, v_pages, page_table, k_scales,
+                            v_scales)
     lib = _build.library("paged_prefill_attention")
     o = torch.empty_like(q)
     scale = (e ** -0.5) if sm_scale is None else sm_scale
     err = lib.paged_prefill_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), o.data_ptr(), hq, nq, e, hq // hkv, blk_q,
-        n_pages, page_size, int(q_offset), int(kv_len), float(scale),
-        _build.dtype_code(q.dtype), _build.stream_handle(q.device))
+        _build.ptr(k_scales), _build.ptr(v_scales), page_table.data_ptr(),
+        o.data_ptr(), hq, nq, e, hq // hkv, blk_q, n_pages, page_size,
+        int(q_offset), int(kv_len), float(scale), _build.dtype_code(q.dtype),
+        int(quantized), _build.stream_handle(q.device))
     _build.check(lib, err, "paged_prefill_attention_launch")
-    LAUNCHES["paged_prefill"] += 1
+    LAUNCHES["paged_prefill_int8" if quantized else "paged_prefill"] += 1
     return o

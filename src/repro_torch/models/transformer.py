@@ -13,8 +13,17 @@ the cache in place, which saves a copy of the cache per step.
 The paged cache is ``{"layers": [{"k", "v"}, ...]}`` with one
 (Hkv, P, page, E) pool pair per layer, shared by every sequence through
 its page table (one row per sequence, the same for every layer).
-``prefill_chunk`` writes one prompt chunk's K/V into its pages and
-``paged_decode_step`` writes each sequence's new row, both in place.
+``prefill_chunk`` writes one prompt chunk's K/V into its pages,
+``paged_decode_step`` writes each sequence's new row and
+``paged_verify_step`` up to k candidate rows per sequence, all in place.
+
+``kv_dtype=torch.int8`` stores either cache quantized (symmetric absmax,
+``kernels/common.quantize_q8``) beside fp32 scales, ``"k_scale"`` and
+``"v_scale"`` in each layer's dict: one per row (B, Hkv, C) on the dense
+cache, where a row is written once and quantized with its own scale; one
+per page (Hkv, P) on the pools, where a chunk write quantizes whole pages
+and a decode or verify append requantizes each touched page over its
+live rows.
 
 The Q/K/V/O, MLP and unembedding projections are ``torch.matmul``, as
 the reference leaves them to XLA; attention goes through
@@ -30,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.common import (
     ArchConfig,
     apply_rope,
@@ -126,20 +136,101 @@ def attn_block(params, x, cfg: ArchConfig, *, positions):
     return _merge_heads(o) @ params["wo"].to(x.dtype), (k, v)
 
 
-def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int):
+def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
+                k_scale=None, v_scale=None):
     """One-token self-attention. x: (B, 1, D); cache_[kv]: (B, Hkv, C, E)
-    with rows [0, pos) filled; writes row ``pos`` in place."""
+    with rows [0, pos) filled; writes row ``pos`` in place. An int8 cache
+    carries per-row (B, Hkv, C) ``k_scale``/``v_scale``: the new row is
+    quantized with its own absmax scale."""
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
-    cache_k[:, :, pos] = k[:, :, 0]
-    cache_v[:, :, pos] = v[:, :, 0]
+    if cache_k.dtype == torch.int8:
+        k, k_scale[:, :, pos] = quantize_q8(k[:, :, 0], -1)
+        v, v_scale[:, :, pos] = quantize_q8(v[:, :, 0], -1)
+        cache_k[:, :, pos], cache_v[:, :, pos] = k, v
+    else:
+        cache_k[:, :, pos] = k[:, :, 0]
+        cache_v[:, :, pos] = v[:, :, 0]
     o = attn_mod.decode_attention(q[:, :, 0], cache_k, cache_v, pos + 1,
-                                  impl=cfg.attn_impl)
+                                  impl=cfg.attn_impl, k_scale=k_scale,
+                                  v_scale=v_scale)
     return o.reshape(x.shape[0], 1, -1) @ params["wo"].to(x.dtype)
 
 
+def _paged_append_requant(pages, scales, page_ids, slots, row) -> None:
+    """Append one quantized row per sequence, in place.
+
+    pages: (Hkv, P, page, E) int8; scales: (Hkv, P) fp32; page_ids, slots:
+    (B,); row: (Hkv, B, E). The touched page's live rows [0, slot) are
+    dequantized, the new row inserted, and the page requantized under a
+    fresh absmax, so a page's scale always covers exactly the rows written
+    so far. Stale rows (>= slot: a reused page keeps its old bytes until
+    they are overwritten) stay out of both the absmax and the rewrite.
+    While the scale is unchanged the round trip gives the same int8
+    values. Idle slots all land on scratch page 0, which no live sequence
+    reads; no other page is written twice.
+    """
+    page = pages.shape[2]
+    ids = page_ids.long()
+    pg = pages[:, ids].float() * scales[:, ids][:, :, None, None]
+    live = (torch.arange(page, device=pages.device)[None, :]
+            < slots[:, None])                          # (B, page)
+    pg = torch.where(live[None, :, :, None], pg, 0.0)
+    pg[:, torch.arange(ids.shape[0], device=pages.device),
+       slots.long()] = row.float()
+    pages[:, ids], scales[:, ids] = quantize_q8(pg, (-2, -1))
+
+
+def _paged_append_n(pages, scales, table, positions, rows, n_valid, *,
+                    spec: int) -> None:
+    """Append up to ``spec`` candidate rows per sequence in one pass, in
+    place.
+
+    pages: (Hkv, P, page, E); scales: (Hkv, P) fp32, or None for a pool of
+    the compute dtype; table: (B, max_pages); positions: (B,) position of
+    each sequence's first candidate; rows: (Hkv, B, k, E); n_valid: (B,)
+    rows that land (fewer than k near a token budget, 0 for idle slots;
+    the surplus rows are zeroed out of the write). The candidates may
+    straddle a page boundary, so the touched span, at most ``t_max``
+    pages, all allocated by the engine beforehand, is gathered whole, the
+    candidates inserted at their offsets, and for int8 pools every touched
+    page requantized under one fresh absmax over its live rows (stale
+    bytes stay out of the absmax and the rewrite). Window pages past a
+    sequence's last candidate, and idle slots, land on scratch page 0.
+    """
+    hkv, _, page, e = pages.shape
+    bsz = rows.shape[1]
+    dev = pages.device
+    t_max = (page - 1 + spec - 1) // page + 1
+    positions, n_valid = positions.long(), n_valid.long()
+    p0 = positions // page
+    p_last = (positions + n_valid - 1) // page      # -1 when n_valid == 0
+    off0 = positions % page
+    lp = p0[:, None] + torch.arange(t_max, device=dev)[None, :]  # (B, t_max)
+    ids = torch.where(
+        lp <= p_last[:, None],
+        torch.take_along_dim(table.long(), lp.clamp(0, table.shape[1] - 1),
+                             dim=1),
+        0)
+    win = pages[:, ids].float()                     # (Hkv, B, t_max, pg, E)
+    if scales is not None:
+        win = win * scales[:, ids][..., None, None]
+    win = win.reshape(hkv, bsz, t_max * page, e)
+    flat = torch.arange(t_max * page, device=dev)[None, :]
+    win = torch.where((flat < off0[:, None])[None, :, :, None], win, 0.0)
+    idx = off0[:, None] + torch.arange(spec, device=dev)[None, :]  # (B, k)
+    win[:, torch.arange(bsz, device=dev)[:, None], idx] = rows.float()
+    keep = flat < (off0 + n_valid)[:, None]         # drop surplus rows
+    win = torch.where(keep[None, :, :, None], win, 0.0)
+    win = win.reshape(hkv, bsz, t_max, page, e)
+    if scales is None:
+        pages[:, ids] = win.to(pages.dtype)
+    else:
+        pages[:, ids], scales[:, ids] = quantize_q8(win, (-2, -1))
+
+
 def attn_paged_decode(params, x, cfg: ArchConfig, *, k_pages, v_pages,
-                      page_table, positions):
+                      page_table, positions, k_scales=None, v_scales=None):
     """One-token self-attention against a paged (block-table) cache.
 
     x: (B, 1, D); pools: (Hkv, P, page, E); page_table: (B, max_pages)
@@ -149,6 +240,8 @@ def attn_paged_decode(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     ``kv_len = position + 1``. Idle slots (a table row of scratch page 0,
     position 0) all write row 0 of the scratch page; no live sequence
     reads it, so the order in which those writes land does not matter.
+    Int8 pools carry (Hkv, P) ``k_scales``/``v_scales`` and append
+    through ``_paged_append_requant``.
     """
     b = x.shape[0]
     page = k_pages.shape[2]
@@ -156,17 +249,52 @@ def attn_paged_decode(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     pos = positions.long()
     page_ids = page_table[torch.arange(b, device=x.device), pos // page]
     slots = pos % page
-    k_pages[:, page_ids.long(), slots] = k[:, :, 0].transpose(0, 1)
-    v_pages[:, page_ids.long(), slots] = v[:, :, 0].transpose(0, 1)
+    k_row = k[:, :, 0].transpose(0, 1)              # (Hkv, B, E)
+    v_row = v[:, :, 0].transpose(0, 1)
+    if k_pages.dtype == torch.int8:
+        _paged_append_requant(k_pages, k_scales, page_ids, slots, k_row)
+        _paged_append_requant(v_pages, v_scales, page_ids, slots, v_row)
+    else:
+        k_pages[:, page_ids.long(), slots] = k_row
+        v_pages[:, page_ids.long(), slots] = v_row
     o = attn_mod.paged_decode_attention(q[:, :, 0], k_pages, v_pages,
                                         page_table, positions + 1,
-                                        impl=cfg.attn_impl)
+                                        impl=cfg.attn_impl,
+                                        k_scales=k_scales, v_scales=v_scales)
     return o.reshape(b, 1, -1) @ params["wo"].to(x.dtype)
+
+
+def attn_paged_verify(params, x, cfg: ArchConfig, *, k_pages, v_pages,
+                      page_table, positions, n_rows, k_scales=None,
+                      v_scales=None):
+    """k-position speculative-verify self-attention on a paged cache.
+
+    x: (B, k, D), each slot's last emitted token and up to k - 1 drafted
+    ones, rows at positions ``positions[b] + i``; n_rows: (B,) candidate
+    rows that land (fewer near a token budget, 0 for idle slots). The
+    valid candidates' K/V rows are written first, in one requant-safe
+    pass into pages the engine allocated beforehand; then the k-row Q
+    block attends through the page table with ``kv_len = positions +
+    n_rows``. Rows past ``n_rows`` return values the engine drops. Rows of
+    rejected candidates stay in the pool as stale bytes: later kv_lens
+    stop before them and the requant masks skip them.
+    """
+    b, k = x.shape[0], x.shape[1]
+    pos_bk = positions[:, None] + torch.arange(k, device=x.device)[None, :]
+    q, kk, vv = _qkv(params, x, cfg, pos_bk[:, None, :])
+    for pages, scales, rows in ((k_pages, k_scales, kk),
+                                (v_pages, v_scales, vv)):
+        _paged_append_n(pages, scales, page_table, positions,
+                        rows.transpose(0, 1), n_rows, spec=k)
+    o = attn_mod.paged_verify_attention(
+        q.transpose(1, 2), k_pages, v_pages, page_table, positions + n_rows,
+        positions, impl=cfg.attn_impl, k_scales=k_scales, v_scales=v_scales)
+    return o.reshape(b, k, -1) @ params["wo"].to(x.dtype)
 
 
 def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
                        page_table, chunk_page_ids, q_offset: int,
-                       kv_len: int):
+                       kv_len: int, k_scales=None, v_scales=None):
     """One prompt chunk of self-attention against a paged cache.
 
     x: (1, chunk, D), rows at absolute positions ``q_offset + i``; pools:
@@ -177,7 +305,9 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     into their pages first, rows past ``kv_len`` zeroed, then the chunk's
     Q attends through the page table and sees prior context and its own
     keys alike (the write is enqueued on the same stream before the
-    kernel). Returns (1, chunk, D).
+    kernel). Int8 pools quantize whole pages at write time, the zeroed
+    rows included, and overwrite their (Hkv, P) scales with the values, so
+    a reused page needs no scale reset. Returns (1, chunk, D).
     """
     chunk = x.shape[1]
     hkv, _, page, e = k_pages.shape
@@ -185,11 +315,16 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     q, k, v = _qkv(params, x, cfg, positions)
     live = (positions < kv_len).view(1, chunk, 1)
     ids = chunk_page_ids.long()
-    for pages, rows in ((k_pages, k[0]), (v_pages, v[0])):
+    for pages, scales, rows in ((k_pages, k_scales, k[0]),
+                                (v_pages, v_scales, v[0])):
         rows = torch.where(live, rows, 0).reshape(hkv, chunk // page, page, e)
-        pages[:, ids] = rows.to(pages.dtype)
+        if pages.dtype == torch.int8:
+            pages[:, ids], scales[:, ids] = quantize_q8(rows, (-2, -1))
+        else:
+            pages[:, ids] = rows.to(pages.dtype)
     o = attn_mod.paged_prefill_attention(q[0], k_pages, v_pages, page_table,
-                                         q_offset, kv_len, impl=cfg.attn_impl)
+                                         q_offset, kv_len, impl=cfg.attn_impl,
+                                         k_scales=k_scales, v_scales=v_scales)
     return _merge_heads(o[None]) @ params["wo"].to(x.dtype)
 
 
@@ -219,19 +354,45 @@ def forward(params, tokens, cfg: ArchConfig):
     return _unembed(params, x, cfg), 0.0
 
 
+def kv_storage_dtype(kv_dtype) -> torch.dtype | None:
+    """A cache's ``kv_dtype`` argument as a torch dtype: None (the compute
+    dtype) or ``torch.int8`` (also given as ``"int8"``)."""
+    if kv_dtype is None or kv_dtype == torch.int8:
+        return kv_dtype
+    if kv_dtype == "int8":
+        return torch.int8
+    raise ValueError(f"kv_dtype must be None or int8, got {kv_dtype!r}")
+
+
+def _kv_layers(cfg: ArchConfig, shape, scale_shape, kv_dtype,
+               device) -> dict:
+    """One zeroed K/V pair per layer of ``shape``, in ``kv_dtype`` (default
+    the compute dtype); int8 adds zeroed fp32 scales of ``scale_shape``."""
+    dt = kv_storage_dtype(kv_dtype) or cfg.compute_dtype
+    layers = []
+    for _ in range(cfg.num_layers):
+        blk = {"k": torch.zeros(shape, dtype=dt, device=device),
+               "v": torch.zeros(shape, dtype=dt, device=device)}
+        if dt == torch.int8:
+            blk["k_scale"] = torch.zeros(scale_shape, device=device)
+            blk["v_scale"] = torch.zeros(scale_shape, device=device)
+        layers.append(blk)
+    return {"layers": layers}
+
+
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-               device="cuda") -> dict:
-    dev = resolve_device(device)
+               device="cuda", kv_dtype=None) -> dict:
+    """Dense (B, Hkv, max_len, E) K/V per layer; ``kv_dtype=torch.int8``
+    (or ``"int8"``) adds per-row (B, Hkv, max_len) fp32 scales."""
     shape = (batch, cfg.num_kv_heads, max_len, cfg.hd)
-    return {"layers": [
-        {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-         "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
-        for _ in range(cfg.num_layers)
-    ]}
+    return _kv_layers(cfg, shape, shape[:3], kv_dtype,
+                      resolve_device(device))
 
 
-def prefill(params, cfg: ArchConfig, tokens, max_len: int):
-    """Run the prompt and fill a fresh cache.
+def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
+            kv_dtype=None):
+    """Run the prompt and fill a fresh cache; ``kv_dtype=torch.int8``
+    quantizes each prompt row with its own scale.
 
     Returns (last-position logits (B, 1, V), cache)."""
     b, s = tokens.shape
@@ -239,11 +400,15 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int):
         raise ValueError(f"prompt of {s} tokens exceeds the cache ({max_len})")
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)
-    cache = make_cache(cfg, b, max_len, device=x.device)
+    cache = make_cache(cfg, b, max_len, device=x.device, kv_dtype=kv_dtype)
     for layer, blk in zip(params["layers"], cache["layers"]):
         y, (k, v) = attn_block(layer["attn"], x, cfg, positions=positions)
-        blk["k"][:, :, :s] = k
-        blk["v"][:, :, :s] = v
+        if blk["k"].dtype == torch.int8:
+            blk["k"][:, :, :s], blk["k_scale"][:, :, :s] = quantize_q8(k, -1)
+            blk["v"][:, :, :s], blk["v_scale"][:, :, :s] = quantize_q8(v, -1)
+        else:
+            blk["k"][:, :, :s] = k
+            blk["v"][:, :, :s] = v
         x = x + y
         x = x + mlp(layer["ffn"], x, cfg)
     return _unembed(params, x[:, -1:], cfg), cache
@@ -255,7 +420,9 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
     x = _embed(params, token, cfg)
     for layer, blk in zip(params["layers"], cache["layers"]):
         x = x + attn_decode(layer["attn"], x, cfg, cache_k=blk["k"],
-                            cache_v=blk["v"], pos=pos)
+                            cache_v=blk["v"], pos=pos,
+                            k_scale=blk.get("k_scale"),
+                            v_scale=blk.get("v_scale"))
         x = x + mlp(layer["ffn"], x, cfg)
     return _unembed(params, x, cfg), cache
 
@@ -273,18 +440,15 @@ def _check_paged_support(cfg: ArchConfig) -> None:
 
 
 def make_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
-                     device="cuda") -> dict:
-    """Global page pools, one (Hkv, P, page, E) pair per layer. Page 0 is
+                     device="cuda", kv_dtype=None) -> dict:
+    """Global page pools, one (Hkv, P, page, E) pair per layer
+    (``kv_dtype=torch.int8`` adds per-page (Hkv, P) fp32 scales). Page 0 is
     the scratch page of the cache manager; the page table is not part of
     the cache, it is an argument of every paged step."""
     _check_paged_support(cfg)
-    dev = resolve_device(device)
     shape = (cfg.num_kv_heads, num_pages, page_size, cfg.hd)
-    return {"layers": [
-        {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-         "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
-        for _ in range(cfg.num_layers)
-    ]}
+    return _kv_layers(cfg, shape, shape[:2], kv_dtype,
+                      resolve_device(device))
 
 
 def paged_decode_step(params, cfg: ArchConfig, token, cache, page_table,
@@ -297,7 +461,34 @@ def paged_decode_step(params, cfg: ArchConfig, token, cache, page_table,
     for layer, blk in zip(params["layers"], cache["layers"]):
         x = x + attn_paged_decode(layer["attn"], x, cfg, k_pages=blk["k"],
                                   v_pages=blk["v"], page_table=page_table,
-                                  positions=positions)
+                                  positions=positions,
+                                  k_scales=blk.get("k_scale"),
+                                  v_scales=blk.get("v_scale"))
+        x = x + mlp(layer["ffn"], x, cfg)
+    return _unembed(params, x, cfg), cache
+
+
+def paged_verify_step(params, cfg: ArchConfig, tokens, cache, page_table,
+                      positions, n_rows):
+    """One speculative verify step.
+
+    tokens: (B, k) int, column 0 each slot's last emitted token, columns
+    1.. its drafted candidates; page_table: (B, max_pages) int32;
+    positions: (B,) int32 position of column 0 (the kv_len before the
+    step); n_rows: (B,) int32 candidate rows to verify (0 for idle slots;
+    columns past it are neither written nor meaningfully attended).
+    Returns (logits (B, k, V), cache): ``argmax(logits[:, i - 1])`` is the
+    greedy token at drafted position i, so the host accepts the longest
+    matching draft prefix plus one token. k = 1 is ``paged_decode_step``.
+    """
+    _check_paged_support(cfg)
+    x = _embed(params, tokens, cfg)
+    for layer, blk in zip(params["layers"], cache["layers"]):
+        x = x + attn_paged_verify(layer["attn"], x, cfg, k_pages=blk["k"],
+                                  v_pages=blk["v"], page_table=page_table,
+                                  positions=positions, n_rows=n_rows,
+                                  k_scales=blk.get("k_scale"),
+                                  v_scales=blk.get("v_scale"))
         x = x + mlp(layer["ffn"], x, cfg)
     return _unembed(params, x, cfg), cache
 
@@ -320,7 +511,8 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, page_table,
         x = x + attn_paged_prefill(
             layer["attn"], x, cfg, k_pages=blk["k"], v_pages=blk["v"],
             page_table=page_table, chunk_page_ids=chunk_page_ids,
-            q_offset=q_offset, kv_len=kv_len)
+            q_offset=q_offset, kv_len=kv_len, k_scales=blk.get("k_scale"),
+            v_scales=blk.get("v_scale"))
         x = x + mlp(layer["ffn"], x, cfg)
     last = x[:, chunk_len - 1:chunk_len]
     return _unembed(params, last, cfg)[:, 0], cache

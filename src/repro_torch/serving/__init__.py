@@ -1,3 +1,4 @@
+from repro_torch.serving.drafter import NgramDrafter
 from repro_torch.serving.engine import ContinuousBatchingEngine, ServingEngine
 from repro_torch.serving.faults import (
     NO_FAULTS,
@@ -25,7 +26,8 @@ from repro_torch.serving.paged_cache import (
 )
 
 __all__ = [
-    "ServingEngine", "ContinuousBatchingEngine", "FaultInjector",
+    "ServingEngine", "ContinuousBatchingEngine", "NgramDrafter",
+    "FaultInjector",
     "NO_FAULTS", "ScriptedFaults", "SeededFaults", "PoolAuditor",
     "PoolAuditError", "LifecycleError", "Request", "RequestRecord",
     "RequestState", "TERMINAL_STATES", "validate_request", "SCRATCH_PAGE",

@@ -1,8 +1,10 @@
 """Serving engines: dense batched waves and paged continuous batching.
 
 Port of ``ServingEngine`` and ``ContinuousBatchingEngine`` from
-``repro/serving/engine.py`` (the latter without speculative decoding and
-prefix sharing).
+``repro/serving/engine.py`` (the latter without prefix sharing). Both
+take ``kv_dtype="int8"``: the wave engine then keeps a dense int8 cache
+with per-row scales, the continuous engine int8 page pools with per-page
+scales.
 
 ``ServingEngine`` groups requests into buckets of equal prompt length,
 pads a wave of up to ``batch_size`` requests with dummy rows to a fixed
@@ -15,7 +17,10 @@ their pages between steps, and each engine step packs up to
 ``chunk_size`` prompt tokens of the head-of-queue request with all live
 decode slots, so decode advances while a long prompt is admitted. Pool
 exhaustion mid-decode preempts the youngest live request, which re-queues
-and later re-prefills its prompt and generated tokens.
+and later re-prefills its prompt and generated tokens. With
+``spec_depth`` set, pure-decode steps become speculative: a prompt-lookup
+drafter proposes candidates, one verify step scores them all, and each
+slot keeps its longest greedy-matching prefix plus one token.
 
 Each step of either engine moves ONE packed int32 tensor from the device
 to the host: the next tokens packed with the finite-logit guard's flags.
@@ -42,10 +47,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.autotune import tune_pool_headroom, tune_prefill_chunk
+from repro_torch.core.autotune import (
+    tune_pool_headroom,
+    tune_prefill_chunk,
+    tune_spec_depth,
+)
 from repro_torch.models.api import Model
+from repro_torch.models.transformer import kv_storage_dtype
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.serving.drafter import NgramDrafter
 from repro_torch.serving.faults import NO_FAULTS
 from repro_torch.serving.lifecycle import (
     Request,
@@ -58,6 +69,7 @@ from repro_torch.serving.paged_cache import (
     SCRATCH_PAGE,
     PagedKVCacheManager,
     PagePoolExhausted,
+    page_footprint_bytes,
 )
 
 __all__ = ["Request", "ServingEngine", "ContinuousBatchingEngine"]
@@ -105,8 +117,13 @@ def _trace_request(rec: RequestRecord, tracer) -> None:
 
 
 class ServingEngine:
+    """Batched waves over a dense cache; ``kv_dtype="int8"`` quantizes the
+    cache (each prompt row at prefill, each decoded row as it is written)
+    and decode reads it through B4's int8 branch."""
+
     def __init__(self, model: Model, params, *, max_len: int = 512,
-                 batch_size: int = 4, tracer=None, device="cuda"):
+                 batch_size: int = 4, kv_dtype=None, tracer=None,
+                 device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -116,6 +133,7 @@ class ServingEngine:
         self.cfg = model.cfg
         self.max_len = max_len
         self.batch_size = batch_size
+        self.kv_dtype = kv_storage_dtype(kv_dtype)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = MetricsRegistry()
         self.serve_t0 = 0.0
@@ -124,7 +142,8 @@ class ServingEngine:
         self._step_idx = 0
 
     def _prefill(self, tokens):
-        return self.model.prefill(self.params, self.cfg, tokens, self.max_len)
+        return self.model.prefill(self.params, self.cfg, tokens, self.max_len,
+                                  kv_dtype=self.kv_dtype)
 
     def _decode(self, cache, token, pos: int):
         return self.model.decode_step(self.params, self.cfg, token, cache,
@@ -320,23 +339,37 @@ class ContinuousBatchingEngine:
     overcommitted, 0 otherwise. A request preempted more than
     ``max_preemptions`` times fails.
 
-    ``spec_depth`` (speculative decoding) and ``prefix_cache=True``
-    (shared-prefix pages) are not ported yet and raise
-    ``NotImplementedError``.
+    ``kv_dtype="int8"`` stores the pools quantized with per-page scales:
+    chunk writes quantize whole pages, decode and verify appends
+    requantize the pages they touch.
+
+    ``spec_depth`` = k switches pure-decode steps to speculative decoding:
+    a prompt-lookup drafter (``spec_ngram``) proposes up to k - 1
+    candidates per live slot, one verify dispatch scores every candidate
+    position against the pools, and each slot keeps its longest prefix of
+    drafts equal to the model's greedy argmax plus one token, so at least
+    one token a step and the same tokens as plain greedy decode. The pages
+    the candidates land in are reserved before the dispatch
+    (``ensure_capacity``, preempting the youngest request if the pool is
+    short) and the kept tokens are committed after it (``append_n``). Each
+    request's acceptance EMA sets how many drafts it asks for; the
+    dispatch shape stays k. ``spec_depth="auto"`` takes
+    ``core/autotune.tune_spec_depth``. Steps that carry a prompt chunk
+    decode one token as before.
+
+    ``prefix_cache=True`` (shared-prefix pages) is not ported yet and
+    raises ``NotImplementedError``.
     """
 
     def __init__(self, model: Model, params, *, max_len: int = 512,
                  batch_size: int = 4, page_size: int = 16,
-                 num_pages: int | None = None,
+                 num_pages: int | None = None, kv_dtype=None,
                  chunk_size: int | None = None,
                  decode_reserve_frac: float = 1.0,
                  headroom_pages: int | None = None,
                  max_preemptions: int = 32, tracer=None,
-                 spec_depth: int | None = None,
+                 spec_depth: int | str | None = None, spec_ngram: int = 3,
                  prefix_cache: bool = False, device="cuda"):
-        if spec_depth is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet")
         if prefix_cache:
             raise NotImplementedError("prefix sharing is not ported yet")
         self.device = resolve_device(device)
@@ -349,14 +382,18 @@ class ContinuousBatchingEngine:
         self.max_len = max_len
         self.batch_size = batch_size
         self.page_size = page_size
+        self.kv_dtype = kv_storage_dtype(kv_dtype)
         self.max_pages = -(-max_len // page_size)
         if num_pages is None:
             num_pages = batch_size * self.max_pages + 1  # + scratch page
         self.num_pages = num_pages
+        itemsize = self.cfg.compute_dtype.itemsize
+        kv_itemsize = (self.kv_dtype or self.cfg.compute_dtype).itemsize
+        tune = dict(b_h=self.cfg.num_heads, n_ctx=max_len, e=self.cfg.hd,
+                    itemsize=itemsize, page=page_size,
+                    kv_itemsize=kv_itemsize)
         if chunk_size is None:
-            chunk_size = tune_prefill_chunk(
-                b_h=self.cfg.num_heads, n_ctx=max_len, e=self.cfg.hd,
-                itemsize=self.cfg.compute_dtype.itemsize, page=page_size)
+            chunk_size = tune_prefill_chunk(**tune)
         # chunks are page-aligned and never exceed the page-rounded
         # prompt capacity
         chunk_size = max(page_size, min(chunk_size,
@@ -375,6 +412,13 @@ class ContinuousBatchingEngine:
                 if self.decode_reserve_frac < 1.0 else 0)
         self.headroom_pages = headroom_pages
         self.max_preemptions = max_preemptions
+        if spec_depth == "auto":
+            spec_depth = tune_spec_depth(**tune)
+        if spec_depth is not None and spec_depth < 1:
+            raise ValueError(f"spec_depth must be >= 1, got {spec_depth}")
+        self.spec_depth = spec_depth
+        self._drafter = (NgramDrafter(ngram=spec_ngram)
+                         if spec_depth is not None else None)
         self.peak_pages_used = 0  # across serve() calls
         # per-step scheduler log of the last serve() call: whether a
         # prompt chunk was packed and how many decode slots were live
@@ -408,6 +452,23 @@ class ContinuousBatchingEngine:
     @property
     def recompute_tokens(self) -> int:
         return int(self.metrics.counter("serving.recompute_tokens").value)
+
+    @property
+    def spec_stats(self) -> dict:
+        """Speculation of the last serve() call: drafted and accepted
+        totals and the acceptance rate; zeros when speculation is off."""
+        drafted = int(self.metrics.counter("spec.tokens_drafted").value)
+        accepted = int(self.metrics.counter("spec.tokens_accepted").value)
+        return {"drafted": drafted, "accepted": accepted,
+                "acceptance_rate": accepted / drafted if drafted else 0.0}
+
+    def kv_bytes_per_page(self) -> int:
+        """Bytes one page pins across the layer stack, scales included."""
+        cfg = self.cfg
+        return page_footprint_bytes(
+            num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+            page_size=self.page_size, head_dim=cfg.hd,
+            itemsize=(self.kv_dtype or cfg.compute_dtype).itemsize)
 
     # -- one engine step on the device ----------------------------------
 
@@ -444,6 +505,22 @@ class ContinuousBatchingEngine:
         return torch.cat([torch.cat(tokens).to(torch.int32),
                           torch.cat(finite).to(torch.int32)])
 
+    def _verify(self, cache, host: np.ndarray) -> torch.Tensor:
+        """One verify step from ``host``, the step's packed int32 state:
+        [tokens (B·k) | positions (B) | n_rows (B) | page table
+        (B·max_pages)]. The pools are updated in place. Returns the packed
+        int32 result on the device: the k argmaxes of every slot, then
+        their k finite flags."""
+        B, MP, K = self.batch_size, self.max_pages, int(self.spec_depth)
+        dev = torch.from_numpy(host).to(self.device)    # the one H2D copy
+        logits, _ = self.model.paged_verify_step(
+            self.params, self.cfg, dev[:B * K].long().view(B, K), cache,
+            dev[B * K + 2 * B:].view(B, MP), dev[B * K:B * K + B],
+            dev[B * K + B:B * K + 2 * B])
+        flat = logits.reshape(B * K, -1)
+        return torch.cat([torch.argmax(flat, dim=-1).to(torch.int32),
+                          _finite_rows(flat).to(torch.int32)])
+
     def serve(self, requests: list[Request]) -> dict[int, np.ndarray]:
         B, ps = self.batch_size, self.page_size
         mgr = PagedKVCacheManager(self.num_pages, ps, num_slots=B,
@@ -451,7 +528,7 @@ class ContinuousBatchingEngine:
         self._mgr = mgr  # auditable by tests while serve() is live
         cache = self.model.make_cache(
             B, self.max_len, device=self.device, cache_layout="paged",
-            page_size=ps, num_pages=self.num_pages)
+            page_size=ps, num_pages=self.num_pages, kv_dtype=self.kv_dtype)
         self.step_log = []
         self.results = {}
         self._cancel_req = set()
@@ -469,14 +546,25 @@ class ContinuousBatchingEngine:
         m_tokens = m.counter("serving.tokens_generated")
         m_sync = m.histogram("engine.host_sync_s",
                              "device->host transfer wait per step")
+        # "verify" only when speculation is on: a plain serve exports no
+        # empty verify histogram
+        step_kinds = ("decode", "chunk", "chunk+decode") + (
+            ("verify",) if self.spec_depth is not None else ())
         m_step_kind = {
             k: m.histogram(f"engine.step_s.{k}",
                            "step walltime (pack+dispatch+sync) by kind")
-            for k in ("decode", "chunk", "chunk+decode")
+            for k in step_kinds
         }
+        m_drafted = m.counter("spec.tokens_drafted",
+                              "draft candidates sent to verify steps")
+        m_accepted = m.counter("spec.tokens_accepted",
+                               "draft candidates matching greedy argmax")
+        m_accept_rate = m.series("spec.acceptance_rate",
+                                 "per-verify-step draft acceptance by rid")
         m_admit = m.series("admit_walltime_s",
                            "admission wall-clock stamp by rid")
 
+        spec_state: dict[int, dict] = {}  # rid -> {"ema", "k"}
         tr = self.tracer
         tracing = tr.enabled
         self.serve_t0 = time.perf_counter()
@@ -542,6 +630,130 @@ class ContinuousBatchingEngine:
                     return
                 except PagePoolExhausted:
                     continue
+
+        def plan_speculation():
+            """Draft and reserve pages for one verify step.
+
+            For every live slot: how many candidate rows to verify (the
+            request's adaptive k, capped by its remaining budget so the
+            reservation never outgrows ``max_pages_per_seq``), a draft by
+            prompt lookup, and the pages the candidate rows land in,
+            allocated before the dispatch because the device writes them.
+            Exhaustion preempts the youngest live request, possibly the
+            reserving slot itself. Returns (tokens (B, k), n_rows (B,),
+            drafts by slot).
+            """
+            K = int(self.spec_depth)
+            vs_tokens = np.zeros((B, K), np.int32)
+            n_rows = np.zeros((B,), np.int32)
+            drafts: dict[int, list[int]] = {}
+            for slot_i in list(active):
+                if slot_i not in active:
+                    continue  # evicted by an earlier slot's reservation
+                rec_i = active[slot_i]
+                st = spec_state.setdefault(rec_i.rid, {"ema": 1.0, "k": K})
+                want = min(st["k"], rec_i.remaining, K)
+                d = self._drafter.draft(
+                    np.concatenate([
+                        np.asarray(rec_i.request.prompt, np.int64),
+                        np.asarray(rec_i.tokens, np.int64)]),
+                    want - 1) if want > 1 else []
+                nr = 1 + len(d)
+                while slot_i in active:
+                    try:
+                        mgr.ensure_capacity(slot_i, nr)
+                        break
+                    except PagePoolExhausted:
+                        preempt(max(active,
+                                    key=lambda s: active[s].admit_seq))
+                if slot_i not in active:
+                    continue  # the reserving slot was the victim
+                drafts[slot_i] = d
+                vs_tokens[slot_i, 0] = tokens[slot_i, 0]
+                vs_tokens[slot_i, 1:1 + len(d)] = d
+                n_rows[slot_i] = nr
+            self.peak_pages_used = max(self.peak_pages_used,
+                                       mgr.peak_pages_used)
+            return vs_tokens, n_rows, drafts
+
+        def accept(spec_plan, token_host, ok_host, now: float) -> None:
+            """The accept rule of a verify step: per slot, the longest
+            prefix of drafts equal to the model's greedy argmax plus one
+            token (the logits at candidate i condition on candidates
+            0..i, so the stream is plain greedy's), then one ``append_n``
+            commit of the kept tokens."""
+            nonlocal n_append
+            K = int(self.spec_depth)
+            _, n_rows, drafts = spec_plan
+            am = token_host.reshape(B, K)
+            okm = ok_host.reshape(B, K)
+            step_drafted = step_accepted = 0
+            for slot_i in list(active):
+                if slot_i not in active:
+                    continue  # preempted by an earlier slot's fault
+                rec_i = active[slot_i]
+                if not okm[slot_i, :int(n_rows[slot_i])].all():
+                    rec_i.fail("non-finite logits")
+                    m_nan.inc()
+                    del active[slot_i]
+                    retire(slot_i)
+                    continue
+                d = drafts.get(slot_i, [])
+                a = 0
+                while a < len(d) and int(am[slot_i, a]) == d[a]:
+                    a += 1
+                emit = d[:a] + [int(am[slot_i, a])]
+                if d:
+                    st = spec_state[rec_i.rid]
+                    rate = a / len(d)
+                    # the acceptance EMA sets how many drafts to ask for:
+                    # a slot whose drafts keep missing stops paying for
+                    # dead verify rows
+                    st["ema"] = 0.5 * st["ema"] + 0.5 * rate
+                    st["k"] = 1 + int(round(st["ema"] * (K - 1)))
+                    m_drafted.inc(len(d))
+                    m_accepted.inc(a)
+                    m_accept_rate.observe(rec_i.rid, rate)
+                    step_drafted += len(d)
+                    step_accepted += a
+                kept, fin = 0, False
+                for t in emit[:rec_i.remaining]:
+                    rec_i.tokens.append(t)
+                    m_walltimes.observe(rec_i.rid, now)
+                    m_tokens.inc()
+                    kept += 1
+                    if t == rec_i.request.eos_id or rec_i.remaining <= 0:
+                        fin = True
+                        break
+                # the pages were reserved before the dispatch, so only
+                # injected faults exhaust the pool here, one chance per
+                # kept token at the global append index
+                evicted = False
+                for _ in range(kept):
+                    fault = self.injector.alloc_fault(step_idx, n_append,
+                                                      slot_i)
+                    n_append += 1
+                    if fault:
+                        victim = max(active,
+                                     key=lambda s: active[s].admit_seq)
+                        preempt(victim)
+                        if victim == slot_i:
+                            evicted = True  # kept tokens stay on the record
+                            break
+                if evicted:
+                    continue
+                mgr.append_n(slot_i, kept)      # one page-table commit
+                positions[slot_i] += kept
+                if fin:
+                    rec_i.finish()
+                    del active[slot_i]
+                    retire(slot_i)
+                else:
+                    tokens[slot_i, 0] = rec_i.tokens[-1]
+            if tracing:
+                tr.instant("speculation", track="engine",
+                           args={"drafted": step_drafted,
+                                 "accepted": step_accepted})
 
         has_deadlines = any(r.deadline_s is not None for r in requests)
 
@@ -641,33 +853,48 @@ class ContinuousBatchingEngine:
                 step_idx += 1
                 continue
             stalls = 0
+            spec_plan = None
             t_step0 = time.perf_counter()
-            # Each live slot writes its input token's K/V row at its
-            # position during the step, so the page of that row must be
-            # in its table before the step: the append runs here, not
-            # after the step as in the reference, where the first row of
-            # a page past the decode reservation lands on the scratch page.
-            for slot_i in list(active):
-                if slot_i not in active:
-                    continue  # preempted by an earlier slot's recovery
-                try:
-                    if self.injector.alloc_fault(step_idx, n_append, slot_i):
-                        raise PagePoolExhausted(
-                            f"injected exhaustion at append {n_append}")
-                    mgr.append(slot_i)
-                except PagePoolExhausted:
-                    recover_exhaustion(slot_i)
-                finally:
-                    self.peak_pages_used = max(self.peak_pages_used,
-                                               mgr.peak_pages_used)
-                n_append += 1
+            t_draft1 = t_step0
+            if pending is None and self.spec_depth is not None:
+                # a speculative step: draft and reserve before the table
+                # snapshot, so the reserved pages (and any preemption the
+                # reservation caused) are in it
+                spec_plan = plan_speculation()
+                t_draft1 = time.perf_counter()
+                if tracing:
+                    tr.complete("draft", tr.to_us(t_step0),
+                                (t_draft1 - t_step0) * 1e6, track="engine")
+            else:
+                # Each live slot writes its input token's K/V row at its
+                # position during the step, so the page of that row must
+                # be in its table before the step: the append runs here,
+                # not after the step as in the reference, where the first
+                # row of a page past the decode reservation lands on the
+                # scratch page.
+                for slot_i in list(active):
+                    if slot_i not in active:
+                        continue  # preempted by an earlier slot's recovery
+                    try:
+                        if self.injector.alloc_fault(step_idx, n_append,
+                                                     slot_i):
+                            raise PagePoolExhausted(
+                                f"injected exhaustion at append {n_append}")
+                        mgr.append(slot_i)
+                    except PagePoolExhausted:
+                        recover_exhaustion(slot_i)
+                    finally:
+                        self.peak_pages_used = max(self.peak_pages_used,
+                                                   mgr.peak_pages_used)
+                    n_append += 1
             if pending is None and not active:
                 step_idx += 1
                 continue  # exhaustion preempted every live slot
             m_occ.record(mgr.pages_used)
             self.step_log.append({"prefill_in_flight": pending is not None,
                                   "live_decode": len(active)})
-            kind = ("decode" if pending is None
+            kind = (("verify" if spec_plan is not None else "decode")
+                    if pending is None
                     else ("chunk+decode" if active else "chunk"))
             if tracing:
                 tr.counter("pool.pages_used", mgr.pages_used, track="pool")
@@ -693,10 +920,16 @@ class ContinuousBatchingEngine:
                           for p in range(p0, p0 + self.chunk_pages)]
                 parts = [ctokens, np.asarray(cpages, np.int32), seq_table]
                 chunk = (q0, clen)
-            if active:
-                parts = [tokens[:, 0], positions, dec_table.ravel()] + parts
-            packed = self._step(cache, np.concatenate(parts), bool(active),
-                                chunk)
+            if spec_plan is not None:
+                vs_tokens, n_rows, _ = spec_plan
+                packed = self._verify(cache, np.concatenate([
+                    vs_tokens.ravel(), positions, n_rows, dec_table.ravel()]))
+            else:
+                if active:
+                    parts = [tokens[:, 0], positions,
+                             dec_table.ravel()] + parts
+                packed = self._step(cache, np.concatenate(parts),
+                                    bool(active), chunk)
             t_disp = time.perf_counter()
             # the step's one device->host transfer: decode tokens, the
             # admitted request's first token and the finite-guard flags
@@ -717,32 +950,40 @@ class ContinuousBatchingEngine:
                             (t_disp - t_step0) * 1e6, track="engine")
                 tr.complete("host_sync", tr.to_us(t_disp),
                             (now - t_disp) * 1e6, track="engine")
+                if spec_plan is not None:
+                    # drafting ended at t_draft1; the verify dispatch and
+                    # its sync fill the rest of the step
+                    tr.complete("verify", tr.to_us(t_draft1),
+                                (now - t_draft1) * 1e6, track="engine")
             half = raw.shape[0] // 2
             token_host = raw[:half]
             ok_host = np.asarray(
                 self.injector.corrupt_step_ok(step_idx,
                                               raw[half:].astype(bool)))
-            for slot_i in list(active.keys()):
-                rec_i = active[slot_i]
-                if not ok_host[slot_i]:
-                    # NaN/inf isolation: fail this slot, free its pages,
-                    # the rest of the batch decodes on
-                    rec_i.fail("non-finite logits")
-                    m_nan.inc()
-                    del active[slot_i]
-                    retire(slot_i)
-                    continue
-                t = int(token_host[slot_i])
-                rec_i.tokens.append(t)
-                m_walltimes.observe(rec_i.rid, now)
-                m_tokens.inc()
-                positions[slot_i] += 1
-                if t == rec_i.request.eos_id or rec_i.remaining <= 0:
-                    rec_i.finish()
-                    del active[slot_i]
-                    retire(slot_i)
-                else:
-                    tokens[slot_i, 0] = t
+            if spec_plan is not None:
+                accept(spec_plan, token_host, ok_host, now)
+            else:
+                for slot_i in list(active.keys()):
+                    rec_i = active[slot_i]
+                    if not ok_host[slot_i]:
+                        # NaN/inf isolation: fail this slot, free its pages,
+                        # the rest of the batch decodes on
+                        rec_i.fail("non-finite logits")
+                        m_nan.inc()
+                        del active[slot_i]
+                        retire(slot_i)
+                        continue
+                    t = int(token_host[slot_i])
+                    rec_i.tokens.append(t)
+                    m_walltimes.observe(rec_i.rid, now)
+                    m_tokens.inc()
+                    positions[slot_i] += 1
+                    if t == rec_i.request.eos_id or rec_i.remaining <= 0:
+                        rec_i.finish()
+                        del active[slot_i]
+                        retire(slot_i)
+                    else:
+                        tokens[slot_i, 0] = t
             if pending is not None:
                 q0 += clen
                 if q0 >= plen:  # prefill complete: the first token is out

@@ -34,8 +34,12 @@ def page_footprint_bytes(*, num_layers: int, num_kv_heads: int,
                          page_size: int, head_dim: int,
                          itemsize: int = 2) -> int:
     """Bytes one physical page pins across the whole layer stack: K and V
-    values of ``itemsize`` bytes each."""
-    return num_layers * 2 * num_kv_heads * page_size * head_dim * itemsize
+    values of ``itemsize`` bytes each, plus, for an int8 pool
+    (``itemsize`` 1), the two fp32 per-page scales of K and V."""
+    per_layer = 2 * num_kv_heads * page_size * head_dim * itemsize
+    if itemsize == 1:
+        per_layer += 2 * num_kv_heads * 4
+    return num_layers * per_layer
 
 
 class PagedCacheError(RuntimeError):
@@ -71,8 +75,9 @@ class PagedKVCacheManager:
     Sequences are keyed by decode slot (0..num_slots-1). ``admit``
     allocates pages for a prompt plus an optional decode reservation,
     ``append`` extends a sequence one token (allocating a page on a
-    boundary crossing past the reservation), ``release`` returns its pages
-    to the pool.
+    boundary crossing past the reservation), ``ensure_capacity`` and
+    ``append_n`` reserve and commit a speculative step's rows, ``release``
+    returns its pages to the pool.
     """
 
     def __init__(self, num_pages: int, page_size: int, *, num_slots: int,
@@ -177,13 +182,37 @@ class PagedKVCacheManager:
         """Record one generated token; take a page if the new position
         crosses into one the sequence does not own. Exception-safe: on
         ``PagePoolExhausted`` the sequence is unchanged."""
+        self._grow(slot, 1).length += 1
+
+    def _grow(self, slot: int, n: int) -> PagedSeq:
+        """Take, all or nothing, the pages ``slot`` needs to hold ``n``
+        more tokens than its length."""
         seq = self._seqs[slot]
-        if seq.length + 1 > seq.capacity * self.page_size:
-            if seq.capacity + 1 > self.max_pages_per_seq:
+        need = self.pages_needed(seq.length + n) - seq.capacity
+        if need > 0:
+            if seq.capacity + need > self.max_pages_per_seq:
                 raise PagePoolExhausted(
                     f"slot {slot} exceeded max_pages_per_seq")
-            seq.pages.extend(self.alloc(1))
-        seq.length += 1
+            seq.pages.extend(self.alloc(need))
+        return seq
+
+    def ensure_capacity(self, slot: int, n: int) -> None:
+        """Allocate pages so ``n`` more tokens can land without further
+        allocation: the reservation a speculative verify step takes before
+        its dispatch, since the device writes the candidate rows into pages
+        the table must already name. The length does not change; unused
+        pages stay owned like admission reserve pages. On
+        ``PagePoolExhausted`` the sequence is unchanged."""
+        self._grow(slot, n)
+
+    def append_n(self, slot: int, n: int) -> None:
+        """Record ``n`` generated tokens in one update (the accepted prefix
+        of a verify step), taking any pages they grow into with one
+        all-or-nothing ``alloc``. On ``PagePoolExhausted`` the sequence,
+        length and pages, is unchanged."""
+        if n == 0:
+            return
+        self._grow(slot, n).length += n
 
     def seq_pages(self, slot: int) -> list[int]:
         """Physical page ids mapped by ``slot`` (prompt order)."""

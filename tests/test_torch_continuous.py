@@ -347,9 +347,14 @@ def test_engine_trace_and_unported_options(pair):
         page_size=4, head_dim=cfg.hd, itemsize=4) == jax_page_footprint(
         num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
         page_size=4, head_dim=cfg.hd, kv_dtype="float32")
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(pair.tmodel, pair.tparams, spec_depth=2,
-                                 device="cpu")
+    assert page_footprint_bytes(
+        num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+        page_size=4, head_dim=cfg.hd, itemsize=1) == jax_page_footprint(
+        num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+        page_size=4, head_dim=cfg.hd, kv_dtype="int8")
+    # speculative decoding is ported; prefix sharing is not
+    assert ContinuousBatchingEngine(pair.tmodel, pair.tparams, spec_depth=2,
+                                    device="cpu").spec_depth == 2
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(pair.tmodel, pair.tparams,
                                  prefix_cache=True, device="cpu")

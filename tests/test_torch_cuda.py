@@ -7,9 +7,10 @@ only PyTorch:
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Each kernel runs in fp32 against its plain version on the same CUDA
-tensors (atol 3e-5: fp32 sums in another order), and the wave and
-continuous engines serve a smoke model on the card with the same tokens
-as on the CPU.
+tensors (atol 3e-5: fp32 sums in another order), the int8 branches of
+B4-B7 on int8 caches with their scales, and the wave, continuous and
+speculative engines serve a smoke model on the card with the same tokens
+as on the CPU, on bf16-free fp32 and on int8 caches.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from repro_torch.kernels import mas_attention as mas
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pdec
 from repro_torch.kernels import paged_prefill_attention as ppre
+from repro_torch.kernels import paged_verify_attention as pver
+from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.api import build_model
 from repro_torch.serving import (
     ContinuousBatchingEngine,
@@ -91,11 +94,89 @@ def test_decode_kernel_matches_plain(cuda):
     assert float((got - want).abs().max()) <= FP32_ATOL
 
 
-def _paged_pools(gen, hkv=2, n_pages=64, page=16, e=64):
-    """Pools and a shuffled (6, 8) page table over them."""
+def test_decode_kernel_int8_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = _rand(g, 4, 4, 128)
+    (k, ks), (v, vs) = (quantize_q8(_rand(g, 4, 500, 128), -1)
+                        for _ in range(2))
+    lens = torch.tensor([0, 64, 65, 500], dtype=torch.int32, device=cuda)
+    got = dec.decode_attention_flat(q, k, v, lens, k_scale=ks, v_scale=vs)
+    n_split, tps = dec.split_plan(4, 500)
+    want = dec.decode_attention_plain(q, k, v, lens, n_split=n_split,
+                                      tiles_per_split=tps, k_scale=ks,
+                                      v_scale=vs)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FP32_ATOL
+
+
+def _paged_pools(gen, hkv=2, n_pages=64, page=16, e=64, quantized=False):
+    """Pools and a shuffled (6, 8) page table over them; int8 pools come
+    with their per-page scales, (k, v, table, k_scales, v_scales)."""
     k, v = _rand(gen, hkv, n_pages, page, e), _rand(gen, hkv, n_pages, page, e)
     perm = torch.randperm(n_pages - 1, generator=gen, device=gen.device) + 1
-    return k, v, perm[:6 * 8].view(6, 8).to(torch.int32).contiguous()
+    table = perm[:6 * 8].view(6, 8).to(torch.int32).contiguous()
+    if not quantized:
+        return k, v, table
+    (k, ks), (v, vs) = quantize_q8(k, (-2, -1)), quantize_q8(v, (-2, -1))
+    return k, v, table, ks, vs
+
+
+def test_paged_decode_kernel_int8_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    k, v, table, ks, vs = _paged_pools(g, quantized=True)
+    lens = torch.tensor([0, 1, 9, 16, 65, 128], dtype=torch.int32,
+                        device=cuda)
+    q = _rand(g, 6, 2, 2, 64)
+    got = pdec.paged_decode_attention_flat(q, k, v, table, lens, k_scales=ks,
+                                           v_scales=vs)
+    n_split, tps = dec.split_plan(12, 8 * 16)
+    want = pdec.paged_decode_attention_plain(q, k, v, table, lens,
+                                             n_split=n_split,
+                                             tiles_per_split=tps,
+                                             k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FP32_ATOL
+
+
+@pytest.mark.parametrize("q0,kv_len,chunk", [(0, 64, 64), (64, 121, 64),
+                                             (0, 0, 32)])
+def test_paged_prefill_kernel_int8_matches_plain(cuda, q0, kv_len, chunk):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    k, v, table, ks, vs = _paged_pools(g, quantized=True)
+    q = _rand(g, 4, chunk, 64)
+    kw = dict(q_offset=q0, kv_len=kv_len, blk_q=32, k_scales=ks, v_scales=vs)
+    got = ppre.paged_prefill_attention_flat(q, k, v, table[2], **kw)
+    want = ppre.paged_prefill_attention_plain(q, k, v, table[2], **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FP32_ATOL
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("spec,group", [(1, 2), (4, 2), (3, 4), (8, 4)])
+def test_paged_verify_kernel_matches_plain(cuda, quantized, spec, group):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    k, v, table, *scales = _paged_pools(g, quantized=quantized)
+    kw = dict(zip(("k_scales", "v_scales"), scales))
+    # ragged rows (k, 1, 0, k, part, k): a start mid-page, one straddling
+    # a 64-row tile, kv_len 0 and a block ending at the table's capacity
+    starts = torch.tensor([5, 63, 0, 60, 100, 128 - spec], dtype=torch.int32,
+                          device=cuda)
+    rows = torch.tensor([spec, 1, 0, spec, max(spec - 1, 1), spec],
+                        dtype=torch.int32, device=cuda)
+    lens = starts + rows
+    q = _rand(g, 6, 2, spec * group, 64)
+    got = pver.paged_verify_attention_flat(q, k, v, table, lens, starts,
+                                           spec=spec, **kw)
+    n_split, tps = dec.split_plan(12, 8 * 16)
+    want = pver.paged_verify_attention_plain(
+        q, k, v, table, lens, starts, spec=spec, n_split=n_split,
+        tiles_per_split=tps, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FP32_ATOL
+    assert float(got[2].abs().max()) == 0.0       # kv_len 0 gives zeros
+    if spec == 1:      # one position is B6 exactly
+        dec1 = pdec.paged_decode_attention_flat(q, k, v, table, lens, **kw)
+        assert torch.equal(got, dec1)
 
 
 def test_paged_decode_kernel_matches_plain(cuda):
@@ -179,3 +260,45 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     for rid in on_cpu:
         np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
     assert counts["mas_resident"] > 0 and counts["decode"] > 0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_speculative_engine_on_the_card_matches_the_cpu(cuda, kv_dtype):
+    cfg, model, cpu_params, gpu_params = _smoke_on_both(cuda)
+    rng = np.random.default_rng(2)
+    # prompts that tile a short span, so the drafter finds matches
+    reqs = [Request(rid=i, prompt=np.resize(
+                rng.integers(3, cfg.vocab_size, size=(5,)), n)
+                .astype(np.int32), max_new_tokens=8, eos_id=-1)
+            for i, n in enumerate([7, 30, 90, 5])]
+    kw = dict(max_len=128, batch_size=2, page_size=16, chunk_size=32,
+              kv_dtype=kv_dtype)
+    ops.reset_launch_counts()
+    eng = ContinuousBatchingEngine(model, gpu_params, device=cuda,
+                                   spec_depth=4, **kw)
+    eng.auditor = PoolAuditor()
+    on_gpu = eng.serve(reqs)
+    counts = ops.launch_counts()
+    on_cpu = ContinuousBatchingEngine(model, cpu_params, device="cpu",
+                                      **kw).serve(reqs)
+    for rid in on_cpu:
+        np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
+    branch = "_int8" if kv_dtype else ""
+    assert counts["paged_verify" + branch] > 0
+    assert counts["paged_prefill" + branch] > 0
+
+
+def test_int8_wave_engine_on_the_card_matches_the_cpu(cuda):
+    cfg, model, cpu_params, gpu_params = _smoke_on_both(cuda)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab_size, size=(n,))
+                    .astype(np.int32), max_new_tokens=6, eos_id=-1)
+            for i, n in enumerate([7, 7, 30])]
+    kw = dict(max_len=64, batch_size=2, kv_dtype="int8")
+    ops.reset_launch_counts()
+    on_gpu = ServingEngine(model, gpu_params, device=cuda, **kw).serve(reqs)
+    counts = ops.launch_counts()
+    on_cpu = ServingEngine(model, cpu_params, device="cpu", **kw).serve(reqs)
+    for rid in on_cpu:
+        np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
+    assert counts["decode_int8"] > 0 and counts["decode"] == 0

@@ -233,11 +233,21 @@ def test_decode_split_plan_covers_the_cache(bh, n_kv):
 
 
 def test_decode_int8_branch_is_not_ported():
-    q, k = torch.zeros(2, 2, 16), torch.zeros(2, 32, 16)
-    with pytest.raises(NotImplementedError):
-        tdec.decode_attention_flat(q, k, k, torch.tensor([3, 3]),
-                                   k_scale=torch.ones(2, 32),
-                                   v_scale=torch.ones(2, 32))
+    """The int8 branch this test once found refused is ported: int8
+    caches with per-row scales give attention over the dequantized
+    caches, and scales without int8 caches are refused."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 2, 16, generator=gen)
+    k, v = torch.randn(2, 32, 16, generator=gen), torch.randn(
+        2, 32, 16, generator=gen)
+    (kq, ks), (vq, vs) = (tcommon.quantize_q8(x, -1) for x in (k, v))
+    lens = torch.tensor([3, 30])
+    got = tdec.decode_attention_flat(q, kq, vq, lens, k_scale=ks, v_scale=vs)
+    want = tdec.decode_attention_flat(q, tcommon.dequantize_q8(kq, ks, -1),
+                                      tcommon.dequantize_q8(vq, vs, -1), lens)
+    assert float((got - want).abs().max()) <= 3e-5
+    with pytest.raises(ValueError, match="int8"):
+        tdec.decode_attention_flat(q, k, v, lens, k_scale=ks, v_scale=vs)
 
 
 def test_wrappers_refuse_other_devices():
@@ -301,6 +311,10 @@ def test_launch_counts_only_count_kernel_launches():
     tops.paged_decode_attention(to_torch(q[:, :, 0]), pool, pool,
                                 table[None], lens)
     tops.paged_prefill_attention(to_torch(q[0]), pool, pool, table, 0, 32)
-    assert tops.launch_counts() == {"mas_resident": 0, "mas_streamed": 0,
-                                    "flash": 0, "decode": 0,
-                                    "paged_decode": 0, "paged_prefill": 0}
+    tops.paged_verify_attention(to_torch(q[:, :, :2].transpose(0, 2, 1, 3)),
+                                pool, pool, table[None], lens, lens - 2)
+    assert tops.launch_counts() == {
+        "mas_resident": 0, "mas_streamed": 0, "flash": 0, "decode": 0,
+        "decode_int8": 0, "paged_decode": 0, "paged_decode_int8": 0,
+        "paged_prefill": 0, "paged_prefill_int8": 0, "paged_verify": 0,
+        "paged_verify_int8": 0}

@@ -228,16 +228,30 @@ def test_paged_prefill_plain_reads_live_tiles_only():
 
 
 def test_paged_int8_branches_are_not_ported():
+    """The int8 branches this test once found refused are ported: with
+    int8 pools and per-page scales, B5 and B6 give attention over the
+    dequantized pools, and the wrappers refuse scales without int8 pools
+    or int8 pools without scales."""
     k, v = (to_torch(x) for x in _pools(0, 4))
-    table = torch.zeros((1, 2), dtype=torch.int32)
-    lens = torch.ones((1,), dtype=torch.int32)
-    scales = torch.ones((HKV, N_PAGES))
-    with pytest.raises(NotImplementedError):
-        tops.paged_decode_attention(torch.zeros(1, HKV, E), k, v, table,
-                                    lens, k_scales=scales, v_scales=scales)
-    with pytest.raises(NotImplementedError):
-        tops.paged_prefill_attention(torch.zeros(HKV, 8, E), k, v, table[0],
-                                     0, 1, k_scales=scales, v_scales=scales)
+    (kq, ks), (vq, vs) = (tcommon.quantize_q8(x, (-2, -1)) for x in (k, v))
+    kd, vd = (tcommon.dequantize_q8(x, s, (-2, -1))
+              for x, s in ((kq, ks), (vq, vs)))
+    table = torch.tensor([[3, 7]], dtype=torch.int32)
+    lens = torch.tensor([6], dtype=torch.int32)
+    q = to_torch(rand(1, (1, HKV, E)))
+    got = tops.paged_decode_attention(q, kq, vq, table, lens, k_scales=ks,
+                                      v_scales=vs)
+    assert_close(got, tops.paged_decode_attention(q, kd, vd, table, lens),
+                 FP32_ATOL)
+    qp = to_torch(rand(2, (HKV, 8, E)))
+    got = tops.paged_prefill_attention(qp, kq, vq, table[0], 2, 6,
+                                       k_scales=ks, v_scales=vs)
+    want = tops.paged_prefill_attention(qp, kd, vd, table[0], 2, 6)
+    assert_close(got[:, :4], want[:, :4], FP32_ATOL)
+    with pytest.raises(ValueError, match="int8"):
+        tpdec.check_scales(k, v, ks, vs, tuple(ks.shape))
+    with pytest.raises(ValueError, match="scales"):
+        tpdec.check_scales(kq, vq, None, None, tuple(ks.shape))
 
 
 def test_paged_wrappers_refuse_other_devices_and_bad_shapes():

@@ -8,7 +8,7 @@
   with a note naming the kernel it replaces;
 * ``chip_smoke.py`` refuses to run without a card or without the port,
   and its bf16 limit admits one rounding of a kernel's output but not a
-  skipped KV tile.
+  skipped KV tile, nor, on an int8 cache, a zeroed V scale.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import mas_attention as tmas
 from repro_torch.kernels import paged_decode_attention as ppdec
 from repro_torch.kernels import paged_prefill_attention as ppre
+from repro_torch.kernels import paged_verify_attention as ppver
+from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.api import build_model
 from repro_torch.serving import ContinuousBatchingEngine, ServingEngine
 from repro_torch.weights import params_from_jax
@@ -52,6 +54,8 @@ PORTED = {
            "_paged_prefill_kernel", "paged_prefill_attention.cu"),
     "B6": ("src/repro/kernels/paged_decode_attention.py",
            "_paged_decode_kernel", "paged_decode_attention.cu"),
+    "B7": ("src/repro/kernels/paged_verify_attention.py",
+           "_paged_verify_kernel", "paged_verify_attention.cu"),
 }
 
 
@@ -153,8 +157,10 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("kernel", ["mas", "flash", "decode",
-                                    "paged_decode", "paged_prefill"])
+@pytest.mark.parametrize("kernel", [
+    "mas", "flash", "decode", "paged_decode", "paged_prefill",
+    "paged_verify", "decode_int8", "paged_decode_int8", "paged_prefill_int8",
+    "paged_verify_int8"])
 def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
         kernel):
     smoke = _chip_smoke()
@@ -163,27 +169,61 @@ def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
     def rnd(*shape):
         return torch.randn(shape, generator=gen)
 
+    int8 = kernel.endswith("_int8")
+    kernel = kernel.removesuffix("_int8")
     if kernel.startswith("paged"):
         kp, vp = rnd(2, 40, 16, 64), rnd(2, 40, 16, 64)
+        ks = vs = None
+        if int8:        # the fault: the page's V scale zeroed
+            (kp, ks), (vp, vs) = (quantize_q8(x, (-2, -1)) for x in (kp, vp))
         table = (torch.randperm(39, generator=gen) + 1)[:32].view(2, 16).to(
             torch.int32)
         if kernel == "paged_decode":
             q = rnd(2, 2, 2, 64)
             lens = torch.tensor([200, 256], dtype=torch.int32)
 
-            def plain(vp):
+            def plain(vp, vs):
                 return ppdec.paged_decode_attention_plain(
-                    q, kp, vp, table, lens, n_split=2, tiles_per_split=2)
+                    q, kp, vp, table, lens, n_split=2, tiles_per_split=2,
+                    k_scales=ks, v_scales=vs)
+        elif kernel == "paged_verify":
+            q = rnd(2, 2, 4 * 2, 64)
+            lens = torch.tensor([200, 256], dtype=torch.int32)
+
+            def plain(vp, vs):
+                return ppver.paged_verify_attention_plain(
+                    q, kp, vp, table, lens, lens - 4, spec=4, n_split=2,
+                    tiles_per_split=2, k_scales=ks, v_scales=vs)
         else:
             q = rnd(4, 64, 64)
 
-            def plain(vp):
+            def plain(vp, vs):
                 return ppre.paged_prefill_attention_plain(
-                    q, kp, vp, table[1], q_offset=192, kv_len=256, blk_q=32)
-        want = plain(vp)
+                    q, kp, vp, table[1], q_offset=192, kv_len=256, blk_q=32,
+                    k_scales=ks, v_scales=vs)
+        want = plain(vp, vs)
         # the second-last live page of the longest sequence skipped
-        check = smoke.held_to_plain(want.bfloat16(), want, plain(
-            smoke.drop_v_page(vp, int(table[1, 14]))))
+        page = int(table[1, 14])
+        faulty = (plain(vp, smoke.drop_scale_page(vs, page)) if int8
+                  else plain(smoke.drop_v_page(vp, page), vs))
+        check = smoke.held_to_plain(want.bfloat16(), want, faulty)
+        assert 0 < check["row_rel_err"] <= smoke.BF16_ROW_RTOL
+        assert check["fault_row_rel_err"] > 10 * smoke.BF16_ROW_RTOL
+        return
+    if kernel == "decode" and int8:
+        q = rnd(4, 2, 64)
+        (k, ks), (v, vs) = (quantize_q8(rnd(4, 256, 64), -1)
+                            for _ in range(2))
+        lens = torch.tensor([1, 70, 200, 256], dtype=torch.int32)
+
+        def plain(vs):
+            return tdec.decode_attention_plain(q, k, v, lens, n_split=2,
+                                               tiles_per_split=2, k_scale=ks,
+                                               v_scale=vs)
+
+        want = plain(vs)
+        check = smoke.held_to_plain(want.bfloat16(), want,
+                                    plain(smoke.drop_scale_tile(vs, 2)))
         assert 0 < check["row_rel_err"] <= smoke.BF16_ROW_RTOL
         assert check["fault_row_rel_err"] > 10 * smoke.BF16_ROW_RTOL
         return
@@ -208,3 +248,26 @@ def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
                                 plain(smoke.drop_v_tile(v, 2)))
     assert 0 < check["row_rel_err"] <= smoke.BF16_ROW_RTOL
     assert check["fault_row_rel_err"] > 10 * smoke.BF16_ROW_RTOL
+
+
+def test_chip_smoke_ptxas_report_names_each_kernel():
+    # two entries of an nvcc -Xptxas -v log: registers and spill bytes
+    # land under each kernel, in the log's order
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN5repro20split_combine_kernelIfEEvPKfS2_S2_PT_iii' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN5repro20split_combine_kernelIfEEvPKfS2_S2_PT_iii",
+        "    8 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers, 400 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers",
+    ])
+    report = _chip_smoke().ptxas_report(log)
+    assert list(report.values()) == [
+        {"spill_bytes": 12, "registers": 80},
+        {"spill_bytes": 0, "registers": 32}]
+    names = list(report)
+    assert "split_combine_kernel" in names[0] and "kernel" in names[1]
+    assert _chip_smoke().ptxas_report("") == {}
