@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
    the paged kernels shuffled page tables, kv_len 0, 1 and mid-page, a
    later chunk's q_offset, a ragged last chunk, GQA group 2; for B7
    ragged candidate rows, a block straddling a tile, one ending at the
-   table's capacity), and the int8 branches of B4-B7 on int8 caches;
+   table's capacity), and the int8 branches of B4-B7 on int8 caches; B8
+   (the SSD intra-chunk step) on whole and ragged chunks and the chunked
+   scan with an initial state and a ragged length, each output row
+   within 1e-4 of its norm;
 3. kernels — each kernel against its plain version at the shapes the main
    paths give it (internlm2-1.8b widths, bf16 queries; decode also through
    ``ops.decode_attention`` at each wave's kv_len, as the model calls it;
@@ -23,10 +26,11 @@ Phases, each printing one JSON line:
    4096-token budget, paged prefill of 512-row chunks at q_offset 0 and
    3072, paged verify of 4 candidate rows a slot ending at those kv_lens,
    on pools of 2049 pages), on bf16 caches and again on int8 caches with
-   their scales, every output row within about one bf16 rounding of its
-   norm, with its time, the plain version's, the bound for its work on
-   the card, and one PyTorch call computing the same function (timed as a
-   yardstick only; int8 caches are dequantized first);
+   their scales, and B8 at the 4 x 2048 mamba2-130m wave's 768 cells,
+   every output row within about one bf16 rounding of its norm, with its
+   time, the plain version's, the bound for its work on the card, and
+   one PyTorch call computing the same function (timed as a yardstick
+   only; int8 caches are dequantized first; none computes B8's);
 4. main path (waves) — full-width internlm2-1.8b (random weights from a
    seed) served by the port's ``ServingEngine`` in three waves whose
    prompts the shared-memory policy routes to the resident MAS, streamed
@@ -55,11 +59,17 @@ Phases, each printing one JSON line:
    launches;
 9. fp32 speculative parity — at full width with 2 layers in fp32,
    speculative tokens equal plain continuous tokens on fp32 pools, on
-   int8 pools and under an exhaustion burst.
+   int8 pools and under an exhaustion burst;
+10. ssm wave — full-width mamba2-130m (random weights from a seed)
+   served by ``ServingEngine`` in three waves, 4 x 2048, 1 x 32768 and
+   4 x 1000 (a ragged tail padded to a whole chunk), 16 new tokens each:
+   24 B8 launches a wave, TTFT, tokens/s, decode step time and peak
+   memory; first-token logits held to the plain route, and at 2 layers
+   in fp32 the kernel route's tokens equal the plain route's.
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails unless its kernels launched.
-The last three lines are the kernel table (B1-B7 and the int8 branches of
+The last three lines are the kernel table (B1-B8 and the int8 branches of
 B4-B7, each with the launches of its own path), the card's name and power
 limit, and the result. TF32 is switched off for matrix products and
 convolutions so fp32 comparisons see fp32 arithmetic. The script exits
@@ -114,6 +124,15 @@ PAGED_PREFILL = ((0, 512), (3072, 3584))   # (q_offset, kv_len), 512 rows
 # make the speculative phase's prompts (text that quotes its own context).
 SPEC_DEPTH = 4
 SPEC_SPAN = 64
+# mamba2-130m through the wave engine: (prompt length, batch) of each
+# wave: the main-path shape, the repo's prefill_32k length (the long
+# context users run an SSM for) and a ragged length (1000 rows: three
+# 256-row chunks and a tail padded to a whole chunk, ROADMAP C5).
+SSM_ARCH = "mamba2-130m"
+SSM_WAVES = ((2048, 4), (32768, 1), (1000, 4))
+SSM_NEW_TOKENS = 16
+SSM_MAX_LEN = 32768 + SSM_NEW_TOKENS
+SSM_PARITY_WAVES = (0, 2)   # served again at fp32 by both routes
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -123,6 +142,7 @@ PATH_KERNELS = {
     "int8_continuous": ("paged_prefill_int8", "paged_decode_int8"),
     "speculative": ("paged_verify", "paged_prefill"),
     "speculative_int8": ("paged_verify_int8", "paged_prefill_int8"),
+    "ssm_wave": ("ssd_intra_chunk",),
 }
 ROW_PATH = {"mas_resident": "waves", "mas_streamed": "waves",
             "flash": "waves", "decode": "waves",
@@ -131,7 +151,8 @@ ROW_PATH = {"mas_resident": "waves", "mas_streamed": "waves",
             "paged_decode_int8": "int8_continuous",
             "paged_prefill_int8": "int8_continuous",
             "paged_verify": "speculative",
-            "paged_verify_int8": "speculative_int8"}
+            "paged_verify_int8": "speculative_int8",
+            "ssd_intra_chunk": "ssm_wave"}
 
 # bf16 kernels against their plain versions: both sum in fp32 and round
 # once to bf16, so a row differs by at most about one bf16 rounding
@@ -142,6 +163,12 @@ ROW_PATH = {"mas_resident": "waves", "mas_streamed": "waves",
 # tile zeroed) and fails unless the limit rejects it.
 BF16_ROW_RTOL = 4e-3
 FP32_ATOL = 3e-5     # fp32 sums taken in another order
+# B8 and the chunked SSD scan at fp32 against their plain versions: each
+# output row within 1e-4 of its L2 norm (fp32 sums in another order; the
+# scan also takes its prefix sums in another order; stated in PERF.md
+# before the first run). Rows, not an absolute limit: y grows with the
+# rows a decay lets through.
+SSD_FP32_ROW_RTOL = 1e-4
 # Prefill logits of the kernel path vs the plain attention path: bf16
 # activations through 24 layers; the two paths round attention outputs
 # at the same points, so they differ by a few bf16 ulps of the logits.
@@ -433,11 +460,16 @@ def phase_fp32(torch) -> dict:
         errs[name] = max_err(out, ref)
         require(float(out[2].abs().max()) == 0.0,
                 f"{name}: kv_len 0 does not give zeros")
+    ssd_errs = ssd_fp32_checks(torch)
     torch.cuda.synchronize()
-    report = {"phase": "fp32", "atol": FP32_ATOL, "max_abs_err": errs}
+    report = {"phase": "fp32", "atol": FP32_ATOL, "max_abs_err": errs,
+              "ssd_row_rtol": SSD_FP32_ROW_RTOL, "ssd_row_rel_err": ssd_errs}
     emit(report)
     for name, err in errs.items():
         require(err <= FP32_ATOL, f"fp32 {name}: {err} > {FP32_ATOL}")
+    for name, err in ssd_errs.items():
+        require(err <= SSD_FP32_ROW_RTOL,
+                f"fp32 {name}: row error {err} > {SSD_FP32_ROW_RTOL}")
     return report
 
 
@@ -503,6 +535,7 @@ def phase_kernels(torch) -> list[dict]:
     for quantized in (False, True):
         rows.append(decode_row(torch, rnd, cfg, quantized))
         rows += paged_rows(torch, rnd, cfg, quantized)
+    rows.append(ssd_row(torch))
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
     for row in rows:
         require(row["row_rel_err"] <= BF16_ROW_RTOL,
@@ -821,12 +854,12 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
     return rows
 
 
-def full_width_model(torch) -> dict:
-    """Full-width internlm2-1.8b in bf16 with random weights from seed 0."""
+def full_width_model(torch, arch: str = ARCH) -> dict:
+    """Full-width ``arch`` in bf16 with random weights from seed 0."""
     from repro_torch.configs import get_arch
     from repro_torch.models.api import build_model
 
-    cfg = get_arch(ARCH)
+    cfg = get_arch(arch)
     require(cfg.attn_impl == "kernel", "the main path runs the kernels")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -839,6 +872,234 @@ def full_width_model(torch) -> dict:
                             + [t for layer in params["layers"]
                                for blk in layer.values()
                                for t in blk.values()])}
+
+
+def ssd_inputs(torch, gen, batch: int, heads: int, nc: int, q: int, p: int,
+               n: int, dtype, a_scale: float = 1.0):
+    """B8's inputs (B·H, NC, Q, F) as the model makes them: x, b and c
+    ~ N(0, 1) in ``dtype``; a = -a_scale · softplus(N(0, 1)) · A_h in
+    fp32, with the init's A_h = linspace(1, 16, H) for head h = cell % H
+    (at a_scale 1, a·dt of about -0.7 to -11 a step, so a_cum reaches
+    about -2000 within a 256-row chunk)."""
+    F = torch.nn.functional
+    bh = batch * heads
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x, b, c = rnd(bh, nc, q, p), rnd(bh, nc, q, n), rnd(bh, nc, q, n)
+    a_h = torch.linspace(1.0, 16.0, heads, device="cuda").repeat(batch)
+    a = -a_scale * F.softplus(rnd(bh, nc, q)) * a_h[:, None, None]
+    return x.to(dtype), a, b.to(dtype), c.to(dtype)
+
+
+def drop_x_tile(x, cell: tuple[int, int], tile: int, rows: int = 64):
+    """``x`` (B·H, NC, Q, P) with rows [tile·64, tile·64 + 64) of one
+    (B·H, chunk) cell zeroed: what a kernel that skipped that X tile would
+    compute with (its rows' y, and the cell's state)."""
+    out = x.clone()
+    out[cell[0], cell[1], tile * rows:(tile + 1) * rows] = 0
+    return out
+
+
+def ssd_fp32_checks(torch) -> dict:
+    """Row-relative L2 errors in fp32: B8 against its plain version on
+    whole 256-row chunks and on a 100-row chunk (a prompt shorter than the
+    chunk, not a multiple of 64), and ``ssd_chunked_kernel`` with an
+    initial state and a ragged length (600 rows: two chunks and an 88-row
+    tail) against the plain oracle ``models.ssm.ssd_chunked``. a is scaled
+    to 1% of the model's so the decays span exp(0) to about exp(-30) and
+    every off-diagonal tile and the carried state count."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f32 = torch.float32
+    errs = {}
+    for name, dims in (("ssd_intra_chunk", (2, 3, 2, 256, 64, 128)),
+                       ("ssd_intra_chunk_q100", (1, 3, 1, 100, 16, 16))):
+        x, a, b, c = ssd_inputs(torch, gen, *dims, f32, a_scale=0.01)
+        got, want = ssd.ssd_intra_chunk(x, a, b, c), \
+            ssd.ssd_intra_chunk_plain(x, a, b, c)
+        errs[name] = max(row_rel_err(got[0], want[0]),
+                         row_rel_err(got[1], want[1]))
+    bsz, length, h, p, n, chunk = 2, 600, 4, 64, 128, 256
+    x, a, b, c = ssd_inputs(torch, gen, bsz, h, 1, length, p, n, f32,
+                            a_scale=0.01)
+    # (B·H, 1, L, F) -> (B, L, H, F), the scan's layout
+    seq = [t.view(bsz, h, length, -1).transpose(1, 2).contiguous()
+           for t in (x, b, c)]
+    a = a.view(bsz, h, length).transpose(1, 2).contiguous()
+    s0 = 0.1 * torch.randn((bsz, h, p, n), generator=gen, device="cuda")
+    got = ssd.ssd_chunked_kernel(seq[0], a, seq[1], seq[2], chunk,
+                                 initial_state=s0)
+    want = ssm.ssd_chunked(seq[0], a, seq[1], seq[2], chunk,
+                           initial_state=s0)
+    errs["ssd_chunked_kernel_ragged"] = max(row_rel_err(got[0], want[0]),
+                                            row_rel_err(got[1], want[1]))
+    return errs
+
+
+def ssd_row(torch) -> dict:
+    """B8 against its plain version at the main path's shape: the 4 x
+    2048 wave of full-width mamba2-130m (96 heads of 8 chunks of 256
+    rows, head_dim 64, d_state 128), bf16 x, b, c and fp32 a as the model
+    makes them."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_scan as ssd
+
+    cfg = get_arch(SSM_ARCH)
+    s = cfg.ssm
+    n_tok, batch = SSM_WAVES[0]
+    heads = s.expand * cfg.d_model // s.head_dim
+    nc, q, p, n = n_tok // s.chunk, s.chunk, s.head_dim, s.d_state
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x, a, b, c = ssd_inputs(torch, gen, batch, heads, nc, q, p, n,
+                            torch.bfloat16)
+    kern = lambda: ssd.ssd_intra_chunk(x, a, b, c)  # noqa: E731
+    plain = lambda x=x: ssd.ssd_intra_chunk_plain(x, a, b, c)  # noqa: E731
+    got, want = kern(), plain()
+    # the fault: the last X tile of one cell zeroed
+    faulty = plain(drop_x_tile(x, (x.shape[0] // 2, nc - 1), (q - 1) // 64))
+    y, st = (held_to_plain(got[i], want[i], faulty[i]) for i in (0, 1))
+    cells = batch * heads * nc
+    pairs = q * (q + 1) // 2            # visible (row, column) pairs a cell
+    flops = 2.0 * cells * (pairs * (n + p) + q * n * p)
+    # bf16 x, b, c and fp32 a read once; fp32 y and states written once
+    nbytes = cells * (q * (2 * p + 2 * 2 * n + 4 + 4 * p) + 4 * n * p)
+    bms, by = bound(flops, nbytes)
+    return {
+        "name": "ssd_intra_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:28", "launches": 0,
+        "max_abs_err": max(y["max_abs_err"], st["max_abs_err"]),
+        "row_rel_err": max(y["row_rel_err"], st["row_rel_err"]),
+        "fault_row_rel_err": min(y["fault_row_rel_err"],
+                                 st["fault_row_rel_err"]),
+        "y": y, "states": st,
+        "ms": cuda_ms(torch, kern, 20), "plain_ms": cuda_ms(torch, plain, 2),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "shape": {"cells": cells, "bh": batch * heads, "nc": nc, "q": q,
+                  "p": p, "n": n, "dtype": "bf16", "flops": flops,
+                  "bytes": nbytes},
+    }
+
+
+def phase_ssm_wave(torch) -> dict:
+    """Full-width mamba2-130m (bf16, random weights from seed 0) served by
+    the wave ``ServingEngine`` in three waves: 4 x 2048, 1 x 32768 (the
+    repo's prefill_32k length) and 4 x 1000 (ragged: three chunks and a
+    232-row tail, padded to a whole chunk). Each wave's prefill launches
+    B8 once a layer; decode runs the one-token recurrence in PyTorch.
+    First-token logits of each wave's first prompt are held to the plain
+    route, and at 2 layers in fp32 the kernel route serves two waves with
+    the plain route's tokens."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    full = full_width_model(torch, SSM_ARCH)
+    model, params = full["model"], full["params"]
+    n_params, init_s = full["n_params"], full["init_s"]
+    cfg = model.cfg
+    layers = cfg.num_layers
+    engines = {b: ServingEngine(model, params, max_len=SSM_MAX_LEN,
+                                batch_size=b, device="cuda")
+               for _, b in SSM_WAVES}
+    rng = np.random.default_rng(5)
+
+    def prompts(n: int, b: int) -> list:
+        return [rng.integers(3, cfg.vocab_size, size=(n,)).astype(np.int32)
+                for _ in range(b)]
+
+    # warm-up: cuBLAS handles, B8's first load, a padded tail
+    engines[4].serve(make_requests(prompts(300, 4), 2))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    waves, wave_prompts = [], []
+    for n, b in SSM_WAVES:
+        eng = engines[b]
+        wave_prompts.append(prompts(n, b))
+        reqs = make_requests(wave_prompts[-1], SSM_NEW_TOKENS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        before = ops.launch_counts()["ssd_intra_chunk"]
+        t0 = time.perf_counter()
+        out = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = ops.launch_counts()["ssd_intra_chunk"] - before
+        check_served(eng, reqs, out, SSM_NEW_TOKENS, cfg.vocab_size)
+        require(launched == layers,
+                f"wave {b} x {n}: {launched} B8 launches, not {layers}")
+        stamps = eng.token_walltimes
+        step = eng.metrics.histogram("engine.step_s.wave_decode").summary()
+        tokens = sum(len(out[r.rid]) for r in reqs)
+        waves.append({
+            "prompt_len": n, "batch": b, "chunks": -(-n // cfg.ssm.chunk),
+            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_s": max(stamps[r.rid][0] - eng.serve_t0 for r in reqs),
+            "decode_step_s": {"count": step["count"], "mean": step["mean"],
+                              "p50": step["p50"]},
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "resident_before_bytes": resident,
+            "ssd_intra_chunk_launches": launched,
+        })
+    counts = ops.launch_counts()
+
+    # first-token logits: the kernel route against the plain route
+    plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
+    logits_check = []
+    for (n, _), ps in zip(SSM_WAVES, wave_prompts):
+        prompt = torch.from_numpy(ps[0][None].astype(np.int64)).to("cuda")
+        got, _ = model.prefill(params, cfg, prompt, n)
+        want, _ = plain_model.prefill(params, plain_model.cfg, prompt, n)
+        got, want = got.float(), want.float()
+        require(bool(torch.isfinite(got).all()), f"{n}: logits not finite")
+        scale = float(want.abs().max())
+        err = max_err(got, want)
+        logits_check.append({
+            "prompt_len": n, "max_abs_err": err, "max_abs_logit": scale,
+            "tol": LOGITS_RTOL * max(1.0, scale),
+            "argmax_equal": bool(got.argmax(-1).eq(want.argmax(-1)).all()),
+        })
+        require(err <= LOGITS_RTOL * max(1.0, scale),
+                f"ssm prefill {n}: logits {err} from the plain route")
+    del full, params, engines
+
+    # fp32, FP32_LAYERS layers: the kernel route's tokens are the plain
+    # route's
+    cfg32, m32, p32 = fp32_model(torch, cfg)
+    plain32 = build_model(dataclasses.replace(cfg32, attn_impl="plain"))
+    parity = []
+    for i in SSM_PARITY_WAVES:
+        n, b = SSM_WAVES[i]
+        outs = [ServingEngine(m, p32, max_len=SSM_MAX_LEN, batch_size=b,
+                              device="cuda").serve(
+                    make_requests(wave_prompts[i], SSM_NEW_TOKENS))
+                for m in (m32, plain32)]
+        parity.append({"prompt_len": n, "batch": b,
+                       "mismatched_rids": [rid for rid in outs[1] if not
+                                           np.array_equal(outs[0][rid],
+                                                          outs[1][rid])],
+                       "distinct_tokens": len({int(t) for v in
+                                               outs[0].values()
+                                               for t in v})})
+    report = {
+        "phase": "ssm_wave", "arch": SSM_ARCH, "params": n_params,
+        "init_s": init_s, "layers": layers, "dtype": "bf16",
+        "new_tokens": SSM_NEW_TOKENS, "waves": waves, "launches": counts,
+        "prefill_vs_plain": logits_check, "fp32_parity": parity,
+    }
+    emit(report)
+    for check in parity:
+        require(not check["mismatched_rids"],
+                f"fp32 ssm {check['prompt_len']}: kernel tokens differ from "
+                f"plain for rids {check['mismatched_rids']}")
+    return report
 
 
 def phase_main_path(torch, full: dict) -> dict:
@@ -1009,7 +1270,8 @@ def check_served(eng, reqs, out, new: int, vocab: int) -> None:
 
 def fp32_model(torch, cfg):
     """Full width, FP32_LAYERS layers, fp32, random weights from seed 0
-    with norm scales from N(0, 4), so that greedy tokens vary."""
+    with norm scales (an SSD block's gate norm too) from N(0, 4), so that
+    greedy tokens vary."""
     from repro_torch.models.api import build_model
 
     cfg32 = dataclasses.replace(cfg, num_layers=FP32_LAYERS,
@@ -1018,7 +1280,7 @@ def fp32_model(torch, cfg):
     p32 = m32.init(seed=0, device="cuda", dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for blk in [p32] + [b for layer in p32["layers"] for b in layer.values()]:
-        for key in ("norm", "final_norm"):
+        for key in ("norm", "final_norm", "gate_norm"):
             if key in blk:
                 blk[key] = 2.0 * torch.randn(blk[key].shape, generator=gen,
                                              device="cuda")
@@ -1533,6 +1795,9 @@ def main() -> int:
     launches["speculative"] = full["speculative"]
     launches["speculative_int8"] = full["speculative_int8"]
     phase_spec_parity(torch, full)
+    full.clear()              # internlm2's weights out of the ssm peaks
+    torch.cuda.empty_cache()
+    launches["ssm_wave"] = phase_ssm_wave(torch)["launches"]
     for row in rows:
         row["launches"] = launches[ROW_PATH[row["name"]]][row["name"]]
     print(json.dumps({"kernels": rows}))

@@ -11,6 +11,7 @@ import importlib
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 

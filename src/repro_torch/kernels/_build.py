@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("mas_attention", "flash_attention", "decode_attention",
            "paged_decode_attention", "paged_prefill_attention",
-           "paged_verify_attention")
+           "paged_verify_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -80,6 +80,10 @@ SIGNATURES = {
         # dtype, quantized, stream
         "paged_verify_attention_launch":
             [P] * 12 + [I] * 10 + [F, I, I, P],
+    },
+    "ssd_scan": {
+        # x, a, b, c, y, states, cells, Q, N, P, dtype, stream
+        "ssd_intra_chunk_launch": [P] * 6 + [I] * 5 + [P],
     },
 }
 

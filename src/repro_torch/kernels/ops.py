@@ -1,6 +1,7 @@
-"""Public wrappers around the attention kernels.
+"""Public wrappers around the attention kernels and the SSD scan.
 
-Port of ``repro/kernels/ops.py`` for the dense and paged slices: layout
+Port of ``repro/kernels/ops.py`` for the dense, paged and SSM slices:
+layout
 flattening
 (B, H, N, E) -> (B·H, N, E), GQA grouping (query row ``bh`` reads kv
 head ``bh // group``), padding to the kernels' block multiples with the
@@ -14,6 +15,8 @@ block out position-major (verify) or pad a prompt chunk's rows to the Q
 block (prefill); the TPU's padding of the GQA group to the 8-row sublane
 tile does not carry over. int8 caches pass their fp32 scales through:
 per row (B, Hkv, S) for the dense cache, per page (Hkv, P) for the pools.
+``ssd_chunked`` is the mamba2 scan with its intra-chunk step on B8
+(``kernels/ssd_scan.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.kernels import mas_attention as _mas
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import paged_prefill_attention as _ppre
 from repro_torch.kernels import paged_verify_attention as _pver
+from repro_torch.kernels import ssd_scan as _ssd
 
 METHODS = ("auto", "mas_resident", "mas_streamed", "flash")
 
@@ -39,12 +43,14 @@ METHODS = ("auto", "mas_resident", "mas_streamed", "flash")
 def launch_counts() -> dict[str, int]:
     """Launches of every CUDA kernel since the last reset, by kernel."""
     return {**_mas.LAUNCHES, **_flash.LAUNCHES, **_decode.LAUNCHES,
-            **_pdec.LAUNCHES, **_ppre.LAUNCHES, **_pver.LAUNCHES}
+            **_pdec.LAUNCHES, **_ppre.LAUNCHES, **_pver.LAUNCHES,
+            **_ssd.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     for counts in (_mas.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES,
-                   _pdec.LAUNCHES, _ppre.LAUNCHES, _pver.LAUNCHES):
+                   _pdec.LAUNCHES, _ppre.LAUNCHES, _pver.LAUNCHES,
+                   _ssd.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -207,3 +213,8 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset: int,
         qf, k_pages, v_pages, page_table, q_offset=q_offset, kv_len=kv_len,
         blk_q=bq, sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
     return of[:, :chunk]
+
+
+# The chunked SSD scan of ``models/ssm.py`` with its intra-chunk step on
+# kernel B8 (a ragged length padded to a whole chunk).
+ssd_chunked = _ssd.ssd_chunked_kernel

@@ -1,8 +1,9 @@
-"""Shared model substrate: the dense config, norms, rotary embeddings, init.
+"""Shared model substrate: configs, norms, rotary embeddings, init.
 
-Port of ``repro/models/common.py`` for the dense decoder slice. The
-numerics keep the reference's op order (fp32 norm with ``1 + scale``,
-rope on interleaved pairs) so the two packages agree on logits.
+Port of ``repro/models/common.py`` for the dense decoder and the SSM
+(mamba2) families. The numerics keep the reference's op order (fp32 norm
+with ``1 + scale``, rope on interleaved pairs) so the two packages agree
+on logits.
 """
 
 from __future__ import annotations
@@ -13,18 +14,30 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
-class ArchConfig:
-    """A dense GQA decoder (SwiGLU MLP, rope, tied embeddings).
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    chunk: int = 256
+    conv_width: int = 4
 
-    ``attn_impl`` selects the attention backend: ``"kernel"`` routes
-    through ``kernels/ops.py`` (the CUDA kernels on a CUDA tensor, their
-    plain versions on a CPU tensor), ``"plain"`` through the oracle in
-    ``kernels/ref.py``. They are the reference's ``"pallas"`` and
-    ``"xla_full"``.
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """A dense GQA decoder (SwiGLU MLP, rope, tied embeddings), or with
+    ``family="ssm"`` a stack of mamba2 SSD blocks (``ssm``, tied
+    embeddings; the attention fields are unused).
+
+    ``attn_impl`` selects the backend of the attention and SSD scan:
+    ``"kernel"`` routes through ``kernels/ops.py`` (the CUDA kernels on a
+    CUDA tensor, their plain versions on a CPU tensor), ``"plain"``
+    through the oracles in ``kernels/ref.py`` and ``models/ssm.py``. They
+    are the reference's ``"pallas"`` and ``"xla_full"``.
     """
 
     name: str
-    family: str                  # "dense" is the only family ported
+    family: str                  # "dense" | "ssm"
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,6 +48,7 @@ class ArchConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
+    ssm: SSMConfig | None = None
     attn_impl: str = "kernel"    # kernel | plain
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -43,14 +57,31 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def layer_kinds(self) -> tuple[str, ...]:
+        """Block kind of each layer: ``"ssd"`` or ``"attn"``."""
+        kind = "ssd" if self.family == "ssm" else "attn"
+        return (kind,) * self.num_layers
+
     def param_count(self) -> int:
+        """The parameters ``transformer.init`` draws, tied embeddings
+        included. An SSD layer counts its conv over all conv channels, its
+        gate norm and ``a_log``, which the reference's count leaves out."""
         d, e = self.d_model, self.hd
-        hq, hkv = self.num_heads, self.num_kv_heads
-        attn = d * hq * e + 2 * d * hkv * e + hq * e * d + d
-        if self.qk_norm:
-            attn += 2 * e
-        mlp = 3 * d * self.d_ff + d
-        return self.vocab_size * d + self.num_layers * (attn + mlp) + d
+        if self.family == "ssm":
+            s = self.ssm
+            di = s.expand * d
+            nh = di // s.head_dim
+            conv_ch = di + 2 * s.n_groups * s.d_state
+            layer = (d + d * (2 * di + 2 * s.n_groups * s.d_state + nh)
+                     + s.conv_width * conv_ch + 3 * nh + di + di * d)
+        else:
+            hq, hkv = self.num_heads, self.num_kv_heads
+            layer = d * hq * e + 2 * d * hkv * e + hq * e * d + d
+            if self.qk_norm:
+                layer += 2 * e
+            layer += 3 * d * self.d_ff + d
+        return self.vocab_size * d + self.num_layers * layer + d
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""The dense GQA decoder: init, forward, prefill and decode on a dense or
-a paged KV cache.
+"""The decoder stacks: init, forward, prefill and decode on a dense or
+a paged KV cache, or on the SSD state of a mamba2 stack.
 
-Port of the dense and paged paths of ``repro/models/transformer.py``.
+Port of the dense, paged and SSM paths of ``repro/models/transformer.py``.
 Parameters are
 a plain dict of tensors with one entry per layer in ``params["layers"]``
 (the reference stacks them over a scanned axis); the layers run in a
@@ -25,9 +25,18 @@ per page (Hkv, P) on the pools, where a chunk write quantizes whole pages
 and a decode or verify append requantizes each touched page over its
 live rows.
 
+An SSM stack (``cfg.family == "ssm"``) has one ``{"ssd": {...}}`` dict
+per layer (``models/ssm.py``) and its cache one ``{"conv": (B, K-1,
+conv channels) compute dtype, "state": (B, H, P, N) fp32}`` per layer:
+``prefill`` fills a fresh cache, ``decode_step`` updates it in place, and
+``kv_dtype`` leaves it as it is, as the reference's
+``make_cache_block`` does. The paged functions serve dense stacks only
+and raise ``NotImplementedError`` for it.
+
 The Q/K/V/O, MLP and unembedding projections are ``torch.matmul``, as
 the reference leaves them to XLA; attention goes through
-``models/attention.py`` (``cfg.attn_impl``).
+``models/attention.py`` (``cfg.attn_impl``), the SSD scan through
+``models/ssm.py``.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm
 from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.common import (
     ArchConfig,
@@ -59,7 +69,8 @@ Params = dict[str, Any]
 def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
          dtype: torch.dtype | None = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``, in
-    ``dtype`` (default ``cfg.param_dtype``); norm scales start at 0."""
+    ``dtype`` (default ``cfg.param_dtype``); norm scales start at 0. An
+    SSD layer takes ``ssm.init_ssd_block``."""
     dev = resolve_device(device)
     dt = dtype or cfg.param_dtype
     gen = torch.Generator(device=dev)
@@ -78,7 +89,10 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
         "final_norm": zeros(d),
         "layers": [],
     }
-    for _ in range(cfg.num_layers):
+    for kind in cfg.layer_kinds:
+        if kind == "ssd":
+            params["layers"].append({"ssd": ssm.init_ssd_block(gen, cfg, dt)})
+            continue
         attn = {"norm": zeros(d), "wq": dense(d, hq * e),
                 "wk": dense(d, hkv * e), "wv": dense(d, hkv * e),
                 "wo": dense(hq * e, d)}
@@ -348,6 +362,9 @@ def forward(params, tokens, cfg: ArchConfig):
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     for layer in params["layers"]:
+        if "ssd" in layer:
+            x = x + ssm.ssd_block(layer["ssd"], x, cfg)[0]
+            continue
         y, _ = attn_block(layer["attn"], x, cfg, positions=positions)
         x = x + y
         x = x + mlp(layer["ffn"], x, cfg)
@@ -383,7 +400,19 @@ def _kv_layers(cfg: ArchConfig, shape, scale_shape, kv_dtype,
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device="cuda", kv_dtype=None) -> dict:
     """Dense (B, Hkv, max_len, E) K/V per layer; ``kv_dtype=torch.int8``
-    (or ``"int8"``) adds per-row (B, Hkv, max_len) fp32 scales."""
+    (or ``"int8"``) adds per-row (B, Hkv, max_len) fp32 scales. An SSM
+    stack gets zeroed conv and SSD states per layer, whatever
+    ``max_len`` and ``kv_dtype``."""
+    if cfg.family == "ssm":
+        kv_storage_dtype(kv_dtype)          # validated, then not used
+        dev = resolve_device(device)
+        dims = ssm.ssd_dims(cfg)
+        return {"layers": [
+            {"conv": torch.zeros((batch, *dims["conv"]),
+                                 dtype=cfg.compute_dtype, device=dev),
+             "state": torch.zeros((batch, *dims["state"]),
+                                  dtype=torch.float32, device=dev)}
+            for _ in range(cfg.num_layers)]}
     shape = (batch, cfg.num_kv_heads, max_len, cfg.hd)
     return _kv_layers(cfg, shape, shape[:3], kv_dtype,
                       resolve_device(device))
@@ -402,6 +431,12 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
     positions = torch.arange(s, device=x.device)
     cache = make_cache(cfg, b, max_len, device=x.device, kv_dtype=kv_dtype)
     for layer, blk in zip(params["layers"], cache["layers"]):
+        if "ssd" in layer:
+            y, (conv, state) = ssm.ssd_block(layer["ssd"], x, cfg)
+            blk["conv"].copy_(conv)
+            blk["state"].copy_(state)
+            x = x + y
+            continue
         y, (k, v) = attn_block(layer["attn"], x, cfg, positions=positions)
         if blk["k"].dtype == torch.int8:
             blk["k"][:, :, :s], blk["k_scale"][:, :, :s] = quantize_q8(k, -1)
@@ -419,6 +454,14 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
     cache). The cache is updated in place and returned."""
     x = _embed(params, token, cfg)
     for layer, blk in zip(params["layers"], cache["layers"]):
+        if "ssd" in layer:
+            y, (conv, state) = ssm.ssd_block(
+                layer["ssd"], x, cfg, conv_state=blk["conv"],
+                ssm_state=blk["state"], streaming=True)
+            blk["conv"].copy_(conv)
+            blk["state"].copy_(state)
+            x = x + y
+            continue
         x = x + attn_decode(layer["attn"], x, cfg, cache_k=blk["k"],
                             cache_v=blk["v"], pos=pos,
                             k_scale=blk.get("k_scale"),
@@ -432,7 +475,9 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_paged_support(cfg: ArchConfig) -> None:
+def check_paged_support(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless the paged cache serves
+    ``cfg`` (dense rope decoder stacks only)."""
     if cfg.family != "dense":
         raise NotImplementedError(
             "the paged cache layout supports dense rope decoder stacks only "
@@ -445,7 +490,7 @@ def make_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
     (``kv_dtype=torch.int8`` adds per-page (Hkv, P) fp32 scales). Page 0 is
     the scratch page of the cache manager; the page table is not part of
     the cache, it is an argument of every paged step."""
-    _check_paged_support(cfg)
+    check_paged_support(cfg)
     shape = (cfg.num_kv_heads, num_pages, page_size, cfg.hd)
     return _kv_layers(cfg, shape, shape[:2], kv_dtype,
                       resolve_device(device))
@@ -456,7 +501,7 @@ def paged_decode_step(params, cfg: ArchConfig, token, cache, page_table,
     """token: (B, 1) int; page_table: (B, max_pages) int32; positions:
     (B,) int32 per sequence -> (logits (B, 1, V), cache). The pools are
     updated in place and returned."""
-    _check_paged_support(cfg)
+    check_paged_support(cfg)
     x = _embed(params, token, cfg)
     for layer, blk in zip(params["layers"], cache["layers"]):
         x = x + attn_paged_decode(layer["attn"], x, cfg, k_pages=blk["k"],
@@ -481,7 +526,7 @@ def paged_verify_step(params, cfg: ArchConfig, tokens, cache, page_table,
     greedy token at drafted position i, so the host accepts the longest
     matching draft prefix plus one token. k = 1 is ``paged_decode_step``.
     """
-    _check_paged_support(cfg)
+    check_paged_support(cfg)
     x = _embed(params, tokens, cfg)
     for layer, blk in zip(params["layers"], cache["layers"]):
         x = x + attn_paged_verify(layer["attn"], x, cfg, k_pages=blk["k"],
@@ -504,7 +549,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, page_table,
     place and returns ``(last_logits (1, V), cache)`` for the chunk's last
     live row: on the final chunk, the logits of the first generated token.
     """
-    _check_paged_support(cfg)
+    check_paged_support(cfg)
     x = _embed(params, tokens, cfg)
     kv_len = q_offset + chunk_len
     for layer, blk in zip(params["layers"], cache["layers"]):

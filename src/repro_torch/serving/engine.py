@@ -8,11 +8,14 @@ scales.
 
 ``ServingEngine`` groups requests into buckets of equal prompt length,
 pads a wave of up to ``batch_size`` requests with dummy rows to a fixed
-batch, allocates a dense (batch, max_len) cache per wave, prefills once,
-then decodes greedily until every real request of the wave has stopped.
+batch, allocates a dense (batch, max_len) cache per wave (for an SSM
+stack, the per-layer conv and SSD states instead), prefills once, then
+decodes greedily until every real request of the wave has stopped.
 
-``ContinuousBatchingEngine`` serves one long-lived decode batch over the
-global page pools of ``serving/paged_cache.py``: finished sequences free
+``ContinuousBatchingEngine`` serves dense decoder stacks only (it
+refuses an SSM stack, as the reference's paged cache does). It serves
+one long-lived decode batch over the global page pools of
+``serving/paged_cache.py``: finished sequences free
 their pages between steps, and each engine step packs up to
 ``chunk_size`` prompt tokens of the head-of-queue request with all live
 decode slots, so decode advances while a long prompt is admitted. Pool
@@ -53,7 +56,10 @@ from repro_torch.core.autotune import (
     tune_spec_depth,
 )
 from repro_torch.models.api import Model
-from repro_torch.models.transformer import kv_storage_dtype
+from repro_torch.models.transformer import (
+    check_paged_support,
+    kv_storage_dtype,
+)
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.drafter import NgramDrafter
@@ -372,6 +378,7 @@ class ContinuousBatchingEngine:
                  prefix_cache: bool = False, device="cuda"):
         if prefix_cache:
             raise NotImplementedError("prefix sharing is not ported yet")
+        check_paged_support(model.cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "

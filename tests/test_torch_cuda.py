@@ -10,7 +10,12 @@ Each kernel runs in fp32 against its plain version on the same CUDA
 tensors (atol 3e-5: fp32 sums in another order), the int8 branches of
 B4-B7 on int8 caches with their scales, and the wave, continuous and
 speculative engines serve a smoke model on the card with the same tokens
-as on the CPU, on bf16-free fp32 and on int8 caches.
+as on the CPU, on bf16-free fp32 and on int8 caches. B8 (the SSD
+intra-chunk step) and the chunked scan around it are held row by row
+(L2 error within 1e-4 of the row's norm: y grows with the rows a decay
+lets through, so an absolute limit does not fit), at a full-width cell
+count, on a ragged tail, and against a planted zeroed X tile; the wave
+engine serves the mamba2 smoke model on the card with the CPU's tokens.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pdec
 from repro_torch.kernels import paged_prefill_attention as ppre
 from repro_torch.kernels import paged_verify_attention as pver
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import ssm
 from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.api import build_model
 from repro_torch.serving import (
@@ -40,6 +47,7 @@ from repro_torch.serving import (
 )
 
 FP32_ATOL = 3e-5
+SSD_ROW_RTOL = 1e-4
 
 pytestmark = pytest.mark.gpu
 
@@ -302,3 +310,111 @@ def test_int8_wave_engine_on_the_card_matches_the_cpu(cuda):
     for rid in on_cpu:
         np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
     assert counts["decode_int8"] > 0 and counts["decode"] == 0
+
+
+def _row_rel(got, want) -> float:
+    err = (got.float() - want.float()).norm(dim=-1)
+    return float((err / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _ssd_cells(gen, bh, nc, q, p, n, dtype=torch.float32, a_scale=0.01):
+    """B8's inputs: x, b, c ~ N(0, 1); a = -a_scale softplus(N(0, 1)) A_h
+    with A_h = linspace(1, 16) over 24 heads (1% of the model's decay:
+    every off-diagonal tile counts)."""
+    a_h = torch.linspace(1.0, 16.0, 24, device=gen.device).repeat(
+        -(-bh // 24))[:bh]
+    a = -a_scale * torch.nn.functional.softplus(
+        _rand(gen, bh, nc, q)) * a_h[:, None, None]
+    return (_rand(gen, bh, nc, q, p).to(dtype), a,
+            _rand(gen, bh, nc, q, n).to(dtype),
+            _rand(gen, bh, nc, q, n).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_at_full_width_cells(cuda, dtype):
+    """The 4 x 2048 wave's 768 cells (96 heads of 8 chunks of 256 rows,
+    head_dim 64, d_state 128), at the model's decay and at 1% of it."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for a_scale in (1.0, 0.01):
+        x, a, b, c = _ssd_cells(g, 96, 8, 256, 64, 128, dtype, a_scale)
+        ops.reset_launch_counts()
+        got = ssd.ssd_intra_chunk(x, a, b, c)
+        assert ops.launch_counts()["ssd_intra_chunk"] == 1
+        want = ssd.ssd_intra_chunk_plain(x, a, b, c)
+        torch.cuda.synchronize()
+        for g_t, w_t in zip(got, want):
+            assert g_t.dtype == torch.float32
+            assert _row_rel(g_t, w_t) <= SSD_ROW_RTOL
+
+
+@pytest.mark.parametrize("q,p,n", [(100, 16, 16), (64, 64, 128), (1, 8, 8),
+                                   (320, 32, 64)])
+def test_ssd_kernel_matches_plain_on_ragged_chunks(cuda, q, p, n):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, a, b, c = _ssd_cells(g, 5, 3, q, p, n)
+    got = ssd.ssd_intra_chunk(x, a, b, c)
+    want = ssd.ssd_intra_chunk_plain(x, a, b, c)
+    torch.cuda.synchronize()
+    for g_t, w_t in zip(got, want):
+        assert _row_rel(g_t, w_t) <= SSD_ROW_RTOL
+
+
+@pytest.mark.parametrize("length", [600, 100, 512])
+def test_ssd_chunked_kernel_matches_plain_scan(cuda, length):
+    """A ragged tail padded to a whole chunk (600 = 2 x 256 + 88), a prompt
+    shorter than the chunk, and whole chunks; with an initial state."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    bsz, h, p, n = 2, 4, 64, 128
+    x, a, b, c = _ssd_cells(g, bsz, length, h, p, n)  # (B, L, H, F)
+    s0 = 0.1 * _rand(g, bsz, h, p, n)
+    chunk = min(256, length)
+    got = ssd.ssd_chunked_kernel(x, a, b, c, chunk, initial_state=s0)
+    want = ssm.ssd_chunked(x, a, b, c, chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert got[0].shape == (bsz, length, h, p)
+    for g_t, w_t in zip(got, want):
+        assert _row_rel(g_t, w_t) <= SSD_ROW_RTOL
+
+
+def test_ssd_limit_rejects_a_zeroed_x_tile(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x, a, b, c = _ssd_cells(g, 24, 2, 256, 64, 128, torch.bfloat16, 1.0)
+    got = ssd.ssd_intra_chunk(x, a, b, c)
+    bad = x.clone()
+    bad[7, 1, 192:256] = 0
+    faulty = ssd.ssd_intra_chunk_plain(bad, a, b, c)
+    torch.cuda.synchronize()
+    for g_t, f_t in zip(got, faulty):
+        assert _row_rel(g_t, f_t) > 100 * SSD_ROW_RTOL
+
+
+def test_mamba2_wave_engine_on_the_card_matches_the_cpu(cuda):
+    cfg = dataclasses.replace(get_smoke("mamba2-130m"), attn_impl="kernel",
+                              compute_dtype=torch.float32)
+    model = build_model(cfg)
+    cpu_params = model.init(seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for layer in cpu_params["layers"]:       # varied tokens
+        for key in ("norm", "gate_norm"):
+            layer["ssd"][key] = 2.0 * torch.randn(
+                layer["ssd"][key].shape, generator=gen)
+    gpu_params = {"embed": cpu_params["embed"].to(cuda),
+                  "final_norm": cpu_params["final_norm"].to(cuda),
+                  "layers": [{"ssd": {k: t.to(cuda) for k, t in
+                                      layer["ssd"].items()}}
+                             for layer in cpu_params["layers"]]}
+    rng = np.random.default_rng(4)
+    # 40 rows at chunk 32: a ragged tail; 64: two whole chunks
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab_size, size=(n,))
+                    .astype(np.int32), max_new_tokens=6, eos_id=-1)
+            for i, n in enumerate([40, 40, 64, 7])]
+    ops.reset_launch_counts()
+    on_gpu = ServingEngine(model, gpu_params, max_len=80, batch_size=2,
+                           device=cuda).serve(reqs)
+    counts = ops.launch_counts()
+    on_cpu = ServingEngine(model, cpu_params, max_len=80, batch_size=2,
+                           device="cpu").serve(reqs)
+    for rid in on_cpu:
+        np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
+    # one launch a layer a wave: three waves (40 x 2, 64, 7)
+    assert counts["ssd_intra_chunk"] == 3 * cfg.num_layers

@@ -313,8 +313,10 @@ def test_launch_counts_only_count_kernel_launches():
     tops.paged_prefill_attention(to_torch(q[0]), pool, pool, table, 0, 32)
     tops.paged_verify_attention(to_torch(q[:, :, :2].transpose(0, 2, 1, 3)),
                                 pool, pool, table[None], lens, lens - 2)
+    x = to_torch(k).reshape(1, 32, 4, 8)              # (B, L, H, P)
+    tops.ssd_chunked(x, -x[..., 0].abs(), x, x, 16)
     assert tops.launch_counts() == {
         "mas_resident": 0, "mas_streamed": 0, "flash": 0, "decode": 0,
         "decode_int8": 0, "paged_decode": 0, "paged_decode_int8": 0,
         "paged_prefill": 0, "paged_prefill_int8": 0, "paged_verify": 0,
-        "paged_verify_int8": 0}
+        "paged_verify_int8": 0, "ssd_intra_chunk": 0}

@@ -8,7 +8,8 @@
   with a note naming the kernel it replaces;
 * ``chip_smoke.py`` refuses to run without a card or without the port,
   and its bf16 limit admits one rounding of a kernel's output but not a
-  skipped KV tile, nor, on an int8 cache, a zeroed V scale.
+  skipped KV tile, nor, on an int8 cache, a zeroed V scale, nor for B8 a
+  zeroed X tile.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from repro_torch.kernels import mas_attention as tmas
 from repro_torch.kernels import paged_decode_attention as ppdec
 from repro_torch.kernels import paged_prefill_attention as ppre
 from repro_torch.kernels import paged_verify_attention as ppver
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.api import build_model
 from repro_torch.serving import ContinuousBatchingEngine, ServingEngine
@@ -56,6 +58,8 @@ PORTED = {
            "_paged_decode_kernel", "paged_decode_attention.cu"),
     "B7": ("src/repro/kernels/paged_verify_attention.py",
            "_paged_verify_kernel", "paged_verify_attention.cu"),
+    "B8": ("src/repro/kernels/ssd_scan.py", "_ssd_chunk_kernel",
+           "ssd_scan.cu"),
 }
 
 
@@ -160,7 +164,7 @@ def _chip_smoke():
 @pytest.mark.parametrize("kernel", [
     "mas", "flash", "decode", "paged_decode", "paged_prefill",
     "paged_verify", "decode_int8", "paged_decode_int8", "paged_prefill_int8",
-    "paged_verify_int8"])
+    "paged_verify_int8", "ssd"])
 def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
         kernel):
     smoke = _chip_smoke()
@@ -168,6 +172,22 @@ def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen)
+
+    if kernel == "ssd":
+        # the model's decays (a·dt of -0.7 to -11 a step) over 4 heads of
+        # 2 chunks of 128 rows; the fault: one cell's last X tile zeroed,
+        # which both y's rows and the cell's state must see
+        x, b, c = rnd(4, 2, 128, 16), rnd(4, 2, 128, 32), rnd(4, 2, 128, 32)
+        a = -torch.nn.functional.softplus(rnd(4, 2, 128)) * torch.linspace(
+            1.0, 16.0, 4)[:, None, None]
+        want = tssd.ssd_intra_chunk_plain(x, a, b, c)
+        faulty = tssd.ssd_intra_chunk_plain(
+            smoke.drop_x_tile(x, (2, 1), 1), a, b, c)
+        for got, ref, bad in zip(want, want, faulty):
+            check = smoke.held_to_plain(got.bfloat16(), ref, bad)
+            assert 0 < check["row_rel_err"] <= smoke.BF16_ROW_RTOL
+            assert check["fault_row_rel_err"] > 10 * smoke.BF16_ROW_RTOL
+        return
 
     int8 = kernel.endswith("_int8")
     kernel = kernel.removesuffix("_int8")
