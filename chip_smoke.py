@@ -8,8 +8,11 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
 Phases, each printing one JSON line:
 
-1. device — the card, the software versions, and the ``nvcc`` build of
-   every kernel from ``src/repro_torch/kernels/csrc``;
+1. device — the card, the software versions, the ``nvcc`` build of
+   every kernel from ``src/repro_torch/kernels/csrc``, each kernel's
+   registers and spills (``ptxas``) and its tensor-core instructions
+   (``HMMA``, ``HGMMA`` in ``cuobjdump -sass``), which the bf16 forms of
+   B2 and B3 must have;
 2. fp32 checks — each kernel against its plain version in fp32 on small
    ragged shapes (padding, kv tails, a sliding window, ragged decode; for
    the paged kernels shuffled page tables, kv_len 0, 1 and mid-page, a
@@ -30,7 +33,9 @@ Phases, each printing one JSON line:
    every output row within about one bf16 rounding of its norm, with its
    time, the plain version's, the bound for its work on the card, and
    one PyTorch call computing the same function (timed as a yardstick
-   only; int8 caches are dequantized first; none computes B8's);
+   only; int8 caches are dequantized first; none computes B8's); B2 also
+   at 1 x 4096 (blk_q 8, its transposed form), and B1-B3 with their
+   achieved TFLOP/s;
 4. main path (waves) — full-width internlm2-1.8b (random weights from a
    seed) served by the port's ``ServingEngine`` in three waves whose
    prompts the shared-memory policy routes to the resident MAS, streamed
@@ -312,6 +317,28 @@ def ptxas_report(log: str) -> dict:
             report[name]["registers"] = int(regs.group(1))
         if name and spill:
             report[name]["spill_bytes"] = int(spill.group(1))
+    return demangled(report)
+
+
+def sass_report(listing: str) -> dict:
+    """Tensor-core instructions of each kernel in a ``cuobjdump -sass``
+    listing: ``HMMA`` (``mma.sync``) and ``HGMMA`` (``wgmma``), by kernel
+    (demangled by ``c++filt`` where it is installed)."""
+    report, name = {}, None
+    for ln in listing.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            report[name] = {"hmma": 0, "hgmma": 0}
+        elif name:
+            report[name]["hmma"] += len(re.findall(r"\bHMMA\.", ln))
+            report[name]["hgmma"] += len(re.findall(r"\bHGMMA\.", ln))
+    return demangled(report)
+
+
+def demangled(report: dict) -> dict:
+    """``report`` keyed by demangled kernel names, where ``c++filt`` is
+    installed: the function's name and template arguments, no parameters."""
     names = list(report)
     if names and shutil.which("c++filt"):
         out = subprocess.run(["c++filt"], input="\n".join(names),
@@ -330,6 +357,7 @@ def phase_device(torch, build) -> dict:
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_report(build.build_log(name))
              for name in build.SOURCES}
+    sass = {name: sass_report(build.sass(name)) for name in build.SOURCES}
     info = {
         "phase": "device",
         "nvidia_smi": nvidia_smi(),
@@ -342,8 +370,16 @@ def phase_device(torch, build) -> dict:
         "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
         "tf32_cudnn": torch.backends.cudnn.allow_tf32,
         "ptxas": ptxas,
+        "tensor_core_instructions": sass,
     }
     emit(info)
+    # the bf16 forms of B2 and B3 must run on the tensor cores
+    for lib, kernel in (("mas_attention", "mas_streamed_bf16_kernel"),
+                        ("flash_attention", "flash_bf16_kernel")):
+        found = {k: c for k, c in sass[lib].items() if kernel in k}
+        require(bool(found) and all(c["hmma"] + c["hgmma"] > 0
+                                    for c in found.values()),
+                f"{kernel}: no tensor-core instruction in {found}")
     return info
 
 
@@ -521,27 +557,61 @@ def phase_kernels(torch) -> list[dict]:
         flops = 4.0 * e * pairs * b * hq
         nbytes = 2.0 * (2 * b * hq * n * e + 2 * b * hkv * n * e)
         bms, by = bound(flops, nbytes)
+        ms = cuda_ms(torch, kern, 20)
         rows.append({
             "name": method, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, **check,
-            "ms": cuda_ms(torch, kern, 20),
-            "plain_ms": cuda_ms(torch, plain, 2),
+            "ms": ms, "plain_ms": cuda_ms(torch, plain, 2),
             "bound_ms": bms, "bound_by": by,
             "library_ms": cuda_ms(torch, lib, 20),
+            "tflops": flops / ms / 1e9,
             "shape": {"b": b, "hq": hq, "hkv": hkv, "n": n, "e": e,
                       "blk_q": bq, "causal": True, "dtype": "bf16"},
         })
+        if method == "mas_streamed":
+            rows[-1]["blk_q8"] = streamed_at_blk_q8(torch, rnd, hq, hkv, e)
 
     for quantized in (False, True):
         rows.append(decode_row(torch, rnd, cfg, quantized))
         rows += paged_rows(torch, rnd, cfg, quantized)
     rows.append(ssd_row(torch))
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
-    for row in rows:
+    for row in rows + [r["blk_q8"] for r in rows if "blk_q8" in r]:
         require(row["row_rel_err"] <= BF16_ROW_RTOL,
                 f"{row['name']}: row_rel_err {row['row_rel_err']} > "
                 f"{BF16_ROW_RTOL}")
     return rows
+
+
+def streamed_at_blk_q8(torch, rnd, hq: int, hkv: int, e: int) -> dict:
+    """B2 at 1 x 4096, where the policy takes blk_q 8 and the bf16 kernel
+    its transposed form, against its plain version per row."""
+    from repro_torch.core.policy import KV_TILE
+    from repro_torch.kernels import mas_attention as mas
+    from repro_torch.kernels import ops
+
+    n = 4096
+    kind, bq = ops.resolve_method(n, n, e, 2)
+    require((kind, bq) == ("mas_streamed", 8),
+            f"policy routes N={n} to {kind} at blk_q {bq}")
+    q, k, v = rnd(hq, n, e), rnd(hkv, n, e), rnd(hkv, n, e)
+
+    def kern():
+        return mas.mas_attention_flat(q, k, v, blk_q=bq, causal=True,
+                                      kv_resident=False)
+
+    def plain(v=v):
+        return mas.mas_attention_plain(q, k, v, blk_q=bq, blk_kv=KV_TILE,
+                                       causal=True)
+
+    check = held_to_plain(kern(), plain(),
+                          plain(drop_v_tile(v, n // KV_TILE - 2)))
+    ms = cuda_ms(torch, kern, 10)
+    flops = 4.0 * e * (n * (n + 1) // 2) * hq
+    return {"name": "mas_streamed_blk_q8", **check, "ms": ms,
+            "tflops": flops / ms / 1e9,
+            "shape": {"b": 1, "hq": hq, "hkv": hkv, "n": n, "e": e,
+                      "blk_q": bq, "causal": True, "dtype": "bf16"}}
 
 
 def paged_library_call(torch, q, k_pages, v_pages, table, mask,

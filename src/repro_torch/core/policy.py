@@ -13,13 +13,17 @@ policy chooses, in the paper's order:
                  overwrite/reload regime), first at the default blk_q,
                  then with blk_q halved down to 8;
   flash        — online softmax once even a (8, N) fp32 score row does
-                 not fit (the paper's §5.6 sequence-length limit).
+                 not fit (the paper's §5.6 sequence-length limit); its
+                 bf16 form runs blocks of its own height,
+                 ``FLASH_BLK_Q_BF16`` rows.
 
 The footprints below are exactly the dynamic SMEM the port's CUDA
-kernels request (``kernels/csrc``): score rows and the Q block are fp32,
-staged K/V rows are padded by ``KV_ROW_PAD`` elements against bank
-conflicts, and KV tiles are ``KV_TILE`` rows. N is the kv length padded
-to a whole number of tiles, which is what the kernel holds.
+kernels request (``kernels/csrc``): the MAS kernels' score rows and Q
+block are fp32 and their tile buffer holds ``KV_TILE`` K/V rows padded
+by ``KV_ROW_PAD`` elements against bank conflicts (B2's bf16 form holds
+two unpadded, swizzled 32-row half tiles and its rows' maxima and sums
+in those same bytes). N is the kv length padded to a whole number of
+tiles, which is what the kernel holds.
 
 At E = 128 in bf16 with the defaults (blk_q 32, budget 231,424 B) this
 gives, by padded N: resident up to 320, streamed at blk_q 32 up to 1,536,
@@ -42,6 +46,8 @@ KV_TILE = 64
 DEFAULT_BLK_Q = 32
 MIN_BLK_Q = 8
 KV_ROW_PAD = 4   # elements of padding per staged K/V row in SMEM
+# Q rows of a block of the flash kernel's bf16 form: 4 warps of 16.
+FLASH_BLK_Q_BF16 = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +75,18 @@ def mas_smem_bytes(blk_q: int, blk_kv: int, n: int, e: int, itemsize: int,
     return s_row + q_blk + kv
 
 
+def flash_blk_q(itemsize: int, blk_q: int = DEFAULT_BLK_Q) -> int:
+    """Q rows of a flash block: the bf16 form's own height, else blk_q."""
+    return FLASH_BLK_Q_BF16 if itemsize == 2 else blk_q
+
+
 def flash_smem_bytes(blk_q: int, blk_kv: int, e: int, itemsize: int) -> int:
-    """Dynamic SMEM of the flash kernel: P tile, Q block, m/l/alpha rows,
-    one K and one V tile."""
+    """Dynamic SMEM of the flash kernel. bf16 form: the Q block and two
+    stages of one K and one V tile, all unpadded, and 1 KB to align them
+    to 1024 bytes (``wgmma``'s swizzled tiles); fp32 form: P tile, Q
+    block, m/l/alpha rows, one K and one V tile."""
+    if itemsize == 2:
+        return 2 * blk_q * e + 2 * 2 * blk_kv * e * 2 + 1024
     return (4 * blk_q * blk_kv + 4 * blk_q * e + 3 * 4 * blk_q
             + 2 * blk_kv * (e + KV_ROW_PAD) * itemsize)
 
@@ -103,7 +118,8 @@ def choose_attention_method(*, n_kv: int, e: int,
             break
         bq = max(bq // 2, MIN_BLK_Q)
 
+    bq = flash_blk_q(itemsize, blk_q)
     return PolicyDecision(
-        "flash", blk_q, flash_smem_bytes(blk_q, blk_kv, e, itemsize),
+        "flash", bq, flash_smem_bytes(bq, blk_kv, e, itemsize),
         f"a ({MIN_BLK_Q}, {n}) fp32 score row does not fit the {budget} B "
         "SMEM budget (paper §5.6): online softmax")

@@ -41,15 +41,17 @@ F = ctypes.c_float
 SIGNATURES = {
     "mas_attention": {
         # q, k, v, o, bhq, nq, nkv, E, group, blk_q, causal, kv_len,
-        # sm_scale, dtype, stream
+        # sm_scale, [dtype,] stream
         "mas_resident_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
-        "mas_streamed_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
+        "mas_streamed_fp32_launch": [P, P, P, P] + [I] * 8 + [F, P],
+        "mas_streamed_bf16_launch": [P, P, P, P] + [I] * 8 + [F, P],
     },
     "flash_attention": {
         # q, k, v, o, bhq, nq, nkv, E, group, blk_q, causal, window,
-        # q_offset, kv_len, sm_scale, dtype, stream
-        "flash_attention_launch":
-            [P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, I, P],
+        # q_offset, kv_len, sm_scale, stream
+        "flash_attention_fp32_launch": [P, P, P, P] + [I] * 10 + [F, P],
+        # the same without blk_q (the bf16 form's block is its own)
+        "flash_attention_bf16_launch": [P, P, P, P] + [I] * 9 + [F, P],
     },
     "decode_attention": {
         # q, k, v, k_scale, v_scale, kv_lens, o, m_part, l_part, acc_part,
@@ -153,6 +155,16 @@ def build_log(name: str) -> str:
     last build of ``name``."""
     log = _library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass(name: str) -> str:
+    """The machine code of the built library of ``name``, as ``cuobjdump
+    -sass`` lists it (from the toolkit beside ``nvcc``)."""
+    tool = Path(nvcc()).resolve().with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(_library_path(name))],
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    return out.stdout
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -9,6 +9,15 @@ call. Whole tiles above the causal diagonal or outside the window are
 skipped; only boundary tiles are masked; query row i sits at absolute
 position ``q_offset + i``; rows that saw no key (l == 0) divide by 1.
 
+The fp32 form (``flash_attention_fp32_launch``) runs its products on the
+CUDA cores at the caller's ``blk_q``. The bf16 form
+(``flash_attention_bf16_launch``, head dim 128) runs them on the tensor
+cores by ``wgmma``, with S and P in registers and K/V tiles
+double-buffered by ``cp.async``, in blocks of its own height,
+``FLASH_BLK_Q_BF16`` (64) rows, to which ``ops.attention`` pads the query
+rows. ``entry_point`` chooses by dtype; a bf16 tensor the tensor-core
+kernel does not take raises.
+
 ``flash_attention_plain`` computes the same function in PyTorch with the
 kernel's tile order, skips and masks; the wrapper runs it for CPU
 tensors only.
@@ -18,12 +27,25 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.policy import KV_TILE
+from repro_torch.core.policy import FLASH_BLK_Q_BF16, KV_TILE
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import NEG_INF, check_prefill_tile
 
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
 LAUNCHES = {"flash": 0}
+# The bf16 form's head dims.
+BF16_HEAD_DIMS = (128,)
+
+
+def entry_point(dtype) -> str:
+    """The C function a CUDA tensor of ``dtype`` launches: the tensor-core
+    kernel in bf16, the CUDA-core kernel in fp32. Nothing falls back from
+    one to the other."""
+    if dtype == torch.bfloat16:
+        return "flash_attention_bf16_launch"
+    if dtype == torch.float32:
+        return "flash_attention_fp32_launch"
+    raise TypeError(f"the flash kernel takes float32 or bfloat16, not {dtype}")
 
 
 def flash_attention_plain(q, k, v, *, blk_q: int, blk_kv: int,
@@ -125,14 +147,25 @@ def flash_attention_flat(q, k, v, *, blk_q: int, blk_kv: int = KV_TILE,
         raise ValueError("q, k and v must be contiguous")
     if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device:
         raise ValueError("q, k and v must share one dtype and device")
+    name = entry_point(q.dtype)
+    shape = [bhq, nq, n, e, bhq // bhkv, blk_q]
+    if name == "flash_attention_bf16_launch":
+        if blk_q != FLASH_BLK_Q_BF16 or e not in BF16_HEAD_DIMS:
+            raise ValueError(f"the bf16 flash kernel takes blk_q "
+                             f"{FLASH_BLK_Q_BF16} and E in {BF16_HEAD_DIMS}, "
+                             f"not blk_q={blk_q}, E={e}")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the bf16 flash kernel copies 16-byte chunks: "
+                             "q, k and v must be 16-byte aligned")
+        shape.pop()         # its block height is its own
     lib = _build.library("flash_attention")
     o = torch.empty_like(q)
     scale = (e ** -0.5) if sm_scale is None else sm_scale
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bhq, nq, n, e,
-        bhq // bhkv, blk_q, int(causal), 0 if window is None else int(window),
-        int(q_offset), n if kv_len is None else int(kv_len), float(scale),
-        _build.dtype_code(q.dtype), _build.stream_handle(q.device))
-    _build.check(lib, err, "flash_attention_launch")
+    err = getattr(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *shape,
+        int(causal), 0 if window is None else int(window), int(q_offset),
+        n if kv_len is None else int(kv_len), float(scale),
+        _build.stream_handle(q.device))
+    _build.check(lib, err, name)
     LAUNCHES["flash"] += 1
     return o

@@ -28,6 +28,7 @@ from repro_torch.core.policy import (
     KV_TILE,
     MIN_BLK_Q,
     choose_attention_method,
+    flash_blk_q,
 )
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -77,6 +78,10 @@ def resolve_method(n_q: int, n_kv: int, e: int, itemsize: int, *,
         # A sliding window needs per-block skip bookkeeping the paper's
         # dataflow does not define: the flash kernel serves it.
         method = "flash"
+    if method == "flash" and itemsize == 2:
+        # the bf16 flash kernel runs blocks of its own height; Q rows are
+        # padded to it
+        return method, flash_blk_q(itemsize)
     # A short prompt needs no block taller than itself (rounded to 8).
     bq = min(bq, max(MIN_BLK_Q, -(-n_q // MIN_BLK_Q) * MIN_BLK_Q))
     return method, bq

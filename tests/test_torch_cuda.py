@@ -10,7 +10,10 @@ Each kernel runs in fp32 against its plain version on the same CUDA
 tensors (atol 3e-5: fp32 sums in another order), the int8 branches of
 B4-B7 on int8 caches with their scales, and the wave, continuous and
 speculative engines serve a smoke model on the card with the same tokens
-as on the CPU, on bf16-free fp32 and on int8 caches. B8 (the SSD
+as on the CPU, on bf16-free fp32 and on int8 caches. The bf16 forms of
+B2 and B3 (tensor cores) are held per output row within 4e-3 of the
+row's L2 norm, the limit ``chip_smoke.py`` uses, and a planted zeroed V
+tile must break it. B8 (the SSD
 intra-chunk step) and the chunked scan around it are held row by row
 (L2 error within 1e-4 of the row's norm: y grows with the rows a decay
 lets through, so an absolute limit does not fit), at a full-width cell
@@ -48,6 +51,7 @@ from repro_torch.serving import (
 
 FP32_ATOL = 3e-5
 SSD_ROW_RTOL = 1e-4
+BF16_ROW_RTOL = 4e-3
 
 pytestmark = pytest.mark.gpu
 
@@ -88,6 +92,98 @@ def test_flash_kernel_matches_plain(cuda, window):
                                     window=window, q_offset=100, kv_len=230)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= FP32_ATOL
+
+
+def _bf16(gen, *shape):
+    return _rand(gen, *shape).to(torch.bfloat16)
+
+
+def _zero_v_tile(v, tile: int):
+    out = v.clone()
+    out[:, tile * 64:(tile + 1) * 64] = 0
+    return out
+
+
+def _held_per_row(got, want, faulty):
+    """Each row of ``got`` within BF16_ROW_RTOL of ``want``'s, and the
+    planted fault ``faulty`` beyond it."""
+    err, fault = _row_rel(got, want), _row_rel(faulty, want)
+    assert err <= BF16_ROW_RTOL, (err, fault)
+    assert fault > BF16_ROW_RTOL, (err, fault)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("blk_q,e", [(8, 128), (16, 128), (32, 128),
+                                     (24, 128), (8, 64), (16, 64)])
+def test_mas_streamed_bf16_kernel_matches_plain_per_row(cuda, blk_q, e,
+                                                        causal):
+    """B2 on the tensor cores: blk_q 8 is the transposed form, 16 one m16
+    tile, 24 and 32 two; GQA group 2 and a kv_len tail inside the last
+    tile (330 of 384)."""
+    g = torch.Generator(device=cuda).manual_seed(20 + blk_q + e)
+    q = _bf16(g, 8, 192, e)
+    k, v = _bf16(g, 4, 384, e), _bf16(g, 4, 384, e)
+    kw = dict(blk_q=blk_q, causal=causal, kv_len=330)
+    got = mas.mas_attention_flat(q, k, v, kv_resident=False, **kw)
+    want = mas.mas_attention_plain(q, k, v, blk_kv=64, **kw)
+    faulty = mas.mas_attention_plain(q, k, _zero_v_tile(v, 1), blk_kv=64,
+                                     **kw)
+    torch.cuda.synchronize()
+    _held_per_row(got, want, faulty)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_bf16_kernel_matches_plain_per_row(cuda, window):
+    """B3 on the tensor cores, in 64-row blocks: rows at positions 150-405
+    (q_offset), a kv_len tail at 420 of 448, GQA group 2."""
+    e = 128
+    g = torch.Generator(device=cuda).manual_seed(30 + e)
+    q = _bf16(g, 4, 256, e)
+    k, v = _bf16(g, 2, 448, e), _bf16(g, 2, 448, e)
+    kw = dict(blk_q=64, causal=True, window=window, q_offset=150,
+              kv_len=420)
+    got = fl.flash_attention_flat(q, k, v, **kw)
+    want = fl.flash_attention_plain(q, k, v, blk_kv=64, **kw)
+    faulty = fl.flash_attention_plain(q, k, _zero_v_tile(v, 4), blk_kv=64,
+                                      **kw)
+    torch.cuda.synchronize()
+    _held_per_row(got, want, faulty)
+
+
+def test_short_windowed_bf16_prompt_pads_to_the_flash_block(cuda):
+    """A 20-token windowed prompt: the bf16 flash kernel's 64-row block,
+    the query rows padded to it, against the same call on the CPU."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    q = _bf16(g, 1, 4, 20, 128)
+    k, v = _bf16(g, 1, 2, 20, 128), _bf16(g, 1, 2, 20, 128)
+    assert ops.resolve_method(20, 20, 128, 2, window=8) == ("flash", 64)
+    ops.reset_launch_counts()
+    got = ops.attention(q, k, v, causal=True, window=8)
+    assert ops.launch_counts()["flash"] == 1
+    want = ops.attention(q.cpu(), k.cpu(), v.cpu(), causal=True, window=8)
+    faulty = ops.attention(q.cpu(), k.cpu(), torch.zeros_like(v.cpu()),
+                           causal=True, window=8)
+    torch.cuda.synchronize()
+    _held_per_row(got.cpu(), want, faulty)
+
+
+def test_bf16_prefill_kernels_refuse_what_they_do_not_take(cuda):
+    """A bf16 tensor runs the tensor-core kernels or raises: no block
+    height or head dim they are not built for reaches another kernel."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    q, k = _bf16(g, 2, 128, 32), _bf16(g, 2, 128, 32)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="bf16"):
+        mas.mas_attention_flat(q, k, k, blk_q=16, kv_resident=False)
+    with pytest.raises(ValueError, match="bf16"):
+        fl.flash_attention_flat(q, k, k, blk_q=64)
+    q64 = _bf16(g, 2, 128, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        fl.flash_attention_flat(q64, q64, q64, blk_q=64)
+    q = _bf16(g, 2, 128, 128)
+    with pytest.raises(ValueError, match="bf16"):
+        fl.flash_attention_flat(q, q, q, blk_q=32)
+    assert sum(ops.launch_counts().values()) == 0
 
 
 def test_decode_kernel_matches_plain(cuda):

@@ -270,7 +270,7 @@ def test_wrappers_refuse_other_devices():
     (320, "mas_resident", 32), (321, "mas_streamed", 32),
     (1536, "mas_streamed", 32), (1537, "mas_streamed", 16),
     (3200, "mas_streamed", 16), (3201, "mas_streamed", 8),
-    (6528, "mas_streamed", 8), (6529, "flash", 32), (8192, "flash", 32),
+    (6528, "mas_streamed", 8), (6529, "flash", 64), (8192, "flash", 64),
 ])
 def test_policy_regimes_at_e128_bf16(n, method, blk_q):
     d = policy.choose_attention_method(n_kv=n, e=128, itemsize=2)
@@ -283,9 +283,10 @@ def test_policy_footprints_and_forced_modes():
     # the footprints are the kernels' dynamic shared memory
     assert policy.mas_smem_bytes(32, 64, 256, 128, 2, True) == 184_320
     assert policy.mas_smem_bytes(16, 64, 2048, 128, 2, False) == 156_160
-    assert policy.flash_smem_bytes(32, 64, 128, 2) == 58_752
-    # a named kernel is run as asked, at the default block height
-    assert tops.resolve_method(64, 64, 128, 2, method="flash") == ("flash", 32)
+    assert policy.flash_smem_bytes(64, 64, 128, 2) == 82_944
+    # a named kernel is run as asked, at the default block height (the
+    # bf16 flash kernel at its own)
+    assert tops.resolve_method(64, 64, 128, 2, method="flash") == ("flash", 64)
     assert tops.resolve_method(
         64, 64, 128, 2, method="mas_streamed") == ("mas_streamed", 32)
     # a window always goes to flash; unknown methods are refused

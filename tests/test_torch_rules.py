@@ -9,7 +9,10 @@
 * ``chip_smoke.py`` refuses to run without a card or without the port,
   and its bf16 limit admits one rounding of a kernel's output but not a
   skipped KV tile, nor, on an int8 cache, a zeroed V scale, nor for B8 a
-  zeroed X tile.
+  zeroed X tile;
+* a bf16 tensor reaches B2 and B3 only through their tensor-core forms,
+  chosen by dtype in the wrapper, with no ``try`` to fall back from, and
+  ``chip_smoke.py`` counts each kernel's tensor-core instructions.
 """
 
 from __future__ import annotations
@@ -75,7 +78,8 @@ def _imports(path: Path) -> list[str]:
 
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "scripts" / "trace_continuous.py"],
+        REPO / "chip_smoke.py", REPO / "scripts" / "trace_continuous.py",
+        REPO / "scripts" / "copy_rate.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax_and_no_reference(path):
     for name in _imports(path):
@@ -291,3 +295,61 @@ def test_chip_smoke_ptxas_report_names_each_kernel():
     names = list(report)
     assert "split_combine_kernel" in names[0] and "kernel" in names[1]
     assert _chip_smoke().ptxas_report("") == {}
+
+
+def test_chip_smoke_sass_report_counts_tensor_core_instructions():
+    # two functions of a cuobjdump -sass listing: mma.sync (HMMA) and
+    # wgmma (HGMMA) instructions land under each, in the listing's order
+    listing = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _ZN12_GLOBAL__N_117flash_bf16_kernelILi128EEEvPK"
+        "13__nv_bfloat16S3_S3_PS1_iiiiiiif",
+        "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS\"",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+        "        /*0a30*/                   HMMA.16816.F32.BF16 R24, R4, R20,"
+        " R24 ;                    /* 0x000000140418723c */",
+        "        /*0a40*/                   HMMA.16816.F32.BF16 R28, R4, R22,"
+        " R28 ;",
+        "        /*0a50*/                   LDSM.16.MT88.4 R8, [R2+UR4] ;",
+        "\t\tFunction : _Z6kernelv",
+        "        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, "
+        "gdesc[UR4], R24 ;",
+        "        /*0110*/                   FFMA R1, R2, R3, R1 ;",
+    ])
+    report = _chip_smoke().sass_report(listing)
+    assert list(report.values()) == [{"hmma": 2, "hgmma": 0},
+                                     {"hmma": 0, "hgmma": 1}]
+    assert "flash_bf16_kernel" in list(report)[0]
+    assert _chip_smoke().sass_report("") == {}
+
+
+def test_bf16_prefill_never_reaches_the_cuda_core_code():
+    # the wrappers choose the C function by dtype ...
+    bf16, fp32 = torch.bfloat16, torch.float32
+    assert tmas.entry_point(bf16, False) == "mas_streamed_bf16_launch"
+    assert tmas.entry_point(fp32, False) == "mas_streamed_fp32_launch"
+    assert tmas.entry_point(bf16, True) == "mas_resident_launch"
+    assert tflash.entry_point(bf16) == "flash_attention_bf16_launch"
+    assert tflash.entry_point(fp32) == "flash_attention_fp32_launch"
+    for fn in (lambda: tmas.entry_point(torch.float16, False),
+               lambda: tflash.entry_point(torch.float16)):
+        with pytest.raises(TypeError):
+            fn()
+    sigs = {**_build.SIGNATURES["mas_attention"],
+            **_build.SIGNATURES["flash_attention"]}
+    for name in ("mas_streamed_bf16_launch", "mas_streamed_fp32_launch",
+                 "flash_attention_bf16_launch",
+                 "flash_attention_fp32_launch"):
+        assert name in sigs
+    # ... with no try to fall back from ...
+    for module in (tmas, tflash):
+        tree = ast.parse(Path(module.__file__).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    # ... and the CUDA-core forms of B2 and B3 exist only in fp32
+    csrc = PORT / "kernels" / "csrc"
+    mas_cu = (csrc / "mas_attention.cu").read_text()
+    flash_cu = (csrc / "flash_attention.cu").read_text()
+    assert "mas_streamed_kernel<float>" in mas_cu
+    assert "mas_streamed_kernel<__nv_bfloat16>" not in mas_cu
+    assert "flash_kernel<float>" in flash_cu
+    assert "flash_kernel<__nv_bfloat16>" not in flash_cu
