@@ -12,7 +12,8 @@ Phases, each printing one JSON line:
    every kernel from ``src/repro_torch/kernels/csrc``, each kernel's
    registers and spills (``ptxas``) and its tensor-core instructions
    (``HMMA``, ``HGMMA`` in ``cuobjdump -sass``), which the bf16 forms of
-   B2 and B3 must have;
+   B1-B3 and B5 must have (``HMMA`` for B1 and B2, ``HGMMA`` for B3 and
+   B5);
 2. fp32 checks — each kernel against its plain version in fp32 on small
    ragged shapes (padding, kv tails, a sliding window, ragged decode; for
    the paged kernels shuffled page tables, kv_len 0, 1 and mid-page, a
@@ -27,15 +28,17 @@ Phases, each printing one JSON line:
    ``ops.decode_attention`` at each wave's kv_len, as the model calls it;
    paged decode over a batch of 8 whose kv_lens spread over 1-3600 of a
    4096-token budget, paged prefill of 512-row chunks at q_offset 0 and
-   3072, paged verify of 4 candidate rows a slot ending at those kv_lens,
+   3072 (and, checked but not timed, at q_offset 1000 with kv_len 1400
+   ending mid-page), paged verify of 4 candidate rows a slot ending at
+   those kv_lens,
    on pools of 2049 pages), on bf16 caches and again on int8 caches with
    their scales, and B8 at the 4 x 2048 mamba2-130m wave's 768 cells,
    every output row within about one bf16 rounding of its norm, with its
    time, the plain version's, the bound for its work on the card, and
    one PyTorch call computing the same function (timed as a yardstick
    only; int8 caches are dequantized first; none computes B8's); B2 also
-   at 1 x 4096 (blk_q 8, its transposed form), and B1-B3 with their
-   achieved TFLOP/s;
+   at 1 x 4096 (blk_q 8, its transposed form), and B1-B3 and B5 with
+   their achieved TFLOP/s;
 4. main path (waves) — full-width internlm2-1.8b (random weights from a
    seed) served by the port's ``ServingEngine`` in three waves whose
    prompts the shared-memory policy routes to the resident MAS, streamed
@@ -124,7 +127,9 @@ FP32_NEW_TOKENS = 16
 FP32_PROMPT_MAX = 1500     # several 512-token chunks, three kernel routes
 # Paged kernel shapes on the main path: 8 sequences over 2049 pages.
 PAGED_DECODE_KV_LENS = (1, 17, 300, 1000, 1777, 2500, 3100, 3600)
-PAGED_PREFILL = ((0, 512), (3072, 3584))   # (q_offset, kv_len), 512 rows
+# (q_offset, kv_len, timed) of 512-row chunks: the first, a later one that
+# starts off the 64-row block grid and ends mid-page, and a late one
+PAGED_PREFILL = ((0, 512, True), (1000, 1400, False), (3072, 3584, True))
 # Speculative decoding: depth k, and the random span whose repetitions
 # make the speculative phase's prompts (text that quotes its own context).
 SPEC_DEPTH = 4
@@ -373,13 +378,16 @@ def phase_device(torch, build) -> dict:
         "tensor_core_instructions": sass,
     }
     emit(info)
-    # the bf16 forms of B2 and B3 must run on the tensor cores
-    for lib, kernel in (("mas_attention", "mas_streamed_bf16_kernel"),
-                        ("flash_attention", "flash_bf16_kernel")):
+    # the bf16 forms of B1, B2, B3 and B5 must run on the tensor cores
+    for lib, kernel, kind in (
+            ("mas_attention", "mas_resident_bf16_kernel", "hmma"),
+            ("mas_attention", "mas_streamed_bf16_kernel", "hmma"),
+            ("flash_attention", "flash_bf16_kernel", "hgmma"),
+            ("paged_prefill_attention", "paged_prefill_bf16_kernel",
+             "hgmma")):
         found = {k: c for k, c in sass[lib].items() if kernel in k}
-        require(bool(found) and all(c["hmma"] + c["hgmma"] > 0
-                                    for c in found.values()),
-                f"{kernel}: no tensor-core instruction in {found}")
+        require(bool(found) and all(c[kind] > 0 for c in found.values()),
+                f"{kernel}: no {kind.upper()} instruction in {found}")
     return info
 
 
@@ -826,12 +834,13 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
                   "n_split": n_split},
     })
 
-    # B5: 512-row chunks of the longest sequence, first and late
+    # B5: 512-row chunks of the longest sequence, first, off the block
+    # grid (checked only) and late
     chunk = CONT["chunk_size"]
-    bq = ops.paged_prefill_blk_q(chunk)
+    bq = ops.paged_prefill_blk_q(chunk, torch.bfloat16)
     seq_table = table[longest]
     checks = []
-    for q0, kv_len in PAGED_PREFILL:
+    for q0, kv_len, timed in PAGED_PREFILL:
         qp = rnd(hq, chunk, e)
         kern = lambda qp=qp, q0=q0, kv_len=kv_len: (  # noqa: E731
             ops.paged_prefill_attention(qp, kp, vp, seq_table, q0, kv_len,
@@ -844,20 +853,23 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
 
         fault_page = int(seq_table[kv_len // page - 2])
         check = held_to_plain(kern(), plain(), faulty(plain, fault_page))
+        checks.append({"q_offset": q0, "kv_len": kv_len, **check})
+        if not timed:
+            continue
         # visible (query, key) pairs: row i sees min(q0 + i + 1, kv_len)
         pairs = float(sum(min(q0 + i + 1, kv_len) for i in range(chunk)))
-        bms, by = bound(4.0 * e * hq * pairs,
-                        kv_bytes([kv_len]) + 2.0 * 2 * hq * chunk * e)
+        flops = 4.0 * e * hq * pairs
+        bms, by = bound(flops, kv_bytes([kv_len]) + 2.0 * 2 * hq * chunk * e)
         cols = torch.arange(max_pages * page, device="cuda")
         mask = ((cols[None, :] <= q0 + torch.arange(chunk, device="cuda")
                  [:, None]) & (cols[None, :] < kv_len)).view(1, 1, chunk, -1)
         lib = paged_library_call(torch, qp[None], kp, vp, seq_table, mask,
                                  **sc)
-        checks.append({"q_offset": q0, "kv_len": kv_len, **check,
-                       "ms": cuda_ms(torch, kern, 20),
-                       "plain_ms": cuda_ms(torch, plain, 2),
-                       "bound_ms": bms, "bound_by": by,
-                       "library_ms": cuda_ms(torch, lib, 20)})
+        ms = cuda_ms(torch, kern, 20)
+        checks[-1].update({"ms": ms, "plain_ms": cuda_ms(torch, plain, 2),
+                           "bound_ms": bms, "bound_by": by,
+                           "library_ms": cuda_ms(torch, lib, 20),
+                           "tflops": flops / ms / 1e9})
     late = checks[-1]
     rows.append({
         "name": "paged_prefill" + suffix, "route": "cuda",
@@ -870,7 +882,7 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
         "fault_row_rel_err": min(c["fault_row_rel_err"] for c in checks),
         "ms": late["ms"], "plain_ms": late["plain_ms"],
         "bound_ms": late["bound_ms"], "bound_by": late["bound_by"],
-        "library_ms": late["library_ms"],
+        "library_ms": late["library_ms"], "tflops": late["tflops"],
         "shape": {**shape, "chunk": chunk, "blk_q": bq,
                   "q_offset": late["q_offset"], "kv_len": late["kv_len"]},
         "checks": checks,

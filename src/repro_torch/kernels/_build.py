@@ -41,8 +41,9 @@ F = ctypes.c_float
 SIGNATURES = {
     "mas_attention": {
         # q, k, v, o, bhq, nq, nkv, E, group, blk_q, causal, kv_len,
-        # sm_scale, [dtype,] stream
-        "mas_resident_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
+        # sm_scale, stream
+        "mas_resident_fp32_launch": [P, P, P, P] + [I] * 8 + [F, P],
+        "mas_resident_bf16_launch": [P, P, P, P] + [I] * 8 + [F, P],
         "mas_streamed_fp32_launch": [P, P, P, P] + [I] * 8 + [F, P],
         "mas_streamed_bf16_launch": [P, P, P, P] + [I] * 8 + [F, P],
     },
@@ -71,9 +72,10 @@ SIGNATURES = {
     "paged_prefill_attention": {
         # q, k_pages, v_pages, k_scales, v_scales, table, o, hq, nq, E,
         # group, blk_q, n_pages, page_size, q_offset, kv_len, sm_scale,
-        # dtype, quantized, stream
-        "paged_prefill_attention_launch":
-            [P] * 7 + [I] * 9 + [F, I, I, P],
+        # quantized, stream
+        "paged_prefill_fp32_launch": [P] * 7 + [I] * 9 + [F, I, P],
+        # the same without blk_q (the bf16 form's block is its own)
+        "paged_prefill_bf16_launch": [P] * 7 + [I] * 8 + [F, I, P],
     },
     "paged_verify_attention": {
         # q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,

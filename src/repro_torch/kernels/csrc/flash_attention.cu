@@ -15,24 +15,26 @@
 // The fp32 form (flash_attention_fp32_launch) runs its products on the
 // CUDA cores in fp32: bound by instructions and latency, one block an SM.
 //
-// The bf16 form (flash_attention_bf16_launch, head dim 128) is bound by its
-// tensor-core products (the causal 1 x 8192 prefill is 275 GFLOP against
-// 0.10 GB of inputs). Its design:
+// The bf16 form (flash_attention_bf16_launch, head dim 64 or 128) is bound
+// by its tensor-core products (the causal 1 x 8192 prefill is 275 GFLOP
+// against 0.10 GB of inputs). Its design:
 // - 64-row blocks of one warpgroup (4 warps of 16 rows), so each K/V
 //   tile staged from L2 serves 64 rows (twice the fp32 form's 32); two
 //   blocks an SM.
-// - S = Q K^T and P V by wgmma (mma.cuh): m64n64k16 for S with Q's A
-//   fragments in registers and K (K-major) read by the tensor cores from
-//   shared memory through a descriptor; m64n128k16 for P V with P's
-//   fragments in registers and V (MN-major) through a descriptor. K/V
-//   tiles are kept in the 128-byte-swizzled layout the descriptors name.
+// - S = Q K^T and P V by wgmma (the tile step of flash_tile.cuh, shared
+//   with B5): m64n64k16 for S with Q's A fragments in registers and K
+//   (K-major) read by the tensor cores from shared memory through a
+//   descriptor; m64nEk16 for P V with P's fragments in registers and V
+//   (MN-major) through a descriptor. K/V tiles are kept in the
+//   128-byte-swizzled layout the descriptors name.
 // - S and P never leave registers: the max and sum run online over each
 //   row's quad of threads by shuffles, the output is rescaled in
 //   registers, and the S accumulators become the A fragments of P V
-//   directly, as bf16 hi + lo.
+//   directly, as bf16 hi + lo. Q's A fragments are loaded from shared
+//   memory for every tile (flash_tile.cuh says why).
 // - K and V tiles are double-buffered by cp.async: tile j + 1 is copied
 //   while tile j is multiplied.
-#include "mma.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
@@ -179,8 +181,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int BQ = 64;             // bf16 form: query rows a block
 constexpr int BF16_THREADS = 128;  // one warpgroup: 4 warps of 16 rows
-constexpr int BF16_E = 128;        // the bf16 form's head dim
 
+template <int E>
 __global__ void __launch_bounds__(BF16_THREADS, 2)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -188,9 +190,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ o, int nq, int nkv, int group,
                   int causal, int window, int q_offset, int kv_len,
                   float scale_log2) {
-  constexpr int E = BF16_E;
   constexpr int TILE = KV_TILE * E * 2;     // bytes of one K or V tile
-  constexpr int NO = E / 2;                 // output accumulators a thread
   // the last Q blocks have the most live tiles: they go first
   const int iq = gridDim.x - 1 - blockIdx.x, bh = blockIdx.y;
   const int row0 = iq * BQ + q_offset;
@@ -198,8 +198,6 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const bool windowed = window > 0;
   const bool banded = causal || windowed;
   const bool tail = kv_len < nkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
 
   // Live tiles [j_lo, j_hi]: not strictly above the diagonal of the
   // block's last row, not wholly older than the window of its first row.
@@ -223,12 +221,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   tc::cp_async_commit();
 
-  float oacc[NO];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};   // rows g and g + 8 of the warp
-  float l[2] = {0.f, 0.f};           // this thread's share of the row sum
-  uint32_t qf[E / 16][4];
+  tc::OnlineRows<E> st;
+  st.init();
 
   for (int j = j_lo; j <= j_hi; ++j) {
     const uint32_t kt = kv0 + ((j - j_lo) & 1) * 2 * TILE, vt = kt + TILE;
@@ -241,135 +235,45 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     tc::cp_async_wait<1>();
     tc::fence_proxy_async();
     __syncthreads();
-    if (j == j_lo) {
-#pragma unroll
-      for (int ks = 0; ks < E / 16; ++ks)
-        tc::ldsm_x4(qf[ks], qs + tc::sw128<BQ>(warp * 16 + lane % 16, ks * 16 + lane / 16 * 8));
-    }
-
-    // S = Q K^T for the block's 64 rows and the tile's 64 columns: one
-    // wgmma a k step, K (K-major) through its descriptor.
-    float s[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    tc::fence_regs(s);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < E / 16; ++ks)
-      tc::wgmma_m64n64k16<0>(
-          s, qf[ks], tc::gmma_desc(kt + (ks / 4) * (KV_TILE * 128) + (ks % 4) * 32, 16, 1024));
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_regs(s);
-    tc::fence_regs(qf);
+    // Q's fragments are loaded for every tile (see flash_tile.cuh)
+    uint32_t qf[E / 16][4];
+    tc::load_q_fragments<E>(qf, qs);
 
     const int col0 = j * KV_TILE;
     bool need_mask = false;
     if (banded) need_mask = col0 + KV_TILE - 1 > row0;
     if (windowed) need_mask = need_mask || (col0 <= row0 + BQ - 1 - window);
     if (tail) need_mask = need_mask || (col0 + KV_TILE > kv_len);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {   // n8 block i / 4: rows g (i % 4 < 2) and g + 8
-      float x = s[i] * scale_log2;
-      if (need_mask) {
-        const int row = row0 + warp * 16 + g + 8 * (i % 4 / 2);
-        const int col = col0 + i / 4 * 8 + 2 * t4 + i % 2;
-        bool keep = true;
-        if (banded) keep = col <= row;
-        if (windowed) keep = keep && (col > row - window);
-        if (tail) keep = keep && (col < kv_len);
-        if (!keep) x = NEG_INF;
-      }
-      s[i] = x;
-    }
-
-    // Online max and sum (base 2), each row over its quad of threads.
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int nb = 0; nb < KV_TILE / 8; ++nb)
-        mx = fmaxf(mx, fmaxf(s[4 * nb + 2 * rr], s[4 * nb + 2 * rr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[rr], mx);
-      const float alpha = exp2f(m[rr] - m_new);
-      m[rr] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < KV_TILE / 8; ++nb) {
-        s[4 * nb + 2 * rr] = exp2f(s[4 * nb + 2 * rr] - m_new);
-        s[4 * nb + 2 * rr + 1] = exp2f(s[4 * nb + 2 * rr + 1] - m_new);
-        sum += s[4 * nb + 2 * rr] + s[4 * nb + 2 * rr + 1];
-      }
-      l[rr] = l[rr] * alpha + sum;
-#pragma unroll
-      for (int nb = 0; nb < E / 8; ++nb) {
-        oacc[4 * nb + 2 * rr] *= alpha;
-        oacc[4 * nb + 2 * rr + 1] *= alpha;
-      }
-    }
-
-    // O += P V: the S accumulators of columns 16 kk .. 16 kk + 15 are the
-    // A fragment of k step kk, as bf16 hi + lo; V (MN-major) through its
-    // descriptor, its 64-column halves TILE / 2 bytes apart.
-    uint32_t ph[KV_TILE / 16][4], pl[KV_TILE / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < KV_TILE / 16; ++kk) {
-      tc::split(s[8 * kk + 0], s[8 * kk + 1], ph[kk][0], pl[kk][0]);
-      tc::split(s[8 * kk + 2], s[8 * kk + 3], ph[kk][1], pl[kk][1]);
-      tc::split(s[8 * kk + 4], s[8 * kk + 5], ph[kk][2], pl[kk][2]);
-      tc::split(s[8 * kk + 6], s[8 * kk + 7], ph[kk][3], pl[kk][3]);
-    }
-    tc::fence_regs(oacc);
-    tc::fence_regs(ph);
-    tc::fence_regs(pl);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KV_TILE / 16; ++kk) {
-      const uint64_t dv = tc::gmma_desc(vt + kk * 16 * 128, KV_TILE * 128, 1024);
-      tc::wgmma_m64n128k16<1>(oacc, ph[kk], dv);
-      tc::wgmma_m64n128k16<1>(oacc, pl[kk], dv);
-    }
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tc::fence_regs(oacc);
-    tc::fence_regs(ph);
-    tc::fence_regs(pl);
+    auto keep = [&](int r, int c) {
+      const int row = row0 + r, col = col0 + c;
+      bool ok = true;
+      if (banded) ok = col <= row;
+      if (windowed) ok = ok && (col > row - window);
+      if (tail) ok = ok && (col < kv_len);
+      return ok;
+    };
+    tc::online_tile<E, false>(st, qf, kt, vt, scale_log2, need_mask, keep,
+                              nullptr, nullptr);
     __syncthreads();   // the next copy overwrites this tile's stage
   }
   tc::cp_async_wait<0>();
-
-  __nv_bfloat16* ob = o + ((size_t)bh * nq + iq * BQ) * E;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float lr = l[rr];
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    lr = lr == 0.f ? 1.f : lr;   // rows that saw no key
-    const int r = warp * 16 + g + 8 * rr;
-#pragma unroll
-    for (int nb = 0; nb < E / 8; ++nb) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * E + nb * 8 + 2 * t4) =
-          __floats2bfloat162_rn(oacc[4 * nb + 2 * rr] / lr, oacc[4 * nb + 2 * rr + 1] / lr);
-    }
-  }
+  tc::store_rows<E>(st, o + ((size_t)bh * nq + iq * BQ) * E);
 }
 
+template <int E>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int bhq,
                 int nq, int nkv, int group, int causal, int window,
                 int q_offset, int kv_len, float sm_scale,
                 cudaStream_t stream) {
   // the Q block and two stages of one K and one V tile, plus 1 KB to align
   // them to 1024 bytes
-  const size_t smem =
-      2ull * BQ * BF16_E + 2ull * 2 * KV_TILE * BF16_E * 2 + 1024;
+  const size_t smem = 2ull * BQ * E + 2ull * 2 * KV_TILE * E * 2 + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nq / BQ, bhq);
-  flash_bf16_kernel<<<grid, BF16_THREADS, smem, stream>>>(
+  flash_bf16_kernel<E><<<grid, BF16_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), nq,
       nkv, group, causal, window, q_offset, kv_len,
@@ -405,16 +309,20 @@ extern "C" int flash_attention_fp32_launch(const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-// bf16, on the tensor cores (wgmma): E 128, nq % 64 == 0, q, k and v
-// 16-byte aligned.
+// bf16, on the tensor cores (wgmma): E 64 or 128, nq % 64 == 0, q, k and
+// v 16-byte aligned.
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* o, int bhq,
                                            int nq, int nkv, int E, int group,
                                            int causal, int window,
                                            int q_offset, int kv_len,
                                            float sm_scale, void* stream) {
-  if (E != BF16_E) return (int)cudaErrorInvalidValue;
-  return launch_bf16(q, k, v, o, bhq, nq, nkv, group, causal, window,
-                     q_offset, kv_len, sm_scale,
-                     static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E == 128)
+    return launch_bf16<128>(q, k, v, o, bhq, nq, nkv, group, causal, window,
+                            q_offset, kv_len, sm_scale, s);
+  if (E == 64)
+    return launch_bf16<64>(q, k, v, o, bhq, nq, nkv, group, causal, window,
+                           q_offset, kv_len, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -13,22 +13,26 @@
 // and the softmax only reads the live columns. Columns past kv_len (the
 // ops-level padding) are masked.
 //
-// B1 (mas_resident_launch) stages the live K and V rows of its (b*h) whole
-// in shared memory next to the score row. B2 is the paper's
+// B1 (mas_resident_*_launch) stages the live K and V rows of its (b*h)
+// whole in shared memory next to the score row. B2 is the paper's
 // proactive-overwrite regime: K tiles stream through the tile buffer for
 // the S pass, and the P V pass reads the V tiles AGAIN from device memory
 // into that same buffer (the read inflation sim/ models).
 //
-// B1 and B2's fp32 form (mas_streamed_fp32_launch) run their products on
-// the CUDA cores in fp32 (FMA): bound by instructions and load latency,
-// far below the tensor-core rate. B2's bf16 form (mas_streamed_bf16_launch)
-// is bound by re-staging K and V tiles from L2 into shared memory and by
-// the latency of each step: each tile serves only blk_q rows (16 at
-// N = 2048), the score row leaves room for one block an SM, and that one
-// block's copies are its only source of parallelism. On an H100 one block
-// pulls L2 data at ~13 bytes a clock by cp.async three stages deep, ~19 by
-// TMA bulk copies, ~30 by loads two stages ahead through registers
-// (scripts/copy_rate.py). Its design:
+// The fp32 forms (mas_resident_fp32_launch, mas_streamed_fp32_launch) run
+// their products on the CUDA cores in fp32 (FMA): bound by instructions
+// and load latency, far below the tensor-core rate. The bf16 forms
+// (mas_resident_bf16_launch, mas_streamed_bf16_launch) run them on the
+// tensor cores. B2's is bound by re-staging K and V tiles from L2 into
+// shared memory and by the latency of each step: each tile serves only
+// blk_q rows (16 at N = 2048), the score row leaves room for one block an
+// SM, and that one block's copies are its only source of parallelism. On
+// an H100 one block pulls L2 data at ~13 bytes a clock by cp.async three
+// stages deep, ~19 by TMA bulk copies, ~30 by loads two stages ahead
+// through registers (scripts/copy_rate.py). B1's holds at most 320 rows
+// of K and V (the policy's resident threshold at E 128) and is bound by
+// the latency of its one pass over them: it copies them once, all at
+// once, and overlaps the copies with the products. Their design:
 // - S = Q K^T and P V on the tensor cores (mma.sync m16n8k16, bf16 in,
 //   fp32 sums; mma.cuh). At blk_q 16 or 32 the Q block is the M side. At
 //   blk_q 8 the products are transposed (S^T = K Q^T, O^T = V^T P^T), so
@@ -40,13 +44,19 @@
 //   cores, one warp a row, and reads the row once: P = exp2(s - m) in
 //   place and the row sum l; the output is divided by l. P enters P V as
 //   bf16 hi + lo fragments read from the fp32 row.
-// - K and V stream as 32-row half tiles, unpadded and chunk-swizzled, 16
-//   bytes a thread through registers: the loads of the next two half
+// - B2: K and V stream as 32-row half tiles, unpadded and chunk-swizzled,
+//   16 bytes a thread through registers: the loads of the next two half
 //   tiles are in flight while one is multiplied, and the first V loads
 //   while the softmax runs. Two half-tile buffers fit the footprint
 //   core/policy.py charges (the Q block's fp32 region plus the padded
 //   64-row tile buffer); Q is staged once at the head of the score row and
 //   held in registers.
+// - B1: Q, each live K tile and the live V rows go out as cp.async groups
+//   at the start, into resident tiles unpadded and chunk-swizzled; S of
+//   tile j starts as soon as K tile j has landed, and V lands during the
+//   S pass and the softmax. It stays within the footprint the policy
+//   charges for the CUDA-core form, so the policy's resident threshold
+//   and routes do not move.
 #include "mma.cuh"
 
 namespace {
@@ -395,6 +405,93 @@ __device__ __forceinline__ void softmax_exp_rows(float* S, int lds, int blk_q,
   }
 }
 
+// B1's bf16 steps around its products. B2's kernel holds the same steps
+// inline: moved into these helpers, its compiled form ran slower on an
+// H100 (chip_smoke.py's mas_streamed row).
+
+// Q in registers from the swizzled Q block at s_base: A fragments of
+// S = Q K^T (rows past blk_q read the last row; their scores are never
+// stored), or, transposed, B fragments of S^T.
+template <int E, int MT, bool TRANS>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[E / 16][4],
+                                             uint32_t s_base, int blk_q) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < E / 16; ks += 2) {
+    if (TRANS) {
+      uint32_t r[4];
+      tc::ldsm_x4(r, s_base + tc::swz<E>(lane % 8, ks * 16 + lane / 8 * 8));
+      qf[ks][0] = r[0];
+      qf[ks][1] = r[1];
+      qf[ks + 1][0] = r[2];
+      qf[ks + 1][1] = r[3];
+    } else {
+      const int row = min(min(warp / 4, MT - 1) * 16 + lane % 16, blk_q - 1);
+      tc::ldsm_x4(qf[ks], s_base + tc::swz<E>(row, ks * 16 + lane / 16 * 8));
+      tc::ldsm_x4(qf[ks + 1], s_base + tc::swz<E>(row, ks * 16 + 16 + lane / 16 * 8));
+    }
+  }
+}
+
+// Each row's maximum over a thread's quad (normal form) or the 8 lanes
+// that share its Q rows (transposed form), one partial a warp, into red.
+template <int MT, bool TRANS>
+__device__ __forceinline__ void row_max_partials(const float (&rmax)[2],
+                                                 float* red, int blk_q) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  if (!TRANS && warp / 4 < MT) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float m = fmaxf(rmax[i], __shfl_xor_sync(0xffffffffu, rmax[i], 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const int r = warp / 4 * 16 + g + 8 * i;
+      if (t4 == 0 && r < blk_q) red[r * 4 + warp % 4] = m;
+    }
+  } else if (TRANS && warp < HALF / 16) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float m = rmax[i];
+      for (int lanes = 4; lanes < 32; lanes <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, lanes));
+      if (g == 0) red[(2 * t4 + i) * 4 + warp] = m;
+    }
+  }
+}
+
+// The block's output rows O / l as bf16 at ob, from pv_half's
+// accumulators and the rows' sums.
+template <int E, int MT, bool TRANS>
+__device__ __forceinline__ void store_out(__nv_bfloat16* ob,
+                                          const float (&acc)[MT][E / 64][4],
+                                          const float* lrow, int blk_q) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  if (TRANS) {
+    if (warp < E / 16) {   // acc: O^T rows warp * 16 + g (+ 8), Q rows 2 t4 (+ 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = warp * 16 + g + 8 * (i / 2), r = 2 * t4 + i % 2;
+        ob[r * E + e] = __float2bfloat16(acc[0][0][i] / lrow[r]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < E / 64; ++nb)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = mt * 16 + g + 8 * i;
+          if (r >= blk_q) continue;
+          const int col = warp * (E / 8) + nb * 8 + 2 * t4;
+          const float l = lrow[r];
+          *reinterpret_cast<__nv_bfloat162*>(ob + r * E + col) =
+              __floats2bfloat162_rn(acc[mt][nb][2 * i] / l, acc[mt][nb][2 * i + 1] / l);
+        }
+  }
+}
+
 // B2 in bf16. Shared memory: the score row (first 4 blk_q nkv bytes), two
 // half-tile buffers, the rows' partial maxima and sums. MT m16 tiles cover
 // blk_q (16: 1, 24 or 32: 2); TRANS is the blk_q 8 form. K and V stream as
@@ -538,6 +635,75 @@ mas_streamed_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// B1 in bf16. Shared memory: the score row (first 4 blk_q nkv bytes, the
+// Q block at its head until the S pass), then K and V resident (nkv rows
+// each, unpadded and chunk-swizzled), then the rows' partial maxima and
+// sums. The copies go out at once as cp.async groups: Q, each live K tile
+// on its own, then all live V rows. S of tile j starts when group j has
+// landed, and V arrives during the S pass and the softmax: the paper's
+// two streams, overlapped.
+template <int E, int MT, bool TRANS>
+__global__ void __launch_bounds__(THREADS)
+mas_resident_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o, int nq, int nkv,
+                         int group, int blk_q, int causal, int kv_len,
+                         float scale_log2) {
+  constexpr int TILE = KV_TILE * E * 2;         // bytes of one K or V tile
+  // the last Q blocks have the most live tiles: they go first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * blk_q, bh = blockIdx.y;
+  const Bands b = causal_tile_bounds(q0, blk_q, nkv / KV_TILE, causal);
+  const int n_live = b.n_needed * KV_TILE;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* S = reinterpret_cast<float*>(smem);          // (blk_q, nkv), swizzled
+  const uint32_t s_base = tc::smem_addr(smem);
+  const uint32_t ks0 = s_base + 4u * blk_q * nkv, vs0 = ks0 + nkv * E * 2;
+  float* red = reinterpret_cast<float*>(smem + 4ull * blk_q * nkv + 4ull * nkv * E);
+  float* lrow = red + 4 * blk_q;
+  const size_t kv_off = (size_t)(bh / group) * nkv * E;
+
+  tc::cp_rows<E>(s_base, q + ((size_t)bh * nq + q0) * E, blk_q, THREADS);
+  tc::cp_async_commit();
+  for (int j = 0; j < b.n_needed; ++j) {
+    tc::cp_rows<E>(ks0 + j * TILE, k + kv_off + (size_t)j * KV_TILE * E,
+                   KV_TILE, THREADS);
+    tc::cp_async_commit();
+  }
+  tc::cp_rows<E>(vs0, v + kv_off, n_live, THREADS);
+  tc::cp_async_commit();
+  tc::cp_async_wait_n(b.n_needed + 1);   // Q has landed
+  __syncthreads();
+  uint32_t qf[E / 16][4];
+  load_q_frags<E, MT, TRANS>(qf, s_base, blk_q);
+
+  // Alg. 2: S tile j into the row once K tile j has landed (the first
+  // barrier also orders the Q fragment reads before the row is written).
+  float rmax[2] = {NEG_INF, NEG_INF};
+  for (int j = 0; j < b.n_needed; ++j) {
+    tc::cp_async_wait_n(b.n_needed - j);
+    __syncthreads();
+    score_half<E, MT, TRANS>(S, nkv, qf, ks0 + j * TILE, 2 * j, b.n_full, q0,
+                             blk_q, causal, kv_len, scale_log2, rmax);
+    score_half<E, MT, TRANS>(S, nkv, qf, ks0 + j * TILE + TILE / 2, 2 * j + 1,
+                             b.n_full, q0, blk_q, causal, kv_len, scale_log2,
+                             rmax);
+  }
+  row_max_partials<MT, TRANS>(rmax, red, blk_q);
+  __syncthreads();
+  // Alg. 3: one exact row softmax over the live columns while V lands.
+  softmax_exp_rows<TRANS ? HALF / 16 : 4>(S, nkv, blk_q, n_live, red, lrow);
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  // Alg. 4: P V over the live V rows, resident in shared memory.
+  float acc[MT][E / 64][4] = {};
+  for (int h = 0; h < 2 * b.n_needed; ++h)
+    pv_half<E, MT, TRANS>(acc, S, nkv, vs0 + h * (TILE / 2), h, blk_q);
+  store_out<E, MT, TRANS>(o + ((size_t)bh * nq + q0) * E, acc, lrow, blk_q);
+}
+
 size_t mas_smem_bytes(int blk_q, int nkv, int E, int itemsize, bool resident) {
   const size_t row = (size_t)(E + KV_ROW_PAD) * itemsize;
   size_t bytes = 4ull * blk_q * nkv + 4ull * blk_q * E;
@@ -545,32 +711,38 @@ size_t mas_smem_bytes(int blk_q, int nkv, int E, int itemsize, bool resident) {
   return bytes;
 }
 
-// The CUDA-core kernels: B1 in fp32 and bf16, B2 in fp32 only.
-template <typename T, typename Kernel>
+// The CUDA-core kernels, fp32 only: B1 and B2.
+template <typename Kernel>
 int launch_cuda_core(Kernel kernel, bool resident, const void* q,
                      const void* k, const void* v, void* o, int bhq, int nq,
                      int nkv, int E, int group, int blk_q, int causal,
                      int kv_len, float sm_scale, cudaStream_t stream) {
-  const size_t smem = mas_smem_bytes(blk_q, nkv, E, sizeof(T), resident);
+  const size_t smem = mas_smem_bytes(blk_q, nkv, E, sizeof(float), resident);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nq / blk_q, bhq);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), nq, nkv, E, group, blk_q,
-      causal, kv_len, sm_scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), nq, nkv, E, group,
+      blk_q, causal, kv_len, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <int E, int MT, bool TRANS>
+// The tensor-core kernels: B1 (RESIDENT) and B2 in bf16. Both stay within
+// the policy's footprint: B2 takes it whole (its two half-tile buffers fit
+// the Q block's fp32 region plus the padded tile buffer); B1 takes the
+// score row, K and V unpadded, and the rows' maxima and sums (20 blk_q
+// bytes, within the Q block's fp32 region it does not need).
+template <bool RESIDENT, int E, int MT, bool TRANS>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int bhq,
                 int nq, int nkv, int group, int blk_q, int causal, int kv_len,
                 float sm_scale, cudaStream_t stream) {
-  // the two half-tile buffers fit the Q block's fp32 region plus the
-  // padded tile buffer of the policy's footprint
-  auto kernel = mas_streamed_bf16_kernel<E, MT, TRANS>;
-  const size_t smem = mas_smem_bytes(blk_q, nkv, E, 2, false);
+  auto kernel = RESIDENT ? mas_resident_bf16_kernel<E, MT, TRANS>
+                         : mas_streamed_bf16_kernel<E, MT, TRANS>;
+  const size_t smem =
+      RESIDENT ? 4ull * blk_q * nkv + 4ull * nkv * E + 20ull * blk_q
+               : mas_smem_bytes(blk_q, nkv, E, 2, false);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -582,68 +754,82 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bhq,
   return (int)cudaGetLastError();
 }
 
-template <int E>
-int streamed_bf16(const void* q, const void* k, const void* v, void* o,
-                  int bhq, int nq, int nkv, int group, int blk_q, int causal,
-                  int kv_len, float sm_scale, cudaStream_t s) {
+template <bool RESIDENT, int E>
+int bf16_for_blk_q(const void* q, const void* k, const void* v, void* o,
+                   int bhq, int nq, int nkv, int group, int blk_q, int causal,
+                   int kv_len, float sm_scale, cudaStream_t s) {
   switch (blk_q) {
     case 8:
-      return launch_bf16<E, 1, true>(q, k, v, o, bhq, nq, nkv, group, blk_q,
-                                     causal, kv_len, sm_scale, s);
+      return launch_bf16<RESIDENT, E, 1, true>(q, k, v, o, bhq, nq, nkv, group,
+                                               blk_q, causal, kv_len, sm_scale, s);
     case 16:
-      return launch_bf16<E, 1, false>(q, k, v, o, bhq, nq, nkv, group, blk_q,
-                                      causal, kv_len, sm_scale, s);
+      return launch_bf16<RESIDENT, E, 1, false>(q, k, v, o, bhq, nq, nkv, group,
+                                                blk_q, causal, kv_len, sm_scale, s);
     case 24:
     case 32:
-      return launch_bf16<E, 2, false>(q, k, v, o, bhq, nq, nkv, group, blk_q,
-                                      causal, kv_len, sm_scale, s);
+      return launch_bf16<RESIDENT, E, 2, false>(q, k, v, o, bhq, nq, nkv, group,
+                                                blk_q, causal, kv_len, sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+template <bool RESIDENT>
+int bf16_launch(const void* q, const void* k, const void* v, void* o, int bhq,
+                int nq, int nkv, int E, int group, int blk_q, int causal,
+                int kv_len, float sm_scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E == 128)
+    return bf16_for_blk_q<RESIDENT, 128>(q, k, v, o, bhq, nq, nkv, group, blk_q,
+                                         causal, kv_len, sm_scale, s);
+  if (E == 64)
+    return bf16_for_blk_q<RESIDENT, 64>(q, k, v, o, bhq, nq, nkv, group, blk_q,
+                                        causal, kv_len, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q: (bhq, nq, E); k, v: (bhq / group, nkv, E); o: like q. Contiguous.
-// nq % blk_q == 0, nkv % KV_TILE == 0. dtype 0 = fp32, 1 = bf16.
-extern "C" int mas_resident_launch(const void* q, const void* k, const void* v,
-                                   void* o, int bhq, int nq, int nkv, int E,
-                                   int group, int blk_q, int causal, int kv_len,
-                                   float sm_scale, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_cuda_core<float>(mas_resident_kernel<float>, true, q, k, v,
-                                   o, bhq, nq, nkv, E, group, blk_q, causal,
-                                   kv_len, sm_scale, s);
-  return launch_cuda_core<__nv_bfloat16>(
-      mas_resident_kernel<__nv_bfloat16>, true, q, k, v, o, bhq, nq, nkv, E,
-      group, blk_q, causal, kv_len, sm_scale, s);
+// nq % blk_q == 0, nkv % KV_TILE == 0.
+
+// fp32, on the CUDA cores: B1 and B2.
+extern "C" int mas_resident_fp32_launch(const void* q, const void* k,
+                                        const void* v, void* o, int bhq,
+                                        int nq, int nkv, int E, int group,
+                                        int blk_q, int causal, int kv_len,
+                                        float sm_scale, void* stream) {
+  return launch_cuda_core(mas_resident_kernel<float>, true, q, k, v, o, bhq,
+                          nq, nkv, E, group, blk_q, causal, kv_len, sm_scale,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// B2 in fp32, on the CUDA cores.
 extern "C" int mas_streamed_fp32_launch(const void* q, const void* k,
                                         const void* v, void* o, int bhq,
                                         int nq, int nkv, int E, int group,
                                         int blk_q, int causal, int kv_len,
                                         float sm_scale, void* stream) {
-  return launch_cuda_core<float>(mas_streamed_kernel<float>, false, q, k, v, o,
-                                 bhq, nq, nkv, E, group, blk_q, causal, kv_len,
-                                 sm_scale, static_cast<cudaStream_t>(stream));
+  return launch_cuda_core(mas_streamed_kernel<float>, false, q, k, v, o, bhq,
+                          nq, nkv, E, group, blk_q, causal, kv_len, sm_scale,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// B2 in bf16, on the tensor cores: E 64 or 128; blk_q 8, 16, 24 or 32;
-// q, k and v 16-byte aligned.
+// bf16, on the tensor cores: B1 and B2, E 64 or 128; blk_q 8, 16, 24 or
+// 32; q, k and v 16-byte aligned.
+extern "C" int mas_resident_bf16_launch(const void* q, const void* k,
+                                        const void* v, void* o, int bhq,
+                                        int nq, int nkv, int E, int group,
+                                        int blk_q, int causal, int kv_len,
+                                        float sm_scale, void* stream) {
+  return bf16_launch<true>(q, k, v, o, bhq, nq, nkv, E, group, blk_q, causal,
+                           kv_len, sm_scale, stream);
+}
+
 extern "C" int mas_streamed_bf16_launch(const void* q, const void* k,
                                         const void* v, void* o, int bhq,
                                         int nq, int nkv, int E, int group,
                                         int blk_q, int causal, int kv_len,
                                         float sm_scale, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E == 128)
-    return streamed_bf16<128>(q, k, v, o, bhq, nq, nkv, group, blk_q, causal,
-                              kv_len, sm_scale, s);
-  if (E == 64)
-    return streamed_bf16<64>(q, k, v, o, bhq, nq, nkv, group, blk_q, causal,
-                             kv_len, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  return bf16_launch<false>(q, k, v, o, bhq, nq, nkv, E, group, blk_q, causal,
+                            kv_len, sm_scale, stream);
 }

@@ -1,8 +1,10 @@
 // Tensor-core and asynchronous-copy helpers for the bf16 prefill kernels
-// (B2's and B3's bf16 forms in mas_attention.cu and flash_attention.cu).
+// (B1's and B2's bf16 forms in mas_attention.cu, B3's in
+// flash_attention.cu, B5's in paged_prefill_attention.cu).
 //
-// B2's products are mma.sync.aligned.m16n8k16 in bf16 with fp32
-// accumulation, fed by ldmatrix from shared memory; B3's are wgmma (below).
+// B1's and B2's products are mma.sync.aligned.m16n8k16 in bf16 with fp32
+// accumulation, fed by ldmatrix from shared memory; B3's and B5's are
+// wgmma (below, and the tile step they share in flash_tile.cuh).
 // In an m16n8k16 fragment, lane l holds rows
 // g = l / 4 and g + 8 and the column pair 2 (l % 4), 2 (l % 4) + 1 (A and
 // the accumulator), or that pair of the k dimension for column g (B).
@@ -37,6 +39,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
                : "memory");
 }
 
+// The same with only the first src_bytes (0 or 16) read and the rest of
+// the 16 bytes zero-filled: a row past the live ones is stored as zeros.
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -45,6 +56,65 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The same for a count known only at run time (at most 7 is waited for
+// exactly; a larger count waits for 7, which is only stricter).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// --- barriers between producer and consumer warps ---------------------------
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `n` threads: wait for
+// all of them (sync) or count this warp in and go on (arrive).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A shared-memory mbarrier at address bar expecting `count` arrivals a phase.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// This thread's arrival on bar once all its earlier cp.async copies have
+// landed (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// This thread's arrival on bar (release: its earlier writes to shared
+// memory are seen by a thread that then waits on the phase).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 // Byte offset of element (row, col) in a swizzled bf16 tile of E columns.

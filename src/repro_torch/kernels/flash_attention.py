@@ -11,8 +11,8 @@ position ``q_offset + i``; rows that saw no key (l == 0) divide by 1.
 
 The fp32 form (``flash_attention_fp32_launch``) runs its products on the
 CUDA cores at the caller's ``blk_q``. The bf16 form
-(``flash_attention_bf16_launch``, head dim 128) runs them on the tensor
-cores by ``wgmma``, with S and P in registers and K/V tiles
+(``flash_attention_bf16_launch``, head dim 64 or 128) runs them on the
+tensor cores by ``wgmma``, with S and P in registers and K/V tiles
 double-buffered by ``cp.async``, in blocks of its own height,
 ``FLASH_BLK_Q_BF16`` (64) rows, to which ``ops.attention`` pads the query
 rows. ``entry_point`` chooses by dtype; a bf16 tensor the tensor-core
@@ -34,7 +34,7 @@ from repro_torch.kernels.common import NEG_INF, check_prefill_tile
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
 LAUNCHES = {"flash": 0}
 # The bf16 form's head dims.
-BF16_HEAD_DIMS = (128,)
+BF16_HEAD_DIMS = (64, 128)
 
 
 def entry_point(dtype) -> str:

@@ -7,17 +7,22 @@ memory: the S tiles fill it (paper Alg. 2), one exact row softmax runs
 over it with no online rescale (Alg. 3), and P·V accumulates over the V
 tiles (Alg. 4). Causal calls prune in three bands (``causal_tile_bounds``).
 
-* B1, ``kv_resident=True`` (``csrc/mas_attention.cu``:
-  ``mas_resident_launch``): the block stages its K and V rows whole in
-  shared memory next to the score row — the paper's ideal regime.
+* B1, ``kv_resident=True`` (``csrc/mas_attention.cu``): the block
+  stages its K and V rows whole in shared memory next to the score row —
+  the paper's ideal regime.
 * B2, ``kv_resident=False``: K tiles stream through the shared tile
   buffer for the S pass, and the P·V pass reads the V tiles AGAIN from
   device memory — the §4.3 proactive-overwrite regime, whose extra reads
-  ``sim/`` models as read inflation. In bf16 (``mas_streamed_bf16_launch``)
-  its products run on the tensor cores and its tiles stream through a
-  ``cp.async`` ring; in fp32 (``mas_streamed_fp32_launch``) it keeps the
-  CUDA-core kernel. ``entry_point`` makes that choice, by dtype; a bf16
-  tensor the tensor-core kernel does not take raises.
+  ``sim/`` models as read inflation.
+
+In bf16 (``mas_resident_bf16_launch``, ``mas_streamed_bf16_launch``)
+both run their products on the tensor cores, keeping the fp32 score row
+and its one exact softmax; B1 copies Q, each K tile and V at once by
+``cp.async`` and starts on a K tile as it lands, B2 streams its tiles
+through registers. In fp32 (``mas_resident_fp32_launch``,
+``mas_streamed_fp32_launch``) they keep the CUDA-core kernels.
+``entry_point`` makes that choice, by dtype; a bf16 tensor the
+tensor-core kernels do not take raises.
 
 ``core/policy.py`` picks the regime and ``blk_q`` from the shared-memory
 footprint. Inputs are pre-flattened to (B·H, N, E) by ``ops.py``; query
@@ -107,35 +112,32 @@ def mas_attention_plain(q, k, v, *, blk_q: int, blk_kv: int,
     return acc.reshape(bhq, nq, e).to(q.dtype)
 
 
-# B2's bf16 form: the head dims and Q block heights it is built for.
+# The bf16 forms: the head dims and Q block heights they are built for.
 BF16_HEAD_DIMS = (64, 128)
-BF16_STREAMED_BLK_Q = (8, 16, 24, 32)
+BF16_BLK_Q = (8, 16, 24, 32)
 
 
 def entry_point(dtype, kv_resident: bool) -> str:
-    """The C function a CUDA tensor of ``dtype`` launches: B1 on the CUDA
-    cores in both types, B2 on the tensor cores in bf16 and on the CUDA
-    cores in fp32. Nothing falls back from one to the other."""
+    """The C function a CUDA tensor of ``dtype`` launches: B1 or B2 on the
+    tensor cores in bf16, on the CUDA cores in fp32. Nothing falls back
+    from one to the other."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the MAS kernels take float32 or bfloat16, "
                         f"not {dtype}")
-    if kv_resident:
-        return "mas_resident_launch"
-    if dtype == torch.bfloat16:
-        return "mas_streamed_bf16_launch"
-    return "mas_streamed_fp32_launch"
+    form = "bf16" if dtype == torch.bfloat16 else "fp32"
+    return f"mas_{'resident' if kv_resident else 'streamed'}_{form}_launch"
 
 
-def check_bf16_streamed(q, k, v, blk_q: int) -> None:
-    """Raise unless B2's bf16 kernel takes these operands."""
+def check_bf16(q, k, v, blk_q: int) -> None:
+    """Raise unless the bf16 MAS kernels take these operands."""
     e = q.shape[-1]
-    if e not in BF16_HEAD_DIMS or blk_q not in BF16_STREAMED_BLK_Q:
-        raise ValueError(f"B2's bf16 kernel takes E in {BF16_HEAD_DIMS} and "
-                         f"blk_q in {BF16_STREAMED_BLK_Q}, not E={e}, "
+    if e not in BF16_HEAD_DIMS or blk_q not in BF16_BLK_Q:
+        raise ValueError(f"the bf16 MAS kernels take E in {BF16_HEAD_DIMS} "
+                         f"and blk_q in {BF16_BLK_Q}, not E={e}, "
                          f"blk_q={blk_q}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("B2's bf16 kernel copies 16-byte chunks: q, k and "
-                         "v must be 16-byte aligned")
+        raise ValueError("the bf16 MAS kernels copy 16-byte chunks: q, k "
+                         "and v must be 16-byte aligned")
 
 
 def _launch(kv_resident: bool, q, k, v, *, blk_q, blk_kv, causal, sm_scale,
@@ -147,8 +149,8 @@ def _launch(kv_resident: bool, q, k, v, *, blk_q, blk_kv, causal, sm_scale,
                          f"not {blk_kv}")
     check_prefill_tile(blk_q, e)
     name = entry_point(q.dtype, kv_resident)
-    if name == "mas_streamed_bf16_launch":
-        check_bf16_streamed(q, k, v, blk_q)
+    if q.dtype == torch.bfloat16:
+        check_bf16(q, k, v, blk_q)
     smem = mas_smem_bytes(blk_q, blk_kv, n, e, q.element_size(), kv_resident)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"{smem} B of shared memory needed, a block has "
@@ -160,12 +162,11 @@ def _launch(kv_resident: bool, q, k, v, *, blk_q, blk_kv, causal, sm_scale,
     lib = _build.library("mas_attention")
     o = torch.empty_like(q)
     scale = (e ** -0.5) if sm_scale is None else sm_scale
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bhq, nq,
-            n, e, bhq // bhkv, blk_q, int(causal),
-            n if kv_len is None else int(kv_len), float(scale)]
-    if kv_resident:
-        args.append(_build.dtype_code(q.dtype))
-    err = getattr(lib, name)(*args, _build.stream_handle(q.device))
+    err = getattr(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bhq, nq, n,
+        e, bhq // bhkv, blk_q, int(causal),
+        n if kv_len is None else int(kv_len), float(scale),
+        _build.stream_handle(q.device))
     _build.check(lib, err, name)
     LAUNCHES["mas_resident" if kv_resident else "mas_streamed"] += 1
     return o

@@ -195,8 +195,12 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
             .reshape(b, spec, hq, e))
 
 
-def paged_prefill_blk_q(chunk: int) -> int:
-    """Q rows a block of B5 takes for a prompt chunk of ``chunk`` rows."""
+def paged_prefill_blk_q(chunk: int, dtype=torch.float32) -> int:
+    """Q rows a block of B5 takes for a prompt chunk of ``chunk`` rows of
+    ``dtype``: the bf16 form's own 64 (a short chunk pads to it), else up
+    to ``DEFAULT_BLK_Q``."""
+    if dtype == torch.bfloat16:
+        return _ppre.BLK_Q_BF16
     return min(DEFAULT_BLK_Q, -(-chunk // MIN_BLK_Q) * MIN_BLK_Q)
 
 
@@ -212,7 +216,7 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset: int,
     return values the caller slices off.
     """
     hq, chunk, e = q.shape
-    bq = paged_prefill_blk_q(chunk)
+    bq = paged_prefill_blk_q(chunk, q.dtype)
     qf = _pad_rows(q, bq)
     of = _ppre.paged_prefill_attention_flat(
         qf, k_pages, v_pages, page_table, q_offset=q_offset, kv_len=kv_len,

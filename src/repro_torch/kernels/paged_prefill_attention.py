@@ -11,17 +11,28 @@ table (max_pages,); query head ``h`` reads kv head ``h // group``.
 
 The TPU kernel holds a (chunk, E) fp32 accumulator per head on chip,
 which at chunk 512 is more than a CUDA block's shared memory. So the
-CUDA kernel (``csrc/paged_prefill_attention.cu``) runs one block per
-(query head, block of ``blk_q`` rows), walking 64-row tiles of logical
-kv rows with an online softmax in the TPU kernel's three bands: tiles
-wholly visible to the block run unmasked, tiles that straddle the causal
+CUDA kernels (``csrc/paged_prefill_attention.cu``) run one block per
+(query head, block of Q rows), walking 64-row tiles of logical kv rows
+with an online softmax in the TPU kernel's three bands: tiles wholly
+visible to the block run unmasked, tiles that straddle the causal
 diagonal or the ``kv_len`` tail take the fused select of
 ``three_band_select``, dead tiles are never loaded. ``q_offset`` and
 ``kv_len`` are launch integers. Pad rows at or past ``kv_len`` see every
 live key and return values the caller drops.
 
+Two forms, chosen by ``entry_point`` from q's dtype, with nothing
+falling back from one to the other:
+
+* bf16 q (``paged_prefill_bf16_launch``, a bf16 or an int8 pool, head
+  dim 64 or 128): the products on the tensor cores by ``wgmma`` in
+  64-row blocks (``BLK_Q_BF16``, one consumer warpgroup), S and P in
+  registers, while a producer warpgroup keeps three tiles' gathers in
+  flight.
+* fp32 q (``paged_prefill_fp32_launch``): the CUDA-core kernel at the
+  caller's ``blk_q``.
+
 An int8 pool carries one fp32 scale per (kv head, page),
-``k_scales``/``v_scales`` (Hkv, P), which the kernel reads per tile
+``k_scales``/``v_scales`` (Hkv, P), which the kernels read per tile
 column through the table: the K scale multiplies the score, the V scale
 folds into P after the row sum, in the TPU kernel's order.
 
@@ -35,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.policy import KV_TILE
+from repro_torch.core.policy import FLASH_BLK_Q_BF16, KV_TILE
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     check_prefill_tile,
@@ -48,11 +59,37 @@ from repro_torch.kernels.paged_decode_attention import check_paged
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
 # by branch: bf16/fp32 caches and int8 caches.
 LAUNCHES = {"paged_prefill": 0, "paged_prefill_int8": 0}
+# The bf16 form: its block height (one warpgroup, as B3's) and head dims.
+BLK_Q_BF16 = FLASH_BLK_Q_BF16
+BF16_HEAD_DIMS = (64, 128)
 
 
 def live_tiles(kv_len: int, blk_kv: int = KV_TILE) -> int:
     """64-row tiles of logical kv rows that hold a live row."""
     return -(-max(kv_len, 0) // blk_kv)
+
+
+def entry_point(dtype) -> str:
+    """The C function a CUDA q of ``dtype`` launches: the tensor-core
+    kernel for bf16, the CUDA-core kernel for fp32."""
+    if dtype == torch.bfloat16:
+        return "paged_prefill_bf16_launch"
+    if dtype == torch.float32:
+        return "paged_prefill_fp32_launch"
+    raise TypeError(f"the paged prefill kernel takes float32 or bfloat16, "
+                    f"not {dtype}")
+
+
+def check_bf16(q, k_pages, v_pages, blk_q: int) -> None:
+    """Raise unless the bf16 form takes these operands."""
+    e = q.shape[-1]
+    if blk_q != BLK_Q_BF16 or e not in BF16_HEAD_DIMS:
+        raise ValueError(f"the bf16 paged prefill kernel takes blk_q "
+                         f"{BLK_Q_BF16} and E in {BF16_HEAD_DIMS}, not "
+                         f"blk_q={blk_q}, E={e}")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("the bf16 paged prefill kernel copies 16-byte "
+                         "chunks: q and the pools must be 16-byte aligned")
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, page_table, *,
@@ -112,18 +149,26 @@ def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, *,
             k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    check_prefill_tile(blk_q, e)
+    name = entry_point(q.dtype)
     quantized = check_paged(q, k_pages, v_pages, page_table, k_scales,
                             v_scales)
     lib = _build.library("paged_prefill_attention")
     o = torch.empty_like(q)
     scale = (e ** -0.5) if sm_scale is None else sm_scale
-    err = lib.paged_prefill_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        _build.ptr(k_scales), _build.ptr(v_scales), page_table.data_ptr(),
-        o.data_ptr(), hq, nq, e, hq // hkv, blk_q, n_pages, page_size,
-        int(q_offset), int(kv_len), float(scale), _build.dtype_code(q.dtype),
-        int(quantized), _build.stream_handle(q.device))
-    _build.check(lib, err, "paged_prefill_attention_launch")
+    pools = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             _build.ptr(k_scales), _build.ptr(v_scales),
+             page_table.data_ptr(), o.data_ptr())
+    stream = _build.stream_handle(q.device)
+    if name == "paged_prefill_bf16_launch":
+        check_bf16(q, k_pages, v_pages, blk_q)
+        err = lib.paged_prefill_bf16_launch(
+            *pools, hq, nq, e, hq // hkv, n_pages, page_size, int(q_offset),
+            int(kv_len), float(scale), int(quantized), stream)
+    else:
+        check_prefill_tile(blk_q, e)
+        err = lib.paged_prefill_fp32_launch(
+            *pools, hq, nq, e, hq // hkv, blk_q, n_pages, page_size,
+            int(q_offset), int(kv_len), float(scale), int(quantized), stream)
+    _build.check(lib, err, name)
     LAUNCHES["paged_prefill_int8" if quantized else "paged_prefill"] += 1
     return o

@@ -11,9 +11,9 @@ tensors (atol 3e-5: fp32 sums in another order), the int8 branches of
 B4-B7 on int8 caches with their scales, and the wave, continuous and
 speculative engines serve a smoke model on the card with the same tokens
 as on the CPU, on bf16-free fp32 and on int8 caches. The bf16 forms of
-B2 and B3 (tensor cores) are held per output row within 4e-3 of the
-row's L2 norm, the limit ``chip_smoke.py`` uses, and a planted zeroed V
-tile must break it. B8 (the SSD
+B1, B2, B3 and B5 (tensor cores; B5 on bf16 and int8 pools) are held per
+output row within 4e-3 of the row's L2 norm, the limit ``chip_smoke.py``
+uses, and a planted zeroed V tile, V page or V scale must break it. B8 (the SSD
 intra-chunk step) and the chunked scan around it are held row by row
 (L2 error within 1e-4 of the row's norm: y grows with the rows a decay
 lets through, so an absolute limit does not fit), at a full-width cell
@@ -169,21 +169,142 @@ def test_short_windowed_bf16_prompt_pads_to_the_flash_block(cuda):
 
 def test_bf16_prefill_kernels_refuse_what_they_do_not_take(cuda):
     """A bf16 tensor runs the tensor-core kernels or raises: no block
-    height or head dim they are not built for reaches another kernel."""
+    height or head dim they are not built for reaches another kernel.
+    Head dim 64 is taken by all of them, and matches the plain version."""
     g = torch.Generator(device=cuda).manual_seed(41)
     q, k = _bf16(g, 2, 128, 32), _bf16(g, 2, 128, 32)
     ops.reset_launch_counts()
-    with pytest.raises(ValueError, match="bf16"):
-        mas.mas_attention_flat(q, k, k, blk_q=16, kv_resident=False)
+    for resident in (False, True):
+        with pytest.raises(ValueError, match="bf16"):
+            mas.mas_attention_flat(q, k, k, blk_q=16, kv_resident=resident)
     with pytest.raises(ValueError, match="bf16"):
         fl.flash_attention_flat(q, k, k, blk_q=64)
-    q64 = _bf16(g, 2, 128, 64)
-    with pytest.raises(ValueError, match="bf16"):
-        fl.flash_attention_flat(q64, q64, q64, blk_q=64)
     q = _bf16(g, 2, 128, 128)
     with pytest.raises(ValueError, match="bf16"):
         fl.flash_attention_flat(q, q, q, blk_q=32)
+    pool, table = _bf16(g, 2, 8, 16, 128), torch.arange(
+        8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        ppre.paged_prefill_attention_flat(q, pool, pool, table, q_offset=0,
+                                          kv_len=128, blk_q=32)
     assert sum(ops.launch_counts().values()) == 0
+    q64, k64, v64 = (_bf16(g, 2, 128, 64) for _ in range(3))
+    kw = dict(blk_q=64, causal=True)
+    got = fl.flash_attention_flat(q64, k64, v64, **kw)
+    want = fl.flash_attention_plain(q64, k64, v64, blk_kv=64, **kw)
+    faulty = fl.flash_attention_plain(q64, k64, _zero_v_tile(v64, 0),
+                                      blk_kv=64, **kw)
+    torch.cuda.synchronize()
+    _held_per_row(got, want, faulty)
+
+
+@pytest.mark.parametrize("q_offset", [0, 100])
+def test_flash_bf16_kernel_at_head_dim_64_matches_plain_per_row(cuda,
+                                                                q_offset):
+    """B3's wgmma form at E 64 (S and P V both m64n64k16): three KV tiles
+    a block, so both stages are used and one is reused, a random V,
+    non-causal (every tile live) and causal."""
+    g = torch.Generator(device=cuda).manual_seed(42 + q_offset)
+    q = _bf16(g, 4, 128, 64)
+    k, v = _bf16(g, 2, 256, 64), _bf16(g, 2, 256, 64)
+    for causal in (False, True):
+        kw = dict(blk_q=64, causal=causal, q_offset=q_offset, kv_len=230)
+        got = fl.flash_attention_flat(q, k, v, **kw)
+        want = fl.flash_attention_plain(q, k, v, blk_kv=64, **kw)
+        faulty = fl.flash_attention_plain(q, k, _zero_v_tile(v, 1),
+                                          blk_kv=64, **kw)
+        torch.cuda.synchronize()
+        _held_per_row(got, want, faulty)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n,blk_q,e", [(64, 8, 128), (128, 16, 128),
+                                       (256, 32, 128), (320, 24, 128),
+                                       (192, 32, 64), (320, 8, 64)])
+def test_mas_resident_bf16_kernel_matches_plain_per_row(cuda, n, blk_q, e,
+                                                        causal):
+    """B1 on the tensor cores, K and V resident: N 64 to 320, blk_q 8 (the
+    transposed form), 16, 24 and 32, GQA group 2, a kv_len tail 13 rows
+    short of N."""
+    g = torch.Generator(device=cuda).manual_seed(50 + n + blk_q + e)
+    q = _bf16(g, 4, 192, e)
+    k, v = _bf16(g, 2, n, e), _bf16(g, 2, n, e)
+    kw = dict(blk_q=blk_q, causal=causal, kv_len=n - 13)
+    ops.reset_launch_counts()
+    got = mas.mas_attention_flat(q, k, v, kv_resident=True, **kw)
+    assert ops.launch_counts()["mas_resident"] == 1
+    want = mas.mas_attention_plain(q, k, v, blk_kv=64, **kw)
+    faulty = mas.mas_attention_plain(q, k, _zero_v_tile(v, 0), blk_kv=64,
+                                     **kw)
+    torch.cuda.synchronize()
+    _held_per_row(got, want, faulty)
+
+
+def _bf16_pools(gen, quantized: bool, hkv: int = 2, n_pages: int = 256,
+                e: int = 128):
+    """bf16 pools of 16-row pages, or int8 pools with per-page scales,
+    and a shuffled page table over them: (k, v, table, scales)."""
+    k, v = (_rand(gen, hkv, n_pages, 16, e) for _ in range(2))
+    perm = torch.randperm(n_pages - 1, generator=gen, device=gen.device) + 1
+    table = perm.to(torch.int32).contiguous()
+    if not quantized:
+        return k.bfloat16(), v.bfloat16(), table, {}
+    (k, ks), (v, vs) = quantize_q8(k, (-2, -1)), quantize_q8(v, (-2, -1))
+    return k, v, table, {"k_scales": ks, "v_scales": vs}
+
+
+def _paged_bf16_case(cuda, seed, quantized, group, q0, kv_len, chunk, e):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    k, v, table, sc = _bf16_pools(g, quantized, e=e)
+    q = _bf16(g, 2 * group, chunk, e)
+    fault_page = int(table[(kv_len - 1) // 16 // 2])
+    ops.reset_launch_counts()
+    # through ops: a ragged chunk's rows padded to the 64-row block
+    got = ops.paged_prefill_attention(q, k, v, table, q0, kv_len, **sc)
+    counts = ops.launch_counts()
+    assert counts["paged_prefill_int8" if quantized else "paged_prefill"] \
+        == 1
+
+    def plain(v=v, vs=sc.get("v_scales")):
+        kw = dict(sc, v_scales=vs) if quantized else {}
+        qp = torch.nn.functional.pad(q, (0, 0, 0, (-chunk) % 64))
+        return ppre.paged_prefill_attention_plain(
+            qp, k, v, table, q_offset=q0, kv_len=kv_len, blk_q=64,
+            **kw)[:, :chunk]
+
+    if quantized:
+        vs = sc["v_scales"].clone()
+        vs[:, fault_page] = 0
+        faulty = plain(vs=vs)
+    else:
+        vz = v.clone()
+        vz[:, fault_page] = 0
+        faulty = plain(v=vz)
+    torch.cuda.synchronize()
+    # rows at or past kv_len are pad rows the caller drops
+    live = min(chunk, kv_len - q0)
+    _held_per_row(got[:, :live], plain()[:, :live], faulty[:, :live])
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("q0,kv_len,chunk", [
+    (0, 200, 256), (64, 250, 192), (100, 300, 200), (3072, 3333, 512),
+    (1000, 1400, 512)])
+def test_paged_prefill_bf16_kernel_matches_plain_per_row(
+        cuda, quantized, group, q0, kv_len, chunk):
+    """B5's wgmma form on bf16 and int8 pools: shuffled pages, at least
+    three live tiles (more than the ring's three stages, so stages are
+    reused), q_offset 0, 64, 100 and 1000 (not multiples of 64) and 3072,
+    kv_len ending mid-page, GQA 1 and 2, a random V, ragged chunks padded
+    to the 64-row block through ops, pad rows past kv_len."""
+    _paged_bf16_case(cuda, 60 + q0 + group, quantized, group, q0, kv_len,
+                     chunk, 128)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_prefill_bf16_kernel_at_head_dim_64(cuda, quantized):
+    _paged_bf16_case(cuda, 70, quantized, 2, 100, 300, 200, 64)
 
 
 def test_decode_kernel_matches_plain(cuda):

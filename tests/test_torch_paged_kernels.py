@@ -208,6 +208,50 @@ def test_paged_prefill_matches_pallas_and_twin(group, page, chunk, q0,
     assert_close(got[:, :live], np.asarray(twin)[:, :live], FP32_ATOL)
 
 
+@pytest.mark.parametrize("group,page,chunk,q0,kv_len", [
+    (2, 8, 100, 100, 180),   # 64 divides neither the chunk nor q_offset
+    (1, 4, 64, 64, 122),     # one 64-row block, ending mid-page
+    (2, 16, 40, 0, 40),      # a short first chunk padded to the block
+])
+def test_paged_prefill_plain_at_the_bf16_block_matches_pallas(
+        group, page, chunk, q0, kv_len):
+    """B5's plain version at the bf16 form's 64-row block (the rows padded
+    to it, as ``ops`` pads them) against the Pallas kernel in interpret
+    mode, on shuffled pages whose unused neighbours hold garbage."""
+    seed = 100 + page + chunk + q0
+    n_pages = 64
+    rng = np.random.default_rng(seed)
+    k = rand(seed, (HKV, n_pages, page, E))
+    v = rand(seed + 1, (HKV, n_pages, page, E))
+    max_pages = -(-(q0 + chunk) // page) + 1
+    perm = rng.permutation(np.arange(1, n_pages))
+    live = -(-kv_len // page)
+    table = perm[:max_pages].astype(np.int32)
+    for pool in (k, v):
+        pool[:, perm[live:]] *= 100.0
+    q = rand(seed + 2, (HKV * group, chunk, E))
+    want = jops.paged_prefill_attention(
+        to_jax(q), to_jax(k), to_jax(v), jnp.asarray(table), jnp.int32(q0),
+        jnp.int32(kv_len), interpret=True)
+    bq = tops.paged_prefill_blk_q(chunk, torch.bfloat16)
+    assert bq == 64
+    qp = torch.nn.functional.pad(to_torch(q), (0, 0, 0, (-chunk) % bq))
+    got = tppre.paged_prefill_attention_plain(
+        qp, to_torch(k), to_torch(v), torch.from_numpy(table), q_offset=q0,
+        kv_len=kv_len, blk_q=bq)[:, :chunk]
+    assert_close(got, want, FP32_ATOL)
+
+
+def test_paged_prefill_block_height_follows_the_dtype():
+    """bf16 chunks run the wgmma form's 64-row blocks, fp32 chunks the
+    CUDA-core form's blocks of up to 32 rows (8 for a short chunk)."""
+    for chunk in (1, 40, 512):
+        assert tops.paged_prefill_blk_q(chunk, torch.bfloat16) == 64
+    assert tops.paged_prefill_blk_q(512, torch.float32) == 32
+    assert tops.paged_prefill_blk_q(5, torch.float32) == 8
+    assert tops.paged_prefill_blk_q(20) == 24
+
+
 def test_paged_prefill_plain_reads_live_tiles_only():
     # a table covering only the live rows suffices: dead tiles are never
     # gathered, as the kernel never loads them

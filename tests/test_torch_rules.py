@@ -10,9 +10,10 @@
   and its bf16 limit admits one rounding of a kernel's output but not a
   skipped KV tile, nor, on an int8 cache, a zeroed V scale, nor for B8 a
   zeroed X tile;
-* a bf16 tensor reaches B2 and B3 only through their tensor-core forms,
-  chosen by dtype in the wrapper, with no ``try`` to fall back from, and
-  ``chip_smoke.py`` counts each kernel's tensor-core instructions.
+* a bf16 tensor reaches B1, B2, B3 and B5 only through their
+  tensor-core forms, chosen by dtype in the wrapper, with no ``try`` to
+  fall back from, and ``chip_smoke.py`` counts each kernel's
+  tensor-core instructions.
 """
 
 from __future__ import annotations
@@ -315,11 +316,31 @@ def test_chip_smoke_sass_report_counts_tensor_core_instructions():
         "        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, "
         "gdesc[UR4], R24 ;",
         "        /*0110*/                   FFMA R1, R2, R3, R1 ;",
+        # B1's bf16 form: mma.sync; B5's: wgmma with a transposed B
+        "\t\tFunction : _ZN12_GLOBAL__N_124mas_resident_bf16_kernelILi128E"
+        "Li2ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiiif",
+        "        /*0200*/                   LDSM.16.M88.4 R4, [R2] ;",
+        "        /*0210*/                   HMMA.16816.F32.BF16 R8, R4, R12,"
+        " R8 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_125paged_prefill_bf16_kernelILi128"
+        "EaEEvPK13__nv_bfloat16PKT0_S6_PKfS8_PKiPS1_iiiiiif",
+        "        /*0300*/                   WARPGROUP.ARRIVE ;",
+        "        /*0310*/                   HGMMA.64x64x16.F32.BF16 R24, R88, "
+        "gdesc[UR8], RZ, !UPT ;",
+        "        /*0320*/                   HGMMA.64x128x16.F32.BF16 R56, R24,"
+        " gdesc[UR8].tnspB, R56 ;",
+        "        /*0330*/                   HGMMA.64x128x16.F32.BF16 R56, R28,"
+        " gdesc[UR8].tnspB, R56, gsb0 ;",
     ])
     report = _chip_smoke().sass_report(listing)
     assert list(report.values()) == [{"hmma": 2, "hgmma": 0},
-                                     {"hmma": 0, "hgmma": 1}]
-    assert "flash_bf16_kernel" in list(report)[0]
+                                     {"hmma": 0, "hgmma": 1},
+                                     {"hmma": 1, "hgmma": 0},
+                                     {"hmma": 0, "hgmma": 3}]
+    names = list(report)
+    assert "flash_bf16_kernel" in names[0]
+    assert "mas_resident_bf16_kernel" in names[2]
+    assert "paged_prefill_bf16_kernel" in names[3]
     assert _chip_smoke().sass_report("") == {}
 
 
@@ -328,28 +349,43 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     bf16, fp32 = torch.bfloat16, torch.float32
     assert tmas.entry_point(bf16, False) == "mas_streamed_bf16_launch"
     assert tmas.entry_point(fp32, False) == "mas_streamed_fp32_launch"
-    assert tmas.entry_point(bf16, True) == "mas_resident_launch"
+    assert tmas.entry_point(bf16, True) == "mas_resident_bf16_launch"
+    assert tmas.entry_point(fp32, True) == "mas_resident_fp32_launch"
     assert tflash.entry_point(bf16) == "flash_attention_bf16_launch"
     assert tflash.entry_point(fp32) == "flash_attention_fp32_launch"
+    assert ppre.entry_point(bf16) == "paged_prefill_bf16_launch"
+    assert ppre.entry_point(fp32) == "paged_prefill_fp32_launch"
     for fn in (lambda: tmas.entry_point(torch.float16, False),
-               lambda: tflash.entry_point(torch.float16)):
+               lambda: tmas.entry_point(torch.float16, True),
+               lambda: tflash.entry_point(torch.float16),
+               lambda: ppre.entry_point(torch.float16)):
         with pytest.raises(TypeError):
             fn()
     sigs = {**_build.SIGNATURES["mas_attention"],
-            **_build.SIGNATURES["flash_attention"]}
+            **_build.SIGNATURES["flash_attention"],
+            **_build.SIGNATURES["paged_prefill_attention"]}
     for name in ("mas_streamed_bf16_launch", "mas_streamed_fp32_launch",
+                 "mas_resident_bf16_launch", "mas_resident_fp32_launch",
                  "flash_attention_bf16_launch",
-                 "flash_attention_fp32_launch"):
+                 "flash_attention_fp32_launch", "paged_prefill_bf16_launch",
+                 "paged_prefill_fp32_launch"):
         assert name in sigs
     # ... with no try to fall back from ...
-    for module in (tmas, tflash):
+    for module in (tmas, tflash, ppre):
         tree = ast.parse(Path(module.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
-    # ... and the CUDA-core forms of B2 and B3 exist only in fp32
+    # ... and the CUDA-core forms of B1, B2, B3 and B5 exist only in fp32
     csrc = PORT / "kernels" / "csrc"
     mas_cu = (csrc / "mas_attention.cu").read_text()
     flash_cu = (csrc / "flash_attention.cu").read_text()
+    ppre_cu = (csrc / "paged_prefill_attention.cu").read_text()
     assert "mas_streamed_kernel<float>" in mas_cu
     assert "mas_streamed_kernel<__nv_bfloat16>" not in mas_cu
+    assert "mas_resident_kernel<float>" in mas_cu
+    assert "mas_resident_kernel<__nv_bfloat16>" not in mas_cu
     assert "flash_kernel<float>" in flash_cu
     assert "flash_kernel<__nv_bfloat16>" not in flash_cu
+    assert "launch<float, float>" in ppre_cu
+    assert "launch<float, int8_t>" in ppre_cu
+    assert "paged_prefill_kernel<__nv_bfloat16" not in ppre_cu
+    assert "launch<__nv_bfloat16," not in ppre_cu

@@ -1,5 +1,5 @@
-"""The rounding of the bf16 tensor-core kernels (B2's and B3's bf16
-forms), emulated on the CPU and held to their plain versions.
+"""The rounding of the bf16 tensor-core kernels (the bf16 forms of B1,
+B2, B3 and B5), emulated on the CPU and held to their plain versions.
 
 The kernels read Q, K and V in bf16, sum S = Q K^T in fp32 (exact bf16
 products, fp32 sums), feed P to P·V as bf16 and round the output to bf16.
@@ -15,7 +15,15 @@ error on the card:
 * P as two bf16 products, hi = bf16(P) and lo = bf16(P - hi), which is
   what the kernels do (``csrc/mma.cuh``), leaves room under the limit.
 
-Run as a script, it prints the four row errors.
+B1 and B2 share one emulation (MAS: the fp32 score row, one exact
+softmax), held to the plain version at B1's block height (32) and B2's
+(16). B5 is B3's online softmax over a chunk at a ``q_offset`` of a
+paged pool; on an int8 pool its tiles hold the int8 values as bf16
+(exact: every value in -127..127 has 8 significant bits), the K scale
+multiplies the score and the V scale multiplies P after the row sum and
+before the split.
+
+Run as a script, it prints the row errors.
 """
 
 from __future__ import annotations
@@ -26,7 +34,13 @@ import torch
 
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import mas_attention as tmas
-from repro_torch.kernels.common import NEG_INF
+from repro_torch.kernels import paged_prefill_attention as tppre
+from repro_torch.kernels.common import (
+    NEG_INF,
+    gather_pages,
+    page_scales,
+    quantize_q8,
+)
 
 BF16_ROW_RTOL = 4e-3     # chip_smoke.py's per-row limit for bf16 kernels
 N, E, HEADS, BLK_KV = 320, 128, 4, 64
@@ -62,22 +76,76 @@ def mas_emulated(q, k, v, *, split: bool):
     return (_pv(p, v, split) / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
 
 
-def flash_emulated(q, k, v, *, split: bool):
-    """B3's bf16 form: online max and sum over 64-column tiles, P = exp(s
-    - m) unnormalized into P V, the sum l taken from fp32 P."""
-    s_all = _causal_scores(q, k)
-    m = torch.full((HEADS, N, 1), NEG_INF)
-    l = torch.zeros((HEADS, N, 1))
-    acc = torch.zeros((HEADS, N, E))
-    for c0 in range(0, N, BLK_KV):
+def online_emulated(q, k, v, *, split: bool, q_offset: int = 0,
+                    kv_len: int = N, k_scale=None, v_scale=None):
+    """B3's and B5's bf16 forms: online max and sum over 64-column tiles,
+    query row i at position q_offset + i seeing the keys at positions <=
+    it and below kv_len; P = exp(s - m) unnormalized into P V (times the
+    column's V scale after the row sum, before the split), the sum l
+    taken from fp32 P. k, v: (H, S, E) bf16 values (int8 values held as
+    bf16 for an int8 pool), scales (H, S) per column."""
+    heads, nq, _ = q.shape
+    s_all = (q.float() @ k.float().transpose(1, 2)) * E ** -0.5
+    if k_scale is not None:
+        s_all = s_all * k_scale[:, None, :]
+    rows = torch.arange(nq).view(nq, 1) + q_offset
+    cols = torch.arange(k.shape[1]).view(1, -1)
+    s_all = torch.where((cols <= rows) & (cols < kv_len), s_all, NEG_INF)
+    m = torch.full((heads, nq, 1), NEG_INF)
+    l = torch.zeros((heads, nq, 1))
+    acc = torch.zeros((heads, nq, E))
+    for c0 in range(0, -(-kv_len // BLK_KV) * BLK_KV, BLK_KV):
         s = s_all[..., c0:c0 + BLK_KV]
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if v_scale is not None:
+            p = p * v_scale[:, None, c0:c0 + BLK_KV]
         acc = acc * alpha + _pv(p, v[:, c0:c0 + BLK_KV], split)
         m = m_new
     return (acc / l).to(torch.bfloat16)
+
+
+def flash_emulated(q, k, v, *, split: bool):
+    """B3's bf16 form over the causal (N, N) call."""
+    return online_emulated(q, k, v, split=split)
+
+
+# B5's case: a 128-row chunk at q_offset 200 of a 320-row sequence on
+# shuffled 16-row pages, GQA group 1
+PAGE, Q0, CHUNK = 16, 192, 128
+
+
+def _paged_inputs(seed: int, quantized: bool):
+    """q (HEADS, CHUNK, E) bf16; pools (HEADS, pages, PAGE, E), bf16 or
+    int8 with per-page scales; a shuffled table covering N rows."""
+    rng = np.random.default_rng(seed)
+    n_pages = N // PAGE + 1
+    q = torch.from_numpy(rng.standard_normal((HEADS, CHUNK, E),
+                                             dtype=np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (HEADS, n_pages, PAGE, E), dtype=np.float32)) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(n_pages - 1)[:N // PAGE] + 1
+                             ).to(torch.int32)
+    if not quantized:
+        return q, k.bfloat16(), v.bfloat16(), table, {}
+    (k, ks), (v, vs) = quantize_q8(k, (-2, -1)), quantize_q8(v, (-2, -1))
+    return q, k, v, table, {"k_scales": ks, "v_scales": vs}
+
+
+def paged_emulated(q, k_pages, v_pages, table, *, split: bool,
+                   k_scales=None, v_scales=None):
+    """B5's bf16 form: the pages gathered through the table (int8 values
+    as bf16), then the online step of ``online_emulated``."""
+    k = gather_pages(k_pages, table).bfloat16()
+    v = gather_pages(v_pages, table).bfloat16()
+    ks = vs = None
+    if k_scales is not None:
+        ks = page_scales(k_scales, table, PAGE)
+        vs = page_scales(v_scales, table, PAGE)
+    return online_emulated(q, k, v, split=split, q_offset=Q0, kv_len=N,
+                           k_scale=ks, v_scale=vs)
 
 
 def row_rel_err(got, want) -> float:
@@ -86,23 +154,48 @@ def row_rel_err(got, want) -> float:
                   / want.norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def emulated_errors(kernel: str) -> dict[str, float]:
-    """Row error of the emulation against the plain version, with P in one
-    bf16 product and as hi + lo."""
-    q, k, v = _inputs()
-    if kernel == "mas":
-        want = tmas.mas_attention_plain(q, k, v, blk_q=16, blk_kv=BLK_KV,
+KERNELS = ["mas", "mas_resident", "flash", "paged", "paged_int8"]
+
+
+def _case(kernel: str, seed: int):
+    """(emulate(split, v=None, v_scales=None), plain version's output) of
+    ``kernel`` on the inputs of ``seed``."""
+    if kernel.startswith("paged"):
+        quantized = kernel == "paged_int8"
+        q, k, v, table, sc = _paged_inputs(seed, quantized)
+        want = tppre.paged_prefill_attention_plain(
+            q, k, v, table, q_offset=Q0, kv_len=N, blk_q=64, **sc)
+
+        def emulate(split, v_=None, vs=None):
+            kw = dict(sc, v_scales=vs) if vs is not None else sc
+            return paged_emulated(q, k, v if v_ is None else v_, table,
+                                  split=split, **kw)
+        return emulate, want, (v, sc)
+    q, k, v = _inputs(seed)
+    if kernel.startswith("mas"):
+        blk_q = 32 if kernel == "mas_resident" else 16
+        want = tmas.mas_attention_plain(q, k, v, blk_q=blk_q, blk_kv=BLK_KV,
                                         causal=True)
-        emulate = mas_emulated
+        fn = mas_emulated
     else:
         want = tflash.flash_attention_plain(q, k, v, blk_q=64,
                                             blk_kv=BLK_KV, causal=True)
-        emulate = flash_emulated
-    return {kind: row_rel_err(emulate(q, k, v, split=kind == "hi_lo"), want)
+        fn = flash_emulated
+
+    def emulate(split, v_=None, vs=None):
+        return fn(q, k, v if v_ is None else v_, split=split)
+    return emulate, want, (v, {})
+
+
+def emulated_errors(kernel: str) -> dict[str, float]:
+    """Row error of the emulation against the plain version, with P in one
+    bf16 product and as hi + lo."""
+    emulate, want, _ = _case(kernel, 0)
+    return {kind: row_rel_err(emulate(kind == "hi_lo"), want)
             for kind in ("bf16", "hi_lo")}
 
 
-@pytest.mark.parametrize("kernel", ["mas", "flash"])
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_hi_lo_p_fits_the_bf16_row_limit_with_room(kernel):
     errs = emulated_errors(kernel)
     assert 0 < errs["hi_lo"] <= BF16_ROW_RTOL / 2, errs
@@ -110,17 +203,33 @@ def test_hi_lo_p_fits_the_bf16_row_limit_with_room(kernel):
     assert errs["bf16"] > 2 * errs["hi_lo"], errs
 
 
-@pytest.mark.parametrize("kernel", ["mas", "flash"])
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_emulation_sees_a_skipped_v_tile(kernel):
-    q, k, v = _inputs(1)
-    v_bad = v.clone()
-    v_bad[:, BLK_KV:2 * BLK_KV] = 0
-    emulate = mas_emulated if kernel == "mas" else flash_emulated
-    want = emulate(q, k, v, split=True)
-    assert row_rel_err(emulate(q, k, v_bad, split=True),
-                       want) > 10 * BF16_ROW_RTOL
+    emulate, _, (v, sc) = _case(kernel, 1)
+    want = emulate(True)
+    if kernel == "paged_int8":    # a page's V scale zeroed
+        vs = sc["v_scales"].clone()
+        vs[:, 3] = 0
+        faulty = emulate(True, vs=vs)
+    else:                         # a 64-row V tile (or its pages) zeroed
+        v_bad = v.clone()
+        if kernel == "paged":
+            v_bad[:, 3] = 0
+        else:
+            v_bad[:, BLK_KV:2 * BLK_KV] = 0
+        faulty = emulate(True, v_=v_bad)
+    assert row_rel_err(faulty, want) > 10 * BF16_ROW_RTOL
+
+
+def test_every_int8_value_is_exact_in_bf16():
+    """B5's int8 tiles are held as bf16: -127..127 survive the conversion
+    exactly, so the int8 pool's products differ from the bf16 pool's only
+    by the scales."""
+    values = torch.arange(-127, 128, dtype=torch.int8)
+    assert torch.equal(values.float().bfloat16().float(), values.float())
+    assert torch.equal(values.bfloat16().to(torch.int8), values)
 
 
 if __name__ == "__main__":
-    for name in ("mas", "flash"):
+    for name in KERNELS:
         print(name, emulated_errors(name))
