@@ -12,8 +12,8 @@ Phases, each printing one JSON line:
    every kernel from ``src/repro_torch/kernels/csrc``, each kernel's
    registers and spills (``ptxas``) and its tensor-core instructions
    (``HMMA``, ``HGMMA`` in ``cuobjdump -sass``), which the bf16 forms of
-   B1-B3 and B5 must have (``HMMA`` for B1 and B2, ``HGMMA`` for B3 and
-   B5);
+   B1-B5 and B7 must have (``HMMA`` for B1, B2, B4 and B7, ``HGMMA`` for
+   B3 and B5);
 2. fp32 checks — each kernel against its plain version in fp32 on small
    ragged shapes (padding, kv tails, a sliding window, ragged decode; for
    the paged kernels shuffled page tables, kv_len 0, 1 and mid-page, a
@@ -38,7 +38,14 @@ Phases, each printing one JSON line:
    one PyTorch call computing the same function (timed as a yardstick
    only; int8 caches are dequantized first; none computes B8's); B2 also
    at 1 x 4096 (blk_q 8, its transposed form), and B1-B3 and B5 with
-   their achieved TFLOP/s;
+   their achieved TFLOP/s. A kernel's and its yardstick's ``ms`` and
+   ``library_ms`` are the back-to-back loop's mean time, which holds the
+   host's dispatch wherever the card runs faster than the host enqueues;
+   beside them, device time (``device_ms``, ``library_device_ms``: each
+   call timed by CUDA events behind a device-side wait that hides the
+   host's enqueueing) and how many calls it had to repeat or drop
+   (``device_retries``, ``device_dropped``); B4, B6 and B7 state their
+   split (``n_split``, ``tiles_per_split``);
 4. main path (waves) — full-width internlm2-1.8b (random weights from a
    seed) served by the port's ``ServingEngine`` in three waves whose
    prompts the shared-memory policy routes to the resident MAS, streamed
@@ -216,6 +223,70 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+_SLEEP_CYCLES_PER_MS: list[float] = []
+DEVICE_TRIES = 4        # waits of 1, 4, 16 and 64 times the first
+
+
+def hidden_ms(torch, fn, iters: int) -> tuple[float | None, int, int]:
+    """Device time of one call of ``fn``, averaged over ``iters`` calls
+    after one warm-up call: each call is enqueued behind a device-side
+    wait (``torch.cuda._sleep``) long enough for the host to enqueue the
+    whole call, between CUDA events, so the events see the call's work
+    run back to back on the device and not the host's dispatch. Checked
+    for each call: if the start event has run by the time the call is
+    enqueued, the call is repeated behind a four times longer wait, and
+    dropped after ``DEVICE_TRIES`` tries. Returns (mean ms over the kept
+    calls, or None if none was kept; repeats; drops). ``fn`` must not
+    wait on the device. (Not ``torch.profiler``: its sessions leave the
+    host's later launches slower, and so the serving phases after
+    them.)"""
+    if not _SLEEP_CYCLES_PER_MS:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10_000_000 / a.elapsed_time(b))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    total, kept, retries = 0.0, 0, 0
+    for _ in range(iters):
+        wait_ms = 3 * host_ms + 0.2
+        for _ in range(DEVICE_TRIES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(_SLEEP_CYCLES_PER_MS[0] * wait_ms))
+            start.record()
+            fn()
+            hidden = not start.query()
+            end.record()
+            torch.cuda.synchronize()
+            if hidden:
+                total += start.elapsed_time(end)
+                kept += 1
+                break
+            retries += 1
+            wait_ms *= 4
+    return (total / kept if kept else None), retries, iters - kept
+
+
+def device_times(torch, kern, lib, iters: int) -> dict:
+    """Device time of a kernel's call and of its yardstick's (``lib``, or
+    None) by ``hidden_ms``, with the calls both repeated and dropped."""
+    ms, retries, dropped = hidden_ms(torch, kern, iters)
+    lib_ms = None
+    if lib is not None:
+        lib_ms, lib_retries, lib_dropped = hidden_ms(torch, lib, iters)
+        retries, dropped = retries + lib_retries, dropped + lib_dropped
+    return {"device_ms": ms, "library_device_ms": lib_ms,
+            "device_retries": retries, "device_dropped": dropped}
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -378,13 +449,15 @@ def phase_device(torch, build) -> dict:
         "tensor_core_instructions": sass,
     }
     emit(info)
-    # the bf16 forms of B1, B2, B3 and B5 must run on the tensor cores
+    # the bf16 forms of B1-B5 and B7 must run on the tensor cores
     for lib, kernel, kind in (
             ("mas_attention", "mas_resident_bf16_kernel", "hmma"),
             ("mas_attention", "mas_streamed_bf16_kernel", "hmma"),
             ("flash_attention", "flash_bf16_kernel", "hgmma"),
+            ("decode_attention", "decode_bf16_kernel", "hmma"),
             ("paged_prefill_attention", "paged_prefill_bf16_kernel",
-             "hgmma")):
+             "hgmma"),
+            ("paged_verify_attention", "paged_verify_bf16_kernel", "hmma")):
         found = {k: c for k, c in sass[lib].items() if kernel in k}
         require(bool(found) and all(c[kind] > 0 for c in found.values()),
                 f"{kernel}: no {kind.upper()} instruction in {found}")
@@ -433,12 +506,13 @@ def phase_fp32(torch) -> dict:
     lens = torch.tensor([0, 1, 63, 64, 200, 333], dtype=torch.int32,
                         device=dev)
     out = dec.decode_attention_flat(qd, kd, vd, lens)
-    n_split, tps = dec.split_plan(6, 333)
+    n_split, tps = dec.decode_split_plan(kd.dtype, 6, 333)
     ref = dec.decode_attention_plain(qd, kd, vd, lens, n_split=n_split,
                                      tiles_per_split=tps)
     errs["decode"] = max_err(out, ref)
     (kq, ks), (vq, vs) = quantize_q8(kd, -1), quantize_q8(vd, -1)
     out = dec.decode_attention_flat(qd, kq, vq, lens, k_scale=ks, v_scale=vs)
+    n_split, tps = dec.decode_split_plan(kq.dtype, 6, 333)
     ref = dec.decode_attention_plain(qd, kq, vq, lens, n_split=n_split,
                                      tiles_per_split=tps, k_scale=ks,
                                      v_scale=vs)
@@ -498,6 +572,7 @@ def phase_fp32(torch) -> dict:
                             ("paged_verify_int8", (kp8, vp8), q8)):
         out = pver.paged_verify_attention_flat(qv, *pools, table, lens,
                                                starts, spec=4, **kw)
+        n_split, tps = dec.decode_split_plan(pools[0].dtype, 12, 160)
         ref = pver.paged_verify_attention_plain(
             qv, *pools, table, lens, starts, spec=4, n_split=n_split,
             tiles_per_split=tps, **kw)
@@ -572,6 +647,7 @@ def phase_kernels(torch) -> list[dict]:
             "ms": ms, "plain_ms": cuda_ms(torch, plain, 2),
             "bound_ms": bms, "bound_by": by,
             "library_ms": cuda_ms(torch, lib, 20),
+            **device_times(torch, kern, lib, 20),
             "tflops": flops / ms / 1e9,
             "shape": {"b": b, "hq": hq, "hkv": hkv, "n": n, "e": e,
                       "blk_q": bq, "causal": True, "dtype": "bf16"},
@@ -673,7 +749,7 @@ def decode_row(torch, rnd, cfg, quantized: bool) -> dict:
         vc, vs = quantized_rows(rnd(b, hkv, MAX_LEN, e), dims)
         sc = dict(k_scale=ks, v_scale=vs)
         for kv_len in (n + 1, n + NEW_TOKENS - 1):
-            n_split, tps = dec.split_plan(b * hkv, kv_len)
+            n_split, tps = dec.decode_split_plan(kc.dtype, b * hkv, kv_len)
             lens = torch.full((b * hkv,), kv_len, dtype=torch.int32,
                               device="cuda")
 
@@ -701,7 +777,7 @@ def decode_row(torch, rnd, cfg, quantized: bool) -> dict:
     v, vs = quantized_rows(rnd(b * hkv, MAX_LEN, e), dims)
     kv = torch.tensor(DECODE_KV_LENS, dtype=torch.int32, device="cuda")
     lens = kv.repeat_interleave(hkv)
-    n_split, tps = dec.split_plan(b * hkv, MAX_LEN)
+    n_split, tps = dec.decode_split_plan(k.dtype, b * hkv, MAX_LEN)
     kern = lambda: dec.decode_attention_flat(  # noqa: E731
         q, k, v, lens, k_scale=ks, v_scale=vs)
 
@@ -745,9 +821,11 @@ def decode_row(torch, rnd, cfg, quantized: bool) -> dict:
         "ms": cuda_ms(torch, kern, 50), "plain_ms": cuda_ms(torch, plain, 3),
         "bound_ms": bms, "bound_by": by,
         "library_ms": cuda_ms(torch, lib, 50),
+        **device_times(torch, kern, lib, 50),
         "shape": {"b": b, "hq": hq, "hkv": hkv, "s": MAX_LEN, "e": e,
                   "kv_lens": list(DECODE_KV_LENS), "n_split": n_split,
-                  "dtype": "bf16", "cache": "int8" if quantized else "bf16"},
+                  "tiles_per_split": tps, "dtype": "bf16",
+                  "cache": "int8" if quantized else "bf16"},
         "checks": checks,
     }
 
@@ -830,8 +908,9 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
         "ms": cuda_ms(torch, kern, 50), "plain_ms": cuda_ms(torch, plain, 3),
         "bound_ms": bms, "bound_by": by,
         "library_ms": cuda_ms(torch, lib, 20),
+        **device_times(torch, kern, lib, 50),
         "shape": {**shape, "kv_lens": list(PAGED_DECODE_KV_LENS),
-                  "n_split": n_split},
+                  "n_split": n_split, "tiles_per_split": tps},
     })
 
     # B5: 512-row chunks of the longest sequence, first, off the block
@@ -869,6 +948,7 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
         checks[-1].update({"ms": ms, "plain_ms": cuda_ms(torch, plain, 2),
                            "bound_ms": bms, "bound_by": by,
                            "library_ms": cuda_ms(torch, lib, 20),
+                           **device_times(torch, kern, lib, 20),
                            "tflops": flops / ms / 1e9})
     late = checks[-1]
     rows.append({
@@ -880,9 +960,10 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "row_rel_err": max(c["row_rel_err"] for c in checks),
         "fault_row_rel_err": min(c["fault_row_rel_err"] for c in checks),
-        "ms": late["ms"], "plain_ms": late["plain_ms"],
-        "bound_ms": late["bound_ms"], "bound_by": late["bound_by"],
-        "library_ms": late["library_ms"], "tflops": late["tflops"],
+        **{key: late[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "library_device_ms", "device_retries",
+            "device_dropped", "tflops")},
         "shape": {**shape, "chunk": chunk, "blk_q": bq,
                   "q_offset": late["q_offset"], "kv_len": late["kv_len"]},
         "checks": checks,
@@ -894,6 +975,7 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
     n_rows = lens.clamp(max=spec)
     starts = (lens - n_rows).contiguous()
     qv = rnd(b, hkv, spec * grp, e)           # position-major rows
+    n_split, tps = dec.decode_split_plan(kp.dtype, b * hkv, max_pages * page)
     kern = lambda: pver.paged_verify_attention_flat(  # noqa: E731
         qv, kp, vp, table, lens, starts, spec=spec, **sc)
 
@@ -929,9 +1011,11 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
         "ms": cuda_ms(torch, kern, 50), "plain_ms": cuda_ms(torch, plain, 3),
         "bound_ms": bms, "bound_by": by,
         "library_ms": cuda_ms(torch, lib, 20),
+        **device_times(torch, kern, lib, 50),
         "shape": {**shape, "spec": spec, "group": grp,
                   "kv_lens": list(PAGED_DECODE_KV_LENS),
-                  "n_rows": n_rows.tolist(), "n_split": n_split},
+                  "n_rows": n_rows.tolist(), "n_split": n_split,
+                  "tiles_per_split": tps},
     })
     return rows
 
@@ -1061,6 +1145,7 @@ def ssd_row(torch) -> dict:
         "y": y, "states": st,
         "ms": cuda_ms(torch, kern, 20), "plain_ms": cuda_ms(torch, plain, 2),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
+        **device_times(torch, kern, None, 20),
         "shape": {"cells": cells, "bh": batch * heads, "nc": nc, "q": q,
                   "p": p, "n": n, "dtype": "bf16", "flops": flops,
                   "bytes": nbytes},

@@ -1,17 +1,32 @@
 #!/usr/bin/env python3
-"""Trace the continuous-batching path of the PyTorch port on one GPU.
+"""Trace the serving paths of the PyTorch port on one GPU.
 
-Serves the requests of ``chip_smoke.py``'s continuous phase (full-width
-internlm2-1.8b, bf16, random weights from seed 0; 16 requests with
-prompts of 32-3500 tokens from ``numpy.random.default_rng(0)`` and 32 new
-tokens each; batch 8, 4096-token budget, 16-token pages, 512-token
-chunks) once to warm up and once under ``torch.profiler``, and prints one
-JSON line: the serve's wall time untraced and traced, the device's busy
-share over the traced serve, the
-busy share and time of each step kind (``decode``, ``chunk``,
-``chunk+decode``), and device time by kernel group and by kernel.
-Tracing slows the host, not the device, so the device time is also set
-against the untraced serve's wall time.
+Serves full-width internlm2-1.8b (bf16, random weights from seed 0) on
+three paths, each once to warm up, once untraced and once under
+``torch.profiler``, and prints one JSON line a path:
+
+* ``continuous``: the requests of ``chip_smoke.py``'s continuous phase
+  (16 requests with prompts of 32-3500 tokens from
+  ``numpy.random.default_rng(0)`` and 32 new tokens each; batch 8,
+  4096-token budget, 16-token pages, 512-token chunks): B5 and B6;
+* ``speculative``: the same lengths as ``chip_smoke.py``'s speculative
+  phase (prompts that repeat one random 64-token span, seed 2), served
+  with ``spec_depth=4``: B7 on its verify steps;
+* ``wave``: ``chip_smoke.py``'s 4 x 2048 wave through ``ServingEngine``
+  (16 new tokens): B2 on the prefill, B4 on the decode steps.
+
+Each line holds the serve's wall time untraced and traced, the device's
+busy share over the traced serve, the busy share and time of each step
+kind (``decode``, ``chunk``, ``chunk+decode``, ``verify``; the wave's
+``prefill`` and ``wave_decode``), and device time by kernel group and by
+kernel. Kernels are grouped by name alone. The bf16 forms of B4 and B7
+and their merge passes have names of their own; the CUDA-core pass 1
+that B6 shares with B7's fp32 and int8 forms (``paged_split_kernel``)
+and the merge pass of every CUDA-core form (``split_combine_kernel``)
+are groups of their own, which on these bf16 paths hold B6 alone; the
+per-kernel list keeps each kernel's template arguments. Tracing slows
+the host, not the device, so the device time is also set against the
+untraced serve's wall time.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -28,10 +43,16 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 CONT = dict(batch_size=8, max_len=4096, page_size=16, chunk_size=512)
 REQUESTS, NEW_TOKENS, PROMPT_LENS = 16, 32, (32, 3500)
-# kernel name fragments -> group
+SPEC_DEPTH, SPEC_SPAN = 4, 64
+WAVE, WAVE_NEW_TOKENS, WAVE_MAX_LEN = (4, 2048), 16, 8256
+# kernel name fragments -> group, first match wins
 GROUPS = (("paged_prefill", "B5 paged_prefill"),
-          ("paged_decode", "B6 paged_decode"),
-          ("split_combine", "B6 paged_decode"),
+          ("paged_verify", "B7 paged_verify"),
+          ("paged_split", "paged_split (B6; B7 on fp32 and int8 pools)"),
+          ("split_combine", "split_combine (merge of the CUDA-core forms)"),
+          ("decode_bf16", "B4 decode"), ("decode_split", "B4 decode"),
+          ("mas_resident", "B1 mas_resident"),
+          ("mas_streamed", "B2 mas_streamed"), ("flash", "B3 flash"),
           ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
           ("cutlass", "matmul"), ("Memcpy", "copies"), ("Memset", "copies"))
 
@@ -54,55 +75,36 @@ def merged(intervals):
     return total
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+def marked(torch, fn, kind_of):
+    """``fn`` with each call inside a ``step:<kind>`` profiler range: its
+    device work ends before the next step starts (every step ends in a
+    device->host copy)."""
+    def step(*args, **kw):
+        with torch.profiler.record_function(f"step:{kind_of(*args, **kw)}"):
+            return fn(*args, **kw)
+    return step
 
-    if not torch.cuda.is_available():
-        print("error: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO / "src"))
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import _build
-    from repro_torch.models.api import build_model
-    from repro_torch.serving import ContinuousBatchingEngine, Request
 
-    _build.build_all()
-    cfg = get_arch("internlm2-1.8b")
-    model = build_model(cfg)
-    params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
-    rng = np.random.default_rng(0)
-    plens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=REQUESTS)
-    prompts = [rng.integers(3, cfg.vocab_size, size=(int(n),))
-               .astype(np.int32) for n in plens]
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS, eos_id=-1)
-            for i, p in enumerate(prompts)]
-    eng = ContinuousBatchingEngine(model, params, device="cuda", **CONT)
-    eng.serve(reqs)                       # warm-up
+def traced(torch, serve) -> tuple[float, float, dict]:
+    """``serve`` warmed up, timed untraced, then traced: (untraced wall s,
+    traced wall s, profile)."""
+    serve()                               # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.serve(reqs)                       # the untraced time
+    serve()                               # the untraced time
     torch.cuda.synchronize()
     untraced = time.perf_counter() - t0
-
-    # mark each step on the host timeline: its device work ends before the
-    # next step starts (every step ends in a device->host copy)
-    step = eng._step
-
-    def marked(cache, host, decode, chunk):
-        kind = ("decode" if chunk is None
-                else "chunk+decode" if decode else "chunk")
-        with torch.profiler.record_function(f"step:{kind}"):
-            return step(cache, host, decode, chunk)
-
-    eng._step = marked
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng.serve(reqs)
+        serve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return untraced, wall, prof
+
+
+def summary(torch, untraced: float, wall: float, prof) -> dict:
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     # device events, without the device-side copies of the step marks
@@ -128,29 +130,94 @@ def main() -> int:
         row["wall_ms_per_step"] = row["wall_ms"] / row["steps"]
         row["device_ms_per_step"] = row["device_ms"] / row["steps"]
     per_kernel: dict[str, list] = {}
+    groups: dict[str, list] = {}
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3
         entry = per_kernel.setdefault(e.name, [0, 0.0])
         entry[0] += 1
         entry[1] += ms
-    groups: dict[str, float] = {}
-    for name, (_, ms) in per_kernel.items():
-        groups[group_of(name)] = groups.get(group_of(name), 0.0) + ms
+        entry = groups.setdefault(group_of(e.name), [0, 0.0])
+        entry[0] += 1
+        entry[1] += ms
     device_ms = merged(spans) / 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), **CONT,
-        "requests": REQUESTS, "new_tokens": NEW_TOKENS,
+    return {
         "untraced_wall_s": untraced, "traced_wall_s": wall,
         "device_busy_ms": device_ms,
         "device_busy_share": device_ms / (wall * 1e3),
         # device time hardly changes under tracing, host time does
         "device_busy_share_of_untraced": device_ms / (untraced * 1e3),
         "kernel_launches": len(kernels), "by_step_kind": by_kind,
-        "device_ms_by_group": groups,
+        "device_ms_by_group": {g: {"launches": n, "ms": ms}
+                               for g, (n, ms) in groups.items()},
         "top_kernels": [{"name": n[:120], "count": c, "ms": ms}
                         for n, (c, ms) in top],
-    }))
+    }
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import (
+        ContinuousBatchingEngine,
+        Request,
+        ServingEngine,
+    )
+
+    _build.build_all()
+    cfg = get_arch("internlm2-1.8b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    plens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=REQUESTS)
+    prompts = [rng.integers(3, cfg.vocab_size, size=(int(n),))
+               .astype(np.int32) for n in plens]
+    span = np.random.default_rng(2).integers(3, cfg.vocab_size,
+                                             size=(SPEC_SPAN,))
+    spec_prompts = [np.resize(span, int(n)).astype(np.int32) for n in plens]
+
+    def requests(ps, new):
+        return [Request(rid=i, prompt=p, max_new_tokens=new, eos_id=-1)
+                for i, p in enumerate(ps)]
+
+    def paged_kind(cache, host, decode, chunk):
+        return ("decode" if chunk is None
+                else "chunk+decode" if decode else "chunk")
+
+    header = {"device": torch.cuda.get_device_name(0), **CONT,
+              "requests": REQUESTS, "new_tokens": NEW_TOKENS}
+    for path, ps, spec in (("continuous", prompts, None),
+                           ("speculative", spec_prompts, SPEC_DEPTH)):
+        eng = ContinuousBatchingEngine(model, params, device="cuda",
+                                       spec_depth=spec, **CONT)
+        eng._step = marked(torch, eng._step, paged_kind)
+        eng._verify = marked(torch, eng._verify, lambda *a: "verify")
+        out = traced(torch, lambda: eng.serve(requests(ps, NEW_TOKENS)))
+        print(json.dumps({"path": path, **header, "spec_depth": spec,
+                          **summary(torch, *out)}), flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+    batch, n = WAVE
+    wave = [rng.integers(3, cfg.vocab_size, size=(n,)).astype(np.int32)
+            for _ in range(batch)]
+    eng = ServingEngine(model, params, max_len=WAVE_MAX_LEN,
+                        batch_size=batch, device="cuda")
+    eng._prefill = marked(torch, eng._prefill, lambda *a: "prefill")
+    eng._decode = marked(torch, eng._decode, lambda *a: "wave_decode")
+    out = traced(torch, lambda: eng.serve(requests(wave, WAVE_NEW_TOKENS)))
+    print(json.dumps({"path": "wave", "device": header["device"],
+                      "batch": batch, "prompt": n,
+                      "new_tokens": WAVE_NEW_TOKENS,
+                      **summary(torch, *out)}), flush=True)
     return 0
 
 

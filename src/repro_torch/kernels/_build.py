@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``. Libraries go to ``build/kernels/``
-at the repository root, named by a hash of the sources and flags, so a
+at the repository root, named by a hash of the source, of every shared
+header (``csrc/*.cuh``: ``common.cuh``, ``mma.cuh``, ``flash_tile.cuh``,
+``paged_split.cuh``, ``decode_tc.cuh``) and of the flags, so a
 changed source is rebuilt and an unchanged one is reused. Nothing is
 built when a module is imported: the first launch of a kernel builds
 its library, and ``build_all`` builds every library at once, one
@@ -55,11 +57,13 @@ SIGNATURES = {
         "flash_attention_bf16_launch": [P, P, P, P] + [I] * 9 + [F, P],
     },
     "decode_attention": {
-        # q, k, v, k_scale, v_scale, kv_lens, o, m_part, l_part, acc_part,
-        # bh, G, s_len, E, n_split, tiles_per_split, sm_scale, dtype,
-        # quantized, stream
-        "decode_attention_launch":
-            [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],
+        # q, k, v, kv_lens, o, m_part, l_part, acc_part, bh, G, s_len, E,
+        # n_split, tiles_per_split, sm_scale, stream
+        "decode_bf16_launch": [P] * 8 + [I] * 6 + [F, P],
+        "decode_fp32_launch": [P] * 8 + [I] * 6 + [F, P],
+        # the same with k_scale, v_scale after v, and the query's dtype
+        # before the stream
+        "decode_int8_launch": [P] * 10 + [I] * 6 + [F, I, P],
     },
     "paged_decode_attention": {
         # q, k_pages, v_pages, k_scales, v_scales, table, kv_lens, o,
@@ -78,12 +82,14 @@ SIGNATURES = {
         "paged_prefill_bf16_launch": [P] * 7 + [I] * 8 + [F, I, P],
     },
     "paged_verify_attention": {
-        # q, k_pages, v_pages, k_scales, v_scales, table, kv_lens,
-        # q_starts, o, m_part, l_part, acc_part, B, Hkv, R, G, n_pages,
-        # page_size, max_pages, E, n_split, tiles_per_split, sm_scale,
-        # dtype, quantized, stream
-        "paged_verify_attention_launch":
-            [P] * 12 + [I] * 10 + [F, I, I, P],
+        # q, k_pages, v_pages, table, kv_lens, q_starts, o, m_part, l_part,
+        # acc_part, B, Hkv, R, G, n_pages, page_size, max_pages, E, n_split,
+        # tiles_per_split, sm_scale, stream
+        "paged_verify_bf16_launch": [P] * 10 + [I] * 10 + [F, P],
+        "paged_verify_fp32_launch": [P] * 10 + [I] * 10 + [F, P],
+        # the same with k_scales, v_scales after v_pages, and the query's
+        # dtype before the stream
+        "paged_verify_int8_launch": [P] * 12 + [I] * 10 + [F, I, P],
     },
     "ssd_scan": {
         # x, a, b, c, y, states, cells, Q, N, P, dtype, stream

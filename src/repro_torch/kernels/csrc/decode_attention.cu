@@ -8,29 +8,34 @@
 // group attend to the dense cache rows [0, kv_len), kv_len read from a
 // device array (one value per (b, kv head), so a batch may be ragged).
 // Pass 1 splits the live KV range over gridDim.x blocks; each walks its
-// KV tiles with an online max/sum exactly as the TPU kernel walks its
-// grid, skipping tiles at or past kv_len (no load), and writes a partial
+// KV rows with an online max/sum exactly as the TPU kernel walks its
+// grid, skipping rows at or past kv_len (no load), and writes a partial
 // (m, l, acc). Pass 2 merges the partials: M = max m, L = sum l e^(m-M),
 // O = sum acc e^(m-M) / L, with L == 0 guarded as in the TPU kernel.
-// An int8 cache is read as 16-byte vectors, four K and four V loads of a
-// thread in flight at once, and converted to fp32 in registers while a
-// tile is staged; the row's K scale multiplies its
-// score column after q.k and sm_scale, its V scale folds into P after the
-// row sum and before the P.V product, in the TPU kernel's order.
 //
 // What bounds it on an H100: one query row per head reads every live K
-// and V row once, about one multiply-add per byte, so its floor is
-// device-memory bandwidth. The split across blocks puts more blocks in
-// flight than B * Hkv alone (far below the 132 SMs), rows past kv_len are
-// never loaded, and each K/V tile is loaded once per block with 8- or
-// 16-byte coalesced reads and used by all G query rows from shared
-// memory. This first version stages a tile with one load after another
-// per thread and no second tile in flight, so load latency, not
-// bandwidth, sets its time; double-buffered staging is later work. An
-// int8 cache halves the bytes of a bf16 one (plus one 4-byte scale a K or
-// V row); its staging issues its loads before it converts any, so a tile
-// waits on fewer round trips to memory than a bf16 tile does.
+// and V row once, about G/2 multiply-adds a byte, so its floor is
+// device-memory bandwidth. Three forms, chosen by the caller by dtype
+// (decode_attention.py's entry_point), none falling back to another:
+// - bf16 (decode_bf16_launch): the tensor-core design of decode_tc.cuh.
+//   Short splits (decode_split_plan: 1-4 tiles a block) spread the longest
+//   sequence of a ragged batch over every SM; each warp keeps a 3-slot
+//   cp.async ring of 16-row K/V slices of a (b, kv head)'s contiguous rows
+//   in flight and its own online softmax, with no __syncthreads a tile;
+//   S and P V are mma.sync products with the G query rows padded to 16
+//   and P as bf16 hi + lo. Its merge pass is decode_bf16_merge_kernel.
+// - fp32 (decode_fp32_launch) and int8 caches (decode_int8_launch, fp32
+//   or bf16 queries): the CUDA-core kernel below, on split_plan's longer
+//   splits, held to the plain version at 3e-5 in fp32. It stages a tile
+//   with one load after another per thread and no second tile in flight,
+//   so load latency, not bandwidth, sets its time. An int8 cache is read
+//   as 16-byte vectors, four K and four V loads of a thread in flight at
+//   once, and converted to fp32 in registers while a tile is staged; the
+//   row's K scale multiplies its score column after q.k and sm_scale, its
+//   V scale folds into P after the row sum and before the P.V product, in
+//   the TPU kernel's order.
 #include "common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
@@ -206,22 +211,122 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaGetLastError();
 }
 
+// The bf16 form: pass 1 on the tensor cores (decode_tc.cuh) over split
+// sp of one (b, kv head)'s contiguous cache rows ...
+template <int E>
+__global__ void __launch_bounds__(dtc::THREADS)
+decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const int* __restrict__ kv_lens,
+                   float* __restrict__ m_part, float* __restrict__ l_part,
+                   float* __restrict__ acc_part, int G, int s_len,
+                   int tiles_per_split, float scale_log2) {
+  const int sp = blockIdx.x, bh = blockIdx.y;
+  const int kv_len = min(kv_lens[bh], s_len);
+  const int row0 = sp * tiles_per_split * KV_TILE;
+  if (row0 >= kv_len) return;   // a dead split: the merge stops before it
+  const size_t part = (size_t)bh * gridDim.x + sp;
+  const size_t kv_off = (size_t)bh * s_len * E;
+  dtc::split_block<E, 1, false>(
+      q + (size_t)bh * G * E, k + kv_off, v + kv_off, DenseRows{E}, kv_len,
+      kv_len - 1, G, 1, row0, tiles_per_split, scale_log2, m_part + part * G,
+      l_part + part * G, acc_part + part * G * E);
+}
+
+// ... and its merge pass, one block per (b, kv head).
+template <int E>
+__global__ void __launch_bounds__(dtc::MERGE_THREADS)
+decode_bf16_merge_kernel(const float* __restrict__ m_part,
+                         const float* __restrict__ l_part,
+                         const float* __restrict__ acc_part,
+                         const int* __restrict__ kv_lens,
+                         __nv_bfloat16* __restrict__ o, int G, int s_len,
+                         int n_split, int span) {
+  const int bh = blockIdx.x;
+  const size_t part = (size_t)bh * n_split;
+  dtc::merge_splits<E>(m_part + part * G, l_part + part * G,
+                       acc_part + part * G * E, o + (size_t)bh * G * E,
+                       min(kv_lens[bh], s_len), G, n_split,
+                       span);
+}
+
+template <int E>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const int* kv_lens, void* o, float* m_part, float* l_part,
+                float* acc_part, int bh, int G, int s_len, int n_split,
+                int tiles_per_split, float sm_scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr int smem = dtc::smem_bytes<E, 1>();
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_bf16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_bf16_kernel<E><<<dim3(n_split, bh), dtc::THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), kv_lens, m_part, l_part, acc_part, G,
+      s_len, tiles_per_split, sm_scale * dtc::LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_bf16_merge_kernel<E><<<bh, dtc::MERGE_THREADS, 0, stream>>>(
+      m_part, l_part, acc_part, kv_lens, static_cast<bf16*>(o), G, s_len,
+      n_split, tiles_per_split * KV_TILE);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// q: (bh, G, E); k, v: (bh, s_len, E) of q's type, or int8 when
-// `quantized` with ks, vs the (bh, s_len) fp32 per-row scales; kv_lens:
-// (bh,) int32 on the device; o: (bh, G, E). Scratch: m_part, l_part (bh, n_split, G) and acc_part
-// (bh, n_split, G, E), fp32. Split sp covers KV tiles
+// q: (bh, G, E); k, v: (bh, s_len, E) of q's type, or int8 with ks, vs
+// the (bh, s_len) fp32 per-row scales; kv_lens: (bh,) int32 on the
+// device; o: (bh, G, E). Scratch: m_part, l_part (bh, n_split, G) and
+// acc_part (bh, n_split, G, E), fp32. Split sp covers KV tiles
 // [sp * tiles_per_split, (sp + 1) * tiles_per_split). Contiguous.
-extern "C" int decode_attention_launch(const void* q, const void* k,
-                                       const void* v, const void* ks,
-                                       const void* vs, const void* kv_lens,
-                                       void* o, void* m_part, void* l_part,
-                                       void* acc_part, int bh, int G,
-                                       int s_len, int E, int n_split,
-                                       int tiles_per_split, float sm_scale,
-                                       int dtype, int quantized,
-                                       void* stream) {
+
+// bf16 q and caches, on the tensor cores: E 64 or 128, G <= 16, 16-byte
+// aligned rows.
+extern "C" int decode_bf16_launch(const void* q, const void* k,
+                                  const void* v, const void* kv_lens,
+                                  void* o, void* m_part, void* l_part,
+                                  void* acc_part, int bh, int G, int s_len,
+                                  int E, int n_split, int tiles_per_split,
+                                  float sm_scale, void* stream) {
+  if (G > 16 || (E != 64 && E != 128)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lens = static_cast<const int*>(kv_lens);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  float* ap = static_cast<float*>(acc_part);
+  return E == 128 ? launch_bf16<128>(q, k, v, lens, o, mp, lp, ap, bh, G,
+                                     s_len, n_split, tiles_per_split,
+                                     sm_scale, s)
+                  : launch_bf16<64>(q, k, v, lens, o, mp, lp, ap, bh, G,
+                                    s_len, n_split, tiles_per_split,
+                                    sm_scale, s);
+}
+
+// fp32 q and caches, on the CUDA cores.
+extern "C" int decode_fp32_launch(const void* q, const void* k,
+                                  const void* v, const void* kv_lens,
+                                  void* o, void* m_part, void* l_part,
+                                  void* acc_part, int bh, int G, int s_len,
+                                  int E, int n_split, int tiles_per_split,
+                                  float sm_scale, void* stream) {
+  return launch<float, float>(
+      q, k, v, nullptr, nullptr, static_cast<const int*>(kv_lens), o,
+      static_cast<float*>(m_part), static_cast<float*>(l_part),
+      static_cast<float*>(acc_part), bh, G, s_len, E, n_split,
+      tiles_per_split, sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+// int8 caches with their per-row scales, fp32 (dtype 0) or bf16 (dtype 1)
+// q, on the CUDA cores.
+extern "C" int decode_int8_launch(const void* q, const void* k,
+                                  const void* v, const void* ks,
+                                  const void* vs, const void* kv_lens,
+                                  void* o, void* m_part, void* l_part,
+                                  void* acc_part, int bh, int G, int s_len,
+                                  int E, int n_split, int tiles_per_split,
+                                  float sm_scale, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_lens);
   float* mp = static_cast<float*>(m_part);
@@ -230,10 +335,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
 #define REPRO_DECODE_ARGS                                                 \
   q, k, v, ks, vs, lens, o, mp, lp, ap, bh, G, s_len, E, n_split,         \
       tiles_per_split, sm_scale, s
-  if (dtype == 0)
-    return quantized ? launch<float, int8_t>(REPRO_DECODE_ARGS)
-                     : launch<float, float>(REPRO_DECODE_ARGS);
-  return quantized ? launch<__nv_bfloat16, int8_t>(REPRO_DECODE_ARGS)
-                   : launch<__nv_bfloat16, __nv_bfloat16>(REPRO_DECODE_ARGS);
+  return dtype == 0 ? launch<float, int8_t>(REPRO_DECODE_ARGS)
+                    : launch<__nv_bfloat16, int8_t>(REPRO_DECODE_ARGS);
 #undef REPRO_DECODE_ARGS
 }

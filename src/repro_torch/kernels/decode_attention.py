@@ -3,10 +3,20 @@
 Port of ``repro/kernels/decode_attention.py`` (``decode_attention_flat``).
 For each (b, kv head) the G query heads of its GQA group attend to the
 dense cache rows [0, kv_len), with one ``kv_len`` per row of the batch
-read from a device tensor. The CUDA kernel (``csrc/decode_attention.cu``)
-splits the KV tiles over ``n_split`` blocks per (b, kv head); each walks
-its tiles with an online max and sum, skipping tiles at or past
+read from a device tensor. The CUDA kernels (``csrc/decode_attention.cu``)
+split the KV tiles over ``n_split`` blocks per (b, kv head); each walks
+its tiles with an online max and sum, skipping rows at or past
 ``kv_len``, and a second pass merges the partial (m, l, acc) triples.
+
+Three forms, chosen by ``entry_point`` from the dtypes, with nothing
+falling back from one to another:
+
+* bf16 q and caches (``decode_bf16_launch``, head dim 64 or 128, G <= 16):
+  the tensor-core design of ``csrc/decode_tc.cuh`` on short splits of
+  1-4 tiles (``decode_split_plan``), so the longest sequence of a ragged
+  batch spreads over every SM; a bf16 shape it does not take raises.
+* fp32 q and caches (``decode_fp32_launch``) and int8 caches
+  (``decode_int8_launch``): the CUDA-core kernel on ``split_plan``.
 
 An int8 cache carries one fp32 scale per row (``k_scale``/``v_scale``,
 (B·Hkv, S)): the K scale multiplies the score column after q·k, the V
@@ -57,6 +67,12 @@ def check_scales(k, v, k_scale, v_scale, scale_shape) -> bool:
     return True
 
 
+# The bf16 forms of B4 and B7: the head dims they are built for, and the
+# most 64-row tiles a split of theirs takes.
+BF16_HEAD_DIMS = (64, 128)
+TC_MAX_TILES = 4
+
+
 def split_plan(bh: int, n_kv: int, blk_kv: int = KV_TILE) -> tuple[int, int]:
     """(n_split, tiles_per_split) covering ``n_kv`` cache rows."""
     n_tiles = max(1, -(-n_kv // blk_kv))
@@ -64,6 +80,44 @@ def split_plan(bh: int, n_kv: int, blk_kv: int = KV_TILE) -> tuple[int, int]:
     tiles_per_split = -(-n_tiles // n_split)
     n_split = -(-n_tiles // tiles_per_split)
     return n_split, tiles_per_split
+
+
+def decode_split_plan(dtype, bh: int, n_kv: int) -> tuple[int, int]:
+    """(n_split, tiles_per_split) covering ``n_kv`` rows of ``bh`` (b, kv
+    head) rows of a cache (dense or paged) of element type ``dtype``. For
+    bf16, the short splits of B4's and B7's tensor-core forms: as few
+    tiles a block as keep the grid near ``TARGET_BLOCKS`` blocks, at least
+    1 and at most ``TC_MAX_TILES``. For fp32 and int8, ``split_plan``."""
+    if dtype != torch.bfloat16:
+        return split_plan(bh, n_kv)
+    n_tiles = max(1, -(-n_kv // KV_TILE))
+    tps = min(TC_MAX_TILES, max(1, -(-n_tiles * bh // TARGET_BLOCKS)))
+    return -(-n_tiles // tps), tps
+
+
+def entry_point(dtype, quantized: bool) -> str:
+    """The C function a CUDA q of ``dtype`` launches: the CUDA-core kernel
+    for int8 caches, else the tensor-core kernel for bf16 and the CUDA-core
+    kernel for fp32."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the decode kernel takes float32 or bfloat16, "
+                        f"not {dtype}")
+    if quantized:
+        return "decode_int8_launch"
+    return ("decode_bf16_launch" if dtype == torch.bfloat16
+            else "decode_fp32_launch")
+
+
+def check_bf16(group: int, e: int, *tensors) -> None:
+    """Raise unless the tensor-core form of B4 or B7 takes GQA groups of
+    ``group`` heads of head dim ``e`` in these tensors."""
+    if e not in BF16_HEAD_DIMS or group > MAX_G:
+        raise ValueError(f"the bf16 decode kernels take E in "
+                         f"{BF16_HEAD_DIMS} and G <= {MAX_G}, not E={e}, "
+                         f"G={group}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bf16 decode kernels copy 16-byte chunks: "
+                         "their operands must be 16-byte aligned")
 
 
 def _split_rows(x: torch.Tensor, n_split: int, span: int) -> torch.Tensor:
@@ -147,8 +201,9 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
 
     ``kv_lens`` is a (BH,) int32 tensor on q's device. ``max_kv_len``, when
     the caller knows it on the host, sizes the split to the live rows
-    instead of the whole cache. A CUDA tensor launches B4; a CPU tensor
-    runs the plain version.
+    instead of the whole cache; ``decode_split_plan`` plans it for the
+    form the dtypes choose. A CUDA tensor launches B4; a CPU tensor runs
+    the plain version with the same split.
     """
     bh, g, e = q.shape
     s_len = k.shape[1]
@@ -160,7 +215,7 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
             f"kv_lens must be ({bh},), got {tuple(kv_lens.shape)}")
     quantized = check_scales(k, v, k_scale, v_scale, (bh, s_len))
     n_kv = s_len if max_kv_len is None else min(max_kv_len, s_len)
-    n_split, tps = split_plan(bh, n_kv)
+    n_split, tps = decode_split_plan(k.dtype, bh, n_kv)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_lens, n_split=n_split,
                                       tiles_per_split=tps, sm_scale=sm_scale,
@@ -177,6 +232,9 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
                          "unless the caches are int8")
     if kv_lens.dtype != torch.int32 or kv_lens.device != q.device:
         raise ValueError("kv_lens must be int32 on q's device")
+    name = entry_point(q.dtype, quantized)
+    if name == "decode_bf16_launch":
+        check_bf16(g, e, q, k, v)
     lib = _build.library("decode_attention")
     o = torch.empty_like(q)
     m_part = torch.empty((bh, n_split, g), dtype=torch.float32,
@@ -185,13 +243,15 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
     acc_part = torch.empty((bh, n_split, g, e), dtype=torch.float32,
                            device=q.device)
     scale = (e ** -0.5) if sm_scale is None else sm_scale
-    err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scale),
-        _build.ptr(v_scale), kv_lens.data_ptr(), o.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), bh, g,
-        s_len, e, n_split,
-        tps, float(scale), _build.dtype_code(q.dtype), int(quantized),
-        _build.stream_handle(q.device))
-    _build.check(lib, err, "decode_attention_launch")
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    if quantized:
+        args += [k_scale.data_ptr(), v_scale.data_ptr()]
+    args += [kv_lens.data_ptr(), o.data_ptr(), m_part.data_ptr(),
+             l_part.data_ptr(), acc_part.data_ptr(), bh, g, s_len, e,
+             n_split, tps, float(scale)]
+    if quantized:
+        args.append(_build.dtype_code(q.dtype))
+    err = getattr(lib, name)(*args, _build.stream_handle(q.device))
+    _build.check(lib, err, name)
     LAUNCHES["decode_int8" if quantized else "decode"] += 1
     return o

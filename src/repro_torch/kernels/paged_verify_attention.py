@@ -13,16 +13,26 @@ the candidate rows actually written, which may stop short of k; the
 surplus rows then sit past ``kv_len``, attend the whole live context and
 are dropped by the host. The mask treats them like any other row.
 
-The CUDA kernel (``csrc/paged_verify_attention.cu``) is B6's split-KV
-design (``csrc/paged_split.cuh``: grid (n_split, B·Hkv), the split
-planned over the table's capacity, gathered 64-row tiles, a merge pass)
-with B5's banding: tiles wholly below ``min(q_starts + 1, kv_len)`` run
-unmasked, tiles that straddle the block's diagonal or the kv tail take
-the fused select with row position ``q_starts + i // G``, dead tiles are
-never loaded. ``kv_len == 0`` gives zeros; with k = 1 the output is B6's.
-Int8 pools carry per-page (Hkv, P) fp32 scales, read per tile column
-through the table. The TPU's padding of the group to 8 rows does not
-carry over.
+Three forms (``csrc/paged_verify_attention.cu``), chosen by
+``entry_point`` from the dtypes, with nothing falling back from one to
+another:
+
+* bf16 q and pools (``paged_verify_bf16_launch``, head dim 64 or 128, at
+  most 32 rows): the tensor-core design of ``csrc/decode_tc.cuh``, shared
+  with B4's bf16 form, on ``decode_split_plan``'s short splits over the
+  table's capacity; a bf16 shape it does not take raises.
+* fp32 q and pools (``paged_verify_fp32_launch``) and int8 pools
+  (``paged_verify_int8_launch``): B6's CUDA-core split-KV design
+  (``csrc/paged_split.cuh``) on ``split_plan``, so that with k = 1 the
+  output is B6's exactly.
+
+Both split the table's capacity (no host sync) and band the tiles as B5
+does: tiles wholly below ``min(q_starts + 1, kv_len)`` run unmasked,
+tiles that straddle the block's diagonal or the kv tail take the fused
+select with row position ``q_starts + i // G``, dead tiles are never
+loaded. ``kv_len == 0`` gives zeros. Int8 pools carry per-page (Hkv, P)
+fp32 scales, read per tile column through the table. The TPU's padding
+of the group to 8 rows does not carry over.
 
 ``paged_verify_attention_plain`` computes the same function in PyTorch:
 B6's plain version (the gather, then B4's split, tile order and merge)
@@ -35,7 +45,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import MAX_E, split_plan
+from repro_torch.kernels.decode_attention import (
+    MAX_E,
+    check_bf16,
+    decode_split_plan,
+)
 from repro_torch.kernels.paged_decode_attention import (
     check_paged,
     paged_decode_attention_plain,
@@ -46,6 +60,19 @@ from repro_torch.kernels.paged_decode_attention import (
 LAUNCHES = {"paged_verify": 0, "paged_verify_int8": 0}
 
 MAX_ROWS = 32     # k·G query rows per (b, kv head) the kernel holds
+
+
+def entry_point(dtype, quantized: bool) -> str:
+    """The C function a CUDA q of ``dtype`` launches: the CUDA-core kernel
+    for int8 pools, else the tensor-core kernel for bf16 and the CUDA-core
+    kernel for fp32."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the verify kernel takes float32 or bfloat16, "
+                        f"not {dtype}")
+    if quantized:
+        return "paged_verify_int8_launch"
+    return ("paged_verify_bf16_launch" if dtype == torch.bfloat16
+            else "paged_verify_fp32_launch")
 
 
 def row_positions(q_starts: torch.Tensor, spec: int,
@@ -99,7 +126,8 @@ def paged_verify_attention_flat(q, k_pages, v_pages, page_table, kv_lens,
         raise ValueError(f"kv_lens and q_starts must be ({b},), got "
                          f"{tuple(kv_lens.shape)}, {tuple(q_starts.shape)}")
     max_pages = page_table.shape[1]
-    n_split, tps = split_plan(b * hkv, max_pages * page_size)
+    n_split, tps = decode_split_plan(k_pages.dtype, b * hkv,
+                                     max_pages * page_size)
     if q.device.type == "cpu":
         return paged_verify_attention_plain(
             q, k_pages, v_pages, page_table, kv_lens, q_starts, spec=spec,
@@ -111,6 +139,9 @@ def paged_verify_attention_flat(q, k_pages, v_pages, page_table, kv_lens,
         raise ValueError(f"unsupported verify shape: {rows} rows, E={e}")
     quantized = check_paged(q, k_pages, v_pages, page_table, k_scales,
                             v_scales, kv_lens, q_starts)
+    name = entry_point(q.dtype, quantized)
+    if name == "paged_verify_bf16_launch":
+        check_bf16(rows // spec, e, q, k_pages, v_pages)
     lib = _build.library("paged_verify_attention")
     o = torch.empty_like(q)
     m_part = torch.empty((b * hkv, n_split, rows), dtype=torch.float32,
@@ -119,14 +150,16 @@ def paged_verify_attention_flat(q, k_pages, v_pages, page_table, kv_lens,
     acc_part = torch.empty((b * hkv, n_split, rows, e), dtype=torch.float32,
                            device=q.device)
     scale = (e ** -0.5) if sm_scale is None else sm_scale
-    err = lib.paged_verify_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        _build.ptr(k_scales), _build.ptr(v_scales), page_table.data_ptr(),
-        kv_lens.data_ptr(), q_starts.data_ptr(), o.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), b, hkv,
-        rows, rows // spec, n_pages, page_size, max_pages, e, n_split, tps,
-        float(scale), _build.dtype_code(q.dtype), int(quantized),
-        _build.stream_handle(q.device))
-    _build.check(lib, err, "paged_verify_attention_launch")
+    args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    if quantized:
+        args += [k_scales.data_ptr(), v_scales.data_ptr()]
+    args += [page_table.data_ptr(), kv_lens.data_ptr(), q_starts.data_ptr(),
+             o.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+             acc_part.data_ptr(), b, hkv, rows, rows // spec, n_pages,
+             page_size, max_pages, e, n_split, tps, float(scale)]
+    if quantized:
+        args.append(_build.dtype_code(q.dtype))
+    err = getattr(lib, name)(*args, _build.stream_handle(q.device))
+    _build.check(lib, err, name)
     LAUNCHES["paged_verify_int8" if quantized else "paged_verify"] += 1
     return o

@@ -11,9 +11,10 @@ tensors (atol 3e-5: fp32 sums in another order), the int8 branches of
 B4-B7 on int8 caches with their scales, and the wave, continuous and
 speculative engines serve a smoke model on the card with the same tokens
 as on the CPU, on bf16-free fp32 and on int8 caches. The bf16 forms of
-B1, B2, B3 and B5 (tensor cores; B5 on bf16 and int8 pools) are held per
-output row within 4e-3 of the row's L2 norm, the limit ``chip_smoke.py``
-uses, and a planted zeroed V tile, V page or V scale must break it. B8 (the SSD
+B1, B2, B3, B5 (tensor cores; B5 on bf16 and int8 pools), B4 and B7
+(tensor cores, on their own short splits) are held per output row within
+4e-3 of the row's L2 norm, the limit ``chip_smoke.py`` uses, and a
+planted zeroed V tile, V page or V scale must break it. B8 (the SSD
 intra-chunk step) and the chunked scan around it are held row by row
 (L2 error within 1e-4 of the row's norm: y grows with the rows a decay
 lets through, so an absolute limit does not fit), at a full-width cell
@@ -312,7 +313,7 @@ def test_decode_kernel_matches_plain(cuda):
     q, k, v = _rand(g, 4, 4, 128), _rand(g, 4, 500, 128), _rand(g, 4, 500, 128)
     lens = torch.tensor([0, 64, 65, 500], dtype=torch.int32, device=cuda)
     got = dec.decode_attention_flat(q, k, v, lens)
-    n_split, tps = dec.split_plan(4, 500)
+    n_split, tps = dec.decode_split_plan(k.dtype, 4, 500)
     want = dec.decode_attention_plain(q, k, v, lens, n_split=n_split,
                                       tiles_per_split=tps)
     torch.cuda.synchronize()
@@ -326,12 +327,183 @@ def test_decode_kernel_int8_matches_plain(cuda):
                         for _ in range(2))
     lens = torch.tensor([0, 64, 65, 500], dtype=torch.int32, device=cuda)
     got = dec.decode_attention_flat(q, k, v, lens, k_scale=ks, v_scale=vs)
-    n_split, tps = dec.split_plan(4, 500)
+    n_split, tps = dec.decode_split_plan(k.dtype, 4, 500)
     want = dec.decode_attention_plain(q, k, v, lens, n_split=n_split,
                                       tiles_per_split=tps, k_scale=ks,
                                       v_scale=vs)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= FP32_ATOL
+
+
+@pytest.mark.parametrize("e", [64, 128])
+@pytest.mark.parametrize("group", [2, 4, 8])
+def test_decode_bf16_kernel_matches_plain_per_row(cuda, e, group):
+    """B4's tensor-core form on a ragged batch: kv_len 0, 1, a tile edge
+    (64) and one row past it, lengths mid-cache, and the cache's capacity,
+    on a cache long enough for four tiles a split (each warp walks four
+    slices through its ring of three slots); a random V, the fault a
+    zeroed V tile."""
+    g = torch.Generator(device=cuda).manual_seed(80 + e + group)
+    s_len, kv = 6400, [0, 1, 64, 65, 1000, 3001, 6399, 6400]
+    bh = len(kv)
+    q = _bf16(g, bh, group, e)
+    k, v = _bf16(g, bh, s_len, e), _bf16(g, bh, s_len, e)
+    lens = torch.tensor(kv, dtype=torch.int32, device=cuda)
+    n_split, tps = dec.decode_split_plan(torch.bfloat16, bh, s_len)
+    assert tps == dec.TC_MAX_TILES
+    ops.reset_launch_counts()
+    got = dec.decode_attention_flat(q, k, v, lens)
+    assert ops.launch_counts()["decode"] == 1
+
+    def plain(v=v):
+        return dec.decode_attention_plain(q, k, v, lens, n_split=n_split,
+                                          tiles_per_split=tps)
+
+    faulty = plain(_zero_v_tile(v, 40))
+    torch.cuda.synchronize()
+    assert float(got[0].abs().max()) == 0.0       # kv_len 0 gives zeros
+    _held_per_row(got, plain(), faulty)
+
+
+@pytest.mark.parametrize("kv_len", [1, 271, 2063])
+def test_decode_bf16_kernel_through_ops_at_wave_lengths(cuda, kv_len):
+    """B4's bf16 form as the wave engine calls it: one kv_len for the whole
+    batch, known on the host, so the split fits the live rows (one tile a
+    block at the first wave's lengths)."""
+    g = torch.Generator(device=cuda).manual_seed(kv_len)
+    b, hq, hkv, e, s_len = 4, 16, 8, 128, 2112
+    q = _bf16(g, b, hq, e)
+    k, v = _bf16(g, b, hkv, s_len, e), _bf16(g, b, hkv, s_len, e)
+    n_split, tps = dec.decode_split_plan(torch.bfloat16, b * hkv, kv_len)
+    lens = torch.full((b * hkv,), kv_len, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, kv_len)
+
+    def plain(v=v):
+        return dec.decode_attention_plain(
+            q.view(b * hkv, hq // hkv, e), k.view(b * hkv, s_len, e),
+            v.reshape(b * hkv, s_len, e), lens, n_split=n_split,
+            tiles_per_split=tps).view(b, hq, e)
+
+    vz = v.clone()                                # the last live tile
+    vz[:, :, (kv_len - 1) // 64 * 64:(kv_len - 1) // 64 * 64 + 64] = 0
+    faulty = plain(vz)
+    torch.cuda.synchronize()
+    _held_per_row(got, plain(), faulty)
+
+
+@pytest.mark.parametrize("e", [64, 128])
+@pytest.mark.parametrize("spec,group", [(1, 2), (4, 2), (8, 2), (3, 4),
+                                        (8, 4), (2, 8), (4, 8)])
+def test_paged_verify_bf16_kernel_matches_plain_per_row(cuda, e, spec,
+                                                        group):
+    """B7's tensor-core form: k 1-8 positions of G 2, 4 and 8 heads (k G up
+    to 32 rows, two m16 tiles), on shuffled 16-row pages of a table long
+    enough for four tiles a split. Slots: a start mid-page, a block
+    straddling a 64-row tile, kv_len 0, one written row of k, one short of
+    k (rows past kv_len see the live context), and blocks ending deep in
+    the table and at its capacity; a random V, the fault a zeroed V page."""
+    g = torch.Generator(device=cuda).manual_seed(90 + e + 10 * spec + group)
+    b, hkv, page, max_pages = 8, 2, 16, 256
+    n_pages, cap = b * max_pages + 1, max_pages * page
+    k, v = (_bf16(g, hkv, n_pages, page, e) for _ in range(2))
+    table = (torch.randperm(n_pages - 1, generator=g, device=cuda) + 1).view(
+        b, max_pages).to(torch.int32).contiguous()
+    starts = torch.tensor([5, 62, 0, 63, 1000, 2047, cap - spec, 3000],
+                          dtype=torch.int32, device=cuda)
+    rows = torch.tensor([spec, spec, 0, 1, max(spec - 1, 1), spec, spec,
+                         spec], dtype=torch.int32, device=cuda)
+    lens = starts + rows
+    q = _bf16(g, b, hkv, spec * group, e)
+    n_split, tps = dec.decode_split_plan(torch.bfloat16, b * hkv, cap)
+    assert tps == dec.TC_MAX_TILES
+    ops.reset_launch_counts()
+    got = pver.paged_verify_attention_flat(q, k, v, table, lens, starts,
+                                           spec=spec)
+    assert ops.launch_counts()["paged_verify"] == 1
+
+    def plain(v=v):
+        return pver.paged_verify_attention_plain(
+            q, k, v, table, lens, starts, spec=spec, n_split=n_split,
+            tiles_per_split=tps)
+
+    vz = v.clone()
+    vz[:, int(table[7, 100])] = 0                 # rows 1600-1615 of slot 7
+    faulty = plain(vz)
+    torch.cuda.synchronize()
+    assert float(got[2].abs().max()) == 0.0       # kv_len 0 gives zeros
+    _held_per_row(got, plain(), faulty)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "verify"])
+def test_bf16_decode_kernels_repeat_bit_for_bit(cuda, kernel):
+    """B4's and B7's tensor-core forms merge their warps and splits in a
+    fixed order, so 300 calls on one input give one output bit for bit;
+    a race in a warp's ring or in the merge of the live splits would not.
+    The shapes are ``chip_smoke.py``'s: B4's ragged batch (kv_lens 1, 300,
+    2060, 8207 of an 8256-row cache, 16 query and 8 kv heads of 128) and
+    B7's eight slots (k 4, G 2) on an (8, 2049, 16, 128) pool."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    hkv, e = 8, 128
+    if kernel == "decode":
+        s_len, kv = 8256, [1, 300, 2060, 8207]
+        q = _bf16(g, len(kv) * hkv, 2, e)
+        k, v = (_bf16(g, len(kv) * hkv, s_len, e) for _ in range(2))
+        lens = torch.tensor(kv, dtype=torch.int32,
+                            device=cuda).repeat_interleave(hkv)
+
+        def call():
+            return dec.decode_attention_flat(q, k, v, lens)
+    else:
+        b, page, max_pages, spec = 8, 16, 256, 4
+        k, v = (_bf16(g, hkv, b * max_pages + 1, page, e) for _ in range(2))
+        table = (torch.randperm(b * max_pages, generator=g, device=cuda)
+                 + 1).view(b, max_pages).to(torch.int32).contiguous()
+        lens = torch.tensor([1, 17, 300, 1000, 1777, 2500, 3100, 3600],
+                            dtype=torch.int32, device=cuda)
+        starts = (lens - lens.clamp(max=spec)).contiguous()
+        q = _bf16(g, b, hkv, spec * 2, e)
+
+        def call():
+            return pver.paged_verify_attention_flat(q, k, v, table, lens,
+                                                    starts, spec=spec)
+    first = call()
+    outs = [call() for _ in range(300)]
+    torch.cuda.synchronize()
+    assert bool(first.isfinite().all())
+    assert all(torch.equal(first, out) for out in outs)
+
+
+def test_bf16_decode_kernels_refuse_what_they_do_not_take(cuda):
+    """A bf16 decode or verify runs the tensor-core kernels or raises: head
+    dim 32, more than 16 heads a group or 32 rows a kv head, and operands
+    off 16-byte alignment reach no kernel."""
+    g = torch.Generator(device=cuda).manual_seed(42)
+    lens = torch.tensor([10, 20], dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    q, k = _bf16(g, 2, 2, 32), _bf16(g, 2, 64, 32)
+    with pytest.raises(ValueError, match="bf16"):
+        dec.decode_attention_flat(q, k, k, lens)
+    q, k = _bf16(g, 2, 17, 128), _bf16(g, 2, 64, 128)
+    with pytest.raises(ValueError, match="G=17"):
+        dec.decode_attention_flat(q, k, k, lens)
+    q = _bf16(g, 2 * 2 * 128 + 1)[1:].view(2, 2, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        dec.decode_attention_flat(q, k, k, lens)
+    table = torch.arange(16, dtype=torch.int32, device=cuda).view(2, 8)
+    starts = lens - 1
+    for e, spec, group, match in ((32, 2, 2, "bf16"), (128, 8, 8, "rows"),
+                                  (128, 1, 32, "G=32")):
+        pool = _bf16(g, 2, 17, 16, e)
+        q = _bf16(g, 2, 2, spec * group, e)
+        with pytest.raises(ValueError, match=match):
+            pver.paged_verify_attention_flat(q, pool, pool, table, lens,
+                                             starts, spec=spec)
+    pool = _bf16(g, 2, 17, 16, 128)
+    q = _bf16(g, 2 * 2 * 8 * 128 + 1)[1:].view(2, 2, 8, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        pver.paged_verify_attention_flat(q, pool, pool, table, lens, starts,
+                                         spec=4)
+    assert sum(ops.launch_counts().values()) == 0
 
 
 def _paged_pools(gen, hkv=2, n_pages=64, page=16, e=64, quantized=False):
@@ -392,7 +564,7 @@ def test_paged_verify_kernel_matches_plain(cuda, quantized, spec, group):
     q = _rand(g, 6, 2, spec * group, 64)
     got = pver.paged_verify_attention_flat(q, k, v, table, lens, starts,
                                            spec=spec, **kw)
-    n_split, tps = dec.split_plan(12, 8 * 16)
+    n_split, tps = dec.decode_split_plan(k.dtype, 12, 8 * 16)
     want = pver.paged_verify_attention_plain(
         q, k, v, table, lens, starts, spec=spec, n_split=n_split,
         tiles_per_split=tps, **kw)

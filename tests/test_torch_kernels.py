@@ -232,9 +232,52 @@ def test_decode_split_plan_covers_the_cache(bh, n_kv):
     assert_close(one, two, 1e-6)
 
 
-def test_decode_int8_branch_is_not_ported():
-    """The int8 branch this test once found refused is ported: int8
-    caches with per-row scales give attention over the dequantized
+@pytest.mark.parametrize("bh,n_kv", [(1, 64), (4, 8256), (32, 8256),
+                                     (64, 100), (3, 1), (64, 4096),
+                                     (32, 271)])
+def test_bf16_decode_split_plan_covers_the_cache(bh, n_kv):
+    """B4's and B7's bf16 forms take short splits of their own (1 to
+    TC_MAX_TILES tiles) that cover the cache; fp32 and int8 caches keep
+    split_plan, and the plain version gives one answer on either."""
+    n_split, tps = tdec.decode_split_plan(torch.bfloat16, bh, n_kv)
+    n_tiles = -(-n_kv // policy.KV_TILE)
+    assert n_split * tps >= n_tiles > (n_split - 1) * tps
+    assert 1 <= tps <= tdec.TC_MAX_TILES
+    if tps > 1:             # no shorter split keeps the grid to the target
+        assert -(-n_tiles // (tps - 1)) * bh > tdec.TARGET_BLOCKS
+    for dtype in (torch.float32, torch.int8):
+        assert tdec.decode_split_plan(dtype, bh, n_kv) == tdec.split_plan(
+            bh, n_kv)
+    q, k, v = (rand(8, (bh, 2, 16)), rand(9, (bh, n_kv, 16)),
+               rand(10, (bh, n_kv, 16)))
+    lens = torch.tensor(np.random.default_rng(bh).integers(0, n_kv + 1,
+                                                           size=bh))
+    short = tdec.decode_attention_plain(to_torch(q), to_torch(k), to_torch(v),
+                                        lens, n_split=n_split,
+                                        tiles_per_split=tps)
+    n_split, tps = tdec.split_plan(bh, n_kv)
+    long = tdec.decode_attention_plain(to_torch(q), to_torch(k), to_torch(v),
+                                       lens, n_split=n_split,
+                                       tiles_per_split=tps)
+    assert_close(short, long, 1e-6)
+
+
+def test_bf16_plan_spreads_the_longest_sequence_over_every_sm():
+    """At the ragged batch chip_smoke.py times (kv_lens 1, 300, 2060, 8207
+    of an 8256-row cache, 8 kv heads), the longest sequence's live splits
+    fill the H100's 132 SMs; split_plan gave it 72 blocks."""
+    kv_lens, hkv, s_len = (1, 300, 2060, 8207), 8, 8256
+    bh = len(kv_lens) * hkv
+    for dtype, least in ((torch.bfloat16, 132), (torch.float32, 72)):
+        n_split, tps = tdec.decode_split_plan(dtype, bh, s_len)
+        span = tps * policy.KV_TILE
+        live = [min(n_split, -(-n // span)) * hkv for n in kv_lens]
+        assert max(live) >= least
+    assert (n_split, tps) == (9, 15)
+
+
+def test_decode_int8_cache_gives_attention_over_the_dequantized_cache():
+    """int8 caches with per-row scales give attention over the dequantized
     caches, and scales without int8 caches are refused."""
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(2, 2, 16, generator=gen)

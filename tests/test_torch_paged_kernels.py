@@ -271,11 +271,10 @@ def test_paged_prefill_plain_reads_live_tiles_only():
 # ---------------------------------------------------------------------------
 
 
-def test_paged_int8_branches_are_not_ported():
-    """The int8 branches this test once found refused are ported: with
-    int8 pools and per-page scales, B5 and B6 give attention over the
-    dequantized pools, and the wrappers refuse scales without int8 pools
-    or int8 pools without scales."""
+def test_paged_int8_pools_give_attention_over_the_dequantized_pools():
+    """With int8 pools and per-page scales, B5 and B6 give attention over
+    the dequantized pools, and the wrappers refuse scales without int8
+    pools or int8 pools without scales."""
     k, v = (to_torch(x) for x in _pools(0, 4))
     (kq, ks), (vq, vs) = (tcommon.quantize_q8(x, (-2, -1)) for x in (k, v))
     kd, vd = (tcommon.dequantize_q8(x, s, (-2, -1))

@@ -10,10 +10,10 @@
   and its bf16 limit admits one rounding of a kernel's output but not a
   skipped KV tile, nor, on an int8 cache, a zeroed V scale, nor for B8 a
   zeroed X tile;
-* a bf16 tensor reaches B1, B2, B3 and B5 only through their
-  tensor-core forms, chosen by dtype in the wrapper, with no ``try`` to
-  fall back from, and ``chip_smoke.py`` counts each kernel's
-  tensor-core instructions.
+* a bf16 tensor reaches B1, B2, B3, B5 and, on bf16 caches, B4 and B7
+  only through their tensor-core forms, chosen by dtype in the wrapper,
+  with no ``try`` to fall back from, and ``chip_smoke.py`` counts each
+  kernel's tensor-core instructions.
 """
 
 from __future__ import annotations
@@ -288,13 +288,36 @@ def test_chip_smoke_ptxas_report_names_each_kernel():
         "ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 32 registers, used 0 barriers",
+        # B4's and B7's tensor-core forms and B4's merge pass
+        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__408c5d7c"
+        "_19_decode_attention_cu_daae7df818decode_bf16_kernelILi128EEEvPK13"
+        "__nv_bfloat16S3_S3_PKiPfS6_S6_iiif' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__408c5d7c"
+        "_19_decode_attention_cu_daae7df824decode_bf16_merge_kernelILi128EEE"
+        "vPKfS2_S2_PKiP13__nv_bfloat16iiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 4352 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__be15b586"
+        "_25_paged_verify_attention_cu_daae7df824paged_verify_bf16_kernelILi"
+        "128ELi2EEEvPK13__nv_bfloat16S3_S3_PKiS5_S5_PfS6_S6_iiiiiiif' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 247 registers, used 1 barriers",
     ])
     report = _chip_smoke().ptxas_report(log)
     assert list(report.values()) == [
         {"spill_bytes": 12, "registers": 80},
-        {"spill_bytes": 0, "registers": 32}]
+        {"spill_bytes": 0, "registers": 32},
+        {"spill_bytes": 0, "registers": 128},
+        {"spill_bytes": 0, "registers": 40},
+        {"spill_bytes": 0, "registers": 247}]
     names = list(report)
     assert "split_combine_kernel" in names[0] and "kernel" in names[1]
+    assert "decode_bf16_kernel" in names[2]
+    assert "decode_bf16_merge_kernel" in names[3]
+    assert "paged_verify_bf16_kernel" in names[4]
     assert _chip_smoke().ptxas_report("") == {}
 
 
@@ -331,16 +354,34 @@ def test_chip_smoke_sass_report_counts_tensor_core_instructions():
         " gdesc[UR8].tnspB, R56 ;",
         "        /*0330*/                   HGMMA.64x128x16.F32.BF16 R56, R28,"
         " gdesc[UR8].tnspB, R56, gsb0 ;",
+        # B4's and B7's bf16 forms: mma.sync fed by ldmatrix (.trans for V)
+        "\t\tFunction : _ZN52_GLOBAL__N__408c5d7c_19_decode_attention_cu_"
+        "daae7df818decode_bf16_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PKiPf"
+        "S6_S6_iiif",
+        "        /*0400*/                   LDSM.16.MT88.4 R20, [R3+0x1000] ;",
+        "        /*0410*/                   HMMA.16816.F32.BF16 R24, R8, R20,"
+        " R24 ;",
+        "        /*0420*/                   HMMA.16816.F32.BF16 R24, R12, R20,"
+        " R24 ;",
+        "\t\tFunction : _ZN58_GLOBAL__N__be15b586_25_paged_verify_attention"
+        "_cu_daae7df824paged_verify_bf16_kernelILi128ELi1EEEvPK13__nv_bfloat"
+        "16S3_S3_PKiS5_S5_PfS6_S6_iiiiiiif",
+        "        /*0500*/                   HMMA.16816.F32.BF16 R4, R8, R12,"
+        " R4 ;",
     ])
     report = _chip_smoke().sass_report(listing)
     assert list(report.values()) == [{"hmma": 2, "hgmma": 0},
                                      {"hmma": 0, "hgmma": 1},
                                      {"hmma": 1, "hgmma": 0},
-                                     {"hmma": 0, "hgmma": 3}]
+                                     {"hmma": 0, "hgmma": 3},
+                                     {"hmma": 2, "hgmma": 0},
+                                     {"hmma": 1, "hgmma": 0}]
     names = list(report)
     assert "flash_bf16_kernel" in names[0]
     assert "mas_resident_bf16_kernel" in names[2]
     assert "paged_prefill_bf16_kernel" in names[3]
+    assert "decode_bf16_kernel" in names[4]
+    assert "paged_verify_bf16_kernel" in names[5]
     assert _chip_smoke().sass_report("") == {}
 
 
@@ -355,23 +396,37 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     assert tflash.entry_point(fp32) == "flash_attention_fp32_launch"
     assert ppre.entry_point(bf16) == "paged_prefill_bf16_launch"
     assert ppre.entry_point(fp32) == "paged_prefill_fp32_launch"
+    # B4 and B7: bf16 caches on the tensor cores, int8 caches (of either
+    # query dtype) and fp32 on the CUDA cores
+    for mod, stem in ((tdec, "decode"), (ppver, "paged_verify")):
+        assert mod.entry_point(bf16, False) == f"{stem}_bf16_launch"
+        assert mod.entry_point(fp32, False) == f"{stem}_fp32_launch"
+        assert mod.entry_point(bf16, True) == f"{stem}_int8_launch"
+        assert mod.entry_point(fp32, True) == f"{stem}_int8_launch"
     for fn in (lambda: tmas.entry_point(torch.float16, False),
                lambda: tmas.entry_point(torch.float16, True),
                lambda: tflash.entry_point(torch.float16),
-               lambda: ppre.entry_point(torch.float16)):
+               lambda: ppre.entry_point(torch.float16),
+               lambda: tdec.entry_point(torch.float16, False),
+               lambda: ppver.entry_point(torch.float16, True)):
         with pytest.raises(TypeError):
             fn()
     sigs = {**_build.SIGNATURES["mas_attention"],
             **_build.SIGNATURES["flash_attention"],
-            **_build.SIGNATURES["paged_prefill_attention"]}
+            **_build.SIGNATURES["paged_prefill_attention"],
+            **_build.SIGNATURES["decode_attention"],
+            **_build.SIGNATURES["paged_verify_attention"]}
     for name in ("mas_streamed_bf16_launch", "mas_streamed_fp32_launch",
                  "mas_resident_bf16_launch", "mas_resident_fp32_launch",
                  "flash_attention_bf16_launch",
                  "flash_attention_fp32_launch", "paged_prefill_bf16_launch",
-                 "paged_prefill_fp32_launch"):
+                 "paged_prefill_fp32_launch", "decode_bf16_launch",
+                 "decode_fp32_launch", "decode_int8_launch",
+                 "paged_verify_bf16_launch", "paged_verify_fp32_launch",
+                 "paged_verify_int8_launch"):
         assert name in sigs
     # ... with no try to fall back from ...
-    for module in (tmas, tflash, ppre):
+    for module in (tmas, tflash, ppre, tdec, ppver):
         tree = ast.parse(Path(module.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     # ... and the CUDA-core forms of B1, B2, B3 and B5 exist only in fp32
@@ -389,3 +444,16 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     assert "launch<float, int8_t>" in ppre_cu
     assert "paged_prefill_kernel<__nv_bfloat16" not in ppre_cu
     assert "launch<__nv_bfloat16," not in ppre_cu
+    # ... and of B4 and B7 in fp32 and for int8 caches only: a bf16 cache
+    # never reaches them
+    dec_cu = (csrc / "decode_attention.cu").read_text()
+    ver_cu = (csrc / "paged_verify_attention.cu").read_text()
+    assert "launch<float, float>" in dec_cu
+    assert "launch<__nv_bfloat16, int8_t>" in dec_cu
+    assert "launch<__nv_bfloat16, __nv_bfloat16>" not in dec_cu
+    assert "paged_split_launch<float, float," in ver_cu
+    assert "paged_split_launch<__nv_bfloat16, int8_t," in ver_cu
+    assert "paged_split_launch<__nv_bfloat16, __nv_bfloat16" not in ver_cu
+    assert "paged_split_dispatch" not in ver_cu
+    for cu in (dec_cu, ver_cu):
+        assert '#include "decode_tc.cuh"' in cu

@@ -1,5 +1,6 @@
 """The rounding of the bf16 tensor-core kernels (the bf16 forms of B1,
-B2, B3 and B5), emulated on the CPU and held to their plain versions.
+B2, B3, B4, B5 and B7), emulated on the CPU and held to their plain
+versions.
 
 The kernels read Q, K and V in bf16, sum S = Q K^T in fp32 (exact bf16
 products, fp32 sums), feed P to P·V as bf16 and round the output to bf16.
@@ -21,7 +22,13 @@ softmax), held to the plain version at B1's block height (32) and B2's
 paged pool; on an int8 pool its tiles hold the int8 values as bf16
 (exact: every value in -127..127 has 8 significant bits), the K scale
 multiplies the score and the V scale multiplies P after the row sum and
-before the split.
+before the split. B4 and B7 (``csrc/decode_tc.cuh``) cut the keys into
+short splits of 1-4 64-row tiles (``decode_split_plan``); each of a
+block's four warps walks 16-row slices with an online softmax of its
+own, the block merges its warps and a second pass the splits, in fp32.
+B4's case is one query row on each of 32 (b, kv head) rows over 1900
+live keys of a 2000-row cache, B7's eight position-major rows (k = 4,
+G = 2) ending at 1000 keys of shuffled 16-row pages.
 
 Run as a script, it prints the row errors.
 """
@@ -32,9 +39,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import mas_attention as tmas
 from repro_torch.kernels import paged_prefill_attention as tppre
+from repro_torch.kernels import paged_verify_attention as tpver
 from repro_torch.kernels.common import (
     NEG_INF,
     gather_pages,
@@ -148,18 +157,123 @@ def paged_emulated(q, k_pages, v_pages, table, *, split: bool,
                            k_scale=ks, v_scale=vs)
 
 
+# B4's and B7's cases: B4's (b, kv head) rows, keys of its cache and live
+# keys; B7's live keys, k and G
+DEC_BH, DEC_S, DEC_LEN = 32, 2000, 1900
+VER_LEN, VER_SPEC, VER_G = 1000, 4, 2
+SLICE, WARPS = 16, 4
+
+
+def _merge(parts):
+    """(m, l, acc) partials merged: M = max m, L = sum l e^(m - M),
+    acc = sum acc e^(m - M)."""
+    m = torch.stack([p[0] for p in parts]).amax(dim=0)
+    w = [torch.exp(p[0] - m) for p in parts]
+    return (m, sum(p[1] * wi for p, wi in zip(parts, w)),
+            sum(p[2] * wi for p, wi in zip(parts, w)))
+
+
+def split_emulated(q, k, v, *, split: bool, kv_len: int, tiles: int,
+                   q_pos=None):
+    """B4's and B7's bf16 forms: q (H, R, E), k, v (H, S, E) bf16; row r
+    sees the keys below kv_len (and at or before q_pos[r]). Splits of
+    ``tiles`` 64-row tiles (``decode_split_plan``'s); warp w of a split takes its 16-row slices
+    w, w + 4, ..., each with an online softmax whose P (zero where masked)
+    enters P V as one bf16 product or as hi + lo; the warps, then the
+    splits, are merged in fp32, and the output rounded to bf16."""
+    heads, rows, _ = q.shape
+    s_all = (q.float() @ k.float().transpose(1, 2)) * E ** -0.5
+    cols = torch.arange(k.shape[1]).view(1, -1)
+    keep = cols < kv_len
+    if q_pos is not None:
+        keep = keep & (cols <= q_pos.view(-1, 1))
+    s_all = torch.where(keep, s_all, NEG_INF)
+    span = tiles * BLK_KV
+    splits = []
+    for row0 in range(0, kv_len, span):
+        warps = []
+        for w in range(WARPS):
+            m = torch.full((heads, rows, 1), NEG_INF)
+            l = torch.zeros((heads, rows, 1))
+            acc = torch.zeros((heads, rows, E))
+            for c0 in range(row0 + w * SLICE, min(row0 + span, kv_len),
+                            WARPS * SLICE):
+                s = s_all[..., c0:c0 + SLICE]
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.where(s == NEG_INF, 0.0, torch.exp(s - m_new))
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + _pv(p, v[:, c0:c0 + SLICE], split)
+                m = m_new
+            warps.append((m, l, acc))
+        splits.append(_merge(warps))
+    _, l, acc = _merge(splits)
+    return (acc / l).to(torch.bfloat16)
+
+
+def _decode_case(seed: int):
+    """B4's case: (emulate, plain version's output, (v, {}))."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((DEC_BH, n, E),
+                                                    dtype=np.float32))
+               .bfloat16() for n in (1, DEC_S, DEC_S))
+    lens = torch.full((DEC_BH,), DEC_LEN, dtype=torch.int32)
+    n_split, tps = tdec.decode_split_plan(torch.bfloat16, DEC_BH, DEC_S)
+    want = tdec.decode_attention_plain(q, k, v, lens, n_split=n_split,
+                                       tiles_per_split=tps)
+
+    def emulate(split, v_=None, vs=None):
+        return split_emulated(q, k, v if v_ is None else v_, split=split,
+                              kv_len=DEC_LEN, tiles=tps)
+    return emulate, want, (v, {})
+
+
+def _verify_case(seed: int):
+    """B7's case on shuffled pages: (emulate, plain output, (v_pages, {}))."""
+    rng = np.random.default_rng(seed)
+    n_pages = VER_LEN // PAGE + 3
+    rows = VER_SPEC * VER_G
+    q = torch.from_numpy(rng.standard_normal((1, HEADS, rows, E),
+                                             dtype=np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (HEADS, n_pages, PAGE, E), dtype=np.float32)).bfloat16()
+        for _ in range(2))
+    table = torch.from_numpy(rng.permutation(n_pages - 1) + 1).to(
+        torch.int32)[None]
+    lens = torch.tensor([VER_LEN], dtype=torch.int32)
+    starts = lens - VER_SPEC
+    cap = table.shape[1] * PAGE
+    n_split, tps = tdec.decode_split_plan(torch.bfloat16, HEADS, cap)
+    want = tpver.paged_verify_attention_plain(
+        q, k, v, table, lens, starts, spec=VER_SPEC, n_split=n_split,
+        tiles_per_split=tps)[0]
+    q_pos = tpver.row_positions(starts, VER_SPEC, VER_G)[0]
+
+    def emulate(split, v_=None, vs=None):
+        vp = v if v_ is None else v_
+        return split_emulated(q[0], gather_pages(k, table[0]),
+                              gather_pages(vp, table[0]), split=split,
+                              kv_len=VER_LEN, tiles=tps, q_pos=q_pos)
+    return emulate, want, (v, {})
+
+
 def row_rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     return float(((got - want).norm(dim=-1)
                   / want.norm(dim=-1).clamp_min(1e-30)).max())
 
 
-KERNELS = ["mas", "mas_resident", "flash", "paged", "paged_int8"]
+KERNELS = ["mas", "mas_resident", "flash", "paged", "paged_int8", "decode",
+           "verify"]
 
 
 def _case(kernel: str, seed: int):
     """(emulate(split, v=None, v_scales=None), plain version's output) of
     ``kernel`` on the inputs of ``seed``."""
+    if kernel == "decode":
+        return _decode_case(seed)
+    if kernel == "verify":
+        return _verify_case(seed)
     if kernel.startswith("paged"):
         quantized = kernel == "paged_int8"
         q, k, v, table, sc = _paged_inputs(seed, quantized)
@@ -213,7 +327,7 @@ def test_emulation_sees_a_skipped_v_tile(kernel):
         faulty = emulate(True, vs=vs)
     else:                         # a 64-row V tile (or its pages) zeroed
         v_bad = v.clone()
-        if kernel == "paged":
+        if kernel in ("paged", "verify"):
             v_bad[:, 3] = 0
         else:
             v_bad[:, BLK_KV:2 * BLK_KV] = 0
