@@ -12,8 +12,8 @@ Phases, each printing one JSON line:
    every kernel from ``src/repro_torch/kernels/csrc``, each kernel's
    registers and spills (``ptxas``) and its tensor-core instructions
    (``HMMA``, ``HGMMA`` in ``cuobjdump -sass``), which the bf16 forms of
-   B1-B5 and B7 must have (``HMMA`` for B1, B2, B4 and B7, ``HGMMA`` for
-   B3 and B5);
+   B1-B7 must have (``HMMA`` for B1, B2, B4, B6 on bf16 and on int8
+   pools, and B7, ``HGMMA`` for B3 and B5);
 2. fp32 checks — each kernel against its plain version in fp32 on small
    ragged shapes (padding, kv tails, a sliding window, ragged decode; for
    the paged kernels shuffled page tables, kv_len 0, 1 and mid-page, a
@@ -449,7 +449,7 @@ def phase_device(torch, build) -> dict:
         "tensor_core_instructions": sass,
     }
     emit(info)
-    # the bf16 forms of B1-B5 and B7 must run on the tensor cores
+    # the bf16 forms of B1-B7 must run on the tensor cores
     for lib, kernel, kind in (
             ("mas_attention", "mas_resident_bf16_kernel", "hmma"),
             ("mas_attention", "mas_streamed_bf16_kernel", "hmma"),
@@ -457,10 +457,15 @@ def phase_device(torch, build) -> dict:
             ("decode_attention", "decode_bf16_kernel", "hmma"),
             ("paged_prefill_attention", "paged_prefill_bf16_kernel",
              "hgmma"),
-            ("paged_verify_attention", "paged_verify_bf16_kernel", "hmma")):
+            ("paged_verify_attention", "paged_verify_bf16_kernel", "hmma"),
+            ("paged_decode_attention", "paged_decode_bf16_kernel", "hmma")):
         found = {k: c for k, c in sass[lib].items() if kernel in k}
         require(bool(found) and all(c[kind] > 0 for c in found.values()),
                 f"{kernel}: no {kind.upper()} instruction in {found}")
+    # B6's tensor-core form at head dims 64 and 128 on bf16 and int8 pools
+    forms = [k for k in sass["paged_decode_attention"]
+             if "paged_decode_bf16_kernel" in k]
+    require(len(forms) == 4, f"paged_decode_bf16_kernel: forms {forms}")
     return info
 
 
@@ -528,7 +533,7 @@ def phase_fp32(torch) -> dict:
                         device=dev)
     qd = rnd(6, 2, 2, 64)
     out = pdec.paged_decode_attention_flat(qd, kp, vp, table, lens)
-    n_split, tps = dec.split_plan(12, 160)
+    n_split, tps = pdec.split_plan_for(qd.dtype, 12, 160)
     ref = pdec.paged_decode_attention_plain(qd, kp, vp, table, lens,
                                             n_split=n_split,
                                             tiles_per_split=tps)
@@ -548,7 +553,7 @@ def phase_fp32(torch) -> dict:
                                                                    (-2, -1))
     q8 = dict(k_scales=kps, v_scales=vps)
     out = pdec.paged_decode_attention_flat(qd, kp8, vp8, table, lens, **q8)
-    n_split, tps = dec.split_plan(12, 160)
+    n_split, tps = pdec.split_plan_for(qd.dtype, 12, 160)
     ref = pdec.paged_decode_attention_plain(qd, kp8, vp8, table, lens,
                                             n_split=n_split,
                                             tiles_per_split=tps, **q8)
@@ -879,7 +884,7 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
     lens = torch.tensor(PAGED_DECODE_KV_LENS, dtype=torch.int32,
                         device="cuda")
     qd = rnd(b, hq, e)
-    n_split, tps = dec.split_plan(b * hkv, max_pages * page)
+    n_split, tps = pdec.split_plan_for(qd.dtype, b * hkv, max_pages * page)
     kern = lambda: ops.paged_decode_attention(  # noqa: E731
         qd, kp, vp, table, lens, **sc)
 

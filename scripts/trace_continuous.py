@@ -2,13 +2,16 @@
 """Trace the serving paths of the PyTorch port on one GPU.
 
 Serves full-width internlm2-1.8b (bf16, random weights from seed 0) on
-three paths, each once to warm up, once untraced and once under
+four paths, each once to warm up, once untraced and once under
 ``torch.profiler``, and prints one JSON line a path:
 
 * ``continuous``: the requests of ``chip_smoke.py``'s continuous phase
   (16 requests with prompts of 32-3500 tokens from
   ``numpy.random.default_rng(0)`` and 32 new tokens each; batch 8,
   4096-token budget, 16-token pages, 512-token chunks): B5 and B6;
+* ``int8_continuous``: the same requests on int8 pools
+  (``kv_dtype="int8"``): B5's and B6's int8 forms and the requantizing
+  appends;
 * ``speculative``: the same lengths as ``chip_smoke.py``'s speculative
   phase (prompts that repeat one random 64-token span, seed 2), served
   with ``spec_depth=4``: B7 on its verify steps;
@@ -19,14 +22,15 @@ Each line holds the serve's wall time untraced and traced, the device's
 busy share over the traced serve, the busy share and time of each step
 kind (``decode``, ``chunk``, ``chunk+decode``, ``verify``; the wave's
 ``prefill`` and ``wave_decode``), and device time by kernel group and by
-kernel. Kernels are grouped by name alone. The bf16 forms of B4 and B7
-and their merge passes have names of their own; the CUDA-core pass 1
-that B6 shares with B7's fp32 and int8 forms (``paged_split_kernel``)
-and the merge pass of every CUDA-core form (``split_combine_kernel``)
-are groups of their own, which on these bf16 paths hold B6 alone; the
-per-kernel list keeps each kernel's template arguments. Tracing slows
-the host, not the device, so the device time is also set against the
-untraced serve's wall time.
+kernel. Kernels are grouped by name alone. The tensor-core forms of B4,
+B6 (bf16 and int8 pools alike) and B7 and their merge passes have names
+of their own; the CUDA-core pass 1 of B6's fp32-q forms and B7's fp32
+and int8 forms (``paged_split_kernel``) and the merge pass of every
+CUDA-core form (``split_combine_kernel``) are groups of their own, which
+none of these paths reaches (in trees before B6's tensor-core form they
+held B6); the per-kernel list keeps each kernel's template arguments.
+Tracing slows the host, not the device, so the device time is also set
+against the untraced serve's wall time.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -48,7 +52,8 @@ WAVE, WAVE_NEW_TOKENS, WAVE_MAX_LEN = (4, 2048), 16, 8256
 # kernel name fragments -> group, first match wins
 GROUPS = (("paged_prefill", "B5 paged_prefill"),
           ("paged_verify", "B7 paged_verify"),
-          ("paged_split", "paged_split (B6; B7 on fp32 and int8 pools)"),
+          ("paged_decode", "B6 paged_decode"),
+          ("paged_split", "paged_split (CUDA-core B6 and B7 forms)"),
           ("split_combine", "split_combine (merge of the CUDA-core forms)"),
           ("decode_bf16", "B4 decode"), ("decode_split", "B4 decode"),
           ("mas_resident", "B1 mas_resident"),
@@ -194,14 +199,18 @@ def main() -> int:
 
     header = {"device": torch.cuda.get_device_name(0), **CONT,
               "requests": REQUESTS, "new_tokens": NEW_TOKENS}
-    for path, ps, spec in (("continuous", prompts, None),
-                           ("speculative", spec_prompts, SPEC_DEPTH)):
+    for path, ps, spec, kv_dtype in (
+            ("continuous", prompts, None, None),
+            ("int8_continuous", prompts, None, "int8"),
+            ("speculative", spec_prompts, SPEC_DEPTH, None)):
         eng = ContinuousBatchingEngine(model, params, device="cuda",
-                                       spec_depth=spec, **CONT)
+                                       spec_depth=spec, kv_dtype=kv_dtype,
+                                       **CONT)
         eng._step = marked(torch, eng._step, paged_kind)
         eng._verify = marked(torch, eng._verify, lambda *a: "verify")
         out = traced(torch, lambda: eng.serve(requests(ps, NEW_TOKENS)))
         print(json.dumps({"path": path, **header, "spec_depth": spec,
+                          "kv_dtype": kv_dtype or "bf16",
                           **summary(torch, *out)}), flush=True)
         del eng
         torch.cuda.empty_cache()

@@ -66,12 +66,14 @@ SIGNATURES = {
         "decode_int8_launch": [P] * 10 + [I] * 6 + [F, I, P],
     },
     "paged_decode_attention": {
-        # q, k_pages, v_pages, k_scales, v_scales, table, kv_lens, o,
-        # m_part, l_part, acc_part, B, Hkv, G, n_pages, page_size,
-        # max_pages, E, n_split, tiles_per_split, sm_scale, dtype,
-        # quantized, stream
-        "paged_decode_attention_launch":
-            [P] * 11 + [I] * 9 + [F, I, I, P],
+        # q, k_pages, v_pages, table, kv_lens, o, m_part, l_part, acc_part,
+        # B, Hkv, G, n_pages, page_size, max_pages, E, n_split,
+        # tiles_per_split, sm_scale, stream
+        "paged_decode_bf16_launch": [P] * 9 + [I] * 9 + [F, P],
+        "paged_decode_fp32_launch": [P] * 9 + [I] * 9 + [F, P],
+        # the same with k_scales, v_scales after v_pages, and the query's
+        # dtype before the stream
+        "paged_decode_int8_launch": [P] * 11 + [I] * 9 + [F, I, P],
     },
     "paged_prefill_attention": {
         # q, k_pages, v_pages, k_scales, v_scales, table, o, hq, nq, E,

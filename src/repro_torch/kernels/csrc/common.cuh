@@ -169,6 +169,10 @@ struct DenseRows {
 struct PagedRows {
   const int* table;
   int page_size, col0, E;
+  // the physical page that holds logical row col0 + r
+  __device__ __forceinline__ int page(int r) const {
+    return table[(col0 + r) / page_size];
+  }
   __device__ __forceinline__ size_t operator()(int r) const {
     const int pos = col0 + r;
     return ((size_t)table[pos / page_size] * page_size + pos % page_size) *

@@ -1,6 +1,8 @@
 // Split-KV attention of a few query rows on the tensor cores: the pass-1
 // block and the merge pass shared by the bf16 forms of B4 (dense decode,
-// decode_attention.cu) and B7 (paged verify, paged_verify_attention.cu).
+// decode_attention.cu), B6 (paged decode, bf16 and int8 pools,
+// paged_decode_attention.cu) and B7 (paged verify,
+// paged_verify_attention.cu).
 //
 // For one (b, kv head), R query rows (the G heads of a GQA group, or for
 // B7 k positions of them, position-major) attend to the logical KV rows
@@ -8,7 +10,7 @@
 // gives a logical row's offset (DenseRows, PagedRows of common.cuh).
 //
 // What bounds it on an H100: each live K and V row is read once for all R
-// rows, G/2 (B4) or k G/2 (B7) multiply-adds a byte, far below the ~295
+// rows, G/2 (B4, B6) or k G/2 (B7) multiply-adds a byte, far below the ~295
 // operations a byte where the tensor cores would become the limit, so the
 // floor is device-memory bandwidth and the time goes to bytes in flight
 // and to the number of blocks that share the longest sequence. The design:
@@ -31,6 +33,16 @@
 //   scaled to base 2, masked and exponentiated in registers and is P's A
 //   fragment directly, entering P V as bf16 hi + lo (tc::split): one bf16
 //   rounding of P is about the whole 4e-3 row limit.
+// - An int8 pool (KV = int8_t, PagedRows, per-page fp32 scales) keeps its
+//   ring slots raw: a slice's int8 K and V rows by cp.async, 16 bytes a
+//   lane, and its 16 K and 16 V scales looked up per row through the page
+//   table, 4 bytes a lane. When the slice's copies have landed, each lane
+//   converts the chunks it copied itself to bf16 (exact: every int8 value
+//   has 8 significant bits) into the warp's own swizzled bf16 slot, which
+//   ldmatrix reads as for a bf16 pool; a __syncwarp, no block barrier. The
+//   K scale multiplies each score column after scale_log2 and before the
+//   row max; the V scale multiplies P after the row sum and before the
+//   hi + lo split, as the plain version and the TPU kernel order them.
 // - Masks in three bands, as B5 and the CUDA-core forms: a slice wholly
 //   below min(q0 + 1, kv_len) (B4: kv_len) is unmasked; later live slices
 //   take the select col < kv_len && col <= q0 + r / rows_per_pos (B4: the
@@ -54,17 +66,28 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int E, int MT>
 __host__ __device__ constexpr int q_bytes() { return MT * 16 * E * 2; }
-template <int E>
-__host__ __device__ constexpr int slot_bytes() { return 2 * STEP * E * 2; }
-template <int E>
+// A ring slot: a slice's K and V rows in bf16, or for an int8 pool (Q8)
+// its raw int8 rows and then its 16 K and 16 V scales.
+template <int E, bool Q8 = false>
+__host__ __device__ constexpr int slot_bytes() {
+  return Q8 ? 2 * STEP * E + 2 * STEP * 4 : 2 * STEP * E * 2;
+}
+template <int E, bool Q8 = false>
 __host__ __device__ constexpr int ring_bytes() {
-  return WARPS * STAGES * slot_bytes<E>();
+  return WARPS * STAGES * slot_bytes<E, Q8>();
+}
+// int8 pools: each warp's bf16 slot, the slice it multiplies, converted.
+template <int E, bool Q8 = false>
+__host__ __device__ constexpr int conv_bytes() {
+  return Q8 ? WARPS * slot_bytes<E>() : 0;
 }
 // Dynamic shared memory of a pass-1 block: the Q block, the warps' rings
-// (reused by the warps' merge), each warp's row maxima and sums.
-template <int E, int MT>
+// and bf16 slots (reused by the warps' merge), each warp's row maxima and
+// sums.
+template <int E, int MT, bool Q8 = false>
 __host__ __device__ constexpr int smem_bytes() {
-  return q_bytes<E, MT>() + ring_bytes<E>() + 2 * WARPS * MT * 16 * 4;
+  return q_bytes<E, MT>() + ring_bytes<E, Q8>() + conv_bytes<E, Q8>() +
+         2 * WARPS * MT * 16 * 4;
 }
 
 // Four fp32 values stored as bf16 at p (8-byte aligned).
@@ -96,32 +119,127 @@ __device__ __forceinline__ void issue_step(uint32_t slot, const bf16* k,
   }
 }
 
+// An int8 pool's rows [pos0, pos0 + STEP) into a raw ring slot: K, then
+// V, each 16 rows of E bytes (chunk i of the slice at byte 16 i), 16 bytes
+// a lane by cp.async; then the rows' page scales, K's from lanes 0-15 and
+// V's from lanes 16-31, 4 bytes a lane. ks, vs: the kv head's row of the
+// (Hkv, P) scales. Rows at or past kv_len are zero-filled.
+template <int E>
+__device__ __forceinline__ void issue_step_q8(uint32_t slot, const int8_t* k,
+                                              const int8_t* v,
+                                              const float* ks,
+                                              const float* vs,
+                                              const PagedRows& rows,
+                                              int pos0, int kv_len,
+                                              int lane) {
+  constexpr int CH = E / 16;               // 16-byte chunks a row
+#pragma unroll
+  for (int j = 0; j < STEP * CH / 32; ++j) {
+    const int i = lane + 32 * j;
+    const int r = i / CH, c = i % CH;
+    const bool live = pos0 + r < kv_len;
+    const size_t off = live ? rows(pos0 + r) + c * 16 : 0;
+    tc::cp_async16_zfill(slot + i * 16, k + off, live ? 16 : 0);
+    tc::cp_async16_zfill(slot + STEP * E + i * 16, v + off, live ? 16 : 0);
+  }
+  const int r = lane % STEP;
+  const bool live = pos0 + r < kv_len;
+  const int page = live ? rows.page(pos0 + r) : 0;
+  tc::cp_async4_zfill(slot + 2 * STEP * E + lane * 4,
+                      (lane < STEP ? ks : vs) + page, live ? 4 : 0);
+}
+
+// Four int8 values (a word) as four bf16 values (two words, the lower
+// column in the low half). Exact: 2^23 + 128 + x is an fp32 integer, the
+// subtraction leaves x, and an x of at most 8 significant bits has the
+// upper half of its fp32 as its bf16.
+__device__ __forceinline__ uint2 q8x4_bf16(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;      // x + 128 a byte, unsigned
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | i)) -
+        8388736.f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                    __byte_perm(f[2], f[3], 0x7632));
+}
+
+// The chunks of a raw int8 slot that this lane copied (issue_step_q8's),
+// as bf16 into the warp's swizzled slot conv (K, then V, as issue_step
+// lays out a bf16 pool's slice). A lane reads only its own copies, which
+// its cp_async_wait has landed.
+template <int E>
+__device__ __forceinline__ void convert_step(uint32_t conv, uint32_t slot,
+                                             int lane) {
+  constexpr int CH = E / 16;
+#pragma unroll
+  for (int j = 0; j < STEP * CH / 32; ++j) {
+    const int i = lane + 32 * j;
+    const int r = i / CH, c = i % CH;
+#pragma unroll
+    for (int kv = 0; kv < 2; ++kv) {
+      uint4 u;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+                   : "r"(slot + kv * STEP * E + i * 16));
+      const uint2 b0 = q8x4_bf16(u.x), b1 = q8x4_bf16(u.y);
+      const uint2 b2 = q8x4_bf16(u.z), b3 = q8x4_bf16(u.w);
+      const uint32_t dst = conv + kv * STEP * E * 2;
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       dst + tc::swz<E>(r, c * 16)),
+                   "r"(b0.x), "r"(b0.y), "r"(b1.x), "r"(b1.y)
+                   : "memory");
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       dst + tc::swz<E>(r, c * 16 + 8)),
+                   "r"(b2.x), "r"(b2.y), "r"(b3.x), "r"(b3.y)
+                   : "memory");
+    }
+  }
+}
+
 // Pass 1 of one block: the split of logical rows [row0, row0 + tiles *
 // 64) of one (b, kv head), whose R query rows start at q and whose K and V
-// rows sit at k + rows(pos), v + rows(pos). Row r sits at position q0 + r
-// / rows_per_pos (VERIFY; otherwise every row sees the live context).
-// Writes the split's m (base 2), l and acc (R x E) for its R rows.
-// row0 < kv_len.
-template <int E, int MT, bool VERIFY, typename Rows>
+// rows sit at k + rows(pos), v + rows(pos), of type KV: bf16, or int8
+// with ks, vs the kv head's row of the (Hkv, P) page scales (Rows is then
+// PagedRows). Row r sits at position q0 + r / rows_per_pos (VERIFY;
+// otherwise every row sees the live context). Writes the split's m (base
+// 2), l and acc (R x E) for its R rows. row0 < kv_len.
+template <int E, int MT, bool VERIFY, typename KV, typename Rows>
 __device__ __forceinline__ void split_block(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const Rows& rows, int kv_len, int q0, int R,
+    const bf16* __restrict__ q, const KV* __restrict__ k,
+    const KV* __restrict__ v, const Rows& rows, int kv_len, int q0, int R,
     int rows_per_pos, int row0, int tiles, float scale_log2,
     float* __restrict__ m_out, float* __restrict__ l_out,
-    float* __restrict__ acc_out) {
+    float* __restrict__ acc_out, const float* __restrict__ ks = nullptr,
+    const float* __restrict__ vs = nullptr) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
+  static_assert(Q8 || std::is_same<KV, bf16>::value, "bf16 or int8 pools");
   static_assert(E == 64 || E == 128, "head dim 64 or 128");
   constexpr int LDO = E + 8;       // the warps' merge rows, fp32
-  static_assert(WARPS * MT * 16 * LDO * 4 <= ring_bytes<E>(),
+  static_assert(WARPS * MT * 16 * LDO * 4 <=
+                    ring_bytes<E, Q8>() + conv_bytes<E, Q8>(),
                 "the warps' merge fits in the rings");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
   const uint32_t qs = tc::smem_addr(smem);
   const uint32_t ring =
-      qs + q_bytes<E, MT>() + warp * STAGES * slot_bytes<E>();
-  float* wm = reinterpret_cast<float*>(smem + q_bytes<E, MT>() +
-                                       ring_bytes<E>());   // (WARPS, MT 16)
+      qs + q_bytes<E, MT>() + warp * STAGES * slot_bytes<E, Q8>();
+  // int8 pools: the warp's bf16 slot
+  const uint32_t conv =
+      qs + q_bytes<E, MT>() + ring_bytes<E, Q8>() + warp * slot_bytes<E>();
+  float* wm = reinterpret_cast<float*>(
+      smem + q_bytes<E, MT>() + ring_bytes<E, Q8>() +
+      conv_bytes<E, Q8>());                               // (WARPS, MT 16)
   float* wl = wm + WARPS * MT * 16;
+  // slice pos0 into the ring slot at `slot`
+  auto issue = [&](uint32_t slot, int pos0) {
+    if constexpr (Q8)
+      issue_step_q8<E>(slot, k, v, ks, vs, rows, pos0, kv_len, lane);
+    else
+      issue_step<E>(slot, k, v, rows, pos0, kv_len, lane);
+  };
 
   // Q: rows [0, R), zero to MT * 16, one copy group ahead of the ring's
   {
@@ -143,9 +261,7 @@ __device__ __forceinline__ void split_block(
                     : 0;
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < n)
-      issue_step<E>(ring + i * slot_bytes<E>(), k, v, rows,
-                    first + i * WARPS * STEP, kv_len, lane);
+    if (i < n) issue(ring + i * slot_bytes<E, Q8>(), first + i * WARPS * STEP);
     tc::cp_async_commit();
   }
   tc::cp_async_wait<STAGES - 1>();   // this thread's part of Q has landed
@@ -176,15 +292,19 @@ __device__ __forceinline__ void split_block(
 
   for (int i = 0; i < n; ++i) {
     if (i + STAGES - 1 < n)
-      issue_step<E>(ring + (i + STAGES - 1) % STAGES * slot_bytes<E>(), k, v,
-                    rows, first + (i + STAGES - 1) * WARPS * STEP, kv_len,
-                    lane);
+      issue(ring + (i + STAGES - 1) % STAGES * slot_bytes<E, Q8>(),
+            first + (i + STAGES - 1) * WARPS * STEP);
     tc::cp_async_commit();
     tc::cp_async_wait<STAGES - 1>();   // slice i has landed (this lane's)
+    const uint32_t slot = ring + i % STAGES * slot_bytes<E, Q8>();
+    if constexpr (Q8) convert_step<E>(conv, slot, lane);
     __syncwarp();                      // ... and the warp's
-    const uint32_t kt = ring + i % STAGES * slot_bytes<E>();
+    const uint32_t kt = Q8 ? conv : slot;
     const uint32_t vt = kt + STEP * E * 2;
     const int c0 = first + i * WARPS * STEP;
+    // int8: the slice's K scales, then its V scales
+    const float* scales =
+        reinterpret_cast<const float*>(smem + (slot - qs) + 2 * STEP * E);
 
     // S = Q K^T: s[mt][nb] holds kv rows nb * 8 + 2 t4 (+1) of rows g, g + 8
     float s[MT][2][4];
@@ -221,6 +341,7 @@ __device__ __forceinline__ void split_block(
           for (int j = 0; j < 2; ++j) {
             const int col = c0 + nb * 8 + 2 * t4 + j;
             float val = s[mt][nb][2 * h + j] * scale_log2;
+            if constexpr (Q8) val *= scales[nb * 8 + 2 * t4 + j];
             if (masked && (col >= kv_len || (VERIFY && col > rpos[mt][h])))
               val = NEG_INF;
             x[2 * nb + j] = val;
@@ -239,6 +360,11 @@ __device__ __forceinline__ void split_block(
           psum += p[j];
         }
         l[mt][h] = l[mt][h] * alpha + psum;
+        if constexpr (Q8) {             // the V scales, after the row sum
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            p[j] *= scales[STEP + (j >> 1) * 8 + 2 * t4 + (j & 1)];
+        }
 #pragma unroll
         for (int nb = 0; nb < E / 8; ++nb) {
           acc[mt][nb][2 * h] *= alpha;

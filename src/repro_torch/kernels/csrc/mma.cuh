@@ -48,6 +48,15 @@ __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
                : "memory");
 }
 
+// Four bytes by cp.async (through L1), of which only the first src_bytes
+// (0 or 4) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src,
+                                                int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

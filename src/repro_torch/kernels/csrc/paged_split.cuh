@@ -1,6 +1,7 @@
-// Split-KV attention of a short block of query rows over a paged KV pool:
-// the two passes shared by B6 (paged decode, csrc/paged_decode_attention.cu)
-// and B7 (paged verify, csrc/paged_verify_attention.cu).
+// Split-KV attention of a short block of query rows over a paged KV pool
+// on the CUDA cores: the two passes shared by the fp32-q forms of B6
+// (paged decode, csrc/paged_decode_attention.cu) and the fp32 and int8
+// forms of B7 (paged verify, csrc/paged_verify_attention.cu).
 //
 // For each (sequence b, kv head h), R query rows (q is (B, Hkv, R, E))
 // attend to the first kv_lens[b] logical rows of the sequence, gathered
@@ -234,36 +235,6 @@ int paged_split_launch(const void* q, const void* k, const void* v,
   split_combine_kernel<T><<<B * Hkv, PAGED_THREADS, 0, stream>>>(
       mp, lp, ap, static_cast<T*>(o), R, E, n_split);
   return (int)cudaGetLastError();
-}
-
-// Dispatch on the query type (0 fp32, 1 bf16) and on int8 storage.
-// VERIFY: rows at their own positions (B7, q_starts given); otherwise
-// decode rows that see the whole live context (B6, q_starts null).
-template <int MAXR, bool VERIFY>
-int paged_split_dispatch(const void* q, const void* k, const void* v,
-                         const void* ks, const void* vs, const void* table,
-                         const void* kv_lens, const void* q_starts, void* o,
-                         void* m_part, void* l_part, void* acc_part, int B,
-                         int Hkv, int R, int rows_per_pos, int n_pages,
-                         int page_size, int max_pages, int E, int n_split,
-                         int tiles_per_split, float sm_scale, int dtype,
-                         int quantized, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_PAGED_ARGS                                                  \
-  q, k, v, ks, vs, table, kv_lens, q_starts, o, m_part, l_part, acc_part, \
-      B, Hkv, R, rows_per_pos, n_pages, page_size, max_pages, E, n_split, \
-      tiles_per_split, sm_scale, s
-  if (dtype == 0)
-    return quantized ? paged_split_launch<float, int8_t, MAXR, VERIFY>(
-                           REPRO_PAGED_ARGS)
-                     : paged_split_launch<float, float, MAXR, VERIFY>(
-                           REPRO_PAGED_ARGS);
-  return quantized
-             ? paged_split_launch<__nv_bfloat16, int8_t, MAXR, VERIFY>(
-                   REPRO_PAGED_ARGS)
-             : paged_split_launch<__nv_bfloat16, __nv_bfloat16, MAXR, VERIFY>(
-                   REPRO_PAGED_ARGS);
-#undef REPRO_PAGED_ARGS
 }
 
 }  // namespace repro

@@ -12,14 +12,15 @@
 // (b, kv head) the Q block is (k * G, E), position-major: row i is query
 // head i % G of position q_starts[b] + i / G. Rows past kv_len see the
 // whole live context and are dropped by the host. kv_len 0 gives zeros;
-// with k = 1 the fp32 and int8 forms are B6 exactly (below). The
+// with k = 1 and an fp32 q the CUDA-core forms are B6 exactly (below); the
+// bf16 form with q_starts = kv_len - 1 is B6's bf16 form exactly. The
 // TPU kernel pads the group to its 8-row sublane tile; here the block is
 // k * G rows as they are.
 //
 // Three forms, chosen by the caller by dtype (paged_verify_attention.py's
 // entry_point), none falling back to another:
 // - bf16 q and pools (paged_verify_bf16_launch): the tensor-core design
-//   of decode_tc.cuh, shared with B4's bf16 form. Short splits
+//   of decode_tc.cuh, shared with B4's and B6's bf16 forms. Short splits
 //   (decode_split_plan: 1-4 tiles a block, over the table's capacity, so
 //   no host sync) spread the longest sequence over every SM; each warp
 //   walks 16-row slices, one page of 16 rows each at the engine's page
@@ -32,10 +33,11 @@
 //   slices are never loaded. Its merge pass is
 //   paged_verify_bf16_merge_kernel.
 // - fp32 (paged_verify_fp32_launch) and int8 pools
-//   (paged_verify_int8_launch, fp32 or bf16 q): B6's CUDA-core split-KV
-//   kernel (paged_split.cuh) at up to 32 rows, on split_plan, so that with
-//   k = 1 it is B6 exactly (same split, tiles and merge): grid (n_split,
-//   B * Hkv), 64-row tiles gathered row by row through the page table, a
+//   (paged_verify_int8_launch, fp32 or bf16 q): the CUDA-core split-KV
+//   kernel (paged_split.cuh) at up to 32 rows, on split_plan, shared with
+//   B6's fp32-q forms, so that with k = 1 and an fp32 q it is B6 exactly
+//   (same split, tiles and merge): grid (n_split, B * Hkv), 64-row tiles
+//   gathered row by row through the page table, a
 //   second pass that merges the partial (m, l, acc). int8 pools are read
 //   as 16-byte vectors, converted to fp32 in registers, and scaled per
 //   tile column through the table (K scale on the score, V scale folded

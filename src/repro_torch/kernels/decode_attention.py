@@ -67,8 +67,8 @@ def check_scales(k, v, k_scale, v_scale, scale_shape) -> bool:
     return True
 
 
-# The bf16 forms of B4 and B7: the head dims they are built for, and the
-# most 64-row tiles a split of theirs takes.
+# The bf16 forms of B4, B6 and B7: the head dims they are built for, and
+# the most 64-row tiles a split of theirs takes.
 BF16_HEAD_DIMS = (64, 128)
 TC_MAX_TILES = 4
 
@@ -85,9 +85,11 @@ def split_plan(bh: int, n_kv: int, blk_kv: int = KV_TILE) -> tuple[int, int]:
 def decode_split_plan(dtype, bh: int, n_kv: int) -> tuple[int, int]:
     """(n_split, tiles_per_split) covering ``n_kv`` rows of ``bh`` (b, kv
     head) rows of a cache (dense or paged) of element type ``dtype``. For
-    bf16, the short splits of B4's and B7's tensor-core forms: as few
-    tiles a block as keep the grid near ``TARGET_BLOCKS`` blocks, at least
-    1 and at most ``TC_MAX_TILES``. For fp32 and int8, ``split_plan``."""
+    bf16, the short splits of the tensor-core forms of B4, B6 and B7: as
+    few tiles a block as keep the grid near ``TARGET_BLOCKS`` blocks, at
+    least 1 and at most ``TC_MAX_TILES``. For fp32 and int8,
+    ``split_plan``. B6 keys it on its query's dtype instead
+    (``paged_decode_attention.split_plan_for``)."""
     if dtype != torch.bfloat16:
         return split_plan(bh, n_kv)
     n_tiles = max(1, -(-n_kv // KV_TILE))
@@ -109,8 +111,8 @@ def entry_point(dtype, quantized: bool) -> str:
 
 
 def check_bf16(group: int, e: int, *tensors) -> None:
-    """Raise unless the tensor-core form of B4 or B7 takes GQA groups of
-    ``group`` heads of head dim ``e`` in these tensors."""
+    """Raise unless the tensor-core form of B4, B6 or B7 takes GQA groups
+    of ``group`` heads of head dim ``e`` in these tensors."""
     if e not in BF16_HEAD_DIMS or group > MAX_G:
         raise ValueError(f"the bf16 decode kernels take E in "
                          f"{BF16_HEAD_DIMS} and G <= {MAX_G}, not E={e}, "

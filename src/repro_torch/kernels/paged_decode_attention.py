@@ -8,20 +8,35 @@ physical one, and ``kv_lens`` (B,) holds each sequence's live tokens.
 For each (b, kv head) the G query heads of its GQA group attend to the
 sequence's first ``kv_lens[b]`` logical rows.
 
-The CUDA kernel (``csrc/paged_decode_attention.cu``) reads the table and
-``kv_lens`` from device memory itself, so a decode step needs no host
-sync. It cuts the logical rows into 64-row tiles, splits the tiles over
+The CUDA kernels (``csrc/paged_decode_attention.cu``) read the table and
+``kv_lens`` from device memory themselves, so a decode step needs no host
+sync. They cut the logical rows into 64-row tiles, split the tiles over
 ``n_split`` blocks per (b, kv head) as B4 does (B·Hkv blocks alone would
-leave most SMs idle), gathers each live tile through the table, stops at
-the first tile at or past ``kv_len`` (dead pages are never loaded) and
-merges the partial (m, l, acc) in a second pass. ``kv_len == 0`` gives
-zeros. The TPU's padding of the GQA group to 8 rows does not carry over.
-Its two passes are shared with B7 (``csrc/paged_split.cuh``).
+leave most SMs idle; the split is planned over the table's capacity),
+gather each live tile through the table, never load a page at or past
+``kv_len`` and merge the partial (m, l, acc) in a second pass.
+``kv_len == 0`` gives zeros. The TPU's padding of the GQA group to 8 rows
+does not carry over.
 
 An int8 pool carries one fp32 scale per (kv head, page),
-``k_scales``/``v_scales`` (Hkv, P). The kernel reads them through the
-page table per tile column (a 64-row tile spans several pages): the K
-scale multiplies the score, the V scale folds into P after the row sum.
+``k_scales``/``v_scales`` (Hkv, P), read through the page table per
+column: the K scale multiplies the score, the V scale P after the row
+sum.
+
+Three forms, chosen by ``entry_point`` from the dtypes, with nothing
+falling back from one to another:
+
+* a bf16 q on bf16 pools (``paged_decode_bf16_launch``) or on int8 pools
+  (``paged_decode_int8_launch``), head dim 64 or 128, G <= 16: the
+  tensor-core design of ``csrc/decode_tc.cuh``, shared with the bf16
+  forms of B4 and B7, on ``decode_split_plan``'s short splits; an int8
+  page is converted to bf16 (exactly) in shared memory. A bf16 shape it
+  does not take raises.
+* an fp32 q (``paged_decode_fp32_launch``, or ``paged_decode_int8_launch``
+  on int8 pools): the CUDA-core kernel of ``csrc/paged_split.cuh`` on
+  ``split_plan``, shared with B7's fp32 and int8 forms.
+
+``split_plan_for`` gives each form its plan.
 
 ``paged_decode_attention_plain`` computes the same function in PyTorch:
 the dense gather of the table's pages followed by B4's plain version,
@@ -38,14 +53,37 @@ from repro_torch.kernels.common import gather_pages, page_scales
 from repro_torch.kernels.decode_attention import (
     MAX_E,
     MAX_G,
+    check_bf16,
     check_scales,
     decode_attention_plain,
-    split_plan,
+    decode_split_plan,
 )
 
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
 # by branch: bf16/fp32 caches and int8 caches.
 LAUNCHES = {"paged_decode": 0, "paged_decode_int8": 0}
+
+
+def entry_point(dtype, quantized: bool) -> str:
+    """The C function a CUDA q of ``dtype`` launches: the int8 one for int8
+    pools (tensor cores for a bf16 q, CUDA cores for fp32), else the
+    tensor-core one for bf16 and the CUDA-core one for fp32."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the paged decode kernel takes float32 or "
+                        f"bfloat16, not {dtype}")
+    if quantized:
+        return "paged_decode_int8_launch"
+    return ("paged_decode_bf16_launch" if dtype == torch.bfloat16
+            else "paged_decode_fp32_launch")
+
+
+def split_plan_for(q_dtype, bh: int, n_kv: int) -> tuple[int, int]:
+    """(n_split, tiles_per_split) of B6 over ``n_kv`` rows of ``bh``
+    (b, kv head) rows: the tensor-core forms' short splits for a bf16 q,
+    on bf16 and on int8 pools alike, ``split_plan`` for an fp32 q. The
+    form, and so the plan, follows q's dtype, not the pool's (B4's and
+    B7's int8 forms stay on ``split_plan``)."""
+    return decode_split_plan(q_dtype, bh, n_kv)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_lens, *,
@@ -112,8 +150,9 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     q's device. The split is planned over the table's capacity
     (max_pages·page rows), so no host sync is needed; blocks past a
     sequence's ``kv_len`` exit at once. Int8 pools come with their
-    (Hkv, P) fp32 ``k_scales``/``v_scales``. A CUDA tensor launches B6; a
-    CPU tensor runs the plain version.
+    (Hkv, P) fp32 ``k_scales``/``v_scales``. ``split_plan_for`` plans the
+    split for the form q's dtype picks. A CUDA tensor launches B6; a CPU
+    tensor runs the plain version with the same split.
     """
     b, hkv, g, e = q.shape
     hkv_p, n_pages, page_size, e_p = k_pages.shape
@@ -127,7 +166,7 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     if kv_lens.shape != (b,):
         raise ValueError(f"kv_lens must be ({b},), got {tuple(kv_lens.shape)}")
     max_pages = page_table.shape[1]
-    n_split, tps = split_plan(b * hkv, max_pages * page_size)
+    n_split, tps = split_plan_for(q.dtype, b * hkv, max_pages * page_size)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, kv_lens, n_split=n_split,
@@ -139,6 +178,9 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
         raise ValueError(f"unsupported decode shape: G={g}, E={e}")
     quantized = check_paged(q, k_pages, v_pages, page_table, k_scales,
                             v_scales, kv_lens)
+    name = entry_point(q.dtype, quantized)
+    if q.dtype == torch.bfloat16:
+        check_bf16(g, e, q, k_pages, v_pages)
     lib = _build.library("paged_decode_attention")
     o = torch.empty_like(q)
     m_part = torch.empty((b * hkv, n_split, g), dtype=torch.float32,
@@ -147,14 +189,16 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     acc_part = torch.empty((b * hkv, n_split, g, e), dtype=torch.float32,
                            device=q.device)
     scale = (e ** -0.5) if sm_scale is None else sm_scale
-    err = lib.paged_decode_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        _build.ptr(k_scales), _build.ptr(v_scales), page_table.data_ptr(),
-        kv_lens.data_ptr(), o.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), acc_part.data_ptr(), b, hkv, g, n_pages,
-        page_size, max_pages, e, n_split, tps, float(scale),
-        _build.dtype_code(q.dtype), int(quantized),
-        _build.stream_handle(q.device))
-    _build.check(lib, err, "paged_decode_attention_launch")
+    args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    if quantized:
+        args += [k_scales.data_ptr(), v_scales.data_ptr()]
+    args += [page_table.data_ptr(), kv_lens.data_ptr(), o.data_ptr(),
+             m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), b,
+             hkv, g, n_pages, page_size, max_pages, e, n_split, tps,
+             float(scale)]
+    if quantized:
+        args.append(_build.dtype_code(q.dtype))
+    err = getattr(lib, name)(*args, _build.stream_handle(q.device))
+    _build.check(lib, err, name)
     LAUNCHES["paged_decode_int8" if quantized else "paged_decode"] += 1
     return o

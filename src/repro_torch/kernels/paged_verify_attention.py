@@ -19,12 +19,12 @@ another:
 
 * bf16 q and pools (``paged_verify_bf16_launch``, head dim 64 or 128, at
   most 32 rows): the tensor-core design of ``csrc/decode_tc.cuh``, shared
-  with B4's bf16 form, on ``decode_split_plan``'s short splits over the
+  with B4's and B6's bf16 forms, on ``decode_split_plan``'s short splits over the
   table's capacity; a bf16 shape it does not take raises.
 * fp32 q and pools (``paged_verify_fp32_launch``) and int8 pools
-  (``paged_verify_int8_launch``): B6's CUDA-core split-KV design
-  (``csrc/paged_split.cuh``) on ``split_plan``, so that with k = 1 the
-  output is B6's exactly.
+  (``paged_verify_int8_launch``): the CUDA-core split-KV design
+  (``csrc/paged_split.cuh``) on ``split_plan``, which B6's fp32-q forms
+  share, so that with k = 1 and an fp32 q the output is B6's exactly.
 
 Both split the table's capacity (no host sync) and band the tiles as B5
 does: tiles wholly below ``min(q_starts + 1, kv_len)`` run unmasked,

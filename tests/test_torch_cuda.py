@@ -11,8 +11,9 @@ tensors (atol 3e-5: fp32 sums in another order), the int8 branches of
 B4-B7 on int8 caches with their scales, and the wave, continuous and
 speculative engines serve a smoke model on the card with the same tokens
 as on the CPU, on bf16-free fp32 and on int8 caches. The bf16 forms of
-B1, B2, B3, B5 (tensor cores; B5 on bf16 and int8 pools), B4 and B7
-(tensor cores, on their own short splits) are held per output row within
+B1, B2, B3, B5 (tensor cores; B5 on bf16 and int8 pools), B4, B6 (on bf16
+and int8 pools) and B7 (tensor cores, on their own short splits) are held
+per output row within
 4e-3 of the row's L2 norm, the limit ``chip_smoke.py`` uses, and a
 planted zeroed V tile, V page or V scale must break it. B8 (the SSD
 intra-chunk step) and the chunked scan around it are held row by row
@@ -434,17 +435,147 @@ def test_paged_verify_bf16_kernel_matches_plain_per_row(cuda, e, spec,
     _held_per_row(got, plain(), faulty)
 
 
-@pytest.mark.parametrize("kernel", ["decode", "verify"])
+def _paged_decode_bf16_inputs(g, quantized, *, b, hkv, group, page,
+                              max_pages, e):
+    """bf16 q (b, hkv, group, e); bf16 pools, or int8 pools with their
+    per-page scales, of b * max_pages + 1 pages; a shuffled table."""
+    n_pages = b * max_pages + 1
+    k, v = (_bf16(g, hkv, n_pages, page, e) for _ in range(2))
+    sc = {}
+    if quantized:
+        (k, ks), (v, vs) = (quantize_q8(x.float(), (-2, -1)) for x in (k, v))
+        sc = {"k_scales": ks, "v_scales": vs}
+    table = (torch.randperm(n_pages - 1, generator=g, device=g.device)
+             + 1).view(b, max_pages).to(torch.int32).contiguous()
+    return _bf16(g, b, hkv, group, e), k, v, table, sc
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("page", [4, 8, 16])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("e", [64, 128])
+def test_paged_decode_bf16_kernel_matches_plain_per_row(cuda, e, group,
+                                                        page, quantized):
+    """B6's tensor-core form on bf16 pools and on int8 pools (bf16 q):
+    G 1-16 (one m16 tile), pages of 4, 8 and 16 rows (a 16-row slice
+    spans four, two or one page, so the int8 scales are looked up per
+    column), kv_lens 0, 1, 15, 16, 17, 64, 65 and the table's capacity
+    (4096 rows: four tiles a split, more slices a warp than ring slots); a
+    random V, the fault a zeroed V page or, on int8 pools, V scale."""
+    g = torch.Generator(device=cuda).manual_seed(100 + e + group + page)
+    cap = 4096
+    q, k, v, table, sc = _paged_decode_bf16_inputs(
+        g, quantized, b=8, hkv=2, group=group, page=page,
+        max_pages=cap // page, e=e)
+    lens = torch.tensor([0, 1, 15, 16, 17, 64, 65, cap], dtype=torch.int32,
+                        device=cuda)
+    n_split, tps = pdec.split_plan_for(torch.bfloat16, 16, cap)
+    assert tps == dec.TC_MAX_TILES
+    ops.reset_launch_counts()
+    got = pdec.paged_decode_attention_flat(q, k, v, table, lens, **sc)
+    assert ops.launch_counts()[
+        "paged_decode_int8" if quantized else "paged_decode"] == 1
+
+    def plain(v=v, vs=sc.get("v_scales")):
+        kw = dict(sc, v_scales=vs) if quantized else {}
+        return pdec.paged_decode_attention_plain(
+            q, k, v, table, lens, n_split=n_split, tiles_per_split=tps, **kw)
+
+    fault = int(table[7, 1000 // page])            # rows 1000.. of slot 7
+    if quantized:
+        vs = sc["v_scales"].clone()
+        vs[:, fault] = 0
+        faulty = plain(vs=vs)
+    else:
+        vz = v.clone()
+        vz[:, fault] = 0
+        faulty = plain(v=vz)
+    torch.cuda.synchronize()
+    assert float(got[0].abs().max()) == 0.0       # kv_len 0 gives zeros
+    _held_per_row(got, plain(), faulty)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_decode_bf16_kernel_through_ops_at_continuous_shapes(
+        cuda, quantized):
+    """B6 as the continuous engine calls it: ``ops.paged_decode_attention``
+    on (8, 2049, 16, 128) pools, 16 query and 8 kv heads, a 4096-row table
+    a sequence, ``chip_smoke.py``'s kv_lens; 16 splits of 4 tiles."""
+    g = torch.Generator(device=cuda).manual_seed(110 + quantized)
+    b, hq, hkv, e, page, max_pages = 8, 16, 8, 128, 16, 256
+    q, k, v, table, sc = _paged_decode_bf16_inputs(
+        g, quantized, b=b, hkv=hkv, group=hq // hkv, page=page,
+        max_pages=max_pages, e=e)
+    lens = torch.tensor([1, 17, 300, 1000, 1777, 2500, 3100, 3600],
+                        dtype=torch.int32, device=cuda)
+    n_split, tps = pdec.split_plan_for(torch.bfloat16, b * hkv,
+                                       max_pages * page)
+    assert (n_split, tps) == (16, 4)
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q.view(b, hq, e), k, v, table, lens,
+                                     **sc)
+    assert ops.launch_counts()[
+        "paged_decode_int8" if quantized else "paged_decode"] == 1
+
+    def plain(v=v, vs=sc.get("v_scales")):
+        kw = dict(sc, v_scales=vs) if quantized else {}
+        return pdec.paged_decode_attention_plain(
+            q, k, v, table, lens, n_split=n_split, tiles_per_split=tps,
+            **kw).view(b, hq, e)
+
+    fault = int(table[7, 3500 // page])
+    if quantized:
+        vs = sc["v_scales"].clone()
+        vs[:, fault] = 0
+        faulty = plain(vs=vs)
+    else:
+        vz = v.clone()
+        vz[:, fault] = 0
+        faulty = plain(v=vz)
+    torch.cuda.synchronize()
+    _held_per_row(got, plain(), faulty)
+
+
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_paged_verify_bf16_of_one_position_is_paged_decode(cuda, group):
+    """On one core and one plan, B7's bf16 form with k = 1 and q_starts =
+    kv_len - 1 masks exactly what B6's does (every row sees the live
+    context): the two kernels give one output bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(120 + group)
+    q, k, v, table, _ = _paged_decode_bf16_inputs(
+        g, False, b=8, hkv=2, group=group, page=16, max_pages=256, e=128)
+    lens = torch.tensor([0, 1, 17, 300, 1000, 2047, 3100, 4096],
+                        dtype=torch.int32, device=cuda)
+    got = pver.paged_verify_attention_flat(q, k, v, table, lens,
+                                           (lens - 1).clamp(min=0), spec=1)
+    want = pdec.paged_decode_attention_flat(q, k, v, table, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "verify", "paged_decode",
+                                    "paged_decode_int8"])
 def test_bf16_decode_kernels_repeat_bit_for_bit(cuda, kernel):
-    """B4's and B7's tensor-core forms merge their warps and splits in a
-    fixed order, so 300 calls on one input give one output bit for bit;
-    a race in a warp's ring or in the merge of the live splits would not.
-    The shapes are ``chip_smoke.py``'s: B4's ragged batch (kv_lens 1, 300,
-    2060, 8207 of an 8256-row cache, 16 query and 8 kv heads of 128) and
-    B7's eight slots (k 4, G 2) on an (8, 2049, 16, 128) pool."""
+    """B4's, B6's and B7's tensor-core forms merge their warps and splits
+    in a fixed order, so 300 calls on one input give one output bit for
+    bit; a race in a warp's ring or in the merge of the live splits would
+    not. The shapes are ``chip_smoke.py``'s: B4's ragged batch (kv_lens 1,
+    300, 2060, 8207 of an 8256-row cache, 16 query and 8 kv heads of 128),
+    B6's eight sequences (kv_lens 1-3600, G 2) on (8, 2049, 16, 128) bf16
+    and int8 pools, and B7's eight slots (k 4, G 2) on the bf16 pool."""
     g = torch.Generator(device=cuda).manual_seed(7)
     hkv, e = 8, 128
-    if kernel == "decode":
+    if kernel.startswith("paged_decode"):
+        q, k, v, table, sc = _paged_decode_bf16_inputs(
+            g, kernel.endswith("_int8"), b=8, hkv=hkv, group=2, page=16,
+            max_pages=256, e=e)
+        lens = torch.tensor([1, 17, 300, 1000, 1777, 2500, 3100, 3600],
+                            dtype=torch.int32, device=cuda)
+
+        def call():
+            return pdec.paged_decode_attention_flat(q, k, v, table, lens,
+                                                    **sc)
+    elif kernel == "decode":
         s_len, kv = 8256, [1, 300, 2060, 8207]
         q = _bf16(g, len(kv) * hkv, 2, e)
         k, v = (_bf16(g, len(kv) * hkv, s_len, e) for _ in range(2))
@@ -474,9 +605,10 @@ def test_bf16_decode_kernels_repeat_bit_for_bit(cuda, kernel):
 
 
 def test_bf16_decode_kernels_refuse_what_they_do_not_take(cuda):
-    """A bf16 decode or verify runs the tensor-core kernels or raises: head
-    dim 32, more than 16 heads a group or 32 rows a kv head, and operands
-    off 16-byte alignment reach no kernel."""
+    """A bf16 decode, paged decode (bf16 or int8 pools) or verify runs the
+    tensor-core kernels or raises: head dim 32, more than 16 heads a group
+    or 32 rows a kv head, and operands off 16-byte alignment reach no
+    kernel."""
     g = torch.Generator(device=cuda).manual_seed(42)
     lens = torch.tensor([10, 20], dtype=torch.int32, device=cuda)
     ops.reset_launch_counts()
@@ -503,6 +635,19 @@ def test_bf16_decode_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         pver.paged_verify_attention_flat(q, pool, pool, table, lens, starts,
                                          spec=4)
+    # B6, on bf16 pools and on int8 pools with a bf16 q
+    for e, group, match in ((32, 2, "bf16"), (128, 17, "G=17")):
+        pool = _bf16(g, 2, 17, 16, e)
+        (pool8, sc8) = quantize_q8(pool.float(), (-2, -1))
+        q = _bf16(g, 2, 2, group, e)
+        with pytest.raises(ValueError, match=match):
+            pdec.paged_decode_attention_flat(q, pool, pool, table, lens)
+        with pytest.raises(ValueError, match=match):
+            pdec.paged_decode_attention_flat(q, pool8, pool8, table, lens,
+                                             k_scales=sc8, v_scales=sc8)
+    q = _bf16(g, 2 * 2 * 2 * 128 + 1)[1:].view(2, 2, 2, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        pdec.paged_decode_attention_flat(q, pool, pool, table, lens)
     assert sum(ops.launch_counts().values()) == 0
 
 

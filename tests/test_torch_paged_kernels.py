@@ -21,6 +21,7 @@ from repro.kernels import common as jcommon
 from repro.kernels import ops as jops
 from repro.models import attention as jattn
 from repro_torch.kernels import common as tcommon
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_decode_attention as tpdec
 from repro_torch.kernels import paged_prefill_attention as tppre
@@ -139,10 +140,11 @@ def test_paged_decode_matches_pallas_and_twin(group, page, max_pages, lens):
 
 
 def test_paged_decode_split_covers_the_table_capacity():
-    # 32 (b, kv head) rows over 80 pages of 16: the split is planned over
-    # the 1280 rows of the table without reading kv_lens
-    n_split, tps = tpdec.split_plan(4 * 8, 80 * 16)
-    assert n_split * tps * 64 >= 80 * 16 > (n_split - 1) * tps * 64
+    # 32 (b, kv head) rows over 80 pages of 16: the split of either form
+    # is planned over the 1280 rows of the table without reading kv_lens
+    for dtype in (torch.float32, torch.bfloat16):
+        n_split, tps = tpdec.split_plan_for(dtype, 4 * 8, 80 * 16)
+        assert n_split * tps * 64 >= 80 * 16 > (n_split - 1) * tps * 64
     # and the merge of three one-tile splits equals one three-tile split
     k, v = _pools(3, 8)
     table = np.random.default_rng(3).integers(1, N_PAGES, size=(2, 20),
@@ -160,6 +162,50 @@ def test_paged_decode_split_covers_the_table_capacity():
         to_torch(q).reshape(2, HKV * 2, E), *args[1:],
         impl="plain").reshape(2, HKV, 2, E)
     assert_close(split, want, FP32_ATOL)
+
+
+def test_paged_decode_plan_follows_the_form_q_picks():
+    """B6's tensor-core forms (a bf16 q, on bf16 pools and on int8 pools)
+    take the short splits: at the continuous engine's shape (8 sequences
+    x 8 kv heads over a 4096-row table) 16 splits of 4 tiles. An fp32 q
+    keeps split_plan, and so do B4's and B7's int8 forms, whose plan keys
+    on the cache. The plain version gives one answer under either plan,
+    on bf16 and on int8 pools, and the CPU wrapper takes the form's plan."""
+    assert tpdec.split_plan_for(torch.bfloat16, 64, 4096) == (16, 4)
+    assert tpdec.split_plan_for(torch.float32, 64, 4096) == \
+        tdec.split_plan(64, 4096)
+    assert tdec.decode_split_plan(torch.int8, 64, 4096) == \
+        tdec.split_plan(64, 4096) == (5, 13)
+    assert tpdec.entry_point(torch.bfloat16, True) == \
+        "paged_decode_int8_launch"
+    # 32 sequences x 2 kv heads over 84 pages of 16: the plans differ,
+    # (6, 4) against (5, 5)
+    b, page, max_pages = 32, 16, 84
+    rng = np.random.default_rng(20)
+    k, v = (to_torch(rng.standard_normal((HKV, b * max_pages + 1, page, E),
+                                         dtype=np.float32))
+            for _ in range(2))
+    table = torch.from_numpy(rng.permutation(b * max_pages).astype(np.int32)
+                             .reshape(b, max_pages) + 1)
+    lens = torch.from_numpy(rng.integers(0, max_pages * page + 1, size=b)
+                            .astype(np.int32))
+    q = to_torch(rand(22, (b, HKV, 2, E)))
+    plans = [tpdec.split_plan_for(dtype, b * HKV, max_pages * page)
+             for dtype in (torch.bfloat16, torch.float32)]
+    assert plans == [(6, 4), (5, 5)]
+    (k8, ks), (v8, vs) = (tcommon.quantize_q8(x, (-2, -1)) for x in (k, v))
+    for kp, vp, sc in ((k, v, {}), (k8, v8, {"k_scales": ks,
+                                              "v_scales": vs})):
+        outs = [tpdec.paged_decode_attention_plain(
+            q, kp, vp, table, lens, n_split=n, tiles_per_split=t, **sc)
+            for n, t in plans]
+        assert_close(outs[0], outs[1], 1e-5)
+        qb = q.bfloat16()
+        assert torch.equal(
+            tpdec.paged_decode_attention_flat(qb, kp, vp, table, lens, **sc),
+            tpdec.paged_decode_attention_plain(
+                qb, kp, vp, table, lens, n_split=plans[0][0],
+                tiles_per_split=plans[0][1], **sc))
 
 
 # ---------------------------------------------------------------------------

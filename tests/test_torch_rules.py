@@ -10,10 +10,10 @@
   and its bf16 limit admits one rounding of a kernel's output but not a
   skipped KV tile, nor, on an int8 cache, a zeroed V scale, nor for B8 a
   zeroed X tile;
-* a bf16 tensor reaches B1, B2, B3, B5 and, on bf16 caches, B4 and B7
-  only through their tensor-core forms, chosen by dtype in the wrapper,
-  with no ``try`` to fall back from, and ``chip_smoke.py`` counts each
-  kernel's tensor-core instructions.
+* a bf16 tensor reaches B1, B2, B3, B5, B6 (on bf16 and int8 pools) and,
+  on bf16 caches, B4 and B7 only through their tensor-core forms, chosen
+  by dtype in the wrapper, with no ``try`` to fall back from, and
+  ``chip_smoke.py`` counts each kernel's tensor-core instructions.
 """
 
 from __future__ import annotations
@@ -305,6 +305,17 @@ def test_chip_smoke_ptxas_report_names_each_kernel():
         "'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 247 registers, used 1 barriers",
+        # B6's tensor-core form on an int8 pool and its merge pass
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124paged_"
+        "decode_bf16_kernelILi128EaEEvPK13__nv_bfloat16PKT0_S6_PKfS8_PKiSA_"
+        "PfSB_SB_iiiiiif' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 154 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_130paged_"
+        "decode_bf16_merge_kernelILi128EEEvPKfS2_S2_PKiP13__nv_bfloat16iiiii'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 4352 bytes smem",
     ])
     report = _chip_smoke().ptxas_report(log)
     assert list(report.values()) == [
@@ -312,12 +323,16 @@ def test_chip_smoke_ptxas_report_names_each_kernel():
         {"spill_bytes": 0, "registers": 32},
         {"spill_bytes": 0, "registers": 128},
         {"spill_bytes": 0, "registers": 40},
-        {"spill_bytes": 0, "registers": 247}]
+        {"spill_bytes": 0, "registers": 247},
+        {"spill_bytes": 0, "registers": 154},
+        {"spill_bytes": 0, "registers": 40}]
     names = list(report)
     assert "split_combine_kernel" in names[0] and "kernel" in names[1]
     assert "decode_bf16_kernel" in names[2]
     assert "decode_bf16_merge_kernel" in names[3]
     assert "paged_verify_bf16_kernel" in names[4]
+    assert "paged_decode_bf16_kernel" in names[5]
+    assert "paged_decode_bf16_merge_kernel" in names[6]
     assert _chip_smoke().ptxas_report("") == {}
 
 
@@ -368,6 +383,18 @@ def test_chip_smoke_sass_report_counts_tensor_core_instructions():
         "16S3_S3_PKiS5_S5_PfS6_S6_iiiiiiif",
         "        /*0500*/                   HMMA.16816.F32.BF16 R4, R8, R12,"
         " R4 ;",
+        # B6's tensor-core forms, on a bf16 and on an int8 pool
+        "\t\tFunction : _ZN12_GLOBAL__N_124paged_decode_bf16_kernelILi128E13"
+        "__nv_bfloat16EEvPKS1_PKT0_S6_PKfS8_PKiSA_PfSB_SB_iiiiiif",
+        "        /*0600*/                   HMMA.16816.F32.BF16 R4, R8, R12,"
+        " R4 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_124paged_decode_bf16_kernelILi128EaEE"
+        "vPK13__nv_bfloat16PKT0_S6_PKfS8_PKiSA_PfSB_SB_iiiiiif",
+        "        /*0700*/                   PRMT R5, R4, 0x7440, R9 ;",
+        "        /*0710*/                   HMMA.16816.F32.BF16 R4, R8, R12,"
+        " R4 ;",
+        "        /*0720*/                   HMMA.16816.F32.BF16 R4, R8, R14,"
+        " R4 ;",
     ])
     report = _chip_smoke().sass_report(listing)
     assert list(report.values()) == [{"hmma": 2, "hgmma": 0},
@@ -375,13 +402,17 @@ def test_chip_smoke_sass_report_counts_tensor_core_instructions():
                                      {"hmma": 1, "hgmma": 0},
                                      {"hmma": 0, "hgmma": 3},
                                      {"hmma": 2, "hgmma": 0},
-                                     {"hmma": 1, "hgmma": 0}]
+                                     {"hmma": 1, "hgmma": 0},
+                                     {"hmma": 1, "hgmma": 0},
+                                     {"hmma": 2, "hgmma": 0}]
     names = list(report)
     assert "flash_bf16_kernel" in names[0]
     assert "mas_resident_bf16_kernel" in names[2]
     assert "paged_prefill_bf16_kernel" in names[3]
     assert "decode_bf16_kernel" in names[4]
     assert "paged_verify_bf16_kernel" in names[5]
+    assert "paged_decode_bf16_kernel<128, __nv_bfloat16>" in names[6]
+    assert "paged_decode_bf16_kernel<128, signed char>" in names[7]
     assert _chip_smoke().sass_report("") == {}
 
 
@@ -397,8 +428,11 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     assert ppre.entry_point(bf16) == "paged_prefill_bf16_launch"
     assert ppre.entry_point(fp32) == "paged_prefill_fp32_launch"
     # B4 and B7: bf16 caches on the tensor cores, int8 caches (of either
-    # query dtype) and fp32 on the CUDA cores
-    for mod, stem in ((tdec, "decode"), (ppver, "paged_verify")):
+    # query dtype) and fp32 on the CUDA cores; B6: a bf16 q on the tensor
+    # cores on bf16 and on int8 pools (the int8 entry point picks the form
+    # by the query's dtype code), an fp32 q on the CUDA cores
+    for mod, stem in ((tdec, "decode"), (ppver, "paged_verify"),
+                      (ppdec, "paged_decode")):
         assert mod.entry_point(bf16, False) == f"{stem}_bf16_launch"
         assert mod.entry_point(fp32, False) == f"{stem}_fp32_launch"
         assert mod.entry_point(bf16, True) == f"{stem}_int8_launch"
@@ -408,14 +442,16 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
                lambda: tflash.entry_point(torch.float16),
                lambda: ppre.entry_point(torch.float16),
                lambda: tdec.entry_point(torch.float16, False),
-               lambda: ppver.entry_point(torch.float16, True)):
+               lambda: ppver.entry_point(torch.float16, True),
+               lambda: ppdec.entry_point(torch.float16, False)):
         with pytest.raises(TypeError):
             fn()
     sigs = {**_build.SIGNATURES["mas_attention"],
             **_build.SIGNATURES["flash_attention"],
             **_build.SIGNATURES["paged_prefill_attention"],
             **_build.SIGNATURES["decode_attention"],
-            **_build.SIGNATURES["paged_verify_attention"]}
+            **_build.SIGNATURES["paged_verify_attention"],
+            **_build.SIGNATURES["paged_decode_attention"]}
     for name in ("mas_streamed_bf16_launch", "mas_streamed_fp32_launch",
                  "mas_resident_bf16_launch", "mas_resident_fp32_launch",
                  "flash_attention_bf16_launch",
@@ -423,10 +459,11 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
                  "paged_prefill_fp32_launch", "decode_bf16_launch",
                  "decode_fp32_launch", "decode_int8_launch",
                  "paged_verify_bf16_launch", "paged_verify_fp32_launch",
-                 "paged_verify_int8_launch"):
+                 "paged_verify_int8_launch", "paged_decode_bf16_launch",
+                 "paged_decode_fp32_launch", "paged_decode_int8_launch"):
         assert name in sigs
     # ... with no try to fall back from ...
-    for module in (tmas, tflash, ppre, tdec, ppver):
+    for module in (tmas, tflash, ppre, tdec, ppver, ppdec):
         tree = ast.parse(Path(module.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     # ... and the CUDA-core forms of B1, B2, B3 and B5 exist only in fp32
@@ -455,5 +492,14 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     assert "paged_split_launch<__nv_bfloat16, int8_t," in ver_cu
     assert "paged_split_launch<__nv_bfloat16, __nv_bfloat16" not in ver_cu
     assert "paged_split_dispatch" not in ver_cu
-    for cu in (dec_cu, ver_cu):
+    # ... and B6's CUDA-core form for an fp32 q only: a bf16 q, on bf16 or
+    # int8 pools, never reaches it
+    pdec_cu = (csrc / "paged_decode_attention.cu").read_text()
+    assert "paged_split_launch<float, float," in pdec_cu
+    assert "paged_split_launch<float, int8_t," in pdec_cu
+    assert "paged_split_launch<__nv_bfloat16" not in pdec_cu
+    assert "paged_split_dispatch" not in pdec_cu
+    assert "dispatch_tc<__nv_bfloat16>" in pdec_cu
+    assert "dispatch_tc<int8_t>" in pdec_cu
+    for cu in (dec_cu, ver_cu, pdec_cu):
         assert '#include "decode_tc.cuh"' in cu

@@ -1,5 +1,5 @@
 """The rounding of the bf16 tensor-core kernels (the bf16 forms of B1,
-B2, B3, B4, B5 and B7), emulated on the CPU and held to their plain
+B2, B3, B4, B5, B6 and B7), emulated on the CPU and held to their plain
 versions.
 
 The kernels read Q, K and V in bf16, sum S = Q K^T in fp32 (exact bf16
@@ -22,13 +22,17 @@ softmax), held to the plain version at B1's block height (32) and B2's
 paged pool; on an int8 pool its tiles hold the int8 values as bf16
 (exact: every value in -127..127 has 8 significant bits), the K scale
 multiplies the score and the V scale multiplies P after the row sum and
-before the split. B4 and B7 (``csrc/decode_tc.cuh``) cut the keys into
-short splits of 1-4 64-row tiles (``decode_split_plan``); each of a
+before the split. B4, B6 and B7 (``csrc/decode_tc.cuh``) cut the keys
+into short splits of 1-4 64-row tiles (``decode_split_plan``); each of a
 block's four warps walks 16-row slices with an online softmax of its
 own, the block merges its warps and a second pass the splits, in fp32.
 B4's case is one query row on each of 32 (b, kv head) rows over 1900
 live keys of a 2000-row cache, B7's eight position-major rows (k = 4,
-G = 2) ending at 1000 keys of shuffled 16-row pages.
+G = 2) ending at 1000 keys of shuffled 16-row pages, B6's two rows (G =
+2) over 1900 keys of shuffled 16-row pages, on a bf16 pool and on an
+int8 pool: its slices hold the int8 values as bf16, the K scale of each
+column multiplies the score and the V scale multiplies P after the row
+sum and before the split.
 
 Run as a script, it prints the row errors.
 """
@@ -42,6 +46,7 @@ import torch
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import mas_attention as tmas
+from repro_torch.kernels import paged_decode_attention as tpdec
 from repro_torch.kernels import paged_prefill_attention as tppre
 from repro_torch.kernels import paged_verify_attention as tpver
 from repro_torch.kernels.common import (
@@ -174,15 +179,20 @@ def _merge(parts):
 
 
 def split_emulated(q, k, v, *, split: bool, kv_len: int, tiles: int,
-                   q_pos=None):
-    """B4's and B7's bf16 forms: q (H, R, E), k, v (H, S, E) bf16; row r
-    sees the keys below kv_len (and at or before q_pos[r]). Splits of
-    ``tiles`` 64-row tiles (``decode_split_plan``'s); warp w of a split takes its 16-row slices
-    w, w + 4, ..., each with an online softmax whose P (zero where masked)
-    enters P V as one bf16 product or as hi + lo; the warps, then the
-    splits, are merged in fp32, and the output rounded to bf16."""
+                   q_pos=None, k_scale=None, v_scale=None):
+    """B4's, B6's and B7's bf16 forms: q (H, R, E), k, v (H, S, E) bf16
+    (an int8 pool's values held as bf16, with (H, S) per-column scales);
+    row r sees the keys below kv_len (and at or before q_pos[r]). Splits
+    of ``tiles`` 64-row tiles (``decode_split_plan``'s); warp w of a
+    split takes its 16-row slices w, w + 4, ..., each with an online
+    softmax whose P (zero where masked; times the column's V scale after
+    the row sum) enters P V as one bf16 product or as hi + lo; the warps,
+    then the splits, are merged in fp32, and the output rounded to
+    bf16."""
     heads, rows, _ = q.shape
     s_all = (q.float() @ k.float().transpose(1, 2)) * E ** -0.5
+    if k_scale is not None:
+        s_all = s_all * k_scale[:, None, :]
     cols = torch.arange(k.shape[1]).view(1, -1)
     keep = cols < kv_len
     if q_pos is not None:
@@ -203,6 +213,8 @@ def split_emulated(q, k, v, *, split: bool, kv_len: int, tiles: int,
                 p = torch.where(s == NEG_INF, 0.0, torch.exp(s - m_new))
                 alpha = torch.exp(m - m_new)
                 l = l * alpha + p.sum(dim=-1, keepdim=True)
+                if v_scale is not None:
+                    p = p * v_scale[:, None, c0:c0 + SLICE]
                 acc = acc * alpha + _pv(p, v[:, c0:c0 + SLICE], split)
                 m = m_new
             warps.append((m, l, acc))
@@ -257,6 +269,42 @@ def _verify_case(seed: int):
     return emulate, want, (v, {})
 
 
+def _paged_decode_case(seed: int, quantized: bool):
+    """B6's case on shuffled 16-row pages, bf16 or int8 with per-page
+    scales: (emulate, plain output, (v_pages, scales))."""
+    rng = np.random.default_rng(seed)
+    n_pages = DEC_LEN // PAGE + 8
+    q = torch.from_numpy(rng.standard_normal((1, HEADS, VER_G, E),
+                                             dtype=np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (HEADS, n_pages, PAGE, E), dtype=np.float32)) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(n_pages - 1) + 1).to(
+        torch.int32)[None]
+    sc = {}
+    if quantized:
+        (k, ks), (v, vs) = quantize_q8(k, (-2, -1)), quantize_q8(v, (-2, -1))
+        sc = {"k_scales": ks, "v_scales": vs}
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    lens = torch.tensor([DEC_LEN], dtype=torch.int32)
+    n_split, tps = tpdec.split_plan_for(torch.bfloat16, HEADS,
+                                        table.shape[1] * PAGE)
+    want = tpdec.paged_decode_attention_plain(
+        q, k, v, table, lens, n_split=n_split, tiles_per_split=tps, **sc)[0]
+
+    def emulate(split, v_=None, vs=None):
+        kw = {}
+        if quantized:
+            kw = {"k_scale": page_scales(sc["k_scales"], table[0], PAGE),
+                  "v_scale": page_scales(sc["v_scales"] if vs is None
+                                         else vs, table[0], PAGE)}
+        vp = v if v_ is None else v_
+        return split_emulated(q[0], gather_pages(k, table[0]).bfloat16(),
+                              gather_pages(vp, table[0]).bfloat16(),
+                              split=split, kv_len=DEC_LEN, tiles=tps, **kw)
+    return emulate, want, (v, sc)
+
+
 def row_rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     return float(((got - want).norm(dim=-1)
@@ -264,7 +312,7 @@ def row_rel_err(got, want) -> float:
 
 
 KERNELS = ["mas", "mas_resident", "flash", "paged", "paged_int8", "decode",
-           "verify"]
+           "verify", "paged_decode", "paged_decode_int8"]
 
 
 def _case(kernel: str, seed: int):
@@ -274,6 +322,8 @@ def _case(kernel: str, seed: int):
         return _decode_case(seed)
     if kernel == "verify":
         return _verify_case(seed)
+    if kernel.startswith("paged_decode"):
+        return _paged_decode_case(seed, kernel.endswith("_int8"))
     if kernel.startswith("paged"):
         quantized = kernel == "paged_int8"
         q, k, v, table, sc = _paged_inputs(seed, quantized)
@@ -321,13 +371,13 @@ def test_hi_lo_p_fits_the_bf16_row_limit_with_room(kernel):
 def test_emulation_sees_a_skipped_v_tile(kernel):
     emulate, _, (v, sc) = _case(kernel, 1)
     want = emulate(True)
-    if kernel == "paged_int8":    # a page's V scale zeroed
+    if kernel.endswith("_int8"):  # a page's V scale zeroed
         vs = sc["v_scales"].clone()
         vs[:, 3] = 0
         faulty = emulate(True, vs=vs)
     else:                         # a 64-row V tile (or its pages) zeroed
         v_bad = v.clone()
-        if kernel in ("paged", "verify"):
+        if kernel in ("paged", "verify", "paged_decode"):
             v_bad[:, 3] = 0
         else:
             v_bad[:, BLK_KV:2 * BLK_KV] = 0
