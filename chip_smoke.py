@@ -12,8 +12,8 @@ Phases, each printing one JSON line:
    every kernel from ``src/repro_torch/kernels/csrc``, each kernel's
    registers and spills (``ptxas``) and its tensor-core instructions
    (``HMMA``, ``HGMMA`` in ``cuobjdump -sass``), which the bf16 forms of
-   B1-B7 must have (``HMMA`` for B1, B2, B4, B6 on bf16 and on int8
-   pools, and B7, ``HGMMA`` for B3 and B5);
+   B1-B7 must have (``HMMA`` for B1, B2, and B4, B6 and B7 on bf16 and on
+   int8 caches, in each of their forms; ``HGMMA`` for B3 and B5);
 2. fp32 checks — each kernel against its plain version in fp32 on small
    ragged shapes (padding, kv tails, a sliding window, ragged decode; for
    the paged kernels shuffled page tables, kv_len 0, 1 and mid-page, a
@@ -462,10 +462,14 @@ def phase_device(torch, build) -> dict:
         found = {k: c for k, c in sass[lib].items() if kernel in k}
         require(bool(found) and all(c[kind] > 0 for c in found.values()),
                 f"{kernel}: no {kind.upper()} instruction in {found}")
-    # B6's tensor-core form at head dims 64 and 128 on bf16 and int8 pools
-    forms = [k for k in sass["paged_decode_attention"]
-             if "paged_decode_bf16_kernel" in k]
-    require(len(forms) == 4, f"paged_decode_bf16_kernel: forms {forms}")
+    # the tensor-core forms of B4 and B6 at head dims 64 and 128 on bf16
+    # and int8 caches, and B7's also at one and two m16 tiles of rows
+    for lib, kernel, n_forms in (
+            ("decode_attention", "decode_bf16_kernel", 4),
+            ("paged_decode_attention", "paged_decode_bf16_kernel", 4),
+            ("paged_verify_attention", "paged_verify_bf16_kernel", 8)):
+        forms = [k for k in sass[lib] if kernel in k]
+        require(len(forms) == n_forms, f"{kernel}: forms {forms}")
     return info
 
 
@@ -511,13 +515,13 @@ def phase_fp32(torch) -> dict:
     lens = torch.tensor([0, 1, 63, 64, 200, 333], dtype=torch.int32,
                         device=dev)
     out = dec.decode_attention_flat(qd, kd, vd, lens)
-    n_split, tps = dec.decode_split_plan(kd.dtype, 6, 333)
+    n_split, tps = dec.decode_split_plan(qd.dtype, 6, 333)
     ref = dec.decode_attention_plain(qd, kd, vd, lens, n_split=n_split,
                                      tiles_per_split=tps)
     errs["decode"] = max_err(out, ref)
     (kq, ks), (vq, vs) = quantize_q8(kd, -1), quantize_q8(vd, -1)
     out = dec.decode_attention_flat(qd, kq, vq, lens, k_scale=ks, v_scale=vs)
-    n_split, tps = dec.decode_split_plan(kq.dtype, 6, 333)
+    n_split, tps = dec.decode_split_plan(qd.dtype, 6, 333)
     ref = dec.decode_attention_plain(qd, kq, vq, lens, n_split=n_split,
                                      tiles_per_split=tps, k_scale=ks,
                                      v_scale=vs)
@@ -533,7 +537,7 @@ def phase_fp32(torch) -> dict:
                         device=dev)
     qd = rnd(6, 2, 2, 64)
     out = pdec.paged_decode_attention_flat(qd, kp, vp, table, lens)
-    n_split, tps = pdec.split_plan_for(qd.dtype, 12, 160)
+    n_split, tps = dec.decode_split_plan(qd.dtype, 12, 160)
     ref = pdec.paged_decode_attention_plain(qd, kp, vp, table, lens,
                                             n_split=n_split,
                                             tiles_per_split=tps)
@@ -553,7 +557,7 @@ def phase_fp32(torch) -> dict:
                                                                    (-2, -1))
     q8 = dict(k_scales=kps, v_scales=vps)
     out = pdec.paged_decode_attention_flat(qd, kp8, vp8, table, lens, **q8)
-    n_split, tps = pdec.split_plan_for(qd.dtype, 12, 160)
+    n_split, tps = dec.decode_split_plan(qd.dtype, 12, 160)
     ref = pdec.paged_decode_attention_plain(qd, kp8, vp8, table, lens,
                                             n_split=n_split,
                                             tiles_per_split=tps, **q8)
@@ -577,7 +581,7 @@ def phase_fp32(torch) -> dict:
                             ("paged_verify_int8", (kp8, vp8), q8)):
         out = pver.paged_verify_attention_flat(qv, *pools, table, lens,
                                                starts, spec=4, **kw)
-        n_split, tps = dec.decode_split_plan(pools[0].dtype, 12, 160)
+        n_split, tps = dec.decode_split_plan(qv.dtype, 12, 160)
         ref = pver.paged_verify_attention_plain(
             qv, *pools, table, lens, starts, spec=4, n_split=n_split,
             tiles_per_split=tps, **kw)
@@ -754,7 +758,7 @@ def decode_row(torch, rnd, cfg, quantized: bool) -> dict:
         vc, vs = quantized_rows(rnd(b, hkv, MAX_LEN, e), dims)
         sc = dict(k_scale=ks, v_scale=vs)
         for kv_len in (n + 1, n + NEW_TOKENS - 1):
-            n_split, tps = dec.decode_split_plan(kc.dtype, b * hkv, kv_len)
+            n_split, tps = dec.decode_split_plan(qd.dtype, b * hkv, kv_len)
             lens = torch.full((b * hkv,), kv_len, dtype=torch.int32,
                               device="cuda")
 
@@ -782,7 +786,7 @@ def decode_row(torch, rnd, cfg, quantized: bool) -> dict:
     v, vs = quantized_rows(rnd(b * hkv, MAX_LEN, e), dims)
     kv = torch.tensor(DECODE_KV_LENS, dtype=torch.int32, device="cuda")
     lens = kv.repeat_interleave(hkv)
-    n_split, tps = dec.decode_split_plan(k.dtype, b * hkv, MAX_LEN)
+    n_split, tps = dec.decode_split_plan(q.dtype, b * hkv, MAX_LEN)
     kern = lambda: dec.decode_attention_flat(  # noqa: E731
         q, k, v, lens, k_scale=ks, v_scale=vs)
 
@@ -884,7 +888,7 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
     lens = torch.tensor(PAGED_DECODE_KV_LENS, dtype=torch.int32,
                         device="cuda")
     qd = rnd(b, hq, e)
-    n_split, tps = pdec.split_plan_for(qd.dtype, b * hkv, max_pages * page)
+    n_split, tps = dec.decode_split_plan(qd.dtype, b * hkv, max_pages * page)
     kern = lambda: ops.paged_decode_attention(  # noqa: E731
         qd, kp, vp, table, lens, **sc)
 
@@ -980,7 +984,7 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
     n_rows = lens.clamp(max=spec)
     starts = (lens - n_rows).contiguous()
     qv = rnd(b, hkv, spec * grp, e)           # position-major rows
-    n_split, tps = dec.decode_split_plan(kp.dtype, b * hkv, max_pages * page)
+    n_split, tps = dec.decode_split_plan(qv.dtype, b * hkv, max_pages * page)
     kern = lambda: pver.paged_verify_attention_flat(  # noqa: E731
         qv, kp, vp, table, lens, starts, spec=spec, **sc)
 

@@ -2,7 +2,7 @@
 """Trace the serving paths of the PyTorch port on one GPU.
 
 Serves full-width internlm2-1.8b (bf16, random weights from seed 0) on
-four paths, each once to warm up, once untraced and once under
+six paths, each once to warm up, once untraced and once under
 ``torch.profiler``, and prints one JSON line a path:
 
 * ``continuous``: the requests of ``chip_smoke.py``'s continuous phase
@@ -15,26 +15,33 @@ four paths, each once to warm up, once untraced and once under
 * ``speculative``: the same lengths as ``chip_smoke.py``'s speculative
   phase (prompts that repeat one random 64-token span, seed 2), served
   with ``spec_depth=4``: B7 on its verify steps;
+* ``speculative_int8``: the same on int8 pools: B7's int8 form;
 * ``wave``: ``chip_smoke.py``'s 4 x 2048 wave through ``ServingEngine``
-  (16 new tokens): B2 on the prefill, B4 on the decode steps.
+  (16 new tokens): B2 on the prefill, B4 on the decode steps;
+* ``int8_wave``: the same wave on an int8 cache (``kv_dtype="int8"``):
+  B4's int8 form.
 
 Each line holds the serve's wall time untraced and traced, the device's
 busy share over the traced serve, the busy share and time of each step
 kind (``decode``, ``chunk``, ``chunk+decode``, ``verify``; the wave's
 ``prefill`` and ``wave_decode``), and device time by kernel group and by
 kernel. Kernels are grouped by name alone. The tensor-core forms of B4,
-B6 (bf16 and int8 pools alike) and B7 and their merge passes have names
-of their own; the CUDA-core pass 1 of B6's fp32-q forms and B7's fp32
-and int8 forms (``paged_split_kernel``) and the merge pass of every
-CUDA-core form (``split_combine_kernel``) are groups of their own, which
-none of these paths reaches (in trees before B6's tensor-core form they
-held B6); the per-kernel list keeps each kernel's template arguments.
+B6 and B7 (bf16 and int8 caches alike) and their merge passes have names
+of their own; the CUDA-core pass 1 of B4's fp32-q forms
+(``decode_split_kernel``, grouped with B4), of B6's and B7's
+(``paged_split_kernel``) and the merge pass of every CUDA-core form
+(``split_combine_kernel``) are groups of their own, which none of these
+paths reaches (in trees before the int8 forms' move to the tensor cores
+they held B4 int8, B6 and B7 int8); the per-kernel list keeps each
+kernel's template arguments.
 Tracing slows the host, not the device, so the device time is also set
 against the untraced serve's wall time.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
-    python3 scripts/trace_continuous.py
+    python3 scripts/trace_continuous.py [PATH ...]
+
+Naming paths traces only those (each path takes minutes of the card).
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ CONT = dict(batch_size=8, max_len=4096, page_size=16, chunk_size=512)
 REQUESTS, NEW_TOKENS, PROMPT_LENS = 16, 32, (32, 3500)
 SPEC_DEPTH, SPEC_SPAN = 4, 64
 WAVE, WAVE_NEW_TOKENS, WAVE_MAX_LEN = (4, 2048), 16, 8256
+PATHS = ("continuous", "int8_continuous", "speculative", "speculative_int8",
+         "wave", "int8_wave")
 # kernel name fragments -> group, first match wins
 GROUPS = (("paged_prefill", "B5 paged_prefill"),
           ("paged_verify", "B7 paged_verify"),
@@ -167,6 +176,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    paths = set(sys.argv[1:]) or set(PATHS)
+    if paths - set(PATHS):
+        print(f"error: unknown paths {sorted(paths - set(PATHS))}, "
+              f"known: {PATHS}", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
@@ -202,7 +216,10 @@ def main() -> int:
     for path, ps, spec, kv_dtype in (
             ("continuous", prompts, None, None),
             ("int8_continuous", prompts, None, "int8"),
-            ("speculative", spec_prompts, SPEC_DEPTH, None)):
+            ("speculative", spec_prompts, SPEC_DEPTH, None),
+            ("speculative_int8", spec_prompts, SPEC_DEPTH, "int8")):
+        if path not in paths:
+            continue
         eng = ContinuousBatchingEngine(model, params, device="cuda",
                                        spec_depth=spec, kv_dtype=kv_dtype,
                                        **CONT)
@@ -218,15 +235,23 @@ def main() -> int:
     batch, n = WAVE
     wave = [rng.integers(3, cfg.vocab_size, size=(n,)).astype(np.int32)
             for _ in range(batch)]
-    eng = ServingEngine(model, params, max_len=WAVE_MAX_LEN,
-                        batch_size=batch, device="cuda")
-    eng._prefill = marked(torch, eng._prefill, lambda *a: "prefill")
-    eng._decode = marked(torch, eng._decode, lambda *a: "wave_decode")
-    out = traced(torch, lambda: eng.serve(requests(wave, WAVE_NEW_TOKENS)))
-    print(json.dumps({"path": "wave", "device": header["device"],
-                      "batch": batch, "prompt": n,
-                      "new_tokens": WAVE_NEW_TOKENS,
-                      **summary(torch, *out)}), flush=True)
+    for path, kv_dtype in (("wave", None), ("int8_wave", "int8")):
+        if path not in paths:
+            continue
+        eng = ServingEngine(model, params, max_len=WAVE_MAX_LEN,
+                            batch_size=batch, kv_dtype=kv_dtype,
+                            device="cuda")
+        eng._prefill = marked(torch, eng._prefill, lambda *a: "prefill")
+        eng._decode = marked(torch, eng._decode, lambda *a: "wave_decode")
+        out = traced(torch,
+                     lambda: eng.serve(requests(wave, WAVE_NEW_TOKENS)))
+        print(json.dumps({"path": path, "device": header["device"],
+                          "batch": batch, "prompt": n,
+                          "new_tokens": WAVE_NEW_TOKENS,
+                          "kv_dtype": kv_dtype or "bf16",
+                          **summary(torch, *out)}), flush=True)
+        del eng
+        torch.cuda.empty_cache()
     return 0
 
 

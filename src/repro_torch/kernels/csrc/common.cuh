@@ -1,10 +1,11 @@
 // Shared device helpers for the attention kernels of repro_torch.
 //
-// Every kernel keeps its sums in fp32 and reads its operands as either
-// fp32 or bf16 (the storage type T). K/V rows staged in shared memory
-// are padded by KV_ROW_PAD elements: with E a multiple of 4 that makes a
-// row (2E + 8) or (4E + 16) bytes, so the 8- or 16-byte reads of one
-// warp, each on its own row, fall on distinct banks.
+// The CUDA-core forms (an fp32 query; fp32 operands, or int8 K/V
+// converted to fp32 while staged) keep their sums in fp32. K/V rows
+// staged in shared memory are padded by KV_ROW_PAD elements: with E a
+// multiple of 4 that makes a row 4E + 16 bytes, so the 16-byte reads of
+// one warp, each on its own row, fall on distinct banks. The bf16 forms
+// run on the tensor cores (mma.cuh, decode_tc.cuh, flash_tile.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,32 +21,16 @@ constexpr int KV_TILE = 64;     // kv rows per tile (policy.KV_TILE)
 constexpr int KV_ROW_PAD = 4;   // policy.KV_ROW_PAD
 constexpr float NEG_INF = -1e30f;
 
-// Four consecutive elements of T, moved as one 8- or 16-byte word.
+// Four consecutive elements of T, moved as one 16-byte word.
 template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
-template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &u.x, 4);
-  memcpy(&hi, &u.y, 4);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // Copy `rows` rows of E elements from global memory (row stride E) into
@@ -156,12 +141,16 @@ __device__ __forceinline__ void stage_q8_kv(float* Kd, float* Vd,
   }
 }
 
-// Row offsets for stage_q8_kv: rows of a dense cache (row stride E) ...
+// Row offsets for stage_q8_kv and decode_tc.cuh: rows of a dense cache
+// (row stride E) ...
 struct DenseRows {
   int E;
   __device__ __forceinline__ size_t operator()(int r) const {
     return (size_t)r * E;
   }
+  // the index of row r's scale in the (b, kv head)'s row of the (BH, S)
+  // per-row scales: the row itself
+  __device__ __forceinline__ int scale(int r) const { return r; }
 };
 
 // ... and logical rows col0 + r of one kv head's pages, through one
@@ -169,8 +158,9 @@ struct DenseRows {
 struct PagedRows {
   const int* table;
   int page_size, col0, E;
-  // the physical page that holds logical row col0 + r
-  __device__ __forceinline__ int page(int r) const {
+  // the index of row r's scale in the kv head's row of the (Hkv, P)
+  // per-page scales: the physical page that holds logical row col0 + r
+  __device__ __forceinline__ int scale(int r) const {
     return table[(col0 + r) / page_size];
   }
   __device__ __forceinline__ size_t operator()(int r) const {

@@ -15,25 +15,31 @@
 //
 // What bounds it on an H100: one query row per head reads every live K
 // and V row once, about G/2 multiply-adds a byte, so its floor is
-// device-memory bandwidth. Three forms, chosen by the caller by dtype
-// (decode_attention.py's entry_point), none falling back to another:
-// - bf16 (decode_bf16_launch): the tensor-core design of decode_tc.cuh.
-//   Short splits (decode_split_plan: 1-4 tiles a block) spread the longest
-//   sequence of a ragged batch over every SM; each warp keeps a 3-slot
-//   cp.async ring of 16-row K/V slices of a (b, kv head)'s contiguous rows
-//   in flight and its own online softmax, with no __syncthreads a tile;
-//   S and P V are mma.sync products with the G query rows padded to 16
-//   and P as bf16 hi + lo. Its merge pass is decode_bf16_merge_kernel.
-// - fp32 (decode_fp32_launch) and int8 caches (decode_int8_launch, fp32
-//   or bf16 queries): the CUDA-core kernel below, on split_plan's longer
-//   splits, held to the plain version at 3e-5 in fp32. It stages a tile
-//   with one load after another per thread and no second tile in flight,
-//   so load latency, not bandwidth, sets its time. An int8 cache is read
-//   as 16-byte vectors, four K and four V loads of a thread in flight at
-//   once, and converted to fp32 in registers while a tile is staged; the
-//   row's K scale multiplies its score column after q.k and sm_scale, its
-//   V scale folds into P after the row sum and before the P.V product, in
-//   the TPU kernel's order.
+// device-memory bandwidth (an int8 cache halves the bytes). The forms,
+// chosen by the caller by dtype (decode_attention.py's entry_point), none
+// falling back to another:
+// - a bf16 q on bf16 caches (decode_bf16_launch) and on int8 caches
+//   (decode_int8_launch with a bf16 q): the tensor-core design of
+//   decode_tc.cuh. Short splits (decode_split_plan: 1-4 tiles a block)
+//   spread the longest sequence of a ragged batch over every SM; each warp
+//   keeps a 3-slot cp.async ring of 16-row K/V slices of a (b, kv head)'s
+//   contiguous rows in flight and its own online softmax, with no
+//   __syncthreads a tile; S and P V are mma.sync products with the G query
+//   rows padded to 16 and P as bf16 hi + lo. An int8 slice lands raw with
+//   its 16 rows' K and V scales (contiguous in the (BH, S) scales) and
+//   each lane converts the chunks it copied to bf16 (exact) into its
+//   warp's slot; the K scale multiplies the score, the V scale P after
+//   the row sum. The merge pass is decode_bf16_merge_kernel, for both.
+// - an fp32 q (decode_fp32_launch, and decode_int8_launch with an fp32
+//   q): the CUDA-core kernel below, on split_plan's longer splits, held to
+//   the plain version at 3e-5. It stages a tile with one load after
+//   another per thread and no second tile in flight, so load latency, not
+//   bandwidth, sets its time. An int8 cache is read as 16-byte vectors,
+//   four K and four V loads of a thread in flight at once, and converted
+//   to fp32 in registers while a tile is staged; the row's K scale
+//   multiplies its score column after q.k and sm_scale, its V scale folds
+//   into P after the row sum and before the P.V product, in the TPU
+//   kernel's order.
 #include "common.cuh"
 #include "decode_tc.cuh"
 
@@ -211,27 +217,32 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaGetLastError();
 }
 
-// The bf16 form: pass 1 on the tensor cores (decode_tc.cuh) over split
-// sp of one (b, kv head)'s contiguous cache rows ...
-template <int E>
+// The tensor-core form: pass 1 (decode_tc.cuh) over split sp of one
+// (b, kv head)'s contiguous cache rows, bf16, or int8 with the (BH, S)
+// per-row scales ks, vs ...
+template <int E, typename KV>
 __global__ void __launch_bounds__(dtc::THREADS)
 decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
+                   const KV* __restrict__ k, const KV* __restrict__ v,
+                   const float* __restrict__ ks,
+                   const float* __restrict__ vs,
                    const int* __restrict__ kv_lens,
                    float* __restrict__ m_part, float* __restrict__ l_part,
                    float* __restrict__ acc_part, int G, int s_len,
                    int tiles_per_split, float scale_log2) {
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   const int sp = blockIdx.x, bh = blockIdx.y;
   const int kv_len = min(kv_lens[bh], s_len);
   const int row0 = sp * tiles_per_split * KV_TILE;
   if (row0 >= kv_len) return;   // a dead split: the merge stops before it
   const size_t part = (size_t)bh * gridDim.x + sp;
   const size_t kv_off = (size_t)bh * s_len * E;
+  const size_t scale_off = Q8 ? (size_t)bh * s_len : 0;
   dtc::split_block<E, 1, false>(
       q + (size_t)bh * G * E, k + kv_off, v + kv_off, DenseRows{E}, kv_len,
       kv_len - 1, G, 1, row0, tiles_per_split, scale_log2, m_part + part * G,
-      l_part + part * G, acc_part + part * G * E);
+      l_part + part * G, acc_part + part * G * E, ks + scale_off,
+      vs + scale_off);
 }
 
 // ... and its merge pass, one block per (b, kv head).
@@ -251,27 +262,49 @@ decode_bf16_merge_kernel(const float* __restrict__ m_part,
                        span);
 }
 
-template <int E>
-int launch_bf16(const void* q, const void* k, const void* v,
-                const int* kv_lens, void* o, float* m_part, float* l_part,
-                float* acc_part, int bh, int G, int s_len, int n_split,
-                int tiles_per_split, float sm_scale, cudaStream_t stream) {
+template <int E, typename KV>
+int launch_tc(const void* q, const void* k, const void* v, const void* ks,
+              const void* vs, const int* kv_lens, void* o, float* m_part,
+              float* l_part, float* acc_part, int bh, int G, int s_len,
+              int n_split, int tiles_per_split, float sm_scale,
+              cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  constexpr int smem = dtc::smem_bytes<E, 1>();
+  constexpr int smem =
+      dtc::smem_bytes<E, 1, std::is_same<KV, int8_t>::value>();
   cudaError_t err = cudaFuncSetAttribute(
-      decode_bf16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_bf16_kernel<E, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  decode_bf16_kernel<E><<<dim3(n_split, bh), dtc::THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), kv_lens, m_part, l_part, acc_part, G,
-      s_len, tiles_per_split, sm_scale * dtc::LOG2E);
+  decode_bf16_kernel<E, KV>
+      <<<dim3(n_split, bh), dtc::THREADS, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const KV*>(k),
+          static_cast<const KV*>(v), static_cast<const float*>(ks),
+          static_cast<const float*>(vs), kv_lens, m_part, l_part, acc_part,
+          G, s_len, tiles_per_split, sm_scale * dtc::LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_bf16_merge_kernel<E><<<bh, dtc::MERGE_THREADS, 0, stream>>>(
       m_part, l_part, acc_part, kv_lens, static_cast<bf16*>(o), G, s_len,
       n_split, tiles_per_split * KV_TILE);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core form for head dim E: 64 or 128, G <= 16.
+template <typename KV>
+int dispatch_tc(const void* q, const void* k, const void* v, const void* ks,
+                const void* vs, const void* kv_lens, void* o, void* m_part,
+                void* l_part, void* acc_part, int bh, int G, int s_len,
+                int E, int n_split, int tiles_per_split, float sm_scale,
+                void* stream) {
+  if (G > MAXG || (E != 64 && E != 128)) return (int)cudaErrorInvalidValue;
+#define REPRO_DECODE_ARGS                                                 \
+  q, k, v, ks, vs, static_cast<const int*>(kv_lens), o,                   \
+      static_cast<float*>(m_part), static_cast<float*>(l_part),           \
+      static_cast<float*>(acc_part), bh, G, s_len, n_split,               \
+      tiles_per_split, sm_scale, static_cast<cudaStream_t>(stream)
+  return E == 128 ? launch_tc<128, KV>(REPRO_DECODE_ARGS)
+                  : launch_tc<64, KV>(REPRO_DECODE_ARGS);
+#undef REPRO_DECODE_ARGS
 }
 
 }  // namespace
@@ -290,18 +323,10 @@ extern "C" int decode_bf16_launch(const void* q, const void* k,
                                   void* acc_part, int bh, int G, int s_len,
                                   int E, int n_split, int tiles_per_split,
                                   float sm_scale, void* stream) {
-  if (G > 16 || (E != 64 && E != 128)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(kv_lens);
-  float* mp = static_cast<float*>(m_part);
-  float* lp = static_cast<float*>(l_part);
-  float* ap = static_cast<float*>(acc_part);
-  return E == 128 ? launch_bf16<128>(q, k, v, lens, o, mp, lp, ap, bh, G,
-                                     s_len, n_split, tiles_per_split,
-                                     sm_scale, s)
-                  : launch_bf16<64>(q, k, v, lens, o, mp, lp, ap, bh, G,
-                                    s_len, n_split, tiles_per_split,
-                                    sm_scale, s);
+  return dispatch_tc<__nv_bfloat16>(q, k, v, nullptr, nullptr, kv_lens, o,
+                                    m_part, l_part, acc_part, bh, G, s_len,
+                                    E, n_split, tiles_per_split, sm_scale,
+                                    stream);
 }
 
 // fp32 q and caches, on the CUDA cores.
@@ -318,8 +343,9 @@ extern "C" int decode_fp32_launch(const void* q, const void* k,
       tiles_per_split, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
-// int8 caches with their per-row scales, fp32 (dtype 0) or bf16 (dtype 1)
-// q, on the CUDA cores.
+// int8 caches with their per-row scales: a bf16 q (dtype 1) on the tensor
+// cores (E 64 or 128, G <= 16, 16-byte aligned rows), an fp32 q (dtype 0)
+// on the CUDA cores.
 extern "C" int decode_int8_launch(const void* q, const void* k,
                                   const void* v, const void* ks,
                                   const void* vs, const void* kv_lens,
@@ -327,15 +353,13 @@ extern "C" int decode_int8_launch(const void* q, const void* k,
                                   void* acc_part, int bh, int G, int s_len,
                                   int E, int n_split, int tiles_per_split,
                                   float sm_scale, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(kv_lens);
-  float* mp = static_cast<float*>(m_part);
-  float* lp = static_cast<float*>(l_part);
-  float* ap = static_cast<float*>(acc_part);
-#define REPRO_DECODE_ARGS                                                 \
-  q, k, v, ks, vs, lens, o, mp, lp, ap, bh, G, s_len, E, n_split,         \
-      tiles_per_split, sm_scale, s
-  return dtype == 0 ? launch<float, int8_t>(REPRO_DECODE_ARGS)
-                    : launch<__nv_bfloat16, int8_t>(REPRO_DECODE_ARGS);
-#undef REPRO_DECODE_ARGS
+  if (dtype != 0)
+    return dispatch_tc<int8_t>(q, k, v, ks, vs, kv_lens, o, m_part, l_part,
+                               acc_part, bh, G, s_len, E, n_split,
+                               tiles_per_split, sm_scale, stream);
+  return launch<float, int8_t>(
+      q, k, v, ks, vs, static_cast<const int*>(kv_lens), o,
+      static_cast<float*>(m_part), static_cast<float*>(l_part),
+      static_cast<float*>(acc_part), bh, G, s_len, E, n_split,
+      tiles_per_split, sm_scale, static_cast<cudaStream_t>(stream));
 }

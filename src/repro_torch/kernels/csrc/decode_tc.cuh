@@ -1,13 +1,14 @@
 // Split-KV attention of a few query rows on the tensor cores: the pass-1
-// block and the merge pass shared by the bf16 forms of B4 (dense decode,
-// decode_attention.cu), B6 (paged decode, bf16 and int8 pools,
-// paged_decode_attention.cu) and B7 (paged verify,
-// paged_verify_attention.cu).
+// block and the merge pass shared by the bf16-query forms of B4 (dense
+// decode, bf16 and int8 caches, decode_attention.cu), B6 (paged decode,
+// bf16 and int8 pools, paged_decode_attention.cu) and B7 (paged verify,
+// bf16 and int8 pools, paged_verify_attention.cu).
 //
 // For one (b, kv head), R query rows (the G heads of a GQA group, or for
 // B7 k positions of them, position-major) attend to the logical KV rows
 // below kv_len. Dense rows and paged rows differ only in the functor that
-// gives a logical row's offset (DenseRows, PagedRows of common.cuh).
+// gives a logical row's offset and the index of its int8 scale
+// (DenseRows, PagedRows of common.cuh).
 //
 // What bounds it on an H100: each live K and V row is read once for all R
 // rows, G/2 (B4, B6) or k G/2 (B7) multiply-adds a byte, far below the ~295
@@ -33,10 +34,12 @@
 //   scaled to base 2, masked and exponentiated in registers and is P's A
 //   fragment directly, entering P V as bf16 hi + lo (tc::split): one bf16
 //   rounding of P is about the whole 4e-3 row limit.
-// - An int8 pool (KV = int8_t, PagedRows, per-page fp32 scales) keeps its
-//   ring slots raw: a slice's int8 K and V rows by cp.async, 16 bytes a
-//   lane, and its 16 K and 16 V scales looked up per row through the page
-//   table, 4 bytes a lane. When the slice's copies have landed, each lane
+// - int8 K/V (KV = int8_t: B6's and B7's pools with per-page fp32
+//   scales, B4's dense caches with per-row ones) keep their ring slots
+//   raw: a slice's int8 K and V rows by cp.async, 16 bytes a lane, and its
+//   16 K and 16 V scales, 4 bytes a lane, each at the index the row
+//   functor gives (Rows::scale: a row's page through the table, or a dense
+//   row itself). When the slice's copies have landed, each lane
 //   converts the chunks it copied itself to bf16 (exact: every int8 value
 //   has 8 significant bits) into the warp's own swizzled bf16 slot, which
 //   ldmatrix reads as for a bf16 pool; a __syncwarp, no block barrier. The
@@ -66,8 +69,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int E, int MT>
 __host__ __device__ constexpr int q_bytes() { return MT * 16 * E * 2; }
-// A ring slot: a slice's K and V rows in bf16, or for an int8 pool (Q8)
-// its raw int8 rows and then its 16 K and 16 V scales.
+// A ring slot: a slice's K and V rows in bf16, or for int8 K/V (Q8) its
+// raw int8 rows and then its 16 K and 16 V scales.
 template <int E, bool Q8 = false>
 __host__ __device__ constexpr int slot_bytes() {
   return Q8 ? 2 * STEP * E + 2 * STEP * 4 : 2 * STEP * E * 2;
@@ -76,7 +79,7 @@ template <int E, bool Q8 = false>
 __host__ __device__ constexpr int ring_bytes() {
   return WARPS * STAGES * slot_bytes<E, Q8>();
 }
-// int8 pools: each warp's bf16 slot, the slice it multiplies, converted.
+// int8 K/V: each warp's bf16 slot, the slice it multiplies, converted.
 template <int E, bool Q8 = false>
 __host__ __device__ constexpr int conv_bytes() {
   return Q8 ? WARPS * slot_bytes<E>() : 0;
@@ -119,19 +122,20 @@ __device__ __forceinline__ void issue_step(uint32_t slot, const bf16* k,
   }
 }
 
-// An int8 pool's rows [pos0, pos0 + STEP) into a raw ring slot: K, then
-// V, each 16 rows of E bytes (chunk i of the slice at byte 16 i), 16 bytes
-// a lane by cp.async; then the rows' page scales, K's from lanes 0-15 and
-// V's from lanes 16-31, 4 bytes a lane. ks, vs: the kv head's row of the
-// (Hkv, P) scales. Rows at or past kv_len are zero-filled.
-template <int E>
+// int8 rows [pos0, pos0 + STEP) into a raw ring slot: K, then V, each 16
+// rows of E bytes (chunk i of the slice at byte 16 i), 16 bytes a lane by
+// cp.async; then the rows' scales, K's from lanes 0-15 and V's from lanes
+// 16-31, 4 bytes a lane, at ks[rows.scale(pos)], vs[rows.scale(pos)]:
+// ks, vs the kv head's row of the (Hkv, P) page scales (PagedRows) or the
+// (b, kv head)'s row of the (BH, S) row scales (DenseRows). Rows at or
+// past kv_len are zero-filled.
+template <int E, typename Rows>
 __device__ __forceinline__ void issue_step_q8(uint32_t slot, const int8_t* k,
                                               const int8_t* v,
                                               const float* ks,
                                               const float* vs,
-                                              const PagedRows& rows,
-                                              int pos0, int kv_len,
-                                              int lane) {
+                                              const Rows& rows, int pos0,
+                                              int kv_len, int lane) {
   constexpr int CH = E / 16;               // 16-byte chunks a row
 #pragma unroll
   for (int j = 0; j < STEP * CH / 32; ++j) {
@@ -144,9 +148,9 @@ __device__ __forceinline__ void issue_step_q8(uint32_t slot, const int8_t* k,
   }
   const int r = lane % STEP;
   const bool live = pos0 + r < kv_len;
-  const int page = live ? rows.page(pos0 + r) : 0;
+  const int idx = live ? rows.scale(pos0 + r) : 0;
   tc::cp_async4_zfill(slot + 2 * STEP * E + lane * 4,
-                      (lane < STEP ? ks : vs) + page, live ? 4 : 0);
+                      (lane < STEP ? ks : vs) + idx, live ? 4 : 0);
 }
 
 // Four int8 values (a word) as four bf16 values (two words, the lower
@@ -201,8 +205,8 @@ __device__ __forceinline__ void convert_step(uint32_t conv, uint32_t slot,
 // Pass 1 of one block: the split of logical rows [row0, row0 + tiles *
 // 64) of one (b, kv head), whose R query rows start at q and whose K and V
 // rows sit at k + rows(pos), v + rows(pos), of type KV: bf16, or int8
-// with ks, vs the kv head's row of the (Hkv, P) page scales (Rows is then
-// PagedRows). Row r sits at position q0 + r / rows_per_pos (VERIFY;
+// with ks, vs the scales that Rows::scale indexes (per page, or per dense
+// row). Row r sits at position q0 + r / rows_per_pos (VERIFY;
 // otherwise every row sees the live context). Writes the split's m (base
 // 2), l and acc (R x E) for its R rows. row0 < kv_len.
 template <int E, int MT, bool VERIFY, typename KV, typename Rows>
@@ -215,7 +219,7 @@ __device__ __forceinline__ void split_block(
     const float* __restrict__ vs = nullptr) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;
-  static_assert(Q8 || std::is_same<KV, bf16>::value, "bf16 or int8 pools");
+  static_assert(Q8 || std::is_same<KV, bf16>::value, "bf16 or int8 K/V");
   static_assert(E == 64 || E == 128, "head dim 64 or 128");
   constexpr int LDO = E + 8;       // the warps' merge rows, fp32
   static_assert(WARPS * MT * 16 * LDO * 4 <=
@@ -226,7 +230,7 @@ __device__ __forceinline__ void split_block(
   const uint32_t qs = tc::smem_addr(smem);
   const uint32_t ring =
       qs + q_bytes<E, MT>() + warp * STAGES * slot_bytes<E, Q8>();
-  // int8 pools: the warp's bf16 slot
+  // int8 K/V: the warp's bf16 slot
   const uint32_t conv =
       qs + q_bytes<E, MT>() + ring_bytes<E, Q8>() + warp * slot_bytes<E>();
   float* wm = reinterpret_cast<float*>(

@@ -30,7 +30,7 @@
 //   sum. The merge pass is paged_decode_bf16_merge_kernel, for both pools.
 // - fp32 q (paged_decode_fp32_launch, and paged_decode_int8_launch with
 //   an fp32 q): the CUDA-core kernel of paged_split.cuh on split_plan,
-//   shared with B7's fp32 and int8 forms, so that a verify of one position
+//   shared with B7's fp32-q forms, so that a verify of one position
 //   is B6 exactly: 64-row tiles gathered row by row through the table and
 //   staged in shared memory as fp32 (int8 converted in registers, scales
 //   per tile column), then split_combine_kernel.

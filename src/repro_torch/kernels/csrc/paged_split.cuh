@@ -1,7 +1,7 @@
 // Split-KV attention of a short block of query rows over a paged KV pool
-// on the CUDA cores: the two passes shared by the fp32-q forms of B6
-// (paged decode, csrc/paged_decode_attention.cu) and the fp32 and int8
-// forms of B7 (paged verify, csrc/paged_verify_attention.cu).
+// on the CUDA cores: the two passes shared by the fp32-q forms, on fp32
+// and on int8 pools, of B6 (paged decode, csrc/paged_decode_attention.cu)
+// and B7 (paged verify, csrc/paged_verify_attention.cu).
 //
 // For each (sequence b, kv head h), R query rows (q is (B, Hkv, R, E))
 // attend to the first kv_lens[b] logical rows of the sequence, gathered

@@ -8,15 +8,17 @@ split the KV tiles over ``n_split`` blocks per (b, kv head); each walks
 its tiles with an online max and sum, skipping rows at or past
 ``kv_len``, and a second pass merges the partial (m, l, acc) triples.
 
-Three forms, chosen by ``entry_point`` from the dtypes, with nothing
+The forms, chosen by ``entry_point`` from the dtypes, with nothing
 falling back from one to another:
 
-* bf16 q and caches (``decode_bf16_launch``, head dim 64 or 128, G <= 16):
-  the tensor-core design of ``csrc/decode_tc.cuh`` on short splits of
-  1-4 tiles (``decode_split_plan``), so the longest sequence of a ragged
-  batch spreads over every SM; a bf16 shape it does not take raises.
-* fp32 q and caches (``decode_fp32_launch``) and int8 caches
-  (``decode_int8_launch``): the CUDA-core kernel on ``split_plan``.
+* a bf16 q on bf16 caches (``decode_bf16_launch``) or on int8 caches
+  (``decode_int8_launch``), head dim 64 or 128, G <= 16: the tensor-core
+  design of ``csrc/decode_tc.cuh`` on short splits of 1-4 tiles
+  (``decode_split_plan``), so the longest sequence of a ragged batch
+  spreads over every SM; an int8 slice is converted to bf16 (exactly) in
+  shared memory. A bf16 shape it does not take raises.
+* an fp32 q (``decode_fp32_launch``, or ``decode_int8_launch`` on int8
+  caches): the CUDA-core kernel on ``split_plan``.
 
 An int8 cache carries one fp32 scale per row (``k_scale``/``v_scale``,
 (B·Hkv, S)): the K scale multiplies the score column after q·k, the V
@@ -82,15 +84,14 @@ def split_plan(bh: int, n_kv: int, blk_kv: int = KV_TILE) -> tuple[int, int]:
     return n_split, tiles_per_split
 
 
-def decode_split_plan(dtype, bh: int, n_kv: int) -> tuple[int, int]:
-    """(n_split, tiles_per_split) covering ``n_kv`` rows of ``bh`` (b, kv
-    head) rows of a cache (dense or paged) of element type ``dtype``. For
-    bf16, the short splits of the tensor-core forms of B4, B6 and B7: as
-    few tiles a block as keep the grid near ``TARGET_BLOCKS`` blocks, at
-    least 1 and at most ``TC_MAX_TILES``. For fp32 and int8,
-    ``split_plan``. B6 keys it on its query's dtype instead
-    (``paged_decode_attention.split_plan_for``)."""
-    if dtype != torch.bfloat16:
+def decode_split_plan(q_dtype, bh: int, n_kv: int) -> tuple[int, int]:
+    """(n_split, tiles_per_split) of B4, B6 and B7 covering ``n_kv`` rows
+    of ``bh`` (b, kv head) rows of a cache (dense or paged). The form, and
+    so the plan, follows the query's dtype, on bf16 and on int8 caches
+    alike. A bf16 q: the short splits of the tensor-core forms, as few
+    tiles a block as keep the grid near ``TARGET_BLOCKS`` blocks, at least
+    1 and at most ``TC_MAX_TILES``. An fp32 q: ``split_plan``."""
+    if q_dtype != torch.bfloat16:
         return split_plan(bh, n_kv)
     n_tiles = max(1, -(-n_kv // KV_TILE))
     tps = min(TC_MAX_TILES, max(1, -(-n_tiles * bh // TARGET_BLOCKS)))
@@ -98,9 +99,9 @@ def decode_split_plan(dtype, bh: int, n_kv: int) -> tuple[int, int]:
 
 
 def entry_point(dtype, quantized: bool) -> str:
-    """The C function a CUDA q of ``dtype`` launches: the CUDA-core kernel
-    for int8 caches, else the tensor-core kernel for bf16 and the CUDA-core
-    kernel for fp32."""
+    """The C function a CUDA q of ``dtype`` launches: the int8 one for int8
+    caches (tensor cores for a bf16 q, CUDA cores for fp32), else the
+    tensor-core one for bf16 and the CUDA-core one for fp32."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the decode kernel takes float32 or bfloat16, "
                         f"not {dtype}")
@@ -204,7 +205,7 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
     ``kv_lens`` is a (BH,) int32 tensor on q's device. ``max_kv_len``, when
     the caller knows it on the host, sizes the split to the live rows
     instead of the whole cache; ``decode_split_plan`` plans it for the
-    form the dtypes choose. A CUDA tensor launches B4; a CPU tensor runs
+    form q's dtype chooses. A CUDA tensor launches B4; a CPU tensor runs
     the plain version with the same split.
     """
     bh, g, e = q.shape
@@ -217,7 +218,7 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
             f"kv_lens must be ({bh},), got {tuple(kv_lens.shape)}")
     quantized = check_scales(k, v, k_scale, v_scale, (bh, s_len))
     n_kv = s_len if max_kv_len is None else min(max_kv_len, s_len)
-    n_split, tps = decode_split_plan(k.dtype, bh, n_kv)
+    n_split, tps = decode_split_plan(q.dtype, bh, n_kv)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_lens, n_split=n_split,
                                       tiles_per_split=tps, sm_scale=sm_scale,
@@ -235,7 +236,7 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
     if kv_lens.dtype != torch.int32 or kv_lens.device != q.device:
         raise ValueError("kv_lens must be int32 on q's device")
     name = entry_point(q.dtype, quantized)
-    if name == "decode_bf16_launch":
+    if q.dtype == torch.bfloat16:
         check_bf16(g, e, q, k, v)
     lib = _build.library("decode_attention")
     o = torch.empty_like(q)

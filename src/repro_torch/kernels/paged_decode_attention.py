@@ -28,15 +28,16 @@ falling back from one to another:
 
 * a bf16 q on bf16 pools (``paged_decode_bf16_launch``) or on int8 pools
   (``paged_decode_int8_launch``), head dim 64 or 128, G <= 16: the
-  tensor-core design of ``csrc/decode_tc.cuh``, shared with the bf16
+  tensor-core design of ``csrc/decode_tc.cuh``, shared with the bf16-q
   forms of B4 and B7, on ``decode_split_plan``'s short splits; an int8
   page is converted to bf16 (exactly) in shared memory. A bf16 shape it
   does not take raises.
 * an fp32 q (``paged_decode_fp32_launch``, or ``paged_decode_int8_launch``
   on int8 pools): the CUDA-core kernel of ``csrc/paged_split.cuh`` on
-  ``split_plan``, shared with B7's fp32 and int8 forms.
+  ``split_plan``, shared with B7's fp32-q forms.
 
-``split_plan_for`` gives each form its plan.
+``decode_attention.decode_split_plan`` of q's dtype gives each form its
+plan.
 
 ``paged_decode_attention_plain`` computes the same function in PyTorch:
 the dense gather of the table's pages followed by B4's plain version,
@@ -75,15 +76,6 @@ def entry_point(dtype, quantized: bool) -> str:
         return "paged_decode_int8_launch"
     return ("paged_decode_bf16_launch" if dtype == torch.bfloat16
             else "paged_decode_fp32_launch")
-
-
-def split_plan_for(q_dtype, bh: int, n_kv: int) -> tuple[int, int]:
-    """(n_split, tiles_per_split) of B6 over ``n_kv`` rows of ``bh``
-    (b, kv head) rows: the tensor-core forms' short splits for a bf16 q,
-    on bf16 and on int8 pools alike, ``split_plan`` for an fp32 q. The
-    form, and so the plan, follows q's dtype, not the pool's (B4's and
-    B7's int8 forms stay on ``split_plan``)."""
-    return decode_split_plan(q_dtype, bh, n_kv)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_lens, *,
@@ -150,8 +142,8 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     q's device. The split is planned over the table's capacity
     (max_pages·page rows), so no host sync is needed; blocks past a
     sequence's ``kv_len`` exit at once. Int8 pools come with their
-    (Hkv, P) fp32 ``k_scales``/``v_scales``. ``split_plan_for`` plans the
-    split for the form q's dtype picks. A CUDA tensor launches B6; a CPU
+    (Hkv, P) fp32 ``k_scales``/``v_scales``. ``decode_split_plan`` plans
+    the split for the form q's dtype picks. A CUDA tensor launches B6; a CPU
     tensor runs the plain version with the same split.
     """
     b, hkv, g, e = q.shape
@@ -166,7 +158,7 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     if kv_lens.shape != (b,):
         raise ValueError(f"kv_lens must be ({b},), got {tuple(kv_lens.shape)}")
     max_pages = page_table.shape[1]
-    n_split, tps = split_plan_for(q.dtype, b * hkv, max_pages * page_size)
+    n_split, tps = decode_split_plan(q.dtype, b * hkv, max_pages * page_size)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, kv_lens, n_split=n_split,

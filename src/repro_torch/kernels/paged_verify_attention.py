@@ -13,18 +13,23 @@ the candidate rows actually written, which may stop short of k; the
 surplus rows then sit past ``kv_len``, attend the whole live context and
 are dropped by the host. The mask treats them like any other row.
 
-Three forms (``csrc/paged_verify_attention.cu``), chosen by
+The forms (``csrc/paged_verify_attention.cu``), chosen by
 ``entry_point`` from the dtypes, with nothing falling back from one to
 another:
 
-* bf16 q and pools (``paged_verify_bf16_launch``, head dim 64 or 128, at
-  most 32 rows): the tensor-core design of ``csrc/decode_tc.cuh``, shared
-  with B4's and B6's bf16 forms, on ``decode_split_plan``'s short splits over the
-  table's capacity; a bf16 shape it does not take raises.
-* fp32 q and pools (``paged_verify_fp32_launch``) and int8 pools
-  (``paged_verify_int8_launch``): the CUDA-core split-KV design
-  (``csrc/paged_split.cuh``) on ``split_plan``, which B6's fp32-q forms
-  share, so that with k = 1 and an fp32 q the output is B6's exactly.
+* a bf16 q on bf16 pools (``paged_verify_bf16_launch``) or on int8 pools
+  (``paged_verify_int8_launch``), head dim 64 or 128, at most 32 rows:
+  the tensor-core design of ``csrc/decode_tc.cuh``, shared with B4's and
+  B6's bf16-q forms, on ``decode_split_plan``'s short splits over the
+  table's capacity; an int8 page is converted to bf16 (exactly) in
+  shared memory. A bf16 shape it does not take raises.
+* an fp32 q (``paged_verify_fp32_launch``, or ``paged_verify_int8_launch``
+  on int8 pools): the CUDA-core split-KV design (``csrc/paged_split.cuh``)
+  on ``split_plan``, which B6's fp32-q forms share.
+
+With k = 1 and ``q_starts = kv_len - 1`` each form gives B6's output of
+the same dtypes exactly: one plan (``decode_split_plan`` of q's dtype),
+one core.
 
 Both split the table's capacity (no host sync) and band the tiles as B5
 does: tiles wholly below ``min(q_starts + 1, kv_len)`` run unmasked,
@@ -63,9 +68,9 @@ MAX_ROWS = 32     # k·G query rows per (b, kv head) the kernel holds
 
 
 def entry_point(dtype, quantized: bool) -> str:
-    """The C function a CUDA q of ``dtype`` launches: the CUDA-core kernel
-    for int8 pools, else the tensor-core kernel for bf16 and the CUDA-core
-    kernel for fp32."""
+    """The C function a CUDA q of ``dtype`` launches: the int8 one for int8
+    pools (tensor cores for a bf16 q, CUDA cores for fp32), else the
+    tensor-core one for bf16 and the CUDA-core one for fp32."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the verify kernel takes float32 or bfloat16, "
                         f"not {dtype}")
@@ -126,8 +131,7 @@ def paged_verify_attention_flat(q, k_pages, v_pages, page_table, kv_lens,
         raise ValueError(f"kv_lens and q_starts must be ({b},), got "
                          f"{tuple(kv_lens.shape)}, {tuple(q_starts.shape)}")
     max_pages = page_table.shape[1]
-    n_split, tps = decode_split_plan(k_pages.dtype, b * hkv,
-                                     max_pages * page_size)
+    n_split, tps = decode_split_plan(q.dtype, b * hkv, max_pages * page_size)
     if q.device.type == "cpu":
         return paged_verify_attention_plain(
             q, k_pages, v_pages, page_table, kv_lens, q_starts, spec=spec,
@@ -140,7 +144,7 @@ def paged_verify_attention_flat(q, k_pages, v_pages, page_table, kv_lens,
     quantized = check_paged(q, k_pages, v_pages, page_table, k_scales,
                             v_scales, kv_lens, q_starts)
     name = entry_point(q.dtype, quantized)
-    if name == "paged_verify_bf16_launch":
+    if q.dtype == torch.bfloat16:
         check_bf16(rows // spec, e, q, k_pages, v_pages)
     lib = _build.library("paged_verify_attention")
     o = torch.empty_like(q)

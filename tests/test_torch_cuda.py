@@ -11,9 +11,9 @@ tensors (atol 3e-5: fp32 sums in another order), the int8 branches of
 B4-B7 on int8 caches with their scales, and the wave, continuous and
 speculative engines serve a smoke model on the card with the same tokens
 as on the CPU, on bf16-free fp32 and on int8 caches. The bf16 forms of
-B1, B2, B3, B5 (tensor cores; B5 on bf16 and int8 pools), B4, B6 (on bf16
-and int8 pools) and B7 (tensor cores, on their own short splits) are held
-per output row within
+B1, B2, B3, B5 (tensor cores; B5 on bf16 and int8 pools), B4, B6 and B7
+(tensor cores, on bf16 and int8 caches, on their own short splits) are
+held per output row within
 4e-3 of the row's L2 norm, the limit ``chip_smoke.py`` uses, and a
 planted zeroed V tile, V page or V scale must break it. B8 (the SSD
 intra-chunk step) and the chunked scan around it are held row by row
@@ -314,7 +314,7 @@ def test_decode_kernel_matches_plain(cuda):
     q, k, v = _rand(g, 4, 4, 128), _rand(g, 4, 500, 128), _rand(g, 4, 500, 128)
     lens = torch.tensor([0, 64, 65, 500], dtype=torch.int32, device=cuda)
     got = dec.decode_attention_flat(q, k, v, lens)
-    n_split, tps = dec.decode_split_plan(k.dtype, 4, 500)
+    n_split, tps = dec.decode_split_plan(q.dtype, 4, 500)
     want = dec.decode_attention_plain(q, k, v, lens, n_split=n_split,
                                       tiles_per_split=tps)
     torch.cuda.synchronize()
@@ -328,7 +328,7 @@ def test_decode_kernel_int8_matches_plain(cuda):
                         for _ in range(2))
     lens = torch.tensor([0, 64, 65, 500], dtype=torch.int32, device=cuda)
     got = dec.decode_attention_flat(q, k, v, lens, k_scale=ks, v_scale=vs)
-    n_split, tps = dec.decode_split_plan(k.dtype, 4, 500)
+    n_split, tps = dec.decode_split_plan(q.dtype, 4, 500)
     want = dec.decode_attention_plain(q, k, v, lens, n_split=n_split,
                                       tiles_per_split=tps, k_scale=ks,
                                       v_scale=vs)
@@ -336,31 +336,51 @@ def test_decode_kernel_int8_matches_plain(cuda):
     assert float((got - want).abs().max()) <= FP32_ATOL
 
 
+def _dense_bf16_kv(g, quantized, *shape):
+    """bf16 K and V of ``shape``, or int8 with per-row scales: (k, v,
+    {"k_scale": ..., "v_scale": ...} or {})."""
+    k, v = _bf16(g, *shape), _bf16(g, *shape)
+    if not quantized:
+        return k, v, {}
+    (k, ks), (v, vs) = (quantize_q8(x.float(), -1) for x in (k, v))
+    return k, v, {"k_scale": ks, "v_scale": vs}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("e", [64, 128])
 @pytest.mark.parametrize("group", [2, 4, 8])
-def test_decode_bf16_kernel_matches_plain_per_row(cuda, e, group):
-    """B4's tensor-core form on a ragged batch: kv_len 0, 1, a tile edge
+def test_decode_bf16_kernel_matches_plain_per_row(cuda, e, group,
+                                                  quantized):
+    """B4's tensor-core form on bf16 caches and on int8 caches with
+    per-row scales (bf16 q), on a ragged batch: kv_len 0, 1, a tile edge
     (64) and one row past it, lengths mid-cache, and the cache's capacity,
     on a cache long enough for four tiles a split (each warp walks four
     slices through its ring of three slots); a random V, the fault a
-    zeroed V tile."""
+    zeroed V tile or, on int8 caches, its V scales."""
     g = torch.Generator(device=cuda).manual_seed(80 + e + group)
     s_len, kv = 6400, [0, 1, 64, 65, 1000, 3001, 6399, 6400]
     bh = len(kv)
     q = _bf16(g, bh, group, e)
-    k, v = _bf16(g, bh, s_len, e), _bf16(g, bh, s_len, e)
+    k, v, sc = _dense_bf16_kv(g, quantized, bh, s_len, e)
     lens = torch.tensor(kv, dtype=torch.int32, device=cuda)
-    n_split, tps = dec.decode_split_plan(torch.bfloat16, bh, s_len)
+    n_split, tps = dec.decode_split_plan(q.dtype, bh, s_len)
     assert tps == dec.TC_MAX_TILES
     ops.reset_launch_counts()
-    got = dec.decode_attention_flat(q, k, v, lens)
-    assert ops.launch_counts()["decode"] == 1
+    got = dec.decode_attention_flat(q, k, v, lens, **sc)
+    assert ops.launch_counts()[
+        "decode_int8" if quantized else "decode"] == 1
 
-    def plain(v=v):
+    def plain(v=v, vs=sc.get("v_scale")):
+        kw = dict(sc, v_scale=vs) if quantized else {}
         return dec.decode_attention_plain(q, k, v, lens, n_split=n_split,
-                                          tiles_per_split=tps)
+                                          tiles_per_split=tps, **kw)
 
-    faulty = plain(_zero_v_tile(v, 40))
+    if quantized:
+        vs = sc["v_scale"].clone()
+        vs[:, 40 * 64:41 * 64] = 0
+        faulty = plain(vs=vs)
+    else:
+        faulty = plain(_zero_v_tile(v, 40))
     torch.cuda.synchronize()
     assert float(got[0].abs().max()) == 0.0       # kv_len 0 gives zeros
     _held_per_row(got, plain(), faulty)
@@ -392,21 +412,28 @@ def test_decode_bf16_kernel_through_ops_at_wave_lengths(cuda, kv_len):
     _held_per_row(got, plain(), faulty)
 
 
+@pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("e", [64, 128])
 @pytest.mark.parametrize("spec,group", [(1, 2), (4, 2), (8, 2), (3, 4),
                                         (8, 4), (2, 8), (4, 8)])
 def test_paged_verify_bf16_kernel_matches_plain_per_row(cuda, e, spec,
-                                                        group):
-    """B7's tensor-core form: k 1-8 positions of G 2, 4 and 8 heads (k G up
-    to 32 rows, two m16 tiles), on shuffled 16-row pages of a table long
-    enough for four tiles a split. Slots: a start mid-page, a block
-    straddling a 64-row tile, kv_len 0, one written row of k, one short of
+                                                        group, quantized):
+    """B7's tensor-core form on bf16 pools and on int8 pools with per-page
+    scales (bf16 q): k 1-8 positions of G 2, 4 and 8 heads (k G up to 32
+    rows, two m16 tiles), on shuffled 16-row pages of a table long enough
+    for four tiles a split. Slots: a start mid-page, a block straddling a
+    64-row tile, kv_len 0, one written row of k (kv_len 64), one short of
     k (rows past kv_len see the live context), and blocks ending deep in
-    the table and at its capacity; a random V, the fault a zeroed V page."""
+    the table and at its capacity; a random V, the fault a zeroed V page
+    or, on int8 pools, its V scale."""
     g = torch.Generator(device=cuda).manual_seed(90 + e + 10 * spec + group)
     b, hkv, page, max_pages = 8, 2, 16, 256
     n_pages, cap = b * max_pages + 1, max_pages * page
     k, v = (_bf16(g, hkv, n_pages, page, e) for _ in range(2))
+    sc = {}
+    if quantized:
+        (k, ks), (v, vs) = (quantize_q8(x.float(), (-2, -1)) for x in (k, v))
+        sc = {"k_scales": ks, "v_scales": vs}
     table = (torch.randperm(n_pages - 1, generator=g, device=cuda) + 1).view(
         b, max_pages).to(torch.int32).contiguous()
     starts = torch.tensor([5, 62, 0, 63, 1000, 2047, cap - spec, 3000],
@@ -415,21 +442,29 @@ def test_paged_verify_bf16_kernel_matches_plain_per_row(cuda, e, spec,
                          spec], dtype=torch.int32, device=cuda)
     lens = starts + rows
     q = _bf16(g, b, hkv, spec * group, e)
-    n_split, tps = dec.decode_split_plan(torch.bfloat16, b * hkv, cap)
+    n_split, tps = dec.decode_split_plan(q.dtype, b * hkv, cap)
     assert tps == dec.TC_MAX_TILES
     ops.reset_launch_counts()
     got = pver.paged_verify_attention_flat(q, k, v, table, lens, starts,
-                                           spec=spec)
-    assert ops.launch_counts()["paged_verify"] == 1
+                                           spec=spec, **sc)
+    assert ops.launch_counts()[
+        "paged_verify_int8" if quantized else "paged_verify"] == 1
 
-    def plain(v=v):
+    def plain(v=v, vs=sc.get("v_scales")):
+        kw = dict(sc, v_scales=vs) if quantized else {}
         return pver.paged_verify_attention_plain(
             q, k, v, table, lens, starts, spec=spec, n_split=n_split,
-            tiles_per_split=tps)
+            tiles_per_split=tps, **kw)
 
-    vz = v.clone()
-    vz[:, int(table[7, 100])] = 0                 # rows 1600-1615 of slot 7
-    faulty = plain(vz)
+    fault = int(table[7, 100])                    # rows 1600-1615 of slot 7
+    if quantized:
+        vs = sc["v_scales"].clone()
+        vs[:, fault] = 0
+        faulty = plain(vs=vs)
+    else:
+        vz = v.clone()
+        vz[:, fault] = 0
+        faulty = plain(vz)
     torch.cuda.synchronize()
     assert float(got[2].abs().max()) == 0.0       # kv_len 0 gives zeros
     _held_per_row(got, plain(), faulty)
@@ -469,7 +504,7 @@ def test_paged_decode_bf16_kernel_matches_plain_per_row(cuda, e, group,
         max_pages=cap // page, e=e)
     lens = torch.tensor([0, 1, 15, 16, 17, 64, 65, cap], dtype=torch.int32,
                         device=cuda)
-    n_split, tps = pdec.split_plan_for(torch.bfloat16, 16, cap)
+    n_split, tps = dec.decode_split_plan(q.dtype, 16, cap)
     assert tps == dec.TC_MAX_TILES
     ops.reset_launch_counts()
     got = pdec.paged_decode_attention_flat(q, k, v, table, lens, **sc)
@@ -508,8 +543,8 @@ def test_paged_decode_bf16_kernel_through_ops_at_continuous_shapes(
         max_pages=max_pages, e=e)
     lens = torch.tensor([1, 17, 300, 1000, 1777, 2500, 3100, 3600],
                         dtype=torch.int32, device=cuda)
-    n_split, tps = pdec.split_plan_for(torch.bfloat16, b * hkv,
-                                       max_pages * page)
+    n_split, tps = dec.decode_split_plan(q.dtype, b * hkv,
+                                         max_pages * page)
     assert (n_split, tps) == (16, 4)
     ops.reset_launch_counts()
     got = ops.paged_decode_attention(q.view(b, hq, e), k, v, table, lens,
@@ -536,59 +571,66 @@ def test_paged_decode_bf16_kernel_through_ops_at_continuous_shapes(
     _held_per_row(got, plain(), faulty)
 
 
+@pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("group", [1, 2, 8])
-def test_paged_verify_bf16_of_one_position_is_paged_decode(cuda, group):
-    """On one core and one plan, B7's bf16 form with k = 1 and q_starts =
-    kv_len - 1 masks exactly what B6's does (every row sees the live
-    context): the two kernels give one output bit for bit."""
+def test_paged_verify_bf16_of_one_position_is_paged_decode(cuda, group,
+                                                           quantized):
+    """On one core and one plan, B7's tensor-core form with k = 1 and
+    q_starts = kv_len - 1 masks exactly what B6's does (every row sees the
+    live context), on bf16 pools and on int8 pools: the two kernels give
+    one output bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(120 + group)
-    q, k, v, table, _ = _paged_decode_bf16_inputs(
-        g, False, b=8, hkv=2, group=group, page=16, max_pages=256, e=128)
+    q, k, v, table, sc = _paged_decode_bf16_inputs(
+        g, quantized, b=8, hkv=2, group=group, page=16, max_pages=256, e=128)
     lens = torch.tensor([0, 1, 17, 300, 1000, 2047, 3100, 4096],
                         dtype=torch.int32, device=cuda)
     got = pver.paged_verify_attention_flat(q, k, v, table, lens,
-                                           (lens - 1).clamp(min=0), spec=1)
-    want = pdec.paged_decode_attention_flat(q, k, v, table, lens)
+                                           (lens - 1).clamp(min=0), spec=1,
+                                           **sc)
+    want = pdec.paged_decode_attention_flat(q, k, v, table, lens, **sc)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("kernel", ["decode", "verify", "paged_decode",
+@pytest.mark.parametrize("kernel", ["decode", "decode_int8", "verify",
+                                    "verify_int8", "paged_decode",
                                     "paged_decode_int8"])
 def test_bf16_decode_kernels_repeat_bit_for_bit(cuda, kernel):
     """B4's, B6's and B7's tensor-core forms merge their warps and splits
     in a fixed order, so 300 calls on one input give one output bit for
     bit; a race in a warp's ring or in the merge of the live splits would
     not. The shapes are ``chip_smoke.py``'s: B4's ragged batch (kv_lens 1,
-    300, 2060, 8207 of an 8256-row cache, 16 query and 8 kv heads of 128),
-    B6's eight sequences (kv_lens 1-3600, G 2) on (8, 2049, 16, 128) bf16
-    and int8 pools, and B7's eight slots (k 4, G 2) on the bf16 pool."""
+    300, 2060, 8207 of an 8256-row cache, 16 query and 8 kv heads of 128)
+    on bf16 and int8 caches, B6's eight sequences (kv_lens 1-3600, G 2)
+    and B7's eight slots (k 4, G 2) on (8, 2049, 16, 128) bf16 and int8
+    pools."""
     g = torch.Generator(device=cuda).manual_seed(7)
     hkv, e = 8, 128
+    quantized = kernel.endswith("_int8")
     if kernel.startswith("paged_decode"):
         q, k, v, table, sc = _paged_decode_bf16_inputs(
-            g, kernel.endswith("_int8"), b=8, hkv=hkv, group=2, page=16,
-            max_pages=256, e=e)
+            g, quantized, b=8, hkv=hkv, group=2, page=16, max_pages=256,
+            e=e)
         lens = torch.tensor([1, 17, 300, 1000, 1777, 2500, 3100, 3600],
                             dtype=torch.int32, device=cuda)
 
         def call():
             return pdec.paged_decode_attention_flat(q, k, v, table, lens,
                                                     **sc)
-    elif kernel == "decode":
+    elif kernel.startswith("decode"):
         s_len, kv = 8256, [1, 300, 2060, 8207]
         q = _bf16(g, len(kv) * hkv, 2, e)
-        k, v = (_bf16(g, len(kv) * hkv, s_len, e) for _ in range(2))
+        k, v, sc = _dense_bf16_kv(g, quantized, len(kv) * hkv, s_len, e)
         lens = torch.tensor(kv, dtype=torch.int32,
                             device=cuda).repeat_interleave(hkv)
 
         def call():
-            return dec.decode_attention_flat(q, k, v, lens)
+            return dec.decode_attention_flat(q, k, v, lens, **sc)
     else:
         b, page, max_pages, spec = 8, 16, 256, 4
-        k, v = (_bf16(g, hkv, b * max_pages + 1, page, e) for _ in range(2))
-        table = (torch.randperm(b * max_pages, generator=g, device=cuda)
-                 + 1).view(b, max_pages).to(torch.int32).contiguous()
+        _, k, v, table, sc = _paged_decode_bf16_inputs(
+            g, quantized, b=b, hkv=hkv, group=2, page=page,
+            max_pages=max_pages, e=e)
         lens = torch.tensor([1, 17, 300, 1000, 1777, 2500, 3100, 3600],
                             dtype=torch.int32, device=cuda)
         starts = (lens - lens.clamp(max=spec)).contiguous()
@@ -596,7 +638,7 @@ def test_bf16_decode_kernels_repeat_bit_for_bit(cuda, kernel):
 
         def call():
             return pver.paged_verify_attention_flat(q, k, v, table, lens,
-                                                    starts, spec=spec)
+                                                    starts, spec=spec, **sc)
     first = call()
     outs = [call() for _ in range(300)]
     torch.cuda.synchronize()
@@ -605,36 +647,50 @@ def test_bf16_decode_kernels_repeat_bit_for_bit(cuda, kernel):
 
 
 def test_bf16_decode_kernels_refuse_what_they_do_not_take(cuda):
-    """A bf16 decode, paged decode (bf16 or int8 pools) or verify runs the
-    tensor-core kernels or raises: head dim 32, more than 16 heads a group
-    or 32 rows a kv head, and operands off 16-byte alignment reach no
-    kernel."""
+    """A bf16-q decode, paged decode or verify, on bf16 or int8 caches,
+    runs the tensor-core kernels or raises: head dim 32, more than 16
+    heads a group or 32 rows a kv head, and operands off 16-byte alignment
+    reach no kernel."""
     g = torch.Generator(device=cuda).manual_seed(42)
     lens = torch.tensor([10, 20], dtype=torch.int32, device=cuda)
     ops.reset_launch_counts()
-    q, k = _bf16(g, 2, 2, 32), _bf16(g, 2, 64, 32)
-    with pytest.raises(ValueError, match="bf16"):
-        dec.decode_attention_flat(q, k, k, lens)
-    q, k = _bf16(g, 2, 17, 128), _bf16(g, 2, 64, 128)
-    with pytest.raises(ValueError, match="G=17"):
-        dec.decode_attention_flat(q, k, k, lens)
+    # B4, on bf16 caches and on int8 caches with per-row scales
+    for e, group, match in ((32, 2, "bf16"), (128, 17, "G=17")):
+        q, k = _bf16(g, 2, group, e), _bf16(g, 2, 64, e)
+        k8, s8 = quantize_q8(k.float(), -1)
+        with pytest.raises(ValueError, match=match):
+            dec.decode_attention_flat(q, k, k, lens)
+        with pytest.raises(ValueError, match=match):
+            dec.decode_attention_flat(q, k8, k8, lens, k_scale=s8,
+                                      v_scale=s8)
     q = _bf16(g, 2 * 2 * 128 + 1)[1:].view(2, 2, 128)
     with pytest.raises(ValueError, match="aligned"):
         dec.decode_attention_flat(q, k, k, lens)
+    with pytest.raises(ValueError, match="aligned"):
+        dec.decode_attention_flat(q, k8, k8, lens, k_scale=s8, v_scale=s8)
+    # B7, on bf16 pools and on int8 pools with per-page scales
     table = torch.arange(16, dtype=torch.int32, device=cuda).view(2, 8)
     starts = lens - 1
     for e, spec, group, match in ((32, 2, 2, "bf16"), (128, 8, 8, "rows"),
                                   (128, 1, 32, "G=32")):
         pool = _bf16(g, 2, 17, 16, e)
+        pool8, sc8 = quantize_q8(pool.float(), (-2, -1))
         q = _bf16(g, 2, 2, spec * group, e)
         with pytest.raises(ValueError, match=match):
             pver.paged_verify_attention_flat(q, pool, pool, table, lens,
                                              starts, spec=spec)
-    pool = _bf16(g, 2, 17, 16, 128)
+        with pytest.raises(ValueError, match=match):
+            pver.paged_verify_attention_flat(q, pool8, pool8, table, lens,
+                                             starts, spec=spec,
+                                             k_scales=sc8, v_scales=sc8)
     q = _bf16(g, 2 * 2 * 8 * 128 + 1)[1:].view(2, 2, 8, 128)
     with pytest.raises(ValueError, match="aligned"):
         pver.paged_verify_attention_flat(q, pool, pool, table, lens, starts,
                                          spec=4)
+    with pytest.raises(ValueError, match="aligned"):
+        pver.paged_verify_attention_flat(q, pool8, pool8, table, lens,
+                                         starts, spec=4, k_scales=sc8,
+                                         v_scales=sc8)
     # B6, on bf16 pools and on int8 pools with a bf16 q
     for e, group, match in ((32, 2, "bf16"), (128, 17, "G=17")):
         pool = _bf16(g, 2, 17, 16, e)
@@ -709,7 +765,7 @@ def test_paged_verify_kernel_matches_plain(cuda, quantized, spec, group):
     q = _rand(g, 6, 2, spec * group, 64)
     got = pver.paged_verify_attention_flat(q, k, v, table, lens, starts,
                                            spec=spec, **kw)
-    n_split, tps = dec.decode_split_plan(k.dtype, 12, 8 * 16)
+    n_split, tps = dec.decode_split_plan(q.dtype, 12, 8 * 16)
     want = pver.paged_verify_attention_plain(
         q, k, v, table, lens, starts, spec=spec, n_split=n_split,
         tiles_per_split=tps, **kw)

@@ -236,18 +236,17 @@ def test_decode_split_plan_covers_the_cache(bh, n_kv):
                                      (64, 100), (3, 1), (64, 4096),
                                      (32, 271)])
 def test_bf16_decode_split_plan_covers_the_cache(bh, n_kv):
-    """B4's and B7's bf16 forms take short splits of their own (1 to
-    TC_MAX_TILES tiles) that cover the cache; fp32 and int8 caches keep
-    split_plan, and the plain version gives one answer on either."""
+    """The tensor-core forms of B4, B6 and B7 (a bf16 q) take short splits
+    of their own (1 to TC_MAX_TILES tiles) that cover the cache; an fp32 q
+    keeps split_plan, and the plain version gives one answer on either."""
     n_split, tps = tdec.decode_split_plan(torch.bfloat16, bh, n_kv)
     n_tiles = -(-n_kv // policy.KV_TILE)
     assert n_split * tps >= n_tiles > (n_split - 1) * tps
     assert 1 <= tps <= tdec.TC_MAX_TILES
     if tps > 1:             # no shorter split keeps the grid to the target
         assert -(-n_tiles // (tps - 1)) * bh > tdec.TARGET_BLOCKS
-    for dtype in (torch.float32, torch.int8):
-        assert tdec.decode_split_plan(dtype, bh, n_kv) == tdec.split_plan(
-            bh, n_kv)
+    assert tdec.decode_split_plan(torch.float32, bh, n_kv) == \
+        tdec.split_plan(bh, n_kv)
     q, k, v = (rand(8, (bh, 2, 16)), rand(9, (bh, n_kv, 16)),
                rand(10, (bh, n_kv, 16)))
     lens = torch.tensor(np.random.default_rng(bh).integers(0, n_kv + 1,

@@ -25,6 +25,7 @@ from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_decode_attention as tpdec
 from repro_torch.kernels import paged_prefill_attention as tppre
+from repro_torch.kernels import paged_verify_attention as tpver
 from repro_torch.models import attention as tattn
 from test_torch_harness import FP32_ATOL, assert_close, rand, to_jax, to_torch
 
@@ -143,7 +144,7 @@ def test_paged_decode_split_covers_the_table_capacity():
     # 32 (b, kv head) rows over 80 pages of 16: the split of either form
     # is planned over the 1280 rows of the table without reading kv_lens
     for dtype in (torch.float32, torch.bfloat16):
-        n_split, tps = tpdec.split_plan_for(dtype, 4 * 8, 80 * 16)
+        n_split, tps = tdec.decode_split_plan(dtype, 4 * 8, 80 * 16)
         assert n_split * tps * 64 >= 80 * 16 > (n_split - 1) * tps * 64
     # and the merge of three one-tile splits equals one three-tile split
     k, v = _pools(3, 8)
@@ -165,16 +166,14 @@ def test_paged_decode_split_covers_the_table_capacity():
 
 
 def test_paged_decode_plan_follows_the_form_q_picks():
-    """B6's tensor-core forms (a bf16 q, on bf16 pools and on int8 pools)
-    take the short splits: at the continuous engine's shape (8 sequences
-    x 8 kv heads over a 4096-row table) 16 splits of 4 tiles. An fp32 q
-    keeps split_plan, and so do B4's and B7's int8 forms, whose plan keys
-    on the cache. The plain version gives one answer under either plan,
-    on bf16 and on int8 pools, and the CPU wrapper takes the form's plan."""
-    assert tpdec.split_plan_for(torch.bfloat16, 64, 4096) == (16, 4)
-    assert tpdec.split_plan_for(torch.float32, 64, 4096) == \
-        tdec.split_plan(64, 4096)
-    assert tdec.decode_split_plan(torch.int8, 64, 4096) == \
+    """The tensor-core forms of B4, B6 and B7 (a bf16 q, on bf16 and on
+    int8 caches) take the short splits: at the continuous engine's shape
+    (8 sequences x 8 kv heads over a 4096-row table) 16 splits of 4
+    tiles. An fp32 q keeps split_plan (5 splits of 13). The plain version
+    gives one answer under either plan, on bf16 and on int8 pools, and
+    the CPU wrapper takes the form's plan."""
+    assert tdec.decode_split_plan(torch.bfloat16, 64, 4096) == (16, 4)
+    assert tdec.decode_split_plan(torch.float32, 64, 4096) == \
         tdec.split_plan(64, 4096) == (5, 13)
     assert tpdec.entry_point(torch.bfloat16, True) == \
         "paged_decode_int8_launch"
@@ -190,7 +189,7 @@ def test_paged_decode_plan_follows_the_form_q_picks():
     lens = torch.from_numpy(rng.integers(0, max_pages * page + 1, size=b)
                             .astype(np.int32))
     q = to_torch(rand(22, (b, HKV, 2, E)))
-    plans = [tpdec.split_plan_for(dtype, b * HKV, max_pages * page)
+    plans = [tdec.decode_split_plan(dtype, b * HKV, max_pages * page)
              for dtype in (torch.bfloat16, torch.float32)]
     assert plans == [(6, 4), (5, 5)]
     (k8, ks), (v8, vs) = (tcommon.quantize_q8(x, (-2, -1)) for x in (k, v))
@@ -206,6 +205,61 @@ def test_paged_decode_plan_follows_the_form_q_picks():
             tpdec.paged_decode_attention_plain(
                 qb, kp, vp, table, lens, n_split=plans[0][0],
                 tiles_per_split=plans[0][1], **sc))
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["decode", "paged_decode", "verify"])
+def test_int8_wrappers_plan_by_the_query_dtype(monkeypatch, kernel,
+                                               q_dtype):
+    """B4's, B6's and B7's wrappers on int8 caches split as the form q's
+    dtype picks: ``decode_split_plan(torch.bfloat16, ...)``'s short
+    splits for a bf16 q (the tensor-core forms), ``split_plan`` for an
+    fp32 q (the CUDA-core ones). 32 (b, kv head) rows over 4096 rows:
+    (16, 4) against (8, 8). The CPU wrapper hands its plan to the plain
+    version, which this test watches."""
+    b, page, max_pages, e = 16, 16, 256, 16
+    rng = np.random.default_rng(30)
+    taken = []
+
+    def watch(module, name):
+        plain = getattr(module, name)
+
+        def spy(*args, **kw):
+            taken.append((kw["n_split"], kw["tiles_per_split"]))
+            return plain(*args, **kw)
+        monkeypatch.setattr(module, name, spy)
+
+    if kernel == "decode":
+        (k, ks), (v, vs) = (tcommon.quantize_q8(to_torch(rng.standard_normal(
+            (b * HKV, max_pages * page, e), dtype=np.float32)), -1)
+            for _ in range(2))
+        q = to_torch(rng.standard_normal((b * HKV, 2, e), dtype=np.float32))
+        lens = torch.full((b * HKV,), 100, dtype=torch.int32)
+        watch(tdec, "decode_attention_plain")
+        out = tdec.decode_attention_flat(q.to(q_dtype), k, v, lens,
+                                         k_scale=ks, v_scale=vs)
+    else:
+        (k, ks), (v, vs) = (tcommon.quantize_q8(to_torch(rng.standard_normal(
+            (HKV, b * max_pages + 1, page, e), dtype=np.float32)), (-2, -1))
+            for _ in range(2))
+        table = torch.from_numpy(rng.permutation(b * max_pages).astype(
+            np.int32).reshape(b, max_pages) + 1)
+        lens = torch.full((b,), 100, dtype=torch.int32)
+        sc = {"k_scales": ks, "v_scales": vs}
+        if kernel == "paged_decode":
+            q = to_torch(rng.standard_normal((b, HKV, 2, e), dtype=np.float32))
+            watch(tpdec, "paged_decode_attention_plain")
+            out = tpdec.paged_decode_attention_flat(q.to(q_dtype), k, v,
+                                                    table, lens, **sc)
+        else:
+            q = to_torch(rng.standard_normal((b, HKV, 8, e), dtype=np.float32))
+            watch(tpver, "paged_verify_attention_plain")
+            out = tpver.paged_verify_attention_flat(
+                q.to(q_dtype), k, v, table, lens, lens - 4, spec=4, **sc)
+    want = (16, 4) if q_dtype == torch.bfloat16 else (8, 8)
+    assert taken == [want]
+    assert tdec.decode_split_plan(q_dtype, b * HKV, max_pages * page) == want
+    assert out.dtype == q_dtype and bool(out.float().isfinite().all())
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from repro.serving import ContinuousBatchingEngine as JaxContinuous
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro.serving.lifecycle import Request as JaxRequest
 from repro_torch.kernels import common as tcommon
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttfm
@@ -109,6 +110,16 @@ def test_int8_dense_decode_matches_pallas(group, kv_len):
                                  v_scale=jvs, interpret=True)
     got = tops.decode_attention(tq, tk, tv, kv_len, k_scale=tks, v_scale=tvs)
     assert_close(got, want, FP32_ATOL)
+    # the plain version at the split a bf16 query takes (the tensor-core
+    # form's), in fp32
+    bh, s_len = b * HKV, tk.shape[2]
+    n_split, tps = tdec.decode_split_plan(torch.bfloat16, bh, s_len)
+    short = tdec.decode_attention_plain(
+        tq.reshape(bh, group, E), tk.reshape(bh, s_len, E),
+        tv.reshape(bh, s_len, E), torch.full((bh,), kv_len),
+        n_split=n_split, tiles_per_split=tps,
+        k_scale=tks.reshape(bh, s_len), v_scale=tvs.reshape(bh, s_len))
+    assert_close(short.reshape(got.shape), want, FP32_ATOL)
     # the plain twin: the reference's XLA twin of the int8 branch
     twin = jattn.decode_attention(jq, jk, jv, kv_len, impl="xla",
                                   k_scale=jks, v_scale=jvs)

@@ -288,12 +288,18 @@ def test_chip_smoke_ptxas_report_names_each_kernel():
         "ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 32 registers, used 0 barriers",
-        # B4's and B7's tensor-core forms and B4's merge pass
+        # B4's tensor-core forms on bf16 and int8 caches, its merge pass,
+        # and B7's at 32 rows on an int8 pool
         "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__408c5d7c"
-        "_19_decode_attention_cu_daae7df818decode_bf16_kernelILi128EEEvPK13"
-        "__nv_bfloat16S3_S3_PKiPfS6_S6_iiif' for 'sm_90a'",
+        "_19_decode_attention_cu_daae7df818decode_bf16_kernelILi128E13__nv_"
+        "bfloat16EEvPKS1_PKT0_S6_PKfS8_PKiPfSB_SB_iiif' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__408c5d7c"
+        "_19_decode_attention_cu_daae7df818decode_bf16_kernelILi128EaEEvPK13"
+        "__nv_bfloat16PKT0_S6_PKfS8_PKiPfSB_SB_iiif' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 127 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__408c5d7c"
         "_19_decode_attention_cu_daae7df824decode_bf16_merge_kernelILi128EEE"
         "vPKfS2_S2_PKiP13__nv_bfloat16iiii' for 'sm_90a'",
@@ -301,10 +307,10 @@ def test_chip_smoke_ptxas_report_names_each_kernel():
         "ptxas info    : Used 40 registers, used 1 barriers, 4352 bytes smem",
         "ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__be15b586"
         "_25_paged_verify_attention_cu_daae7df824paged_verify_bf16_kernelILi"
-        "128ELi2EEEvPK13__nv_bfloat16S3_S3_PKiS5_S5_PfS6_S6_iiiiiiif' for "
-        "'sm_90a'",
+        "128ELi2EaEEvPK13__nv_bfloat16PKT1_S6_PKfS8_PKiSA_SA_PfSB_SB_iiiiiii"
+        "f' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 247 registers, used 1 barriers",
+        "ptxas info    : Used 246 registers, used 1 barriers",
         # B6's tensor-core form on an int8 pool and its merge pass
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124paged_"
         "decode_bf16_kernelILi128EaEEvPK13__nv_bfloat16PKT0_S6_PKfS8_PKiSA_"
@@ -322,17 +328,19 @@ def test_chip_smoke_ptxas_report_names_each_kernel():
         {"spill_bytes": 12, "registers": 80},
         {"spill_bytes": 0, "registers": 32},
         {"spill_bytes": 0, "registers": 128},
+        {"spill_bytes": 0, "registers": 127},
         {"spill_bytes": 0, "registers": 40},
-        {"spill_bytes": 0, "registers": 247},
+        {"spill_bytes": 0, "registers": 246},
         {"spill_bytes": 0, "registers": 154},
         {"spill_bytes": 0, "registers": 40}]
     names = list(report)
     assert "split_combine_kernel" in names[0] and "kernel" in names[1]
-    assert "decode_bf16_kernel" in names[2]
-    assert "decode_bf16_merge_kernel" in names[3]
-    assert "paged_verify_bf16_kernel" in names[4]
-    assert "paged_decode_bf16_kernel" in names[5]
-    assert "paged_decode_bf16_merge_kernel" in names[6]
+    assert "decode_bf16_kernel<128, __nv_bfloat16>" in names[2]
+    assert "decode_bf16_kernel<128, signed char>" in names[3]
+    assert "decode_bf16_merge_kernel" in names[4]
+    assert "paged_verify_bf16_kernel<128, 2, signed char>" in names[5]
+    assert "paged_decode_bf16_kernel" in names[6]
+    assert "paged_decode_bf16_merge_kernel" in names[7]
     assert _chip_smoke().ptxas_report("") == {}
 
 
@@ -369,18 +377,21 @@ def test_chip_smoke_sass_report_counts_tensor_core_instructions():
         " gdesc[UR8].tnspB, R56 ;",
         "        /*0330*/                   HGMMA.64x128x16.F32.BF16 R56, R28,"
         " gdesc[UR8].tnspB, R56, gsb0 ;",
-        # B4's and B7's bf16 forms: mma.sync fed by ldmatrix (.trans for V)
+        # B4's and B7's tensor-core forms: mma.sync fed by ldmatrix (.trans
+        # for V), B4 on a bf16 cache, B7 on an int8 pool (bytes permuted
+        # to bf16 first)
         "\t\tFunction : _ZN52_GLOBAL__N__408c5d7c_19_decode_attention_cu_"
-        "daae7df818decode_bf16_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PKiPf"
-        "S6_S6_iiif",
+        "daae7df818decode_bf16_kernelILi128E13__nv_bfloat16EEvPKS1_PKT0_S6_"
+        "PKfS8_PKiPfSB_SB_iiif",
         "        /*0400*/                   LDSM.16.MT88.4 R20, [R3+0x1000] ;",
         "        /*0410*/                   HMMA.16816.F32.BF16 R24, R8, R20,"
         " R24 ;",
         "        /*0420*/                   HMMA.16816.F32.BF16 R24, R12, R20,"
         " R24 ;",
         "\t\tFunction : _ZN58_GLOBAL__N__be15b586_25_paged_verify_attention"
-        "_cu_daae7df824paged_verify_bf16_kernelILi128ELi1EEEvPK13__nv_bfloat"
-        "16S3_S3_PKiS5_S5_PfS6_S6_iiiiiiif",
+        "_cu_daae7df824paged_verify_bf16_kernelILi128ELi1EaEEvPK13__nv_"
+        "bfloat16PKT1_S6_PKfS8_PKiSA_SA_PfSB_SB_iiiiiiif",
+        "        /*0480*/                   PRMT R5, R4, 0x7440, R9 ;",
         "        /*0500*/                   HMMA.16816.F32.BF16 R4, R8, R12,"
         " R4 ;",
         # B6's tensor-core forms, on a bf16 and on an int8 pool
@@ -409,8 +420,8 @@ def test_chip_smoke_sass_report_counts_tensor_core_instructions():
     assert "flash_bf16_kernel" in names[0]
     assert "mas_resident_bf16_kernel" in names[2]
     assert "paged_prefill_bf16_kernel" in names[3]
-    assert "decode_bf16_kernel" in names[4]
-    assert "paged_verify_bf16_kernel" in names[5]
+    assert "decode_bf16_kernel<128, __nv_bfloat16>" in names[4]
+    assert "paged_verify_bf16_kernel<128, 1, signed char>" in names[5]
     assert "paged_decode_bf16_kernel<128, __nv_bfloat16>" in names[6]
     assert "paged_decode_bf16_kernel<128, signed char>" in names[7]
     assert _chip_smoke().sass_report("") == {}
@@ -427,10 +438,9 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     assert tflash.entry_point(fp32) == "flash_attention_fp32_launch"
     assert ppre.entry_point(bf16) == "paged_prefill_bf16_launch"
     assert ppre.entry_point(fp32) == "paged_prefill_fp32_launch"
-    # B4 and B7: bf16 caches on the tensor cores, int8 caches (of either
-    # query dtype) and fp32 on the CUDA cores; B6: a bf16 q on the tensor
-    # cores on bf16 and on int8 pools (the int8 entry point picks the form
-    # by the query's dtype code), an fp32 q on the CUDA cores
+    # B4, B6 and B7: a bf16 q on the tensor cores on bf16 and on int8
+    # caches (the int8 entry point picks the form by the query's dtype
+    # code), an fp32 q on the CUDA cores
     for mod, stem in ((tdec, "decode"), (ppver, "paged_verify"),
                       (ppdec, "paged_decode")):
         assert mod.entry_point(bf16, False) == f"{stem}_bf16_launch"
@@ -481,25 +491,28 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     assert "launch<float, int8_t>" in ppre_cu
     assert "paged_prefill_kernel<__nv_bfloat16" not in ppre_cu
     assert "launch<__nv_bfloat16," not in ppre_cu
-    # ... and of B4 and B7 in fp32 and for int8 caches only: a bf16 cache
-    # never reaches them
+    # ... and of B4, B6 and B7 for an fp32 q only, on fp32 and int8
+    # caches: a bf16 q, on bf16 or int8 caches, never reaches them. Each
+    # int8 entry point sends a bf16 q (dtype code 1) to the tensor-core
+    # form on int8 K/V and an fp32 q to the CUDA-core one.
     dec_cu = (csrc / "decode_attention.cu").read_text()
     ver_cu = (csrc / "paged_verify_attention.cu").read_text()
-    assert "launch<float, float>" in dec_cu
-    assert "launch<__nv_bfloat16, int8_t>" in dec_cu
-    assert "launch<__nv_bfloat16, __nv_bfloat16>" not in dec_cu
-    assert "paged_split_launch<float, float," in ver_cu
-    assert "paged_split_launch<__nv_bfloat16, int8_t," in ver_cu
-    assert "paged_split_launch<__nv_bfloat16, __nv_bfloat16" not in ver_cu
-    assert "paged_split_dispatch" not in ver_cu
-    # ... and B6's CUDA-core form for an fp32 q only: a bf16 q, on bf16 or
-    # int8 pools, never reaches it
     pdec_cu = (csrc / "paged_decode_attention.cu").read_text()
-    assert "paged_split_launch<float, float," in pdec_cu
-    assert "paged_split_launch<float, int8_t," in pdec_cu
-    assert "paged_split_launch<__nv_bfloat16" not in pdec_cu
-    assert "paged_split_dispatch" not in pdec_cu
-    assert "dispatch_tc<__nv_bfloat16>" in pdec_cu
-    assert "dispatch_tc<int8_t>" in pdec_cu
-    for cu in (dec_cu, ver_cu, pdec_cu):
+    for cu, kernel, cuda_core in (
+            (dec_cu, "decode_bf16_kernel", "launch<float, "),
+            (ver_cu, "paged_verify_bf16_kernel", "paged_split_launch<float, "),
+            (pdec_cu, "paged_decode_bf16_kernel",
+             "paged_split_launch<float, ")):
+        assert f"{cuda_core}float" in cu and f"{cuda_core}int8_t" in cu
+        assert "launch<__nv_bfloat16" not in cu
+        assert "paged_split_dispatch" not in cu
+        assert f"{kernel}<E, KV>" in cu or f"{kernel}<E, MT, KV>" in cu
+        assert "dispatch_tc<__nv_bfloat16>" in cu
+        int8_launch = cu[cu.index("_int8_launch("):]
+        assert int8_launch.index("dispatch_tc<int8_t>") < int8_launch.index(
+            f"{cuda_core}int8_t")
+        assert "if (dtype != 0)" in int8_launch
         assert '#include "decode_tc.cuh"' in cu
+    # ... and the CUDA-core helpers of common.cuh take no bf16 operand
+    common = (csrc / "common.cuh").read_text()
+    assert "__nv_bfloat16" not in common.split("#include")[-1]

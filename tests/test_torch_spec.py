@@ -35,6 +35,8 @@ from repro.serving import NgramDrafter as JaxDrafter
 from repro.serving import PagedKVCacheManager as JaxManager
 from repro_torch.core.autotune import tune_spec_depth
 from repro_torch.kernels import common as tcommon
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import paged_verify_attention as tpver
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttfm
@@ -97,6 +99,22 @@ def _check_verify(q, k, v, ks, vs, table, starts, n_rows):
                                             starts)
     live = n_rows > 0
     np.testing.assert_allclose(got[live], pallas[live], atol=FP32_ATOL,
+                               rtol=0)
+    # the kernel's plain version at the split a bf16 query takes (the
+    # tensor-core form's), in fp32
+    b, spec, hq, e = q.shape
+    n_split, tps = tdec.decode_split_plan(torch.bfloat16, b * HKV,
+                                          table.shape[1] * k.shape[2])
+    qg = q.reshape(b, spec, HKV, hq // HKV, e).transpose(0, 2, 1, 3, 4)
+    tq, tk, tv, tks, tvs, tt, tl, ts = _both(
+        qg.reshape(b, HKV, spec * hq // HKV, e), k, v, ks, vs, table, lens,
+        starts)[1]
+    short = tpver.paged_verify_attention_plain(
+        tq, tk, tv, tt, tl, ts, spec=spec, n_split=n_split,
+        tiles_per_split=tps, k_scales=tks, v_scales=tvs)
+    short = as_numpy(short.reshape(b, HKV, spec, hq // HKV, e)
+                     .permute(0, 2, 1, 3, 4).reshape(q.shape))
+    np.testing.assert_allclose(short[live], pallas[live], atol=FP32_ATOL,
                                rtol=0)
     np.testing.assert_allclose(got[~live & (lens > 0)],
                                twin[~live & (lens > 0)], atol=FP32_ATOL,

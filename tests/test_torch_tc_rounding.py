@@ -29,10 +29,12 @@ own, the block merges its warps and a second pass the splits, in fp32.
 B4's case is one query row on each of 32 (b, kv head) rows over 1900
 live keys of a 2000-row cache, B7's eight position-major rows (k = 4,
 G = 2) ending at 1000 keys of shuffled 16-row pages, B6's two rows (G =
-2) over 1900 keys of shuffled 16-row pages, on a bf16 pool and on an
-int8 pool: its slices hold the int8 values as bf16, the K scale of each
-column multiplies the score and the V scale multiplies P after the row
-sum and before the split.
+2) over 1900 keys of shuffled 16-row pages; each on bf16 K/V and on int8
+K/V (B4 with one scale a cache row, B6 and B7 one a page): an int8
+slice holds the int8 values as bf16, the K scale of each column
+multiplies the score and the V scale multiplies P after the row sum and
+before the split. The int8 cases' fault is a zeroed V scale: a 64-row
+tile's rows for B4, a page for B6 and B7.
 
 Run as a script, it prints the row errors.
 """
@@ -223,74 +225,68 @@ def split_emulated(q, k, v, *, split: bool, kv_len: int, tiles: int,
     return (acc / l).to(torch.bfloat16)
 
 
-def _decode_case(seed: int):
-    """B4's case: (emulate, plain version's output, (v, {}))."""
+def _kv_pair(rng, shape, quantized: bool, dims):
+    """K and V of ``shape`` from ``rng``: bf16, or int8 quantized over
+    ``dims`` with their scales ({} for bf16)."""
+    k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for _ in range(2))
+    if not quantized:
+        return k.bfloat16(), v.bfloat16(), {}
+    (k, ks), (v, vs) = quantize_q8(k, dims), quantize_q8(v, dims)
+    return k, v, {"k_scales": ks, "v_scales": vs}
+
+
+def _decode_case(seed: int, quantized: bool):
+    """B4's case on a bf16 cache or an int8 cache with per-row scales:
+    (emulate, plain version's output, (v, scales))."""
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal((DEC_BH, n, E),
-                                                    dtype=np.float32))
-               .bfloat16() for n in (1, DEC_S, DEC_S))
+    q = torch.from_numpy(rng.standard_normal((DEC_BH, 1, E),
+                                             dtype=np.float32)).bfloat16()
+    k, v, sc = _kv_pair(rng, (DEC_BH, DEC_S, E), quantized, -1)
     lens = torch.full((DEC_BH,), DEC_LEN, dtype=torch.int32)
-    n_split, tps = tdec.decode_split_plan(torch.bfloat16, DEC_BH, DEC_S)
-    want = tdec.decode_attention_plain(q, k, v, lens, n_split=n_split,
-                                       tiles_per_split=tps)
+    n_split, tps = tdec.decode_split_plan(q.dtype, DEC_BH, DEC_S)
+    want = tdec.decode_attention_plain(
+        q, k, v, lens, n_split=n_split, tiles_per_split=tps,
+        k_scale=sc.get("k_scales"), v_scale=sc.get("v_scales"))
 
     def emulate(split, v_=None, vs=None):
-        return split_emulated(q, k, v if v_ is None else v_, split=split,
-                              kv_len=DEC_LEN, tiles=tps)
-    return emulate, want, (v, {})
+        kw = {}
+        if quantized:
+            kw = {"k_scale": sc["k_scales"],
+                  "v_scale": sc["v_scales"] if vs is None else vs}
+        return split_emulated(q, k.bfloat16(),
+                              (v if v_ is None else v_).bfloat16(),
+                              split=split, kv_len=DEC_LEN, tiles=tps, **kw)
+    return emulate, want, (v, sc)
 
 
-def _verify_case(seed: int):
-    """B7's case on shuffled pages: (emulate, plain output, (v_pages, {}))."""
+def _paged_split_case(seed: int, quantized: bool, spec: int, kv_len: int):
+    """B6's (spec 0: G rows seeing the live context) or B7's (spec k: k G
+    position-major rows, the last k positions ending at kv_len) case on
+    shuffled 16-row pages, bf16 or int8 with per-page scales: (emulate,
+    plain output, (v_pages, scales))."""
     rng = np.random.default_rng(seed)
-    n_pages = VER_LEN // PAGE + 3
-    rows = VER_SPEC * VER_G
+    n_pages = kv_len // PAGE + (3 if spec else 8)
+    rows = max(spec, 1) * VER_G
     q = torch.from_numpy(rng.standard_normal((1, HEADS, rows, E),
                                              dtype=np.float32)).bfloat16()
-    k, v = (torch.from_numpy(rng.standard_normal(
-        (HEADS, n_pages, PAGE, E), dtype=np.float32)).bfloat16()
-        for _ in range(2))
+    k, v, sc = _kv_pair(rng, (HEADS, n_pages, PAGE, E), quantized, (-2, -1))
     table = torch.from_numpy(rng.permutation(n_pages - 1) + 1).to(
         torch.int32)[None]
-    lens = torch.tensor([VER_LEN], dtype=torch.int32)
-    starts = lens - VER_SPEC
-    cap = table.shape[1] * PAGE
-    n_split, tps = tdec.decode_split_plan(torch.bfloat16, HEADS, cap)
-    want = tpver.paged_verify_attention_plain(
-        q, k, v, table, lens, starts, spec=VER_SPEC, n_split=n_split,
-        tiles_per_split=tps)[0]
-    q_pos = tpver.row_positions(starts, VER_SPEC, VER_G)[0]
-
-    def emulate(split, v_=None, vs=None):
-        vp = v if v_ is None else v_
-        return split_emulated(q[0], gather_pages(k, table[0]),
-                              gather_pages(vp, table[0]), split=split,
-                              kv_len=VER_LEN, tiles=tps, q_pos=q_pos)
-    return emulate, want, (v, {})
-
-
-def _paged_decode_case(seed: int, quantized: bool):
-    """B6's case on shuffled 16-row pages, bf16 or int8 with per-page
-    scales: (emulate, plain output, (v_pages, scales))."""
-    rng = np.random.default_rng(seed)
-    n_pages = DEC_LEN // PAGE + 8
-    q = torch.from_numpy(rng.standard_normal((1, HEADS, VER_G, E),
-                                             dtype=np.float32)).bfloat16()
-    k, v = (torch.from_numpy(rng.standard_normal(
-        (HEADS, n_pages, PAGE, E), dtype=np.float32)) for _ in range(2))
-    table = torch.from_numpy(rng.permutation(n_pages - 1) + 1).to(
-        torch.int32)[None]
-    sc = {}
-    if quantized:
-        (k, ks), (v, vs) = quantize_q8(k, (-2, -1)), quantize_q8(v, (-2, -1))
-        sc = {"k_scales": ks, "v_scales": vs}
+    lens = torch.tensor([kv_len], dtype=torch.int32)
+    n_split, tps = tdec.decode_split_plan(q.dtype, HEADS,
+                                          table.shape[1] * PAGE)
+    q_pos = None
+    if spec:
+        starts = lens - spec
+        want = tpver.paged_verify_attention_plain(
+            q, k, v, table, lens, starts, spec=spec, n_split=n_split,
+            tiles_per_split=tps, **sc)[0]
+        q_pos = tpver.row_positions(starts, spec, VER_G)[0]
     else:
-        k, v = k.bfloat16(), v.bfloat16()
-    lens = torch.tensor([DEC_LEN], dtype=torch.int32)
-    n_split, tps = tpdec.split_plan_for(torch.bfloat16, HEADS,
-                                        table.shape[1] * PAGE)
-    want = tpdec.paged_decode_attention_plain(
-        q, k, v, table, lens, n_split=n_split, tiles_per_split=tps, **sc)[0]
+        want = tpdec.paged_decode_attention_plain(
+            q, k, v, table, lens, n_split=n_split, tiles_per_split=tps,
+            **sc)[0]
 
     def emulate(split, v_=None, vs=None):
         kw = {}
@@ -301,7 +297,8 @@ def _paged_decode_case(seed: int, quantized: bool):
         vp = v if v_ is None else v_
         return split_emulated(q[0], gather_pages(k, table[0]).bfloat16(),
                               gather_pages(vp, table[0]).bfloat16(),
-                              split=split, kv_len=DEC_LEN, tiles=tps, **kw)
+                              split=split, kv_len=kv_len, tiles=tps,
+                              q_pos=q_pos, **kw)
     return emulate, want, (v, sc)
 
 
@@ -312,20 +309,21 @@ def row_rel_err(got, want) -> float:
 
 
 KERNELS = ["mas", "mas_resident", "flash", "paged", "paged_int8", "decode",
-           "verify", "paged_decode", "paged_decode_int8"]
+           "decode_int8", "verify", "verify_int8", "paged_decode",
+           "paged_decode_int8"]
 
 
 def _case(kernel: str, seed: int):
-    """(emulate(split, v=None, v_scales=None), plain version's output) of
-    ``kernel`` on the inputs of ``seed``."""
-    if kernel == "decode":
-        return _decode_case(seed)
-    if kernel == "verify":
-        return _verify_case(seed)
+    """(emulate(split, v=None, v_scales=None), plain version's output,
+    (v, scales)) of ``kernel`` on the inputs of ``seed``."""
+    quantized = kernel.endswith("_int8")
+    if kernel.startswith("decode"):
+        return _decode_case(seed, quantized)
+    if kernel.startswith("verify"):
+        return _paged_split_case(seed, quantized, VER_SPEC, VER_LEN)
     if kernel.startswith("paged_decode"):
-        return _paged_decode_case(seed, kernel.endswith("_int8"))
+        return _paged_split_case(seed, quantized, 0, DEC_LEN)
     if kernel.startswith("paged"):
-        quantized = kernel == "paged_int8"
         q, k, v, table, sc = _paged_inputs(seed, quantized)
         want = tppre.paged_prefill_attention_plain(
             q, k, v, table, q_offset=Q0, kv_len=N, blk_q=64, **sc)
@@ -371,9 +369,12 @@ def test_hi_lo_p_fits_the_bf16_row_limit_with_room(kernel):
 def test_emulation_sees_a_skipped_v_tile(kernel):
     emulate, _, (v, sc) = _case(kernel, 1)
     want = emulate(True)
-    if kernel.endswith("_int8"):  # a page's V scale zeroed
+    if kernel.endswith("_int8"):  # a page's (B4: a tile's) V scales zeroed
         vs = sc["v_scales"].clone()
-        vs[:, 3] = 0
+        if kernel == "decode_int8":
+            vs[:, BLK_KV:2 * BLK_KV] = 0
+        else:
+            vs[:, 3] = 0
         faulty = emulate(True, vs=vs)
     else:                         # a 64-row V tile (or its pages) zeroed
         v_bad = v.clone()
