@@ -37,9 +37,11 @@ Phases, each printing one JSON line:
    time, the plain version's, the bound for its work on the card, and
    one PyTorch call computing the same function (timed as a yardstick
    only; int8 caches are dequantized first; none computes B8's); B2 also
-   at 1 x 4096 (blk_q 8, its transposed form), and B1-B3 and B5 with
-   their achieved TFLOP/s. A kernel's and its yardstick's ``ms`` and
-   ``library_ms`` are the back-to-back loop's mean time, which holds the
+   at 1 x 4096 (blk_q 8, its transposed form), and B1-B3, B5 and B8 with
+   their achieved TFLOP/s (B8's row also with its registers, spills and
+   tensor-core instructions). Paged prefill takes its (q_offset, kv_len)
+   as an int32 pair on the device. A kernel's and its yardstick's ``ms``
+   and ``library_ms`` are the back-to-back loop's mean time, which holds the
    host's dispatch wherever the card runs faster than the host enqueues;
    beside them, device time (``device_ms``, ``library_device_ms``: each
    call timed by CUDA events behind a device-side wait that hides the
@@ -285,6 +287,18 @@ def device_times(torch, kern, lib, iters: int) -> dict:
         retries, dropped = retries + lib_retries, dropped + lib_dropped
     return {"device_ms": ms, "library_device_ms": lib_ms,
             "device_retries": retries, "device_dropped": dropped}
+
+
+def device_span(torch, q_offset: int, kv_len: int):
+    """B5's (q_offset, kv_len) int32 pair on the device."""
+    return torch.tensor([q_offset, kv_len], dtype=torch.int32, device="cuda")
+
+
+def chunk_span(torch, q_offset: int, chunk_len: int):
+    """What ``prefill_chunk`` takes on the device, as the continuous
+    engine packs it: (q_offset, kv_len, last live row) int32."""
+    return torch.tensor([q_offset, q_offset + chunk_len, chunk_len - 1],
+                        dtype=torch.int32, device="cuda")
 
 
 def max_err(a, b) -> float:
@@ -546,10 +560,11 @@ def phase_fp32(torch) -> dict:
     # live rows of 96), and one live row
     for q0, kv_len, chunk in ((0, 64, 64), (64, 150, 96), (0, 1, 32)):
         qp = rnd(4, chunk, 64)
-        out = ppre.paged_prefill_attention_flat(
-            qp, kp, vp, table[5], q_offset=q0, kv_len=kv_len, blk_q=32)
-        ref = ppre.paged_prefill_attention_plain(
-            qp, kp, vp, table[5], q_offset=q0, kv_len=kv_len, blk_q=32)
+        span = device_span(torch, q0, kv_len)
+        out = ppre.paged_prefill_attention_flat(qp, kp, vp, table[5], span,
+                                                blk_q=32)
+        ref = ppre.paged_prefill_attention_plain(qp, kp, vp, table[5], span,
+                                                 blk_q=32)
         errs[f"paged_prefill_{q0}_{kv_len}"] = max_err(out, ref)
 
     # the int8 branches of B5 and B6 on the same pools quantized per page
@@ -564,9 +579,11 @@ def phase_fp32(torch) -> dict:
     errs["paged_decode_int8"] = max_err(out, ref)
     for q0, kv_len, chunk in ((0, 64, 64), (64, 150, 96)):
         qp = rnd(4, chunk, 64)
-        kw = dict(q_offset=q0, kv_len=kv_len, blk_q=32, **q8)
-        out = ppre.paged_prefill_attention_flat(qp, kp8, vp8, table[5], **kw)
-        ref = ppre.paged_prefill_attention_plain(qp, kp8, vp8, table[5],
+        kw = dict(blk_q=32, **q8)
+        span = device_span(torch, q0, kv_len)
+        out = ppre.paged_prefill_attention_flat(qp, kp8, vp8, table[5], span,
+                                                **kw)
+        ref = ppre.paged_prefill_attention_plain(qp, kp8, vp8, table[5], span,
                                                  **kw)
         errs[f"paged_prefill_int8_{q0}_{kv_len}"] = max_err(out, ref)
     # B7, both branches: ragged candidate rows (k, 1, 0, k, 2, k), a start
@@ -601,8 +618,10 @@ def phase_fp32(torch) -> dict:
     return report
 
 
-def phase_kernels(torch) -> list[dict]:
-    """Each kernel vs its plain version at the main path's shapes (bf16)."""
+def phase_kernels(torch, device: dict) -> list[dict]:
+    """Each kernel vs its plain version at the main path's shapes (bf16);
+    ``device`` is the device phase's report (registers, spills and
+    tensor-core instructions by kernel)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.policy import KV_TILE
     from repro_torch.kernels import decode_attention as dec
@@ -667,7 +686,7 @@ def phase_kernels(torch) -> list[dict]:
     for quantized in (False, True):
         rows.append(decode_row(torch, rnd, cfg, quantized))
         rows += paged_rows(torch, rnd, cfg, quantized)
-    rows.append(ssd_row(torch))
+    rows.append(ssd_row(torch, device))
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
     for row in rows + [r["blk_q8"] for r in rows if "blk_q8" in r]:
         require(row["row_rel_err"] <= BF16_ROW_RTOL,
@@ -930,14 +949,14 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
     checks = []
     for q0, kv_len, timed in PAGED_PREFILL:
         qp = rnd(hq, chunk, e)
-        kern = lambda qp=qp, q0=q0, kv_len=kv_len: (  # noqa: E731
-            ops.paged_prefill_attention(qp, kp, vp, seq_table, q0, kv_len,
-                                        **sc))
+        span = device_span(torch, q0, kv_len)
+        kern = lambda qp=qp, span=span: (  # noqa: E731
+            ops.paged_prefill_attention(qp, kp, vp, seq_table, span, **sc))
 
-        def plain(vp=vp, vps=vps, qp=qp, q0=q0, kv_len=kv_len):
+        def plain(vp=vp, vps=vps, qp=qp, span=span):
             return ppre.paged_prefill_attention_plain(
-                qp, kp, vp, seq_table, q_offset=q0, kv_len=kv_len, blk_q=bq,
-                k_scales=kps, v_scales=vps)
+                qp, kp, vp, seq_table, span, blk_q=bq, k_scales=kps,
+                v_scales=vps)
 
         fault_page = int(seq_table[kv_len // page - 2])
         check = held_to_plain(kern(), plain(), faulty(plain, fault_page))
@@ -1115,11 +1134,12 @@ def ssd_fp32_checks(torch) -> dict:
     return errs
 
 
-def ssd_row(torch) -> dict:
+def ssd_row(torch, device: dict) -> dict:
     """B8 against its plain version at the main path's shape: the 4 x
     2048 wave of full-width mamba2-130m (96 heads of 8 chunks of 256
     rows, head_dim 64, d_state 128), bf16 x, b, c and fp32 a as the model
-    makes them."""
+    makes them; with its TFLOP/s over the visible pairs, and from the
+    device phase its registers, spills and tensor-core instructions."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -1143,6 +1163,8 @@ def ssd_row(torch) -> dict:
     # bf16 x, b, c and fp32 a read once; fp32 y and states written once
     nbytes = cells * (q * (2 * p + 2 * 2 * n + 4 + 4 * p) + 4 * n * p)
     bms, by = bound(flops, nbytes)
+    ms = cuda_ms(torch, kern, 20)
+    dev = device_times(torch, kern, None, 20)
     return {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1152,9 +1174,14 @@ def ssd_row(torch) -> dict:
         "fault_row_rel_err": min(y["fault_row_rel_err"],
                                  st["fault_row_rel_err"]),
         "y": y, "states": st,
-        "ms": cuda_ms(torch, kern, 20), "plain_ms": cuda_ms(torch, plain, 2),
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-        **device_times(torch, kern, None, 20),
+        "ms": ms, "plain_ms": cuda_ms(torch, plain, 2),
+        "bound_ms": bms, "bound_by": by, "library_ms": None, **dev,
+        "tflops": flops / ms / 1e9,
+        "device_tflops": (flops / dev["device_ms"] / 1e9
+                          if dev["device_ms"] else None),
+        "ptxas": device["ptxas"]["ssd_scan"],
+        "tensor_core_instructions": device["tensor_core_instructions"][
+            "ssd_scan"],
         "shape": {"cells": cells, "bh": batch * heads, "nc": nc, "q": q,
                   "p": p, "n": n, "dtype": "bf16", "flops": flops,
                   "bytes": nbytes},
@@ -1563,8 +1590,9 @@ def phase_int8_continuous(torch, full: dict) -> dict:
                     [j + 1 if j < n_pg else 0
                      for j in range(q0 // page, (q0 + chunk) // page)],
                     dtype=torch.int32, device="cuda")
-                logits, cache = model.prefill_chunk(params, cfg, toks, cache,
-                                                    table, cpages, q0, clen)
+                logits, cache = model.prefill_chunk(
+                    params, cfg, toks, cache, table, cpages,
+                    chunk_span(torch, q0, clen))
             got[kv_dtype] = logits.float()
             del cache
         want, q8 = got[None], got["int8"]
@@ -1834,7 +1862,8 @@ def phase_continuous(torch, full: dict) -> dict:
                  for j in range(q0 // page, (q0 + chunk) // page)],
                 dtype=torch.int32, device="cuda")
             got, cache = model.prefill_chunk(params, cfg, toks, cache, table,
-                                             cpages, q0, clen)
+                                             cpages,
+                                             chunk_span(torch, q0, clen))
         del cache
         want, _ = plain_model.prefill(
             params, plain_model.cfg,
@@ -1956,9 +1985,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_device(torch, build)
+    device = phase_device(torch, build)
     phase_fp32(torch)
-    rows = phase_kernels(torch)
+    rows = phase_kernels(torch, device)
     full = full_width_model(torch)
     # each path runs with the launch counts set to 0 just before it and
     # read just after; the kernel line reports each row's own path

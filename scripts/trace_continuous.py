@@ -2,8 +2,9 @@
 """Trace the serving paths of the PyTorch port on one GPU.
 
 Serves full-width internlm2-1.8b (bf16, random weights from seed 0) on
-six paths, each once to warm up, once untraced and once under
-``torch.profiler``, and prints one JSON line a path:
+six paths and full-width mamba2-130m on one more, each once to warm up,
+once untraced and once under ``torch.profiler``, and prints one JSON
+line a path:
 
 * ``continuous``: the requests of ``chip_smoke.py``'s continuous phase
   (16 requests with prompts of 32-3500 tokens from
@@ -19,7 +20,12 @@ six paths, each once to warm up, once untraced and once under
 * ``wave``: ``chip_smoke.py``'s 4 x 2048 wave through ``ServingEngine``
   (16 new tokens): B2 on the prefill, B4 on the decode steps;
 * ``int8_wave``: the same wave on an int8 cache (``kv_dtype="int8"``):
-  B4's int8 form.
+  B4's int8 form;
+* ``ssm_wave``: ``chip_smoke.py``'s main-path wave of mamba2-130m (bf16,
+  random weights from seed 0), 4 x 2048 through ``ServingEngine`` with
+  16 new tokens: B8 once a layer on the prefill (group ``B8
+  ssd_intra_chunk``), the one-token recurrence in PyTorch on the decode
+  steps.
 
 Each line holds the serve's wall time untraced and traced, the device's
 busy share over the traced serve, the busy share and time of each step
@@ -56,8 +62,10 @@ CONT = dict(batch_size=8, max_len=4096, page_size=16, chunk_size=512)
 REQUESTS, NEW_TOKENS, PROMPT_LENS = 16, 32, (32, 3500)
 SPEC_DEPTH, SPEC_SPAN = 4, 64
 WAVE, WAVE_NEW_TOKENS, WAVE_MAX_LEN = (4, 2048), 16, 8256
+SSM_ARCH, SSM_WAVE = "mamba2-130m", (4, 2048)
 PATHS = ("continuous", "int8_continuous", "speculative", "speculative_int8",
-         "wave", "int8_wave")
+         "wave", "int8_wave", "ssm_wave")
+DENSE = PATHS[:-1]
 # kernel name fragments -> group, first match wins
 GROUPS = (("paged_prefill", "B5 paged_prefill"),
           ("paged_verify", "B7 paged_verify"),
@@ -67,6 +75,7 @@ GROUPS = (("paged_prefill", "B5 paged_prefill"),
           ("decode_bf16", "B4 decode"), ("decode_split", "B4 decode"),
           ("mas_resident", "B1 mas_resident"),
           ("mas_streamed", "B2 mas_streamed"), ("flash", "B3 flash"),
+          ("ssd_chunk", "B8 ssd_intra_chunk"),
           ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
           ("cutlass", "matmul"), ("Memcpy", "copies"), ("Memset", "copies"))
 
@@ -192,6 +201,43 @@ def main() -> int:
     )
 
     _build.build_all()
+    if paths & set(DENSE):
+        trace_dense(torch, np, paths, get_arch, build_model,
+                    ContinuousBatchingEngine, Request, ServingEngine)
+    if "ssm_wave" in paths:
+        trace_ssm(torch, np, get_arch, build_model, Request, ServingEngine)
+    return 0
+
+
+def trace_wave(torch, eng, reqs, header: dict) -> None:
+    """One traced wave serve, its steps marked ``prefill`` and
+    ``wave_decode``; prints its JSON line."""
+    eng._prefill = marked(torch, eng._prefill, lambda *a: "prefill")
+    eng._decode = marked(torch, eng._decode, lambda *a: "wave_decode")
+    out = traced(torch, lambda: eng.serve(reqs()))
+    print(json.dumps({**header, **summary(torch, *out)}), flush=True)
+
+
+def trace_ssm(torch, np, get_arch, build_model, Request, ServingEngine):
+    cfg = get_arch(SSM_ARCH)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
+    batch, n = SSM_WAVE
+    rng = np.random.default_rng(5)
+    wave = [rng.integers(3, cfg.vocab_size, size=(n,)).astype(np.int32)
+            for _ in range(batch)]
+    eng = ServingEngine(model, params, max_len=n + WAVE_NEW_TOKENS,
+                        batch_size=batch, device="cuda")
+    trace_wave(torch, eng, lambda: [
+        Request(rid=i, prompt=p, max_new_tokens=WAVE_NEW_TOKENS, eos_id=-1)
+        for i, p in enumerate(wave)],
+        {"path": "ssm_wave", "arch": SSM_ARCH,
+         "device": torch.cuda.get_device_name(0), "batch": batch,
+         "prompt": n, "new_tokens": WAVE_NEW_TOKENS})
+
+
+def trace_dense(torch, np, paths, get_arch, build_model,
+                ContinuousBatchingEngine, Request, ServingEngine):
     cfg = get_arch("internlm2-1.8b")
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
@@ -207,8 +253,11 @@ def main() -> int:
         return [Request(rid=i, prompt=p, max_new_tokens=new, eos_id=-1)
                 for i, p in enumerate(ps)]
 
-    def paged_kind(cache, host, decode, chunk):
-        return ("decode" if chunk is None
+    def paged_kind(cache, host, decode, prefill):
+        # prefill: whether the step carries a chunk (a chunk's (q_offset,
+        # chunk_len), or None, in trees before it moved into the step's
+        # array)
+        return ("decode" if not prefill
                 else "chunk+decode" if decode else "chunk")
 
     header = {"device": torch.cuda.get_device_name(0), **CONT,
@@ -241,18 +290,15 @@ def main() -> int:
         eng = ServingEngine(model, params, max_len=WAVE_MAX_LEN,
                             batch_size=batch, kv_dtype=kv_dtype,
                             device="cuda")
-        eng._prefill = marked(torch, eng._prefill, lambda *a: "prefill")
-        eng._decode = marked(torch, eng._decode, lambda *a: "wave_decode")
-        out = traced(torch,
-                     lambda: eng.serve(requests(wave, WAVE_NEW_TOKENS)))
-        print(json.dumps({"path": path, "device": header["device"],
-                          "batch": batch, "prompt": n,
-                          "new_tokens": WAVE_NEW_TOKENS,
-                          "kv_dtype": kv_dtype or "bf16",
-                          **summary(torch, *out)}), flush=True)
+        trace_wave(torch, eng, lambda: requests(wave, WAVE_NEW_TOKENS),
+                   {"path": path, "device": header["device"],
+                    "batch": batch, "prompt": n,
+                    "new_tokens": WAVE_NEW_TOKENS,
+                    "kv_dtype": kv_dtype or "bf16"})
         del eng
         torch.cuda.empty_cache()
-    return 0
+    del model, params
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -76,12 +76,12 @@ SIGNATURES = {
         "paged_decode_int8_launch": [P] * 11 + [I] * 9 + [F, I, P],
     },
     "paged_prefill_attention": {
-        # q, k_pages, v_pages, k_scales, v_scales, table, o, hq, nq, E,
-        # group, blk_q, n_pages, page_size, q_offset, kv_len, sm_scale,
-        # quantized, stream
-        "paged_prefill_fp32_launch": [P] * 7 + [I] * 9 + [F, I, P],
+        # q, k_pages, v_pages, k_scales, v_scales, table, span (q_offset,
+        # kv_len on the device), o, hq, nq, E, group, blk_q, n_pages,
+        # page_size, max_pages, sm_scale, quantized, stream
+        "paged_prefill_fp32_launch": [P] * 8 + [I] * 8 + [F, I, P],
         # the same without blk_q (the bf16 form's block is its own)
-        "paged_prefill_bf16_launch": [P] * 7 + [I] * 8 + [F, I, P],
+        "paged_prefill_bf16_launch": [P] * 8 + [I] * 7 + [F, I, P],
     },
     "paged_verify_attention": {
         # q, k_pages, v_pages, table, kv_lens, q_starts, o, m_part, l_part,

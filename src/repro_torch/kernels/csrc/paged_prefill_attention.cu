@@ -11,7 +11,14 @@
 // gathered from the pool (Hkv, P, page_size, E) through the sequence's
 // page table. Query head hq reads kv head hq / group. Row i sees the keys
 // at positions <= min(q_offset + i, kv_len - 1); pad rows at or past
-// kv_len see every live key and are dropped by the caller.
+// kv_len see every live key and are dropped by the caller. q_offset and
+// kv_len are an int32 pair in device memory (span) that every block reads
+// at its start, as the TPU kernel reads them by scalar prefetch: no launch
+// argument changes from one chunk to the next. A kv_len past the table's
+// rows (table_rows = max_pages * page_size, multiplied on the host: with
+// the product formed in the kernel, page_size held a register and B5 on
+// int8 pools ran 2% slower, measured on an H100) is cut to them, as the
+// TPU kernel's grid over the table ends there.
 //
 // The TPU kernel keeps a whole (chunk, E) fp32 accumulator per head on
 // chip; at chunk 512 that is 256 KB, past the 227 KB a block may hold. So
@@ -39,14 +46,16 @@
 // - 64-row blocks of one consumer warpgroup, so each gathered tile serves
 //   64 rows; the online-softmax step of flash_tile.cuh, shared with B3:
 //   S = Q K^T and P V by wgmma, S and P in registers, the masks evaluated
-//   in registers from the launch integers, P as bf16 hi + lo.
+//   in registers from the span, P as bf16 hi + lo.
 // - A producer warpgroup keeps a ring of three stages filling: it copies
 //   a tile's rows by cp.async, 16 bytes a thread, page by page through
-//   the page ids the block read from the table once, and an mbarrier
-//   counts them in. A warp that issues copies stalls while the memory
-//   pipe takes them (in one warpgroup that did both, measured on an H100,
-//   the copies and the products took as long as the two apart added up);
-//   in warps of their own the stalls overlap the products.
+//   the page ids the block read from the table once (room for the whole
+//   table row is reserved, since the live rows are known only on the
+//   device), and an mbarrier counts them in. A warp that issues copies
+//   stalls while the memory pipe takes them (in one warpgroup that did
+//   both, measured on an H100, the copies and the products took as long
+//   as the two apart added up); in warps of their own the stalls overlap
+//   the products.
 // - A bf16 pool lands straight in the 128-byte-swizzled tiles the wgmma
 //   descriptors read; rows past kv_len are zero-filled. An int8 pool is
 //   loaded by the producers as 16-byte vectors, converted to bf16 (exact:
@@ -73,12 +82,14 @@ __global__ void __launch_bounds__(THREADS)
 paged_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                      const KV* __restrict__ v, const float* __restrict__ ks,
                      const float* __restrict__ vs,
-                     const int* __restrict__ table, T* __restrict__ o,
+                     const int* __restrict__ table,
+                     const int* __restrict__ span, T* __restrict__ o,
                      int nq, int E, int group, int blk_q, int n_pages,
-                     int page_size, int q_offset, int kv_len,
-                     float sm_scale) {
+                     int page_size, int table_rows, float sm_scale) {
   using S = typename TileOf<T, KV>::type;
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;
+  const int q_offset = __ldg(span);
+  const int kv_len = min(__ldg(span + 1), table_rows);
   const int iq = blockIdx.x, hq = blockIdx.y;
   const int row0 = q_offset + iq * blk_q;   // position of the block's row 0
   const int t = threadIdx.x;
@@ -208,9 +219,9 @@ paged_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 
 template <typename T, typename KV>
 int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const int* table, void* o, int hq, int nq, int E,
-           int group, int blk_q, int n_pages, int page_size, int q_offset,
-           int kv_len, float sm_scale, cudaStream_t stream) {
+           const void* vs, const int* table, const int* span, void* o, int hq,
+           int nq, int E, int group, int blk_q, int n_pages, int page_size,
+           int max_pages, float sm_scale, cudaStream_t stream) {
   using S = typename TileOf<T, KV>::type;
   const size_t smem = 4ull * blk_q * KV_TILE + 4ull * blk_q * E +
                       3ull * 4 * blk_q + 4ull * scale_floats<KV>() +
@@ -223,8 +234,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   paged_prefill_kernel<T, KV><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), table, static_cast<T*>(o), nq, E, group,
-      blk_q, n_pages, page_size, q_offset, kv_len, sm_scale);
+      static_cast<const float*>(vs), table, span, static_cast<T*>(o), nq, E,
+      group, blk_q, n_pages, page_size, max_pages * page_size, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -240,8 +251,9 @@ constexpr int CONSUMER_BAR = 1 + STAGES;
 
 // Shared-memory layout of the bf16 form from the 1024-aligned base: the
 // Q tile, the ring's STAGES stages (bf16 K and V tiles, and for an int8
-// pool their per-column scales), the ring's mbarriers, and the page ids
-// of the block's live rows.
+// pool their per-column scales), the ring's mbarriers, and room for the
+// page ids of the whole table row (the block reads those of its live
+// rows).
 template <int E, bool Q8>
 struct Smem {
   static constexpr int TILE = KV_TILE * E * 2;          // a bf16 K or V tile
@@ -295,11 +307,14 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ ks,
                           const float* __restrict__ vs,
                           const int* __restrict__ table,
+                          const int* __restrict__ span,
                           __nv_bfloat16* __restrict__ o, int nq, int group,
-                          int n_pages, int page_size, int q_offset,
-                          int kv_len, float scale_log2) {
+                          int n_pages, int page_size, int table_rows,
+                          float scale_log2) {
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   using L = Smem<E, Q8>;
+  const int q_offset = __ldg(span);
+  const int kv_len = min(__ldg(span + 1), table_rows);
   // the last Q blocks have the most live tiles: they go first
   const int iq = gridDim.x - 1 - blockIdx.x, hq = blockIdx.y;
   const int row0 = q_offset + iq * BQ;   // position of the block's row 0
@@ -319,8 +334,9 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   auto full_bar = [&](int n) { return base + L::BARS + 8 * (n % STAGES); };
   int* const pid = reinterpret_cast<int*>(gbase + L::IDS);
 
-  // the page ids of the live rows, read from the table once; the ring's
-  // barriers, each expecting one arrival of every producer thread
+  // the page ids of the live rows (at most the table's max_pages), read
+  // from the table once; the ring's barriers, each expecting one arrival
+  // of every producer thread
   const int n_ids = n_live > 0 ? (min(n_live * KV_TILE, kv_len) - 1) / page_size + 1 : 0;
   for (int i = t; i < n_ids; i += WS_THREADS) pid[i] = __ldg(table + i);
   if (t < STAGES) tc::mbar_init(base + L::BARS + 8 * t, PRODUCERS);
@@ -425,18 +441,14 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int E, typename KV>
 int launch_bf16(const void* q, const void* k, const void* v, const void* ks,
-                const void* vs, const int* table, void* o, int hq, int nq,
-                int group, int n_pages, int page_size, int q_offset,
-                int kv_len, float sm_scale, cudaStream_t stream) {
+                const void* vs, const int* table, const int* span, void* o,
+                int hq, int nq, int group, int n_pages, int page_size,
+                int max_pages, float sm_scale, cudaStream_t stream) {
   using L = Smem<E, std::is_same<KV, int8_t>::value>;
   auto kernel = paged_prefill_bf16_kernel<E, KV>;
-  // the layout, the page ids of the live rows of the chunk's last block
-  // (its live tiles end at or before q_offset + nq rounded up to a tile),
-  // and 1 KB to align the base to 1024 bytes
-  const int live_rows = max(
-      min((q_offset + nq + KV_TILE - 1) / KV_TILE * KV_TILE, kv_len), 0);
-  const size_t smem =
-      L::IDS + 4ull * ((live_rows + page_size - 1) / page_size) + 1024;
+  // the layout, the page ids of the whole table row, and 1 KB to align
+  // the base to 1024 bytes (paged_prefill_attention.bf16_smem_bytes)
+  const size_t smem = L::IDS + 4ull * max_pages + 1024;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -444,25 +456,25 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* ks,
   kernel<<<grid, WS_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), table, static_cast<__nv_bfloat16*>(o),
-      nq, group, n_pages, page_size, q_offset, kv_len,
-      sm_scale * 1.4426950408889634f);
+      static_cast<const float*>(vs), table, span,
+      static_cast<__nv_bfloat16*>(o), nq, group, n_pages, page_size,
+      max_pages * page_size, sm_scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 template <typename KV>
 int bf16_for_head_dim(int E, const void* q, const void* k, const void* v,
                       const void* ks, const void* vs, const int* table,
-                      void* o, int hq, int nq, int group, int n_pages,
-                      int page_size, int q_offset, int kv_len, float sm_scale,
-                      cudaStream_t s) {
+                      const int* span, void* o, int hq, int nq, int group,
+                      int n_pages, int page_size, int max_pages,
+                      float sm_scale, cudaStream_t s) {
   if (E == 128)
-    return launch_bf16<128, KV>(q, k, v, ks, vs, table, o, hq, nq, group,
-                                n_pages, page_size, q_offset, kv_len,
+    return launch_bf16<128, KV>(q, k, v, ks, vs, table, span, o, hq, nq,
+                                group, n_pages, page_size, max_pages,
                                 sm_scale, s);
   if (E == 64)
-    return launch_bf16<64, KV>(q, k, v, ks, vs, table, o, hq, nq, group,
-                               n_pages, page_size, q_offset, kv_len, sm_scale,
+    return launch_bf16<64, KV>(q, k, v, ks, vs, table, span, o, hq, nq,
+                               group, n_pages, page_size, max_pages, sm_scale,
                                s);
   return (int)cudaErrorInvalidValue;
 }
@@ -471,40 +483,42 @@ int bf16_for_head_dim(int E, const void* q, const void* k, const void* v,
 
 // q: (hq, nq, E); k, v: (hq / group, n_pages, page_size, E) of q's type,
 // or int8 when `quantized` with ks, vs the (hq / group, n_pages) fp32
-// per-page scales; table: (max_pages,) int32 on the device, covering at
-// least kv_len rows; o: like q. Contiguous.
+// per-page scales; table: (max_pages,) int32 on the device; span: the
+// int32 pair (q_offset, kv_len) on the device; o: like q. Contiguous.
 
 // fp32, on the CUDA cores: nq % blk_q == 0.
 extern "C" int paged_prefill_fp32_launch(
     const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* table, void* o, int hq, int nq, int E,
-    int group, int blk_q, int n_pages, int page_size, int q_offset,
-    int kv_len, float sm_scale, int quantized, void* stream) {
+    const void* vs, const void* table, const void* span, void* o, int hq,
+    int nq, int E, int group, int blk_q, int n_pages, int page_size,
+    int max_pages, float sm_scale, int quantized, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(table);
+  const int* sp = static_cast<const int*>(span);
   if (quantized)
-    return launch<float, int8_t>(q, k, v, ks, vs, tab, o, hq, nq, E, group,
-                                 blk_q, n_pages, page_size, q_offset, kv_len,
+    return launch<float, int8_t>(q, k, v, ks, vs, tab, sp, o, hq, nq, E,
+                                 group, blk_q, n_pages, page_size, max_pages,
                                  sm_scale, s);
-  return launch<float, float>(q, k, v, ks, vs, tab, o, hq, nq, E, group,
-                              blk_q, n_pages, page_size, q_offset, kv_len,
-                              sm_scale, s);
+  return launch<float, float>(q, k, v, ks, vs, tab, sp, o, hq, nq, E, group,
+                              blk_q, n_pages, page_size, max_pages, sm_scale,
+                              s);
 }
 
 // bf16 Q, on the tensor cores (wgmma): E 64 or 128, nq % 64 == 0, q and
 // the pools 16-byte aligned.
 extern "C" int paged_prefill_bf16_launch(
     const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* table, void* o, int hq, int nq, int E,
-    int group, int n_pages, int page_size, int q_offset, int kv_len,
+    const void* vs, const void* table, const void* span, void* o, int hq,
+    int nq, int E, int group, int n_pages, int page_size, int max_pages,
     float sm_scale, int quantized, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(table);
+  const int* sp = static_cast<const int*>(span);
   if (quantized)
-    return bf16_for_head_dim<int8_t>(E, q, k, v, ks, vs, tab, o, hq, nq,
-                                     group, n_pages, page_size, q_offset,
-                                     kv_len, sm_scale, s);
-  return bf16_for_head_dim<__nv_bfloat16>(E, q, k, v, ks, vs, tab, o, hq, nq,
-                                          group, n_pages, page_size,
-                                          q_offset, kv_len, sm_scale, s);
+    return bf16_for_head_dim<int8_t>(E, q, k, v, ks, vs, tab, sp, o, hq, nq,
+                                     group, n_pages, page_size, max_pages,
+                                     sm_scale, s);
+  return bf16_for_head_dim<__nv_bfloat16>(E, q, k, v, ks, vs, tab, sp, o, hq,
+                                          nq, group, n_pages, page_size,
+                                          max_pages, sm_scale, s);
 }

@@ -204,23 +204,23 @@ def paged_prefill_blk_q(chunk: int, dtype=torch.float32) -> int:
     return min(DEFAULT_BLK_Q, -(-chunk // MIN_BLK_Q) * MIN_BLK_Q)
 
 
-def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset: int,
-                            kv_len: int, *, sm_scale: float | None = None,
+def paged_prefill_attention(q, k_pages, v_pages, page_table, span, *,
+                            sm_scale: float | None = None,
                             k_scales=None, v_scales=None) -> torch.Tensor:
     """One prompt chunk attending to all prior context in a paged cache.
 
     q: (Hq, chunk, E) for one sequence; pools: (Hkv, P, page, E), int8
     with ``k_scales``/``v_scales`` (Hkv, P); page_table: (max_pages,)
-    int32 on q's device. The chunk's own K/V
-    must already be in its pages. Pad rows past ``kv_len - q_offset``
-    return values the caller slices off.
+    int32 on q's device; span: the (q_offset, kv_len) int32 pair on q's
+    device. The chunk's own K/V must already be in its pages. Pad rows
+    past ``kv_len - q_offset`` return values the caller slices off.
     """
     hq, chunk, e = q.shape
     bq = paged_prefill_blk_q(chunk, q.dtype)
     qf = _pad_rows(q, bq)
     of = _ppre.paged_prefill_attention_flat(
-        qf, k_pages, v_pages, page_table, q_offset=q_offset, kv_len=kv_len,
-        blk_q=bq, sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
+        qf, k_pages, v_pages, page_table, span, blk_q=bq, sm_scale=sm_scale,
+        k_scales=k_scales, v_scales=v_scales)
     return of[:, :chunk]
 
 

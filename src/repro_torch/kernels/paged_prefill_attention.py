@@ -17,8 +17,14 @@ with an online softmax in the TPU kernel's three bands: tiles wholly
 visible to the block run unmasked, tiles that straddle the causal
 diagonal or the ``kv_len`` tail take the fused select of
 ``three_band_select``, dead tiles are never loaded. ``q_offset`` and
-``kv_len`` are launch integers. Pad rows at or past ``kv_len`` see every
-live key and return values the caller drops.
+``kv_len`` come as one int32 pair on the device, ``span``, which every
+block reads at its start, as the TPU kernel reads them by scalar
+prefetch: nothing on the launch path reads a device value on the host,
+so the chunk step's launches do not change from one chunk to the next.
+The kernels cut a ``kv_len`` past the table's rows to them, as the TPU
+kernel's grid ends at the table; the plain version, which reads the pair
+on the host, refuses it. Pad rows at or past ``kv_len`` see every live
+key and return values the caller drops.
 
 Two forms, chosen by ``entry_point`` from q's dtype, with nothing
 falling back from one to the other:
@@ -46,7 +52,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.policy import FLASH_BLK_Q_BF16, KV_TILE
+from repro_torch.core.policy import (
+    FLASH_BLK_Q_BF16,
+    KV_TILE,
+    SMEM_PER_BLOCK,
+)
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     check_prefill_tile,
@@ -80,7 +90,17 @@ def entry_point(dtype) -> str:
                     f"not {dtype}")
 
 
-def check_bf16(q, k_pages, v_pages, blk_q: int) -> None:
+def bf16_smem_bytes(e: int, quantized: bool, max_pages: int) -> int:
+    """Shared memory of a block of the bf16 form (``launch_bf16``): the Q
+    tile, three ring stages of K and V tiles (and an int8 pool's scales),
+    their barriers, the page ids of the whole table row, and 1 KB to
+    align the base."""
+    stage = 2 * KV_TILE * e * 2 + (1024 if quantized else 0)
+    return BLK_Q_BF16 * e * 2 + 3 * stage + 8 * 3 + 4 * max_pages + 1024
+
+
+def check_bf16(q, k_pages, v_pages, page_table, blk_q: int,
+               quantized: bool) -> None:
     """Raise unless the bf16 form takes these operands."""
     e = q.shape[-1]
     if blk_q != BLK_Q_BF16 or e not in BF16_HEAD_DIMS:
@@ -90,21 +110,39 @@ def check_bf16(q, k_pages, v_pages, blk_q: int) -> None:
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("the bf16 paged prefill kernel copies 16-byte "
                          "chunks: q and the pools must be 16-byte aligned")
+    smem = bf16_smem_bytes(e, quantized, page_table.shape[0])
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"the bf16 paged prefill kernel holds the table's "
+                         f"{page_table.shape[0]} page ids: {smem} bytes of "
+                         f"shared memory, past {SMEM_PER_BLOCK}")
 
 
-def paged_prefill_attention_plain(q, k_pages, v_pages, page_table, *,
-                                  q_offset: int, kv_len: int, blk_q: int,
-                                  blk_kv: int = KV_TILE,
+def check_span(span, device) -> None:
+    """Raise unless ``span`` is the (q_offset, kv_len) int32 pair on
+    ``device``."""
+    if (not isinstance(span, torch.Tensor) or span.shape != (2,)
+            or span.dtype != torch.int32 or span.device != device):
+        raise ValueError(f"span must be the (q_offset, kv_len) pair as a "
+                         f"(2,) int32 tensor on {device}, not {span!r}")
+
+
+def paged_prefill_attention_plain(q, k_pages, v_pages, page_table, span, *,
+                                  blk_q: int, blk_kv: int = KV_TILE,
                                   sm_scale: float | None = None,
                                   k_scales=None, v_scales=None
                                   ) -> torch.Tensor:
     """q: (Hq, Nq, E), Nq % blk_q == 0; pools: (Hkv, P, page, E), int8
-    with ``k_scales``/``v_scales`` (Hkv, P); page_table: (max_pages,).
-    Returns (Hq, Nq, E)."""
+    with ``k_scales``/``v_scales`` (Hkv, P); page_table: (max_pages,);
+    span: (q_offset, kv_len), read on the host here. Returns (Hq, Nq,
+    E)."""
+    q_offset, kv_len = (int(v) for v in span.tolist())
+    page = k_pages.shape[2]
+    if page_table.shape[0] * page < kv_len:
+        raise ValueError(f"page_table {tuple(page_table.shape)} does not "
+                         f"cover kv_len {kv_len}")
     n = live_tiles(kv_len, blk_kv) * blk_kv
     if n == 0:
         return torch.zeros_like(q)
-    page = k_pages.shape[2]
 
     def rows(x):          # (Hkv, S, ...) cut or zero-padded to n rows
         pad = (0, 0) * (x.dim() - 2) + (0, max(0, n - x.shape[1]))
@@ -121,16 +159,16 @@ def paged_prefill_attention_plain(q, k_pages, v_pages, page_table, *,
         kv_len=kv_len if kv_len < n else None, k_scale=ks, v_scale=vs)
 
 
-def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, *,
-                                 q_offset: int, kv_len: int, blk_q: int,
-                                 sm_scale: float | None = None,
+def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, span, *,
+                                 blk_q: int, sm_scale: float | None = None,
                                  k_scales=None, v_scales=None
                                  ) -> torch.Tensor:
     """One prompt chunk, q (Hq, Nq, E) with Nq % blk_q == 0, against the
     page pools through ``page_table`` (max_pages,), an int32 tensor on q's
-    device covering at least ``kv_len`` rows. Int8 pools come with their
-    (Hkv, P) fp32 ``k_scales``/``v_scales``. A CUDA tensor launches B5; a
-    CPU tensor runs the plain version."""
+    device. ``span`` is the (q_offset, kv_len) int32 pair on q's device;
+    the caller makes sure the table covers ``kv_len`` rows. Int8 pools
+    come with their (Hkv, P) fp32 ``k_scales``/``v_scales``. A CUDA tensor
+    launches B5; a CPU tensor runs the plain version."""
     hq, nq, e = q.shape
     hkv, n_pages, page_size, e_p = k_pages.shape
     if hq % hkv or e_p != e or v_pages.shape != k_pages.shape:
@@ -139,14 +177,14 @@ def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, *,
                          f"{tuple(q.shape)}")
     if nq % blk_q:
         raise ValueError(f"{nq} query rows do not tile by {blk_q}")
-    if page_table.dim() != 1 or page_table.shape[0] * page_size < kv_len:
-        raise ValueError(f"page_table {tuple(page_table.shape)} does not "
-                         f"cover kv_len {kv_len}")
+    if page_table.dim() != 1:
+        raise ValueError(f"page_table {tuple(page_table.shape)} is not one "
+                         "sequence's row")
+    check_span(span, q.device)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
-            q, k_pages, v_pages, page_table, q_offset=q_offset,
-            kv_len=kv_len, blk_q=blk_q, sm_scale=sm_scale,
-            k_scales=k_scales, v_scales=v_scales)
+            q, k_pages, v_pages, page_table, span, blk_q=blk_q,
+            sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     name = entry_point(q.dtype)
@@ -157,18 +195,19 @@ def paged_prefill_attention_flat(q, k_pages, v_pages, page_table, *,
     scale = (e ** -0.5) if sm_scale is None else sm_scale
     pools = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              _build.ptr(k_scales), _build.ptr(v_scales),
-             page_table.data_ptr(), o.data_ptr())
+             page_table.data_ptr(), span.data_ptr(), o.data_ptr())
     stream = _build.stream_handle(q.device)
+    max_pages = page_table.shape[0]
     if name == "paged_prefill_bf16_launch":
-        check_bf16(q, k_pages, v_pages, blk_q)
+        check_bf16(q, k_pages, v_pages, page_table, blk_q, quantized)
         err = lib.paged_prefill_bf16_launch(
-            *pools, hq, nq, e, hq // hkv, n_pages, page_size, int(q_offset),
-            int(kv_len), float(scale), int(quantized), stream)
+            *pools, hq, nq, e, hq // hkv, n_pages, page_size, max_pages,
+            float(scale), int(quantized), stream)
     else:
         check_prefill_tile(blk_q, e)
         err = lib.paged_prefill_fp32_launch(
             *pools, hq, nq, e, hq // hkv, blk_q, n_pages, page_size,
-            int(q_offset), int(kv_len), float(scale), int(quantized), stream)
+            max_pages, float(scale), int(quantized), stream)
     _build.check(lib, err, name)
     LAUNCHES["paged_prefill_int8" if quantized else "paged_prefill"] += 1
     return o

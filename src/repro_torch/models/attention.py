@@ -158,26 +158,27 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
             .reshape(b, spec, hq, e).to(q.dtype))
 
 
-def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset: int,
-                            kv_len: int, *, impl: str = "kernel",
-                            k_scales=None, v_scales=None):
+def paged_prefill_attention(q, k_pages, v_pages, page_table, span, *,
+                            impl: str = "kernel", k_scales=None,
+                            v_scales=None):
     """One prompt chunk attending to all prior context in a paged cache.
 
     q: (Hq, chunk, E) for one sequence; pools: (Hkv, P, page, E), int8
     with (Hkv, P) ``k_scales``/``v_scales``; page_table: (max_pages,)
-    int32; chunk row i sits at absolute position ``q_offset + i`` and
-    sees keys < min(q_offset + i + 1, kv_len). The chunk's own K/V are
-    already in the pages. ``plain`` gathers the pool dense and runs the
-    causal oracle of ``kernels/ref.py`` (for int8 pools, the reference
-    twin's scaled fp32 softmax).
+    int32; span: the (q_offset, kv_len) int32 pair on q's device. Chunk
+    row i sits at absolute position ``q_offset + i`` and sees keys <
+    min(q_offset + i + 1, kv_len). The chunk's own K/V are already in the
+    pages. ``plain`` gathers the pool dense and runs the causal oracle of
+    ``kernels/ref.py`` (for int8 pools, the reference twin's scaled fp32
+    softmax), its masks built from the pair as tensors.
     """
     if impl == "kernel":
         return kops.paged_prefill_attention(q, k_pages, v_pages, page_table,
-                                            q_offset, kv_len,
-                                            k_scales=k_scales,
+                                            span, k_scales=k_scales,
                                             v_scales=v_scales)
     if impl != "plain":
         raise ValueError(f"unknown attn impl {impl!r}")
+    q_offset, kv_len = span[0], span[1]
     k = gather_pages(k_pages, page_table)           # (Hkv, S, E)
     v = gather_pages(v_pages, page_table)
     if k_scales is None:

@@ -307,15 +307,16 @@ def attn_paged_verify(params, x, cfg: ArchConfig, *, k_pages, v_pages,
 
 
 def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
-                       page_table, chunk_page_ids, q_offset: int,
-                       kv_len: int, k_scales=None, v_scales=None):
+                       page_table, chunk_page_ids, span, k_scales=None,
+                       v_scales=None):
     """One prompt chunk of self-attention against a paged cache.
 
     x: (1, chunk, D), rows at absolute positions ``q_offset + i``; pools:
     (Hkv, P, page, E); page_table: (max_pages,) for the one sequence;
     chunk_page_ids: (chunk // page,) physical pages of the chunk's span
-    (entries past the allocation point at the scratch page);
-    ``kv_len`` = q_offset + live rows. The chunk's K/V rows are written
+    (entries past the allocation point at the scratch page); span: the
+    (q_offset, kv_len) int32 pair on x's device, ``kv_len`` = q_offset +
+    live rows. The chunk's K/V rows are written
     into their pages first, rows past ``kv_len`` zeroed, then the chunk's
     Q attends through the page table and sees prior context and its own
     keys alike (the write is enqueued on the same stream before the
@@ -325,9 +326,9 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     """
     chunk = x.shape[1]
     hkv, _, page, e = k_pages.shape
-    positions = q_offset + torch.arange(chunk, device=x.device)
+    positions = span[0] + torch.arange(chunk, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
-    live = (positions < kv_len).view(1, chunk, 1)
+    live = (positions < span[1]).view(1, chunk, 1)
     ids = chunk_page_ids.long()
     for pages, scales, rows in ((k_pages, k_scales, k[0]),
                                 (v_pages, v_scales, v[0])):
@@ -337,7 +338,7 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
         else:
             pages[:, ids] = rows.to(pages.dtype)
     o = attn_mod.paged_prefill_attention(q[0], k_pages, v_pages, page_table,
-                                         q_offset, kv_len, impl=cfg.attn_impl,
+                                         span, impl=cfg.attn_impl,
                                          k_scales=k_scales, v_scales=v_scales)
     return _merge_heads(o[None]) @ params["wo"].to(x.dtype)
 
@@ -539,25 +540,28 @@ def paged_verify_step(params, cfg: ArchConfig, tokens, cache, page_table,
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, cache, page_table,
-                  chunk_page_ids, q_offset: int, chunk_len: int):
+                  chunk_page_ids, chunk_span):
     """One chunk of chunked paged prefill.
 
     tokens: (1, chunk) int, rows at absolute positions ``q_offset + i``, a
-    ragged last chunk padded past ``chunk_len``; page_table: (max_pages,)
+    ragged last chunk padded past its live rows; page_table: (max_pages,)
     int32 for the one sequence; chunk_page_ids: (chunk // page,) physical
-    pages of the chunk's span. Writes the chunk's K/V into the pools in
-    place and returns ``(last_logits (1, V), cache)`` for the chunk's last
-    live row: on the final chunk, the logits of the first generated token.
+    pages of the chunk's span; chunk_span: (q_offset, kv_len, last) int32
+    on the device, kv_len = q_offset + the live rows and last = the live
+    rows - 1, as the engine packs them into the step's array (the host
+    never reads them back; B5 takes the first two as they are). Writes the
+    chunk's K/V into the pools in place and returns ``(last_logits (1, V),
+    cache)`` for the chunk's last live row: on the final chunk, the logits
+    of the first generated token.
     """
     check_paged_support(cfg)
     x = _embed(params, tokens, cfg)
-    kv_len = q_offset + chunk_len
+    span = chunk_span[:2]                       # (q_offset, kv_len)
     for layer, blk in zip(params["layers"], cache["layers"]):
         x = x + attn_paged_prefill(
             layer["attn"], x, cfg, k_pages=blk["k"], v_pages=blk["v"],
-            page_table=page_table, chunk_page_ids=chunk_page_ids,
-            q_offset=q_offset, kv_len=kv_len, k_scales=blk.get("k_scale"),
-            v_scales=blk.get("v_scale"))
+            page_table=page_table, chunk_page_ids=chunk_page_ids, span=span,
+            k_scales=blk.get("k_scale"), v_scales=blk.get("v_scale"))
         x = x + mlp(layer["ffn"], x, cfg)
-    last = x[:, chunk_len - 1:chunk_len]
+    last = x.index_select(1, chunk_span[2:])
     return _unembed(params, last, cfg)[:, 0], cache

@@ -480,25 +480,28 @@ class ContinuousBatchingEngine:
     # -- one engine step on the device ----------------------------------
 
     def _step(self, cache, host: np.ndarray, decode: bool,
-              chunk: tuple[int, int] | None) -> torch.Tensor:
+              prefill: bool) -> torch.Tensor:
         """Run one step from ``host``, the step's packed int32 state:
         [tokens (B) | positions (B) | page table (B·max_pages)] when
         ``decode``, then [chunk tokens | chunk pages | the sequence's
-        table row] when ``chunk`` = (q_offset, chunk_len). The pools are
-        updated in place. Returns the packed int32 result on the device:
-        decode tokens, the chunk's first token, then their finite flags."""
+        table row | q_offset | kv_len | last] when ``prefill`` (kv_len =
+        q_offset + the chunk's live rows, last = its last live row). These
+        three reach the chunk step as a slice of the step's device copy,
+        so no launch argument changes with the chunk. The
+        pools are updated in place. Returns the packed int32 result on the
+        device: decode tokens, the chunk's first token, then their finite
+        flags."""
         B, MP = self.batch_size, self.max_pages
         CS, CP = self.chunk_size, self.chunk_pages
         model, p, cfg = self.model, self.params, self.cfg
         dev = torch.from_numpy(host).to(self.device)    # the one H2D copy
         tokens, finite = [], []
-        if chunk is not None:
+        if prefill:
             off = 2 * B + B * MP if decode else 0
-            q_offset, chunk_len = chunk
             first_logits, _ = model.prefill_chunk(
                 p, cfg, dev[off:off + CS].long()[None], cache,
                 dev[off + CS + CP:off + CS + CP + MP],
-                dev[off + CS:off + CS + CP], q_offset, chunk_len)
+                dev[off + CS:off + CS + CP], dev[-3:])
         if decode:
             logits, _ = model.paged_decode_step(
                 p, cfg, dev[:B].long()[:, None], cache,
@@ -506,7 +509,7 @@ class ContinuousBatchingEngine:
             last = logits[:, -1]
             tokens.append(torch.argmax(last, dim=-1))
             finite.append(_finite_rows(last))
-        if chunk is not None:
+        if prefill:
             tokens.append(torch.argmax(first_logits, dim=-1))
             finite.append(_finite_rows(first_logits))
         return torch.cat([torch.cat(tokens).to(torch.int32),
@@ -906,7 +909,7 @@ class ContinuousBatchingEngine:
             if tracing:
                 tr.counter("pool.pages_used", mgr.pages_used, track="pool")
             dec_table = mgr.table()
-            parts, chunk = [], None
+            parts = []
             if pending is not None:
                 rec, slot, q0, rprompt = pending
                 # mid-admission the slot must not decode into (or read
@@ -925,8 +928,12 @@ class ContinuousBatchingEngine:
                 cpages = [seq_pages[p] if p < len(seq_pages)
                           else SCRATCH_PAGE
                           for p in range(p0, p0 + self.chunk_pages)]
-                parts = [ctokens, np.asarray(cpages, np.int32), seq_table]
-                chunk = (q0, clen)
+                if q0 + clen > len(seq_table) * ps:
+                    raise ValueError(
+                        f"rid {rec.rid}: the table's {len(seq_table)} pages "
+                        f"do not cover kv_len {q0 + clen}")
+                parts = [ctokens, np.asarray(cpages, np.int32), seq_table,
+                         np.asarray([q0, q0 + clen, clen - 1], np.int32)]
             if spec_plan is not None:
                 vs_tokens, n_rows, _ = spec_plan
                 packed = self._verify(cache, np.concatenate([
@@ -936,7 +943,7 @@ class ContinuousBatchingEngine:
                     parts = [tokens[:, 0], positions,
                              dec_table.ravel()] + parts
                 packed = self._step(cache, np.concatenate(parts),
-                                    bool(active), chunk)
+                                    bool(active), pending is not None)
             t_disp = time.perf_counter()
             # the step's one device->host transfer: decode tokens, the
             # admitted request's first token and the finite-guard flags

@@ -219,6 +219,35 @@ def test_engine_matches_reference_and_wave_engine(pair, jax_engine, impl):
         len(v) for v in tout.values())
 
 
+def test_chunk_steps_pack_their_span_into_the_step_array(pair, jax_engine,
+                                                        engine):
+    """Each chunk step's (q_offset, kv_len, last live row) rides at the
+    end of the step's one int32 array, which reaches the kernels as a
+    slice of the step's device copy, and the tokens stay the reference's:
+    whole first and middle chunks and ragged last ones (prompts of 5-30
+    tokens at chunk 8)."""
+    spans = []
+    step = engine._step
+
+    def recording(cache, host, decode, prefill):
+        if prefill:
+            q0, kv_len, last = (int(v) for v in host[-3:])
+            assert last == kv_len - q0 - 1
+            spans.append((q0, kv_len - q0))
+        return step(cache, host, decode, prefill)
+
+    engine._step = recording
+    try:
+        _both_serve(pair, jax_engine, engine, SPEC)
+    finally:
+        del engine._step
+    chunk = ENGINE["chunk_size"]
+    want = [(q0, min(chunk, n - q0)) for n, _ in SPEC
+            for q0 in range(0, n, chunk)]
+    assert sorted(spans) == sorted(want)
+    assert (16, 5) in spans and (8, 8) in spans
+
+
 @pytest.mark.parametrize("appends", [{0}, {2, 6, 7}, {3, 4, 5}, {11}])
 def test_preemption_matches_reference_under_scripted_exhaustion(
         pair, jax_engine, engine, appends):

@@ -10,7 +10,9 @@ Each kernel runs in fp32 against its plain version on the same CUDA
 tensors (atol 3e-5: fp32 sums in another order), the int8 branches of
 B4-B7 on int8 caches with their scales, and the wave, continuous and
 speculative engines serve a smoke model on the card with the same tokens
-as on the CPU, on bf16-free fp32 and on int8 caches. The bf16 forms of
+as on the CPU, on bf16-free fp32 and on int8 caches. B5 takes its
+(q_offset, kv_len) as an int32 pair on the device, and its launch path
+runs with PyTorch's synchronizing calls made errors. The bf16 forms of
 B1, B2, B3, B5 (tensor cores; B5 on bf16 and int8 pools), B4, B6 and B7
 (tensor cores, on bf16 and int8 caches, on their own short splits) are
 held per output row within
@@ -100,6 +102,22 @@ def _bf16(gen, *shape):
     return _rand(gen, *shape).to(torch.bfloat16)
 
 
+def _span(q_offset: int, kv_len: int, device) -> torch.Tensor:
+    """B5's (q_offset, kv_len) pair on the device."""
+    return torch.tensor([q_offset, kv_len], dtype=torch.int32, device=device)
+
+
+def _no_host_sync(fn):
+    """``fn()`` with PyTorch's synchronizing calls (``int()``, ``.item()``
+    of a CUDA tensor) made errors: B5's launch path reads nothing of the
+    device back."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def _zero_v_tile(v, tile: int):
     out = v.clone()
     out[:, tile * 64:(tile + 1) * 64] = 0
@@ -187,8 +205,8 @@ def test_bf16_prefill_kernels_refuse_what_they_do_not_take(cuda):
     pool, table = _bf16(g, 2, 8, 16, 128), torch.arange(
         8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
-        ppre.paged_prefill_attention_flat(q, pool, pool, table, q_offset=0,
-                                          kv_len=128, blk_q=32)
+        ppre.paged_prefill_attention_flat(q, pool, pool, table,
+                                          _span(0, 128, cuda), blk_q=32)
     assert sum(ops.launch_counts().values()) == 0
     q64, k64, v64 = (_bf16(g, 2, 128, 64) for _ in range(3))
     kw = dict(blk_q=64, causal=True)
@@ -261,8 +279,10 @@ def _paged_bf16_case(cuda, seed, quantized, group, q0, kv_len, chunk, e):
     q = _bf16(g, 2 * group, chunk, e)
     fault_page = int(table[(kv_len - 1) // 16 // 2])
     ops.reset_launch_counts()
+    span = _span(q0, kv_len, cuda)
     # through ops: a ragged chunk's rows padded to the 64-row block
-    got = ops.paged_prefill_attention(q, k, v, table, q0, kv_len, **sc)
+    got = _no_host_sync(
+        lambda: ops.paged_prefill_attention(q, k, v, table, span, **sc))
     counts = ops.launch_counts()
     assert counts["paged_prefill_int8" if quantized else "paged_prefill"] \
         == 1
@@ -271,8 +291,7 @@ def _paged_bf16_case(cuda, seed, quantized, group, q0, kv_len, chunk, e):
         kw = dict(sc, v_scales=vs) if quantized else {}
         qp = torch.nn.functional.pad(q, (0, 0, 0, (-chunk) % 64))
         return ppre.paged_prefill_attention_plain(
-            qp, k, v, table, q_offset=q0, kv_len=kv_len, blk_q=64,
-            **kw)[:, :chunk]
+            qp, k, v, table, span, blk_q=64, **kw)[:, :chunk]
 
     if quantized:
         vs = sc["v_scales"].clone()
@@ -742,9 +761,11 @@ def test_paged_prefill_kernel_int8_matches_plain(cuda, q0, kv_len, chunk):
     g = torch.Generator(device=cuda).manual_seed(14)
     k, v, table, ks, vs = _paged_pools(g, quantized=True)
     q = _rand(g, 4, chunk, 64)
-    kw = dict(q_offset=q0, kv_len=kv_len, blk_q=32, k_scales=ks, v_scales=vs)
-    got = ppre.paged_prefill_attention_flat(q, k, v, table[2], **kw)
-    want = ppre.paged_prefill_attention_plain(q, k, v, table[2], **kw)
+    kw = dict(blk_q=32, k_scales=ks, v_scales=vs)
+    span = _span(q0, kv_len, cuda)
+    got = _no_host_sync(lambda: ppre.paged_prefill_attention_flat(
+        q, k, v, table[2], span, **kw))
+    want = ppre.paged_prefill_attention_plain(q, k, v, table[2], span, **kw)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= FP32_ATOL
 
@@ -800,10 +821,11 @@ def test_paged_prefill_kernel_matches_plain(cuda, group, q0, kv_len, chunk):
     g = torch.Generator(device=cuda).manual_seed(4)
     k, v, table = _paged_pools(g)
     q = _rand(g, 2 * group, chunk, 64)
-    got = ppre.paged_prefill_attention_flat(q, k, v, table[2], q_offset=q0,
-                                            kv_len=kv_len, blk_q=32)
-    want = ppre.paged_prefill_attention_plain(q, k, v, table[2], q_offset=q0,
-                                              kv_len=kv_len, blk_q=32)
+    span = _span(q0, kv_len, cuda)
+    got = _no_host_sync(lambda: ppre.paged_prefill_attention_flat(
+        q, k, v, table[2], span, blk_q=32))
+    want = ppre.paged_prefill_attention_plain(q, k, v, table[2], span,
+                                              blk_q=32)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= FP32_ATOL
 

@@ -55,6 +55,19 @@ def as_numpy(x) -> np.ndarray:
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
+def span(q_offset: int, kv_len: int, device="cpu") -> torch.Tensor:
+    """B5's (q_offset, kv_len) int32 pair on the device."""
+    return torch.tensor([q_offset, kv_len], dtype=torch.int32,
+                        device=device)
+
+
+def chunk_span(q_offset: int, chunk_len: int) -> torch.Tensor:
+    """What a chunk step takes, as the continuous engine packs it:
+    (q_offset, kv_len, last live row) int32."""
+    return torch.tensor([q_offset, q_offset + chunk_len, chunk_len - 1],
+                        dtype=torch.int32)
+
+
 def assert_close(got, want, atol: float) -> None:
     np.testing.assert_allclose(as_numpy(got), as_numpy(want), atol=atol,
                                rtol=0)

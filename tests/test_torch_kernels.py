@@ -28,6 +28,7 @@ from test_torch_harness import (
     assert_close,
     atol_for,
     rand,
+    span,
     to_jax,
     to_torch,
 )
@@ -353,7 +354,8 @@ def test_launch_counts_only_count_kernel_launches():
     lens = torch.tensor([9], dtype=torch.int32)
     tops.paged_decode_attention(to_torch(q[:, :, 0]), pool, pool,
                                 table[None], lens)
-    tops.paged_prefill_attention(to_torch(q[0]), pool, pool, table, 0, 32)
+    tops.paged_prefill_attention(to_torch(q[0]), pool, pool, table,
+                                 span(0, 32))
     tops.paged_verify_attention(to_torch(q[:, :, :2].transpose(0, 2, 1, 3)),
                                 pool, pool, table[None], lens, lens - 2)
     x = to_torch(k).reshape(1, 32, 4, 8)              # (B, L, H, P)

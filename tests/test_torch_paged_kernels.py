@@ -27,7 +27,14 @@ from repro_torch.kernels import paged_decode_attention as tpdec
 from repro_torch.kernels import paged_prefill_attention as tppre
 from repro_torch.kernels import paged_verify_attention as tpver
 from repro_torch.models import attention as tattn
-from test_torch_harness import FP32_ATOL, assert_close, rand, to_jax, to_torch
+from test_torch_harness import (
+    FP32_ATOL,
+    assert_close,
+    rand,
+    span,
+    to_jax,
+    to_torch,
+)
 
 HKV, E = 2, 16
 N_PAGES = 24
@@ -291,7 +298,7 @@ def test_paged_prefill_matches_pallas_and_twin(group, page, chunk, q0,
         jnp.int32(q0), jnp.int32(kv_len), interpret=True)
     got = tops.paged_prefill_attention(
         to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(table[0]),
-        q0, kv_len)
+        span(q0, kv_len))
     assert got.shape == tuple(want.shape)
     # pad rows at or past kv_len too: both see every live key there
     assert_close(got, want, FP32_ATOL)
@@ -302,7 +309,7 @@ def test_paged_prefill_matches_pallas_and_twin(group, page, chunk, q0,
         jnp.int32(q0), jnp.int32(kv_len), impl="xla")
     plain = tattn.paged_prefill_attention(
         to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(table[0]),
-        q0, kv_len, impl="plain")
+        span(q0, kv_len), impl="plain")
     assert_close(plain, twin, FP32_ATOL)
     live = kv_len - q0
     assert_close(got[:, :live], np.asarray(twin)[:, :live], FP32_ATOL)
@@ -337,8 +344,8 @@ def test_paged_prefill_plain_at_the_bf16_block_matches_pallas(
     assert bq == 64
     qp = torch.nn.functional.pad(to_torch(q), (0, 0, 0, (-chunk) % bq))
     got = tppre.paged_prefill_attention_plain(
-        qp, to_torch(k), to_torch(v), torch.from_numpy(table), q_offset=q0,
-        kv_len=kv_len, blk_q=bq)[:, :chunk]
+        qp, to_torch(k), to_torch(v), torch.from_numpy(table),
+        span(q0, kv_len), blk_q=bq)[:, :chunk]
     assert_close(got, want, FP32_ATOL)
 
 
@@ -359,10 +366,10 @@ def test_paged_prefill_plain_reads_live_tiles_only():
     q = to_torch(rand(6, (HKV, 8, E)))
     short = torch.tensor([3, 7, 1], dtype=torch.int32)      # 12 rows
     got = tppre.paged_prefill_attention_plain(
-        q, to_torch(k), to_torch(v), short, q_offset=4, kv_len=12, blk_q=8)
+        q, to_torch(k), to_torch(v), short, span(4, 12), blk_q=8)
     assert tppre.live_tiles(12) == 1 and tppre.live_tiles(0) == 0
     want = tattn.paged_prefill_attention(q, to_torch(k), to_torch(v), short,
-                                         4, 12, impl="plain")
+                                         span(4, 12), impl="plain")
     assert_close(got, want, FP32_ATOL)
 
 
@@ -387,9 +394,9 @@ def test_paged_int8_pools_give_attention_over_the_dequantized_pools():
     assert_close(got, tops.paged_decode_attention(q, kd, vd, table, lens),
                  FP32_ATOL)
     qp = to_torch(rand(2, (HKV, 8, E)))
-    got = tops.paged_prefill_attention(qp, kq, vq, table[0], 2, 6,
+    got = tops.paged_prefill_attention(qp, kq, vq, table[0], span(2, 6),
                                        k_scales=ks, v_scales=vs)
-    want = tops.paged_prefill_attention(qp, kd, vd, table[0], 2, 6)
+    want = tops.paged_prefill_attention(qp, kd, vd, table[0], span(2, 6))
     assert_close(got[:, :4], want[:, :4], FP32_ATOL)
     with pytest.raises(ValueError, match="int8"):
         tpdec.check_scales(k, v, ks, vs, tuple(ks.shape))
@@ -406,11 +413,12 @@ def test_paged_wrappers_refuse_other_devices_and_bad_shapes():
                                     k, v, table, lens)
     with pytest.raises(ValueError, match="device"):
         tops.paged_prefill_attention(torch.zeros(HKV, 8, E, device="meta"),
-                                     k, v, table[0], 0, 1)
+                                     k, v, table[0], span(0, 1, "meta"))
     kc, vc = (to_torch(x) for x in _pools(0, 4))
     with pytest.raises(ValueError, match="cover"):
         tops.paged_prefill_attention(torch.zeros(HKV, 8, E), kc, vc,
-                                     torch.zeros(2, dtype=torch.int32), 0, 9)
+                                     torch.zeros(2, dtype=torch.int32),
+                                     span(0, 9))
     with pytest.raises(ValueError, match="kv_lens"):
         tops.paged_decode_attention(torch.zeros(2, HKV, E), kc, vc,
                                     torch.zeros((2, 2), dtype=torch.int32),

@@ -12,15 +12,20 @@ several chunk sizes, must give the first token of monolithic prefill.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.models.api import build_model
 from test_torch_harness import (
     FP32_ATOL,
     LOGITS_ATOL,
     as_numpy,
+    chunk_span,
     model_pair,
     prompts,
 )
@@ -53,7 +58,8 @@ def _chunk(pair, jc, tc, tokens, table, q0, clen, chunk):
         jnp.asarray(cpages), jnp.int32(q0), jnp.int32(clen))
     tl, tc = pair.tmodel.prefill_chunk(
         pair.tparams, pair.tcfg, torch.from_numpy(toks), tc,
-        torch.from_numpy(table), torch.from_numpy(cpages), q0, clen)
+        torch.from_numpy(table), torch.from_numpy(cpages),
+        chunk_span(q0, clen))
     return jl, tl, jc, tc
 
 
@@ -107,6 +113,56 @@ def test_prefill_chunk_and_paged_decode_match_reference(pair):
                     err_msg=f"layer {layer} {which} page {page}")
 
 
+class _HostReads(TorchDispatchMode):
+    """Counts the reads of an integer tensor's value on the host
+    (``int()``, ``.item()``: ``aten._local_scalar_dense``): positions,
+    lengths and page ids, which a step keeps on the device."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if (func is torch.ops.aten._local_scalar_dense.default
+                and not args[0].is_floating_point()):
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_prefill_chunk_takes_its_span_on_the_device(pair):
+    """``prefill_chunk`` takes (q_offset, kv_len, last row) as one int32
+    tensor, as the engine packs it: a first, a middle and a ragged last chunk of a
+    20-token prompt at chunk 8 give the reference's last-row logits (fp32,
+    atol 3e-5) and pages, and on plain attention no value of the pair is
+    read on the host."""
+    vocab = pair.tcfg.vocab_size
+    toks = prompts(13, 1, 20, vocab)[0]
+    table = np.random.default_rng(3).permutation(
+        np.arange(1, N_PAGES))[:MAX_PAGES].astype(np.int32)
+    jc, tc = _caches(pair)
+    _, pc = _caches(pair)
+    plain = build_model(dataclasses.replace(pair.tcfg, attn_impl="plain"))
+    for q0, clen in ((0, 8), (8, 8), (16, 4)):
+        jl, tl, jc, tc = _chunk(pair, jc, tc, toks, table, q0, clen, 8)
+        np.testing.assert_allclose(as_numpy(tl), as_numpy(jl),
+                                   atol=FP32_ATOL, rtol=0)
+        ctoks = torch.ones((1, 8), dtype=torch.long)
+        ctoks[0, :clen] = torch.from_numpy(toks[q0:q0 + clen])
+        cpages = torch.from_numpy(table[q0 // PAGE:q0 // PAGE + 2].copy())
+        with _HostReads() as reads:
+            pl, pc = plain.prefill_chunk(pair.tparams, plain.cfg, ctoks, pc,
+                                         torch.from_numpy(table), cpages,
+                                         chunk_span(q0, clen))
+        assert reads.count == 0
+        np.testing.assert_allclose(as_numpy(pl), as_numpy(jl),
+                                   atol=FP32_ATOL, rtol=0)
+    for layer in range(pair.tcfg.num_layers):
+        for which in ("k", "v"):
+            want, got = _pool_pages(jc, tc, layer, which)
+            np.testing.assert_allclose(got[:, table[:5]], want[:, table[:5]],
+                                       atol=FP32_ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("chunk", [4, 8, 16])
 def test_chunked_prefill_gives_the_monolithic_first_token(pair, chunk):
     vocab = pair.tcfg.vocab_size
@@ -129,7 +185,7 @@ def test_chunked_prefill_gives_the_monolithic_first_token(pair, chunk):
         ctoks[0, :clen] = torch.from_numpy(toks[q0:q0 + clen])
         got, tc = pair.tmodel.prefill_chunk(
             pair.tparams, pair.tcfg, ctoks, tc, torch.from_numpy(table),
-            cpages, q0, clen)
+            cpages, chunk_span(q0, clen))
     np.testing.assert_allclose(as_numpy(got), as_numpy(want[:, 0]),
                                atol=LOGITS_ATOL, rtol=0)
     assert int(torch.argmax(got)) == int(torch.argmax(want[0, 0]))

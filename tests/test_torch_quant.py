@@ -47,6 +47,7 @@ from test_torch_harness import (
     model_pair,
     prompts,
     rand,
+    span,
 )
 
 HKV, E, N_PAGES = 2, 16, 24
@@ -178,14 +179,14 @@ def test_int8_paged_prefill_matches_pallas(group, q0, kv_len, chunk):
     want = jops.paged_prefill_attention(
         jq, jk, jv, jt, jnp.int32(q0), jnp.int32(kv_len), k_scales=jks,
         v_scales=jvs, interpret=True)
-    got = tops.paged_prefill_attention(tq, tk, tv, tt, q0, kv_len,
+    got = tops.paged_prefill_attention(tq, tk, tv, tt, span(q0, kv_len),
                                        k_scales=tks, v_scales=tvs)
     live = max(0, kv_len - q0)
     assert_close(got[:, :live], want[:, :live], FP32_ATOL)
     twin = jattn.paged_prefill_attention(
         jq, jk, jv, jt, jnp.int32(q0), jnp.int32(kv_len), impl="xla",
         k_scales=jks, v_scales=jvs)
-    plain = tattn.paged_prefill_attention(tq, tk, tv, tt, q0, kv_len,
+    plain = tattn.paged_prefill_attention(tq, tk, tv, tt, span(q0, kv_len),
                                           impl="plain", k_scales=tks,
                                           v_scales=tvs)
     assert_close(plain[:, :live], twin[:, :live], FP32_ATOL)

@@ -80,7 +80,9 @@ def _imports(path: Path) -> list[str]:
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "trace_continuous.py",
-        REPO / "scripts" / "copy_rate.py"],
+        REPO / "scripts" / "copy_rate.py",
+        REPO / "scripts" / "ssm_logits_sensitivity.py",
+        REPO / "scripts" / "b5_variants.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax_and_no_reference(path):
     for name in _imports(path):
@@ -224,7 +226,8 @@ def test_chip_smoke_bf16_limit_admits_one_rounding_not_a_skipped_tile(
 
             def plain(vp, vs):
                 return ppre.paged_prefill_attention_plain(
-                    q, kp, vp, table[1], q_offset=192, kv_len=256, blk_q=32,
+                    q, kp, vp, table[1],
+                    torch.tensor([192, 256], dtype=torch.int32), blk_q=32,
                     k_scales=ks, v_scales=vs)
         want = plain(vp, vs)
         # the second-last live page of the longest sequence skipped

@@ -46,6 +46,7 @@ from test_torch_harness import (
     LOGITS_ATOL,
     as_numpy,
     assert_close,
+    chunk_span,
     model_pair,
     prompts,
     rand,
@@ -303,7 +304,8 @@ def test_paged_verify_step_matches_reference(pair, kv_dtype):
             jnp.int32(n))
         tl, tc = pair.tmodel.prefill_chunk(
             pair.tparams, pair.tcfg, torch.from_numpy(toks), tc,
-            torch.from_numpy(table[slot]), torch.from_numpy(cpages), 0, n)
+            torch.from_numpy(table[slot]), torch.from_numpy(cpages),
+            chunk_span(0, n))
         assert_close(tl, jl, LOGITS_ATOL)
     positions = np.array([7, 4, 0], np.int32)
     for step, n_rows in enumerate(([3, 1, 0], [2, 3, 0])):

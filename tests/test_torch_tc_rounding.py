@@ -1,6 +1,6 @@
 """The rounding of the bf16 tensor-core kernels (the bf16 forms of B1,
-B2, B3, B4, B5, B6 and B7), emulated on the CPU and held to their plain
-versions.
+B2, B3, B4, B5, B6 and B7), and of a tensor-core B8, emulated on the CPU
+and held to their plain versions.
 
 The kernels read Q, K and V in bf16, sum S = Q K^T in fp32 (exact bf16
 products, fp32 sums), feed P to P·V as bf16 and round the output to bf16.
@@ -36,6 +36,13 @@ multiplies the score and the V scale multiplies P after the row sum and
 before the split. The int8 cases' fault is a zeroed V scale: a 64-row
 tile's rows for B4, a page for B6 and B7.
 
+B8 (the SSD intra-chunk step) runs on the CUDA cores; a tensor-core form
+of it would be held to a tighter limit, 1e-4 of each output row's norm
+(``tests/test_torch_cuda.py``): S = C B^T is exact, and S . L (in y's
+product with X) and the decay-scaled x (in the state's product with
+B^T) round once to bf16 (about 4e-3 and 2e-3: they fail it) or enter as
+hi + lo (under 1e-5), at the model's decay and at 1% of it.
+
 Run as a script, it prints the row errors.
 """
 
@@ -51,6 +58,7 @@ from repro_torch.kernels import mas_attention as tmas
 from repro_torch.kernels import paged_decode_attention as tpdec
 from repro_torch.kernels import paged_prefill_attention as tppre
 from repro_torch.kernels import paged_verify_attention as tpver
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.kernels.common import (
     NEG_INF,
     gather_pages,
@@ -326,7 +334,8 @@ def _case(kernel: str, seed: int):
     if kernel.startswith("paged"):
         q, k, v, table, sc = _paged_inputs(seed, quantized)
         want = tppre.paged_prefill_attention_plain(
-            q, k, v, table, q_offset=Q0, kv_len=N, blk_q=64, **sc)
+            q, k, v, table, torch.tensor([Q0, N], dtype=torch.int32),
+            blk_q=64, **sc)
 
         def emulate(split, v_=None, vs=None):
             kw = dict(sc, v_scales=vs) if vs is not None else sc
@@ -395,6 +404,86 @@ def test_every_int8_value_is_exact_in_bf16():
     assert torch.equal(values.bfloat16().to(torch.int8), values)
 
 
+# ---------------------------------------------------------------------------
+# B8: the SSD intra-chunk step on the tensor cores. S = C B^T is exact bf16
+# products summed in fp32; S . L enters the product with X, and
+# the decay-scaled x_t the state's product with B^T, either as one bf16
+# rounding or as hi + lo. B8 is held to 1e-4 of each row's norm
+# (tests/test_torch_cuda.py), at the model's decay (a·dt of -0.7 to -11 a
+# step) and at 1% of it, where the off-diagonal tiles count.
+
+SSD_ROW_RTOL = 1e-4
+SSD_HEADS, SSD_Q, SSD_P, SSD_N = 24, 256, 64, 128
+
+
+def _ssd_inputs(seed: int, a_scale: float):
+    """One 256-row chunk for each of 24 heads: bf16 x, b, c ~ N(0, 1) and
+    a = -a_scale softplus(N(0, 1)) A_h, A_h = linspace(1, 16) by head."""
+    rng = np.random.default_rng(seed)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(torch.bfloat16)
+
+    x = bf16(SSD_HEADS, 1, SSD_Q, SSD_P)
+    b, c = bf16(SSD_HEADS, 1, SSD_Q, SSD_N), bf16(SSD_HEADS, 1, SSD_Q, SSD_N)
+    a_h = torch.linspace(1.0, 16.0, SSD_HEADS).view(-1, 1, 1)
+    a = -a_scale * torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((SSD_HEADS, 1, SSD_Q), dtype=np.float32))) * a_h
+    return x, a, b, c
+
+
+def _times_rounded(lhs, m, split: bool):
+    """lhs @ m with lhs exact and m rounded to bf16 once, or as hi + lo."""
+    hi = m.to(torch.bfloat16).float()
+    out = lhs @ hi
+    if split:
+        out = out + lhs @ (m - hi).to(torch.bfloat16).float()
+    return out
+
+
+def ssd_emulated(x, a, b, c, *, split: bool):
+    """B8 on the tensor cores: (y, state) with S . L and the decay-scaled
+    x as one bf16 product or as hi + lo."""
+    a_cum = tssd.cumsum_sequential(a)
+    below = torch.ones((SSD_Q, SSD_Q), dtype=torch.bool).tril()
+    lmat = torch.exp(torch.where(below, a_cum[..., :, None]
+                                 - a_cum[..., None, :], NEG_INF))
+    s = c.float() @ b.float().transpose(-1, -2)
+    y = _pv(s * lmat, x, split)
+    decay = torch.exp(a_cum[..., -1:] - a_cum)
+    state = _times_rounded(b.float().transpose(-1, -2),
+                           x.float() * decay[..., None], split)
+    return y, state
+
+
+def ssd_emulated_errors(a_scale: float) -> dict[str, float]:
+    """Row errors of y and the state against the plain version, with one
+    bf16 rounding and with hi + lo."""
+    x, a, b, c = _ssd_inputs(7, a_scale)
+    want = tssd.ssd_intra_chunk_plain(x, a, b, c)
+    errs = {}
+    for kind in ("bf16", "hi_lo"):
+        y, state = ssd_emulated(x, a, b, c, split=kind == "hi_lo")
+        errs[f"y_{kind}"] = row_rel_err(y, want[0])
+        errs[f"state_{kind}"] = row_rel_err(state, want[1])
+    return errs
+
+
+@pytest.mark.parametrize("a_scale", [1.0, 0.01])
+def test_ssd_needs_hi_lo_to_fit_its_row_limit(a_scale):
+    """One bf16 rounding of S . L, or of the decay-scaled x, breaks B8's
+    1e-4 row limit (by about 40 and 20 times); hi + lo fits it with
+    room."""
+    errs = ssd_emulated_errors(a_scale)
+    assert errs["y_bf16"] > SSD_ROW_RTOL, errs
+    assert errs["state_bf16"] > SSD_ROW_RTOL, errs
+    assert 0 < errs["y_hi_lo"] <= SSD_ROW_RTOL / 4, errs
+    assert 0 < errs["state_hi_lo"] <= SSD_ROW_RTOL / 4, errs
+
+
 if __name__ == "__main__":
     for name in KERNELS:
         print(name, emulated_errors(name))
+    for a_scale in (1.0, 0.01):
+        print("ssd", a_scale, ssd_emulated_errors(a_scale))
