@@ -12,8 +12,8 @@ Phases, each printing one JSON line:
    every kernel from ``src/repro_torch/kernels/csrc``, each kernel's
    registers and spills (``ptxas``) and its tensor-core instructions
    (``HMMA``, ``HGMMA`` in ``cuobjdump -sass``), which the bf16 forms of
-   B1-B7 must have (``HMMA`` for B1, B2, and B4, B6 and B7 on bf16 and on
-   int8 caches, in each of their forms; ``HGMMA`` for B3 and B5);
+   B1-B8 must have (``HMMA`` for B1, B2, and B4, B6 and B7 on bf16 and on
+   int8 caches, in each of their forms; ``HGMMA`` for B3, B5 and B8);
 2. fp32 checks — each kernel against its plain version in fp32 on small
    ragged shapes (padding, kv tails, a sliding window, ragged decode; for
    the paged kernels shuffled page tables, kv_len 0, 1 and mid-page, a
@@ -81,8 +81,15 @@ Phases, each printing one JSON line:
    served by ``ServingEngine`` in three waves, 4 x 2048, 1 x 32768 and
    4 x 1000 (a ragged tail padded to a whole chunk), 16 new tokens each:
    24 B8 launches a wave, TTFT, tokens/s, decode step time and peak
-   memory; first-token logits held to the plain route, and at 2 layers
-   in fp32 the kernel route's tokens equal the plain route's.
+   memory; on each wave's first prompt every B8 call of the prefill held
+   to the plain version on its own inputs (rows within 1e-4) and each
+   SSD layer, fed the plain route's input for it, held to the plain
+   route (the chunked scan's fp32 rows within one bf16 rounding, 4e-3),
+   each check beside a zeroed X tile it must reject; the bf16 first-token logits against the plain
+   route are recorded, not held (a bf16 mamba2 with random weights moves
+   them by a large part of any useful limit under fp32-rounding-size
+   changes of B8), and must be finite; and at 2 layers in fp32 the
+   kernel route's tokens equal the plain route's.
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails unless its kernels launched.
@@ -463,7 +470,7 @@ def phase_device(torch, build) -> dict:
         "tensor_core_instructions": sass,
     }
     emit(info)
-    # the bf16 forms of B1-B7 must run on the tensor cores
+    # the bf16 forms of B1-B8 must run on the tensor cores
     for lib, kernel, kind in (
             ("mas_attention", "mas_resident_bf16_kernel", "hmma"),
             ("mas_attention", "mas_streamed_bf16_kernel", "hmma"),
@@ -472,7 +479,8 @@ def phase_device(torch, build) -> dict:
             ("paged_prefill_attention", "paged_prefill_bf16_kernel",
              "hgmma"),
             ("paged_verify_attention", "paged_verify_bf16_kernel", "hmma"),
-            ("paged_decode_attention", "paged_decode_bf16_kernel", "hmma")):
+            ("paged_decode_attention", "paged_decode_bf16_kernel", "hmma"),
+            ("ssd_scan", "ssd_chunk_bf16_kernel", "hgmma")):
         found = {k: c for k, c in sass[lib].items() if kernel in k}
         require(bool(found) and all(c[kind] > 0 for c in found.values()),
                 f"{kernel}: no {kind.upper()} instruction in {found}")
@@ -1096,6 +1104,191 @@ def drop_x_tile(x, cell: tuple[int, int], tile: int, rows: int = 64):
     return out
 
 
+def x_tile_at(x) -> tuple[tuple[int, int], int]:
+    """Where the B8 checks plant a zeroed X tile in ``x`` (B·H, NC, Q, P):
+    the middle (B·H) row's last chunk, its last 64-row tile."""
+    return (x.shape[0] // 2, x.shape[1] - 1), (x.shape[2] - 1) // 64
+
+
+def b8_scaled(base, eps: float):
+    """``base`` (a B8: the kernel or its plain version) with its output,
+    y and states, times 1 + eps."""
+    def b8(x, a, b, c):
+        y, states = base(x, a, b, c)
+        return y * (1 + eps), states * (1 + eps)
+    return b8
+
+
+def b8_faults(base) -> dict:
+    """Wrong B8s built on ``base`` that the ssm wave's checks must reject:
+    its output times 1 + 1e-3; one cell's last X tile zeroed (``x_tile_at``);
+    that cell's last diagonal tile of (C Bᵀ ⊙ L) X skipped; L without its
+    diagonal (j < i); the state without its decay."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    def zeroed_x_tile(x, a, b, c):
+        return base(drop_x_tile(x, *x_tile_at(x)), a, b, c)
+
+    def skipped_diagonal_tile(x, a, b, c):
+        y, states = base(x, a, b, c)
+        (k, ch), tile = x_tile_at(x)
+        rows = slice(tile * 64, min(tile * 64 + 64, x.shape[2]))
+        a_cum = ssd.cumsum_sequential(a[k, ch, rows])
+        diff = a_cum[:, None] - a_cum[None, :]
+        lmat = torch.where(torch.ones_like(diff, dtype=torch.bool).tril(),
+                           torch.exp(diff), 0.0)
+        s = c[k, ch, rows].float() @ b[k, ch, rows].float().T
+        y = y.clone()
+        y[k, ch, rows] -= (s * lmat) @ x[k, ch, rows].float()
+        return y, states
+
+    def dropped_l_diagonal(x, a, b, c):
+        y, states = base(x, a, b, c)
+        s_ii = (c.float() * b.float()).sum(-1, keepdim=True)   # L_ii = 1
+        return y - s_ii * x.float(), states
+
+    def undecayed_state(x, a, b, c):
+        y, _ = base(x, a, b, c)
+        return y, b.float().transpose(-1, -2) @ x.float()
+
+    return {"scaled_1e-3": b8_scaled(base, 1e-3),
+            "zeroed_x_tile": zeroed_x_tile,
+            "skipped_diagonal_tile": skipped_diagonal_tile,
+            "dropped_l_diagonal": dropped_l_diagonal,
+            "undecayed_state": undecayed_state}
+
+
+def b8_call_check(got, x, a, b, c, plant: bool = True) -> dict:
+    """One B8 call's output ``got`` (y, states) against the plain version
+    on the same inputs: the larger row error of y and states, and (with
+    ``plant``) the smaller of the planted fault's, the plain version on a
+    zeroed X tile (``b8_faults``), which must exceed SSD_FP32_ROW_RTOL."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    plain = ssd.ssd_intra_chunk_plain
+    want = plain(x, a, b, c)
+    check = {"row_rel_err": max(row_rel_err(g, w)
+                                for g, w in zip(got, want))}
+    if plant:
+        faulty = b8_faults(plain)["zeroed_x_tile"](x, a, b, c)
+        check["fault_row_rel_err"] = min(row_rel_err(f, w)
+                                         for f, w in zip(faulty, want))
+    return check
+
+
+def b8_gate(model, params, prompt, b8=None, plant: bool = True):
+    """Gate 1 of the ssm wave: the kernel route's prefill of ``prompt``
+    (1, L) with every call of ``ssd_intra_chunk`` (``b8``, or the wrapper
+    itself: the kernel on a CUDA tensor) held to the plain version on the
+    same inputs as it returns (``b8_call_check``), so that no call's
+    inputs outlive it. Returns (logits, {calls, largest row error,
+    smallest planted fault error, limit})."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    real = ssd.ssd_intra_chunk
+    calls = []
+
+    def watched(x, a, b, c):
+        got = (b8 or real)(x, a, b, c)
+        calls.append(b8_call_check(got, x, a, b, c, plant))
+        return got
+
+    ssd.ssd_intra_chunk = watched
+    try:
+        logits, _ = model.prefill(params, model.cfg, prompt,
+                                  prompt.shape[1])
+    finally:
+        ssd.ssd_intra_chunk = real
+    gate = {"calls": len(calls), "limit": SSD_FP32_ROW_RTOL,
+            "row_rel_err": max(c["row_rel_err"] for c in calls)}
+    if plant:
+        gate["fault_row_rel_err"] = min(c["fault_row_rel_err"]
+                                        for c in calls)
+    return logits, gate
+
+
+def ssd_layer_gate(model, plain_model, params, prompt, b8=None,
+                   plant: bool = True):
+    """Gate 2 of the ssm wave: the plain route's prefill of ``prompt``,
+    and at each SSD layer ``ssm.ssd_block`` on that layer's input once
+    more through the kernel route (``ssd_intra_chunk`` replaced by ``b8``
+    where given) and, with ``plant``, through the kernel route with the
+    zeroed X tile of ``b8_faults`` planted in its B8 call. Held within
+    BF16_ROW_RTOL: the rows of each route's chunked scan (y and the final
+    state) in fp32, before the scan rounds y to bf16, which takes in the
+    padding, the recurrence across chunks and the carried-in state's
+    decay around B8. The block's bf16 output rows are recorded beside
+    them, not held: the bf16 roundings after the scan turn the routes'
+    fp32 difference (3e-4 of a row, mostly a_cum summed in another order
+    by the plain scan) into 4e-3-7e-3 with the same B8 on both routes.
+    Returns (the plain route's logits, {layers, largest row errors,
+    smallest planted fault error, limit})."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import ssm
+
+    real_block, real_b8 = ssm.ssd_block, ssd.ssd_intra_chunk
+    real_plain, real_kernel = ssm.ssd_chunked, ops.ssd_chunked
+    faulty = b8_faults(real_b8)["zeroed_x_tile"]
+    scans, errs = [], {"y": [], "state": [], "block": [], "fault": []}
+
+    def plain_scan(x, a, b, c, chunk, initial_state=None):
+        # the plain scan sums in fp32 whatever its inputs' type: the same
+        # arithmetic on fp32 copies, y not rounded
+        y, state = real_plain(x.float(), a, b.float(), c.float(), chunk,
+                              initial_state=initial_state)
+        scans.append((y, state))
+        return y.to(x.dtype), state
+
+    def kernel_scan(x, a, b, c, chunk, initial_state=None):
+        y, state = real_kernel(x, a, b, c, chunk,
+                               initial_state=initial_state,
+                               out_dtype=torch.float32)
+        scans.append((y, state))
+        return y.to(x.dtype), state
+
+    def route(layer, x, cfg, b8_fn, **kw):
+        ssm.ssd_chunked, ops.ssd_chunked = plain_scan, kernel_scan
+        ssd.ssd_intra_chunk = b8_fn
+        try:
+            out = real_block(layer, x, cfg, **kw)
+        finally:
+            ssm.ssd_chunked, ops.ssd_chunked = real_plain, real_kernel
+            ssd.ssd_intra_chunk = real_b8
+        return out, scans.pop()
+
+    def teacher_forced(layer, x, cfg, **kw):
+        want, want_scan = route(layer, x, cfg, real_b8, **kw)
+        got, got_scan = route(layer, x, model.cfg, b8 or real_b8)
+        errs["y"].append(row_rel_err(got_scan[0], want_scan[0]))
+        errs["state"].append(row_rel_err(got_scan[1], want_scan[1]))
+        errs["block"].append(row_rel_err(got[0], want[0]))
+        if plant:
+            bad_scan = route(layer, x, model.cfg, faulty)[1]
+            errs["fault"].append(min(row_rel_err(b, w)
+                                     for b, w in zip(bad_scan, want_scan)))
+        return want
+
+    ssm.ssd_block = teacher_forced
+    try:
+        logits, _ = plain_model.prefill(params, plain_model.cfg, prompt,
+                                        prompt.shape[1])
+    finally:
+        ssm.ssd_block = real_block
+    gate = {"layers": len(errs["y"]), "limit": BF16_ROW_RTOL,
+            "row_rel_err": max(errs["y"] + errs["state"]),
+            "y_row_rel_err": max(errs["y"]),
+            "state_row_rel_err": max(errs["state"]),
+            "block_bf16_row_rel_err": max(errs["block"])}
+    if plant:
+        gate["fault_row_rel_err"] = min(errs["fault"])
+    return logits, gate
+
+
 def ssd_fp32_checks(torch) -> dict:
     """Row-relative L2 errors in fp32: B8 against its plain version on
     whole 256-row chunks and on a 100-row chunk (a prompt shorter than the
@@ -1194,9 +1387,13 @@ def phase_ssm_wave(torch) -> dict:
     repo's prefill_32k length) and 4 x 1000 (ragged: three chunks and a
     232-row tail, padded to a whole chunk). Each wave's prefill launches
     B8 once a layer; decode runs the one-token recurrence in PyTorch.
-    First-token logits of each wave's first prompt are held to the plain
-    route, and at 2 layers in fp32 the kernel route serves two waves with
-    the plain route's tokens."""
+    On each wave's first prompt, gate 1 (``b8_gate``) holds every B8 call
+    of the kernel route's prefill to the plain version on the same inputs
+    and gate 2 (``ssd_layer_gate``) each SSD layer, fed the plain route's
+    input, to the plain route, each beside a planted zeroed X tile that
+    it must reject; the first-token logits of both routes are recorded,
+    not gated (ROADMAP C8), and must be finite. At 2 layers in fp32 the
+    kernel route serves two waves with the plain route's tokens."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1253,24 +1450,28 @@ def phase_ssm_wave(torch) -> dict:
         })
     counts = ops.launch_counts()
 
-    # first-token logits: the kernel route against the plain route
+    # per wave, on its first prompt: gate 1 (every B8 call of the kernel
+    # route's prefill against the plain version on its inputs) and gate 2
+    # (each SSD layer, fed the plain route's input, kernel route against
+    # plain route), each with its planted fault; the first-token logits
+    # of the two prefills are recorded only (C8)
     plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
-    logits_check = []
+    b8_gates, layer_gates, logits_check = [], [], []
     for (n, _), ps in zip(SSM_WAVES, wave_prompts):
         prompt = torch.from_numpy(ps[0][None].astype(np.int64)).to("cuda")
-        got, _ = model.prefill(params, cfg, prompt, n)
-        want, _ = plain_model.prefill(params, plain_model.cfg, prompt, n)
+        got, gate = b8_gate(model, params, prompt)
+        b8_gates.append({"prompt_len": n, **gate})
+        want, gate = ssd_layer_gate(model, plain_model, params, prompt)
+        layer_gates.append({"prompt_len": n, **gate})
         got, want = got.float(), want.float()
-        require(bool(torch.isfinite(got).all()), f"{n}: logits not finite")
         scale = float(want.abs().max())
-        err = max_err(got, want)
         logits_check.append({
-            "prompt_len": n, "max_abs_err": err, "max_abs_logit": scale,
+            "prompt_len": n, "finite": bool(torch.isfinite(got).all()),
+            "max_abs_err": max_err(got, want), "max_abs_logit": scale,
             "tol": LOGITS_RTOL * max(1.0, scale),
             "argmax_equal": bool(got.argmax(-1).eq(want.argmax(-1)).all()),
+            "gate": False,
         })
-        require(err <= LOGITS_RTOL * max(1.0, scale),
-                f"ssm prefill {n}: logits {err} from the plain route")
     del full, params, engines
 
     # fp32, FP32_LAYERS layers: the kernel route's tokens are the plain
@@ -1295,9 +1496,31 @@ def phase_ssm_wave(torch) -> dict:
         "phase": "ssm_wave", "arch": SSM_ARCH, "params": n_params,
         "init_s": init_s, "layers": layers, "dtype": "bf16",
         "new_tokens": SSM_NEW_TOKENS, "waves": waves, "launches": counts,
-        "prefill_vs_plain": logits_check, "fp32_parity": parity,
+        "b8_on_model_inputs": b8_gates,
+        "ssd_layers_teacher_forced": layer_gates,
+        "prefill_vs_plain": logits_check,
+        "prefill_vs_plain_not_a_gate": (
+            "ROADMAP C8: B8's output times 1 + 1e-7 moves these bf16 "
+            "logits by up to 62% of the limit, so they cannot tell a "
+            "right B8 from a wrong one; only their finiteness is gated"),
+        "fp32_parity": parity,
     }
     emit(report)
+    for check in logits_check:
+        require(check["finite"],
+                f"ssm prefill {check['prompt_len']}: logits not finite")
+    for gate in b8_gates:
+        require(gate["calls"] == layers,
+                f"ssm {gate['prompt_len']}: {gate['calls']} B8 calls held "
+                f"to plain, not {layers}")
+    for gate in b8_gates + layer_gates:
+        require(gate["row_rel_err"] <= gate["limit"] <
+                gate["fault_row_rel_err"],
+                f"ssm {gate['prompt_len']}: gate {gate}")
+    for gate in layer_gates:
+        require(gate["layers"] == layers,
+                f"ssm {gate['prompt_len']}: {gate['layers']} layers held "
+                f"to plain, not {layers}")
     for check in parity:
         require(not check["mismatched_rids"],
                 f"fp32 ssm {check['prompt_len']}: kernel tokens differ from "

@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""How far the ssm wave's first-token logits move with B8's arithmetic.
+"""How far the ssm wave's checks move with B8's arithmetic.
 
-``chip_smoke.py`` holds the first-token logits of full-width mamba2-130m
-(bf16, random weights from seed 0) on its three ssm waves (4 x 2048,
-1 x 32768, 4 x 1000; the first prompt of each) to the plain route within
-5% of the largest logit. This script computes those logits on the same
-prompts by several routes and prints, for each wave, the largest
-difference of each from the kernel route that the model's path takes:
+``chip_smoke.py``'s ssm wave serves full-width mamba2-130m (bf16, random
+weights from seed 0) in three waves (4 x 2048, 1 x 32768, 4 x 1000) and
+checks the first prompt of each. This script runs those checks on the
+same prompts with B8 replaced by variants of it, and prints one JSON
+line a wave:
 
-* ``plain``: the plain route (``attn_impl="plain"``), the check's
-  reference;
-* ``scaled_1e-7`` ... ``scaled_1e-5``: the kernel route with B8's output
-  (y and states) times 1 + eps, a change of B8's arithmetic at the size
-  of fp32 rounding and above;
-* ``fp32``: the same weights in fp32 through the plain route (closer to
-  exact arithmetic than either bf16 route);
+* ``gates``: chip_smoke.py's two ssm-wave gates under each variant.
+  Gate 1 (``b8_gate``) holds every B8 call of the kernel route's prefill
+  to the plain version on the same inputs, rows within 1e-4; gate 2
+  (``ssd_layer_gate``) holds each SSD layer, fed the plain route's input
+  for it, kernel route against plain route, rows within 4e-3. The
+  variants: ``path`` (the kernel itself, with the gates' own planted
+  fault beside it), ``scaled_1e-6`` (its output times 1 + 1e-6, which
+  both gates must pass), and the wrong B8s of ``chip_smoke.b8_faults``
+  (output times 1 + 1e-3, one cell's last X tile zeroed, that cell's
+  last diagonal tile skipped, L without its diagonal, the state without
+  its decay), each of which gate 1 must fail. ``expected`` says whether
+  every variant came out as it must;
+* ``from_path``: the first-token logits by several routes, as their
+  largest difference from the kernel route's: ``plain`` (the plain route,
+  ``attn_impl="plain"``), ``scaled_1e-7`` ... ``scaled_1e-5`` (B8's
+  output times 1 + eps) and ``fp32`` (the same weights in fp32 through
+  the plain route), with the plain route's own difference from ``fp32``
+  beside the 5% limit that chip_smoke.py once held these logits to (it
+  now records them only, ROADMAP C8).
 
-and the plain route's own difference from ``fp32``, beside the 5%
-limit. Run from the repository root on a machine
-with a CUDA card and ``nvcc`` (~1 min):
+Run from the repository root on a machine with a CUDA card and ``nvcc``
+(~2 min); it exits 1 if a variant does not come out as it must:
 
     python3 scripts/ssm_logits_sensitivity.py
 """
@@ -38,6 +48,8 @@ WAVES = ((2048, 4), (32768, 1), (1000, 4))
 WARMUP = (300, 4)
 LOGITS_RTOL = 5e-2
 EPS = (1e-7, 1e-6, 1e-5)
+# variants of B8 that both gates must pass
+PASS_BOTH = ("path", "scaled_1e-6")
 
 
 def main() -> int:
@@ -48,6 +60,8 @@ def main() -> int:
         print("error: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as smoke
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models.api import build_model
@@ -79,16 +93,35 @@ def main() -> int:
     def logits(m, p, c, prompt, n):
         return m.prefill(p, c, prompt, n)[0].float()
 
-    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smoke.nvidia_smi()}))
+    expected = True
     for (n, _), first in zip(WAVES, firsts):
         prompt = torch.from_numpy(first[None].astype(np.int64)).to("cuda")
+        variants = {"path": None,
+                    "scaled_1e-6": smoke.b8_scaled(on_path, 1e-6),
+                    **smoke.b8_faults(on_path)}
+        gates = {}
+        for name, b8 in variants.items():
+            plant = b8 is None
+            gate1 = smoke.b8_gate(model, params, prompt, b8, plant)[1]
+            gate2 = smoke.ssd_layer_gate(model, plain, params, prompt, b8,
+                                         plant)[1]
+            passed = [g["row_rel_err"] <= g["limit"] for g in (gate1, gate2)]
+            if plant:
+                passed = [p and g["fault_row_rel_err"] > g["limit"]
+                          for p, g in zip(passed, (gate1, gate2))]
+            ok = all(passed) if name in PASS_BOTH else not passed[0]
+            expected = expected and ok
+            gates[name] = {"gate1": gate1, "gate2": gate2,
+                           "gate1_passes": passed[0],
+                           "gate2_passes": passed[1], "as_expected": ok}
+            torch.cuda.empty_cache()
+
         path = logits(model, params, cfg, prompt, n)
         out = {"plain": logits(plain, params, plain.cfg, prompt, n)}
         for eps in EPS:
-            def scaled(*t, eps=eps, **kw):
-                y, states = on_path(*t, **kw)
-                return y * (1 + eps), states * (1 + eps)
-            ssd.ssd_intra_chunk = scaled
+            ssd.ssd_intra_chunk = smoke.b8_scaled(on_path, eps)
             out[f"scaled_{eps:g}"] = logits(model, params, cfg, prompt, n)
         ssd.ssd_intra_chunk = on_path
         out["fp32"] = logits(m32, p32, cfg32, prompt, n)
@@ -98,12 +131,15 @@ def main() -> int:
             return float((a - b).abs().max())
 
         print(json.dumps({
-            "prompt_len": n, "limit": LOGITS_RTOL * max(1.0, scale),
+            "prompt_len": n, "gates": gates,
+            "expected": all(g["as_expected"] for g in gates.values()),
+            "limit": LOGITS_RTOL * max(1.0, scale),
             "from_path": {k: diff(v, path) for k, v in out.items()},
             "plain_from_fp32": diff(out["plain"], out["fp32"]),
         }), flush=True)
         torch.cuda.empty_cache()
-    return 0
+    print(json.dumps({"expected": expected}))
+    return 0 if expected else 1
 
 
 if __name__ == "__main__":

@@ -24,8 +24,8 @@ line a path:
 * ``ssm_wave``: ``chip_smoke.py``'s main-path wave of mamba2-130m (bf16,
   random weights from seed 0), 4 x 2048 through ``ServingEngine`` with
   16 new tokens: B8 once a layer on the prefill (group ``B8
-  ssd_intra_chunk``), the one-token recurrence in PyTorch on the decode
-  steps.
+  ssd_intra_chunk``, both forms, also reported as ``b8``: launches and
+  device ms), the one-token recurrence in PyTorch on the decode steps.
 
 Each line holds the serve's wall time untraced and traced, the device's
 busy share over the traced serve, the busy share and time of each step
@@ -66,6 +66,7 @@ SSM_ARCH, SSM_WAVE = "mamba2-130m", (4, 2048)
 PATHS = ("continuous", "int8_continuous", "speculative", "speculative_int8",
          "wave", "int8_wave", "ssm_wave")
 DENSE = PATHS[:-1]
+B8 = "B8 ssd_intra_chunk"
 # kernel name fragments -> group, first match wins
 GROUPS = (("paged_prefill", "B5 paged_prefill"),
           ("paged_verify", "B7 paged_verify"),
@@ -75,7 +76,7 @@ GROUPS = (("paged_prefill", "B5 paged_prefill"),
           ("decode_bf16", "B4 decode"), ("decode_split", "B4 decode"),
           ("mas_resident", "B1 mas_resident"),
           ("mas_streamed", "B2 mas_streamed"), ("flash", "B3 flash"),
-          ("ssd_chunk", "B8 ssd_intra_chunk"),
+          ("ssd_chunk", B8),
           ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
           ("cutlass", "matmul"), ("Memcpy", "copies"), ("Memset", "copies"))
 
@@ -215,7 +216,10 @@ def trace_wave(torch, eng, reqs, header: dict) -> None:
     eng._prefill = marked(torch, eng._prefill, lambda *a: "prefill")
     eng._decode = marked(torch, eng._decode, lambda *a: "wave_decode")
     out = traced(torch, lambda: eng.serve(reqs()))
-    print(json.dumps({**header, **summary(torch, *out)}), flush=True)
+    line = {**header, **summary(torch, *out)}
+    if B8 in line["device_ms_by_group"]:
+        line["b8"] = line["device_ms_by_group"][B8]   # launches and ms
+    print(json.dumps(line), flush=True)
 
 
 def trace_ssm(torch, np, get_arch, build_model, Request, ServingEngine):

@@ -94,8 +94,9 @@ SIGNATURES = {
         "paged_verify_int8_launch": [P] * 12 + [I] * 10 + [F, I, P],
     },
     "ssd_scan": {
-        # x, a, b, c, y, states, cells, Q, N, P, dtype, stream
-        "ssd_intra_chunk_launch": [P] * 6 + [I] * 5 + [P],
+        # x, a, b, c, y, states, cells, Q, N, P, stream
+        "ssd_intra_chunk_bf16_launch": [P] * 6 + [I] * 4 + [P],
+        "ssd_intra_chunk_fp32_launch": [P] * 6 + [I] * 4 + [P],
     },
 }
 

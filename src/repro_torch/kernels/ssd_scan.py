@@ -11,12 +11,17 @@ every (batch·head, chunk) cell:
     y = (C Bᵀ ⊙ L) X
     state = Σ_t exp(a_cum[-1] - a_cum[t]) b_t x_tᵀ        (N, P)
 
-The CUDA kernel (``csrc/ssd_scan.cu``) splits a chunk's rows over blocks:
-a whole chunk's (Q, Q) score tile does not fit a Hopper block's shared
-memory at Q = 256. Each row block walks only the column tiles on or below
-the diagonal (the tiles above it are exactly zero in the TPU kernel), and
-one more block a cell computes the chunk state. Every block builds
-``a_cum`` with a sequential fp32 prefix sum, in the order of
+The CUDA kernels (``csrc/ssd_scan.cu``) come in two forms, chosen by
+the inputs' dtype (``entry_point``). bf16 inputs run on the tensor cores
+(``ssd_intra_chunk_bf16_launch``, chunks of up to ``MAX_Q_BF16`` rows):
+one persistent block an SM holds a cell's bf16 C, B and X in shared
+memory, brought in by tensor-map copies while the cell before is worked;
+S = C Bᵀ is a ``wgmma`` product whose diagonal is summed apart in k
+order, and S ⊙ L and the decay-scaled Bᵀ enter their products as bf16 hi
++ lo. fp32 inputs run on the CUDA cores (``ssd_intra_chunk_fp32_launch``,
+up to ``MAX_Q`` rows), which split a chunk's rows over blocks: a whole
+chunk's fp32 B and C do not fit a Hopper block's shared memory. Both
+build ``a_cum`` with a sequential fp32 prefix sum, in the order of
 ``cumsum_sequential``: at full width a·dt reaches about -11 a step, so
 ``a_cum`` reaches about -3000 within a chunk and L near the diagonal is
 the difference of two large fp32 numbers, which a parallel scan would
@@ -39,9 +44,21 @@ from repro_torch.kernels.common import NEG_INF
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
 LAUNCHES = {"ssd_intra_chunk": 0}
 
-MAX_Q = 2048       # chunk rows (a_cum lives in shared memory)
+MAX_Q = 2048       # chunk rows of the fp32 form (a_cum in shared memory)
+MAX_Q_BF16 = 256   # chunk rows of the bf16 form (a whole cell in shared memory)
 MAX_N = 128        # d_state
 MAX_P = 64         # head_dim
+
+
+def entry_point(dtype) -> str:
+    """The C function a CUDA tensor of ``dtype`` launches: the tensor-core
+    kernel in bf16, the CUDA-core kernel in fp32. Nothing falls back from
+    one to the other."""
+    if dtype == torch.bfloat16:
+        return "ssd_intra_chunk_bf16_launch"
+    if dtype == torch.float32:
+        return "ssd_intra_chunk_fp32_launch"
+    raise TypeError(f"B8 takes float32 or bfloat16, not {dtype}")
 
 
 def cumsum_sequential(a: torch.Tensor) -> torch.Tensor:
@@ -78,7 +95,8 @@ def ssd_intra_chunk(x, a, b, c):
     """The intra-chunk step of every (batch·head, chunk) cell. x: (BH, NC,
     Q, P) and b, c: (BH, NC, Q, N) of one dtype, fp32 or bf16; a: (BH,
     NC, Q) fp32. Returns (y (BH, NC, Q, P), states (BH, NC, N, P)), both
-    fp32. A CUDA tensor launches B8; a CPU tensor runs the plain
+    fp32. A CUDA tensor launches B8 (bf16: the tensor-core form, Q up to
+    ``MAX_Q_BF16``; fp32: the CUDA-core form); a CPU tensor runs the plain
     version."""
     bh, nc, q, p = x.shape
     n = b.shape[-1]
@@ -90,12 +108,14 @@ def ssd_intra_chunk(x, a, b, c):
         return ssd_intra_chunk_plain(x, a, b, c)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if q > MAX_Q or n > MAX_N or p > MAX_P or n % 8 or p % 8:
-        raise ValueError(f"unsupported SSD shape: Q={q}, N={n}, P={p} "
-                         f"(Q <= {MAX_Q}, N <= {MAX_N}, P <= {MAX_P}, "
-                         "N and P multiples of 8)")
     if b.dtype != x.dtype or c.dtype != x.dtype or a.dtype != torch.float32:
         raise ValueError("x, b and c must share one dtype, a must be fp32")
+    fn = entry_point(x.dtype)
+    max_q = MAX_Q_BF16 if x.dtype == torch.bfloat16 else MAX_Q
+    if q > max_q or n > MAX_N or p > MAX_P or n % 8 or p % 8:
+        raise ValueError(f"unsupported SSD shape: Q={q}, N={n}, P={p} "
+                         f"(Q <= {max_q} in {x.dtype}, N <= {MAX_N}, "
+                         f"P <= {MAX_P}, N and P multiples of 8)")
     tensors = [t.contiguous() for t in (x, a, b, c)]
     if any(t.device != x.device for t in tensors):
         raise ValueError("x, a, b and c must share one device")
@@ -107,11 +127,11 @@ def ssd_intra_chunk(x, a, b, c):
     y = torch.empty((bh, nc, q, p), dtype=torch.float32, device=x.device)
     states = torch.empty((bh, nc, n, p), dtype=torch.float32,
                          device=x.device)
-    err = lib.ssd_intra_chunk_launch(
+    err = getattr(lib, fn)(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         y.data_ptr(), states.data_ptr(), bh * nc, q, n, p,
-        _build.dtype_code(x.dtype), _build.stream_handle(x.device))
-    _build.check(lib, err, "ssd_intra_chunk_launch")
+        _build.stream_handle(x.device))
+    _build.check(lib, err, fn)
     LAUNCHES["ssd_intra_chunk"] += 1
     return y, states
 
@@ -136,11 +156,12 @@ def _segsum(z: torch.Tensor) -> torch.Tensor:
     return torch.where(below, seg, float("-inf"))
 
 
-def ssd_chunked_kernel(x, a, bmat, cmat, chunk: int, initial_state=None):
+def ssd_chunked_kernel(x, a, bmat, cmat, chunk: int, initial_state=None,
+                       out_dtype=None):
     """Drop-in for ``models.ssm.ssd_chunked`` with the intra-chunk part on
     ``ssd_intra_chunk``. x: (B, L, H, P); a: (B, L, H); bmat, cmat: (B, L,
     H, N); initial_state: (B, H, P, N) or None. Returns (y (B, L, H, P) in
-    x's dtype, final_state (B, H, P, N) fp32).
+    ``out_dtype``, by default x's dtype, final_state (B, H, P, N) fp32).
 
     A length that is not a multiple of ``chunk`` is padded at its tail to
     a whole chunk with zero x, B and C rows and a = 0: a padded row lies
@@ -188,4 +209,4 @@ def ssd_chunked_kernel(x, a, bmat, cmat, chunk: int, initial_state=None):
     y = (y_diag + y_off).reshape(bsz, h, nc, chunk, p).permute(
         0, 2, 3, 1, 4).reshape(bsz, nc * chunk, h, p)[:, :length]
     final = final.transpose(1, 2).reshape(bsz, h, p, n)
-    return y.to(x.dtype), final
+    return y.to(x.dtype if out_dtype is None else out_dtype), final

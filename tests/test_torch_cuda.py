@@ -21,8 +21,10 @@ planted zeroed V tile, V page or V scale must break it. B8 (the SSD
 intra-chunk step) and the chunked scan around it are held row by row
 (L2 error within 1e-4 of the row's norm: y grows with the rows a decay
 lets through, so an absolute limit does not fit), at a full-width cell
-count, on a ragged tail, and against a planted zeroed X tile; the wave
-engine serves the mamba2 smoke model on the card with the CPU's tokens.
+count, on a ragged tail, and against a planted zeroed X tile; its bf16
+form (tensor cores) also on short and ragged chunks with its launch path
+free of host syncs, and refusing a chunk past 256 rows; the wave engine
+serves the mamba2 smoke model on the card with the CPU's tokens.
 """
 
 from __future__ import annotations
@@ -109,8 +111,8 @@ def _span(q_offset: int, kv_len: int, device) -> torch.Tensor:
 
 def _no_host_sync(fn):
     """``fn()`` with PyTorch's synchronizing calls (``int()``, ``.item()``
-    of a CUDA tensor) made errors: B5's launch path reads nothing of the
-    device back."""
+    of a CUDA tensor) made errors: B5's and B8's launch paths read nothing
+    of the device back."""
     torch.cuda.set_sync_debug_mode("error")
     try:
         return fn()
@@ -984,6 +986,61 @@ def test_ssd_chunked_kernel_matches_plain_scan(cuda, length):
     want = ssm.ssd_chunked(x, a, b, c, chunk, initial_state=s0)
     torch.cuda.synchronize()
     assert got[0].shape == (bsz, length, h, p)
+    for g_t, w_t in zip(got, want):
+        assert _row_rel(g_t, w_t) <= SSD_ROW_RTOL
+
+
+@pytest.mark.parametrize("q,p,n", [(100, 16, 16), (32, 16, 16),
+                                   (256, 64, 128), (200, 40, 24)])
+@pytest.mark.parametrize("a_scale", [1.0, 0.01])
+def test_ssd_bf16_kernel_matches_plain(cuda, q, p, n, a_scale):
+    """The tensor-core form: a chunk shorter than the tile set and not a
+    multiple of 16, one of 32 rows (N = P = 16), a whole 256-row chunk,
+    and N, P that are multiples of 8 but not of 16; at the model's decay
+    and at 1% of it. Nothing on its launch path reads the device."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x, a, b, c = _ssd_cells(g, 6, 3, q, p, n, torch.bfloat16, a_scale)
+    ops.reset_launch_counts()
+    got = _no_host_sync(lambda: ssd.ssd_intra_chunk(x, a, b, c))
+    assert ops.launch_counts()["ssd_intra_chunk"] == 1
+    want = ssd.ssd_intra_chunk_plain(x, a, b, c)
+    torch.cuda.synchronize()
+    for g_t, w_t in zip(got, want):
+        assert g_t.dtype == torch.float32
+        assert _row_rel(g_t, w_t) <= SSD_ROW_RTOL
+
+
+@pytest.mark.parametrize("bh,nc,q", [(96, 8, 256), (7, 3, 100), (1, 1, 256),
+                                     (200, 2, 192)])
+def test_ssd_bf16_kernel_gives_the_same_bits_launch_after_launch(
+        cuda, bh, nc, q):
+    """The tensor-core form is persistent: a block walks several cells and
+    its warpgroups hand each tile set's slot on to the next set's copies.
+    Forty launches back to back give the same bits as the first, which
+    holds to the plain version: more cells than blocks (768, 400), fewer
+    (21), one."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x, a, b, c = _ssd_cells(g, bh, nc, q, 64, 128, torch.bfloat16, 1.0)
+    first = ssd.ssd_intra_chunk(x, a, b, c)
+    for _ in range(40):
+        got = ssd.ssd_intra_chunk(x, a, b, c)
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+    want = ssd.ssd_intra_chunk_plain(x, a, b, c)
+    for f_t, w_t in zip(first, want):
+        assert _row_rel(f_t, w_t) <= SSD_ROW_RTOL
+
+
+def test_ssd_bf16_kernel_refuses_a_chunk_past_256_rows(cuda):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x, a, b, c = _ssd_cells(g, 2, 1, 512, 64, 128, torch.bfloat16)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="Q <= 256"):
+        ssd.ssd_intra_chunk(x, a, b, c)
+    assert ops.launch_counts()["ssd_intra_chunk"] == 0
+    # the fp32 form takes it
+    got = ssd.ssd_intra_chunk(x.float(), a, b.float(), c.float())
+    want = ssd.ssd_intra_chunk_plain(x.float(), a, b.float(), c.float())
+    torch.cuda.synchronize()
     for g_t, w_t in zip(got, want):
         assert _row_rel(g_t, w_t) <= SSD_ROW_RTOL
 

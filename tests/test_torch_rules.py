@@ -10,9 +10,14 @@
   and its bf16 limit admits one rounding of a kernel's output but not a
   skipped KV tile, nor, on an int8 cache, a zeroed V scale, nor for B8 a
   zeroed X tile;
-* a bf16 tensor reaches B1, B2, B3, B5, B6 (on bf16 and int8 pools) and,
-  on bf16 caches, B4 and B7 only through their tensor-core forms, chosen
-  by dtype in the wrapper, with no ``try`` to fall back from, and
+* ``chip_smoke.py``'s ssm-wave gates (every B8 call held to the plain
+  version on its own inputs; each SSD layer, fed the plain route's
+  input, held to the plain route) admit B8's output times 1 + 1e-6 and
+  reject a wrong B8: its output times 1 + 1e-3, a zeroed X tile, a
+  skipped diagonal tile, L without its diagonal, an undecayed state;
+* a bf16 tensor reaches B1, B2, B3, B5, B8, B6 (on bf16 and int8 pools)
+  and, on bf16 caches, B4 and B7 only through their tensor-core forms,
+  chosen by dtype in the wrapper, with no ``try`` to fall back from, and
   ``chip_smoke.py`` counts each kernel's tensor-core instructions.
 """
 
@@ -82,7 +87,8 @@ def _imports(path: Path) -> list[str]:
         REPO / "chip_smoke.py", REPO / "scripts" / "trace_continuous.py",
         REPO / "scripts" / "copy_rate.py",
         REPO / "scripts" / "ssm_logits_sensitivity.py",
-        REPO / "scripts" / "b5_variants.py"],
+        REPO / "scripts" / "b5_variants.py",
+        REPO / "scripts" / "b8_variants.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax_and_no_reference(path):
     for name in _imports(path):
@@ -430,6 +436,74 @@ def test_chip_smoke_sass_report_counts_tensor_core_instructions():
     assert _chip_smoke().sass_report("") == {}
 
 
+B8_VARIANTS = ("scaled_1e-6", "scaled_1e-3", "zeroed_x_tile",
+               "skipped_diagonal_tile", "dropped_l_diagonal",
+               "undecayed_state")
+
+
+def _b8_variant(smoke, name):
+    plain = tssd.ssd_intra_chunk_plain
+    if name == "scaled_1e-6":
+        return smoke.b8_scaled(plain, 1e-6)
+    return smoke.b8_faults(plain)[name]
+
+
+@pytest.mark.parametrize("variant", B8_VARIANTS)
+def test_chip_smoke_b8_gate_admits_a_rounding_not_a_wrong_b8(variant):
+    """Gate 1 of the ssm wave on one B8 call: the model's decays (a·dt of
+    -0.7 to -11 a step) over 4 heads of 2 chunks of 128 rows. Its output
+    times 1 + 1e-6 passes the 1e-4 row limit, each wrong B8 fails it, and
+    the planted zeroed X tile fails it in y and in the state."""
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen)
+
+    x, b, c = (rnd(4, 2, 128, w).bfloat16() for w in (16, 32, 32))
+    a = -torch.nn.functional.softplus(rnd(4, 2, 128)) * torch.linspace(
+        1.0, 16.0, 4)[:, None, None]
+    got = _b8_variant(smoke, variant)(x, a, b, c)
+    check = smoke.b8_call_check(got, x, a, b, c)
+    assert check["fault_row_rel_err"] > 100 * smoke.SSD_FP32_ROW_RTOL
+    if variant == "scaled_1e-6":
+        assert 0 < check["row_rel_err"] <= smoke.SSD_FP32_ROW_RTOL / 10
+    else:
+        assert check["row_rel_err"] > smoke.SSD_FP32_ROW_RTOL
+
+
+@pytest.mark.parametrize("variant", ["scaled_1e-6", "zeroed_x_tile"])
+def test_chip_smoke_ssm_gates_on_the_mamba2_smoke_model(variant):
+    """Both ssm-wave gates through a prefill of the mamba2 smoke model in
+    bf16 on the CPU (a 200-row prompt: six 32-row chunks and a ragged
+    tail): each sees one B8 call and one SSD layer a layer; B8's output
+    times 1 + 1e-6 passes both, a zeroed X tile fails both, and each
+    gate's planted fault fails it."""
+    import dataclasses
+
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(get_smoke("mamba2-130m"), attn_impl="kernel",
+                              compute_dtype=torch.bfloat16)
+    model = build_model(cfg)
+    plain = build_model(dataclasses.replace(cfg, attn_impl="plain"))
+    params = model.init(seed=0, device="cpu", dtype=torch.bfloat16)
+    prompt = torch.randint(3, cfg.vocab_size, (1, 200),
+                           generator=torch.Generator().manual_seed(2))
+    b8 = _b8_variant(smoke, variant)
+    for run, gate, calls in (
+            (smoke.b8_gate(model, params, prompt)[1], smoke.b8_gate(
+                model, params, prompt, b8, plant=False)[1], "calls"),
+            (smoke.ssd_layer_gate(model, plain, params, prompt)[1],
+             smoke.ssd_layer_gate(model, plain, params, prompt, b8,
+                                  plant=False)[1], "layers")):
+        assert run[calls] == gate[calls] == cfg.num_layers
+        assert run["row_rel_err"] <= run["limit"] < run["fault_row_rel_err"]
+        if variant == "scaled_1e-6":
+            assert gate["row_rel_err"] <= gate["limit"]
+        else:
+            assert gate["row_rel_err"] > gate["limit"]
+
+
 def test_bf16_prefill_never_reaches_the_cuda_core_code():
     # the wrappers choose the C function by dtype ...
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -439,6 +513,8 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     assert tmas.entry_point(fp32, True) == "mas_resident_fp32_launch"
     assert tflash.entry_point(bf16) == "flash_attention_bf16_launch"
     assert tflash.entry_point(fp32) == "flash_attention_fp32_launch"
+    assert tssd.entry_point(bf16) == "ssd_intra_chunk_bf16_launch"
+    assert tssd.entry_point(fp32) == "ssd_intra_chunk_fp32_launch"
     assert ppre.entry_point(bf16) == "paged_prefill_bf16_launch"
     assert ppre.entry_point(fp32) == "paged_prefill_fp32_launch"
     # B4, B6 and B7: a bf16 q on the tensor cores on bf16 and on int8
@@ -456,7 +532,8 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
                lambda: ppre.entry_point(torch.float16),
                lambda: tdec.entry_point(torch.float16, False),
                lambda: ppver.entry_point(torch.float16, True),
-               lambda: ppdec.entry_point(torch.float16, False)):
+               lambda: ppdec.entry_point(torch.float16, False),
+               lambda: tssd.entry_point(torch.float16)):
         with pytest.raises(TypeError):
             fn()
     sigs = {**_build.SIGNATURES["mas_attention"],
@@ -464,7 +541,8 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
             **_build.SIGNATURES["paged_prefill_attention"],
             **_build.SIGNATURES["decode_attention"],
             **_build.SIGNATURES["paged_verify_attention"],
-            **_build.SIGNATURES["paged_decode_attention"]}
+            **_build.SIGNATURES["paged_decode_attention"],
+            **_build.SIGNATURES["ssd_scan"]}
     for name in ("mas_streamed_bf16_launch", "mas_streamed_fp32_launch",
                  "mas_resident_bf16_launch", "mas_resident_fp32_launch",
                  "flash_attention_bf16_launch",
@@ -473,13 +551,17 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
                  "decode_fp32_launch", "decode_int8_launch",
                  "paged_verify_bf16_launch", "paged_verify_fp32_launch",
                  "paged_verify_int8_launch", "paged_decode_bf16_launch",
-                 "paged_decode_fp32_launch", "paged_decode_int8_launch"):
+                 "paged_decode_fp32_launch", "paged_decode_int8_launch",
+                 "ssd_intra_chunk_bf16_launch",
+                 "ssd_intra_chunk_fp32_launch"):
         assert name in sigs
+    assert "ssd_intra_chunk_launch" not in sigs
     # ... with no try to fall back from ...
-    for module in (tmas, tflash, ppre, tdec, ppver, ppdec):
+    for module in (tmas, tflash, ppre, tdec, ppver, ppdec, tssd):
         tree = ast.parse(Path(module.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
-    # ... and the CUDA-core forms of B1, B2, B3 and B5 exist only in fp32
+    # ... and the CUDA-core forms of B1, B2, B3, B5 and B8 exist only in
+    # fp32
     csrc = PORT / "kernels" / "csrc"
     mas_cu = (csrc / "mas_attention.cu").read_text()
     flash_cu = (csrc / "flash_attention.cu").read_text()
@@ -494,6 +576,15 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     assert "launch<float, int8_t>" in ppre_cu
     assert "paged_prefill_kernel<__nv_bfloat16" not in ppre_cu
     assert "launch<__nv_bfloat16," not in ppre_cu
+    ssd_cu = (csrc / "ssd_scan.cu").read_text()
+    assert "launch<float>" in ssd_cu and "ssd_chunk_kernel<T>" in ssd_cu
+    assert "ssd_chunk_kernel<__nv_bfloat16>" not in ssd_cu
+    assert "launch<__nv_bfloat16>" not in ssd_cu
+    assert "Unpack<__nv_bfloat16>" not in ssd_cu
+    bf16_launch = ssd_cu[ssd_cu.index("ssd_intra_chunk_bf16_launch("):]
+    bf16_launch = bf16_launch[:bf16_launch.index("\n}\n")]
+    assert "ssd_chunk_bf16_kernel<<<" in bf16_launch
+    assert "launch<" not in bf16_launch
     # ... and of B4, B6 and B7 for an fp32 q only, on fp32 and int8
     # caches: a bf16 q, on bf16 or int8 caches, never reaches them. Each
     # int8 entry point sends a bf16 q (dtype code 1) to the tensor-core
