@@ -69,15 +69,34 @@ Phases, each printing one JSON line:
 7. int8 continuous — the same 16 requests on int8 pools (half the bytes
    of the bf16 pools), two first-token logits held to the bf16 pools',
    and a faulted rerun under the auditor;
-8. speculative — 16 requests with ``spec_depth=4`` whose prompts repeat
+8. shared prefix — the continuous engine with ``prefix_cache=True`` at
+   the same settings: 16 requests of 32 new tokens, all at once, a
+   publisher (a 2008-token shared system prompt and 992 tokens of its
+   own), two prompts resident whole in its pages (2500 tokens, ending
+   mid-page, and 2400, on a page boundary: each must be admitted by a
+   copy-on-write page copy and decode at once), eleven that share the
+   system prompt and add 16-1500 tokens (each must map at least 2000
+   tokens from cache and prefill from q_offset 2000) and two cold ones;
+   the peak pages must fall below the same requests' with the cache off,
+   and every hit's first-token logits, caught on the device as the engine
+   draws the token, lie within the continuous phase's limit of the cold
+   serve's; then under the exhaustion burst with a pool auditor (a
+   preemption, no failure, a drained pool holding retained prefixes
+   only), on int8 pools (the hits' first-token logits, the copied scales
+   among their inputs, held to the bf16 cold serve's as in phase 7), and
+   at full width with 2 layers in fp32, where prefix on, off and under a
+   burst emit the same greedy tokens. It prints TTFT from admission for
+   hits and misses, tokens/s, ``prefix_stats``, peak pages and peak
+   memory with the cache on and off;
+9. speculative — 16 requests with ``spec_depth=4`` whose prompts repeat
    one random 64-token span to the continuous phase's lengths, on bf16
    and on int8 pools, each beside the plain serve of the same prompts:
    acceptance, tokens a verify step, verify step time, tokens/s, B7
    launches;
-9. fp32 speculative parity — at full width with 2 layers in fp32,
+10. fp32 speculative parity — at full width with 2 layers in fp32,
    speculative tokens equal plain continuous tokens on fp32 pools, on
    int8 pools and under an exhaustion burst;
-10. ssm wave — full-width mamba2-130m (random weights from a seed)
+11. ssm wave — full-width mamba2-130m (random weights from a seed)
    served by ``ServingEngine`` in three waves, 4 x 2048, 1 x 32768 and
    4 x 1000 (a ragged tail padded to a whole chunk), 16 new tokens each:
    24 B8 launches a wave, TTFT, tokens/s, decode step time and peak
@@ -94,7 +113,8 @@ Phases, each printing one JSON line:
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails unless its kernels launched.
 The last three lines are the kernel table (B1-B8 and the int8 branches of
-B4-B7, each with the launches of its own path), the card's name and power
+B4-B7, each with the launches of its own paths: B5's and B6's rows add the
+shared-prefix phase's to the continuous phase's), the card's name and power
 limit, and the result. TF32 is switched off for matrix products and
 convolutions so fp32 comparisons see fp32 arithmetic. The script exits
 non-zero, printing no result, when there is no CUDA device or no port
@@ -138,6 +158,19 @@ CONT_NEW_TOKENS = 32
 PROMPT_LENS = (32, 3500)            # drawn from default_rng(0), inclusive
 BURST = frozenset({40, 41, 42, 43})  # appends that report exhaustion
 FP32_LAYERS = 2
+# Shared-prefix traffic, all at once with CONT_NEW_TOKENS each, in this
+# order: a publisher (the shared system prompt, then its own tokens), two
+# prompts resident whole in the publisher's pages (full hits: one ending
+# mid-page, one on a page boundary), requests that share the system prompt
+# and add suffixes (partial hits: 125 pages map, the prompt's last 8 shared
+# tokens and the suffix prefill again from q_offset 2000), cold prompts.
+PREFIX_SHARED = 2008
+PREFIX_PUBLISHER = 3000
+PREFIX_FULL_HITS = (2500, 2400)
+PREFIX_SUFFIX_REQUESTS = 11
+PREFIX_SUFFIX_LENS = (16, 1500)     # drawn from default_rng(5), inclusive
+PREFIX_COLD_REQUESTS = 2
+PREFIX_FP32_BURST = frozenset({5, 6, 7})
 FP32_REQUESTS = 6
 FP32_NEW_TOKENS = 16
 FP32_PROMPT_MAX = 1500     # several 512-token chunks, three kernel routes
@@ -166,19 +199,22 @@ PATH_KERNELS = {
     "int8_wave": ("mas_streamed", "decode_int8"),
     "continuous": ("paged_prefill", "paged_decode"),
     "int8_continuous": ("paged_prefill_int8", "paged_decode_int8"),
+    "shared_prefix": ("paged_prefill", "paged_decode"),
+    "shared_prefix_int8": ("paged_prefill_int8", "paged_decode_int8"),
     "speculative": ("paged_verify", "paged_prefill"),
     "speculative_int8": ("paged_verify_int8", "paged_prefill_int8"),
     "ssm_wave": ("ssd_intra_chunk",),
 }
-ROW_PATH = {"mas_resident": "waves", "mas_streamed": "waves",
-            "flash": "waves", "decode": "waves",
-            "decode_int8": "int8_wave", "paged_decode": "continuous",
-            "paged_prefill": "continuous",
-            "paged_decode_int8": "int8_continuous",
-            "paged_prefill_int8": "int8_continuous",
-            "paged_verify": "speculative",
-            "paged_verify_int8": "speculative_int8",
-            "ssd_intra_chunk": "ssm_wave"}
+ROW_PATH = {"mas_resident": ("waves",), "mas_streamed": ("waves",),
+            "flash": ("waves",), "decode": ("waves",),
+            "decode_int8": ("int8_wave",),
+            "paged_decode": ("continuous", "shared_prefix"),
+            "paged_prefill": ("continuous", "shared_prefix"),
+            "paged_decode_int8": ("int8_continuous", "shared_prefix_int8"),
+            "paged_prefill_int8": ("int8_continuous", "shared_prefix_int8"),
+            "paged_verify": ("speculative",),
+            "paged_verify_int8": ("speculative_int8",),
+            "ssd_intra_chunk": ("ssm_wave",)}
 
 # bf16 kernels against their plain versions: both sum in fp32 and round
 # once to bf16, so a row differs by at most about one bf16 rounding
@@ -1870,6 +1906,272 @@ def phase_int8_continuous(torch, full: dict) -> dict:
     return report
 
 
+def shared_prefix_prompts(vocab: int) -> list:
+    """The shared-prefix phase's 16 prompts (PREFIX_* above), from
+    ``default_rng(5)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+
+    def draw(n):
+        return rng.integers(3, vocab, size=(int(n),)).astype(np.int32)
+
+    shared = draw(PREFIX_SHARED)
+    publisher = np.concatenate([shared,
+                                draw(PREFIX_PUBLISHER - PREFIX_SHARED)])
+    suffixes = rng.integers(PREFIX_SUFFIX_LENS[0], PREFIX_SUFFIX_LENS[1] + 1,
+                            size=PREFIX_SUFFIX_REQUESTS)
+    colds = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                         size=PREFIX_COLD_REQUESTS)
+    return ([publisher] + [publisher[:n] for n in PREFIX_FULL_HITS]
+            + [np.concatenate([shared, draw(n)]) for n in suffixes]
+            + [draw(n) for n in colds])
+
+
+def watch_first_logits(model, eng, prompts: dict, full_hits=()):
+    """Keep, on the device, the logits each request of ``prompts`` (rid ->
+    prompt) draws its first token from while ``eng`` serves it: the row of
+    the chunk step whose chunk ends the prompt, or, for a rid of
+    ``full_hits`` (a prompt resident whole), the decode row that feeds the
+    prompt's last token at position len - 1. Wraps the engine's step, to
+    read its host array, and the model's ``prefill_chunk`` and
+    ``paged_decode_step``, which the engine calls; adds no device-to-host
+    copy. Returns rid -> (V,) fp32 logits, filled as the engine serves."""
+    import numpy as np
+
+    B, MP, CS = eng.batch_size, eng.max_pages, eng.chunk_size
+    by_len, full_by_len = {}, {}
+    for rid, p in prompts.items():
+        by_len.setdefault(len(p), []).append((rid, p))
+        if rid in full_hits:
+            full_by_len.setdefault(len(p), []).append((rid, p))
+    got, now = {}, {}
+    step = eng._step
+
+    def watched_step(cache, host, decode, prefill):
+        now["host"], now["decode"], now["prefill"] = host, decode, prefill
+        return step(cache, host, decode, prefill)
+
+    def chunk(*args):
+        logits, cache = model.prefill_chunk(*args)
+        host = now["host"]
+        q0, kv_len = int(host[-3]), int(host[-2])
+        off = 2 * B + B * MP if now["decode"] else 0
+        toks = host[off:off + kv_len - q0]
+        for rid, p in by_len.get(kv_len, ()):
+            if rid not in got and np.array_equal(toks, p[q0:]):
+                got[rid] = logits[0].float().clone()
+        return logits, cache
+
+    def decode_step(*args):
+        logits, cache = model.paged_decode_step(*args)
+        host = now["host"]
+        for s in range(B):
+            for rid, p in full_by_len.get(int(host[B + s]) + 1, ()):
+                if rid not in got and int(host[s]) == int(p[-1]):
+                    got[rid] = logits[s, -1].float().clone()
+        return logits, cache
+
+    eng.model = dataclasses.replace(model, prefill_chunk=chunk,
+                                    paged_decode_step=decode_step)
+    eng._step = watched_step
+    return got
+
+
+def logits_vs(got: dict, want: dict, rids, rtol: float) -> list:
+    """Each rid's first-token logits against ``want``'s, within ``rtol`` of
+    the largest logit of ``want`` (at least 1)."""
+    rows = []
+    for rid in rids:
+        require(rid in got and rid in want, f"rid {rid}: no first-token "
+                                            f"logits captured")
+        g, w = got[rid], want[rid]
+        require(bool(g.isfinite().all()), f"rid {rid}: logits not finite")
+        scale = float(w.abs().max())
+        err = max_err(g, w)
+        rows.append({"rid": rid, "max_abs_err": err, "max_abs_logit": scale,
+                     "tol": rtol * max(1.0, scale),
+                     "argmax_equal": int(g.argmax()) == int(w.argmax())})
+        require(err <= rtol * max(1.0, scale),
+                f"rid {rid} first-token logits: {err} vs the cold serve")
+    return rows
+
+
+def prefix_summary(eng, reqs, out, wall: float) -> dict:
+    """TTFT from admission (the first token's stamp minus the admission
+    stamp, so the queue wait both groups pay cancels), split by whether
+    the admission mapped a resident prefix; tokens/s, ``prefix_stats``
+    and the pool's peak pages."""
+    admits = eng.metrics.series("admit_walltime_s").by_key
+    stamps = eng.token_walltimes
+    hit, miss = [], []
+    for r in reqs:
+        ttft = stamps[r.rid][0] - admits[r.rid][0]
+        (hit if eng.results[r.rid].prefix_hit_tokens else miss).append(ttft)
+    tokens = sum(len(out[r.rid]) for r in reqs)
+    return {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "ttft_from_admission_s": {
+                "hit": percentiles(hit) if hit else None,
+                "miss": percentiles(miss) if miss else None},
+            "prefix_stats": eng.prefix_stats,
+            "peak_pages": eng._mgr.peak_pages_used}
+
+
+def phase_shared_prefix(torch, full: dict) -> dict:
+    """Shared-prefix traffic (PREFIX_* above) through the continuous
+    engine with ``prefix_cache=True`` at the continuous phase's settings,
+    beside the same requests with the cache off; then under the exhaustion
+    burst with a pool auditor, on int8 pools, and at FP32_LAYERS layers in
+    fp32 (prefix on, off and under a burst: identical greedy tokens)."""
+    import numpy as np
+
+    from repro_torch.serving import (
+        ContinuousBatchingEngine,
+        PoolAuditor,
+        RequestState,
+        ScriptedFaults,
+    )
+
+    model, params = full["model"], full["params"]
+    cfg = model.cfg
+    prompts = shared_prefix_prompts(cfg.vocab_size)
+    n_full = len(PREFIX_FULL_HITS)
+    full_rids = list(range(1, 1 + n_full))
+    suffix_rids = list(range(1 + n_full, 1 + n_full + PREFIX_SUFFIX_REQUESTS))
+    hit_rids = full_rids + suffix_rids
+    by_rid = dict(enumerate(prompts))
+
+    def engine(m=model, p=params, **kw):
+        return ContinuousBatchingEngine(m, p, device="cuda",
+                                        **dict(CONT, **kw))
+
+    def served(eng, reqs, out, new=CONT_NEW_TOKENS):
+        check_served(eng, reqs, out, new, cfg.vocab_size)
+
+    # prefix cache on, then off: the same requests, first-token logits kept
+    on = engine(prefix_cache=True)
+    on_logits = watch_first_logits(model, on, by_rid, full_rids)
+    reqs = make_requests(prompts, CONT_NEW_TOKENS)
+    out, wall, counts, peak = serve_path(torch, on, reqs, "shared_prefix")
+    served(on, reqs, out)
+    summary = prefix_summary(on, reqs, out, wall)
+    st = on.prefix_stats
+    for rid, n in zip(full_rids, PREFIX_FULL_HITS):
+        require(on.results[rid].prefix_hit_tokens == n,
+                f"rid {rid}: {on.results[rid].prefix_hit_tokens} of its {n} "
+                f"prompt tokens from cache: not a full hit")
+    require(st["cow_copies"] >= n_full,
+            f"{st['cow_copies']} copy-on-write copies for {n_full} full hits")
+    hit_tokens = [on.results[rid].prefix_hit_tokens for rid in by_rid]
+    num_pages = on.num_pages
+    shared_full = PREFIX_SHARED // CONT["page_size"] * CONT["page_size"]
+    short = [rid for rid in suffix_rids
+             if on.results[rid].prefix_hit_tokens < shared_full]
+    require(not short, f"suffix requests mapped fewer than {shared_full} "
+                       f"tokens: {short}")
+    off = engine()
+    off_logits = watch_first_logits(model, off, by_rid)
+    reqs_off = make_requests(prompts, CONT_NEW_TOKENS)
+    out_off, wall_off, counts_off, peak_off = serve_path(
+        torch, off, reqs_off, "continuous")
+    served(off, reqs_off, out_off)
+    summary_off = prefix_summary(off, reqs_off, out_off, wall_off)
+    require(summary["peak_pages"] < summary_off["peak_pages"],
+            f"peak pages {summary['peak_pages']} with the prefix cache, "
+            f"{summary_off['peak_pages']} without")
+    first_logits = logits_vs(on_logits, off_logits, hit_rids, LOGITS_RTOL)
+    del on, off
+
+    # the same requests on a hot pool, under the exhaustion burst; the
+    # auditor's final_check (inside serve) allows retained prefixes only
+    hot = engine(prefix_cache=True, decode_reserve_frac=0.5)
+    auditor = PoolAuditor()
+    hot.injector = ScriptedFaults(exhaust_at_appends=BURST)
+    hot.auditor = auditor
+    breqs = make_requests(prompts, CONT_NEW_TOKENS)
+    t0 = time.perf_counter()
+    bout = hot.serve(breqs)
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    failed = sum(r.state is RequestState.FAILED for r in hot.results.values())
+    served(hot, breqs, bout)
+    require(hot.preemption_count >= 1, "the burst preempted nothing")
+    require(failed == 0, f"{failed} requests failed under the burst")
+    burst = {"decode_reserve_frac": 0.5, "burst_appends": sorted(BURST),
+             "preemptions": hot.preemption_count,
+             "recompute_tokens": hot.recompute_tokens, "failed": failed,
+             "steps_audited": auditor.steps_checked,
+             "retained_prefix_pages": len(hot._mgr.cached_pages()),
+             "reserve_pages": hot._mgr.reserve_pages,
+             "prefix_stats": hot.prefix_stats, "wall_s": bwall,
+             "tokens_agreeing": agreement(bout, out)}
+    del hot
+
+    # int8 pools: the hits' first-token logits (the copied page's scales
+    # among their inputs) against the bf16 cold serve's, as the int8
+    # continuous phase holds its own
+    q8 = engine(prefix_cache=True, kv_dtype="int8")
+    q8_logits = watch_first_logits(model, q8, by_rid, full_rids)
+    qreqs = make_requests(prompts, CONT_NEW_TOKENS)
+    qout, qwall, qcounts, qpeak = serve_path(torch, q8, qreqs,
+                                             "shared_prefix_int8")
+    served(q8, qreqs, qout)
+    for name in ("paged_prefill", "paged_decode"):
+        require(qcounts[name] == 0, f"int8 pools ran the bf16 {name}")
+    require(q8.prefix_stats["cow_copies"] >= n_full,
+            "int8: the full hits made no copy")
+    int8 = {**prefix_summary(q8, qreqs, qout, qwall),
+            "peak_mem_bytes": qpeak, "launches": qcounts,
+            "tokens_agreeing_with_bf16": agreement(qout, out),
+            "first_token_vs_bf16_cold": logits_vs(
+                q8_logits, off_logits, hit_rids, INT8_LOGITS_RTOL)}
+    del q8, on_logits, off_logits, q8_logits
+    torch.cuda.empty_cache()
+
+    # fp32 at full width, FP32_LAYERS layers: prefix on, off and under a
+    # burst give the same greedy tokens
+    _, m32, p32 = fp32_model(torch, cfg)
+    runs, stats32 = {}, {}
+    for name, kw in (("prefix_on", dict(prefix_cache=True)),
+                     ("prefix_off", {}),
+                     ("prefix_on_burst", dict(prefix_cache=True,
+                                              decode_reserve_frac=0.5))):
+        eng = engine(m32, p32, **kw)
+        if name == "prefix_on_burst":
+            eng.injector = ScriptedFaults(exhaust_at_appends=PREFIX_FP32_BURST)
+            eng.auditor = PoolAuditor()
+        runs[name] = eng.serve(make_requests(prompts, FP32_NEW_TOKENS))
+        stats32[name] = {**eng.prefix_stats,
+                         "preemptions": eng.preemption_count}
+        del eng
+    require(stats32["prefix_on_burst"]["preemptions"] >= 1,
+            "the fp32 burst preempted nothing")
+    ref = runs["prefix_off"]
+    mismatch = {name: [rid for rid in ref
+                       if not np.array_equal(run[rid], ref[rid])]
+                for name, run in runs.items()}
+    report = {
+        "phase": "shared_prefix", "arch": ARCH, "layers": cfg.num_layers,
+        "dtype": "bf16", **CONT, "num_pages": num_pages,
+        "requests": len(prompts), "new_tokens": CONT_NEW_TOKENS,
+        "prompt_lens": [len(p) for p in prompts],
+        "shared_tokens": PREFIX_SHARED, "full_hit_rids": full_rids,
+        "suffix_rids": suffix_rids, "prefix_hit_tokens": hit_tokens,
+        **summary, "peak_mem_bytes": peak, "launches": counts,
+        "prefix_off": {**summary_off, "peak_mem_bytes": peak_off,
+                       "launches": counts_off},
+        "tokens_agreeing_with_prefix_off": agreement(out, out_off),
+        "first_token_vs_cold": first_logits, "burst": burst, "int8": int8,
+        "fp32_parity": {"layers": FP32_LAYERS, "new_tokens": FP32_NEW_TOKENS,
+                        "burst_appends": sorted(PREFIX_FP32_BURST),
+                        "stats": stats32, "mismatched_rids": mismatch},
+    }
+    emit(report)
+    for name, rids in mismatch.items():
+        require(not rids, f"fp32 {name}: tokens differ for rids {rids}")
+    return report
+
+
 def spec_summary(eng, reqs, out) -> dict:
     """Acceptance and the tokens a verify step emits. Every token after a
     request's first comes from a decode-carrying step; a step with a
@@ -2219,6 +2521,9 @@ def main() -> int:
     launches["continuous"] = phase_continuous(torch, full)["launches"]
     launches["int8_continuous"] = phase_int8_continuous(torch,
                                                         full)["launches"]
+    report = phase_shared_prefix(torch, full)
+    launches["shared_prefix"] = report["launches"]
+    launches["shared_prefix_int8"] = report["int8"]["launches"]
     phase_speculative(torch, full)
     launches["speculative"] = full["speculative"]
     launches["speculative_int8"] = full["speculative_int8"]
@@ -2227,7 +2532,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["ssm_wave"] = phase_ssm_wave(torch)["launches"]
     for row in rows:
-        row["launches"] = launches[ROW_PATH[row["name"]]][row["name"]]
+        row["launches"] = sum(launches[path][row["name"]]
+                              for path in ROW_PATH[row["name"]])
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 """Trace the serving paths of the PyTorch port on one GPU.
 
 Serves full-width internlm2-1.8b (bf16, random weights from seed 0) on
-six paths and full-width mamba2-130m on one more, each once to warm up,
+seven paths and full-width mamba2-130m on one more, each once to warm up,
 once untraced and once under ``torch.profiler``, and prints one JSON
 line a path:
 
@@ -17,6 +17,15 @@ line a path:
   phase (prompts that repeat one random 64-token span, seed 2), served
   with ``spec_depth=4``: B7 on its verify steps;
 * ``speculative_int8``: the same on int8 pools: B7's int8 form;
+* ``shared_prefix``: ``chip_smoke.py``'s shared-prefix traffic (its
+  ``shared_prefix_prompts``: a publisher, two prompts resident whole in
+  its pages, eleven that share its 2008-token system prompt, two cold;
+  32 new tokens each) served with ``prefix_cache=True`` and again with
+  the cache off, one line each (``prefix_cache``): B5 on the chunks,
+  which resume at q_offset 2000 for the suffix requests, B6 on the
+  decode steps, among them the full hits' first tokens over their
+  copied pages; each line adds ``b5``/``b6`` (launches and device ms)
+  and the serve's ``prefix_stats``;
 * ``wave``: ``chip_smoke.py``'s 4 x 2048 wave through ``ServingEngine``
   (16 new tokens): B2 on the prefill, B4 on the decode steps;
 * ``int8_wave``: the same wave on an int8 cache (``kv_dtype="int8"``):
@@ -64,13 +73,14 @@ SPEC_DEPTH, SPEC_SPAN = 4, 64
 WAVE, WAVE_NEW_TOKENS, WAVE_MAX_LEN = (4, 2048), 16, 8256
 SSM_ARCH, SSM_WAVE = "mamba2-130m", (4, 2048)
 PATHS = ("continuous", "int8_continuous", "speculative", "speculative_int8",
-         "wave", "int8_wave", "ssm_wave")
+         "shared_prefix", "wave", "int8_wave", "ssm_wave")
 DENSE = PATHS[:-1]
 B8 = "B8 ssd_intra_chunk"
+B5, B6 = "B5 paged_prefill", "B6 paged_decode"
 # kernel name fragments -> group, first match wins
-GROUPS = (("paged_prefill", "B5 paged_prefill"),
+GROUPS = (("paged_prefill", B5),
           ("paged_verify", "B7 paged_verify"),
-          ("paged_decode", "B6 paged_decode"),
+          ("paged_decode", B6),
           ("paged_split", "paged_split (CUDA-core B6 and B7 forms)"),
           ("split_combine", "split_combine (merge of the CUDA-core forms)"),
           ("decode_bf16", "B4 decode"), ("decode_split", "B4 decode"),
@@ -284,6 +294,28 @@ def trace_dense(torch, np, paths, get_arch, build_model,
                           **summary(torch, *out)}), flush=True)
         del eng
         torch.cuda.empty_cache()
+
+    if "shared_prefix" in paths:
+        sys.path.insert(0, str(REPO))
+        from chip_smoke import shared_prefix_prompts
+
+        shared = shared_prefix_prompts(cfg.vocab_size)
+        for prefix_cache in (True, False):
+            eng = ContinuousBatchingEngine(model, params, device="cuda",
+                                           prefix_cache=prefix_cache, **CONT)
+            eng._step = marked(torch, eng._step, paged_kind)
+            out = traced(torch,
+                         lambda: eng.serve(requests(shared, NEW_TOKENS)))
+            line = {"path": "shared_prefix", **header,
+                    "requests": len(shared), "kv_dtype": "bf16",
+                    "prefix_cache": prefix_cache, **summary(torch, *out),
+                    "prefix_stats": eng.prefix_stats,
+                    "peak_pages": eng._mgr.peak_pages_used}
+            groups = line["device_ms_by_group"]
+            line["b5"], line["b6"] = groups.get(B5), groups.get(B6)
+            print(json.dumps(line), flush=True)
+            del eng
+            torch.cuda.empty_cache()
 
     batch, n = WAVE
     wave = [rng.integers(3, cfg.vocab_size, size=(n,)).astype(np.int32)

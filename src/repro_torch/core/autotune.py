@@ -1,8 +1,9 @@
 """Analytical serving defaults for the paged continuous-batching engine.
 
-Port of ``tune_prefill_chunk``, ``tune_pool_headroom`` and
-``tune_spec_depth`` from ``repro/core/autotune.py``; nothing else of that
-module is ported. The step models keep the reference's max-of-streams
+Port of ``tune_prefill_chunk``, ``tune_pool_headroom``,
+``tune_spec_depth`` and ``tune_cache_reserve`` from
+``repro/core/autotune.py``; nothing else of that module is ported. The
+step models keep the reference's max-of-streams
 form (matrix products, device-memory traffic and elementwise softmax
 work overlap, the slowest sets the step) and are restated with the
 published peaks of an H100 SXM instead of the TPU's.
@@ -120,3 +121,44 @@ def tune_pool_headroom(*, num_slots: int, chunk_pages: int,
         return 0
     inflight = max(1, math.ceil(preempt_rate * num_slots))
     return inflight * max(1, chunk_pages)
+
+
+@functools.lru_cache(maxsize=1024)
+def tune_cache_reserve(*, pool_pages: int, page: int, slots: int,
+                       pages_per_seq: int, prefix_tokens: int,
+                       hit_rate: float) -> float:
+    """Analytical default for the pool split between live decode and
+    the shared-prefix cache (DESIGN.md §10) — the fraction of pages the
+    prefix index may keep pinned once its publishers drain.
+
+    Retaining the shared prefix costs live capacity: the pool serves
+    ``(pool - reserve) / pages_per_seq`` concurrent sequences instead
+    of ``pool / pages_per_seq``, scaling decode throughput by roughly
+    the same ratio. It buys every cache-hit admission its prefix
+    prefill back: at ``hit_rate`` the expected per-request saving is
+    ``hit_rate * prefix_tokens / prompt_tokens`` of the prefill work.
+    Admission overlaps decode (the chunked scheduler packs one chunk
+    per step), so the reserve pays iff the prefill-work saving exceeds
+    the capacity loss:
+
+        hit_rate * (prefix_pages / pages_per_seq)            [saving]
+            >  prefix_pages / (pool_pages)                   [capacity]
+
+    i.e. iff ``hit_rate * pool_pages > pages_per_seq``. When it pays,
+    reserve exactly the prefix's own pages (an interior point — more
+    buys nothing, the index holds one copy); otherwise 0.0. The
+    reference's simulator searches the same trade against the full
+    workload as its seventh tiling factor; this closed form is the
+    engine default when none is given.
+    """
+    if hit_rate <= 0 or prefix_tokens <= 0 or pool_pages <= 0:
+        return 0.0
+    prefix_pages = -(-prefix_tokens // page)
+    if prefix_pages >= pool_pages:
+        return 0.0  # the cache would starve live decode entirely
+    saving = hit_rate * prefix_pages / max(1, pages_per_seq)
+    capacity_cost = prefix_pages / pool_pages
+    if saving <= capacity_cost:
+        return 0.0
+    del slots  # capacity model is page-bound, not slot-bound
+    return prefix_pages / pool_pages

@@ -18,10 +18,13 @@ from repro_torch.serving.lifecycle import (
 )
 from repro_torch.serving.paged_cache import (
     SCRATCH_PAGE,
+    AdmitResult,
     PageAccountingError,
     PagedKVCacheManager,
     PagePoolExhausted,
     PoolConfigError,
+    PrefixMatch,
+    chain_key,
     page_footprint_bytes,
 )
 
@@ -32,5 +35,6 @@ __all__ = [
     "PoolAuditError", "LifecycleError", "Request", "RequestRecord",
     "RequestState", "TERMINAL_STATES", "validate_request", "SCRATCH_PAGE",
     "PagedKVCacheManager", "PagePoolExhausted", "PageAccountingError",
-    "PoolConfigError", "page_footprint_bytes",
+    "PoolConfigError", "page_footprint_bytes", "PrefixMatch", "AdmitResult",
+    "chain_key",
 ]

@@ -1,10 +1,9 @@
 """Serving engines: dense batched waves and paged continuous batching.
 
 Port of ``ServingEngine`` and ``ContinuousBatchingEngine`` from
-``repro/serving/engine.py`` (the latter without prefix sharing). Both
-take ``kv_dtype="int8"``: the wave engine then keeps a dense int8 cache
-with per-row scales, the continuous engine int8 page pools with per-page
-scales.
+``repro/serving/engine.py``. Both take ``kv_dtype="int8"``: the wave
+engine then keeps a dense int8 cache with per-row scales, the continuous
+engine int8 page pools with per-page scales.
 
 ``ServingEngine`` groups requests into buckets of equal prompt length,
 pads a wave of up to ``batch_size`` requests with dummy rows to a fixed
@@ -23,7 +22,9 @@ exhaustion mid-decode preempts the youngest live request, which re-queues
 and later re-prefills its prompt and generated tokens. With
 ``spec_depth`` set, pure-decode steps become speculative: a prompt-lookup
 drafter proposes candidates, one verify step scores them all, and each
-slot keeps its longest greedy-matching prefix plus one token.
+slot keeps its longest greedy-matching prefix plus one token. With
+``prefix_cache=True`` admission maps the pages of a resident prompt
+prefix, published by earlier requests, instead of prefilling them again.
 
 Each step of either engine moves ONE packed int32 tensor from the device
 to the host: the next tokens packed with the finite-logit guard's flags.
@@ -51,6 +52,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.autotune import (
+    tune_cache_reserve,
     tune_pool_headroom,
     tune_prefill_chunk,
     tune_spec_depth,
@@ -363,8 +365,16 @@ class ContinuousBatchingEngine:
     ``core/autotune.tune_spec_depth``. Steps that carry a prompt chunk
     decode one token as before.
 
-    ``prefix_cache=True`` (shared-prefix pages) is not ported yet and
-    raises ``NotImplementedError``.
+    ``prefix_cache=True`` shares the KV pages of prompt prefixes across
+    requests. Each prompt chunk's full pages are published to the
+    manager's index as they are written; admission maps the longest
+    resident prefix of the (resumed) prompt and chunked prefill resumes at
+    its first page not resident. A prompt resident whole never enters the
+    prefill stream: its divergence page is copied on the device and it
+    starts decoding at once, so several such requests may be admitted in
+    one step. ``cache_reserve_frac`` bounds the pool share the index may
+    keep once its publishers drain (``"auto"``:
+    ``core/autotune.tune_cache_reserve``).
     """
 
     def __init__(self, model: Model, params, *, max_len: int = 512,
@@ -375,9 +385,8 @@ class ContinuousBatchingEngine:
                  headroom_pages: int | None = None,
                  max_preemptions: int = 32, tracer=None,
                  spec_depth: int | str | None = None, spec_ngram: int = 3,
-                 prefix_cache: bool = False, device="cuda"):
-        if prefix_cache:
-            raise NotImplementedError("prefix sharing is not ported yet")
+                 prefix_cache: bool = False,
+                 cache_reserve_frac: float | str = "auto", device="cuda"):
         check_paged_support(model.cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -426,6 +435,18 @@ class ContinuousBatchingEngine:
         self.spec_depth = spec_depth
         self._drafter = (NgramDrafter(ngram=spec_ngram)
                          if spec_depth is not None else None)
+        # shared-prefix KV reuse; off by default, and then the cold path
+        # is the cacheless engine's
+        self.prefix_cache = bool(prefix_cache)
+        if cache_reserve_frac == "auto":
+            cache_reserve_frac = tune_cache_reserve(
+                pool_pages=num_pages - 1, page=page_size, slots=batch_size,
+                pages_per_seq=self.max_pages, prefix_tokens=max_len // 4,
+                hit_rate=0.5) if self.prefix_cache else 0.0
+        if not 0.0 <= float(cache_reserve_frac) <= 1.0:
+            raise ValueError(f"cache_reserve_frac must be in [0, 1], got "
+                             f"{cache_reserve_frac}")
+        self.cache_reserve_frac = float(cache_reserve_frac)
         self.peak_pages_used = 0  # across serve() calls
         # per-step scheduler log of the last serve() call: whether a
         # prompt chunk was packed and how many decode slots were live
@@ -448,6 +469,11 @@ class ContinuousBatchingEngine:
     # -- views onto the metrics registry --------------------------------
 
     @property
+    def occupancy_log(self) -> list:
+        """Pages in use per engine step of the last serve() call."""
+        return self.metrics.gauge("pool.pages_used").series
+
+    @property
     def token_walltimes(self) -> dict:
         """rid -> per-token wall-clock stamps, last serve() call."""
         return self.metrics.series("token_walltime_s").by_key
@@ -468,6 +494,25 @@ class ContinuousBatchingEngine:
         accepted = int(self.metrics.counter("spec.tokens_accepted").value)
         return {"drafted": drafted, "accepted": accepted,
                 "acceptance_rate": accepted / drafted if drafted else 0.0}
+
+    @property
+    def prefix_stats(self) -> dict:
+        """Shared prefixes in the last serve() call: hit and miss
+        admissions, prompt tokens served from cache, copy-on-write copies,
+        LRU evictions and pages deduplicated; zeros when the cache is
+        off."""
+        c = self.metrics.counter
+        hits = int(c("prefix.hits").value)
+        misses = int(c("prefix.misses").value)
+        return {
+            "hits": hits,
+            "misses": misses,
+            "hit_rate": hits / (hits + misses) if hits + misses else 0.0,
+            "hit_tokens": int(c("prefix.hit_tokens").value),
+            "cow_copies": int(c("prefix.cow_copies").value),
+            "evictions": int(c("prefix.evictions").value),
+            "pages_deduped": int(c("prefix.pages_deduped").value),
+        }
 
     def kv_bytes_per_page(self) -> int:
         """Bytes one page pins across the layer stack, scales included."""
@@ -531,10 +576,23 @@ class ContinuousBatchingEngine:
         return torch.cat([torch.argmax(flat, dim=-1).to(torch.int32),
                           _finite_rows(flat).to(torch.int32)])
 
+    @staticmethod
+    def _cow(cache, src: int, dst: int) -> None:
+        """Copy page ``src`` into page ``dst`` in every pool of ``cache``:
+        each layer's K and V and an int8 pool's per-page scales (the page
+        axis is axis 1 of each), one copy a tensor on the pools' device.
+        The copies are queued on the current stream, so they land before
+        the next step writes its first row into ``dst``."""
+        for blk in cache["layers"]:
+            for pool in blk.values():
+                pool[:, dst].copy_(pool[:, src])
+
     def serve(self, requests: list[Request]) -> dict[int, np.ndarray]:
         B, ps = self.batch_size, self.page_size
         mgr = PagedKVCacheManager(self.num_pages, ps, num_slots=B,
-                                  max_pages_per_seq=self.max_pages)
+                                  max_pages_per_seq=self.max_pages,
+                                  prefix_cache=self.prefix_cache,
+                                  cache_reserve_frac=self.cache_reserve_frac)
         self._mgr = mgr  # auditable by tests while serve() is live
         cache = self.model.make_cache(
             B, self.max_len, device=self.device, cache_layout="paged",
@@ -571,8 +629,37 @@ class ContinuousBatchingEngine:
                                "draft candidates matching greedy argmax")
         m_accept_rate = m.series("spec.acceptance_rate",
                                  "per-verify-step draft acceptance by rid")
+        # shared prefixes: the counters mirror the manager's own (synced by
+        # difference once a step, so a read during serve() is current) and
+        # the gauge tracks the index's resident pages beside occupancy
+        m_px_counters = [
+            (m.counter("prefix.hits", "admissions served a resident prefix"),
+             "prefix_hits"),
+            (m.counter("prefix.misses",
+                       "prefix-cache admissions with no resident prefix"),
+             "prefix_misses"),
+            (m.counter("prefix.hit_tokens",
+                       "prompt tokens satisfied from shared pages"),
+             "prefix_hit_tokens"),
+            (m.counter("prefix.cow_copies",
+                       "divergence pages copied on write"), "cow_copies"),
+            (m.counter("prefix.evictions",
+                       "cached prefix entries dropped (LRU / reserve cap)"),
+             "prefix_evictions"),
+            (m.counter("prefix.pages_deduped",
+                       "page allocations avoided by mapping shared pages"),
+             "pages_deduped"),
+        ]
+        m_px_resident = m.gauge("prefix.resident_cache_pages",
+                                "pages retained by the prefix index")
         m_admit = m.series("admit_walltime_s",
                            "admission wall-clock stamp by rid")
+
+        def sync_prefix_metrics() -> None:
+            for c, attr in m_px_counters:
+                d = getattr(mgr, attr) - int(c.value)
+                if d > 0:
+                    c.inc(d)
 
         spec_state: dict[int, dict] = {}  # rid -> {"ema", "k"}
         tr = self.tracer
@@ -801,7 +888,12 @@ class ContinuousBatchingEngine:
             """Admit the head-of-queue request into a free slot (FIFO,
             reservation-based, one prefill stream at a time). Preempted
             requests sit at the head and re-prefill prompt and generated
-            tokens; fresh admissions leave ``headroom_pages`` free."""
+            tokens; fresh admissions leave ``headroom_pages`` free. With the
+            prefix cache on, admission maps the longest resident prefix:
+            chunked prefill resumes at its first page not resident, and a
+            prompt resident whole skips the prefill stream (its divergence
+            page is copied on the device and the slot decodes at once), so
+            several such requests may be admitted in one call."""
             nonlocal pending
             while queue:
                 rec = queue[0]
@@ -817,30 +909,61 @@ class ContinuousBatchingEngine:
                     rec.remaining,
                     max(1, int(np.ceil(rec.remaining
                                        * self.decode_reserve_frac))))
-                need_total, need_new = mgr.admit_plan(plen, reserve)
+                match = (mgr.match_prefix(rprompt) if self.prefix_cache
+                         else None)
+                need_total, need_new = mgr.admit_plan(plen, reserve, match)
                 headroom = 0 if rec.resumed else max(
                     0, min(self.headroom_pages,
                            (self.num_pages - 1) - need_total))
                 free = [s for s in range(B) if s not in active]
+                # the gate draws only the pages not resident, from the free
+                # list and the cold cache other than this match's own
+                capacity = mgr.admit_capacity(match)
                 if (not free or need_total > mgr.max_pages_per_seq
-                        or need_new > mgr.available
-                        or mgr.available - need_new < headroom):
+                        or need_new > capacity
+                        or capacity - need_new < headroom):
                     return  # FIFO: wait for a slot or pages
                 if self.injector.admit_fault(step_idx, rec.rid):
                     return  # injected admission rejection: retry later
                 queue.popleft()
                 slot = free[0]
-                mgr.admit(slot, plen, reserve=reserve)
+                res = mgr.admit_prefix(slot, plen, reserve=reserve,
+                                       match=match)
                 if rec.admit_seq is None:
                     rec.admit_seq = next(admit_seq)
                 m_admit.observe(rec.rid, time.perf_counter())
+                rec.prefix_hit_tokens += res.prefix_tokens
                 if rec.resumed:
-                    rec.recompute_tokens += plen
-                    m_recompute.inc(plen)
+                    # only the tokens prefilled again are recompute: a
+                    # resident prefix (often the victim's own published
+                    # pages) shrinks the preemption's bill
+                    redo = plen - res.prefix_tokens
+                    rec.recompute_tokens += redo
+                    m_recompute.inc(redo)
                 rec.to(RequestState.PREFILLING)
                 self.peak_pages_used = max(self.peak_pages_used,
                                            mgr.peak_pages_used)
-                pending = [rec, slot, 0, rprompt]
+                if res.full_hit:
+                    # the whole prompt is resident: copy the divergence
+                    # page, then decode from plen - 1, feeding the last
+                    # prompt token again; that step emits the first token
+                    # from the logits the cold path reads off its last chunk
+                    src, dst = res.cow
+                    self._cow(cache, src, dst)
+                    if tracing:
+                        tr.instant("prefix_hit", track="engine",
+                                   args={"rid": rec.rid, "tokens": plen,
+                                         "cow_src": src, "cow_dst": dst})
+                    rec.to(RequestState.DECODING)
+                    active[slot] = rec
+                    tokens[slot, 0] = int(rprompt[-1])
+                    positions[slot] = plen - 1
+                    continue  # the prefill stream is still free
+                if tracing and res.prefix_tokens:
+                    tr.instant("prefix_hit", track="engine",
+                               args={"rid": rec.rid,
+                                     "tokens": res.prefix_tokens})
+                pending = [rec, slot, res.prefix_tokens, rprompt]
                 return
 
         stalls = 0
@@ -901,6 +1024,9 @@ class ContinuousBatchingEngine:
                 step_idx += 1
                 continue  # exhaustion preempted every live slot
             m_occ.record(mgr.pages_used)
+            if self.prefix_cache:
+                m_px_resident.record(len(mgr.cached_pages()))
+                sync_prefix_metrics()
             self.step_log.append({"prefill_in_flight": pending is not None,
                                   "live_decode": len(active)})
             kind = (("verify" if spec_plan is not None else "decode")
@@ -1000,6 +1126,10 @@ class ContinuousBatchingEngine:
                         tokens[slot_i, 0] = t
             if pending is not None:
                 q0 += clen
+                if self.prefix_cache:
+                    # publish the full prompt pages this chunk completed:
+                    # the next request sharing them maps them
+                    mgr.publish_prefix(slot, rprompt[:q0])
                 if q0 >= plen:  # prefill complete: the first token is out
                     if not ok_host[-1]:
                         rec.fail("non-finite logits")
@@ -1029,6 +1159,9 @@ class ContinuousBatchingEngine:
             step_idx += 1
         self.peak_pages_used = max(self.peak_pages_used,
                                    mgr.peak_pages_used)
+        if self.prefix_cache:
+            sync_prefix_metrics()
+            m_px_resident.set(len(mgr.cached_pages()))
         if self.auditor is not None:
             self.auditor.final_check(mgr)
         return {rid: np.array(rec.tokens, np.int32)

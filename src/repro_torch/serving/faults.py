@@ -1,9 +1,9 @@
 """Fault injection and pool auditing for the serving engines.
 
-Port of ``repro/serving/faults.py`` without the prefix-index checks. The
-engines consult a ``FaultInjector`` at their decision points (step
-start, page append, admission, the finite-logit flags of a step) through
-no-op hooks, so the default hot path pays one attribute lookup per site.
+Port of ``repro/serving/faults.py``. The engines consult a
+``FaultInjector`` at their decision points (step start, page append,
+admission, the finite-logit flags of a step) through no-op hooks, so the
+default hot path pays one attribute lookup per site.
 Two injectors place faults:
 
 * ``ScriptedFaults`` — exact placement: pool exhaustion at the k-th
@@ -14,10 +14,11 @@ Two injectors place faults:
   chaos run replays exactly from its seed.
 
 ``PoolAuditor`` re-derives the page accounting from scratch after every
-engine step (free list and per-slot mappings partition the pool, page
-refcounts equal the mappings, no duplicates, lengths within capacity,
-engine positions equal ``kv_lens``) and raises ``PoolAuditError`` on the
-first violation.
+engine step (the free list, the per-slot mappings and the prefix index
+partition the pool with a shared page counted once, page refcounts equal
+the references re-derived from the tables and the index, no duplicates,
+lengths within capacity, engine positions equal ``kv_lens``) and raises
+``PoolAuditError`` on the first violation.
 """
 
 from __future__ import annotations
@@ -138,10 +139,13 @@ class PoolAuditor:
               expected_lens: Mapping[int, int] | None = None) -> None:
         free = mgr.free_pages()
         owned = mgr.owned_pages()
+        cached = mgr.cached_pages()
         if len(set(free)) != len(free):
             dup = sorted(p for p in set(free) if free.count(p) > 1)
             raise PoolAuditError(f"free list holds duplicates: {dup}")
-        # every page's references, re-derived from the tables alone
+        # every page's references, re-derived from the tables and the
+        # index: once for each slot mapping it, once more if the index
+        # retains it
         derived: dict[int, int] = {}
         for slot, pages in owned.items():
             in_slot: set[int] = set()
@@ -154,7 +158,11 @@ class PoolAuditor:
                         f"page {p} mapped twice by slot {slot}")
                 in_slot.add(p)
                 derived[p] = derived.get(p, 0) + 1
-        used = set(derived)
+        for p in cached:
+            if p == SCRATCH_PAGE or not 0 < p < mgr.num_pages:
+                raise PoolAuditError(f"prefix index holds invalid page {p}")
+            derived[p] = derived.get(p, 0) + 1
+        used = set(derived)  # a shared page counts once in occupancy
         both = set(free) & used
         if both:
             raise PoolAuditError(
@@ -172,6 +180,7 @@ class PoolAuditor:
             raise PoolAuditError(
                 f"refcounts disagree with re-derived references "
                 f"(page: recorded, derived): {bad}")
+        mgr.prefix_integrity_check()
         lens = mgr.kv_lens()
         for slot, pages in owned.items():
             n = int(lens[slot])
@@ -203,12 +212,25 @@ class PoolAuditor:
         self.steps_checked += 1
 
     def final_check(self, mgr: PagedKVCacheManager) -> None:
-        """After serve() drains: no sequence may still hold pages and the
-        whole pool is back on the free list."""
+        """After serve() drains: no sequence may still hold pages, and what
+        is not on the free list must be exactly the retained prefixes, each
+        held by the index alone (refcount 1) and within the cache reserve.
+        With the prefix cache off, the whole pool is back on the free
+        list."""
         self.check(mgr)
         if mgr.owned_pages():
             raise PoolAuditError(
                 f"live sequences survived the drain: {mgr.owned_pages()}")
-        if mgr.pages_used:
+        cached = mgr.cached_pages()
+        if mgr.pages_used != len(cached):
             raise PoolAuditError(
-                f"{mgr.pages_used} pages leaked after drain")
+                f"{mgr.pages_used - len(cached)} pages leaked after drain "
+                f"beyond the {len(cached)} cached-prefix pages")
+        hot = {p: c for p, c in mgr.page_refs().items() if c != 1}
+        if hot:
+            raise PoolAuditError(
+                f"drained pool holds pages with refcount != 1: {hot}")
+        if mgr.prefix_cache and len(cached) > mgr.reserve_pages:
+            raise PoolAuditError(
+                f"index retains {len(cached)} pages > cache reserve "
+                f"{mgr.reserve_pages}")

@@ -381,15 +381,21 @@ def test_engine_trace_and_unported_options(pair):
         page_size=4, head_dim=cfg.hd, itemsize=1) == jax_page_footprint(
         num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
         page_size=4, head_dim=cfg.hd, kv_dtype="int8")
-    # speculative decoding is ported; prefix sharing is not
+    # speculative decoding and prefix sharing are ported
     assert ContinuousBatchingEngine(pair.tmodel, pair.tparams, spec_depth=2,
                                     device="cpu").spec_depth == 2
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(pair.tmodel, pair.tparams,
-                                 prefix_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PagedKVCacheManager(4, 4, num_slots=1, max_pages_per_seq=1,
-                            prefix_cache=True)
+    shared = ContinuousBatchingEngine(pair.tmodel, pair.tparams,
+                                      prefix_cache=True, device="cpu",
+                                      **ENGINE)
+    reqs = _requests(Request, pair.tcfg.vocab_size, SPEC[:2])
+    reqs[1].prompt = reqs[0].prompt[:4].copy()   # resident whole: a full hit
+    out = shared.serve(reqs)
+    assert all(len(out[r.rid]) == r.max_new_tokens for r in reqs)
+    assert shared.prefix_stats["cow_copies"] == 1
+    mgr = PagedKVCacheManager(4, 4, num_slots=1, max_pages_per_seq=1,
+                              prefix_cache=True)
+    mgr.admit_prefix(0, 4, match=mgr.match_prefix([5, 6, 7, 8]))
+    assert mgr.publish_prefix(0, [5, 6, 7, 8]) == 1
     with pytest.raises(PagePoolExhausted):
         PagedKVCacheManager(3, 4, num_slots=1, max_pages_per_seq=4).admit(
             0, 9)

@@ -24,7 +24,10 @@ lets through, so an absolute limit does not fit), at a full-width cell
 count, on a ragged tail, and against a planted zeroed X tile; its bf16
 form (tensor cores) also on short and ragged chunks with its launch path
 free of host syncs, and refusing a chunk past 256 rows; the wave engine
-serves the mamba2 smoke model on the card with the CPU's tokens.
+serves the mamba2 smoke model on the card with the CPU's tokens. The
+continuous engine with ``prefix_cache=True`` gives the CPU's tokens and
+``prefix_stats`` on fp32 and int8 pools, and its copy-on-write page copy
+reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -882,6 +885,78 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     for rid in on_cpu:
         np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
     assert counts["mas_resident"] > 0 and counts["decode"] > 0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_prefix_engine_on_the_card_matches_the_cpu(cuda, kv_dtype):
+    """``prefix_cache=True`` on the card: a full hit ending mid-page (its
+    copied page, int8 scales too, read by B6), one on a page boundary, a
+    partial hit resuming B5 at q_offset 32 and a cold prompt give the
+    CPU's tokens and ``prefix_stats``."""
+    cfg, model, cpu_params, gpu_params = _smoke_on_both(cuda)
+    gen = torch.Generator().manual_seed(4)   # norm scales: varied tokens
+    for c, g in [(cpu_params, gpu_params)] + [
+            (c[blk], g[blk]) for c, g in zip(cpu_params["layers"],
+                                             gpu_params["layers"])
+            for blk in c]:
+        for key in ("norm", "final_norm"):
+            if key in c:
+                c[key] = 2.0 * torch.randn(c[key].shape, generator=gen)
+                g[key] = c[key].to(cuda)
+    rng = np.random.default_rng(3)
+    p = rng.integers(3, cfg.vocab_size, size=(90,)).astype(np.int32)
+    suffix = rng.integers(3, cfg.vocab_size, size=(20,)).astype(np.int32)
+    prompts = [p, p[:75], p[:64], np.concatenate([p[:40], suffix]),
+               rng.integers(3, cfg.vocab_size, size=(30,)).astype(np.int32)]
+
+    def reqs():
+        return [Request(rid=i, prompt=q, max_new_tokens=6, eos_id=-1)
+                for i, q in enumerate(prompts)]
+
+    kw = dict(max_len=128, batch_size=2, page_size=16, chunk_size=32,
+              kv_dtype=kv_dtype, prefix_cache=True, cache_reserve_frac=0.5)
+    ops.reset_launch_counts()
+    eng = ContinuousBatchingEngine(model, gpu_params, device=cuda, **kw)
+    eng.auditor = PoolAuditor()
+    on_gpu = eng.serve(reqs())
+    counts = ops.launch_counts()
+    cpu = ContinuousBatchingEngine(model, cpu_params, device="cpu", **kw)
+    on_cpu = cpu.serve(reqs())
+    for rid in on_cpu:
+        np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
+    assert eng.prefix_stats == cpu.prefix_stats
+    assert eng.prefix_stats["cow_copies"] == 2
+    assert eng.results[3].prefix_hit_tokens == 32
+    branch = "_int8" if kv_dtype else ""
+    assert counts["paged_prefill" + branch] > 0
+    assert counts["paged_decode" + branch] > 0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_cow_copy_on_the_card_reads_nothing_back(cuda, kv_dtype):
+    """The copy-on-write page copy sets page dst from page src in every
+    pool tensor (scales included) and never waits for the device."""
+    cfg, model, _, _ = _smoke_on_both(cuda)
+    cache = model.make_cache(2, 64, device=cuda, cache_layout="paged",
+                             page_size=16, num_pages=9, kv_dtype=kv_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for blk in cache["layers"]:
+        for t in blk.values():
+            t.copy_(torch.randint(-100, 100, t.shape, generator=gen,
+                                  device=cuda).to(t.dtype))
+    before = [{k: t.clone() for k, t in blk.items()}
+              for blk in cache["layers"]]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ContinuousBatchingEngine._cow(cache, 3, 7)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    keep = [i for i in range(9) if i != 7]
+    for blk, old in zip(cache["layers"], before):
+        assert len(blk) == (4 if kv_dtype else 2)
+        for name, t in blk.items():
+            assert torch.equal(t[:, 7], old[name][:, 3]), name
+            assert torch.equal(t[:, keep], old[name][:, keep]), name
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
