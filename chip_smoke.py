@@ -96,7 +96,37 @@ Phases, each printing one JSON line:
 10. fp32 speculative parity — at full width with 2 layers in fp32,
    speculative tokens equal plain continuous tokens on fp32 pools, on
    int8 pools and under an exhaustion burst;
-11. ssm wave — full-width mamba2-130m (random weights from a seed)
+11. moe — full-width, full-depth deepseek-moe-16b (28 layers, 64
+   routed experts top-6 and 2 shared, capacity factor 1.25; bf16, random
+   weights from seed 0 with the experts' down projections scaled by 1/16,
+   since the MoE FFN takes the un-normalised residual and at the init's
+   scale the residual overflows bf16 within 28 layers; ~33.3 GB) served
+   by ``ServingEngine`` in waves of
+   4 x 256 (B1) and 4 x 2048 (B2), 16 new tokens each (B4 at GQA group
+   1), then by ``ContinuousBatchingEngine`` on the continuous phase's 16
+   requests at its settings (B5, B6); every launch count must rise. Off
+   the serves: each call kind's expert capacity and share of dropped
+   (token, k) assignments from ``moe_route`` on each layer's inputs (a
+   traced prefill and decode step a kind); on each wave's first prompt
+   every B1/B2 call of the prefill and B4 call of a decode step, and every
+   B5 call of one continuous request's chunks, held to the plain version
+   on the same inputs (rows within BF16_ROW_RTOL) beside a zeroed V tile
+   or page it must reject; the first-token logits held to the plain
+   route at LOGITS_RTOL only where no (token, layer) pair's top-k experts
+   differ between the routes, else recorded with that count; and at 2
+   layers in fp32, at a capacity no call can overflow, the continuous
+   engine on the kernels and on plain attention and the wave engine emit
+   the same greedy tokens. It prints TTFT, tokens/s, step times, peak
+   memory, ``init_s``, capacities and drop shares;
+12. dense archs — phi4-mini-3.8b (GQA group 3) in waves of 4 x 256 and
+   4 x 2048 and 8 continuous requests (B1, B2, B4, B5, B6), then
+   deepseek-coder-33b (group 7, untied embeddings, ~66.7 GB) in a 1 x
+   2048 wave (B2, B4), full width, each freed before the next; the 33B
+   runs at full depth where ``torch.cuda.mem_get_info()`` shows room for
+   its weights, its cache and 4 GiB, else at the depth that fits, stated
+   as ``reduced``; each wave's first-token logits within LOGITS_RTOL of
+   the plain route's;
+13. ssm wave — full-width mamba2-130m (random weights from a seed)
    served by ``ServingEngine`` in three waves, 4 x 2048, 1 x 32768 and
    4 x 1000 (a ragged tail padded to a whole chunk), 16 new tokens each:
    24 B8 launches a wave, TTFT, tokens/s, decode step time and peak
@@ -113,8 +143,9 @@ Phases, each printing one JSON line:
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails unless its kernels launched.
 The last three lines are the kernel table (B1-B8 and the int8 branches of
-B4-B7, each with the launches of its own paths: B5's and B6's rows add the
-shared-prefix phase's to the continuous phase's), the card's name and power
+B4-B7, each with the launches of its own paths: B1, B2 and B4 add the moe
+and dense-arch phases' to the waves', B5 and B6 the shared-prefix, moe and
+dense-arch phases' to the continuous phase's), the card's name and power
 limit, and the result. TF32 is switched off for matrix products and
 convolutions so fp32 comparisons see fp32 arithmetic. The script exits
 non-zero, printing no result, when there is no CUDA device or no port
@@ -192,6 +223,30 @@ SSM_WAVES = ((2048, 4), (32768, 1), (1000, 4))
 SSM_NEW_TOKENS = 16
 SSM_MAX_LEN = 32768 + SSM_NEW_TOKENS
 SSM_PARITY_WAVES = (0, 2)   # served again at fp32 by both routes
+# deepseek-moe-16b at full width and depth (64 routed experts top-6, 2
+# shared, capacity factor 1.25): waves at the two prompt lengths the
+# policy routes to B1 and B2 (GQA group 1), then the continuous phase's
+# traffic at its settings.
+MOE_ARCH = "deepseek-moe-16b"
+MOE_WAVES = (("mas_resident", 256, BATCH), ("mas_streamed", 2048, BATCH))
+MOE_MAX_LEN = 2048 + NEW_TOKENS
+# The MoE FFN takes the un-normalised residual stream (ROADMAP C11), so at
+# the init's scale its output grows as the square of its input: 28
+# random layers overflow bf16, and first tokens' logits come out
+# non-finite. Every expert's down projection (routed and shared) is
+# scaled by this, under which the 28 layers' logits stay finite (the
+# phase holds every request to finishing, which a non-finite first token
+# fails).
+MOE_DOWN_SCALE = 1 / 16
+# The dense archs left, full width: (arch, waves, continuous requests).
+# phi4-mini-3.8b runs GQA group 3; deepseek-coder-33b group 7 with untied
+# embeddings, ~66.7 GB of bf16 weights, its depth cut only where the card
+# cannot hold them, its cache and DENSE_HEADROOM.
+DENSE_ARCH_TRAFFIC = (
+    ("phi4-mini-3.8b", (("mas_resident", 256, BATCH),
+                        ("mas_streamed", 2048, BATCH)), 8),
+    ("deepseek-coder-33b", (("mas_streamed", 2048, 1),), 0))
+DENSE_HEADROOM = 4 << 30
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -204,12 +259,19 @@ PATH_KERNELS = {
     "speculative": ("paged_verify", "paged_prefill"),
     "speculative_int8": ("paged_verify_int8", "paged_prefill_int8"),
     "ssm_wave": ("ssd_intra_chunk",),
+    "moe": ("mas_resident", "mas_streamed", "decode", "paged_prefill",
+            "paged_decode"),
+    "dense_archs": ("mas_resident", "mas_streamed", "decode",
+                    "paged_prefill", "paged_decode"),
 }
-ROW_PATH = {"mas_resident": ("waves",), "mas_streamed": ("waves",),
-            "flash": ("waves",), "decode": ("waves",),
+ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs"),
+            "mas_streamed": ("waves", "moe", "dense_archs"),
+            "flash": ("waves",), "decode": ("waves", "moe", "dense_archs"),
             "decode_int8": ("int8_wave",),
-            "paged_decode": ("continuous", "shared_prefix"),
-            "paged_prefill": ("continuous", "shared_prefix"),
+            "paged_decode": ("continuous", "shared_prefix", "moe",
+                             "dense_archs"),
+            "paged_prefill": ("continuous", "shared_prefix", "moe",
+                              "dense_archs"),
             "paged_decode_int8": ("int8_continuous", "shared_prefix_int8"),
             "paged_prefill_int8": ("int8_continuous", "shared_prefix_int8"),
             "paged_verify": ("speculative",),
@@ -1092,24 +1154,33 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
     return rows
 
 
-def full_width_model(torch, arch: str = ARCH) -> dict:
-    """Full-width ``arch`` in bf16 with random weights from seed 0."""
+def tensors_of(tree) -> list:
+    """The tensors of a params tree (dicts and lists of tensors)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors_of(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tensors_of(v)]
+    return [tree]
+
+
+def full_width_model(torch, arch: str = ARCH, cfg=None) -> dict:
+    """Full-width ``arch`` (or ``cfg``) in bf16 with random weights from
+    seed 0."""
     from repro_torch.configs import get_arch
     from repro_torch.models.api import build_model
 
-    cfg = get_arch(arch)
+    cfg = cfg or get_arch(arch)
     require(cfg.attn_impl == "kernel", "the main path runs the kernels")
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tensors_of(params))
+    require(n_params == cfg.param_count(),
+            f"{cfg.name}: {n_params} parameters drawn, "
+            f"{cfg.param_count()} counted")
     return {"model": model, "params": params,
-            "init_s": time.perf_counter() - t0,
-            "n_params": sum(p.numel() for p in
-                            [params["embed"], params["final_norm"]]
-                            + [t for layer in params["layers"]
-                               for blk in layer.values()
-                               for t in blk.values()])}
+            "init_s": time.perf_counter() - t0, "n_params": n_params}
 
 
 def ssd_inputs(torch, gen, batch: int, heads: int, nc: int, q: int, p: int,
@@ -2300,6 +2371,43 @@ def phase_spec_parity(torch, full: dict) -> dict:
     return report
 
 
+def continuous_prompts(vocab: int) -> list:
+    """The continuous phase's CONT_REQUESTS prompts: lengths in
+    PROMPT_LENS, then tokens, drawn from default_rng(0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
+                         size=CONT_REQUESTS)
+    return [rng.integers(3, vocab, size=(int(n),)).astype(np.int32)
+            for n in plens]
+
+
+def chunked_prefill(torch, model, params, prompt):
+    """``prompt`` prefilled alone through ``prefill_chunk`` in the
+    continuous engine's chunks on a fresh paged cache, pages 1.. in
+    order; returns the last chunk's logits (the first token's)."""
+    page, chunk = CONT["page_size"], CONT["chunk_size"]
+    n = len(prompt)
+    cfg = model.cfg
+    cache = model.make_cache(1, n, device="cuda", cache_layout="paged",
+                             page_size=page)
+    n_pg = -(-n // page)
+    table = torch.arange(1, n_pg + 1, dtype=torch.int32, device="cuda")
+    for q0 in range(0, n, chunk):
+        clen = min(chunk, n - q0)
+        toks = torch.ones((1, chunk), dtype=torch.long, device="cuda")
+        toks[0, :clen] = torch.from_numpy(prompt[q0:q0 + clen]).cuda()
+        cpages = torch.tensor(
+            [j + 1 if j < n_pg else 0
+             for j in range(q0 // page, (q0 + chunk) // page)],
+            dtype=torch.int32, device="cuda")
+        logits, cache = model.prefill_chunk(params, cfg, toks, cache, table,
+                                            cpages,
+                                            chunk_span(torch, q0, clen))
+    return logits
+
+
 def percentiles(values) -> dict:
     import numpy as np
 
@@ -2326,11 +2434,8 @@ def phase_continuous(torch, full: dict) -> dict:
 
     model, params = full["model"], full["params"]
     cfg = model.cfg
-    rng = np.random.default_rng(0)
-    plens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
-                         size=CONT_REQUESTS)
-    prompts = [rng.integers(3, cfg.vocab_size, size=(int(n),))
-               .astype(np.int32) for n in plens]
+    prompts = continuous_prompts(cfg.vocab_size)
+    plens = [len(p) for p in prompts]
 
     def requests(ps=prompts, new=CONT_NEW_TOKENS) -> list:
         return make_requests(ps, new)
@@ -2369,27 +2474,11 @@ def phase_continuous(torch, full: dict) -> dict:
     # first-token logits: the kernel path's chunked prefill vs the plain
     # attention path's monolithic prefill, two requests
     plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
-    page, chunk = CONT["page_size"], CONT["chunk_size"]
     logits_check = []
     for rid in (0, 1):
         p = prompts[rid]
         n = len(p)
-        cache = model.make_cache(1, n, device="cuda", cache_layout="paged",
-                                 page_size=page)
-        n_pg = -(-n // page)
-        table = torch.arange(1, n_pg + 1, dtype=torch.int32, device="cuda")
-        for q0 in range(0, n, chunk):
-            clen = min(chunk, n - q0)
-            toks = torch.ones((1, chunk), dtype=torch.long, device="cuda")
-            toks[0, :clen] = torch.from_numpy(p[q0:q0 + clen]).cuda()
-            cpages = torch.tensor(
-                [j + 1 if j < n_pg else 0
-                 for j in range(q0 // page, (q0 + chunk) // page)],
-                dtype=torch.int32, device="cuda")
-            got, cache = model.prefill_chunk(params, cfg, toks, cache, table,
-                                             cpages,
-                                             chunk_span(torch, q0, clen))
-        del cache
+        got = chunked_prefill(torch, model, params, p)
         want, _ = plain_model.prefill(
             params, plain_model.cfg,
             torch.from_numpy(p[None].astype(np.int64)).cuda(), n)
@@ -2495,6 +2584,457 @@ def phase_continuous(torch, full: dict) -> dict:
     return report
 
 
+def moe_routes(run):
+    """``run()`` with every ``moe.moe_route`` call recorded: returns
+    (run's result, [Route of each call in order])."""
+    from repro_torch.models import moe
+
+    real, calls = moe.moe_route, []
+
+    def recorded(params, tokens, cfg):
+        calls.append(real(params, tokens, cfg))
+        return calls[-1]
+
+    moe.moe_route = recorded
+    try:
+        return run(), calls
+    finally:
+        moe.moe_route = real
+
+
+def bounded_moe(params) -> dict:
+    """``params`` with every expert's down projection scaled by
+    MOE_DOWN_SCALE in place (see there)."""
+    for layer in params["layers"]:
+        ffn = layer["ffn"]
+        for blk in (ffn, ffn.get("shared", {})):
+            if "w_down" in blk:
+                blk["w_down"].mul_(MOE_DOWN_SCALE)
+    return params
+
+
+def drop_summary(routes) -> dict:
+    """Rows, capacity and the share of (token, k) assignments dropped over
+    the calls of one kind (one call a layer)."""
+    dropped = sum(int((~r.keep).sum()) for r in routes)
+    total = sum(r.keep.numel() for r in routes)
+    return {"rows": int(routes[0].expert_ids.shape[0]),
+            "capacity": routes[0].capacity, "calls": len(routes),
+            "assignments": total, "dropped": dropped,
+            "dropped_share": dropped / total}
+
+
+def routing_differences(a, b) -> int:
+    """(token, layer) pairs whose top-k expert sets differ between two
+    runs' routes of the same tokens."""
+    return sum(int((ra.expert_ids.sort(-1).values
+                    != rb.expert_ids.sort(-1).values).any(-1).sum())
+               for ra, rb in zip(a, b, strict=True))
+
+
+def attention_gate(run):
+    """``run()`` (a kernel-route prefill, decode step or prompt chunk) with
+    every attention call of the model (``models/attention.py``: full
+    sequence, dense decode, paged prefill) held to the plain version on
+    the same inputs as it returns, beside its planted fault: the plain
+    version with V tile 0 (the paged form: the table's first page)
+    zeroed, which every row sees. Returns (run's result, {kernels
+    launched: calls, largest row error, smallest planted fault error,
+    limit})."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as am
+
+    def zero_first_page(args):
+        q, k_pages, v_pages, table, *rest = args
+        return (q, k_pages, drop_v_page(v_pages, int(table.reshape(-1)[0])),
+                table, *rest)
+
+    def zero_first_tile(args):
+        q, k, v, *rest = args
+        return (q, k, drop_v_tile(v, 0), *rest)
+
+    faults = {"attention": zero_first_tile,
+              "decode_attention": zero_first_tile,
+              "paged_prefill_attention": zero_first_page}
+    real = {name: getattr(am, name) for name in faults}
+    kernels, errs, fault_errs = {}, [], []
+
+    def watched(name):
+        fn = real[name]
+
+        def call(*args, **kw):
+            before = ops.launch_counts()
+            got = fn(*args, **kw)
+            after = ops.launch_counts()
+            for k in after:
+                kernels[k] = kernels.get(k, 0) + after[k] - before[k]
+            plain = dict(kw, impl="plain")
+            want = fn(*args, **plain)
+            errs.append(row_rel_err(got, want))
+            fault_errs.append(row_rel_err(fn(*faults[name](args), **plain),
+                                          want))
+            return got
+        return call
+
+    for name in faults:
+        setattr(am, name, watched(name))
+    try:
+        out = run()
+    finally:
+        for name, fn in real.items():
+            setattr(am, name, fn)
+    gate = {"kernels": {k: n for k, n in kernels.items() if n},
+            "calls": len(errs), "limit": BF16_ROW_RTOL,
+            "row_rel_err": max(errs), "fault_row_rel_err": min(fault_errs)}
+    require(gate["row_rel_err"] <= BF16_ROW_RTOL < gate["fault_row_rel_err"],
+            f"attention gate: {gate}")
+    return out, gate
+
+
+def prefill_vs_plain(got, want) -> dict:
+    """First-token logits of the kernel route against the plain route's,
+    with the dense limit (LOGITS_RTOL of the largest plain logit)."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    return {"finite": bool(got.isfinite().all()),
+            "max_abs_err": max_err(got, want), "max_abs_logit": scale,
+            "tol": LOGITS_RTOL * max(1.0, scale),
+            "argmax_equal": bool(got.argmax(-1).eq(want.argmax(-1)).all())}
+
+
+def serve_waves(torch, engines: dict, waves, prompts) -> list:
+    """Serve each wave ``(route, prompt length, batch)`` of ``prompts``
+    (one list a wave) through ``engines[batch]``; every request must
+    finish with NEW_TOKENS tokens and each wave launch its route's
+    kernel. Returns one summary a wave."""
+    from repro_torch.kernels import ops
+
+    out = []
+    for (route, n, b), ps in zip(waves, prompts, strict=True):
+        eng = engines[b]
+        reqs = make_requests(ps, NEW_TOKENS)
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        served = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = ops.launch_counts()
+        check_served(eng, reqs, served, NEW_TOKENS, eng.cfg.vocab_size)
+        require(after[route] > before[route],
+                f"wave {b} x {n}: the {route} kernel was not launched")
+        stamps = eng.token_walltimes
+        step = eng.metrics.histogram("engine.step_s.wave_decode").summary()
+        tokens = sum(len(served[r.rid]) for r in reqs)
+        out.append({
+            "route": route, "prompt_len": n, "batch": b, "tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_s": max(stamps[r.rid][0] - eng.serve_t0 for r in reqs),
+            "decode_step_s": {"count": step["count"], "mean": step["mean"],
+                              "p50": step["p50"]},
+            "launches": {k: after[k] - before[k] for k in after
+                         if after[k] > before[k]}})
+    return out
+
+
+def phase_moe(torch) -> dict:
+    """Full-width, full-depth deepseek-moe-16b (bf16, random weights from
+    seed 0, the experts' down projections scaled by MOE_DOWN_SCALE; 64
+    routed experts top-6 and 2 shared, capacity factor 1.25):
+    the wave engine on 4 x 256 (B1) and 4 x 2048 (B2), 16 new tokens each
+    (B4 at GQA group 1), then the continuous phase's 16 requests at its
+    settings (B5, B6). Then, off the serves: each call kind's expert
+    capacity and share of dropped (token, k) assignments from
+    ``moe_route`` on each layer's inputs; on each wave's first prompt
+    every B1/B2 call of the prefill and B4 call of one decode step held
+    to the plain version on the same inputs (``attention_gate``), and the
+    first-token logits against the plain route, held at LOGITS_RTOL only
+    where no (token, layer) pair's top-k experts differ between the
+    routes (routing is discontinuous: a bf16 rounding can flip a token's
+    sixth expert); every B5 call of one continuous request's chunks held
+    the same way; and at FP32_LAYERS layers in fp32, at a capacity that
+    drops nothing, the continuous engine on the kernels and on plain
+    attention and the wave engine emit the same greedy tokens."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, ServingEngine
+
+    full = full_width_model(torch, MOE_ARCH)
+    model, params = full["model"], bounded_moe(full["params"])
+    cfg = model.cfg
+    m = cfg.moe
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(0)
+    wave_prompts = [[rng.integers(3, vocab, size=(n,)).astype(np.int32)
+                     for _ in range(b)] for _, n, b in MOE_WAVES]
+    cont_prompts = continuous_prompts(vocab)
+    engines = {BATCH: ServingEngine(model, params, max_len=MOE_MAX_LEN,
+                                    batch_size=BATCH, device="cuda")}
+    cont = ContinuousBatchingEngine(model, params, device="cuda", **CONT)
+    # warm-up: cuBLAS handles and the kernels' first loads
+    engines[BATCH].serve(make_requests([p[:32] for p in wave_prompts[0]],
+                                       2))
+    cont.serve(make_requests([p[:40] for p in cont_prompts[:2]], 2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    waves = serve_waves(torch, engines, MOE_WAVES, wave_prompts)
+    reqs = make_requests(cont_prompts, CONT_NEW_TOKENS)
+    t0 = time.perf_counter()
+    out = cont.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_served(cont, reqs, out, CONT_NEW_TOKENS, vocab)
+    for name in PATH_KERNELS["moe"]:
+        require(counts[name] > 0, f"kernel {name} not launched on the moe "
+                                  f"path")
+    continuous = {"requests": CONT_REQUESTS, "new_tokens": CONT_NEW_TOKENS,
+                  "num_pages": cont.num_pages,
+                  **serve_summary(cont, reqs, out, wall)}
+    del engines, cont
+
+    # off the serves: drops by call kind, the per-call attention gates and
+    # the first-token logits against the plain route
+    plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
+    drops, gates, logits_check = {}, [], []
+    for (route, n, b), ps in zip(MOE_WAVES, wave_prompts):
+        batch = torch.from_numpy(np.stack(ps).astype(np.int64)).cuda()
+        (_, cache), routes = moe_routes(
+            lambda: model.prefill(params, cfg, batch, n + 1))
+        drops[f"wave_{b}x{n}"] = drop_summary(routes)
+        if n == MOE_WAVES[-1][1]:
+            tok = torch.ones((b, 1), dtype=torch.long, device="cuda")
+            _, routes = moe_routes(
+                lambda: model.decode_step(params, cfg, tok, cache, n))
+            drops[f"wave_decode_{b}"] = drop_summary(routes)
+        del cache
+        prompt = batch[:1]
+        ((got, cache), kroutes), gate = attention_gate(
+            lambda: moe_routes(
+                lambda: model.prefill(params, cfg, prompt, n + 1)))
+        tok = got[:, -1].argmax(-1, keepdim=True)
+        _, dgate = attention_gate(
+            lambda: model.decode_step(params, cfg, tok, cache, n))
+        del cache
+        (want, _), proutes = moe_routes(
+            lambda: plain_model.prefill(params, plain_model.cfg, prompt, n))
+        differ = routing_differences(kroutes, proutes)
+        check = {"route": route, "prompt_len": n,
+                 "topk_differs_token_layers": differ,
+                 "gate": differ == 0, **prefill_vs_plain(got, want)}
+        logits_check.append(check)
+        gates.append({"prompt_len": n, "prefill": gate, "decode": dgate})
+        require(check["finite"], f"moe prefill {n}: logits not finite")
+        if check["gate"]:
+            require(check["max_abs_err"] <= check["tol"],
+                    f"moe prefill {n} logits: {check}")
+        require(gate["kernels"].get(route, 0) == cfg.num_layers,
+                f"moe prefill {n}: {gate['kernels']}")
+        require(dgate["kernels"].get("decode", 0) == cfg.num_layers,
+                f"moe decode {n}: {dgate['kernels']}")
+    # decode at the continuous engine's batch (T = 8): the first wave's
+    # prompts and the second's cut to their length
+    n0 = MOE_WAVES[0][1]
+    batch = torch.from_numpy(np.stack(
+        wave_prompts[0] + [p[:n0] for p in wave_prompts[1]]).astype(
+        np.int64)).cuda()
+    _, cache = model.prefill(params, cfg, batch, n0 + 1)
+    tok = torch.ones((batch.shape[0], 1), dtype=torch.long, device="cuda")
+    _, routes = moe_routes(
+        lambda: model.decode_step(params, cfg, tok, cache, n0))
+    drops[f"decode_{batch.shape[0]}"] = drop_summary(routes)
+    del cache
+    # one continuous request's chunks, as the engine pads them
+    long = next(p for p in cont_prompts if len(p) > 2 * CONT["chunk_size"])
+    (_, routes), cgate = attention_gate(
+        lambda: moe_routes(
+            lambda: chunked_prefill(torch, model, params, long)))
+    drops[f"chunk_{CONT['chunk_size']}"] = drop_summary(routes)
+    cgate["prompt_len"] = len(long)
+    gates.append({"prompt_len": len(long), "chunks": cgate})
+    require(cgate["kernels"].get("paged_prefill", 0)
+            == cfg.num_layers * -(-len(long) // CONT["chunk_size"]),
+            f"moe chunks: {cgate['kernels']}")
+    init_s = full["init_s"]
+    del full, params, model, plain_model
+
+    # fp32, FP32_LAYERS layers, a capacity no call can overflow: the
+    # engines' batchings must then give the same tokens
+    cf32 = m.num_experts / m.top_k + 1
+    cfg32, m32, p32 = fp32_model(torch, dataclasses.replace(
+        cfg, moe=dataclasses.replace(m, capacity_factor=cf32)))
+    bounded_moe(p32)
+    plain32 = build_model(dataclasses.replace(cfg32, attn_impl="plain"))
+    rng32 = np.random.default_rng(1)
+    ps32 = [rng32.integers(3, vocab, size=(int(n),)).astype(np.int32)
+            for n in rng32.integers(PROMPT_LENS[0], FP32_PROMPT_MAX,
+                                    size=FP32_REQUESTS)]
+    runs, routes32 = {}, []
+    for name, serve in (
+            ("continuous_kernel", lambda: ContinuousBatchingEngine(
+                m32, p32, device="cuda", **CONT)),
+            ("continuous_plain", lambda: ContinuousBatchingEngine(
+                plain32, p32, device="cuda", **CONT)),
+            ("wave_kernel", lambda: ServingEngine(
+                m32, p32, max_len=CONT["max_len"], batch_size=1,
+                device="cuda"))):
+        runs[name], routes = moe_routes(
+            lambda: serve().serve(make_requests(ps32, FP32_NEW_TOKENS)))
+        routes32 += routes
+    ref = runs["continuous_kernel"]
+    fp32 = {"layers": FP32_LAYERS, "requests": FP32_REQUESTS,
+            "prompt_lens": [len(p) for p in ps32],
+            "new_tokens": FP32_NEW_TOKENS, "capacity_factor": cf32,
+            "capacities": sorted({r.capacity for r in routes32}),
+            "dropped": sum(int((~r.keep).sum()) for r in routes32),
+            "distinct_tokens": len({int(t) for v in ref.values()
+                                    for t in v}),
+            "mismatched_rids": {name: [rid for rid in ref if not
+                                       np.array_equal(run[rid], ref[rid])]
+                                for name, run in runs.items()}}
+    report = {
+        "phase": "moe", "arch": MOE_ARCH, "params": cfg.param_count(),
+        "expert_down_scale": MOE_DOWN_SCALE,
+        "active_params": cfg.active_param_count(), "init_s": init_s,
+        "layers": cfg.num_layers, "dtype": "bf16",
+        "experts": m.num_experts, "top_k": m.top_k, "shared": m.num_shared,
+        "capacity_factor": m.capacity_factor, "max_len": MOE_MAX_LEN,
+        "new_tokens": NEW_TOKENS, "waves": waves, "continuous": continuous,
+        "peak_mem_bytes": peak, "launches": counts,
+        "capacity_by_call": {k: v["capacity"] for k, v in drops.items()},
+        "drops": drops, "attention_gates": gates,
+        "prefill_vs_plain": logits_check,
+        "prefill_vs_plain_not_a_gate": (
+            "held at LOGITS_RTOL only where no (token, layer) pair's top-k "
+            "experts differ between the kernel and plain routes: a bf16 "
+            "rounding that flips a token's sixth expert changes its FFN "
+            "output by a whole expert's share"),
+        "fp32_parity": fp32,
+    }
+    emit(report)
+    require(fp32["dropped"] == 0, "fp32 moe: an assignment was dropped")
+    for name, rids in fp32["mismatched_rids"].items():
+        require(not rids, f"fp32 moe {name}: tokens differ for rids {rids}")
+    return report
+
+
+def fitted_depth(torch, cfg, cache_bytes_per_layer: int) -> int:
+    """Layers of ``cfg`` whose bf16 weights and caches fit in the card's
+    free memory with DENSE_HEADROOM bytes to spare (all of them if they
+    fit)."""
+    free, _ = torch.cuda.mem_get_info()
+    fixed = dataclasses.replace(cfg, num_layers=0).param_count()
+    per_layer = (2 * (cfg.param_count() - fixed) // cfg.num_layers
+                 + cache_bytes_per_layer)
+    return min(cfg.num_layers,
+               (free - 2 * fixed - DENSE_HEADROOM) // per_layer)
+
+
+def phase_dense_archs(torch) -> dict:
+    """The two dense archs left, full width, each built, served and freed
+    before the next: phi4-mini-3.8b (GQA group 3) in waves of 4 x 256 and
+    4 x 2048 and 8 continuous requests (B1, B2, B4, B5, B6), and
+    deepseek-coder-33b (group 7, untied embeddings) in a 1 x 2048 wave
+    (B2, B4), at full depth where the card holds its weights, its cache
+    and DENSE_HEADROOM (else cut, and said so). 16 new tokens a wave;
+    each wave's first-token logits held to the plain route within
+    LOGITS_RTOL; every launch count of each arch's path must rise."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import ContinuousBatchingEngine, ServingEngine
+
+    archs, launches = [], {}
+    for arch, waves, n_cont in DENSE_ARCH_TRAFFIC:
+        cfg = get_arch(arch)
+        max_len = max(n for _, n, _ in waves) + NEW_TOKENS
+        cache_per_layer = max(
+            2 * b * cfg.num_kv_heads * max_len * cfg.hd * 2
+            for _, _, b in waves)
+        if n_cont:
+            cache_per_layer += 2 * cfg.num_kv_heads * (
+                CONT["batch_size"] * CONT["max_len"] + CONT["page_size"]
+            ) * cfg.hd * 2
+        layers = fitted_depth(torch, cfg, cache_per_layer)
+        require(layers > 0, f"{arch}: no layer fits the card")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        full = full_width_model(torch, cfg=cfg)
+        model, params = full["model"], full["params"]
+        vocab = cfg.vocab_size
+        rng = np.random.default_rng(0)
+        prompts = [[rng.integers(3, vocab, size=(n,)).astype(np.int32)
+                    for _ in range(b)] for _, n, b in waves]
+        engines = {b: ServingEngine(model, params, max_len=max_len,
+                                    batch_size=b, device="cuda")
+                   for _, _, b in waves}
+        for b, eng in engines.items():              # warm-up
+            eng.serve(make_requests([p[:32] for p in prompts[0][:1]] * b,
+                                    2))
+        cont = None
+        if n_cont:
+            cont_ps = continuous_prompts(vocab)[:n_cont]
+            cont = ContinuousBatchingEngine(model, params, device="cuda",
+                                            **CONT)
+            cont.serve(make_requests([p[:40] for p in cont_ps[:2]], 2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        served = serve_waves(torch, engines, waves, prompts)
+        summary = None
+        if cont is not None:
+            reqs = make_requests(cont_ps, CONT_NEW_TOKENS)
+            t0 = time.perf_counter()
+            out = cont.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_served(cont, reqs, out, CONT_NEW_TOKENS, vocab)
+            summary = {"requests": n_cont, "new_tokens": CONT_NEW_TOKENS,
+                       **serve_summary(cont, reqs, out, wall)}
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        need = {route for route, _, _ in waves} | {"decode"}
+        if n_cont:
+            need |= {"paged_prefill", "paged_decode"}
+        for name in need:
+            require(counts[name] > 0, f"{arch}: kernel {name} not launched")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        del engines, cont
+        plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
+        logits_check = []
+        for (route, n, _), ps in zip(waves, prompts):
+            prompt = torch.from_numpy(ps[0][None].astype(np.int64)).cuda()
+            got, _ = model.prefill(params, cfg, prompt, n)
+            want, _ = plain_model.prefill(params, plain_model.cfg, prompt, n)
+            check = {"route": route, "prompt_len": n,
+                     **prefill_vs_plain(got, want)}
+            logits_check.append(check)
+            require(check["finite"] and check["max_abs_err"] <= check["tol"],
+                    f"{arch} prefill {n} logits: {check}")
+        archs.append({
+            "arch": arch, "params": full["n_params"],
+            "init_s": full["init_s"], "layers": layers,
+            "reduced": (None if layers == get_arch(arch).num_layers else
+                        f"num_layers {get_arch(arch).num_layers} -> "
+                        f"{layers}: the weights, caches and "
+                        f"{DENSE_HEADROOM >> 30} GiB did not fit"),
+            "group": cfg.num_heads // cfg.num_kv_heads,
+            "tie_embeddings": cfg.tie_embeddings, "dtype": "bf16",
+            "waves": served, "continuous": summary, "peak_mem_bytes": peak,
+            "launches": counts, "prefill_vs_plain": logits_check})
+        del full, params, model, plain_model
+        torch.cuda.empty_cache()
+    report = {"phase": "dense_archs", "archs": archs, "launches": launches}
+    emit(report)
+    return report
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"error: no src/repro_torch beside {Path(__file__).name}",
@@ -2528,7 +3068,11 @@ def main() -> int:
     launches["speculative"] = full["speculative"]
     launches["speculative_int8"] = full["speculative_int8"]
     phase_spec_parity(torch, full)
-    full.clear()              # internlm2's weights out of the ssm peaks
+    full.clear()              # internlm2's weights out of the later peaks
+    torch.cuda.empty_cache()
+    launches["moe"] = phase_moe(torch)["launches"]
+    torch.cuda.empty_cache()
+    launches["dense_archs"] = phase_dense_archs(torch)["launches"]
     torch.cuda.empty_cache()
     launches["ssm_wave"] = phase_ssm_wave(torch)["launches"]
     for row in rows:

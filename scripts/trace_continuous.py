@@ -2,7 +2,8 @@
 """Trace the serving paths of the PyTorch port on one GPU.
 
 Serves full-width internlm2-1.8b (bf16, random weights from seed 0) on
-seven paths and full-width mamba2-130m on one more, each once to warm up,
+seven paths, full-width mamba2-130m on one more and full-width
+deepseek-moe-16b on two, each once to warm up,
 once untraced and once under ``torch.profiler``, and prints one JSON
 line a path:
 
@@ -34,7 +35,19 @@ line a path:
   random weights from seed 0), 4 x 2048 through ``ServingEngine`` with
   16 new tokens: B8 once a layer on the prefill (group ``B8
   ssd_intra_chunk``, both forms, also reported as ``b8``: launches and
-  device ms), the one-token recurrence in PyTorch on the decode steps.
+  device ms), the one-token recurrence in PyTorch on the decode steps;
+* ``moe_wave`` and ``moe_continuous``: full-width, full-depth
+  deepseek-moe-16b (bf16, random weights from seed 0 with the experts'
+  down projections scaled as ``chip_smoke.py`` scales them, capacity
+  factor 1.25), a 4 x 2048 wave (16 new tokens) and the continuous requests
+  above, the traffic of ``chip_smoke.py``'s moe phase. Each line adds
+  ``moe_ffn``: the MoE FFN's
+  device time split into ``routing`` (``moe_route``: the router matmul,
+  softmax, top-k, the cumulative count), ``expert products`` (the
+  matmuls of the routed and the shared experts) and ``dispatch and
+  combine`` (the scatter into the capacity buffers, the gather back, the
+  gate weighting), from profiler ranges around ``moe_ffn`` and
+  ``moe_route`` as the device ran them.
 
 Each line holds the serve's wall time untraced and traced, the device's
 busy share over the traced serve, the busy share and time of each step
@@ -72,9 +85,11 @@ REQUESTS, NEW_TOKENS, PROMPT_LENS = 16, 32, (32, 3500)
 SPEC_DEPTH, SPEC_SPAN = 4, 64
 WAVE, WAVE_NEW_TOKENS, WAVE_MAX_LEN = (4, 2048), 16, 8256
 SSM_ARCH, SSM_WAVE = "mamba2-130m", (4, 2048)
-PATHS = ("continuous", "int8_continuous", "speculative", "speculative_int8",
-         "shared_prefix", "wave", "int8_wave", "ssm_wave")
-DENSE = PATHS[:-1]
+MOE_ARCH = "deepseek-moe-16b"
+DENSE = ("continuous", "int8_continuous", "speculative", "speculative_int8",
+         "shared_prefix", "wave", "int8_wave")
+MOE = ("moe_wave", "moe_continuous")
+PATHS = DENSE + ("ssm_wave",) + MOE
 B8 = "B8 ssd_intra_chunk"
 B5, B6 = "B5 paged_prefill", "B6 paged_decode"
 # kernel name fragments -> group, first match wins
@@ -119,6 +134,14 @@ def marked(torch, fn, kind_of):
     return step
 
 
+def ranged(torch, fn, name: str):
+    """``fn`` with each call inside a profiler range ``name``."""
+    def call(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+    return call
+
+
 def traced(torch, serve) -> tuple[float, float, dict]:
     """``serve`` warmed up, timed untraced, then traced: (untraced wall s,
     traced wall s, profile)."""
@@ -142,8 +165,8 @@ def summary(torch, untraced: float, wall: float, prof) -> dict:
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     # device events, without the device-side copies of the step marks
-    kernels = [e for e in events
-               if e.device_type == cuda and not e.name.startswith("step:")]
+    kernels = [e for e in events if e.device_type == cuda
+               and not e.name.startswith(("step:", "moe:"))]
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     steps = sorted((e.time_range.start, e.name.split(":", 1)[1])
                    for e in events
@@ -189,6 +212,49 @@ def summary(torch, untraced: float, wall: float, prof) -> dict:
     }
 
 
+def moe_split(torch, prof) -> dict:
+    """Device ms and launches of the MoE FFN's kernels by part: each
+    kernel inside a device-side ``moe:route`` range is routing; inside a
+    ``moe:ffn`` range, a matmul is an expert product and any other kernel
+    dispatch and combine."""
+    import bisect
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    marks = {}
+    for e in events:
+        if e.device_type == cuda and e.name.startswith("moe:"):
+            marks.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    if "moe:ffn" not in marks:
+        return {"not measured": "no device-side moe:ffn ranges in the "
+                                "trace"}
+    spans = {name: sorted(v) for name, v in marks.items()}
+    starts = {name: [a for a, _ in v] for name, v in spans.items()}
+
+    def inside(name, t):
+        i = bisect.bisect_right(starts.get(name, []), t) - 1
+        return i >= 0 and spans[name][i][1] >= t
+
+    parts: dict[str, list] = {}
+    for e in events:
+        if e.device_type != cuda or e.name.startswith(("step:", "moe:")):
+            continue
+        t = e.time_range.start
+        if inside("moe:route", t):
+            part = "routing"
+        elif inside("moe:ffn", t):
+            part = ("expert products" if group_of(e.name) == "matmul"
+                    else "dispatch and combine")
+        else:
+            continue
+        entry = parts.setdefault(part, [0, 0.0])
+        entry[0] += 1
+        entry[1] += (e.time_range.end - e.time_range.start) / 1e3
+    return {part: {"launches": n, "ms": ms}
+            for part, (n, ms) in parts.items()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -217,6 +283,9 @@ def main() -> int:
                     ContinuousBatchingEngine, Request, ServingEngine)
     if "ssm_wave" in paths:
         trace_ssm(torch, np, get_arch, build_model, Request, ServingEngine)
+    if paths & set(MOE):
+        trace_moe(torch, np, paths, get_arch, build_model,
+                  ContinuousBatchingEngine, Request, ServingEngine)
     return 0
 
 
@@ -229,7 +298,72 @@ def trace_wave(torch, eng, reqs, header: dict) -> None:
     line = {**header, **summary(torch, *out)}
     if B8 in line["device_ms_by_group"]:
         line["b8"] = line["device_ms_by_group"][B8]   # launches and ms
+    if header["path"] in MOE:
+        line["moe_ffn"] = moe_split(torch, out[2])
     print(json.dumps(line), flush=True)
+
+
+def paged_kind(cache, host, decode, prefill):
+    # prefill: whether the step carries a chunk (a chunk's (q_offset,
+    # chunk_len), or None, in trees before it moved into the step's array)
+    return "decode" if not prefill else "chunk+decode" if decode else "chunk"
+
+
+def continuous_prompts(np, vocab):
+    """``chip_smoke.py``'s continuous requests' prompts in ``vocab``."""
+    rng = np.random.default_rng(0)
+    plens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=REQUESTS)
+    return [rng.integers(3, vocab, size=(int(n),)).astype(np.int32)
+            for n in plens], rng
+
+
+def trace_moe(torch, np, paths, get_arch, build_model,
+              ContinuousBatchingEngine, Request, ServingEngine):
+    from repro_torch.models import moe
+
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import bounded_moe
+
+    cfg = get_arch(MOE_ARCH)
+    model = build_model(cfg)
+    params = bounded_moe(model.init(seed=0, device="cuda",
+                                    dtype=torch.bfloat16))
+    for name in ("moe_ffn", "moe_route"):
+        setattr(moe, name, ranged(torch, getattr(moe, name),
+                                  f"moe:{name[4:]}"))
+    header = {"arch": MOE_ARCH, "device": torch.cuda.get_device_name(0),
+              "capacity_factor": cfg.moe.capacity_factor}
+
+    def requests(ps, new):
+        return [Request(rid=i, prompt=p, max_new_tokens=new, eos_id=-1)
+                for i, p in enumerate(ps)]
+
+    prompts, _ = continuous_prompts(np, cfg.vocab_size)
+    if "moe_continuous" in paths:
+        eng = ContinuousBatchingEngine(model, params, device="cuda", **CONT)
+        eng._step = marked(torch, eng._step, paged_kind)
+        out = traced(torch, lambda: eng.serve(requests(prompts,
+                                                       NEW_TOKENS)))
+        print(json.dumps({"path": "moe_continuous", **header, **CONT,
+                          "requests": REQUESTS, "new_tokens": NEW_TOKENS,
+                          **summary(torch, *out),
+                          "moe_ffn": moe_split(torch, out[2])}),
+              flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    if "moe_wave" in paths:
+        batch, n = WAVE
+        rng = np.random.default_rng(0)
+        wave = [rng.integers(3, cfg.vocab_size, size=(n,)).astype(np.int32)
+                for _ in range(batch)]
+        eng = ServingEngine(model, params, max_len=n + WAVE_NEW_TOKENS,
+                            batch_size=batch, device="cuda")
+        trace_wave(torch, eng, lambda: requests(wave, WAVE_NEW_TOKENS),
+                   {"path": "moe_wave", **header, "batch": batch,
+                    "prompt": n, "new_tokens": WAVE_NEW_TOKENS})
+        del eng
+    del model, params
+    torch.cuda.empty_cache()
 
 
 def trace_ssm(torch, np, get_arch, build_model, Request, ServingEngine):
@@ -255,24 +389,15 @@ def trace_dense(torch, np, paths, get_arch, build_model,
     cfg = get_arch("internlm2-1.8b")
     model = build_model(cfg)
     params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
-    rng = np.random.default_rng(0)
-    plens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=REQUESTS)
-    prompts = [rng.integers(3, cfg.vocab_size, size=(int(n),))
-               .astype(np.int32) for n in plens]
+    prompts, rng = continuous_prompts(np, cfg.vocab_size)
     span = np.random.default_rng(2).integers(3, cfg.vocab_size,
                                              size=(SPEC_SPAN,))
-    spec_prompts = [np.resize(span, int(n)).astype(np.int32) for n in plens]
+    spec_prompts = [np.resize(span, len(p)).astype(np.int32)
+                    for p in prompts]
 
     def requests(ps, new):
         return [Request(rid=i, prompt=p, max_new_tokens=new, eos_id=-1)
                 for i, p in enumerate(ps)]
-
-    def paged_kind(cache, host, decode, prefill):
-        # prefill: whether the step carries a chunk (a chunk's (q_offset,
-        # chunk_len), or None, in trees before it moved into the step's
-        # array)
-        return ("decode" if not prefill
-                else "chunk+decode" if decode else "chunk")
 
     header = {"device": torch.cuda.get_device_name(0), **CONT,
               "requests": REQUESTS, "new_tokens": NEW_TOKENS}

@@ -12,6 +12,10 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "qwen3-1.7b": "qwen3_1_7b",
     "mamba2-130m": "mamba2_130m",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 

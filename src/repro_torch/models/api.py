@@ -1,8 +1,9 @@
 """Public model API: ``build_model(cfg) -> Model`` with plain functions.
 
-Port of ``repro/models/api.py`` for the dense decoder with its dense or
-paged cache, either of them int8 (``kv_dtype``), and for the SSM family
-(mamba2) with its conv and SSD states (the paged functions refuse it). ``Model.init(seed=...,
+Port of ``repro/models/api.py`` for the dense and the MoE decoders with
+their dense or paged cache, either of them int8 (``kv_dtype``), and for
+the SSM family (mamba2) with its conv and SSD states (the paged
+functions refuse it). ``Model.init(seed=...,
 device=...)`` draws the port's own seeded weights;
 ``weights.params_from_jax`` carries the reference's instead.
 """
@@ -41,9 +42,10 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"the port serves dense and ssm stacks only (got {cfg.family})")
+            f"the port serves dense, moe and ssm stacks only "
+            f"(got {cfg.family})")
 
     def init(seed: int = 0, *, device="cuda", dtype=None):
         return tfm.init(cfg, seed=seed, device=device, dtype=dtype)

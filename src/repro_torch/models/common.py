@@ -1,7 +1,7 @@
 """Shared model substrate: configs, norms, rotary embeddings, init.
 
-Port of ``repro/models/common.py`` for the dense decoder and the SSM
-(mamba2) families. The numerics keep the reference's op order (fp32 norm
+Port of ``repro/models/common.py`` for the dense decoder, the MoE
+decoder and the SSM (mamba2) families. The numerics keep the reference's op order (fp32 norm
 with ``1 + scale``, rope on interleaved pairs) so the two packages agree
 on logits.
 """
@@ -11,6 +11,16 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 64
+    top_k: int = 6
+    d_expert: int = 1408
+    num_shared: int = 0          # shared experts (deepseek-moe style)
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,9 +35,13 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """A dense GQA decoder (SwiGLU MLP, rope, tied embeddings), or with
-    ``family="ssm"`` a stack of mamba2 SSD blocks (``ssm``, tied
-    embeddings; the attention fields are unused).
+    """A dense GQA decoder (SwiGLU MLP, rope), with ``family="moe"`` the
+    same decoder with a routed-expert FFN (``moe``: top-k routing with
+    capacity buffers, ``models/moe.py``), or with ``family="ssm"`` a
+    stack of mamba2 SSD blocks (``ssm``; the attention fields are
+    unused). The unembedding is the embedding's transpose unless
+    ``tie_embeddings`` is false, when it is a (d_model, vocab) matrix of
+    its own.
 
     ``attn_impl`` selects the backend of the attention and SSD scan:
     ``"kernel"`` routes through ``kernels/ops.py`` (the CUDA kernels on a
@@ -37,7 +51,7 @@ class ArchConfig:
     """
 
     name: str
-    family: str                  # "dense" | "ssm"
+    family: str                  # "dense" | "moe" | "ssm"
     num_layers: int
     d_model: int
     num_heads: int
@@ -47,7 +61,9 @@ class ArchConfig:
     head_dim: int | None = None  # default d_model // num_heads
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    tie_embeddings: bool = True
     norm_eps: float = 1e-6
+    moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     attn_impl: str = "kernel"    # kernel | plain
     param_dtype: torch.dtype = torch.float32
@@ -64,9 +80,11 @@ class ArchConfig:
         return (kind,) * self.num_layers
 
     def param_count(self) -> int:
-        """The parameters ``transformer.init`` draws, tied embeddings
-        included. An SSD layer counts its conv over all conv channels, its
-        gate norm and ``a_log``, which the reference's count leaves out."""
+        """The parameters ``transformer.init`` draws, the unembedding when
+        untied included. An SSD layer counts its conv over all conv
+        channels, its gate norm and ``a_log``, which the reference's count
+        leaves out; an MoE layer counts no FFN norm, which the reference's
+        count adds and its init does not draw (ROADMAP C10)."""
         d, e = self.d_model, self.hd
         if self.family == "ssm":
             s = self.ssm
@@ -80,8 +98,27 @@ class ArchConfig:
             layer = d * hq * e + 2 * d * hkv * e + hq * e * d + d
             if self.qk_norm:
                 layer += 2 * e
-            layer += 3 * d * self.d_ff + d
-        return self.vocab_size * d + self.num_layers * layer + d
+            if self.moe is None:
+                layer += 3 * d * self.d_ff + d
+            else:
+                m = self.moe
+                layer += (d * m.num_experts
+                          + (m.num_experts + m.num_shared) * 3 * d
+                          * m.d_expert)
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return embed + self.num_layers * layer + d
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: an MoE layer's top-k routed and its
+        shared experts only (the reference's formula on this count)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        expert = 3 * self.d_model * m.d_expert
+        n_attn = sum(k == "attn" for k in self.layer_kinds)
+        return (self.param_count()
+                - n_attn * (m.num_experts + m.num_shared) * expert
+                + n_attn * (m.top_k + m.num_shared) * expert)
 
 
 # ---------------------------------------------------------------------------

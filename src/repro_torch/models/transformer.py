@@ -33,10 +33,16 @@ conv channels) compute dtype, "state": (B, H, P, N) fp32}`` per layer:
 ``make_cache_block`` does. The paged functions serve dense stacks only
 and raise ``NotImplementedError`` for it.
 
-The Q/K/V/O, MLP and unembedding projections are ``torch.matmul``, as
-the reference leaves them to XLA; attention goes through
-``models/attention.py`` (``cfg.attn_impl``), the SSD scan through
-``models/ssm.py``.
+An MoE stack (``cfg.family == "moe"``) has the dense stack's attention
+and caches, and in each layer's ``"ffn"`` the routed experts of
+``models/moe.py``. Its FFN runs over every row of a call, padding rows,
+idle decode slots and a chunk's padded tail included, as the
+reference's does: those rows take expert capacity ahead of later rows.
+
+The Q/K/V/O, MLP, expert and unembedding projections are
+``torch.matmul``, as the reference leaves them to XLA; attention goes
+through ``models/attention.py`` (``cfg.attn_impl``), the SSD scan
+through ``models/ssm.py``.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.common import (
     ArchConfig,
@@ -70,7 +76,8 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
          dtype: torch.dtype | None = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``, in
     ``dtype`` (default ``cfg.param_dtype``); norm scales start at 0. An
-    SSD layer takes ``ssm.init_ssd_block``."""
+    SSD layer takes ``ssm.init_ssd_block``, an MoE layer's FFN
+    ``moe.init_moe``; untied embeddings add ``unembed`` (d_model, vocab)."""
     dev = resolve_device(device)
     dt = dtype or cfg.param_dtype
     gen = torch.Generator(device=dev)
@@ -89,6 +96,8 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
         "final_norm": zeros(d),
         "layers": [],
     }
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense(d, cfg.vocab_size)
     for kind in cfg.layer_kinds:
         if kind == "ssd":
             params["layers"].append({"ssd": ssm.init_ssd_block(gen, cfg, dt)})
@@ -99,8 +108,11 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
         if cfg.qk_norm:
             attn["q_norm"] = zeros(e)
             attn["k_norm"] = zeros(e)
-        ffn = {"norm": zeros(d), "w_gate": dense(d, f), "w_up": dense(d, f),
-               "w_down": dense(f, d)}
+        if cfg.moe is not None:
+            ffn = moe.init_moe(gen, cfg, dt)
+        else:
+            ffn = {"norm": zeros(d), "w_gate": dense(d, f),
+                   "w_up": dense(d, f), "w_down": dense(f, d)}
         params["layers"].append({"attn": attn, "ffn": ffn})
     return params
 
@@ -116,6 +128,14 @@ def mlp(params, x, cfg: ArchConfig):
     up = h @ params["w_up"].to(dt)
     up = up * F.silu(h @ params["w_gate"].to(dt))
     return up @ params["w_down"].to(dt)
+
+
+def ffn(layer, x, cfg: ArchConfig):
+    """The layer's FFN over every row of ``x`` -> (y, aux): the dense MLP
+    (aux 0.0), or the MoE FFN on the un-normalised ``x``."""
+    if cfg.moe is not None:
+        return moe.moe_ffn(layer["ffn"], x, cfg)
+    return mlp(layer["ffn"], x, cfg), 0.0
 
 
 def _split_heads(x, n_heads: int, e: int):
@@ -355,21 +375,27 @@ def _embed(params, tokens, cfg: ArchConfig):
 
 def _unembed(params, x, cfg: ArchConfig):
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return h @ params["embed"].to(h.dtype).T          # tied embeddings
+    if cfg.tie_embeddings:
+        return h @ params["embed"].to(h.dtype).T
+    return h @ params["unembed"].to(h.dtype)
 
 
 def forward(params, tokens, cfg: ArchConfig):
-    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux 0.0)."""
+    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux):
+    aux is the MoE layers' summed load-balance loss, fp32 (0 for other
+    stacks)."""
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         if "ssd" in layer:
             x = x + ssm.ssd_block(layer["ssd"], x, cfg)[0]
             continue
         y, _ = attn_block(layer["attn"], x, cfg, positions=positions)
         x = x + y
-        x = x + mlp(layer["ffn"], x, cfg)
-    return _unembed(params, x, cfg), 0.0
+        y, a = ffn(layer, x, cfg)
+        x, aux = x + y, aux + a
+    return _unembed(params, x, cfg), aux
 
 
 def kv_storage_dtype(kv_dtype) -> torch.dtype | None:
@@ -446,7 +472,7 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
             blk["k"][:, :, :s] = k
             blk["v"][:, :, :s] = v
         x = x + y
-        x = x + mlp(layer["ffn"], x, cfg)
+        x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x[:, -1:], cfg), cache
 
 
@@ -467,7 +493,7 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
                             cache_v=blk["v"], pos=pos,
                             k_scale=blk.get("k_scale"),
                             v_scale=blk.get("v_scale"))
-        x = x + mlp(layer["ffn"], x, cfg)
+        x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x, cfg), cache
 
 
@@ -478,11 +504,11 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
 
 def check_paged_support(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless the paged cache serves
-    ``cfg`` (dense rope decoder stacks only)."""
-    if cfg.family != "dense":
+    ``cfg`` (dense and MoE rope decoder stacks only)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            "the paged cache layout supports dense rope decoder stacks only "
-            f"(got {cfg.name})")
+            "the paged cache layout supports dense and MoE rope decoder "
+            f"stacks only (got {cfg.name})")
 
 
 def make_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
@@ -510,7 +536,7 @@ def paged_decode_step(params, cfg: ArchConfig, token, cache, page_table,
                                   positions=positions,
                                   k_scales=blk.get("k_scale"),
                                   v_scales=blk.get("v_scale"))
-        x = x + mlp(layer["ffn"], x, cfg)
+        x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x, cfg), cache
 
 
@@ -535,7 +561,7 @@ def paged_verify_step(params, cfg: ArchConfig, tokens, cache, page_table,
                                   positions=positions, n_rows=n_rows,
                                   k_scales=blk.get("k_scale"),
                                   v_scales=blk.get("v_scale"))
-        x = x + mlp(layer["ffn"], x, cfg)
+        x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x, cfg), cache
 
 
@@ -562,6 +588,6 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, page_table,
             layer["attn"], x, cfg, k_pages=blk["k"], v_pages=blk["v"],
             page_table=page_table, chunk_page_ids=chunk_page_ids, span=span,
             k_scales=blk.get("k_scale"), v_scales=blk.get("v_scale"))
-        x = x + mlp(layer["ffn"], x, cfg)
+        x = x + ffn(layer, x, cfg)[0]
     last = x.index_select(1, chunk_span[2:])
     return _unembed(params, last, cfg)[:, 0], cache

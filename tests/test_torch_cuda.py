@@ -27,7 +27,10 @@ free of host syncs, and refusing a chunk past 256 rows; the wave engine
 serves the mamba2 smoke model on the card with the CPU's tokens. The
 continuous engine with ``prefix_cache=True`` gives the CPU's tokens and
 ``prefix_stats`` on fp32 and int8 pools, and its copy-on-write page copy
-reads nothing back to the host.
+reads nothing back to the host. The bf16 attention forms are held at the
+GQA groups the served archs run (1 for the MoE archs, 2, 3 for
+phi4-mini, 7 for deepseek-coder), and the MoE FFN gives the CPU's output
+on the card with no host sync.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from repro_torch.kernels import paged_decode_attention as pdec
 from repro_torch.kernels import paged_prefill_attention as ppre
 from repro_torch.kernels import paged_verify_attention as pver
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.api import build_model
 from repro_torch.serving import (
@@ -137,16 +140,18 @@ def _held_per_row(got, want, faulty):
     assert fault > BF16_ROW_RTOL, (err, fault)
 
 
+@pytest.mark.parametrize("group", [1, 2, 3, 7])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("blk_q,e", [(8, 128), (16, 128), (32, 128),
                                      (24, 128), (8, 64), (16, 64)])
 def test_mas_streamed_bf16_kernel_matches_plain_per_row(cuda, blk_q, e,
-                                                        causal):
+                                                        causal, group):
     """B2 on the tensor cores: blk_q 8 is the transposed form, 16 one m16
-    tile, 24 and 32 two; GQA group 2 and a kv_len tail inside the last
-    tile (330 of 384)."""
-    g = torch.Generator(device=cuda).manual_seed(20 + blk_q + e)
-    q = _bf16(g, 8, 192, e)
+    tile, 24 and 32 two; GQA groups 1, 2, 3 and 7 (the MoE archs,
+    internlm2, phi4-mini, deepseek-coder) and a kv_len tail inside the
+    last tile (330 of 384)."""
+    g = torch.Generator(device=cuda).manual_seed(20 + blk_q + e + group)
+    q = _bf16(g, 4 * group, 192, e)
     k, v = _bf16(g, 4, 384, e), _bf16(g, 4, 384, e)
     kw = dict(blk_q=blk_q, causal=causal, kv_len=330)
     got = mas.mas_attention_flat(q, k, v, kv_resident=False, **kw)
@@ -157,13 +162,14 @@ def test_mas_streamed_bf16_kernel_matches_plain_per_row(cuda, blk_q, e,
     _held_per_row(got, want, faulty)
 
 
+@pytest.mark.parametrize("group", [1, 2, 3, 7])
 @pytest.mark.parametrize("window", [None, 100])
-def test_flash_bf16_kernel_matches_plain_per_row(cuda, window):
+def test_flash_bf16_kernel_matches_plain_per_row(cuda, window, group):
     """B3 on the tensor cores, in 64-row blocks: rows at positions 150-405
-    (q_offset), a kv_len tail at 420 of 448, GQA group 2."""
+    (q_offset), a kv_len tail at 420 of 448, GQA groups 1, 2, 3 and 7."""
     e = 128
-    g = torch.Generator(device=cuda).manual_seed(30 + e)
-    q = _bf16(g, 4, 256, e)
+    g = torch.Generator(device=cuda).manual_seed(30 + e + group)
+    q = _bf16(g, 2 * group, 256, e)
     k, v = _bf16(g, 2, 448, e), _bf16(g, 2, 448, e)
     kw = dict(blk_q=64, causal=True, window=window, q_offset=150,
               kv_len=420)
@@ -242,17 +248,18 @@ def test_flash_bf16_kernel_at_head_dim_64_matches_plain_per_row(cuda,
         _held_per_row(got, want, faulty)
 
 
+@pytest.mark.parametrize("group", [1, 2, 3, 7])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("n,blk_q,e", [(64, 8, 128), (128, 16, 128),
                                        (256, 32, 128), (320, 24, 128),
                                        (192, 32, 64), (320, 8, 64)])
 def test_mas_resident_bf16_kernel_matches_plain_per_row(cuda, n, blk_q, e,
-                                                        causal):
+                                                        causal, group):
     """B1 on the tensor cores, K and V resident: N 64 to 320, blk_q 8 (the
-    transposed form), 16, 24 and 32, GQA group 2, a kv_len tail 13 rows
-    short of N."""
-    g = torch.Generator(device=cuda).manual_seed(50 + n + blk_q + e)
-    q = _bf16(g, 4, 192, e)
+    transposed form), 16, 24 and 32, GQA groups 1, 2, 3 and 7, a kv_len
+    tail 13 rows short of N."""
+    g = torch.Generator(device=cuda).manual_seed(50 + n + blk_q + e + group)
+    q = _bf16(g, 2 * group, 192, e)
     k, v = _bf16(g, 2, n, e), _bf16(g, 2, n, e)
     kw = dict(blk_q=blk_q, causal=causal, kv_len=n - 13)
     ops.reset_launch_counts()
@@ -313,7 +320,7 @@ def _paged_bf16_case(cuda, seed, quantized, group, q0, kv_len, chunk, e):
 
 
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("group", [1, 2, 3, 7])
 @pytest.mark.parametrize("q0,kv_len,chunk", [
     (0, 200, 256), (64, 250, 192), (100, 300, 200), (3072, 3333, 512),
     (1000, 1400, 512)])
@@ -322,7 +329,7 @@ def test_paged_prefill_bf16_kernel_matches_plain_per_row(
     """B5's wgmma form on bf16 and int8 pools: shuffled pages, at least
     three live tiles (more than the ring's three stages, so stages are
     reused), q_offset 0, 64, 100 and 1000 (not multiples of 64) and 3072,
-    kv_len ending mid-page, GQA 1 and 2, a random V, ragged chunks padded
+    kv_len ending mid-page, GQA 1, 2, 3 and 7, a random V, ragged chunks padded
     to the 64-row block through ops, pad rows past kv_len."""
     _paged_bf16_case(cuda, 60 + q0 + group, quantized, group, q0, kv_len,
                      chunk, 128)
@@ -372,7 +379,7 @@ def _dense_bf16_kv(g, quantized, *shape):
 
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("e", [64, 128])
-@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 7, 8])
 def test_decode_bf16_kernel_matches_plain_per_row(cuda, e, group,
                                                   quantized):
     """B4's tensor-core form on bf16 caches and on int8 caches with
@@ -439,13 +446,14 @@ def test_decode_bf16_kernel_through_ops_at_wave_lengths(cuda, kv_len):
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("e", [64, 128])
 @pytest.mark.parametrize("spec,group", [(1, 2), (4, 2), (8, 2), (3, 4),
-                                        (8, 4), (2, 8), (4, 8)])
+                                        (8, 4), (2, 8), (4, 8), (2, 1),
+                                        (4, 1), (4, 3), (3, 7), (4, 7)])
 def test_paged_verify_bf16_kernel_matches_plain_per_row(cuda, e, spec,
                                                         group, quantized):
     """B7's tensor-core form on bf16 pools and on int8 pools with per-page
-    scales (bf16 q): k 1-8 positions of G 2, 4 and 8 heads (k G up to 32
-    rows, two m16 tiles), on shuffled 16-row pages of a table long enough
-    for four tiles a split. Slots: a start mid-page, a block straddling a
+    scales (bf16 q): k 1-8 positions of G 1, 2, 3, 4, 7 and 8 heads (k G
+    up to 32 rows, two m16 tiles), on shuffled 16-row pages of a table
+    long enough for four tiles a split. Slots: a start mid-page, a block straddling a
     64-row tile, kv_len 0, one written row of k (kv_len 64), one short of
     k (rows past kv_len see the live context), and blocks ending deep in
     the table and at its capacity; a random V, the fault a zeroed V page
@@ -511,7 +519,7 @@ def _paged_decode_bf16_inputs(g, quantized, *, b, hkv, group, page,
 
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("page", [4, 8, 16])
-@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 7, 8, 16])
 @pytest.mark.parametrize("e", [64, 128])
 def test_paged_decode_bf16_kernel_matches_plain_per_row(cuda, e, group,
                                                         page, quantized):
@@ -846,6 +854,41 @@ def _smoke_on_both(cuda):
                               for blk, p in layer.items()}
                              for layer in cpu_params["layers"]]}
     return cfg, model, cpu_params, gpu_params
+
+
+@pytest.mark.parametrize("cf", [8.0, 0.5])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "moonshot-v1-16b-a3b"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, arch, cf):
+    """The MoE FFN in fp32 on the card against the same call on the CPU
+    (atol 3e-5), with the same routing and drops (capacity factor 0.5
+    drops), and with PyTorch's synchronizing calls made errors: the
+    dispatch reads nothing of the device back."""
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    ffn = build_model(cfg).init(seed=0, device="cpu")["layers"][0]["ffn"]
+    x = torch.randn((2, 37, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    want, want_aux = moe.moe_ffn(ffn, x, cfg)
+    route = moe.moe_route(ffn, x.reshape(-1, cfg.d_model), cfg)
+    on_card = {k: (t.to(cuda) if torch.is_tensor(t)
+                   else {n: u.to(cuda) for n, u in t.items()})
+               for k, t in ffn.items()}
+    x_card = x.to(cuda)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, aux = _no_host_sync(lambda: moe.moe_ffn(on_card, x_card, cfg))
+        got_route = _no_host_sync(lambda: moe.moe_route(
+            on_card, x_card.reshape(-1, cfg.d_model), cfg))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    assert torch.equal(got_route.keep.cpu(), route.keep)
+    assert torch.equal(got_route.positions.cpu(), route.positions)
+    assert bool(route.keep.all()) == (cf == 8.0)
+    assert float((got.cpu() - want).abs().max()) <= FP32_ATOL
+    assert abs(float(aux) - float(want_aux)) <= FP32_ATOL
 
 
 def test_continuous_engine_on_the_card_matches_the_cpu(cuda):

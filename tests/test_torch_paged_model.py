@@ -4,7 +4,7 @@
 reference's fp32 weights (with random norm scales, so the logits vary),
 on the same shuffled page allocation: the reference with its Pallas
 kernels in interpret mode, the port with its kernels' plain versions on
-the CPU. The logits of every call must agree to atol 1e-4, and after the
+the CPU. The logits of every call must agree to atol 3e-5, and after the
 run the K/V pools must agree page by page (the scratch page aside, whose
 bytes depend on the order of duplicate writes). Chunked prefill, at
 several chunk sizes, must give the first token of monolithic prefill.
@@ -23,14 +23,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.models.api import build_model
 from test_torch_harness import (
     FP32_ATOL,
-    LOGITS_ATOL,
     as_numpy,
     chunk_span,
     model_pair,
     prompts,
 )
 
-ARCHS = ["internlm2-1.8b", "qwen3-1.7b"]
+ARCHS = ["internlm2-1.8b", "qwen3-1.7b", "phi4-mini-3.8b",
+         "deepseek-coder-33b", "deepseek-moe-16b", "moonshot-v1-16b-a3b"]
 PAGE, N_PAGES, MAX_PAGES = 4, 16, 6
 
 
@@ -86,7 +86,7 @@ def test_prefill_chunk_and_paged_decode_match_reference(pair):
             jl, tl, jc, tc = _chunk(pair, jc, tc, toks, table[slot], q0,
                                     clen, 8)
             np.testing.assert_allclose(as_numpy(tl), as_numpy(jl),
-                                       atol=LOGITS_ATOL, rtol=0)
+                                       atol=FP32_ATOL, rtol=0)
         last[slot] = int(np.argmax(as_numpy(jl)[0]))
         assert int(torch.argmax(tl[0])) == last[slot]
     token = np.array([[last[0]], [last[1]], [0]], np.int32)
@@ -100,7 +100,7 @@ def test_prefill_chunk_and_paged_decode_match_reference(pair):
             torch.from_numpy(table), torch.from_numpy(positions))
         assert tl.shape == tuple(jl.shape)
         np.testing.assert_allclose(as_numpy(tl)[:2], as_numpy(jl)[:2],
-                                   atol=LOGITS_ATOL, rtol=0)
+                                   atol=FP32_ATOL, rtol=0)
         token = np.argmax(as_numpy(jl), axis=-1).astype(np.int32)
         token[2] = 0
         positions[:2] += 1
@@ -172,7 +172,7 @@ def test_chunked_prefill_gives_the_monolithic_first_token(pair, chunk):
     jwant, _ = pair.jmodel.prefill(pair.jparams, pair.jcfg,
                                    jnp.asarray(toks[None]), 24)
     np.testing.assert_allclose(as_numpy(want), as_numpy(jwant),
-                               atol=LOGITS_ATOL, rtol=0)
+                               atol=FP32_ATOL, rtol=0)
     _, tc = _caches(pair)
     table = np.array([9, 3, 14, 6, 1, 0], np.int32)
     for q0 in range(0, len(toks), chunk):
@@ -187,7 +187,7 @@ def test_chunked_prefill_gives_the_monolithic_first_token(pair, chunk):
             pair.tparams, pair.tcfg, ctoks, tc, torch.from_numpy(table),
             cpages, chunk_span(q0, clen))
     np.testing.assert_allclose(as_numpy(got), as_numpy(want[:, 0]),
-                               atol=LOGITS_ATOL, rtol=0)
+                               atol=FP32_ATOL, rtol=0)
     assert int(torch.argmax(got)) == int(torch.argmax(want[0, 0]))
     # the ragged tail of the last page was written as zeros
     tail = tc["layers"][0]["k"][:, int(table[13 // PAGE]), 13 % PAGE:]

@@ -504,6 +504,88 @@ def test_chip_smoke_ssm_gates_on_the_mamba2_smoke_model(variant):
             assert gate["row_rel_err"] > gate["limit"]
 
 
+@pytest.mark.parametrize("wrong", [None, "attention", "decode_attention"])
+def test_chip_smoke_moe_gates_on_the_moe_smoke_model(wrong):
+    """The moe phase's per-call attention gate, routing capture and drop
+    count through a bf16 prefill and decode step of deepseek-moe-smoke on
+    the CPU (the kernels' plain versions on the kernel route): each layer's
+    attention call is held to the plain route and its planted zeroed V
+    tile fails the limit; an attention route whose output is off by 1%
+    fails the gate; the routes of two runs of the same tokens agree, and
+    at capacity factor 0.5 the counted drops are the keep masks'."""
+    import dataclasses
+
+    from repro_torch.models import attention as am
+
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(get_smoke("deepseek-moe-16b"),
+                              attn_impl="kernel",
+                              compute_dtype=torch.bfloat16)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu", dtype=torch.bfloat16)
+    prompt = torch.randint(3, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(3))
+    real = getattr(am, wrong) if wrong else None
+
+    def off_by_1pct(*args, **kw):
+        out = real(*args, **kw)
+        return out * 1.01 if kw.get("impl") == "kernel" else out
+
+    if wrong:
+        setattr(am, wrong, off_by_1pct)
+    try:
+        if wrong:
+            with pytest.raises(AssertionError, match="attention gate"):
+                smoke.attention_gate(lambda: model.decode_step(
+                    params, cfg, prompt[:, :1], model.prefill(
+                        params, cfg, prompt, 41)[1], 40))
+            return
+        ((logits, cache), routes), gate = smoke.attention_gate(
+            lambda: smoke.moe_routes(
+                lambda: model.prefill(params, cfg, prompt, 41)))
+        _, dgate = smoke.attention_gate(lambda: model.decode_step(
+            params, cfg, prompt[:, :1], cache, 40))
+    finally:
+        if wrong:
+            setattr(am, wrong, real)
+    for g in (gate, dgate):
+        assert g["calls"] == cfg.num_layers
+        assert g["row_rel_err"] <= g["limit"] < g["fault_row_rel_err"]
+    assert len(routes) == cfg.num_layers
+    (_, again) = smoke.moe_routes(
+        lambda: model.prefill(params, cfg, prompt, 41))
+    assert smoke.routing_differences(routes, again) == 0
+    summary = smoke.drop_summary(routes)
+    assert summary["rows"] == 80 and summary["dropped"] == 0
+    tight = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    _, routes = smoke.moe_routes(
+        lambda: model.prefill(params, tight, prompt, 41))
+    summary = smoke.drop_summary(routes)
+    assert summary["capacity"] == 10
+    assert summary["dropped"] == sum(int((~r.keep).sum()) for r in routes)
+    assert 0 < summary["dropped_share"] < 1
+
+
+def test_chip_smoke_bounded_moe_scales_every_down_projection():
+    """The moe phase's weights: each routed and shared expert's down
+    projection scaled by MOE_DOWN_SCALE, nothing else touched."""
+    smoke = _chip_smoke()
+    model = build_model(get_smoke("deepseek-moe-16b"))
+    params = model.init(seed=0, device="cpu")
+    fresh = model.init(seed=0, device="cpu")
+    assert smoke.bounded_moe(params) is params
+    for got, want in zip(params["layers"], fresh["layers"]):
+        for blk in ("ffn", "shared"):
+            g = got["ffn"] if blk == "ffn" else got["ffn"]["shared"]
+            w = want["ffn"] if blk == "ffn" else want["ffn"]["shared"]
+            for key, t in w.items():
+                scale = smoke.MOE_DOWN_SCALE if key == "w_down" else 1.0
+                if torch.is_tensor(t):
+                    assert torch.equal(g[key], t * scale), (blk, key)
+        assert torch.equal(got["attn"]["wq"], want["attn"]["wq"])
+
+
 def test_bf16_prefill_never_reaches_the_cuda_core_code():
     # the wrappers choose the C function by dtype ...
     bf16, fp32 = torch.bfloat16, torch.float32

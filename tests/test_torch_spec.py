@@ -277,11 +277,35 @@ def pair():
     return model_pair("internlm2-1.8b", seed=4, norm_std=2.0)
 
 
+@pytest.fixture(scope="module", params=["phi4-mini-3.8b", "deepseek-coder-33b",
+                                        "deepseek-moe-16b",
+                                        "moonshot-v1-16b-a3b"])
+def arch_pair(request):
+    return model_pair(request.param, seed=4, norm_std=2.0)
+
+
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
 def test_paged_verify_step_matches_reference(pair, kv_dtype):
+    _verify_step_parity(pair, kv_dtype, int8_atol=LOGITS_ATOL)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_paged_verify_step_matches_reference_at_other_archs(arch_pair,
+                                                            kv_dtype):
+    """GQA groups 3 and 7, untied embeddings and the MoE FFN. On int8
+    pools an fp32 difference of ~1e-7 between the packages can round one
+    K or V element to the neighbouring int8 step (deepseek-moe-smoke: one
+    key in layer 1 at the second step), which moves that row's logits by
+    ~2e-4: the pools are held within one step, the logits within 1e-3."""
+    _verify_step_parity(arch_pair, kv_dtype, int8_atol=1e-3)
+
+
+def _verify_step_parity(pair, kv_dtype, int8_atol):
     """Prefill two prompts into shuffled pages, then two verify steps of
     depth 3 with ragged rows (3, 1 and an idle slot), on both packages;
-    logits and then the pools must agree."""
+    logits (fp32 pools: atol 3e-5; int8: ``int8_atol``) and then the pools
+    must agree."""
+    atol = FP32_ATOL if kv_dtype is None else int8_atol
     page, n_pages, mp, spec = 4, 20, 6, 3
     vocab = pair.tcfg.vocab_size
     kw = dict(cache_layout="paged", page_size=page, num_pages=n_pages)
@@ -306,7 +330,7 @@ def test_paged_verify_step_matches_reference(pair, kv_dtype):
             pair.tparams, pair.tcfg, torch.from_numpy(toks), tc,
             torch.from_numpy(table[slot]), torch.from_numpy(cpages),
             chunk_span(0, n))
-        assert_close(tl, jl, LOGITS_ATOL)
+        assert_close(tl, jl, atol)
     positions = np.array([7, 4, 0], np.int32)
     for step, n_rows in enumerate(([3, 1, 0], [2, 3, 0])):
         n_rows = np.array(n_rows, np.int32)
@@ -322,7 +346,7 @@ def test_paged_verify_step_matches_reference(pair, kv_dtype):
         for b in range(2):             # the rows each slot verified
             np.testing.assert_allclose(
                 as_numpy(tl)[b, :n_rows[b]], as_numpy(jl)[b, :n_rows[b]],
-                atol=LOGITS_ATOL, rtol=0)
+                atol=atol, rtol=0)
         positions = positions + n_rows
     for layer, tblk in enumerate(tc["layers"]):
         jblk = {key: np.asarray(val[layer])
