@@ -32,7 +32,11 @@ Phases, each printing one JSON line:
    ending mid-page), paged verify of 4 candidate rows a slot ending at
    those kv_lens,
    on pools of 2049 pages), on bf16 caches and again on int8 caches with
-   their scales, and B8 at the 4 x 2048 mamba2-130m wave's 768 cells,
+   their scales, B8 at the 4 x 2048 mamba2-130m wave's 768 cells, and
+   B3 and B4 at head dim 256 at the hybrid wave's shapes (B3 on the 1 x
+   8000 prompt under the 2048-token window, B4 on 4 sequences over a
+   full ring of 2048 rows, bf16 and int8, with their registers, spills
+   and tensor-core instructions),
    every output row within about one bf16 rounding of its norm, with its
    time, the plain version's, the bound for its work on the card, and
    one PyTorch call computing the same function (timed as a yardstick
@@ -138,15 +142,34 @@ Phases, each printing one JSON line:
    route are recorded, not held (a bf16 mamba2 with random weights moves
    them by a large part of any useful limit under fp32-rounding-size
    changes of B8), and must be finite; and at 2 layers in fp32 the
-   kernel route's tokens equal the plain route's.
+   kernel route's tokens equal the plain route's;
+14. hybrid wave — full-width, full-depth recurrentgemma-9b (38 layers:
+   26 RG-LRU blocks and 12 MQA attention layers of 16 heads of 256 over
+   a 2048-token window, whose decode caches are rings of 2048 rows;
+   bf16, random weights from seed 0; 7,483,486,208 parameters) served by
+   ``ServingEngine`` in waves of 4 x 2048 (the ring filled exactly),
+   1 x 8000 (rolled into the ring by 1856 slots) and 1 x 32768, and the
+   4 x 2048 wave again on int8 caches, 16 new tokens each: B3's
+   head-dim-256 form once an attention layer a prefill, B4's (bf16 or
+   int8 caches) a decode step; TTFT, decode step, peak memory, and the
+   ring slot the first decode row lands in (read back: 0, 1856, 0); on
+   each wave's first prompt every B3 call of the prefill and B4 call of
+   a decode step (bf16 and, on the first wave, int8) held to its plain
+   version (B3's tiled plain version, which skips outside the window, in
+   place of the dense oracle), each beside a zeroed V tile; the 4 x 2048
+   and 1 x 8000 first-token logits within LOGITS_RTOL of the plain
+   route's, the int8 ring's first decode logits within INT8_LOGITS_RTOL
+   of the bf16 ring's; at full width with one unit and the tail (5
+   layers) in fp32 the kernel route's tokens equal the plain route's.
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails unless its kernels launched.
-The last three lines are the kernel table (B1-B8 and the int8 branches of
-B4-B7, each with the launches of its own paths: B1, B2 and B4 add the moe
-and dense-arch phases' to the waves', B5 and B6 the shared-prefix, moe and
-dense-arch phases' to the continuous phase's), the card's name and power
-limit, and the result. TF32 is switched off for matrix products and
+The last three lines are the kernel table (B1-B8, the int8 branches of
+B4-B7 and the head-dim-256 forms of B3 and B4, each with the launches of
+its own paths: B1, B2 and B4 add the moe and dense-arch phases' to the
+waves', B5 and B6 the shared-prefix, moe and dense-arch phases' to the
+continuous phase's, the head-dim-256 forms the hybrid wave's), the card's
+name and power limit, and the result. TF32 is switched off for matrix products and
 convolutions so fp32 comparisons see fp32 arithmetic. The script exits
 non-zero, printing no result, when there is no CUDA device or no port
 beside it, or when any phase fails.
@@ -247,6 +270,22 @@ DENSE_ARCH_TRAFFIC = (
                         ("mas_streamed", 2048, BATCH)), 8),
     ("deepseek-coder-33b", (("mas_streamed", 2048, 1),), 0))
 DENSE_HEADROOM = 4 << 30
+# recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU, 12
+# MQA attention layers of 16 heads of 256 over a 2048-token window)
+# through the wave engine: (prompt length, batch) of each wave: the ring
+# filled exactly (the first decode row overwrites slot 0), a prompt that
+# rolls into the ring by 8000 % 2048 = 1856 slots while B3 skips whole
+# tiles outside the window, and the repo's prefill_32k length, the long
+# context users pick a sub-quadratic model for; then the first wave again
+# on int8 caches.
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_WAVES = ((2048, 4), (8000, 1), (32768, 1))
+HYBRID_NEW_TOKENS = 16
+HYBRID_MAX_LEN = 32768 + HYBRID_NEW_TOKENS
+HYBRID_LOGIT_WAVES = (0, 1)   # first-token logits held to the plain route
+# fp32 kernel-vs-plain token parity at full width: one (rec, rec, attn)
+# unit and the (rec, rec) tail
+HYBRID_FP32_LAYERS = 5
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -263,6 +302,7 @@ PATH_KERNELS = {
             "paged_decode"),
     "dense_archs": ("mas_resident", "mas_streamed", "decode",
                     "paged_prefill", "paged_decode"),
+    "hybrid_wave": ("flash_e256", "decode_e256", "decode_e256_int8"),
 }
 ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs"),
             "mas_streamed": ("waves", "moe", "dense_archs"),
@@ -276,7 +316,9 @@ ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs"),
             "paged_prefill_int8": ("int8_continuous", "shared_prefix_int8"),
             "paged_verify": ("speculative",),
             "paged_verify_int8": ("speculative_int8",),
-            "ssd_intra_chunk": ("ssm_wave",)}
+            "ssd_intra_chunk": ("ssm_wave",),
+            "flash_e256": ("hybrid_wave",), "decode_e256": ("hybrid_wave",),
+            "decode_e256_int8": ("hybrid_wave",)}
 
 # bf16 kernels against their plain versions: both sum in fp32 and round
 # once to bf16, so a row differs by at most about one bf16 rounding
@@ -582,10 +624,12 @@ def phase_device(torch, build) -> dict:
         found = {k: c for k, c in sass[lib].items() if kernel in k}
         require(bool(found) and all(c[kind] > 0 for c in found.values()),
                 f"{kernel}: no {kind.upper()} instruction in {found}")
-    # the tensor-core forms of B4 and B6 at head dims 64 and 128 on bf16
-    # and int8 caches, and B7's also at one and two m16 tiles of rows
+    # the tensor-core forms of B3 (head dims 64, 128 and 256), of B4 (the
+    # same) and B6 (64 and 128) on bf16 and int8 caches, and B7's also at
+    # one and two m16 tiles of rows
     for lib, kernel, n_forms in (
-            ("decode_attention", "decode_bf16_kernel", 4),
+            ("flash_attention", "flash_bf16_kernel", 3),
+            ("decode_attention", "decode_bf16_kernel", 6),
             ("paged_decode_attention", "paged_decode_bf16_kernel", 4),
             ("paged_verify_attention", "paged_verify_bf16_kernel", 8)):
         forms = [k for k in sass[lib] if kernel in k]
@@ -793,6 +837,7 @@ def phase_kernels(torch, device: dict) -> list[dict]:
         rows.append(decode_row(torch, rnd, cfg, quantized))
         rows += paged_rows(torch, rnd, cfg, quantized)
     rows.append(ssd_row(torch, device))
+    rows += hybrid_rows(torch, rnd, device)
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
     for row in rows + [r["blk_q8"] for r in rows if "blk_q8" in r]:
         require(row["row_rel_err"] <= BF16_ROW_RTOL,
@@ -1635,6 +1680,345 @@ def phase_ssm_wave(torch) -> dict:
     return report
 
 
+def flash_plain(q, k, v, *, causal: bool = True, window=None, **_):
+    """B3's plain version (``flash_attention_plain``) on the layout
+    ``ops.attention`` gives the kernel: q (B, Hq, Nq, E), k and v (B, Hkv,
+    Nkv, E) flattened, Q rows padded to the block ``ops.resolve_method``
+    takes, KV rows to the tile under kv_len. It computes a tile only for
+    the Q blocks that run it, so a long windowed call costs the window's
+    work where the dense oracle would hold the whole score matrix (at 1 x
+    32768 and 16 heads, 68.7 GB in fp32). Takes ``models.attention.
+    attention``'s keywords."""
+    import torch
+
+    from repro_torch.core.policy import KV_TILE
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops
+
+    b, hq, nq, e = q.shape
+    _, hkv, nkv, _ = k.shape
+    _, bq = ops.resolve_method(nq, nkv, e, q.element_size(), window=window)
+
+    def padded(x, rows, multiple):
+        flat = x.reshape(-1, rows, e)
+        return torch.nn.functional.pad(flat, (0, 0, 0, (-rows) % multiple))
+
+    kf, vf = padded(k, nkv, KV_TILE), padded(v, nkv, KV_TILE)
+    out = fl.flash_attention_plain(
+        padded(q, nq, bq), kf, vf, blk_q=bq, blk_kv=KV_TILE, causal=causal,
+        window=window, kv_len=nkv if kf.shape[1] != nkv else None)
+    return out[:, :nq].reshape(b, hq, nq, e)
+
+
+def kernel_report(device: dict, lib: str, marker: str) -> dict:
+    """Registers, spills and tensor-core instructions of the kernels of
+    ``lib`` whose names hold ``marker``, from the device phase."""
+    return {"ptxas": {k: v for k, v in device["ptxas"][lib].items()
+                      if marker in k},
+            "tensor_core_instructions": {
+                k: v for k, v in device["tensor_core_instructions"][lib]
+                .items() if marker in k}}
+
+
+def hybrid_rows(torch, rnd, device: dict) -> list[dict]:
+    """B3 and B4 at head dim 256 against their plain versions at the
+    hybrid wave's shapes (recurrentgemma-9b: 16 query heads on one kv
+    head): B3 on the 1 x 8000 prompt under the 2048-token window (whole
+    tiles outside it skipped), B4 on 4 sequences over a full ring of 2048
+    rows, bf16 and int8 (per-row scales). Faults: a V tile zeroed, or its
+    V scales. Yardsticks: SDPA with the window's boolean mask, and SDPA on
+    the ring's rows (int8 dequantized first)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.policy import KV_TILE
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops
+
+    cfg = get_arch(HYBRID_ARCH)
+    hq, hkv, e, window = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.window
+    grp = hq // hkv
+    rows = []
+    n = HYBRID_WAVES[1][0]
+    q, k, v = rnd(hq, n, e), rnd(hkv, n, e), rnd(hkv, n, e)
+    kind, bq = ops.resolve_method(n, n, e, 2, window=window)
+    require((kind, bq) == ("flash", 64), f"policy routes {n} to {kind}")
+    kern = lambda: fl.flash_attention_flat(  # noqa: E731
+        q, k, v, blk_q=bq, causal=True, window=window)
+
+    def plain(v=v):
+        return fl.flash_attention_plain(q, k, v, blk_q=bq, blk_kv=KV_TILE,
+                                        causal=True, window=window)
+
+    # the fault: the second-last KV tile skipped, seen by the last rows
+    check = held_to_plain(kern(), plain(), plain(drop_v_tile(v, n // 64 - 2)))
+    pos = torch.arange(n, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    lib = library_call(torch, q.view(1, hq, n, e), k.view(1, hkv, n, e),
+                       v.view(1, hkv, n, e), causal=False, mask=mask)
+    pairs = sum(min(i + 1, window) for i in range(n))   # visible pairs a head
+    flops = 4.0 * e * pairs * hq
+    nbytes = 2.0 * (2 * hq * n * e + 2 * hkv * n * e)
+    bms, by = bound(flops, nbytes)
+    ms = cuda_ms(torch, kern, 20)
+    rows.append({
+        "name": "flash_e256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": 0, **check, "ms": ms, "plain_ms": cuda_ms(torch, plain, 2),
+        "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(torch, lib, 20),
+        **device_times(torch, kern, lib, 20), "tflops": flops / ms / 1e9,
+        **kernel_report(device, "flash_attention", "<256>"),
+        "shape": {"b": 1, "hq": hq, "hkv": hkv, "n": n, "e": e, "blk_q": bq,
+                  "window": window, "causal": True, "dtype": "bf16",
+                  "visible_pairs_a_head": pairs},
+    })
+
+    b, c = HYBRID_WAVES[0][1], window
+    for quantized in (False, True):
+        dims = -1 if quantized else None
+        qd = rnd(b, hq, e)
+        kc, ks = quantized_rows(rnd(b, hkv, c, e), dims)
+        vc, vs = quantized_rows(rnd(b, hkv, c, e), dims)
+        sc = dict(k_scale=ks, v_scale=vs)
+        n_split, tps = dec.decode_split_plan(qd.dtype, b * hkv, c)
+        lens = torch.full((b * hkv,), c, dtype=torch.int32, device="cuda")
+
+        def kern(qd=qd, kc=kc, vc=vc, sc=sc):
+            return ops.decode_attention(qd, kc, vc, c, **sc)
+
+        def plain(vc=vc, vs=vs, qd=qd, kc=kc, ks=ks):
+            flat = {key: None if t is None else t.view(b * hkv, c)
+                    for key, t in (("k_scale", ks), ("v_scale", vs))}
+            return dec.decode_attention_plain(
+                qd.view(b * hkv, grp, e), kc.view(b * hkv, c, e),
+                vc.view(b * hkv, c, e), lens, n_split=n_split,
+                tiles_per_split=tps, **flat).view(b, hq, e)
+
+        tile = c // KV_TILE - 2
+        faulty = (plain(vs=drop_scale_tile(vs, tile)) if quantized
+                  else plain(vc=drop_v_tile(vc, tile)))
+        check = held_to_plain(kern(), plain(), faulty)
+        lib = library_call(torch, qd.view(b, hq, 1, e), kc, vc, causal=False,
+                           k_scale=ks, v_scale=vs)
+        flops = 4.0 * e * hq * b * c
+        row_bytes = (e + 4) if quantized else 2 * e
+        nbytes = 2.0 * hkv * b * c * row_bytes + 2.0 * 2 * b * hq * e
+        bms, by = bound(flops, nbytes)
+        name = "decode_e256_int8" if quantized else "decode_e256"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": ("src/repro/kernels/decode_attention.py:"
+                         + ("59" if quantized else "32")),
+            "launches": 0, **check, "ms": cuda_ms(torch, kern, 50),
+            "plain_ms": cuda_ms(torch, plain, 3), "bound_ms": bms,
+            "bound_by": by, "library_ms": cuda_ms(torch, lib, 50),
+            **device_times(torch, kern, lib, 50),
+            **kernel_report(device, "decode_attention", "<256"),
+            "shape": {"b": b, "hq": hq, "hkv": hkv, "ring": c, "kv_len": c,
+                      "e": e, "n_split": n_split, "tiles_per_split": tps,
+                      "dtype": "bf16",
+                      "cache": "int8" if quantized else "bf16"},
+        })
+    return rows
+
+
+def ring_slot_written(torch, model, params, prompt, kv_dtype=None) -> int:
+    """The ring slot the first decode step of ``prompt`` (1, L) writes in
+    the first attention layer's cache: the one row whose K changed."""
+    cfg = model.cfg
+    _, cache = model.prefill(params, cfg, prompt, HYBRID_MAX_LEN,
+                             kv_dtype=kv_dtype)
+    layer = cfg.layer_kinds.index("attn")
+    before = cache["layers"][layer]["k"].clone()
+    tok = torch.ones((1, 1), dtype=torch.long, device="cuda")
+    model.decode_step(params, cfg, tok, cache, prompt.shape[1])
+    changed = (cache["layers"][layer]["k"] != before).any(-1)  # (B, Hkv, C)
+    slots = torch.nonzero(changed[0, 0]).view(-1).tolist()
+    require(len(slots) == 1, f"the first decode step changed slots {slots}")
+    return slots[0]
+
+
+def phase_hybrid_wave(torch) -> dict:
+    """Full-width, full-depth recurrentgemma-9b (bf16, random weights from
+    seed 0; 26 RG-LRU and 12 local-attention layers, 16 query heads and
+    one kv head of 256, window 2048) served by the wave ``ServingEngine``
+    in waves of 4 x 2048, 1 x 8000 and 1 x 32768 and the 4 x 2048 wave
+    again on int8 caches, 16 new tokens each: each prefill launches B3's
+    head-dim-256 form once an attention layer, each decode step B4's.
+    Per wave: TTFT, the decode step's wall, peak memory, and the ring
+    slot the first decode row lands in (read back from the cache). On
+    each wave's first prompt every B3 call of the prefill and B4 call of
+    a decode step held to its plain version on the same inputs (rows
+    within BF16_ROW_RTOL, beside a zeroed V tile; B3 against
+    ``flash_plain``, which tiles and skips outside the window); the
+    first-token logits of the 4 x 2048 and 1 x 8000 waves held to the
+    plain route's within LOGITS_RTOL of the largest, and the int8 cache's
+    first decode logits within INT8_LOGITS_RTOL of the bf16 cache's; at
+    full width and HYBRID_FP32_LAYERS layers in fp32 the kernel route
+    serves the 4 x 2048 wave with the plain route's tokens."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    full = full_width_model(torch, HYBRID_ARCH)
+    model, params = full["model"], full["params"]
+    cfg = model.cfg
+    attn_layers = cfg.layer_kinds.count("attn")
+    c = min(HYBRID_MAX_LEN, cfg.window)
+    engines = {(b, kv): ServingEngine(model, params, max_len=HYBRID_MAX_LEN,
+                                      batch_size=b, kv_dtype=kv,
+                                      device="cuda")
+               for b, kv in {(b, None) for _, b in HYBRID_WAVES}
+               | {(HYBRID_WAVES[0][1], "int8")}}
+    rng = np.random.default_rng(7)
+    wave_prompts = [[rng.integers(3, cfg.vocab_size, size=(n,))
+                     .astype(np.int32) for _ in range(b)]
+                    for n, b in HYBRID_WAVES]
+    # warm-up: cuBLAS handles and the kernels' first loads
+    for (b, _), eng in engines.items():
+        eng.serve(make_requests([p[:300] for p in wave_prompts[0][:1]] * b,
+                                2))
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    waves = []
+    runs = [(n, b, None, ps) for (n, b), ps in zip(HYBRID_WAVES,
+                                                   wave_prompts)]
+    runs.append((*HYBRID_WAVES[0], "int8", wave_prompts[0]))
+    served = {}
+    for n, b, kv, ps in runs:
+        eng = engines[(b, kv)]
+        reqs = make_requests(ps, HYBRID_NEW_TOKENS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        out = eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] > before[k]}
+        check_served(eng, reqs, out, HYBRID_NEW_TOKENS, cfg.vocab_size)
+        decode_key = "decode_e256_int8" if kv else "decode_e256"
+        require(launched == {"flash_e256": attn_layers,
+                             decode_key: attn_layers
+                             * (HYBRID_NEW_TOKENS - 1)},
+                f"hybrid wave {b} x {n} {kv}: launches {launched}")
+        served[(n, kv)] = out
+        stamps = eng.token_walltimes
+        step = eng.metrics.histogram("engine.step_s.wave_decode").summary()
+        tokens = sum(len(out[r.rid]) for r in reqs)
+        waves.append({
+            "prompt_len": n, "batch": b, "kv_dtype": kv or "bf16",
+            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_s": max(stamps[r.rid][0] - eng.serve_t0 for r in reqs),
+            "decode_step_s": {"count": step["count"], "mean": step["mean"],
+                              "p50": step["p50"]},
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "ring_slots": c, "rolled_by": n % c if n >= c else 0,
+            "launches": launched,
+        })
+    counts = ops.launch_counts()
+    int8_n = HYBRID_WAVES[0][0]
+    agree = agreement(served[(int8_n, "int8")], served[(int8_n, None)])
+    del engines
+
+    # per wave, on its first prompt: the ring slot of the first decode
+    # row, every B3 call of the prefill and B4 call of a decode step held
+    # to its plain version, and (two waves) the first-token logits
+    # against the plain route
+    plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
+    gates, logits_check = [], []
+    for i, ((n, _), ps) in enumerate(zip(HYBRID_WAVES, wave_prompts)):
+        prompt = torch.from_numpy(ps[0][None].astype(np.int64)).cuda()
+        slot = ring_slot_written(torch, model, params, prompt)
+        require(slot == n % c, f"hybrid {n}: the first decode row landed in "
+                               f"slot {slot}, not {n % c}")
+        (got, cache), gate = attention_gate(
+            lambda: model.prefill(params, cfg, prompt, HYBRID_MAX_LEN),
+            plain_fns={"attention": flash_plain})
+        tok = got[:, -1].argmax(-1, keepdim=True)
+        _, dgate = attention_gate(
+            lambda: model.decode_step(params, cfg, tok, cache, n))
+        del cache
+        require(gate["kernels"] == {"flash_e256": attn_layers},
+                f"hybrid prefill {n}: {gate['kernels']}")
+        require(dgate["kernels"] == {"decode_e256": attn_layers},
+                f"hybrid decode {n}: {dgate['kernels']}")
+        entry = {"prompt_len": n, "first_decode_slot": slot,
+                 "prefill": gate, "decode": dgate}
+        if i == 0:      # the int8 ring's decode step, and its logits
+            _, cache8 = model.prefill(params, cfg, prompt, HYBRID_MAX_LEN,
+                                      kv_dtype="int8")
+            got8, gate8 = attention_gate(
+                lambda: model.decode_step(params, cfg, tok, cache8, n)[0])
+            require(gate8["kernels"] == {"decode_e256_int8": attn_layers},
+                    f"hybrid int8 decode {n}: {gate8['kernels']}")
+            _, cache = model.prefill(params, cfg, prompt, HYBRID_MAX_LEN)
+            want8, _ = model.decode_step(params, cfg, tok, cache, n)
+            del cache, cache8
+            scale = float(want8.float().abs().max())
+            err = max_err(got8, want8)
+            entry["int8_decode"] = gate8
+            entry["int8_vs_bf16_decode_logits"] = {
+                "max_abs_err": err, "max_abs_logit": scale,
+                "tol": INT8_LOGITS_RTOL * max(1.0, scale)}
+            require(err <= INT8_LOGITS_RTOL * max(1.0, scale),
+                    f"hybrid int8 decode logits: {err} vs bf16")
+        gates.append(entry)
+        if i in HYBRID_LOGIT_WAVES:
+            want, _ = plain_model.prefill(params, plain_model.cfg, prompt, n)
+            check = {"prompt_len": n, **prefill_vs_plain(got, want)}
+            logits_check.append(check)
+            require(check["finite"] and check["max_abs_err"] <= check["tol"],
+                    f"hybrid prefill {n} logits: {check}")
+        else:
+            require(bool(got.isfinite().all()),
+                    f"hybrid prefill {n}: logits not finite")
+    init_s, n_params = full["init_s"], full["n_params"]
+    del full, params, model, plain_model
+    torch.cuda.empty_cache()
+
+    # fp32, one unit and the tail: the kernel route's tokens are the plain
+    # route's on the 4 x 2048 wave
+    cfg32, m32, p32 = fp32_model(torch, cfg, HYBRID_FP32_LAYERS)
+    plain32 = build_model(dataclasses.replace(cfg32, attn_impl="plain"))
+    n, b = HYBRID_WAVES[0]
+    outs = [ServingEngine(m, p32, max_len=HYBRID_MAX_LEN, batch_size=b,
+                          device="cuda").serve(
+                make_requests(wave_prompts[0], HYBRID_NEW_TOKENS))
+            for m in (m32, plain32)]
+    parity = {"layers": HYBRID_FP32_LAYERS, "kinds": list(cfg32.layer_kinds),
+              "prompt_len": n, "batch": b,
+              "mismatched_rids": [rid for rid in outs[1] if not
+                                  np.array_equal(outs[0][rid], outs[1][rid])],
+              "distinct_tokens": len({int(t) for v in outs[0].values()
+                                      for t in v})}
+    del m32, p32, plain32
+    torch.cuda.empty_cache()
+    report = {
+        "phase": "hybrid_wave", "arch": HYBRID_ARCH, "params": n_params,
+        "init_s": init_s, "layers": cfg.num_layers,
+        "rec_layers": cfg.layer_kinds.count("rec"),
+        "attn_layers": attn_layers, "window": cfg.window, "dtype": "bf16",
+        "new_tokens": HYBRID_NEW_TOKENS, "max_len": HYBRID_MAX_LEN,
+        "waves": waves, "launches": counts,
+        "int8_tokens_agreeing_with_bf16": agree,
+        "attention_gates": gates, "prefill_vs_plain": logits_check,
+        "fp32_parity": parity,
+    }
+    emit(report)
+    require(not parity["mismatched_rids"],
+            f"fp32 hybrid: kernel tokens differ from plain for rids "
+            f"{parity['mismatched_rids']}")
+    return report
+
+
 def phase_main_path(torch, full: dict) -> dict:
     """Full-width internlm2-1.8b served in three waves on the card."""
     import numpy as np
@@ -1801,13 +2185,13 @@ def check_served(eng, reqs, out, new: int, vocab: int) -> None:
                 f"rid {r.rid}: token out of range")
 
 
-def fp32_model(torch, cfg):
-    """Full width, FP32_LAYERS layers, fp32, random weights from seed 0
+def fp32_model(torch, cfg, layers: int = FP32_LAYERS):
+    """Full width, ``layers`` layers, fp32, random weights from seed 0
     with norm scales (an SSD block's gate norm too) from N(0, 4), so that
     greedy tokens vary."""
     from repro_torch.models.api import build_model
 
-    cfg32 = dataclasses.replace(cfg, num_layers=FP32_LAYERS,
+    cfg32 = dataclasses.replace(cfg, num_layers=layers,
                                 compute_dtype=torch.float32)
     m32 = build_model(cfg32)
     p32 = m32.init(seed=0, device="cuda", dtype=torch.float32)
@@ -2632,15 +3016,18 @@ def routing_differences(a, b) -> int:
                for ra, rb in zip(a, b, strict=True))
 
 
-def attention_gate(run):
+def attention_gate(run, plain_fns=None):
     """``run()`` (a kernel-route prefill, decode step or prompt chunk) with
     every attention call of the model (``models/attention.py``: full
     sequence, dense decode, paged prefill) held to the plain version on
     the same inputs as it returns, beside its planted fault: the plain
     version with V tile 0 (the paged form: the table's first page)
-    zeroed, which every row sees. Returns (run's result, {kernels
-    launched: calls, largest row error, smallest planted fault error,
-    limit})."""
+    zeroed, which every row sees (under a window, every row of the
+    window's first positions). ``plain_fns`` names a plain version to use
+    in place of the function's ``impl="plain"``, by function name, called
+    with the same arguments (``flash_plain``: a long windowed call whose
+    dense oracle would not fit). Returns (run's result, {kernels launched:
+    calls, largest row error, smallest planted fault error, limit})."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention as am
 
@@ -2661,6 +3048,12 @@ def attention_gate(run):
 
     def watched(name):
         fn = real[name]
+        plain_fn = (plain_fns or {}).get(name)
+
+        def reference(*args, **kw):
+            if plain_fn is not None:
+                return plain_fn(*args, **kw)
+            return fn(*args, **dict(kw, impl="plain"))
 
         def call(*args, **kw):
             before = ops.launch_counts()
@@ -2668,11 +3061,10 @@ def attention_gate(run):
             after = ops.launch_counts()
             for k in after:
                 kernels[k] = kernels.get(k, 0) + after[k] - before[k]
-            plain = dict(kw, impl="plain")
-            want = fn(*args, **plain)
+            want = reference(*args, **kw)
             errs.append(row_rel_err(got, want))
-            fault_errs.append(row_rel_err(fn(*faults[name](args), **plain),
-                                          want))
+            fault_errs.append(row_rel_err(reference(*faults[name](args),
+                                                    **kw), want))
             return got
         return call
 
@@ -3075,6 +3467,8 @@ def main() -> int:
     launches["dense_archs"] = phase_dense_archs(torch)["launches"]
     torch.cuda.empty_cache()
     launches["ssm_wave"] = phase_ssm_wave(torch)["launches"]
+    torch.cuda.empty_cache()
+    launches["hybrid_wave"] = phase_hybrid_wave(torch)["launches"]
     for row in rows:
         row["launches"] = sum(launches[path][row["name"]]
                               for path in ROW_PATH[row["name"]])

@@ -2,8 +2,9 @@
 """Trace the serving paths of the PyTorch port on one GPU.
 
 Serves full-width internlm2-1.8b (bf16, random weights from seed 0) on
-seven paths, full-width mamba2-130m on one more and full-width
-deepseek-moe-16b on two, each once to warm up,
+seven paths, full-width mamba2-130m on one more, full-width
+deepseek-moe-16b on two and full-width recurrentgemma-9b on one, each
+once to warm up,
 once untraced and once under ``torch.profiler``, and prints one JSON
 line a path:
 
@@ -47,7 +48,15 @@ line a path:
   matmuls of the routed and the shared experts) and ``dispatch and
   combine`` (the scatter into the capacity buffers, the gather back, the
   gate weighting), from profiler ranges around ``moe_ffn`` and
-  ``moe_route`` as the device ran them.
+  ``moe_route`` as the device ran them;
+* ``hybrid_wave``: full-width, full-depth recurrentgemma-9b (bf16,
+  random weights from seed 0; 26 RG-LRU and 12 windowed MQA layers of
+  head dim 256), ``chip_smoke.py``'s 4 x 2048 hybrid wave (16 new
+  tokens): B3's head-dim-256 form on the prefill, B4's on the decode
+  steps (also reported as ``b3`` and ``b4``: launches and device ms), and
+  ``rglru``: the device time of the RG-LRU block's doubling scan
+  (``rglru.affine_scan``) and its causal conv (``rglru.causal_conv``),
+  from profiler ranges around them.
 
 Each line holds the serve's wall time untraced and traced, the device's
 busy share over the traced serve, the busy share and time of each step
@@ -89,7 +98,10 @@ MOE_ARCH = "deepseek-moe-16b"
 DENSE = ("continuous", "int8_continuous", "speculative", "speculative_int8",
          "shared_prefix", "wave", "int8_wave")
 MOE = ("moe_wave", "moe_continuous")
-PATHS = DENSE + ("ssm_wave",) + MOE
+HYBRID_ARCH, HYBRID_WAVE = "recurrentgemma-9b", (4, 2048)
+PATHS = DENSE + ("ssm_wave",) + MOE + ("hybrid_wave",)
+# profiler ranges put around functions, not kernels
+MARKS = ("step:", "moe:", "rglru:")
 B8 = "B8 ssd_intra_chunk"
 B5, B6 = "B5 paged_prefill", "B6 paged_decode"
 # kernel name fragments -> group, first match wins
@@ -166,7 +178,7 @@ def summary(torch, untraced: float, wall: float, prof) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     # device events, without the device-side copies of the step marks
     kernels = [e for e in events if e.device_type == cuda
-               and not e.name.startswith(("step:", "moe:"))]
+               and not e.name.startswith(MARKS)]
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     steps = sorted((e.time_range.start, e.name.split(":", 1)[1])
                    for e in events
@@ -238,7 +250,7 @@ def moe_split(torch, prof) -> dict:
 
     parts: dict[str, list] = {}
     for e in events:
-        if e.device_type != cuda or e.name.startswith(("step:", "moe:")):
+        if e.device_type != cuda or e.name.startswith(MARKS):
             continue
         t = e.time_range.start
         if inside("moe:route", t):
@@ -253,6 +265,37 @@ def moe_split(torch, prof) -> dict:
         entry[1] += (e.time_range.end - e.time_range.start) / 1e3
     return {part: {"launches": n, "ms": ms}
             for part, (n, ms) in parts.items()}
+
+
+def range_times(torch, prof, prefix: str) -> dict:
+    """Device ms and launches of the kernels inside each device-side
+    profiler range whose name starts with ``prefix``, by range name
+    (without the prefix)."""
+    import bisect
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans: dict[str, list] = {}
+    for e in events:
+        if e.device_type == cuda and e.name.startswith(prefix):
+            spans.setdefault(e.name[len(prefix):], []).append(
+                (e.time_range.start, e.time_range.end))
+    if not spans:
+        return {"not measured": f"no device-side {prefix} ranges in the "
+                                "trace"}
+    spans = {name: sorted(v) for name, v in spans.items()}
+    starts = {name: [a for a, _ in v] for name, v in spans.items()}
+    out = {name: [0, 0.0] for name in spans}
+    for e in events:
+        if e.device_type != cuda or e.name.startswith(MARKS):
+            continue
+        t = e.time_range.start
+        for name, v in spans.items():
+            i = bisect.bisect_right(starts[name], t) - 1
+            if i >= 0 and v[i][1] >= t:
+                out[name][0] += 1
+                out[name][1] += (e.time_range.end - e.time_range.start) / 1e3
+    return {name: {"launches": n, "ms": ms} for name, (n, ms) in out.items()}
 
 
 def main() -> int:
@@ -286,6 +329,9 @@ def main() -> int:
     if paths & set(MOE):
         trace_moe(torch, np, paths, get_arch, build_model,
                   ContinuousBatchingEngine, Request, ServingEngine)
+    if "hybrid_wave" in paths:
+        trace_hybrid(torch, np, get_arch, build_model, Request,
+                     ServingEngine)
     return 0
 
 
@@ -300,6 +346,11 @@ def trace_wave(torch, eng, reqs, header: dict) -> None:
         line["b8"] = line["device_ms_by_group"][B8]   # launches and ms
     if header["path"] in MOE:
         line["moe_ffn"] = moe_split(torch, out[2])
+    if header["path"] == "hybrid_wave":
+        groups = line["device_ms_by_group"]
+        line["b3"], line["b4"] = groups.get("B3 flash"), groups.get(
+            "B4 decode")
+        line["rglru"] = range_times(torch, out[2], "rglru:")
     print(json.dumps(line), flush=True)
 
 
@@ -363,6 +414,32 @@ def trace_moe(torch, np, paths, get_arch, build_model,
                     "prompt": n, "new_tokens": WAVE_NEW_TOKENS})
         del eng
     del model, params
+    torch.cuda.empty_cache()
+
+
+def trace_hybrid(torch, np, get_arch, build_model, Request, ServingEngine):
+    from repro_torch.models import rglru
+
+    cfg = get_arch(HYBRID_ARCH)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
+    for name, mark in (("affine_scan", "scan"), ("causal_conv", "conv")):
+        setattr(rglru, name, ranged(torch, getattr(rglru, name),
+                                    f"rglru:{mark}"))
+    batch, n = HYBRID_WAVE
+    rng = np.random.default_rng(7)
+    wave = [rng.integers(3, cfg.vocab_size, size=(n,)).astype(np.int32)
+            for _ in range(batch)]
+    eng = ServingEngine(model, params, max_len=n + WAVE_NEW_TOKENS,
+                        batch_size=batch, device="cuda")
+    trace_wave(torch, eng, lambda: [
+        Request(rid=i, prompt=p, max_new_tokens=WAVE_NEW_TOKENS, eos_id=-1)
+        for i, p in enumerate(wave)],
+        {"path": "hybrid_wave", "arch": HYBRID_ARCH,
+         "device": torch.cuda.get_device_name(0), "batch": batch,
+         "prompt": n, "new_tokens": WAVE_NEW_TOKENS,
+         "window": cfg.window})
+    del eng, model, params
     torch.cuda.empty_cache()
 
 

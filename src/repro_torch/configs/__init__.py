@@ -16,6 +16,7 @@ _MODULES = {
     "deepseek-coder-33b": "deepseek_coder_33b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

@@ -30,6 +30,12 @@
 //   each lane converts the chunks it copied to bf16 (exact) into its
 //   warp's slot; the K scale multiplies the score, the V scale P after
 //   the row sum. The merge pass is decode_bf16_merge_kernel, for both.
+//   Head dims 64 and 128, and 256 for recurrentgemma-9b's MQA layers
+//   (G = 16 on one kv head, 4 sequences on a ring of 2048 rows): a warp
+//   then holds 128 accumulators a thread, and its ring of three 16-row
+//   slices takes 48 KB, so one block of four warps fills an SM's shared
+//   memory and the split plan's 1-tile splits (4 x 32 blocks at a full
+//   ring) give the 132 SMs a block each.
 // - an fp32 q (decode_fp32_launch, and decode_int8_launch with an fp32
 //   q): the CUDA-core kernel below, on split_plan's longer splits, held to
 //   the plain version at 3e-5. It stages a tile with one load after
@@ -289,19 +295,21 @@ int launch_tc(const void* q, const void* k, const void* v, const void* ks,
   return (int)cudaGetLastError();
 }
 
-// The tensor-core form for head dim E: 64 or 128, G <= 16.
+// The tensor-core form for head dim E: 64, 128 or 256, G <= 16.
 template <typename KV>
 int dispatch_tc(const void* q, const void* k, const void* v, const void* ks,
                 const void* vs, const void* kv_lens, void* o, void* m_part,
                 void* l_part, void* acc_part, int bh, int G, int s_len,
                 int E, int n_split, int tiles_per_split, float sm_scale,
                 void* stream) {
-  if (G > MAXG || (E != 64 && E != 128)) return (int)cudaErrorInvalidValue;
+  if (G > MAXG || (E != 64 && E != 128 && E != 256))
+    return (int)cudaErrorInvalidValue;
 #define REPRO_DECODE_ARGS                                                 \
   q, k, v, ks, vs, static_cast<const int*>(kv_lens), o,                   \
       static_cast<float*>(m_part), static_cast<float*>(l_part),           \
       static_cast<float*>(acc_part), bh, G, s_len, n_split,               \
       tiles_per_split, sm_scale, static_cast<cudaStream_t>(stream)
+  if (E == 256) return launch_tc<256, KV>(REPRO_DECODE_ARGS);
   return E == 128 ? launch_tc<128, KV>(REPRO_DECODE_ARGS)
                   : launch_tc<64, KV>(REPRO_DECODE_ARGS);
 #undef REPRO_DECODE_ARGS
@@ -315,8 +323,8 @@ int dispatch_tc(const void* q, const void* k, const void* v, const void* ks,
 // acc_part (bh, n_split, G, E), fp32. Split sp covers KV tiles
 // [sp * tiles_per_split, (sp + 1) * tiles_per_split). Contiguous.
 
-// bf16 q and caches, on the tensor cores: E 64 or 128, G <= 16, 16-byte
-// aligned rows.
+// bf16 q and caches, on the tensor cores: E 64, 128 or 256, G <= 16,
+// 16-byte aligned rows.
 extern "C" int decode_bf16_launch(const void* q, const void* k,
                                   const void* v, const void* kv_lens,
                                   void* o, void* m_part, void* l_part,
@@ -344,8 +352,8 @@ extern "C" int decode_fp32_launch(const void* q, const void* k,
 }
 
 // int8 caches with their per-row scales: a bf16 q (dtype 1) on the tensor
-// cores (E 64 or 128, G <= 16, 16-byte aligned rows), an fp32 q (dtype 0)
-// on the CUDA cores.
+// cores (E 64, 128 or 256, G <= 16, 16-byte aligned rows), an fp32 q
+// (dtype 0) on the CUDA cores.
 extern "C" int decode_int8_launch(const void* q, const void* k,
                                   const void* v, const void* ks,
                                   const void* vs, const void* kv_lens,

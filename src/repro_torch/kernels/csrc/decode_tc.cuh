@@ -220,7 +220,10 @@ __device__ __forceinline__ void split_block(
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   static_assert(Q8 || std::is_same<KV, bf16>::value, "bf16 or int8 K/V");
-  static_assert(E == 64 || E == 128, "head dim 64 or 128");
+  // 256: B4 only (recurrentgemma-9b). A warp's 16 x 256 accumulators are
+  // 128 registers a thread; the rings take 192 KB (bf16) or 170 KB (int8
+  // K/V with their bf16 slots), one block an SM.
+  static_assert(E == 64 || E == 128 || E == 256, "head dim 64, 128 or 256");
   constexpr int LDO = E + 8;       // the warps' merge rows, fp32
   static_assert(WARPS * MT * 16 * LDO * 4 <=
                     ring_bytes<E, Q8>() + conv_bytes<E, Q8>(),

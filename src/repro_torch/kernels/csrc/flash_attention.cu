@@ -15,7 +15,7 @@
 // The fp32 form (flash_attention_fp32_launch) runs its products on the
 // CUDA cores in fp32: bound by instructions and latency, one block an SM.
 //
-// The bf16 form (flash_attention_bf16_launch, head dim 64 or 128) is bound
+// The bf16 form (flash_attention_bf16_launch, head dim 64, 128 or 256) is bound
 // by its tensor-core products (the causal 1 x 8192 prefill is 275 GFLOP
 // against 0.10 GB of inputs). Its design:
 // - 64-row blocks of one warpgroup (4 warps of 16 rows), so each K/V
@@ -34,6 +34,18 @@
 //   memory for every tile (flash_tile.cuh says why).
 // - K and V tiles are double-buffered by cp.async: tile j + 1 is copied
 //   while tile j is multiplied.
+//
+// At head dim 256 (recurrentgemma-9b's windowed MQA layers) one
+// warpgroup would hold Q's fragments (64 registers), O's accumulators
+// (128) and S (32) at once, past the 255 registers a thread may have. So
+// at E 256 the kernel (Bf16Form<256>) runs the same 64-row block with
+// two warpgroups: each computes S = Q K^T whole (16 k steps of
+// m64n64k16) and the same online max and sum, and owns one 128-column
+// half of O (P V by m64n128k16 on its half of the V tile), so a thread
+// holds 64 accumulators. S is computed twice, a third more products than
+// one warpgroup would do, in exchange for no spills. Q is 32 KB and a K
+// or V tile 32 KB: the two stages take 161 KB with the alignment pad, one
+// block an SM.
 #include "flash_tile.cuh"
 
 namespace {
@@ -180,19 +192,33 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 constexpr int BQ = 64;             // bf16 form: query rows a block
-constexpr int BF16_THREADS = 128;  // one warpgroup: 4 warps of 16 rows
+
+// The bf16 form's warpgroups at head dim E: one of 4 warps of 16 rows, or
+// at E 256 two, each with one 128-column half of O (EO columns).
+template <int E>
+struct Bf16Form {
+  static constexpr int WGS = E == 256 ? 2 : 1;
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int EO = E / WGS;
+  static constexpr int MIN_BLOCKS = E == 256 ? 1 : 2;   // an SM
+};
 
 template <int E>
-__global__ void __launch_bounds__(BF16_THREADS, 2)
+__global__ void __launch_bounds__(Bf16Form<E>::THREADS,
+                                  Bf16Form<E>::MIN_BLOCKS)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, int nq, int nkv, int group,
                   int causal, int window, int q_offset, int kv_len,
                   float scale_log2) {
+  constexpr int WGS = Bf16Form<E>::WGS, NT = Bf16Form<E>::THREADS;
+  constexpr int EO = Bf16Form<E>::EO;
   constexpr int TILE = KV_TILE * E * 2;     // bytes of one K or V tile
   // the last Q blocks have the most live tiles: they go first
   const int iq = gridDim.x - 1 - blockIdx.x, bh = blockIdx.y;
+  // this warpgroup's columns of O (0 for one warpgroup, at compile time)
+  const int wg = WGS == 1 ? 0 : threadIdx.x / 128;
   const int row0 = iq * BQ + q_offset;
   const int nkv_t = nkv / KV_TILE;
   const bool windowed = window > 0;
@@ -214,22 +240,22 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + kv_off;
   const __nv_bfloat16* vb = v + kv_off;
 
-  tc::cp_rows_sw128<E, BQ>(qs, q + ((size_t)bh * nq + iq * BQ) * E, BF16_THREADS);
+  tc::cp_rows_sw128<E, BQ>(qs, q + ((size_t)bh * nq + iq * BQ) * E, NT);
   if (j_lo <= j_hi) {
-    tc::cp_rows_sw128<E, KV_TILE>(kv0, kb + (size_t)j_lo * KV_TILE * E, BF16_THREADS);
-    tc::cp_rows_sw128<E, KV_TILE>(kv0 + TILE, vb + (size_t)j_lo * KV_TILE * E, BF16_THREADS);
+    tc::cp_rows_sw128<E, KV_TILE>(kv0, kb + (size_t)j_lo * KV_TILE * E, NT);
+    tc::cp_rows_sw128<E, KV_TILE>(kv0 + TILE, vb + (size_t)j_lo * KV_TILE * E, NT);
   }
   tc::cp_async_commit();
 
-  tc::OnlineRows<E> st;
+  tc::OnlineRows<EO> st;
   st.init();
 
   for (int j = j_lo; j <= j_hi; ++j) {
     const uint32_t kt = kv0 + ((j - j_lo) & 1) * 2 * TILE, vt = kt + TILE;
     if (j < j_hi) {
       const uint32_t nk = kv0 + ((j + 1 - j_lo) & 1) * 2 * TILE;
-      tc::cp_rows_sw128<E, KV_TILE>(nk, kb + (size_t)(j + 1) * KV_TILE * E, BF16_THREADS);
-      tc::cp_rows_sw128<E, KV_TILE>(nk + TILE, vb + (size_t)(j + 1) * KV_TILE * E, BF16_THREADS);
+      tc::cp_rows_sw128<E, KV_TILE>(nk, kb + (size_t)(j + 1) * KV_TILE * E, NT);
+      tc::cp_rows_sw128<E, KV_TILE>(nk + TILE, vb + (size_t)(j + 1) * KV_TILE * E, NT);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();
@@ -237,7 +263,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     // Q's fragments are loaded for every tile (see flash_tile.cuh)
     uint32_t qf[E / 16][4];
-    tc::load_q_fragments<E>(qf, qs);
+    tc::load_q_fragments<E, WGS>(qf, qs);
 
     const int col0 = j * KV_TILE;
     bool need_mask = false;
@@ -252,12 +278,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       if (tail) ok = ok && (col < kv_len);
       return ok;
     };
-    tc::online_tile<E, false>(st, qf, kt, vt, scale_log2, need_mask, keep,
-                              nullptr, nullptr);
+    // V's columns [EO wg, EO wg + EO): its sw128 halves from EO wg / 64
+    tc::online_tile<E, false, EO>(st, qf, kt,
+                                  vt + wg * (EO / 64) * (KV_TILE * 128),
+                                  scale_log2, need_mask, keep, nullptr,
+                                  nullptr);
     __syncthreads();   // the next copy overwrites this tile's stage
   }
   tc::cp_async_wait<0>();
-  tc::store_rows<E>(st, o + ((size_t)bh * nq + iq * BQ) * E);
+  tc::store_rows<EO, WGS>(st, o + ((size_t)bh * nq + iq * BQ) * E + wg * EO,
+                          E);
 }
 
 template <int E>
@@ -273,7 +303,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bhq,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nq / BQ, bhq);
-  flash_bf16_kernel<E><<<grid, BF16_THREADS, smem, stream>>>(
+  flash_bf16_kernel<E><<<grid, Bf16Form<E>::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), nq,
       nkv, group, causal, window, q_offset, kv_len,
@@ -309,8 +339,8 @@ extern "C" int flash_attention_fp32_launch(const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-// bf16, on the tensor cores (wgmma): E 64 or 128, nq % 64 == 0, q, k and
-// v 16-byte aligned.
+// bf16, on the tensor cores (wgmma): E 64, 128 or 256, nq % 64 == 0, q, k
+// and v 16-byte aligned.
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, void* o, int bhq,
                                            int nq, int nkv, int E, int group,
@@ -324,5 +354,8 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
   if (E == 64)
     return launch_bf16<64>(q, k, v, o, bhq, nq, nkv, group, causal, window,
                            q_offset, kv_len, sm_scale, s);
+  if (E == 256)
+    return launch_bf16<256>(q, k, v, o, bhq, nq, nkv, group, causal, window,
+                            q_offset, kv_len, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,13 @@
 // The online-softmax tile step of the wgmma kernels: B3's bf16 form
 // (flash_attention.cu) and B5's (paged_prefill_attention.cu).
 //
-// A block is one warpgroup (4 warps of 16 rows) for 64 query rows. Each
+// A warpgroup (4 warps of 16 rows) computes 64 query rows. Each
 // thread holds its two rows' running max m and sum share l (rows g and
-// g + 8 of its warp, g = lane / 4) and its share of the (64, E) output
-// accumulator. One step takes one 64-row KV tile from shared memory:
+// g + 8 of its warp, g = lane / 4) and its share of the warpgroup's
+// (64, EO) output accumulator: EO = E, or at E 256 one of two 128-column
+// halves, each warpgroup of a two-warpgroup block (B3's E-256 form)
+// computing S whole and its own half of O. One step takes one 64-row KV
+// tile from shared memory:
 // - S = Q K^T by wgmma m64n64k16, Q's A fragments in registers, the K tile
 //   (K-major) read through its descriptor;
 // - S scaled to base 2 (and, for an int8 pool, by each column's K scale),
@@ -12,7 +15,7 @@
 // - the online max and sum over each row's quad of threads, the output
 //   rescaled in registers;
 // - P (times each column's V scale, for an int8 pool, after the row sum
-//   and before the split) as bf16 hi + lo into O += P V by wgmma m64nEk16,
+//   and before the split) as bf16 hi + lo into O += P V by wgmma m64nEOk16,
 //   the S accumulators reused as P V's A fragments, the V tile (MN-major)
 //   read through its descriptor.
 // K and V tiles are KV_TILE rows of E bf16 in the 128-byte-swizzled
@@ -24,16 +27,26 @@
 namespace repro {
 namespace tc {
 
-// O (64 x E) += A (64 x 16) B (16 x E), B MN-major: the P V product.
+// O (64 x E) += A (64 x 16) B (16 x E), B MN-major: the P V product (E
+// here is the warpgroup's output columns, EO).
 template <int E>
 __device__ __forceinline__ void wgmma_pv(float (&d)[E / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
-  static_assert(E == 64 || E == 128, "the wgmma kernels take E 64 or 128");
+  static_assert(E == 64 || E == 128, "a warpgroup's P V is 64 or 128 wide");
   if constexpr (E == 64) {
     wgmma_m64n64k16<1>(d, a, b);
   } else {
     wgmma_m64n128k16<1>(d, a, b);
   }
+}
+
+// The warp's index in its warpgroup: where one warpgroup runs the tile
+// steps (WGS 1: B5's consumer warps 0-3, B3 at E 64 and 128) simply
+// threadIdx.x / 32, as the single-warpgroup code has always computed it;
+// with two warpgroups (B3 at E 256) the warp's place in its own.
+template <int WGS>
+__device__ __forceinline__ int wg_warp() {
+  return WGS == 1 ? threadIdx.x / 32 : threadIdx.x % 128 / 32;
 }
 
 // A warpgroup's online-softmax state for 64 query rows.
@@ -67,27 +80,28 @@ struct OnlineRows {
 // products), and every later tile's scores came out wrong. Loaded per
 // tile, no operand of the products is carried from one tile to the next
 // in registers.
-template <int E>
+template <int E, int WGS = 1>
 __device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[E / 16][4],
                                                  uint32_t qs) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = wg_warp<WGS>(), lane = threadIdx.x % 32;
 #pragma unroll
   for (int ks = 0; ks < E / 16; ++ks)
     ldsm_x4(qf[ks], qs + sw128<64>(warp * 16 + lane % 16, ks * 16 + lane / 16 * 8));
 }
 
-// One KV tile (K at kt, V at vt) into the state. keep(row, col): whether
-// row `row` of the block sees column `col` of the tile, asked only when
-// need_mask. SCALED (int8 pools): ks, vs hold the tile's per-column K and
-// V scales; otherwise they are not read.
-template <int E, bool SCALED, typename Keep>
-__device__ __forceinline__ void online_tile(OnlineRows<E>& st,
+// One KV tile (K at kt, V's first of the warpgroup's EO columns at vt)
+// into the state. keep(row, col): whether row `row` of the block sees
+// column `col` of the tile, asked only when need_mask. SCALED (int8
+// pools): ks, vs hold the tile's per-column K and V scales; otherwise they
+// are not read.
+template <int E, bool SCALED, int EO = E, typename Keep>
+__device__ __forceinline__ void online_tile(OnlineRows<EO>& st,
                                             uint32_t (&qf)[E / 16][4],
                                             uint32_t kt, uint32_t vt,
                                             float scale_log2, bool need_mask,
                                             Keep keep, const float* ks,
                                             const float* vs) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = wg_warp<E / EO>(), lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
 
   float s[32];
@@ -134,7 +148,7 @@ __device__ __forceinline__ void online_tile(OnlineRows<E>& st,
     }
     st.l[rr] = st.l[rr] * alpha + sum;
 #pragma unroll
-    for (int nb = 0; nb < E / 8; ++nb) {
+    for (int nb = 0; nb < EO / 8; ++nb) {
       st.o[4 * nb + 2 * rr] *= alpha;
       st.o[4 * nb + 2 * rr + 1] *= alpha;
     }
@@ -162,8 +176,8 @@ __device__ __forceinline__ void online_tile(OnlineRows<E>& st,
 #pragma unroll
   for (int kk = 0; kk < KV_TILE / 16; ++kk) {
     const uint64_t dv = gmma_desc(vt + kk * 16 * 128, KV_TILE * 128, 1024);
-    wgmma_pv<E>(st.o, ph[kk], dv);
-    wgmma_pv<E>(st.o, pl[kk], dv);
+    wgmma_pv<EO>(st.o, ph[kk], dv);
+    wgmma_pv<EO>(st.o, pl[kk], dv);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -172,12 +186,12 @@ __device__ __forceinline__ void online_tile(OnlineRows<E>& st,
   fence_regs(pl);
 }
 
-// The block's 64 output rows, O / l (l = 0, a row that saw no key, divides
-// by 1), as bf16 at ob (row stride E).
-template <int E>
+// The warpgroup's 64 output rows of E columns, O / l (l = 0, a row that
+// saw no key, divides by 1), as bf16 at ob (row stride ld, E by default).
+template <int E, int WGS = 1>
 __device__ __forceinline__ void store_rows(const OnlineRows<E>& st,
-                                           __nv_bfloat16* ob) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+                                           __nv_bfloat16* ob, int ld = E) {
+  const int warp = wg_warp<WGS>(), lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -186,7 +200,7 @@ __device__ __forceinline__ void store_rows(const OnlineRows<E>& st,
     const int r = warp * 16 + g + 8 * rr;
 #pragma unroll
     for (int nb = 0; nb < E / 8; ++nb) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * E + nb * 8 + 2 * t4) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * ld + nb * 8 + 2 * t4) =
           __floats2bfloat162_rn(st.o[4 * nb + 2 * rr] / lr, st.o[4 * nb + 2 * rr + 1] / lr);
     }
   }

@@ -12,7 +12,7 @@ The forms, chosen by ``entry_point`` from the dtypes, with nothing
 falling back from one to another:
 
 * a bf16 q on bf16 caches (``decode_bf16_launch``) or on int8 caches
-  (``decode_int8_launch``), head dim 64 or 128, G <= 16: the tensor-core
+  (``decode_int8_launch``), head dim 64, 128 or 256, G <= 16: the tensor-core
   design of ``csrc/decode_tc.cuh`` on short splits of 1-4 tiles
   (``decode_split_plan``), so the longest sequence of a ragged batch
   spreads over every SM; an int8 slice is converted to bf16 (exactly) in
@@ -40,8 +40,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import NEG_INF
 
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
-# by branch: bf16/fp32 caches and int8 caches.
-LAUNCHES = {"decode": 0, "decode_int8": 0}
+# by branch: bf16/fp32 caches and int8 caches, the tensor-core form at head
+# dim 256 apart from the rest.
+LAUNCHES = {"decode": 0, "decode_int8": 0, "decode_e256": 0,
+            "decode_e256_int8": 0}
 
 # Enough (b·h, split) blocks to give each of the H100's 132 SMs two.
 TARGET_BLOCKS = 264
@@ -69,9 +71,11 @@ def check_scales(k, v, k_scale, v_scale, scale_shape) -> bool:
     return True
 
 
-# The bf16 forms of B4, B6 and B7: the head dims they are built for, and
-# the most 64-row tiles a split of theirs takes.
+# The bf16 forms of B4, B6 and B7: the head dims they are built for (B4
+# also 256, recurrentgemma-9b's), and the most 64-row tiles a split of
+# theirs takes.
 BF16_HEAD_DIMS = (64, 128)
+B4_BF16_HEAD_DIMS = BF16_HEAD_DIMS + (256,)
 TC_MAX_TILES = 4
 
 
@@ -111,12 +115,14 @@ def entry_point(dtype, quantized: bool) -> str:
             else "decode_fp32_launch")
 
 
-def check_bf16(group: int, e: int, *tensors) -> None:
-    """Raise unless the tensor-core form of B4, B6 or B7 takes GQA groups
-    of ``group`` heads of head dim ``e`` in these tensors."""
-    if e not in BF16_HEAD_DIMS or group > MAX_G:
+def check_bf16(group: int, e: int, *tensors,
+               head_dims=BF16_HEAD_DIMS) -> None:
+    """Raise unless the tensor-core form of B4, B6 or B7 (built for
+    ``head_dims``) takes GQA groups of ``group`` heads of head dim ``e``
+    in these tensors."""
+    if e not in head_dims or group > MAX_G:
         raise ValueError(f"the bf16 decode kernels take E in "
-                         f"{BF16_HEAD_DIMS} and G <= {MAX_G}, not E={e}, "
+                         f"{head_dims} and G <= {MAX_G}, not E={e}, "
                          f"G={group}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the bf16 decode kernels copy 16-byte chunks: "
@@ -237,7 +243,7 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
         raise ValueError("kv_lens must be int32 on q's device")
     name = entry_point(q.dtype, quantized)
     if q.dtype == torch.bfloat16:
-        check_bf16(g, e, q, k, v)
+        check_bf16(g, e, q, k, v, head_dims=B4_BF16_HEAD_DIMS)
     lib = _build.library("decode_attention")
     o = torch.empty_like(q)
     m_part = torch.empty((bh, n_split, g), dtype=torch.float32,
@@ -256,5 +262,12 @@ def decode_attention_flat(q, k, v, kv_lens, *, sm_scale: float | None = None,
         args.append(_build.dtype_code(q.dtype))
     err = getattr(lib, name)(*args, _build.stream_handle(q.device))
     _build.check(lib, err, name)
-    LAUNCHES["decode_int8" if quantized else "decode"] += 1
+    LAUNCHES[launch_key(q.dtype, e, quantized)] += 1
     return o
+
+
+def launch_key(dtype, e: int, quantized: bool) -> str:
+    """The ``LAUNCHES`` entry a launch of a ``dtype`` q at head dim ``e``
+    counts in."""
+    stem = "decode_e256" if dtype == torch.bfloat16 and e == 256 else "decode"
+    return stem + ("_int8" if quantized else "")

@@ -1,9 +1,10 @@
 """Public model API: ``build_model(cfg) -> Model`` with plain functions.
 
 Port of ``repro/models/api.py`` for the dense and the MoE decoders with
-their dense or paged cache, either of them int8 (``kv_dtype``), and for
-the SSM family (mamba2) with its conv and SSD states (the paged
-functions refuse it). ``Model.init(seed=...,
+their dense or paged cache, either of them int8 (``kv_dtype``), for
+the SSM family (mamba2) with its conv and SSD states, and for the hybrid
+family (recurrentgemma) with its RG-LRU states and windowed ring caches
+(the paged functions refuse the last two). ``Model.init(seed=...,
 device=...)`` draws the port's own seeded weights;
 ``weights.params_from_jax`` carries the reference's instead.
 """
@@ -42,9 +43,9 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"the port serves dense, moe and ssm stacks only "
+            f"the port serves dense, moe, ssm and hybrid stacks only "
             f"(got {cfg.family})")
 
     def init(seed: int = 0, *, device="cuda", dtype=None):

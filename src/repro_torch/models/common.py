@@ -1,9 +1,9 @@
 """Shared model substrate: configs, norms, rotary embeddings, init.
 
 Port of ``repro/models/common.py`` for the dense decoder, the MoE
-decoder and the SSM (mamba2) families. The numerics keep the reference's op order (fp32 norm
-with ``1 + scale``, rope on interleaved pairs) so the two packages agree
-on logits.
+decoder, the SSM (mamba2) and the hybrid (recurrentgemma) families. The
+numerics keep the reference's op order (fp32 norm with ``1 + scale``,
+rope on interleaved pairs) so the two packages agree on logits.
 """
 
 from __future__ import annotations
@@ -37,9 +37,15 @@ class SSMConfig:
 class ArchConfig:
     """A dense GQA decoder (SwiGLU MLP, rope), with ``family="moe"`` the
     same decoder with a routed-expert FFN (``moe``: top-k routing with
-    capacity buffers, ``models/moe.py``), or with ``family="ssm"`` a
+    capacity buffers, ``models/moe.py``), with ``family="ssm"`` a
     stack of mamba2 SSD blocks (``ssm``; the attention fields are
-    unused). The unembedding is the embedding's transpose unless
+    unused), or with ``family="hybrid"`` a recurrentgemma stack: the
+    layer kinds of ``block_pattern`` repeated, then ``pattern_tail``, a
+    ``"rec"`` layer an RG-LRU block of width ``lru_width``
+    (``models/rglru.py``) and an ``"attn"`` layer local attention over
+    the last ``window`` positions, each with the MLP of ``mlp``
+    (``"swiglu"``, or ``"gelu"``: up and down projections only). The
+    unembedding is the embedding's transpose unless
     ``tie_embeddings`` is false, when it is a (d_model, vocab) matrix of
     its own.
 
@@ -51,7 +57,7 @@ class ArchConfig:
     """
 
     name: str
-    family: str                  # "dense" | "moe" | "ssm"
+    family: str                  # "dense" | "moe" | "ssm" | "hybrid"
     num_layers: int
     d_model: int
     num_heads: int
@@ -60,11 +66,17 @@ class ArchConfig:
     vocab_size: int
     head_dim: int | None = None  # default d_model // num_heads
     qk_norm: bool = False
+    mlp: str = "swiglu"          # swiglu | gelu
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
+    # hybrid: the repeating unit of layer kinds, then the tail
+    block_pattern: tuple[str, ...] | None = None   # e.g. ("rec","rec","attn")
+    pattern_tail: tuple[str, ...] = ()
+    window: int | None = None    # local attention span of "attn" layers
+    lru_width: int | None = None
     attn_impl: str = "kernel"    # kernel | plain
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -75,38 +87,59 @@ class ArchConfig:
 
     @property
     def layer_kinds(self) -> tuple[str, ...]:
-        """Block kind of each layer: ``"ssd"`` or ``"attn"``."""
-        kind = "ssd" if self.family == "ssm" else "attn"
-        return (kind,) * self.num_layers
+        """Block kind of each layer, ``"ssd"``, ``"rec"`` or ``"attn"``:
+        ``block_pattern`` repeated and cut to leave room for
+        ``pattern_tail``, then the tail, as the reference orders them."""
+        if self.family == "ssm":
+            return ("ssd",) * self.num_layers
+        if self.block_pattern is None:
+            return ("attn",) * self.num_layers
+        body = self.num_layers - len(self.pattern_tail)
+        kinds: list[str] = []
+        while len(kinds) < body:
+            kinds.extend(self.block_pattern)
+        return tuple(kinds[:body]) + tuple(self.pattern_tail)
+
+    @property
+    def attn_window(self) -> int | None:
+        """The window of the attention layers: ``window`` in a stack with
+        a ``block_pattern`` (the reference sets it there only), else
+        None."""
+        return self.window if self.block_pattern is not None else None
 
     def param_count(self) -> int:
         """The parameters ``transformer.init`` draws, the unembedding when
         untied included. An SSD layer counts its conv over all conv
         channels, its gate norm and ``a_log``, which the reference's count
         leaves out; an MoE layer counts no FFN norm, which the reference's
-        count adds and its init does not draw (ROADMAP C10)."""
+        count adds and its init does not draw (ROADMAP C10); an RG-LRU
+        layer counts its ``w_i`` and ``w_r`` (w x w each) and one ``lam``
+        of w, where the reference's count leaves out both matrices and
+        adds 3w (ROADMAP C12)."""
         d, e = self.d_model, self.hd
-        if self.family == "ssm":
+        ffn = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff + d
+        if self.moe is not None:
+            m = self.moe
+            ffn = (d * m.num_experts
+                   + (m.num_experts + m.num_shared) * 3 * d * m.d_expert)
+        hq, hkv = self.num_heads, self.num_kv_heads
+        attn = d * hq * e + 2 * d * hkv * e + hq * e * d + d
+        if self.qk_norm:
+            attn += 2 * e
+        w = self.lru_width or d
+        # norm, w_x, w_gate, conv_w (4, w), w_i, w_r, lam, w_out
+        rec = d + 2 * d * w + 4 * w + 2 * w * w + w + w * d
+        ssd = 0
+        if self.ssm is not None:
             s = self.ssm
             di = s.expand * d
             nh = di // s.head_dim
             conv_ch = di + 2 * s.n_groups * s.d_state
-            layer = (d + d * (2 * di + 2 * s.n_groups * s.d_state + nh)
-                     + s.conv_width * conv_ch + 3 * nh + di + di * d)
-        else:
-            hq, hkv = self.num_heads, self.num_kv_heads
-            layer = d * hq * e + 2 * d * hkv * e + hq * e * d + d
-            if self.qk_norm:
-                layer += 2 * e
-            if self.moe is None:
-                layer += 3 * d * self.d_ff + d
-            else:
-                m = self.moe
-                layer += (d * m.num_experts
-                          + (m.num_experts + m.num_shared) * 3 * d
-                          * m.d_expert)
+            ssd = (d + d * (2 * di + 2 * s.n_groups * s.d_state + nh)
+                   + s.conv_width * conv_ch + 3 * nh + di + di * d)
+        layer = {"attn": attn + ffn, "rec": rec + ffn, "ssd": ssd}
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return embed + self.num_layers * layer + d
+        return embed + sum(layer[k] for k in self.layer_kinds) + d
 
     def active_param_count(self) -> int:
         """Parameters a token touches: an MoE layer's top-k routed and its

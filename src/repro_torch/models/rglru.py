@@ -1,0 +1,132 @@
+"""The RG-LRU recurrent block of the hybrid (Griffin / RecurrentGemma)
+stack: full-sequence and one-token streaming forms.
+
+Port of ``repro/models/rglru.py``:
+
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+    a_t = exp(-c * softplus(Lambda) * sigmoid(r_t)),  c = 8
+
+where x is the block's input branch after a depthwise causal conv of
+width 4, and r, i are sigmoid gates of the conv's output. The reference
+runs the recurrence over a prompt as ``jax.lax.associative_scan``; here it
+is ``affine_scan``, a doubling (Hillis-Steele) scan of log2(L) passes of
+whole-tensor torch ops, so a 32768-token prompt costs 15 passes and no
+Python loop over its positions. It is device code outside any TPU kernel
+(the reference computes it with XLA ops), so it stays torch ops.
+
+The dtype placement is the reference's: the gate, the x branch, the conv
+and the r / i projections in the compute dtype; softplus, a,
+sqrt(max(1 - a^2, 1e-12)) and the scan in fp32; the scan's output cast to
+the compute dtype before the gate product. ``jax.nn.gelu`` is the tanh
+approximation, and so is the gate here.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ArchConfig, dense_init, rms_norm
+
+_C = 8.0
+CONV_WIDTH = 4
+
+
+def init_rglru_block(generator: torch.Generator, cfg: ArchConfig,
+                     dtype: torch.dtype) -> dict:
+    """One RG-LRU block's weights: a zero norm, ``lam`` spread over
+    linspace(0.3, 1.5, w) (a^c between about 0.9 and 0.999, as in
+    Griffin), the matrices and the conv drawn from ``generator``."""
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    dev = generator.device
+
+    def dense(*shape):
+        return dense_init(generator, shape, dtype=dtype)
+
+    return {
+        "norm": torch.zeros((d,), dtype=dtype, device=dev),
+        "w_x": dense(d, w),
+        "w_gate": dense(d, w),
+        "conv_w": dense(CONV_WIDTH, w),
+        "w_i": dense(w, w),
+        "w_r": dense(w, w),
+        "lam": torch.linspace(0.3, 1.5, w, device=dev).to(dtype),
+        "w_out": dense(w, d),
+    }
+
+
+def affine_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1, from h_{-1} = 0. a, b:
+    (B, L, W) fp32. After the pass of offset d, position t holds the
+    composition of the steps (t - 2d, t]: b_t += a_t * b_{t-d}, a_t *=
+    a_{t-d}, each right-hand side formed before it is written."""
+    a, b = a.clone(), b.clone()
+    d = 1
+    while d < a.shape[1]:
+        b[:, d:] += a[:, d:] * b[:, :-d]
+        a[:, d:] = a[:, d:] * a[:, :-d]
+        d *= 2
+    return b
+
+
+def causal_conv(xb, conv_w, state=None):
+    """Depthwise causal conv of width K over the x branch. xb: (B, L, W),
+    conv_w: (K, W) in xb's dtype; ``state`` (B, K-1, W), when given, holds
+    the K-1 rows before xb (zeros when None). Returns (conv, the last K-1
+    rows of the padded input)."""
+    bsz, length, width = xb.shape
+    k = conv_w.shape[0]
+    if state is None:
+        state = torch.zeros((bsz, k - 1, width), dtype=xb.dtype,
+                            device=xb.device)
+    xp = torch.cat([state.to(xb.dtype), xb], dim=1)
+    conv = sum(xp[:, i:i + length] * conv_w[i] for i in range(k))
+    return conv, xp[:, -(k - 1):]
+
+
+def rglru_block(params, x, cfg: ArchConfig, *, conv_state=None,
+                rnn_state=None, streaming: bool = False):
+    """x: (B, L, D) -> (y, (conv_state, rnn_state)).
+
+    ``conv_state`` (B, 3, W) holds the x branch's last three rows before x
+    (zeros when None); ``rnn_state`` (B, W) fp32 the recurrence's state
+    before x, folded into the first step. ``streaming`` is the one-token
+    step (L == 1). The returned states are those after x's last row."""
+    dt = x.dtype
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    gate = F.gelu(h @ params["w_gate"].to(dt), approximate="tanh")
+    xb = h @ params["w_x"].to(dt)
+
+    length = xb.shape[1]
+    conv, new_conv = causal_conv(xb, params["conv_w"].to(dt), conv_state)
+
+    r = torch.sigmoid(conv @ params["w_r"].to(dt)).float()
+    i = torch.sigmoid(conv @ params["w_i"].to(dt)).float()
+    log_a = -_C * F.softplus(params["lam"].float()) * r
+    a = torch.exp(log_a)                                    # (B, L, W)
+    gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (
+        i * conv.float())
+
+    if streaming:
+        if length != 1:
+            raise ValueError(f"a streaming step takes one token, got "
+                             f"{length}")
+        s0 = (torch.zeros_like(gated_in[:, 0]) if rnn_state is None
+              else rnn_state.float())
+        hseq = (a[:, 0] * s0 + gated_in[:, 0])[:, None]
+    else:
+        if rnn_state is not None:
+            # the carried state enters through the first step
+            gated_in[:, 0] += a[:, 0] * rnn_state.float()
+        hseq = affine_scan(a, gated_in)
+    new_state = hseq[:, -1]
+
+    y = (hseq.to(dt) * gate) @ params["w_out"].to(dt)
+    return y.to(x.dtype), (new_conv, new_state)
+
+
+def rglru_dims(cfg: ArchConfig) -> dict:
+    """Shapes of one RG-LRU block's cache entries for one sequence."""
+    w = cfg.lru_width or cfg.d_model
+    return {"conv": (CONV_WIDTH - 1, w), "rnn": (w,)}

@@ -1,7 +1,9 @@
 """The decoder stacks: init, forward, prefill and decode on a dense or
-a paged KV cache, or on the SSD state of a mamba2 stack.
+a paged KV cache, on the SSD state of a mamba2 stack, or on the ring
+caches and RG-LRU states of a hybrid (recurrentgemma) stack.
 
-Port of the dense, paged and SSM paths of ``repro/models/transformer.py``.
+Port of the dense, paged, SSM and hybrid paths of
+``repro/models/transformer.py``.
 Parameters are
 a plain dict of tensors with one entry per layer in ``params["layers"]``
 (the reference stacks them over a scanned axis); the layers run in a
@@ -43,6 +45,21 @@ The Q/K/V/O, MLP, expert and unembedding projections are
 ``torch.matmul``, as the reference leaves them to XLA; attention goes
 through ``models/attention.py`` (``cfg.attn_impl``), the SSD scan
 through ``models/ssm.py``.
+
+A hybrid stack (``cfg.family == "hybrid"``) has one dict a layer by its
+kind (``cfg.layer_kinds``): ``{"rec", "ffn"}`` for an RG-LRU layer
+(``models/rglru.py``) and ``{"attn", "ffn"}`` for an attention layer,
+whose attention sees the last ``cfg.window`` positions (B3's windowed
+form on the kernel route). Its FFN is the GELU MLP (``w_up``, ``w_down``)
+when ``cfg.mlp == "gelu"``. In the cache an RG-LRU layer keeps ``{"conv":
+(B, 3, W) compute dtype, "rnn": (B, W) fp32}`` and an attention layer a
+ring of ``c = min(max_len, window)`` K/V rows where position p sits at
+slot p % c: ``prefill`` keeps a prompt's last c rows, rolled into place,
+and ``decode_step`` writes slot pos % c and attends over the
+min(pos + 1, c) live rows (the order of a ring's rows does not matter
+to attention; rope placed each key at its position when it was written).
+The paged functions refuse the hybrid, as the reference's paged cache
+does.
 """
 
 from __future__ import annotations
@@ -54,7 +71,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import moe, ssm
+from repro_torch.models import moe, rglru, ssm
 from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.common import (
     ArchConfig,
@@ -76,7 +93,8 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
          dtype: torch.dtype | None = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``, in
     ``dtype`` (default ``cfg.param_dtype``); norm scales start at 0. An
-    SSD layer takes ``ssm.init_ssd_block``, an MoE layer's FFN
+    SSD layer takes ``ssm.init_ssd_block``, an RG-LRU layer
+    ``rglru.init_rglru_block`` and an MLP, an MoE layer's FFN
     ``moe.init_moe``; untied embeddings add ``unembed`` (d_model, vocab)."""
     dev = resolve_device(device)
     dt = dtype or cfg.param_dtype
@@ -98,9 +116,20 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense(d, cfg.vocab_size)
+    def mlp_params():
+        p = {"norm": zeros(d), "w_up": dense(d, f), "w_down": dense(f, d)}
+        if cfg.mlp == "swiglu":
+            p["w_gate"] = dense(d, f)
+        return p
+
     for kind in cfg.layer_kinds:
         if kind == "ssd":
             params["layers"].append({"ssd": ssm.init_ssd_block(gen, cfg, dt)})
+            continue
+        if kind == "rec":
+            params["layers"].append({"rec": rglru.init_rglru_block(gen, cfg,
+                                                                   dt),
+                                     "ffn": mlp_params()})
             continue
         attn = {"norm": zeros(d), "wq": dense(d, hq * e),
                 "wk": dense(d, hkv * e), "wv": dense(d, hkv * e),
@@ -108,11 +137,8 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
         if cfg.qk_norm:
             attn["q_norm"] = zeros(e)
             attn["k_norm"] = zeros(e)
-        if cfg.moe is not None:
-            ffn = moe.init_moe(gen, cfg, dt)
-        else:
-            ffn = {"norm": zeros(d), "w_gate": dense(d, f),
-                   "w_up": dense(d, f), "w_down": dense(f, d)}
+        ffn = moe.init_moe(gen, cfg, dt) if cfg.moe is not None \
+            else mlp_params()
         params["layers"].append({"attn": attn, "ffn": ffn})
     return params
 
@@ -123,10 +149,15 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 
 
 def mlp(params, x, cfg: ArchConfig):
+    """SwiGLU, or with ``cfg.mlp == "gelu"`` the tanh-approximated GELU of
+    the up projection (the reference's ``jax.nn.gelu``)."""
     dt = x.dtype
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     up = h @ params["w_up"].to(dt)
-    up = up * F.silu(h @ params["w_gate"].to(dt))
+    if cfg.mlp == "swiglu":
+        up = up * F.silu(h @ params["w_gate"].to(dt))
+    else:
+        up = F.gelu(up, approximate="tanh")
     return up @ params["w_down"].to(dt)
 
 
@@ -163,31 +194,39 @@ def _qkv(params, x, cfg: ArchConfig, positions):
     return q, k, v
 
 
-def attn_block(params, x, cfg: ArchConfig, *, positions):
-    """Causal self-attention over the full sequence -> (out, (k, v))."""
+def attn_block(params, x, cfg: ArchConfig, *, positions,
+               window: int | None = None):
+    """Causal self-attention over the full sequence, each row over its
+    last ``window`` positions when given -> (out, (k, v))."""
     q, k, v = _qkv(params, x, cfg, positions)
-    o = attn_mod.attention(q, k, v, impl=cfg.attn_impl, causal=True)
+    o = attn_mod.attention(q, k, v, impl=cfg.attn_impl, causal=True,
+                           window=window)
     return _merge_heads(o) @ params["wo"].to(x.dtype), (k, v)
 
 
 def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
-                k_scale=None, v_scale=None):
-    """One-token self-attention. x: (B, 1, D); cache_[kv]: (B, Hkv, C, E)
-    with rows [0, pos) filled; writes row ``pos`` in place. An int8 cache
-    carries per-row (B, Hkv, C) ``k_scale``/``v_scale``: the new row is
-    quantized with its own absmax scale."""
+                window: int | None = None, k_scale=None, v_scale=None):
+    """One-token self-attention. x: (B, 1, D); cache_[kv]: (B, Hkv, C, E).
+    Without ``window`` rows [0, pos) are filled and row ``pos`` is written;
+    with it the cache is a ring of C slots holding position p at slot
+    p % C, slot pos % C is written and the min(pos + 1, C) live slots are
+    attended. The write is in place. An int8 cache carries per-row
+    (B, Hkv, C) ``k_scale``/``v_scale``: the new row is quantized with its
+    own absmax scale."""
+    c = cache_k.shape[2]
+    slot = pos % c if window is not None else pos
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
     if cache_k.dtype == torch.int8:
-        k, k_scale[:, :, pos] = quantize_q8(k[:, :, 0], -1)
-        v, v_scale[:, :, pos] = quantize_q8(v[:, :, 0], -1)
-        cache_k[:, :, pos], cache_v[:, :, pos] = k, v
+        k, k_scale[:, :, slot] = quantize_q8(k[:, :, 0], -1)
+        v, v_scale[:, :, slot] = quantize_q8(v[:, :, 0], -1)
+        cache_k[:, :, slot], cache_v[:, :, slot] = k, v
     else:
-        cache_k[:, :, pos] = k[:, :, 0]
-        cache_v[:, :, pos] = v[:, :, 0]
-    o = attn_mod.decode_attention(q[:, :, 0], cache_k, cache_v, pos + 1,
-                                  impl=cfg.attn_impl, k_scale=k_scale,
-                                  v_scale=v_scale)
+        cache_k[:, :, slot] = k[:, :, 0]
+        cache_v[:, :, slot] = v[:, :, 0]
+    o = attn_mod.decode_attention(q[:, :, 0], cache_k, cache_v,
+                                  min(pos + 1, c), impl=cfg.attn_impl,
+                                  k_scale=k_scale, v_scale=v_scale)
     return o.reshape(x.shape[0], 1, -1) @ params["wo"].to(x.dtype)
 
 
@@ -391,8 +430,11 @@ def forward(params, tokens, cfg: ArchConfig):
         if "ssd" in layer:
             x = x + ssm.ssd_block(layer["ssd"], x, cfg)[0]
             continue
-        y, _ = attn_block(layer["attn"], x, cfg, positions=positions)
-        x = x + y
+        if "rec" in layer:
+            x = x + rglru.rglru_block(layer["rec"], x, cfg)[0]
+        else:
+            x = x + attn_block(layer["attn"], x, cfg, positions=positions,
+                               window=cfg.attn_window)[0]
         y, a = ffn(layer, x, cfg)
         x, aux = x + y, aux + a
     return _unembed(params, x, cfg), aux
@@ -408,47 +450,71 @@ def kv_storage_dtype(kv_dtype) -> torch.dtype | None:
     raise ValueError(f"kv_dtype must be None or int8, got {kv_dtype!r}")
 
 
-def _kv_layers(cfg: ArchConfig, shape, scale_shape, kv_dtype,
-               device) -> dict:
-    """One zeroed K/V pair per layer of ``shape``, in ``kv_dtype`` (default
-    the compute dtype); int8 adds zeroed fp32 scales of ``scale_shape``."""
+def _kv_block(cfg: ArchConfig, shape, scale_shape, kv_dtype,
+              device) -> dict:
+    """A zeroed K/V pair of ``shape``, in ``kv_dtype`` (default the
+    compute dtype); int8 adds zeroed fp32 scales of ``scale_shape``."""
     dt = kv_storage_dtype(kv_dtype) or cfg.compute_dtype
-    layers = []
-    for _ in range(cfg.num_layers):
-        blk = {"k": torch.zeros(shape, dtype=dt, device=device),
-               "v": torch.zeros(shape, dtype=dt, device=device)}
-        if dt == torch.int8:
-            blk["k_scale"] = torch.zeros(scale_shape, device=device)
-            blk["v_scale"] = torch.zeros(scale_shape, device=device)
-        layers.append(blk)
-    return {"layers": layers}
+    blk = {"k": torch.zeros(shape, dtype=dt, device=device),
+           "v": torch.zeros(shape, dtype=dt, device=device)}
+    if dt == torch.int8:
+        blk["k_scale"] = torch.zeros(scale_shape, device=device)
+        blk["v_scale"] = torch.zeros(scale_shape, device=device)
+    return blk
+
+
+def _state_block(dims: dict, dtypes: dict, batch: int, device) -> dict:
+    """Zeroed recurrent states: entry ``key`` of shape (batch, *dims[key])
+    in ``dtypes[key]``."""
+    return {key: torch.zeros((batch, *dims[key]), dtype=dtypes[key],
+                             device=device) for key in dims}
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device="cuda", kv_dtype=None) -> dict:
-    """Dense (B, Hkv, max_len, E) K/V per layer; ``kv_dtype=torch.int8``
-    (or ``"int8"``) adds per-row (B, Hkv, max_len) fp32 scales. An SSM
-    stack gets zeroed conv and SSD states per layer, whatever
-    ``max_len`` and ``kv_dtype``."""
-    if cfg.family == "ssm":
-        kv_storage_dtype(kv_dtype)          # validated, then not used
-        dev = resolve_device(device)
-        dims = ssm.ssd_dims(cfg)
-        return {"layers": [
-            {"conv": torch.zeros((batch, *dims["conv"]),
-                                 dtype=cfg.compute_dtype, device=dev),
-             "state": torch.zeros((batch, *dims["state"]),
-                                  dtype=torch.float32, device=dev)}
-            for _ in range(cfg.num_layers)]}
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.hd)
-    return _kv_layers(cfg, shape, shape[:3], kv_dtype,
-                      resolve_device(device))
+    """Per layer by its kind: an attention layer's (B, Hkv, C, E) K/V, C =
+    max_len, or ``min(max_len, window)`` slots of a ring for a windowed
+    stack; ``kv_dtype=torch.int8`` (or ``"int8"``) adds per-row (B, Hkv,
+    C) fp32 scales. An SSD layer gets zeroed conv and SSD states, an
+    RG-LRU layer zeroed conv (compute dtype) and recurrent (fp32) states,
+    whatever ``max_len`` and ``kv_dtype``."""
+    kv_storage_dtype(kv_dtype)              # validated for every family
+    dev = resolve_device(device)
+    c = max_len if cfg.attn_window is None else min(max_len,
+                                                     cfg.attn_window)
+    shape = (batch, cfg.num_kv_heads, c, cfg.hd)
+    f32, comp = torch.float32, cfg.compute_dtype
+    layers = []
+    for kind in cfg.layer_kinds:
+        if kind == "ssd":
+            layers.append(_state_block(ssm.ssd_dims(cfg),
+                                       {"conv": comp, "state": f32}, batch,
+                                       dev))
+        elif kind == "rec":
+            layers.append(_state_block(rglru.rglru_dims(cfg),
+                                       {"conv": comp, "rnn": f32}, batch,
+                                       dev))
+        else:
+            layers.append(_kv_block(cfg, shape, shape[:3], kv_dtype, dev))
+    return {"layers": layers}
+
+
+def _ring_rows(k: torch.Tensor, c: int) -> torch.Tensor:
+    """A prompt's (B, Hkv, S, E) rows as a cache of C slots holds them:
+    all S when S < C; else the last C, rolled by S % C so that position p
+    sits at slot p % C."""
+    s = k.shape[2]
+    if s < c:
+        return k
+    return torch.roll(k[:, :, -c:], s % c, dims=2)
 
 
 def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
             kv_dtype=None):
     """Run the prompt and fill a fresh cache; ``kv_dtype=torch.int8``
-    quantizes each prompt row with its own scale.
+    quantizes each prompt row with its own scale. A windowed attention
+    layer keeps the prompt's last ``min(max_len, window)`` rows in ring
+    order (``_ring_rows``); an RG-LRU or SSD layer its final states.
 
     Returns (last-position logits (B, 1, V), cache)."""
     b, s = tokens.shape
@@ -464,13 +530,25 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
             blk["state"].copy_(state)
             x = x + y
             continue
-        y, (k, v) = attn_block(layer["attn"], x, cfg, positions=positions)
-        if blk["k"].dtype == torch.int8:
-            blk["k"][:, :, :s], blk["k_scale"][:, :, :s] = quantize_q8(k, -1)
-            blk["v"][:, :, :s], blk["v_scale"][:, :, :s] = quantize_q8(v, -1)
+        if "rec" in layer:
+            y, (conv, rnn) = rglru.rglru_block(layer["rec"], x, cfg)
+            blk["conv"].copy_(conv)
+            blk["rnn"].copy_(rnn)
         else:
-            blk["k"][:, :, :s] = k
-            blk["v"][:, :, :s] = v
+            y, (k, v) = attn_block(layer["attn"], x, cfg,
+                                   positions=positions,
+                                   window=cfg.attn_window)
+            c = blk["k"].shape[2]
+            k, v = _ring_rows(k, c), _ring_rows(v, c)
+            n = k.shape[2]
+            if blk["k"].dtype == torch.int8:
+                blk["k"][:, :, :n], blk["k_scale"][:, :, :n] = quantize_q8(
+                    k, -1)
+                blk["v"][:, :, :n], blk["v_scale"][:, :, :n] = quantize_q8(
+                    v, -1)
+            else:
+                blk["k"][:, :, :n] = k
+                blk["v"][:, :, :n] = v
         x = x + y
         x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x[:, -1:], cfg), cache
@@ -489,10 +567,19 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
             blk["state"].copy_(state)
             x = x + y
             continue
-        x = x + attn_decode(layer["attn"], x, cfg, cache_k=blk["k"],
-                            cache_v=blk["v"], pos=pos,
-                            k_scale=blk.get("k_scale"),
-                            v_scale=blk.get("v_scale"))
+        if "rec" in layer:
+            y, (conv, rnn) = rglru.rglru_block(
+                layer["rec"], x, cfg, conv_state=blk["conv"],
+                rnn_state=blk["rnn"], streaming=True)
+            blk["conv"].copy_(conv)
+            blk["rnn"].copy_(rnn)
+            x = x + y
+        else:
+            x = x + attn_decode(layer["attn"], x, cfg, cache_k=blk["k"],
+                                cache_v=blk["v"], pos=pos,
+                                window=cfg.attn_window,
+                                k_scale=blk.get("k_scale"),
+                                v_scale=blk.get("v_scale"))
         x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x, cfg), cache
 
@@ -519,8 +606,9 @@ def make_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
     the cache, it is an argument of every paged step."""
     check_paged_support(cfg)
     shape = (cfg.num_kv_heads, num_pages, page_size, cfg.hd)
-    return _kv_layers(cfg, shape, shape[:2], kv_dtype,
-                      resolve_device(device))
+    dev = resolve_device(device)
+    return {"layers": [_kv_block(cfg, shape, shape[:2], kv_dtype, dev)
+                       for _ in range(cfg.num_layers)]}
 
 
 def paged_decode_step(params, cfg: ArchConfig, token, cache, page_table,

@@ -2,12 +2,16 @@
 
 ``params_from_jax`` takes the reference ``init`` pytree with its leaves
 already converted to numpy arrays (``jax.tree.map(np.asarray, params)``),
-so this module needs no JAX. The reference stacks the decoder layers
-over a leading ``units`` axis (``units["b0"]`` for a pure-attention or a
-pure-SSD stack); the port keeps one dict per layer. An MoE layer's
+so this module needs no JAX. The reference stacks the decoder layers of
+each position of its repeating unit over a leading ``units`` axis
+(``units["b0"]`` for a pure-attention or a pure-SSD stack;
+``units["b0"]`` to ``units["b2"]`` for the hybrid's (rec, rec, attn)
+unit) and keeps the tail's layers unstacked (``tail["t0"]``, ...); the
+port keeps one dict per layer in stack order: unit u's block j is layer
+u * len(pattern) + j, and tail block j follows the units. An MoE layer's
 ``ffn`` is the router and the routed experts, with ``num_shared`` a
-nested ``shared`` SwiGLU, and no norm; untied embeddings carry
-``unembed``.
+nested ``shared`` SwiGLU, and no norm; a GELU MLP has no ``w_gate``;
+untied embeddings carry ``unembed``.
 """
 
 from __future__ import annotations
@@ -21,15 +25,29 @@ from repro_torch.models.common import ArchConfig
 _ATTN = ("norm", "wq", "wk", "wv", "wo")
 _QK_NORM = ("q_norm", "k_norm")
 _FFN = ("norm", "w_gate", "w_up", "w_down")
+_GELU_FFN = ("norm", "w_up", "w_down")
 _MOE = ("router", "w_gate", "w_up", "w_down")
 _SHARED = ("w_gate", "w_up", "w_down")
 _SSD = ("norm", "w_in", "conv_w", "dt_bias", "a_log", "d_skip", "gate_norm",
         "w_out")
+_REC = ("norm", "w_x", "w_gate", "conv_w", "w_i", "w_r", "lam", "w_out")
+
+
+def _blocks(cfg: ArchConfig, kind: str) -> dict:
+    """The sub-blocks of a layer of ``kind`` and the keys of each."""
+    if kind == "ssd":
+        return {"ssd": _SSD}
+    ffn = _FFN if cfg.mlp == "swiglu" else _GELU_FFN
+    if kind == "rec":
+        return {"rec": _REC, "ffn": ffn}
+    if cfg.moe is not None:
+        ffn = _MOE + (("shared",) if cfg.moe.num_shared else ())
+    return {"attn": _ATTN + (_QK_NORM if cfg.qk_norm else ()), "ffn": ffn}
 
 
 def params_from_jax(tree, cfg: ArchConfig, *, device="cuda") -> dict:
-    """The reference's dense-decoder, MoE-decoder or SSM params as the
-    port's params dict, in ``cfg.param_dtype``."""
+    """The reference's dense, MoE, SSM or hybrid params as the port's
+    params dict, in ``cfg.param_dtype``."""
     dev = resolve_device(device)
     dt = cfg.param_dtype
 
@@ -37,38 +55,50 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda") -> dict:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
             device=dev, dtype=dt)
 
-    if set(tree["units"]) != {"b0"} or "tail" in tree:
-        raise ValueError("expected a pure-attention or pure-SSD stack "
-                         "(units['b0'] only)")
-    unit = tree["units"]["b0"]
+    kinds = cfg.layer_kinds
+    n_tail = len(cfg.pattern_tail)
     if cfg.family == "ssm":
-        blocks = {"ssd": _SSD}
+        pattern: tuple[str, ...] = ("ssd",)
     else:
-        ffn = _FFN
-        if cfg.moe is not None:
-            ffn = _MOE + (("shared",) if cfg.moe.num_shared else ())
-        blocks = {"attn": _ATTN + (_QK_NORM if cfg.qk_norm else ()),
-                  "ffn": ffn}
-    if set(unit) != set(blocks):
-        raise ValueError(f"the tree's blocks {sorted(unit)} are not "
-                         f"{cfg.name}'s {sorted(blocks)}")
-    for blk, keys in blocks.items():
-        if set(unit[blk]) != set(keys):
-            raise ValueError(f"the tree's {blk} holds {sorted(unit[blk])}, "
-                             f"not {cfg.name}'s {sorted(keys)}")
-    first, keys = next(iter(blocks.items()))
-    n_layers = np.asarray(unit[first][keys[0]]).shape[0]
-    if n_layers != cfg.num_layers:
-        raise ValueError(f"{n_layers} layers in the tree, "
-                         f"{cfg.num_layers} in {cfg.name}")
+        pattern = cfg.block_pattern or ("attn",)
+    tail = tree.get("tail", {})
+    if (set(tree["units"]) != {f"b{j}" for j in range(len(pattern))}
+            or set(tail) != {f"t{j}" for j in range(n_tail)}):
+        raise ValueError(f"the tree's units {sorted(tree['units'])} and tail "
+                         f"{sorted(tail)} are not {cfg.name}'s pattern "
+                         f"{pattern} and tail {cfg.pattern_tail}")
 
-    def layer_of(node, i):
+    def check(node, kind: str, where: str) -> None:
+        blocks = _blocks(cfg, kind)
+        if set(node) != set(blocks):
+            raise ValueError(f"{where} holds blocks {sorted(node)}, not "
+                             f"{cfg.name}'s {sorted(blocks)}")
+        for blk, keys in blocks.items():
+            if set(node[blk]) != set(keys):
+                raise ValueError(f"{where}'s {blk} holds "
+                                 f"{sorted(node[blk])}, not {cfg.name}'s "
+                                 f"{sorted(keys)}")
+
+    for j, kind in enumerate(pattern):
+        check(tree["units"][f"b{j}"], kind, f"units['b{j}']")
+    for j, kind in enumerate(cfg.pattern_tail):
+        check(tail[f"t{j}"], kind, f"tail['t{j}']")
+    b0 = tree["units"]["b0"]
+    first = next(iter(b0))
+    n_units = np.asarray(b0[first][next(iter(b0[first]))]).shape[0]
+    if n_units * len(pattern) + n_tail != len(kinds):
+        raise ValueError(f"{n_units} units of {len(pattern)} and {n_tail} "
+                         f"tail layers in the tree, {len(kinds)} layers in "
+                         f"{cfg.name}")
+
+    def layer_of(node, i=None):
         if isinstance(node, dict):
             return {k: layer_of(v, i) for k, v in node.items()}
-        return tensor(np.asarray(node)[i])
+        return tensor(np.asarray(node) if i is None else np.asarray(node)[i])
 
-    layers = [{blk: layer_of(unit[blk], i) for blk in blocks}
-              for i in range(n_layers)]
+    layers = [layer_of(tree["units"][f"b{j}"], u)
+              for u in range(n_units) for j in range(len(pattern))]
+    layers += [layer_of(tail[f"t{j}"]) for j in range(n_tail)]
     params = {"embed": tensor(tree["embed"]),
               "final_norm": tensor(tree["final_norm"]), "layers": layers}
     if ("unembed" in tree) == cfg.tie_embeddings:

@@ -739,6 +739,180 @@ def test_bf16_decode_kernels_refuse_what_they_do_not_take(cuda):
     assert sum(ops.launch_counts().values()) == 0
 
 
+@pytest.mark.parametrize("group", [1, 16])
+@pytest.mark.parametrize("window,q_offset,kv_len", [
+    (None, 0, 448), (100, 150, 420), (2048, 0, 448), (130, 0, 448)])
+def test_flash_bf16_e256_kernel_matches_plain_per_row(cuda, window,
+                                                      q_offset, kv_len,
+                                                      group):
+    """B3's head-dim-256 form (two warpgroups, each with a 128-column half
+    of O) against its plain version per row: GQA group 16 on one kv head
+    (recurrentgemma-9b's MQA) and 1, seven KV tiles a block at most (both
+    stages used and reused), windows that skip whole tiles (100, 130) or
+    none (2048), a q_offset and a kv_len tail; a random V, the fault a
+    zeroed V tile every block sees."""
+    e = 256
+    g = torch.Generator(device=cuda).manual_seed(300 + group + (window or 0))
+    q = _bf16(g, 2 * group, 384, e)
+    k, v = _bf16(g, 2, 448, e), _bf16(g, 2, 448, e)
+    kw = dict(blk_q=64, causal=True, window=window, q_offset=q_offset,
+              kv_len=kv_len)
+    ops.reset_launch_counts()
+    got = fl.flash_attention_flat(q, k, v, **kw)
+    assert ops.launch_counts()["flash_e256"] == 1
+    assert ops.launch_counts()["flash"] == 0
+    want = fl.flash_attention_plain(q, k, v, blk_kv=64, **kw)
+    tile = 0 if window is None or window > 400 else (q_offset + 383) // 64
+    faulty = fl.flash_attention_plain(q, k, _zero_v_tile(v, min(tile, 6)),
+                                      blk_kv=64, **kw)
+    torch.cuda.synchronize()
+    _held_per_row(got, want, faulty)
+
+
+def test_flash_bf16_e256_through_ops_at_the_hybrid_prefill(cuda):
+    """B3 at E 256 as the hybrid's attention layers call it: 16 query
+    heads on one kv head, a 1000-token prompt (padded to the 64-row block
+    and the KV tile) under a 256-token window."""
+    g = torch.Generator(device=cuda).manual_seed(310)
+    q = _bf16(g, 1, 16, 1000, 256)
+    k, v = _bf16(g, 1, 1, 1000, 256), _bf16(g, 1, 1, 1000, 256)
+    got = ops.attention(q, k, v, causal=True, window=256)
+    flat = dict(blk_q=64, blk_kv=64, causal=True, window=256, kv_len=1000)
+
+    def plain(v=v):
+        qf = torch.nn.functional.pad(q.view(16, 1000, 256), (0, 0, 0, 24))
+        kf, vf = (torch.nn.functional.pad(t.view(1, 1000, 256), (0, 0, 0, 24))
+                  for t in (k, v))
+        return fl.flash_attention_plain(qf, kf, vf, **flat)[:, :1000].view(
+            1, 16, 1000, 256)
+
+    faulty = plain(_zero_v_tile(v.view(1, 1000, 256), 14).view(v.shape))
+    torch.cuda.synchronize()
+    _held_per_row(got, plain(), faulty)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_bf16_e256_kernel_matches_plain_per_row(cuda, quantized):
+    """B4's tensor-core form at head dim 256, G 16, on bf16 caches and on
+    int8 caches with per-row scales: a ragged batch (kv_len 0, 1, a tile
+    edge, mid-cache, the capacity) on a cache long enough for four tiles
+    a split; a random V, the fault a zeroed V tile or its V scales."""
+    g = torch.Generator(device=cuda).manual_seed(320 + quantized)
+    s_len, kv = 6400, [0, 1, 64, 65, 2048, 3001, 6399, 6400]
+    bh = len(kv)
+    q = _bf16(g, bh, 16, 256)
+    k, v, sc = _dense_bf16_kv(g, quantized, bh, s_len, 256)
+    lens = torch.tensor(kv, dtype=torch.int32, device=cuda)
+    n_split, tps = dec.decode_split_plan(q.dtype, bh, s_len)
+    assert tps == dec.TC_MAX_TILES
+    ops.reset_launch_counts()
+    got = dec.decode_attention_flat(q, k, v, lens, **sc)
+    counts = ops.launch_counts()
+    assert counts["decode_e256_int8" if quantized else "decode_e256"] == 1
+    assert counts["decode"] == counts["decode_int8"] == 0
+
+    def plain(v=v, vs=sc.get("v_scale")):
+        kw = dict(sc, v_scale=vs) if quantized else {}
+        return dec.decode_attention_plain(q, k, v, lens, n_split=n_split,
+                                          tiles_per_split=tps, **kw)
+
+    if quantized:
+        vs = sc["v_scale"].clone()
+        vs[:, 40 * 64:41 * 64] = 0
+        faulty = plain(vs=vs)
+    else:
+        faulty = plain(_zero_v_tile(v, 40))
+    torch.cuda.synchronize()
+    assert float(got[0].abs().max()) == 0.0       # kv_len 0 gives zeros
+    _held_per_row(got, plain(), faulty)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("kv_len", [1, 1000, 2048])
+def test_decode_bf16_e256_through_ops_on_the_ring(cuda, kv_len, quantized):
+    """B4 at E 256 as the hybrid's decode calls it: 4 sequences on one kv
+    head, a ring of 2048 rows, min(pos + 1, 2048) live (the split plan's
+    one-tile splits: 4 x 32 blocks on a full ring)."""
+    g = torch.Generator(device=cuda).manual_seed(330 + kv_len + quantized)
+    b, c = 4, 2048
+    q = _bf16(g, b, 16, 256)
+    k, v, sc = _dense_bf16_kv(g, quantized, b, 1, c, 256)
+    n_split, tps = dec.decode_split_plan(torch.bfloat16, b, kv_len)
+    if kv_len == c:
+        assert (n_split, tps) == (32, 1)
+    lens = torch.full((b,), kv_len, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, kv_len, **sc)
+
+    def plain(v=v, vs=sc.get("v_scale")):
+        kw = {}
+        if quantized:
+            kw = {"k_scale": sc["k_scale"].view(b, c),
+                  "v_scale": vs.view(b, c)}
+        return dec.decode_attention_plain(
+            q, k.view(b, c, 256), v.reshape(b, c, 256), lens,
+            n_split=n_split, tiles_per_split=tps, **kw)
+
+    tile = (kv_len - 1) // 64
+    if quantized:
+        vs = sc["v_scale"].clone()
+        vs[..., tile * 64:tile * 64 + 64] = 0
+        faulty = plain(vs=vs)
+    else:
+        vz = v.clone()
+        vz[:, :, tile * 64:tile * 64 + 64] = 0
+        faulty = plain(vz)
+    torch.cuda.synchronize()
+    _held_per_row(got, plain(), faulty)
+
+
+def test_fp32_forms_run_at_head_dim_256(cuda):
+    """The CUDA-core forms of B3 and B4 take E at run time: at 256 (the
+    hybrid's fp32 check) they match their plain versions at 3e-5."""
+    g = torch.Generator(device=cuda).manual_seed(340)
+    q, k, v = _rand(g, 16, 192, 256), _rand(g, 1, 256, 256), \
+        _rand(g, 1, 256, 256)
+    got = fl.flash_attention_flat(q, k, v, blk_q=16, causal=True, window=70,
+                                  kv_len=200)
+    want = fl.flash_attention_plain(q, k, v, blk_q=16, blk_kv=64,
+                                    causal=True, window=70, kv_len=200)
+    qd = _rand(g, 3, 16, 256)
+    kd, vd = _rand(g, 3, 333, 256), _rand(g, 3, 333, 256)
+    lens = torch.tensor([1, 200, 333], dtype=torch.int32, device=cuda)
+    out = dec.decode_attention_flat(qd, kd, vd, lens)
+    n_split, tps = dec.decode_split_plan(qd.dtype, 3, 333)
+    ref = dec.decode_attention_plain(qd, kd, vd, lens, n_split=n_split,
+                                     tiles_per_split=tps)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= FP32_ATOL
+    assert float((out - ref).abs().max()) <= FP32_ATOL
+
+
+def test_bf16_kernels_without_a_head_dim_256_form_refuse_it(cuda):
+    """B1, B2, B5, B6 and B7 take head dim 64 or 128 in bf16 and raise at
+    256, launching nothing; B3 and B4 take it."""
+    g = torch.Generator(device=cuda).manual_seed(350)
+    e = 256
+    q, k = _bf16(g, 2, 64, e), _bf16(g, 2, 64, e)
+    ops.reset_launch_counts()
+    for resident in (False, True):
+        with pytest.raises(ValueError, match="bf16"):
+            mas.mas_attention_flat(q, k, k, blk_q=16, kv_resident=resident)
+    pool = _bf16(g, 2, 8, 16, e)
+    table = torch.arange(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        ppre.paged_prefill_attention_flat(q, pool, pool, table,
+                                          _span(0, 64, cuda), blk_q=64)
+    lens = torch.tensor([10, 20], dtype=torch.int32, device=cuda)
+    tables = table.view(2, 4)
+    with pytest.raises(ValueError, match="bf16"):
+        pdec.paged_decode_attention_flat(_bf16(g, 2, 2, 2, e), pool, pool,
+                                         tables, lens)
+    with pytest.raises(ValueError, match="bf16"):
+        pver.paged_verify_attention_flat(_bf16(g, 2, 2, 4, e), pool, pool,
+                                         tables, lens, lens - 2, spec=2)
+    assert sum(ops.launch_counts().values()) == 0
+
+
 def _paged_pools(gen, hkv=2, n_pages=64, page=16, e=64, quantized=False):
     """Pools and a shuffled (6, 8) page table over them; int8 pools come
     with their per-page scales, (k, v, table, k_scales, v_scales)."""

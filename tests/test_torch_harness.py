@@ -110,16 +110,17 @@ def _vary_norms(tree, seed: int, std: float):
 
 
 def model_pair(arch: str, seed: int = 0, *, jax_impl: str = "pallas",
-               norm_std: float | None = None) -> Pair:
+               norm_std: float | None = None, **overrides) -> Pair:
     """fp32 smoke models: the reference with its Pallas kernels
     (interpret mode; ``jax_impl`` picks another of its attention
     backends), the port with its kernels' plain versions on the CPU, both
     from the reference's init (with random norm scales when ``norm_std``
-    is given)."""
+    is given). ``overrides`` replace fields of both packages' smoke
+    configs alike (widths, depth, window)."""
     jcfg = dataclasses.replace(jax_get_smoke(arch), attn_impl=jax_impl,
-                               compute_dtype=jnp.float32)
+                               compute_dtype=jnp.float32, **overrides)
     tcfg = dataclasses.replace(torch_get_smoke(arch), attn_impl="kernel",
-                               compute_dtype=torch.float32)
+                               compute_dtype=torch.float32, **overrides)
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(seed))
     if norm_std is not None:

@@ -361,7 +361,8 @@ def test_launch_counts_only_count_kernel_launches():
     x = to_torch(k).reshape(1, 32, 4, 8)              # (B, L, H, P)
     tops.ssd_chunked(x, -x[..., 0].abs(), x, x, 16)
     assert tops.launch_counts() == {
-        "mas_resident": 0, "mas_streamed": 0, "flash": 0, "decode": 0,
-        "decode_int8": 0, "paged_decode": 0, "paged_decode_int8": 0,
+        "mas_resident": 0, "mas_streamed": 0, "flash": 0, "flash_e256": 0,
+        "decode": 0, "decode_int8": 0, "decode_e256": 0,
+        "decode_e256_int8": 0, "paged_decode": 0, "paged_decode_int8": 0,
         "paged_prefill": 0, "paged_prefill_int8": 0, "paged_verify": 0,
         "paged_verify_int8": 0, "ssd_intra_chunk": 0}

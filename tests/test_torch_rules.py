@@ -18,7 +18,11 @@
 * a bf16 tensor reaches B1, B2, B3, B5, B8, B6 (on bf16 and int8 pools)
   and, on bf16 caches, B4 and B7 only through their tensor-core forms,
   chosen by dtype in the wrapper, with no ``try`` to fall back from, and
-  ``chip_smoke.py`` counts each kernel's tensor-core instructions.
+  ``chip_smoke.py`` counts each kernel's tensor-core instructions;
+* the bf16 forms' head dims: B3 and B4 (bf16 and int8 caches) take 64,
+  128 and 256, B1, B2, B5, B6 and B7 take 64 and 128 and raise at 256;
+  the head-dim-256 forms are reached through the same dtype-chosen entry
+  points as the others, and count their launches apart.
 """
 
 from __future__ import annotations
@@ -692,3 +696,59 @@ def test_bf16_prefill_never_reaches_the_cuda_core_code():
     # ... and the CUDA-core helpers of common.cuh take no bf16 operand
     common = (csrc / "common.cuh").read_text()
     assert "__nv_bfloat16" not in common.split("#include")[-1]
+
+
+def test_bf16_head_dims_b3_b4_take_256_the_others_raise():
+    """The head-dim rule, on CPU tensors through each wrapper's check (the
+    checks run before any launch) and in the CUDA sources' dispatch."""
+    assert tflash.BF16_HEAD_DIMS == (64, 128, 256)
+    assert tdec.B4_BF16_HEAD_DIMS == (64, 128, 256)
+    assert tdec.BF16_HEAD_DIMS == (64, 128)              # B6 and B7
+    assert tmas.BF16_HEAD_DIMS == ppre.BF16_HEAD_DIMS == (64, 128)
+
+    def bf16(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    for e in (64, 128, 256):
+        q = bf16(2, 64, e)
+        tflash.check_bf16(64, e, q, q, q)
+        tdec.check_bf16(16, e, q, head_dims=tdec.B4_BF16_HEAD_DIMS)
+        if e == 256:
+            with pytest.raises(ValueError, match="bf16"):
+                tmas.check_bf16(q, q, q, 16)
+            with pytest.raises(ValueError, match="bf16"):
+                ppre.check_bf16(q, bf16(2, 8, 16, e), bf16(2, 8, 16, e),
+                                torch.zeros(8, dtype=torch.int32), 64, False)
+            with pytest.raises(ValueError, match="bf16"):
+                tdec.check_bf16(2, e, q)        # B6's and B7's check
+        else:
+            tmas.check_bf16(q, q, q, 16)
+            tdec.check_bf16(2, e, q)
+    with pytest.raises(ValueError, match="bf16"):
+        tflash.check_bf16(64, 32, bf16(2, 64, 32))
+    with pytest.raises(ValueError, match="bf16"):
+        tdec.check_bf16(16, 512, bf16(2, 16, 512),
+                        head_dims=tdec.B4_BF16_HEAD_DIMS)
+    # the same entry points, chosen by dtype; the launches counted apart
+    bf16_t, fp32 = torch.bfloat16, torch.float32
+    assert tflash.launch_key(bf16_t, 256) == "flash_e256"
+    assert tflash.launch_key(bf16_t, 128) == tflash.launch_key(fp32, 256) \
+        == "flash"
+    assert tdec.launch_key(bf16_t, 256, False) == "decode_e256"
+    assert tdec.launch_key(bf16_t, 256, True) == "decode_e256_int8"
+    assert tdec.launch_key(fp32, 256, True) == "decode_int8"
+    assert tdec.launch_key(bf16_t, 64, False) == "decode"
+    sigs = [n for lib in _build.SIGNATURES.values() for n in lib]
+    assert not any("256" in n for n in sigs)
+    csrc = PORT / "kernels" / "csrc"
+    flash_cu = (csrc / "flash_attention.cu").read_text()
+    entry = flash_cu[flash_cu.index('extern "C" int flash_attention_bf16'):]
+    assert "launch_bf16<256>(" in entry
+    assert "Bf16Form<E>::THREADS" in flash_cu     # two warpgroups at 256
+    dec_cu = (csrc / "decode_attention.cu").read_text()
+    assert "launch_tc<256, KV>" in dec_cu
+    for other in ("paged_decode_attention.cu", "paged_verify_attention.cu",
+                  "paged_prefill_attention.cu", "mas_attention.cu"):
+        text = (csrc / other).read_text()
+        assert "<256" not in text and "E == 256" not in text, other
+    assert "E == 256" in (csrc / "decode_tc.cuh").read_text()

@@ -18,7 +18,11 @@ error on the card:
 
 B1 and B2 share one emulation (MAS: the fp32 score row, one exact
 softmax), held to the plain version at B1's block height (32) and B2's
-(16). B5 is B3's online softmax over a chunk at a ``q_offset`` of a
+(16). At head dim 256 (recurrentgemma-9b) B3 is emulated windowed (16
+query heads on one kv head, a 100-token window over 320 keys: its two
+warpgroups each compute S whole and one half of the output columns,
+which rounds as one warpgroup would), and B4 at G = 16 on four
+sequences over a full ring of 2048 rows, bf16 and int8. B5 is B3's online softmax over a chunk at a ``q_offset`` of a
 paged pool; on an int8 pool its tiles hold the int8 values as bf16
 (exact: every value in -127..127 has 8 significant bits), the K scale
 multiplies the score and the V scale multiplies P after the row sum and
@@ -103,23 +107,28 @@ def mas_emulated(q, k, v, *, split: bool):
 
 
 def online_emulated(q, k, v, *, split: bool, q_offset: int = 0,
-                    kv_len: int = N, k_scale=None, v_scale=None):
+                    kv_len: int = N, k_scale=None, v_scale=None,
+                    window: int | None = None):
     """B3's and B5's bf16 forms: online max and sum over 64-column tiles,
     query row i at position q_offset + i seeing the keys at positions <=
-    it and below kv_len; P = exp(s - m) unnormalized into P V (times the
-    column's V scale after the row sum, before the split), the sum l
-    taken from fp32 P. k, v: (H, S, E) bf16 values (int8 values held as
-    bf16 for an int8 pool), scales (H, S) per column."""
-    heads, nq, _ = q.shape
-    s_all = (q.float() @ k.float().transpose(1, 2)) * E ** -0.5
+    it (and, with ``window``, after it - window) and below kv_len; P =
+    exp(s - m) unnormalized into P V (times the column's V scale after
+    the row sum, before the split), the sum l taken from fp32 P. k, v:
+    (H, S, E) bf16 values (int8 values held as bf16 for an int8 pool),
+    scales (H, S) per column."""
+    heads, nq, e = q.shape
+    s_all = (q.float() @ k.float().transpose(1, 2)) * e ** -0.5
     if k_scale is not None:
         s_all = s_all * k_scale[:, None, :]
     rows = torch.arange(nq).view(nq, 1) + q_offset
     cols = torch.arange(k.shape[1]).view(1, -1)
-    s_all = torch.where((cols <= rows) & (cols < kv_len), s_all, NEG_INF)
+    keep = (cols <= rows) & (cols < kv_len)
+    if window is not None:
+        keep = keep & (cols > rows - window)
+    s_all = torch.where(keep, s_all, NEG_INF)
     m = torch.full((heads, nq, 1), NEG_INF)
     l = torch.zeros((heads, nq, 1))
-    acc = torch.zeros((heads, nq, E))
+    acc = torch.zeros((heads, nq, e))
     for c0 in range(0, -(-kv_len // BLK_KV) * BLK_KV, BLK_KV):
         s = s_all[..., c0:c0 + BLK_KV]
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -201,8 +210,8 @@ def split_emulated(q, k, v, *, split: bool, kv_len: int, tiles: int,
     the row sum) enters P V as one bf16 product or as hi + lo; the warps,
     then the splits, are merged in fp32, and the output rounded to
     bf16."""
-    heads, rows, _ = q.shape
-    s_all = (q.float() @ k.float().transpose(1, 2)) * E ** -0.5
+    heads, rows, e = q.shape
+    s_all = (q.float() @ k.float().transpose(1, 2)) * e ** -0.5
     if k_scale is not None:
         s_all = s_all * k_scale[:, None, :]
     cols = torch.arange(k.shape[1]).view(1, -1)
@@ -217,7 +226,7 @@ def split_emulated(q, k, v, *, split: bool, kv_len: int, tiles: int,
         for w in range(WARPS):
             m = torch.full((heads, rows, 1), NEG_INF)
             l = torch.zeros((heads, rows, 1))
-            acc = torch.zeros((heads, rows, E))
+            acc = torch.zeros((heads, rows, e))
             for c0 in range(row0 + w * SLICE, min(row0 + span, kv_len),
                             WARPS * SLICE):
                 s = s_all[..., c0:c0 + SLICE]
@@ -246,15 +255,44 @@ def _kv_pair(rng, shape, quantized: bool, dims):
     return k, v, {"k_scales": ks, "v_scales": vs}
 
 
-def _decode_case(seed: int, quantized: bool):
-    """B4's case on a bf16 cache or an int8 cache with per-row scales:
-    (emulate, plain version's output, (v, scales))."""
+# B3's and B4's cases at head dim 256 (recurrentgemma-9b): 16 query heads
+# on one kv head; B3 over 320 keys under a 100-token window, B4 on four
+# sequences over a full ring of 2048 rows
+E256, G256, WINDOW256, RING, RING_BH = 256, 16, 100, 2048, 4
+
+
+def _flash_e256_case(seed: int):
+    """B3's head-dim-256 case: (emulate, plain output, (v, {}))."""
     rng = np.random.default_rng(seed)
-    q = torch.from_numpy(rng.standard_normal((DEC_BH, 1, E),
+    q = torch.from_numpy(rng.standard_normal((G256, N, E256),
                                              dtype=np.float32)).bfloat16()
-    k, v, sc = _kv_pair(rng, (DEC_BH, DEC_S, E), quantized, -1)
-    lens = torch.full((DEC_BH,), DEC_LEN, dtype=torch.int32)
-    n_split, tps = tdec.decode_split_plan(q.dtype, DEC_BH, DEC_S)
+    k, v = (torch.from_numpy(rng.standard_normal((1, N, E256),
+                                                 dtype=np.float32))
+            .bfloat16() for _ in range(2))
+    want = tflash.flash_attention_plain(q, k, v, blk_q=64, blk_kv=BLK_KV,
+                                        causal=True, window=WINDOW256)
+
+    def emulate(split, v_=None, vs=None):
+        vv = v if v_ is None else v_
+        return online_emulated(q, k.expand(G256, -1, -1),
+                               vv.expand(G256, -1, -1), split=split,
+                               window=WINDOW256)
+    return emulate, want, (v, {})
+
+
+def _decode_case(seed: int, quantized: bool, e: int = E):
+    """B4's case on a bf16 cache or an int8 cache with per-row scales, at
+    head dim 128 (one query row on each of 32 (b, kv head) rows) or 256
+    (G = 16 query rows on each of 4 over a full ring): (emulate, plain
+    version's output, (v, scales))."""
+    rng = np.random.default_rng(seed)
+    bh, g, s_len, kv_len = ((DEC_BH, 1, DEC_S, DEC_LEN) if e == E
+                            else (RING_BH, G256, RING, RING))
+    q = torch.from_numpy(rng.standard_normal((bh, g, e),
+                                             dtype=np.float32)).bfloat16()
+    k, v, sc = _kv_pair(rng, (bh, s_len, e), quantized, -1)
+    lens = torch.full((bh,), kv_len, dtype=torch.int32)
+    n_split, tps = tdec.decode_split_plan(q.dtype, bh, s_len)
     want = tdec.decode_attention_plain(
         q, k, v, lens, n_split=n_split, tiles_per_split=tps,
         k_scale=sc.get("k_scales"), v_scale=sc.get("v_scales"))
@@ -266,7 +304,7 @@ def _decode_case(seed: int, quantized: bool):
                   "v_scale": sc["v_scales"] if vs is None else vs}
         return split_emulated(q, k.bfloat16(),
                               (v if v_ is None else v_).bfloat16(),
-                              split=split, kv_len=DEC_LEN, tiles=tps, **kw)
+                              split=split, kv_len=kv_len, tiles=tps, **kw)
     return emulate, want, (v, sc)
 
 
@@ -320,15 +358,19 @@ def row_rel_err(got, want) -> float:
 
 KERNELS = ["mas", "mas_resident", "flash", "paged", "paged_int8", "decode",
            "decode_int8", "verify", "verify_int8", "paged_decode",
-           "paged_decode_int8"]
+           "paged_decode_int8", "flash_e256", "decode_e256",
+           "decode_e256_int8"]
 
 
 def _case(kernel: str, seed: int):
     """(emulate(split, v=None, v_scales=None), plain version's output,
     (v, scales)) of ``kernel`` on the inputs of ``seed``."""
     quantized = kernel.endswith("_int8")
+    if kernel == "flash_e256":
+        return _flash_e256_case(seed)
     if kernel.startswith("decode"):
-        return _decode_case(seed, quantized)
+        return _decode_case(seed, quantized,
+                            E256 if "e256" in kernel else E)
     if kernel.startswith("verify"):
         return _paged_split_case(seed, quantized, VER_SPEC, VER_LEN)
     if kernel.startswith("paged_decode"):
@@ -382,7 +424,7 @@ def test_emulation_sees_a_skipped_v_tile(kernel):
     want = emulate(True)
     if kernel.endswith("_int8"):  # a page's (B4: a tile's) V scales zeroed
         vs = sc["v_scales"].clone()
-        if kernel == "decode_int8":
+        if kernel.startswith("decode"):
             vs[:, BLK_KV:2 * BLK_KV] = 0
         else:
             vs[:, 3] = 0
