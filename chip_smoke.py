@@ -128,8 +128,9 @@ Phases, each printing one JSON line:
    2048 wave (B2, B4), full width, each freed before the next; the 33B
    runs at full depth where ``torch.cuda.mem_get_info()`` shows room for
    its weights, its cache and 4 GiB, else at the depth that fits, stated
-   as ``reduced``; each wave's first-token logits within LOGITS_RTOL of
-   the plain route's;
+   as ``reduced``, then qwen3-1.7b (qk-norm, GQA group 2, a 151,936-entry
+   vocabulary) as phi4-mini; each wave's first-token logits within
+   LOGITS_RTOL of the plain route's;
 13. ssm wave — full-width mamba2-130m (random weights from a seed)
    served by ``ServingEngine`` in three waves, 4 x 2048, 1 x 32768 and
    4 x 1000 (a ragged tail padded to a whole chunk), 16 new tokens each:
@@ -160,7 +161,41 @@ Phases, each printing one JSON line:
    and 1 x 8000 first-token logits within LOGITS_RTOL of the plain
    route's, the int8 ring's first decode logits within INT8_LOGITS_RTOL
    of the bf16 ring's; at full width with one unit and the tail (5
-   layers) in fp32 the kernel route's tokens equal the plain route's.
+   layers) in fp32 the kernel route's tokens equal the plain route's;
+15. encdec — full-width, full-depth whisper-large-v3 (32 encoder and 32
+   decoder layers, d_model 1280, 20/20 heads of 64, vocab 51866; bf16,
+   random weights from seed 0; 1,534,602,240 parameters) driven through
+   the model API, as the engines take no frames: random stub frames (B,
+   1500, 1280) from a numpy seed through ``encode`` (B2 non-causal at
+   blk_q 32, Q rows padded to 1504, 1500 keys to 1536 under kv_len),
+   then ``prefill`` (B1 causal self-attention, B2 cross-attention) and
+   greedy ``decode_step``s (B4 at head dim 64 and group 1, and each
+   layer's cross-attention on B2: one query row padded to blk_q 8 over
+   the 1500 memory rows), for 4 clips with 4-token prompts and 1 clip
+   with a 224-token prompt, 32 new tokens each, and the 4 clips again on
+   an int8 self-attention cache (cross memories in bf16). Per wave:
+   encode, prefill and decode-step times (host clock, and device time by
+   CUDA events around each), peak memory and launches; B2's share of a
+   decode step's device time (the step and its 32 B2 calls each timed
+   behind a device-side wait). One gated encode, prefill and decode step
+   (bf16 and int8) hold every B1, B2 and B4 call to its plain version on
+   the model's inputs (rows within BF16_ROW_RTOL) beside a zeroed V tile
+   of the (cross) memory and, for every non-causal call over a padded
+   memory, a plain version that ignores kv_len and attends the zero rows
+   of the padding; the first-token logits of both prompts within
+   LOGITS_RTOL of the plain route's, the int8 cache's first decode
+   logits within INT8_LOGITS_RTOL of bf16's; at 2 encoder and 2 decoder
+   layers in fp32 the kernel route's tokens equal the plain route's;
+16. vlm — full-width, full-depth internvl2-2b (24 layers, d_model 2048,
+   16/8 heads of 128, vocab 92553; bf16, random weights from seed 0;
+   1,699,598,336 parameters): 256 random stub patch embeddings before
+   each prompt through ``prefill(frontend_embeds=)`` and ``decode_step``
+   at positions 256 + i, waves of 4 x (256 + 256) and 4 x (256 + 2048)
+   (B2), 16 new tokens each (B4 at group 2): TTFT, decode step, peak
+   memory; each wave's first prompt's prefill and a decode step gated
+   call by call as above, its first-token logits within LOGITS_RTOL of
+   the plain route's; at 2 layers in fp32 the kernel route's tokens
+   equal the plain route's.
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails unless its kernels launched.
@@ -168,7 +203,10 @@ The last three lines are the kernel table (B1-B8, the int8 branches of
 B4-B7 and the head-dim-256 forms of B3 and B4, each with the launches of
 its own paths: B1, B2 and B4 add the moe and dense-arch phases' to the
 waves', B5 and B6 the shared-prefix, moe and dense-arch phases' to the
-continuous phase's, the head-dim-256 forms the hybrid wave's), the card's
+continuous phase's, the head-dim-256 forms the hybrid wave's, B1, B2 and
+B4 also the encdec and vlm phases'; ``mas_streamed_cross``, B2 at a
+whisper decode step's cross-attention shape, counts the B2 launches of
+the encdec phase's decode steps), the card's
 name and power limit, and the result. TF32 is switched off for matrix products and
 convolutions so fp32 comparisons see fp32 arithmetic. The script exits
 non-zero, printing no result, when there is no CUDA device or no port
@@ -264,11 +302,14 @@ MOE_DOWN_SCALE = 1 / 16
 # The dense archs left, full width: (arch, waves, continuous requests).
 # phi4-mini-3.8b runs GQA group 3; deepseek-coder-33b group 7 with untied
 # embeddings, ~66.7 GB of bf16 weights, its depth cut only where the card
-# cannot hold them, its cache and DENSE_HEADROOM.
+# cannot hold them, its cache and DENSE_HEADROOM; qwen3-1.7b (qk-norm,
+# group 2) last.
 DENSE_ARCH_TRAFFIC = (
     ("phi4-mini-3.8b", (("mas_resident", 256, BATCH),
                         ("mas_streamed", 2048, BATCH)), 8),
-    ("deepseek-coder-33b", (("mas_streamed", 2048, 1),), 0))
+    ("deepseek-coder-33b", (("mas_streamed", 2048, 1),), 0),
+    ("qwen3-1.7b", (("mas_resident", 256, BATCH),
+                    ("mas_streamed", 2048, BATCH)), 8))
 DENSE_HEADROOM = 4 << 30
 # recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU, 12
 # MQA attention layers of 16 heads of 256 over a 2048-token window)
@@ -286,6 +327,20 @@ HYBRID_LOGIT_WAVES = (0, 1)   # first-token logits held to the plain route
 # fp32 kernel-vs-plain token parity at full width: one (rec, rec, attn)
 # unit and the (rec, rec) tail
 HYBRID_FP32_LAYERS = 5
+# whisper-large-v3 at full width and depth through the model API (the
+# engines take no frames): (clips, decoder prompt tokens) of each wave,
+# within whisper's 448-token text context: short prompts, and one
+# 224-token previous-text prompt (B1 at blk_q 32, the cross-attention at
+# blk_q 32); the first wave again on an int8 self-attention cache.
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_WAVES = ((4, 4), (1, 224))
+ENCDEC_NEW_TOKENS = 32
+ENCDEC_FP32_LAYERS = 2      # encoder and decoder layers each
+# internvl2-2b: (text tokens, batch) of each wave, after the 256 stub
+# patch embeddings of each prompt
+VLM_ARCH = "internvl2-2b"
+VLM_WAVES = ((256, 4), (2048, 4))
+VLM_FP32_LAYERS = 2
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -303,11 +358,16 @@ PATH_KERNELS = {
     "dense_archs": ("mas_resident", "mas_streamed", "decode",
                     "paged_prefill", "paged_decode"),
     "hybrid_wave": ("flash_e256", "decode_e256", "decode_e256_int8"),
+    "encdec": ("mas_resident", "mas_streamed", "decode", "decode_int8"),
+    "vlm": ("mas_streamed", "decode"),
 }
-ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs"),
-            "mas_streamed": ("waves", "moe", "dense_archs"),
-            "flash": ("waves",), "decode": ("waves", "moe", "dense_archs"),
-            "decode_int8": ("int8_wave",),
+ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec"),
+            "mas_streamed": ("waves", "moe", "dense_archs", "encdec",
+                             "vlm"),
+            "mas_streamed_cross": ("encdec",),
+            "flash": ("waves",),
+            "decode": ("waves", "moe", "dense_archs", "encdec", "vlm"),
+            "decode_int8": ("int8_wave", "encdec"),
             "paged_decode": ("continuous", "shared_prefix", "moe",
                              "dense_archs"),
             "paged_prefill": ("continuous", "shared_prefix", "moe",
@@ -422,6 +482,27 @@ def hidden_ms(torch, fn, iters: int) -> tuple[float | None, int, int]:
             retries += 1
             wait_ms *= 4
     return (total / kept if kept else None), retries, iters - kept
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Device time of one call of ``fn``, captured once in a CUDA graph
+    and replayed ``iters`` times back to back between CUDA events: its
+    kernels' time without the host's dispatch between them. For a call of
+    more launches than the device's queue holds (about a thousand), which
+    ``hidden_ms`` cannot hide: the host blocks on the full queue while the
+    device waits. ``fn`` must be capturable: no host sync, no host-to-
+    device copy."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                        # warm-up off the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(torch, graph.replay, iters)
+    del graph
+    return ms
 
 
 def device_times(torch, kern, lib, iters: int) -> dict:
@@ -833,6 +914,7 @@ def phase_kernels(torch, device: dict) -> list[dict]:
         if method == "mas_streamed":
             rows[-1]["blk_q8"] = streamed_at_blk_q8(torch, rnd, hq, hkv, e)
 
+    rows.append(cross_row(torch, rnd, device))
     for quantized in (False, True):
         rows.append(decode_row(torch, rnd, cfg, quantized))
         rows += paged_rows(torch, rnd, cfg, quantized)
@@ -875,6 +957,78 @@ def streamed_at_blk_q8(torch, rnd, hq: int, hkv: int, e: int) -> dict:
             "tflops": flops / ms / 1e9,
             "shape": {"b": 1, "hq": hq, "hkv": hkv, "n": n, "e": e,
                       "blk_q": bq, "causal": True, "dtype": "bf16"}}
+
+
+def cross_row(torch, rnd, device: dict) -> dict:
+    """B2 at a whisper-large-v3 decode step's cross-attention: one query
+    row (padded to blk_q 8) over the 1500 memory rows (padded to 1536,
+    masked at kv_len), 20 heads of 64 on 20 kv heads, batch 4,
+    non-causal, on the operands ``ops.attention`` gives the wrapper;
+    checked (untimed) also at the encoder's shape, 1500 frames at blk_q
+    32 (Q rows padded to 1504). Faults: a zeroed V tile, and the plain
+    version without the kv_len mask, which attends the 36 zero rows of the
+    padding. Yardstick: SDPA on the unpadded memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.policy import KV_TILE
+    from repro_torch.kernels import mas_attention as mas
+    from repro_torch.kernels import ops
+
+    cfg = get_arch(ENCDEC_ARCH)
+    b, h, e = ENCDEC_WAVES[0][0], cfg.num_heads, cfg.hd
+    n = cfg.num_frontend_tokens
+    checks, timed = [], None
+    for nq in (1, n):
+        kind, bq = ops.resolve_method(nq, n, e, 2)
+        require((kind, bq) == ("mas_streamed", 8 if nq == 1 else 32),
+                f"policy routes {nq} x {n} at E {e} to {kind}, blk_q {bq}")
+        q, k, v = rnd(b, h, nq, e), rnd(b, h, n, e), rnd(b, h, n, e)
+        qf = ops._pad_rows(q.reshape(b * h, nq, e), bq)
+        kf, vf = (ops._pad_rows(x.reshape(b * h, n, e), KV_TILE)
+                  for x in (k, v))
+
+        def kern(qf=qf, kf=kf, vf=vf, bq=bq, nq=nq):
+            return mas.mas_attention_flat(qf, kf, vf, blk_q=bq,
+                                          kv_resident=False,
+                                          kv_len=n)[:, :nq]
+
+        def plain(vf=vf, kv_len=n, qf=qf, kf=kf, bq=bq, nq=nq):
+            return mas.mas_attention_plain(qf, kf, vf, blk_q=bq,
+                                           blk_kv=KV_TILE,
+                                           kv_len=kv_len)[:, :nq]
+
+        want = plain()
+        check = held_to_plain(kern(), want,
+                              plain(drop_v_tile(vf, n // KV_TILE - 2)))
+        check["kv_tail_fault_row_rel_err"] = row_rel_err(plain(kv_len=None),
+                                                         want)
+        require(check["kv_tail_fault_row_rel_err"] > BF16_ROW_RTOL,
+                f"an unmasked kv tail passes the limit: {check}")
+        checks.append({"nq": nq, "blk_q": bq, "q_rows": qf.shape[1],
+                       "kv_rows": kf.shape[1], **check})
+        if nq == 1:
+            timed = (q, k, v, kern, plain, bq)
+    q, k, v, kern, plain, bq = timed
+    lib = library_call(torch, q, k, v, causal=False)
+    flops = 4.0 * e * n * b * h
+    nbytes = 2.0 * (2 * b * h * e + 2 * b * h * n * e)
+    bms, by = bound(flops, nbytes)
+    return {
+        "name": "mas_streamed_cross", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mas_attention.cu",
+        "replaces": "src/repro/kernels/mas_attention.py:121",
+        "launches": 0,
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "row_rel_err": max(c["row_rel_err"] for c in checks),
+        "fault_row_rel_err": min(c["fault_row_rel_err"] for c in checks),
+        "ms": cuda_ms(torch, kern, 50), "plain_ms": cuda_ms(torch, plain, 3),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(torch, lib, 50),
+        **device_times(torch, kern, lib, 50),
+        **kernel_report(device, "mas_attention", "mas_streamed_bf16"),
+        "shape": {"b": b, "hq": h, "hkv": h, "nq": 1, "n": n, "e": e,
+                  "blk_q": bq, "causal": False, "dtype": "bf16"},
+        "checks": checks,
+    }
 
 
 def paged_library_call(torch, q, k_pages, v_pages, table, mask,
@@ -2185,19 +2339,21 @@ def check_served(eng, reqs, out, new: int, vocab: int) -> None:
                 f"rid {r.rid}: token out of range")
 
 
-def fp32_model(torch, cfg, layers: int = FP32_LAYERS):
-    """Full width, ``layers`` layers, fp32, random weights from seed 0
-    with norm scales (an SSD block's gate norm too) from N(0, 4), so that
+def fp32_model(torch, cfg, layers: int = FP32_LAYERS, **overrides):
+    """Full width, ``layers`` layers (and ``overrides`` of other fields),
+    fp32, random weights from seed 0 with norm scales (an SSD block's gate
+    norm, an encoder's layers and final norm too) from N(0, 4), so that
     greedy tokens vary."""
     from repro_torch.models.api import build_model
 
     cfg32 = dataclasses.replace(cfg, num_layers=layers,
-                                compute_dtype=torch.float32)
+                                compute_dtype=torch.float32, **overrides)
     m32 = build_model(cfg32)
     p32 = m32.init(seed=0, device="cuda", dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for blk in [p32] + [b for layer in p32["layers"] for b in layer.values()]:
-        for key in ("norm", "final_norm", "gate_norm"):
+    stack = p32["layers"] + p32.get("encoder", [])
+    for blk in [p32] + [b for layer in stack for b in layer.values()]:
+        for key in ("norm", "final_norm", "gate_norm", "enc_final_norm"):
             if key in blk:
                 blk[key] = 2.0 * torch.randn(blk[key].shape, generator=gen,
                                              device="cuda")
@@ -3026,10 +3182,24 @@ def attention_gate(run, plain_fns=None):
     window's first positions). ``plain_fns`` names a plain version to use
     in place of the function's ``impl="plain"``, by function name, called
     with the same arguments (``flash_plain``: a long windowed call whose
-    dense oracle would not fit). Returns (run's result, {kernels launched:
-    calls, largest row error, smallest planted fault error, limit})."""
+    dense oracle would not fit). A non-causal full-sequence call over keys
+    that the kernel route pads to a whole tile (an encoder's, a cross
+    block's) is also held beside a second fault: the plain version over
+    the zero-padded keys and values, without the kv_len mask. Returns
+    (run's result, {kernels launched: calls, largest row error, smallest
+    planted fault error, limit, the padded calls and their smallest fault
+    error})."""
+    import torch
+
+    from repro_torch.core.policy import KV_TILE
     from repro_torch.kernels import ops
     from repro_torch.models import attention as am
+
+    def zero_padded_keys(args):
+        q, k, v, *rest = args
+        pad = (0, 0, 0, (-k.shape[2]) % KV_TILE)
+        return (q, torch.nn.functional.pad(k, pad),
+                torch.nn.functional.pad(v, pad), *rest)
 
     def zero_first_page(args):
         q, k_pages, v_pages, table, *rest = args
@@ -3044,7 +3214,7 @@ def attention_gate(run, plain_fns=None):
               "decode_attention": zero_first_tile,
               "paged_prefill_attention": zero_first_page}
     real = {name: getattr(am, name) for name in faults}
-    kernels, errs, fault_errs = {}, [], []
+    kernels, errs, fault_errs, tail_errs = {}, [], [], []
 
     def watched(name):
         fn = real[name]
@@ -3065,6 +3235,10 @@ def attention_gate(run, plain_fns=None):
             errs.append(row_rel_err(got, want))
             fault_errs.append(row_rel_err(reference(*faults[name](args),
                                                     **kw), want))
+            if (name == "attention" and not kw.get("causal", True)
+                    and args[1].shape[2] % KV_TILE):
+                tail_errs.append(row_rel_err(
+                    reference(*zero_padded_keys(args), **kw), want))
             return got
         return call
 
@@ -3077,9 +3251,13 @@ def attention_gate(run, plain_fns=None):
             setattr(am, name, fn)
     gate = {"kernels": {k: n for k, n in kernels.items() if n},
             "calls": len(errs), "limit": BF16_ROW_RTOL,
-            "row_rel_err": max(errs), "fault_row_rel_err": min(fault_errs)}
+            "row_rel_err": max(errs), "fault_row_rel_err": min(fault_errs),
+            "kv_tail_calls": len(tail_errs),
+            "kv_tail_fault_row_rel_err": min(tail_errs, default=None)}
     require(gate["row_rel_err"] <= BF16_ROW_RTOL < gate["fault_row_rel_err"],
             f"attention gate: {gate}")
+    require(not tail_errs or min(tail_errs) > BF16_ROW_RTOL,
+            f"attention gate: an unmasked kv tail passes: {gate}")
     return out, gate
 
 
@@ -3327,12 +3505,13 @@ def fitted_depth(torch, cfg, cache_bytes_per_layer: int) -> int:
 
 
 def phase_dense_archs(torch) -> dict:
-    """The two dense archs left, full width, each built, served and freed
-    before the next: phi4-mini-3.8b (GQA group 3) in waves of 4 x 256 and
-    4 x 2048 and 8 continuous requests (B1, B2, B4, B5, B6), and
+    """The dense archs beside internlm2, full width, each built, served
+    and freed before the next: phi4-mini-3.8b (GQA group 3) in waves of 4
+    x 256 and 4 x 2048 and 8 continuous requests (B1, B2, B4, B5, B6),
     deepseek-coder-33b (group 7, untied embeddings) in a 1 x 2048 wave
     (B2, B4), at full depth where the card holds its weights, its cache
-    and DENSE_HEADROOM (else cut, and said so). 16 new tokens a wave;
+    and DENSE_HEADROOM (else cut, and said so), and qwen3-1.7b (qk-norm,
+    group 2, vocab 151936) as phi4-mini. 16 new tokens a wave;
     each wave's first-token logits held to the plain route within
     LOGITS_RTOL; every launch count of each arch's path must rise."""
     import numpy as np
@@ -3365,9 +3544,9 @@ def phase_dense_archs(torch) -> dict:
         engines = {b: ServingEngine(model, params, max_len=max_len,
                                     batch_size=b, device="cuda")
                    for _, _, b in waves}
-        for b, eng in engines.items():              # warm-up
-            eng.serve(make_requests([p[:32] for p in prompts[0][:1]] * b,
-                                    2))
+        for b in engines:                           # warm-up
+            engines[b].serve(make_requests(
+                [p[:32] for p in prompts[0][:1]] * b, 2))
         cont = None
         if n_cont:
             cont_ps = continuous_prompts(vocab)[:n_cont]
@@ -3402,8 +3581,10 @@ def phase_dense_archs(torch) -> dict:
         logits_check = []
         for (route, n, _), ps in zip(waves, prompts):
             prompt = torch.from_numpy(ps[0][None].astype(np.int64)).cuda()
-            got, _ = model.prefill(params, cfg, prompt, n)
-            want, _ = plain_model.prefill(params, plain_model.cfg, prompt, n)
+            # no name keeps an engine or a cache past the arch: the next
+            # arch's depth is fitted to the free memory
+            got = model.prefill(params, cfg, prompt, n)[0]
+            want = plain_model.prefill(params, plain_model.cfg, prompt, n)[0]
             check = {"route": route, "prompt_len": n,
                      **prefill_vs_plain(got, want)}
             logits_check.append(check)
@@ -3424,6 +3605,412 @@ def phase_dense_archs(torch) -> dict:
         torch.cuda.empty_cache()
     report = {"phase": "dense_archs", "archs": archs, "launches": launches}
     emit(report)
+    return report
+
+
+def timed_call(torch, fn):
+    """(fn(), host seconds, event ms): CUDA events around the call, which
+    ends in a synchronize; the events count the device's elapsed time,
+    idle gaps while the host enqueues included."""
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    z.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, a.elapsed_time(z)
+
+
+def generate(torch, model, params, prompt, new: int, *, start: int,
+             max_len: int, kv_dtype=None, **inputs) -> dict:
+    """Greedy generation through the model API: ``prefill`` of ``prompt``
+    (B, S) with ``inputs`` (``encoder_out=`` or ``frontend_embeds=``) into
+    a cache of ``max_len`` rows, then ``new - 1`` ``decode_step``s at
+    positions ``start`` onwards. Returns the tokens (B, new), the first
+    token's logits (B, V) fp32, the last token and the cache, the launch
+    counts after the prefill, and the prefill's and each decode step's
+    (host seconds, event ms) by ``timed_call``."""
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    (logits, cache), *prefill = timed_call(torch, lambda: model.prefill(
+        params, cfg, prompt, max_len, kv_dtype=kv_dtype, **inputs))
+    first_logits = logits[:, -1].float()
+    prefill_counts = ops.launch_counts()
+    toks = [logits[:, -1].argmax(-1, keepdim=True)]
+    steps = []
+    for i in range(new - 1):
+        (logits, cache), *step = timed_call(
+            torch, lambda i=i: model.decode_step(params, cfg, toks[-1],
+                                                 cache, start + i))
+        toks.append(logits[:, -1].argmax(-1, keepdim=True))
+        steps.append(step)
+    return {"tokens": torch.cat(toks, 1), "first_logits": first_logits,
+            "cache": cache, "prefill_counts": prefill_counts,
+            "prefill": prefill, "steps": steps}
+
+
+def step_summary(steps) -> dict:
+    """Decode steps' host seconds and event ms: count, mean, p50."""
+    import numpy as np
+
+    host, ev = np.array([s for s, _ in steps]), np.array([m for _, m in steps])
+    return {"count": len(steps), "mean_s": float(host.mean()),
+            "p50_s": float(np.median(host)),
+            "events_mean_ms": float(ev.mean())}
+
+
+def launched_kernels(counts: dict) -> dict:
+    """The kernels of ``counts`` that launched."""
+    return {k: n for k, n in counts.items() if n}
+
+
+def recorded_calls(module, name: str, run, keep):
+    """``run()`` with the calls of ``module.name`` that ``keep`` accepts
+    recorded: returns (run's result, [(args, kwargs), ...])."""
+    real, calls = getattr(module, name), []
+
+    def call(*args, **kw):
+        if keep(*args, **kw):
+            calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, call)
+    try:
+        return run(), calls
+    finally:
+        setattr(module, name, real)
+
+
+def fp32_token_parity(torch, cfg, prompt, new: int, *, start: int,
+                      max_len: int, layers: int, frames=None, patches=None,
+                      **overrides) -> dict:
+    """At full width, ``layers`` layers (``overrides`` of more fields) in
+    fp32: the kernel route's greedy tokens (``generate``) against the
+    plain route's on ``prompt``, after each route's ``encode`` of
+    ``frames`` or with ``patches`` before the prompt, where given. Returns
+    the layers, the mismatched rows and the distinct tokens."""
+    from repro_torch.models.api import build_model
+
+    cfg32, m32, p32 = fp32_model(torch, cfg, layers, **overrides)
+    plain32 = build_model(dataclasses.replace(cfg32, attn_impl="plain"))
+    outs = []
+    for m in (m32, plain32):
+        inputs = {}
+        if frames is not None:
+            inputs["encoder_out"] = m.encode(p32, frames.float())
+        if patches is not None:
+            inputs["frontend_embeds"] = patches.float()
+        outs.append(generate(torch, m, p32, prompt, new, start=start,
+                             max_len=max_len, **inputs)["tokens"])
+    same = (outs[0] == outs[1]).all(-1)
+    del m32, p32, plain32
+    torch.cuda.empty_cache()
+    return {"layers": layers, **overrides,
+            "mismatched_rows": [i for i, ok in enumerate(same.tolist())
+                                if not ok],
+            "distinct_tokens": int(outs[0].unique().numel())}
+
+
+def phase_encdec(torch) -> dict:
+    """Full-width, full-depth whisper-large-v3 (bf16, random weights from
+    seed 0) through ``encode``, ``prefill`` and greedy ``decode_step``s
+    (the engines take no frames): stub frames (B, 1500, 1280) from
+    ``numpy.random.default_rng(11)``; waves of ENCDEC_WAVES (clips,
+    decoder prompt tokens), ENCDEC_NEW_TOKENS each, and the first wave
+    again on an int8 self-attention cache. Each wave launches B2 once an
+    encoder layer, B1 and B2 once a decoder layer in the prefill, and B4
+    and B2 once a decoder layer a decode step, exactly. Per wave: encode,
+    prefill and decode-step host seconds and event ms, peak memory,
+    launches. B2's share of a decode step's device time: the step's
+    device time from a CUDA graph of it (``graph_ms``: its ~1,900
+    launches overflow the queue that ``hidden_ms`` fills), its 32 B2
+    launches and its cross-attention calls through ``ops.attention``
+    (their padding copies included) each behind a device-side wait
+    (``hidden_ms``). On the first wave's inputs one encode, prefill and
+    decode step (bf16 and int8) held call by call to the plain versions
+    (``attention_gate``, with its kv-tail fault on every non-causal call);
+    the first-token logits of every bf16 wave within LOGITS_RTOL of the
+    plain route's, the int8 cache's first decode logits within
+    INT8_LOGITS_RTOL of bf16's; and at ENCDEC_FP32_LAYERS encoder and
+    decoder layers in fp32 the kernel route's tokens equal the plain
+    route's."""
+    import numpy as np
+
+    from repro_torch.kernels import mas_attention as mas
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as am
+    from repro_torch.models.api import build_model
+
+    full = full_width_model(torch, ENCDEC_ARCH)
+    model, params = full["model"], full["params"]
+    cfg = model.cfg
+    n_dec, n_enc, new = cfg.num_layers, cfg.encoder_layers, ENCDEC_NEW_TOKENS
+    rng = np.random.default_rng(11)
+    inputs = [(torch.from_numpy(rng.standard_normal(
+                   (clips, cfg.num_frontend_tokens, cfg.d_model))
+                   .astype(np.float32)).to("cuda", torch.bfloat16),
+               torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                             size=(clips, n))).cuda())
+              for clips, n in ENCDEC_WAVES]
+    # warm-up: cuBLAS handles and the kernels' first loads
+    for kv in (None, "int8"):
+        frames, prompt = inputs[0]
+        generate(torch, model, params, prompt, 2, start=prompt.shape[1],
+                 max_len=prompt.shape[1] + 2, kv_dtype=kv,
+                 encoder_out=model.encode(params, frames))
+
+    runs = [(i, None) for i in range(len(ENCDEC_WAVES))] + [(0, "int8")]
+    waves, served, counts, cross_launches = [], {}, {}, 0
+    for i, kv in runs:
+        (clips, n), (frames, prompt) = ENCDEC_WAVES[i], inputs[i]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        enc, enc_s, enc_ms = timed_call(torch,
+                                        lambda: model.encode(params, frames))
+        enc_counts = ops.launch_counts()
+        out = generate(torch, model, params, prompt, new, start=n,
+                       max_len=n + new, kv_dtype=kv, encoder_out=enc)
+        after = ops.launch_counts()
+        decode_key = "decode_int8" if kv else "decode"
+        launched = launched_kernels(after)
+        require(launched_kernels(enc_counts) == {"mas_streamed": n_enc},
+                f"encdec encode {clips} x {frames.shape[1]}: {enc_counts}")
+        require(launched == {"mas_streamed": n_enc + n_dec * new,
+                             "mas_resident": n_dec,
+                             decode_key: n_dec * (new - 1)},
+                f"encdec wave {clips} x {n} {kv}: launches {launched}")
+        for k, c in after.items():
+            counts[k] = counts.get(k, 0) + c
+        cross = after["mas_streamed"] - out["prefill_counts"]["mas_streamed"]
+        cross_launches += cross
+        toks = out["tokens"]
+        require(toks.shape == (clips, new) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"encdec wave {clips} x {n}: tokens {tuple(toks.shape)}")
+        require(bool(out["first_logits"].isfinite().all()),
+                f"encdec wave {clips} x {n}: first logits not finite")
+        served[(i, kv)] = out
+        prefill_s, prefill_ms = out["prefill"]
+        steps = step_summary(out["steps"])
+        waves.append({
+            "clips": clips, "prompt_len": n, "frames": frames.shape[1],
+            "kv_dtype": kv or "bf16", "new_tokens": new,
+            "encode_s": enc_s, "encode_events_ms": enc_ms,
+            "prefill_s": prefill_s, "prefill_events_ms": prefill_ms,
+            "ttft_s": enc_s + prefill_s, "decode_step": steps,
+            "tokens_per_s": clips * new / (enc_s + prefill_s + sum(
+                s for s, _ in out["steps"])),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launched, "decode_b2_launches": cross})
+    counts["mas_streamed_cross"] = cross_launches
+    agree = float((served[(0, "int8")]["tokens"]
+                   == served[(0, None)]["tokens"]).float().mean())
+
+    # B2's share of a decode step's device time, on the first wave's cache
+    last = served[(0, None)]
+    n = ENCDEC_WAVES[0][1]
+    tok, cache, pos = last["tokens"][:, -1:], last["cache"], n + new - 1
+
+    def step():
+        return model.decode_step(params, cfg, tok, cache, pos)
+
+    _, b2_calls = recorded_calls(
+        mas, "mas_attention_flat", step,
+        lambda *a, kv_resident=True, **kw: not kv_resident)
+    _, cross_calls = recorded_calls(
+        am, "attention", step, lambda *a, causal=True, **kw: not causal)
+    require(len(b2_calls) == len(cross_calls) == n_dec,
+            f"a decode step's B2 calls {len(b2_calls)}, cross-attention "
+            f"calls {len(cross_calls)}")
+    step_ms = graph_ms(torch, step, 10)
+    b2_ms, r2, d2 = hidden_ms(
+        torch, lambda: [mas.mas_attention_flat(*a, **kw)
+                        for a, kw in b2_calls], 5)
+    cross_ms, r3, d3 = hidden_ms(
+        torch, lambda: [am.attention(*a, **kw) for a, kw in cross_calls], 5)
+    share = {"clips": ENCDEC_WAVES[0][0], "position": pos,
+             "decode_step_device_ms": step_ms, "b2_calls": len(b2_calls),
+             "b2_device_ms": b2_ms,
+             "cross_attention_device_ms": cross_ms,
+             "b2_share": None if b2_ms is None else b2_ms / step_ms,
+             "cross_attention_share": None if cross_ms is None
+             else cross_ms / step_ms,
+             "device_retries": r2 + r3, "device_dropped": d2 + d3}
+    del served, last, cache, b2_calls, cross_calls
+
+    # one gated encode, prefill and decode step (bf16 and int8) on the
+    # first wave's inputs, and every bf16 wave's first-token logits
+    # against the plain route
+    plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
+    frames, prompt = inputs[0]
+    n = prompt.shape[1]
+    enc, egate = attention_gate(lambda: model.encode(params, frames))
+    (got, cache), pgate = attention_gate(lambda: model.prefill(
+        params, cfg, prompt, n + new, encoder_out=enc))
+    tok = got[:, -1].argmax(-1, keepdim=True)
+    (want8, _), dgate = attention_gate(
+        lambda: model.decode_step(params, cfg, tok, cache, n))
+    _, cache8 = model.prefill(params, cfg, prompt, n + new, encoder_out=enc,
+                              kv_dtype="int8")
+    (got8, _), gate8 = attention_gate(
+        lambda: model.decode_step(params, cfg, tok, cache8, n))
+    del cache, cache8
+    for gate, want in ((egate, {"mas_streamed": n_enc}),
+                       (pgate, {"mas_resident": n_dec,
+                                "mas_streamed": n_dec}),
+                       (dgate, {"decode": n_dec, "mas_streamed": n_dec}),
+                       (gate8, {"decode_int8": n_dec,
+                                "mas_streamed": n_dec})):
+        require(gate["kernels"] == want and gate["kv_tail_calls"] ==
+                want["mas_streamed"], f"encdec gate: {gate}")
+    scale = float(want8.float().abs().max())
+    int8_check = {"max_abs_err": max_err(got8, want8), "max_abs_logit": scale,
+                  "tol": INT8_LOGITS_RTOL * max(1.0, scale)}
+    require(int8_check["max_abs_err"] <= int8_check["tol"],
+            f"encdec int8 decode logits: {int8_check}")
+    logits_check = []
+    for i, (frames, prompt) in enumerate(inputs):
+        n = prompt.shape[1]
+        got, _ = model.prefill(params, cfg, prompt, n,
+                               encoder_out=model.encode(params, frames))
+        want, _ = plain_model.prefill(
+            params, plain_model.cfg, prompt, n,
+            encoder_out=plain_model.encode(params, frames))
+        check = {"clips": prompt.shape[0], "prompt_len": n,
+                 **prefill_vs_plain(got, want)}
+        logits_check.append(check)
+        require(check["finite"] and check["max_abs_err"] <= check["tol"],
+                f"encdec prefill {n} logits: {check}")
+    init_s, n_params = full["init_s"], full["n_params"]
+    del full, params, model, plain_model, enc
+    torch.cuda.empty_cache()
+
+    frames, prompt = inputs[0]
+    n = prompt.shape[1]
+    parity = fp32_token_parity(
+        torch, cfg, prompt, new, start=n, max_len=n + new,
+        frames=frames, layers=ENCDEC_FP32_LAYERS,
+        encoder_layers=ENCDEC_FP32_LAYERS)
+    report = {
+        "phase": "encdec", "arch": ENCDEC_ARCH, "params": n_params,
+        "init_s": init_s, "layers": n_dec, "encoder_layers": n_enc,
+        "frames": cfg.num_frontend_tokens, "dtype": "bf16", "waves": waves,
+        "b2_share_of_decode_step": share, "launches": counts,
+        "int8_tokens_agreeing_with_bf16": agree,
+        "attention_gates": {"encode": egate, "prefill": pgate,
+                            "decode": dgate, "int8_decode": gate8},
+        "int8_vs_bf16_decode_logits": int8_check,
+        "prefill_vs_plain": logits_check, "fp32_parity": parity,
+    }
+    emit(report)
+    require(not parity["mismatched_rows"],
+            f"fp32 encdec: kernel tokens differ from plain: {parity}")
+    return report
+
+
+def phase_vlm(torch) -> dict:
+    """Full-width, full-depth internvl2-2b (bf16, random weights from seed
+    0) through ``prefill(frontend_embeds=)`` and greedy ``decode_step``s
+    at positions 256 + i: 256 stub patch embeddings from
+    ``numpy.random.default_rng(12)`` before each prompt, waves of
+    VLM_WAVES (text tokens, batch), NEW_TOKENS each; B2 once a layer a
+    prefill and B4 once a layer a decode step, exactly. Per wave: TTFT,
+    decode step, peak memory, launches; on each wave's first prompt the
+    prefill and a decode step held call by call to the plain versions and
+    the first-token logits within LOGITS_RTOL of the plain route's; at
+    VLM_FP32_LAYERS layers in fp32 the kernel route's tokens equal the
+    plain route's."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    full = full_width_model(torch, VLM_ARCH)
+    model, params = full["model"], full["params"]
+    cfg = model.cfg
+    layers, extra, new = cfg.num_layers, cfg.num_frontend_tokens, NEW_TOKENS
+    rng = np.random.default_rng(12)
+    inputs = [(torch.from_numpy(rng.standard_normal((b, extra, cfg.d_model))
+                                .astype(np.float32)).to("cuda",
+                                                        torch.bfloat16),
+               torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                             size=(b, n))).cuda())
+              for n, b in VLM_WAVES]
+    patches, prompt = inputs[0]
+    generate(torch, model, params, prompt[:, :32], 2, start=extra + 32,
+             max_len=extra + 34, frontend_embeds=patches)      # warm-up
+    waves, counts = [], {}
+    for (n, b), (patches, prompt) in zip(VLM_WAVES, inputs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate(torch, model, params, prompt, new, start=extra + n,
+                       max_len=extra + n + new, frontend_embeds=patches)
+        wall = time.perf_counter() - t0
+        launched = launched_kernels(ops.launch_counts())
+        require(launched == {"mas_streamed": layers,
+                             "decode": layers * (new - 1)},
+                f"vlm wave {b} x ({extra} + {n}): launches {launched}")
+        for k, c in launched.items():
+            counts[k] = counts.get(k, 0) + c
+        toks = out["tokens"]
+        require(toks.shape == (b, new) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"vlm wave {b} x {n}: tokens {tuple(toks.shape)}")
+        prefill_s, prefill_ms = out["prefill"]
+        waves.append({
+            "batch": b, "patches": extra, "prompt_len": n,
+            "new_tokens": new, "ttft_s": prefill_s,
+            "prefill_events_ms": prefill_ms,
+            "decode_step": step_summary(out["steps"]), "wall_s": wall,
+            "tokens_per_s": b * new / wall,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launched})
+        del out
+
+    plain_model = build_model(dataclasses.replace(cfg, attn_impl="plain"))
+    gates, logits_check = [], []
+    for (n, _), (patches, prompt) in zip(VLM_WAVES, inputs):
+        one, p1 = prompt[:1], patches[:1]
+        (got, cache), pgate = attention_gate(lambda: model.prefill(
+            params, cfg, one, extra + n + 1, frontend_embeds=p1))
+        tok = got[:, -1].argmax(-1, keepdim=True)
+        _, dgate = attention_gate(
+            lambda: model.decode_step(params, cfg, tok, cache, extra + n))
+        del cache
+        require(pgate["kernels"] == {"mas_streamed": layers},
+                f"vlm prefill {n}: {pgate}")
+        require(dgate["kernels"] == {"decode": layers},
+                f"vlm decode {n}: {dgate}")
+        gates.append({"prompt_len": n, "prefill": pgate, "decode": dgate})
+        want, _ = plain_model.prefill(params, plain_model.cfg, one, extra + n,
+                                      frontend_embeds=p1)
+        check = {"prompt_len": n, **prefill_vs_plain(got, want)}
+        logits_check.append(check)
+        require(check["finite"] and check["max_abs_err"] <= check["tol"],
+                f"vlm prefill {n} logits: {check}")
+    init_s, n_params = full["init_s"], full["n_params"]
+    del full, params, model, plain_model
+    torch.cuda.empty_cache()
+
+    patches, prompt = inputs[0]
+    n = prompt.shape[1]
+    parity = fp32_token_parity(torch, cfg, prompt, new, start=extra + n,
+                               max_len=extra + n + new, patches=patches,
+                               layers=VLM_FP32_LAYERS)
+    report = {"phase": "vlm", "arch": VLM_ARCH, "params": n_params,
+              "init_s": init_s, "layers": layers, "patches": extra,
+              "dtype": "bf16", "waves": waves, "launches": counts,
+              "attention_gates": gates, "prefill_vs_plain": logits_check,
+              "fp32_parity": parity}
+    emit(report)
+    require(not parity["mismatched_rows"],
+            f"fp32 vlm: kernel tokens differ from plain: {parity}")
     return report
 
 
@@ -3469,6 +4056,10 @@ def main() -> int:
     launches["ssm_wave"] = phase_ssm_wave(torch)["launches"]
     torch.cuda.empty_cache()
     launches["hybrid_wave"] = phase_hybrid_wave(torch)["launches"]
+    torch.cuda.empty_cache()
+    launches["encdec"] = phase_encdec(torch)["launches"]
+    torch.cuda.empty_cache()
+    launches["vlm"] = phase_vlm(torch)["launches"]
     for row in rows:
         row["launches"] = sum(launches[path][row["name"]]
                               for path in ROW_PATH[row["name"]])

@@ -3,10 +3,10 @@
 
 Serves full-width internlm2-1.8b (bf16, random weights from seed 0) on
 seven paths, full-width mamba2-130m on one more, full-width
-deepseek-moe-16b on two and full-width recurrentgemma-9b on one, each
-once to warm up,
-once untraced and once under ``torch.profiler``, and prints one JSON
-line a path:
+deepseek-moe-16b on two, full-width recurrentgemma-9b on one and drives
+full-width whisper-large-v3 through its model API on one, each once to
+warm up, once untraced and once under ``torch.profiler``, and prints one
+JSON line a path:
 
 * ``continuous``: the requests of ``chip_smoke.py``'s continuous phase
   (16 requests with prompts of 32-3500 tokens from
@@ -56,7 +56,17 @@ line a path:
   steps (also reported as ``b3`` and ``b4``: launches and device ms), and
   ``rglru``: the device time of the RG-LRU block's doubling scan
   (``rglru.affine_scan``) and its causal conv (``rglru.causal_conv``),
-  from profiler ranges around them.
+  from profiler ranges around them;
+* ``encdec``: full-width, full-depth whisper-large-v3 (bf16, random
+  weights from seed 0) as ``chip_smoke.py``'s encdec phase drives it:
+  4 clips of 1500 random stub frames (``numpy.random.default_rng(11)``)
+  through ``encode``, a 4-token prompt through ``prefill`` and 31
+  greedy ``decode_step``s (32 new tokens), each step ending in a
+  synchronize (step kinds ``encode``, ``prefill``, ``decode``). It adds
+  ``decode_step_split``: a decode step's device time split into its 32
+  B2 cross-attention calls, B4, matmuls and elementwise work (every
+  other kernel, copies included), from the kernels that run inside the
+  decode steps.
 
 Each line holds the serve's wall time untraced and traced, the device's
 busy share over the traced serve, the busy share and time of each step
@@ -99,7 +109,9 @@ DENSE = ("continuous", "int8_continuous", "speculative", "speculative_int8",
          "shared_prefix", "wave", "int8_wave")
 MOE = ("moe_wave", "moe_continuous")
 HYBRID_ARCH, HYBRID_WAVE = "recurrentgemma-9b", (4, 2048)
-PATHS = DENSE + ("ssm_wave",) + MOE + ("hybrid_wave",)
+ENCDEC_ARCH, ENCDEC_CLIPS, ENCDEC_PROMPT = "whisper-large-v3", 4, 4
+ENCDEC_NEW_TOKENS = 32
+PATHS = DENSE + ("ssm_wave",) + MOE + ("hybrid_wave", "encdec")
 # profiler ranges put around functions, not kernels
 MARKS = ("step:", "moe:", "rglru:")
 B8 = "B8 ssd_intra_chunk"
@@ -332,6 +344,8 @@ def main() -> int:
     if "hybrid_wave" in paths:
         trace_hybrid(torch, np, get_arch, build_model, Request,
                      ServingEngine)
+    if "encdec" in paths:
+        trace_encdec(torch, np, get_arch, build_model)
     return 0
 
 
@@ -440,6 +454,78 @@ def trace_hybrid(torch, np, get_arch, build_model, Request, ServingEngine):
          "prompt": n, "new_tokens": WAVE_NEW_TOKENS,
          "window": cfg.window})
     del eng, model, params
+    torch.cuda.empty_cache()
+
+
+def step_split(torch, prof, kind: str) -> dict:
+    """Device ms and launches a step of kind ``kind``, by kernel group:
+    the kernels that start inside the host's ``step:<kind>`` ranges (each
+    step ends in a synchronize, so its kernels run inside it)."""
+    import bisect
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == f"step:{kind}" and e.device_type != cuda)
+    if not spans:
+        return {"not measured": f"no step:{kind} ranges in the trace"}
+    starts = [a for a, _ in spans]
+    parts: dict[str, list] = {}
+    for e in events:
+        if e.device_type != cuda or e.name.startswith(MARKS):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i < 0 or spans[i][1] < e.time_range.start:
+            continue
+        group = group_of(e.name)
+        if group not in ("B2 mas_streamed", "B4 decode", "matmul"):
+            group = "elementwise and other"
+        entry = parts.setdefault(group, [0, 0.0])
+        entry[0] += 1
+        entry[1] += (e.time_range.end - e.time_range.start) / 1e3
+    total = sum(ms for _, ms in parts.values())
+    return {"steps": len(spans), "device_ms_per_step": total / len(spans),
+            **{g: {"launches_per_step": n / len(spans),
+                   "ms_per_step": ms / len(spans), "share": ms / total}
+               for g, (n, ms) in parts.items()}}
+
+
+def trace_encdec(torch, np, get_arch, build_model):
+    cfg = get_arch(ENCDEC_ARCH)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(11)
+    frames = torch.from_numpy(rng.standard_normal(
+        (ENCDEC_CLIPS, cfg.num_frontend_tokens, cfg.d_model))
+        .astype(np.float32)).to("cuda", torch.bfloat16)
+    prompt = torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, size=(ENCDEC_CLIPS, ENCDEC_PROMPT))).cuda()
+    n, new = ENCDEC_PROMPT, ENCDEC_NEW_TOKENS
+
+    def step(kind, fn):
+        with torch.profiler.record_function(f"step:{kind}"):
+            out = fn()
+            torch.cuda.synchronize()
+        return out
+
+    def serve():
+        enc = step("encode", lambda: model.encode(params, frames))
+        logits, cache = step("prefill", lambda: model.prefill(
+            params, cfg, prompt, n + new, encoder_out=enc))
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        for i in range(new - 1):
+            logits, cache = step("decode", lambda: model.decode_step(
+                params, cfg, tok, cache, n + i))
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+
+    out = traced(torch, serve)
+    line = {"path": "encdec", "arch": ENCDEC_ARCH,
+            "device": torch.cuda.get_device_name(0), "clips": ENCDEC_CLIPS,
+            "frames": cfg.num_frontend_tokens, "prompt": n,
+            "new_tokens": new, **summary(torch, *out),
+            "decode_step_split": step_split(torch, out[2], "decode")}
+    print(json.dumps(line), flush=True)
+    del model, params
     torch.cuda.empty_cache()
 
 

@@ -17,6 +17,8 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "internvl2-2b": "internvl2_2b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

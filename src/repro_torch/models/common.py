@@ -1,9 +1,11 @@
 """Shared model substrate: configs, norms, rotary embeddings, init.
 
 Port of ``repro/models/common.py`` for the dense decoder, the MoE
-decoder, the SSM (mamba2) and the hybrid (recurrentgemma) families. The
-numerics keep the reference's op order (fp32 norm with ``1 + scale``,
-rope on interleaved pairs) so the two packages agree on logits.
+decoder, the SSM (mamba2), the hybrid (recurrentgemma), the vision-frontend
+(internvl2) and the encoder-decoder (whisper) families. The numerics keep
+the reference's op order (fp32 norm with ``1 + scale``, rope on
+interleaved pairs, an fp32 sinusoid table) so the two packages agree on
+logits.
 """
 
 from __future__ import annotations
@@ -49,6 +51,15 @@ class ArchConfig:
     ``tie_embeddings`` is false, when it is a (d_model, vocab) matrix of
     its own.
 
+    ``family="vlm"`` is the dense decoder with ``frontend="vision"``:
+    ``num_frontend_tokens`` stub patch embeddings are prepended to the
+    token embeddings. ``family="audio"`` is an encoder-decoder:
+    ``encoder_layers`` > 0 non-causal layers over stub frames (B, F,
+    d_model), and a decoder whose attention layers each add a
+    cross-attention block over the encoder's output. ``rope=False``
+    replaces rotary embeddings by sinusoidal positions added to the
+    embeddings; ``causal`` is the decoder's self-attention mask.
+
     ``attn_impl`` selects the backend of the attention and SSD scan:
     ``"kernel"`` routes through ``kernels/ops.py`` (the CUDA kernels on a
     CUDA tensor, their plain versions on a CPU tensor), ``"plain"``
@@ -57,7 +68,7 @@ class ArchConfig:
     """
 
     name: str
-    family: str                  # "dense" | "moe" | "ssm" | "hybrid"
+    family: str      # "dense" | "moe" | "ssm" | "hybrid" | "vlm" | "audio"
     num_layers: int
     d_model: int
     num_heads: int
@@ -68,6 +79,8 @@ class ArchConfig:
     qk_norm: bool = False
     mlp: str = "swiglu"          # swiglu | gelu
     rope_theta: float = 10000.0
+    rope: bool = True
+    causal: bool = True
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     moe: MoEConfig | None = None
@@ -77,6 +90,10 @@ class ArchConfig:
     pattern_tail: tuple[str, ...] = ()
     window: int | None = None    # local attention span of "attn" layers
     lru_width: int | None = None
+    # encoder-decoder (audio) and stub frontends (vlm, audio)
+    encoder_layers: int = 0      # > 0: enc-dec; the decoder is num_layers
+    frontend: str | None = None  # "vision" | "audio": stub embeddings in
+    num_frontend_tokens: int = 0
     attn_impl: str = "kernel"    # kernel | plain
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -115,7 +132,10 @@ class ArchConfig:
         count adds and its init does not draw (ROADMAP C10); an RG-LRU
         layer counts its ``w_i`` and ``w_r`` (w x w each) and one ``lam``
         of w, where the reference's count leaves out both matrices and
-        adds 3w (ROADMAP C12)."""
+        adds 3w (ROADMAP C12). An encoder-decoder counts each encoder
+        layer's attention and MLP, each decoder layer's cross-attention
+        (its norm and projections, no qk-norm) and ``enc_final_norm``,
+        which the reference's count leaves out (ROADMAP C13)."""
         d, e = self.d_model, self.hd
         ffn = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff + d
         if self.moe is not None:
@@ -123,9 +143,8 @@ class ArchConfig:
             ffn = (d * m.num_experts
                    + (m.num_experts + m.num_shared) * 3 * d * m.d_expert)
         hq, hkv = self.num_heads, self.num_kv_heads
-        attn = d * hq * e + 2 * d * hkv * e + hq * e * d + d
-        if self.qk_norm:
-            attn += 2 * e
+        cross = d * hq * e + 2 * d * hkv * e + hq * e * d + d
+        attn = cross + (2 * e if self.qk_norm else 0)
         w = self.lru_width or d
         # norm, w_x, w_gate, conv_w (4, w), w_i, w_r, lam, w_out
         rec = d + 2 * d * w + 4 * w + 2 * w * w + w + w * d
@@ -139,7 +158,12 @@ class ArchConfig:
                    + s.conv_width * conv_ch + 3 * nh + di + di * d)
         layer = {"attn": attn + ffn, "rec": rec + ffn, "ssd": ssd}
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return embed + sum(layer[k] for k in self.layer_kinds) + d
+        total = embed + sum(layer[k] for k in self.layer_kinds) + d
+        if self.encoder_layers:
+            mlp = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff + d
+            total += (self.encoder_layers * (attn + mlp) + d
+                      + self.layer_kinds.count("attn") * cross)
+        return total
 
     def active_param_count(self) -> int:
         """Parameters a token touches: an MoE layer's top-k routed and its
@@ -188,6 +212,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     y2 = x2 * cos + x1 * sin
     y = torch.stack([y1, y2], dim=-1).reshape(x.shape)
     return y.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(N,) positions -> (N, D) fp32 table: sin on the even columns, cos
+    on the odd ones, at angle ``pos / 10000 ** (2i / d)``."""
+    pos = positions.float()[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32,
+                       device=positions.device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d)
+    out = torch.zeros((pos.shape[0], d), dtype=torch.float32,
+                      device=positions.device)
+    out[:, 0::2] = torch.sin(angle)
+    out[:, 1::2] = torch.cos(angle)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 a paged KV cache, on the SSD state of a mamba2 stack, or on the ring
 caches and RG-LRU states of a hybrid (recurrentgemma) stack.
 
-Port of the dense, paged, SSM and hybrid paths of
-``repro/models/transformer.py``.
+Port of the dense, paged, SSM, hybrid, vision-frontend and
+encoder-decoder paths of ``repro/models/transformer.py``.
 Parameters are
 a plain dict of tensors with one entry per layer in ``params["layers"]``
 (the reference stacks them over a scanned axis); the layers run in a
@@ -60,6 +60,22 @@ min(pos + 1, c) live rows (the order of a ring's rows does not matter
 to attention; rope placed each key at its position when it was written).
 The paged functions refuse the hybrid, as the reference's paged cache
 does.
+
+A stack with ``cfg.frontend == "vision"`` (internvl2) takes
+``frontend_embeds`` (B, F, D) in ``forward`` and ``prefill``: they are
+prepended, unscaled, to the scaled token embeddings, and positions and
+the cache count those F rows (a decode step at position F + i). An
+encoder-decoder (``cfg.encoder_layers`` > 0, whisper) has
+``params["encoder"]``, one ``{"attn", "ffn"}`` dict a layer, and
+``enc_final_norm``; ``encode`` runs the non-causal encoder over stub
+frames. Each decoder attention layer adds a ``"cross"`` block (norm and
+projections, no qk-norm) between its self-attention and its MLP: Q from
+the block's norm, K and V the encoder output's projections, no mask.
+``prefill`` writes those memories once into the cache as ``"mem_k"`` and
+``"mem_v"`` (B, Hkv, F, E) at the compute dtype, an int8 cache
+included, and ``decode_step`` reads them. With ``cfg.rope`` false,
+sinusoidal positions are added to the embeddings (and to the frames in
+``encode``) instead of rope.
 """
 
 from __future__ import annotations
@@ -79,6 +95,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_scale,
     rms_norm,
+    sinusoidal_positions,
 )
 
 Params = dict[str, Any]
@@ -95,7 +112,9 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     ``dtype`` (default ``cfg.param_dtype``); norm scales start at 0. An
     SSD layer takes ``ssm.init_ssd_block``, an RG-LRU layer
     ``rglru.init_rglru_block`` and an MLP, an MoE layer's FFN
-    ``moe.init_moe``; untied embeddings add ``unembed`` (d_model, vocab)."""
+    ``moe.init_moe``; untied embeddings add ``unembed`` (d_model, vocab).
+    An encoder-decoder adds a ``"cross"`` block to each decoder attention
+    layer, the encoder's layers and ``enc_final_norm``."""
     dev = resolve_device(device)
     dt = dtype or cfg.param_dtype
     gen = torch.Generator(device=dev)
@@ -122,6 +141,15 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
             p["w_gate"] = dense(d, f)
         return p
 
+    def attn_params(cross: bool = False):
+        p = {"norm": zeros(d), "wq": dense(d, hq * e),
+             "wk": dense(d, hkv * e), "wv": dense(d, hkv * e),
+             "wo": dense(hq * e, d)}
+        if cfg.qk_norm and not cross:
+            p["q_norm"] = zeros(e)
+            p["k_norm"] = zeros(e)
+        return p
+
     for kind in cfg.layer_kinds:
         if kind == "ssd":
             params["layers"].append({"ssd": ssm.init_ssd_block(gen, cfg, dt)})
@@ -131,15 +159,16 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
                                                                    dt),
                                      "ffn": mlp_params()})
             continue
-        attn = {"norm": zeros(d), "wq": dense(d, hq * e),
-                "wk": dense(d, hkv * e), "wv": dense(d, hkv * e),
-                "wo": dense(hq * e, d)}
-        if cfg.qk_norm:
-            attn["q_norm"] = zeros(e)
-            attn["k_norm"] = zeros(e)
         ffn = moe.init_moe(gen, cfg, dt) if cfg.moe is not None \
             else mlp_params()
-        params["layers"].append({"attn": attn, "ffn": ffn})
+        layer = {"attn": attn_params(), "ffn": ffn}
+        if cfg.encoder_layers:
+            layer["cross"] = attn_params(cross=True)
+        params["layers"].append(layer)
+    if cfg.encoder_layers:
+        params["encoder"] = [{"attn": attn_params(), "ffn": mlp_params()}
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_final_norm"] = zeros(d)
     return params
 
 
@@ -189,19 +218,43 @@ def _qkv(params, x, cfg: ArchConfig, positions):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def attn_block(params, x, cfg: ArchConfig, *, positions,
-               window: int | None = None):
-    """Causal self-attention over the full sequence, each row over its
-    last ``window`` positions when given -> (out, (k, v))."""
+               window: int | None = None, causal: bool = True):
+    """Self-attention over the full sequence (causal unless ``causal`` is
+    false), each row over its last ``window`` positions when given ->
+    (out, (k, v))."""
     q, k, v = _qkv(params, x, cfg, positions)
-    o = attn_mod.attention(q, k, v, impl=cfg.attn_impl, causal=True,
+    o = attn_mod.attention(q, k, v, impl=cfg.attn_impl, causal=causal,
                            window=window)
     return _merge_heads(o) @ params["wo"].to(x.dtype), (k, v)
+
+
+def cross_memory(params, encoder_out, cfg: ArchConfig):
+    """The cross block's (mem_k, mem_v), each (B, Hkv, F, E): the encoder
+    output (already normed by ``enc_final_norm``) times ``wk`` and ``wv``
+    in the compute dtype."""
+    dt = cfg.compute_dtype
+    hm = encoder_out.to(dt)
+    return (_split_heads(hm @ params["wk"].to(dt), cfg.num_kv_heads, cfg.hd),
+            _split_heads(hm @ params["wv"].to(dt), cfg.num_kv_heads, cfg.hd))
+
+
+def cross_attn_block(params, x, cfg: ArchConfig, *, mem_k, mem_v):
+    """Decoder cross-attention: Q from the block's norm of ``x``, over
+    every row of the encoder memories (no mask), through the same
+    full-sequence attention as self-attention (one decode row too)."""
+    dt = x.dtype
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    q = _split_heads(h @ params["wq"].to(dt), cfg.num_heads, cfg.hd)
+    o = attn_mod.attention(q, mem_k, mem_v, impl=cfg.attn_impl,
+                           causal=False)
+    return _merge_heads(o) @ params["wo"].to(dt)
 
 
 def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
@@ -407,9 +460,39 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, tokens, cfg: ArchConfig):
+def _embed(params, tokens, cfg: ArchConfig, frontend_embeds=None,
+           start: int = 0):
+    """Scaled token embeddings, after ``frontend_embeds`` (unscaled) when
+    given; with ``cfg.rope`` false, plus the sinusoids of the rows'
+    positions, ``start`` onwards."""
     x = params["embed"].to(cfg.compute_dtype)[tokens]
-    return x * embed_scale(cfg.d_model, x.dtype)
+    x = x * embed_scale(cfg.d_model, x.dtype)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    if not cfg.rope:
+        positions = torch.arange(start, start + x.shape[1], device=x.device)
+        x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
+    return x
+
+
+def _need_memory(params, encoder_out) -> None:
+    if "encoder" in params and encoder_out is None:
+        raise ValueError("an encoder-decoder needs encoder_out (from encode)")
+
+
+def encode(params, frames, cfg: ArchConfig):
+    """The encoder over stub frames (B, F, D): sinusoids added when
+    ``cfg.rope`` is false, then per layer non-causal self-attention and
+    the MLP, then ``enc_final_norm``."""
+    x = frames.to(cfg.compute_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if not cfg.rope:
+        x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
+    for layer in params["encoder"]:
+        x = x + attn_block(layer["attn"], x, cfg, positions=positions,
+                           causal=False)[0]
+        x = x + mlp(layer["ffn"], x, cfg)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def _unembed(params, x, cfg: ArchConfig):
@@ -419,11 +502,14 @@ def _unembed(params, x, cfg: ArchConfig):
     return h @ params["unembed"].to(h.dtype)
 
 
-def forward(params, tokens, cfg: ArchConfig):
-    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux):
-    aux is the MoE layers' summed load-balance loss, fp32 (0 for other
-    stacks)."""
-    x = _embed(params, tokens, cfg)
+def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
+            encoder_out=None):
+    """Full-sequence forward: tokens (B, S) -> (logits (B, F + S, V),
+    aux), F the rows of ``frontend_embeds`` (0 without); aux is the MoE
+    layers' summed load-balance loss, fp32 (0 for other stacks). An
+    encoder-decoder takes the encoder's output as ``encoder_out``."""
+    _need_memory(params, encoder_out)
+    x = _embed(params, tokens, cfg, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
@@ -434,7 +520,11 @@ def forward(params, tokens, cfg: ArchConfig):
             x = x + rglru.rglru_block(layer["rec"], x, cfg)[0]
         else:
             x = x + attn_block(layer["attn"], x, cfg, positions=positions,
-                               window=cfg.attn_window)[0]
+                               window=cfg.attn_window, causal=cfg.causal)[0]
+            if "cross" in layer:
+                mem_k, mem_v = cross_memory(layer["cross"], encoder_out, cfg)
+                x = x + cross_attn_block(layer["cross"], x, cfg, mem_k=mem_k,
+                                         mem_v=mem_v)
         y, a = ffn(layer, x, cfg)
         x, aux = x + y, aux + a
     return _unembed(params, x, cfg), aux
@@ -471,13 +561,15 @@ def _state_block(dims: dict, dtypes: dict, batch: int, device) -> dict:
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-               device="cuda", kv_dtype=None) -> dict:
+               device="cuda", kv_dtype=None, mem_len: int = 0) -> dict:
     """Per layer by its kind: an attention layer's (B, Hkv, C, E) K/V, C =
     max_len, or ``min(max_len, window)`` slots of a ring for a windowed
     stack; ``kv_dtype=torch.int8`` (or ``"int8"``) adds per-row (B, Hkv,
-    C) fp32 scales. An SSD layer gets zeroed conv and SSD states, an
-    RG-LRU layer zeroed conv (compute dtype) and recurrent (fp32) states,
-    whatever ``max_len`` and ``kv_dtype``."""
+    C) fp32 scales. An encoder-decoder's attention layer adds zeroed
+    cross memories ``mem_k``, ``mem_v`` (B, Hkv, mem_len, E) at the
+    compute dtype, whatever ``kv_dtype``. An SSD layer gets zeroed conv
+    and SSD states, an RG-LRU layer zeroed conv (compute dtype) and
+    recurrent (fp32) states, whatever ``max_len`` and ``kv_dtype``."""
     kv_storage_dtype(kv_dtype)              # validated for every family
     dev = resolve_device(device)
     c = max_len if cfg.attn_window is None else min(max_len,
@@ -495,7 +587,12 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                                        {"conv": comp, "rnn": f32}, batch,
                                        dev))
         else:
-            layers.append(_kv_block(cfg, shape, shape[:3], kv_dtype, dev))
+            blk = _kv_block(cfg, shape, shape[:3], kv_dtype, dev)
+            if cfg.encoder_layers:
+                mem = (batch, cfg.num_kv_heads, mem_len, cfg.hd)
+                blk["mem_k"] = torch.zeros(mem, dtype=comp, device=dev)
+                blk["mem_v"] = torch.zeros(mem, dtype=comp, device=dev)
+            layers.append(blk)
     return {"layers": layers}
 
 
@@ -510,19 +607,27 @@ def _ring_rows(k: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
-            kv_dtype=None):
+            frontend_embeds=None, encoder_out=None, kv_dtype=None):
     """Run the prompt and fill a fresh cache; ``kv_dtype=torch.int8``
     quantizes each prompt row with its own scale. A windowed attention
     layer keeps the prompt's last ``min(max_len, window)`` rows in ring
     order (``_ring_rows``); an RG-LRU or SSD layer its final states.
+    ``frontend_embeds`` (B, F, D) come before the tokens and count
+    against ``max_len``; an encoder-decoder's ``encoder_out`` is
+    projected once a layer into the cache's cross memories.
 
     Returns (last-position logits (B, 1, V), cache)."""
+    _need_memory(params, encoder_out)
     b, s = tokens.shape
+    if frontend_embeds is not None:
+        s += frontend_embeds.shape[1]
     if s > max_len:
-        raise ValueError(f"prompt of {s} tokens exceeds the cache ({max_len})")
-    x = _embed(params, tokens, cfg)
+        raise ValueError(f"prompt of {s} rows exceeds the cache ({max_len})")
+    x = _embed(params, tokens, cfg, frontend_embeds)
     positions = torch.arange(s, device=x.device)
-    cache = make_cache(cfg, b, max_len, device=x.device, kv_dtype=kv_dtype)
+    mem_len = 0 if encoder_out is None else encoder_out.shape[1]
+    cache = make_cache(cfg, b, max_len, device=x.device, kv_dtype=kv_dtype,
+                       mem_len=mem_len)
     for layer, blk in zip(params["layers"], cache["layers"]):
         if "ssd" in layer:
             y, (conv, state) = ssm.ssd_block(layer["ssd"], x, cfg)
@@ -537,7 +642,7 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
         else:
             y, (k, v) = attn_block(layer["attn"], x, cfg,
                                    positions=positions,
-                                   window=cfg.attn_window)
+                                   window=cfg.attn_window, causal=cfg.causal)
             c = blk["k"].shape[2]
             k, v = _ring_rows(k, c), _ring_rows(v, c)
             n = k.shape[2]
@@ -550,14 +655,21 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
                 blk["k"][:, :, :n] = k
                 blk["v"][:, :, :n] = v
         x = x + y
+        if "cross" in layer:
+            mem_k, mem_v = cross_memory(layer["cross"], encoder_out, cfg)
+            blk["mem_k"].copy_(mem_k)
+            blk["mem_v"].copy_(mem_v)
+            x = x + cross_attn_block(layer["cross"], x, cfg, mem_k=mem_k,
+                                     mem_v=mem_v)
         x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x[:, -1:], cfg), cache
 
 
 def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
     """token: (B, 1) at absolute position ``pos`` -> (logits (B, 1, V),
-    cache). The cache is updated in place and returned."""
-    x = _embed(params, token, cfg)
+    cache). The cache is updated in place and returned; an
+    encoder-decoder's cross blocks read the memories ``prefill`` wrote."""
+    x = _embed(params, token, cfg, start=pos)
     for layer, blk in zip(params["layers"], cache["layers"]):
         if "ssd" in layer:
             y, (conv, state) = ssm.ssd_block(
@@ -580,6 +692,10 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
                                 window=cfg.attn_window,
                                 k_scale=blk.get("k_scale"),
                                 v_scale=blk.get("v_scale"))
+            if "cross" in layer:
+                x = x + cross_attn_block(layer["cross"], x, cfg,
+                                         mem_k=blk["mem_k"],
+                                         mem_v=blk["mem_v"])
         x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x, cfg), cache
 
@@ -591,10 +707,15 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
 
 def check_paged_support(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless the paged cache serves
-    ``cfg`` (dense and MoE rope decoder stacks only)."""
-    if cfg.family not in ("dense", "moe"):
+    ``cfg``: the reference's rule, a stack of attention layers only, with
+    no tail, no window, no encoder and rope (a vision-frontend stack is
+    served text-only)."""
+    pattern = (("ssd",) if cfg.family == "ssm"
+               else cfg.block_pattern or ("attn",))
+    if (pattern != ("attn",) or cfg.pattern_tail or cfg.window is not None
+            or cfg.encoder_layers or not cfg.rope):
         raise NotImplementedError(
-            "the paged cache layout supports dense and MoE rope decoder "
+            "the paged cache layout supports pure-attention rope decoder "
             f"stacks only (got {cfg.name})")
 
 

@@ -11,8 +11,12 @@ batch, allocates a dense (batch, max_len) cache per wave (for an SSM
 stack, the per-layer conv and SSD states instead), prefills once, then
 decodes greedily until every real request of the wave has stopped.
 
-``ContinuousBatchingEngine`` serves dense decoder stacks only (it
-refuses an SSM stack, as the reference's paged cache does). It serves
+Neither engine takes frames or patch embeddings, as the reference's do
+not: both refuse an encoder-decoder (whisper) when they are built, and
+serve a vision-frontend stack (internvl2) text-only.
+``ContinuousBatchingEngine`` serves pure-attention rope decoder stacks
+only (it refuses an SSM or a hybrid stack, as the reference's paged
+cache does). It serves
 one long-lived decode batch over the global page pools of
 ``serving/paged_cache.py``: finished sequences free
 their pages between steps, and each engine step packs up to
@@ -83,6 +87,16 @@ from repro_torch.serving.paged_cache import (
 __all__ = ["Request", "ServingEngine", "ContinuousBatchingEngine"]
 
 
+def _refuse_encoder(cfg) -> None:
+    """The engines take no frames: an encoder-decoder is driven through
+    ``Model.encode``, ``prefill`` and ``decode_step`` instead."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: the serving engines take no "
+            "frames (drive it through Model.encode, prefill and "
+            "decode_step)")
+
+
 def _finite_rows(logits: torch.Tensor) -> torch.Tensor:
     """(rows, V) -> (rows,) bool: the NaN/inf guard on a step's logits,
     computed on the device so its flags ride the step's one transfer."""
@@ -132,6 +146,7 @@ class ServingEngine:
     def __init__(self, model: Model, params, *, max_len: int = 512,
                  batch_size: int = 4, kv_dtype=None, tracer=None,
                  device="cuda"):
+        _refuse_encoder(model.cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -387,6 +402,7 @@ class ContinuousBatchingEngine:
                  spec_depth: int | str | None = None, spec_ngram: int = 3,
                  prefix_cache: bool = False,
                  cache_reserve_frac: float | str = "auto", device="cuda"):
+        _refuse_encoder(model.cfg)
         check_paged_support(model.cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:

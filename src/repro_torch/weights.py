@@ -11,7 +11,11 @@ port keeps one dict per layer in stack order: unit u's block j is layer
 u * len(pattern) + j, and tail block j follows the units. An MoE layer's
 ``ffn`` is the router and the routed experts, with ``num_shared`` a
 nested ``shared`` SwiGLU, and no norm; a GELU MLP has no ``w_gate``;
-untied embeddings carry ``unembed``.
+untied embeddings carry ``unembed``. An encoder-decoder's attention
+layers each hold a ``cross`` block (``norm, wq, wk, wv, wo``, no
+qk-norm), and its encoder is ``params["encoder"]``, ``{"attn", "ffn"}``
+stacked over the encoder's layers, which the port keeps as one dict a
+layer, with ``enc_final_norm`` beside it.
 """
 
 from __future__ import annotations
@@ -40,14 +44,21 @@ def _blocks(cfg: ArchConfig, kind: str) -> dict:
     ffn = _FFN if cfg.mlp == "swiglu" else _GELU_FFN
     if kind == "rec":
         return {"rec": _REC, "ffn": ffn}
+    attn = _ATTN + (_QK_NORM if cfg.qk_norm else ())
+    if kind == "encoder":
+        return {"attn": attn, "ffn": ffn}
     if cfg.moe is not None:
         ffn = _MOE + (("shared",) if cfg.moe.num_shared else ())
-    return {"attn": _ATTN + (_QK_NORM if cfg.qk_norm else ()), "ffn": ffn}
+    blocks = {"attn": attn, "ffn": ffn}
+    if cfg.encoder_layers:
+        blocks["cross"] = _ATTN
+    return blocks
 
 
 def params_from_jax(tree, cfg: ArchConfig, *, device="cuda") -> dict:
-    """The reference's dense, MoE, SSM or hybrid params as the port's
-    params dict, in ``cfg.param_dtype``."""
+    """The reference's dense, MoE, SSM, hybrid, vision-frontend or
+    encoder-decoder params as the port's params dict, in
+    ``cfg.param_dtype``."""
     dev = resolve_device(device)
     dt = cfg.param_dtype
 
@@ -83,6 +94,15 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda") -> dict:
         check(tree["units"][f"b{j}"], kind, f"units['b{j}']")
     for j, kind in enumerate(cfg.pattern_tail):
         check(tail[f"t{j}"], kind, f"tail['t{j}']")
+    if ("encoder" in tree) != bool(cfg.encoder_layers):
+        raise ValueError(f"the tree's encoder does not match {cfg.name}'s "
+                         f"encoder_layers={cfg.encoder_layers}")
+    if cfg.encoder_layers:
+        check(tree["encoder"], "encoder", "encoder")
+        n_enc = np.asarray(tree["encoder"]["attn"]["wq"]).shape[0]
+        if n_enc != cfg.encoder_layers:
+            raise ValueError(f"{n_enc} encoder layers in the tree, "
+                             f"{cfg.encoder_layers} in {cfg.name}")
     b0 = tree["units"]["b0"]
     first = next(iter(b0))
     n_units = np.asarray(b0[first][next(iter(b0[first]))]).shape[0]
@@ -106,4 +126,8 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda") -> dict:
                          f"tie_embeddings={cfg.tie_embeddings}")
     if not cfg.tie_embeddings:
         params["unembed"] = tensor(tree["unembed"])
+    if cfg.encoder_layers:
+        params["encoder"] = [layer_of(tree["encoder"], i)
+                             for i in range(cfg.encoder_layers)]
+        params["enc_final_norm"] = tensor(tree["enc_final_norm"])
     return params

@@ -30,7 +30,13 @@ continuous engine with ``prefix_cache=True`` gives the CPU's tokens and
 reads nothing back to the host. The bf16 attention forms are held at the
 GQA groups the served archs run (1 for the MoE archs, 2, 3 for
 phi4-mini, 7 for deepseek-coder), and the MoE FFN gives the CPU's output
-on the card with no host sync.
+on the card with no host sync. The encoder-decoder's routes: B2 non-causal
+over whisper's 1500 memory rows (one query row and four at blk_q 8, the
+1500 frames at blk_q 32), whose kv tail a plain version without the
+``kv_len`` mask must fail, B4 at head dim 64 and group 1 through
+``ops.decode_attention`` at whisper's decode lengths, and the
+whisper-smoke model driven through ``encode``, ``prefill`` and
+``decode_step`` on the card with the CPU's logits.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fl
 from repro_torch.kernels import mas_attention as mas
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import paged_decode_attention as pdec
 from repro_torch.kernels import paged_prefill_attention as ppre
 from repro_torch.kernels import paged_verify_attention as pver
@@ -1379,3 +1386,115 @@ def test_mamba2_wave_engine_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_array_equal(on_gpu[rid], on_cpu[rid])
     # one launch a layer a wave: three waves (40 x 2, 64, 7)
     assert counts["ssd_intra_chunk"] == 3 * cfg.num_layers
+
+
+@pytest.mark.parametrize("nq", [1, 4, 1500])
+def test_mas_streamed_bf16_noncausal_over_1500_memory_rows(cuda, nq):
+    """B2 as whisper calls it at head dim 64 and group 1: a decode step's
+    cross-attention (one query row, padded to blk_q 8), a 4-token prompt's
+    (four rows) and the encoder's 1500 frames (blk_q 32, Q rows padded to
+    1504), each over 1500 keys padded to 1536 and masked at kv_len, held
+    per row to the plain version on the padded operands; the faults: a
+    zeroed V tile, and attention over the 36 zero-padded rows (the plain
+    version without the kv_len mask)."""
+    g = torch.Generator(device=cuda).manual_seed(300 + nq)
+    b, h, n, e = (4, 20, 1500, 64) if nq < 1500 else (1, 4, 1500, 64)
+    method, bq = ops.resolve_method(nq, n, e, 2)
+    assert (method, bq) == ("mas_streamed", 8 if nq < 1500 else 32)
+    q, k, v = _bf16(g, b, h, nq, e), _bf16(g, b, h, n, e), _bf16(g, b, h, n, e)
+    ops.reset_launch_counts()
+    got = ops.attention(q, k, v, causal=False)
+    assert ops.launch_counts()["mas_streamed"] == 1
+    qf = ops._pad_rows(q.reshape(b * h, nq, e), bq)
+    kf, vf = (ops._pad_rows(x.reshape(b * h, n, e), 64) for x in (k, v))
+    assert kf.shape[1] == 1536
+
+    def plain(vf=vf, kv_len=n):
+        return mas.mas_attention_plain(qf, kf, vf, blk_q=bq, blk_kv=64,
+                                       kv_len=kv_len)[:, :nq].reshape(
+            b, h, nq, e)
+
+    want = plain()
+    torch.cuda.synchronize()
+    _held_per_row(got, want, plain(_zero_v_tile(vf, 5)))
+    assert _row_rel(plain(kv_len=None), want) > BF16_ROW_RTOL
+    dense = kref.attention(q, k, v, causal=False)
+    assert _row_rel(got, dense) <= BF16_ROW_RTOL
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("kv_len", [5, 36, 256])
+def test_decode_bf16_at_head_dim_64_group_1_at_whisper_lengths(cuda, kv_len,
+                                                               quantized):
+    """B4 (bf16 and int8 caches) as whisper's decoder self-attention calls
+    it: 20 query heads on 20 kv heads of 64, one kv_len for the batch,
+    caches of 36 rows (a 4-token prompt and 32 new) or 256 (224 and 32)."""
+    g = torch.Generator(device=cuda).manual_seed(400 + kv_len)
+    b, h, e = 4, 20, 64
+    s_len = 36 if kv_len <= 36 else 256
+    q = _bf16(g, b, h, e)
+    k, v, sc = _dense_bf16_kv(g, quantized, b, h, s_len, e)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, kv_len, **sc)
+    assert ops.launch_counts()["decode_int8" if quantized else "decode"] == 1
+    n_split, tps = dec.decode_split_plan(torch.bfloat16, b * h, kv_len)
+    lens = torch.full((b * h,), kv_len, dtype=torch.int32, device=cuda)
+    flat = {key: t.view(b * h, s_len) for key, t in sc.items()}
+
+    def plain(v=v, flat=flat):
+        return dec.decode_attention_plain(
+            q.view(b * h, 1, e), k.view(b * h, s_len, e),
+            v.reshape(b * h, s_len, e), lens, n_split=n_split,
+            tiles_per_split=tps, **flat).view(b, h, e)
+
+    tile = (kv_len - 1) // 64
+    if quantized:
+        vs = flat["v_scale"].clone()
+        vs[:, tile * 64:tile * 64 + 64] = 0
+        faulty = plain(flat=dict(flat, v_scale=vs))
+    else:
+        vz = v.clone()
+        vz[:, :, tile * 64:tile * 64 + 64] = 0
+        faulty = plain(vz)
+    torch.cuda.synchronize()
+    _held_per_row(got, plain(), faulty)
+
+
+def test_whisper_smoke_on_the_card_matches_the_cpu(cuda):
+    """encode, prefill and teacher-forced decode steps of the fp32
+    whisper-smoke on the kernels (B1/B2 non-causal and causal, B4) against
+    the same model on the CPU."""
+    cfg = dataclasses.replace(get_smoke("whisper-large-v3"),
+                              attn_impl="kernel", compute_dtype=torch.float32)
+    model = build_model(cfg)
+    cpu_params = model.init(seed=0, device="cpu")
+    gpu_params = _tree_to(cpu_params, cuda)
+    rng = np.random.default_rng(5)
+    frames = rng.standard_normal((2, cfg.num_frontend_tokens, cfg.d_model)
+                                 ).astype(np.float32)
+    toks = rng.integers(3, cfg.vocab_size, size=(2, 10))
+    logits = {}
+    ops.reset_launch_counts()
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        enc = model.encode(params, torch.from_numpy(frames).to(dev))
+        t = torch.from_numpy(toks).to(dev)
+        out, cache = model.prefill(params, cfg, t[:, :6], 10, encoder_out=enc)
+        outs = [out]
+        for i in range(6, 10):
+            out, cache = model.decode_step(params, cfg, t[:, i:i + 1], cache,
+                                           i)
+            outs.append(out)
+        logits[str(dev)] = [o.cpu() for o in outs]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for got, want in zip(logits["cuda"], logits["cpu"], strict=True):
+        assert float((got - want).abs().max()) <= 1e-4
+    assert counts["mas_resident"] > 0 and counts["decode"] == 4 * 2
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
