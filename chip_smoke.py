@@ -43,15 +43,18 @@ Phases, each printing one JSON line:
    only; int8 caches are dequantized first; none computes B8's); B2 also
    at 1 x 4096 (blk_q 8, its transposed form), and B1-B3, B5 and B8 with
    their achieved TFLOP/s (B8's row also with its registers, spills and
-   tensor-core instructions). Paged prefill takes its (q_offset, kv_len)
-   as an int32 pair on the device. A kernel's and its yardstick's ``ms``
-   and ``library_ms`` are the back-to-back loop's mean time, which holds the
-   host's dispatch wherever the card runs faster than the host enqueues;
-   beside them, device time (``device_ms``, ``library_device_ms``: each
-   call timed by CUDA events behind a device-side wait that hides the
-   host's enqueueing) and how many calls it had to repeat or drop
-   (``device_retries``, ``device_dropped``); B4, B6 and B7 state their
-   split (``n_split``, ``tiles_per_split``);
+   tensor-core instructions); each B1, B2 and B3 row also carries
+   ``tune_attention``'s choice and estimate (``est_ms``, the
+   max-of-streams model at the card's published peaks) for its call,
+   whose route must be ``ops.resolve_method``'s. Paged prefill takes its
+   (q_offset, kv_len) as an int32 pair on the device. A kernel's and its
+   yardstick's ``ms`` and ``library_ms`` are the back-to-back loop's mean
+   time, which holds the host's dispatch wherever the card runs faster
+   than the host enqueues; beside them, device time (``device_ms``,
+   ``library_device_ms``: each call timed by CUDA events behind a
+   device-side wait that hides the host's enqueueing) and how many calls
+   it had to repeat or drop (``device_retries``, ``device_dropped``); B4,
+   B6 and B7 state their split (``n_split``, ``tiles_per_split``);
 4. main path (waves) — full-width internlm2-1.8b (random weights from a
    seed) served by the port's ``ServingEngine`` in three waves whose
    prompts the shared-memory policy routes to the resident MAS, streamed
@@ -69,7 +72,12 @@ Phases, each printing one JSON line:
    and at full width with 2 layers in fp32 the continuous engine on the
    kernels, on plain attention, under the burst, and the wave engine must
    emit the same greedy tokens. It prints TTFT and inter-token gaps,
-   tokens/s, steps by kind, peak memory and launches;
+   tokens/s, steps by kind, peak memory and launches. Then calibration:
+   the first 8 requests served again with an enabled ``Tracer``, the
+   trace checked by ``validate_chrome_trace`` and its step spans joined
+   (``compare_report``) with the simulator's ``serving_phase_workloads``
+   of the same prompts on the paper's edge NPU (``EDGE_HW``), whose
+   ``decode`` and ``prefill_chunk`` ratios must be finite;
 7. int8 continuous — the same 16 requests on int8 pools (half the bytes
    of the bf16 pools), two first-token logits held to the bf16 pools',
    and a faulted rerun under the auditor;
@@ -195,7 +203,24 @@ Phases, each printing one JSON line:
    memory; each wave's first prompt's prefill and a decode step gated
    call by call as above, its first-token logits within LOGITS_RTOL of
    the plain route's; at 2 layers in fp32 the kernel route's tokens
-   equal the plain route's.
+   equal the plain route's;
+17. launcher — ``repro_torch.launch.serve.main`` (the documented entry
+   point) at full width, internlm2-1.8b, 8 requests on ``cuda``: each
+   returns ``--max-new`` tokens in the vocabulary (run after phase 10,
+   once internlm2's bf16 weights are freed).
+
+Roofline lines: inside the phases that build each full-width model
+(internlm2-1.8b in phase 4, qwen3-1.7b, phi4-mini-3.8b and
+deepseek-coder-33b in 12, deepseek-moe-16b in 11, mamba2-130m in 13,
+recurrentgemma-9b in 14, whisper-large-v3 in 15 with its encode,
+internvl2-2b in 16), one prefill of a wave's prompts (4 x 2048; 1 x 2048
+for deepseek-coder-33b; whisper's 4 clips; internvl2's 4 x (256 + 2048))
+and 3 decode steps after it through the model API, each between CUDA
+events, and the calibration serve's median decode-only step (internlm2's
+continuous decode step), each print one ``{"phase": "roofline", ...}``
+line from ``repro_torch.analysis.roofline.cell_roofline``: model flops
+(causal) and least bytes at the card's peaks against the measured time,
+as ``mfu`` and ``roofline_share``, each of which must lie in (0, 1.05].
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails unless its kernels launched.
@@ -226,10 +251,6 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
-
-# Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth).
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 
 ARCH = "internlm2-1.8b"
 BATCH = 4
@@ -360,13 +381,16 @@ PATH_KERNELS = {
     "hybrid_wave": ("flash_e256", "decode_e256", "decode_e256_int8"),
     "encdec": ("mas_resident", "mas_streamed", "decode", "decode_int8"),
     "vlm": ("mas_streamed", "decode"),
+    "launcher": ("mas_resident", "decode"),
 }
-ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec"),
+ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
+                             "launcher"),
             "mas_streamed": ("waves", "moe", "dense_archs", "encdec",
                              "vlm"),
             "mas_streamed_cross": ("encdec",),
             "flash": ("waves",),
-            "decode": ("waves", "moe", "dense_archs", "encdec", "vlm"),
+            "decode": ("waves", "moe", "dense_archs", "encdec", "vlm",
+                       "launcher"),
             "decode_int8": ("int8_wave", "encdec"),
             "paged_decode": ("continuous", "shared_prefix", "moe",
                              "dense_archs"),
@@ -403,6 +427,19 @@ LOGITS_RTOL = 5e-2
 # and values carry ~0.4% of their page's absmax of rounding each, through
 # 24 layers (the limit stated in PERF.md before the first run).
 INT8_LOGITS_RTOL = 0.1
+# Roofline lines: model flops and least bytes of a step, at the card's
+# peaks, against its CUDA-event time. Each share must lie in (0, 1.05]:
+# the counts read every input once and do only the useful work, so a
+# step that beats them by more than timing noise means a wrong count.
+ROOFLINE_MAX = 1.05
+ROOFLINE_STEPS = 3          # decode steps timed after the probe's prefill
+# The calibration serve: the continuous phase's first requests, traced.
+CALIBRATION_REQUESTS = 8
+# The serving launcher at full width: requests through
+# ``repro_torch.launch.serve.main``, its other flags at their defaults.
+LAUNCHER_ARCH = ARCH
+LAUNCHER_REQUESTS = 8
+LAUNCHER_NEW_TOKENS = 8
 
 
 def emit(obj) -> None:
@@ -590,6 +627,10 @@ def require(cond: bool, what: str) -> None:
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(ms, what binds) of ``flops`` and ``nbytes`` at the card's peaks
+    (``repro_torch.analysis.roofline``)."""
+    from repro_torch.analysis.roofline import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S
+
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -908,6 +949,8 @@ def phase_kernels(torch, device: dict) -> list[dict]:
             "library_ms": cuda_ms(torch, lib, 20),
             **device_times(torch, kern, lib, 20),
             "tflops": flops / ms / 1e9,
+            "tune_attention": tuned(kind, b_h=b * hq, n_q=n, n_kv=n, e=e,
+                                    causal=True),
             "shape": {"b": b, "hq": hq, "hkv": hkv, "n": n, "e": e,
                       "blk_q": bq, "causal": True, "dtype": "bf16"},
         })
@@ -926,6 +969,22 @@ def phase_kernels(torch, device: dict) -> list[dict]:
                 f"{row['name']}: row_rel_err {row['row_rel_err']} > "
                 f"{BF16_ROW_RTOL}")
     return rows
+
+
+def tuned(kind: str, *, b_h: int, n_q: int, n_kv: int, e: int,
+          causal: bool) -> dict:
+    """``tune_attention``'s choice and estimate for a bf16 attention call
+    that ``ops.resolve_method`` routes to ``kind``; fails unless the tuner
+    routes it the same way."""
+    from repro_torch.core.autotune import tune_attention
+
+    c = tune_attention(b_h=b_h, n_q=n_q, n_kv=n_kv, e=e, itemsize=2,
+                       causal=causal)
+    require(c.method == kind, f"tune_attention routes {b_h} x {n_q} x "
+                              f"{n_kv} to {c.method}, ops to {kind}")
+    return {"route": c.method, "blk_q": c.blk_q, "blk_kv": c.blk_kv,
+            "est_ms": c.est_seconds * 1e3, "mma_ms": c.mma_s * 1e3,
+            "hbm_ms": c.hbm_s * 1e3, "elementwise_ms": c.elementwise_s * 1e3}
 
 
 def streamed_at_blk_q8(torch, rnd, hq: int, hkv: int, e: int) -> dict:
@@ -955,6 +1014,8 @@ def streamed_at_blk_q8(torch, rnd, hq: int, hkv: int, e: int) -> dict:
     flops = 4.0 * e * (n * (n + 1) // 2) * hq
     return {"name": "mas_streamed_blk_q8", **check, "ms": ms,
             "tflops": flops / ms / 1e9,
+            "tune_attention": tuned(kind, b_h=hq, n_q=n, n_kv=n, e=e,
+                                    causal=True),
             "shape": {"b": 1, "hq": hq, "hkv": hkv, "n": n, "e": e,
                       "blk_q": bq, "causal": True, "dtype": "bf16"}}
 
@@ -1025,6 +1086,8 @@ def cross_row(torch, rnd, device: dict) -> dict:
         "library_ms": cuda_ms(torch, lib, 50),
         **device_times(torch, kern, lib, 50),
         **kernel_report(device, "mas_attention", "mas_streamed_bf16"),
+        "tune_attention": tuned("mas_streamed", b_h=b * h, n_q=1, n_kv=n,
+                                e=e, causal=False),
         "shape": {"b": b, "hq": h, "hkv": h, "nq": 1, "n": n, "e": e,
                   "blk_q": bq, "causal": False, "dtype": "bf16"},
         "checks": checks,
@@ -1778,6 +1841,8 @@ def phase_ssm_wave(torch) -> dict:
             "argmax_equal": bool(got.argmax(-1).eq(want.argmax(-1)).all()),
             "gate": False,
         })
+    roofline_probe(torch, SSM_ARCH, model, params, torch.from_numpy(
+        np.stack(wave_prompts[0]).astype(np.int64)).cuda())
     del full, params, engines
 
     # fp32, FP32_LAYERS layers: the kernel route's tokens are the plain
@@ -2134,6 +2199,8 @@ def phase_hybrid_wave(torch) -> dict:
         else:
             require(bool(got.isfinite().all()),
                     f"hybrid prefill {n}: logits not finite")
+    roofline_probe(torch, HYBRID_ARCH, model, params, torch.from_numpy(
+        np.stack(wave_prompts[0]).astype(np.int64)).cuda())
     init_s, n_params = full["init_s"], full["n_params"]
     del full, params, model, plain_model
     torch.cuda.empty_cache()
@@ -2258,6 +2325,9 @@ def phase_main_path(torch, full: dict) -> dict:
         })
         require(err <= LOGITS_RTOL * max(1.0, scale),
                 f"{method} prefill logits: {err} vs plain")
+    _, n, b = WAVES[INT8_WAVE]                   # the 4 x 2048 wave
+    roofline_probe(torch, ARCH, model, params, torch.from_numpy(
+        rng.integers(3, cfg.vocab_size, size=(b, n))).to("cuda"))
     report = {
         "phase": "main_path", "arch": ARCH, "params": full["n_params"],
         "layers": cfg.num_layers, "dtype": "bf16", "init_s": full["init_s"],
@@ -3124,6 +3194,181 @@ def phase_continuous(torch, full: dict) -> dict:
     return report
 
 
+def decode_step_events(torch, eng) -> list:
+    """Wrap the continuous engine ``eng``'s ``_step``: CUDA events around
+    each decode-only step, with the step's positions (the host array's
+    second B entries; an idle slot's is 0). Returns the list it fills
+    with (start event, end event, positions)."""
+    real, steps = eng._step, []
+    b = eng.batch_size
+
+    def step(cache, host, decode, prefill):
+        if not decode or prefill:
+            return real(cache, host, decode, prefill)
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(cache, host, decode, prefill)
+        z.record()
+        steps.append((a, z, host[b:2 * b].copy()))
+        return out
+
+    eng._step = step
+    return steps
+
+
+def sim_step_cycles(phases: dict, chunk: int) -> tuple[dict, dict]:
+    """Simulated cycles of one step of each serving phase on the paper's
+    edge NPU (``EDGE_HW``): the best tiling of the sim's own space at the
+    pool's native KV width (bf16), by total cycles. A prompt's admission
+    is divided by the steps the engine takes for it at ``chunk`` tokens a
+    step (the edge device's 5 MB L1 schedules chunks of at most 128).
+    Returns (cycles by phase, tiling by phase)."""
+    from repro_torch.sim import EDGE_HW, build_schedule, simulate
+    from repro_torch.sim.schedules import tiling_space
+
+    methods = {"decode": "paged_decode", "prefill_chunk": "chunked_prefill"}
+    cycles, tilings = {}, {}
+    for phase, w in phases.items():
+        best = None
+        for t in tiling_space(w, EDGE_HW):
+            if t.kv_bpe not in (None, EDGE_HW.bytes_per_elem):
+                continue
+            tasks = build_schedule(methods[phase], w, t, EDGE_HW)
+            if tasks is None:
+                continue
+            r = simulate(tasks, EDGE_HW)
+            if best is None or r.cycles < best[0].cycles:
+                best = (r, t)
+        require(best is not None, f"sim: no tiling schedules {phase}")
+        r, t = best
+        steps = w.n_chunks(chunk) if phase == "prefill_chunk" else 1
+        cycles[phase] = r.cycles / steps
+        tilings[phase] = {**dataclasses.asdict(t), "steps": steps}
+    return cycles, tilings
+
+
+def phase_calibration(torch, full: dict) -> dict:
+    """The continuous phase's serve once more, its first
+    CALIBRATION_REQUESTS requests at its settings, with an enabled
+    ``Tracer``: the trace must pass ``validate_chrome_trace``; its step
+    spans by kind (``measured_phase_stats``) are joined with the sim's
+    ``serving_phase_workloads`` of the same prompts on ``EDGE_HW``
+    (``compare_report``: the attention of every layer, one layer's
+    simulated step times the depth, against the engine's whole step, host
+    clock), whose ``decode`` and ``prefill_chunk`` ratios must be finite;
+    and the roofline line of the serve's median decode-only step (CUDA
+    events around it; its cell: the live slots and their mean keys)."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.obs import (
+        Tracer,
+        compare_report,
+        measured_phase_stats,
+        validate_chrome_trace,
+    )
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.sim import EDGE_HW
+    from repro_torch.sim.workload import serving_phase_workloads
+
+    model, params = full["model"], full["params"]
+    cfg = model.cfg
+    prompts = continuous_prompts(cfg.vocab_size)[:CALIBRATION_REQUESTS]
+    tracer = Tracer()
+    eng = ContinuousBatchingEngine(model, params, device="cuda",
+                                   tracer=tracer, **CONT)
+    steps = decode_step_events(torch, eng)
+    reqs = make_requests(prompts, CONT_NEW_TOKENS)
+    out, wall, counts, peak = serve_path(torch, eng, reqs, "continuous")
+    check_served(eng, reqs, out, CONT_NEW_TOKENS, cfg.vocab_size)
+    trace = tracer.export()
+    errors = validate_chrome_trace(trace)
+    require(not errors, f"calibration trace: {errors[:5]}")
+
+    t0 = time.perf_counter()
+    phases = serving_phase_workloads(
+        cfg.name, [len(p) for p in prompts], CONT_NEW_TOKENS,
+        heads=cfg.num_kv_heads, emb=cfg.hd,
+        group=cfg.num_heads // cfg.num_kv_heads, batch=CONT["batch_size"])
+    cycles, tilings = sim_step_cycles(phases, CONT["chunk_size"])
+    sim_s = time.perf_counter() - t0
+    report = compare_report(
+        measured_phase_stats(trace),
+        {p: c * cfg.num_layers for p, c in cycles.items()},
+        EDGE_HW.freq_ghz, meta={
+            "arch": ARCH, "requests": CALIBRATION_REQUESTS,
+            "new_tokens": CONT_NEW_TOKENS, **CONT,
+            "measured": "engine step spans (host clock, whole model)",
+            "simulated": (f"one layer's attention step on EDGE_HW x "
+                          f"{cfg.num_layers} layers"),
+            "sim_cycles_per_layer": cycles, "sim_tilings": tilings})
+    for phase in ("decode", "prefill_chunk"):
+        ratio = report["phases"].get(phase, {}).get("measured_over_sim_mean")
+        require(ratio is not None and math.isfinite(ratio),
+                f"calibration {phase}: ratio {ratio}")
+
+    require(len(steps) > 0, "calibration: no decode-only step")
+    timed = sorted((a.elapsed_time(z), pos) for a, z, pos in steps)
+    ms, pos = timed[len(timed) // 2]
+    keys = pos[pos > 0].astype(np.int64) + 1
+    line = roofline_line(
+        ARCH, ShapeCell(f"continuous decode {len(keys)} slots",
+                        int(keys.sum()) // len(keys), len(keys), "decode"),
+        ms, peak, layers=cfg.num_layers,
+        timing=f"CUDA events, median of {len(timed)} decode-only steps "
+               "of the traced serve",
+        kv_lens=keys.tolist())
+    summary = {"phase": "calibration", "requests": CALIBRATION_REQUESTS,
+               "wall_s": wall, "trace_events": len(trace["traceEvents"]),
+               "trace_errors": len(errors), "sim_s": sim_s,
+               "decode_steps_timed": len(timed),
+               "launches": launched_kernels(counts), "compare": report,
+               "continuous_decode_roofline_share": line["roofline_share"]}
+    emit(summary)
+    return summary
+
+
+def phase_launcher(torch) -> dict:
+    """``repro_torch.launch.serve.main`` at full width: LAUNCHER_ARCH,
+    LAUNCHER_REQUESTS requests of LAUNCHER_NEW_TOKENS (``--max-new``) on
+    ``cuda`` (its own init from seed 0, its default prompt length, batch
+    and max_len); every request must return ``--max-new`` tokens below
+    the vocabulary size, and the wave path's kernels must launch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    new = LAUNCHER_NEW_TOKENS
+    argv = ["--arch", LAUNCHER_ARCH, "--requests", str(LAUNCHER_REQUESTS),
+            "--max-new", str(new), "--device", "cuda"]
+    vocab = get_arch(LAUNCHER_ARCH).vocab_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(sorted(out) == list(range(LAUNCHER_REQUESTS)),
+            f"launcher: requests {sorted(out)}")
+    for rid, toks in out.items():
+        require(len(toks) == new and bool(((toks >= 0) & (toks < vocab))
+                                          .all()),
+                f"launcher rid {rid}: tokens {toks.tolist()}")
+    for name in PATH_KERNELS["launcher"]:
+        require(counts[name] > 0, f"launcher: kernel {name} not launched")
+    report = {"phase": "launcher", "argv": argv, "wall_s": wall,
+              "tokens": sum(len(t) for t in out.values()),
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "launches": launched_kernels(counts)}
+    emit(report)
+    return {**report, "launches": counts}
+
+
 def moe_routes(run):
     """``run()`` with every ``moe.moe_route`` call recorded: returns
     (run's result, [Route of each call in order])."""
@@ -3429,6 +3674,8 @@ def phase_moe(torch) -> dict:
     require(cgate["kernels"].get("paged_prefill", 0)
             == cfg.num_layers * -(-len(long) // CONT["chunk_size"]),
             f"moe chunks: {cgate['kernels']}")
+    roofline_probe(torch, MOE_ARCH, model, params, torch.from_numpy(
+        np.stack(wave_prompts[-1]).astype(np.int64)).cuda())
     init_s = full["init_s"]
     del full, params, model, plain_model
 
@@ -3590,6 +3837,8 @@ def phase_dense_archs(torch) -> dict:
             logits_check.append(check)
             require(check["finite"] and check["max_abs_err"] <= check["tol"],
                     f"{arch} prefill {n} logits: {check}")
+        roofline_probe(torch, arch, model, params, torch.from_numpy(
+            np.stack(prompts[-1]).astype(np.int64)).cuda())
         archs.append({
             "arch": arch, "params": full["n_params"],
             "init_s": full["init_s"], "layers": layers,
@@ -3621,6 +3870,77 @@ def timed_call(torch, fn):
     z.record()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, a.elapsed_time(z)
+
+
+def roofline_line(arch: str, cell, ms: float, peak: int, *,
+                  layers: int | None = None, **extra) -> dict:
+    """Print one ``{"phase": "roofline", ...}`` line: ``cell_roofline`` of
+    a step that took ``ms`` on the card (CUDA events) at ``peak`` bytes of
+    device memory; fail unless 0 < roofline_share <= ROOFLINE_MAX and
+    0 < mfu <= ROOFLINE_MAX (a count that reads above it is wrong)."""
+    from repro_torch.analysis.roofline import cell_roofline
+
+    line = {"phase": "roofline", **cell_roofline({
+        "arch": arch, "cell": cell, "device_s": ms / 1e3,
+        "peak_memory_bytes": peak, "layers": layers}), **extra}
+    emit(line)
+    for key in ("roofline_share", "mfu"):
+        require(0 < line[key] <= ROOFLINE_MAX,
+                f"{arch} {line['cell']['name']}: {key} {line[key]}")
+    return line
+
+
+def roofline_probe(torch, arch: str, model, params, prompt, *,
+                   frames=None, patches=None) -> list[dict]:
+    """One prefill of ``prompt`` (B, S) (after ``encode`` of ``frames``,
+    with ``patches`` before the prompt, where given) and ROOFLINE_STEPS
+    decode steps after it through the model API, each between CUDA events
+    (``timed_call``: the device's elapsed time, idle gaps while the host
+    enqueues included), and the roofline lines of the prefill and of the
+    median decode step. The decode cell counts the keys of the first
+    step, the fewest."""
+    from repro_torch.configs import ShapeCell
+
+    cfg = model.cfg
+    b, s = prompt.shape
+    start = s + (0 if patches is None else patches.shape[1])
+
+    def prefill():
+        inputs = {}
+        if frames is not None:
+            inputs["encoder_out"] = model.encode(params, frames)
+        if patches is not None:
+            inputs["frontend_embeds"] = patches
+        return model.prefill(params, cfg, prompt, start + ROOFLINE_STEPS,
+                             **inputs)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), _, prefill_ms = timed_call(torch, prefill)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    steps = []
+    for i in range(ROOFLINE_STEPS):
+        (logits, cache), _, ms = timed_call(
+            torch, lambda: model.decode_step(params, cfg, tok, cache,
+                                             start + i))
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        steps.append(ms)
+    decode_peak = torch.cuda.max_memory_allocated()
+    del cache, logits
+    layers = cfg.num_layers
+    what = "encode + prefill" if frames is not None else "prefill"
+    return [
+        roofline_line(arch, ShapeCell(f"{what} {b}x{start}", start, b,
+                                      "prefill"),
+                      prefill_ms, prefill_peak, layers=layers,
+                      timing="CUDA events around one call"),
+        roofline_line(arch, ShapeCell(f"decode {b}x{start + 1}", start + 1,
+                                      b, "decode"),
+                      sorted(steps)[ROOFLINE_STEPS // 2], decode_peak,
+                      layers=layers, step_ms=steps,
+                      timing=f"CUDA events, median of {ROOFLINE_STEPS} "
+                             "steps")]
 
 
 def generate(torch, model, params, prompt, new: int, *, start: int,
@@ -3885,6 +4205,8 @@ def phase_encdec(torch) -> dict:
         logits_check.append(check)
         require(check["finite"] and check["max_abs_err"] <= check["tol"],
                 f"encdec prefill {n} logits: {check}")
+    roofline_probe(torch, ENCDEC_ARCH, model, params, inputs[0][1],
+                   frames=inputs[0][0])
     init_s, n_params = full["init_s"], full["n_params"]
     del full, params, model, plain_model, enc
     torch.cuda.empty_cache()
@@ -3994,6 +4316,8 @@ def phase_vlm(torch) -> dict:
         logits_check.append(check)
         require(check["finite"] and check["max_abs_err"] <= check["tol"],
                 f"vlm prefill {n} logits: {check}")
+    patches, prompt = inputs[-1]                 # 4 x (256 + 2048)
+    roofline_probe(torch, VLM_ARCH, model, params, prompt, patches=patches)
     init_s, n_params = full["init_s"], full["n_params"]
     del full, params, model, plain_model
     torch.cuda.empty_cache()
@@ -4038,6 +4362,7 @@ def main() -> int:
     launches = {"waves": phase_main_path(torch, full)["launches"]}
     launches["int8_wave"] = phase_int8_wave(torch, full)["launches"]
     launches["continuous"] = phase_continuous(torch, full)["launches"]
+    phase_calibration(torch, full)
     launches["int8_continuous"] = phase_int8_continuous(torch,
                                                         full)["launches"]
     report = phase_shared_prefix(torch, full)
@@ -4048,6 +4373,8 @@ def main() -> int:
     launches["speculative_int8"] = full["speculative_int8"]
     phase_spec_parity(torch, full)
     full.clear()              # internlm2's weights out of the later peaks
+    torch.cuda.empty_cache()
+    launches["launcher"] = phase_launcher(torch)["launches"]
     torch.cuda.empty_cache()
     launches["moe"] = phase_moe(torch)["launches"]
     torch.cuda.empty_cache()

@@ -1,18 +1,28 @@
-"""Analytical serving defaults for the paged continuous-batching engine.
+"""Analytical serving defaults and the attention kernels' block-shape search.
 
 Port of ``tune_prefill_chunk``, ``tune_pool_headroom``,
-``tune_spec_depth`` and ``tune_cache_reserve`` from
-``repro/core/autotune.py``; nothing else of that module is ported. The
-step models keep the reference's max-of-streams
-form (matrix products, device-memory traffic and elementwise softmax
-work overlap, the slowest sets the step) and are restated with the
-published peaks of an H100 SXM instead of the TPU's.
-"""
+``tune_spec_depth``, ``tune_cache_reserve`` and ``tune_attention`` (the
+paper's §4.2 tiling search applied to the real kernels, with its
+``_score`` and ``_causal_fraction``) from ``repro/core/autotune.py``;
+``tune_shard_degree`` comes with multi-GPU serving (ROADMAP A10). The
+step models keep the reference's max-of-streams form (matrix products,
+device-memory traffic and elementwise softmax work overlap, the slowest
+sets the step) and are restated with the published peaks of an H100 SXM
+instead of the TPU's: tensor cores for the MXU, CUDA cores for the VPU,
+HBM3 for the TPU's HBM."""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+
+from repro_torch.core.policy import (
+    KV_TILE,
+    MIN_BLK_Q,
+    choose_attention_method,
+    flash_blk_q,
+)
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W power limit.
 TENSOR_FLOPS = 989e12      # bf16 tensor cores
@@ -162,3 +172,112 @@ def tune_cache_reserve(*, pool_pages: int, page: int, slots: int,
         return 0.0
     del slots  # capacity model is page-bound, not slot-bound
     return prefix_pages / pool_pages
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelChoice:
+    method: str
+    blk_q: int
+    blk_kv: int
+    est_seconds: float
+    mma_s: float
+    hbm_s: float
+    elementwise_s: float
+
+
+def _causal_fraction(n_q: int, n_kv: int, blk_q: int, blk_kv: int) -> float:
+    """Fraction of the dense KV-tile grid a causal prefill actually touches.
+
+    Mirrors the kernels' tile bounds exactly: Q row block iq computes
+    n_needed(iq) = min(nkv_tiles, (iq*blk_q + blk_q - 1)//blk_kv + 1)
+    whole KV tiles (begin-aligned causal, see ref.attention). That is
+    ~(1 + 1/n_tiles)/2 for square prefill, (n_q + blk_q)/(2 n_kv) when
+    n_kv >> n_q, and ~1 - n_kv/(2 n_q) when n_q >> n_kv (late rows see
+    every key but early rows still prune). Charging tile-granular work —
+    not the triangle area — keeps the tuner able to rank blk_kv choices.
+    """
+    tr = max(1, -(-n_q // blk_q))
+    nkv_tiles = max(1, -(-n_kv // blk_kv))
+    live = sum(
+        min(n_kv, (min(nkv_tiles, (i * blk_q + blk_q - 1) // blk_kv + 1))
+            * blk_kv)
+        for i in range(tr)
+    )
+    return min(1.0, live / (tr * n_kv))
+
+
+def _score(method: str, blk_q: int, blk_kv: int, *, b_h: int, n_q: int,
+           n_kv: int, e: int, itemsize: int, causal: bool = False,
+           kv_itemsize: int | None = None) -> tuple[float, float, float]:
+    """(mma_s, hbm_s, elementwise_s) for the whole attention call: the
+    tensor cores' products, the device-memory traffic and the CUDA cores'
+    softmax passes.
+
+    ``kv_itemsize`` prices a quantized KV operand: the K/V memory terms
+    shrink to the narrow width (plus fp32 per-row scale side-traffic)
+    while the CUDA cores pay two extra dequant multiply passes over the
+    score rows.
+    """
+    kv_item = itemsize if kv_itemsize is None else kv_itemsize
+    frac = _causal_fraction(n_q, n_kv, blk_q, blk_kv) if causal else 1.0
+    flops = 4.0 * b_h * n_q * n_kv * e * frac  # QK^T + PV, pruned tiles only
+    mma = flops / TENSOR_FLOPS
+    # softmax on the CUDA cores: ~6 passes over the score rows. The MAS
+    # kernels normalize the FULL (blk_q, N) row buffer even when causal
+    # (the pruned tail is masked, not skipped), so only flash — which
+    # never visits dead tiles — gets the pruning win here.
+    ew_frac = frac if method == "flash" else 1.0
+    elementwise = 6.0 * b_h * n_q * n_kv * ew_frac / CUDA_CORE_FLOPS
+    if kv_item < itemsize:
+        # in-kernel dequant: K scales on the score tile + V fold into P
+        elementwise += 2.0 * b_h * n_q * n_kv * ew_frac / CUDA_CORE_FLOPS
+    # memory traffic: Q/O once; K/V per Q block unless resident
+    qo = 2 * b_h * n_q * e * itemsize
+    kv_row_bytes = e * kv_item + (4 if kv_item < itemsize else 0)
+    if method == "mas_resident":
+        kv = 2 * b_h * n_kv * kv_row_bytes  # staged once: no pruning win
+    else:
+        # streamed / flash: K/V re-fetched per Q row block, but a causal
+        # block only fetches its intersecting tiles.
+        kv = 2 * b_h * n_kv * kv_row_bytes * -(-n_q // blk_q) * frac
+    hbm = (qo + kv) / HBM_BW
+    return mma, hbm, elementwise
+
+
+def _blk_q_grid(method: str, policy_blk_q: int, n_q: int,
+                itemsize: int) -> tuple[int, ...]:
+    """Q block heights the port's kernel for ``method`` compiles and the
+    shared-memory policy admits: the bf16 flash kernel's own height; else
+    32, 16 and 8, no taller than the policy's choice (a taller streamed
+    block's score row would not fit) nor than the prompt rounded up to 8
+    rows (``ops.resolve_method`` pads Q to the block)."""
+    if method == "flash" and itemsize == 2:
+        return (flash_blk_q(itemsize),)
+    cap = min(policy_blk_q, max(MIN_BLK_Q, -(-n_q // MIN_BLK_Q) * MIN_BLK_Q))
+    return tuple(bq for bq in (32, 16, 8) if bq <= cap)
+
+
+@functools.lru_cache(maxsize=1024)
+def tune_attention(*, b_h: int, n_q: int, n_kv: int, e: int,
+                   itemsize: int = 2, causal: bool = False) -> KernelChoice:
+    """Grid search over the block shapes the port's kernels compile
+    (``KV_TILE`` = 64 key rows a tile; 32, 16 or 8 query rows a block, or
+    the bf16 flash kernel's 64); the route is the shared-memory policy's
+    (``choose_attention_method``), as ``ops.attention`` dispatches. The
+    card overlaps the tensor-core, memory and CUDA-core streams, so cost =
+    max of the three + the ramp of one K/V tile. Memoized on the full
+    (shapes, dtype, causal) key.
+    """
+    decision = choose_attention_method(n_kv=n_kv, e=e, itemsize=itemsize)
+    # pipeline ramp: one copy of a K/V tile
+    ramp = (2 * KV_TILE * e * itemsize) / HBM_BW
+    best: KernelChoice | None = None
+    for blk_q in _blk_q_grid(decision.method, decision.blk_q, n_q, itemsize):
+        mma, hbm, ew = _score(decision.method, blk_q, KV_TILE, b_h=b_h,
+                              n_q=n_q, n_kv=n_kv, e=e, itemsize=itemsize,
+                              causal=causal)
+        cand = KernelChoice(decision.method, blk_q, KV_TILE,
+                            max(mma, hbm, ew) + ramp, mma, hbm, ew)
+        if best is None or cand.est_seconds < best.est_seconds:
+            best = cand
+    return best
