@@ -207,7 +207,31 @@ Phases, each printing one JSON line:
 17. launcher — ``repro_torch.launch.serve.main`` (the documented entry
    point) at full width, internlm2-1.8b, 8 requests on ``cuda``: each
    returns ``--max-new`` tokens in the vocabulary (run after phase 10,
-   once internlm2's bf16 weights are freed).
+   once internlm2's bf16 weights are freed);
+18. train (last, after every serving model is freed) — internlm2-1.8b
+   at full width and depth trained by ``launch/steps.make_train_step``:
+   fp32 master weights, bf16 compute, attention ``"chunked"`` (the
+   kernels have no backward) in Q chunks of 1024 rows with each chunk and
+   each layer rematerialised, AdamW with int8 gradient compression, 6
+   steps of ``SyntheticLMData(seed=17)`` at train_4k's sequence of 4096
+   and a global batch of 4 as two microbatches (train_4k's 256 cut to
+   fit one card): per step the loss, grad norm, lr, wall, device ms
+   (CUDA events) and peak memory; every loss and grad norm finite and the
+   last loss below the first; a roofline line of the median step
+   (``mfu``) and one more step under ``torch.profiler`` (busy share, the
+   kernels that took longest). The trained weights then serve through
+   the kernels under ``torch.no_grad()``: prefill logits of a 256- and a
+   2048-token prompt (B1, B2) within BF16_ROW_RTOL of the ``"chunked"``
+   route's rows, and a ServingEngine wave (B4) whose token agreement
+   with the chunked route is recorded. At FP32_LAYERS full-width layers
+   in fp32 (sequence 1024 in chunks of 384, the last padded):
+   ``"chunked"`` with remat against ``"plain"`` without, every gradient
+   leaf within 1e-4 of its norm; a ``"kernel"``
+   forward on parameters that require grad raises and launches nothing;
+   a checkpoint round trip (bf16 compute, int8 compression): an async
+   save after step 2 restores parameters, moments and error feedback bit
+   for bit, and the step after it gives the uninterrupted run's loss
+   within 1e-3.
 
 Roofline lines: inside the phases that build each full-width model
 (internlm2-1.8b in phase 4, qwen3-1.7b, phi4-mini-3.8b and
@@ -382,15 +406,16 @@ PATH_KERNELS = {
     "encdec": ("mas_resident", "mas_streamed", "decode", "decode_int8"),
     "vlm": ("mas_streamed", "decode"),
     "launcher": ("mas_resident", "decode"),
+    "train": ("mas_resident", "mas_streamed", "decode"),
 }
 ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
-                             "launcher"),
+                             "launcher", "train"),
             "mas_streamed": ("waves", "moe", "dense_archs", "encdec",
-                             "vlm"),
+                             "vlm", "train"),
             "mas_streamed_cross": ("encdec",),
             "flash": ("waves",),
             "decode": ("waves", "moe", "dense_archs", "encdec", "vlm",
-                       "launcher"),
+                       "launcher", "train"),
             "decode_int8": ("int8_wave", "encdec"),
             "paged_decode": ("continuous", "shared_prefix", "moe",
                              "dense_archs"),
@@ -440,6 +465,28 @@ CALIBRATION_REQUESTS = 8
 LAUNCHER_ARCH = ARCH
 LAUNCHER_REQUESTS = 8
 LAUNCHER_NEW_TOKENS = 8
+# Training (the train phase): internlm2-1.8b at full width and depth,
+# fp32 master weights, bf16 compute, attention "chunked" (the kernels
+# have no backward) in Q chunks of 1024 rows with remat, AdamW with int8
+# gradient compression. train_4k's sequence of 4096; its global batch of
+# 256 cut to 4 (two microbatches of 2) to fit one card.
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-3             # the train launcher's default
+TRAIN_CHUNK = 1024
+TRAIN_FP32_SEQ = 1024       # the fp32 gradient and checkpoint checks
+# the fp32 check's chunk: three chunks over 1024 rows, the last padded
+# (at TRAIN_CHUNK one chunk would hold every row)
+TRAIN_FP32_CHUNK = 384
+TRAIN_GRAD_RTOL = 1e-4      # "chunked" + remat vs "plain", each leaf (L2)
+# The loss of a step after a restore against the uninterrupted run's:
+# the same state bit for bit, but CUDA's index_add backward (the
+# embedding's gradient) sums in no fixed order.
+TRAIN_RESUME_ATOL = 1e-3
+TRAIN_PROMPTS = (256, 2048)  # the trained weights' prefill: B1, B2
+TRAIN_NEW_TOKENS = 8
 
 
 def emit(obj) -> None:
@@ -3369,6 +3416,275 @@ def phase_launcher(torch) -> dict:
     return {**report, "launches": counts}
 
 
+def loss_and_grads(torch, model, params, batch):
+    """(loss, grads) of ``model.loss_fn`` by ``backward`` on fresh leaf
+    copies of ``params``."""
+    from repro_torch.tree import tree_map
+
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                      params)
+    loss = model.loss_fn(params, batch)
+    loss.backward()
+    return float(loss.detach()), tree_map(lambda p: p.grad, params)
+
+
+def leaf_rel_errs(got, want) -> dict:
+    """Each leaf's L2 error against ``want``'s leaf, relative to its
+    norm, by path."""
+    from repro_torch.tree import leaves_with_paths
+
+    want = dict(leaves_with_paths(want))
+    return {path: float((g.double() - want[path].double()).norm()
+                        / want[path].double().norm().clamp_min(1e-30))
+            for path, g in leaves_with_paths(got)}
+
+
+def busy_share(torch, fn) -> dict:
+    """``fn()`` once under ``torch.profiler`` (CUDA activity): the summed
+    device time of its kernels against the call's wall, and the kernels
+    that took the most. Run last: a profiler session slows the host's
+    later launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms == 0:
+        return {"busy_share": "not measured", "wall_ms": wall * 1e3}
+    return {"wall_ms": wall * 1e3, "kernel_ms": busy_ms,
+            "busy_share": busy_ms / (wall * 1e3),
+            "top_kernels": [{"name": name[:120], "ms": ms, "calls": n}
+                            for ms, name, n in rows[:12]]}
+
+
+def phase_train(torch) -> dict:
+    """Training on the card (see the module docstring, phase 18): the
+    full-width, full-depth run, the fp32 gradient check, the kernels'
+    refusal, a checkpoint round trip and the trained weights served
+    through the kernels."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeCell, get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.lifecycle import Request
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    base = get_arch(ARCH)
+    cfg = dataclasses.replace(base, attn_impl="chunked",
+                              attn_chunk=TRAIN_CHUNK, remat=True)
+    model = build_model(cfg)
+    report = {"phase": "train", "arch": ARCH, "layers": cfg.num_layers,
+              "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+              "grad_accum": TRAIN_ACCUM, "attn_impl": "chunked",
+              "attn_chunk": TRAIN_CHUNK, "remat": True,
+              "compression": "int8", "param_dtype": "fp32",
+              "compute_dtype": "bf16",
+              "reduced": "train_4k's global batch of 256 cut to 4 (2 "
+                         "microbatches of 2) to fit one card"}
+
+    # full width and depth
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device="cuda", dtype=torch.float32)
+    opt = adamw_init(params)
+    opt["err"] = init_error_feedback(params)
+    step_fn = make_train_step(
+        model, OptConfig(lr=TRAIN_LR, warmup_steps=0,
+                         total_steps=TRAIN_STEPS), "int8", TRAIN_ACCUM)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=17)
+    steps = []
+    for step in range(TRAIN_STEPS):
+        batch = batch_on(data.batch_at(step), "cuda")
+        (params, opt, m), wall, ms = timed_call(
+            torch, lambda: step_fn(params, opt, batch))
+        steps.append({"step": step, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "lr": float(m["lr"]), "wall_s": wall, "device_ms": ms,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        print(json.dumps({"phase": "train_step", **steps[-1]}), flush=True)
+    losses = [s["loss"] for s in steps]
+    require(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                for s in steps), f"train: a loss or grad norm not finite "
+                                 f"{steps}")
+    require(losses[-1] < losses[0],
+            f"train: the last loss {losses[-1]} is not below the first "
+            f"{losses[0]}")
+    peak = torch.cuda.max_memory_allocated()
+    ms_sorted = sorted(s["device_ms"] for s in steps[1:])
+    median_ms = ms_sorted[len(ms_sorted) // 2]
+    report.update(steps=steps, peak_mem_bytes=peak,
+                  step_device_ms_median=median_ms)
+    report["mfu"] = roofline_line(
+        ARCH, ShapeCell(f"train {TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
+                        TRAIN_BATCH, "train"), median_ms, peak,
+        timing=f"CUDA events, median of steps 1-{TRAIN_STEPS - 1}")["mfu"]
+    # one more step under the profiler (no later phase is timed)
+    report["busy"] = busy_share(torch, lambda: step_fn(
+        params, opt, batch_on(data.batch_at(TRAIN_STEPS), "cuda")))
+
+    # the trained weights through the kernels, under no_grad
+    del opt
+    torch.cuda.empty_cache()
+    kernel_model = build_model(dataclasses.replace(cfg, attn_impl="kernel"))
+    rng = np.random.default_rng(7)
+    prompts = [torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(1, n)))
+               .to("cuda") for n in TRAIN_PROMPTS]
+    ops.reset_launch_counts()
+    served = []
+    with torch.no_grad():
+        for prompt in prompts:
+            n = prompt.shape[1]
+            got, _ = kernel_model.prefill(params, kernel_model.cfg, prompt, n)
+            want, _ = model.prefill(params, cfg, prompt, n)
+            require(bool(torch.isfinite(got).all()),
+                    f"train: kernel logits at {n} not finite")
+            err = row_rel_err(got, want)
+            served.append({"prompt_len": n, "row_rel_err": err,
+                           "max_abs_err": max_err(got, want),
+                           "argmax_equal": bool(got.argmax(-1).eq(
+                               want.argmax(-1)).all())})
+            require(err <= BF16_ROW_RTOL,
+                    f"train: kernel prefill logits at {n}: row error {err}")
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    3, cfg.vocab_size, size=(TRAIN_PROMPTS[0],))
+                    .astype(np.int32), max_new_tokens=TRAIN_NEW_TOKENS,
+                    eos_id=-1) for i in range(BATCH)]
+        outs = {}
+        for name, m_ in (("kernel", kernel_model), ("chunked", model)):
+            eng = ServingEngine(m_, params, max_len=TRAIN_PROMPTS[0]
+                                + TRAIN_NEW_TOKENS, batch_size=BATCH,
+                                device="cuda")
+            outs[name] = eng.serve(reqs)
+            if name == "kernel":
+                counts = ops.launch_counts()
+    for r in reqs:
+        require(len(outs["kernel"][r.rid]) == TRAIN_NEW_TOKENS,
+                f"train: rid {r.rid} served {len(outs['kernel'][r.rid])}")
+    for name in PATH_KERNELS["train"]:
+        require(counts[name] > 0, f"train: kernel {name} not launched")
+    report["trained_through_kernels"] = {
+        "prefill_vs_chunked": served, "limit": BF16_ROW_RTOL,
+        "serve_token_agreement": agreement(outs["kernel"], outs["chunked"]),
+        "launches": launched_kernels(counts)}
+    del params, kernel_model, prompts
+    torch.cuda.empty_cache()
+
+    # fp32 gradients: "chunked" + remat vs "plain" without it
+    cfg32, _, p32 = fp32_model(torch, base)
+    chunked32 = build_model(dataclasses.replace(
+        cfg32, attn_impl="chunked", attn_chunk=TRAIN_FP32_CHUNK,
+        remat=True))
+    plain32 = build_model(dataclasses.replace(cfg32, attn_impl="plain",
+                                              remat=False))
+    data32 = SyntheticLMData(vocab_size=cfg.vocab_size,
+                             seq_len=TRAIN_FP32_SEQ, global_batch=2,
+                             seed=17)
+    b32 = batch_on(data32.batch_at(0), "cuda")
+    loss_c, g_c = loss_and_grads(torch, chunked32, p32, b32)
+    loss_p, g_p = loss_and_grads(torch, plain32, p32, b32)
+    errs = leaf_rel_errs(g_c, g_p)
+    worst = max(errs, key=errs.get)
+    report["fp32_grads"] = {"layers": FP32_LAYERS, "seq": TRAIN_FP32_SEQ,
+                            "chunk": TRAIN_FP32_CHUNK,
+                            "loss_chunked": loss_c, "loss_plain": loss_p,
+                            "worst_leaf": worst,
+                            "worst_leaf_rel_err": errs[worst],
+                            "limit": TRAIN_GRAD_RTOL}
+    require(errs[worst] <= TRAIN_GRAD_RTOL,
+            f"train: fp32 gradient of {worst}: {errs[worst]}")
+    del g_c, g_p
+
+    # the kernels refuse to be differentiated
+    kernel32 = build_model(dataclasses.replace(cfg32, attn_impl="kernel"))
+    leaves = tree_map(lambda p: p.detach().clone().requires_grad_(True), p32)
+    ops.reset_launch_counts()
+    try:
+        kernel32.loss_fn(leaves, b32)
+        refused = None
+    except RuntimeError as exc:
+        refused = str(exc)
+    require(refused is not None and 'attn_impl="chunked"' in refused,
+            f"train: a kernel forward under grad ran ({refused})")
+    require(sum(ops.launch_counts().values()) == 0,
+            "train: a kernel launched under grad")
+    report["refusal"] = refused
+    del leaves, kernel32
+
+    # a checkpoint round trip at FP32_LAYERS depth (bf16 compute)
+    cfg2 = dataclasses.replace(cfg, num_layers=FP32_LAYERS)
+    model2 = build_model(cfg2)
+    p2 = model2.init(seed=0, device="cuda", dtype=torch.float32)
+    opt2 = adamw_init(p2)
+    opt2["err"] = init_error_feedback(p2)
+    step2 = make_train_step(model2, OptConfig(lr=TRAIN_LR, warmup_steps=0,
+                                              total_steps=TRAIN_STEPS),
+                            "int8", TRAIN_ACCUM)
+    data2 = SyntheticLMData(vocab_size=cfg.vocab_size,
+                            seq_len=TRAIN_FP32_SEQ, global_batch=TRAIN_BATCH,
+                            seed=17)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=2)
+        for step in range(2):
+            p2, opt2, _ = step2(p2, opt2, batch_on(data2.batch_at(step),
+                                                   "cuda"))
+        state = {"params": p2, "opt": opt2}
+        snapshot = tree_map(lambda t: t.detach().clone(), state)
+        t0 = time.perf_counter()
+        mgr.save(2, state, blocking=False)
+        save_call_s = time.perf_counter() - t0
+        p2, opt2, m = step2(p2, opt2, batch_on(data2.batch_at(2), "cuda"))
+        want_loss = float(m["loss"])
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step_found, restored = mgr.restore_latest(state, device="cuda")
+        restore_s = time.perf_counter() - t0
+        require(step_found == 2, f"train: restored step {step_found}")
+        want = dict(leaves_with_paths(snapshot))
+        for path, got in leaves_with_paths(restored):
+            require(got.dtype == want[path].dtype
+                    and torch.equal(got, want[path]),
+                    f"train: restored {path} differs")
+        _, _, m = step2(restored["params"], restored["opt"],
+                        batch_on(data2.batch_at(2), "cuda"))
+        resumed_loss = float(m["loss"])
+        n_bytes = sum(t.numel() * t.element_size()
+                      for _, t in leaves_with_paths(snapshot))
+    require(abs(resumed_loss - want_loss) <= TRAIN_RESUME_ATOL,
+            f"train: resumed loss {resumed_loss} vs {want_loss}")
+    report["checkpoint"] = {
+        "layers": FP32_LAYERS, "seq": TRAIN_FP32_SEQ, "bytes": n_bytes,
+        "save_call_s": save_call_s, "write_wait_s": wait_s,
+        "restore_s": restore_s, "loss_uninterrupted": want_loss,
+        "loss_resumed": resumed_loss, "bit_for_bit": True}
+    emit(report)
+    return {**report, "launches": counts}
+
+
 def moe_routes(run):
     """``run()`` with every ``moe.moe_route`` call recorded: returns
     (run's result, [Route of each call in order])."""
@@ -4387,6 +4703,8 @@ def main() -> int:
     launches["encdec"] = phase_encdec(torch)["launches"]
     torch.cuda.empty_cache()
     launches["vlm"] = phase_vlm(torch)["launches"]
+    torch.cuda.empty_cache()
+    launches["train"] = phase_train(torch)["launches"]
     for row in rows:
         row["launches"] = sum(launches[path][row["name"]]
                               for path in ROW_PATH[row["name"]])

@@ -17,6 +17,13 @@ tile does not carry over. int8 caches pass their fp32 scales through:
 per row (B, Hkv, S) for the dense cache, per page (Hkv, P) for the pools.
 ``ssd_chunked`` is the mamba2 scan with its intra-chunk step on B8
 (``kernels/ssd_scan.py``).
+
+The CUDA kernels fill their outputs through ctypes, outside autograd, so
+a backward through them would treat attention (and B8's step) as a
+constant and say nothing. Every wrapper here therefore refuses a call
+that autograd would record (grad enabled and a tensor argument that
+requires grad), on the CPU as on the card, and runs no plain version in
+its place: training takes ``attn_impl="chunked"``.
 """
 
 from __future__ import annotations
@@ -56,6 +63,15 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
+def _refuse_grad(*args) -> None:
+    """Raise if autograd would record a call on ``args``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in args):
+        raise RuntimeError(
+            "the attention and SSD kernels have no backward: train with "
+            'attn_impl="chunked", or call them under torch.no_grad()')
+
+
 def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
     pad = (-x.shape[1]) % multiple
     if pad == 0:
@@ -91,6 +107,7 @@ def attention(q, k, v, *, causal: bool = False, window: int | None = None,
               sm_scale: float | None = None,
               method: str = "auto") -> torch.Tensor:
     """Exact attention. q: (B, Hq, Nq, E); k, v: (B, Hkv, Nkv, E)."""
+    _refuse_grad(q, k, v)
     b, hq, nq, e = q.shape
     _, hkv, nkv, _ = k.shape
     if hq % hkv:
@@ -120,6 +137,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     ``v_scale`` (B, Hkv, S) fp32 per-row scales; ``kv_len`` an int (every
     row) or a (B,) integer tensor (a ragged batch).
     """
+    _refuse_grad(q, k_cache, v_cache, k_scale, v_scale)
     b, hq, e = q.shape
     _, hkv, s_len, _ = k_cache.shape
     if hq % hkv:
@@ -155,6 +173,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
     ``k_scales``/``v_scales`` (Hkv, P); page_table: (B, max_pages) and
     kv_lens: (B,), int32 tensors on q's device.
     """
+    _refuse_grad(q, k_pages, v_pages, k_scales, v_scales)
     b, hq, e = q.shape
     hkv = k_pages.shape[0]
     if hq % hkv:
@@ -179,6 +198,7 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
     ``kv_lens[b]`` return values the host discards. Returns
     (B, k, Hq, E).
     """
+    _refuse_grad(q, k_pages, v_pages, k_scales, v_scales)
     b, spec, hq, e = q.shape
     hkv = k_pages.shape[0]
     if hq % hkv:
@@ -215,6 +235,7 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, span, *,
     device. The chunk's own K/V must already be in its pages. Pad rows
     past ``kv_len - q_offset`` return values the caller slices off.
     """
+    _refuse_grad(q, k_pages, v_pages, k_scales, v_scales)
     hq, chunk, e = q.shape
     bq = paged_prefill_blk_q(chunk, q.dtype)
     qf = _pad_rows(q, bq)
@@ -224,6 +245,12 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, span, *,
     return of[:, :chunk]
 
 
-# The chunked SSD scan of ``models/ssm.py`` with its intra-chunk step on
-# kernel B8 (a ragged length padded to a whole chunk).
-ssd_chunked = _ssd.ssd_chunked_kernel
+def ssd_chunked(x, a, bmat, cmat, chunk: int, initial_state=None,
+                out_dtype=None):
+    """The chunked SSD scan of ``models/ssm.py`` with its intra-chunk step
+    on kernel B8 (``ssd_scan.ssd_chunked_kernel``; a ragged length padded
+    to a whole chunk)."""
+    _refuse_grad(x, a, bmat, cmat, initial_state)
+    return _ssd.ssd_chunked_kernel(x, a, bmat, cmat, chunk,
+                                   initial_state=initial_state,
+                                   out_dtype=out_dtype)

@@ -1,0 +1,166 @@
+"""Fault-tolerant training launcher on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --smoke --device cpu --steps 30
+
+Port of ``repro/launch/train.py``: the same flags less ``--mesh``, plus
+``--device`` (default ``cuda``, which raises where there is no CUDA
+device). It restores the newest checkpoint of ``--ckpt-dir`` on start,
+saves asynchronously every ``--save-every`` steps and at the end, draws
+the seekable ``SyntheticLMData`` stream (a resumed run sees the batches
+an uninterrupted one saw), flags straggler steps (``StepTimer``), writes
+a heartbeat a step (``Watchdog``) and, with ``--metrics-file``, a JSON
+line a step. Weights are the port's own init from seed 0, in fp32.
+
+The kernels have no backward, so a config whose ``attn_impl`` is
+``"kernel"`` trains on ``"chunked"`` (the reference's ``"xla"``), and
+says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_arch, get_smoke
+from repro_torch.data import SyntheticLMData
+from repro_torch.distributed.compression import init_error_feedback
+from repro_torch.distributed.elastic import StepTimer, Watchdog
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.api import build_model
+from repro_torch.optim import OptConfig, adamw_init
+
+
+def batch_on(batch: dict, device) -> dict:
+    """A ``SyntheticLMData`` batch as tensors on ``device``: token ids and
+    labels int64, frontend features fp32."""
+    return {k: torch.from_numpy(v).to(
+        device, torch.float32 if k == "frontend" else torch.int64)
+        for k, v in batch.items()}
+
+
+def main(argv=None):
+    """Train and return the loss of each step run."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config of the same family")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--total-steps", type=int, default=None,
+                    help="LR-schedule horizon (defaults to --steps); set "
+                    "explicitly when a run will stop early and resume")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "bf16", "int8"])
+    ap.add_argument("--d-model", type=int, default=None,
+                    help="override width (e.g. ~100M example)")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-file", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    overrides = {}
+    if args.d_model:
+        overrides["d_model"] = args.d_model
+        overrides["head_dim"] = max(8, args.d_model // cfg.num_heads)
+        overrides["d_ff"] = (args.d_model * 4) if cfg.d_ff else 0
+        if cfg.lru_width:
+            overrides["lru_width"] = args.d_model
+    if args.layers:
+        overrides["num_layers"] = args.layers
+    if cfg.attn_impl == "kernel":
+        print('[train] the attention kernels have no backward: training '
+              'with attn_impl="chunked"')
+        overrides["attn_impl"] = "chunked"
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+
+    model = build_model(cfg)
+    horizon = args.total_steps or args.steps
+    opt_cfg = OptConfig(lr=args.lr, warmup_steps=min(20, horizon // 10),
+                        total_steps=horizon)
+    data = SyntheticLMData(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        global_batch=args.batch, seed=17,
+        frontend_tokens=cfg.num_frontend_tokens if cfg.frontend else 0,
+        d_model=cfg.d_model,
+    )
+
+    params = model.init(seed=0, device=dev, dtype=torch.float32)
+    opt_state = adamw_init(params)
+    if args.compression == "int8":
+        opt_state["err"] = init_error_feedback(params)
+
+    start_step = 0
+    ckpt = None
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, keep=3)
+        state = {"params": params, "opt": opt_state}
+        step_found, restored = ckpt.restore_latest(state, device=dev)
+        if step_found is not None:
+            params = restored["params"]
+            opt_state = restored["opt"]
+            start_step = step_found
+            print(f"[train] restored checkpoint at step {start_step}")
+
+    step_fn = make_train_step(model, opt_cfg, args.compression
+                              if args.compression != "none" else None)
+    timer = StepTimer()
+    watchdog = (Watchdog(os.path.join(args.ckpt_dir, "hb"))
+                if args.ckpt_dir else None)
+    metrics_f = open(args.metrics_file, "a") if args.metrics_file else None
+    worker = "proc0"
+
+    losses = []
+    try:
+        for step in range(start_step, args.steps):
+            t0 = time.time()
+            batch = batch_on(data.batch_at(step), dev)
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            loss = float(m["loss"])
+            dt = time.time() - t0
+            slow = timer.observe(dt)
+            losses.append(loss)
+            if watchdog:
+                watchdog.beat(worker, step)
+            if slow:
+                print(f"[train] step {step}: straggler step "
+                      f"({dt:.2f}s vs ema {timer.ema:.2f}s)")
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(f"[train] step {step} loss={loss:.4f} "
+                      f"gnorm={float(m['grad_norm']):.3f} "
+                      f"lr={float(m['lr']):.2e} {dt:.2f}s", flush=True)
+            if metrics_f:
+                metrics_f.write(json.dumps(
+                    {"step": step, "loss": loss, "dt": dt}) + "\n")
+            if ckpt and (step + 1) % args.save_every == 0:
+                ckpt.save(step + 1, {"params": params, "opt": opt_state},
+                          blocking=False)
+        if ckpt:
+            ckpt.save(args.steps, {"params": params, "opt": opt_state},
+                      blocking=True)
+    finally:
+        if metrics_f:
+            metrics_f.close()
+    if losses:
+        print(f"[train] done. first loss={losses[0]:.4f} "
+              f"last loss={losses[-1]:.4f}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

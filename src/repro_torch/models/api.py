@@ -17,8 +17,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ArchConfig
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +49,35 @@ class Model:
     paged_verify_step: Callable[..., Any]
     # (params, frames) -> encoder output; None without an encoder
     encode: Callable[..., Any] | None = None
+
+    def loss_fn(self, params, batch):
+        """Next-token cross-entropy (+ the MoE aux loss) of a batch:
+        ``tokens`` and ``labels`` (B, S) integer tensors, labels < 0
+        masked, and ``frontend`` (B, F, D) stub patches (vision) or frames
+        (audio). Port of the reference's ``Model.loss_fn``: fp32 params
+        of two or more dims cast to the compute dtype once (autograd
+        carries the cast back to them), log-softmax in fp32 over the text
+        positions only."""
+        cfg = self.cfg
+        params = tree_map(
+            lambda p: p.to(cfg.compute_dtype)
+            if p.dtype == torch.float32 and p.dim() >= 2 else p, params)
+        kwargs = {}
+        if cfg.frontend == "vision":
+            kwargs["frontend_embeds"] = batch["frontend"]
+        if cfg.encoder_layers:
+            kwargs["encoder_out"] = tfm.encode(params, batch["frontend"], cfg)
+        logits, aux = self.forward(params, batch["tokens"], cfg, **kwargs)
+        labels = batch["labels"].long()
+        if cfg.frontend == "vision":
+            logits = logits[:, -labels.shape[1]:]   # text positions only
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        if cfg.moe is not None:
+            ce = ce + cfg.moe.aux_loss_weight * aux / max(1, cfg.num_layers)
+        return ce
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")

@@ -7,7 +7,13 @@ Port of the dense and paged parts of ``repro/models/attention.py``:
   a CUDA tensor and their plain versions on a CPU tensor (the
   reference's ``pallas``);
 * ``plain`` — the exact oracle in ``kernels/ref.py`` (the reference's
-  ``xla_full``).
+  ``xla_full``);
+* ``chunked`` — ``chunked_attention``, the MAS dataflow in torch ops (the
+  reference's ``xla``): a full fp32 score row per chunk of Q rows, one
+  exact softmax, then P·V, each chunk recomputed in the backward. It is
+  the route that trains, since the kernels have no backward. The decode
+  and paged functions take their ``plain`` twin under it, as the
+  reference's ``xla`` takes its XLA twins.
 
 The dense functions take q: (B, Hq, Nq, E), k/v: (B, Hkv, Nkv, E); the
 paged ones take page pools (Hkv, P, page, E) and page tables, and their
@@ -21,20 +27,82 @@ folded into P after the row sum.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.common import NEG_INF, gather_pages, page_scales
 
-IMPLS = ("kernel", "plain")
+IMPLS = ("kernel", "plain", "chunked")
+
+
+def _twin(impl: str) -> str:
+    """The decode and paged functions' route: ``chunked`` takes the plain
+    twin."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attn impl {impl!r}")
+    return "plain" if impl == "chunked" else impl
+
+
+def tracks_grad(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
+                      q_offset: int = 0, chunk: int = 1024,
+                      remat: bool = True):
+    """Port of the reference's ``xla_chunked_attention``: the kv heads
+    repeated over their query groups, Q padded to whole chunks of
+    ``chunk`` rows (the padding sliced off), and per chunk the full fp32
+    score row (Alg. 2), the causal / window mask at rows offset by
+    ``q_offset``, one exact softmax over the row (Alg. 3) and P·V (Alg.
+    4), cast back to q's dtype. With ``remat`` a chunk keeps only its
+    inputs for the backward and recomputes its scores there, so the
+    backward holds one chunk's (chunk, Nkv) rows at a time."""
+    b, hq, nq, e = q.shape
+    hkv, nkv = k.shape[1], k.shape[2]
+    kf = kref._repeat_kv(k, hq // hkv).float()
+    vf = kref._repeat_kv(v, hq // hkv).float()
+    scale = e ** -0.5
+    chunk = min(chunk, nq)
+    pad = (-nq) % chunk
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+    cols = torch.arange(nkv, device=q.device)[None, :]
+
+    def one_chunk(qc, kf, vf, start: int):
+        s = (qc.float() @ kf.transpose(-1, -2)) * scale
+        if causal or window is not None:
+            rows = (start + q_offset
+                    + torch.arange(chunk, device=q.device)[:, None])
+            m = cols <= rows
+            if window is not None:
+                m = m & (cols > rows - window)
+            s = torch.where(m, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        return (p @ vf).to(q.dtype)
+
+    remat = remat and tracks_grad(q, kf, vf)
+    outs = []
+    for start in range(0, q.shape[2], chunk):
+        qc = q[:, :, start:start + chunk]
+        outs.append(checkpoint(one_chunk, qc, kf, vf, start,
+                               use_reentrant=False) if remat
+                    else one_chunk(qc, kf, vf, start))
+    return torch.cat(outs, dim=2)[:, :, :nq]
 
 
 def attention(q, k, v, *, impl: str = "kernel", causal: bool = True,
-              window: int | None = None):
+              window: int | None = None, chunk: int = 1024,
+              remat: bool = True):
     if impl == "kernel":
         return kops.attention(q, k, v, causal=causal, window=window)
     if impl == "plain":
         return kref.attention(q, k, v, causal=causal, window=window)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 chunk=chunk, remat=remat)
     raise ValueError(f"unknown attn impl {impl!r}")
 
 
@@ -59,11 +127,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, impl: str = "kernel",
     """q: (B, Hq, E) against dense caches (B, Hkv, S, E), masked at
     ``kv_len`` (an int, or a (B,) tensor); an int8 cache comes with its
     (B, Hkv, S) per-row ``k_scale``/``v_scale``."""
-    if impl == "kernel":
+    if _twin(impl) == "kernel":
         return kops.decode_attention(q, k_cache, v_cache, kv_len,
                                      k_scale=k_scale, v_scale=v_scale)
-    if impl != "plain":
-        raise ValueError(f"unknown attn impl {impl!r}")
     if k_scale is None:
         return kref.decode_attention(q, k_cache, v_cache, kv_len)
     b, hq, e = q.shape
@@ -97,12 +163,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
     the dense per-sequence layout and runs the reference twin's fp32
     masked softmax op for op (``repro/models/attention.py``).
     """
-    if impl == "kernel":
+    if _twin(impl) == "kernel":
         return kops.paged_decode_attention(q, k_pages, v_pages, page_table,
                                            kv_lens, k_scales=k_scales,
                                            v_scales=v_scales)
-    if impl != "plain":
-        raise ValueError(f"unknown attn impl {impl!r}")
     b, hq, e = q.shape
     hkv = k_pages.shape[0]
     k = gather_pages(k_pages, page_table)           # (B, Hkv, S, E)
@@ -130,13 +194,11 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
     pool dense and runs the reference twin's fused causal + kv-tail mask
     and fp32 softmax op for op.
     """
-    if impl == "kernel":
+    if _twin(impl) == "kernel":
         return kops.paged_verify_attention(q, k_pages, v_pages, page_table,
                                            kv_lens, q_starts,
                                            k_scales=k_scales,
                                            v_scales=v_scales)
-    if impl != "plain":
-        raise ValueError(f"unknown attn impl {impl!r}")
     b, spec, hq, e = q.shape
     hkv = k_pages.shape[0]
     g = hq // hkv
@@ -172,12 +234,10 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, span, *,
     ``kernels/ref.py`` (for int8 pools, the reference twin's scaled fp32
     softmax), its masks built from the pair as tensors.
     """
-    if impl == "kernel":
+    if _twin(impl) == "kernel":
         return kops.paged_prefill_attention(q, k_pages, v_pages, page_table,
                                             span, k_scales=k_scales,
                                             v_scales=v_scales)
-    if impl != "plain":
-        raise ValueError(f"unknown attn impl {impl!r}")
     q_offset, kv_len = span[0], span[1]
     k = gather_pages(k_pages, page_table)           # (Hkv, S, E)
     v = gather_pages(v_pages, page_table)

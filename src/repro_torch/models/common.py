@@ -63,8 +63,15 @@ class ArchConfig:
     ``attn_impl`` selects the backend of the attention and SSD scan:
     ``"kernel"`` routes through ``kernels/ops.py`` (the CUDA kernels on a
     CUDA tensor, their plain versions on a CPU tensor), ``"plain"``
-    through the oracles in ``kernels/ref.py`` and ``models/ssm.py``. They
-    are the reference's ``"pallas"`` and ``"xla_full"``.
+    through the oracles in ``kernels/ref.py`` and ``models/ssm.py``, and
+    ``"chunked"`` runs full-sequence attention as the MAS dataflow in
+    torch ops (``models/attention.chunked_attention``: Q chunks of
+    ``attn_chunk`` rows, each a full fp32 score row, rematerialised in
+    the backward when ``remat``) and everything else as ``"plain"``.
+    They are the reference's ``"pallas"``, ``"xla_full"`` and ``"xla"``.
+    The kernels have no backward, so training takes ``"chunked"`` (or
+    ``"plain"``). ``remat`` also rematerialises each layer in the
+    backward (``transformer.forward``).
     """
 
     name: str
@@ -94,7 +101,9 @@ class ArchConfig:
     encoder_layers: int = 0      # > 0: enc-dec; the decoder is num_layers
     frontend: str | None = None  # "vision" | "audio": stub embeddings in
     num_frontend_tokens: int = 0
-    attn_impl: str = "kernel"    # kernel | plain
+    attn_impl: str = "kernel"    # kernel | plain | chunked
+    attn_chunk: int = 1024       # Q rows a chunk of "chunked" attention
+    remat: bool = True
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
 

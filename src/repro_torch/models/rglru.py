@@ -59,13 +59,13 @@ def init_rglru_block(generator: torch.Generator, cfg: ArchConfig,
 def affine_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t over axis 1, from h_{-1} = 0. a, b:
     (B, L, W) fp32. After the pass of offset d, position t holds the
-    composition of the steps (t - 2d, t]: b_t += a_t * b_{t-d}, a_t *=
-    a_{t-d}, each right-hand side formed before it is written."""
-    a, b = a.clone(), b.clone()
+    composition of the steps (t - 2d, t]: b_t + a_t * b_{t-d} and
+    a_t * a_{t-d}, both from the previous pass's values. Each pass builds
+    new tensors (autograd needs the old ones for the backward)."""
     d = 1
     while d < a.shape[1]:
-        b[:, d:] += a[:, d:] * b[:, :-d]
-        a[:, d:] = a[:, d:] * a[:, :-d]
+        b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return b
 
@@ -118,7 +118,8 @@ def rglru_block(params, x, cfg: ArchConfig, *, conv_state=None,
     else:
         if rnn_state is not None:
             # the carried state enters through the first step
-            gated_in[:, 0] += a[:, 0] * rnn_state.float()
+            first = gated_in[:, :1] + a[:, :1] * rnn_state.float()[:, None]
+            gated_in = torch.cat([first, gated_in[:, 1:]], dim=1)
         hseq = affine_scan(a, gated_in)
     new_state = hseq[:, -1]
 

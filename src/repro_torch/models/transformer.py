@@ -84,6 +84,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -231,7 +232,8 @@ def attn_block(params, x, cfg: ArchConfig, *, positions,
     (out, (k, v))."""
     q, k, v = _qkv(params, x, cfg, positions)
     o = attn_mod.attention(q, k, v, impl=cfg.attn_impl, causal=causal,
-                           window=window)
+                           window=window, chunk=cfg.attn_chunk,
+                           remat=cfg.remat)
     return _merge_heads(o) @ params["wo"].to(x.dtype), (k, v)
 
 
@@ -253,7 +255,8 @@ def cross_attn_block(params, x, cfg: ArchConfig, *, mem_k, mem_v):
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     q = _split_heads(h @ params["wq"].to(dt), cfg.num_heads, cfg.hd)
     o = attn_mod.attention(q, mem_k, mem_v, impl=cfg.attn_impl,
-                           causal=False)
+                           causal=False, chunk=cfg.attn_chunk,
+                           remat=cfg.remat)
     return _merge_heads(o) @ params["wo"].to(dt)
 
 
@@ -502,31 +505,45 @@ def _unembed(params, x, cfg: ArchConfig):
     return h @ params["unembed"].to(h.dtype)
 
 
+def _layer_train(layer, x, cfg: ArchConfig, positions, encoder_out):
+    """One layer of the full-sequence forward -> (x, aux)."""
+    if "ssd" in layer:
+        return x + ssm.ssd_block(layer["ssd"], x, cfg)[0], 0.0
+    if "rec" in layer:
+        x = x + rglru.rglru_block(layer["rec"], x, cfg)[0]
+    else:
+        x = x + attn_block(layer["attn"], x, cfg, positions=positions,
+                           window=cfg.attn_window, causal=cfg.causal)[0]
+        if "cross" in layer:
+            mem_k, mem_v = cross_memory(layer["cross"], encoder_out, cfg)
+            x = x + cross_attn_block(layer["cross"], x, cfg, mem_k=mem_k,
+                                     mem_v=mem_v)
+    y, a = ffn(layer, x, cfg)
+    return x + y, a
+
+
 def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
             encoder_out=None):
     """Full-sequence forward: tokens (B, S) -> (logits (B, F + S, V),
     aux), F the rows of ``frontend_embeds`` (0 without); aux is the MoE
     layers' summed load-balance loss, fp32 (0 for other stacks). An
-    encoder-decoder takes the encoder's output as ``encoder_out``."""
+    encoder-decoder takes the encoder's output as ``encoder_out``.
+
+    With ``cfg.remat``, when autograd records the call, each layer keeps
+    only its input for the backward and runs again there, as the
+    reference checkpoints its scanned unit body."""
     _need_memory(params, encoder_out)
     x = _embed(params, tokens, cfg, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and attn_mod.tracks_grad(x)
     for layer in params["layers"]:
-        if "ssd" in layer:
-            x = x + ssm.ssd_block(layer["ssd"], x, cfg)[0]
-            continue
-        if "rec" in layer:
-            x = x + rglru.rglru_block(layer["rec"], x, cfg)[0]
+        if remat:
+            x, a = checkpoint(_layer_train, layer, x, cfg, positions,
+                              encoder_out, use_reentrant=False)
         else:
-            x = x + attn_block(layer["attn"], x, cfg, positions=positions,
-                               window=cfg.attn_window, causal=cfg.causal)[0]
-            if "cross" in layer:
-                mem_k, mem_v = cross_memory(layer["cross"], encoder_out, cfg)
-                x = x + cross_attn_block(layer["cross"], x, cfg, mem_k=mem_k,
-                                         mem_v=mem_v)
-        y, a = ffn(layer, x, cfg)
-        x, aux = x + y, aux + a
+            x, a = _layer_train(layer, x, cfg, positions, encoder_out)
+        aux = aux + a
     return _unembed(params, x, cfg), aux
 
 

@@ -16,6 +16,11 @@ layers each hold a ``cross`` block (``norm, wq, wk, wv, wo``, no
 qk-norm), and its encoder is ``params["encoder"]``, ``{"attn", "ffn"}``
 stacked over the encoder's layers, which the port keeps as one dict a
 layer, with ``enc_final_norm`` beside it.
+
+Any tree of the parameters' structure converts the same way, leaf for
+leaf: the reference's gradients (``jax.grad`` of ``Model.loss_fn``) and
+its AdamW moments (``mu``, ``nu``), which the training tests hold the
+port's to.
 """
 
 from __future__ import annotations
@@ -131,3 +136,28 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda") -> dict:
                              for i in range(cfg.encoder_layers)]
         params["enc_final_norm"] = tensor(tree["enc_final_norm"])
     return params
+
+
+def reference_leaf(path: str, cfg: ArchConfig) -> str:
+    """The path of the reference's array that holds the port's leaf at
+    ``path`` (``tree.leaves_with_paths``): layer u * len(pattern) + j
+    lies in ``units/b{j}`` (stacked over u), a tail layer in ``tail/t{j}``,
+    every encoder layer in ``encoder``; the rest keep their path. A
+    leading ``params/`` or other prefix before ``layers`` or ``encoder``
+    is kept."""
+    parts = path.split("/")
+    for at, name in enumerate(parts[:-1]):
+        if name not in ("layers", "encoder") or not parts[at + 1].isdigit():
+            continue
+        head, i, rest = parts[:at], int(parts[at + 1]), parts[at + 2:]
+        if name == "encoder":
+            return "/".join(head + ["encoder"] + rest)
+        if cfg.family == "ssm":
+            pattern = 1
+        else:
+            pattern = len(cfg.block_pattern or ("attn",))
+        body = len(cfg.layer_kinds) - len(cfg.pattern_tail)
+        where = (["units", f"b{i % pattern}"] if i < body
+                 else ["tail", f"t{i - body}"])
+        return "/".join(head + where + rest)
+    return path

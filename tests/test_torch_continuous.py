@@ -8,7 +8,8 @@ the JAX package's.
 * Both engines serve the same requests over the same fp32 weights (random
   norm scales, so the token streams vary): the reference on
   ``attn_impl="xla_full"``, the port on its kernels' plain versions (and
-  on its plain attention), and the port's wave engine beside them. Tokens
+  on its plain and its chunked attention), and the port's wave engine
+  beside them. Tokens
   must agree token for token: uncontended, under scripted pool
   exhaustion at several append indices, with a cancellation mid-decode,
   and with one slot's logits reported non-finite. Deadlines expire queued
@@ -199,7 +200,7 @@ def _both_serve(pair, jax_engine, engine, spec, jax_inj=NO_FAULTS,
     return jout, tout
 
 
-@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("impl", ["kernel", "plain", "chunked"])
 def test_engine_matches_reference_and_wave_engine(pair, jax_engine, impl):
     tmodel = build_model(dataclasses.replace(pair.tcfg, attn_impl=impl))
     eng = ContinuousBatchingEngine(tmodel, pair.tparams, device="cpu",

@@ -8,7 +8,8 @@
   against the reference's ``ssd_chunked`` and ``ssd_chunked_pallas``
   (interpret mode), and a ragged length (40 at chunk 32, padded to a whole
   chunk) against the reference at chunk 8, which divides it;
-* ``ssd_block``, chunked and streaming, and the model's logits (forward,
+* ``ssd_block``, chunked and streaming (on each ``attn_impl``:
+  ``"chunked"`` takes the plain scan), and the model's logits (forward,
   prefill, teacher-forced decode) against the JAX model, atol 1e-4;
 * the wave ``ServingEngine``'s tokens against the JAX engine's, with
   random norm scales so that greedy tokens vary, also on
@@ -157,7 +158,7 @@ def _layer(pair, i: int):
     return jblk, pair.tparams["layers"][i]["ssd"]
 
 
-@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("impl", ["kernel", "plain", "chunked"])
 def test_ssd_block_chunked_and_streaming_match_reference(pair, impl):
     jp, tp = _layer(pair, 1)
     tcfg = dataclasses.replace(pair.tcfg, attn_impl=impl)
