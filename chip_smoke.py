@@ -108,7 +108,25 @@ Phases, each printing one JSON line:
 10. fp32 speculative parity — at full width with 2 layers in fp32,
    speculative tokens equal plain continuous tokens on fp32 pools, on
    int8 pools and under an exhaustion burst;
-11. moe — full-width, full-depth deepseek-moe-16b (28 layers, 64
+11. sharded — the same model served by ``ShardedContinuousBatchingEngine``
+   with its KV heads split over ranks, one process a rank
+   (``torch.multiprocessing`` spawn; NCCL with a card a rank where the
+   machine has as many cards, else gloo with every rank on card 0, whose
+   CUDA all-gather and broadcast are probed first): degree 2 on bf16 and
+   int8 pools and speculative (``spec_depth=4``, both pools), degree 4 on
+   bf16 pools, the continuous (or speculative) phase's 16 requests and
+   settings. Each rank builds the weights from seed 0 (their checksum
+   must equal the parent's), and its tokens must equal the single-card
+   serve's bit for bit, no step's result may differ from rank 0's and
+   its B5/B6/B7 launch counts must rise. One line a run: backend, cards,
+   degree, gathered bytes, mismatches, peak memory and wall a rank. The
+   kernels phase adds B5, B6 and B7 (bf16 and int8 pools) on 4 and 2 of
+   the 8 KV heads, the rows the sharded path launches: a head slice's
+   call with the model's split plan equals the full call's slice bit for
+   bit, with its own plan the difference is recorded. ``python3
+   chip_smoke.py --only sharded`` runs the build, these rows and this
+   phase alone;
+12. moe — full-width, full-depth deepseek-moe-16b (28 layers, 64
    routed experts top-6 and 2 shared, capacity factor 1.25; bf16, random
    weights from seed 0 with the experts' down projections scaled by 1/16,
    since the MoE FFN takes the un-normalised residual and at the init's
@@ -130,7 +148,7 @@ Phases, each printing one JSON line:
    engine on the kernels and on plain attention and the wave engine emit
    the same greedy tokens. It prints TTFT, tokens/s, step times, peak
    memory, ``init_s``, capacities and drop shares;
-12. dense archs — phi4-mini-3.8b (GQA group 3) in waves of 4 x 256 and
+13. dense archs — phi4-mini-3.8b (GQA group 3) in waves of 4 x 256 and
    4 x 2048 and 8 continuous requests (B1, B2, B4, B5, B6), then
    deepseek-coder-33b (group 7, untied embeddings, ~66.7 GB) in a 1 x
    2048 wave (B2, B4), full width, each freed before the next; the 33B
@@ -139,7 +157,7 @@ Phases, each printing one JSON line:
    as ``reduced``, then qwen3-1.7b (qk-norm, GQA group 2, a 151,936-entry
    vocabulary) as phi4-mini; each wave's first-token logits within
    LOGITS_RTOL of the plain route's;
-13. ssm wave — full-width mamba2-130m (random weights from a seed)
+14. ssm wave — full-width mamba2-130m (random weights from a seed)
    served by ``ServingEngine`` in three waves, 4 x 2048, 1 x 32768 and
    4 x 1000 (a ragged tail padded to a whole chunk), 16 new tokens each:
    24 B8 launches a wave, TTFT, tokens/s, decode step time and peak
@@ -152,7 +170,7 @@ Phases, each printing one JSON line:
    them by a large part of any useful limit under fp32-rounding-size
    changes of B8), and must be finite; and at 2 layers in fp32 the
    kernel route's tokens equal the plain route's;
-14. hybrid wave — full-width, full-depth recurrentgemma-9b (38 layers:
+15. hybrid wave — full-width, full-depth recurrentgemma-9b (38 layers:
    26 RG-LRU blocks and 12 MQA attention layers of 16 heads of 256 over
    a 2048-token window, whose decode caches are rings of 2048 rows;
    bf16, random weights from seed 0; 7,483,486,208 parameters) served by
@@ -170,7 +188,7 @@ Phases, each printing one JSON line:
    route's, the int8 ring's first decode logits within INT8_LOGITS_RTOL
    of the bf16 ring's; at full width with one unit and the tail (5
    layers) in fp32 the kernel route's tokens equal the plain route's;
-15. encdec — full-width, full-depth whisper-large-v3 (32 encoder and 32
+16. encdec — full-width, full-depth whisper-large-v3 (32 encoder and 32
    decoder layers, d_model 1280, 20/20 heads of 64, vocab 51866; bf16,
    random weights from seed 0; 1,534,602,240 parameters) driven through
    the model API, as the engines take no frames: random stub frames (B,
@@ -194,7 +212,7 @@ Phases, each printing one JSON line:
    LOGITS_RTOL of the plain route's, the int8 cache's first decode
    logits within INT8_LOGITS_RTOL of bf16's; at 2 encoder and 2 decoder
    layers in fp32 the kernel route's tokens equal the plain route's;
-16. vlm — full-width, full-depth internvl2-2b (24 layers, d_model 2048,
+17. vlm — full-width, full-depth internvl2-2b (24 layers, d_model 2048,
    16/8 heads of 128, vocab 92553; bf16, random weights from seed 0;
    1,699,598,336 parameters): 256 random stub patch embeddings before
    each prompt through ``prefill(frontend_embeds=)`` and ``decode_step``
@@ -204,11 +222,11 @@ Phases, each printing one JSON line:
    call by call as above, its first-token logits within LOGITS_RTOL of
    the plain route's; at 2 layers in fp32 the kernel route's tokens
    equal the plain route's;
-17. launcher — ``repro_torch.launch.serve.main`` (the documented entry
+18. launcher — ``repro_torch.launch.serve.main`` (the documented entry
    point) at full width, internlm2-1.8b, 8 requests on ``cuda``: each
-   returns ``--max-new`` tokens in the vocabulary (run after phase 10,
+   returns ``--max-new`` tokens in the vocabulary (run after phase 11,
    once internlm2's bf16 weights are freed);
-18. train (last, after every serving model is freed) — internlm2-1.8b
+19. train (last, after every serving model is freed) — internlm2-1.8b
    at full width and depth trained by ``launch/steps.make_train_step``:
    fp32 master weights, bf16 compute, attention ``"chunked"`` (the
    kernels have no backward) in Q chunks of 1024 rows with each chunk and
@@ -235,9 +253,9 @@ Phases, each printing one JSON line:
 
 Roofline lines: inside the phases that build each full-width model
 (internlm2-1.8b in phase 4, qwen3-1.7b, phi4-mini-3.8b and
-deepseek-coder-33b in 12, deepseek-moe-16b in 11, mamba2-130m in 13,
-recurrentgemma-9b in 14, whisper-large-v3 in 15 with its encode,
-internvl2-2b in 16), one prefill of a wave's prompts (4 x 2048; 1 x 2048
+deepseek-coder-33b in 13, deepseek-moe-16b in 12, mamba2-130m in 14,
+recurrentgemma-9b in 15, whisper-large-v3 in 16 with its encode,
+internvl2-2b in 17), one prefill of a wave's prompts (4 x 2048; 1 x 2048
 for deepseek-coder-33b; whisper's 4 clips; internvl2's 4 x (256 + 2048))
 and 3 decode steps after it through the model API, each between CUDA
 events, and the calibration serve's median decode-only step (internlm2's
@@ -255,7 +273,9 @@ waves', B5 and B6 the shared-prefix, moe and dense-arch phases' to the
 continuous phase's, the head-dim-256 forms the hybrid wave's, B1, B2 and
 B4 also the encdec and vlm phases'; ``mas_streamed_cross``, B2 at a
 whisper decode step's cross-attention shape, counts the B2 launches of
-the encdec phase's decode steps), the card's
+the encdec phase's decode steps; the ``*_shard`` rows of B5-B7 at a
+rank's heads count every rank's launches of their kernel in the sharded
+phase), the card's
 name and power limit, and the result. TF32 is switched off for matrix products and
 convolutions so fp32 comparisons see fp32 arithmetic. The script exits
 non-zero, printing no result, when there is no CUDA device or no port
@@ -386,6 +406,22 @@ ENCDEC_FP32_LAYERS = 2      # encoder and decoder layers each
 VLM_ARCH = "internvl2-2b"
 VLM_WAVES = ((256, 4), (2048, 4))
 VLM_FP32_LAYERS = 2
+# Sharded serving (the sharded phase): internlm2-1.8b with its KV heads
+# split over ranks, one process a rank, the continuous phase's requests
+# and settings. Each run names the single-card path whose tokens it must
+# equal bit for bit and whose kernels it must launch.
+SHARD_RUNS = (  # (single-card path, degree, kv_dtype, spec_depth)
+    ("continuous", 2, None, None),
+    ("int8_continuous", 2, "int8", None),
+    ("speculative", 2, None, SPEC_DEPTH),
+    ("speculative_int8", 2, "int8", SPEC_DEPTH),
+    ("continuous", 4, None, None),
+)
+SHARD_HEADS = (4, 2)   # a rank's KV heads of internlm2-1.8b at degrees 2, 4
+# A 1024-token table (64 pages): at batch 8 a rank's own split plan for
+# B6 and B7 differs there from the model's, (8, 2) or (16, 1) against
+# (4, 4); at the 4096-token table all three are (16, 4).
+SHARD_SHORT_PAGES = 64
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -407,6 +443,9 @@ PATH_KERNELS = {
     "vlm": ("mas_streamed", "decode"),
     "launcher": ("mas_resident", "decode"),
     "train": ("mas_resident", "mas_streamed", "decode"),
+    "sharded": ("paged_prefill", "paged_decode", "paged_verify",
+                "paged_prefill_int8", "paged_decode_int8",
+                "paged_verify_int8"),
 }
 ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
                              "launcher", "train"),
@@ -427,7 +466,16 @@ ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
             "paged_verify_int8": ("speculative_int8",),
             "ssd_intra_chunk": ("ssm_wave",),
             "flash_e256": ("hybrid_wave",), "decode_e256": ("hybrid_wave",),
-            "decode_e256_int8": ("hybrid_wave",)}
+            "decode_e256_int8": ("hybrid_wave",),
+            **{name + "_shard": ("sharded",) for name in (
+                "paged_decode", "paged_decode_int8", "paged_prefill",
+                "paged_prefill_int8", "paged_verify", "paged_verify_int8")}}
+# The launch counter of a kernel row whose name is not one: the rows of
+# B5-B7 at a rank's heads count their kernels' launches on the sharded
+# path.
+ROW_COUNTER = {name + "_shard": name for name in (
+    "paged_decode", "paged_decode_int8", "paged_prefill",
+    "paged_prefill_int8", "paged_verify", "paged_verify_int8")}
 
 # bf16 kernels against their plain versions: both sum in fp32 and round
 # once to bf16, so a row differs by at most about one bf16 rounding
@@ -1010,6 +1058,8 @@ def phase_kernels(torch, device: dict) -> list[dict]:
         rows += paged_rows(torch, rnd, cfg, quantized)
     rows.append(ssd_row(torch, device))
     rows += hybrid_rows(torch, rnd, device)
+    for quantized in (False, True):
+        rows += shard_rows(torch, rnd, cfg, quantized)
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
     for row in rows + [r["blk_q8"] for r in rows if "blk_q8" in r]:
         require(row["row_rel_err"] <= BF16_ROW_RTOL,
@@ -1460,6 +1510,239 @@ def paged_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
                   "n_rows": n_rows.tolist(), "n_split": n_split,
                   "tiles_per_split": tps},
     })
+    return rows
+
+
+def shard_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
+    """B6, B5 and B7 (bf16 pools, or int8 pools with per-page scales) on a
+    rank's KV heads, the shapes the sharded phase gives them: the paged
+    rows' batch and pools, cut to the last rank's SHARD_HEADS heads of
+    internlm2's 8 (rank 1 of 2, rank 3 of 4). A head slice's call with
+    the model's split plan (``plan_kv_heads``) must equal the full-head
+    call's slice bit for bit (B5 has no split: its slice call as it is);
+    with the slice's own plan the largest difference is recorded, also
+    on a table of SHARD_SHORT_PAGES pages, where the plans differ. Each
+    slice call is held to its plain version beside a zeroed V page (or V
+    scale), and timed at the first SHARD_HEADS entry (degree 2)."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode_attention as pdec
+    from repro_torch.kernels import paged_prefill_attention as ppre
+    from repro_torch.kernels import paged_verify_attention as pver
+
+    hq, hkv, e = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    grp = hq // hkv
+    page, b = CONT["page_size"], CONT["batch_size"]
+    max_pages = CONT["max_len"] // page
+    n_pages = b * max_pages + 1
+    n_kv = max_pages * page
+    dims = (-2, -1) if quantized else None
+    kp, kps = quantized_rows(rnd(hkv, n_pages, page, e), dims)
+    vp, vps = quantized_rows(rnd(hkv, n_pages, page, e), dims)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+             ).view(b, max_pages).to(torch.int32).contiguous()
+    suffix = "_int8" if quantized else ""
+    lens = torch.tensor(PAGED_DECODE_KV_LENS, dtype=torch.int32,
+                        device="cuda")
+    longest = max(range(b), key=lambda i: PAGED_DECODE_KV_LENS[i])
+    seq_table = table[longest]
+    chunk = CONT["chunk_size"]
+    bq = ops.paged_prefill_blk_q(chunk, torch.bfloat16)
+    q0, kv_len, _ = PAGED_PREFILL[-1]          # the late chunk
+    span = device_span(torch, q0, kv_len)
+    spec = SPEC_DEPTH
+    n_rows = lens.clamp(max=spec)
+    starts = (lens - n_rows).contiguous()
+    qd, qp = rnd(b, hq, e), rnd(hq, chunk, e)
+    qv = rnd(b, hkv, spec * grp, e)            # position-major rows
+    model_plan = dec.decode_split_plan(torch.bfloat16, b * hkv, n_kv)
+
+    def kv_bytes(kv_lens, h):
+        rows = sum(kv_lens)
+        if not quantized:
+            return 2.0 * h * rows * 2 * e
+        pages = sum(-(-n // page) for n in kv_lens)
+        return 2.0 * h * (rows * e + 4 * pages)
+
+    def pools(h, r):
+        """The rank's K, V and scales (None for bf16): views of its heads."""
+        return [None if t is None else t[r * h:(r + 1) * h]
+                for t in (kp, vp, kps, vps)]
+
+    decode_mask = (torch.arange(n_kv, device="cuda")[None, :]
+                   < lens[:, None].long()).view(b, 1, 1, -1)
+    decode_fault = int(table[longest, (PAGED_DECODE_KV_LENS[longest] - 1)
+                             // page - 1])
+
+    def b6(h, r):
+        k, v, ks, vs = pools(h, r)
+        q = qd[:, r * h * grp:(r + 1) * h * grp]
+        return {
+            "call": lambda plan=None: ops.paged_decode_attention(
+                q, k, v, table, lens, k_scales=ks, v_scales=vs,
+                plan_kv_heads=plan),
+            "plain": lambda v=v, vs=vs: pdec.paged_decode_attention_plain(
+                q.reshape(b, h, grp, e), k, v, table, lens,
+                n_split=model_plan[0], tiles_per_split=model_plan[1],
+                k_scales=ks, v_scales=vs).view(b, h * grp, e),
+            "lib": paged_library_call(torch, q.reshape(b, h * grp, 1, e), k,
+                                      v, table, decode_mask, k_scales=ks,
+                                      v_scales=vs),
+            "part": lambda o: o[:, r * h * grp:(r + 1) * h * grp],
+            "flops": 4.0 * e * h * grp * sum(PAGED_DECODE_KV_LENS),
+            "nbytes": (kv_bytes(PAGED_DECODE_KV_LENS, h)
+                       + 2.0 * 2 * b * h * grp * e),
+            "fault": decode_fault, "v": v, "vs": vs,
+            "local_plan": dec.decode_split_plan(q.dtype, b * h, n_kv)}
+
+    cols = torch.arange(n_kv, device="cuda")
+    prefill_mask = ((cols[None, :] <= q0 + torch.arange(chunk, device="cuda")
+                     [:, None]) & (cols[None, :] < kv_len)).view(1, 1, chunk,
+                                                                 -1)
+
+    def b5(h, r):
+        k, v, ks, vs = pools(h, r)
+        q = qp[r * h * grp:(r + 1) * h * grp]
+        pairs = float(sum(min(q0 + i + 1, kv_len) for i in range(chunk)))
+        return {
+            "call": lambda plan=None: ops.paged_prefill_attention(
+                q, k, v, seq_table, span, k_scales=ks, v_scales=vs),
+            "plain": lambda v=v, vs=vs: ppre.paged_prefill_attention_plain(
+                q, k, v, seq_table, span, blk_q=bq, k_scales=ks,
+                v_scales=vs),
+            "lib": paged_library_call(torch, q[None], k, v, seq_table,
+                                      prefill_mask, k_scales=ks, v_scales=vs),
+            "part": lambda o: o[r * h * grp:(r + 1) * h * grp],
+            "flops": 4.0 * e * h * grp * pairs,
+            "nbytes": kv_bytes([kv_len], h) + 2.0 * 2 * h * grp * chunk * e,
+            "fault": int(seq_table[kv_len // page - 2]), "v": v, "vs": vs,
+            "local_plan": None}
+
+    pos = starts[:, None].long() + torch.arange(spec, device="cuda")
+    verify_mask = ((cols[None, None, :] <= pos[:, :, None])
+                   & (cols[None, None, :] < lens[:, None, None].long())
+                   ).view(b, 1, spec, -1)
+
+    def b7(h, r):
+        k, v, ks, vs = pools(h, r)
+        q = qv[:, r * h:(r + 1) * h].contiguous()
+        pairs = float(sum(min(int(s0) + i // grp + 1, int(n))
+                          for s0, n in zip(starts.tolist(), lens.tolist())
+                          for i in range(spec * grp)))
+        qlib = q.view(b, h, spec, grp, e).permute(0, 1, 3, 2, 4).reshape(
+            b, h * grp, spec, e)
+        return {
+            "call": lambda plan=None: pver.paged_verify_attention_flat(
+                q, k, v, table, lens, starts, spec=spec, k_scales=ks,
+                v_scales=vs, plan_kv_heads=plan),
+            "plain": lambda v=v, vs=vs: pver.paged_verify_attention_plain(
+                q, k, v, table, lens, starts, spec=spec,
+                n_split=model_plan[0], tiles_per_split=model_plan[1],
+                k_scales=ks, v_scales=vs),
+            "lib": paged_library_call(torch, qlib, k, v, table, verify_mask,
+                                      k_scales=ks, v_scales=vs),
+            "part": lambda o: o[:, r * h:(r + 1) * h],
+            "flops": 4.0 * e * h * pairs,
+            "nbytes": (kv_bytes(PAGED_DECODE_KV_LENS, h)
+                       + 2.0 * 2 * b * spec * h * grp * e),
+            "fault": decode_fault, "v": v, "vs": vs,
+            "local_plan": dec.decode_split_plan(q.dtype, b * h, n_kv)}
+
+    def short_table(name, h, r):
+        """B6 or B7 on the first SHARD_SHORT_PAGES pages of the table: the
+        slice call with the model's plan is the full call's slice bit for
+        bit; the difference with the slice's own plan is recorded."""
+        tab = table[:, :SHARD_SHORT_PAGES].contiguous()
+        kl = lens.clamp(max=SHARD_SHORT_PAGES * page)
+        k, v, ks, vs = pools(h, r)
+        if name == "paged_decode":
+            want = ops.paged_decode_attention(
+                qd, kp, vp, tab, kl, k_scales=kps,
+                v_scales=vps)[:, r * h * grp:(r + 1) * h * grp]
+            q = qd[:, r * h * grp:(r + 1) * h * grp]
+
+            def call(plan=None):
+                return ops.paged_decode_attention(
+                    q, k, v, tab, kl, k_scales=ks, v_scales=vs,
+                    plan_kv_heads=plan)
+        else:
+            st = (kl - kl.clamp(max=spec)).contiguous()
+            want = pver.paged_verify_attention_flat(
+                qv, kp, vp, tab, kl, st, spec=spec, k_scales=kps,
+                v_scales=vps)[:, r * h:(r + 1) * h]
+            q = qv[:, r * h:(r + 1) * h].contiguous()
+
+            def call(plan=None):
+                return pver.paged_verify_attention_flat(
+                    q, k, v, tab, kl, st, spec=spec, k_scales=ks,
+                    v_scales=vs, plan_kv_heads=plan)
+        require(torch.equal(call(hkv), want),
+                f"{name}{suffix} on {SHARD_SHORT_PAGES} pages: heads with "
+                f"the model's plan differ from the full call's")
+        n_kv_short = SHARD_SHORT_PAGES * page
+        return {"pages": SHARD_SHORT_PAGES, "bitwise_with_model_plan": True,
+                "model_plan": list(dec.decode_split_plan(
+                    torch.bfloat16, b * hkv, n_kv_short)),
+                "local_plan": list(dec.decode_split_plan(
+                    torch.bfloat16, b * h, n_kv_short)),
+                "local_plan_max_abs_diff": max_err(call(), want)}
+
+    rows = []
+    for name, make, replaces in (
+            ("paged_decode", b6, ("72", "43")),
+            ("paged_prefill", b5, ("85", "52")),
+            ("paged_verify", b7, ("89", "55"))):
+        planned = name != "paged_prefill"
+        plan = hkv if planned else None
+        whole = make(hkv, 0)["call"]()
+        heads = {}
+        for h in SHARD_HEADS:
+            r = hkv // h - 1
+            c = make(h, r)
+            got = c["call"](plan)
+            want = c["part"](whole)
+            require(torch.equal(got, want),
+                    f"{name}{suffix}: heads {r * h}-{(r + 1) * h - 1} with "
+                    f"the model's plan differ from the full call's")
+            faulty = (c["plain"](vs=drop_scale_page(c["vs"], c["fault"]))
+                      if quantized else
+                      c["plain"](v=drop_v_page(c["v"], c["fault"])))
+            check = held_to_plain(got, c["plain"](), faulty)
+            require(check["row_rel_err"] <= BF16_ROW_RTOL,
+                    f"{name}{suffix} at {h} heads: {check}")
+            heads[h] = {"rank": r, "degree": hkv // h,
+                        "bitwise_with_model_plan": True, **check}
+            if planned:
+                heads[h].update({
+                    "local_plan": list(c["local_plan"]),
+                    "local_plan_max_abs_diff": max_err(c["call"](), want),
+                    "short_table": short_table(name, h, r)})
+        h = SHARD_HEADS[0]
+        c = make(h, hkv // h - 1)
+        kern = lambda c=c: c["call"](plan)  # noqa: E731
+        bms, by = bound(c["flops"], c["nbytes"])
+        ms = cuda_ms(torch, kern, 50)
+        rows.append({
+            "name": f"{name}{suffix}_shard", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}_attention.cu",
+            "replaces": (f"src/repro/kernels/{name}_attention.py:"
+                         + replaces[0 if quantized else 1]),
+            "launches": 0,
+            **{k: heads[h][k] for k in ("max_abs_err", "row_rel_err",
+                                        "fault_row_rel_err")},
+            "ms": ms, "plain_ms": cuda_ms(torch, c["plain"], 3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(torch, c["lib"], 20),
+            **device_times(torch, kern, c["lib"], 50),
+            "shape": {"b": b, "hq": h * grp, "hkv": h, "model_hkv": hkv,
+                      "pages": n_pages, "page": page, "e": e,
+                      "pool": "int8" if quantized else "bf16",
+                      "model_plan": list(model_plan) if planned else None},
+            "heads": heads,
+        })
+        if name == "paged_prefill":
+            rows[-1]["tflops"] = c["flops"] / ms / 1e9
     return rows
 
 
@@ -2552,6 +2835,8 @@ def phase_int8_continuous(torch, full: dict) -> dict:
     reqs = make_requests(prompts, CONT_NEW_TOKENS)
     out, wall, counts, peak = serve_path(torch, eng, reqs, "int8_continuous")
     check_served(eng, reqs, out, CONT_NEW_TOKENS, cfg.vocab_size)
+    full.setdefault("one_card", {})["int8_continuous"] = one_card_record(
+        eng, prompts, out, wall)
     for name in ("paged_prefill", "paged_decode"):
         require(counts[name] == 0, f"int8 pools ran the bf16 {name}")
     bf16_eng = ContinuousBatchingEngine(model, params, device="cuda", **CONT)
@@ -2947,6 +3232,8 @@ def phase_speculative(torch, full: dict) -> dict:
         out, wall, counts, peak = serve_path(torch, eng, reqs, path)
         check_served(eng, reqs, out, CONT_NEW_TOKENS, cfg.vocab_size)
         full[path] = counts
+        full.setdefault("one_card", {})[path] = one_card_record(
+            eng, prompts, out, wall)
         runs[name] = {
             **serve_summary(eng, reqs, out, wall),
             **spec_summary(eng, reqs, out),
@@ -3083,7 +3370,6 @@ def phase_continuous(torch, full: dict) -> dict:
     from repro_torch.serving import (
         ContinuousBatchingEngine,
         PoolAuditor,
-        Request,
         RequestState,
         ScriptedFaults,
         ServingEngine,
@@ -3102,8 +3388,7 @@ def phase_continuous(torch, full: dict) -> dict:
 
     eng = ContinuousBatchingEngine(model, params, device="cuda", **CONT)
     # warm-up: cuBLAS handles and the kernels' first loads
-    eng.serve([Request(rid=100 + i, prompt=prompts[i][:40], max_new_tokens=2,
-                       eos_id=-1) for i in range(2)])
+    eng.serve(warm_up_requests(prompts))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3120,6 +3405,8 @@ def phase_continuous(torch, full: dict) -> dict:
         require(counts[name] > 0,
                 f"kernel {name} was not launched on the continuous path")
     full["continuous"], full["cont_peak"] = (prompts, out), peak
+    full.setdefault("one_card", {})["continuous"] = one_card_record(
+        eng, prompts, out, wall)
     num_pages = eng.num_pages
     stamps = eng.token_walltimes
     ttft = [stamps[r.rid][0] - eng.serve_t0 for r in reqs]
@@ -3238,7 +3525,237 @@ def phase_continuous(torch, full: dict) -> dict:
         "fp32_parity": fp32,
     }
     emit(report)
-    return report
+    return {**report, "tokens": out}
+
+
+def weights_checksum(torch, params) -> int:
+    """An exact checksum of a params tree: each tensor's bits read as
+    integers and summed, weighted by the tensor's place in the tree."""
+    total = 0
+    for i, t in enumerate(tensors_of(params), 1):
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        total += i * int(bits.sum(dtype=torch.int64))
+    return total
+
+
+def warm_up_requests(prompts) -> list:
+    """Two short requests off the first two prompts (rids 100, 101)."""
+    from repro_torch.serving import Request
+
+    return [Request(rid=100 + i, prompt=prompts[i][:40], max_new_tokens=2,
+                    eos_id=-1) for i in range(2)]
+
+
+def step_split(eng) -> dict:
+    """A serve's mean step wall by kind and its total wait for the step
+    results (the host sync), from the engine's metrics."""
+    m = eng.metrics
+    means = {}
+    for kind in ("decode", "chunk", "chunk+decode", "verify"):
+        h = m.histogram(f"engine.step_s.{kind}")
+        if h.count:
+            means[kind] = h.summary()["mean"]
+    return {"step_mean_s": means,
+            "host_sync_s": m.histogram("engine.host_sync_s").sum}
+
+
+def one_card_record(eng, prompts, out, wall: float) -> dict:
+    """What the sharded phase holds a run to: a single-card serve's
+    prompts and tokens, and its wall and step split beside the ranks'."""
+    return {"prompts": prompts, "tokens": out, "wall_s": wall,
+            **step_split(eng)}
+
+
+def shard_yardstick(torch, full: dict, path: str) -> dict:
+    """The ``one_card_record`` of the single-card serve of ``path``: the
+    one its phase recorded, else served here at the same settings (when
+    the sharded phase runs alone)."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    tokens = full.setdefault("one_card", {})
+    if path not in tokens:
+        model, params = full["model"], full["params"]
+        vocab = model.cfg.vocab_size
+        prompts = continuous_prompts(vocab)
+        if not tokens:
+            # warm-up, as the continuous phase's: cuBLAS handles and the
+            # kernels' first loads
+            ContinuousBatchingEngine(model, params, device="cuda",
+                                     **CONT).serve(warm_up_requests(prompts))
+        spec = path.startswith("speculative")
+        if spec:
+            prompts = spec_prompts(vocab, [len(p) for p in prompts], seed=2)
+        eng = ContinuousBatchingEngine(
+            model, params, device="cuda",
+            kv_dtype="int8" if path.endswith("int8") else None,
+            spec_depth=SPEC_DEPTH if spec else None, **CONT)
+        reqs = make_requests(prompts, CONT_NEW_TOKENS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.serve(reqs)
+        torch.cuda.synchronize()
+        tokens[path] = one_card_record(eng, prompts, out,
+                                       time.perf_counter() - t0)
+    return tokens[path]
+
+
+def collective_probe(torch, dist, dev, rank: int, degree: int) -> dict:
+    """One all-gather and one broadcast of CUDA tensors on this group's
+    backend, their values checked."""
+    x = torch.full((3,), float(rank), device=dev)
+    parts = [torch.empty_like(x) for _ in range(degree)]
+    dist.all_gather(parts, x)
+    y = torch.tensor([rank + 7], dtype=torch.int32, device=dev)
+    dist.broadcast(y, src=0)
+    got = [float(p[0]) for p in parts]
+    require(got == [float(r) for r in range(degree)] and int(y) == 7,
+            f"rank {rank}: all_gather gave {got}, broadcast {int(y)}")
+    return {"all_gather": got, "broadcast": int(y)}
+
+
+def sharded_rank(rank: int, degree: int, backend: str, store: str,
+                 out_dir: str, runs: list, checksum: int) -> None:
+    """One rank of the sharded phase (a process of its own): join the
+    group, build internlm2-1.8b from seed 0, check its weights against the
+    parent's, and serve each run through ``ShardedContinuousBatchingEngine``
+    with the launch counts set to 0 just before and read just after.
+    Writes its report to ``out_dir``, then fails on any gate."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ShardedContinuousBatchingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=degree)
+    try:
+        probe = collective_probe(torch, dist, dev, rank, degree)
+        full = full_width_model(torch)
+        mine = weights_checksum(torch, full["params"])
+        print(json.dumps({"phase": "sharded", "rank": rank, "degree": degree,
+                          "weights_checksum": mine}), flush=True)
+        report = {"rank": rank, "device": str(dev), "probe": probe,
+                  "weights_checksum": mine, "runs": []}
+        failures = [] if mine == checksum else [
+            f"rank {rank}: weights checksum {mine} != the parent's "
+            f"{checksum}"]
+        ShardedContinuousBatchingEngine(
+            full["model"], full["params"], shard=degree, device=dev,
+            **CONT).serve(warm_up_requests(
+                [np.asarray(p, np.int32) for p in runs[0][3]]))
+        for path, kv_dtype, spec, prompts, want in runs:
+            eng = ShardedContinuousBatchingEngine(
+                full["model"], full["params"], shard=degree, device=dev,
+                kv_dtype=kv_dtype, spec_depth=spec, **CONT)
+            reqs = make_requests([np.asarray(p, np.int32) for p in prompts],
+                                 CONT_NEW_TOKENS)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = eng.serve(reqs)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            differ = [r.rid for r in reqs
+                      if out[r.rid].tolist() != want[r.rid]]
+            stats = eng.shard_stats
+            report["runs"].append({
+                "path": path, "kv_dtype": kv_dtype, "spec_depth": spec,
+                "wall_s": wall, "rids_differing": differ, **stats,
+                **step_split(eng),
+                "steps": len(eng.step_log),
+                "tokens": sum(len(v) for v in out.values()),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "launches": counts})
+            failures += [f"rank {rank} {path}: tokens differ from one card's "
+                         f"for rids {differ}"] if differ else []
+            failures += [f"rank {rank} {path}: {stats['result_mismatch']} "
+                         f"results differ from rank 0's"
+                         ] if stats["result_mismatch"] else []
+            failures += [f"rank {rank} {path}: kernel {name} not launched"
+                         for name in PATH_KERNELS[path] if not counts[name]]
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(report, f)
+        require(not failures, "; ".join(failures))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(torch, full: dict) -> dict:
+    """KV-head-sharded continuous serving of full-width internlm2-1.8b
+    over 2 and 4 ranks, each rank a process: NCCL with a card a rank where
+    the machine has as many cards, else gloo with every rank on card 0.
+    Each rank's tokens must equal the single-card serve's bit for bit
+    (SHARD_RUNS), no step's result may differ from rank 0's, and each
+    rank's B5, B6 and B7 launch counts must rise. A rank's failure fails
+    the phase: ``mp.spawn`` raises it here."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    checksum = weights_checksum(torch, full["params"])
+    launches = dict.fromkeys(PATH_KERNELS["sharded"], 0)
+    one_card = {}
+    torch.cuda.empty_cache()        # the ranks share this card under gloo
+    lines = []
+    for degree in sorted({d for _, d, _, _ in SHARD_RUNS}):
+        runs = []
+        for path, d, kv_dtype, spec in SHARD_RUNS:
+            if d == degree:
+                rec = shard_yardstick(torch, full, path)
+                one_card[path] = {k: rec[k] for k in (
+                    "wall_s", "step_mean_s", "host_sync_s")}
+                runs.append((path, kv_dtype, spec,
+                             [p.tolist() for p in rec["prompts"]],
+                             [rec["tokens"][rid].tolist()
+                              for rid in range(len(rec["prompts"]))]))
+        cards = torch.cuda.device_count()
+        backend = "nccl" if cards >= degree else "gloo"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.spawn(sharded_rank,
+                     args=(degree, backend, str(Path(tmp) / "store"), tmp,
+                           runs, checksum), nprocs=degree, join=True)
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(degree)]
+        spawn_s = time.perf_counter() - t0
+        for i, (path, kv_dtype, spec, _, _) in enumerate(runs):
+            per = [rk["runs"][i] for rk in ranks]
+            for rk in per:
+                for name in launches:
+                    launches[name] += rk["launches"][name]
+            line = {
+                "phase": "sharded", "path": path, "backend": backend,
+                "cards": degree if backend == "nccl" else 1,
+                "degree": degree, "kv_dtype": kv_dtype, "spec_depth": spec,
+                "arch": ARCH, **CONT, "requests": CONT_REQUESTS,
+                "new_tokens": CONT_NEW_TOKENS,
+                "tokens_equal_one_card": all(not rk["rids_differing"]
+                                             for rk in per),
+                "allgather_bytes": [rk["allgather_bytes"] for rk in per],
+                "result_mismatch": [rk["result_mismatch"] for rk in per],
+                "ring_hops": [rk["ring_hops"] for rk in per],
+                "peak_gb": [rk["peak_mem_bytes"] / 1e9 for rk in per],
+                "wall_s": [rk["wall_s"] for rk in per],
+                "step_mean_s": [rk["step_mean_s"] for rk in per],
+                "host_sync_s": [rk["host_sync_s"] for rk in per],
+                "one_card": one_card[path],
+                "steps": per[0]["steps"], "tokens": per[0]["tokens"],
+                "launches": [{k: v for k, v in rk["launches"].items() if v}
+                             for rk in per],
+                "weights_checksum": checksum,
+                "probe": ranks[0]["probe"], "spawn_s": spawn_s,
+            }
+            emit(line)
+            lines.append(line)
+    return {"phase": "sharded", "runs": lines, "launches": launches}
 
 
 def decode_step_events(torch, eng) -> list:
@@ -3469,7 +3986,7 @@ def busy_share(torch, fn) -> dict:
 
 
 def phase_train(torch) -> dict:
-    """Training on the card (see the module docstring, phase 18): the
+    """Training on the card (see the module docstring, phase 19): the
     full-width, full-depth run, the fp32 gradient check, the kernels'
     refusal, a checkpoint round trip and the trained weights served
     through the kernels."""
@@ -4654,7 +5171,39 @@ def phase_vlm(torch) -> dict:
     return report
 
 
-def main() -> int:
+def sharded_alone(torch) -> int:
+    """``--only sharded``: the kernel rows at a rank's heads and the
+    sharded phase, after the device phase's build; the single-card tokens
+    each run must equal are served here. Prints the same last three lines
+    for these rows."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(ARCH)
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    rows = shard_rows(torch, rnd, cfg, False) + shard_rows(torch, rnd, cfg,
+                                                           True)
+    emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
+    launches = phase_sharded(torch, full_width_model(torch))["launches"]
+    for row in rows:
+        row["launches"] = launches[ROW_COUNTER[row["name"]]]
+    print(json.dumps({"kernels": rows}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only", "sharded"]):
+        print("usage: chip_smoke.py [--only sharded]", file=sys.stderr)
+        return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"error: no src/repro_torch beside {Path(__file__).name}",
               file=sys.stderr)
@@ -4670,6 +5219,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = phase_device(torch, build)
+    if argv:
+        return sharded_alone(torch)
     phase_fp32(torch)
     rows = phase_kernels(torch, device)
     full = full_width_model(torch)
@@ -4688,6 +5239,7 @@ def main() -> int:
     launches["speculative"] = full["speculative"]
     launches["speculative_int8"] = full["speculative_int8"]
     phase_spec_parity(torch, full)
+    launches["sharded"] = phase_sharded(torch, full)["launches"]
     full.clear()              # internlm2's weights out of the later peaks
     torch.cuda.empty_cache()
     launches["launcher"] = phase_launcher(torch)["launches"]
@@ -4706,7 +5258,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["train"] = phase_train(torch)["launches"]
     for row in rows:
-        row["launches"] = sum(launches[path][row["name"]]
+        counter = ROW_COUNTER.get(row["name"], row["name"])
+        row["launches"] = sum(launches[path][counter]
                               for path in ROW_PATH[row["name"]])
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -1,15 +1,15 @@
 """Analytical serving defaults and the attention kernels' block-shape search.
 
 Port of ``tune_prefill_chunk``, ``tune_pool_headroom``,
-``tune_spec_depth``, ``tune_cache_reserve`` and ``tune_attention`` (the
-paper's §4.2 tiling search applied to the real kernels, with its
-``_score`` and ``_causal_fraction``) from ``repro/core/autotune.py``;
-``tune_shard_degree`` comes with multi-GPU serving (ROADMAP A10). The
-step models keep the reference's max-of-streams form (matrix products,
-device-memory traffic and elementwise softmax work overlap, the slowest
-sets the step) and are restated with the published peaks of an H100 SXM
-instead of the TPU's: tensor cores for the MXU, CUDA cores for the VPU,
-HBM3 for the TPU's HBM."""
+``tune_spec_depth``, ``tune_cache_reserve``, ``tune_shard_degree`` and
+``tune_attention`` (the paper's §4.2 tiling search applied to the real
+kernels, with its ``_score`` and ``_causal_fraction``) from
+``repro/core/autotune.py``. The step models keep the reference's
+max-of-streams form (matrix products, device-memory traffic and
+elementwise softmax work overlap, the slowest sets the step) and are
+restated with the published peaks of an H100 SXM instead of the TPU's:
+tensor cores for the MXU, CUDA cores for the VPU, HBM3 for the TPU's
+HBM, NVLink 4 for the TPU mesh's links."""
 
 from __future__ import annotations
 
@@ -255,6 +255,65 @@ def _blk_q_grid(method: str, policy_blk_q: int, n_q: int,
         return (flash_blk_q(itemsize),)
     cap = min(policy_blk_q, max(MIN_BLK_Q, -(-n_q // MIN_BLK_Q) * MIN_BLK_Q))
     return tuple(bq for bq in (32, 16, 8) if bq <= cap)
+
+
+# The link between cards for the shard tuner: NVLink 4 on an H100 SXM,
+# 900 GB/s in total, 450 GB/s a direction (NVIDIA H100 data sheet).
+LINK_GBPS = 450.0
+# Latency of one hop of the output all-gather, seconds: an assumption (a
+# small NCCL all-gather over NVLink costs microseconds a ring step), not
+# measured until a run has two cards.
+LINK_SETUP_S = 5e-6
+
+
+@functools.lru_cache(maxsize=1024)
+def tune_shard_degree(*, heads_kv: int, group: int, n_ctx: int, e: int,
+                      batch: int = 4, itemsize: int = 2, page: int = 16,
+                      kv_itemsize: int | None = None,
+                      link_gbps: float = LINK_GBPS,
+                      link_setup_s: float = LINK_SETUP_S,
+                      max_shard: int = 8) -> int:
+    """Engine-default shard degree for KV-head-sharded serving
+    (``serving/sharded.py``): how many cards before the collective
+    dominates.
+
+    Each of ``s`` cards holds ``heads_kv / s`` KV heads of the paged pool,
+    so a decode step's tensor-core, HBM and CUDA-core streams all shrink
+    by the degree, but every step ends with an all-gather of the per-head
+    attention outputs before the replicated output projection: ``s - 1``
+    serial hops, each paying ``link_setup_s`` plus one card's output
+    slice over ``link_gbps``. The per-step cost
+
+        max(mma/s, hbm/s, elementwise/s) + overhead + (s-1) * hop(s)
+
+    is minimized over the degrees in [1, max_shard] that divide
+    ``heads_kv``. Long contexts and fast links buy cards; a near-zero link
+    collapses to 1. The reference's closed form, at the H100's rates.
+    """
+    kv_item = itemsize if kv_itemsize is None else kv_itemsize
+    pages_seq = -(-n_ctx // page)
+    # one step's full gather: every card ends holding (batch, Hq, E)
+    gather_bytes = batch * heads_kv * group * e * itemsize
+    best_s, best_cost = 1, math.inf
+    for s in range(1, max(1, max_shard) + 1):
+        if heads_kv % s:
+            continue
+        h_loc = heads_kv // s
+        rows = batch * h_loc * group
+        mma = 4.0 * rows * n_ctx * e / TENSOR_FLOPS
+        kv_b = 2 * batch * h_loc * pages_seq * page * e * kv_item
+        if kv_item < itemsize:
+            kv_b += 2 * batch * h_loc * pages_seq * 4  # fp32 page scales
+        hbm = (kv_b + 2 * rows * e * itemsize) / HBM_BW
+        elementwise = 6.0 * rows * n_ctx / CUDA_CORE_FLOPS
+        if kv_item < itemsize:
+            elementwise += 2.0 * rows * n_ctx / CUDA_CORE_FLOPS
+        link = (s - 1) * (link_setup_s
+                          + (gather_bytes / s) / (link_gbps * 1e9))
+        cost = max(mma, hbm, elementwise) + CHUNK_STEP_OVERHEAD_S + link
+        if cost < best_cost:
+            best_s, best_cost = s, cost
+    return best_s
 
 
 @functools.lru_cache(maxsize=1024)

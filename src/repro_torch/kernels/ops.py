@@ -166,12 +166,15 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
                            sm_scale: float | None = None, k_scales=None,
-                           v_scales=None) -> torch.Tensor:
+                           v_scales=None,
+                           plan_kv_heads: int | None = None) -> torch.Tensor:
     """Single-token decode against a block-table paged KV cache.
 
     q: (B, Hq, E); pools: (Hkv, P, page, E), int8 with
     ``k_scales``/``v_scales`` (Hkv, P); page_table: (B, max_pages) and
-    kv_lens: (B,), int32 tensors on q's device.
+    kv_lens: (B,), int32 tensors on q's device. ``plan_kv_heads``: the KV
+    heads the split is planned for (default Hkv; a head-sharded call
+    passes the model's).
     """
     _refuse_grad(q, k_pages, v_pages, k_scales, v_scales)
     b, hq, e = q.shape
@@ -181,13 +184,14 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
     qg = q.reshape(b, hkv, hq // hkv, e).contiguous()
     of = _pdec.paged_decode_attention_flat(
         qg, k_pages, v_pages, page_table, kv_lens, sm_scale=sm_scale,
-        k_scales=k_scales, v_scales=v_scales)
+        k_scales=k_scales, v_scales=v_scales, plan_kv_heads=plan_kv_heads)
     return of.reshape(b, hq, e)
 
 
 def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
                            q_starts, *, sm_scale: float | None = None,
-                           k_scales=None, v_scales=None) -> torch.Tensor:
+                           k_scales=None, v_scales=None,
+                           plan_kv_heads: int | None = None) -> torch.Tensor:
     """k-position speculative verify against a block-table paged cache.
 
     q: (B, k, Hq, E), the k candidate positions of each slot, whose K/V
@@ -195,8 +199,8 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
     ``q_starts[b] + i``. Pools (Hkv, P, page, E), int8 with
     ``k_scales``/``v_scales`` (Hkv, P); page_table (B, max_pages),
     kv_lens and q_starts (B,), int32 on q's device. Rows at or past
-    ``kv_lens[b]`` return values the host discards. Returns
-    (B, k, Hq, E).
+    ``kv_lens[b]`` return values the host discards. ``plan_kv_heads``
+    as for ``paged_decode_attention``. Returns (B, k, Hq, E).
     """
     _refuse_grad(q, k_pages, v_pages, k_scales, v_scales)
     b, spec, hq, e = q.shape
@@ -210,7 +214,8 @@ def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
           .reshape(b, hkv, spec * group, e).contiguous())
     of = _pver.paged_verify_attention_flat(
         qg, k_pages, v_pages, page_table, kv_lens, q_starts, spec=spec,
-        sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
+        sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales,
+        plan_kv_heads=plan_kv_heads)
     return (of.reshape(b, hkv, spec, group, e).transpose(1, 2)
             .reshape(b, spec, hq, e))
 

@@ -134,7 +134,8 @@ def check_paged(q, k_pages, v_pages, page_table, k_scales, v_scales,
 
 def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
                                 sm_scale: float | None = None,
-                                k_scales=None, v_scales=None
+                                k_scales=None, v_scales=None,
+                                plan_kv_heads: int | None = None
                                 ) -> torch.Tensor:
     """One-token decode: q (B, Hkv, G, E) against the page pools.
 
@@ -143,8 +144,11 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     (max_pages·page rows), so no host sync is needed; blocks past a
     sequence's ``kv_len`` exit at once. Int8 pools come with their
     (Hkv, P) fp32 ``k_scales``/``v_scales``. ``decode_split_plan`` plans
-    the split for the form q's dtype picks. A CUDA tensor launches B6; a CPU
-    tensor runs the plain version with the same split.
+    the split for the form q's dtype picks, over B·``plan_kv_heads`` rows
+    (default the pools' Hkv): a rank holding some of a model's KV heads
+    passes the model's count, so each head is split, and summed, as on
+    one card. A CUDA tensor launches B6; a CPU tensor runs the plain
+    version with the same split.
     """
     b, hkv, g, e = q.shape
     hkv_p, n_pages, page_size, e_p = k_pages.shape
@@ -158,7 +162,8 @@ def paged_decode_attention_flat(q, k_pages, v_pages, page_table, kv_lens, *,
     if kv_lens.shape != (b,):
         raise ValueError(f"kv_lens must be ({b},), got {tuple(kv_lens.shape)}")
     max_pages = page_table.shape[1]
-    n_split, tps = decode_split_plan(q.dtype, b * hkv, max_pages * page_size)
+    n_split, tps = decode_split_plan(q.dtype, b * (plan_kv_heads or hkv),
+                                     max_pages * page_size)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, kv_lens, n_split=n_split,

@@ -107,13 +107,15 @@ def paged_verify_attention_plain(q, k_pages, v_pages, page_table, kv_lens,
 def paged_verify_attention_flat(q, k_pages, v_pages, page_table, kv_lens,
                                 q_starts, *, spec: int,
                                 sm_scale: float | None = None,
-                                k_scales=None, v_scales=None
+                                k_scales=None, v_scales=None,
+                                plan_kv_heads: int | None = None
                                 ) -> torch.Tensor:
     """k-position verify: q (B, Hkv, k·G, E), position-major, against the
     page pools. ``page_table`` (B, max_pages), ``kv_lens`` and
     ``q_starts`` (B,) are int32 tensors on q's device; the candidate rows
     must already be in their pages. The split is planned over the table's
-    capacity, so no host sync is needed. A CUDA tensor launches B7; a CPU
+    capacity, so no host sync is needed, and over B·``plan_kv_heads`` rows
+    (default the pools' Hkv), as B6's. A CUDA tensor launches B7; a CPU
     tensor runs the plain version."""
     b, hkv, rows, e = q.shape
     hkv_p, n_pages, page_size, e_p = k_pages.shape
@@ -131,7 +133,8 @@ def paged_verify_attention_flat(q, k_pages, v_pages, page_table, kv_lens,
         raise ValueError(f"kv_lens and q_starts must be ({b},), got "
                          f"{tuple(kv_lens.shape)}, {tuple(q_starts.shape)}")
     max_pages = page_table.shape[1]
-    n_split, tps = decode_split_plan(q.dtype, b * hkv, max_pages * page_size)
+    n_split, tps = decode_split_plan(q.dtype, b * (plan_kv_heads or hkv),
+                                     max_pages * page_size)
     if q.device.type == "cpu":
         return paged_verify_attention_plain(
             q, k_pages, v_pages, page_table, kv_lens, q_starts, spec=spec,

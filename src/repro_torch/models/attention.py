@@ -154,19 +154,22 @@ def _paged_scales(k_pages, page_table, k_scales, v_scales):
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
                            impl: str = "kernel", k_scales=None,
-                           v_scales=None):
+                           v_scales=None, plan_kv_heads: int | None = None):
     """Single-token decode over a block-table paged KV cache.
 
     q: (B, Hq, E); pools: (Hkv, P, page, E), int8 with (Hkv, P)
     ``k_scales``/``v_scales``; page_table: (B, max_pages) int32; kv_lens:
-    (B,) int32 live tokens per sequence. ``plain`` gathers the pool into
-    the dense per-sequence layout and runs the reference twin's fp32
-    masked softmax op for op (``repro/models/attention.py``).
+    (B,) int32 live tokens per sequence. ``plan_kv_heads`` reaches B6's
+    split plan (a head-sharded call passes the model's KV heads). ``plain``
+    gathers the pool into the dense per-sequence layout and runs the
+    reference twin's fp32 masked softmax op for op
+    (``repro/models/attention.py``).
     """
     if _twin(impl) == "kernel":
         return kops.paged_decode_attention(q, k_pages, v_pages, page_table,
                                            kv_lens, k_scales=k_scales,
-                                           v_scales=v_scales)
+                                           v_scales=v_scales,
+                                           plan_kv_heads=plan_kv_heads)
     b, hq, e = q.shape
     hkv = k_pages.shape[0]
     k = gather_pages(k_pages, page_table)           # (B, Hkv, S, E)
@@ -183,22 +186,24 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
 
 def paged_verify_attention(q, k_pages, v_pages, page_table, kv_lens,
                            q_starts, *, impl: str = "kernel", k_scales=None,
-                           v_scales=None):
+                           v_scales=None, plan_kv_heads: int | None = None):
     """k-position speculative verify over a block-table paged KV cache.
 
     q: (B, k, Hq, E), the k candidate positions of each slot, whose K/V
     rows are already in the pages; position i of slot b sits at
     ``q_starts[b] + i`` and sees the keys at positions
     <= min(q_starts[b] + i, kv_lens[b] - 1). Rows at or past
-    ``kv_lens[b]`` return values the host discards. ``plain`` gathers the
-    pool dense and runs the reference twin's fused causal + kv-tail mask
-    and fp32 softmax op for op.
+    ``kv_lens[b]`` return values the host discards. ``plan_kv_heads`` as
+    for ``paged_decode_attention`` (B7's plan). ``plain`` gathers the pool
+    dense and runs the reference twin's fused causal + kv-tail mask and
+    fp32 softmax op for op.
     """
     if _twin(impl) == "kernel":
         return kops.paged_verify_attention(q, k_pages, v_pages, page_table,
                                            kv_lens, q_starts,
                                            k_scales=k_scales,
-                                           v_scales=v_scales)
+                                           v_scales=v_scales,
+                                           plan_kv_heads=plan_kv_heads)
     b, spec, hq, e = q.shape
     hkv = k_pages.shape[0]
     g = hq // hkv

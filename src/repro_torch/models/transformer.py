@@ -18,6 +18,10 @@ its page table (one row per sequence, the same for every layer).
 ``prefill_chunk`` writes one prompt chunk's K/V into its pages,
 ``paged_decode_step`` writes each sequence's new row and
 ``paged_verify_step`` up to k candidate rows per sequence, all in place.
+Under ``distributed/ctx.kv_shard`` (the sharded engine) the pools hold a
+rank's KV heads only, and each paged attention block computes q, k, v
+whole, keeps the rank's heads, attends with them and all-gathers the
+outputs before ``wo``.
 
 ``kv_dtype=torch.int8`` stores either cache quantized (symmetric absmax,
 ``kernels/common.quantize_q8``) beside fp32 scales, ``"k_scale"`` and
@@ -87,6 +91,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed.ctx import kv_shard_state
+from repro_torch.distributed.paged import head_sharded, replicated
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.kernels.common import quantize_q8
@@ -358,6 +364,19 @@ def _paged_append_n(pages, scales, table, positions, rows, n_valid, *,
         pages[:, ids], scales[:, ids] = quantize_q8(win, (-2, -1))
 
 
+def _rank_heads(q, k, v, k_pages):
+    """Under ``kv_shard`` (the sharded engine): the rank's query and KV
+    heads of q, k, v (B, H, S, E), computed whole from the replicated
+    weights so that they keep the single card's bits, the shard, and the
+    model's KV heads for B6's and B7's split plan; else q, k, v as they
+    are and no shard."""
+    shard = kv_shard_state()
+    if shard is None:
+        return q, k, v, None, None
+    q, k, v = (head_sharded(t, shard, dim=1) for t in (q, k, v))
+    return q, k, v, shard, k_pages.shape[0] * shard.degree
+
+
 def attn_paged_decode(params, x, cfg: ArchConfig, *, k_pages, v_pages,
                       page_table, positions, k_scales=None, v_scales=None):
     """One-token self-attention against a paged (block-table) cache.
@@ -370,11 +389,14 @@ def attn_paged_decode(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     position 0) all write row 0 of the scratch page; no live sequence
     reads it, so the order in which those writes land does not matter.
     Int8 pools carry (Hkv, P) ``k_scales``/``v_scales`` and append
-    through ``_paged_append_requant``.
+    through ``_paged_append_requant``. Under ``kv_shard`` the pools hold
+    the rank's KV heads, the block attends with its heads (B6 planned for
+    the model's) and all-gathers the outputs before ``wo``.
     """
     b = x.shape[0]
     page = k_pages.shape[2]
-    q, k, v = _qkv(params, x, cfg, positions[:, None, None])
+    q, k, v, shard, plan = _rank_heads(
+        *_qkv(params, x, cfg, positions[:, None, None]), k_pages)
     pos = positions.long()
     page_ids = page_table[torch.arange(b, device=x.device), pos // page]
     slots = pos % page
@@ -389,7 +411,10 @@ def attn_paged_decode(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     o = attn_mod.paged_decode_attention(q[:, :, 0], k_pages, v_pages,
                                         page_table, positions + 1,
                                         impl=cfg.attn_impl,
-                                        k_scales=k_scales, v_scales=v_scales)
+                                        k_scales=k_scales, v_scales=v_scales,
+                                        plan_kv_heads=plan)
+    if shard is not None:
+        o = replicated(o, shard, dim=1)
     return o.reshape(b, 1, -1) @ params["wo"].to(x.dtype)
 
 
@@ -406,18 +431,24 @@ def attn_paged_verify(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     block attends through the page table with ``kv_len = positions +
     n_rows``. Rows past ``n_rows`` return values the engine drops. Rows of
     rejected candidates stay in the pool as stale bytes: later kv_lens
-    stop before them and the requant masks skip them.
+    stop before them and the requant masks skip them. Under ``kv_shard``
+    the rank's heads, as ``attn_paged_decode`` (B7 planned for the
+    model's).
     """
     b, k = x.shape[0], x.shape[1]
     pos_bk = positions[:, None] + torch.arange(k, device=x.device)[None, :]
-    q, kk, vv = _qkv(params, x, cfg, pos_bk[:, None, :])
+    q, kk, vv, shard, plan = _rank_heads(
+        *_qkv(params, x, cfg, pos_bk[:, None, :]), k_pages)
     for pages, scales, rows in ((k_pages, k_scales, kk),
                                 (v_pages, v_scales, vv)):
         _paged_append_n(pages, scales, page_table, positions,
                         rows.transpose(0, 1), n_rows, spec=k)
     o = attn_mod.paged_verify_attention(
         q.transpose(1, 2), k_pages, v_pages, page_table, positions + n_rows,
-        positions, impl=cfg.attn_impl, k_scales=k_scales, v_scales=v_scales)
+        positions, impl=cfg.attn_impl, k_scales=k_scales, v_scales=v_scales,
+        plan_kv_heads=plan)
+    if shard is not None:
+        o = replicated(o, shard, dim=2)
     return o.reshape(b, k, -1) @ params["wo"].to(x.dtype)
 
 
@@ -437,12 +468,16 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     keys alike (the write is enqueued on the same stream before the
     kernel). Int8 pools quantize whole pages at write time, the zeroed
     rows included, and overwrite their (Hkv, P) scales with the values, so
-    a reused page needs no scale reset. Returns (1, chunk, D).
+    a reused page needs no scale reset. Under ``kv_shard`` the rank's
+    heads: B5 runs them through the table, one block a (query head, Q
+    block) as on one card, and the outputs are all-gathered before
+    ``wo``; no K/V moves between ranks. Returns (1, chunk, D).
     """
     chunk = x.shape[1]
     hkv, _, page, e = k_pages.shape
     positions = span[0] + torch.arange(chunk, device=x.device)
-    q, k, v = _qkv(params, x, cfg, positions)
+    q, k, v, shard, _ = _rank_heads(*_qkv(params, x, cfg, positions),
+                                    k_pages)
     live = (positions < span[1]).view(1, chunk, 1)
     ids = chunk_page_ids.long()
     for pages, scales, rows in ((k_pages, k_scales, k[0]),
@@ -455,6 +490,8 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     o = attn_mod.paged_prefill_attention(q[0], k_pages, v_pages, page_table,
                                          span, impl=cfg.attn_impl,
                                          k_scales=k_scales, v_scales=v_scales)
+    if shard is not None:
+        o = replicated(o, shard, dim=0)
     return _merge_heads(o[None]) @ params["wo"].to(x.dtype)
 
 

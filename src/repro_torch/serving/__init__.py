@@ -16,6 +16,10 @@ from repro_torch.serving.lifecycle import (
     TERMINAL_STATES,
     validate_request,
 )
+from repro_torch.serving.sharded import (
+    LeastLoadedRouter,
+    ShardedContinuousBatchingEngine,
+)
 from repro_torch.serving.paged_cache import (
     SCRATCH_PAGE,
     AdmitResult,
@@ -29,7 +33,8 @@ from repro_torch.serving.paged_cache import (
 )
 
 __all__ = [
-    "ServingEngine", "ContinuousBatchingEngine", "NgramDrafter",
+    "ServingEngine", "ContinuousBatchingEngine",
+    "ShardedContinuousBatchingEngine", "LeastLoadedRouter", "NgramDrafter",
     "FaultInjector",
     "NO_FAULTS", "ScriptedFaults", "SeededFaults", "PoolAuditor",
     "PoolAuditError", "LifecycleError", "Request", "RequestRecord",

@@ -538,6 +538,37 @@ class ContinuousBatchingEngine:
             page_size=self.page_size, head_dim=cfg.hd,
             itemsize=(self.kv_dtype or cfg.compute_dtype).itemsize)
 
+    # -- hooks: no-ops here, the sharded engine's seams -----------------
+
+    def _make_cache(self) -> dict:
+        """The paged cache of one ``serve`` call: every layer's pools on
+        the engine's device. The sharded engine builds only its rank's
+        KV heads of them."""
+        return self.model.make_cache(
+            self.batch_size, self.max_len, device=self.device,
+            cache_layout="paged", page_size=self.page_size,
+            num_pages=self.num_pages, kv_dtype=self.kv_dtype)
+
+    def _host_result(self, packed: torch.Tensor) -> np.ndarray:
+        """The step's one device-to-host copy of its packed int32 result.
+        The sharded engine returns rank 0's result on every rank, so that
+        every rank's scheduler takes the same decisions."""
+        return packed.cpu().numpy()
+
+    def _deadline_clock(self) -> float:
+        """The clock that request deadlines are swept against, read once
+        a turn of the scheduler's loop while any request has one. The
+        sharded engine reads rank 0's on every rank."""
+        return time.perf_counter()
+
+    def _observe_step(self, kind: str, t0: float, t1: float,
+                      chunk_tokens: int, live: int) -> None:
+        """Called once a step after the host sync, with the step's kind,
+        its start and end on ``time.perf_counter``, the prompt chunk's
+        live rows (0 without one) and the live decode slots. No-op here;
+        the sharded engine records its ``shard.*`` metrics and a span on
+        its rank's track."""
+
     # -- one engine step on the device ----------------------------------
 
     def _step(self, cache, host: np.ndarray, decode: bool,
@@ -610,9 +641,7 @@ class ContinuousBatchingEngine:
                                   prefix_cache=self.prefix_cache,
                                   cache_reserve_frac=self.cache_reserve_frac)
         self._mgr = mgr  # auditable by tests while serve() is live
-        cache = self.model.make_cache(
-            B, self.max_len, device=self.device, cache_layout="paged",
-            page_size=ps, num_pages=self.num_pages, kv_dtype=self.kv_dtype)
+        cache = self._make_cache()
         self.step_log = []
         self.results = {}
         self._cancel_req = set()
@@ -870,12 +899,13 @@ class ContinuousBatchingEngine:
 
         has_deadlines = any(r.deadline_s is not None for r in requests)
 
-        def sweep_kills(now: float) -> None:
+        def sweep_kills() -> None:
             """Cancellation and deadlines at step granularity, for queued,
             mid-prefill and mid-decode requests alike."""
             nonlocal pending
             if not self._cancel_req and not has_deadlines:
                 return
+            now = self._deadline_clock() if has_deadlines else 0.0
 
             def kill_reason(rec: RequestRecord) -> str | None:
                 if rec.rid in self._cancel_req:
@@ -985,7 +1015,7 @@ class ContinuousBatchingEngine:
         stalls = 0
         while True:
             self.injector.step_begin(self, step_idx)
-            sweep_kills(time.perf_counter())
+            sweep_kills()
             if pending is None:
                 start_prefill()
             if pending is None and not active:
@@ -1089,10 +1119,13 @@ class ContinuousBatchingEngine:
             t_disp = time.perf_counter()
             # the step's one device->host transfer: decode tokens, the
             # admitted request's first token and the finite-guard flags
-            raw = packed.cpu().numpy()
+            raw = self._host_result(packed)
             now = time.perf_counter()
             m_sync.observe(now - t_disp)
             m_step_kind[kind].observe(now - t_step0)
+            self._observe_step(kind, t_step0, now,
+                               clen if pending is not None else 0,
+                               len(active))
             if tracing:
                 tr.complete("step", tr.to_us(t_step0),
                             (now - t_step0) * 1e6, track="engine", args={

@@ -402,6 +402,89 @@ def test_engine_trace_and_unported_options(pair):
             0, 9)
 
 
+class _HookedEngine(ContinuousBatchingEngine):
+    """The engine with every hook of the sharded engine's seams taken
+    through an override that records its calls and defers to the base."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.calls = {"make_cache": 0, "host_result": 0, "clock": 0,
+                      "observe": []}
+
+    def _make_cache(self):
+        self.calls["make_cache"] += 1
+        return super()._make_cache()
+
+    def _host_result(self, packed):
+        self.calls["host_result"] += 1
+        return super()._host_result(packed)
+
+    def _deadline_clock(self):
+        self.calls["clock"] += 1
+        return super()._deadline_clock()
+
+    def _observe_step(self, kind, t0, t1, chunk_tokens, live):
+        assert t1 >= t0
+        self.calls["observe"].append((kind, chunk_tokens, live))
+        super()._observe_step(kind, t0, t1, chunk_tokens, live)
+
+
+@pytest.mark.parametrize("spec_depth", [None, 3])
+def test_engine_hooks_are_no_ops_on_one_card(pair, jax_engine, monkeypatch,
+                                             spec_depth):
+    """The hooks (``_make_cache``, ``_host_result``, ``_deadline_clock``,
+    ``_observe_step``) leave the single-card engine's tokens, steps,
+    kernel calls and launch counts as they were, and are each called
+    where the sharded engine needs them: one cache a serve, one result a
+    step, the clock a turn of the loop only while a request has a
+    deadline."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    for name in ("paged_decode_attention", "paged_verify_attention",
+                 "paged_prefill_attention"):
+        fn = getattr(ops, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(ops, name, spy)
+    vocab = pair.tcfg.vocab_size
+    runs = {}
+    for cls in (ContinuousBatchingEngine, _HookedEngine):
+        eng = cls(pair.tmodel, pair.tparams, device="cpu",
+                  spec_depth=spec_depth, **ENGINE)
+        calls.clear()
+        ops.reset_launch_counts()
+        out = eng.serve(_requests(Request, vocab, SPEC))
+        runs[cls] = (out, list(eng.step_log), list(calls),
+                     ops.launch_counts(), eng)
+    (base, log, kcalls, counts, _), (out, hlog, hcalls, hcounts, hooked) = (
+        runs[ContinuousBatchingEngine], runs[_HookedEngine])
+    for rid in base:
+        np.testing.assert_array_equal(out[rid], base[rid])
+    assert hlog == log and hcalls == kcalls and hcounts == counts
+    if spec_depth is None:
+        jout = _serve(jax_engine, _requests(JaxRequest, vocab, SPEC))
+        for rid in jout:
+            np.testing.assert_array_equal(out[rid], np.asarray(jout[rid]))
+    c = hooked.calls
+    assert c["make_cache"] == 1 and c["clock"] == 0
+    assert c["host_result"] == len(c["observe"]) == len(log)
+    kinds = [k for k, _, _ in c["observe"]]
+    assert [live for _, _, live in c["observe"]] == [
+        e["live_decode"] for e in log]
+    assert all((chunk > 0) == e["prefill_in_flight"] for (_, chunk, _), e
+               in zip(c["observe"], log))
+    assert ("verify" in kinds) == (spec_depth is not None)
+    hooked.serve([Request(rid=0, prompt=np.arange(3, 9, dtype=np.int32),
+                          max_new_tokens=3, eos_id=-2, deadline_s=60.0)])
+    # once a turn of the scheduler's loop: every step and the last turn,
+    # which finds nothing left
+    assert hooked.calls["clock"] == len(hooked.step_log) + 1 > 1
+
+
 @pytest.mark.parametrize("num_slots,chunk_pages,rate", [
     (2, 2, 0.25), (8, 32, 0.25), (8, 32, 0.0), (5, 3, 0.6)])
 def test_pool_headroom_matches_reference(num_slots, chunk_pages, rate):

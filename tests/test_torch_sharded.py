@@ -1,0 +1,598 @@
+"""The port's KV-head-sharded continuous serving against the JAX
+package's single-chip engine and the port's single-card engine.
+
+Ranks are spawned processes in one gloo group on the CPU
+(``test_torch_sharded_ranks.Ranks``): two ranks serve internlm2-smoke
+(4 query / 2 KV heads) on fp32 and int8 pools, qwen3-smoke, a speculative
+serve (``spec_depth=3``) and an injected exhaustion burst with the pool
+auditor; four ranks serve deepseek-moe-smoke (4 KV heads) on fp32 and
+int8 pools, and an internlm2 engine of degree 2, for which ranks 2 and 3
+take no part. Every rank's tokens must equal the reference's
+(``attn_impl="xla_full"``) and the port's single-card engine's, with no
+step whose result differed from rank 0's, and its all-gathers must have
+moved the bytes the gathered shapes give. Also: the per-rank trace
+tracks and the degree gauge, the split plan B6 and B7 take under
+sharding, ``shard="auto"`` and the refusals, ``cache_specs`` against the
+reference's, a rank's slice of a cache, ``tune_shard_degree`` against
+the reference's closed form, and the router.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+from repro.configs import get_smoke as jax_get_smoke
+from repro.core import autotune as jax_autotune
+from repro.models.api import build_model as jax_build_model
+from repro.distributed.sharding import cache_specs as jax_cache_specs
+from repro.serving import ContinuousBatchingEngine as JaxEngine
+from repro.serving import NO_FAULTS as JaxNoFaults
+from repro.serving import LeastLoadedRouter as JaxRouter
+from repro.serving import ScriptedFaults as JaxScriptedFaults
+from repro.serving.lifecycle import Request as JaxRequest
+from repro_torch.configs import get_smoke as torch_get_smoke
+from repro_torch.core import autotune
+from repro_torch.distributed.ctx import KVShard, kv_shard, kv_shard_state
+from repro_torch.distributed.paged import head_sharded, replicated
+from repro_torch.distributed.sharding import cache_specs, local_cache
+from repro_torch.models.api import build_model as torch_build_model
+from repro_torch.serving import (
+    ContinuousBatchingEngine,
+    LeastLoadedRouter,
+    PoolAuditor,
+    ScriptedFaults,
+    ShardedContinuousBatchingEngine,
+)
+from repro_torch.tree import leaves_with_paths
+from test_torch_harness import model_pair
+from test_torch_sharded_ranks import Ranks, port_model, requests
+
+# the reference test's shapes (tests/test_distributed_serving.py)
+ENGINE_KW = dict(max_len=96, batch_size=3, page_size=8, chunk_size=16)
+LENS = (5, 19, 33, 12, 26, 7)
+MAX_NEW = 8
+BURST = (2, 5, 6)
+SPEC_DEPTH = 3
+ARCHS = ("internlm2-1.8b", "qwen3-1.7b", "deepseek-moe-16b")
+
+
+def _prompts(vocab: int, seed: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(3, vocab, size=n).astype(np.int32) for n in LENS]
+
+
+def _spec_prompts(vocab: int) -> list:
+    """Prompts that repeat a short random span, where the prompt-lookup
+    drafter finds matches."""
+    rng = np.random.default_rng(7)
+    return [np.resize(rng.integers(3, vocab, size=(4,)), n).astype(np.int32)
+            for n in LENS]
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    return {arch: model_pair(arch, seed=0, jax_impl="xla_full", norm_std=2.0)
+            for arch in ARCHS}
+
+
+@pytest.fixture(scope="module")
+def weights(pairs):
+    return {arch: jax.tree.map(np.asarray, p.jparams)
+            for arch, p in pairs.items()}
+
+
+def _case(name, arch, shard, prompts, **kw):
+    engine_kw = dict(ENGINE_KW, **kw.pop("engine_kw", {}))
+    return dict(name=name, arch=arch, shard=shard, prompts=prompts,
+                max_new=MAX_NEW, engine_kw=engine_kw, **kw)
+
+
+def _cases2(vocab):
+    p, sp = _prompts(vocab), _spec_prompts(vocab)
+    return [
+        _case("fp32", "internlm2-1.8b", 2, p, trace=True),
+        _case("int8", "internlm2-1.8b", 2, p, engine_kw={"kv_dtype": "int8"}),
+        _case("qwen3", "qwen3-1.7b", 2, p),
+        _case("spec", "internlm2-1.8b", 2, sp,
+              engine_kw={"spec_depth": SPEC_DEPTH}, spy=True),
+        _case("burst", "internlm2-1.8b", 2, p, burst=BURST, audit=True),
+        _case("burst_int8", "internlm2-1.8b", 2, p, burst=BURST, audit=True,
+              engine_kw={"kv_dtype": "int8"}),
+        # expiring mid-serve on rank 0's clock: the ranks kill alike
+        _case("deadlines", "internlm2-1.8b", 2, p,
+              deadlines={1: 0.0, 3: 0.05, 5: 0.15}),
+    ]
+
+
+def _cases4(vocab):
+    p = _prompts(vocab)
+    return [
+        _case("moe_fp32", "deepseek-moe-16b", 4, p),
+        _case("moe_int8", "deepseek-moe-16b", 4, p,
+              engine_kw={"kv_dtype": "int8"}),
+        _case("degree2_of_4", "internlm2-1.8b", 2, p),
+    ]
+
+
+@pytest.fixture(scope="module")
+def cases(pairs):
+    vocab = pairs["internlm2-1.8b"].tcfg.vocab_size
+    return {c["name"]: c for c in _cases2(vocab) + _cases4(vocab)}
+
+
+@pytest.fixture(scope="module")
+def ranks(pairs, weights, cases, expected):
+    """Both spawns' results (world 2, world 4), every case's expected
+    tokens computed here while the ranks run."""
+    vocab = pairs["internlm2-1.8b"].tcfg.vocab_size
+    spawns = {2: Ranks(2, _cases2(vocab), weights),
+              4: Ranks(4, _cases4(vocab), weights)}
+    try:
+        for name, case in cases.items():
+            expected(case, reference=name != "burst_int8")
+        yield {world: r.results() for world, r in spawns.items()}
+    finally:
+        for r in spawns.values():
+            r.close()
+
+
+@pytest.fixture(scope="module")
+def two_ranks(ranks):
+    return ranks[2]
+
+
+@pytest.fixture(scope="module")
+def four_ranks(ranks):
+    return ranks[4]
+
+
+@pytest.fixture(scope="module")
+def expected(pairs):
+    """case -> (the reference's tokens, the port's single-card engine
+    after serving it), each computed once. One reference engine an (arch,
+    kv_dtype) serves every case of it, so its steps compile once; it
+    serves a speculative case plainly, as speculation emits the plain
+    greedy stream."""
+    jax_engines, out = {}, {}
+
+    def get(case, reference: bool = True):
+        name = case["name"]
+        if name in out:
+            return out[name]
+        pair = pairs[case["arch"]]
+        kw = dict(case["engine_kw"])
+        want = None
+        if reference:
+            kw.pop("spec_depth", None)
+            key = (case["arch"], kw.get("kv_dtype"))
+            if key not in jax_engines:
+                jax_engines[key] = JaxEngine(pair.jmodel, pair.jparams, **kw)
+            jeng = jax_engines[key]
+            jeng.injector = (JaxScriptedFaults(
+                exhaust_at_appends=frozenset(case["burst"]))
+                if case.get("burst") else JaxNoFaults)
+            jout = jeng.serve([JaxRequest(rid=i, prompt=p,
+                                          max_new_tokens=MAX_NEW, eos_id=-2)
+                               for i, p in enumerate(case["prompts"])])
+            want = {rid: np.asarray(t) for rid, t in jout.items()}
+        single = ContinuousBatchingEngine(pair.tmodel, pair.tparams,
+                                          device="cpu", **case["engine_kw"])
+        if case.get("burst"):
+            single.injector = ScriptedFaults(
+                exhaust_at_appends=frozenset(case["burst"]))
+            single.auditor = PoolAuditor()
+        single.out = single.serve(requests(case["prompts"], MAX_NEW))
+        out[name] = want, single
+        return out[name]
+
+    return get
+
+
+def _gather_bytes(pair, case, step_log) -> int:
+    """Bytes a rank's all-gathers receive over a serve, from the shapes:
+    a layer gathers the other ranks' (rows, Hq/n, E) outputs, rows the
+    chunk's (padded) rows plus B decode rows or B·k verify rows."""
+    cfg, kw, n = pair.tcfg, case["engine_kw"], case["shard"]
+    b, spec = kw["batch_size"], kw.get("spec_depth")
+    rows = 0
+    for step in step_log:
+        if step["prefill_in_flight"]:
+            rows += kw["chunk_size"] + (b if step["live_decode"] else 0)
+        else:
+            rows += b * spec if spec else b
+    per_row = cfg.num_heads // n * cfg.hd * 4 * (n - 1)
+    return rows * per_row * cfg.num_layers
+
+
+def _same(got: dict, want: dict, what: str) -> None:
+    assert set(got) == set(want), what
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid],
+                                      err_msg=f"{what}: rid {rid}")
+
+
+def _check_parity(pairs, expected, case, ranks, reference: bool = True):
+    pair = pairs[case["arch"]]
+    want, single = expected(case, reference)
+    served = [r[case["name"]] for r in ranks if r[case["name"]]["member"]]
+    assert len(served) == case["shard"]
+    for rank, res in enumerate(served):
+        what = f"{case['name']} rank {rank}"
+        _same(res["tokens"], single.out, f"{what} vs single card")
+        if want is not None:
+            _same(res["tokens"], want, f"{what} vs reference")
+        assert res["step_log"] == single.step_log, what
+        st = res["shard_stats"]
+        assert st["degree"] == case["shard"]
+        assert st["result_mismatch"] == 0, what
+        assert st["ring_hops"] == 0
+        assert st["allgather_bytes"] == _gather_bytes(
+            pair, case, res["step_log"]) > 0, what
+    assert len({t for v in single.out.values() for t in v.tolist()}) > 5
+    return single, served
+
+
+@pytest.mark.parametrize("name", ["fp32", "int8", "qwen3", "spec", "burst"])
+def test_two_ranks_serve_the_reference_and_single_card_tokens(
+        pairs, expected, cases, two_ranks, name):
+    _check_parity(pairs, expected, cases[name], two_ranks)
+
+
+def test_two_ranks_burst_on_int8_pools_serve_the_single_card_tokens(
+        pairs, expected, cases, two_ranks):
+    """An int8 re-prefill requantizes whole pages and the port preempts a
+    step earlier than the reference (ROADMAP C4), so only the port's
+    single-card engine under the same burst is the yardstick."""
+    single, served = _check_parity(pairs, expected, cases["burst_int8"],
+                                   two_ranks, reference=False)
+    assert single.preemption_count >= 1
+    assert {r["preemptions"] for r in served} == {single.preemption_count}
+
+
+def test_burst_preempts_as_the_single_card_and_audits_clean(
+        pairs, expected, cases, two_ranks):
+    single, served = _check_parity(pairs, expected, cases["burst"],
+                                   two_ranks)
+    assert single.preemption_count >= 1
+    for res in served:
+        assert res["preemptions"] == single.preemption_count
+        assert res["audited"] > 0 and res["pages_left"] == 0
+
+
+def test_speculation_drafts_as_the_single_card(pairs, expected, cases,
+                                               two_ranks):
+    single, served = _check_parity(pairs, expected, cases["spec"], two_ranks)
+    assert single.spec_stats["drafted"] > 0
+    for res in served:
+        assert res["spec_stats"] == single.spec_stats
+
+
+@pytest.mark.parametrize("name", ["moe_fp32", "moe_int8"])
+def test_four_ranks_serve_the_reference_and_single_card_tokens(
+        pairs, expected, cases, four_ranks, name):
+    _check_parity(pairs, expected, cases[name], four_ranks)
+
+
+def test_ranks_past_the_degree_take_no_part(pairs, expected, cases,
+                                            four_ranks):
+    case = cases["degree2_of_4"]
+    _check_parity(pairs, expected, case, four_ranks)
+    for rank in (2, 3):
+        res = four_ranks[rank][case["name"]]
+        assert not res["member"] and res["tokens"] == {}
+
+
+def test_ranks_sweep_deadlines_on_rank_0s_clock(two_ranks):
+    """Deadlines expire by wall clock, which no two ranks share: each
+    rank sweeps them against rank 0's, so the schedulers kill the same
+    requests at the same step and every step's collectives still pair."""
+    first, second = (r["deadlines"] for r in two_ranks)
+    assert first["states"] == second["states"]
+    assert first["states"][1] == "cancelled"
+    _same(second["tokens"], first["tokens"], "deadlines")
+    assert first["step_log"] == second["step_log"]
+    for res in (first, second):
+        assert res["shard_stats"]["result_mismatch"] == 0
+
+
+def test_rank_pools_hold_their_kv_heads(cases, two_ranks, four_ranks):
+    pages = 3 * 12 + 1          # batch 3 x 96 // 8 pages + scratch
+    for ranks, name, heads in ((two_ranks, "fp32", 1),
+                               (two_ranks, "int8", 1),
+                               (four_ranks, "moe_int8", 1)):
+        for res in ranks:
+            shapes = res[name]["pool_shapes"]
+            assert shapes["k"] == shapes["v"] == (heads, pages, 8, 16)
+            if "int8" in name:
+                assert shapes["k_scale"] == shapes["v_scale"] == (heads,
+                                                                  pages)
+
+
+def test_rank_spans_and_degree_gauge(two_ranks):
+    tracks = set()
+    for rank, ranks in enumerate(two_ranks):
+        trace = ranks["fp32"]["trace"]
+        names = {ev["tid"]: ev["args"]["name"] for ev in trace["traceEvents"]
+                 if ev.get("ph") == "M" and ev.get("name") == "thread_name"}
+        spans = [ev for ev in trace["traceEvents"] if ev.get("ph") == "X"
+                 and names.get(ev["tid"]) == f"shard{rank}"]
+        assert spans and all(ev["args"]["shard"] == rank for ev in spans)
+        tracks |= set(names.values())
+        assert ranks["fp32"]["degree_gauge"][-1] == 2
+    assert {"shard0", "shard1"} <= tracks
+
+
+def test_sharded_b6_b7_plan_from_the_models_kv_heads(pairs, two_ranks):
+    """B6 (the chunk+decode steps) and B7 (the verify steps) plan their
+    split from B·Hkv of the model, 3·2, not from the rank's 3·1."""
+    cfg = pairs["internlm2-1.8b"].tcfg
+    want = ENGINE_KW["batch_size"] * cfg.num_kv_heads
+    for res in two_ranks:
+        assert res["spec"]["split_plans"] == [("B6", want), ("B7", want)]
+
+
+def test_auto_is_one_and_serves_the_single_card_tokens(pairs, expected,
+                                                       cases):
+    pair = pairs["internlm2-1.8b"]
+    eng = ShardedContinuousBatchingEngine(pair.tmodel, pair.tparams,
+                                          shard="auto", device="cpu",
+                                          **ENGINE_KW)
+    assert eng.shard == 1 and eng.member
+    out = eng.serve(requests(cases["fp32"]["prompts"], MAX_NEW))
+    _same(out, expected(cases["fp32"])[1].out, "auto")
+    assert eng.shard_stats == {"degree": 1, "allgather_bytes": 0,
+                               "ring_hops": 0, "result_mismatch": 0}
+
+
+def test_degrees_are_validated(pairs, two_ranks):
+    pair = pairs["internlm2-1.8b"]
+
+    def build(shard):
+        return ShardedContinuousBatchingEngine(
+            pair.tmodel, pair.tparams, shard=shard, device="cpu",
+            **ENGINE_KW)
+
+    for bad in (0, -1, True, "two", 1.0):
+        with pytest.raises(ValueError, match="bad shard degree"):
+            build(bad)
+    with pytest.raises(ValueError, match="does not divide"):
+        build(4)                    # 2 kv heads
+    with pytest.raises(RuntimeError, match="process group"):
+        build(2)                    # no group in this process
+    for res in two_ranks:
+        kind, msg = res["_refusals"][4]
+        assert kind == "ValueError" and "> 2 ranks" in msg
+        assert res["_refusals"]["auto"] == ("ok", 1)
+
+
+def test_head_sharded_and_replicated_without_a_group():
+    x = torch.arange(2 * 6 * 3, dtype=torch.float32).view(2, 6, 3)
+    shard = KVShard(None, 2, 3)
+    np.testing.assert_array_equal(head_sharded(x, shard, dim=1),
+                                  x[:, 4:6])
+    with pytest.raises(ValueError):
+        head_sharded(x, shard, dim=0)       # 2 rows over 3 ranks
+    one = KVShard(None, 0, 1)
+    assert replicated(x, one, dim=1) is x and one.gathered_bytes == 0
+    with pytest.raises(ValueError):
+        KVShard(None, 3, 3)
+    assert kv_shard_state() is None
+    with kv_shard(shard):
+        assert kv_shard_state() is shard
+        with kv_shard(one):
+            assert kv_shard_state() is one
+        assert kv_shard_state() is shard
+    assert kv_shard_state() is None
+
+
+# ---------------------------------------------------------------------------
+# cache_specs and a rank's slice
+# ---------------------------------------------------------------------------
+
+
+def _jax_dims(tree) -> dict:
+    """leaf name -> the dims the reference's ``cache_specs`` shards on a
+    one-device 'model' mesh, in the port's unstacked layout."""
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("model",))
+    layout = tree.pop("_layout")
+    specs = jax_cache_specs(tree, mesh, layout=layout)
+    out: dict = {}
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec))
+    for kp, spec in flat:
+        names = [str(getattr(k, "key", getattr(k, "idx", k))) for k in kp]
+        stacked = names[0] == "units"
+        dims = [i - stacked for i, a in enumerate(tuple(spec)) if a]
+        out.setdefault(names[-1], set()).add(dims[0] if dims else None)
+    return out
+
+
+def _port_dims(tree, layout) -> dict:
+    out: dict = {}
+    specs = cache_specs(tree, layout=layout)
+    for path, dim in leaves_with_paths(specs):
+        out.setdefault(path.split("/")[-1], set()).add(dim)
+    return out
+
+
+def _stacked(leaves: dict) -> dict:
+    """The reference's stacked tree of two layers of ``leaves``, and the
+    port's list of two layers."""
+    return ({"units": {"b0": {k: jnp.zeros((2,) + s, jnp.float32)
+                              for k, s in leaves.items()}}},
+            {"layers": [{k: torch.zeros(s) for k, s in leaves.items()}
+                        for _ in range(2)]})
+
+
+@pytest.mark.parametrize("layout,leaves", [
+    ("paged", {"k": (4, 8, 4, 16), "v": (4, 8, 4, 16), "k_scale": (4, 8),
+               "v_scale": (4, 8)}),
+    ("dense", {"k": (2, 4, 32, 16), "v": (2, 4, 32, 16)}),
+])
+def test_cache_specs_match_the_reference_on_its_trees(layout, leaves):
+    jtree, ttree = _stacked(leaves)
+    jtree["_layout"] = layout
+    want = _jax_dims(jtree)
+    assert _port_dims(ttree, layout) == want
+    assert want["k"] == {0 if layout == "paged" else 2}
+
+
+@pytest.mark.parametrize("arch,layout,kv_dtype", [
+    ("internlm2-1.8b", "paged", "int8"),
+    ("internlm2-1.8b", "dense", "int8"),
+    ("mamba2-130m", "dense", None),
+    ("recurrentgemma-9b", "dense", None),
+])
+def test_cache_specs_match_the_reference_on_real_caches(arch, layout,
+                                                         kv_dtype):
+    kw = dict(cache_layout=layout, kv_dtype=kv_dtype)
+    if layout == "paged":
+        kw.update(page_size=4, num_pages=8)
+    jtree = jax_build_model(jax_get_smoke(arch)).make_cache(2, 32, **kw)
+    jtree["_layout"] = layout
+    ttree = torch_build_model(torch_get_smoke(arch)).make_cache(
+        2, 32, device="cpu", **kw)
+    assert _port_dims(ttree, layout) == _jax_dims(jtree)
+
+
+def test_cache_specs_keep_a_dim_the_degree_does_not_divide_whole():
+    cache = {"layers": [{"k": torch.zeros(4, 8, 4, 16),
+                         "k_scale": torch.zeros(4, 8)}]}
+    assert cache_specs(cache, layout="paged", degree=2) == {
+        "layers": [{"k": 0, "k_scale": 0}]}
+    assert cache_specs(cache, layout="paged", degree=3) == {
+        "layers": [{"k": None, "k_scale": None}]}
+    with pytest.raises(KeyError):
+        cache_specs(cache, layout="ring")
+
+
+def test_local_cache_is_the_ranks_slice(pairs):
+    model = pairs["deepseek-moe-16b"].tmodel
+    kw = dict(cache_layout="paged", page_size=8, num_pages=5,
+              kv_dtype="int8")
+    full = model.make_cache(2, 32, device="cpu", **kw)
+    for blk in full["layers"]:
+        for t in blk.values():
+            t.copy_(torch.randn(t.shape).to(t.dtype) if t.is_floating_point()
+                    else torch.randint(-9, 9, t.shape, dtype=t.dtype))
+    meta = model.make_cache(2, 32, device="meta", **kw)
+    for rank in range(2):
+        cut = local_cache(full, rank=rank, degree=2)
+        zeros = local_cache(meta, rank=rank, degree=2, device="cpu")
+        for got, zero, want in zip(cut["layers"], zeros["layers"],
+                                   full["layers"]):
+            for key, t in want.items():
+                part = t[2 * rank:2 * rank + 2]
+                assert torch.equal(got[key], part)
+                assert got[key].data_ptr() != part.data_ptr()
+                assert zero[key].shape == part.shape
+                assert zero[key].dtype == t.dtype
+                assert not zero[key].any() and zero[key].device.type == "cpu"
+    with pytest.raises(ValueError):
+        local_cache(full, rank=2, degree=2)
+
+
+# ---------------------------------------------------------------------------
+# the shard-degree tuner and the router
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("heads_kv", [2, 4, 6, 8, 16])
+def test_tune_shard_degree_is_the_references_at_its_constants(
+        monkeypatch, heads_kv):
+    for name, value in (("TENSOR_FLOPS", jax_autotune.MXU_FLOPS),
+                        ("HBM_BW", jax_autotune.HBM_BW),
+                        ("CUDA_CORE_FLOPS", jax_autotune.VPU_FLOPS),
+                        ("CHUNK_STEP_OVERHEAD_S",
+                         jax_autotune.CHUNK_STEP_OVERHEAD_S)):
+        monkeypatch.setattr(autotune, name, value)
+    mine = autotune.tune_shard_degree.__wrapped__
+    theirs = jax_autotune.tune_shard_degree.__wrapped__
+    picks = set()
+    for n_ctx in (112, 4096, 32768):
+        for link in (1e-4, 75.0, 450.0):
+            for kw in (dict(group=4, e=128), dict(group=2, e=16, batch=3,
+                                                  itemsize=4, page=8),
+                       dict(group=2, e=128, kv_itemsize=1)):
+                args = dict(heads_kv=heads_kv, n_ctx=n_ctx, link_gbps=link,
+                            link_setup_s=jax_autotune.LINK_SETUP_S, **kw)
+                got = mine(**args)
+                assert got == theirs(**args), args
+                picks.add(got)
+    assert 1 in picks
+    if heads_kv >= 4:
+        assert len(picks) > 1
+
+
+def test_tune_shard_degree_at_the_cards_constants():
+    """internlm2-1.8b (8 KV heads, group 2, head dim 128) at a 32k
+    context, batch 4, bf16: NVLink's 450 GB/s and the assumed 5 µs a hop
+    buy all 8 degrees; a dead link buys none; the smoke model none."""
+    kw = dict(heads_kv=8, group=2, n_ctx=32768, e=128)
+    assert autotune.LINK_GBPS == 450.0 and autotune.LINK_SETUP_S == 5e-6
+    assert autotune.tune_shard_degree(**kw) == 8
+    assert autotune.tune_shard_degree(**kw, link_gbps=1e-4) == 1
+    assert autotune.tune_shard_degree(heads_kv=2, group=2, n_ctx=96,
+                                      e=16) == 1
+
+
+class _Replica:
+    """An engine stand-in: serve() answers each request with its rid."""
+
+    def serve(self, reqs):
+        return {r.rid: np.asarray([r.rid]) for r in reqs}
+
+
+def test_router_routes_and_balances_as_the_reference(pairs):
+    cfg = pairs["internlm2-1.8b"].tcfg
+    lens = [30, 5, 6, 7, 41, 2, 18]
+    prompts = _prompts(cfg.vocab_size)[:1] + [
+        np.full(n, 3, np.int32) for n in lens]
+    mine = LeastLoadedRouter([_Replica() for _ in range(3)])
+    theirs = JaxRouter([_Replica() for _ in range(3)])
+    reqs = requests(prompts, 4)
+    jreqs = [JaxRequest(rid=r.rid, prompt=r.prompt, max_new_tokens=4)
+             for r in reqs]
+    shares, load = mine.route(reqs)
+    jshares, jload = theirs.route(jreqs)
+    assert load == jload
+    assert [[r.rid for r in s] for s in shares] == [
+        [r.rid for r in s] for s in jshares]
+    assert set(mine.serve(reqs)) == set(theirs.serve(jreqs))
+    assert mine.stats == theirs.stats and mine.stats["balance"] >= 1.0
+    with pytest.raises(ValueError):
+        LeastLoadedRouter([])
+
+
+def test_router_over_engines_serves_one_engines_tokens(pairs):
+    pair = pairs["internlm2-1.8b"]
+    kw = dict(max_len=64, batch_size=2, page_size=8)
+    prompts = _prompts(pair.tcfg.vocab_size)[:4]
+    router = LeastLoadedRouter([
+        ContinuousBatchingEngine(pair.tmodel, pair.tparams, device="cpu",
+                                 **kw) for _ in range(2)])
+    out = router.serve(requests(prompts, 4))
+    solo = ContinuousBatchingEngine(pair.tmodel, pair.tparams, device="cpu",
+                                    **kw).serve(requests(prompts, 4))
+    _same(out, solo, "router")
+    assert sum(router.stats["requests"]) == 4
+
+
+def test_rank_models_are_the_harness_models(pairs):
+    """``port_model`` (what the ranks build) is the harness's port model:
+    the same config and the same weights."""
+    pair = pairs["qwen3-1.7b"]
+    model, params = port_model("qwen3-1.7b",
+                               jax.tree.map(np.asarray, pair.jparams))
+    assert model.cfg == pair.tcfg == dataclasses.replace(
+        pair.tcfg, attn_impl="kernel")
+    for (pa, a), (pb, b) in zip(leaves_with_paths(params),
+                                leaves_with_paths(pair.tparams)):
+        assert pa == pb and torch.equal(a, b)

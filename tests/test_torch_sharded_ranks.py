@@ -1,0 +1,197 @@
+"""The ranks of ``tests/test_torch_sharded.py`` (this file defines no
+tests).
+
+``Ranks`` (and ``run_ranks``, which waits for them) spawns ``world``
+processes (``torch.multiprocessing``, the spawn method) that join one
+gloo group through a ``FileStore`` in a
+temporary directory, so that parallel test workers never share a TCP
+port. Each rank builds the port's smoke models from the numpy weights it
+is given, serves every case through ``ShardedContinuousBatchingEngine``
+on the CPU and pickles what it saw; the caller compares. The ranks
+import no JAX: the reference's results are computed in the test's own
+process.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import tempfile
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def requests(prompts, max_new: int, deadlines=None):
+    """Requests of ``prompts`` (rid = index), with ``deadlines`` (rid ->
+    seconds) where given."""
+    from repro_torch.serving import Request
+
+    deadlines = deadlines or {}
+    return [Request(rid=i, prompt=np.asarray(p, np.int32),
+                    max_new_tokens=max_new, eos_id=-2,
+                    deadline_s=deadlines.get(i))
+            for i, p in enumerate(prompts)]
+
+
+def port_model(arch: str, weights):
+    """The port's fp32 smoke ``arch`` on its kernels' plain versions,
+    with ``weights`` (the reference's params as numpy)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.api import build_model
+    from repro_torch.weights import params_from_jax
+
+    cfg = dataclasses.replace(get_smoke(arch), attn_impl="kernel",
+                              compute_dtype=torch.float32)
+    return build_model(cfg), params_from_jax(weights, cfg, device="cpu")
+
+
+def _split_plan_spy():
+    """Wrap B6's and B7's ``decode_split_plan``: every (kernel, bh) the
+    wrappers plan from is appended to the returned list. Returns the list
+    and a function that takes the wrappers off."""
+    from repro_torch.kernels import paged_decode_attention as pdec
+    from repro_torch.kernels import paged_verify_attention as pver
+
+    seen, plans = [], []
+    for name, mod in (("B6", pdec), ("B7", pver)):
+        plan = mod.decode_split_plan
+        plans.append((mod, plan))
+
+        def spy(q_dtype, bh, n_kv, _plan=plan, _name=name):
+            seen.append((_name, bh))
+            return _plan(q_dtype, bh, n_kv)
+
+        mod.decode_split_plan = spy
+
+    def restore():
+        for mod, plan in plans:
+            mod.decode_split_plan = plan
+
+    return seen, restore
+
+
+def serve_case(case: dict, weights: dict) -> dict:
+    """Serve one case through the sharded engine on this rank."""
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving import (
+        PoolAuditor,
+        ScriptedFaults,
+        ShardedContinuousBatchingEngine,
+    )
+
+    model, params = port_model(case["arch"], weights[case["arch"]])
+    rank = dist.get_rank()
+    tracer = Tracer(pid=rank) if case.get("trace") else None
+    eng = ShardedContinuousBatchingEngine(
+        model, params, shard=case["shard"], device="cpu", tracer=tracer,
+        **case["engine_kw"])
+    if case.get("burst"):
+        eng.injector = ScriptedFaults(
+            exhaust_at_appends=frozenset(case["burst"]))
+    auditor = PoolAuditor() if case.get("audit") else None
+    eng.auditor = auditor
+    seen, restore = _split_plan_spy() if case.get("spy") else (None, None)
+    try:
+        out = eng.serve(requests(case["prompts"], case["max_new"],
+                                 case.get("deadlines")))
+    finally:
+        if restore is not None:
+            restore()
+    res = {"tokens": {rid: np.asarray(t) for rid, t in out.items()},
+           "states": {rid: rec.state.value
+                      for rid, rec in eng.results.items()},
+           "member": eng.member, "shard": eng.shard}
+    if not eng.member:
+        return res
+    pools = eng._make_cache()["layers"][0]
+    res.update(
+        shard_stats=eng.shard_stats, step_log=list(eng.step_log),
+        preemptions=eng.preemption_count, spec_stats=eng.spec_stats,
+        degree_gauge=list(eng.metrics.gauge("shard.degree").series),
+        pool_shapes={k: tuple(v.shape) for k, v in pools.items()},
+        audited=auditor.steps_checked if auditor else 0,
+        pages_left=eng._mgr.pages_used,
+        trace=tracer.export() if tracer else None,
+        split_plans=sorted(set(seen)) if seen is not None else None)
+    return res
+
+
+def refusals(weights: dict) -> dict:
+    """Degrees the group cannot hold: what each raises on this rank."""
+    from repro_torch.serving import ShardedContinuousBatchingEngine
+
+    model, params = port_model("deepseek-moe-16b",
+                               weights["deepseek-moe-16b"])
+    world = dist.get_world_size()
+    out = {}
+    for shard in (2 * world, "auto"):
+        try:
+            eng = ShardedContinuousBatchingEngine(
+                model, params, shard=shard, device="cpu", max_len=32,
+                batch_size=2, page_size=8)
+            out[shard] = ("ok", eng.shard)
+        except (ValueError, RuntimeError) as exc:
+            out[shard] = (type(exc).__name__, str(exc))
+    return out
+
+
+def _rank_main(rank: int, world: int, store: str, out_dir: str,
+               cases: list, weights: dict) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        res = {case["name"]: serve_case(case, weights) for case in cases}
+        res["_refusals"] = refusals(weights)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+class Ranks:
+    """``world`` gloo ranks serving ``cases``, started at once
+    (``torch.multiprocessing``, the spawn method), so that the caller
+    can work while they run."""
+
+    def __init__(self, world: int, cases: list, weights: dict):
+        self.world = world
+        self._tmp = tempfile.TemporaryDirectory()
+        store = os.path.join(self._tmp.name, "store")
+        self._ctx = mp.spawn(
+            _rank_main, args=(world, store, self._tmp.name, cases, weights),
+            nprocs=world, join=False)
+
+    def results(self) -> list[dict]:
+        """Each rank's results, in rank order, once all have ended. A
+        rank's exception is raised here."""
+        while not self._ctx.join():
+            pass
+        out = []
+        for r in range(self.world):
+            with open(os.path.join(self._tmp.name, f"rank{r}.pkl"),
+                      "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+    def close(self) -> None:
+        """Stop any rank still running and remove the directory."""
+        for proc in self._ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+        self._tmp.cleanup()
+
+
+def run_ranks(world: int, cases: list, weights: dict) -> list[dict]:
+    """Spawn ``world`` gloo ranks over ``cases``; each rank's results, in
+    rank order. A rank's exception fails the call."""
+    ranks = Ranks(world, cases, weights)
+    try:
+        return ranks.results()
+    finally:
+        ranks.close()
