@@ -126,6 +126,35 @@ Phases, each printing one JSON line:
    bit, with its own plan the difference is recorded. ``python3
    chip_smoke.py --only sharded`` runs the build, these rows and this
    phase alone;
+11b. seq_sharded — the reference's sequence-sharding serving policy
+   (``distributed/ctx.sharding_policy``, sp_rep for a small dense
+   prefill, tp_sp otherwise), one process a rank as in phase 11, weights
+   whole on every rank but the MoE experts: internlm2-1.8b at degrees 2
+   and 4 through ``launch/dryrun.run_cell`` — prefill_32k (1 x 32768, its
+   batch of 32 cut to 1; ``ring_attention``) and 16 decode steps of
+   seeded tokens on the split cache of 32784 rows (blocks of 16392 or
+   8196 rows against prompt rows of 16384 or 8192), decode_32k (batch 8,
+   its 128 cut; a cache of 32768 rows holding 32760 seeded rows; 8 steps
+   of ``sharded_decode_attention``) — each step's logits within
+   LOGITS_RTOL of the single card's (kernel route) and layer 0's
+   attention rows within BF16_ROW_RTOL of the single card's, a planted
+   fault (the last rank skips rank 0's block on the ring; rank 0's
+   decode partial left out of the combine) rejected by the rows limit,
+   the logits gate's verdict on it recorded, no attention kernel
+   launched and the ring's or combine's bytes counted; an fp32 run at 2
+   layers, a 4096-token prompt, whose greedy tokens equal the single
+   card's plain route's; then deepseek-moe-16b at full width and depth
+   at degree 2, each rank holding 32 of the 64 experts (drawn whole in
+   turn from seed 0, so two ranks fit one card), 4 x 2048 and 16 decode
+   steps, against the single card's plain route in the same token
+   groups (``ctx.grouped_as``): each layer's dropped assignments of the
+   rank's group within 2·top_k per differing route of the single
+   card's (the routes that differ counted), the logits within
+   LOGITS_RTOL. Per run
+   and rank: peak memory, prefill and decode-step device ms and wall,
+   bytes sent by collective (ring, combine, a2a, gather, bcast) and the
+   bytes staged through host buffers. ``python3 chip_smoke.py --only
+   seq_sharded`` runs the build and this phase alone;
 12. moe — full-width, full-depth deepseek-moe-16b (28 layers, 64
    routed experts top-6 and 2 shared, capacity factor 1.25; bf16, random
    weights from seed 0 with the experts' down projections scaled by 1/16,
@@ -422,6 +451,25 @@ SHARD_HEADS = (4, 2)   # a rank's KV heads of internlm2-1.8b at degrees 2, 4
 # B6 and B7 differs there from the model's, (8, 2) or (16, 1) against
 # (4, 4); at the 4096-token table all three are (16, 4).
 SHARD_SHORT_PAGES = 64
+# Sequence-sharded prefill and decode (the seq_sharded phase): the
+# reference's sp_rep/tp_sp serving policy, one process a rank, weights
+# whole on every rank but the MoE experts. internlm2-1.8b at full width
+# and depth at degrees 2 and 4: prefill_32k (its batch of 32 cut to 1)
+# and SEQ_PREFILL_NEW decode steps after it on the split cache;
+# decode_32k (its batch of 128 cut to 8) on a cache of seeded rows;
+# an fp32 run at SEQ_FP32_LAYERS layers. deepseek-moe-16b at full width
+# and depth at degree 2, experts split, on the moe phase's 4 x 2048.
+SEQ_DEGREES = (2, 4)
+SEQ_PREFILL_BATCH = 1
+SEQ_PREFILL_NEW = 16
+SEQ_DECODE_BATCH = 8
+SEQ_DECODE_STEPS = 8
+SEQ_FP32_LAYERS = 2
+SEQ_FP32_PROMPT = 4096
+SEQ_FP32_NEW = 16
+SEQ_MOE_DEGREE = 2
+SEQ_MOE_WAVE = (4, 2048)
+SEQ_MOE_NEW = 16
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -3758,6 +3806,486 @@ def phase_sharded(torch, full: dict) -> dict:
     return {"phase": "sharded", "runs": lines, "launches": launches}
 
 
+def first_output(module, name: str, run):
+    """``run()`` with the output of the first call of ``module.name``
+    kept: (run's result, that output)."""
+    real, seen = getattr(module, name), []
+
+    def call(*args, **kw):
+        out = real(*args, **kw)
+        if not seen:
+            seen.append(out.detach().clone())
+        return out
+
+    setattr(module, name, call)
+    try:
+        return run(), seen[0]
+    finally:
+        setattr(module, name, real)
+
+
+def seq_logits(got, want) -> dict:
+    """Logits against ``want``'s within LOGITS_RTOL of the largest of
+    ``want`` (at least 1): the dense limit."""
+    got, want = got.float().cpu(), want.float().cpu()
+    tol = LOGITS_RTOL * max(1.0, float(want.abs().max()))
+    err = max_err(got, want)
+    finite = bool(got.isfinite().all())
+    return {"max_abs_err": err, "tol": tol, "finite": finite,
+            "ok": finite and err <= tol,
+            "argmax_equal": bool(got.argmax(-1).eq(want.argmax(-1)).all())}
+
+
+def seq_yardsticks(torch, full: dict, path) -> dict:
+    """The single-card port's results the seq_sharded ranks are held to,
+    saved to ``path`` (CPU tensors): internlm2-1.8b's prefill_32k on the
+    kernel route (first-token logits, layer 0's attention output, the
+    logits of SEQ_PREFILL_NEW decode steps of seeded tokens after it),
+    decode_32k's SEQ_DECODE_STEPS steps on the same seeded cache (logits,
+    layer 0's attention output at step 0), the fp32 run's greedy tokens
+    on the plain route, and deepseek-moe-16b's 4 x 2048 prefill and
+    decode steps on the plain route in the ranks' token groups
+    (``ctx.grouped_as``), with each layer's routes. Seeds as
+    ``launch/dryrun.run_cell``'s at seed 0. Returns the single card's
+    times."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed import ctx
+    from repro_torch.launch.dryrun import cell_tokens, decode_steps
+    from repro_torch.launch.dryrun import seeded_cache
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.api import build_model
+
+    dev = torch.device("cuda")
+    model, params = full["model"], full["params"]
+    cfg = model.cfg
+    s = SHAPES["prefill_32k"].seq_len
+    d = SHAPES["decode_32k"].seq_len
+    yard, times = {}, {}
+    with torch.no_grad():
+        tokens = cell_tokens(cfg, SEQ_PREFILL_BATCH, s, seed=1, device=dev)
+        ((logits, cache), host, ms), attn0 = first_output(
+            attn_mod, "attention", lambda: timed_call(torch, lambda: (
+                model.prefill(params, cfg, tokens, s + SEQ_PREFILL_NEW))))
+        steps = cell_tokens(cfg, SEQ_PREFILL_BATCH, SEQ_PREFILL_NEW, seed=4,
+                            device=dev)
+        step_logits, step_ms, _ = decode_steps(model, params, cache, steps,
+                                               s, dev)
+        yard["prefill"] = {"logits": logits[:, 0].float().cpu(),
+                           "attn0": attn0.cpu(),
+                           "steps": step_logits.float().cpu()}
+        times["prefill_32k"] = {"prefill_ms": ms, "prefill_s": host,
+                                "decode_step_ms": step_ms}
+        del cache, logits, attn0
+        torch.cuda.empty_cache()
+
+        cache = seeded_cache(cfg, SEQ_DECODE_BATCH, d, d - SEQ_DECODE_STEPS,
+                             seed=2, device=dev)
+        tokens = cell_tokens(cfg, SEQ_DECODE_BATCH, SEQ_DECODE_STEPS, seed=3,
+                             device=dev)
+        (logits, ms, _), attn0 = first_output(
+            attn_mod, "decode_attention", lambda: decode_steps(
+                model, params, cache, tokens, d - SEQ_DECODE_STEPS, dev))
+        yard["decode"] = {"logits": logits.float().cpu(),
+                          "attn0": attn0.cpu()}
+        times["decode_32k"] = {"decode_step_ms": ms}
+        del cache
+        torch.cuda.empty_cache()
+
+        cfg32, m32, p32 = fp32_model(torch, cfg, SEQ_FP32_LAYERS)
+        plain32 = build_model(dataclasses.replace(cfg32, attn_impl="plain"))
+        prompt = cell_tokens(cfg, 1, SEQ_FP32_PROMPT, seed=5, device=dev)
+        yard["fp32"] = {"tokens": generate(
+            torch, plain32, p32, prompt, SEQ_FP32_NEW, start=SEQ_FP32_PROMPT,
+            max_len=SEQ_FP32_PROMPT + SEQ_FP32_NEW)["tokens"].cpu()}
+        del m32, p32, plain32
+
+        moe = full_width_model(torch, MOE_ARCH)
+        mcfg = dataclasses.replace(moe["model"].cfg, attn_impl="plain")
+        mmodel, mparams = build_model(mcfg), bounded_moe(moe["params"])
+        b, n = SEQ_MOE_WAVE
+        prompts = cell_tokens(mcfg, b, n, seed=6, device=dev)
+        with ctx.grouped_as(SEQ_MOE_DEGREE):
+            ((logits, cache), host, ms), routes = moe_routes(
+                lambda: timed_call(torch, lambda: mmodel.prefill(
+                    mparams, mcfg, prompts, n + SEQ_MOE_NEW)))
+        steps = cell_tokens(mcfg, b, SEQ_MOE_NEW, seed=7, device=dev)
+        (step_logits, step_ms, _), droutes = moe_routes(
+            lambda: decode_steps(mmodel, mparams, cache, steps, n, dev))
+        yard["moe"] = {
+            "logits": logits[:, 0].float().cpu(),
+            "steps": step_logits.float().cpu(),
+            "ids": [r.expert_ids.cpu() for r in routes],
+            "keep": [r.keep.cpu() for r in routes],
+            "decode_ids": [r.expert_ids.cpu() for r in droutes],
+            "capacity": routes[0].capacity, "init_s": moe["init_s"]}
+        times["moe"] = {"prefill_ms": ms, "prefill_s": host,
+                        "decode_step_ms": step_ms}
+        del moe, mparams, mmodel, cache, logits
+        torch.cuda.empty_cache()
+    torch.save(yard, path)
+    return times
+
+
+def seq_rows_check(got, want, fault=None) -> dict:
+    """An attention output's rows against the single card's within
+    BF16_ROW_RTOL; with ``fault``, the planted fault's rows outside it."""
+    check = {"row_rel_err": row_rel_err(got.cpu(), want)}
+    if fault is not None:
+        check["fault_row_rel_err"] = row_rel_err(fault.cpu(), want)
+    return check
+
+
+def seq_dense_runs(torch, model, params, shard, yard: dict, failures: list
+                   ) -> list:
+    """internlm2-1.8b on this rank of ``shard``'s group: prefill_32k and
+    SEQ_PREFILL_NEW decode steps after it, the planted skipped ring hop,
+    decode_32k and its planted dropped partial, and the fp32 run. Appends
+    what fails its gate to ``failures``; returns one record a run."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed import ring_attention as ring_mod
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import cell_tokens, decode_steps, run_cell
+    from repro_torch.models import attention as attn_mod
+
+    cfg = model.cfg
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, r = shard.degree, shard.rank
+    s = SHAPES["prefill_32k"].seq_len
+    d = SHAPES["decode_32k"].seq_len
+    tag = f"rank {r} of {n}"
+    runs = []
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(f"{tag}: {what}")
+
+    # prefill_32k, then decode steps on the split cache
+    ops.reset_launch_counts()
+    (rec, out), attn0 = first_output(attn_mod, "attention", lambda: run_cell(
+        cfg, "prefill_32k", shard, batch=SEQ_PREFILL_BATCH, params=params,
+        max_len=s + SEQ_PREFILL_NEW, device=dev))
+    launches = launched_kernels(ops.launch_counts())
+    rows = slice(r * s // n, (r + 1) * s // n)
+    want0 = yard["prefill"]["attn0"][:, :, rows]
+    first = seq_logits(out["logits"][:, 0], yard["prefill"]["logits"])
+    steps = cell_tokens(cfg, SEQ_PREFILL_BATCH, SEQ_PREFILL_NEW, seed=4,
+                        device=dev)
+    shard.reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad(), sharding_policy(shard, "tp_sp"):
+        step_logits, step_ms, step_wall = decode_steps(
+            model, params, out["cache"], steps, s, dev)
+    decode_bytes = dict(shard.sent)
+    decode_peak = torch.cuda.max_memory_allocated(dev)
+    step_checks = [seq_logits(g, w) for g, w in
+                   zip(step_logits, yard["prefill"]["steps"])]
+    del out
+
+    # the planted fault: the last rank skips rank 0's block on every layer
+    real_hop = ring_mod.attend_hop
+
+    def skip_block0(q, k, v, carry, *, col0, **kw):
+        if r == n - 1 and col0 == 0:
+            return
+        real_hop(q, k, v, carry, col0=col0, **kw)
+
+    tokens = cell_tokens(cfg, SEQ_PREFILL_BATCH, s, seed=1, device=dev)
+    ring_mod.attend_hop = skip_block0
+    try:
+        with torch.no_grad(), sharding_policy(shard, rec["policy"]):
+            (flogits, _), fattn0 = first_output(
+                attn_mod, "attention",
+                lambda: model.prefill(params, cfg, tokens, s))
+    finally:
+        ring_mod.attend_hop = real_hop
+    rows_check = seq_rows_check(attn0, want0,
+                                fattn0 if r == n - 1 else None)
+    fault_logits = seq_logits(flogits[:, 0], yard["prefill"]["logits"])
+    gate(first["ok"], f"prefill_32k first-token logits {first}")
+    gate(all(c["ok"] for c in step_checks), "prefill_32k decode-step logits "
+         f"{[c for c in step_checks if not c['ok']]}")
+    gate(rows_check["row_rel_err"] <= BF16_ROW_RTOL,
+         f"prefill_32k layer 0 attention rows {rows_check}")
+    if r == n - 1:
+        gate(rows_check["fault_row_rel_err"] > BF16_ROW_RTOL,
+             f"a skipped ring hop passes the rows limit: {rows_check}")
+    gate(rec["sent_bytes"]["ring"] > 0 and not launches,
+         f"prefill_32k did not take the ring: {rec['sent_bytes']}, "
+         f"kernels {launches}")
+    runs.append({"run": "prefill_32k", **rec,
+                 "first_token_logits": first, "attn0_rows": rows_check,
+                 "fault_skipped_hop": {"logits": fault_logits,
+                                       "rejected_by_logits":
+                                           not fault_logits["ok"]},
+                 "decode_steps": len(step_checks),
+                 "decode_step_device_ms": step_ms,
+                 "decode_step_wall_s": step_wall,
+                 "decode_max_abs_err": max(c["max_abs_err"]
+                                           for c in step_checks),
+                 "decode_sent_bytes": decode_bytes,
+                 "decode_peak_mem_bytes": decode_peak,
+                 "kernel_launches": launches})
+    torch.cuda.empty_cache()
+
+    # decode_32k on a cache of seeded rows, then the dropped partial
+    ops.reset_launch_counts()
+    (rec, out), attn0 = first_output(
+        attn_mod, "decode_attention", lambda: run_cell(
+            cfg, "decode_32k", shard, batch=SEQ_DECODE_BATCH, params=params,
+            steps=SEQ_DECODE_STEPS, device=dev))
+    launches = launched_kernels(ops.launch_counts())
+    checks = [seq_logits(g, w) for g, w in
+              zip(out["logits"], yard["decode"]["logits"])]
+    tok0 = cell_tokens(cfg, SEQ_DECODE_BATCH, SEQ_DECODE_STEPS, seed=3,
+                       device=dev)[:, :1]
+    real_combine = attn_mod.combine_partials
+    attn_mod.combine_partials = lambda parts: real_combine(parts[1:])
+    try:
+        with torch.no_grad(), sharding_policy(shard, rec["policy"]):
+            (flogits, _), fattn0 = first_output(
+                attn_mod, "decode_attention", lambda: model.decode_step(
+                    params, cfg, tok0, out["cache"], d - SEQ_DECODE_STEPS))
+    finally:
+        attn_mod.combine_partials = real_combine
+    rows_check = seq_rows_check(attn0, yard["decode"]["attn0"], fattn0)
+    fault_logits = seq_logits(flogits[:, 0], yard["decode"]["logits"][0])
+    gate(all(c["ok"] for c in checks), "decode_32k step logits "
+         f"{[c for c in checks if not c['ok']]}")
+    gate(rows_check["row_rel_err"] <= BF16_ROW_RTOL,
+         f"decode_32k layer 0 attention rows {rows_check}")
+    gate(rows_check["fault_row_rel_err"] > BF16_ROW_RTOL,
+         f"a dropped partial passes the rows limit: {rows_check}")
+    gate(rec["sent_bytes"]["combine"] > 0 and not launches,
+         f"decode_32k did not combine across ranks: {rec['sent_bytes']}, "
+         f"kernels {launches}")
+    runs.append({"run": "decode_32k", **rec, "attn0_rows": rows_check,
+                 "max_abs_err": max(c["max_abs_err"] for c in checks),
+                 "tol": checks[0]["tol"],
+                 "fault_dropped_partial": {"logits": fault_logits,
+                                           "rejected_by_logits":
+                                               not fault_logits["ok"]},
+                 "kernel_launches": launches})
+    del out
+    torch.cuda.empty_cache()
+
+    # fp32: greedy tokens equal the single card's plain route
+    cfg32, m32, p32 = fp32_model(torch, cfg, SEQ_FP32_LAYERS)
+    prompt = cell_tokens(cfg, 1, SEQ_FP32_PROMPT, seed=5, device=dev)
+    with torch.no_grad(), sharding_policy(shard, "tp_sp"):
+        got = generate(torch, m32, p32, prompt, SEQ_FP32_NEW,
+                       start=SEQ_FP32_PROMPT,
+                       max_len=SEQ_FP32_PROMPT + SEQ_FP32_NEW)["tokens"].cpu()
+    same = bool(torch.equal(got, yard["fp32"]["tokens"]))
+    gate(same, f"fp32 tokens {got.tolist()} != one card's "
+               f"{yard['fp32']['tokens'].tolist()}")
+    runs.append({"run": "fp32", "degree": n, "rank": r,
+                 "layers": SEQ_FP32_LAYERS, "prompt": SEQ_FP32_PROMPT,
+                 "new_tokens": SEQ_FP32_NEW, "tokens_equal_one_card": same,
+                 "distinct_tokens": int(got.unique().numel())})
+    del m32, p32
+    torch.cuda.empty_cache()
+    return runs
+
+
+def seq_moe_run(torch, shard, yard: dict, failures: list) -> dict:
+    """deepseek-moe-16b on this rank of a degree-SEQ_MOE_DEGREE group, its
+    experts split: each rank in turn draws the whole model from seed 0
+    and keeps its experts; the 4 x 2048 prefill and SEQ_MOE_NEW decode
+    steps of seeded tokens, held to the single card's grouped run: each
+    layer's dropped assignments in the rank's group within 2·top_k of the
+    single card's per token whose top-k set differs (equal where none
+    does), and the logits within LOGITS_RTOL. The (token, layer) routes
+    that differ are counted: the ring's fp32 softmax and the plain
+    route's round the attention output apart, which flips near-tied
+    sixth choices of the router."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.distributed.sharding import local_params
+    from repro_torch.launch.dryrun import cell_tokens, decode_steps
+    from repro_torch.models.api import build_model
+
+    n, r = shard.degree, shard.rank
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_arch(MOE_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = None
+    for turn in range(n):
+        if turn == r:
+            full = full_width_model(torch, MOE_ARCH)
+            params = local_params(bounded_moe(full["params"]), rank=r,
+                                  degree=n)
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier(group=shard.group)
+    init_s = time.perf_counter() - t0
+    b, s = SEQ_MOE_WAVE
+    k = cfg.moe.top_k
+    prompts = cell_tokens(cfg, b, s, seed=6, device=dev)
+    steps = cell_tokens(cfg, b, SEQ_MOE_NEW, seed=7, device=dev)
+    shard.reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad(), sharding_policy(shard, "tp_sp"):
+        ((logits, cache), host, ms), routes = moe_routes(
+            lambda: timed_call(torch, lambda: model.prefill(
+                params, cfg, prompts, s + SEQ_MOE_NEW)))
+        prefill_bytes = dict(shard.sent)
+        staged = shard.staged_bytes
+        shard.reset_counts()
+        (step_logits, step_ms, step_wall), droutes = moe_routes(
+            lambda: decode_steps(model, params, cache, steps, s, dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    differ, drops, bound_ok = 0, [], True
+    for mine, ids, keep in zip(routes, yard["moe"]["ids"],
+                               yard["moe"]["keep"], strict=True):
+        want_ids = ids[r]
+        got_ids = mine.expert_ids.cpu()
+        diff = int((got_ids.sort(-1).values
+                    != want_ids.sort(-1).values).any(-1).sum())
+        got_drop = int((~mine.keep).sum())
+        want_drop = int((~keep[r]).sum())
+        bound_ok &= abs(got_drop - want_drop) <= 2 * k * diff
+        differ += diff
+        drops.append((got_drop, want_drop))
+    ddiffer = sum(int((a.cpu().sort(-1).values != w.sort(-1).values)
+                      .any(-1).sum())
+                  for a, w in zip((x.expert_ids for x in droutes),
+                                  yard["moe"]["decode_ids"], strict=True))
+    first = seq_logits(logits[:, 0], yard["moe"]["logits"])
+    checks = [seq_logits(g, w) for g, w in
+              zip(step_logits, yard["moe"]["steps"])]
+    assignments = b * s // n * k * len(routes)
+    tag = f"moe rank {r} of {n}"
+    if not bound_ok:
+        failures.append(f"{tag}: dropped assignments by layer {drops} "
+                        f"beyond 2·top_k of {differ} differing routes")
+    if not first["ok"]:
+        failures.append(f"{tag}: first-token logits {first}")
+    if not all(c["ok"] for c in checks):
+        failures.append(f"{tag}: decode-step logits "
+                        f"{[c for c in checks if not c['ok']]}")
+    return {"run": "moe", "arch": cfg.name, "degree": n, "rank": r,
+            "batch": b, "seq_len": s, "new_tokens": SEQ_MOE_NEW,
+            "experts_held": cfg.moe.num_experts // n, "init_s": init_s,
+            "capacity": routes[0].capacity,
+            "one_card_capacity": yard["moe"]["capacity"],
+            "dropped_share_group": sum(g for g, _ in drops) / assignments,
+            "one_card_dropped_share_group":
+                sum(w for _, w in drops) / assignments,
+            "routing_differences": differ,
+            "decode_routing_differences": ddiffer,
+            "first_token_logits": first,
+            "decode_max_abs_err": max(c["max_abs_err"] for c in checks),
+            "prefill_device_ms": ms, "prefill_wall_s": host,
+            "decode_step_device_ms": step_ms,
+            "decode_step_wall_s": step_wall,
+            "peak_mem_bytes": peak, "prefill_sent_bytes": prefill_bytes,
+            "decode_sent_bytes": dict(shard.sent),
+            "prefill_staged_bytes": staged}
+
+
+def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
+             yard_path: str, checksum: int) -> None:
+    """One rank of the seq_sharded phase (a process of its own): join the
+    group, build internlm2-1.8b from seed 0 (its checksum the parent's),
+    run ``seq_dense_runs`` at each degree of SEQ_DEGREES (ranks past a
+    degree wait), then ranks 0..SEQ_MOE_DEGREE-1 run ``seq_moe_run``.
+    Writes its report to ``out_dir``, then fails on any gate."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import seq_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        yard = torch.load(yard_path)
+        groups = {d: seq_group(d) for d in sorted(set(SEQ_DEGREES)
+                                                  | {SEQ_MOE_DEGREE})}
+        full = full_width_model(torch)
+        mine = weights_checksum(torch, full["params"])
+        failures = [] if mine == checksum else [
+            f"rank {rank}: weights checksum {mine} != the parent's "
+            f"{checksum}"]
+        report = {"rank": rank, "device": str(dev), "backend": backend,
+                  "weights_checksum": mine, "runs": []}
+        for degree in SEQ_DEGREES:
+            if groups[degree] is not None:
+                report["runs"] += seq_dense_runs(
+                    torch, full["model"], full["params"], groups[degree],
+                    yard, failures)
+            dist.barrier()
+        full.clear()
+        torch.cuda.empty_cache()
+        if groups[SEQ_MOE_DEGREE] is not None:
+            report["runs"].append(seq_moe_run(torch, groups[SEQ_MOE_DEGREE],
+                                              yard, failures))
+        dist.barrier()
+        report["failures"] = failures
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(report, f)
+        require(not failures, "; ".join(failures))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_seq_sharded(torch, full: dict) -> dict:
+    """Sequence-sharded prefill and decode (the reference's sp_rep/tp_sp
+    serving policy) over 2 and 4 ranks, each a process: NCCL with a card
+    a rank where the machine has as many cards, else gloo with every rank
+    on card 0 (point-to-point sends and all-to-alls through host buffers).
+    The single card's results are computed here first
+    (``seq_yardsticks``); a rank's failure fails the phase (``mp.spawn``
+    raises it here). One line a run and rank group: logits and attention
+    rows against the single card, the planted faults' verdicts, device ms
+    and wall of the prefill and of a decode step, peak memory and bytes
+    by collective a rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    checksum = weights_checksum(torch, full["params"])
+    world = max(SEQ_DEGREES)
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        yard_path = Path(tmp) / "yard.pt"
+        t0 = time.perf_counter()
+        one_card = seq_yardsticks(torch, full, yard_path)
+        yard_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(seq_rank, args=(world, backend, str(Path(tmp) / "store"),
+                                 tmp, str(yard_path), checksum),
+                 nprocs=world, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    lines = []
+    keys = sorted({(run["run"], run["degree"]) for rk in ranks
+                   for run in rk["runs"]}, key=lambda x: (x[1], x[0]))
+    for name, degree in keys:
+        per = [run for rk in ranks for run in rk["runs"]
+               if (run["run"], run["degree"]) == (name, degree)]
+        line = {"phase": "seq_sharded", "run": name, "degree": degree,
+                "backend": backend,
+                "cards": degree if backend == "nccl" else 1,
+                "ranks": per, "one_card": one_card.get(name)}
+        emit(line)
+        lines.append(line)
+    emit({"phase": "seq_sharded", "yardsticks_s": yard_s,
+          "spawn_s": spawn_s})
+    return {"phase": "seq_sharded", "runs": lines}
+
+
 def decode_step_events(torch, eng) -> list:
     """Wrap the continuous engine ``eng``'s ``_step``: CUDA events around
     each decode-only step, with the step's positions (the host array's
@@ -5201,8 +5729,9 @@ def sharded_alone(torch) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "sharded"]):
-        print("usage: chip_smoke.py [--only sharded]", file=sys.stderr)
+    if argv not in ([], ["--only", "sharded"], ["--only", "seq_sharded"]):
+        print("usage: chip_smoke.py [--only sharded|seq_sharded]",
+              file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"error: no src/repro_torch beside {Path(__file__).name}",
@@ -5219,8 +5748,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = phase_device(torch, build)
-    if argv:
+    if argv == ["--only", "sharded"]:
         return sharded_alone(torch)
+    if argv:
+        phase_seq_sharded(torch, full_width_model(torch))
+        print(nvidia_smi())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     phase_fp32(torch)
     rows = phase_kernels(torch, device)
     full = full_width_model(torch)
@@ -5240,6 +5776,7 @@ def main(argv=None) -> int:
     launches["speculative_int8"] = full["speculative_int8"]
     phase_spec_parity(torch, full)
     launches["sharded"] = phase_sharded(torch, full)["launches"]
+    phase_seq_sharded(torch, full)
     full.clear()              # internlm2's weights out of the later peaks
     torch.cuda.empty_cache()
     launches["launcher"] = phase_launcher(torch)["launches"]

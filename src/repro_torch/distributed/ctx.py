@@ -1,18 +1,39 @@
-"""KV-head sharding state of the paged serving path (DESIGN.md §11).
+"""Sharding state of the multi-GPU paths, one module-level value each.
 
-Port of the ``kv_shard`` part of ``repro/distributed/ctx.py``. The
-sharded engine (``serving/sharded.py``) enters ``kv_shard(shard)`` around
-``serve``; while it is active, the paged attention blocks of
-``models/transformer.py`` keep their rank's query and KV heads, run the
-kernels on them against the rank's own pools, and all-gather the
-attention outputs over the shard's process group
-(``distributed/paged.py``). Outside it every block is the single-card
-path.
+Port of ``repro/distributed/ctx.py``. Two states, each set and restored
+by a context manager, no thread-local state:
 
-The state is one module-level value, set and restored by the context
-manager and read by ``kv_shard_state()``: no thread-local state. The
-reference's training policies (``sharding_policy``, ``constrain``,
-``seq_sharded_*``) come with multi-GPU training.
+* ``kv_shard(shard)`` (DESIGN.md §11): the sharded engine
+  (``serving/sharded.py``) enters it around ``serve``; while it is
+  active, the paged attention blocks of ``models/transformer.py`` keep
+  their rank's query and KV heads, run the kernels on them against the
+  rank's own pools, and all-gather the attention outputs over the
+  shard's process group (``distributed/paged.py``).
+* ``sharding_policy(shard, kind)``: the reference's sequence-sharding
+  policy, SPMD over a ``SeqShard`` group, one process a rank. The group
+  is the reference's ``'model'`` mesh axis; the port has no data or pod
+  axis. Under ``"tp_sp"`` and ``"sp_rep"`` each rank holds a contiguous
+  block of a sequence's rows (``seq_slice``), and the dense model
+  (``models/transformer.py``) prefills its rows with ``ring_attention``,
+  keeps a block of the dense cache and decodes with
+  ``sharded_decode_attention``; the MoE FFN dispatches tokens in
+  rank-local groups and exchanges expert buffers (``models/moe.py``).
+  Under ``"fsdp"`` the batch rows split instead (the rows rule below);
+  the model refuses it until training across devices is ported.
+
+The reference's ``constrain`` places a global array; here a rank holds
+its part. ``seq_sharded_activations``, ``seq_sharded_heads`` and
+``replicated_heads`` take a whole tensor and return the rows this rank
+holds, keeping ``constrain``'s rule that a dim the group does not divide
+stays whole. With no policy every one of them is the identity.
+
+``SeqShard`` also carries the group's collectives, each counting the
+bytes this rank sent and received by kind: ``ring`` (K/V blocks of
+``ring_attention``), ``combine`` (decode partials), ``a2a`` (the MoE
+expert exchange), ``gather`` (all-gathers of whole values) and ``bcast``
+(the last row's logits). Point-to-point sends and all-to-alls of CUDA
+tensors over gloo, which has no GPU form of either, go through host
+buffers; ``staged_bytes`` counts the bytes copied so.
 """
 
 from __future__ import annotations
@@ -20,6 +41,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from typing import Any
+
+import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass
@@ -63,3 +87,246 @@ def kv_shard(shard: KVShard):
 def kv_shard_state() -> KVShard | None:
     """The active ``KVShard`` inside ``kv_shard``; None otherwise."""
     return _STATE
+
+
+# ---------------------------------------------------------------------------
+# the sequence-sharding policy
+# ---------------------------------------------------------------------------
+
+POLICIES = ("tp_sp", "sp_rep", "fsdp")
+KINDS = ("ring", "combine", "a2a", "gather", "bcast")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@dataclasses.dataclass
+class SeqShard:
+    """One rank's place in a sequence-sharded group, and its collectives.
+
+    ``group`` is the ``torch.distributed`` process group (None for the
+    default group), ``rank`` this process's index in it and ``degree``
+    its size; rank r holds rows [r·S/degree, (r+1)·S/degree) of a
+    sequence the degree divides. ``sent`` and ``received`` count bytes by
+    kind (``KINDS``); ``staged_bytes`` the bytes copied through host
+    buffers. ``reset_counts`` clears them.
+    """
+
+    group: Any
+    rank: int
+    degree: int
+    sent: dict = dataclasses.field(default_factory=dict)
+    received: dict = dataclasses.field(default_factory=dict)
+    staged_bytes: int = 0
+
+    def __post_init__(self):
+        if self.degree < 1 or not 0 <= self.rank < self.degree:
+            raise ValueError(f"rank {self.rank} is not in a group of "
+                             f"degree {self.degree}")
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.sent = dict.fromkeys(KINDS, 0)
+        self.received = dict.fromkeys(KINDS, 0)
+        self.staged_bytes = 0
+
+    def _count(self, kind: str, sent: int, received: int) -> None:
+        self.sent[kind] += sent
+        self.received[kind] += received
+
+    def _global(self, r: int) -> int:
+        """The default group's rank of group rank ``r``."""
+        r %= self.degree
+        return r if self.group is None else dist.get_global_rank(self.group,
+                                                                 r)
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return t.is_cuda and dist.get_backend(self.group) == "gloo"
+
+    def ring_pass(self, tensors: list, kind: str = "ring"):
+        """Start sending ``tensors`` to rank + 1 and receiving the same
+        shapes from rank - 1. Returns a function that waits and gives the
+        received tensors, on the tensors' device."""
+        if self.degree == 1:
+            return lambda: tensors
+        staged = self._staged(tensors[0])
+        out = [torch.empty(t.shape, dtype=t.dtype,
+                           device="cpu" if staged else t.device)
+               for t in tensors]
+        ops = []
+        for t, o in zip(tensors, out):
+            src = t.contiguous()
+            if staged:
+                src = src.cpu()
+                self.staged_bytes += _nbytes(src)
+            ops.append(dist.P2POp(dist.isend, src, self._global(self.rank + 1),
+                                  self.group))
+            ops.append(dist.P2POp(dist.irecv, o, self._global(self.rank - 1),
+                                  self.group))
+        works = dist.batch_isend_irecv(ops)
+        n = sum(_nbytes(t) for t in tensors)
+        self._count(kind, n, n)
+        dev = tensors[0].device
+
+        def wait(_sent=ops) -> list:     # the sent buffers live until here
+            for w in works:
+                w.wait()
+            if not staged:
+                return out
+            self.staged_bytes += sum(_nbytes(o) for o in out)
+            return [o.to(dev) for o in out]
+
+        return wait
+
+    def all_gather(self, x: torch.Tensor, kind: str) -> list:
+        """Every rank's ``x``, in rank order."""
+        if self.degree == 1:
+            return [x]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.degree)]
+        dist.all_gather(parts, x, group=self.group)
+        n = _nbytes(x) * (self.degree - 1)
+        self._count(kind, n, n)
+        return parts
+
+    def all_to_all(self, x: torch.Tensor, kind: str = "a2a") -> torch.Tensor:
+        """``x``'s dim 0 cut in ``degree`` equal blocks, block j sent to
+        rank j; the result holds rank j's block for this rank at block j."""
+        if self.degree == 1:
+            return x
+        x = x.contiguous()
+        staged = self._staged(x)
+        src = x.cpu() if staged else x
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.group)
+        n = _nbytes(x) * (self.degree - 1) // self.degree
+        self._count(kind, n, n)
+        if not staged:
+            return out
+        self.staged_bytes += 2 * _nbytes(x)
+        return out.to(x.device)
+
+    def broadcast(self, x: torch.Tensor, src: int, kind: str = "bcast"
+                  ) -> torch.Tensor:
+        """``x`` of group rank ``src`` on every rank (in place)."""
+        if self.degree == 1:
+            return x
+        dist.broadcast(x, self._global(src), group=self.group)
+        n = _nbytes(x)
+        if self.rank == src:
+            self._count(kind, n * (self.degree - 1), 0)
+        else:
+            self._count(kind, 0, n)
+        return x
+
+
+_POLICY: tuple[SeqShard, str] | None = None
+
+
+@contextlib.contextmanager
+def sharding_policy(shard: SeqShard, kind: str = "tp_sp"):
+    """Activate the sequence-sharding policy ``kind`` over ``shard``'s
+    group (``POLICIES``); the previous policy comes back on exit."""
+    global _POLICY
+    if kind not in POLICIES:
+        raise ValueError(f"unknown sharding policy {kind!r}; one of "
+                         f"{POLICIES}")
+    prev, _POLICY = _POLICY, (shard, kind)
+    try:
+        yield shard
+    finally:
+        _POLICY = prev
+
+
+def seq_shard_state() -> SeqShard | None:
+    """The active policy's ``SeqShard``; None with no policy."""
+    return None if _POLICY is None else _POLICY[0]
+
+
+def policy_kind() -> str:
+    """The active policy's kind; ``"tp_sp"`` with none, as the
+    reference's default."""
+    return "tp_sp" if _POLICY is None else _POLICY[1]
+
+
+def batch_axes() -> tuple[str, ...]:
+    """The mesh axes the batch splits over: the group (``'model'``) under
+    ``fsdp``, none otherwise (the port has no data or pod axis)."""
+    return ("model",) if _POLICY is not None and _POLICY[1] == "fsdp" else ()
+
+
+def divides(n: int) -> bool:
+    """``constrain``'s rule: the active group splits a dim of ``n`` only
+    when its degree divides it (always true with no policy)."""
+    shard = seq_shard_state()
+    return shard is None or n % shard.degree == 0
+
+
+def _block(n: int) -> slice:
+    shard = seq_shard_state()
+    if shard is None or not divides(n):
+        return slice(0, n)
+    per = n // shard.degree
+    return slice(shard.rank * per, (shard.rank + 1) * per)
+
+
+def seq_slice(s: int) -> slice:
+    """The rows of a length-``s`` sequence this rank holds: its block
+    under ``tp_sp``/``sp_rep`` when the degree divides ``s``, else all."""
+    if policy_kind() == "fsdp":
+        return slice(0, s)
+    return _block(s)
+
+
+def _rows(x: torch.Tensor, seq_dim: int) -> torch.Tensor:
+    dim = 0 if policy_kind() == "fsdp" else seq_dim
+    sl = _block(x.shape[dim])
+    if sl.stop - sl.start == x.shape[dim]:
+        return x
+    return x.narrow(dim, sl.start, sl.stop - sl.start)
+
+
+def seq_sharded_activations(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, ...) hidden rows (or tokens): the rank's sequence block
+    (under ``fsdp``: its batch block), whole where the degree does not
+    divide."""
+    return _rows(x, 1)
+
+
+def seq_sharded_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, E): the rank's sequence block, heads whole (under
+    ``fsdp``: its batch block)."""
+    return _rows(x, 2)
+
+
+def replicated_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, E) K/V replicated over the sequence: every row (under
+    ``fsdp``: the rank's batch block)."""
+    return _rows(x, 0) if policy_kind() == "fsdp" else x
+
+
+_GROUPING: int = 1
+
+
+@contextlib.contextmanager
+def grouped_as(degree: int):
+    """With no policy active, dispatch MoE tokens in the groups a
+    ``tp_sp`` group of ``degree`` ranks forms, on this one device, with
+    no exchange (``models/moe.py``): the single-card yardstick of a
+    sharded MoE run."""
+    global _GROUPING
+    if degree < 1:
+        raise ValueError(f"degree {degree} < 1")
+    prev, _GROUPING = _GROUPING, degree
+    try:
+        yield
+    finally:
+        _GROUPING = prev
+
+
+def grouping_degree() -> int:
+    """The degree MoE tokens group by: the policy's, else ``grouped_as``'s
+    (1 outside both)."""
+    shard = seq_shard_state()
+    return _GROUPING if shard is None else shard.degree

@@ -1,14 +1,22 @@
-"""Which dim of each cache tensor a shard group splits, and a rank's
-slice of a cache.
+"""Which dim of each parameter, optimizer, batch and cache tensor a
+shard group splits, and a rank's slice of a cache or of the parameters.
 
-Port of ``cache_specs`` and ``fit_spec``'s rule from
-``repro/distributed/sharding.py``, over the port's cache trees
-(``cache["layers"][i]`` with ``k``, ``v`` and, on int8 caches,
-``k_scale``, ``v_scale``; recurrent states ``conv``, ``state``, ``rnn``).
-The reference names mesh axes in a ``PartitionSpec``; the port has one
-shard group, so a leaf's spec is the one dim the group splits, or None
-for a leaf every rank holds whole. Parameter, optimizer and batch specs
-come with multi-GPU training.
+Port of ``param_specs``, ``opt_specs``, ``batch_specs``, ``cache_specs``
+and ``fit_spec``'s rule from ``repro/distributed/sharding.py``, over the
+port's trees (``params["layers"][i]``, unstacked; ``cache["layers"][i]``
+with ``k``, ``v`` and, on int8 caches, ``k_scale``, ``v_scale``;
+recurrent states ``conv``, ``state``, ``rnn``). The reference names mesh
+axes in a ``PartitionSpec``; the port has one shard group, the
+reference's ``'model'`` axis, and no data or pod axis, so a leaf's spec
+is the one dim the group splits, or None for a leaf every rank holds
+whole (a rule's ``'data'`` entries drop out, as ``fit_spec`` drops axes
+a mesh lacks).
+
+What acts today: the dense cache's sequence split under
+``ctx.sharding_policy`` and ``local_params``, the ``sp_rep`` tree (every
+weight whole) with ``tp_sp``'s expert rule (MoE experts split over the
+ranks). The tensor-parallel weight rules of ``tp_sp`` and ``fsdp`` are
+specs only, for training across devices (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -17,7 +25,8 @@ import re
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.distributed.ctx import POLICIES
+from repro_torch.tree import tree_map, tree_map_with_path
 
 # (leaf-name pattern, the dim the group splits) by layout; first match
 # wins, no match: whole on every rank.
@@ -46,6 +55,119 @@ def fit_dim(dim: int | None, shape, degree: int | None) -> int | None:
     if degree is not None and shape[dim] % degree:
         return None
     return dim
+
+
+# (path pattern, axis names by dim), the reference's _PARAM_RULES; first
+# match wins ("embed$" also matches "unembed", as in the reference)
+_PARAM_RULES = (
+    (r"embed$", ("model", None)),
+    (r"unembed$", (None, "model")),
+    (r"(^|/)w(q|k|v)$", ("data", "model")),
+    (r"(^|/)wo$", ("model", "data")),
+    (r"ffn/(w_gate|w_up)$", ("data", "model")),
+    (r"ffn/w_down$", ("model", "data")),
+    (r"shared/(w_gate|w_up)$", ("data", "model")),
+    (r"shared/w_down$", ("model", "data")),
+    (r"router$", (None, None)),
+    (r"ssd/w_in$", ("data", "model")),
+    (r"ssd/w_out$", ("model", "data")),
+    (r"rec/w_(x|gate|i|r)$", ("data", "model")),
+    (r"rec/w_out$", ("model", "data")),
+)
+
+
+def _is_expert(path: str, leaf) -> bool:
+    """A routed expert stack (E, D, F) / (E, F, D)."""
+    return bool(re.search(r"ffn/w_(gate|up|down)$", path)) and leaf.ndim == 3
+
+
+def param_spec(path: str, ndim: int, *, is_moe_expert: bool) -> tuple:
+    """The reference's ``param_spec``: axis names by dim under ``tp_sp``
+    (experts over 'model', d_model over 'data'; then the first rule that
+    matches ``path``; none: whole)."""
+    if is_moe_expert:
+        spec = (("model", "data", None) if re.search(r"w_(gate|up)$", path)
+                else ("model", None, "data"))
+        return spec[:ndim]
+    for pattern, spec in _PARAM_RULES:
+        if re.search(pattern, path):
+            return spec[-ndim:] if ndim < len(spec) else spec
+    return ()
+
+
+def _group_dim(spec: tuple, shape, degree: int | None) -> int | None:
+    """The dim of ``spec`` that names 'model', fitted (``fit_dim``)."""
+    for dim, axes in enumerate(spec):
+        names = (axes,) if isinstance(axes, str) else (axes or ())
+        if "model" in names:
+            return fit_dim(dim, shape, degree)
+    return None
+
+
+def param_specs(params: dict, *, policy: str = "tp_sp",
+                degree: int | None = None) -> dict:
+    """A tree shaped like ``params`` holding the dim the group splits in
+    each tensor (None: whole), the reference's ``param_specs`` with the
+    group as its 'model' axis. ``tp_sp``: the tensor-parallel rules and
+    the experts over the group; ``sp_rep``: every weight whole (forward
+    serving of weights that fit); ``fsdp``: every matrix's first dim.
+    With ``degree`` a dim it does not divide stays whole."""
+    if policy not in POLICIES:
+        raise ValueError(f"unknown policy {policy!r}")
+
+    def spec(path: str, leaf) -> int | None:
+        if policy == "sp_rep":
+            return None
+        if policy == "fsdp":
+            return fit_dim(0, leaf.shape, degree) if leaf.ndim >= 2 else None
+        return _group_dim(param_spec(path, leaf.ndim,
+                                     is_moe_expert=_is_expert(path, leaf)),
+                          leaf.shape, degree)
+
+    return tree_map_with_path(spec, params)
+
+
+def opt_specs(p_specs: dict) -> dict:
+    """AdamW's moments split as their parameters; the step whole."""
+    return {"mu": p_specs, "nu": p_specs, "step": None}
+
+
+def batch_specs(*, policy: str = "tp_sp", batch: int | None = None,
+                degree: int | None = None, with_frontend: bool = False
+                ) -> dict:
+    """The dim of each batch tensor the group splits. The reference
+    splits the batch over its data and pod axes, which the port has not,
+    so the batch is whole, except under ``fsdp``, where (as the
+    reference's ``batch_sds``) the batch widens over the group when the
+    degree divides ``batch``."""
+    dim = None
+    if policy == "fsdp" and (batch is None or degree is None
+                             or batch % degree == 0):
+        dim = 0
+    out = {"tokens": dim, "labels": dim}
+    if with_frontend:
+        out["frontend"] = dim
+    return out
+
+
+def local_params(params: dict, *, rank: int, degree: int) -> dict:
+    """Rank ``rank``'s parameters under the sequence-sharding policy:
+    the ``sp_rep`` tree, every weight whole (the same tensors), with
+    ``tp_sp``'s expert rule, each MoE layer's routed experts
+    [r·E/n, (r+1)·E/n) copied out."""
+    if not 0 <= rank < degree:
+        raise ValueError(f"rank {rank} is not in a group of {degree}")
+
+    def cut(path: str, leaf):
+        if not _is_expert(path, leaf):
+            return leaf
+        if leaf.shape[0] % degree:
+            raise ValueError(f"{leaf.shape[0]} experts do not split over "
+                             f"{degree} ranks")
+        per = leaf.shape[0] // degree
+        return leaf.narrow(0, rank * per, per).clone()
+
+    return tree_map_with_path(cut, params)
 
 
 def cache_specs(cache: dict, *, layout: str = "dense",

@@ -1,10 +1,13 @@
-"""Step builders: a training step, a prefill step and a decode step.
+"""Step builders: a training step, a prefill step and a decode step, and
+the distribution policy of a cell.
 
-Port of the step functions of ``repro/launch/steps.py`` for one device.
-The reference's abstract input specs (``choose_policy``,
-``abstract_params``, ``batch_sds``, ``abstract_cache``,
-``cell_lowering_inputs``) lower its steps onto XLA meshes; their
-counterpart comes with multi-GPU training.
+Port of the step functions and ``choose_policy`` of
+``repro/launch/steps.py``. The prefill and decode steps run on one card,
+or on a rank of a group under ``distributed/ctx.sharding_policy`` with
+the policy ``choose_policy`` names (``launch/dryrun.run_cell``). The
+reference's abstract input specs (``abstract_params``, ``batch_sds``,
+``abstract_cache``, ``cell_lowering_inputs``) lower its steps onto XLA
+meshes; the port runs a cell on real tensors instead.
 """
 
 from __future__ import annotations
@@ -76,6 +79,23 @@ def make_train_step(model: Model, opt_cfg: OptConfig,
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
+
+
+def choose_policy(cfg, cell) -> str:
+    """The reference's distribution policy of an (arch, cell): a prefill
+    replicates weights (``sp_rep``) when the model is dense and its bf16
+    weights fit in 8 GB, else ``tp_sp``; decode is ``tp_sp`` (the cache
+    sequence-sharded); a train cell is ``tp_sp`` for MoE (experts over the
+    group) or an odd global batch, else ``fsdp``."""
+    if cell.kind == "prefill":
+        if cfg.moe is None and cfg.param_count() * 2 <= 8e9:
+            return "sp_rep"
+        return "tp_sp"
+    if cell.kind != "train":
+        return "tp_sp"
+    if cfg.moe is not None or cell.global_batch % 2:
+        return "tp_sp"
+    return "fsdp"
 
 
 def make_prefill_step(model: Model, max_len: int):

@@ -15,6 +15,13 @@ Port of the dense and paged parts of ``repro/models/attention.py``:
   and paged functions take their ``plain`` twin under it, as the
   reference's ``xla`` takes its XLA twins.
 
+Under ``distributed/ctx.sharding_policy`` (SPMD, one process a rank),
+a prefill whose rows the policy split reaches ``attention(ring=True)``,
+which runs ``distributed/ring_attention.ring_attention`` on the rank's
+blocks, and ``decode_attention`` runs ``sharded_decode_attention`` over
+the rank's block of the dense cache; neither reads ``impl``, as the
+reference computes both in XLA outside any kernel.
+
 The dense functions take q: (B, Hq, Nq, E), k/v: (B, Hkv, Nkv, E); the
 paged ones take page pools (Hkv, P, page, E) and page tables, and their
 ``plain`` twin gathers the pool dense and runs the reference's fp32
@@ -29,6 +36,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import ctx
+from repro_torch.distributed.ring_attention import ring_attention
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.common import NEG_INF, gather_pages, page_scales
@@ -95,7 +104,18 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
 
 def attention(q, k, v, *, impl: str = "kernel", causal: bool = True,
               window: int | None = None, chunk: int = 1024,
-              remat: bool = True):
+              remat: bool = True, ring: bool = False, on_block=None):
+    """Full-sequence attention by ``impl``. With ``ring`` (the caller's
+    rows are its block of a sequence split by the active policy)
+    ``ring_attention`` over the policy's group, ``on_block`` passed on;
+    it takes no window."""
+    if ring:
+        shard = ctx.seq_shard_state()
+        if shard is None or window is not None:
+            raise ValueError("ring attention needs an active sharding "
+                             "policy and no window")
+        return ring_attention(q, k, v, shard, causal=causal,
+                              on_block=on_block)
     if impl == "kernel":
         return kops.attention(q, k, v, causal=causal, window=window)
     if impl == "plain":
@@ -126,7 +146,13 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, impl: str = "kernel",
                      k_scale=None, v_scale=None):
     """q: (B, Hq, E) against dense caches (B, Hkv, S, E), masked at
     ``kv_len`` (an int, or a (B,) tensor); an int8 cache comes with its
-    (B, Hkv, S) per-row ``k_scale``/``v_scale``."""
+    (B, Hkv, S) per-row ``k_scale``/``v_scale``. Under the sharding policy
+    the caches are the rank's block and ``kv_len`` an int:
+    ``sharded_decode_attention``."""
+    shard = ctx.seq_shard_state()
+    if shard is not None:
+        return sharded_decode_attention(q, k_cache, v_cache, kv_len, shard,
+                                        k_scale=k_scale, v_scale=v_scale)
     if _twin(impl) == "kernel":
         return kops.decode_attention(q, k_cache, v_cache, kv_len,
                                      k_scale=k_scale, v_scale=v_scale)
@@ -260,3 +286,59 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, span, *,
     ks, vs = _paged_scales(k_pages, page_table, k_scales, v_scales)
     o = _masked_softmax_pv(sc, mask, v, ks, vs)
     return o.reshape(hq, chunk, e).to(q.dtype)
+
+
+def decode_partial(q, k_cache, v_cache, kv_len: int, col0: int, *,
+                   k_scale=None, v_scale=None):
+    """One block's split-K decode partial: q (B, Hq, E) over caches (B,
+    Hkv, S_blk, E) whose row 0 sits at position ``col0``, masked at
+    ``kv_len`` -> (B, Hkv, G, E + 2) fp32, the unnormalised P·V, then the
+    block's row max m and sum l. An int8 block applies its per-row
+    scales where the reference does: K on the scores after the scale, V
+    folded into P after the sum."""
+    b, hq, e = q.shape
+    hkv, s_blk = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, e).float()
+    sc = (qg @ k_cache.float().transpose(-1, -2)) * e ** -0.5
+    if k_scale is not None:
+        sc = sc * k_scale[:, :, None]
+    mask = col0 + torch.arange(s_blk, device=q.device) < kv_len
+    sc = torch.where(mask, sc, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None]
+    return torch.cat([p @ v_cache.float(), m, l], dim=-1)
+
+
+def combine_partials(parts: list):
+    """Merge decode partials (``decode_partial``), in list order ->
+    (B, Hkv, G, E) fp32. A block the mask left empty weighs
+    exp(NEG_INF - M) = 0."""
+    m_all = parts[0][..., -2:-1]
+    for p in parts[1:]:
+        m_all = torch.maximum(m_all, p[..., -2:-1])
+    acc = l = None
+    for p in parts:
+        w = torch.exp(p[..., -2:-1] - m_all)
+        acc = p[..., :-2] * w if acc is None else acc + p[..., :-2] * w
+        l = p[..., -1:] * w if l is None else l + p[..., -1:] * w
+    return acc / l
+
+
+def sharded_decode_attention(q, k_cache, v_cache, kv_len: int, shard, *,
+                             k_scale=None, v_scale=None):
+    """Distributed flash-decode: the split-K combine of the decode kernel,
+    across ranks. q: (B, Hq, E), whole on every rank; caches (B, Hkv,
+    S/n, E) and int8 scales (B, Hkv, S/n): the rank's block of a cache
+    sequence-sharded over ``shard``'s n ranks. Each rank computes its
+    block's partial, masked at ``kv_len``; one all-gather (kind
+    ``combine``) brings every rank's, and each rank merges them in rank
+    order, so every rank holds the same bits whatever the backend's
+    reduction order. -> (B, Hq, E) in q's dtype."""
+    part = decode_partial(q, k_cache, v_cache, kv_len,
+                          shard.rank * k_cache.shape[2], k_scale=k_scale,
+                          v_scale=v_scale)
+    parts = shard.all_gather(part, "combine")
+    return combine_partials(parts).reshape(q.shape).to(q.dtype)

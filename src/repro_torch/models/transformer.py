@@ -23,6 +23,23 @@ rank's KV heads only, and each paged attention block computes q, k, v
 whole, keeps the rank's heads, attends with them and all-gathers the
 outputs before ``wo``.
 
+Under ``distributed/ctx.sharding_policy`` (SPMD, a process a rank; the
+reference's ``tp_sp``/``sp_rep`` serving policy) ``forward``, ``prefill``
+and ``decode_step`` of a dense or MoE decoder run on the rank's part of
+the work (``check_seq_support`` refuses the other stacks): a prompt the
+degree n divides is split in n blocks of rows, rank r embedding and
+running the norms, projections and FFN on rows [r·S/n, (r+1)·S/n) at
+their true positions and attending through ``ring_attention``; a
+prompt it does not divide stays whole on every rank, on the single-card
+route. The dense cache is split in n blocks of ``max_len / n``
+positions (``distributed/sharding.cache_specs``): ``prefill`` fills the
+rank's block from every K/V block that passes it on the ring (the row
+split and the cache split need not agree), ``decode_step`` takes the new
+token whole on every rank, writes its K/V row on the rank whose block
+holds ``pos`` only, and attends with ``sharded_decode_attention``. The
+last row's logits come from the rank that holds it, by broadcast. MoE
+layers dispatch in the policy's token groups (``models/moe.py``).
+
 ``kv_dtype=torch.int8`` stores either cache quantized (symmetric absmax,
 ``kernels/common.quantize_q8``) beside fp32 scales, ``"k_scale"`` and
 ``"v_scale"`` in each layer's dict: one per row (B, Hkv, C) on the dense
@@ -91,7 +108,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.distributed.ctx import kv_shard_state
+from repro_torch.distributed import ctx
+from repro_torch.distributed.ctx import kv_shard_state, seq_shard_state
 from repro_torch.distributed.paged import head_sharded, replicated
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe, rglru, ssm
@@ -197,11 +215,12 @@ def mlp(params, x, cfg: ArchConfig):
     return up @ params["w_down"].to(dt)
 
 
-def ffn(layer, x, cfg: ArchConfig):
+def ffn(layer, x, cfg: ArchConfig, seq_len: int | None = None):
     """The layer's FFN over every row of ``x`` -> (y, aux): the dense MLP
-    (aux 0.0), or the MoE FFN on the un-normalised ``x``."""
+    (aux 0.0), or the MoE FFN on the un-normalised ``x`` (``seq_len``: the
+    whole sequence's rows, of which ``x`` may hold the rank's block)."""
     if cfg.moe is not None:
-        return moe.moe_ffn(layer["ffn"], x, cfg)
+        return moe.moe_ffn(layer["ffn"], x, cfg, seq_len)
     return mlp(layer["ffn"], x, cfg), 0.0
 
 
@@ -232,14 +251,16 @@ def _qkv(params, x, cfg: ArchConfig, positions):
 
 
 def attn_block(params, x, cfg: ArchConfig, *, positions,
-               window: int | None = None, causal: bool = True):
+               window: int | None = None, causal: bool = True,
+               ring: bool = False, on_block=None):
     """Self-attention over the full sequence (causal unless ``causal`` is
     false), each row over its last ``window`` positions when given ->
-    (out, (k, v))."""
+    (out, (k, v)). With ``ring`` the rows are the rank's block of a
+    sequence the sharding policy split (``attention(ring=True)``)."""
     q, k, v = _qkv(params, x, cfg, positions)
     o = attn_mod.attention(q, k, v, impl=cfg.attn_impl, causal=causal,
                            window=window, chunk=cfg.attn_chunk,
-                           remat=cfg.remat)
+                           remat=cfg.remat, ring=ring, on_block=on_block)
     return _merge_heads(o) @ params["wo"].to(x.dtype), (k, v)
 
 
@@ -274,20 +295,28 @@ def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
     p % C, slot pos % C is written and the min(pos + 1, C) live slots are
     attended. The write is in place. An int8 cache carries per-row
     (B, Hkv, C) ``k_scale``/``v_scale``: the new row is quantized with its
-    own absmax scale."""
+    own absmax scale. Under the sharding policy the cache is the rank's
+    block of C rows from r·C: the rank whose block holds ``pos`` writes the
+    row, and every rank attends its block (``sharded_decode_attention``)."""
     c = cache_k.shape[2]
     slot = pos % c if window is not None else pos
+    shard = seq_shard_state()
+    if shard is not None:
+        slot = pos - shard.rank * c
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
-    if cache_k.dtype == torch.int8:
+    if not 0 <= slot < c:           # another rank's block holds the row
+        pass
+    elif cache_k.dtype == torch.int8:
         k, k_scale[:, :, slot] = quantize_q8(k[:, :, 0], -1)
         v, v_scale[:, :, slot] = quantize_q8(v[:, :, 0], -1)
         cache_k[:, :, slot], cache_v[:, :, slot] = k, v
     else:
         cache_k[:, :, slot] = k[:, :, 0]
         cache_v[:, :, slot] = v[:, :, 0]
-    o = attn_mod.decode_attention(q[:, :, 0], cache_k, cache_v,
-                                  min(pos + 1, c), impl=cfg.attn_impl,
+    kv_len = pos + 1 if shard is not None else min(pos + 1, c)
+    o = attn_mod.decode_attention(q[:, :, 0], cache_k, cache_v, kv_len,
+                                  impl=cfg.attn_impl,
                                   k_scale=k_scale, v_scale=v_scale)
     return o.reshape(x.shape[0], 1, -1) @ params["wo"].to(x.dtype)
 
@@ -568,7 +597,15 @@ def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
 
     With ``cfg.remat``, when autograd records the call, each layer keeps
     only its input for the backward and runs again there, as the
-    reference checkpoints its scanned unit body."""
+    reference checkpoints its scanned unit body.
+
+    Under the sharding policy each rank runs its rows (``ring_attention``
+    when the degree divides S) and the final rows are all-gathered, so
+    every rank returns the whole logits; aux is the groups' loss. It
+    does not train: a backward cannot cross the ring."""
+    shard = seq_shard_state()
+    if shard is not None:
+        return _seq_forward(params, tokens, cfg, shard)
     _need_memory(params, encoder_out)
     x = _embed(params, tokens, cfg, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -670,7 +707,13 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
     against ``max_len``; an encoder-decoder's ``encoder_out`` is
     projected once a layer into the cache's cross memories.
 
+    Under the sharding policy the rank's rows and its block of the cache
+    (``_seq_prefill``).
+
     Returns (last-position logits (B, 1, V), cache)."""
+    shard = seq_shard_state()
+    if shard is not None:
+        return _seq_prefill(params, cfg, tokens, max_len, shard, kv_dtype)
     _need_memory(params, encoder_out)
     b, s = tokens.shape
     if frontend_embeds is not None:
@@ -722,7 +765,12 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
 def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
     """token: (B, 1) at absolute position ``pos`` -> (logits (B, 1, V),
     cache). The cache is updated in place and returned; an
-    encoder-decoder's cross blocks read the memories ``prefill`` wrote."""
+    encoder-decoder's cross blocks read the memories ``prefill`` wrote.
+    Under the sharding policy the cache is the rank's block (``prefill``
+    under the policy, or ``distributed/sharding.local_cache``) and every
+    rank returns the same logits."""
+    if seq_shard_state() is not None:
+        check_seq_support(cfg)
     x = _embed(params, token, cfg, start=pos)
     for layer, blk in zip(params["layers"], cache["layers"]):
         if "ssd" in layer:
@@ -752,6 +800,118 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
                                          mem_v=blk["mem_v"])
         x = x + ffn(layer, x, cfg)[0]
     return _unembed(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# the sequence-sharding policy
+# ---------------------------------------------------------------------------
+
+
+def check_seq_support(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless the sequence-sharding policy
+    serves ``cfg``: dense and MoE decoders of attention layers only, with
+    no window, encoder or frontend, under ``tp_sp`` or ``sp_rep``."""
+    if (cfg.family not in ("dense", "moe")
+            or set(cfg.layer_kinds) != {"attn"} or cfg.attn_window
+            or cfg.encoder_layers or cfg.frontend):
+        raise NotImplementedError(
+            f"the sequence-sharding policy serves dense and MoE decoders "
+            f"only (got {cfg.name}): the ssm, hybrid, whisper and internvl2 "
+            "stacks need the tensor-parallel weight split and the state "
+            "split, ROADMAP A10")
+    if ctx.policy_kind() == "fsdp":
+        raise NotImplementedError(
+            "the fsdp policy splits the batch for training across devices, "
+            "ROADMAP A10")
+
+
+def _seq_rows(s: int) -> tuple[slice, bool]:
+    """The rank's rows of an S-row prompt, and whether the policy split
+    them."""
+    rows = ctx.seq_slice(s)
+    return rows, rows.stop - rows.start < s
+
+
+def _seq_forward(params, tokens, cfg: ArchConfig, shard):
+    check_seq_support(cfg)
+    s = tokens.shape[1]
+    rows, split = _seq_rows(s)
+    x = _embed(params, tokens[:, rows], cfg, start=rows.start)
+    if attn_mod.tracks_grad(x):
+        raise NotImplementedError("training across devices is not ported "
+                                  "(ROADMAP A10): a backward cannot cross "
+                                  "the ring")
+    positions = torch.arange(rows.start, rows.stop, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in params["layers"]:
+        x = x + attn_block(layer["attn"], x, cfg, positions=positions,
+                           causal=cfg.causal, ring=split)[0]
+        y, a = ffn(layer, x, cfg, s)
+        x, aux = x + y, aux + a
+    if split:
+        x = torch.cat(shard.all_gather(x, "gather"), dim=1)
+    return _unembed(params, x, cfg), aux
+
+
+def _write_rows(blk: dict, at: int, k, v) -> None:
+    """K/V rows (B, Hkv, R, E) into the cache block's rows [at, at + R),
+    each int8 row quantized with its own scale."""
+    n = k.shape[2]
+    if blk["k"].dtype == torch.int8:
+        blk["k"][:, :, at:at + n], blk["k_scale"][:, :, at:at + n] = \
+            quantize_q8(k, -1)
+        blk["v"][:, :, at:at + n], blk["v_scale"][:, :, at:at + n] = \
+            quantize_q8(v, -1)
+    else:
+        blk["k"][:, :, at:at + n] = k
+        blk["v"][:, :, at:at + n] = v
+
+
+def _seq_prefill(params, cfg: ArchConfig, tokens, max_len: int, shard,
+                 kv_dtype):
+    """``prefill`` on the rank's rows: the rank's cache block holds
+    positions [r·C, (r + 1)·C), C = max_len / n, filled from each K/V
+    block the ring brings (or, rows whole, from the whole K/V)."""
+    check_seq_support(cfg)
+    b, s = tokens.shape
+    n = shard.degree
+    if s > max_len:
+        raise ValueError(f"prompt of {s} rows exceeds the cache ({max_len})")
+    if max_len % n:
+        raise ValueError(f"a cache of {max_len} rows does not split over "
+                         f"{n} ranks")
+    rows, split = _seq_rows(s)
+    x = _embed(params, tokens[:, rows], cfg, start=rows.start)
+    positions = torch.arange(rows.start, rows.stop, device=x.device)
+    c = max_len // n
+    c0 = shard.rank * c
+    cache = make_cache(cfg, b, c, device=x.device, kv_dtype=kv_dtype)
+    for layer, blk in zip(params["layers"], cache["layers"]):
+
+        def fill(start: int, k, v, blk=blk) -> None:
+            # rows of k from absolute position ``start``, kept where they
+            # fall in this rank's block
+            lo, hi = max(start, c0), min(start + k.shape[2], c0 + c)
+            if lo < hi:
+                _write_rows(blk, lo - c0, k[:, :, lo - start:hi - start],
+                            v[:, :, lo - start:hi - start])
+
+        blk_rows = rows.stop - rows.start
+        y, (k, v) = attn_block(
+            layer["attn"], x, cfg, positions=positions, causal=cfg.causal,
+            ring=split, on_block=lambda src, k, v: fill(src * blk_rows, k, v))
+        if not split:
+            fill(0, k, v)
+        x = x + y
+        x = x + ffn(layer, x, cfg, s)[0]
+    if not split:
+        return _unembed(params, x[:, -1:], cfg), cache
+    if shard.rank == n - 1:
+        logits = _unembed(params, x[:, -1:], cfg)
+    else:
+        logits = torch.empty((b, 1, cfg.vocab_size), dtype=x.dtype,
+                             device=x.device)
+    return shard.broadcast(logits, n - 1), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,616 @@
+"""The port's sequence-sharding policy (the reference's ``sp_rep``/``tp_sp``
+serving policy) against the JAX package.
+
+Ranks are spawned processes in one gloo group on the CPU
+(``test_torch_sharded_ranks.Ranks`` with ``test_torch_seqshard_ranks``'s
+target): one 2-rank and one 4-rank spawn, each running all of its cases
+while this process computes the reference's results. The cases:
+``ring_attention`` against ``kernels/ref.attention`` (causal or not,
+``kv_len`` and ``q_offset``) at the reference's own tolerance (2e-5,
+``tests/test_distributed_serving.py``); ``sharded_decode_attention``,
+fp32 and int8, against the reference's with no policy
+(``tests/test_policies.py``); internlm2-smoke, qwen3-smoke and
+deepseek-moe-smoke through ``prefill``, 8 greedy ``decode_step``s and
+``forward``, on prompts the degree divides and does not, with caches
+whose blocks differ from the row split, against the reference (an MoE
+under its ``tp_sp`` policy on one CPU device, its ``constrain``
+patched to the identity: a constraint only places values) at 1e-4 and
+equal greedy tokens; the bytes each rank's collectives moved against
+the shapes; and ``launch/dryrun.run_cell``. In this process:
+``_token_groups``, ``param_specs``, ``opt_specs``, ``batch_specs`` and
+``choose_policy`` against the reference's, the rows rule of
+``distributed/ctx``, and the archs the policy refuses.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SHAPES as JAX_SHAPES
+from repro.configs import get_arch as jax_get_arch
+from repro.configs import get_smoke as jax_get_smoke
+from repro.distributed import ctx as jctx
+from repro.distributed import sharding as jsharding
+from repro.kernels import ref as jref
+from repro.kernels.common import quantize_q8 as jax_quantize_q8
+from repro.launch.steps import choose_policy as jax_choose_policy
+from repro.models import moe as jmoe
+from repro.models.api import build_model as jax_build_model
+from repro.models.attention import sharded_decode_attention as jax_decode
+from repro_torch.configs import ARCH_IDS, SHAPES, ShapeCell, get_arch
+from repro_torch.configs import get_smoke
+from repro_torch.distributed import ctx
+from repro_torch.distributed.ctx import SeqShard, sharding_policy
+from repro_torch.distributed.sharding import (
+    batch_specs,
+    local_params,
+    opt_specs,
+    param_specs,
+)
+from repro_torch.launch.dryrun import cell_tokens, decode_steps, seeded_cache
+from repro_torch.launch.steps import choose_policy
+from repro_torch.models import moe as tmoe
+from repro_torch.models.api import build_model
+from repro_torch.tree import leaves_with_paths
+from repro_torch.weights import reference_leaf
+from test_torch_harness import model_pair
+from test_torch_seqshard_ranks import seq_rank_main
+from test_torch_sharded_ranks import Ranks
+
+ARCHS = ("internlm2-1.8b", "qwen3-1.7b", "deepseek-moe-16b")
+MOE = "deepseek-moe-16b"
+DROP_CF = 1.0           # a capacity factor at which the groups drop
+TOL = 1e-4
+INT8_TOL = 2e-2         # int8 caches: a row's rounding flips move logits
+RING_TOL = 2e-5         # the reference's ring and decode tolerance
+BATCH, STEPS = 2, 8
+LENS = (24, 25)         # a prompt both degrees divide, and one neither does
+MAX_LEN = 40            # blocks of 20 / 10 rows against rows of 12 / 6
+RING = dict(b=2, hq=4, hkv=2, s=32, e=16)
+DEC = dict(b=2, hq=8, hkv=2, s=96, e=32)
+KV_LENS_RING = (None, 13, 27)
+KV_LENS_DEC = (1, 40, 96)
+REFUSED = ("mamba2-130m", "recurrentgemma-9b", "whisper-large-v3",
+           "internvl2-2b")
+CELLS = (ShapeCell("prefill_tiny", 24, 2, "prefill"),
+         ShapeCell("decode_tiny", 40, 2, "decode"),
+         ShapeCell("train_tiny", 24, 2, "train"))
+
+
+class StandInMesh:
+    """The two fields the reference's policy, ``_token_groups`` and
+    ``fit_spec`` read from a mesh: a 'model' axis of ``degree``."""
+
+    def __init__(self, degree: int):
+        self.axis_names = ("model",)
+        self.devices = np.empty((degree,), dtype=object)
+
+
+@contextlib.contextmanager
+def reference_policy(degree: int, kind: str = "tp_sp"):
+    """The reference under its ``kind`` policy on one device, its
+    ``constrain`` the identity (this edits no file of the JAX package)."""
+    real = jctx.constrain
+    jctx.constrain = lambda x, spec_builder: x
+    try:
+        with jctx.sharding_policy(StandInMesh(degree), kind):
+            yield
+    finally:
+        jctx.constrain = real
+
+
+def _rng(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+# ---------------------------------------------------------------------------
+# cases
+# ---------------------------------------------------------------------------
+
+
+def _ring_cases(degree: int) -> list:
+    r = RING
+    q = _rng(1, r["b"], r["hq"], r["s"], r["e"])
+    k = _rng(2, r["b"], r["hkv"], r["s"], r["e"])
+    v = _rng(3, r["b"], r["hkv"], r["s"], r["e"])
+    return [dict(name=f"ring-{degree}-{causal}-{kv_len}-{off}", kind="ring",
+                 degree=degree, q=q, k=k, v=v, causal=causal, kv_len=kv_len,
+                 q_offset=off)
+            for causal in (True, False) for kv_len in KV_LENS_RING
+            for off in (0, 3)]
+
+
+def _decode_inputs(quantized: bool) -> dict:
+    d = DEC
+    out = {"q": _rng(4, d["b"], d["hq"], d["e"])}
+    for i, n in enumerate(("k", "v")):
+        x = _rng(5 + i, d["b"], d["hkv"], d["s"], d["e"])
+        if quantized:
+            xq, sc = jax_quantize_q8(jnp.asarray(x), -1)
+            out[n], out[n + "_scale"] = np.asarray(xq), np.asarray(sc)
+        else:
+            out[n] = x
+    return out
+
+
+def _decode_cases(degree: int) -> list:
+    return [dict(name=f"decode-{degree}-{dt}-{kv_len}", kind="decode",
+                 degree=degree, kv_len=kv_len, **_decode_inputs(dt == "int8"))
+            for dt in ("fp32", "int8") for kv_len in KV_LENS_DEC]
+
+
+def _slice_cases(degree: int) -> list:
+    out = []
+    for arch in ARCHS:
+        cfs = (None, DROP_CF) if arch == MOE else (None,)
+        for s in LENS:
+            for cf in cfs:
+                prompt = np.random.default_rng(s).integers(
+                    3, 512, size=(BATCH, s)).astype(np.int32)
+                out.append(dict(name=f"slice-{degree}-{arch}-{s}-{cf}",
+                                kind="slice", degree=degree, arch=arch,
+                                prompt=prompt, max_len=MAX_LEN, steps=STEPS,
+                                capacity_factor=cf))
+    out.append(dict(out[0], name=f"slice-{degree}-int8", kv_dtype="int8"))
+    return out
+
+
+def _cell_cases(degree: int) -> list:
+    cfg = dataclasses.replace(get_smoke("internlm2-1.8b"),
+                              compute_dtype=torch.float32)
+    return [dict(name=f"cell-{degree}-{c.kind}", kind="cell", degree=degree,
+                 cfg=cfg, cell=c, steps=3) for c in CELLS]
+
+
+def _cases(world: int) -> list:
+    cases = (_ring_cases(world) + _decode_cases(world) + _slice_cases(world)
+             + _cell_cases(world))
+    if world == 4:      # a group of two of the four ranks
+        cases.append(dict(_slice_cases(2)[0], name="slice-2of4"))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# fixtures
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    return {arch: model_pair(arch, seed=0, jax_impl="xla_full", norm_std=2.0)
+            for arch in ARCHS}
+
+
+@pytest.fixture(scope="module")
+def results(pairs):
+    """case name -> (every rank's result, in rank order); the reference's
+    results (``reference``) are computed while the ranks run."""
+    weights = {a: jax.tree.map(np.asarray, p.jparams)
+               for a, p in pairs.items()}
+    cases = {2: _cases(2), 4: _cases(4)}
+    spawns = {w: Ranks(w, c, weights, target=seq_rank_main)
+              for w, c in cases.items()}
+    try:
+        want = _references(pairs, cases)
+        got = {}
+        for world, spawn in spawns.items():
+            ranks = spawn.results()
+            for c in cases[world]:
+                got[c["name"]] = (c, [rk[c["name"]] for rk in ranks
+                                      if c["name"] in rk])
+        yield got, want
+    finally:
+        for spawn in spawns.values():
+            spawn.close()
+
+
+def _jax_slice_model(pair, cf):
+    cfg = pair.jcfg
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg, jax_build_model(cfg)
+
+
+def _reference_slice(pair, case, decode) -> dict:
+    """The reference's prefill, greedy decode and forward of a slice case,
+    under its tp_sp policy at the case's degree."""
+    cfg, model = _jax_slice_model(pair, case["capacity_factor"])
+    prompt = jnp.asarray(case["prompt"])
+    s = prompt.shape[1]
+    kv_dtype = jnp.int8 if case.get("kv_dtype") == "int8" else None
+    with reference_policy(case["degree"]):
+        logits, cache = model.prefill(pair.jparams, cfg, prompt,
+                                      case["max_len"], kv_dtype=kv_dtype)
+        fwd, aux = model.forward(pair.jparams, prompt, cfg)
+        steps, toks = [logits[:, 0]], []
+        for i in range(case["steps"]):
+            tok = jnp.argmax(steps[-1], -1)[:, None].astype(jnp.int32)
+            toks.append(tok[:, 0])
+            logits, cache = decode[case["capacity_factor"], case["arch"]](
+                pair.jparams, tok, cache, jnp.int32(s + i))
+            steps.append(logits[:, 0])
+    return {"logits": np.asarray(jnp.stack(steps)),
+            "tokens": np.asarray(jnp.stack(toks, 1)),
+            "forward": np.asarray(fwd), "aux": float(aux)}
+
+
+def _emulated_prefill(pair, case) -> np.ndarray:
+    """The port on one device dispatching in the case's groups
+    (``ctx.grouped_as``): the single-card yardstick of a sharded run."""
+    cfg = pair.tcfg
+    if case["capacity_factor"] is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=case["capacity_factor"]))
+    with torch.no_grad(), ctx.grouped_as(case["degree"]):
+        logits, _ = pair.tmodel.prefill(
+            pair.tparams, cfg, torch.from_numpy(case["prompt"]).long(),
+            case["max_len"], kv_dtype=case.get("kv_dtype"))
+    return logits[:, 0].numpy()
+
+
+def _references(pairs, cases) -> dict:
+    decode = {}
+    for arch, pair in pairs.items():
+        for cf in ((None, DROP_CF) if arch == MOE else (None,)):
+            cfg, model = _jax_slice_model(pair, cf)
+            decode[cf, arch] = jax.jit(
+                lambda p, t, c, pos, cfg=cfg, model=model:
+                model.decode_step(p, cfg, t, c, pos))
+    out = {}
+    for case in cases[2] + cases[4]:
+        if case["name"] in out:
+            continue
+        if case["kind"] == "ring":
+            out[case["name"]] = np.asarray(jref.attention(
+                *(jnp.asarray(case[n]) for n in ("q", "k", "v")),
+                causal=case["causal"], kv_len=case["kv_len"],
+                q_offset=case["q_offset"]))
+        elif case["kind"] == "decode":
+            out[case["name"]] = np.asarray(jax_decode(
+                *(jnp.asarray(case[n]) for n in ("q", "k", "v")),
+                jnp.int32(case["kv_len"]),
+                k_scale=case.get("k_scale"), v_scale=case.get("v_scale")))
+        elif case["kind"] == "slice":
+            pair = pairs[case["arch"]]
+            out[case["name"]] = dict(_reference_slice(pair, case, decode),
+                                     emulated=_emulated_prefill(pair, case))
+    return out
+
+
+def _of(kind: str, world: int):
+    return [c["name"] for c in _cases(world) if c["kind"] == kind]
+
+
+# ---------------------------------------------------------------------------
+# ring attention and the decode combine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", _of("ring", 2) + _of("ring", 4))
+def test_ring_attention_matches_reference(results, name):
+    """Each rank's block of the output within 2e-5 of the oracle's; every
+    block visits every rank once, its own first, unchanged; a rank sends
+    and receives its K/V bytes n - 1 times."""
+    got, want = results
+    case, ranks = got[name]
+    n = case["degree"]
+    out = np.concatenate([rk["out"] for rk in ranks], axis=2)
+    np.testing.assert_allclose(out, want[name], atol=RING_TOL, rtol=RING_TOL)
+    kv_bytes = 2 * case["k"].nbytes // n
+    for r, rk in enumerate(ranks):
+        assert [src for src, _ in rk["seen"]] == [(r - t) % n
+                                                  for t in range(n)]
+        assert all(same for _, same in rk["seen"])
+        assert rk["sent"]["ring"] == rk["received"]["ring"] \
+            == (n - 1) * kv_bytes
+        assert sum(rk["sent"].values()) == rk["sent"]["ring"]
+
+
+@pytest.mark.parametrize("name", _of("decode", 2) + _of("decode", 4))
+def test_sharded_decode_attention_matches_reference(results, name):
+    """Every rank's combined output within 2e-5 of the reference's
+    single-device ``sharded_decode_attention``, the same bits on every
+    rank; the combine all-gathers one (B, Hkv, G, E + 2) fp32 partial."""
+    got, want = results
+    case, ranks = got[name]
+    for rk in ranks:
+        np.testing.assert_allclose(rk["out"], want[name], atol=RING_TOL,
+                                   rtol=RING_TOL)
+        np.testing.assert_array_equal(rk["out"], ranks[0]["out"])
+        d = DEC
+        assert rk["sent"]["combine"] == ((case["degree"] - 1) * d["b"]
+                                         * d["hq"] * (d["e"] + 2) * 4)
+
+
+# ---------------------------------------------------------------------------
+# the whole slice
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", _of("slice", 2) + _of("slice", 4))
+def test_slice_matches_reference(results, pairs, name):
+    """prefill + 8 greedy decode steps: every rank's logits within 1e-4
+    (an int8 cache: 2e-2) of the reference's (under its tp_sp grouping),
+    its greedy tokens the
+    reference's, the same bits on every rank; forward's logits and aux
+    too; the single-card grouped run (``grouped_as``) is the reference's
+    prefill within 1e-4; the cache block is max_len / n rows; a rank
+    holds its E / n experts."""
+    got, want = results
+    case, ranks = got[name]
+    ref = want[name]
+    n = case["degree"]
+    assert len(ranks) == n
+    cfg = pairs[case["arch"]].tcfg
+    tol = INT8_TOL if case.get("kv_dtype") else TOL
+    for rk in ranks:
+        np.testing.assert_allclose(rk["logits"], ref["logits"], atol=tol,
+                                   rtol=tol)
+        np.testing.assert_array_equal(rk["tokens"], ref["tokens"])
+        np.testing.assert_array_equal(rk["logits"], ranks[0]["logits"])
+        np.testing.assert_allclose(rk["forward"], ref["forward"], atol=TOL,
+                                   rtol=TOL)
+        assert abs(rk["aux"] - ref["aux"]) <= TOL * max(1.0, abs(ref["aux"]))
+        assert set(rk["cache_shapes"]) == {
+            (BATCH, cfg.num_kv_heads, MAX_LEN // n, cfg.hd)}
+        if cfg.moe is not None:
+            assert rk["expert_shape"][0] == cfg.moe.num_experts // n
+    np.testing.assert_allclose(ref["emulated"], ref["logits"][0], atol=TOL,
+                               rtol=TOL)
+
+
+def _slice_bytes(cfg, case, rank: int) -> tuple[dict, dict]:
+    """(prefill, decode) bytes a rank's collectives send, from the shapes."""
+    n, s = case["degree"], case["prompt"].shape[1]
+    layers, f32 = cfg.num_layers, 4
+    split = s % n == 0
+    pre = dict.fromkeys(ctx.KINDS, 0)
+    dec = dict.fromkeys(ctx.KINDS, 0)
+    if split:
+        kv = 2 * BATCH * cfg.num_kv_heads * (s // n) * cfg.hd * f32
+        pre["ring"] = layers * (n - 1) * kv
+        if rank == n - 1:
+            pre["bcast"] = (n - 1) * BATCH * cfg.vocab_size * f32
+    dec["combine"] = (case["steps"] * layers * (n - 1) * BATCH
+                      * cfg.num_heads * (cfg.hd + 2) * f32)
+    m = cfg.moe
+    if m is not None:
+        cf = case["capacity_factor"] or m.capacity_factor
+        e_loc = m.num_experts // n
+
+        def cap(t):
+            return max(4, int(cf * t * m.top_k / m.num_experts))
+
+        d = cfg.d_model
+        if split:
+            buf = m.num_experts * cap(BATCH * s // n) * d * f32
+            pre["a2a"] = layers * 2 * buf * (n - 1) // n
+            pre["gather"] = layers * (n - 1) * 2 * m.num_experts * f32
+        else:
+            pre["gather"] = layers * (n - 1) * e_loc * cap(BATCH * s) * d * f32
+        dec["gather"] = (case["steps"] * layers * (n - 1) * e_loc
+                         * cap(BATCH) * d * f32)
+    return pre, dec
+
+
+@pytest.mark.parametrize("name", _of("slice", 2) + _of("slice", 4))
+def test_slice_bytes_match_shapes(results, pairs, name):
+    """Each rank's bytes by kind: the ring's n - 1 K/V blocks a layer, the
+    last row's logits broadcast by their owner, the decode combine, and
+    for the MoE the two expert all-to-alls and the aux terms' gather (or,
+    ungrouped, the expert outputs' gather)."""
+    got, _ = results
+    case, ranks = got[name]
+    cfg = pairs[case["arch"]].tcfg
+    for r, rk in enumerate(ranks):
+        pre, dec = _slice_bytes(cfg, case, r)
+        assert rk["prefill_sent"] == pre
+        assert rk["decode_sent"] == dec
+
+
+# ---------------------------------------------------------------------------
+# run_cell
+# ---------------------------------------------------------------------------
+
+
+def _one_card_cell(cell, steps: int) -> np.ndarray:
+    """The cell's logits on one device with no policy."""
+    cfg = dataclasses.replace(get_smoke("internlm2-1.8b"),
+                              compute_dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    b, s = cell.global_batch, cell.seq_len
+    with torch.no_grad():
+        if cell.kind == "prefill":
+            tokens = cell_tokens(cfg, b, s, seed=1, device="cpu")
+            return model.prefill(params, cfg, tokens, s)[0].numpy()
+        cache = seeded_cache(cfg, b, s, s - steps, seed=2, device="cpu")
+        tokens = cell_tokens(cfg, b, steps, seed=3, device="cpu")
+        return decode_steps(model, params, cache, tokens, s - steps,
+                            torch.device("cpu"))[0].numpy()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_run_cell(results, world, kind):
+    """A prefill and a decode cell on the ranks give the one-device
+    logits within 1e-4 and record the policy, degree, model flops and
+    bytes by kind (device numbers "not measured" on the CPU); a train
+    cell raises."""
+    from repro_torch.analysis.flops import model_flops
+
+    got, _ = results
+    case, ranks = got[f"cell-{world}-{kind}"]
+    if kind == "train":
+        assert all("ROADMAP A10" in rk["raised"] for rk in ranks)
+        return
+    want = _one_card_cell(case["cell"], case["steps"])
+    for r, rk in enumerate(ranks):
+        rec = rk["record"]
+        np.testing.assert_allclose(rk["logits"], want, atol=TOL, rtol=TOL)
+        assert rec["policy"] == ("sp_rep" if kind == "prefill" else "tp_sp")
+        assert (rec["degree"], rec["rank"]) == (world, r)
+        assert rec["model_flops"] == model_flops(case["cfg"], case["cell"],
+                                                 causal=True)
+        assert rec["peak_mem_bytes"] == "not measured"
+        assert rec["step_device_ms"] == "not measured"
+        assert len(rec["step_wall_s"]) == (1 if kind == "prefill" else 3)
+        key = "ring" if kind == "prefill" else "combine"
+        assert rec["sent_bytes"][key] > 0
+
+
+# ---------------------------------------------------------------------------
+# in this process
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("degree", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["tp_sp", "sp_rep", "fsdp"])
+def test_token_groups_match_reference(degree, kind):
+    """(g_b, g_s) for batches and lengths the degree divides or not."""
+    for b in (1, 2, 4, 6):
+        for s in (1, 12, 25, 32):
+            with jctx.sharding_policy(StandInMesh(degree), kind):
+                want = jmoe._token_groups(b, s)
+            with sharding_policy(SeqShard(None, 0, degree), kind):
+                assert tmoe._token_groups(b, s) == want
+            assert tmoe.token_groups(b, s, degree, kind) == want
+    with ctx.grouped_as(degree):
+        assert tmoe._token_groups(2, 32) == (1, degree)
+    assert tmoe._token_groups(2, 32) == (1, 1)
+
+
+def _ref_model_dim(spec, shift: int):
+    for dim, axes in enumerate(tuple(spec)):
+        names = (axes,) if isinstance(axes, str) else (axes or ())
+        if "model" in names:
+            return dim - shift
+    return None
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+@pytest.mark.parametrize("policy", ["tp_sp", "sp_rep", "fsdp"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_specs_match_reference(arch, policy, degree):
+    """Every parameter's split dim is the one the reference's fitted spec
+    gives its 'model' axis (its stacked axis taken off); the optimizer
+    moments follow; the batch is whole outside fsdp."""
+    jcfg = jax_get_smoke(arch)
+    shapes = jax.eval_shape(
+        lambda: jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    jspecs = jsharding.param_specs(shapes, StandInMesh(degree), policy)
+    want = {}
+    for kp, spec in jax.tree_util.tree_flatten_with_path(
+            jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)
+    )[0]:
+        path = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in kp)
+        stacked = path.startswith("units/") or "encoder/" in path
+        want[path] = _ref_model_dim(spec, int(stacked))
+    tcfg = get_smoke(arch)
+    params = build_model(tcfg).init(0, device="cpu")
+    specs = param_specs(params, policy=policy, degree=degree)
+    got = dict(leaves_with_paths(specs))
+    for path, _ in leaves_with_paths(params):
+        assert got[path] == want[reference_leaf(path, tcfg)], path
+    opt = opt_specs(specs)
+    assert opt["mu"] is specs and opt["nu"] is specs and opt["step"] is None
+    ref_batch = jsharding.batch_specs(StandInMesh(degree))
+    assert all(_ref_model_dim(s, 0) is None for s in ref_batch.values())
+    assert batch_specs(policy=policy) == {
+        "tokens": 0 if policy == "fsdp" else None,
+        "labels": 0 if policy == "fsdp" else None}
+    assert batch_specs(policy="fsdp", batch=3, degree=degree)["tokens"] \
+        is None
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_choose_policy_matches_reference(arch, shape):
+    assert choose_policy(get_arch(arch), SHAPES[shape]) == \
+        jax_choose_policy(jax_get_arch(arch), JAX_SHAPES[shape])
+
+
+def test_local_params_cut_the_experts_only():
+    cfg = get_smoke(MOE)
+    params = build_model(cfg).init(0, device="cpu")
+    mine = local_params(params, rank=1, degree=4)
+    e = cfg.moe.num_experts
+    for (path, p), (_, q) in zip(leaves_with_paths(params),
+                                 leaves_with_paths(mine)):
+        if path.endswith(("ffn/w_gate", "ffn/w_up", "ffn/w_down")):
+            assert torch.equal(q, p[e // 4:e // 2])
+        else:
+            assert q is p
+    with pytest.raises(ValueError, match="experts do not split"):
+        local_params(params, rank=0, degree=3)
+
+
+def test_rows_rule():
+    """A rank's rows: its block where the degree divides, all rows where
+    it does not; fsdp splits the batch; no policy is the identity."""
+    x = torch.arange(2 * 8 * 3).reshape(2, 8, 3)
+    heads = torch.arange(4 * 2 * 8 * 1).reshape(4, 2, 8, 1)
+    assert ctx.seq_sharded_activations(x) is x
+    with sharding_policy(SeqShard(None, 1, 4)):
+        assert torch.equal(ctx.seq_sharded_activations(x), x[:, 2:4])
+        assert torch.equal(ctx.seq_sharded_heads(heads), heads[:, :, 2:4])
+        assert ctx.replicated_heads(heads) is heads
+        assert ctx.seq_slice(6) == slice(0, 6)
+        assert ctx.batch_axes() == () and ctx.policy_kind() == "tp_sp"
+        with sharding_policy(SeqShard(None, 1, 4), "fsdp"):
+            assert torch.equal(ctx.seq_sharded_activations(heads), heads[1:2])
+            assert torch.equal(ctx.replicated_heads(heads), heads[1:2])
+            assert ctx.batch_axes() == ("model",)
+        assert ctx.policy_kind() == "tp_sp"
+    assert ctx.seq_shard_state() is None
+    with pytest.raises(ValueError, match="unknown sharding policy"):
+        with sharding_policy(SeqShard(None, 0, 1), "dp"):
+            pass
+
+
+@pytest.mark.parametrize("arch", REFUSED)
+def test_policy_refuses_other_archs(arch):
+    cfg = get_smoke(arch)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = torch.ones((1, 4), dtype=torch.long)
+    with sharding_policy(SeqShard(None, 0, 1)), pytest.raises(
+            NotImplementedError, match="ROADMAP A10"):
+        model.prefill(params, cfg, tokens, 8)
+
+
+def test_policy_refuses_fsdp_and_training():
+    cfg = dataclasses.replace(get_smoke("internlm2-1.8b"),
+                              compute_dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = torch.ones((1, 4), dtype=torch.long)
+    with sharding_policy(SeqShard(None, 0, 1), "fsdp"), pytest.raises(
+            NotImplementedError, match="fsdp"):
+        model.prefill(params, cfg, tokens, 8)
+    params["embed"].requires_grad_(True)
+    with sharding_policy(SeqShard(None, 0, 1)), pytest.raises(
+            NotImplementedError, match="training across devices"):
+        model.forward(params, tokens, cfg)
+
+
+def test_unembed_takes_the_embed_rule_as_in_the_reference():
+    """C17: the reference's first-match rules give an untied unembedding
+    (D, V) the embedding's ("model", None), so its d_model rows split;
+    the port keeps that order."""
+    cfg = get_smoke("deepseek-coder-33b")
+    assert not cfg.tie_embeddings
+    params = build_model(cfg).init(0, device="cpu")
+    assert param_specs(params, degree=2)["unembed"] == 0
+    assert jsharding.param_spec("unembed", 2, is_moe_expert=False) == \
+        jax.sharding.PartitionSpec("model", None)

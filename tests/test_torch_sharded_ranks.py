@@ -156,14 +156,18 @@ def _rank_main(rank: int, world: int, store: str, out_dir: str,
 class Ranks:
     """``world`` gloo ranks serving ``cases``, started at once
     (``torch.multiprocessing``, the spawn method), so that the caller
-    can work while they run."""
+    can work while they run. ``target(rank, world, store, out_dir, cases,
+    weights)`` is each rank's function (default: serve the cases through
+    the sharded engine); it writes ``rank{r}.pkl`` into ``out_dir``."""
 
-    def __init__(self, world: int, cases: list, weights: dict):
+    def __init__(self, world: int, cases: list, weights: dict,
+                 target=None):
         self.world = world
         self._tmp = tempfile.TemporaryDirectory()
         store = os.path.join(self._tmp.name, "store")
         self._ctx = mp.spawn(
-            _rank_main, args=(world, store, self._tmp.name, cases, weights),
+            target or _rank_main,
+            args=(world, store, self._tmp.name, cases, weights),
             nprocs=world, join=False)
 
     def results(self) -> list[dict]:
