@@ -123,38 +123,67 @@ Phases, each printing one JSON line:
    kernels phase adds B5, B6 and B7 (bf16 and int8 pools) on 4 and 2 of
    the 8 KV heads, the rows the sharded path launches: a head slice's
    call with the model's split plan equals the full call's slice bit for
-   bit, with its own plan the difference is recorded. ``python3
-   chip_smoke.py --only sharded`` runs the build, these rows and this
-   phase alone;
+   bit, with its own plan the difference is recorded. Then the
+   head-block ring (``chunk_route="ring"``, ``distributed/paged.
+   ring_paged_prefill``: every chunk's Q rows split over the ranks, each
+   rank's heads' pages gathered into a slab that passes round the ring,
+   a hop of B5 on each slab for its head slot) on the continuous phase's
+   16 requests at 6 of the 24 layers (RING_LAYERS): degree 2 on bf16 and
+   int8 pools, degree 4 on bf16, and degree 2 at FP32_LAYERS in fp32;
+   the tokens must equal the single-card serve's at that depth bit for
+   bit where the B5_ring rows (below) found a hop's rows the single
+   card's B5 rows bit for bit (else the first-token logits are held to
+   the bf16 single card's within LOGITS_RTOL, int8 INT8_LOGITS_RTOL, and
+   the differing tokens counted), the fp32 tokens always; each rank's
+   passes and slab bytes must be the shapes', and its B5 launches n per
+   layer a chunk. The kernels phase adds the B5_ring rows
+   (``paged_prefill_ring``, bf16 and int8 pools): a hop of the last rank
+   of two, every head slot in turn on a slab of 4 heads with an identity
+   table, held to its plain version, the rank's assembled rows beside two
+   planted faults (hops writing each other's head slots, a skipped hop)
+   the rows limit must reject, and each hop against the single card's B5
+   rows (the bitwise verdict). ``python3 chip_smoke.py --only sharded``
+   runs the build, these rows and this phase alone;
 11b. seq_sharded — the reference's sequence-sharding serving policy
    (``distributed/ctx.sharding_policy``, sp_rep for a small dense
-   prefill, tp_sp otherwise), one process a rank as in phase 11, weights
-   whole on every rank but the MoE experts: internlm2-1.8b at degrees 2
-   and 4 through ``launch/dryrun.run_cell`` — prefill_32k (1 x 32768, its
-   batch of 32 cut to 1; ``ring_attention``) and 16 decode steps of
-   seeded tokens on the split cache of 32784 rows (blocks of 16392 or
-   8196 rows against prompt rows of 16384 or 8192), decode_32k (batch 8,
-   its 128 cut; a cache of 32768 rows holding 32760 seeded rows; 8 steps
-   of ``sharded_decode_attention``) — each step's logits within
-   LOGITS_RTOL of the single card's (kernel route) and layer 0's
-   attention rows within BF16_ROW_RTOL of the single card's, a planted
-   fault (the last rank skips rank 0's block on the ring; rank 0's
-   decode partial left out of the combine) rejected by the rows limit,
-   the logits gate's verdict on it recorded, no attention kernel
-   launched and the ring's or combine's bytes counted; an fp32 run at 2
-   layers, a 4096-token prompt, whose greedy tokens equal the single
+   prefill, tp_sp otherwise), one process a rank as in phase 11, sp_rep
+   weights whole on every rank but the MoE experts, tp_sp weights the
+   rank's split of every leaf (``local_params(policy="tp_sp")``, each
+   layer all-gathered whole just before its use): internlm2-1.8b at
+   degrees 2 and 4 through ``launch/dryrun.run_cell`` — prefill_32k (1 x
+   32768, its batch of 32 cut to 1; sp_rep; ``ring_attention``) and 16
+   decode steps of seeded tokens on the split cache of 32784 rows
+   (blocks of 16392 or 8196 rows against prompt rows of 16384 or 8192),
+   decode_32k (tp_sp, on split weights; batch 8, its 128 cut; a cache of
+   32768 rows holding 32766 seeded rows; 2 steps of
+   ``sharded_decode_attention``, 8 before the weights were split) — each
+   step's logits within LOGITS_RTOL of the single card's (kernel route)
+   and layer 0's attention rows within BF16_ROW_RTOL of the single
+   card's, a planted fault (the last rank skips rank 0's block on the
+   ring; rank 0's decode partial left out of the combine) rejected by
+   the rows limit, the logits gate's verdict on it recorded, no
+   attention kernel launched and the ring's or combine's bytes counted;
+   decode_32k's split logits bitwise those of the same cell on whole
+   weights, its weight gathers the bytes the shapes give; an fp32 run at
+   2 layers, a 4096-token prompt, whose greedy tokens equal the single
    card's plain route's; then deepseek-moe-16b at full width and depth
-   at degree 2, each rank holding 32 of the 64 experts (drawn whole in
-   turn from seed 0, so two ranks fit one card), 4 x 2048 and 16 decode
-   steps, against the single card's plain route in the same token
+   at degree 2, each rank holding 32 of the 64 experts and its split of
+   the dense leaves (drawn whole in turn from seed 0, so two ranks fit
+   one card), 4 x 2048 and 4 decode steps (16 before its dense weights
+   were split), against the single card's plain route in the same token
    groups (``ctx.grouped_as``): each layer's dropped assignments of the
    rank's group within 2·top_k per differing route of the single
    card's (the routes that differ counted), the logits within
-   LOGITS_RTOL. Per run
+   LOGITS_RTOL; then deepseek-coder-33b decode_32k at full width at
+   degree 4: whole weights at a batch of 2, cut in place to each rank's
+   split, the same cell again (bitwise logits), then 16 sequences
+   (decode_32k's 128 cut), at full depth with a card a rank and at the
+   depth ``coder_plan`` fits (at most 2 layers: the gathers go through
+   host memory) with four ranks on one card, stated in the line. Per run
    and rank: peak memory, prefill and decode-step device ms and wall,
-   bytes sent by collective (ring, combine, a2a, gather, bcast) and the
-   bytes staged through host buffers. ``python3 chip_smoke.py --only
-   seq_sharded`` runs the build and this phase alone;
+   bytes sent by collective (ring, combine, a2a, gather, bcast, weights)
+   and the bytes staged through host buffers. ``python3 chip_smoke.py
+   --only seq_sharded`` runs the build and this phase alone;
 12. moe — full-width, full-depth deepseek-moe-16b (28 layers, 64
    routed experts top-6 and 2 shared, capacity factor 1.25; bf16, random
    weights from seed 0 with the experts' down projections scaled by 1/16,
@@ -304,7 +333,8 @@ B4 also the encdec and vlm phases'; ``mas_streamed_cross``, B2 at a
 whisper decode step's cross-attention shape, counts the B2 launches of
 the encdec phase's decode steps; the ``*_shard`` rows of B5-B7 at a
 rank's heads count every rank's launches of their kernel in the sharded
-phase), the card's
+phase's local-route runs, the B5_ring rows every rank's B5 launches in
+its ring runs), the card's
 name and power limit, and the result. TF32 is switched off for matrix products and
 convolutions so fp32 comparisons see fp32 arithmetic. The script exits
 non-zero, printing no result, when there is no CUDA device or no port
@@ -447,29 +477,64 @@ SHARD_RUNS = (  # (single-card path, degree, kv_dtype, spec_depth)
     ("continuous", 4, None, None),
 )
 SHARD_HEADS = (4, 2)   # a rank's KV heads of internlm2-1.8b at degrees 2, 4
+# The head-block ring (``chunk_route="ring"``, the reference's chunk step
+# on KV-head-sharded pools): (single-card path, degree, kv_dtype), the
+# continuous phase's requests and settings, internlm2 at full width and
+# RING_LAYERS of its 24 layers (every pass a layer goes through host
+# memory under gloo: at 24 layers the four runs took 280 s on one H100);
+# "fp32" is internlm2 at full width, FP32_LAYERS layers, in fp32. The
+# ring's kernel rows take RING_DEGREE.
+SHARD_RING_RUNS = (
+    ("continuous", 2, None),
+    ("int8_continuous", 2, "int8"),
+    ("continuous", 4, None),
+    ("fp32", 2, None),
+)
+RING_LAYERS = 6
+RING_DEGREE = 2
 # A 1024-token table (64 pages): at batch 8 a rank's own split plan for
 # B6 and B7 differs there from the model's, (8, 2) or (16, 1) against
 # (4, 4); at the 4096-token table all three are (16, 4).
 SHARD_SHORT_PAGES = 64
 # Sequence-sharded prefill and decode (the seq_sharded phase): the
-# reference's sp_rep/tp_sp serving policy, one process a rank, weights
-# whole on every rank but the MoE experts. internlm2-1.8b at full width
-# and depth at degrees 2 and 4: prefill_32k (its batch of 32 cut to 1)
-# and SEQ_PREFILL_NEW decode steps after it on the split cache;
-# decode_32k (its batch of 128 cut to 8) on a cache of seeded rows;
-# an fp32 run at SEQ_FP32_LAYERS layers. deepseek-moe-16b at full width
-# and depth at degree 2, experts split, on the moe phase's 4 x 2048.
+# reference's sp_rep/tp_sp serving policy, one process a rank; sp_rep
+# weights whole on every rank but the MoE experts, tp_sp weights the
+# rank's split. internlm2-1.8b at full width and depth at degrees 2 and
+# 4: prefill_32k (sp_rep; its batch of 32 cut to 1) and SEQ_PREFILL_NEW
+# decode steps after it on the split cache; decode_32k (tp_sp; its batch
+# of 128 cut to 8) on a cache of seeded rows; an fp32 run at
+# SEQ_FP32_LAYERS layers. deepseek-moe-16b at full width and depth at
+# degree 2, experts and dense leaves split, on the moe phase's 4 x 2048.
 SEQ_DEGREES = (2, 4)
 SEQ_PREFILL_BATCH = 1
 SEQ_PREFILL_NEW = 16
 SEQ_DECODE_BATCH = 8
-SEQ_DECODE_STEPS = 8
+# 8 steps before the weights were split; each step's gathers go through
+# host memory under gloo (4-11 s a step on one H100), so the split runs
+# take 2
+SEQ_DECODE_STEPS = 2
 SEQ_FP32_LAYERS = 2
 SEQ_FP32_PROMPT = 4096
 SEQ_FP32_NEW = 16
 SEQ_MOE_DEGREE = 2
 SEQ_MOE_WAVE = (4, 2048)
-SEQ_MOE_NEW = 16
+SEQ_MOE_NEW = 4       # 16 before its dense weights were split (3 s a step
+                      # on one H100 over gloo, the gathers through host
+                      # memory)
+# deepseek-coder-33b decode_32k (tp_sp) at full width at degree 4 on the
+# ranks' split weights: a whole-weight run at SEQ_CODER_CHECK_BATCH (the
+# batch whose whole weights fit a rank) that the split run's logits must
+# equal bit for bit, then SEQ_CODER_BATCH sequences (decode_32k's 128
+# cut). Full depth where the ranks have a card each; four ranks on one
+# card take the depth that fits (``coder_plan``), at most
+# SEQ_CODER_SHARED_LAYERS (gloo gathers the weights through host memory).
+SEQ_CODER_ARCH = "deepseek-coder-33b"
+SEQ_CODER_DEGREE = 4
+SEQ_CODER_BATCH = 16
+SEQ_CODER_CHECK_BATCH = 2
+SEQ_CODER_STEPS = 2     # 1 on a shared card (13 s a step at 4 layers, H100)
+SEQ_CODER_SHARED_LAYERS = 2
+SEQ_CODER_RANK_OVERHEAD = 1 << 30   # a rank's context and NCCL buffers
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -517,13 +582,17 @@ ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
             "decode_e256_int8": ("hybrid_wave",),
             **{name + "_shard": ("sharded",) for name in (
                 "paged_decode", "paged_decode_int8", "paged_prefill",
-                "paged_prefill_int8", "paged_verify", "paged_verify_int8")}}
+                "paged_prefill_int8", "paged_verify", "paged_verify_int8")},
+            "paged_prefill_ring": ("sharded_ring",),
+            "paged_prefill_ring_int8": ("sharded_ring",)}
 # The launch counter of a kernel row whose name is not one: the rows of
 # B5-B7 at a rank's heads count their kernels' launches on the sharded
-# path.
-ROW_COUNTER = {name + "_shard": name for name in (
+# path's local-route runs, the B5_ring rows B5's on its ring runs.
+ROW_COUNTER = {**{name + "_shard": name for name in (
     "paged_decode", "paged_decode_int8", "paged_prefill",
-    "paged_prefill_int8", "paged_verify", "paged_verify_int8")}
+    "paged_prefill_int8", "paged_verify", "paged_verify_int8")},
+    "paged_prefill_ring": "paged_prefill",
+    "paged_prefill_ring_int8": "paged_prefill_int8"}
 
 # bf16 kernels against their plain versions: both sum in fp32 and round
 # once to bf16, so a row differs by at most about one bf16 rounding
@@ -1108,6 +1177,8 @@ def phase_kernels(torch, device: dict) -> list[dict]:
     rows += hybrid_rows(torch, rnd, device)
     for quantized in (False, True):
         rows += shard_rows(torch, rnd, cfg, quantized)
+    rows += [ring_rows(torch, rnd, cfg, quantized)
+             for quantized in (False, True)]
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
     for row in rows + [r["blk_q8"] for r in rows if "blk_q8" in r]:
         require(row["row_rel_err"] <= BF16_ROW_RTOL,
@@ -1792,6 +1863,153 @@ def shard_rows(torch, rnd, cfg, quantized: bool) -> list[dict]:
         if name == "paged_prefill":
             rows[-1]["tflops"] = c["flops"] / ms / 1e9
     return rows
+
+
+def ring_rows(torch, rnd, cfg, quantized: bool) -> dict:
+    """B5 as a hop of the head-block ring (``distributed/paged.
+    ring_paged_prefill``, the sharded phase's ``chunk_route="ring"``) at
+    that phase's shapes: the last rank of RING_DEGREE, its 1/n of the
+    late chunk's rows (PAGED_PREFILL[-1]) with every query head, and in
+    turn the slab of each head shard (SHARD_HEADS[0] of internlm2's 8 KV
+    heads, the longest sequence's table gathered from the paged rows'
+    2049-page pools: a pool of max_pages pages), an identity table on
+    the device and the span moved to the rank's first row, bf16 pools or
+    int8 pools with their scales. Each hop is held to its plain version
+    and the rank's assembled rows to the plain hops', rows within
+    BF16_ROW_RTOL, beside two planted faults the limit must reject: hops
+    that write each other's head slots, and a skipped hop (its slot left
+    zero). Each hop's rows against the same slot of the single card's
+    B5 call: bit for bit or not, recorded (it sets the sharded phase's
+    token gate). Timed at one hop."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_prefill_attention as ppre
+
+    hq, hkv, e = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    n, h = RING_DEGREE, SHARD_HEADS[0]
+    require(hkv // h == n, f"{h} heads a rank is not degree {n}")
+    grp, r = hq // hkv, n - 1
+    page, b = CONT["page_size"], CONT["batch_size"]
+    max_pages = CONT["max_len"] // page
+    n_pages = b * max_pages + 1
+    chunk = CONT["chunk_size"]
+    rows = chunk // n
+    dims = (-2, -1) if quantized else None
+    kp, kps = quantized_rows(rnd(hkv, n_pages, page, e), dims)
+    vp, vps = quantized_rows(rnd(hkv, n_pages, page, e), dims)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    seq_table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                 + 1)[:max_pages].to(torch.int32).contiguous()
+    ids = seq_table.long()
+    q0, kv_len, _ = PAGED_PREFILL[-1]
+    span = device_span(torch, q0, kv_len)
+    qp = rnd(hq, chunk, e)
+    q_loc = qp[:, r * rows:(r + 1) * rows]
+    identity = torch.arange(max_pages, dtype=torch.int32, device="cuda")
+    hop_span = span.clone()
+    hop_span[0].add_(r * rows)
+    bq = ops.paged_prefill_blk_q(rows, torch.bfloat16)
+    suffix = "_int8" if quantized else ""
+
+    def slab(src):
+        heads = slice(src * h, (src + 1) * h)
+        out = [kp[heads][:, ids], vp[heads][:, ids]]
+        if quantized:
+            out += [kps[heads][:, ids], vps[heads][:, ids]]
+        else:
+            out += [None, None]
+        return out
+
+    def hop(src, plain=False):
+        k, v, ks, vs = slab(src)
+        q = q_loc[src * h * grp:(src + 1) * h * grp]
+        if plain:
+            return ppre.paged_prefill_attention_plain(
+                q, k, v, identity, hop_span, blk_q=bq, k_scales=ks,
+                v_scales=vs)
+        return ops.paged_prefill_attention(q, k, v, identity, hop_span,
+                                           k_scales=ks, v_scales=vs)
+
+    whole = ops.paged_prefill_attention(qp, kp, vp, seq_table, span,
+                                        k_scales=kps, v_scales=vps)
+    order = [(r - t) % n for t in range(n)]      # the ring's hop order
+    got = {src: hop(src) for src in order}
+    plain = {src: hop(src, plain=True) for src in order}
+    slot = h * grp
+    hops, bitwise = [], True
+    for src in order:
+        check = {"src": src,
+                 "max_abs_err": max_err(got[src], plain[src]),
+                 "row_rel_err": row_rel_err(got[src], plain[src])}
+        one = whole[src * slot:(src + 1) * slot, r * rows:(r + 1) * rows]
+        check["bitwise_vs_one_card"] = bool(torch.equal(got[src], one))
+        check["max_abs_diff_vs_one_card"] = max_err(got[src], one)
+        bitwise &= check["bitwise_vs_one_card"]
+        require(check["row_rel_err"] <= BF16_ROW_RTOL,
+                f"paged_prefill_ring{suffix} hop of head shard {src}: "
+                f"{check}")
+        hops.append(check)
+
+    def assemble(fault=None):
+        out = torch.zeros_like(q_loc)
+        for t, src in enumerate(order):
+            if fault == "skipped" and t == 1:
+                continue
+            # the planted slot fault: every hop writes the next one's slot
+            dst = order[(t + 1) % n] if fault == "wrong_slot" else src
+            out[dst * slot:(dst + 1) * slot] = got[src]
+        return out
+
+    want = assemble()
+    for src in order:
+        want[src * slot:(src + 1) * slot] = plain[src]
+    check = {"max_abs_err": max_err(assemble(), want),
+             "row_rel_err": row_rel_err(assemble(), want),
+             "fault_wrong_slot_row_rel_err": row_rel_err(
+                 assemble("wrong_slot"), want),
+             "fault_skipped_hop_row_rel_err": row_rel_err(
+                 assemble("skipped"), want)}
+    require(check["row_rel_err"] <= BF16_ROW_RTOL,
+            f"paged_prefill_ring{suffix}: the rank's rows {check}")
+    for fault in ("wrong_slot", "skipped_hop"):
+        require(check[f"fault_{fault}_row_rel_err"] > BF16_ROW_RTOL,
+                f"paged_prefill_ring{suffix}: a planted {fault} passes the "
+                f"rows limit: {check}")
+    src = order[0]
+    k, v, ks, vs = slab(src)
+    cols = torch.arange(max_pages * page, device="cuda")
+    pos = q0 + r * rows + torch.arange(rows, device="cuda")
+    mask = ((cols[None, :] <= pos[:, None]) & (cols[None, :] < kv_len)
+            ).view(1, 1, rows, -1)
+    lib = paged_library_call(torch, q_loc[src * slot:(src + 1) * slot][None],
+                             k, v, identity, mask, k_scales=ks, v_scales=vs)
+    pairs = float(sum(min(int(p) + 1, kv_len) for p in pos.tolist()))
+    flops = 4.0 * e * slot * pairs
+    kv_bytes = (2.0 * h * kv_len * e * (1 if quantized else 2)
+                + (2.0 * h * -(-kv_len // page) * 4 if quantized else 0))
+    nbytes = kv_bytes + 2.0 * 2 * slot * rows * e
+    bms, by = bound(flops, nbytes)
+    kern = lambda: hop(src)  # noqa: E731
+    ms = cuda_ms(torch, kern, 50)
+    return {
+        "name": f"paged_prefill_ring{suffix}", "label": f"B5_ring{suffix}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
+        "replaces": ("src/repro/kernels/paged_prefill_attention.py:"
+                     + ("85" if quantized else "52")),
+        "ring_of": "src/repro/distributed/paged.py:61",
+        "launches": 0, **check,
+        "ms": ms, "plain_ms": cuda_ms(torch, lambda: hop(src, True), 3),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(torch, lib, 20),
+        **device_times(torch, kern, lib, 50),
+        "tflops": flops / ms / 1e9,
+        "bitwise_vs_one_card": bitwise, "hops": hops,
+        "shape": {"degree": n, "rank": r, "rows": rows, "hq": slot,
+                  "hkv": h, "slab_pages": max_pages, "page": page, "e": e,
+                  "blk_q": bq, "q_offset": q0 + r * rows, "kv_len": kv_len,
+                  "one_card_chunk": chunk,
+                  "pool": "int8" if quantized else "bf16"},
+    }
 
 
 def tensors_of(tree) -> list:
@@ -3661,13 +3879,32 @@ def collective_probe(torch, dist, dev, rank: int, degree: int) -> dict:
     return {"all_gather": got, "broadcast": int(y)}
 
 
+def ring_counts(cfg, eng, degree: int, kv_dtype) -> tuple[int, int]:
+    """(passes, slab bytes received) of a rank's head-block ring over a
+    serve of ``eng``, from the shapes: n - 1 passes a layer a chunk step,
+    each of the rank's K and V slabs of max_pages pages of Hkv/n heads
+    (int8: with their fp32 scales)."""
+    chunks = sum(1 for step in eng.step_log if step["prefill_in_flight"])
+    hops = chunks * cfg.num_layers * (degree - 1)
+    heads, pages = cfg.num_kv_heads // degree, eng.max_pages
+    row = CONT["page_size"] * cfg.hd
+    if kv_dtype == "int8":
+        slab = 2 * heads * pages * (row + 4)
+    else:
+        slab = 2 * heads * pages * row * cfg.compute_dtype.itemsize
+    return hops, hops * slab
+
+
 def sharded_rank(rank: int, degree: int, backend: str, store: str,
                  out_dir: str, runs: list, checksum: int) -> None:
     """One rank of the sharded phase (a process of its own): join the
     group, build internlm2-1.8b from seed 0, check its weights against the
     parent's, and serve each run through ``ShardedContinuousBatchingEngine``
-    with the launch counts set to 0 just before and read just after.
-    Writes its report to ``out_dir``, then fails on any gate."""
+    on its chunk route with the launch counts set to 0 just before and
+    read just after. A ring run also keeps its first-token logits
+    (``watch_first_logits``), and its passes, slab bytes and B5 launches
+    are held to the shapes. Writes its report to ``out_dir``, then fails
+    on any gate."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3696,13 +3933,25 @@ def sharded_rank(rank: int, degree: int, backend: str, store: str,
         ShardedContinuousBatchingEngine(
             full["model"], full["params"], shard=degree, device=dev,
             **CONT).serve(warm_up_requests(
-                [np.asarray(p, np.int32) for p in runs[0][3]]))
-        for path, kv_dtype, spec, prompts, want in runs:
+                [np.asarray(p, np.int32) for p in runs[0]["prompts"]]))
+        fp32 = None
+        for run in runs:
+            path, kv_dtype, route = run["path"], run["kv_dtype"], run["route"]
+            if path == "fp32":
+                if fp32 is None:
+                    fp32 = fp32_model(torch, full["model"].cfg)[1:]
+                model, params = fp32
+            elif route == "ring":
+                model, params = cut_depth(full, RING_LAYERS)
+            else:
+                model, params = full["model"], full["params"]
             eng = ShardedContinuousBatchingEngine(
-                full["model"], full["params"], shard=degree, device=dev,
-                kv_dtype=kv_dtype, spec_depth=spec, **CONT)
-            reqs = make_requests([np.asarray(p, np.int32) for p in prompts],
-                                 CONT_NEW_TOKENS)
+                model, params, shard=degree, device=dev, kv_dtype=kv_dtype,
+                spec_depth=run["spec"], chunk_route=route, **CONT)
+            prompts = [np.asarray(p, np.int32) for p in run["prompts"]]
+            reqs = make_requests(prompts, CONT_NEW_TOKENS)
+            first = (watch_first_logits(model, eng, dict(enumerate(prompts)))
+                     if run["first_logits"] is not None else None)
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             ops.reset_launch_counts()
@@ -3712,23 +3961,54 @@ def sharded_rank(rank: int, degree: int, backend: str, store: str,
             wall = time.perf_counter() - t0
             counts = ops.launch_counts()
             differ = [r.rid for r in reqs
-                      if out[r.rid].tolist() != want[r.rid]]
+                      if out[r.rid].tolist() != run["want"][r.rid]]
             stats = eng.shard_stats
-            report["runs"].append({
-                "path": path, "kv_dtype": kv_dtype, "spec_depth": spec,
-                "wall_s": wall, "rids_differing": differ, **stats,
-                **step_split(eng),
+            rec = {
+                "path": path, "kv_dtype": kv_dtype, "spec_depth": run["spec"],
+                "chunk_route": route, "wall_s": wall,
+                "rids_differing": differ,
+                "tokens_differing": sum(
+                    int(np.sum(out[r.rid] != np.asarray(run["want"][r.rid])))
+                    for r in reqs if r.rid in differ),
+                **stats, **step_split(eng),
                 "steps": len(eng.step_log),
                 "tokens": sum(len(v) for v in out.values()),
                 "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                "launches": counts})
-            failures += [f"rank {rank} {path}: tokens differ from one card's "
-                         f"for rids {differ}"] if differ else []
-            failures += [f"rank {rank} {path}: {stats['result_mismatch']} "
-                         f"results differ from rank 0's"
-                         ] if stats["result_mismatch"] else []
-            failures += [f"rank {rank} {path}: kernel {name} not launched"
-                         for name in PATH_KERNELS[path] if not counts[name]]
+                "launches": counts}
+            tag = f"rank {rank} {path} ({route})"
+            if route == "ring":
+                hops, ring_bytes = ring_counts(model.cfg, eng, degree,
+                                               kv_dtype)
+                b5 = "paged_prefill_int8" if kv_dtype else "paged_prefill"
+                rec.update(ring_hops_from_shapes=hops,
+                           ring_bytes_from_shapes=ring_bytes,
+                           b5_launches=counts[b5])
+                failures += [f"{tag}: ring passes {stats['ring_hops']} / "
+                             f"{stats['ring_bytes']} B, the shapes give "
+                             f"{hops} / {ring_bytes}"] if (
+                    stats["ring_hops"], stats["ring_bytes"]) != (
+                    hops, ring_bytes) or not hops else []
+                # n launches of B5 a layer a chunk: n - 1 passes and the
+                # rank's own slab
+                failures += [f"{tag}: {counts[b5]} B5 launches, the ring's "
+                             f"{hops} passes give {hops * degree // (degree - 1)}"
+                             ] if counts[b5] != hops * degree // (degree - 1) \
+                    else []
+            if first is not None:
+                rec["first_token_logits"] = logits_vs(
+                    {rid: x.cpu() for rid, x in first.items()},
+                    run["first_logits"], range(len(prompts)),
+                    run["logits_rtol"] or float("inf"))
+            if run["tokens_gate"]:
+                failures += [f"{tag}: tokens differ from one card's for "
+                             f"rids {differ}"] if differ else []
+            failures += [f"{tag}: {stats['result_mismatch']} results differ "
+                         f"from rank 0's"] if stats["result_mismatch"] else []
+            failures += [f"{tag}: kernel {name} not launched"
+                         for name in PATH_KERNELS[path if path != "fp32"
+                                                  else "continuous"]
+                         if not counts[name]]
+            report["runs"].append(rec)
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(report, f)
         require(not failures, "; ".join(failures))
@@ -3736,34 +4016,97 @@ def sharded_rank(rank: int, degree: int, backend: str, store: str,
         dist.destroy_process_group()
 
 
-def phase_sharded(torch, full: dict) -> dict:
+def cut_depth(full: dict, layers: int) -> tuple:
+    """(model, params) of ``full``'s first ``layers`` layers: the same
+    tensors, no copy."""
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(full["model"].cfg, num_layers=layers)
+    return build_model(cfg), dict(full["params"],
+                                  layers=full["params"]["layers"][:layers])
+
+
+def ring_yardsticks(torch, full: dict) -> dict:
+    """The single-card serves the ring runs are held to, each a
+    ``one_card_record`` by path: the continuous phase's requests at
+    RING_LAYERS layers on bf16 pools, with their first-token logits
+    (``watch_first_logits``, CPU tensors), and on int8 pools; and at
+    FP32_LAYERS layers in fp32."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    prompts = continuous_prompts(full["model"].cfg.vocab_size)
+    model, params = cut_depth(full, RING_LAYERS)
+    out = {}
+    for path, kv_dtype in (("continuous", None), ("int8_continuous", "int8"),
+                           ("fp32", None)):
+        if path == "fp32":
+            _, model, params = fp32_model(torch, full["model"].cfg)
+        eng = ContinuousBatchingEngine(model, params, device="cuda",
+                                       kv_dtype=kv_dtype, **CONT)
+        first = (watch_first_logits(model, eng, dict(enumerate(prompts)))
+                 if path == "continuous" else None)
+        t0 = time.perf_counter()
+        tokens = eng.serve(make_requests(prompts, CONT_NEW_TOKENS))
+        torch.cuda.synchronize()
+        out[path] = one_card_record(eng, prompts, tokens,
+                                    time.perf_counter() - t0)
+        if first is not None:
+            out["first_logits"] = {rid: x.cpu() for rid, x in first.items()}
+    return out
+
+
+def phase_sharded(torch, full: dict, ring_bitwise: dict) -> dict:
     """KV-head-sharded continuous serving of full-width internlm2-1.8b
     over 2 and 4 ranks, each rank a process: NCCL with a card a rank where
     the machine has as many cards, else gloo with every rank on card 0.
     Each rank's tokens must equal the single-card serve's bit for bit
     (SHARD_RUNS), no step's result may differ from rank 0's, and each
-    rank's B5, B6 and B7 launch counts must rise. A rank's failure fails
-    the phase: ``mp.spawn`` raises it here."""
+    rank's B5, B6 and B7 launch counts must rise. Then SHARD_RING_RUNS on
+    the head-block ring: the same gates but for the tokens, which must
+    equal the single card's where ``ring_bitwise`` (pool -> the B5_ring
+    rows' verdict) says a hop's rows are the single card's B5 rows bit
+    for bit, and else are recorded beside the first-token logits held to
+    the bf16 single card's within LOGITS_RTOL (int8 pools:
+    INT8_LOGITS_RTOL); fp32 tokens always equal; passes, slab bytes and
+    B5 launches as the shapes give. A rank's failure fails the phase:
+    ``mp.spawn`` raises it here."""
     import tempfile
 
     import torch.multiprocessing as mp
 
     checksum = weights_checksum(torch, full["params"])
     launches = dict.fromkeys(PATH_KERNELS["sharded"], 0)
+    ring_launches = dict.fromkeys(PATH_KERNELS["sharded"], 0)
+    ring_yard = ring_yardsticks(torch, full)
     one_card = {}
     torch.cuda.empty_cache()        # the ranks share this card under gloo
     lines = []
-    for degree in sorted({d for _, d, _, _ in SHARD_RUNS}):
+    degrees = sorted({d for _, d, _, _ in SHARD_RUNS}
+                     | {d for _, d, _ in SHARD_RING_RUNS})
+    for degree in degrees:
         runs = []
-        for path, d, kv_dtype, spec in SHARD_RUNS:
-            if d == degree:
-                rec = shard_yardstick(torch, full, path)
-                one_card[path] = {k: rec[k] for k in (
-                    "wall_s", "step_mean_s", "host_sync_s")}
-                runs.append((path, kv_dtype, spec,
-                             [p.tolist() for p in rec["prompts"]],
-                             [rec["tokens"][rid].tolist()
-                              for rid in range(len(rec["prompts"]))]))
+        todo = [(path, kv_dtype, spec, "local")
+                for path, d, kv_dtype, spec in SHARD_RUNS if d == degree]
+        todo += [(path, kv_dtype, None, "ring")
+                 for path, d, kv_dtype in SHARD_RING_RUNS if d == degree]
+        for path, kv_dtype, spec, route in todo:
+            rec = (ring_yard[path] if route == "ring"
+                   else shard_yardstick(torch, full, path))
+            one_card[path, route] = {k: rec[k] for k in (
+                "wall_s", "step_mean_s", "host_sync_s")}
+            ring = route == "ring" and path != "fp32"
+            tokens_gate = not ring or ring_bitwise["int8" if kv_dtype
+                                                   else "bf16"]
+            runs.append({
+                "path": path, "kv_dtype": kv_dtype, "spec": spec,
+                "route": route,
+                "prompts": [p.tolist() for p in rec["prompts"]],
+                "want": [rec["tokens"][rid].tolist()
+                         for rid in range(len(rec["prompts"]))],
+                "tokens_gate": tokens_gate,
+                "first_logits": ring_yard["first_logits"] if ring else None,
+                "logits_rtol": (None if tokens_gate else INT8_LOGITS_RTOL
+                                if kv_dtype else LOGITS_RTOL)})
         cards = torch.cuda.device_count()
         backend = "nccl" if cards >= degree else "gloo"
         t0 = time.perf_counter()
@@ -3774,36 +4117,57 @@ def phase_sharded(torch, full: dict) -> dict:
             ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                      for r in range(degree)]
         spawn_s = time.perf_counter() - t0
-        for i, (path, kv_dtype, spec, _, _) in enumerate(runs):
+        for i, run in enumerate(runs):
             per = [rk["runs"][i] for rk in ranks]
+            route = run["route"]
             for rk in per:
                 for name in launches:
-                    launches[name] += rk["launches"][name]
+                    (launches if route == "local" else ring_launches)[
+                        name] += rk["launches"][name]
             line = {
-                "phase": "sharded", "path": path, "backend": backend,
+                "phase": "sharded", "path": run["path"], "backend": backend,
                 "cards": degree if backend == "nccl" else 1,
-                "degree": degree, "kv_dtype": kv_dtype, "spec_depth": spec,
+                "degree": degree, "kv_dtype": run["kv_dtype"],
+                "spec_depth": run["spec"], "chunk_route": route,
                 "arch": ARCH, **CONT, "requests": CONT_REQUESTS,
                 "new_tokens": CONT_NEW_TOKENS,
                 "tokens_equal_one_card": all(not rk["rids_differing"]
                                              for rk in per),
+                "tokens_gate": run["tokens_gate"],
+                "tokens_differing": [rk["tokens_differing"] for rk in per],
                 "allgather_bytes": [rk["allgather_bytes"] for rk in per],
                 "result_mismatch": [rk["result_mismatch"] for rk in per],
                 "ring_hops": [rk["ring_hops"] for rk in per],
+                "ring_bytes": [rk["ring_bytes"] for rk in per],
                 "peak_gb": [rk["peak_mem_bytes"] / 1e9 for rk in per],
                 "wall_s": [rk["wall_s"] for rk in per],
                 "step_mean_s": [rk["step_mean_s"] for rk in per],
                 "host_sync_s": [rk["host_sync_s"] for rk in per],
-                "one_card": one_card[path],
+                "one_card": one_card[run["path"], route],
+                "layers": (FP32_LAYERS if run["path"] == "fp32" else
+                           RING_LAYERS if route == "ring" else
+                           full["model"].cfg.num_layers),
                 "steps": per[0]["steps"], "tokens": per[0]["tokens"],
                 "launches": [{k: v for k, v in rk["launches"].items() if v}
                              for rk in per],
                 "weights_checksum": checksum,
                 "probe": ranks[0]["probe"], "spawn_s": spawn_s,
             }
+            if route == "ring":
+                line.update({k: [rk[k] for rk in per] for k in (
+                    "ring_hops_from_shapes", "ring_bytes_from_shapes",
+                    "b5_launches")})
+                if "first_token_logits" in per[0]:
+                    line["first_token_logits_max_abs_err"] = [
+                        max(x["max_abs_err"] for x in rk["first_token_logits"])
+                        for rk in per]
+                    line["first_token_argmax_equal"] = [
+                        sum(x["argmax_equal"] for x in rk[
+                            "first_token_logits"]) for rk in per]
             emit(line)
             lines.append(line)
-    return {"phase": "sharded", "runs": lines, "launches": launches}
+    return {"phase": "sharded", "runs": lines, "launches": launches,
+            "ring_launches": ring_launches}
 
 
 def first_output(module, name: str, run):
@@ -3944,6 +4308,7 @@ def seq_dense_runs(torch, model, params, shard, yard: dict, failures: list
     from repro_torch.configs import SHAPES
     from repro_torch.distributed import ring_attention as ring_mod
     from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.distributed.sharding import local_params
     from repro_torch.kernels import ops
     from repro_torch.launch.dryrun import cell_tokens, decode_steps, run_cell
     from repro_torch.models import attention as attn_mod
@@ -3994,9 +4359,10 @@ def seq_dense_runs(torch, model, params, shard, yard: dict, failures: list
     ring_mod.attend_hop = skip_block0
     try:
         with torch.no_grad(), sharding_policy(shard, rec["policy"]):
-            (flogits, _), fattn0 = first_output(
+            (flogits, fcache), fattn0 = first_output(
                 attn_mod, "attention",
                 lambda: model.prefill(params, cfg, tokens, s))
+        del fcache              # not to outlive the fault's check
     finally:
         ring_mod.attend_hop = real_hop
     rows_check = seq_rows_check(attn0, want0,
@@ -4028,11 +4394,15 @@ def seq_dense_runs(torch, model, params, shard, yard: dict, failures: list
                  "kernel_launches": launches})
     torch.cuda.empty_cache()
 
-    # decode_32k on a cache of seeded rows, then the dropped partial
+    # decode_32k on a cache of seeded rows, on the rank's tp_sp split of
+    # the weights (each layer gathered whole on use), then the dropped
+    # partial, then the same cell on whole weights: the same logits bit
+    # for bit
+    split = local_params(params, rank=r, degree=n, policy="tp_sp")
     ops.reset_launch_counts()
     (rec, out), attn0 = first_output(
         attn_mod, "decode_attention", lambda: run_cell(
-            cfg, "decode_32k", shard, batch=SEQ_DECODE_BATCH, params=params,
+            cfg, "decode_32k", shard, batch=SEQ_DECODE_BATCH, params=split,
             steps=SEQ_DECODE_STEPS, device=dev))
     launches = launched_kernels(ops.launch_counts())
     checks = [seq_logits(g, w) for g, w in
@@ -4043,13 +4413,24 @@ def seq_dense_runs(torch, model, params, shard, yard: dict, failures: list
     attn_mod.combine_partials = lambda parts: real_combine(parts[1:])
     try:
         with torch.no_grad(), sharding_policy(shard, rec["policy"]):
-            (flogits, _), fattn0 = first_output(
+            (flogits, fcache), fattn0 = first_output(
                 attn_mod, "decode_attention", lambda: model.decode_step(
-                    params, cfg, tok0, out["cache"], d - SEQ_DECODE_STEPS))
+                    split, cfg, tok0, out["cache"], d - SEQ_DECODE_STEPS))
+        del fcache              # the split run's cache: freed below
     finally:
         attn_mod.combine_partials = real_combine
     rows_check = seq_rows_check(attn0, yard["decode"]["attn0"], fattn0)
     fault_logits = seq_logits(flogits[:, 0], yard["decode"]["logits"][0])
+    split_logits = out["logits"]
+    at_rest = [sum(t.numel() * t.element_size() for t in tensors_of(tree))
+               for tree in (split, params)]
+    del out, split
+    torch.cuda.empty_cache()
+    whole, wout = run_cell(cfg, "decode_32k", shard, batch=SEQ_DECODE_BATCH,
+                           params=params, steps=SEQ_DECODE_STEPS, device=dev)
+    same = bool(torch.equal(split_logits, wout["logits"]))
+    weights = SEQ_DECODE_STEPS * weights_gather_bytes(cfg, params, n)
+    del wout
     gate(all(c["ok"] for c in checks), "decode_32k step logits "
          f"{[c for c in checks if not c['ok']]}")
     gate(rows_check["row_rel_err"] <= BF16_ROW_RTOL,
@@ -4059,14 +4440,31 @@ def seq_dense_runs(torch, model, params, shard, yard: dict, failures: list
     gate(rec["sent_bytes"]["combine"] > 0 and not launches,
          f"decode_32k did not combine across ranks: {rec['sent_bytes']}, "
          f"kernels {launches}")
+    gate(same, "decode_32k logits on split weights differ from the whole "
+               "weights'")
+    gate(rec["received_bytes"]["weights"] == weights
+         and whole["received_bytes"]["weights"] == 0,
+         f"decode_32k weight gathers {rec['received_bytes']['weights']} B "
+         f"(whole weights {whole['received_bytes']['weights']}), the shapes "
+         f"give {weights}")
     runs.append({"run": "decode_32k", **rec, "attn0_rows": rows_check,
                  "max_abs_err": max(c["max_abs_err"] for c in checks),
                  "tol": checks[0]["tol"],
                  "fault_dropped_partial": {"logits": fault_logits,
                                            "rejected_by_logits":
                                                not fault_logits["ok"]},
-                 "kernel_launches": launches})
-    del out
+                 "kernel_launches": launches,
+                 "weights": "tp_sp split, gathered a layer at a time; the "
+                            "rank keeps its whole tree beside it for the "
+                            "phase's other runs, so the peak holds both",
+                 "weights_at_rest_bytes": at_rest[0],
+                 "weights_bytes_a_step": weights // SEQ_DECODE_STEPS,
+                 "whole_weights": {
+                     "logits_equal_split": same,
+                     "weights_at_rest_bytes": at_rest[1],
+                     "peak_mem_bytes": whole["peak_mem_bytes"],
+                     "step_device_ms": whole["step_device_ms"],
+                     "step_wall_s": whole["step_wall_s"]}})
     torch.cuda.empty_cache()
 
     # fp32: greedy tokens equal the single card's plain route
@@ -4088,10 +4486,31 @@ def seq_dense_runs(torch, model, params, shard, yard: dict, failures: list
     return runs
 
 
+def weights_gather_bytes(cfg, params, n: int) -> int:
+    """Bytes a rank's gathers receive to rebuild ``params``' whole weights
+    once from its tp_sp split over ``n`` ranks: (n - 1) / n of every leaf
+    ``param_specs`` splits but the routed experts, the embedding twice
+    when tied (embedding and unembedding)."""
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.tree import leaves_with_paths
+
+    specs = dict(leaves_with_paths(param_specs(params, policy="tp_sp",
+                                               degree=n)))
+    total = 0
+    for path, leaf in leaves_with_paths(params):
+        if specs[path] is None or (leaf.ndim == 3 and "ffn/w_" in path):
+            continue
+        per = leaf.numel() * leaf.element_size() * (n - 1) // n
+        total += per * (2 if path == "embed" and cfg.tie_embeddings else 1)
+    return total
+
+
 def seq_moe_run(torch, shard, yard: dict, failures: list) -> dict:
     """deepseek-moe-16b on this rank of a degree-SEQ_MOE_DEGREE group, its
-    experts split: each rank in turn draws the whole model from seed 0
-    and keeps its experts; the 4 x 2048 prefill and SEQ_MOE_NEW decode
+    experts and its dense leaves split (``local_params(policy="tp_sp")``;
+    the dense leaves gathered whole a layer at a time on use): each rank
+    in turn draws the whole model from seed 0 and keeps its cut; the
+    4 x 2048 prefill and SEQ_MOE_NEW decode
     steps of seeded tokens, held to the single card's grouped run: each
     layer's dropped assignments in the rank's group within 2·top_k of the
     single card's per token whose top-k set differs (equal where none
@@ -4117,7 +4536,7 @@ def seq_moe_run(torch, shard, yard: dict, failures: list) -> dict:
         if turn == r:
             full = full_width_model(torch, MOE_ARCH)
             params = local_params(bounded_moe(full["params"]), rank=r,
-                                  degree=n)
+                                  degree=n, policy="tp_sp")
             del full
             torch.cuda.empty_cache()
         dist.barrier(group=shard.group)
@@ -4187,8 +4606,125 @@ def seq_moe_run(torch, shard, yard: dict, failures: list) -> dict:
             "prefill_staged_bytes": staged}
 
 
+def coder_plan(torch, ranks_per_card: int) -> dict:
+    """The depth and batches of the deepseek-coder-33b run: the most
+    layers (up to the arch's 62) at which ``ranks_per_card`` ranks fit the
+    free memory of card 0, whole weights at SEQ_CODER_CHECK_BATCH and the
+    split weights at SEQ_CODER_BATCH, each with its cache block, a seeded
+    layer's draw (fp32 and bf16 rows), a step's two gathered layers, the
+    embeddings and the decode partial's fp32 copies, and
+    SEQ_CODER_RANK_OVERHEAD, with DENSE_HEADROOM to spare; on a shared
+    card at most SEQ_CODER_SHARED_LAYERS."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.models.transformer import init
+
+    cfg = get_arch(SEQ_CODER_ARCH)
+    n, s = SEQ_CODER_DEGREE, SHAPES["decode_32k"].seq_len
+    shapes = init(cfg, device="meta", dtype=torch.bfloat16)
+    size = torch.bfloat16.itemsize
+
+    def nbytes(tree):
+        return sum(t.numel() for t in tensors_of(tree)) * size
+
+    layer = nbytes(shapes["layers"][0])
+    ends = nbytes({k: v for k, v in shapes.items() if k != "layers"})
+    kv_token = 2 * cfg.num_kv_heads * cfg.hd * cfg.compute_dtype.itemsize
+
+    def need(layers: int, batch: int, split: bool) -> int:
+        weights = (layers * layer + ends) // (n if split else 1)
+        cache = batch * s * layers * kv_token // n
+        draw = batch * cfg.num_kv_heads * s * cfg.hd * 6
+        step = (2 * layer + ends + batch * cfg.num_kv_heads * (s // n)
+                * cfg.hd * 8) if split else 0
+        return weights + cache + draw + step + SEQ_CODER_RANK_OVERHEAD
+
+    free = torch.cuda.mem_get_info()[0]
+    fits = [depth for depth in range(cfg.num_layers, 0, -1)
+            if ranks_per_card * max(
+                need(depth, SEQ_CODER_CHECK_BATCH, False),
+                need(depth, SEQ_CODER_BATCH, True)) + DENSE_HEADROOM <= free]
+    require(bool(fits), f"{SEQ_CODER_ARCH} does not fit {ranks_per_card} "
+                        f"ranks in {free} free bytes")
+    layers = fits[0]
+    if ranks_per_card > 1:
+        layers = min(layers, SEQ_CODER_SHARED_LAYERS)
+    return {"layers": layers, "fitted_layers": fits[0],
+            "full_layers": cfg.num_layers, "batch": SEQ_CODER_BATCH,
+            "check_batch": SEQ_CODER_CHECK_BATCH,
+            "steps": SEQ_CODER_STEPS if ranks_per_card == 1 else 1,
+            "free_bytes": free, "ranks_per_card": ranks_per_card,
+            "predicted_peak_bytes": need(layers, SEQ_CODER_BATCH, True),
+            "predicted_whole_peak_bytes": need(layers, SEQ_CODER_CHECK_BATCH,
+                                               False)}
+
+
+def seq_coder_run(torch, shard, plan: dict, failures: list) -> dict:
+    """deepseek-coder-33b decode_32k at full width on this rank of a
+    degree-SEQ_CODER_DEGREE group, ``plan``'s depth (``coder_plan``):
+    draw the whole bf16 weights from seed 0, run the cell at the check batch
+    on them, cut them in place to the rank's tp_sp split, run it again
+    (the logits must be bitwise the whole run's), then at the full batch
+    on the split (finite logits). Records each run's peak memory,
+    decode-step device ms and bytes by kind."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import local_params
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.api import build_model
+
+    n, r = shard.degree, shard.rank
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(get_arch(SEQ_CODER_ARCH),
+                              num_layers=plan["layers"])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    weights = plan["steps"] * weights_gather_bytes(cfg, params, n)
+
+    def cell(batch: int):
+        rec, out = run_cell(cfg, "decode_32k", shard, batch=batch,
+                            params=params, steps=plan["steps"], device=dev)
+        logits = out["logits"]
+        del out
+        torch.cuda.empty_cache()
+        keep = ("peak_mem_bytes", "step_device_ms", "step_wall_s",
+                "sent_bytes", "received_bytes", "staged_bytes", "policy")
+        return {k: rec[k] for k in keep}, logits
+
+    whole, whole_logits = cell(plan["check_batch"])
+    local_params(params, rank=r, degree=n, policy="tp_sp", in_place=True)
+    torch.cuda.empty_cache()
+    at_rest = sum(t.numel() * t.element_size() for t in tensors_of(params))
+    check, check_logits = cell(plan["check_batch"])
+    same = bool(torch.equal(check_logits, whole_logits))
+    big, logits = cell(plan["batch"])
+    finite = bool(logits.isfinite().all())
+    tag = f"coder rank {r} of {n}"
+    if not same:
+        failures.append(f"{tag}: split-weight logits differ from the whole "
+                        f"weights' (max {max_err(check_logits, whole_logits)})")
+    if not finite:
+        failures.append(f"{tag}: logits not finite")
+    for name, rec in (("check", check), ("batch", big)):
+        if rec["received_bytes"]["weights"] != weights:
+            failures.append(f"{tag} {name}: weight gathers "
+                            f"{rec['received_bytes']['weights']} B, the "
+                            f"shapes give {weights}")
+    del params
+    torch.cuda.empty_cache()
+    return {"run": "coder_decode_32k", "arch": cfg.name, "degree": n,
+            "rank": r, **plan,
+            "reduced": (None if plan["layers"] == plan["full_layers"] else
+                        f"{plan['layers']} of {plan['full_layers']} layers"),
+            "init_s": init_s, "weights_at_rest_bytes": at_rest,
+            "logits_equal_whole": same, "finite": finite,
+            "weights_bytes_a_step": weights // plan["steps"],
+            "whole_check": whole, "split_check": check, "split": big}
+
+
 def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
-             yard_path: str, checksum: int) -> None:
+             yard_path: str, checksum: int, plan: dict) -> None:
     """One rank of the seq_sharded phase (a process of its own): join the
     group, build internlm2-1.8b from seed 0 (its checksum the parent's),
     run ``seq_dense_runs`` at each degree of SEQ_DEGREES (ranks past a
@@ -4208,8 +4744,8 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
                             rank=rank, world_size=world)
     try:
         yard = torch.load(yard_path)
-        groups = {d: seq_group(d) for d in sorted(set(SEQ_DEGREES)
-                                                  | {SEQ_MOE_DEGREE})}
+        groups = {d: seq_group(d) for d in sorted(
+            set(SEQ_DEGREES) | {SEQ_MOE_DEGREE, SEQ_CODER_DEGREE})}
         full = full_width_model(torch)
         mine = weights_checksum(torch, full["params"])
         failures = [] if mine == checksum else [
@@ -4228,6 +4764,11 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
         if groups[SEQ_MOE_DEGREE] is not None:
             report["runs"].append(seq_moe_run(torch, groups[SEQ_MOE_DEGREE],
                                               yard, failures))
+        dist.barrier()
+        torch.cuda.empty_cache()
+        if groups[SEQ_CODER_DEGREE] is not None:
+            report["runs"].append(seq_coder_run(
+                torch, groups[SEQ_CODER_DEGREE], plan, failures))
         dist.barrier()
         report["failures"] = failures
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
@@ -4262,9 +4803,11 @@ def phase_seq_sharded(torch, full: dict) -> dict:
         one_card = seq_yardsticks(torch, full, yard_path)
         yard_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
+        plan = coder_plan(torch, 1 if backend == "nccl"
+                          else SEQ_CODER_DEGREE)
         t0 = time.perf_counter()
         mp.spawn(seq_rank, args=(world, backend, str(Path(tmp) / "store"),
-                                 tmp, str(yard_path), checksum),
+                                 tmp, str(yard_path), checksum, plan),
                  nprocs=world, join=True)
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
@@ -5699,6 +6242,13 @@ def phase_vlm(torch) -> dict:
     return report
 
 
+def ring_verdicts(rows) -> dict:
+    """pool ("bf16", "int8") -> whether the B5_ring rows found every hop's
+    rows the single card's B5 rows bit for bit."""
+    return {row["shape"]["pool"]: row["bitwise_vs_one_card"] for row in rows
+            if row["name"].startswith("paged_prefill_ring")}
+
+
 def sharded_alone(torch) -> int:
     """``--only sharded``: the kernel rows at a rank's heads and the
     sharded phase, after the device phase's build; the single-card tokens
@@ -5713,12 +6263,16 @@ def sharded_alone(torch) -> int:
         return torch.randn(shape, generator=g, device="cuda").to(
             torch.bfloat16)
 
-    rows = shard_rows(torch, rnd, cfg, False) + shard_rows(torch, rnd, cfg,
-                                                           True)
+    rows = [row for quantized in (False, True)
+            for row in shard_rows(torch, rnd, cfg, quantized)
+            + [ring_rows(torch, rnd, cfg, quantized)]]
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
-    launches = phase_sharded(torch, full_width_model(torch))["launches"]
+    report = phase_sharded(torch, full_width_model(torch), ring_verdicts(rows))
+    launches = {"sharded": report["launches"],
+                "sharded_ring": report["ring_launches"]}
     for row in rows:
-        row["launches"] = launches[ROW_COUNTER[row["name"]]]
+        row["launches"] = sum(launches[path][ROW_COUNTER[row["name"]]]
+                              for path in ROW_PATH[row["name"]])
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -5775,7 +6329,9 @@ def main(argv=None) -> int:
     launches["speculative"] = full["speculative"]
     launches["speculative_int8"] = full["speculative_int8"]
     phase_spec_parity(torch, full)
-    launches["sharded"] = phase_sharded(torch, full)["launches"]
+    report = phase_sharded(torch, full, ring_verdicts(rows))
+    launches["sharded"] = report["launches"]
+    launches["sharded_ring"] = report["ring_launches"]
     phase_seq_sharded(torch, full)
     full.clear()              # internlm2's weights out of the later peaks
     torch.cuda.empty_cache()

@@ -8,7 +8,9 @@ by a context manager, no thread-local state:
   active, the paged attention blocks of ``models/transformer.py`` keep
   their rank's query and KV heads, run the kernels on them against the
   rank's own pools, and all-gather the attention outputs over the
-  shard's process group (``distributed/paged.py``).
+  shard's process group (``distributed/paged.py``). A chunk step takes
+  ``shard.chunk_route``: ``"local"`` as decode, or ``"ring"``, the
+  reference's head-block ring (``paged.ring_paged_prefill``).
 * ``sharding_policy(shard, kind)``: the reference's sequence-sharding
   policy, SPMD over a ``SeqShard`` group, one process a rank. The group
   is the reference's ``'model'`` mesh axis; the port has no data or pod
@@ -30,10 +32,11 @@ stays whole. With no policy every one of them is the identity.
 ``SeqShard`` also carries the group's collectives, each counting the
 bytes this rank sent and received by kind: ``ring`` (K/V blocks of
 ``ring_attention``), ``combine`` (decode partials), ``a2a`` (the MoE
-expert exchange), ``gather`` (all-gathers of whole values) and ``bcast``
-(the last row's logits). Point-to-point sends and all-to-alls of CUDA
-tensors over gloo, which has no GPU form of either, go through host
-buffers; ``staged_bytes`` counts the bytes copied so.
+expert exchange), ``gather`` (all-gathers of whole values), ``bcast``
+(the last row's logits) and ``weights`` (a layer's ``tp_sp`` leaves
+gathered whole before the layer). Point-to-point sends and all-to-alls
+of CUDA tensors over gloo, which has no GPU form of either, go through
+host buffers; ``staged_bytes`` counts the bytes copied so.
 """
 
 from __future__ import annotations
@@ -46,27 +49,104 @@ import torch
 import torch.distributed as dist
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 @dataclasses.dataclass
-class KVShard:
+class _Group:
+    """A rank's place in a process group: ``group`` (None: the default
+    group, or no group at degree 1), ``rank`` this process's index in it,
+    ``degree`` its size. ``staged_bytes`` counts the bytes its ring
+    passes copy through host buffers."""
+
+    group: Any
+    rank: int
+    degree: int
+    staged_bytes: int = 0
+
+    def _global(self, r: int) -> int:
+        """The default group's rank of group rank ``r``."""
+        r %= self.degree
+        return r if self.group is None else dist.get_global_rank(self.group,
+                                                                 r)
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return t.is_cuda and dist.get_backend(self.group) == "gloo"
+
+    def _ring_start(self, tensors: list):
+        """Start sending ``tensors`` to rank + 1 and receiving the same
+        shapes from rank - 1 (batched isend/irecv). Returns a function
+        that waits and gives the received tensors, on the tensors'
+        device, and the bytes each way."""
+        staged = self._staged(tensors[0])
+        out = [torch.empty(t.shape, dtype=t.dtype,
+                           device="cpu" if staged else t.device)
+               for t in tensors]
+        ops = []
+        for t, o in zip(tensors, out):
+            src = t.contiguous()
+            if staged:
+                src = src.cpu()
+                self.staged_bytes += _nbytes(src)
+            ops.append(dist.P2POp(dist.isend, src, self._global(self.rank + 1),
+                                  self.group))
+            ops.append(dist.P2POp(dist.irecv, o, self._global(self.rank - 1),
+                                  self.group))
+        works = dist.batch_isend_irecv(ops)
+        dev = tensors[0].device
+
+        def wait(_sent=ops) -> list:     # the sent buffers live until here
+            for w in works:
+                w.wait()
+            if not staged:
+                return out
+            self.staged_bytes += sum(_nbytes(o) for o in out)
+            return [o.to(dev) for o in out]
+
+        return wait, sum(_nbytes(t) for t in tensors)
+
+
+CHUNK_ROUTES = ("local", "ring")
+
+
+@dataclasses.dataclass
+class KVShard(_Group):
     """One rank's place in a KV-head-sharded group.
 
     ``group`` is the ``torch.distributed`` process group of the shard's
     ranks (None at degree 1, which needs none), ``rank`` this process's
     index in it and ``degree`` its size. Rank r holds KV heads
     [r·Hkv/degree, (r+1)·Hkv/degree) and the query heads that read them.
-    ``gathered_bytes`` counts the bytes this rank's output all-gathers
-    received from the other ranks; the engine reads and clears it a step.
+    ``chunk_route`` is how a chunk step attends: ``"local"`` (its heads
+    through its pages) or ``"ring"`` (the head-block ring). The engine
+    reads and clears the counts a step: ``gathered_bytes``, the bytes
+    this rank's output all-gathers received from the other ranks;
+    ``ring_hops``, the ring's passes; ``ring_bytes``, the slab bytes they
+    received (each sent as many).
     """
 
-    group: Any
-    rank: int
-    degree: int
     gathered_bytes: int = 0
+    ring_hops: int = 0
+    ring_bytes: int = 0
+    chunk_route: str = "local"
 
     def __post_init__(self):
         if self.degree < 1 or not 0 <= self.rank < self.degree:
             raise ValueError(f"rank {self.rank} is not in a shard of "
                              f"degree {self.degree}")
+        if self.chunk_route not in CHUNK_ROUTES:
+            raise ValueError(f"unknown chunk route {self.chunk_route!r}; one "
+                             f"of {CHUNK_ROUTES}")
+
+    def ring_pass(self, tensors: list):
+        """One hop of the head-block ring: start passing ``tensors`` to
+        rank + 1 and receiving rank - 1's; a function that waits and gives
+        them."""
+        wait, n = self._ring_start(tensors)
+        self.ring_hops += 1
+        self.ring_bytes += n
+        return wait
 
 
 _STATE: KVShard | None = None
@@ -94,15 +174,11 @@ def kv_shard_state() -> KVShard | None:
 # ---------------------------------------------------------------------------
 
 POLICIES = ("tp_sp", "sp_rep", "fsdp")
-KINDS = ("ring", "combine", "a2a", "gather", "bcast")
-
-
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
+KINDS = ("ring", "combine", "a2a", "gather", "bcast", "weights")
 
 
 @dataclasses.dataclass
-class SeqShard:
+class SeqShard(_Group):
     """One rank's place in a sequence-sharded group, and its collectives.
 
     ``group`` is the ``torch.distributed`` process group (None for the
@@ -113,12 +189,8 @@ class SeqShard:
     buffers. ``reset_counts`` clears them.
     """
 
-    group: Any
-    rank: int
-    degree: int
     sent: dict = dataclasses.field(default_factory=dict)
     received: dict = dataclasses.field(default_factory=dict)
-    staged_bytes: int = 0
 
     def __post_init__(self):
         if self.degree < 1 or not 0 <= self.rank < self.degree:
@@ -135,48 +207,14 @@ class SeqShard:
         self.sent[kind] += sent
         self.received[kind] += received
 
-    def _global(self, r: int) -> int:
-        """The default group's rank of group rank ``r``."""
-        r %= self.degree
-        return r if self.group is None else dist.get_global_rank(self.group,
-                                                                 r)
-
-    def _staged(self, t: torch.Tensor) -> bool:
-        return t.is_cuda and dist.get_backend(self.group) == "gloo"
-
     def ring_pass(self, tensors: list, kind: str = "ring"):
         """Start sending ``tensors`` to rank + 1 and receiving the same
         shapes from rank - 1. Returns a function that waits and gives the
         received tensors, on the tensors' device."""
         if self.degree == 1:
             return lambda: tensors
-        staged = self._staged(tensors[0])
-        out = [torch.empty(t.shape, dtype=t.dtype,
-                           device="cpu" if staged else t.device)
-               for t in tensors]
-        ops = []
-        for t, o in zip(tensors, out):
-            src = t.contiguous()
-            if staged:
-                src = src.cpu()
-                self.staged_bytes += _nbytes(src)
-            ops.append(dist.P2POp(dist.isend, src, self._global(self.rank + 1),
-                                  self.group))
-            ops.append(dist.P2POp(dist.irecv, o, self._global(self.rank - 1),
-                                  self.group))
-        works = dist.batch_isend_irecv(ops)
-        n = sum(_nbytes(t) for t in tensors)
+        wait, n = self._ring_start(tensors)
         self._count(kind, n, n)
-        dev = tensors[0].device
-
-        def wait(_sent=ops) -> list:     # the sent buffers live until here
-            for w in works:
-                w.wait()
-            if not staged:
-                return out
-            self.staged_bytes += sum(_nbytes(o) for o in out)
-            return [o.to(dev) for o in out]
-
         return wait
 
     def all_gather(self, x: torch.Tensor, kind: str) -> list:
@@ -206,6 +244,28 @@ class SeqShard:
             return out
         self.staged_bytes += 2 * _nbytes(x)
         return out.to(x.device)
+
+    def gather_weights(self, tree, specs):
+        """``tree`` (a dict of a params tree) with every leaf that
+        ``specs`` (``sharding.split_specs``' subtree) marks (dim, whole
+        size) and that holds the rank's block of it all-gathered whole
+        along dim, in rank order (kind ``weights``); other leaves as they
+        are, a whole tree unchanged. The gathered values are the whole
+        leaf's bits."""
+        if isinstance(tree, dict):
+            return {k: self.gather_weights(v, specs[k])
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self.gather_weights(v, specs[i])
+                    for i, v in enumerate(tree)]
+        if specs is None or tree.shape[specs[0]] == specs[1]:
+            return tree
+        dim, whole = specs
+        if tree.shape[dim] * self.degree != whole:
+            raise ValueError(f"a leaf of {tree.shape[dim]} along dim {dim} "
+                             f"is no block of {whole} over {self.degree} "
+                             f"ranks")
+        return torch.cat(self.all_gather(tree, "weights"), dim)
 
     def broadcast(self, x: torch.Tensor, src: int, kind: str = "bcast"
                   ) -> torch.Tensor:

@@ -12,15 +12,26 @@ is the one dim the group splits, or None for a leaf every rank holds
 whole (a rule's ``'data'`` entries drop out, as ``fit_spec`` drops axes
 a mesh lacks).
 
-What acts today: the dense cache's sequence split under
-``ctx.sharding_policy`` and ``local_params``, the ``sp_rep`` tree (every
-weight whole) with ``tp_sp``'s expert rule (MoE experts split over the
-ranks). The tensor-parallel weight rules of ``tp_sp`` and ``fsdp`` are
-specs only, for training across devices (ROADMAP A10).
+What acts: the dense cache's sequence split under
+``ctx.sharding_policy`` (a cache whose length the degree does not divide
+stays whole on every rank, by ``fit_spec``'s rule) and ``local_params``:
+under ``sp_rep`` every weight whole but the MoE experts, split over the
+ranks; under ``tp_sp`` every leaf cut along its fitted tensor-parallel
+dim, which is what a rank holds at rest. The sequence route gathers a
+layer's split leaves whole just before the layer (``split_specs``,
+``ctx.SeqShard.gather_weights``). The ``fsdp`` rules are specs only, for
+training across devices (ROADMAP A10).
+
+One departure from the reference's rules (ROADMAP C17): its ``embed$``
+comes first and also matches ``unembed``, so an untied (D, V)
+unembedding takes the embedding's spec and splits its D rows; here
+``unembed$`` comes first and splits the vocabulary columns, as the rule
+written for it says.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 
 import torch
@@ -58,10 +69,10 @@ def fit_dim(dim: int | None, shape, degree: int | None) -> int | None:
 
 
 # (path pattern, axis names by dim), the reference's _PARAM_RULES; first
-# match wins ("embed$" also matches "unembed", as in the reference)
+# match wins ("unembed$" ahead of "embed$", which also matches it: C17)
 _PARAM_RULES = (
-    (r"embed$", ("model", None)),
     (r"unembed$", (None, "model")),
+    (r"embed$", ("model", None)),
     (r"(^|/)w(q|k|v)$", ("data", "model")),
     (r"(^|/)wo$", ("model", "data")),
     (r"ffn/(w_gate|w_up)$", ("data", "model")),
@@ -84,7 +95,7 @@ def _is_expert(path: str, leaf) -> bool:
 def param_spec(path: str, ndim: int, *, is_moe_expert: bool) -> tuple:
     """The reference's ``param_spec``: axis names by dim under ``tp_sp``
     (experts over 'model', d_model over 'data'; then the first rule that
-    matches ``path``; none: whole)."""
+    matches ``path``, ``unembed`` by its own rule (C17); none: whole)."""
     if is_moe_expert:
         spec = (("model", "data", None) if re.search(r"w_(gate|up)$", path)
                 else ("model", None, "data"))
@@ -150,24 +161,72 @@ def batch_specs(*, policy: str = "tp_sp", batch: int | None = None,
     return out
 
 
-def local_params(params: dict, *, rank: int, degree: int) -> dict:
-    """Rank ``rank``'s parameters under the sequence-sharding policy:
-    the ``sp_rep`` tree, every weight whole (the same tensors), with
-    ``tp_sp``'s expert rule, each MoE layer's routed experts
-    [r·E/n, (r+1)·E/n) copied out."""
+def local_params(params: dict, *, rank: int, degree: int,
+                 policy: str = "sp_rep", in_place: bool = False) -> dict:
+    """Rank ``rank``'s parameters under the sequence-sharding ``policy``.
+
+    ``sp_rep``: every weight whole (the same tensors) but each MoE layer's
+    routed experts, [r·E/n, (r+1)·E/n) copied out. ``tp_sp``: every leaf
+    cut to the rank's block along its fitted ``param_specs`` dim (a dim
+    the degree does not divide stays whole), the experts as under
+    ``sp_rep``. With ``in_place`` the blocks replace the leaves in
+    ``params`` itself, each whole leaf released as its block is copied,
+    so a whole tree drawn on the device never lives beside its cut."""
     if not 0 <= rank < degree:
         raise ValueError(f"rank {rank} is not in a group of {degree}")
+    if policy not in ("sp_rep", "tp_sp"):
+        raise ValueError(f"local_params serves sp_rep and tp_sp, not "
+                         f"{policy!r}")
+    dims = param_specs(params, policy="tp_sp", degree=degree)
 
-    def cut(path: str, leaf):
-        if not _is_expert(path, leaf):
-            return leaf
-        if leaf.shape[0] % degree:
+    def cut(path: str, leaf, dim):
+        expert = _is_expert(path, leaf)
+        if expert and leaf.shape[0] % degree:
             raise ValueError(f"{leaf.shape[0]} experts do not split over "
                              f"{degree} ranks")
-        per = leaf.shape[0] // degree
-        return leaf.narrow(0, rank * per, per).clone()
+        if dim is None or not (expert or policy == "tp_sp"):
+            return leaf
+        per = leaf.shape[dim] // degree
+        return leaf.narrow(dim, rank * per, per).clone()
 
-    return tree_map_with_path(cut, params)
+    def visit(node, spec, prefix: str):
+        out = node if in_place else type(node)(node)
+        keys = node.keys() if isinstance(node, dict) else range(len(node))
+        for k in keys:
+            path = f"{prefix}{k}"
+            if isinstance(node[k], (dict, list)):
+                out[k] = visit(node[k], spec[k], path + "/")
+            else:
+                out[k] = cut(path, node[k], spec[k])
+        return out
+
+    return visit(params, dims, "")
+
+
+@functools.lru_cache(maxsize=None)
+def split_specs(cfg, degree: int) -> dict:
+    """A tree shaped like ``cfg``'s parameters holding, for each leaf that
+    ``tp_sp`` splits over ``degree`` ranks and the sequence route gathers
+    on use, (dim, whole size); None for a leaf held whole (the experts
+    too: their route exchanges tokens, not weights). From the shapes of
+    ``init`` on the meta device."""
+    from repro_torch.models.transformer import init
+
+    shapes = init(cfg, device="meta")
+    dims = param_specs(shapes, policy="tp_sp", degree=degree)
+
+    def visit(node, spec, prefix: str):
+        if isinstance(node, dict):
+            return {k: visit(v, spec[k], f"{prefix}{k}/")
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v, spec[i], f"{prefix}{i}/")
+                    for i, v in enumerate(node)]
+        if spec is None or _is_expert(prefix[:-1], node):
+            return None
+        return spec, node.shape[spec]
+
+    return visit(shapes, dims, "")
 
 
 def cache_specs(cache: dict, *, layout: str = "dense",

@@ -9,7 +9,11 @@ rank's peak device memory, the step's device time (CUDA events), the
 cell's ``model_flops`` (``analysis/flops.py``) and the bytes this rank's
 collectives sent and received, by kind (``distributed/ctx.SeqShard``).
 Weights are random from a seed, the inputs too: a prefill cell's
-tokens, a decode cell's cache of seeded K/V rows and its tokens.
+tokens, a decode cell's cache of seeded K/V rows and its tokens. A rank
+holds the policy's cut of the weights (``sharding.local_params``): under
+``tp_sp`` its split of every leaf, gathered whole layer by layer as the
+step reaches them; under ``sp_rep`` every weight whole but the experts.
+The whole draw is cut in place, so it does not outlive the cut.
 
 A train cell raises: training across devices is not ported yet
 (ROADMAP A10).
@@ -33,7 +37,7 @@ from repro_torch.launch.steps import (
     make_prefill_step,
 )
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import make_cache
+from repro_torch.models.transformer import cache_block, make_cache
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -53,14 +57,13 @@ def seeded_cache(cfg, batch: int, max_len: int, kv_len: int, *, seed: int,
     drawn from ``seed`` (standard normal in the compute dtype) and the
     rest zeros. With ``shard``
     the rank's block of ``max_len / n`` rows, whose values are the whole
-    cache's."""
-    n, r = (1, 0) if shard is None else (shard.degree, shard.rank)
-    if max_len % n:
-        raise ValueError(f"a cache of {max_len} rows does not split over "
-                         f"{n} ranks")
-    c = max_len // n
-    lo, hi = r * c, min((r + 1) * c, kv_len)
+    cache's, or, where n does not divide ``max_len``, the whole cache
+    marked ``replicated`` (``transformer.cache_block``)."""
+    lo, c = (0, max_len) if shard is None else cache_block(max_len, shard)
+    hi = min(lo + c, kv_len)
     cache = make_cache(cfg, batch, c, device=device)
+    if shard is not None and shard.degree > 1 and c == max_len:
+        cache["replicated"] = True
     shape = (batch, cfg.num_kv_heads, kv_len, cfg.hd)
     for i, blk in enumerate(cache["layers"]):
         for j, name in enumerate(("k", "v")):
@@ -111,7 +114,8 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
     (record, outputs).
 
     ``batch`` cuts the cell's global batch. ``params`` are the rank's
-    weights (default: drawn from ``seed``, the experts cut to the rank's).
+    weights, whole or the policy's split (default: drawn whole from
+    ``seed`` and cut in place to ``local_params``' tree for the policy).
     A prefill cell prefills seeded tokens into a cache of ``max_len``
     rows (default the cell's length): outputs ``logits`` (B, 1, V),
     ``cache`` and ``tokens``. A decode cell takes a seeded cache of the
@@ -127,10 +131,13 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
     cell = dataclasses.replace(cell, global_batch=batch or cell.global_batch)
     dev = resolve_device(device)
     model = build_model(cfg)
+    policy = choose_policy(cfg, cell)
     if params is None:
         params = local_params(model.init(seed, device=dev), rank=shard.rank,
-                              degree=shard.degree)
-    policy = choose_policy(cfg, cell)
+                              degree=shard.degree, policy=policy,
+                              in_place=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     b, s = cell.global_batch, cell.seq_len
     shard.reset_counts()
     if dev.type == "cuda":

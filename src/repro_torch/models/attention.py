@@ -19,8 +19,14 @@ Under ``distributed/ctx.sharding_policy`` (SPMD, one process a rank),
 a prefill whose rows the policy split reaches ``attention(ring=True)``,
 which runs ``distributed/ring_attention.ring_attention`` on the rank's
 blocks, and ``decode_attention`` runs ``sharded_decode_attention`` over
-the rank's block of the dense cache; neither reads ``impl``, as the
-reference computes both in XLA outside any kernel.
+the rank's block of the dense cache (``whole=True``: a cache every rank
+holds whole, attended as on one card); neither reads ``impl``, as the
+reference computes both in XLA outside any kernel. Under
+``distributed/ctx.kv_shard`` with the ``"ring"`` chunk route,
+``paged_prefill_attention`` takes every query head and the rank's pools
+and runs ``distributed/paged.ring_paged_prefill``, each hop on this
+function's ``impl`` route (B5 on the kernel route), as the reference's
+XLA twin dispatches to its ring under ``kv_shard``.
 
 The dense functions take q: (B, Hq, Nq, E), k/v: (B, Hkv, Nkv, E); the
 paged ones take page pools (Hkv, P, page, E) and page tables, and their
@@ -33,10 +39,13 @@ folded into P after the row sum.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import ctx
+from repro_torch.distributed.paged import ring_paged_prefill
 from repro_torch.distributed.ring_attention import ring_attention
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -143,14 +152,15 @@ def _masked_softmax_pv(sc, mask, v, ks=None, vs=None):
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, impl: str = "kernel",
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, whole: bool = False):
     """q: (B, Hq, E) against dense caches (B, Hkv, S, E), masked at
     ``kv_len`` (an int, or a (B,) tensor); an int8 cache comes with its
     (B, Hkv, S) per-row ``k_scale``/``v_scale``. Under the sharding policy
     the caches are the rank's block and ``kv_len`` an int:
-    ``sharded_decode_attention``."""
+    ``sharded_decode_attention``, unless ``whole`` (every rank holds the
+    whole cache)."""
     shard = ctx.seq_shard_state()
-    if shard is not None:
+    if shard is not None and not whole:
         return sharded_decode_attention(q, k_cache, v_cache, kv_len, shard,
                                         k_scale=k_scale, v_scale=v_scale)
     if _twin(impl) == "kernel":
@@ -263,8 +273,23 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, span, *,
     min(q_offset + i + 1, kv_len). The chunk's own K/V are already in the
     pages. ``plain`` gathers the pool dense and runs the causal oracle of
     ``kernels/ref.py`` (for int8 pools, the reference twin's scaled fp32
-    softmax), its masks built from the pair as tensors.
+    softmax), its masks built from the pair as tensors. Under ``kv_shard``
+    with the ``"ring"`` chunk route the pools are the rank's heads and q
+    has every head: ``ring_paged_prefill``, a hop on this route each.
     """
+    shard = ctx.kv_shard_state()
+    if shard is not None and shard.chunk_route == "ring":
+        return ring_paged_prefill(
+            q, k_pages, v_pages, page_table, span, shard, k_scales=k_scales,
+            v_scales=v_scales,
+            attend=functools.partial(_paged_prefill_one, impl=impl))
+    return _paged_prefill_one(q, k_pages, v_pages, page_table, span,
+                              impl=impl, k_scales=k_scales, v_scales=v_scales)
+
+
+def _paged_prefill_one(q, k_pages, v_pages, page_table, span, *, impl,
+                       k_scales=None, v_scales=None):
+    """``paged_prefill_attention`` on one pool, by ``impl``."""
     if _twin(impl) == "kernel":
         return kops.paged_prefill_attention(q, k_pages, v_pages, page_table,
                                             span, k_scales=k_scales,

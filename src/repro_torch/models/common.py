@@ -242,10 +242,19 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, which has
+    none: ``dense_init`` draws nothing from it, only shapes."""
+
+    device = torch.device("meta")
+
+
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated normal on [-2, 2] scaled by ``fan_in ** -0.5``, drawn on
-    the generator's device."""
+    the generator's device (a ``MetaGenerator``: shapes only)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     std = shape[in_axis] ** -0.5
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,

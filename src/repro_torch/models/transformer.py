@@ -21,7 +21,9 @@ its page table (one row per sequence, the same for every layer).
 Under ``distributed/ctx.kv_shard`` (the sharded engine) the pools hold a
 rank's KV heads only, and each paged attention block computes q, k, v
 whole, keeps the rank's heads, attends with them and all-gathers the
-outputs before ``wo``.
+outputs before ``wo``; on the ``"ring"`` chunk route a chunk keeps every
+query head and attends through the head-block ring
+(``distributed/paged.ring_paged_prefill``).
 
 Under ``distributed/ctx.sharding_policy`` (SPMD, a process a rank; the
 reference's ``tp_sp``/``sp_rep`` serving policy) ``forward``, ``prefill``
@@ -36,9 +38,17 @@ positions (``distributed/sharding.cache_specs``): ``prefill`` fills the
 rank's block from every K/V block that passes it on the ring (the row
 split and the cache split need not agree), ``decode_step`` takes the new
 token whole on every rank, writes its K/V row on the rank whose block
-holds ``pos`` only, and attends with ``sharded_decode_attention``. The
-last row's logits come from the rank that holds it, by broadcast. MoE
-layers dispatch in the policy's token groups (``models/moe.py``).
+holds ``pos`` only, and attends with ``sharded_decode_attention``. A
+``max_len`` the degree does not divide gives every rank the whole cache
+(``fit_spec``'s rule), marked ``cache["replicated"]``: each rank fills
+all its rows and decode attends to them with no combine. The last row's
+logits come from the rank that holds it, by broadcast. MoE layers
+dispatch in the policy's token groups (``models/moe.py``). A rank may
+hold its ``tp_sp`` split of the weights (``distributed/sharding.
+local_params(policy="tp_sp")``): the embedding, each layer and the
+unembedding are then all-gathered whole just before their use and
+dropped after (``SeqShard.gather_weights``), so the results are the
+whole weights' bit for bit; whole weights pass through unchanged.
 
 ``kv_dtype=torch.int8`` stores either cache quantized (symmetric absmax,
 ``kernels/common.quantize_q8``) beside fp32 scales, ``"k_scale"`` and
@@ -111,17 +121,20 @@ from repro_torch import resolve_device
 from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import kv_shard_state, seq_shard_state
 from repro_torch.distributed.paged import head_sharded, replicated
+from repro_torch.distributed.sharding import split_specs
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.kernels.common import quantize_q8
 from repro_torch.models.common import (
     ArchConfig,
+    MetaGenerator,
     apply_rope,
     dense_init,
     embed_scale,
     rms_norm,
     sinusoidal_positions,
 )
+from repro_torch.tree import tree_leaves
 
 Params = dict[str, Any]
 
@@ -139,11 +152,15 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     ``rglru.init_rglru_block`` and an MLP, an MoE layer's FFN
     ``moe.init_moe``; untied embeddings add ``unembed`` (d_model, vocab).
     An encoder-decoder adds a ``"cross"`` block to each decoder attention
-    layer, the encoder's layers and ``enc_final_norm``."""
+    layer, the encoder's layers and ``enc_final_norm``. On the meta device
+    the tree holds shapes only."""
     dev = resolve_device(device)
     dt = dtype or cfg.param_dtype
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if dev.type == "meta":
+        gen = MetaGenerator()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     d, e, f = cfg.d_model, cfg.hd, cfg.d_ff
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
 
@@ -288,7 +305,8 @@ def cross_attn_block(params, x, cfg: ArchConfig, *, mem_k, mem_v):
 
 
 def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
-                window: int | None = None, k_scale=None, v_scale=None):
+                window: int | None = None, k_scale=None, v_scale=None,
+                whole: bool = False):
     """One-token self-attention. x: (B, 1, D); cache_[kv]: (B, Hkv, C, E).
     Without ``window`` rows [0, pos) are filled and row ``pos`` is written;
     with it the cache is a ring of C slots holding position p at slot
@@ -297,10 +315,12 @@ def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
     (B, Hkv, C) ``k_scale``/``v_scale``: the new row is quantized with its
     own absmax scale. Under the sharding policy the cache is the rank's
     block of C rows from r·C: the rank whose block holds ``pos`` writes the
-    row, and every rank attends its block (``sharded_decode_attention``)."""
+    row, and every rank attends its block (``sharded_decode_attention``);
+    with ``whole`` every rank holds the whole cache, writes the row and
+    attends as on one card."""
     c = cache_k.shape[2]
     slot = pos % c if window is not None else pos
-    shard = seq_shard_state()
+    shard = None if whole else seq_shard_state()
     if shard is not None:
         slot = pos - shard.rank * c
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
@@ -317,7 +337,8 @@ def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
     kv_len = pos + 1 if shard is not None else min(pos + 1, c)
     o = attn_mod.decode_attention(q[:, :, 0], cache_k, cache_v, kv_len,
                                   impl=cfg.attn_impl,
-                                  k_scale=k_scale, v_scale=v_scale)
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  whole=whole)
     return o.reshape(x.shape[0], 1, -1) @ params["wo"].to(x.dtype)
 
 
@@ -497,16 +518,22 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     keys alike (the write is enqueued on the same stream before the
     kernel). Int8 pools quantize whole pages at write time, the zeroed
     rows included, and overwrite their (Hkv, P) scales with the values, so
-    a reused page needs no scale reset. Under ``kv_shard`` the rank's
-    heads: B5 runs them through the table, one block a (query head, Q
-    block) as on one card, and the outputs are all-gathered before
-    ``wo``; no K/V moves between ranks. Returns (1, chunk, D).
+    a reused page needs no scale reset. Under ``kv_shard`` the pools hold
+    the rank's heads. On the ``"local"`` chunk route B5 runs the rank's
+    heads through the table, one block a (query head, Q block) as on one
+    card, and the outputs are all-gathered before ``wo``; no K/V moves
+    between ranks. On the ``"ring"`` route q keeps every head and the
+    chunk attends through the head-block ring, whose hops run B5 and
+    whose rows it all-gathers. Returns (1, chunk, D).
     """
     chunk = x.shape[1]
     hkv, _, page, e = k_pages.shape
     positions = span[0] + torch.arange(chunk, device=x.device)
-    q, k, v, shard, _ = _rank_heads(*_qkv(params, x, cfg, positions),
-                                    k_pages)
+    q_all, k, v = _qkv(params, x, cfg, positions)
+    q, k, v, shard, _ = _rank_heads(q_all, k, v, k_pages)
+    ring = shard is not None and shard.chunk_route == "ring"
+    if ring:
+        q = q_all
     live = (positions < span[1]).view(1, chunk, 1)
     ids = chunk_page_ids.long()
     for pages, scales, rows in ((k_pages, k_scales, k[0]),
@@ -519,7 +546,7 @@ def attn_paged_prefill(params, x, cfg: ArchConfig, *, k_pages, v_pages,
     o = attn_mod.paged_prefill_attention(q[0], k_pages, v_pages, page_table,
                                          span, impl=cfg.attn_impl,
                                          k_scales=k_scales, v_scales=v_scales)
-    if shard is not None:
+    if shard is not None and not ring:
         o = replicated(o, shard, dim=0)
     return _merge_heads(o[None]) @ params["wo"].to(x.dtype)
 
@@ -768,9 +795,10 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
     encoder-decoder's cross blocks read the memories ``prefill`` wrote.
     Under the sharding policy the cache is the rank's block (``prefill``
     under the policy, or ``distributed/sharding.local_cache``) and every
-    rank returns the same logits."""
-    if seq_shard_state() is not None:
-        check_seq_support(cfg)
+    rank returns the same logits (``_seq_decode``)."""
+    shard = seq_shard_state()
+    if shard is not None:
+        return _seq_decode(params, cfg, token, cache, pos, shard)
     x = _embed(params, token, cfg, start=pos)
     for layer, blk in zip(params["layers"], cache["layers"]):
         if "ssd" in layer:
@@ -817,8 +845,8 @@ def check_seq_support(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"the sequence-sharding policy serves dense and MoE decoders "
             f"only (got {cfg.name}): the ssm, hybrid, whisper and internvl2 "
-            "stacks need the tensor-parallel weight split and the state "
-            "split, ROADMAP A10")
+            "stacks need the split of their recurrent states and cross "
+            "memories, ROADMAP A10")
     if ctx.policy_kind() == "fsdp":
         raise NotImplementedError(
             "the fsdp policy splits the batch for training across devices, "
@@ -832,25 +860,52 @@ def _seq_rows(s: int) -> tuple[slice, bool]:
     return rows, rows.stop - rows.start < s
 
 
+def _head(params) -> dict:
+    """The leaves ``_unembed`` reads: the final norm and the unembedding,
+    or, tied, the embedding."""
+    out = "unembed" if "unembed" in params else "embed"
+    return {"final_norm": params["final_norm"], out: params[out]}
+
+
+def _seq_layers(params, cfg: ArchConfig, shard):
+    """``params``' layers in turn, each with the rank's split leaves
+    gathered whole (``SeqShard.gather_weights``) as it is reached."""
+    specs = split_specs(cfg, shard.degree)["layers"]
+    for layer, spec in zip(params["layers"], specs, strict=True):
+        yield shard.gather_weights(layer, spec)
+
+
+def _seq_embed(params, tokens, cfg: ArchConfig, shard, start: int):
+    embed = shard.gather_weights({"embed": params["embed"]},
+                                 split_specs(cfg, shard.degree))
+    return _embed(embed, tokens, cfg, start=start)
+
+
+def _seq_unembed(params, x, cfg: ArchConfig, shard):
+    head = shard.gather_weights(_head(params),
+                                split_specs(cfg, shard.degree))
+    return _unembed(head, x, cfg)
+
+
 def _seq_forward(params, tokens, cfg: ArchConfig, shard):
     check_seq_support(cfg)
     s = tokens.shape[1]
     rows, split = _seq_rows(s)
-    x = _embed(params, tokens[:, rows], cfg, start=rows.start)
-    if attn_mod.tracks_grad(x):
+    if attn_mod.tracks_grad(*tree_leaves(params)):
         raise NotImplementedError("training across devices is not ported "
                                   "(ROADMAP A10): a backward cannot cross "
                                   "the ring")
+    x = _seq_embed(params, tokens[:, rows], cfg, shard, rows.start)
     positions = torch.arange(rows.start, rows.stop, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params["layers"]:
+    for layer in _seq_layers(params, cfg, shard):
         x = x + attn_block(layer["attn"], x, cfg, positions=positions,
                            causal=cfg.causal, ring=split)[0]
         y, a = ffn(layer, x, cfg, s)
         x, aux = x + y, aux + a
     if split:
         x = torch.cat(shard.all_gather(x, "gather"), dim=1)
-    return _unembed(params, x, cfg), aux
+    return _seq_unembed(params, x, cfg, shard), aux
 
 
 def _write_rows(blk: dict, at: int, k, v) -> None:
@@ -867,26 +922,37 @@ def _write_rows(blk: dict, at: int, k, v) -> None:
         blk["v"][:, :, at:at + n] = v
 
 
+def cache_block(max_len: int, shard) -> tuple[int, int]:
+    """(first position, rows) of the dense cache a rank of ``shard``
+    holds: its block [r·C, (r + 1)·C), C = max_len / n, or, when the
+    degree does not divide ``max_len``, every row (``fit_spec``'s rule:
+    the cache is replicated)."""
+    n = shard.degree
+    if max_len % n:
+        return 0, max_len
+    c = max_len // n
+    return shard.rank * c, c
+
+
 def _seq_prefill(params, cfg: ArchConfig, tokens, max_len: int, shard,
                  kv_dtype):
     """``prefill`` on the rank's rows: the rank's cache block holds
-    positions [r·C, (r + 1)·C), C = max_len / n, filled from each K/V
-    block the ring brings (or, rows whole, from the whole K/V)."""
+    positions [r·C, (r + 1)·C), C = max_len / n, or every position where
+    n does not divide ``max_len``, filled from each K/V block the ring
+    brings (or, rows whole, from the whole K/V)."""
     check_seq_support(cfg)
     b, s = tokens.shape
     n = shard.degree
     if s > max_len:
         raise ValueError(f"prompt of {s} rows exceeds the cache ({max_len})")
-    if max_len % n:
-        raise ValueError(f"a cache of {max_len} rows does not split over "
-                         f"{n} ranks")
     rows, split = _seq_rows(s)
-    x = _embed(params, tokens[:, rows], cfg, start=rows.start)
+    x = _seq_embed(params, tokens[:, rows], cfg, shard, rows.start)
     positions = torch.arange(rows.start, rows.stop, device=x.device)
-    c = max_len // n
-    c0 = shard.rank * c
+    c0, c = cache_block(max_len, shard)
     cache = make_cache(cfg, b, c, device=x.device, kv_dtype=kv_dtype)
-    for layer, blk in zip(params["layers"], cache["layers"]):
+    if c == max_len and n > 1:
+        cache["replicated"] = True
+    for layer, blk in zip(_seq_layers(params, cfg, shard), cache["layers"]):
 
         def fill(start: int, k, v, blk=blk) -> None:
             # rows of k from absolute position ``start``, kept where they
@@ -905,13 +971,30 @@ def _seq_prefill(params, cfg: ArchConfig, tokens, max_len: int, shard,
         x = x + y
         x = x + ffn(layer, x, cfg, s)[0]
     if not split:
-        return _unembed(params, x[:, -1:], cfg), cache
+        return _seq_unembed(params, x[:, -1:], cfg, shard), cache
+    # every rank joins the unembedding's gather; the last row's rank uses it
+    head = shard.gather_weights(_head(params), split_specs(cfg, n))
     if shard.rank == n - 1:
-        logits = _unembed(params, x[:, -1:], cfg)
+        logits = _unembed(head, x[:, -1:], cfg)
     else:
         logits = torch.empty((b, 1, cfg.vocab_size), dtype=x.dtype,
                              device=x.device)
     return shard.broadcast(logits, n - 1), cache
+
+
+def _seq_decode(params, cfg: ArchConfig, token, cache, pos: int, shard):
+    """``decode_step`` on the rank's cache block (the whole cache when it
+    is ``replicated``), the weights gathered on use."""
+    check_seq_support(cfg)
+    whole = cache.get("replicated", False)
+    x = _seq_embed(params, token, cfg, shard, pos)
+    for layer, blk in zip(_seq_layers(params, cfg, shard), cache["layers"]):
+        x = x + attn_decode(layer["attn"], x, cfg, cache_k=blk["k"],
+                            cache_v=blk["v"], pos=pos,
+                            k_scale=blk.get("k_scale"),
+                            v_scale=blk.get("v_scale"), whole=whole)
+        x = x + ffn(layer, x, cfg)[0]
+    return _seq_unembed(params, x, cfg, shard), cache
 
 
 # ---------------------------------------------------------------------------

@@ -13,17 +13,22 @@ and picks the backend and each rank's device. Every rank
   speculation, the prefix index, the auditor);
 * in every attention layer of every step kind computes q, k, v whole,
   keeps its heads, appends its K/V rows to its pool, runs the kernel of
-  the step on its heads (B6 decode, B7 verify, B5 chunk, each with its
-  int8 branch; B6 and B7 split as for the model's head count), and takes
-  one all-gather of the attention outputs before the replicated ``wo``
+  the step on its heads (B6 decode, B7 verify, each with its int8
+  branch, split as for the model's head count) and takes one all-gather
+  of the attention outputs before the replicated ``wo``
   (``models/transformer.py`` under ``distributed/ctx.kv_shard``).
 
 No partial sum crosses ranks, so a rank's tokens are the single card's.
-The chunk step is head-local, as decode is: B5 reads the rank's pages
-through the table, so no K/V moves on the wire. The reference runs its
-chunk step as a ring over gathered head blocks (``ring_paged_prefill``);
-its ``shard.ring_hops`` stays 0 here, and ``shard.allgather_bytes``
-counts the bytes the gathers move, a chunk's rows included.
+A chunk step takes ``chunk_route``. ``"local"`` (the default) runs B5 on
+the rank's heads through the table, as decode runs B6, so no K/V moves
+on the wire. ``"ring"`` is the reference's route
+(``distributed/paged.ring_paged_prefill``): each rank gathers its heads'
+pages of the sequence into a slab, takes its 1/n of the chunk's Q rows
+with every query head, and at each of n hops runs B5 on the slab it
+holds for that slab's head slot while passing the slab on (n - 1
+passes), then all-gathers the rows. ``shard.ring_hops`` counts the
+passes, ``shard.ring_bytes`` the slab bytes they received, and
+``shard.allgather_bytes`` the bytes every output all-gather received.
 
 The ranks stay in lockstep: after each step's one device-to-host copy,
 rank 0's packed result (tokens and finite flags) is broadcast and every
@@ -47,7 +52,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.autotune import tune_shard_degree
-from repro_torch.distributed.ctx import KVShard, kv_shard
+from repro_torch.distributed.ctx import CHUNK_ROUTES, KVShard, kv_shard
 from repro_torch.distributed.sharding import local_cache
 from repro_torch.serving.engine import ContinuousBatchingEngine
 
@@ -69,11 +74,16 @@ class ShardedContinuousBatchingEngine(ContinuousBatchingEngine):
     no process group and is the single-card engine. Above 1 the group must
     be initialized and hold the degree; ``dist.new_group`` is called on
     every rank of it, and ranks at or past the degree take no part: their
-    ``serve`` returns ``{}``. All other knobs are the base engine's; each
-    rank passes its own ``device``.
+    ``serve`` returns ``{}``. ``chunk_route`` is ``"local"`` or
+    ``"ring"`` (see the module doc). All other knobs are the base
+    engine's; each rank passes its own ``device``.
     """
 
-    def __init__(self, model, params, *, shard: int | str = "auto", **kw):
+    def __init__(self, model, params, *, shard: int | str = "auto",
+                 chunk_route: str = "local", **kw):
+        if chunk_route not in CHUNK_ROUTES:
+            raise ValueError(f"unknown chunk route {chunk_route!r}; one of "
+                             f"{CHUNK_ROUTES}")
         super().__init__(model, params, **kw)
         cfg = self.cfg
         grouped = dist.is_available() and dist.is_initialized()
@@ -106,7 +116,9 @@ class ShardedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.rank = rank
         self.member = rank < shard
         group = dist.new_group(list(range(shard))) if shard > 1 else None
-        self._kv = KVShard(group, rank, shard) if self.member else None
+        self.chunk_route = chunk_route
+        self._kv = (KVShard(group, rank, shard, chunk_route=chunk_route)
+                    if self.member else None)
 
     def _make_cache(self) -> dict:
         """The rank's KV heads of every pool, built at their size (the
@@ -125,8 +137,9 @@ class ShardedContinuousBatchingEngine(ContinuousBatchingEngine):
             return {}
         if self.shard == 1:
             return super().serve(requests)
-        self._kv.gathered_bytes = 0
-        with kv_shard(self._kv):
+        kv = self._kv
+        kv.gathered_bytes = kv.ring_hops = kv.ring_bytes = 0
+        with kv_shard(kv):
             return super().serve(requests)
 
     def _host_result(self, packed: torch.Tensor) -> np.ndarray:
@@ -159,14 +172,20 @@ class ShardedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _observe_step(self, kind, t0, t1, chunk_tokens, live):
         m = self.metrics
         m.gauge("shard.degree", "active shard degree").record(self.shard)
-        gathered = 0
-        if self._kv is not None:
-            gathered, self._kv.gathered_bytes = self._kv.gathered_bytes, 0
+        gathered = hops = ring_bytes = 0
+        kv = self._kv
+        if kv is not None:
+            gathered, hops, ring_bytes = (kv.gathered_bytes, kv.ring_hops,
+                                          kv.ring_bytes)
+            kv.gathered_bytes = kv.ring_hops = kv.ring_bytes = 0
         m.counter("shard.allgather_bytes",
                   "bytes this rank's output all-gathers received").inc(
             gathered)
         m.counter("shard.ring_hops",
-                  "head-block ring hops (none: the chunk step is local)")
+                  "head-block ring passes of the chunk steps").inc(hops)
+        m.counter("shard.ring_bytes",
+                  "slab bytes this rank's ring passes received").inc(
+            ring_bytes)
         m.counter("shard.result_mismatch",
                   "entries of a step's result that differ from rank 0's")
         tr = self.tracer
@@ -184,6 +203,7 @@ class ShardedContinuousBatchingEngine(ContinuousBatchingEngine):
             "degree": self.shard,
             "allgather_bytes": int(c("shard.allgather_bytes").value),
             "ring_hops": int(c("shard.ring_hops").value),
+            "ring_bytes": int(c("shard.ring_bytes").value),
             "result_mismatch": int(c("shard.result_mismatch").value),
         }
 

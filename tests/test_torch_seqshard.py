@@ -16,16 +16,24 @@ whose blocks differ from the row split, against the reference (an MoE
 under its ``tp_sp`` policy on one CPU device, its ``constrain``
 patched to the identity: a constraint only places values) at 1e-4 and
 equal greedy tokens; the bytes each rank's collectives moved against
-the shapes; and ``launch/dryrun.run_cell``. In this process:
-``_token_groups``, ``param_specs``, ``opt_specs``, ``batch_specs`` and
-``choose_policy`` against the reference's, the rows rule of
-``distributed/ctx``, and the archs the policy refuses.
+the shapes; each slice again on the rank's ``tp_sp`` split of the
+weights (gathered layer by layer on use), bit for bit the whole-weight
+run, with the ``weights`` bytes the shapes give; a cache whose
+``max_len`` the degree does not divide, served replicated; and
+``launch/dryrun.run_cell``. In this process: ``_token_groups``,
+``param_specs`` (where the port's ``unembed`` rule departs from the
+reference's, C17), ``opt_specs``, ``batch_specs`` and ``choose_policy``
+against the reference's, ``local_params``' cuts under both policies,
+the replicated ``seeded_cache``, the rows rule of ``distributed/ctx``,
+and the archs the policy refuses.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -50,14 +58,18 @@ from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import SeqShard, sharding_policy
 from repro_torch.distributed.sharding import (
     batch_specs,
+    fit_dim,
     local_params,
     opt_specs,
+    param_spec,
     param_specs,
+    split_specs,
 )
 from repro_torch.launch.dryrun import cell_tokens, decode_steps, seeded_cache
 from repro_torch.launch.steps import choose_policy
 from repro_torch.models import moe as tmoe
 from repro_torch.models.api import build_model
+from repro_torch.models.transformer import cache_block
 from repro_torch.tree import leaves_with_paths
 from repro_torch.weights import reference_leaf
 from test_torch_harness import model_pair
@@ -73,6 +85,7 @@ RING_TOL = 2e-5         # the reference's ring and decode tolerance
 BATCH, STEPS = 2, 8
 LENS = (24, 25)         # a prompt both degrees divide, and one neither does
 MAX_LEN = 40            # blocks of 20 / 10 rows against rows of 12 / 6
+REPLICATED_LEN = {2: 41, 4: 42}   # a cache the degree does not divide
 RING = dict(b=2, hq=4, hkv=2, s=32, e=16)
 DEC = dict(b=2, hq=8, hkv=2, s=96, e=32)
 KV_LENS_RING = (None, 13, 27)
@@ -160,6 +173,8 @@ def _slice_cases(degree: int) -> list:
                                 prompt=prompt, max_len=MAX_LEN, steps=STEPS,
                                 capacity_factor=cf))
     out.append(dict(out[0], name=f"slice-{degree}-int8", kv_dtype="int8"))
+    out.append(dict(out[0], name=f"slice-{degree}-replicated",
+                    max_len=REPLICATED_LEN[degree]))
     return out
 
 
@@ -360,12 +375,36 @@ def test_slice_matches_reference(results, pairs, name):
         np.testing.assert_allclose(rk["forward"], ref["forward"], atol=TOL,
                                    rtol=TOL)
         assert abs(rk["aux"] - ref["aux"]) <= TOL * max(1.0, abs(ref["aux"]))
+        rows, replicated = _cache_rows(case["max_len"], n)
         assert set(rk["cache_shapes"]) == {
-            (BATCH, cfg.num_kv_heads, MAX_LEN // n, cfg.hd)}
+            (BATCH, cfg.num_kv_heads, rows, cfg.hd)}
+        assert rk["replicated"] == replicated
         if cfg.moe is not None:
             assert rk["expert_shape"][0] == cfg.moe.num_experts // n
     np.testing.assert_allclose(ref["emulated"], ref["logits"][0], atol=TOL,
                                rtol=TOL)
+
+
+def _cache_rows(max_len: int, n: int) -> tuple[int, bool]:
+    """A rank's dense cache rows, and whether it is replicated: max_len /
+    n where n divides max_len, else all of them (``fit_spec``'s rule)."""
+    return (max_len // n, False) if max_len % n == 0 else (max_len, True)
+
+
+@pytest.mark.parametrize("name", _of("slice", 2) + _of("slice", 4))
+def test_split_weights_are_the_whole_weights_route(results, name):
+    """The same slice on the rank's tp_sp split of the weights, each
+    layer's split leaves gathered whole before the layer: logits, tokens,
+    forward and aux bit for bit the whole-weight run's, the same cache."""
+    got, _ = results
+    _, ranks = got[name]
+    for rk in ranks:
+        split = rk["split"]
+        for key in ("logits", "tokens", "forward"):
+            np.testing.assert_array_equal(split[key], rk[key], err_msg=key)
+        assert split["aux"] == rk["aux"]
+        assert split["cache_shapes"] == rk["cache_shapes"]
+        assert split["replicated"] == rk["replicated"]
 
 
 def _slice_bytes(cfg, case, rank: int) -> tuple[dict, dict]:
@@ -380,8 +419,9 @@ def _slice_bytes(cfg, case, rank: int) -> tuple[dict, dict]:
         pre["ring"] = layers * (n - 1) * kv
         if rank == n - 1:
             pre["bcast"] = (n - 1) * BATCH * cfg.vocab_size * f32
-    dec["combine"] = (case["steps"] * layers * (n - 1) * BATCH
-                      * cfg.num_heads * (cfg.hd + 2) * f32)
+    if not _cache_rows(case["max_len"], n)[1]:     # replicated: no combine
+        dec["combine"] = (case["steps"] * layers * (n - 1) * BATCH
+                          * cfg.num_heads * (cfg.hd + 2) * f32)
     m = cfg.moe
     if m is not None:
         cf = case["capacity_factor"] or m.capacity_factor
@@ -415,6 +455,42 @@ def test_slice_bytes_match_shapes(results, pairs, name):
         pre, dec = _slice_bytes(cfg, case, r)
         assert rk["prefill_sent"] == pre
         assert rk["decode_sent"] == dec
+
+
+def _weights_bytes(params, n: int) -> int:
+    """Bytes a rank's gathers receive to make the whole weights of one
+    pass (embedding, every layer, the unembedding or, tied, the
+    embedding again) from its tp_sp split: (n - 1) / n of each leaf that
+    param_specs splits, the routed experts excepted (they stay split)."""
+    specs = dict(leaves_with_paths(param_specs(params, policy="tp_sp",
+                                               degree=n)))
+    total = 0
+    for path, leaf in leaves_with_paths(params):
+        if specs[path] is None or (leaf.ndim == 3 and "ffn/w_" in path):
+            continue
+        nbytes = leaf.numel() * leaf.element_size() * (n - 1) // n
+        total += nbytes * (2 if path == "embed" and "unembed" not in params
+                           else 1)
+    return total
+
+
+@pytest.mark.parametrize("name", _of("slice", 2) + _of("slice", 4))
+def test_split_weight_bytes_match_shapes(results, pairs, name):
+    """On split weights each pass gathers the whole weights once (kind
+    ``weights``: the prefill, each decode step, forward); every other
+    kind's bytes are the whole-weight run's."""
+    got, _ = results
+    case, ranks = got[name]
+    params = pairs[case["arch"]].tparams
+    n = case["degree"]
+    w = _weights_bytes(params, n)
+    for rk in ranks:
+        split = rk["split"]
+        for key, passes in (("prefill_sent", 1), ("decode_sent", STEPS),
+                            ("forward_sent", 1)):
+            assert split[key]["weights"] == passes * w, key
+            assert rk[key]["weights"] == 0, key
+            assert dict(split[key], weights=0) == rk[key], key
 
 
 # ---------------------------------------------------------------------------
@@ -466,6 +542,8 @@ def test_run_cell(results, world, kind):
         assert len(rec["step_wall_s"]) == (1 if kind == "prefill" else 3)
         key = "ring" if kind == "prefill" else "combine"
         assert rec["sent_bytes"][key] > 0
+        # a tp_sp cell runs on the rank's split weights, gathered on use
+        assert (rec["sent_bytes"]["weights"] > 0) == (kind == "decode")
 
 
 # ---------------------------------------------------------------------------
@@ -520,7 +598,13 @@ def test_specs_match_reference(arch, policy, degree):
     params = build_model(tcfg).init(0, device="cpu")
     specs = param_specs(params, policy=policy, degree=degree)
     got = dict(leaves_with_paths(specs))
-    for path, _ in leaves_with_paths(params):
+    for path, leaf in leaves_with_paths(params):
+        if path == "unembed" and policy == "tp_sp":
+            # C17: the port's own rule splits the vocabulary columns;
+            # the reference's embed$ rule splits the d_model rows
+            assert want[path] == fit_dim(0, leaf.shape, degree)
+            assert got[path] == fit_dim(1, leaf.shape, degree)
+            continue
         assert got[path] == want[reference_leaf(path, tcfg)], path
     opt = opt_specs(specs)
     assert opt["mu"] is specs and opt["nu"] is specs and opt["step"] is None
@@ -605,12 +689,89 @@ def test_policy_refuses_fsdp_and_training():
 
 
 def test_unembed_takes_the_embed_rule_as_in_the_reference():
-    """C17: the reference's first-match rules give an untied unembedding
-    (D, V) the embedding's ("model", None), so its d_model rows split;
-    the port keeps that order."""
+    """C17, repaired: the reference's first-match rules give an untied
+    unembedding (D, V) the embedding's ("model", None), so its d_model
+    rows split; the port puts ``unembed$`` first, so its vocabulary
+    columns split, as the rule written for it says. The reference's
+    ``param_spec`` still returns the embedding's rule."""
     cfg = get_smoke("deepseek-coder-33b")
     assert not cfg.tie_embeddings
     params = build_model(cfg).init(0, device="cpu")
-    assert param_specs(params, degree=2)["unembed"] == 0
+    assert param_specs(params, degree=2)["unembed"] == 1
+    assert param_specs(params, degree=2)["embed"] == 0
+    assert param_spec("unembed", 2, is_moe_expert=False) == (None, "model")
     assert jsharding.param_spec("unembed", 2, is_moe_expert=False) == \
         jax.sharding.PartitionSpec("model", None)
+
+
+def _cat_ranks(parts: list, dim) -> torch.Tensor:
+    return parts[0] if dim is None else torch.cat(parts, dim)
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_tp_sp_local_params_are_the_fitted_blocks(arch, degree):
+    """Under tp_sp a rank holds each leaf's block along its fitted
+    param_specs dim (whole where none or the degree does not divide):
+    the ranks' blocks concatenated are the whole tree, and split_specs
+    marks every split leaf but the experts with (dim, whole size)."""
+    cfg = get_smoke(arch)
+    params = build_model(cfg).init(0, device="cpu")
+    dims = dict(leaves_with_paths(param_specs(params, policy="tp_sp",
+                                              degree=degree)))
+    ranks = [dict(leaves_with_paths(local_params(
+        params, rank=r, degree=degree, policy="tp_sp")))
+        for r in range(degree)]
+    gathered = {path: spec for path, spec in leaves_with_paths(
+        split_specs(cfg, degree)) if spec is not None}
+    for path, leaf in leaves_with_paths(params):
+        dim = dims[path]
+        assert torch.equal(_cat_ranks([rk[path] for rk in ranks], dim), leaf)
+        if dim is not None:
+            assert ranks[0][path].shape[dim] * degree == leaf.shape[dim]
+        expert = leaf.ndim == 3 and "ffn/w_" in path
+        want = None if dim is None or expert else (dim, leaf.shape[dim])
+        assert gathered.get(path) == want, path
+
+
+def test_local_params_in_place_releases_the_whole_leaves():
+    """``in_place``: the blocks replace the leaves in the tree itself and
+    no whole leaf outlives its cut (the draw a rank cuts on the card)."""
+    cfg = get_smoke("deepseek-coder-33b")
+    params = build_model(cfg).init(0, device="cpu")
+    copy = build_model(cfg).init(0, device="cpu")
+    refs = {path: weakref.ref(leaf) for path, leaf in
+            leaves_with_paths(params)}
+    want = local_params(copy, rank=1, degree=2, policy="tp_sp")
+    got = local_params(params, rank=1, degree=2, policy="tp_sp",
+                       in_place=True)
+    assert got is params
+    gc.collect()
+    split = {path for path, d in leaves_with_paths(param_specs(
+        copy, policy="tp_sp", degree=2)) if d is not None}
+    assert split and all(refs[p]() is None for p in split)
+    for (pa, a), (pb, b) in zip(leaves_with_paths(got),
+                                leaves_with_paths(want)):
+        assert pa == pb and torch.equal(a, b)
+    with pytest.raises(ValueError, match="sp_rep and tp_sp"):
+        local_params(copy, rank=0, degree=2, policy="fsdp")
+
+
+@pytest.mark.parametrize("degree,rank", [(4, 1), (4, 3), (2, 0)])
+def test_seeded_cache_the_degree_does_not_divide_is_replicated(degree,
+                                                               rank):
+    """A rank's seeded cache of a length the degree does not divide is
+    the whole cache, marked replicated; of one it divides, its block."""
+    cfg = dataclasses.replace(get_smoke("internlm2-1.8b"),
+                              compute_dtype=torch.float32)
+    shard = SeqShard(None, rank, degree)
+    for max_len in (42, 40):
+        whole = seeded_cache(cfg, 2, max_len, 30, seed=2, device="cpu")
+        mine = seeded_cache(cfg, 2, max_len, 30, seed=2, device="cpu",
+                            shard=shard)
+        c0, rows = cache_block(max_len, shard)
+        assert mine.get("replicated", False) == (max_len % degree != 0)
+        assert rows == (max_len if max_len % degree else max_len // degree)
+        for a, b in zip(mine["layers"], whole["layers"]):
+            for name in ("k", "v"):
+                assert torch.equal(a[name], b[name][:, :, c0:c0 + rows])

@@ -12,7 +12,9 @@ one of
 * ``decode``: ``sharded_decode_attention`` on the rank's block of a
   cache (int8 with its per-row scales);
 * ``slice``: a smoke model's ``prefill`` and greedy ``decode_step``s,
-  then ``forward``, from the reference's weights (numpy);
+  then ``forward``, from the reference's weights (numpy), on the
+  ``sp_rep`` tree (weights whole but the experts) and again on the
+  rank's ``tp_sp`` split of the weights;
 * ``cell``: ``launch/dryrun.run_cell`` on a small prefill, decode and
   train cell.
 
@@ -86,13 +88,12 @@ def _decode(case, shard) -> dict:
     return {"out": out.numpy(), "sent": dict(shard.sent)}
 
 
-def _slice(case, shard, weights) -> dict:
+def _run_slice(model, params, case, shard) -> dict:
+    """Prefill, the case's greedy decode steps and forward under
+    ``tp_sp`` on ``params``: logits, tokens, bytes sent by kind, the
+    cache block's shapes and whether it is replicated."""
     from repro_torch.distributed.ctx import sharding_policy
-    from repro_torch.distributed.sharding import local_params
 
-    model, params = slice_model(case["arch"], weights[case["arch"]],
-                                case.get("capacity_factor"))
-    params = local_params(params, rank=shard.rank, degree=shard.degree)
     cfg = model.cfg
     tokens = torch.from_numpy(case["prompt"]).long()
     s = tokens.shape[1]
@@ -104,6 +105,7 @@ def _slice(case, shard, weights) -> dict:
         out["prefill_sent"] = dict(shard.sent)
         out["cache_shapes"] = [tuple(blk["k"].shape)
                                for blk in cache["layers"]]
+        out["replicated"] = cache.get("replicated", False)
         steps, toks = [logits[:, 0]], []
         shard.reset_counts()
         for i in range(case["steps"]):
@@ -112,12 +114,26 @@ def _slice(case, shard, weights) -> dict:
             logits, cache = model.decode_step(params, cfg, tok, cache, s + i)
             steps.append(logits[:, 0])
         out["decode_sent"] = dict(shard.sent)
+        shard.reset_counts()
         out["forward"], out["aux"] = model.forward(params, tokens, cfg)
+        out["forward_sent"] = dict(shard.sent)
     out.update(logits=torch.stack(steps).numpy(),
                tokens=torch.stack(toks, 1).numpy(),
-               expert_shape=tuple(params["layers"][0]["ffn"]["w_gate"].shape))
-    out["forward"] = out["forward"].numpy()
-    out["aux"] = float(out["aux"])
+               forward=out["forward"].numpy(), aux=float(out["aux"]))
+    return out
+
+
+def _slice(case, shard, weights) -> dict:
+    from repro_torch.distributed.sharding import local_params
+
+    model, whole = slice_model(case["arch"], weights[case["arch"]],
+                               case.get("capacity_factor"))
+    params = local_params(whole, rank=shard.rank, degree=shard.degree)
+    out = _run_slice(model, params, case, shard)
+    out["expert_shape"] = tuple(params["layers"][0]["ffn"]["w_gate"].shape)
+    split = local_params(whole, rank=shard.rank, degree=shard.degree,
+                         policy="tp_sp")
+    out["split"] = _run_slice(model, split, case, shard)
     return out
 
 

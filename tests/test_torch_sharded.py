@@ -15,6 +15,16 @@ tracks and the degree gauge, the split plan B6 and B7 take under
 sharding, ``shard="auto"`` and the refusals, ``cache_specs`` against the
 reference's, a rank's slice of a cache, ``tune_shard_degree`` against
 the reference's closed form, and the router.
+
+The head-block ring (``chunk_route="ring"``) runs in the same two
+spawns: internlm2 on fp32 and int8 pools at degree 2 and
+deepseek-moe-smoke on both at degree 4 serve the reference's and the
+single card's tokens, with the ring's passes and slab bytes those the
+shapes give; and ``ring_paged_prefill`` itself, on the reference test's
+shape and on a chunk the degree divides, fp32 and int8, matches the
+reference's single-chip ``paged_prefill_attention`` within 1e-6 and the
+port's one-card call bit for bit (``tests/test_torch_paged_ring.py``
+holds the ring's tests that need no group).
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from repro_torch.serving import (
 )
 from repro_torch.tree import leaves_with_paths
 from test_torch_harness import model_pair
+from test_torch_paged_ring import RING_SHAPES, RING_TOL, ring_inputs, ring_want
 from test_torch_sharded_ranks import Ranks, port_model, requests
 
 # the reference test's shapes (tests/test_distributed_serving.py)
@@ -94,6 +105,18 @@ def _case(name, arch, shard, prompts, **kw):
                 max_new=MAX_NEW, engine_kw=engine_kw, **kw)
 
 
+def _ring_fn_names(degree: int) -> list:
+    return [f"ring_fn-{degree}-{shape}-{dt}" for shape in RING_SHAPES
+            for dt in ("fp32", "int8")]
+
+
+def _ring_fn_cases(degree: int) -> list:
+    return [dict(name=name, kind="ring_fn", shard=degree,
+                 inputs=ring_inputs(name.split("-")[2],
+                                    name.endswith("int8")))
+            for name in _ring_fn_names(degree)]
+
+
 def _cases2(vocab):
     p, sp = _prompts(vocab), _spec_prompts(vocab)
     return [
@@ -108,7 +131,11 @@ def _cases2(vocab):
         # expiring mid-serve on rank 0's clock: the ranks kill alike
         _case("deadlines", "internlm2-1.8b", 2, p,
               deadlines={1: 0.0, 3: 0.05, 5: 0.15}),
-    ]
+        _case("ring_fp32", "internlm2-1.8b", 2, p, chunk_route="ring",
+              like="fp32"),
+        _case("ring_int8", "internlm2-1.8b", 2, p, chunk_route="ring",
+              like="int8", engine_kw={"kv_dtype": "int8"}),
+    ] + _ring_fn_cases(2)
 
 
 def _cases4(vocab):
@@ -118,7 +145,11 @@ def _cases4(vocab):
         _case("moe_int8", "deepseek-moe-16b", 4, p,
               engine_kw={"kv_dtype": "int8"}),
         _case("degree2_of_4", "internlm2-1.8b", 2, p),
-    ]
+        _case("ring_moe_fp32", "deepseek-moe-16b", 4, p, chunk_route="ring",
+              like="moe_fp32"),
+        _case("ring_moe_int8", "deepseek-moe-16b", 4, p, chunk_route="ring",
+              like="moe_int8", engine_kw={"kv_dtype": "int8"}),
+    ] + _ring_fn_cases(4)
 
 
 @pytest.fixture(scope="module")
@@ -136,7 +167,8 @@ def ranks(pairs, weights, cases, expected):
               4: Ranks(4, _cases4(vocab), weights)}
     try:
         for name, case in cases.items():
-            expected(case, reference=name != "burst_int8")
+            if case.get("kind") != "ring_fn":
+                expected(case, reference=name != "burst_int8")
         yield {world: r.results() for world, r in spawns.items()}
     finally:
         for r in spawns.values():
@@ -163,7 +195,7 @@ def expected(pairs):
     jax_engines, out = {}, {}
 
     def get(case, reference: bool = True):
-        name = case["name"]
+        name = case.get("like", case["name"])   # a ring case: its twin's
         if name in out:
             return out[name]
         pair = pairs[case["arch"]]
@@ -211,6 +243,23 @@ def _gather_bytes(pair, case, step_log) -> int:
     return rows * per_row * cfg.num_layers
 
 
+def _ring_counts(pair, case, step_log) -> tuple[int, int]:
+    """(passes, slab bytes received) of a rank's head-block ring over a
+    serve, from the shapes: n - 1 passes a layer a chunk step, each of
+    the rank's K and V slabs of max_pages pages of Hkv/n heads (int8:
+    with their fp32 scales)."""
+    cfg, kw, n = pair.tcfg, case["engine_kw"], case["shard"]
+    chunks = sum(1 for step in step_log if step["prefill_in_flight"])
+    hops = chunks * cfg.num_layers * (n - 1)
+    pages = kw["max_len"] // kw["page_size"]
+    heads = cfg.num_kv_heads // n
+    if kw.get("kv_dtype") == "int8":
+        slab = 2 * heads * pages * (kw["page_size"] * cfg.hd + 4)
+    else:
+        slab = 2 * heads * pages * kw["page_size"] * cfg.hd * 4
+    return hops, hops * slab
+
+
 def _same(got: dict, want: dict, what: str) -> None:
     assert set(got) == set(want), what
     for rid in want:
@@ -232,7 +281,12 @@ def _check_parity(pairs, expected, case, ranks, reference: bool = True):
         st = res["shard_stats"]
         assert st["degree"] == case["shard"]
         assert st["result_mismatch"] == 0, what
-        assert st["ring_hops"] == 0
+        if case.get("chunk_route") == "ring":
+            hops, ring_bytes = _ring_counts(pair, case, res["step_log"])
+            assert (st["ring_hops"], st["ring_bytes"]) == (hops, ring_bytes)
+            assert hops > 0, what
+        else:
+            assert st["ring_hops"] == st["ring_bytes"] == 0
         assert st["allgather_bytes"] == _gather_bytes(
             pair, case, res["step_log"]) > 0, what
     assert len({t for v in single.out.values() for t in v.tolist()}) > 5
@@ -278,6 +332,44 @@ def test_speculation_drafts_as_the_single_card(pairs, expected, cases,
 def test_four_ranks_serve_the_reference_and_single_card_tokens(
         pairs, expected, cases, four_ranks, name):
     _check_parity(pairs, expected, cases[name], four_ranks)
+
+
+@pytest.mark.parametrize("name", ["ring_fp32", "ring_int8", "ring_moe_fp32",
+                                  "ring_moe_int8"])
+def test_ring_route_serves_the_reference_and_single_card_tokens(
+        pairs, expected, cases, ranks, name):
+    """``chunk_route="ring"``: every chunk through the head-block ring
+    (B5's plain version a hop), the tokens the reference's and the
+    single card's, the ring's passes and slab bytes the shapes'."""
+    case = cases[name]
+    _check_parity(pairs, expected, case, ranks[case["shard"]])
+
+
+@pytest.mark.parametrize("name", _ring_fn_names(2) + _ring_fn_names(4))
+def test_ring_paged_prefill_matches_reference_and_one_card(cases, ranks,
+                                                           name):
+    """Every rank's output within 1e-6 of the reference's single-chip
+    twin and bit for bit the port's one-card call on the same route (hops
+    fill disjoint head slots: no combine); n - 1 passes of the rank's K
+    and V slabs (6 pages of Hkv/n heads, int8 with their scales) and one
+    all-gather of the (Hq, chunk / n, E) rows."""
+    case = cases[name]
+    n = case["shard"]
+    want, one = ring_want(case["inputs"])
+    hq, chunk, e = case["inputs"]["q"].shape
+    page = case["inputs"]["k"].shape[2]
+    heads = case["inputs"]["k"].shape[0] // n
+    slab = 2 * heads * 6 * page * e * case["inputs"]["k"].itemsize
+    if "k_scales" in case["inputs"]:
+        slab += 2 * heads * 6 * 4
+    for res in (rk[name] for rk in ranks[n]):
+        for impl, got in res["out"].items():
+            np.testing.assert_allclose(got, want, atol=RING_TOL,
+                                       rtol=0, err_msg=impl)
+            np.testing.assert_array_equal(got, one[impl], err_msg=impl)
+        assert res["ring_hops"] == n - 1
+        assert res["ring_bytes"] == (n - 1) * slab
+        assert res["gathered_bytes"] == (n - 1) * hq * -(-chunk // n) * e * 4
 
 
 def test_ranks_past_the_degree_take_no_part(pairs, expected, cases,
@@ -348,7 +440,8 @@ def test_auto_is_one_and_serves_the_single_card_tokens(pairs, expected,
     out = eng.serve(requests(cases["fp32"]["prompts"], MAX_NEW))
     _same(out, expected(cases["fp32"])[1].out, "auto")
     assert eng.shard_stats == {"degree": 1, "allgather_bytes": 0,
-                               "ring_hops": 0, "result_mismatch": 0}
+                               "ring_hops": 0, "ring_bytes": 0,
+                               "result_mismatch": 0}
 
 
 def test_degrees_are_validated(pairs, two_ranks):

@@ -7,9 +7,11 @@ gloo group through a ``FileStore`` in a
 temporary directory, so that parallel test workers never share a TCP
 port. Each rank builds the port's smoke models from the numpy weights it
 is given, serves every case through ``ShardedContinuousBatchingEngine``
-on the CPU and pickles what it saw; the caller compares. The ranks
-import no JAX: the reference's results are computed in the test's own
-process.
+on the CPU (a case of kind ``ring_fn`` instead runs
+``distributed/paged.ring_paged_prefill`` on the rank's heads of the
+case's pools, ``ring_case``) and pickles what it saw; the caller
+compares. The ranks import no JAX: the reference's results are computed
+in the test's own process.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ def serve_case(case: dict, weights: dict) -> dict:
     tracer = Tracer(pid=rank) if case.get("trace") else None
     eng = ShardedContinuousBatchingEngine(
         model, params, shard=case["shard"], device="cpu", tracer=tracer,
-        **case["engine_kw"])
+        chunk_route=case.get("chunk_route", "local"), **case["engine_kw"])
     if case.get("burst"):
         eng.injector = ScriptedFaults(
             exhaust_at_appends=frozenset(case["burst"]))
@@ -120,6 +122,35 @@ def serve_case(case: dict, weights: dict) -> dict:
     return res
 
 
+def ring_case(case: dict) -> dict:
+    """A chunk through ``models.attention.paged_prefill_attention`` under
+    ``kv_shard`` with the ``"ring"`` chunk route, on this rank's heads of
+    the case's pools (numpy, int8 with their scales), each hop on the
+    ``kernel`` route (B5's plain version on the CPU) and on the ``plain``
+    twin: every rank's output, and the hops, slab bytes and gathered
+    bytes of one call."""
+    from repro_torch.distributed.ctx import KVShard, kv_shard
+    from repro_torch.distributed.paged import head_sharded
+    from repro_torch.models.attention import paged_prefill_attention
+
+    t = {k: torch.from_numpy(v) for k, v in case["inputs"].items()}
+    res = {"out": {}}
+    for impl in ("kernel", "plain"):
+        shard = KVShard(None, dist.get_rank(), case["shard"],
+                        chunk_route="ring")
+        pools = {k: head_sharded(t[k], shard) for k in
+                 ("k", "v", "k_scales", "v_scales") if k in t}
+        with kv_shard(shard):
+            out = paged_prefill_attention(
+                t["q"], pools["k"], pools["v"], t["table"], t["span"],
+                impl=impl, k_scales=pools.get("k_scales"),
+                v_scales=pools.get("v_scales"))
+        res["out"][impl] = out.numpy()
+        res.update(ring_hops=shard.ring_hops, ring_bytes=shard.ring_bytes,
+                   gathered_bytes=shard.gathered_bytes)
+    return res
+
+
 def refusals(weights: dict) -> dict:
     """Degrees the group cannot hold: what each raises on this rank."""
     from repro_torch.serving import ShardedContinuousBatchingEngine
@@ -145,7 +176,10 @@ def _rank_main(rank: int, world: int, store: str, out_dir: str,
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        res = {case["name"]: serve_case(case, weights) for case in cases}
+        res = {case["name"]: (ring_case(case)
+                              if case.get("kind") == "ring_fn"
+                              else serve_case(case, weights))
+               for case in cases}
         res["_refusals"] = refusals(weights)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
