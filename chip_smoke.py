@@ -36,7 +36,9 @@ Phases, each printing one JSON line:
    B3 and B4 at head dim 256 at the hybrid wave's shapes (B3 on the 1 x
    8000 prompt under the 2048-token window, B4 on 4 sequences over a
    full ring of 2048 rows, bf16 and int8, with their registers, spills
-   and tensor-core instructions),
+   and tensor-core instructions; B3 again as a split rank calls it,
+   8192 Q rows at q_offset 2047 after a 2047-row window halo,
+   ``flash_e256_halo``),
    every output row within about one bf16 rounding of its norm, with its
    time, the plain version's, the bound for its work on the card, and
    one PyTorch call computing the same function (timed as a yardstick
@@ -179,11 +181,35 @@ Phases, each printing one JSON line:
    split, the same cell again (bitwise logits), then 16 sequences
    (decode_32k's 128 cut), at full depth with a card a rank and at the
    depth ``coder_plan`` fits (at most 2 layers: the gathers go through
-   host memory) with four ranks on one card, stated in the line. Per run
-   and rank: peak memory, prefill and decode-step device ms and wall,
-   bytes sent by collective (ring, combine, a2a, gather, bcast, weights)
-   and the bytes staged through host buffers. ``python3 chip_smoke.py
-   --only seq_sharded`` runs the build and this phase alone;
+   host memory) with four ranks on one card, stated in the line; then
+   the recurrent stacks, whose layers exchange boundary rows (``halo``:
+   a conv's 3 input rows, a window's K/V) and scan carries (``carry``)
+   and decode on states split by channel and head: mamba2-130m at full
+   width and depth, a 1 x 524288 prompt (long_500k's length) at degree 4
+   and 1 x 32768 at degree 2, B8 on each rank's chunks, with 16 decode
+   steps after each, then decode_32k (its full batch of 128) and
+   long_500k from seeded states at degree 4; recurrentgemma-9b
+   prefill_32k at batch 1 (32 cut) at degrees 2 and 4, B3 at head dim 256
+   on each rank's rows after a window halo, decode_32k at batch 8 (128
+   cut) and long_500k at degree 4, at full depth on split weights with a
+   card a rank and at SEQ_HYBRID_SHARED_LAYERS on whole weights when four
+   ranks share one card; each against the single card's kernel route
+   (``recurrent_yardsticks``, whose 1 x 524288 prefill's peak memory is
+   recorded): first-token and step logits within LOGITS_RTOL, the first
+   layer of each kind's rows within BF16_ROW_RTOL of the single card's
+   rows at the same positions (``split_rows_gate``) with three planted
+   faults (the last rank's carry zeroed, the conv halo zeroed, the window
+   halo dropped; ``planted_split_fault``, on the first layers) rejected,
+   every rank's logits the same bits, each cache leaf its
+   ``cache_specs`` block, mamba2's split decode bitwise the single
+   card's; an fp32 run of each (2 and 3 layers, a 4096-token prompt):
+   tokens equal, first-token logits within SEQ_FP32_RTOL. Per run and
+   rank: peak memory, prefill and decode-step device ms and wall, bytes
+   sent by collective (ring, combine, a2a, gather, bcast, weights, halo,
+   carry) and the bytes staged through host buffers. ``python3
+   chip_smoke.py --only seq_sharded`` runs the build, the B3 halo row
+   and this phase alone, ``--only seq_recurrent`` the same with the
+   recurrent runs only;
 12. moe — full-width, full-depth deepseek-moe-16b (28 layers, 64
    routed experts top-6 and 2 shared, capacity factor 1.25; bf16, random
    weights from seed 0 with the experts' down projections scaled by 1/16,
@@ -343,6 +369,7 @@ beside it, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -448,6 +475,9 @@ HYBRID_WAVES = ((2048, 4), (8000, 1), (32768, 1))
 HYBRID_NEW_TOKENS = 16
 HYBRID_MAX_LEN = 32768 + HYBRID_NEW_TOKENS
 HYBRID_LOGIT_WAVES = (0, 1)   # first-token logits held to the plain route
+# B3's row at a split rank's shape: 8192 Q rows (prefill_32k over 4 ranks)
+# after a halo of window - 1 rows
+HALO_ROWS = 8192
 # fp32 kernel-vs-plain token parity at full width: one (rec, rec, attn)
 # unit and the (rec, rec) tail
 HYBRID_FP32_LAYERS = 5
@@ -535,6 +565,30 @@ SEQ_CODER_CHECK_BATCH = 2
 SEQ_CODER_STEPS = 2     # 1 on a shared card (13 s a step at 4 layers, H100)
 SEQ_CODER_SHARED_LAYERS = 2
 SEQ_CODER_RANK_OVERHEAD = 1 << 30   # a rank's context and NCCL buffers
+# The recurrent stacks split by sequence (the seq_sharded phase). mamba2-130m
+# at full width and depth: a 1 x 524288 prompt (long_500k's length, reached
+# by a real prefill) at degree 4 and 1 x 32768 at degree 2 (sp_rep), each
+# followed by SEQ_PREFILL_NEW decode steps on the split states (tp_sp);
+# decode_32k at its full batch of 128 and long_500k (tp_sp, seeded states,
+# the last step at position 524287) at degree 4. recurrentgemma-9b at full
+# width: prefill_32k at batch 1 (its 32 cut) at degrees 2 and 4 with
+# decode steps after, decode_32k at batch 8 (its 128 cut) and long_500k at
+# degree 4; full depth with a card a rank, SEQ_HYBRID_SHARED_LAYERS (one
+# (rec, rec, attn) unit and the tail) on whole weights where four ranks
+# share one card (gloo would move a tp_sp pass's 11 GB of gathered leaves
+# a rank through host memory). An fp32 run of each at
+# SEQ_RECURRENT_FP32_LAYERS layers (recurrentgemma's: one unit, no tail)
+# with a SEQ_RECURRENT_FP32_PROMPT prompt, past the 2048-token window.
+SEQ_SSM_PREFILLS = ((4, 524288), (2, 32768))    # (degree, prompt rows)
+SEQ_HYBRID_SHARED_LAYERS = 5
+SEQ_RECURRENT_DECODE_BATCH = {SSM_ARCH: 128, HYBRID_ARCH: 8}
+SEQ_RECURRENT_FP32_LAYERS = {SSM_ARCH: 2, HYBRID_ARCH: 3}
+SEQ_RECURRENT_FP32_PROMPT = 4096
+# An fp32 split run's first-token logits against the single card's: the
+# carry is composed across ranks in another order than the single card's
+# decay matrix (stated in PERF.md before the first run).
+SEQ_FP32_RTOL = 1e-4
+SEQ_WARM_ROWS = 256     # a rank's rows of the untimed warm-up prefill
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -559,6 +613,7 @@ PATH_KERNELS = {
     "sharded": ("paged_prefill", "paged_decode", "paged_verify",
                 "paged_prefill_int8", "paged_decode_int8",
                 "paged_verify_int8"),
+    "seq_sharded": ("ssd_intra_chunk", "flash_e256"),
 }
 ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
                              "launcher", "train"),
@@ -577,8 +632,9 @@ ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
             "paged_prefill_int8": ("int8_continuous", "shared_prefix_int8"),
             "paged_verify": ("speculative",),
             "paged_verify_int8": ("speculative_int8",),
-            "ssd_intra_chunk": ("ssm_wave",),
+            "ssd_intra_chunk": ("ssm_wave", "seq_sharded"),
             "flash_e256": ("hybrid_wave",), "decode_e256": ("hybrid_wave",),
+            "flash_e256_halo": ("seq_sharded",),
             "decode_e256_int8": ("hybrid_wave",),
             **{name + "_shard": ("sharded",) for name in (
                 "paged_decode", "paged_decode_int8", "paged_prefill",
@@ -587,12 +643,14 @@ ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
             "paged_prefill_ring_int8": ("sharded_ring",)}
 # The launch counter of a kernel row whose name is not one: the rows of
 # B5-B7 at a rank's heads count their kernels' launches on the sharded
-# path's local-route runs, the B5_ring rows B5's on its ring runs.
+# path's local-route runs, the B5_ring rows B5's on its ring runs, the B3
+# halo row B3's at head dim 256 on the split hybrid's prefills.
 ROW_COUNTER = {**{name + "_shard": name for name in (
     "paged_decode", "paged_decode_int8", "paged_prefill",
     "paged_prefill_int8", "paged_verify", "paged_verify_int8")},
     "paged_prefill_ring": "paged_prefill",
-    "paged_prefill_ring_int8": "paged_prefill_int8"}
+    "paged_prefill_ring_int8": "paged_prefill_int8",
+    "flash_e256_halo": "flash_e256"}
 
 # bf16 kernels against their plain versions: both sum in fp32 and round
 # once to bf16, so a row differs by at most about one bf16 rounding
@@ -2589,6 +2647,7 @@ def hybrid_rows(torch, rnd, device: dict) -> list[dict]:
                   "visible_pairs_a_head": pairs},
     })
 
+    rows.append(halo_row(torch, rnd, cfg))
     b, c = HYBRID_WAVES[0][1], window
     for quantized in (False, True):
         dims = -1 if quantized else None
@@ -2637,6 +2696,62 @@ def hybrid_rows(torch, rnd, device: dict) -> list[dict]:
                       "cache": "int8" if quantized else "bf16"},
         })
     return rows
+
+
+def halo_row(torch, rnd, cfg) -> dict:
+    """B3 at head dim 256 as a rank of the split hybrid calls it
+    (``transformer._seq_window``): HALO_ROWS Q rows of one sequence at
+    ``q_offset`` = the window's halo of W - 1 rows, over (halo + rows)
+    keys, K/V padded to the 64-row tile under kv_len, causal under the
+    window. Fault: a V tile zeroed. Yardstick: SDPA with the window's
+    boolean mask."""
+    from repro_torch.core.policy import KV_TILE
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops
+
+    hq, hkv, e, window = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.window
+    n, h = HALO_ROWS, window - 1
+    nkv = h + n
+    pad = (-nkv) % KV_TILE
+    q = rnd(hq, n, e)
+    k, v = (torch.nn.functional.pad(rnd(hkv, nkv, e), (0, 0, 0, pad))
+            for _ in range(2))
+    kind, bq = ops.resolve_method(n, nkv, e, 2, window=window)
+    require((kind, bq) == ("flash", 64), f"policy routes the halo to {kind}")
+    kw = dict(blk_q=bq, causal=True, window=window, q_offset=h, kv_len=nkv)
+    kern = lambda: fl.flash_attention_flat(q, k, v, **kw)  # noqa: E731
+
+    def plain(v=v):
+        return fl.flash_attention_plain(q, k, v, blk_kv=KV_TILE, **kw)
+
+    # the fault: the second-last real KV tile skipped, seen by the last rows
+    check = held_to_plain(kern(), plain(),
+                          plain(drop_v_tile(v, nkv // KV_TILE - 1)))
+    rows_at = h + torch.arange(n, device="cuda")
+    cols = torch.arange(nkv, device="cuda")
+    mask = (cols[None, :] <= rows_at[:, None]) & (
+        cols[None, :] > rows_at[:, None] - window)
+    lib = library_call(torch, q.view(1, hq, n, e),
+                       k[:, :nkv].reshape(1, hkv, nkv, e),
+                       v[:, :nkv].reshape(1, hkv, nkv, e), causal=False,
+                       mask=mask)
+    pairs = int(mask.sum())                 # visible pairs a head
+    flops = 4.0 * e * pairs * hq
+    nbytes = 2.0 * (2 * hq * n * e + 2 * hkv * nkv * e)
+    bms, by = bound(flops, nbytes)
+    ms = cuda_ms(torch, kern, 20)
+    return {
+        "name": "flash_e256_halo", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": 0, **check, "ms": ms, "plain_ms": cuda_ms(torch, plain, 2),
+        "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(torch, lib, 20),
+        **device_times(torch, kern, lib, 20), "tflops": flops / ms / 1e9,
+        "shape": {"b": 1, "hq": hq, "hkv": hkv, "n": n, "halo": h,
+                  "q_offset": h, "kv_len": nkv, "e": e, "blk_q": bq,
+                  "window": window, "causal": True, "dtype": "bf16",
+                  "visible_pairs_a_head": pairs},
+    }
 
 
 def ring_slot_written(torch, model, params, prompt, kv_dtype=None) -> int:
@@ -4173,19 +4288,8 @@ def phase_sharded(torch, full: dict, ring_bitwise: dict) -> dict:
 def first_output(module, name: str, run):
     """``run()`` with the output of the first call of ``module.name``
     kept: (run's result, that output)."""
-    real, seen = getattr(module, name), []
-
-    def call(*args, **kw):
-        out = real(*args, **kw)
-        if not seen:
-            seen.append(out.detach().clone())
-        return out
-
-    setattr(module, name, call)
-    try:
-        return run(), seen[0]
-    finally:
-        setattr(module, name, real)
+    result, seen = first_outputs([(module, name)], run)
+    return result, seen[name]
 
 
 def seq_logits(got, want) -> dict:
@@ -4296,6 +4400,71 @@ def seq_rows_check(got, want, fault=None) -> dict:
     check = {"row_rel_err": row_rel_err(got.cpu(), want)}
     if fault is not None:
         check["fault_row_rel_err"] = row_rel_err(fault.cpu(), want)
+    return check
+
+
+SPLIT_FAULTS = ("carry_zeroed", "conv_halo_zeroed", "window_halo_dropped")
+
+
+@contextlib.contextmanager
+def planted_split_fault(fault: str):
+    """Plant ``fault`` (SPLIT_FAULTS) in this process's boundary exchanges
+    of a split prefill (``distributed/ctx.SeqShard``): ``carry_zeroed``,
+    the state carried into the last rank's rows zeroed; ``conv_halo_zeroed``,
+    the conv input rows before each rank's block zeroed (what a rank that
+    took no halo computes); ``window_halo_dropped``, no K/V rows before
+    each rank's block (its first rows attend only their own block)."""
+    from repro_torch.distributed.ctx import SeqShard
+
+    if fault not in SPLIT_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    real_halo, real_carry = SeqShard.halo, SeqShard.carry
+
+    def halo(self, x, rows, dim=1):
+        before, tail = real_halo(self, x, rows, dim)
+        if fault == "conv_halo_zeroed" and dim == 1:
+            before = before.new_zeros(before.shape)
+        if fault == "window_halo_dropped" and dim == 3:
+            before = before.narrow(dim, 0, 0)
+        return before, tail
+
+    def carry(self, final, log_decay):
+        s_in, s_end = real_carry(self, final, log_decay)
+        if fault == "carry_zeroed" and self.rank == self.degree - 1:
+            s_in = s_in.new_zeros(s_in.shape)
+        return s_in, s_end
+
+    SeqShard.halo, SeqShard.carry = halo, carry
+    try:
+        yield
+    finally:
+        SeqShard.halo, SeqShard.carry = real_halo, real_carry
+
+
+def fault_touches(fault: str, rank: int, degree: int) -> bool:
+    """Whether planted ``fault`` changes rank ``rank``'s rows: the zeroed
+    carry the last rank's, a halo fault every rank's but the first (rank
+    0 has no rows before it)."""
+    if fault == "carry_zeroed":
+        return rank == degree - 1
+    return rank > 0
+
+
+def split_rows_gate(got, want, faulty: dict) -> dict:
+    """The layer rows gate of a split prefill: a rank's rows of a layer's
+    output against the single card's rows at the same positions
+    (``seq_rows_check``), within BF16_ROW_RTOL, and each planted fault's
+    rows (``faulty``: fault -> the rank's rows under it; a fault that
+    leaves this rank's rows alone, as the zeroed carry on every rank but
+    the last, maps to None) outside it. ``ok`` when the rows pass and
+    every fault on the rank is rejected."""
+    check = seq_rows_check(got, want)
+    check["faults"] = {
+        name: None if rows is None else row_rel_err(rows.cpu(), want)
+        for name, rows in faulty.items()}
+    check["ok"] = check["row_rel_err"] <= BF16_ROW_RTOL and all(
+        err > BF16_ROW_RTOL for err in check["faults"].values()
+        if err is not None)
     return check
 
 
@@ -4723,13 +4892,530 @@ def seq_coder_run(torch, shard, plan: dict, failures: list) -> dict:
             "whole_check": whole, "split_check": check, "split": big}
 
 
+def first_outputs(targets, run):
+    """``run()`` with the first output of each of ``targets`` ((module,
+    function name) pairs) kept, the first element of a tuple output:
+    (run's result, {function name: that output})."""
+    reals, seen = {}, {}
+
+    def wrap(name, real):
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            if name not in seen:
+                rows = out[0] if isinstance(out, tuple) else out
+                seen[name] = rows.detach().clone()
+            return out
+        return call
+
+    for module, name in targets:
+        reals[module, name] = getattr(module, name)
+        setattr(module, name, wrap(name, reals[module, name]))
+    try:
+        return run(), seen
+    finally:
+        for (module, name), real in reals.items():
+            setattr(module, name, real)
+
+
+def layer_targets(split: bool) -> list:
+    """The functions whose first call gives the first layer of each kind's
+    output: the SSD and RG-LRU blocks, and the windowed attention layer
+    (``transformer._seq_window`` on the split route, ``attn_block`` on
+    one card), keyed ``ssd``, ``rec``, ``attn``."""
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models import transformer as tfm
+
+    return [(ssm, "ssd_block"), (rglru, "rglru_block"),
+            (tfm, "_seq_window" if split else "attn_block")]
+
+
+LAYER_KEYS = {"ssd_block": "ssd", "rglru_block": "rec", "_seq_window": "attn",
+              "attn_block": "attn"}
+
+
+def keyed(rows: dict) -> dict:
+    return {LAYER_KEYS[name]: t for name, t in rows.items()}
+
+
+
+def digest(t) -> str:
+    """A tensor's values, hashed (fp32 holds a bf16 or fp32 value exactly):
+    the same on every rank, or not."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def spec_shapes(cfg, batch: int, max_len: int, degree: int) -> list:
+    """Each layer's cache leaf shapes a rank holds by ``cache_specs``
+    (dense layout, fitted to ``degree``)."""
+    from repro_torch.distributed.sharding import cache_specs
+    from repro_torch.models.transformer import make_cache
+
+    meta = make_cache(cfg, batch, max_len, device="meta")
+    specs = cache_specs(meta, layout="dense", degree=degree)
+    out = []
+    for blk, spec in zip(meta["layers"], specs["layers"]):
+        shapes = {}
+        for name, t in blk.items():
+            shape = list(t.shape)
+            if spec[name] is not None:
+                shape[spec[name]] //= degree
+            shapes[name] = tuple(shape)
+        out.append(shapes)
+    return out
+
+
+def recurrent_model(torch, arch: str, layers: int | None = None):
+    """(cfg, model, params) of ``arch`` at full width, bf16, seed 0, at
+    ``layers`` layers (default all): the first layers of the full model's
+    draw."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    if layers is not None and layers != cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    full = full_width_model(torch, cfg=cfg)
+    return cfg, full["model"], full["params"]
+
+
+def unit_cut(cfg, params, n_layers: int):
+    """(cfg, model, params) of the first ``n_layers`` layers of ``params``
+    as a stack of their own kinds (no tail): the planted faults' model."""
+    from repro_torch.models.api import build_model
+
+    cut = dataclasses.replace(cfg, num_layers=n_layers, pattern_tail=())
+    require(cut.layer_kinds == cfg.layer_kinds[:n_layers],
+            f"{cfg.name}: a cut of {n_layers} layers changes their kinds")
+    return cut, build_model(cut), dict(params,
+                                       layers=params["layers"][:n_layers])
+
+
+def fault_layers(cfg) -> int:
+    """Layers that hold the first of each kind: one SSD layer, or the
+    hybrid's (rec, rec, attn)."""
+    kinds = cfg.layer_kinds
+    return max(kinds.index(k) for k in set(kinds)) + 1
+
+
+def recurrent_plan(backend: str) -> dict:
+    """Depth and weights of the recurrent runs: recurrentgemma-9b at full
+    depth on tp_sp split weights with a card a rank; SEQ_HYBRID_SHARED_LAYERS
+    on weights held whole where the ranks share one card (gloo gathers
+    through host memory: a tp_sp pass of the full model moves 11 GB a
+    rank). mamba2-130m at full depth always."""
+    from repro_torch.configs import get_arch
+
+    shared = backend != "nccl"
+    full = get_arch(HYBRID_ARCH).num_layers
+    layers = SEQ_HYBRID_SHARED_LAYERS if shared else full
+    return {SSM_ARCH: {"layers": get_arch(SSM_ARCH).num_layers,
+                       "split_weights": True, "reduced": None},
+            HYBRID_ARCH: {"layers": layers, "split_weights": not shared,
+                          "reduced": (f"{layers} of {full} layers: four "
+                                      f"ranks share one card over gloo"
+                                      if shared else None)}}
+
+
+def recurrent_yardsticks(torch, path, plan: dict) -> dict:
+    """The single card's results the recurrent runs are held to, saved to
+    ``path`` (CPU tensors) by arch: each split prefill's first-token
+    logits, its first layer of each kind's output, and the logits of
+    SEQ_PREFILL_NEW decode steps of seeded tokens after it (mamba2-130m
+    at each prompt of SEQ_SSM_PREFILLS, recurrentgemma-9b at prefill_32k
+    at ``plan``'s depth), the peak memory of each prefill, decode_32k and
+    long_500k from seeded caches (run_cell's seeds at seed 0), and an fp32
+    run's greedy tokens and first-token logits at
+    SEQ_RECURRENT_FP32_LAYERS layers. Returns the single card's times."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch.dryrun import (
+        cell_tokens,
+        decode_steps,
+        seeded_cache,
+    )
+
+    dev = torch.device("cuda")
+    yard, times = {}, {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg, model, params = recurrent_model(torch, arch,
+                                             plan[arch]["layers"])
+        mine, t = {"prefill": {}}, {}
+        prompts = ([s for _, s in SEQ_SSM_PREFILLS] if arch == SSM_ARCH
+                   else [SHAPES["prefill_32k"].seq_len])
+        with torch.no_grad():
+            for s in prompts:
+                tokens = cell_tokens(cfg, 1, s, seed=1, device=dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                ((logits, cache), host, ms), rows = first_outputs(
+                    layer_targets(False), lambda: timed_call(
+                        torch, lambda: model.prefill(
+                            params, cfg, tokens, s + SEQ_PREFILL_NEW)))
+                peak = torch.cuda.max_memory_allocated(dev)
+                steps = cell_tokens(cfg, 1, SEQ_PREFILL_NEW, seed=4,
+                                    device=dev)
+                step_logits, step_ms, _ = decode_steps(model, params, cache,
+                                                       steps, s, dev)
+                mine["prefill"][s] = {
+                    "logits": logits[:, 0].float().cpu(),
+                    "steps": step_logits.float().cpu(),
+                    "rows": {k: v.cpu() for k, v in keyed(rows).items()}}
+                t[f"prefill {s}"] = {"prefill_ms": ms, "prefill_s": host,
+                                     "peak_mem_bytes": peak,
+                                     "decode_step_ms": step_ms}
+                del cache, logits, rows
+                torch.cuda.empty_cache()
+            for name, batch, steps in (
+                    ("decode_32k", SEQ_RECURRENT_DECODE_BATCH[arch],
+                     SEQ_DECODE_STEPS), ("long_500k", 1, 1)):
+                d = SHAPES[name].seq_len
+                cache = seeded_cache(cfg, batch, d, d - steps, seed=2,
+                                     device=dev)
+                tokens = cell_tokens(cfg, batch, steps, seed=3, device=dev)
+                logits, ms, _ = decode_steps(model, params, cache, tokens,
+                                             d - steps, dev)
+                mine[name] = logits.float().cpu()
+                t[name] = {"decode_step_ms": ms}
+                del cache
+                torch.cuda.empty_cache()
+            del params, model
+            torch.cuda.empty_cache()
+            layers = SEQ_RECURRENT_FP32_LAYERS[arch]
+            _, m32, p32 = fp32_model(torch, get_arch(arch), layers,
+                                     **({"pattern_tail": ()}
+                                        if arch == HYBRID_ARCH else {}))
+            prompt = cell_tokens(cfg, 1, SEQ_RECURRENT_FP32_PROMPT, seed=5,
+                                 device=dev)
+            got = generate(torch, m32, p32, prompt, SEQ_FP32_NEW,
+                           start=SEQ_RECURRENT_FP32_PROMPT,
+                           max_len=SEQ_RECURRENT_FP32_PROMPT + SEQ_FP32_NEW)
+            mine["fp32"] = {"tokens": got["tokens"].cpu(),
+                            "first_logits": got["first_logits"].cpu()}
+            del m32, p32, got
+            torch.cuda.empty_cache()
+        yard[arch] = mine
+        times[arch] = t
+    torch.save(yard, path)
+    return times
+
+
+def seq_recurrent_prefill(torch, model, params, shard, s: int, want: dict,
+                          fault_cut, failures: list) -> dict:
+    """One split prefill of ``s`` seeded tokens (run_cell, batch 1) on this
+    rank and SEQ_PREFILL_NEW decode steps of seeded tokens on its split
+    states (tp_sp), held to the single card's ``want``: first-token and
+    step logits within LOGITS_RTOL, the first layer of each kind's rows
+    (``split_rows_gate``; every kind the stack has must be seen) with
+    each planted fault of SPLIT_FAULTS that the stack has, run on
+    ``fault_cut``'s first layers, rejected; the cache leaves the
+    ``cache_specs`` blocks; B8 or B3 launched."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import cell_tokens, decode_steps, run_cell
+
+    cfg = model.cfg
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, r = shard.degree, shard.rank
+    per = s // n
+    tag = f"{cfg.name} {s} rank {r} of {n}"
+    cell = ShapeCell(f"prefill_{s}", s, 1, "prefill")
+    max_len = s + SEQ_PREFILL_NEW
+    ops.reset_launch_counts()
+    (rec, out), rows = first_outputs(layer_targets(True), lambda: run_cell(
+        cfg, cell, shard, batch=1, params=params, max_len=max_len,
+        device=dev))
+    launches = dict(ops.launch_counts())
+    shapes = [{k: tuple(t.shape) for k, t in blk.items()}
+              for blk in out["cache"]["layers"]]
+    steps = cell_tokens(cfg, 1, SEQ_PREFILL_NEW, seed=4, device=dev)
+    shard.reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    with torch.no_grad(), sharding_policy(shard, "tp_sp"):
+        step_logits, step_ms, step_wall = decode_steps(
+            model, params, out["cache"], steps, s, dev)
+    decode_launches = dict(ops.launch_counts())
+    decode_bytes = dict(shard.sent)
+    decode_peak = torch.cuda.max_memory_allocated(dev)
+    first = seq_logits(out["logits"][:, 0], want["logits"])
+    checks = [seq_logits(g, w) for g, w in zip(step_logits, want["steps"])]
+    logits_digest = digest(torch.cat([out["logits"][:, 0].float(),
+                                      step_logits[:, 0].float()]))
+    del out
+    torch.cuda.empty_cache()
+
+    cut_cfg, cut_model, cut_params = fault_cut
+    tokens = cell_tokens(cfg, 1, s, seed=1, device=dev)
+    faulty = {}
+    kinds = set(cut_cfg.layer_kinds)
+    for fault in SPLIT_FAULTS:
+        if fault == "window_halo_dropped" and "attn" not in kinds:
+            continue
+        with torch.no_grad(), sharding_policy(shard, rec["policy"]), \
+                planted_split_fault(fault):
+            (_, fcache), frows = first_outputs(
+                layer_targets(True), lambda: cut_model.prefill(
+                    cut_params, cut_cfg, tokens, max_len))
+        del fcache
+        faulty[fault] = {k: v.cpu() for k, v in keyed(frows).items()}
+    gates = {}
+    kinds_run = set(cfg.layer_kinds)       # keys of ``keyed``: one a kind
+    rows = keyed(rows)
+    for fault, frows in faulty.items():
+        if not set(frows) >= kinds_run:
+            failures.append(f"{tag}: fault {fault} kept rows of "
+                            f"{sorted(frows)}, not of {sorted(kinds_run)}")
+    for kind, got in rows.items():
+        mine = want["rows"][kind][:, r * per:(r + 1) * per]
+        on_kind = {f: rows_[kind] if fault_touches(f, r, n) else None
+                   for f, rows_ in faulty.items()
+                   if (f == "window_halo_dropped") == (kind == "attn")}
+        gates[kind] = split_rows_gate(got.cpu(), mine, on_kind)
+    kernel = "ssd_intra_chunk" if cfg.family == "ssm" else "flash_e256"
+    want_shapes = spec_shapes(cfg, 1, max_len, n)
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(f"{tag}: {what}")
+
+    gate(set(gates) == kinds_run, f"layer rows kept of {sorted(gates)}, "
+                                  f"not of every kind {sorted(kinds_run)}")
+    gate(first["ok"], f"first-token logits {first}")
+    gate(all(c["ok"] for c in checks), "decode-step logits "
+         f"{[c for c in checks if not c['ok']]}")
+    for kind, check in gates.items():
+        gate(check["ok"], f"layer rows of the first {kind} layer {check}")
+    gate(launches.get(kernel, 0) > 0,
+         f"{kernel} not launched on the split prefill: {launches}")
+    gate(shapes == want_shapes, f"cache leaves {shapes} are not the "
+                                f"cache_specs blocks {want_shapes}")
+    gate(rec["sent_bytes"]["halo"] > 0 and rec["sent_bytes"]["carry"] > 0,
+         f"no halo or carry exchanged: {rec['sent_bytes']}")
+    return {"run": f"{cfg.name} prefill {s}", "arch": cfg.name, **rec,
+            "layers": cfg.num_layers, "rows_a_rank": per,
+            "first_token_logits": first, "layer_rows": gates,
+            "decode_steps": len(checks),
+            "decode_max_abs_err": max(c["max_abs_err"] for c in checks),
+            "decode_argmax_equal": all(c["argmax_equal"] for c in checks),
+            "decode_step_device_ms": step_ms, "decode_step_wall_s": step_wall,
+            "decode_sent_bytes": decode_bytes,
+            "decode_peak_mem_bytes": decode_peak,
+            "kernel_launches": launched_kernels(launches),
+            "decode_kernel_launches": launched_kernels(decode_launches),
+            "cache_leaves": shapes[:fault_layers(cfg)],
+            "logits_digest": logits_digest}
+
+
+def seq_recurrent_decode(torch, model, params, shard, name: str, batch: int,
+                         steps: int, want, failures: list) -> dict:
+    """Cell ``name`` (decode_32k or long_500k) through run_cell on this
+    rank from seeded states (each rank's leaves cut from the whole seeded
+    cache) against the single card's decode of the same cache: bit for
+    bit for mamba2-130m (every value one rank's arithmetic, gathered),
+    within LOGITS_RTOL for recurrentgemma-9b (its windowed layers combine
+    the ranks' ring slots in another order than B4), the bitwise verdict
+    recorded either way."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import run_cell
+
+    cfg = model.cfg
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ops.reset_launch_counts()
+    rec, out = run_cell(cfg, name, shard, batch=batch, params=params,
+                        steps=steps, device=dev)
+    launches = launched_kernels(ops.launch_counts())
+    logits = out["logits"].float().cpu()
+    del out
+    torch.cuda.empty_cache()
+    check = seq_logits(logits, want)
+    bitwise = bool(torch.equal(logits, want))
+    tag = f"{cfg.name} {name} rank {shard.rank} of {shard.degree}"
+    if cfg.family == "ssm" and not bitwise:
+        failures.append(f"{tag}: split decode not bitwise the single "
+                        f"card's ({check})")
+    if not check["ok"]:
+        failures.append(f"{tag}: logits {check}")
+    kind = "gather" if cfg.family == "ssm" else "combine"
+    if not rec["sent_bytes"][kind]:
+        failures.append(f"{tag}: no {kind} bytes: {rec['sent_bytes']}")
+    return {"run": f"{cfg.name} {name}", "arch": cfg.name, **rec,
+            "layers": cfg.num_layers, "logits": check,
+            "bitwise_one_card": bitwise, "kernel_launches": launches,
+            "logits_digest": digest(logits)}
+
+
+def seq_recurrent_fp32(torch, arch: str, shard, want: dict,
+                       failures: list) -> dict:
+    """An fp32 run at SEQ_RECURRENT_FP32_LAYERS layers (norm scales drawn
+    so that tokens vary): greedy tokens of a SEQ_RECURRENT_FP32_PROMPT
+    prompt split over the ranks equal the single card's, first-token
+    logits within SEQ_FP32_RTOL of its largest."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.launch.dryrun import cell_tokens
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    layers = SEQ_RECURRENT_FP32_LAYERS[arch]
+    cfg32, m32, p32 = fp32_model(torch, get_arch(arch), layers,
+                                 **({"pattern_tail": ()}
+                                    if arch == HYBRID_ARCH else {}))
+    prompt = cell_tokens(cfg32, 1, SEQ_RECURRENT_FP32_PROMPT, seed=5,
+                         device=dev)
+    with torch.no_grad(), sharding_policy(shard, "tp_sp"):
+        got = generate(torch, m32, p32, prompt, SEQ_FP32_NEW,
+                       start=SEQ_RECURRENT_FP32_PROMPT,
+                       max_len=SEQ_RECURRENT_FP32_PROMPT + SEQ_FP32_NEW)
+    tokens = got["tokens"].cpu()
+    first = got["first_logits"].cpu()
+    err = max_err(first, want["first_logits"])
+    tol = SEQ_FP32_RTOL * max(1.0, float(want["first_logits"].abs().max()))
+    same = bool(torch.equal(tokens, want["tokens"]))
+    tag = f"{arch} fp32 rank {shard.rank} of {shard.degree}"
+    if not same:
+        failures.append(f"{tag}: tokens {tokens.tolist()} != one card's "
+                        f"{want['tokens'].tolist()}")
+    if not err <= tol:
+        failures.append(f"{tag}: first-token logits {err} > {tol}")
+    del m32, p32, got
+    torch.cuda.empty_cache()
+    return {"run": f"{arch} fp32", "arch": arch, "degree": shard.degree,
+            "rank": shard.rank, "layers": layers,
+            "prompt": SEQ_RECURRENT_FP32_PROMPT, "new_tokens": SEQ_FP32_NEW,
+            "tokens_equal_one_card": same, "first_logits_max_abs_err": err,
+            "tol": tol, "distinct_tokens": int(tokens.unique().numel()),
+            "logits_digest": digest(first)}
+
+
+def seq_warm_up(torch, model, params, shard) -> None:
+    """A short split prefill (SEQ_WARM_ROWS a rank), untimed, so that the
+    group's first collectives (NCCL builds a communicator on its first
+    use), cuBLAS and the kernels' libraries start outside the timed
+    runs."""
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.launch.dryrun import cell_tokens
+
+    cfg = model.cfg
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tokens = cell_tokens(cfg, 1, SEQ_WARM_ROWS * shard.degree, seed=9,
+                         device=dev)
+    with torch.no_grad(), sharding_policy(shard, "tp_sp"):
+        model.prefill(params, cfg, tokens, tokens.shape[1])
+    torch.cuda.synchronize(dev)
+    shard.reset_counts()
+
+
+def seq_recurrent_runs(torch, arch: str, groups: dict, yard: dict,
+                       plan: dict, failures: list) -> tuple[list, dict]:
+    """``arch`` split by sequence on this rank: each split prefill of its
+    prompts (mamba2-130m: SEQ_SSM_PREFILLS; recurrentgemma-9b:
+    prefill_32k at each degree of SEQ_DEGREES) with its decode steps,
+    then decode_32k and long_500k at the largest degree and the fp32 run
+    at each degree. tp_sp cells take the rank's split of the weights
+    where ``plan`` says so (each degree's cut from the rank's whole
+    draw). Returns (one record a run, the kernels' launches on the split
+    runs)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, ShapeCell
+    from repro_torch.distributed.sharding import local_params
+    from repro_torch.launch.steps import choose_policy
+
+    cfg, model, whole = recurrent_model(torch, arch, plan[arch]["layers"])
+    split_weights = plan[arch]["split_weights"]
+    prompts = (SEQ_SSM_PREFILLS if arch == SSM_ARCH else
+               tuple((n, SHAPES["prefill_32k"].seq_len) for n in SEQ_DEGREES))
+    runs, launches = [], {"ssd_intra_chunk": 0, "flash_e256": 0}
+
+    def weights(shard, cell):
+        """The rank's tree for ``cell`` and what it is."""
+        if split_weights and choose_policy(cfg, cell) == "tp_sp":
+            return local_params(whole, rank=shard.rank, degree=shard.degree,
+                                policy="tp_sp"), "tp_sp split"
+        return whole, "whole"
+
+    for n, s in prompts:
+        shard = groups[n]
+        if shard is not None:
+            params, held = weights(shard, ShapeCell("p", s, 1, "prefill"))
+            seq_warm_up(torch, model, params, shard)
+            cut = unit_cut(cfg, params, fault_layers(cfg))
+            run = seq_recurrent_prefill(torch, model, params, shard, s,
+                                        yard["prefill"][s], cut, failures)
+            for k in launches:
+                launches[k] += run["kernel_launches"].get(k, 0)
+            runs.append({**run, "weights": held,
+                         "reduced": plan[arch]["reduced"]})
+            del params, cut
+            torch.cuda.empty_cache()
+        dist.barrier()
+    shard = groups[max(SEQ_DEGREES)]
+    if shard is not None:
+        for name, batch, steps in (
+                ("decode_32k", SEQ_RECURRENT_DECODE_BATCH[arch],
+                 SEQ_DECODE_STEPS), ("long_500k", 1, 1)):
+            params, held = weights(shard, SHAPES[name])
+            runs.append({**seq_recurrent_decode(
+                torch, model, params, shard, name, batch, steps, yard[name],
+                failures), "weights": held,
+                "reduced": plan[arch]["reduced"]})
+            del params
+            torch.cuda.empty_cache()
+    dist.barrier()
+    del whole
+    torch.cuda.empty_cache()
+    for n in SEQ_DEGREES:
+        if groups[n] is not None:
+            runs.append(seq_recurrent_fp32(torch, arch, groups[n],
+                                           yard["fp32"], failures))
+        dist.barrier()
+    return runs, launches
+
+
+def seq_dense_part(torch, rank: int, groups: dict, yard_path: str,
+                   checksum: int, plan: dict, failures: list,
+                   report: dict) -> None:
+    """The dense stacks of the seq_sharded phase on this rank: build
+    internlm2-1.8b from seed 0 (its checksum the parent's), run
+    ``seq_dense_runs`` at each degree of SEQ_DEGREES (ranks past a degree
+    wait), then ranks 0..SEQ_MOE_DEGREE-1 run ``seq_moe_run`` and the
+    coder group ``seq_coder_run``. Adds its runs to ``report``."""
+    import torch.distributed as dist
+
+    yard = torch.load(yard_path)
+    full = full_width_model(torch)
+    mine = weights_checksum(torch, full["params"])
+    if mine != checksum:
+        failures.append(f"rank {rank}: weights checksum {mine} != the "
+                        f"parent's {checksum}")
+    report["weights_checksum"] = mine
+    for degree in SEQ_DEGREES:
+        if groups[degree] is not None:
+            report["runs"] += seq_dense_runs(
+                torch, full["model"], full["params"], groups[degree], yard,
+                failures)
+        dist.barrier()
+    full.clear()
+    torch.cuda.empty_cache()
+    if groups[SEQ_MOE_DEGREE] is not None:
+        report["runs"].append(seq_moe_run(torch, groups[SEQ_MOE_DEGREE],
+                                          yard, failures))
+    dist.barrier()
+    torch.cuda.empty_cache()
+    if groups[SEQ_CODER_DEGREE] is not None:
+        report["runs"].append(seq_coder_run(
+            torch, groups[SEQ_CODER_DEGREE], plan, failures))
+    dist.barrier()
+
+
 def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
-             yard_path: str, checksum: int, plan: dict) -> None:
+             yard_path: str, checksum: int, plan: dict, rec_path: str,
+             rec_plan: dict) -> None:
     """One rank of the seq_sharded phase (a process of its own): join the
-    group, build internlm2-1.8b from seed 0 (its checksum the parent's),
-    run ``seq_dense_runs`` at each degree of SEQ_DEGREES (ranks past a
-    degree wait), then ranks 0..SEQ_MOE_DEGREE-1 run ``seq_moe_run``.
-    Writes its report to ``out_dir``, then fails on any gate."""
+    group, run the dense stacks (``seq_dense_part``; not when
+    ``yard_path`` is None), then ``seq_recurrent_runs`` of mamba2-130m
+    and recurrentgemma-9b (``rec_plan``'s depth and weights). Writes its
+    report to ``out_dir``, then fails on any gate."""
     import torch
     import torch.distributed as dist
 
@@ -4743,33 +5429,25 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        yard = torch.load(yard_path)
         groups = {d: seq_group(d) for d in sorted(
             set(SEQ_DEGREES) | {SEQ_MOE_DEGREE, SEQ_CODER_DEGREE})}
-        full = full_width_model(torch)
-        mine = weights_checksum(torch, full["params"])
-        failures = [] if mine == checksum else [
-            f"rank {rank}: weights checksum {mine} != the parent's "
-            f"{checksum}"]
+        failures = []
         report = {"rank": rank, "device": str(dev), "backend": backend,
-                  "weights_checksum": mine, "runs": []}
-        for degree in SEQ_DEGREES:
-            if groups[degree] is not None:
-                report["runs"] += seq_dense_runs(
-                    torch, full["model"], full["params"], groups[degree],
-                    yard, failures)
+                  "runs": []}
+        if yard_path is not None:
+            seq_dense_part(torch, rank, groups, yard_path, checksum, plan,
+                           failures, report)
+        rec_yard = torch.load(rec_path)
+        report["launches"] = dict.fromkeys(PATH_KERNELS["seq_sharded"], 0)
+        for arch in (SSM_ARCH, HYBRID_ARCH):
+            runs, counts = seq_recurrent_runs(torch, arch, groups,
+                                              rec_yard.pop(arch), rec_plan,
+                                              failures)
+            report["runs"] += runs
+            for name, count in counts.items():
+                report["launches"][name] += count
+            torch.cuda.empty_cache()
             dist.barrier()
-        full.clear()
-        torch.cuda.empty_cache()
-        if groups[SEQ_MOE_DEGREE] is not None:
-            report["runs"].append(seq_moe_run(torch, groups[SEQ_MOE_DEGREE],
-                                              yard, failures))
-        dist.barrier()
-        torch.cuda.empty_cache()
-        if groups[SEQ_CODER_DEGREE] is not None:
-            report["runs"].append(seq_coder_run(
-                torch, groups[SEQ_CODER_DEGREE], plan, failures))
-        dist.barrier()
         report["failures"] = failures
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(report, f)
@@ -4778,36 +5456,50 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
         dist.destroy_process_group()
 
 
-def phase_seq_sharded(torch, full: dict) -> dict:
+def phase_seq_sharded(torch, full: dict | None) -> dict:
     """Sequence-sharded prefill and decode (the reference's sp_rep/tp_sp
     serving policy) over 2 and 4 ranks, each a process: NCCL with a card
     a rank where the machine has as many cards, else gloo with every rank
     on card 0 (point-to-point sends and all-to-alls through host buffers).
     The single card's results are computed here first
-    (``seq_yardsticks``); a rank's failure fails the phase (``mp.spawn``
-    raises it here). One line a run and rank group: logits and attention
-    rows against the single card, the planted faults' verdicts, device ms
-    and wall of the prefill and of a decode step, peak memory and bytes
-    by collective a rank."""
+    (``seq_yardsticks``, ``recurrent_yardsticks``); a rank's failure
+    fails the phase (``mp.spawn`` raises it here), and so do ranks whose
+    logits differ. One line a run and rank group: logits and layer rows
+    against the single card, the planted faults' verdicts, device ms and
+    wall of the prefill and of a decode step, peak memory and bytes by
+    collective a rank. Returns the split recurrent runs' launches of B8
+    and B3 (``seq_sharded``), summed over the ranks. With ``full`` None
+    (``--only seq_recurrent``) the recurrent runs alone."""
     import tempfile
 
     import torch.multiprocessing as mp
 
-    checksum = weights_checksum(torch, full["params"])
     world = max(SEQ_DEGREES)
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        yard_path = Path(tmp) / "yard.pt"
+        yard_path = checksum = plan = None
+        rec_path = Path(tmp) / "recurrent.pt"
         t0 = time.perf_counter()
-        one_card = seq_yardsticks(torch, full, yard_path)
+        one_card = {}
+        if full is not None:
+            checksum = weights_checksum(torch, full["params"])
+            yard_path = str(Path(tmp) / "yard.pt")
+            one_card = seq_yardsticks(torch, full, yard_path)
+            torch.cuda.empty_cache()
+        rec_plan = recurrent_plan(backend)
+        for arch, times in recurrent_yardsticks(torch, rec_path,
+                                                rec_plan).items():
+            one_card.update({f"{arch} {key}": t for key, t in times.items()})
         yard_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        plan = coder_plan(torch, 1 if backend == "nccl"
-                          else SEQ_CODER_DEGREE)
+        if full is not None:
+            plan = coder_plan(torch, 1 if backend == "nccl"
+                              else SEQ_CODER_DEGREE)
         t0 = time.perf_counter()
         mp.spawn(seq_rank, args=(world, backend, str(Path(tmp) / "store"),
-                                 tmp, str(yard_path), checksum, plan),
+                                 tmp, yard_path, checksum, plan,
+                                 str(rec_path), rec_plan),
                  nprocs=world, join=True)
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
@@ -4818,15 +5510,25 @@ def phase_seq_sharded(torch, full: dict) -> dict:
     for name, degree in keys:
         per = [run for rk in ranks for run in rk["runs"]
                if (run["run"], run["degree"]) == (name, degree)]
+        digests = {run["logits_digest"] for run in per
+                   if "logits_digest" in run}
+        require(len(digests) <= 1, f"seq_sharded {name} at degree {degree}: "
+                                   f"the ranks' logits differ ({digests})")
         line = {"phase": "seq_sharded", "run": name, "degree": degree,
                 "backend": backend,
                 "cards": degree if backend == "nccl" else 1,
                 "ranks": per, "one_card": one_card.get(name)}
         emit(line)
         lines.append(line)
+    launches = {name: sum(rk["launches"][name] for rk in ranks)
+                for name in PATH_KERNELS["seq_sharded"]}
+    for name in PATH_KERNELS["seq_sharded"]:
+        require(launches[name] > 0, f"kernel {name} not launched on the "
+                                    f"split recurrent runs")
     emit({"phase": "seq_sharded", "yardsticks_s": yard_s,
-          "spawn_s": spawn_s})
-    return {"phase": "seq_sharded", "runs": lines}
+          "spawn_s": spawn_s, "launches": launches,
+          "recurrent_plan": rec_plan})
+    return {"phase": "seq_sharded", "runs": lines, "launches": launches}
 
 
 def decode_step_events(torch, eng) -> list:
@@ -6281,11 +6983,41 @@ def sharded_alone(torch) -> int:
     return 0
 
 
+def seq_sharded_alone(torch, recurrent_only: bool) -> int:
+    """``--only seq_sharded``: B3's row at a split rank's halo shape and
+    the seq_sharded phase, after the device phase's build (``--only
+    seq_recurrent``: the phase's recurrent runs alone). Prints the same
+    last three lines for that row."""
+    from repro_torch.configs import get_arch
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    rows = [halo_row(torch, rnd, get_arch(HYBRID_ARCH))]
+    emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
+    launches = {"seq_sharded": phase_seq_sharded(
+        torch, None if recurrent_only else full_width_model(torch))[
+            "launches"]}
+    for row in rows:
+        row["launches"] = sum(launches[path][ROW_COUNTER[row["name"]]]
+                              for path in ROW_PATH[row["name"]])
+    print(json.dumps({"kernels": rows}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "sharded"], ["--only", "seq_sharded"]):
-        print("usage: chip_smoke.py [--only sharded|seq_sharded]",
-              file=sys.stderr)
+    if argv not in ([], ["--only", "sharded"], ["--only", "seq_sharded"],
+                    ["--only", "seq_recurrent"]):
+        print("usage: chip_smoke.py [--only sharded|seq_sharded|"
+              "seq_recurrent]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"error: no src/repro_torch beside {Path(__file__).name}",
@@ -6305,8 +7037,7 @@ def main(argv=None) -> int:
     if argv == ["--only", "sharded"]:
         return sharded_alone(torch)
     if argv:
-        phase_seq_sharded(torch, full_width_model(torch))
-        print(nvidia_smi())
+        return seq_sharded_alone(torch, argv[1] == "seq_recurrent")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -6332,7 +7063,7 @@ def main(argv=None) -> int:
     report = phase_sharded(torch, full, ring_verdicts(rows))
     launches["sharded"] = report["launches"]
     launches["sharded_ring"] = report["ring_launches"]
-    phase_seq_sharded(torch, full)
+    launches["seq_sharded"] = phase_seq_sharded(torch, full)["launches"]
     full.clear()              # internlm2's weights out of the later peaks
     torch.cuda.empty_cache()
     launches["launcher"] = phase_launcher(torch)["launches"]

@@ -15,11 +15,14 @@ by a context manager, no thread-local state:
   policy, SPMD over a ``SeqShard`` group, one process a rank. The group
   is the reference's ``'model'`` mesh axis; the port has no data or pod
   axis. Under ``"tp_sp"`` and ``"sp_rep"`` each rank holds a contiguous
-  block of a sequence's rows (``seq_slice``), and the dense model
-  (``models/transformer.py``) prefills its rows with ``ring_attention``,
-  keeps a block of the dense cache and decodes with
-  ``sharded_decode_attention``; the MoE FFN dispatches tokens in
-  rank-local groups and exchanges expert buffers (``models/moe.py``).
+  block of a sequence's rows (``seq_slice``), and the model
+  (``models/transformer.py``) prefills its rows with ``ring_attention``
+  (a windowed layer: with the K/V ``halo`` before them; an SSD or RG-LRU
+  layer: with its conv's ``halo`` and its scan's ``carry``), keeps its
+  block of the cache and decodes with ``sharded_decode_attention`` (a
+  recurrent layer: on its channels and heads, the results gathered);
+  the MoE FFN dispatches tokens in rank-local groups and exchanges expert
+  buffers (``models/moe.py``).
   Under ``"fsdp"`` the batch rows split instead (the rows rule below);
   the model refuses it until training across devices is ported.
 
@@ -33,10 +36,21 @@ stays whole. With no policy every one of them is the identity.
 bytes this rank sent and received by kind: ``ring`` (K/V blocks of
 ``ring_attention``), ``combine`` (decode partials), ``a2a`` (the MoE
 expert exchange), ``gather`` (all-gathers of whole values), ``bcast``
-(the last row's logits) and ``weights`` (a layer's ``tp_sp`` leaves
-gathered whole before the layer). Point-to-point sends and all-to-alls
-of CUDA tensors over gloo, which has no GPU form of either, go through
-host buffers; ``staged_bytes`` counts the bytes copied so.
+(the last row's logits), ``weights`` (a layer's ``tp_sp`` leaves
+gathered whole before the layer), ``halo`` (a layer's boundary rows: a
+causal conv's inputs, a window's K/V) and ``carry`` (a recurrent
+layer's scan state and decay, composed across the ranks). Point-to-point
+sends and all-to-alls of CUDA tensors over gloo, which has no GPU form
+of either, go through host buffers; ``staged_bytes`` counts the bytes
+copied so.
+
+A recurrent layer under the policy (``models/ssm.py``,
+``models/rglru.py``) exchanges no partial sums: ``halo`` gathers each
+rank's last rows so that rank r sees the rows before its first, and
+``carry`` gathers each rank's scan result from a zero state and the log
+of the decay its rows apply, from which every rank composes the state
+entering its rows and the state after the sequence, in rank order
+(``kernels/ssd_scan.compose_states``).
 """
 
 from __future__ import annotations
@@ -47,6 +61,8 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels.ssd_scan import compose_states
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -174,7 +190,8 @@ def kv_shard_state() -> KVShard | None:
 # ---------------------------------------------------------------------------
 
 POLICIES = ("tp_sp", "sp_rep", "fsdp")
-KINDS = ("ring", "combine", "a2a", "gather", "bcast", "weights")
+KINDS = ("ring", "combine", "a2a", "gather", "bcast", "weights", "halo",
+         "carry")
 
 
 @dataclasses.dataclass
@@ -227,6 +244,65 @@ class SeqShard(_Group):
         n = _nbytes(x) * (self.degree - 1)
         self._count(kind, n, n)
         return parts
+
+    def span(self, local: int, whole: int) -> slice:
+        """This rank's entries of a dim of ``whole`` of which it holds
+        ``local``: its block where the group split the dim, every entry
+        where it stayed whole (``sharding.fit_dim``)."""
+        if local == whole:
+            return slice(0, whole)
+        if local * self.degree != whole:
+            raise ValueError(f"{local} of {whole} is no block over "
+                             f"{self.degree} ranks")
+        return slice(self.rank * local, (self.rank + 1) * local)
+
+    def whole(self, x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+        """``x``, this rank's block of a dim of ``size`` entries, made whole
+        by one all-gather in rank order (kind ``gather``); passed through
+        where it is whole. The gathered values are each rank's bits."""
+        if x.shape[dim] == size:
+            return x
+        return torch.cat(self.all_gather(x, "gather"), dim)
+
+    def halo(self, x: torch.Tensor, rows: int, dim: int = 1) -> tuple:
+        """The boundary rows of a sequence split in equal blocks over the
+        group, ``x`` this rank's block along ``dim``: each rank's last
+        min(rows, block) rows, all-gathered once (kind ``halo``). Returns
+        (the up to ``rows`` rows just before this rank's first row, fewer
+        near the sequence's start, none on rank 0; the sequence's last
+        min(rows, S) rows). Either is contiguous: every rank's part is its
+        whole block, or the last part alone holds ``rows`` rows."""
+        k = min(rows, x.shape[dim])
+        parts = self.all_gather(x.narrow(dim, x.shape[dim] - k, k), "halo")
+
+        def last(ps):
+            t = torch.cat(ps, dim)
+            n = min(rows, t.shape[dim])
+            return t.narrow(dim, t.shape[dim] - n, n)
+
+        return last([x.narrow(dim, 0, 0)] + parts[:self.rank]), last(parts)
+
+    def carry(self, final: torch.Tensor, log_decay: torch.Tensor) -> tuple:
+        """Compose a scan split by rows over the group: ``final`` (*batch,
+        *feat) this rank's state after its rows from a zero state,
+        ``log_decay`` (*batch) the log of the factor its rows apply to a
+        state entering them. Both are all-gathered in one fp32 exchange
+        (kind ``carry``). Returns (the state entering this rank's rows,
+        the state after the sequence's last row), fp32: every rank
+        composes the same parts in rank order (``compose_states``)."""
+        nb = log_decay.dim()
+        flat = torch.cat([final.float().reshape(-1),
+                          log_decay.float().reshape(-1)])
+        parts = self.all_gather(flat, "carry")
+        n_final = final.numel()
+        finals = torch.stack([p[:n_final].reshape(final.shape)
+                              for p in parts], dim=nb)
+        decays = torch.stack([p[n_final:].reshape(log_decay.shape)
+                              for p in parts], dim=-1)
+        state = compose_states(torch.zeros_like(final, dtype=torch.float32),
+                               finals, decays)
+        return (state.select(nb, self.rank),
+                state.select(nb, self.degree))
 
     def all_to_all(self, x: torch.Tensor, kind: str = "a2a") -> torch.Tensor:
         """``x``'s dim 0 cut in ``degree`` equal blocks, block j sent to
@@ -314,6 +390,17 @@ def batch_axes() -> tuple[str, ...]:
     """The mesh axes the batch splits over: the group (``'model'``) under
     ``fsdp``, none otherwise (the port has no data or pod axis)."""
     return ("model",) if _POLICY is not None and _POLICY[1] == "fsdp" else ()
+
+
+def zero_front(t: torch.Tensor, rows: int, dim: int = 1) -> torch.Tensor:
+    """``t`` with zero rows put before it along ``dim`` to make ``rows``:
+    a causal conv's state where the sequence starts."""
+    pad = rows - t.shape[dim]
+    if pad == 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t.new_zeros(shape), t], dim)
 
 
 def divides(n: int) -> bool:

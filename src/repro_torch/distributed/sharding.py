@@ -12,9 +12,11 @@ is the one dim the group splits, or None for a leaf every rank holds
 whole (a rule's ``'data'`` entries drop out, as ``fit_spec`` drops axes
 a mesh lacks).
 
-What acts: the dense cache's sequence split under
-``ctx.sharding_policy`` (a cache whose length the degree does not divide
-stays whole on every rank, by ``fit_spec``'s rule) and ``local_params``:
+What acts: the dense layout under ``ctx.sharding_policy``
+(``models/transformer.rank_cache``): the K/V sequence split (a window's
+ring by slot) and the recurrent states by conv channel, SSD head and
+RG-LRU width, a leaf whose dim the degree does not divide whole on every
+rank by ``fit_spec``'s rule; and ``local_params``:
 under ``sp_rep`` every weight whole but the MoE experts, split over the
 ranks; under ``tp_sp`` every leaf cut along its fitted tensor-parallel
 dim, which is what a rank holds at rest. The sequence route gathers a

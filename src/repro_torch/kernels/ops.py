@@ -104,9 +104,11 @@ def resolve_method(n_q: int, n_kv: int, e: int, itemsize: int, *,
 
 
 def attention(q, k, v, *, causal: bool = False, window: int | None = None,
-              sm_scale: float | None = None,
+              sm_scale: float | None = None, q_offset: int = 0,
               method: str = "auto") -> torch.Tensor:
-    """Exact attention. q: (B, Hq, Nq, E); k, v: (B, Hkv, Nkv, E)."""
+    """Exact attention. q: (B, Hq, Nq, E); k, v: (B, Hkv, Nkv, E). Query
+    row i sits at key position ``q_offset + i`` for the causal and window
+    masks (the flash route only: the MAS dataflow places rows at 0)."""
     _refuse_grad(q, k, v)
     b, hq, nq, e = q.shape
     _, hkv, nkv, _ = k.shape
@@ -121,7 +123,10 @@ def attention(q, k, v, *, causal: bool = False, window: int | None = None,
     common = dict(blk_q=bq, blk_kv=KV_TILE, causal=causal, sm_scale=sm_scale,
                   kv_len=kv_len)
     if method == "flash":
-        of = _flash.flash_attention_flat(qf, kf, vf, window=window, **common)
+        of = _flash.flash_attention_flat(qf, kf, vf, window=window,
+                                         q_offset=q_offset, **common)
+    elif q_offset:
+        raise ValueError(f"the {method} route takes no q_offset")
     else:
         of = _mas.mas_attention_flat(
             qf, kf, vf, kv_resident=(method == "mas_resident"), **common)

@@ -156,6 +156,25 @@ def _segsum(z: torch.Tensor) -> torch.Tensor:
     return torch.where(below, seg, float("-inf"))
 
 
+def compose_states(s0, states, log_decays):
+    """The state entering each of T segments of a scan and the state after
+    the last: s0 (*batch, *feat) the state before the first segment;
+    states (*batch, T, *feat) each segment's final state from a zero
+    state; log_decays (*batch, T) fp32, the log of the factor each
+    segment applies to a state entering it. Returns (*batch, T + 1,
+    *feat) fp32 with out[i] = Σ_{j <= i} exp(Σ_{j < k <= i} z[k]) S[j],
+    S = (s0, states), z = (0, log_decays): one product with a (T + 1,
+    T + 1) decay matrix instead of a loop over the segments."""
+    nb = log_decays.dim() - 1
+    t = log_decays.shape[-1]
+    feat = states.shape[nb + 1:]
+    decay = torch.exp(_segsum(torch.nn.functional.pad(log_decays.float(),
+                                                      (1, 0))))
+    carried = torch.cat([s0.float().unsqueeze(nb), states.float()], dim=nb)
+    flat = carried.reshape(*carried.shape[:nb + 1], -1)
+    return (decay @ flat).reshape(*carried.shape[:nb], t + 1, *feat)
+
+
 def ssd_chunked_kernel(x, a, bmat, cmat, chunk: int, initial_state=None,
                        out_dtype=None):
     """Drop-in for ``models.ssm.ssd_chunked`` with the intra-chunk part on
@@ -169,11 +188,12 @@ def ssd_chunked_kernel(x, a, bmat, cmat, chunk: int, initial_state=None,
     to its chunk's state and decays it by exp(0) = 1, so y's real rows and
     the final state are those of the unpadded sequence.
 
-    The recurrence across chunks is one product with an (NC + 1, NC + 1)
-    decay matrix instead of a loop over chunks: state_in[i] = Σ_{j <= i}
-    exp(Σ_{j < k <= i} s[k]) S[j], where S = (initial state, chunk
-    states) and s = (0, per-chunk sums of a). It equals the reference's
-    scan up to fp32 rounding (the tests hold it to 1e-4 at fp32).
+    The recurrence across chunks is ``compose_states``: one product with
+    an (NC + 1, NC + 1) decay matrix instead of a loop over chunks,
+    state_in[i] = Σ_{j <= i} exp(Σ_{j < k <= i} s[k]) S[j], where S =
+    (initial state, chunk states) and s = (0, per-chunk sums of a). It
+    equals the reference's scan up to fp32 rounding (the tests hold it to
+    1e-4 at fp32).
     """
     bsz, length, h, p = x.shape
     n = bmat.shape[-1]
@@ -195,11 +215,7 @@ def ssd_chunked_kernel(x, a, bmat, cmat, chunk: int, initial_state=None,
     s0 = (torch.zeros((bsz * h, n, p), dtype=torch.float32, device=x.device)
           if initial_state is None else
           initial_state.float().reshape(bsz * h, p, n).transpose(1, 2))
-    a_sum = af.sum(dim=2)                                     # (BH, NC)
-    decay = torch.exp(_segsum(torch.nn.functional.pad(a_sum, (1, 0))))
-    carried = torch.cat([s0[:, None], states], dim=1)         # (BH, NC+1, N, P)
-    state_in = (decay @ carried.reshape(bsz * h, nc + 1, n * p)).reshape(
-        bsz * h, nc + 1, n, p)
+    state_in = compose_states(s0, states, af.sum(dim=2))  # (BH, NC+1, N, P)
     final = state_in[:, nc]
 
     # the carried-in state's contribution, decayed to each row

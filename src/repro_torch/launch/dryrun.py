@@ -9,7 +9,9 @@ rank's peak device memory, the step's device time (CUDA events), the
 cell's ``model_flops`` (``analysis/flops.py``) and the bytes this rank's
 collectives sent and received, by kind (``distributed/ctx.SeqShard``).
 Weights are random from a seed, the inputs too: a prefill cell's
-tokens, a decode cell's cache of seeded K/V rows and its tokens. A rank
+tokens, a decode cell's cache of seeded K/V rows, ring slots and
+recurrent states, and its tokens. A cell ``configs.cell_is_runnable``
+refuses (long_500k of a stack that is not sub-quadratic) raises. A rank
 holds the policy's cut of the weights (``sharding.local_params``): under
 ``tp_sp`` its split of every leaf, gathered whole layer by layer as the
 step reaches them; under ``sp_rep`` every weight whole but the experts.
@@ -28,7 +30,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.analysis.flops import model_flops
-from repro_torch.configs import SHAPES, get_arch
+from repro_torch.configs import SHAPES, cell_is_runnable, get_arch
 from repro_torch.distributed.ctx import SeqShard, sharding_policy
 from repro_torch.distributed.sharding import local_params
 from repro_torch.launch.steps import (
@@ -37,7 +39,12 @@ from repro_torch.launch.steps import (
     make_prefill_step,
 )
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import cache_block, make_cache
+from repro_torch.models.transformer import (
+    keep_block,
+    make_cache,
+    rank_cache,
+    ring_slots,
+)
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -53,24 +60,38 @@ def cell_tokens(cfg, batch: int, length: int, *, seed: int,
 
 def seeded_cache(cfg, batch: int, max_len: int, kv_len: int, *, seed: int,
                  device, shard: SeqShard | None = None) -> dict:
-    """A dense cache of ``max_len`` rows whose rows [0, kv_len) hold K/V
-    drawn from ``seed`` (standard normal in the compute dtype) and the
-    rest zeros. With ``shard``
-    the rank's block of ``max_len / n`` rows, whose values are the whole
-    cache's, or, where n does not divide ``max_len``, the whole cache
-    marked ``replicated`` (``transformer.cache_block``)."""
-    lo, c = (0, max_len) if shard is None else cache_block(max_len, shard)
-    hi = min(lo + c, kv_len)
-    cache = make_cache(cfg, batch, c, device=device)
-    if shard is not None and shard.degree > 1 and c == max_len:
-        cache["replicated"] = True
-    shape = (batch, cfg.num_kv_heads, kv_len, cfg.hd)
-    for i, blk in enumerate(cache["layers"]):
-        for j, name in enumerate(("k", "v")):
+    """A cache of ``max_len`` positions holding values drawn from
+    ``seed`` (standard normal in each leaf's dtype; layer i's two leaves
+    from seeds seed + 2i and seed + 2i + 1): an attention layer's K/V rows
+    [0, kv_len), of a window's ring its first min(kv_len, slots) slots,
+    the rest zeros; an SSD or RG-LRU layer's states whole. With ``shard``
+    the rank's cache (``transformer.rank_cache``: K/V blocks of
+    ``max_len / n`` rows or ring slots, recurrent states by channel, head
+    or width), whose values are the whole cache's cut to its blocks, or,
+    where n does not divide the K/V rows, the whole K/V, marked
+    ``replicated``."""
+    if shard is None:
+        shard = SeqShard(None, 0, 1)
+    cache = rank_cache(cfg, batch, max_len, shard, device=device)
+    whole = make_cache(cfg, batch, max_len, device="meta")
+    filled = min(kv_len, ring_slots(cfg, max_len))
+    for i, (blk, full) in enumerate(zip(cache["layers"], whole["layers"])):
+        for j, name in enumerate(("k", "v") if "k" in blk else
+                                 ("conv", "state" if "state" in blk
+                                  else "rnn")):
+            gen = _generator(seed + 2 * i + j, device)
+            if name in ("conv", "state", "rnn"):
+                draw = torch.randn(full[name].shape, device=device,
+                                   generator=gen)
+                keep_block(blk[name], draw.to(blk[name].dtype), shard)
+                continue
+            c = blk[name].shape[2]
+            lo = shard.span(c, full[name].shape[2]).start
+            hi = min(lo + c, filled)
             if lo >= hi:
                 continue
-            rows = torch.randn(shape, device=device,
-                               generator=_generator(seed + 2 * i + j, device))
+            rows = torch.randn((batch, cfg.num_kv_heads, filled, cfg.hd),
+                               device=device, generator=gen)
             blk[name][:, :, :hi - lo] = rows.to(cfg.compute_dtype)[:, :, lo:hi]
     return cache
 
@@ -128,6 +149,9 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
         raise NotImplementedError("a train cell needs training across "
                                   "devices, which is not ported (ROADMAP A10)")
     cfg = get_arch(arch) if isinstance(arch, str) else arch
+    runnable, why = cell_is_runnable(cfg.name, cell.name)
+    if not runnable:
+        raise ValueError(f"{cfg.name} x {cell.name}: {why}")
     cell = dataclasses.replace(cell, global_batch=batch or cell.global_batch)
     dev = resolve_device(device)
     model = build_model(cfg)

@@ -19,9 +19,11 @@ Under ``distributed/ctx.sharding_policy`` (SPMD, one process a rank),
 a prefill whose rows the policy split reaches ``attention(ring=True)``,
 which runs ``distributed/ring_attention.ring_attention`` on the rank's
 blocks, and ``decode_attention`` runs ``sharded_decode_attention`` over
-the rank's block of the dense cache (``whole=True``: a cache every rank
-holds whole, attended as on one card); neither reads ``impl``, as the
-reference computes both in XLA outside any kernel. Under
+the rank's block of the dense cache or a window's ring (``whole=True``:
+a cache every rank holds whole, attended as on one card); neither reads
+``impl``, as the reference computes both in XLA outside any kernel. A
+windowed layer's split rows take the full-sequence route by ``impl``
+with a ``q_offset`` (their halo's rows), no ring. Under
 ``distributed/ctx.kv_shard`` with the ``"ring"`` chunk route,
 ``paged_prefill_attention`` takes every query head and the rank's pools
 and runs ``distributed/paged.ring_paged_prefill``, each hop on this
@@ -112,26 +114,29 @@ def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
 
 
 def attention(q, k, v, *, impl: str = "kernel", causal: bool = True,
-              window: int | None = None, chunk: int = 1024,
-              remat: bool = True, ring: bool = False, on_block=None):
-    """Full-sequence attention by ``impl``. With ``ring`` (the caller's
-    rows are its block of a sequence split by the active policy)
-    ``ring_attention`` over the policy's group, ``on_block`` passed on;
-    it takes no window."""
+              window: int | None = None, q_offset: int = 0,
+              chunk: int = 1024, remat: bool = True, ring: bool = False,
+              on_block=None):
+    """Full-sequence attention by ``impl``; query row i sits at key
+    position ``q_offset + i``. With ``ring`` (the caller's rows are its
+    block of a sequence split by the active policy) ``ring_attention``
+    over the policy's group, ``on_block`` passed on; it takes no window."""
     if ring:
         shard = ctx.seq_shard_state()
-        if shard is None or window is not None:
+        if shard is None or window is not None or q_offset:
             raise ValueError("ring attention needs an active sharding "
-                             "policy and no window")
+                             "policy, no window and no q_offset")
         return ring_attention(q, k, v, shard, causal=causal,
                               on_block=on_block)
     if impl == "kernel":
-        return kops.attention(q, k, v, causal=causal, window=window)
+        return kops.attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
     if impl == "plain":
-        return kref.attention(q, k, v, causal=causal, window=window)
+        return kref.attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
     if impl == "chunked":
         return chunked_attention(q, k, v, causal=causal, window=window,
-                                 chunk=chunk, remat=remat)
+                                 q_offset=q_offset, chunk=chunk, remat=remat)
     raise ValueError(f"unknown attn impl {impl!r}")
 
 

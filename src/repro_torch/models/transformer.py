@@ -27,22 +27,33 @@ query head and attends through the head-block ring
 
 Under ``distributed/ctx.sharding_policy`` (SPMD, a process a rank; the
 reference's ``tp_sp``/``sp_rep`` serving policy) ``forward``, ``prefill``
-and ``decode_step`` of a dense or MoE decoder run on the rank's part of
-the work (``check_seq_support`` refuses the other stacks): a prompt the
-degree n divides is split in n blocks of rows, rank r embedding and
-running the norms, projections and FFN on rows [r·S/n, (r+1)·S/n) at
-their true positions and attending through ``ring_attention``; a
-prompt it does not divide stays whole on every rank, on the single-card
-route. The dense cache is split in n blocks of ``max_len / n``
-positions (``distributed/sharding.cache_specs``): ``prefill`` fills the
+and ``decode_step`` of a decoder with no encoder or frontend (dense,
+MoE, ssm and hybrid stacks; ``check_seq_support`` refuses the others)
+run on the rank's part of the work: a prompt the degree n divides is
+split in n blocks of rows, rank r embedding and running the norms,
+projections and FFN on rows [r·S/n, (r+1)·S/n) at their true positions;
+a prompt it does not divide stays whole on every rank, on the
+single-card route. A full attention layer attends through
+``ring_attention``; a windowed one attends its rows and the up to
+W - 1 K/V rows before them, gathered once (``SeqShard.halo``), on the
+full-sequence route at a ``q_offset`` (B3 on the kernel route); an SSD
+or RG-LRU layer takes its conv's halo rows and composes its scan's
+carry across the ranks (``models/ssm.py``, ``models/rglru.py``). The
+cache is the rank's ``cache_specs`` block of every leaf
+(``rank_cache``): the dense cache split in n blocks of ``max_len / n``
+positions, a window's ring in n blocks of slots, the recurrent states
+by conv channel, SSD head and RG-LRU width. ``prefill`` fills the
 rank's block from every K/V block that passes it on the ring (the row
-split and the cache split need not agree), ``decode_step`` takes the new
-token whole on every rank, writes its K/V row on the rank whose block
-holds ``pos`` only, and attends with ``sharded_decode_attention``. A
-``max_len`` the degree does not divide gives every rank the whole cache
-(``fit_spec``'s rule), marked ``cache["replicated"]``: each rank fills
-all its rows and decode attends to them with no combine. The last row's
-logits come from the rank that holds it, by broadcast. MoE layers
+split and the cache split need not agree), a ring's slots from the
+prompt's last rows, a state block from the whole prompt's state every
+rank composes; ``decode_step`` takes the new token whole on every rank,
+writes its K/V row on the rank whose block holds ``pos`` (a ring: slot
+``pos % C``) and attends with ``sharded_decode_attention``, and a
+recurrent layer updates the rank's channels and heads and all-gathers
+the results. K/V rows the degree does not divide stay whole on every
+rank (``fit_spec``'s rule), marked ``cache["replicated"]``: each rank
+fills all its rows and decode attends to them with no combine. The last
+row's logits come from the rank that holds it, by broadcast. MoE layers
 dispatch in the policy's token groups (``models/moe.py``). A rank may
 hold its ``tp_sp`` split of the weights (``distributed/sharding.
 local_params(policy="tp_sp")``): the embedding, each layer and the
@@ -121,7 +132,7 @@ from repro_torch import resolve_device
 from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import kv_shard_state, seq_shard_state
 from repro_torch.distributed.paged import head_sharded, replicated
-from repro_torch.distributed.sharding import split_specs
+from repro_torch.distributed.sharding import local_cache, split_specs
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe, rglru, ssm
 from repro_torch.kernels.common import quantize_q8
@@ -314,15 +325,17 @@ def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
     attended. The write is in place. An int8 cache carries per-row
     (B, Hkv, C) ``k_scale``/``v_scale``: the new row is quantized with its
     own absmax scale. Under the sharding policy the cache is the rank's
-    block of C rows from r·C: the rank whose block holds ``pos`` writes the
-    row, and every rank attends its block (``sharded_decode_attention``);
-    with ``whole`` every rank holds the whole cache, writes the row and
-    attends as on one card."""
+    block of C rows (a window's: ring slots) from r·C: the rank whose block
+    holds ``pos`` (slot ``pos % (n·C)``) writes the row, and every rank
+    attends its block (``sharded_decode_attention``, a slot valid below
+    min(pos + 1, n·C)); with ``whole`` every rank holds the whole cache,
+    writes the row and attends as on one card."""
     c = cache_k.shape[2]
-    slot = pos % c if window is not None else pos
     shard = None if whole else seq_shard_state()
+    ring = c if shard is None else c * shard.degree     # the whole cache
+    slot = pos % ring if window is not None else pos
     if shard is not None:
-        slot = pos - shard.rank * c
+        slot -= shard.rank * c
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)
     if not 0 <= slot < c:           # another rank's block holds the row
@@ -334,7 +347,7 @@ def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
     else:
         cache_k[:, :, slot] = k[:, :, 0]
         cache_v[:, :, slot] = v[:, :, 0]
-    kv_len = pos + 1 if shard is not None else min(pos + 1, c)
+    kv_len = min(pos + 1, ring)
     o = attn_mod.decode_attention(q[:, :, 0], cache_k, cache_v, kv_len,
                                   impl=cfg.attn_impl,
                                   k_scale=k_scale, v_scale=v_scale,
@@ -714,13 +727,15 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     return {"layers": layers}
 
 
-def _ring_rows(k: torch.Tensor, c: int) -> torch.Tensor:
+def _ring_rows(k: torch.Tensor, c: int, s: int | None = None
+               ) -> torch.Tensor:
     """A prompt's (B, Hkv, S, E) rows as a cache of C slots holds them:
     all S when S < C; else the last C, rolled by S % C so that position p
-    sits at slot p % C."""
-    s = k.shape[2]
+    sits at slot p % C. ``k`` may hold only the prompt's last rows, at
+    least min(S, C) of them, with ``s`` the prompt's length S."""
+    s = k.shape[2] if s is None else s
     if s < c:
-        return k
+        return k[:, :, k.shape[2] - s:]
     return torch.roll(k[:, :, -c:], s % c, dims=2)
 
 
@@ -837,16 +852,16 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
 
 def check_seq_support(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless the sequence-sharding policy
-    serves ``cfg``: dense and MoE decoders of attention layers only, with
-    no window, encoder or frontend, under ``tp_sp`` or ``sp_rep``."""
-    if (cfg.family not in ("dense", "moe")
-            or set(cfg.layer_kinds) != {"attn"} or cfg.attn_window
+    serves ``cfg``: decoders with no encoder or frontend (dense and MoE
+    attention stacks, the ssm stack, the windowed hybrid), under
+    ``tp_sp`` or ``sp_rep``."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
             or cfg.encoder_layers or cfg.frontend):
         raise NotImplementedError(
-            f"the sequence-sharding policy serves dense and MoE decoders "
-            f"only (got {cfg.name}): the ssm, hybrid, whisper and internvl2 "
-            "stacks need the split of their recurrent states and cross "
-            "memories, ROADMAP A10")
+            f"the sequence-sharding policy serves dense, MoE, ssm and "
+            f"hybrid decoders only (got {cfg.name}): whisper and internvl2 "
+            "need the split of their cross memories, a non-causal encoder "
+            "ring and the frontend rows, ROADMAP A10")
     if ctx.policy_kind() == "fsdp":
         raise NotImplementedError(
             "the fsdp policy splits the batch for training across devices, "
@@ -887,27 +902,6 @@ def _seq_unembed(params, x, cfg: ArchConfig, shard):
     return _unembed(head, x, cfg)
 
 
-def _seq_forward(params, tokens, cfg: ArchConfig, shard):
-    check_seq_support(cfg)
-    s = tokens.shape[1]
-    rows, split = _seq_rows(s)
-    if attn_mod.tracks_grad(*tree_leaves(params)):
-        raise NotImplementedError("training across devices is not ported "
-                                  "(ROADMAP A10): a backward cannot cross "
-                                  "the ring")
-    x = _seq_embed(params, tokens[:, rows], cfg, shard, rows.start)
-    positions = torch.arange(rows.start, rows.stop, device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in _seq_layers(params, cfg, shard):
-        x = x + attn_block(layer["attn"], x, cfg, positions=positions,
-                           causal=cfg.causal, ring=split)[0]
-        y, a = ffn(layer, x, cfg, s)
-        x, aux = x + y, aux + a
-    if split:
-        x = torch.cat(shard.all_gather(x, "gather"), dim=1)
-    return _seq_unembed(params, x, cfg, shard), aux
-
-
 def _write_rows(blk: dict, at: int, k, v) -> None:
     """K/V rows (B, Hkv, R, E) into the cache block's rows [at, at + R),
     each int8 row quantized with its own scale."""
@@ -922,24 +916,162 @@ def _write_rows(blk: dict, at: int, k, v) -> None:
         blk["v"][:, :, at:at + n] = v
 
 
-def cache_block(max_len: int, shard) -> tuple[int, int]:
-    """(first position, rows) of the dense cache a rank of ``shard``
-    holds: its block [r·C, (r + 1)·C), C = max_len / n, or, when the
-    degree does not divide ``max_len``, every row (``fit_spec``'s rule:
-    the cache is replicated)."""
-    n = shard.degree
-    if max_len % n:
-        return 0, max_len
-    c = max_len // n
-    return shard.rank * c, c
+def ring_slots(cfg: ArchConfig, max_len: int) -> int:
+    """Rows of an attention layer's cache: ``max_len``, or the window's
+    ring of min(max_len, window) slots."""
+    if cfg.attn_window is None:
+        return max_len
+    return min(max_len, cfg.attn_window)
+
+
+def rank_cache(cfg: ArchConfig, batch: int, max_len: int, shard, *,
+               device, kv_dtype=None) -> dict:
+    """The zeroed cache a rank of ``shard`` holds under the policy: each
+    leaf's ``sharding.cache_specs`` block (dense layout; a dim the degree
+    does not divide stays whole): an attention layer's K/V rows [r·C,
+    (r + 1)·C), C = max_len / n, or ring slots alike, with an int8
+    cache's per-row scales cut as their rows; an SSD layer's conv
+    channels and heads; an RG-LRU layer's conv channels and width. K/V
+    the degree does not divide are held whole by every rank and marked
+    ``replicated``."""
+    meta = make_cache(cfg, batch, max_len, device="meta", kv_dtype=kv_dtype)
+    cache = local_cache(meta, rank=shard.rank, degree=shard.degree,
+                        layout="dense", device=device)
+    for blk in cache["layers"]:
+        for name in ("k_scale", "v_scale"):
+            if name in blk:
+                blk[name] = blk[name].new_zeros(blk[name[0]].shape[:3])
+    if shard.degree > 1 and ring_slots(cfg, max_len) % shard.degree:
+        cache["replicated"] = True
+    return cache
+
+
+def keep_block(leaf: torch.Tensor, whole: torch.Tensor, shard) -> None:
+    """Copy into ``leaf`` the rank's block of ``whole`` (a leaf of the
+    whole cache): along the dim where their sizes differ, all of it where
+    none does."""
+    for dim, (mine, size) in enumerate(zip(leaf.shape, whole.shape)):
+        if mine != size:
+            whole = whole.narrow(dim, shard.span(mine, size).start, mine)
+    leaf.copy_(whole)
+
+
+# a recurrent layer's cache leaf of its scan state beside "conv", and its
+# block's keyword for that state
+_RECURRENT = {"ssd": ("state", "ssm_state"), "rec": ("rnn", "rnn_state")}
+
+
+def _recurrent(layer):
+    """(kind, block function) of a recurrent layer, (None, None) for an
+    attention layer; the function is looked up at the call."""
+    if "ssd" in layer:
+        return "ssd", ssm.ssd_block
+    if "rec" in layer:
+        return "rec", rglru.rglru_block
+    return None, None
+
+
+def _seq_window(params, x, cfg: ArchConfig, shard, positions, split: bool,
+                s: int, max_len: int = 0, blk=None):
+    """A windowed attention layer on the rank's rows -> its output. Split
+    rows attend (the up to W - 1 K/V rows before them, gathered from the
+    ranks before by ``SeqShard.halo``, and their own) through the full-
+    sequence route at ``q_offset`` = the halo's rows: B3 on the kernel
+    route, no ring pass. ``blk``, the rank's slots of the ring of a cache
+    of ``max_len``, takes the prompt's last rows that fall in them
+    (position p at slot p % ring)."""
+    w = cfg.attn_window
+    q, k, v = _qkv(params, x, cfg, positions)
+    kw = dict(impl=cfg.attn_impl, causal=True, window=w,
+              chunk=cfg.attn_chunk, remat=cfg.remat)
+    if split:
+        before, tail = shard.halo(torch.stack([k, v]), w, dim=3)
+        h = min(before.shape[3], w - 1)
+        before = before[:, :, :, before.shape[3] - h:]
+        o = attn_mod.attention(q, torch.cat([before[0], k], 2),
+                               torch.cat([before[1], v], 2), q_offset=h, **kw)
+        k, v = tail[0], tail[1]             # the prompt's last min(W, S)
+    else:
+        o = attn_mod.attention(q, k, v, **kw)
+    if blk is not None:
+        c, ring = blk["k"].shape[2], ring_slots(cfg, max_len)
+        k, v = _ring_rows(k, ring, s), _ring_rows(v, ring, s)
+        c0 = shard.span(c, ring).start
+        if c0 < k.shape[2]:
+            _write_rows(blk, 0, k[:, :, c0:c0 + c], v[:, :, c0:c0 + c])
+    return _merge_heads(o) @ params["wo"].to(x.dtype)
+
+
+def _seq_mixer(layer, x, cfg: ArchConfig, shard, positions, split: bool,
+               s: int, max_len: int = 0, blk=None):
+    """One layer's token mixer (SSD, RG-LRU or attention) on the rank's
+    rows of an S-row prompt -> its output; with ``blk``, the rank's cache
+    block of the layer (of a cache of ``max_len``), it is filled: a
+    recurrent layer's states are the whole prompt's cut to the block."""
+    kind, block = _recurrent(layer)
+    if kind is not None:
+        state, _ = _RECURRENT[kind]
+        y, (conv, st) = block(layer[kind], x, cfg,
+                              shard=shard if split else None)
+        if blk is not None:
+            keep_block(blk["conv"], conv, shard)
+            keep_block(blk[state], st, shard)
+        return y
+    if cfg.attn_window is not None:
+        return _seq_window(layer["attn"], x, cfg, shard, positions, split, s,
+                           max_len, blk)
+    fill = None
+    if blk is not None:
+        c = blk["k"].shape[2]
+        c0 = shard.span(c, max_len).start
+
+        def fill(start: int, k, v) -> None:
+            # rows of k from absolute position ``start``, kept where they
+            # fall in this rank's block
+            lo, hi = max(start, c0), min(start + k.shape[2], c0 + c)
+            if lo < hi:
+                _write_rows(blk, lo - c0, k[:, :, lo - start:hi - start],
+                            v[:, :, lo - start:hi - start])
+
+    rows = x.shape[1]
+    y, (k, v) = attn_block(
+        layer["attn"], x, cfg, positions=positions, causal=cfg.causal,
+        ring=split, on_block=None if fill is None else (
+            lambda src, k, v: fill(src * rows, k, v)))
+    if fill is not None and not split:
+        fill(0, k, v)
+    return y
+
+
+def _seq_forward(params, tokens, cfg: ArchConfig, shard):
+    check_seq_support(cfg)
+    s = tokens.shape[1]
+    rows, split = _seq_rows(s)
+    if attn_mod.tracks_grad(*tree_leaves(params)):
+        raise NotImplementedError("training across devices is not ported "
+                                  "(ROADMAP A10): a backward cannot cross "
+                                  "the ring")
+    x = _seq_embed(params, tokens[:, rows], cfg, shard, rows.start)
+    positions = torch.arange(rows.start, rows.stop, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in _seq_layers(params, cfg, shard):
+        x = x + _seq_mixer(layer, x, cfg, shard, positions, split, s)
+        if "ssd" not in layer:
+            y, a = ffn(layer, x, cfg, s)
+            x, aux = x + y, aux + a
+    if split:
+        x = torch.cat(shard.all_gather(x, "gather"), dim=1)
+    return _seq_unembed(params, x, cfg, shard), aux
 
 
 def _seq_prefill(params, cfg: ArchConfig, tokens, max_len: int, shard,
                  kv_dtype):
-    """``prefill`` on the rank's rows: the rank's cache block holds
-    positions [r·C, (r + 1)·C), C = max_len / n, or every position where
-    n does not divide ``max_len``, filled from each K/V block the ring
-    brings (or, rows whole, from the whole K/V)."""
+    """``prefill`` on the rank's rows into the rank's cache block
+    (``rank_cache``): a dense layer's K/V block of positions [r·C,
+    (r + 1)·C), C = max_len / n, filled from each K/V block the ring
+    brings (or, rows whole, from the whole K/V); a windowed layer's ring
+    slots from the prompt's last rows; a recurrent layer's states cut
+    from the whole prompt's."""
     check_seq_support(cfg)
     b, s = tokens.shape
     n = shard.degree
@@ -948,28 +1080,13 @@ def _seq_prefill(params, cfg: ArchConfig, tokens, max_len: int, shard,
     rows, split = _seq_rows(s)
     x = _seq_embed(params, tokens[:, rows], cfg, shard, rows.start)
     positions = torch.arange(rows.start, rows.stop, device=x.device)
-    c0, c = cache_block(max_len, shard)
-    cache = make_cache(cfg, b, c, device=x.device, kv_dtype=kv_dtype)
-    if c == max_len and n > 1:
-        cache["replicated"] = True
+    cache = rank_cache(cfg, b, max_len, shard, device=x.device,
+                       kv_dtype=kv_dtype)
     for layer, blk in zip(_seq_layers(params, cfg, shard), cache["layers"]):
-
-        def fill(start: int, k, v, blk=blk) -> None:
-            # rows of k from absolute position ``start``, kept where they
-            # fall in this rank's block
-            lo, hi = max(start, c0), min(start + k.shape[2], c0 + c)
-            if lo < hi:
-                _write_rows(blk, lo - c0, k[:, :, lo - start:hi - start],
-                            v[:, :, lo - start:hi - start])
-
-        blk_rows = rows.stop - rows.start
-        y, (k, v) = attn_block(
-            layer["attn"], x, cfg, positions=positions, causal=cfg.causal,
-            ring=split, on_block=lambda src, k, v: fill(src * blk_rows, k, v))
-        if not split:
-            fill(0, k, v)
-        x = x + y
-        x = x + ffn(layer, x, cfg, s)[0]
+        x = x + _seq_mixer(layer, x, cfg, shard, positions, split, s,
+                           max_len, blk)
+        if "ssd" not in layer:
+            x = x + ffn(layer, x, cfg, s)[0]
     if not split:
         return _seq_unembed(params, x[:, -1:], cfg, shard), cache
     # every rank joins the unembedding's gather; the last row's rank uses it
@@ -983,17 +1100,31 @@ def _seq_prefill(params, cfg: ArchConfig, tokens, max_len: int, shard,
 
 
 def _seq_decode(params, cfg: ArchConfig, token, cache, pos: int, shard):
-    """``decode_step`` on the rank's cache block (the whole cache when it
-    is ``replicated``), the weights gathered on use."""
+    """``decode_step`` on the rank's cache block (K/V whole when the cache
+    is ``replicated``), the weights gathered on use: an attention layer
+    attends its rows or ring slots and combines across ranks; an SSD or
+    RG-LRU layer updates its channels and heads and gathers the results
+    (``ssm.ssd_block``, ``rglru.rglru_block`` with ``shard``)."""
     check_seq_support(cfg)
     whole = cache.get("replicated", False)
     x = _seq_embed(params, token, cfg, shard, pos)
     for layer, blk in zip(_seq_layers(params, cfg, shard), cache["layers"]):
-        x = x + attn_decode(layer["attn"], x, cfg, cache_k=blk["k"],
-                            cache_v=blk["v"], pos=pos,
+        kind, block = _recurrent(layer)
+        if kind is not None:
+            state, keyword = _RECURRENT[kind]
+            y, (conv, st) = block(layer[kind], x, cfg, conv_state=blk["conv"],
+                                  streaming=True, shard=shard,
+                                  **{keyword: blk[state]})
+            blk["conv"].copy_(conv)
+            blk[state].copy_(st)
+        else:
+            y = attn_decode(layer["attn"], x, cfg, cache_k=blk["k"],
+                            cache_v=blk["v"], pos=pos, window=cfg.attn_window,
                             k_scale=blk.get("k_scale"),
                             v_scale=blk.get("v_scale"), whole=whole)
-        x = x + ffn(layer, x, cfg)[0]
+        x = x + y
+        if kind != "ssd":
+            x = x + ffn(layer, x, cfg)[0]
     return _seq_unembed(params, x, cfg, shard), cache
 
 

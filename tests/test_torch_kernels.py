@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro.kernels import common as jcommon
+from repro.kernels import flash_attention as jflash
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import policy
@@ -177,6 +178,33 @@ def test_flash_q_offset_matches_oracle():
         to_torch(v).reshape(1, 96, 16), blk_q=16, blk_kv=32, causal=True,
         q_offset=50)
     assert_close(got.reshape(1, 2, 32, 16), want, FP32_ATOL)
+
+
+@pytest.mark.parametrize("halo,rows,window", [(31, 40, 32), (0, 24, 32),
+                                               (10, 37, 16)])
+def test_attention_q_offset_window_matches_pallas(halo, rows, window):
+    """A split rank's windowed call: ``rows`` Q rows at ``q_offset`` =
+    ``halo`` over (halo + rows) keys, through ``ops.attention`` (Q padded
+    to its block, K/V to 64 under kv_len) against the reference's
+    ``flash_attention_flat`` in interpret mode on the same padded rows."""
+    hq, hkv, e = 4, 2, 16
+    nkv = halo + rows
+    q = rand(halo, (1, hq, rows, e))
+    k, v = rand(halo + 1, (1, hkv, nkv, e)), rand(halo + 2, (1, hkv, nkv, e))
+    got = tops.attention(to_torch(q), to_torch(k), to_torch(v), causal=True,
+                         window=window, q_offset=halo)
+    pq, pk = (-rows) % 16, (-nkv) % 64
+    qf = np.pad(q.reshape(hq, rows, e), ((0, 0), (0, pq), (0, 0)))
+    kf, vf = (np.pad(t.reshape(hkv, nkv, e), ((0, 0), (0, pk), (0, 0)))
+              for t in (k, v))
+    want = jflash.flash_attention_flat(
+        to_jax(qf), to_jax(kf), to_jax(vf), blk_q=16, blk_kv=64, causal=True,
+        window=window, q_offset=halo, kv_len=nkv, interpret=True)
+    assert_close(got.reshape(hq, rows, e),
+                 np.asarray(want)[:, :rows], FP32_ATOL)
+    with pytest.raises(ValueError, match="q_offset"):
+        tops.attention(to_torch(q), to_torch(k), to_torch(v), causal=True,
+                       q_offset=halo or 1, method="mas_resident")
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,7 @@ from repro_torch.distributed.ctx import SeqShard, sharding_policy
 from repro_torch.distributed.sharding import (
     batch_specs,
     fit_dim,
+    local_cache,
     local_params,
     opt_specs,
     param_spec,
@@ -69,14 +70,14 @@ from repro_torch.launch.dryrun import cell_tokens, decode_steps, seeded_cache
 from repro_torch.launch.steps import choose_policy
 from repro_torch.models import moe as tmoe
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import cache_block
 from repro_torch.tree import leaves_with_paths
 from repro_torch.weights import reference_leaf
 from test_torch_harness import model_pair
 from test_torch_seqshard_ranks import seq_rank_main
 from test_torch_sharded_ranks import Ranks
 
-ARCHS = ("internlm2-1.8b", "qwen3-1.7b", "deepseek-moe-16b")
+ARCHS = ("internlm2-1.8b", "qwen3-1.7b", "deepseek-moe-16b", "mamba2-130m",
+         "recurrentgemma-9b")
 MOE = "deepseek-moe-16b"
 DROP_CF = 1.0           # a capacity factor at which the groups drop
 TOL = 1e-4
@@ -85,16 +86,28 @@ RING_TOL = 2e-5         # the reference's ring and decode tolerance
 BATCH, STEPS = 2, 8
 LENS = (24, 25)         # a prompt both degrees divide, and one neither does
 MAX_LEN = 40            # blocks of 20 / 10 rows against rows of 12 / 6
+# The recurrent stacks' prompts (arch -> (length, max_len)): mamba2's 160
+# splits in rank blocks of 80 / 40 rows, 2.5 / 1.25 of its 32-row chunks;
+# recurrentgemma's window of 32 takes a halo from two ranks at 96 rows
+# over 4 (24 rows a rank) and from one at 256 over 2 (128), and its ring
+# of 30 slots at max_len 30 is split over 2 ranks and whole over 4; 25
+# rows neither degree divides.
+RECURRENT_LENS = {"mamba2-130m": ((160, 168), (25, MAX_LEN)),
+                  "recurrentgemma-9b": ((96, 104), (256, 264), (25, MAX_LEN),
+                                        (22, 30))}
 REPLICATED_LEN = {2: 41, 4: 42}   # a cache the degree does not divide
 RING = dict(b=2, hq=4, hkv=2, s=32, e=16)
 DEC = dict(b=2, hq=8, hkv=2, s=96, e=32)
 KV_LENS_RING = (None, 13, 27)
 KV_LENS_DEC = (1, 40, 96)
-REFUSED = ("mamba2-130m", "recurrentgemma-9b", "whisper-large-v3",
-           "internvl2-2b")
+REFUSED = ("whisper-large-v3", "internvl2-2b")
 CELLS = (ShapeCell("prefill_tiny", 24, 2, "prefill"),
          ShapeCell("decode_tiny", 40, 2, "decode"),
          ShapeCell("train_tiny", 24, 2, "train"))
+# the recurrent stacks' cells: a prompt of 64 rows (two mamba2 chunks,
+# blocks of 32 and 16), a decode past recurrentgemma's window of 32
+RECURRENT_CELLS = (ShapeCell("prefill_tiny", 64, 2, "prefill"),
+                   ShapeCell("decode_tiny", 48, 2, "decode"))
 
 
 class StandInMesh:
@@ -164,13 +177,14 @@ def _slice_cases(degree: int) -> list:
     out = []
     for arch in ARCHS:
         cfs = (None, DROP_CF) if arch == MOE else (None,)
-        for s in LENS:
+        lens = RECURRENT_LENS.get(arch, [(s, MAX_LEN) for s in LENS])
+        for s, max_len in lens:
             for cf in cfs:
                 prompt = np.random.default_rng(s).integers(
                     3, 512, size=(BATCH, s)).astype(np.int32)
                 out.append(dict(name=f"slice-{degree}-{arch}-{s}-{cf}",
                                 kind="slice", degree=degree, arch=arch,
-                                prompt=prompt, max_len=MAX_LEN, steps=STEPS,
+                                prompt=prompt, max_len=max_len, steps=STEPS,
                                 capacity_factor=cf))
     out.append(dict(out[0], name=f"slice-{degree}-int8", kv_dtype="int8"))
     out.append(dict(out[0], name=f"slice-{degree}-replicated",
@@ -181,8 +195,15 @@ def _slice_cases(degree: int) -> list:
 def _cell_cases(degree: int) -> list:
     cfg = dataclasses.replace(get_smoke("internlm2-1.8b"),
                               compute_dtype=torch.float32)
-    return [dict(name=f"cell-{degree}-{c.kind}", kind="cell", degree=degree,
-                 cfg=cfg, cell=c, steps=3) for c in CELLS]
+    out = [dict(name=f"cell-{degree}-{c.kind}", kind="cell", degree=degree,
+                cfg=cfg, cell=c, steps=3) for c in CELLS]
+    for arch in RECURRENT_LENS:
+        rcfg = dataclasses.replace(get_smoke(arch), attn_impl="kernel",
+                                   compute_dtype=torch.float32)
+        out += [dict(name=f"cell-{degree}-{arch}-{c.kind}", kind="cell",
+                     degree=degree, cfg=rcfg, cell=c, steps=3)
+                for c in RECURRENT_CELLS]
+    return out
 
 
 def _cases(world: int) -> list:
@@ -255,7 +276,30 @@ def _reference_slice(pair, case, decode) -> dict:
             steps.append(logits[:, 0])
     return {"logits": np.asarray(jnp.stack(steps)),
             "tokens": np.asarray(jnp.stack(toks, 1)),
-            "forward": np.asarray(fwd), "aux": float(aux)}
+            "forward": np.asarray(fwd), "aux": float(aux),
+            "cache_blocks": _reference_blocks(cache, case["degree"])}
+
+
+def _reference_blocks(cache, degree: int) -> dict:
+    """Leaf name -> the block shapes a rank holds by the reference's
+    ``cache_specs`` (dense layout) fitted on a stand-in mesh of
+    ``degree``: each dim its 'model' axis splits divided by the degree,
+    the stacked unit axis taken off."""
+    specs = jsharding.cache_specs(cache, StandInMesh(degree), layout="dense")
+    out: dict = {}
+    for (kp, leaf), (_, spec) in zip(
+            jax.tree_util.tree_flatten_with_path(cache)[0],
+            jax.tree_util.tree_flatten_with_path(
+                specs, is_leaf=lambda x: isinstance(
+                    x, jax.sharding.PartitionSpec))[0]):
+        names = [str(getattr(k, "key", getattr(k, "idx", k))) for k in kp]
+        dims = tuple(spec) + (None,) * (leaf.ndim - len(tuple(spec)))
+        shape = tuple(size // degree if axes is not None and "model" in (
+            (axes,) if isinstance(axes, str) else axes) else size
+            for size, axes in zip(leaf.shape, dims))
+        out.setdefault(names[-1], set()).add(
+            shape[1:] if names[0] == "units" else shape)
+    return out
 
 
 def _emulated_prefill(pair, case) -> np.ndarray:
@@ -358,8 +402,10 @@ def test_slice_matches_reference(results, pairs, name):
     its greedy tokens the
     reference's, the same bits on every rank; forward's logits and aux
     too; the single-card grouped run (``grouped_as``) is the reference's
-    prefill within 1e-4; the cache block is max_len / n rows; a rank
-    holds its E / n experts."""
+    prefill within 1e-4; each cache leaf is the block the reference's
+    ``cache_specs`` give a rank (K/V: max_len / n rows or ring slots;
+    conv channels, SSD heads, RG-LRU width); a rank holds its E / n
+    experts."""
     got, want = results
     case, ranks = got[name]
     ref = want[name]
@@ -375,10 +421,22 @@ def test_slice_matches_reference(results, pairs, name):
         np.testing.assert_allclose(rk["forward"], ref["forward"], atol=TOL,
                                    rtol=TOL)
         assert abs(rk["aux"] - ref["aux"]) <= TOL * max(1.0, abs(ref["aux"]))
-        rows, replicated = _cache_rows(case["max_len"], n)
-        assert set(rk["cache_shapes"]) == {
-            (BATCH, cfg.num_kv_heads, rows, cfg.hd)}
-        assert rk["replicated"] == replicated
+        mine: dict = {}
+        for blk in rk["cache_shapes"]:
+            for name, shape in blk.items():
+                mine.setdefault(name, set()).add(shape)
+        for name in ("k_scale", "v_scale"):
+            # the port cuts an int8 cache's per-row scales with their rows
+            # (the reference's specs leave them whole)
+            if name in mine:
+                assert mine.pop(name) == {s[:3] for s in mine[name[0]]}
+        assert mine == {k: v for k, v in ref["cache_blocks"].items()
+                        if not k.endswith("_scale")}
+        if "k" in mine:
+            rows, replicated = _cache_rows(
+                min(case["max_len"], cfg.attn_window or case["max_len"]), n)
+            assert mine["k"] == {(BATCH, cfg.num_kv_heads, rows, cfg.hd)}
+            assert rk["replicated"] == replicated
         if cfg.moe is not None:
             assert rk["expert_shape"][0] == cfg.moe.num_experts // n
     np.testing.assert_allclose(ref["emulated"], ref["logits"][0], atol=TOL,
@@ -410,18 +468,50 @@ def test_split_weights_are_the_whole_weights_route(results, name):
 def _slice_bytes(cfg, case, rank: int) -> tuple[dict, dict]:
     """(prefill, decode) bytes a rank's collectives send, from the shapes."""
     n, s = case["degree"], case["prompt"].shape[1]
-    layers, f32 = cfg.num_layers, 4
+    f32, steps = 4, case["steps"]
     split = s % n == 0
+    rows = s // n
     pre = dict.fromkeys(ctx.KINDS, 0)
     dec = dict.fromkeys(ctx.KINDS, 0)
-    if split:
-        kv = 2 * BATCH * cfg.num_kv_heads * (s // n) * cfg.hd * f32
-        pre["ring"] = layers * (n - 1) * kv
-        if rank == n - 1:
-            pre["bcast"] = (n - 1) * BATCH * cfg.vocab_size * f32
-    if not _cache_rows(case["max_len"], n)[1]:     # replicated: no combine
-        dec["combine"] = (case["steps"] * layers * (n - 1) * BATCH
-                          * cfg.num_heads * (cfg.hd + 2) * f32)
+    if split and rank == n - 1:
+        pre["bcast"] = (n - 1) * BATCH * cfg.vocab_size * f32
+    combine = steps * (n - 1) * BATCH * cfg.num_heads * (cfg.hd + 2) * f32
+
+    def gathered(size: int, per_rank: int) -> int:
+        # a decode step's all-gather of a rank's block of ``size`` entries
+        return 0 if size % n else steps * (n - 1) * per_rank * size // n
+
+    for kind in cfg.layer_kinds:
+        if kind == "ssd":
+            m = cfg.ssm
+            nh = m.expand * cfg.d_model // m.head_dim
+            conv = m.expand * cfg.d_model + 2 * m.n_groups * m.d_state
+            if split:
+                pre["halo"] += (n - 1) * BATCH * min(m.conv_width - 1,
+                                                     rows) * conv * f32
+                pre["carry"] += (n - 1) * BATCH * nh * (
+                    m.head_dim * m.d_state + 1) * f32
+            dec["gather"] += (gathered(conv, BATCH * f32)
+                              + gathered(nh, BATCH * m.head_dim * f32))
+        elif kind == "rec":
+            w = cfg.lru_width or cfg.d_model
+            if split:
+                pre["halo"] += (n - 1) * BATCH * min(3, rows) * w * f32
+                pre["carry"] += (n - 1) * 2 * BATCH * w * f32
+            dec["gather"] += 2 * gathered(w, BATCH * f32)
+        elif cfg.attn_window:
+            if split:
+                pre["halo"] += (n - 1) * 2 * BATCH * cfg.num_kv_heads * min(
+                    cfg.attn_window, rows) * cfg.hd * f32
+            if min(case["max_len"], cfg.attn_window) % n == 0:
+                dec["combine"] += combine
+        else:
+            if split:
+                pre["ring"] += (n - 1) * 2 * BATCH * cfg.num_kv_heads * rows \
+                    * cfg.hd * f32
+            if not _cache_rows(case["max_len"], n)[1]:
+                dec["combine"] += combine
+    layers = cfg.num_layers
     m = cfg.moe
     if m is not None:
         cf = case["capacity_factor"] or m.capacity_factor
@@ -447,7 +537,10 @@ def test_slice_bytes_match_shapes(results, pairs, name):
     """Each rank's bytes by kind: the ring's n - 1 K/V blocks a layer, the
     last row's logits broadcast by their owner, the decode combine, and
     for the MoE the two expert all-to-alls and the aux terms' gather (or,
-    ungrouped, the expert outputs' gather)."""
+    ungrouped, the expert outputs' gather); a recurrent layer's conv halo
+    of 3 rows and its carry (state and decay) a prefill, a windowed
+    layer's K/V halo of min(W, rows) rows, and a decode step's gathers of
+    the conv output and the heads' y (SSD) or h (RG-LRU)."""
     got, _ = results
     case, ranks = got[name]
     cfg = pairs[case["arch"]].tcfg
@@ -498,10 +591,11 @@ def test_split_weight_bytes_match_shapes(results, pairs, name):
 # ---------------------------------------------------------------------------
 
 
-def _one_card_cell(cell, steps: int) -> np.ndarray:
-    """The cell's logits on one device with no policy."""
-    cfg = dataclasses.replace(get_smoke("internlm2-1.8b"),
-                              compute_dtype=torch.float32)
+def _one_card_cell(cell, steps: int, cfg=None) -> np.ndarray:
+    """The cell's logits on one device with no policy (internlm2-smoke at
+    fp32 unless ``cfg``)."""
+    cfg = cfg or dataclasses.replace(get_smoke("internlm2-1.8b"),
+                                     compute_dtype=torch.float32)
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     b, s = cell.global_batch, cell.seq_len
@@ -544,6 +638,39 @@ def test_run_cell(results, world, kind):
         assert rec["sent_bytes"][key] > 0
         # a tp_sp cell runs on the rank's split weights, gathered on use
         assert (rec["sent_bytes"]["weights"] > 0) == (kind == "decode")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch", list(RECURRENT_LENS))
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_run_cell_recurrent(results, world, arch, kind):
+    """mamba2 and recurrentgemma cells on the ranks: the one-device
+    logits within 1e-4, the same bits on every rank; a prefill (sp_rep)
+    exchanges halos and carries, a decode (tp_sp, a seeded cache cut to
+    each rank's states and ring slots) gathers channels and heads."""
+    got, _ = results
+    case, ranks = got[f"cell-{world}-{arch}-{kind}"]
+    want = _one_card_cell(case["cell"], case["steps"], case["cfg"])
+    for r, rk in enumerate(ranks):
+        rec = rk["record"]
+        np.testing.assert_allclose(rk["logits"], want, atol=TOL, rtol=TOL)
+        np.testing.assert_array_equal(rk["logits"], ranks[0]["logits"])
+        assert rec["policy"] == ("sp_rep" if kind == "prefill" else "tp_sp")
+        assert (rec["degree"], rec["rank"]) == (world, r)
+        keys = ("halo", "carry") if kind == "prefill" else ("gather",)
+        assert all(rec["sent_bytes"][k] > 0 for k in keys), rec["sent_bytes"]
+        assert rec["sent_bytes"]["ring"] == 0
+
+
+def test_run_cell_honours_cell_is_runnable():
+    """long_500k runs for the sub-quadratic archs only, as the
+    reference's ``cell_is_runnable`` says; the refusal comes before any
+    weight is drawn."""
+    from repro_torch.launch.dryrun import run_cell
+
+    with pytest.raises(ValueError, match="sub-quadratic"):
+        run_cell("internlm2-1.8b", "long_500k", SeqShard(None, 0, 1),
+                 device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -769,9 +896,36 @@ def test_seeded_cache_the_degree_does_not_divide_is_replicated(degree,
         whole = seeded_cache(cfg, 2, max_len, 30, seed=2, device="cpu")
         mine = seeded_cache(cfg, 2, max_len, 30, seed=2, device="cpu",
                             shard=shard)
-        c0, rows = cache_block(max_len, shard)
-        assert mine.get("replicated", False) == (max_len % degree != 0)
-        assert rows == (max_len if max_len % degree else max_len // degree)
+        replicated = max_len % degree != 0
+        rows = max_len if replicated else max_len // degree
+        c0 = 0 if replicated else rank * rows
+        assert mine.get("replicated", False) == replicated
         for a, b in zip(mine["layers"], whole["layers"]):
             for name in ("k", "v"):
+                assert a[name].shape[2] == rows
                 assert torch.equal(a[name], b[name][:, :, c0:c0 + rows])
+
+
+@pytest.mark.parametrize("degree,rank", [(4, 1), (4, 3), (2, 0)])
+@pytest.mark.parametrize("arch", list(RECURRENT_LENS))
+def test_seeded_cache_cuts_states_and_ring_slots(arch, degree, rank):
+    """A rank's seeded cache of a recurrent stack is the whole seeded
+    cache cut to the rank's ``cache_specs`` blocks (conv channels, SSD
+    heads, RG-LRU width, a window's ring slots), the same values; the
+    ring's slots past kv_len stay zero."""
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype=torch.float32)
+    shard = SeqShard(None, rank, degree)
+    for kv_len in (20, 36):
+        whole = seeded_cache(cfg, 2, 40, kv_len, seed=2, device="cpu")
+        mine = seeded_cache(cfg, 2, 40, kv_len, seed=2, device="cpu",
+                            shard=shard)
+        want = local_cache(whole, rank=rank, degree=degree, layout="dense")
+        assert "replicated" not in mine
+        for a, b, full in zip(mine["layers"], want["layers"],
+                              whole["layers"]):
+            assert a.keys() == b.keys()
+            for name in a:
+                assert torch.equal(a[name], b[name]), name
+                assert full[name].abs().sum() > 0, name
+            if "k" in full:
+                assert not full["k"][:, :, kv_len:].any()

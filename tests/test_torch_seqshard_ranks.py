@@ -14,7 +14,8 @@ one of
 * ``slice``: a smoke model's ``prefill`` and greedy ``decode_step``s,
   then ``forward``, from the reference's weights (numpy), on the
   ``sp_rep`` tree (weights whole but the experts) and again on the
-  rank's ``tp_sp`` split of the weights;
+  rank's ``tp_sp`` split of the weights (dense, MoE, ssm and hybrid
+  stacks);
 * ``cell``: ``launch/dryrun.run_cell`` on a small prefill, decode and
   train cell.
 
@@ -103,7 +104,8 @@ def _run_slice(model, params, case, shard) -> dict:
         logits, cache = model.prefill(params, cfg, tokens, case["max_len"],
                                       kv_dtype=case.get("kv_dtype"))
         out["prefill_sent"] = dict(shard.sent)
-        out["cache_shapes"] = [tuple(blk["k"].shape)
+        out["cache_shapes"] = [{name: tuple(t.shape)
+                                for name, t in blk.items()}
                                for blk in cache["layers"]]
         out["replicated"] = cache.get("replicated", False)
         steps, toks = [logits[:, 0]], []
@@ -130,7 +132,9 @@ def _slice(case, shard, weights) -> dict:
                                case.get("capacity_factor"))
     params = local_params(whole, rank=shard.rank, degree=shard.degree)
     out = _run_slice(model, params, case, shard)
-    out["expert_shape"] = tuple(params["layers"][0]["ffn"]["w_gate"].shape)
+    if model.cfg.moe is not None:
+        out["expert_shape"] = tuple(
+            params["layers"][0]["ffn"]["w_gate"].shape)
     split = local_params(whole, rank=shard.rank, degree=shard.degree,
                          policy="tp_sp")
     out["split"] = _run_slice(model, split, case, shard)
