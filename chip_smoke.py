@@ -203,13 +203,36 @@ Phases, each printing one JSON line:
    every rank's logits the same bits, each cache leaf its
    ``cache_specs`` block, mamba2's split decode bitwise the single
    card's; an fp32 run of each (2 and 3 layers, a 4096-token prompt):
-   tokens equal, first-token logits within SEQ_FP32_RTOL. Per run and
-   rank: peak memory, prefill and decode-step device ms and wall, bytes
-   sent by collective (ring, combine, a2a, gather, bcast, weights, halo,
-   carry) and the bytes staged through host buffers. ``python3
-   chip_smoke.py --only seq_sharded`` runs the build, the B3 halo row
-   and this phase alone, ``--only seq_recurrent`` the same with the
-   recurrent runs only;
+   tokens equal, first-token logits within SEQ_FP32_RTOL; then the
+   frontend archs (``seq_frontend_runs``): whisper-large-v3 and
+   internvl2-2b prefill_32k at batch 1 (32 cut) at degrees 2 and 4 (one
+   clip of 1500 frames, each rank encoding its 1500 / n frames with B2
+   over the K/V gathered whole, and 32768 tokens whose cross blocks run
+   B2 over the memory gathered whole; 256 patch rows and 32512 tokens,
+   the patch rows in the row split), 16 decode steps after each (the
+   cross partials combined across ranks), decode_32k at batch 8 (128
+   cut) from a seeded cache (whisper's memories 1500 rows) on split
+   weights and again on whole, full depth with a card a rank and
+   SEQ_FRONTEND_SHARED_LAYERS layers on one card; each against the
+   single card's kernel route (``frontend_yardsticks``): logits within
+   LOGITS_RTOL, whisper's encoder layer-0 rows, layer-0 cross rows and
+   first decode step's cross rows and internvl2's layer-0 rows (patch
+   rows included) within BF16_ROW_RTOL with the four FRONTEND_FAULTS
+   (an encoder that attends its own frames, a cross block over its own
+   memory block, rank 0's cross partial dropped, unshifted patch rows;
+   ``planted_frontend_fault``, on the first decoder layer) rejected, B2
+   once an encoder layer and once a cross block a rank, the cache leaves
+   (memories too) and the bytes by kind the shapes', split-weight logits
+   bitwise the whole weights'; an fp32 run of each at 2 layers (whisper:
+   and 2 encoder layers): tokens equal, logits within SEQ_FP32_RTOL. Per
+   run and rank: peak memory, prefill and decode-step device ms and
+   wall, bytes sent by collective (ring, combine, a2a, gather, bcast,
+   weights, halo, carry) and the bytes staged through host buffers.
+   ``python3 chip_smoke.py --only seq_sharded`` runs the build, the B3
+   halo row, the B2 rank rows and this phase alone, ``--only
+   seq_recurrent`` the same with the recurrent runs only (the halo row),
+   ``--only seq_frontend`` with the frontend runs only (the B2 rank
+   rows);
 12. moe — full-width, full-depth deepseek-moe-16b (28 layers, 64
    routed experts top-6 and 2 shared, capacity factor 1.25; bf16, random
    weights from seed 0 with the experts' down projections scaled by 1/16,
@@ -357,7 +380,11 @@ waves', B5 and B6 the shared-prefix, moe and dense-arch phases' to the
 continuous phase's, the head-dim-256 forms the hybrid wave's, B1, B2 and
 B4 also the encdec and vlm phases'; ``mas_streamed_cross``, B2 at a
 whisper decode step's cross-attention shape, counts the B2 launches of
-the encdec phase's decode steps; the ``*_shard`` rows of B5-B7 at a
+the encdec phase's decode steps; ``mas_streamed_enc_rank`` and
+``mas_streamed_cross_rank``, B2 at a split whisper rank's encoder and
+cross shapes (checked and timed in the kernels phase at both degrees),
+count the B2 launches inside the seq_sharded phase's split encoders and
+cross blocks; the ``*_shard`` rows of B5-B7 at a
 rank's heads count every rank's launches of their kernel in the sharded
 phase's local-route runs, the B5_ring rows every rank's B5 launches in
 its ring runs), the card's
@@ -589,6 +616,23 @@ SEQ_RECURRENT_FP32_PROMPT = 4096
 # decay matrix (stated in PERF.md before the first run).
 SEQ_FP32_RTOL = 1e-4
 SEQ_WARM_ROWS = 256     # a rank's rows of the untimed warm-up prefill
+# whisper-large-v3 and internvl2-2b split by sequence (the seq_sharded
+# phase; ``--only seq_frontend``), full width, bf16, seed-0 weights:
+# prefill_32k at batch 1 (its 32 cut) at each degree of SEQ_DEGREES
+# (whisper: one clip of 1500 frames, each rank encoding its block of
+# them, and 32768 tokens; internvl2: 256 patch rows and 32512 tokens,
+# split with them), SEQ_PREFILL_NEW decode steps after each; decode_32k
+# at SEQ_DECODE_BATCH (its 128 cut) at degree 4 from a seeded cache
+# (whisper's memories 1500 rows), on split weights and again on whole;
+# an fp32 run at SEQ_FRONTEND_FP32_LAYERS layers (whisper: as many
+# encoder layers) on a SEQ_FRONTEND_FP32_PROMPT-token prompt. Full depth
+# with a card a rank; SEQ_FRONTEND_SHARED_LAYERS layers where four ranks
+# share one card over gloo (ring passes, gathers and the split decode's
+# weight gathers through host memory).
+FRONTEND_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
+SEQ_FRONTEND_SHARED_LAYERS = 4
+SEQ_FRONTEND_FP32_LAYERS = 2
+SEQ_FRONTEND_FP32_PROMPT = 1024
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -613,7 +657,7 @@ PATH_KERNELS = {
     "sharded": ("paged_prefill", "paged_decode", "paged_verify",
                 "paged_prefill_int8", "paged_decode_int8",
                 "paged_verify_int8"),
-    "seq_sharded": ("ssd_intra_chunk", "flash_e256"),
+    "seq_sharded": ("ssd_intra_chunk", "flash_e256", "mas_streamed"),
 }
 ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
                              "launcher", "train"),
@@ -635,6 +679,8 @@ ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
             "ssd_intra_chunk": ("ssm_wave", "seq_sharded"),
             "flash_e256": ("hybrid_wave",), "decode_e256": ("hybrid_wave",),
             "flash_e256_halo": ("seq_sharded",),
+            "mas_streamed_enc_rank": ("seq_sharded",),
+            "mas_streamed_cross_rank": ("seq_sharded",),
             "decode_e256_int8": ("hybrid_wave",),
             **{name + "_shard": ("sharded",) for name in (
                 "paged_decode", "paged_decode_int8", "paged_prefill",
@@ -644,7 +690,9 @@ ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
 # The launch counter of a kernel row whose name is not one: the rows of
 # B5-B7 at a rank's heads count their kernels' launches on the sharded
 # path's local-route runs, the B5_ring rows B5's on its ring runs, the B3
-# halo row B3's at head dim 256 on the split hybrid's prefills.
+# halo row B3's at head dim 256 on the split hybrid's prefills. (The B2
+# rank rows count B2's launches inside the split encoder and the cross
+# blocks of the seq_sharded whisper prefills, under their own names.)
 ROW_COUNTER = {**{name + "_shard": name for name in (
     "paged_decode", "paged_decode_int8", "paged_prefill",
     "paged_prefill_int8", "paged_verify", "paged_verify_int8")},
@@ -1228,6 +1276,7 @@ def phase_kernels(torch, device: dict) -> list[dict]:
             rows[-1]["blk_q8"] = streamed_at_blk_q8(torch, rnd, hq, hkv, e)
 
     rows.append(cross_row(torch, rnd, device))
+    rows += rank_b2_rows(torch, rnd, device)
     for quantized in (False, True):
         rows.append(decode_row(torch, rnd, cfg, quantized))
         rows += paged_rows(torch, rnd, cfg, quantized)
@@ -1366,6 +1415,84 @@ def cross_row(torch, rnd, device: dict) -> dict:
                   "blk_q": bq, "causal": False, "dtype": "bf16"},
         "checks": checks,
     }
+
+
+def rank_b2_rows(torch, rnd, device: dict) -> list[dict]:
+    """B2 (non-causal) at the shapes a rank of the split whisper-large-v3
+    prefill gives it, batch 1 (prefill_32k's 32 cut), 20 heads of 64 on 20
+    kv heads: ``mas_streamed_enc_rank``, an encoder layer's F / n Q rows
+    over the 1500 gathered K/V rows (padded to 1536, masked at kv_len),
+    and ``mas_streamed_cross_rank``, a rank's S / n decoder rows over the
+    1500 memory rows, each at every degree of SEQ_DEGREES, on the
+    operands ``ops.attention`` gives the wrapper. Each shape held to B2's
+    plain version beside a zeroed V tile and timed with its bound and
+    SDPA's time on the unpadded memory; the row's own numbers are the
+    largest degree's."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.core.policy import KV_TILE
+    from repro_torch.kernels import mas_attention as mas
+    from repro_torch.kernels import ops
+
+    cfg = get_arch(ENCDEC_ARCH)
+    h, e, f = cfg.num_heads, cfg.hd, cfg.num_frontend_tokens
+    s = SHAPES["prefill_32k"].seq_len
+    out = []
+    for name, whole in (("mas_streamed_enc_rank", f),
+                        ("mas_streamed_cross_rank", s)):
+        shapes = []
+        for n in SEQ_DEGREES:
+            nq = whole // n
+            kind, bq = ops.resolve_method(nq, f, e, 2)
+            require(kind == "mas_streamed",
+                    f"policy routes {nq} x {f} at E {e} to {kind}")
+            q, k, v = rnd(1, h, nq, e), rnd(1, h, f, e), rnd(1, h, f, e)
+            qf = ops._pad_rows(q.reshape(h, nq, e), bq)
+            kf, vf = (ops._pad_rows(x.reshape(h, f, e), KV_TILE)
+                      for x in (k, v))
+
+            def kern(qf=qf, kf=kf, vf=vf, bq=bq, nq=nq):
+                return mas.mas_attention_flat(qf, kf, vf, blk_q=bq,
+                                              kv_resident=False,
+                                              kv_len=f)[:, :nq]
+
+            def plain(vf=vf, qf=qf, kf=kf, bq=bq, nq=nq):
+                return mas.mas_attention_plain(qf, kf, vf, blk_q=bq,
+                                               blk_kv=KV_TILE,
+                                               kv_len=f)[:, :nq]
+
+            check = held_to_plain(kern(), plain(),
+                                  plain(drop_v_tile(vf, f // KV_TILE - 2)))
+            lib = library_call(torch, q, k, v, causal=False)
+            flops = 4.0 * e * nq * f * h
+            nbytes = 2.0 * (2 * h * nq * e + 2 * h * f * e)
+            bms, by = bound(flops, nbytes)
+            ms = cuda_ms(torch, kern, 20)
+            shapes.append({
+                "degree": n, "nq": nq, "blk_q": bq, **check, "ms": ms,
+                "plain_ms": cuda_ms(torch, plain, 2), "bound_ms": bms,
+                "bound_by": by, "library_ms": cuda_ms(torch, lib, 20),
+                **device_times(torch, kern, lib, 20),
+                "tflops": flops / ms / 1e9})
+        top = shapes[-1]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mas_attention.cu",
+            "replaces": "src/repro/kernels/mas_attention.py:121",
+            "launches": 0,
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "device_ms", "library_device_ms",
+                                   "tflops")},
+            "row_rel_err": max(c["row_rel_err"] for c in shapes),
+            "fault_row_rel_err": min(c["fault_row_rel_err"]
+                                     for c in shapes),
+            **kernel_report(device, "mas_attention", "mas_streamed_bf16"),
+            "shape": {"b": 1, "hq": h, "hkv": h, "n_kv": f, "e": e,
+                      "causal": False, "dtype": "bf16",
+                      "nq_by_degree": {c["degree"]: c["nq"]
+                                       for c in shapes}},
+            "by_degree": shapes})
+    return out
 
 
 def paged_library_call(torch, q, k_pages, v_pages, table, mask,
@@ -4441,12 +4568,74 @@ def planted_split_fault(fault: str):
         SeqShard.halo, SeqShard.carry = real_halo, real_carry
 
 
+# The frontend archs' faults (``planted_frontend_fault``): an encoder
+# layer that attends only the rank's own frames; a prefill cross block
+# over the rank's own memory block only; rank 0's decode cross partial
+# left out of the combine; the token rows placed without the patch rows'
+# offset (each rank embeds the tokens F further along).
+FRONTEND_FAULTS = ("encoder_own_frames", "cross_own_memory",
+                   "cross_partial_dropped", "patch_rows_unshifted")
+
+
+@contextlib.contextmanager
+def planted_frontend_fault(fault: str):
+    """Plant ``fault`` (FRONTEND_FAULTS) in this process's split encoder,
+    cross blocks or input rows (``models/transformer.py``): each replaces
+    one function of the policy's route by its faulty form for the
+    duration."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tfm
+
+    if fault not in FRONTEND_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    name = {"encoder_own_frames": "attn_block",
+            "cross_own_memory": "cross_attn_block",
+            "cross_partial_dropped": "cross_attn_decode",
+            "patch_rows_unshifted": "_input_rows"}[fault]
+    real = getattr(tfm, name)
+
+    def own_frames(*args, kv_rows=None, **kw):
+        return real(*args, **kw)
+
+    def own_memory(*args, mem_rows=None, **kw):
+        return real(*args, **kw)
+
+    def partial_dropped(params, x, cfg, *, mem_k, mem_v):
+        # cross_attn_decode with rank 0's partial left out of the combine
+        shard = tfm.seq_shard_state()
+        q = tfm._cross_q(params, x, cfg)[:, :, 0]
+        c = mem_k.shape[2]
+        part = attn_mod.decode_partial(q, mem_k, mem_v, c * shard.degree,
+                                       shard.rank * c)
+        parts = shard.all_gather(part, "combine")
+        o = attn_mod.combine_partials(parts[1:]).reshape(q.shape)
+        return o.to(x.dtype).reshape(x.shape[0], 1, -1) \
+            @ params["wo"].to(x.dtype)
+
+    def unshifted(tokens, frontend_embeds, rows):
+        f = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+        return real(tokens.roll(-f, 1), frontend_embeds, rows)
+
+    setattr(tfm, name, {"attn_block": own_frames,
+                        "cross_attn_block": own_memory,
+                        "cross_attn_decode": partial_dropped,
+                        "_input_rows": unshifted}[name])
+    try:
+        yield
+    finally:
+        setattr(tfm, name, real)
+
+
 def fault_touches(fault: str, rank: int, degree: int) -> bool:
     """Whether planted ``fault`` changes rank ``rank``'s rows: the zeroed
     carry the last rank's, a halo fault every rank's but the first (rank
-    0 has no rows before it)."""
+    0 has no rows before it), a frontend fault every rank's (each misses
+    the other ranks' frames, memory rows or partial, or embeds shifted
+    tokens; a rank holding patch rows only is not planted on)."""
     if fault == "carry_zeroed":
         return rank == degree - 1
+    if fault in FRONTEND_FAULTS:
+        return True
     return rank > 0
 
 
@@ -4655,11 +4844,12 @@ def seq_dense_runs(torch, model, params, shard, yard: dict, failures: list
     return runs
 
 
-def weights_gather_bytes(cfg, params, n: int) -> int:
+def weights_gather_bytes(cfg, params, n: int, encoder: bool = True) -> int:
     """Bytes a rank's gathers receive to rebuild ``params``' whole weights
     once from its tp_sp split over ``n`` ranks: (n - 1) / n of every leaf
     ``param_specs`` splits but the routed experts, the embedding twice
-    when tied (embedding and unembedding)."""
+    when tied (embedding and unembedding); an encoder's leaves only with
+    ``encoder`` (a decode step does not run the encoder)."""
     from repro_torch.distributed.sharding import param_specs
     from repro_torch.tree import leaves_with_paths
 
@@ -4668,6 +4858,8 @@ def weights_gather_bytes(cfg, params, n: int) -> int:
     total = 0
     for path, leaf in leaves_with_paths(params):
         if specs[path] is None or (leaf.ndim == 3 and "ffn/w_" in path):
+            continue
+        if not encoder and path.startswith("encoder/"):
             continue
         per = leaf.numel() * leaf.element_size() * (n - 1) // n
         total += per * (2 if path == "embed" and cfg.tie_embeddings else 1)
@@ -4947,13 +5139,15 @@ def digest(t) -> str:
                           ).hexdigest()[:16]
 
 
-def spec_shapes(cfg, batch: int, max_len: int, degree: int) -> list:
+def spec_shapes(cfg, batch: int, max_len: int, degree: int,
+                mem_len: int = 0) -> list:
     """Each layer's cache leaf shapes a rank holds by ``cache_specs``
-    (dense layout, fitted to ``degree``)."""
+    (dense layout, fitted to ``degree``; an encoder-decoder's memories of
+    ``mem_len`` rows too)."""
     from repro_torch.distributed.sharding import cache_specs
     from repro_torch.models.transformer import make_cache
 
-    meta = make_cache(cfg, batch, max_len, device="meta")
+    meta = make_cache(cfg, batch, max_len, device="meta", mem_len=mem_len)
     specs = cache_specs(meta, layout="dense", degree=degree)
     out = []
     for blk, spec in zip(meta["layers"], specs["layers"]):
@@ -5372,6 +5566,513 @@ def seq_recurrent_runs(torch, arch: str, groups: dict, yard: dict,
     return runs, launches
 
 
+def frontend_plan(backend: str) -> dict:
+    """Depth of the frontend runs by arch: full with a card a rank;
+    SEQ_FRONTEND_SHARED_LAYERS (whisper: as many encoder layers) where
+    four ranks share one card over gloo (the ring's passes, the gathers
+    and the split decode's weight gathers go through host memory)."""
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for arch in FRONTEND_ARCHS:
+        cfg = get_arch(arch)
+        shared = backend != "nccl"
+        layers = SEQ_FRONTEND_SHARED_LAYERS if shared else cfg.num_layers
+        enc = " (and encoder layers)" if cfg.encoder_layers else ""
+        out[arch] = {"layers": layers, "reduced": (
+            f"{layers} of {cfg.num_layers} layers{enc}: four ranks share one "
+            f"card over gloo" if shared else None)}
+    return out
+
+
+def frontend_model(torch, arch: str, layers: int):
+    """(cfg, model, params) of ``arch`` at full width, bf16, seed 0, at
+    ``layers`` layers (an encoder-decoder: as many encoder layers)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    cut = {"num_layers": layers}
+    if cfg.encoder_layers:
+        cut["encoder_layers"] = layers
+    cfg = dataclasses.replace(cfg, **cut)
+    full = full_width_model(torch, cfg=cfg)
+    return cfg, full["model"], full["params"]
+
+
+def frontend_cut(cfg, params):
+    """(cfg, model, params) of the first decoder layer of ``params`` (an
+    encoder-decoder keeps its whole encoder, whose output the cross
+    blocks read): the planted faults' model."""
+    from repro_torch.models.api import build_model
+
+    cut = dataclasses.replace(cfg, num_layers=1)
+    return cut, build_model(cut), dict(params, layers=params["layers"][:1])
+
+
+def frontend_batch(cfg, s: int, dev) -> dict:
+    """A prefill cell's batch of length ``s`` as ``run_cell`` draws it at
+    seed 0 and batch SEQ_PREFILL_BATCH: fp32 frames or patches (seed 4)
+    and the tokens (seed 1; a vision cell's s - F)."""
+    from repro_torch.launch.dryrun import cell_frames, cell_tokens
+
+    f = cfg.num_frontend_tokens if cfg.frontend == "vision" else 0
+    return {"frontend": cell_frames(cfg, SEQ_PREFILL_BATCH, seed=4,
+                                    device=dev),
+            "tokens": cell_tokens(cfg, SEQ_PREFILL_BATCH, s - f, seed=1,
+                                  device=dev)}
+
+
+def frontend_targets() -> list:
+    """The first ``attn_block`` output of a prefill (whisper: encoder
+    layer 0, which ``encode`` runs first; internvl2: layer 0, patch rows
+    included) and the first ``cross_attn_block`` output (whisper's layer
+    0 cross block)."""
+    from repro_torch.models import transformer as tfm
+
+    return [(tfm, "attn_block"), (tfm, "cross_attn_block")]
+
+
+def launches_inside(module, name: str, counter: str, run):
+    """``run()`` with the launches of kernel ``counter`` made inside the
+    calls of ``module.name`` summed: (run's result, that sum)."""
+    from repro_torch.kernels import ops
+
+    real, inside = getattr(module, name), [0]
+
+    def call(*args, **kw):
+        before = ops.launch_counts()[counter]
+        try:
+            return real(*args, **kw)
+        finally:
+            inside[0] += ops.launch_counts()[counter] - before
+
+    setattr(module, name, call)
+    try:
+        return run(), inside[0]
+    finally:
+        setattr(module, name, real)
+
+
+def frontend_fp32_inputs(cfg, model, params, dev) -> tuple:
+    """The fp32 run's prompt (SEQ_FRONTEND_FP32_PROMPT tokens, seed 5),
+    ``prefill``'s keyword arguments (whisper: ``encode`` of seeded frames;
+    internvl2: seeded patches before the prompt) and the prompt's rows."""
+    from repro_torch.launch.dryrun import cell_frames, cell_tokens
+
+    prompt = cell_tokens(cfg, 1, SEQ_FRONTEND_FP32_PROMPT, seed=5,
+                         device=dev)
+    frames = cell_frames(cfg, 1, seed=6, device=dev)
+    if cfg.encoder_layers:
+        return prompt, {"encoder_out": model.encode(params, frames)}, \
+            SEQ_FRONTEND_FP32_PROMPT
+    return prompt, {"frontend_embeds": frames}, \
+        SEQ_FRONTEND_FP32_PROMPT + frames.shape[1]
+
+
+def frontend_fp32_model(torch, arch: str):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    extra = ({"encoder_layers": SEQ_FRONTEND_FP32_LAYERS}
+             if cfg.encoder_layers else {})
+    return fp32_model(torch, cfg, SEQ_FRONTEND_FP32_LAYERS, **extra)
+
+
+def frontend_yardsticks(torch, path, plan: dict) -> dict:
+    """The single card's results the frontend runs are held to, saved to
+    ``path`` (CPU tensors) by arch, at ``plan``'s depth on the kernel
+    route: prefill_32k's first-token logits, its ``frontend_targets``
+    rows, the logits of SEQ_PREFILL_NEW decode steps of seeded tokens
+    after it and the first decode step's layer-0 cross output (whisper);
+    decode_32k's SEQ_DECODE_STEPS steps from the seeded cache (run_cell's
+    seeds at seed 0); and the fp32 run's greedy tokens and first-token
+    logits on the plain route. Returns the single card's times."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun import (
+        cell_tokens,
+        decode_steps,
+        seeded_cache,
+    )
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.api import build_model
+
+    dev = torch.device("cuda")
+    s, d = SHAPES["prefill_32k"].seq_len, SHAPES["decode_32k"].seq_len
+    yard, times = {}, {}
+    for arch in FRONTEND_ARCHS:
+        cfg, model, params = frontend_model(torch, arch, plan[arch]["layers"])
+        with torch.no_grad():
+            batch = frontend_batch(cfg, s, dev)
+            step = make_prefill_step(model, s + SEQ_PREFILL_NEW)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ((logits, cache), host, ms), rows = first_outputs(
+                frontend_targets(), lambda: timed_call(
+                    torch, lambda: step(params, batch)))
+            peak = torch.cuda.max_memory_allocated(dev)
+            steps = cell_tokens(cfg, 1, SEQ_PREFILL_NEW, seed=4, device=dev)
+            (step_logits, step_ms, _), drows = first_outputs(
+                [(tfm, "cross_attn_block")], lambda: decode_steps(
+                    model, params, cache, steps, s, dev))
+            mine = {"logits": logits[:, 0].float().cpu(),
+                    "steps": step_logits.float().cpu(),
+                    "rows": {k: v.cpu() for k, v in rows.items()},
+                    "cross_dec": {k: v.cpu() for k, v in drows.items()}}
+            t = {"prefill_ms": ms, "prefill_s": host, "peak_mem_bytes": peak,
+                 "decode_step_ms": step_ms}
+            del cache, logits, rows, drows
+            torch.cuda.empty_cache()
+            cache = seeded_cache(cfg, SEQ_DECODE_BATCH, d,
+                                 d - SEQ_DECODE_STEPS, seed=2, device=dev)
+            tokens = cell_tokens(cfg, SEQ_DECODE_BATCH, SEQ_DECODE_STEPS,
+                                 seed=3, device=dev)
+            logits, ms, _ = decode_steps(model, params, cache, tokens,
+                                         d - SEQ_DECODE_STEPS, dev)
+            mine["decode_32k"] = logits.float().cpu()
+            t["decode_32k_step_ms"] = ms
+            del cache, params, model
+            torch.cuda.empty_cache()
+            cfg32, m32, p32 = frontend_fp32_model(torch, arch)
+            plain32 = build_model(dataclasses.replace(cfg32,
+                                                      attn_impl="plain"))
+            prompt, inputs, start = frontend_fp32_inputs(cfg32, plain32,
+                                                         p32, dev)
+            got = generate(torch, plain32, p32, prompt, SEQ_FP32_NEW,
+                           start=start, max_len=start + SEQ_FP32_NEW,
+                           **inputs)
+            mine["fp32"] = {"tokens": got["tokens"].cpu(),
+                            "first_logits": got["first_logits"].cpu()}
+            del m32, p32, plain32, got, inputs
+            torch.cuda.empty_cache()
+        yard[arch] = mine
+        times[arch] = t
+    torch.save(yard, path)
+    return times
+
+
+def frontend_bytes(cfg, n: int, rank: int, *, batch: int, s: int,
+                   max_len: int, steps: int) -> tuple[dict, dict]:
+    """(prefill, decode steps) bytes a rank of ``n`` sends by kind, from
+    the shapes, counted as ``SeqShard`` counts them (a rank's part times
+    n - 1; bf16 activations, fp32 partials): the ring's K/V blocks a
+    decoder layer and the last row's logits from their owner where n
+    divides the prompt's S rows (patch rows included); each encoder
+    layer's K/V and each cross block's memories gathered whole where n
+    divides the F frames; a decode step's self-attention partials where
+    n divides ``max_len``, and its cross partials where it divides F."""
+    from repro_torch.distributed.ctx import KINDS
+
+    pre, dec = dict.fromkeys(KINDS, 0), dict.fromkeys(KINDS, 0)
+    hkv, e, bf16, f32 = cfg.num_kv_heads, cfg.hd, 2, 4
+    if s % n == 0:
+        pre["ring"] = (cfg.num_layers * (n - 1) * 2 * batch * hkv
+                       * (s // n) * e * bf16)
+        if rank == n - 1:
+            pre["bcast"] = (n - 1) * batch * cfg.vocab_size * bf16
+    f = cfg.num_frontend_tokens
+    mem = cfg.encoder_layers and f % n == 0
+    if mem:
+        pre["gather"] = ((cfg.encoder_layers + cfg.num_layers) * (n - 1)
+                         * 2 * batch * hkv * (f // n) * e * bf16)
+    combine = steps * (n - 1) * batch * cfg.num_heads * (e + 2) * f32
+    dec["combine"] = cfg.num_layers * combine * (
+        (max_len % n == 0) + bool(mem))
+    return pre, dec
+
+
+def seq_frontend_prefill(torch, model, params, shard, want: dict, cut,
+                         failures: list) -> dict:
+    """prefill_32k (run_cell, batch SEQ_PREFILL_BATCH: whisper's 1500
+    frames encoded on each rank's block, internvl2's 256 patch rows in the
+    row split) on this rank and SEQ_PREFILL_NEW decode steps of seeded
+    tokens on its split cache (tp_sp), held to the single card's
+    ``want``: first-token and step logits within LOGITS_RTOL; the
+    ``frontend_targets`` rows and the first decode step's layer-0 cross
+    output (``split_rows_gate``) with the planted FRONTEND_FAULTS of the
+    arch, run on ``cut``, rejected; the cache leaves the ``cache_specs``
+    blocks (memories included); the bytes by kind the shapes'; B2 once an
+    encoder layer and once a cross block on whisper, no kernel on
+    internvl2 (its decoder rows take the ring)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import cell_tokens, decode_steps, run_cell
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, r = shard.degree, shard.rank
+    s = SHAPES["prefill_32k"].seq_len
+    max_len = s + SEQ_PREFILL_NEW
+    f = cfg.num_frontend_tokens
+    tag = f"{cfg.name} prefill_32k rank {r} of {n}"
+    ops.reset_launch_counts()
+    ((rec, out), enc_launches), rows = first_outputs(
+        frontend_targets(), lambda: launches_inside(
+            tfm, "encode", "mas_streamed", lambda: run_cell(
+                cfg, "prefill_32k", shard, batch=SEQ_PREFILL_BATCH,
+                params=params, max_len=max_len, device=dev)))
+    launches = launched_kernels(ops.launch_counts())
+    shapes = [{k: tuple(t.shape) for k, t in blk.items()}
+              for blk in out["cache"]["layers"]]
+    steps = cell_tokens(cfg, 1, SEQ_PREFILL_NEW, seed=4, device=dev)
+    shard.reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    with torch.no_grad(), sharding_policy(shard, "tp_sp"):
+        (step_logits, step_ms, step_wall), drows = first_outputs(
+            [(tfm, "cross_attn_decode")], lambda: decode_steps(
+                model, params, out["cache"], steps, s, dev))
+    decode_launches = launched_kernels(ops.launch_counts())
+    decode_bytes = dict(shard.sent)
+    decode_peak = torch.cuda.max_memory_allocated(dev)
+    first = seq_logits(out["logits"][:, 0], want["logits"])
+    checks = [seq_logits(g, w) for g, w in zip(step_logits, want["steps"])]
+    logits_digest = digest(torch.cat([out["logits"][:, 0].float(),
+                                      step_logits[:, 0].float()]))
+    del out
+    torch.cuda.empty_cache()
+
+    # the planted faults, on the first decoder layer (and, whisper, the
+    # whole encoder)
+    cut_cfg, cut_model, cut_params = cut
+    batch = frontend_batch(cfg, s, dev)
+    faults = (("encoder_own_frames", "cross_own_memory",
+               "cross_partial_dropped") if cfg.encoder_layers
+              else ("patch_rows_unshifted",))
+    step = make_prefill_step(cut_model, max_len)
+    faulty = {}
+    for fault in faults:
+        with torch.no_grad(), sharding_policy(shard, rec["policy"]), \
+                planted_frontend_fault(fault):
+            (_, fcache), frows = first_outputs(
+                frontend_targets(), lambda: step(cut_params, batch))
+            if fault == "cross_partial_dropped":
+                (_, fcache), frows = first_outputs(
+                    [(tfm, "cross_attn_decode")],
+                    lambda: cut_model.decode_step(
+                        cut_params, cut_cfg, steps[:, :1], fcache, s))
+        del fcache
+        faulty[fault] = {k: v.cpu() for k, v in frows.items()}
+    torch.cuda.empty_cache()
+    per, mem = s // n, f // n
+    at = {"attn_block": slice(r * mem, (r + 1) * mem) if cfg.encoder_layers
+          else slice(r * per, (r + 1) * per),
+          "cross_attn_block": slice(r * per, (r + 1) * per)}
+    on = {"attn_block": ("encoder_own_frames", "patch_rows_unshifted"),
+          "cross_attn_block": ("cross_own_memory",),
+          "cross_attn_decode": ("cross_partial_dropped",)}
+    gates = {}
+    for name, got in rows.items():
+        gates[name] = split_rows_gate(
+            got.cpu(), want["rows"][name][:, at[name]],
+            {fl: faulty[fl].get(name) for fl in on[name] if fl in faulty})
+    if cfg.encoder_layers:
+        gates["cross_attn_decode"] = split_rows_gate(
+            drows["cross_attn_decode"].cpu(),
+            want["cross_dec"]["cross_attn_block"],
+            {"cross_partial_dropped":
+             faulty["cross_partial_dropped"]["cross_attn_decode"]})
+    want_rows = ({"attn_block", "cross_attn_block", "cross_attn_decode"}
+                 if cfg.encoder_layers else {"attn_block"})
+    pre, dec = frontend_bytes(cfg, n, r, batch=SEQ_PREFILL_BATCH, s=s,
+                              max_len=max_len, steps=SEQ_PREFILL_NEW)
+    mem_len = f if cfg.encoder_layers else 0
+    want_shapes = spec_shapes(cfg, SEQ_PREFILL_BATCH, max_len, n, mem_len)
+    want_launches = ({"mas_streamed": cfg.encoder_layers + cfg.num_layers}
+                     if cfg.encoder_layers else {})
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(f"{tag}: {what}")
+
+    gate(set(gates) == want_rows, f"rows kept of {sorted(gates)}, not of "
+                                  f"{sorted(want_rows)}")
+    gate(first["ok"], f"first-token logits {first}")
+    gate(all(c["ok"] for c in checks), "decode-step logits "
+         f"{[c for c in checks if not c['ok']]}")
+    for name, check in gates.items():
+        gate(check["ok"], f"rows of {name} {check}")
+    gate(launches == want_launches
+         and enc_launches == (cfg.encoder_layers or 0),
+         f"kernels {launches} ({enc_launches} in the encoder), the path "
+         f"gives {want_launches}")
+    gate(not decode_launches, f"decode steps launched {decode_launches}")
+    gate(shapes == want_shapes, f"cache leaves {shapes} are not the "
+                                f"cache_specs blocks {want_shapes}")
+    gate(rec["sent_bytes"] == pre, f"prefill bytes {rec['sent_bytes']}, "
+                                   f"the shapes give {pre}")
+    gate(decode_bytes == dec, f"decode bytes {decode_bytes}, the shapes "
+                              f"give {dec}")
+    return {"run": f"{cfg.name} prefill_32k", "arch": cfg.name, **rec,
+            "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+            "rows_a_rank": per, "frames_a_rank": mem if mem_len else None,
+            "first_token_logits": first, "layer_rows": gates,
+            "decode_steps": len(checks),
+            "decode_max_abs_err": max(c["max_abs_err"] for c in checks),
+            "decode_argmax_equal": all(c["argmax_equal"] for c in checks),
+            "decode_step_device_ms": step_ms, "decode_step_wall_s": step_wall,
+            "decode_sent_bytes": decode_bytes,
+            "decode_peak_mem_bytes": decode_peak,
+            "kernel_launches": launches,
+            "b2_launches": {"mas_streamed_enc_rank": enc_launches,
+                            "mas_streamed_cross_rank":
+                                launches.get("mas_streamed", 0)
+                                - enc_launches},
+            "cache_leaves": shapes[:1], "logits_digest": logits_digest}
+
+
+def seq_frontend_decode(torch, model, whole, shard, want, failures: list
+                        ) -> dict:
+    """decode_32k (run_cell, batch SEQ_DECODE_BATCH, SEQ_DECODE_STEPS
+    steps from a seeded cache: whisper's holds each rank's block of the
+    1500 memory rows) on the rank's tp_sp split of ``whole``, then on
+    ``whole``: logits within LOGITS_RTOL of the single card's, bitwise
+    between the two, the combine's and the weight gathers' bytes the
+    shapes'."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed.sharding import local_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import run_cell
+
+    cfg = model.cfg
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, r = shard.degree, shard.rank
+    d = SHAPES["decode_32k"].seq_len
+    tag = f"{cfg.name} decode_32k rank {r} of {n}"
+    split = local_params(whole, rank=r, degree=n, policy="tp_sp")
+    ops.reset_launch_counts()
+    rec, out = run_cell(cfg, "decode_32k", shard, batch=SEQ_DECODE_BATCH,
+                        params=split, steps=SEQ_DECODE_STEPS, device=dev)
+    launches = launched_kernels(ops.launch_counts())
+    logits = out["logits"].float().cpu()
+    del out, split
+    torch.cuda.empty_cache()
+    wrec, wout = run_cell(cfg, "decode_32k", shard, batch=SEQ_DECODE_BATCH,
+                          params=whole, steps=SEQ_DECODE_STEPS, device=dev)
+    same = bool(torch.equal(logits, wout["logits"].float().cpu()))
+    del wout
+    torch.cuda.empty_cache()
+    check = seq_logits(logits, want)
+    _, dec = frontend_bytes(cfg, n, r, batch=SEQ_DECODE_BATCH, s=d,
+                            max_len=d, steps=SEQ_DECODE_STEPS)
+    dec["weights"] = SEQ_DECODE_STEPS * weights_gather_bytes(
+        cfg, whole, n, encoder=False)
+    for ok, what in (
+            (check["ok"], f"logits {check}"),
+            (same, "split-weight logits differ from the whole weights'"),
+            (not launches, f"kernels launched {launches}"),
+            (rec["sent_bytes"] == dec, f"bytes {rec['sent_bytes']}, the "
+                                       f"shapes give {dec}"),
+            (wrec["sent_bytes"] == dict(dec, weights=0),
+             f"whole-weight bytes {wrec['sent_bytes']}")):
+        if not ok:
+            failures.append(f"{tag}: {what}")
+    return {"run": f"{cfg.name} decode_32k", "arch": cfg.name, **rec,
+            "layers": cfg.num_layers, "logits": check,
+            "logits_equal_whole": same,
+            "whole_weights": {k: wrec[k] for k in (
+                "peak_mem_bytes", "step_device_ms", "step_wall_s")},
+            "kernel_launches": launches, "logits_digest": digest(logits)}
+
+
+def seq_frontend_fp32(torch, arch: str, shard, want: dict,
+                      failures: list) -> dict:
+    """The fp32 run at SEQ_FRONTEND_FP32_LAYERS layers (whisper: as many
+    encoder layers) on this rank: greedy tokens equal the single card's
+    plain route, first-token logits within SEQ_FP32_RTOL of its
+    largest."""
+    from repro_torch.distributed.ctx import sharding_policy
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg32, m32, p32 = frontend_fp32_model(torch, arch)
+    with torch.no_grad(), sharding_policy(shard, "tp_sp"):
+        prompt, inputs, start = frontend_fp32_inputs(cfg32, m32, p32, dev)
+        got = generate(torch, m32, p32, prompt, SEQ_FP32_NEW, start=start,
+                       max_len=start + SEQ_FP32_NEW, **inputs)
+    tokens, first = got["tokens"].cpu(), got["first_logits"].cpu()
+    err = max_err(first, want["first_logits"])
+    tol = SEQ_FP32_RTOL * max(1.0, float(want["first_logits"].abs().max()))
+    same = bool(torch.equal(tokens, want["tokens"]))
+    tag = f"{arch} fp32 rank {shard.rank} of {shard.degree}"
+    if not same:
+        failures.append(f"{tag}: tokens {tokens.tolist()} != one card's "
+                        f"{want['tokens'].tolist()}")
+    if not err <= tol:
+        failures.append(f"{tag}: first-token logits {err} > {tol}")
+    del m32, p32, got, inputs
+    torch.cuda.empty_cache()
+    return {"run": f"{arch} fp32", "arch": arch, "degree": shard.degree,
+            "rank": shard.rank, "layers": SEQ_FRONTEND_FP32_LAYERS,
+            "prompt_rows": start, "new_tokens": SEQ_FP32_NEW,
+            "tokens_equal_one_card": same, "first_logits_max_abs_err": err,
+            "tol": tol, "distinct_tokens": int(tokens.unique().numel()),
+            "logits_digest": digest(first)}
+
+
+def seq_frontend_runs(torch, arch: str, groups: dict, yard: dict,
+                      plan: dict, failures: list) -> tuple[list, dict]:
+    """``arch`` (whisper-large-v3 or internvl2-2b) split by sequence on
+    this rank at ``plan``'s depth: prefill_32k at each degree of
+    SEQ_DEGREES with its decode steps (whole weights; a short untimed
+    split prefill first), decode_32k at the largest degree on split and
+    whole weights, the fp32 run at each degree. Returns (one record a
+    run, B2's launches on the split prefills: all, and those inside the
+    encoder and the cross blocks)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.launch.dryrun import cell_frames, cell_tokens
+
+    cfg, model, params = frontend_model(torch, arch, plan[arch]["layers"])
+    cut = frontend_cut(cfg, params)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    runs = []
+    launches = {"mas_streamed": 0, "mas_streamed_enc_rank": 0,
+                "mas_streamed_cross_rank": 0}
+    for n in SEQ_DEGREES:
+        shard = groups[n]
+        if shard is not None:
+            # untimed warm-up: the group's first collectives, cuBLAS, B2
+            kw = {"frontend_embeds": cell_frames(cfg, 1, seed=9, device=dev)}
+            if cfg.encoder_layers:
+                with torch.no_grad(), sharding_policy(shard, "sp_rep"):
+                    kw = {"encoder_out": model.encode(
+                        params, kw["frontend_embeds"])}
+            tokens = cell_tokens(cfg, 1, SEQ_WARM_ROWS * n, seed=9,
+                                 device=dev)
+            with torch.no_grad(), sharding_policy(shard, "sp_rep"):
+                model.prefill(params, cfg, tokens, 2 * SEQ_WARM_ROWS * n
+                              + cfg.num_frontend_tokens, **kw)
+            del kw
+            torch.cuda.synchronize(dev)
+            shard.reset_counts()
+            run = seq_frontend_prefill(torch, model, params, shard, yard,
+                                       cut, failures)
+            launches["mas_streamed"] += run["kernel_launches"].get(
+                "mas_streamed", 0)
+            for k, v in run["b2_launches"].items():
+                launches[k] += v
+            runs.append({**run, "reduced": plan[arch]["reduced"]})
+            torch.cuda.empty_cache()
+        dist.barrier()
+    shard = groups[max(SEQ_DEGREES)]
+    if shard is not None:
+        runs.append({**seq_frontend_decode(torch, model, params, shard,
+                                           yard["decode_32k"], failures),
+                     "reduced": plan[arch]["reduced"]})
+    dist.barrier()
+    del params, cut, model
+    torch.cuda.empty_cache()
+    for n in SEQ_DEGREES:
+        if groups[n] is not None:
+            runs.append(seq_frontend_fp32(torch, arch, groups[n],
+                                          yard["fp32"], failures))
+        dist.barrier()
+    return runs, launches
+
+
 def seq_dense_part(torch, rank: int, groups: dict, yard_path: str,
                    checksum: int, plan: dict, failures: list,
                    report: dict) -> None:
@@ -5408,14 +6109,26 @@ def seq_dense_part(torch, rank: int, groups: dict, yard_path: str,
     dist.barrier()
 
 
+# the seq_sharded phase's launch counters: its kernels, and B2's launches
+# inside the split encoder and inside the cross blocks
+SEQ_COUNTERS = PATH_KERNELS["seq_sharded"] + ("mas_streamed_enc_rank",
+                                              "mas_streamed_cross_rank")
+# the counters each part of the phase must raise
+PART_COUNTERS = {"dense": (), "recurrent": ("ssd_intra_chunk", "flash_e256"),
+                 "frontend": ("mas_streamed", "mas_streamed_enc_rank",
+                              "mas_streamed_cross_rank")}
+
+
 def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
              yard_path: str, checksum: int, plan: dict, rec_path: str,
-             rec_plan: dict) -> None:
+             rec_plan: dict, front_path: str, front_plan: dict) -> None:
     """One rank of the seq_sharded phase (a process of its own): join the
-    group, run the dense stacks (``seq_dense_part``; not when
-    ``yard_path`` is None), then ``seq_recurrent_runs`` of mamba2-130m
-    and recurrentgemma-9b (``rec_plan``'s depth and weights). Writes its
-    report to ``out_dir``, then fails on any gate."""
+    group, run the dense stacks (``seq_dense_part``), then
+    ``seq_recurrent_runs`` of mamba2-130m and recurrentgemma-9b
+    (``rec_plan``'s depth and weights), then ``seq_frontend_runs`` of
+    whisper-large-v3 and internvl2-2b (``front_plan``'s depth); a part
+    whose yardsticks' path is None is skipped. Writes its report to
+    ``out_dir``, then fails on any gate."""
     import torch
     import torch.distributed as dist
 
@@ -5433,21 +6146,27 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
             set(SEQ_DEGREES) | {SEQ_MOE_DEGREE, SEQ_CODER_DEGREE})}
         failures = []
         report = {"rank": rank, "device": str(dev), "backend": backend,
-                  "runs": []}
+                  "runs": [], "launches": dict.fromkeys(SEQ_COUNTERS, 0)}
         if yard_path is not None:
             seq_dense_part(torch, rank, groups, yard_path, checksum, plan,
                            failures, report)
-        rec_yard = torch.load(rec_path)
-        report["launches"] = dict.fromkeys(PATH_KERNELS["seq_sharded"], 0)
-        for arch in (SSM_ARCH, HYBRID_ARCH):
-            runs, counts = seq_recurrent_runs(torch, arch, groups,
-                                              rec_yard.pop(arch), rec_plan,
-                                              failures)
-            report["runs"] += runs
-            for name, count in counts.items():
-                report["launches"][name] += count
-            torch.cuda.empty_cache()
-            dist.barrier()
+        for path, archs, run in (
+                (rec_path, (SSM_ARCH, HYBRID_ARCH),
+                 lambda arch, y: seq_recurrent_runs(
+                     torch, arch, groups, y, rec_plan, failures)),
+                (front_path, FRONTEND_ARCHS,
+                 lambda arch, y: seq_frontend_runs(
+                     torch, arch, groups, y, front_plan, failures))):
+            if path is None:
+                continue
+            yard = torch.load(path)
+            for arch in archs:
+                runs, counts = run(arch, yard.pop(arch))
+                report["runs"] += runs
+                for name, count in counts.items():
+                    report["launches"][name] += count
+                torch.cuda.empty_cache()
+                dist.barrier()
         report["failures"] = failures
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(report, f)
@@ -5456,20 +6175,27 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
         dist.destroy_process_group()
 
 
-def phase_seq_sharded(torch, full: dict | None) -> dict:
+SEQ_PARTS = ("dense", "recurrent", "frontend")
+
+
+def phase_seq_sharded(torch, full: dict | None,
+                      parts: tuple = SEQ_PARTS) -> dict:
     """Sequence-sharded prefill and decode (the reference's sp_rep/tp_sp
     serving policy) over 2 and 4 ranks, each a process: NCCL with a card
     a rank where the machine has as many cards, else gloo with every rank
     on card 0 (point-to-point sends and all-to-alls through host buffers).
     The single card's results are computed here first
-    (``seq_yardsticks``, ``recurrent_yardsticks``); a rank's failure
-    fails the phase (``mp.spawn`` raises it here), and so do ranks whose
-    logits differ. One line a run and rank group: logits and layer rows
-    against the single card, the planted faults' verdicts, device ms and
-    wall of the prefill and of a decode step, peak memory and bytes by
-    collective a rank. Returns the split recurrent runs' launches of B8
-    and B3 (``seq_sharded``), summed over the ranks. With ``full`` None
-    (``--only seq_recurrent``) the recurrent runs alone."""
+    (``seq_yardsticks``, ``recurrent_yardsticks``,
+    ``frontend_yardsticks``); a rank's failure fails the phase
+    (``mp.spawn`` raises it here), and so do ranks whose logits differ.
+    One line a run and rank group: logits and layer rows against the
+    single card, the planted faults' verdicts, device ms and wall of the
+    prefill and of a decode step, peak memory and bytes by collective a
+    rank. ``parts`` (SEQ_PARTS) picks the dense stacks (internlm2, the
+    MoE, the coder: ``full`` is internlm2's model), the recurrent stacks
+    and the frontend archs. Returns the launches of B8 and B3 on the
+    split recurrent runs and of B2 on the split whisper prefills (inside
+    the encoder and the cross blocks too), summed over the ranks."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -5478,28 +6204,37 @@ def phase_seq_sharded(torch, full: dict | None) -> dict:
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        yard_path = checksum = plan = None
-        rec_path = Path(tmp) / "recurrent.pt"
+        yard_path = checksum = plan = rec_path = rec_plan = None
+        front_path = front_plan = None
         t0 = time.perf_counter()
         one_card = {}
-        if full is not None:
+        if "dense" in parts:
             checksum = weights_checksum(torch, full["params"])
             yard_path = str(Path(tmp) / "yard.pt")
             one_card = seq_yardsticks(torch, full, yard_path)
             torch.cuda.empty_cache()
-        rec_plan = recurrent_plan(backend)
-        for arch, times in recurrent_yardsticks(torch, rec_path,
-                                                rec_plan).items():
-            one_card.update({f"{arch} {key}": t for key, t in times.items()})
+        if "recurrent" in parts:
+            rec_path, rec_plan = str(Path(tmp) / "recurrent.pt"), \
+                recurrent_plan(backend)
+            for arch, times in recurrent_yardsticks(torch, rec_path,
+                                                    rec_plan).items():
+                one_card.update({f"{arch} {key}": t
+                                 for key, t in times.items()})
+        if "frontend" in parts:
+            front_path, front_plan = str(Path(tmp) / "frontend.pt"), \
+                frontend_plan(backend)
+            for arch, times in frontend_yardsticks(torch, front_path,
+                                                   front_plan).items():
+                one_card[f"{arch} prefill_32k"] = times
         yard_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
-        if full is not None:
+        if "dense" in parts:
             plan = coder_plan(torch, 1 if backend == "nccl"
                               else SEQ_CODER_DEGREE)
         t0 = time.perf_counter()
         mp.spawn(seq_rank, args=(world, backend, str(Path(tmp) / "store"),
-                                 tmp, yard_path, checksum, plan,
-                                 str(rec_path), rec_plan),
+                                 tmp, yard_path, checksum, plan, rec_path,
+                                 rec_plan, front_path, front_plan),
                  nprocs=world, join=True)
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
@@ -5521,13 +6256,14 @@ def phase_seq_sharded(torch, full: dict | None) -> dict:
         emit(line)
         lines.append(line)
     launches = {name: sum(rk["launches"][name] for rk in ranks)
-                for name in PATH_KERNELS["seq_sharded"]}
-    for name in PATH_KERNELS["seq_sharded"]:
-        require(launches[name] > 0, f"kernel {name} not launched on the "
-                                    f"split recurrent runs")
-    emit({"phase": "seq_sharded", "yardsticks_s": yard_s,
-          "spawn_s": spawn_s, "launches": launches,
-          "recurrent_plan": rec_plan})
+                for name in SEQ_COUNTERS}
+    for part in parts:
+        for name in PART_COUNTERS[part]:
+            require(launches[name] > 0, f"kernel {name} not launched on "
+                                        f"the split {part} runs")
+    emit({"phase": "seq_sharded", "parts": list(parts),
+          "yardsticks_s": yard_s, "spawn_s": spawn_s, "launches": launches,
+          "recurrent_plan": rec_plan, "frontend_plan": front_plan})
     return {"phase": "seq_sharded", "runs": lines, "launches": launches}
 
 
@@ -6983,11 +7719,17 @@ def sharded_alone(torch) -> int:
     return 0
 
 
-def seq_sharded_alone(torch, recurrent_only: bool) -> int:
-    """``--only seq_sharded``: B3's row at a split rank's halo shape and
-    the seq_sharded phase, after the device phase's build (``--only
-    seq_recurrent``: the phase's recurrent runs alone). Prints the same
-    last three lines for that row."""
+# ``--only`` choices of the seq_sharded phase: the parts each runs
+SEQ_ONLY = {"seq_sharded": SEQ_PARTS, "seq_recurrent": ("recurrent",),
+            "seq_frontend": ("frontend",)}
+
+
+def seq_sharded_alone(torch, device: dict, parts: tuple) -> int:
+    """``--only seq_sharded`` (``seq_recurrent``, ``seq_frontend``): the
+    kernel rows of the parts' split shapes (B3's halo row for the
+    recurrent stacks, the B2 rank rows for the frontend archs) and the
+    seq_sharded phase with those parts, after the device phase's build.
+    Prints the same last three lines for those rows."""
     from repro_torch.configs import get_arch
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -6996,13 +7738,18 @@ def seq_sharded_alone(torch, recurrent_only: bool) -> int:
         return torch.randn(shape, generator=g, device="cuda").to(
             torch.bfloat16)
 
-    rows = [halo_row(torch, rnd, get_arch(HYBRID_ARCH))]
+    rows = []
+    if "recurrent" in parts:
+        rows.append(halo_row(torch, rnd, get_arch(HYBRID_ARCH)))
+    if "frontend" in parts:
+        rows += rank_b2_rows(torch, rnd, device)
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
     launches = {"seq_sharded": phase_seq_sharded(
-        torch, None if recurrent_only else full_width_model(torch))[
-            "launches"]}
+        torch, full_width_model(torch) if "dense" in parts else None,
+        parts)["launches"]}
     for row in rows:
-        row["launches"] = sum(launches[path][ROW_COUNTER[row["name"]]]
+        counter = ROW_COUNTER.get(row["name"], row["name"])
+        row["launches"] = sum(launches[path][counter]
                               for path in ROW_PATH[row["name"]])
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
@@ -7014,10 +7761,10 @@ def seq_sharded_alone(torch, recurrent_only: bool) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "sharded"], ["--only", "seq_sharded"],
-                    ["--only", "seq_recurrent"]):
+    if argv and argv not in (["--only", "sharded"],
+                             *(["--only", k] for k in SEQ_ONLY)):
         print("usage: chip_smoke.py [--only sharded|seq_sharded|"
-              "seq_recurrent]", file=sys.stderr)
+              "seq_recurrent|seq_frontend]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"error: no src/repro_torch beside {Path(__file__).name}",
@@ -7037,11 +7784,7 @@ def main(argv=None) -> int:
     if argv == ["--only", "sharded"]:
         return sharded_alone(torch)
     if argv:
-        return seq_sharded_alone(torch, argv[1] == "seq_recurrent")
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
+        return seq_sharded_alone(torch, device, SEQ_ONLY[argv[1]])
     phase_fp32(torch)
     rows = phase_kernels(torch, device)
     full = full_width_model(torch)

@@ -9,8 +9,11 @@ rank's peak device memory, the step's device time (CUDA events), the
 cell's ``model_flops`` (``analysis/flops.py``) and the bytes this rank's
 collectives sent and received, by kind (``distributed/ctx.SeqShard``).
 Weights are random from a seed, the inputs too: a prefill cell's
-tokens, a decode cell's cache of seeded K/V rows, ring slots and
-recurrent states, and its tokens. A cell ``configs.cell_is_runnable``
+tokens and, for whisper and internvl2, its fp32 stub frames or patch
+embeddings (B, F, D) (a vision cell's F patch rows count toward its
+length, as the reference's ``batch_sds`` has it); a decode cell's cache
+of seeded K/V rows, ring slots, recurrent states and cross memories of
+F rows, and its tokens. A cell ``configs.cell_is_runnable``
 refuses (long_500k of a stack that is not sub-quadratic) raises. A rank
 holds the policy's cut of the weights (``sharding.local_params``): under
 ``tp_sp`` its split of every leaf, gathered whole layer by layer as the
@@ -58,24 +61,43 @@ def cell_tokens(cfg, batch: int, length: int, *, seed: int,
                          generator=_generator(seed, device))
 
 
+def cell_frames(cfg, batch: int, *, seed: int, device) -> torch.Tensor:
+    """(batch, F, d_model) fp32 standard-normal stub frames (whisper) or
+    patch embeddings (internvl2) from ``seed``, F =
+    ``cfg.num_frontend_tokens``."""
+    return torch.randn((batch, cfg.num_frontend_tokens, cfg.d_model),
+                       device=device, generator=_generator(seed, device))
+
+
 def seeded_cache(cfg, batch: int, max_len: int, kv_len: int, *, seed: int,
                  device, shard: SeqShard | None = None) -> dict:
     """A cache of ``max_len`` positions holding values drawn from
     ``seed`` (standard normal in each leaf's dtype; layer i's two leaves
     from seeds seed + 2i and seed + 2i + 1): an attention layer's K/V rows
     [0, kv_len), of a window's ring its first min(kv_len, slots) slots,
-    the rest zeros; an SSD or RG-LRU layer's states whole. With ``shard``
-    the rank's cache (``transformer.rank_cache``: K/V blocks of
-    ``max_len / n`` rows or ring slots, recurrent states by channel, head
-    or width), whose values are the whole cache's cut to its blocks, or,
-    where n does not divide the K/V rows, the whole K/V, marked
-    ``replicated``."""
+    the rest zeros; an SSD or RG-LRU layer's states whole; an
+    encoder-decoder's cross memories, all F = ``cfg.num_frontend_tokens``
+    rows (the reference's ``abstract_cache``), layer i's from seeds seed
+    + 2(L + i) and seed + 2(L + i) + 1, L the layers. With ``shard`` the
+    rank's cache (``transformer.rank_cache``: K/V blocks of ``max_len /
+    n`` rows or ring slots, recurrent states by channel, head or width,
+    memory blocks of F / n rows), whose values are the whole cache's cut
+    to its blocks, or, where n does not divide the K/V rows, the whole
+    K/V, marked ``replicated`` (memories: ``mem_replicated``)."""
     if shard is None:
         shard = SeqShard(None, 0, 1)
-    cache = rank_cache(cfg, batch, max_len, shard, device=device)
-    whole = make_cache(cfg, batch, max_len, device="meta")
+    mem_len = cfg.num_frontend_tokens if cfg.encoder_layers else 0
+    cache = rank_cache(cfg, batch, max_len, shard, device=device,
+                       mem_len=mem_len)
+    whole = make_cache(cfg, batch, max_len, device="meta", mem_len=mem_len)
     filled = min(kv_len, ring_slots(cfg, max_len))
+    n_layers = len(cache["layers"])
     for i, (blk, full) in enumerate(zip(cache["layers"], whole["layers"])):
+        for j, name in enumerate(("mem_k", "mem_v") if "mem_k" in blk
+                                 else ()):
+            gen = _generator(seed + 2 * (n_layers + i) + j, device)
+            draw = torch.randn(full[name].shape, device=device, generator=gen)
+            keep_block(blk[name], draw.to(blk[name].dtype), shard)
         for j, name in enumerate(("k", "v") if "k" in blk else
                                  ("conv", "state" if "state" in blk
                                   else "rnn")):
@@ -138,11 +160,17 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
     weights, whole or the policy's split (default: drawn whole from
     ``seed`` and cut in place to ``local_params``' tree for the policy).
     A prefill cell prefills seeded tokens into a cache of ``max_len``
-    rows (default the cell's length): outputs ``logits`` (B, 1, V),
-    ``cache`` and ``tokens``. A decode cell takes a seeded cache of the
-    cell's length holding its first ``seq_len - steps`` rows and decodes
-    ``steps`` seeded tokens to its end: outputs ``logits`` (steps, B, V)
-    and ``cache``. Every rank returns the same logits.
+    rows (default the cell's length) through ``make_prefill_step``:
+    outputs ``logits`` (B, 1, V), ``cache`` and ``tokens``. An
+    encoder-decoder's batch adds seeded frames (``cell_frames``, seed +
+    4), which every rank encodes on its block of them, its cache holding
+    its block of the cross memories; a vision cell's adds seeded patch
+    embeddings and has ``seq_len - F`` tokens, the patch rows split with
+    the tokens' rows. A decode cell takes a seeded cache of the cell's
+    length holding its first ``seq_len - steps`` rows (an
+    encoder-decoder's: its memories' F rows too) and decodes ``steps``
+    seeded tokens to its end: outputs ``logits`` (steps, B, V) and
+    ``cache``. Every rank returns the same logits.
     """
     cell = SHAPES[shape] if isinstance(shape, str) else shape
     if cell.kind == "train":
@@ -168,10 +196,16 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
         torch.cuda.reset_peak_memory_stats(dev)
     with torch.no_grad(), sharding_policy(shard, policy):
         if cell.kind == "prefill":
-            tokens = cell_tokens(cfg, b, s, seed=seed + 1, device=dev)
+            batch = {}
+            if cfg.frontend is not None:
+                batch["frontend"] = cell_frames(cfg, b, seed=seed + 4,
+                                                device=dev)
+            f = cfg.num_frontend_tokens if cfg.frontend == "vision" else 0
+            tokens = cell_tokens(cfg, b, s - f, seed=seed + 1, device=dev)
+            batch["tokens"] = tokens
             step = make_prefill_step(model, max_len or s)
             (logits, cache), ms, wall = _timed(
-                lambda: step(params, {"tokens": tokens}), dev)
+                lambda: step(params, batch), dev)
             outputs = {"logits": logits, "cache": cache, "tokens": tokens}
             ms, wall = [ms], [wall]
         else:

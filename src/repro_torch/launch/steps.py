@@ -99,6 +99,10 @@ def choose_policy(cfg, cell) -> str:
 
 
 def make_prefill_step(model: Model, max_len: int):
+    """``(params, batch) -> (last_logits, cache)``: ``batch["tokens"]``,
+    and ``batch["frontend"]`` as patch embeddings before the tokens
+    (vision) or frames the encoder runs first (audio). Under the sharding
+    policy ``encode`` and ``prefill`` take the rank's rows themselves."""
     cfg = model.cfg
 
     def prefill_step(params, batch):

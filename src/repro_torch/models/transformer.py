@@ -26,14 +26,15 @@ query head and attends through the head-block ring
 (``distributed/paged.ring_paged_prefill``).
 
 Under ``distributed/ctx.sharding_policy`` (SPMD, a process a rank; the
-reference's ``tp_sp``/``sp_rep`` serving policy) ``forward``, ``prefill``
-and ``decode_step`` of a decoder with no encoder or frontend (dense,
-MoE, ssm and hybrid stacks; ``check_seq_support`` refuses the others)
-run on the rank's part of the work: a prompt the degree n divides is
-split in n blocks of rows, rank r embedding and running the norms,
-projections and FFN on rows [r·S/n, (r+1)·S/n) at their true positions;
-a prompt it does not divide stays whole on every rank, on the
-single-card route. A full attention layer attends through
+reference's ``tp_sp``/``sp_rep`` serving policy) ``encode``,
+``forward``, ``prefill`` and ``decode_step`` of every stack (dense, MoE,
+ssm, hybrid, the vision frontend and the encoder-decoder) run on the
+rank's part of the work: a prompt the degree n divides is split in n
+blocks of rows, rank r embedding and running the norms, projections and
+FFN on rows [r·S/n, (r+1)·S/n) at their true positions (a vision
+prompt's S counts its F patch rows, and a rank builds only its rows of
+patches then tokens); a prompt it does not divide stays whole on every
+rank, on the single-card route. A full attention layer attends through
 ``ring_attention``; a windowed one attends its rows and the up to
 W - 1 K/V rows before them, gathered once (``SeqShard.halo``), on the
 full-sequence route at a ``q_offset`` (B3 on the kernel route); an SSD
@@ -42,7 +43,8 @@ carry across the ranks (``models/ssm.py``, ``models/rglru.py``). The
 cache is the rank's ``cache_specs`` block of every leaf
 (``rank_cache``): the dense cache split in n blocks of ``max_len / n``
 positions, a window's ring in n blocks of slots, the recurrent states
-by conv channel, SSD head and RG-LRU width. ``prefill`` fills the
+by conv channel, SSD head and RG-LRU width, the cross memories in n
+blocks of F / n rows. ``prefill`` fills the
 rank's block from every K/V block that passes it on the ring (the row
 split and the cache split need not agree), a ring's slots from the
 prompt's last rows, a state block from the whole prompt's state every
@@ -60,6 +62,19 @@ local_params(policy="tp_sp")``): the embedding, each layer and the
 unembedding are then all-gathered whole just before their use and
 dropped after (``SeqShard.gather_weights``), so the results are the
 whole weights' bit for bit; whole weights pass through unchanged.
+
+The encoder under the policy runs rank r's block of the F frames: each
+layer all-gathers its K/V whole (``SeqShard.whole``, kind ``gather``)
+and the rank's Q rows attend every frame non-causally on the
+full-sequence route (B2 on the kernel route), as one card's encoder
+does; ``encode`` returns the rank's block of its output. A cross block
+projects that block into the rank's block of the memories, which is the
+cache's block; on a prompt it gathers them whole once a layer and the
+rank's rows attend them on the full-sequence route (B2), and a decode
+step combines the ranks' partials over their memory blocks in rank
+order (``sharded_decode_attention``). Memories the degree does not
+divide stay whole on every rank, marked ``cache["mem_replicated"]``
+beside the K/V's flag, and decode attends them as one card does.
 
 ``kv_dtype=torch.int8`` stores either cache quantized (symmetric absmax,
 ``kernels/common.quantize_q8``) beside fp32 scales, ``"k_scale"`` and
@@ -278,15 +293,31 @@ def _qkv(params, x, cfg: ArchConfig, positions):
     return q, k, v
 
 
+def _whole_kv(k, v, rows: int) -> tuple:
+    """K/V (B, Hkv, R, E), the rank's block of ``rows`` rows under the
+    sharding policy, made whole by one all-gather of both
+    (``SeqShard.whole``, kind ``gather``); as they are where whole."""
+    if k.shape[2] == rows:
+        return k, v
+    kv = seq_shard_state().whole(torch.stack([k, v]), rows, dim=3)
+    return kv[0], kv[1]
+
+
 def attn_block(params, x, cfg: ArchConfig, *, positions,
                window: int | None = None, causal: bool = True,
-               ring: bool = False, on_block=None):
+               ring: bool = False, on_block=None,
+               kv_rows: int | None = None):
     """Self-attention over the full sequence (causal unless ``causal`` is
     false), each row over its last ``window`` positions when given ->
     (out, (k, v)). With ``ring`` the rows are the rank's block of a
-    sequence the sharding policy split (``attention(ring=True)``)."""
+    sequence the sharding policy split (``attention(ring=True)``); with
+    ``kv_rows`` (non-causal) the rank's block of a sequence of that many
+    rows, whose K/V are gathered whole before the rank's Q rows attend
+    them on the full-sequence route (``_whole_kv``); (k, v) stay the
+    rank's."""
     q, k, v = _qkv(params, x, cfg, positions)
-    o = attn_mod.attention(q, k, v, impl=cfg.attn_impl, causal=causal,
+    kk, vv = (k, v) if kv_rows is None else _whole_kv(k, v, kv_rows)
+    o = attn_mod.attention(q, kk, vv, impl=cfg.attn_impl, causal=causal,
                            window=window, chunk=cfg.attn_chunk,
                            remat=cfg.remat, ring=ring, on_block=on_block)
     return _merge_heads(o) @ params["wo"].to(x.dtype), (k, v)
@@ -302,17 +333,38 @@ def cross_memory(params, encoder_out, cfg: ArchConfig):
             _split_heads(hm @ params["wv"].to(dt), cfg.num_kv_heads, cfg.hd))
 
 
-def cross_attn_block(params, x, cfg: ArchConfig, *, mem_k, mem_v):
+def _cross_q(params, x, cfg: ArchConfig):
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    return _split_heads(h @ params["wq"].to(x.dtype), cfg.num_heads, cfg.hd)
+
+
+def cross_attn_block(params, x, cfg: ArchConfig, *, mem_k, mem_v,
+                     mem_rows: int | None = None):
     """Decoder cross-attention: Q from the block's norm of ``x``, over
     every row of the encoder memories (no mask), through the same
-    full-sequence attention as self-attention (one decode row too)."""
-    dt = x.dtype
-    h = rms_norm(x, params["norm"], cfg.norm_eps)
-    q = _split_heads(h @ params["wq"].to(dt), cfg.num_heads, cfg.hd)
-    o = attn_mod.attention(q, mem_k, mem_v, impl=cfg.attn_impl,
-                           causal=False, chunk=cfg.attn_chunk,
-                           remat=cfg.remat)
-    return _merge_heads(o) @ params["wo"].to(dt)
+    full-sequence attention as self-attention (one decode row too).
+    Under the sharding policy ``mem_rows`` is the whole memory's F rows,
+    of which ``mem_k``/``mem_v`` hold the rank's block: they are gathered
+    whole first (``_whole_kv``)."""
+    if mem_rows is not None:
+        mem_k, mem_v = _whole_kv(mem_k, mem_v, mem_rows)
+    o = attn_mod.attention(_cross_q(params, x, cfg), mem_k, mem_v,
+                           impl=cfg.attn_impl, causal=False,
+                           chunk=cfg.attn_chunk, remat=cfg.remat)
+    return _merge_heads(o) @ params["wo"].to(x.dtype)
+
+
+def cross_attn_decode(params, x, cfg: ArchConfig, *, mem_k, mem_v):
+    """One decode row's cross-attention under the sharding policy, the
+    memories (B, Hkv, F/n, E) the rank's block: each rank's partial over
+    its block, combined in rank order after one all-gather (kind
+    ``combine``; ``sharded_decode_attention``), so every rank holds the
+    same bits."""
+    shard = seq_shard_state()
+    q = _cross_q(params, x, cfg)[:, :, 0]
+    o = attn_mod.sharded_decode_attention(
+        q, mem_k, mem_v, mem_k.shape[2] * shard.degree, shard)
+    return o.reshape(x.shape[0], 1, -1) @ params["wo"].to(x.dtype)
 
 
 def attn_decode(params, x, cfg: ArchConfig, *, cache_k, cache_v, pos: int,
@@ -592,7 +644,14 @@ def _need_memory(params, encoder_out) -> None:
 def encode(params, frames, cfg: ArchConfig):
     """The encoder over stub frames (B, F, D): sinusoids added when
     ``cfg.rope`` is false, then per layer non-causal self-attention and
-    the MLP, then ``enc_final_norm``."""
+    the MLP, then ``enc_final_norm``.
+
+    Under the sharding policy the rank's block of the output, (B, F/n,
+    D), or all F rows where the degree n does not divide F
+    (``_seq_encode``)."""
+    shard = seq_shard_state()
+    if shard is not None:
+        return _seq_encode(params, frames, cfg, shard)
     x = frames.to(cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     if not cfg.rope:
@@ -639,13 +698,17 @@ def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
     only its input for the backward and runs again there, as the
     reference checkpoints its scanned unit body.
 
-    Under the sharding policy each rank runs its rows (``ring_attention``
-    when the degree divides S) and the final rows are all-gathered, so
-    every rank returns the whole logits; aux is the groups' loss. It
-    does not train: a backward cannot cross the ring."""
+    Under the sharding policy each rank runs its rows of the F + S
+    (``ring_attention`` when the degree divides F + S), its cross blocks
+    over the memories gathered whole (``encoder_out`` whole, or the
+    rank's block as ``encode`` gives it under the policy), and the final
+    rows are all-gathered, so every rank returns the whole logits; aux
+    is the groups' loss. It does not train: a backward cannot cross the
+    ring."""
     shard = seq_shard_state()
     if shard is not None:
-        return _seq_forward(params, tokens, cfg, shard)
+        return _seq_forward(params, tokens, cfg, shard, frontend_embeds,
+                            encoder_out)
     _need_memory(params, encoder_out)
     x = _embed(params, tokens, cfg, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -749,13 +812,14 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: int, *,
     against ``max_len``; an encoder-decoder's ``encoder_out`` is
     projected once a layer into the cache's cross memories.
 
-    Under the sharding policy the rank's rows and its block of the cache
-    (``_seq_prefill``).
+    Under the sharding policy the rank's rows of the F + S and its block
+    of the cache, the cross memories' included (``_seq_prefill``).
 
     Returns (last-position logits (B, 1, V), cache)."""
     shard = seq_shard_state()
     if shard is not None:
-        return _seq_prefill(params, cfg, tokens, max_len, shard, kv_dtype)
+        return _seq_prefill(params, cfg, tokens, max_len, shard, kv_dtype,
+                            frontend_embeds, encoder_out)
     _need_memory(params, encoder_out)
     b, s = tokens.shape
     if frontend_embeds is not None:
@@ -809,8 +873,10 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
     cache). The cache is updated in place and returned; an
     encoder-decoder's cross blocks read the memories ``prefill`` wrote.
     Under the sharding policy the cache is the rank's block (``prefill``
-    under the policy, or ``distributed/sharding.local_cache``) and every
-    rank returns the same logits (``_seq_decode``)."""
+    under the policy, or ``distributed/sharding.local_cache``; its cross
+    memories the rank's block of F / n rows) and every rank returns the
+    same logits (``_seq_decode``). ``pos`` counts a vision prompt's patch
+    rows, as on one card."""
     shard = seq_shard_state()
     if shard is not None:
         return _seq_decode(params, cfg, token, cache, pos, shard)
@@ -852,20 +918,21 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos: int):
 
 def check_seq_support(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless the sequence-sharding policy
-    serves ``cfg``: decoders with no encoder or frontend (dense and MoE
-    attention stacks, the ssm stack, the windowed hybrid), under
-    ``tp_sp`` or ``sp_rep``."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.encoder_layers or cfg.frontend):
-        raise NotImplementedError(
-            f"the sequence-sharding policy serves dense, MoE, ssm and "
-            f"hybrid decoders only (got {cfg.name}): whisper and internvl2 "
-            "need the split of their cross memories, a non-causal encoder "
-            "ring and the frontend rows, ROADMAP A10")
+    serves ``cfg``: every stack (dense, MoE, ssm, hybrid, the vision
+    frontend's patch rows in the row split, the encoder-decoder's split
+    encoder and cross memories) under ``tp_sp`` or ``sp_rep``; not
+    ``fsdp``, which splits the batch for training."""
     if ctx.policy_kind() == "fsdp":
         raise NotImplementedError(
-            "the fsdp policy splits the batch for training across devices, "
-            "ROADMAP A10")
+            f"the fsdp policy splits the batch for training across devices "
+            f"(got {cfg.name}), ROADMAP A10")
+
+
+def _refuse_grad(params) -> None:
+    if attn_mod.tracks_grad(*tree_leaves(params)):
+        raise NotImplementedError("training across devices is not ported "
+                                  "(ROADMAP A10): a backward cannot cross "
+                                  "the ring")
 
 
 def _seq_rows(s: int) -> tuple[slice, bool]:
@@ -882,18 +949,85 @@ def _head(params) -> dict:
     return {"final_norm": params["final_norm"], out: params[out]}
 
 
-def _seq_layers(params, cfg: ArchConfig, shard):
-    """``params``' layers in turn, each with the rank's split leaves
-    gathered whole (``SeqShard.gather_weights``) as it is reached."""
-    specs = split_specs(cfg, shard.degree)["layers"]
-    for layer, spec in zip(params["layers"], specs, strict=True):
+def _seq_layers(params, cfg: ArchConfig, shard, key: str = "layers"):
+    """``params[key]``' layers in turn (the decoder's, or the encoder's),
+    each with the rank's split leaves gathered whole
+    (``SeqShard.gather_weights``) as it is reached."""
+    specs = split_specs(cfg, shard.degree)[key]
+    for layer, spec in zip(params[key], specs, strict=True):
         yield shard.gather_weights(layer, spec)
 
 
-def _seq_embed(params, tokens, cfg: ArchConfig, shard, start: int):
+def _input_rows(tokens, frontend_embeds, rows: slice) -> tuple:
+    """The rank's part of an input of F frontend rows (``frontend_embeds``,
+    or none) then the tokens' columns, for its rows [start, stop) of the
+    F + S: (its frontend rows, or None, and its token columns; either may
+    be empty: a rank may hold patch rows only)."""
+    f = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+    front = None
+    if rows.start < f:
+        front = frontend_embeds[:, rows.start:min(rows.stop, f)]
+    return front, tokens[:, max(rows.start - f, 0):max(rows.stop - f, 0)]
+
+
+def _seq_embed(params, tokens, cfg: ArchConfig, shard, start: int,
+               frontend_embeds=None):
+    """``_embed`` of the rank's rows from absolute position ``start``
+    (``frontend_embeds`` and ``tokens`` as ``_input_rows`` cuts them), the
+    embedding gathered whole on use."""
     embed = shard.gather_weights({"embed": params["embed"]},
                                  split_specs(cfg, shard.degree))
-    return _embed(embed, tokens, cfg, start=start)
+    return _embed(embed, tokens, cfg, frontend_embeds, start=start)
+
+
+def _seq_memory(encoder_out, cfg: ArchConfig, shard) -> tuple:
+    """(the rank's block of an encoder-decoder's memory rows, their whole
+    count F = ``cfg.num_frontend_tokens``), or (None, 0) without an
+    encoder. ``encoder_out`` is whole (F rows; cut here) or the rank's
+    block as ``encode`` gives it under the policy."""
+    if not cfg.encoder_layers:
+        return None, 0
+    f, rows = cfg.num_frontend_tokens, encoder_out.shape[1]
+    if rows == f:
+        return encoder_out[:, ctx.seq_slice(f)], f
+    if rows * shard.degree != f:
+        raise ValueError(f"encoder_out of {rows} rows is neither the {f} "
+                         f"frames of {cfg.name} nor a block of them over "
+                         f"{shard.degree} ranks")
+    return encoder_out, f
+
+
+def _seq_cross(params, x, cfg: ArchConfig, mem, mem_len: int, blk=None):
+    """A cross block on the rank's rows under the policy: the rank's
+    memory block projected (``cross_memory``; kept in ``blk``, the rank's
+    cache block, when given), gathered whole, attended by every row."""
+    mem_k, mem_v = cross_memory(params, mem, cfg)
+    if blk is not None:
+        blk["mem_k"].copy_(mem_k)
+        blk["mem_v"].copy_(mem_v)
+    return cross_attn_block(params, x, cfg, mem_k=mem_k, mem_v=mem_v,
+                            mem_rows=mem_len)
+
+
+def _seq_encode(params, frames, cfg: ArchConfig, shard):
+    """``encode`` on the rank's block of the F frames (all F where the
+    degree does not divide F) at their absolute positions: each layer's
+    attention gathers its K/V whole and the rank's rows attend every
+    frame (``attn_block(kv_rows=F)``); the layers' split leaves gathered
+    on use. Returns the rank's rows of the output."""
+    check_seq_support(cfg)
+    _refuse_grad(params)
+    f = frames.shape[1]
+    rows, _ = _seq_rows(f)
+    x = frames[:, rows].to(cfg.compute_dtype)
+    positions = torch.arange(rows.start, rows.stop, device=x.device)
+    if not cfg.rope:
+        x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
+    for layer in _seq_layers(params, cfg, shard, "encoder"):
+        x = x + attn_block(layer["attn"], x, cfg, positions=positions,
+                           causal=False, kv_rows=f)[0]
+        x = x + mlp(layer["ffn"], x, cfg)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def _seq_unembed(params, x, cfg: ArchConfig, shard):
@@ -925,16 +1059,20 @@ def ring_slots(cfg: ArchConfig, max_len: int) -> int:
 
 
 def rank_cache(cfg: ArchConfig, batch: int, max_len: int, shard, *,
-               device, kv_dtype=None) -> dict:
+               device, kv_dtype=None, mem_len: int = 0) -> dict:
     """The zeroed cache a rank of ``shard`` holds under the policy: each
     leaf's ``sharding.cache_specs`` block (dense layout; a dim the degree
     does not divide stays whole): an attention layer's K/V rows [r·C,
     (r + 1)·C), C = max_len / n, or ring slots alike, with an int8
     cache's per-row scales cut as their rows; an SSD layer's conv
-    channels and heads; an RG-LRU layer's conv channels and width. K/V
-    the degree does not divide are held whole by every rank and marked
-    ``replicated``."""
-    meta = make_cache(cfg, batch, max_len, device="meta", kv_dtype=kv_dtype)
+    channels and heads; an RG-LRU layer's conv channels and width; an
+    encoder-decoder's cross memories ``mem_k``/``mem_v`` of ``mem_len``
+    rows, rows [r·F/n, (r + 1)·F/n) at the compute dtype whatever
+    ``kv_dtype``. K/V the degree does not divide are held whole by every
+    rank and marked ``replicated``; memories it does not divide,
+    ``mem_replicated`` (the two need not agree)."""
+    meta = make_cache(cfg, batch, max_len, device="meta", kv_dtype=kv_dtype,
+                      mem_len=mem_len)
     cache = local_cache(meta, rank=shard.rank, degree=shard.degree,
                         layout="dense", device=device)
     for blk in cache["layers"]:
@@ -943,6 +1081,8 @@ def rank_cache(cfg: ArchConfig, batch: int, max_len: int, shard, *,
                 blk[name] = blk[name].new_zeros(blk[name[0]].shape[:3])
     if shard.degree > 1 and ring_slots(cfg, max_len) % shard.degree:
         cache["replicated"] = True
+    if cfg.encoder_layers and shard.degree > 1 and mem_len % shard.degree:
+        cache["mem_replicated"] = True
     return cache
 
 
@@ -1043,19 +1183,33 @@ def _seq_mixer(layer, x, cfg: ArchConfig, shard, positions, split: bool,
     return y
 
 
-def _seq_forward(params, tokens, cfg: ArchConfig, shard):
+def _seq_prompt(params, tokens, cfg: ArchConfig, shard, frontend_embeds,
+                encoder_out) -> tuple:
+    """A prompt's start on the policy's route: (the rank's rows of the F +
+    S embedded, their positions, F + S, whether the policy split the
+    rows, the rank's memory block and F, ``_seq_memory``)."""
     check_seq_support(cfg)
-    s = tokens.shape[1]
+    _need_memory(params, encoder_out)
+    f = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+    s = f + tokens.shape[1]
     rows, split = _seq_rows(s)
-    if attn_mod.tracks_grad(*tree_leaves(params)):
-        raise NotImplementedError("training across devices is not ported "
-                                  "(ROADMAP A10): a backward cannot cross "
-                                  "the ring")
-    x = _seq_embed(params, tokens[:, rows], cfg, shard, rows.start)
+    front, mine = _input_rows(tokens, frontend_embeds, rows)
+    x = _seq_embed(params, mine, cfg, shard, rows.start, front)
     positions = torch.arange(rows.start, rows.stop, device=x.device)
+    return (x, positions, s, split,
+            *_seq_memory(encoder_out, cfg, shard))
+
+
+def _seq_forward(params, tokens, cfg: ArchConfig, shard,
+                 frontend_embeds=None, encoder_out=None):
+    _refuse_grad(params)
+    x, positions, s, split, mem, mem_len = _seq_prompt(
+        params, tokens, cfg, shard, frontend_embeds, encoder_out)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in _seq_layers(params, cfg, shard):
         x = x + _seq_mixer(layer, x, cfg, shard, positions, split, s)
+        if "cross" in layer:
+            x = x + _seq_cross(layer["cross"], x, cfg, mem, mem_len)
         if "ssd" not in layer:
             y, a = ffn(layer, x, cfg, s)
             x, aux = x + y, aux + a
@@ -1065,26 +1219,26 @@ def _seq_forward(params, tokens, cfg: ArchConfig, shard):
 
 
 def _seq_prefill(params, cfg: ArchConfig, tokens, max_len: int, shard,
-                 kv_dtype):
-    """``prefill`` on the rank's rows into the rank's cache block
-    (``rank_cache``): a dense layer's K/V block of positions [r·C,
+                 kv_dtype, frontend_embeds=None, encoder_out=None):
+    """``prefill`` on the rank's rows of the F + S into the rank's cache
+    block (``rank_cache``): a dense layer's K/V block of positions [r·C,
     (r + 1)·C), C = max_len / n, filled from each K/V block the ring
     brings (or, rows whole, from the whole K/V); a windowed layer's ring
     slots from the prompt's last rows; a recurrent layer's states cut
-    from the whole prompt's."""
-    check_seq_support(cfg)
-    b, s = tokens.shape
-    n = shard.degree
+    from the whole prompt's; a cross block's memory block from the
+    rank's block of ``encoder_out`` (``_seq_cross``)."""
+    b, n = tokens.shape[0], shard.degree
+    x, positions, s, split, mem, mem_len = _seq_prompt(
+        params, tokens, cfg, shard, frontend_embeds, encoder_out)
     if s > max_len:
         raise ValueError(f"prompt of {s} rows exceeds the cache ({max_len})")
-    rows, split = _seq_rows(s)
-    x = _seq_embed(params, tokens[:, rows], cfg, shard, rows.start)
-    positions = torch.arange(rows.start, rows.stop, device=x.device)
     cache = rank_cache(cfg, b, max_len, shard, device=x.device,
-                       kv_dtype=kv_dtype)
+                       kv_dtype=kv_dtype, mem_len=mem_len)
     for layer, blk in zip(_seq_layers(params, cfg, shard), cache["layers"]):
         x = x + _seq_mixer(layer, x, cfg, shard, positions, split, s,
                            max_len, blk)
+        if "cross" in layer:
+            x = x + _seq_cross(layer["cross"], x, cfg, mem, mem_len, blk)
         if "ssd" not in layer:
             x = x + ffn(layer, x, cfg, s)[0]
     if not split:
@@ -1104,9 +1258,13 @@ def _seq_decode(params, cfg: ArchConfig, token, cache, pos: int, shard):
     is ``replicated``), the weights gathered on use: an attention layer
     attends its rows or ring slots and combines across ranks; an SSD or
     RG-LRU layer updates its channels and heads and gathers the results
-    (``ssm.ssd_block``, ``rglru.rglru_block`` with ``shard``)."""
+    (``ssm.ssd_block``, ``rglru.rglru_block`` with ``shard``); a cross
+    block combines the ranks' partials over their memory blocks
+    (``cross_attn_decode``), or attends whole ``mem_replicated``
+    memories as one card does."""
     check_seq_support(cfg)
     whole = cache.get("replicated", False)
+    mem_whole = cache.get("mem_replicated", False)
     x = _seq_embed(params, token, cfg, shard, pos)
     for layer, blk in zip(_seq_layers(params, cfg, shard), cache["layers"]):
         kind, block = _recurrent(layer)
@@ -1123,6 +1281,10 @@ def _seq_decode(params, cfg: ArchConfig, token, cache, pos: int, shard):
                             k_scale=blk.get("k_scale"),
                             v_scale=blk.get("v_scale"), whole=whole)
         x = x + y
+        if "cross" in layer:
+            cross = cross_attn_block if mem_whole else cross_attn_decode
+            x = x + cross(layer["cross"], x, cfg, mem_k=blk["mem_k"],
+                          mem_v=blk["mem_v"])
         if kind != "ssd":
             x = x + ffn(layer, x, cfg)[0]
     return _seq_unembed(params, x, cfg, shard), cache

@@ -12,7 +12,10 @@ fp32 and int8, against the reference's with no policy
 (``tests/test_policies.py``); internlm2-smoke, qwen3-smoke and
 deepseek-moe-smoke through ``prefill``, 8 greedy ``decode_step``s and
 ``forward``, on prompts the degree divides and does not, with caches
-whose blocks differ from the row split, against the reference (an MoE
+whose blocks differ from the row split (whisper-smoke after ``encode``,
+its memory split or, at 18 frames over 4 ranks, whole; internvl2-smoke
+with its patch rows in the row split, a rank holding patch rows only),
+against the reference (an MoE
 under its ``tp_sp`` policy on one CPU device, its ``constrain``
 patched to the identity: a constraint only places values) at 1e-4 and
 equal greedy tokens; the bytes each rank's collectives moved against
@@ -20,12 +23,13 @@ the shapes; each slice again on the rank's ``tp_sp`` split of the
 weights (gathered layer by layer on use), bit for bit the whole-weight
 run, with the ``weights`` bytes the shapes give; a cache whose
 ``max_len`` the degree does not divide, served replicated; and
-``launch/dryrun.run_cell``. In this process: ``_token_groups``,
+``launch/dryrun.run_cell`` (whisper's and internvl2's cells too). In
+this process: ``_token_groups``,
 ``param_specs`` (where the port's ``unembed`` rule departs from the
 reference's, C17), ``opt_specs``, ``batch_specs`` and ``choose_policy``
 against the reference's, ``local_params``' cuts under both policies,
 the replicated ``seeded_cache``, the rows rule of ``distributed/ctx``,
-and the archs the policy refuses.
+and the policies the model refuses.
 """
 
 from __future__ import annotations
@@ -66,8 +70,13 @@ from repro_torch.distributed.sharding import (
     param_specs,
     split_specs,
 )
-from repro_torch.launch.dryrun import cell_tokens, decode_steps, seeded_cache
-from repro_torch.launch.steps import choose_policy
+from repro_torch.launch.dryrun import (
+    cell_frames,
+    cell_tokens,
+    decode_steps,
+    seeded_cache,
+)
+from repro_torch.launch.steps import choose_policy, make_prefill_step
 from repro_torch.models import moe as tmoe
 from repro_torch.models.api import build_model
 from repro_torch.tree import leaves_with_paths
@@ -96,11 +105,20 @@ RECURRENT_LENS = {"mamba2-130m": ((160, 168), (25, MAX_LEN)),
                   "recurrentgemma-9b": ((96, 104), (256, 264), (25, MAX_LEN),
                                         (22, 30))}
 REPLICATED_LEN = {2: 41, 4: 42}   # a cache the degree does not divide
+# The frontend archs' prompts (arch -> (text tokens, F)): whisper's 16
+# frames split in blocks of 8 / 4 against 24 decoder rows (12 / 6) or 25
+# (whole), and 18 frames that 2 divides and 4 does not (the memory held
+# whole, ``mem_replicated``); internvl2's 8 patch rows before 24 tokens
+# (32 rows: 16 / 8 a rank), 23 (31: whole; 31 + 8 steps fill the cache of
+# 40), and 8 (16 rows: over 4 ranks, ranks 0 and 1 hold patch rows only).
+FRONTEND_LENS = {"whisper-large-v3": ((24, 16), (25, 16), (24, 18)),
+                 "internvl2-2b": ((24, 8), (23, 8), (8, 8))}
+FRONTEND = tuple(FRONTEND_LENS)
 RING = dict(b=2, hq=4, hkv=2, s=32, e=16)
 DEC = dict(b=2, hq=8, hkv=2, s=96, e=32)
 KV_LENS_RING = (None, 13, 27)
 KV_LENS_DEC = (1, 40, 96)
-REFUSED = ("whisper-large-v3", "internvl2-2b")
+REFUSED = FRONTEND      # archs the fsdp policy is refused for
 CELLS = (ShapeCell("prefill_tiny", 24, 2, "prefill"),
          ShapeCell("decode_tiny", 40, 2, "decode"),
          ShapeCell("train_tiny", 24, 2, "train"))
@@ -189,6 +207,16 @@ def _slice_cases(degree: int) -> list:
     out.append(dict(out[0], name=f"slice-{degree}-int8", kv_dtype="int8"))
     out.append(dict(out[0], name=f"slice-{degree}-replicated",
                     max_len=REPLICATED_LEN[degree]))
+    for arch, lens in FRONTEND_LENS.items():
+        for s, f in lens:
+            rng = np.random.default_rng(1000 + s + f)
+            out.append(dict(
+                name=f"slice-{degree}-{arch}-{s}-f{f}", kind="slice",
+                degree=degree, arch=arch, max_len=MAX_LEN, steps=STEPS,
+                capacity_factor=None, frontend_tokens=f,
+                prompt=rng.integers(3, 512, size=(BATCH, s)).astype(np.int32),
+                frames=rng.standard_normal(
+                    (BATCH, f, get_smoke(arch).d_model)).astype(np.float32)))
     return out
 
 
@@ -203,6 +231,12 @@ def _cell_cases(degree: int) -> list:
         out += [dict(name=f"cell-{degree}-{arch}-{c.kind}", kind="cell",
                      degree=degree, cfg=rcfg, cell=c, steps=3)
                 for c in RECURRENT_CELLS]
+    for arch in FRONTEND:
+        fcfg = dataclasses.replace(get_smoke(arch), attn_impl="kernel",
+                                   compute_dtype=torch.float32)
+        out += [dict(name=f"cell-{degree}-{arch}-{c.kind}", kind="cell",
+                     degree=degree, cfg=fcfg, cell=c, steps=3)
+                for c in CELLS[:2]]
     return out
 
 
@@ -222,7 +256,7 @@ def _cases(world: int) -> list:
 @pytest.fixture(scope="module")
 def pairs():
     return {arch: model_pair(arch, seed=0, jax_impl="xla_full", norm_std=2.0)
-            for arch in ARCHS}
+            for arch in ARCHS + FRONTEND}
 
 
 @pytest.fixture(scope="module")
@@ -256,17 +290,32 @@ def _jax_slice_model(pair, cf):
     return cfg, jax_build_model(cfg)
 
 
+def _frontend_kwargs(cfg, model, params, case, asarray) -> tuple:
+    """(the prompt's rows before its tokens, the keyword arguments of
+    ``prefill`` and ``forward``): a case's frames encoded
+    (``encoder_out``) or its patch embeddings (``frontend_embeds``)."""
+    if "frames" not in case:
+        return 0, {}
+    frames = asarray(case["frames"])
+    if cfg.encoder_layers:
+        return 0, {"encoder_out": model.encode(params, frames)}
+    return frames.shape[1], {"frontend_embeds": frames}
+
+
 def _reference_slice(pair, case, decode) -> dict:
     """The reference's prefill, greedy decode and forward of a slice case,
-    under its tp_sp policy at the case's degree."""
+    under its tp_sp policy at the case's degree (an encoder-decoder's
+    frames encoded first)."""
     cfg, model = _jax_slice_model(pair, case["capacity_factor"])
     prompt = jnp.asarray(case["prompt"])
-    s = prompt.shape[1]
     kv_dtype = jnp.int8 if case.get("kv_dtype") == "int8" else None
     with reference_policy(case["degree"]):
+        f, kw = _frontend_kwargs(cfg, model, pair.jparams, case, jnp.asarray)
+        s = prompt.shape[1] + f
         logits, cache = model.prefill(pair.jparams, cfg, prompt,
-                                      case["max_len"], kv_dtype=kv_dtype)
-        fwd, aux = model.forward(pair.jparams, prompt, cfg)
+                                      case["max_len"], kv_dtype=kv_dtype,
+                                      **kw)
+        fwd, aux = model.forward(pair.jparams, prompt, cfg, **kw)
         steps, toks = [logits[:, 0]], []
         for i in range(case["steps"]):
             tok = jnp.argmax(steps[-1], -1)[:, None].astype(jnp.int32)
@@ -274,10 +323,13 @@ def _reference_slice(pair, case, decode) -> dict:
             logits, cache = decode[case["capacity_factor"], case["arch"]](
                 pair.jparams, tok, cache, jnp.int32(s + i))
             steps.append(logits[:, 0])
-    return {"logits": np.asarray(jnp.stack(steps)),
-            "tokens": np.asarray(jnp.stack(toks, 1)),
-            "forward": np.asarray(fwd), "aux": float(aux),
-            "cache_blocks": _reference_blocks(cache, case["degree"])}
+    out = {"logits": np.asarray(jnp.stack(steps)),
+           "tokens": np.asarray(jnp.stack(toks, 1)),
+           "forward": np.asarray(fwd), "aux": float(aux),
+           "cache_blocks": _reference_blocks(cache, case["degree"])}
+    if "encoder_out" in kw:
+        out["encoded"] = np.asarray(kw["encoder_out"])
+    return out
 
 
 def _reference_blocks(cache, degree: int) -> dict:
@@ -310,9 +362,11 @@ def _emulated_prefill(pair, case) -> np.ndarray:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=case["capacity_factor"]))
     with torch.no_grad(), ctx.grouped_as(case["degree"]):
+        _, kw = _frontend_kwargs(cfg, pair.tmodel, pair.tparams, case,
+                                 torch.from_numpy)
         logits, _ = pair.tmodel.prefill(
             pair.tparams, cfg, torch.from_numpy(case["prompt"]).long(),
-            case["max_len"], kv_dtype=case.get("kv_dtype"))
+            case["max_len"], kv_dtype=case.get("kv_dtype"), **kw)
     return logits[:, 0].numpy()
 
 
@@ -404,8 +458,10 @@ def test_slice_matches_reference(results, pairs, name):
     too; the single-card grouped run (``grouped_as``) is the reference's
     prefill within 1e-4; each cache leaf is the block the reference's
     ``cache_specs`` give a rank (K/V: max_len / n rows or ring slots;
-    conv channels, SSD heads, RG-LRU width); a rank holds its E / n
-    experts."""
+    conv channels, SSD heads, RG-LRU width; cross memories: F / n rows,
+    all F where n does not divide F, marked ``mem_replicated``); a rank
+    holds its E / n experts; a rank's encoder rows are the reference's
+    encoder output at those rows within 1e-4."""
     got, want = results
     case, ranks = got[name]
     ref = want[name]
@@ -413,7 +469,7 @@ def test_slice_matches_reference(results, pairs, name):
     assert len(ranks) == n
     cfg = pairs[case["arch"]].tcfg
     tol = INT8_TOL if case.get("kv_dtype") else TOL
-    for rk in ranks:
+    for r, rk in enumerate(ranks):
         np.testing.assert_allclose(rk["logits"], ref["logits"], atol=tol,
                                    rtol=tol)
         np.testing.assert_array_equal(rk["tokens"], ref["tokens"])
@@ -439,6 +495,18 @@ def test_slice_matches_reference(results, pairs, name):
             assert rk["replicated"] == replicated
         if cfg.moe is not None:
             assert rk["expert_shape"][0] == cfg.moe.num_experts // n
+        if cfg.encoder_layers:
+            f = case["frontend_tokens"]
+            rows, replicated = _cache_rows(f, n)
+            assert mine["mem_k"] == {(BATCH, cfg.num_kv_heads, rows, cfg.hd)}
+            assert rk["mem_replicated"] == replicated
+            block = slice(0, f) if replicated else slice(r * rows,
+                                                         (r + 1) * rows)
+            np.testing.assert_allclose(rk["encoded"],
+                                       ref["encoded"][:, block], atol=TOL,
+                                       rtol=TOL)
+        else:
+            assert not rk["mem_replicated"]
     np.testing.assert_allclose(ref["emulated"], ref["logits"][0], atol=TOL,
                                rtol=TOL)
 
@@ -463,12 +531,17 @@ def test_split_weights_are_the_whole_weights_route(results, name):
         assert split["aux"] == rk["aux"]
         assert split["cache_shapes"] == rk["cache_shapes"]
         assert split["replicated"] == rk["replicated"]
+        assert split["mem_replicated"] == rk["mem_replicated"]
 
 
 def _slice_bytes(cfg, case, rank: int) -> tuple[dict, dict]:
-    """(prefill, decode) bytes a rank's collectives send, from the shapes."""
+    """(prefill, decode) bytes a rank's collectives send, from the shapes
+    (a prefill: an encoder-decoder's ``encode`` and ``prefill``)."""
     n, s = case["degree"], case["prompt"].shape[1]
     f32, steps = 4, case["steps"]
+    f = case["frames"].shape[1] if "frames" in case else 0
+    if not cfg.encoder_layers:
+        s += f                  # the patch rows count toward the prompt
     split = s % n == 0
     rows = s // n
     pre = dict.fromkeys(ctx.KINDS, 0)
@@ -511,6 +584,13 @@ def _slice_bytes(cfg, case, rank: int) -> tuple[dict, dict]:
                     * cfg.hd * f32
             if not _cache_rows(case["max_len"], n)[1]:
                 dec["combine"] += combine
+    if cfg.encoder_layers and f % n == 0:
+        # each encoder layer's K/V and each cross block's memories
+        # gathered whole once; a decode step's cross partials combined
+        pre["gather"] += ((cfg.encoder_layers + cfg.num_layers) * (n - 1)
+                          * 2 * BATCH * cfg.num_kv_heads * f // n * cfg.hd
+                          * f32)
+        dec["combine"] += cfg.num_layers * combine
     layers = cfg.num_layers
     m = cfg.moe
     if m is not None:
@@ -535,9 +615,11 @@ def _slice_bytes(cfg, case, rank: int) -> tuple[dict, dict]:
 @pytest.mark.parametrize("name", _of("slice", 2) + _of("slice", 4))
 def test_slice_bytes_match_shapes(results, pairs, name):
     """Each rank's bytes by kind: the ring's n - 1 K/V blocks a layer, the
-    last row's logits broadcast by their owner, the decode combine, and
-    for the MoE the two expert all-to-alls and the aux terms' gather (or,
-    ungrouped, the expert outputs' gather); a recurrent layer's conv halo
+    last row's logits broadcast by their owner, the decode combine (the
+    cross blocks' too), an encoder's and the cross blocks' K/V gathered
+    whole where the degree divides the frames, and for the MoE the two
+    expert all-to-alls and the aux terms' gather (or, ungrouped, the
+    expert outputs' gather); a recurrent layer's conv halo
     of 3 rows and its carry (state and decay) a prefill, a windowed
     layer's K/V halo of min(W, rows) rows, and a decode step's gathers of
     the conv output and the heads' y (SSD) or h (RG-LRU)."""
@@ -550,16 +632,19 @@ def test_slice_bytes_match_shapes(results, pairs, name):
         assert rk["decode_sent"] == dec
 
 
-def _weights_bytes(params, n: int) -> int:
+def _weights_bytes(params, n: int, encoder: bool = True) -> int:
     """Bytes a rank's gathers receive to make the whole weights of one
     pass (embedding, every layer, the unembedding or, tied, the
-    embedding again) from its tp_sp split: (n - 1) / n of each leaf that
-    param_specs splits, the routed experts excepted (they stay split)."""
+    embedding again; an encoder's layers unless ``encoder`` is false)
+    from its tp_sp split: (n - 1) / n of each leaf that param_specs
+    splits, the routed experts excepted (they stay split)."""
     specs = dict(leaves_with_paths(param_specs(params, policy="tp_sp",
                                                degree=n)))
     total = 0
     for path, leaf in leaves_with_paths(params):
         if specs[path] is None or (leaf.ndim == 3 and "ffn/w_" in path):
+            continue
+        if not encoder and path.startswith("encoder/"):
             continue
         nbytes = leaf.numel() * leaf.element_size() * (n - 1) // n
         total += nbytes * (2 if path == "embed" and "unembed" not in params
@@ -570,18 +655,20 @@ def _weights_bytes(params, n: int) -> int:
 @pytest.mark.parametrize("name", _of("slice", 2) + _of("slice", 4))
 def test_split_weight_bytes_match_shapes(results, pairs, name):
     """On split weights each pass gathers the whole weights once (kind
-    ``weights``: the prefill, each decode step, forward); every other
-    kind's bytes are the whole-weight run's."""
+    ``weights``: the prefill, an encoder's layers with it, each decode
+    step, forward); every other kind's bytes are the whole-weight
+    run's."""
     got, _ = results
     case, ranks = got[name]
     params = pairs[case["arch"]].tparams
     n = case["degree"]
-    w = _weights_bytes(params, n)
+    w, w_dec = _weights_bytes(params, n), _weights_bytes(params, n, False)
     for rk in ranks:
         split = rk["split"]
-        for key, passes in (("prefill_sent", 1), ("decode_sent", STEPS),
-                            ("forward_sent", 1)):
-            assert split[key]["weights"] == passes * w, key
+        for key, passes, per in (("prefill_sent", 1, w),
+                                 ("decode_sent", STEPS, w_dec),
+                                 ("forward_sent", 1, w_dec)):
+            assert split[key]["weights"] == passes * per, key
             assert rk[key]["weights"] == 0, key
             assert dict(split[key], weights=0) == rk[key], key
 
@@ -593,7 +680,7 @@ def test_split_weight_bytes_match_shapes(results, pairs, name):
 
 def _one_card_cell(cell, steps: int, cfg=None) -> np.ndarray:
     """The cell's logits on one device with no policy (internlm2-smoke at
-    fp32 unless ``cfg``)."""
+    fp32 unless ``cfg``), from run_cell's seeds at seed 0."""
     cfg = cfg or dataclasses.replace(get_smoke("internlm2-1.8b"),
                                      compute_dtype=torch.float32)
     model = build_model(cfg)
@@ -601,8 +688,13 @@ def _one_card_cell(cell, steps: int, cfg=None) -> np.ndarray:
     b, s = cell.global_batch, cell.seq_len
     with torch.no_grad():
         if cell.kind == "prefill":
-            tokens = cell_tokens(cfg, b, s, seed=1, device="cpu")
-            return model.prefill(params, cfg, tokens, s)[0].numpy()
+            batch = {}
+            if cfg.frontend is not None:
+                batch["frontend"] = cell_frames(cfg, b, seed=4, device="cpu")
+            f = cfg.num_frontend_tokens if cfg.frontend == "vision" else 0
+            batch["tokens"] = cell_tokens(cfg, b, s - f, seed=1,
+                                          device="cpu")
+            return make_prefill_step(model, s)(params, batch)[0].numpy()
         cache = seeded_cache(cfg, b, s, s - steps, seed=2, device="cpu")
         tokens = cell_tokens(cfg, b, steps, seed=3, device="cpu")
         return decode_steps(model, params, cache, tokens, s - steps,
@@ -660,6 +752,59 @@ def test_run_cell_recurrent(results, world, arch, kind):
         keys = ("halo", "carry") if kind == "prefill" else ("gather",)
         assert all(rec["sent_bytes"][k] > 0 for k in keys), rec["sent_bytes"]
         assert rec["sent_bytes"]["ring"] == 0
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch", FRONTEND)
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_run_cell_frontend(results, world, arch, kind):
+    """whisper and internvl2 cells on the ranks: a prefill (sp_rep; the
+    frames encoded on each rank's block, or the patch rows in the row
+    split) and a decode (tp_sp, a seeded cache with each rank's block of
+    the memories) give the one-device logits within 1e-4, the same bits
+    on every rank, and each rank's bytes by kind are the shapes'. The
+    model flops count the encoder on the prefill only, as the
+    reference's: a deeper encoder changes a prefill's, not a decode's."""
+    from repro_torch.analysis.flops import model_flops
+
+    got, _ = results
+    case, ranks = got[f"cell-{world}-{arch}-{kind}"]
+    cfg, cell, steps = case["cfg"], case["cell"], case["steps"]
+    want = _one_card_cell(cell, steps, cfg)
+    f = cfg.num_frontend_tokens
+    b = cell.global_batch
+    as_slice = dict(degree=world, capacity_factor=None, steps=steps,
+                    max_len=cell.seq_len, frames=np.zeros((b, f, 1)),
+                    prompt=np.zeros((b, cell.seq_len - (
+                        0 if cfg.encoder_layers else f))))
+    flops = model_flops(cfg, cell, causal=True)
+    if cfg.encoder_layers:
+        deeper = dataclasses.replace(cfg,
+                                     encoder_layers=2 * cfg.encoder_layers)
+        assert (model_flops(deeper, cell, causal=True) > flops) == (
+            kind == "prefill")
+    w_dec = _weights_bytes(build_model(cfg).init(0, device="cpu"), world,
+                           False)
+    for r, rk in enumerate(ranks):
+        rec = rk["record"]
+        np.testing.assert_allclose(rk["logits"], want, atol=TOL, rtol=TOL)
+        np.testing.assert_array_equal(rk["logits"], ranks[0]["logits"])
+        assert rec["policy"] == ("sp_rep" if kind == "prefill" else "tp_sp")
+        assert (rec["degree"], rec["rank"]) == (world, r)
+        assert rec["model_flops"] == flops
+        pre, dec = _slice_bytes(cfg, as_slice, r)
+        if kind == "prefill":
+            assert rec["sent_bytes"] == pre
+        else:
+            assert rec["sent_bytes"] == dict(dec, weights=steps * w_dec)
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_run_cell_refuses_long_500k_for_the_frontend_archs(arch):
+    from repro_torch.launch.dryrun import run_cell
+
+    with pytest.raises(ValueError, match="sub-quadratic"):
+        run_cell(arch, "long_500k", SeqShard(None, 0, 1), device="cpu")
 
 
 def test_run_cell_honours_cell_is_runnable():
@@ -791,13 +936,21 @@ def test_rows_rule():
 
 @pytest.mark.parametrize("arch", REFUSED)
 def test_policy_refuses_other_archs(arch):
+    """whisper and internvl2 run under tp_sp and sp_rep; fsdp, which
+    splits the batch for training, is refused for them before any
+    collective (encode, prefill)."""
     cfg = get_smoke(arch)
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     tokens = torch.ones((1, 4), dtype=torch.long)
-    with sharding_policy(SeqShard(None, 0, 1)), pytest.raises(
-            NotImplementedError, match="ROADMAP A10"):
-        model.prefill(params, cfg, tokens, 8)
+    frames = torch.ones((1, cfg.num_frontend_tokens, cfg.d_model))
+    with sharding_policy(SeqShard(None, 0, 1), "fsdp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            if cfg.encoder_layers:
+                model.encode(params, frames)
+            else:
+                model.prefill(params, cfg, tokens, 16,
+                              frontend_embeds=frames)
 
 
 def test_policy_refuses_fsdp_and_training():

@@ -15,7 +15,8 @@ one of
   then ``forward``, from the reference's weights (numpy), on the
   ``sp_rep`` tree (weights whole but the experts) and again on the
   rank's ``tp_sp`` split of the weights (dense, MoE, ssm and hybrid
-  stacks);
+  stacks; whisper after ``encode`` of the case's frames, internvl2 with
+  its patch embeddings before the prompt);
 * ``cell``: ``launch/dryrun.run_cell`` on a small prefill, decode and
   train cell.
 
@@ -34,15 +35,19 @@ import torch
 import torch.distributed as dist
 
 
-def slice_model(arch: str, weights, capacity_factor=None):
+def slice_model(arch: str, weights, capacity_factor=None,
+                frontend_tokens=None):
     """The port's fp32 smoke ``arch`` with ``weights`` (the reference's
-    params as numpy), a MoE's capacity factor replaced when given."""
+    params as numpy), a MoE's capacity factor and the frontend's rows F
+    replaced when given."""
     from repro_torch.configs import get_smoke
     from repro_torch.models.api import build_model
     from repro_torch.weights import params_from_jax
 
     cfg = dataclasses.replace(get_smoke(arch), attn_impl="kernel",
                               compute_dtype=torch.float32)
+    if frontend_tokens is not None:
+        cfg = dataclasses.replace(cfg, num_frontend_tokens=frontend_tokens)
     if capacity_factor is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=capacity_factor))
@@ -90,24 +95,34 @@ def _decode(case, shard) -> dict:
 
 
 def _run_slice(model, params, case, shard) -> dict:
-    """Prefill, the case's greedy decode steps and forward under
-    ``tp_sp`` on ``params``: logits, tokens, bytes sent by kind, the
-    cache block's shapes and whether it is replicated."""
+    """Prefill (an encoder-decoder's ``encode`` first), the case's greedy
+    decode steps and forward under ``tp_sp`` on ``params``: logits,
+    tokens, bytes sent by kind, the cache block's shapes and whether its
+    K/V and its memories are replicated, and the rank's encoder rows."""
     from repro_torch.distributed.ctx import sharding_policy
 
     cfg = model.cfg
     tokens = torch.from_numpy(case["prompt"]).long()
     s = tokens.shape[1]
-    out = {}
+    out, kw = {}, {}
     with torch.no_grad(), sharding_policy(shard, "tp_sp"):
         shard.reset_counts()
+        if "frames" in case:
+            frames = torch.from_numpy(case["frames"])
+            if cfg.encoder_layers:
+                kw["encoder_out"] = model.encode(params, frames)
+                out["encoded"] = kw["encoder_out"].numpy()
+            else:
+                kw["frontend_embeds"] = frames
+                s += frames.shape[1]
         logits, cache = model.prefill(params, cfg, tokens, case["max_len"],
-                                      kv_dtype=case.get("kv_dtype"))
+                                      kv_dtype=case.get("kv_dtype"), **kw)
         out["prefill_sent"] = dict(shard.sent)
         out["cache_shapes"] = [{name: tuple(t.shape)
                                 for name, t in blk.items()}
                                for blk in cache["layers"]]
         out["replicated"] = cache.get("replicated", False)
+        out["mem_replicated"] = cache.get("mem_replicated", False)
         steps, toks = [logits[:, 0]], []
         shard.reset_counts()
         for i in range(case["steps"]):
@@ -117,7 +132,8 @@ def _run_slice(model, params, case, shard) -> dict:
             steps.append(logits[:, 0])
         out["decode_sent"] = dict(shard.sent)
         shard.reset_counts()
-        out["forward"], out["aux"] = model.forward(params, tokens, cfg)
+        out["forward"], out["aux"] = model.forward(params, tokens, cfg,
+                                                   **kw)
         out["forward_sent"] = dict(shard.sent)
     out.update(logits=torch.stack(steps).numpy(),
                tokens=torch.stack(toks, 1).numpy(),
@@ -129,7 +145,8 @@ def _slice(case, shard, weights) -> dict:
     from repro_torch.distributed.sharding import local_params
 
     model, whole = slice_model(case["arch"], weights[case["arch"]],
-                               case.get("capacity_factor"))
+                               case.get("capacity_factor"),
+                               case.get("frontend_tokens"))
     params = local_params(whole, rank=shard.rank, degree=shard.degree)
     out = _run_slice(model, params, case, shard)
     if model.cfg.moe is not None:
