@@ -356,7 +356,37 @@ Phases, each printing one JSON line:
    a checkpoint round trip (bf16 compute, int8 compression): an async
    save after step 2 restores parameters, moments and error feedback bit
    for bit, and the step after it gives the uninterrupted run's loss
-   within 1e-3.
+   within 1e-3;
+20. train_sharded (after train) — the train phase's model and settings
+   trained across ranks under the reference's fsdp policy
+   (``sharding_policy(shard, "fsdp")``), one process a rank: NCCL with a
+   card a rank where the machine has four cards (full depth, a global
+   batch of 8), else gloo with the four ranks on card 0 (4 of 24 layers,
+   a global batch of 4; every gather and reduce-scatter through host
+   memory). Each rank holds dim 0 of every matrix cut in n blocks, with
+   its AdamW moments and int8 error feedback, and draws its own
+   ``SyntheticLMData(seed=17)`` slice; degree 4 (grad_accum 1) and 2
+   (grad_accum 2), 4 steps each, are held to the port's one-card
+   ``make_train_step`` at the same depth on the ranks' batches
+   concatenated (computed here first): each step's loss, grad norm and
+   lr, every trained leaf over all ranks' blocks (bands
+   TRAIN_SHARDED_RTOL, TRAIN_SHARDED_LEAF_RTOL), every rank's losses the
+   same bits, each step's bytes by kind equal to ``fsdp_bytes``'s
+   arithmetic; device ms, wall and peak memory a step and a rank, and a
+   roofline line (``mfu``) of each degree. At FP32_LAYERS layers in fp32
+   at degree 4, with labels masked unevenly over the ranks, without
+   compression and with int8, each clean run within its bands
+   (TRAIN_SHARDED_GATES: 1e-4, the grad norm 1e-5; with int8 the leaves
+   2e-3), and each of FSDP_FAULTS planted (a layer's gradient left
+   unreduced on a rank, whole leaves counted n times in the norm, int8
+   scales from a rank's blocks, a per-rank loss mean) rejected. The
+   degree-4 run's async sharded checkpoint after step 2 restores at
+   degrees 2 and 3 and on one card bit for bit (each
+   leaf's ``state_digest``), the next step at degree 2 and on one card
+   within 1e-3 of the uninterrupted loss; its trained weights, saved
+   sharded and restored whole, serve through B1/B2 (prefill logits within
+   BF16_ROW_RTOL of the chunked route's rows) and a wave on B4, with the
+   launch counts set to 0 just before and read just after.
 
 Roofline lines: inside the phases that build each full-width model
 (internlm2-1.8b in phase 4, qwen3-1.7b, phi4-mini-3.8b and
@@ -654,19 +684,20 @@ PATH_KERNELS = {
     "vlm": ("mas_streamed", "decode"),
     "launcher": ("mas_resident", "decode"),
     "train": ("mas_resident", "mas_streamed", "decode"),
+    "train_sharded": ("mas_resident", "mas_streamed", "decode"),
     "sharded": ("paged_prefill", "paged_decode", "paged_verify",
                 "paged_prefill_int8", "paged_decode_int8",
                 "paged_verify_int8"),
     "seq_sharded": ("ssd_intra_chunk", "flash_e256", "mas_streamed"),
 }
 ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
-                             "launcher", "train"),
+                             "launcher", "train", "train_sharded"),
             "mas_streamed": ("waves", "moe", "dense_archs", "encdec",
-                             "vlm", "train"),
+                             "vlm", "train", "train_sharded"),
             "mas_streamed_cross": ("encdec",),
             "flash": ("waves",),
             "decode": ("waves", "moe", "dense_archs", "encdec", "vlm",
-                       "launcher", "train"),
+                       "launcher", "train", "train_sharded"),
             "decode_int8": ("int8_wave", "encdec"),
             "paged_decode": ("continuous", "shared_prefix", "moe",
                              "dense_archs"),
@@ -758,6 +789,57 @@ TRAIN_GRAD_RTOL = 1e-4      # "chunked" + remat vs "plain", each leaf (L2)
 TRAIN_RESUME_ATOL = 1e-3
 TRAIN_PROMPTS = (256, 2048)  # the trained weights' prefill: B1, B2
 TRAIN_NEW_TOKENS = 8
+# Training across ranks (the train_sharded phase): the train phase's
+# model and settings under fsdp, degree 4 first (its checkpoint restores
+# at 2, 3 and on one card). Four cards (NCCL): full depth, a global batch
+# of 8 (2 sequences a rank at degree 4, grad_accum 2 at 2), 4 steps, the
+# fp32 runs 2. One card (gloo, the ranks sharing it, every gather and
+# reduce-scatter through host memory: a degree-2 step of 4 layers at
+# grad_accum 2 took 17-22 s on an H100): 4 of 24 layers, a global batch of 4
+# (1 sequence a rank at degree 4, 2 at 2 in one microbatch), 3 steps, the
+# fp32 runs without compression 1 (each fault planted there shows at
+# step 0; a rank-local int8 scale moves the leaves from the first update
+# on, so the int8 runs keep 2).
+TRAIN_SHARDED_DEGREES = (4, 2)
+TRAIN_SHARDED_PLANS = {
+    "nccl": {"layers": 24, "batch": 8, "accum": {4: 1, 2: 2},
+             "steps": 4, "fp32_steps": {"fp32": 2, "fp32_int8": 2},
+             "reduced": "train_4k's global batch of 256 cut to 8"},
+    "gloo": {"layers": 4, "batch": 4, "accum": {4: 1, 2: 1},
+             "steps": 3, "fp32_steps": {"fp32": 1, "fp32_int8": 2},
+             "reduced": "4 of 24 layers, 3 steps, the fp32 runs without "
+                        "compression 1 (the "
+                        "ranks share one card; their gathers pass "
+                        "through host memory); train_4k's global batch "
+                        "of 256 cut to 4"}}
+TRAIN_SHARDED_SAVE_AT = 2
+# The runs (compute dtype, compression) by kind: the main runs in bf16
+# with int8, and at degree 4 in fp32 (FP32_LAYERS layers, sequences of
+# TRAIN_SHARDED_FP32_SEQ, labels masked unevenly over the ranks) without
+# compression and with int8, each clean and with the planted faults
+# FAULT_KIND gives it. The one-card yardstick takes the plan's
+# microbatch, a rank's (bf16), or the whole batch (fp32).
+TRAIN_SHARDED_KINDS = {"bf16": ("bf16", "int8"), "fp32": ("fp32", None),
+                       "fp32_int8": ("fp32", "int8")}
+FAULT_KIND = {"unreduced_layer": "fp32", "whole_norm_n_times": "fp32",
+              "shard_int8_scale": "fp32_int8", "rank_loss_mean": "fp32"}
+TRAIN_SHARDED_FP32_SEQ = 256
+TRAIN_SHARDED_FP32_BATCH = 4
+# Bands against the one-card yardstick by kind: (step limits, leaf
+# limit), stated in PERF.md. bf16: the yardstick takes a rank's
+# microbatches, so their bf16 gradients round alike; the ranks' partial
+# gradients are then summed in fp32 in another order, and int8 codes near
+# a rounding edge and the updates they drive may differ; lr is exact.
+# fp32 without compression: test_torch_train_step.py's STEP_RTOL, the
+# grad norm at 1e-5 (the whole leaves, the norms, hold ~3e-5 of a
+# full-width gradient's squares: counted n times they move the norm
+# ~4.5e-5 at degree 4). fp32 with int8: a gradient element within ~1e-7
+# of a code's rounding edge takes the other code, and at full width
+# enough do that the leaves moved 1.5e-4-4.8e-4 on an H100, so 2e-3.
+TRAIN_SHARDED_GATES = {
+    "bf16": ({"loss": 2e-3, "grad_norm": 2e-2, "lr": 1e-6}, 5e-2),
+    "fp32": ({"loss": 1e-4, "grad_norm": 1e-5, "lr": 1e-6}, 1e-4),
+    "fp32_int8": ({"loss": 1e-4, "grad_norm": 1e-4, "lr": 1e-6}, 2e-3)}
 
 
 def emit(obj) -> None:
@@ -4107,9 +4189,12 @@ def shard_yardstick(torch, full: dict, path: str) -> dict:
     return tokens[path]
 
 
-def collective_probe(torch, dist, dev, rank: int, degree: int) -> dict:
+def collective_probe(torch, dist, dev, rank: int, degree: int,
+                     shard=None) -> dict:
     """One all-gather and one broadcast of CUDA tensors on this group's
-    backend, their values checked."""
+    backend, their values checked; with ``shard`` (a ``SeqShard`` of the
+    whole group) also its reduce-scatter and its all-reduces (sum, max),
+    which over gloo stage CUDA tensors through host buffers."""
     x = torch.full((3,), float(rank), device=dev)
     parts = [torch.empty_like(x) for _ in range(degree)]
     dist.all_gather(parts, x)
@@ -4118,7 +4203,24 @@ def collective_probe(torch, dist, dev, rank: int, degree: int) -> dict:
     got = [float(p[0]) for p in parts]
     require(got == [float(r) for r in range(degree)] and int(y) == 7,
             f"rank {rank}: all_gather gave {got}, broadcast {int(y)}")
-    return {"all_gather": got, "broadcast": int(y)}
+    out = {"all_gather": got, "broadcast": int(y)}
+    if shard is None:
+        return out
+    z = torch.arange(2.0 * degree, device=dev) * (rank + 1)
+    total = degree * (degree + 1) / 2
+    mine = shard.reduce_scatter(z)
+    want = [total * (2 * rank + i) for i in range(2)]
+    amax = shard.all_reduce(z, op="max")
+    summed = shard.all_reduce(z)
+    require(mine.tolist() == want
+            and amax.tolist() == (torch.arange(2.0 * degree) * degree)
+            .tolist() and summed.tolist() == (torch.arange(2.0 * degree)
+                                              * total).tolist(),
+            f"rank {rank}: reduce_scatter {mine.tolist()} (want {want}), "
+            f"all_reduce max {amax.tolist()}, sum {summed.tolist()}")
+    shard.reset_counts()
+    return {**out, "reduce_scatter": mine.tolist(),
+            "all_reduce_staged": shard._staged(z)}
 
 
 def ring_counts(cfg, eng, degree: int, kv_dtype) -> tuple[int, int]:
@@ -6711,6 +6813,780 @@ def phase_train(torch) -> dict:
     return {**report, "launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# train_sharded: training across ranks under fsdp
+# ---------------------------------------------------------------------------
+
+# the planted faults the fsdp gates must reject (``planted_fsdp_fault``)
+FSDP_FAULTS = ("unreduced_layer", "whole_norm_n_times", "shard_int8_scale",
+               "rank_loss_mean")
+# a checksum's modulus (``state_digest``)
+DIGEST_MOD = 2147483647
+
+
+@contextlib.contextmanager
+def planted_fsdp_fault(fault: str, rank: int = 1, layer_leaves: int = 0):
+    """Plant one fault of FSDP_FAULTS into the port for the context's
+    duration (this process's modules; every collective still runs):
+    ``unreduced_layer`` rank ``rank`` keeps its own, unsummed block of
+    the gradients of the first layer the backward reaches (its
+    ``layer_leaves`` reduce-scatters after the unembedding's, once);
+    ``whole_norm_n_times`` the clipping norm all-reduces the whole
+    leaves' squares with the split ones' (each counted n times);
+    ``shard_int8_scale`` int8 scales from the rank's blocks only;
+    ``rank_loss_mean`` each rank divides by its own count of labels."""
+    from repro_torch.distributed import compression, ctx
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    if fault not in FSDP_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    saved = []
+
+    def patch(module, name, value):
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, value)
+
+    if fault == "unreduced_layer":
+        real = ctx.GatherLeaf.backward
+        calls = {"n": 0}
+
+        def backward(ctx_, grad):
+            out = real(ctx_, grad)
+            calls["n"] += 1
+            shard = ctx_.shard
+            if shard.rank == rank and 2 <= calls["n"] <= layer_leaves + 1:
+                per = grad.shape[0] // shard.degree
+                return (grad.float()[rank * per:(rank + 1) * per],
+                        None, None)
+            return out
+
+        patch(ctx.GatherLeaf, "backward", staticmethod(backward))
+    elif fault == "whole_norm_n_times":
+        def global_norm(tree, *, shard=None, split=None):
+            sq = sum(x.float().square().sum() for x in tensors_of(tree))
+            return sq.sqrt() if shard is None else \
+                shard.all_reduce(sq, "all_reduce").sqrt()
+
+        patch(adamw, "global_norm", global_norm)
+    elif fault == "shard_int8_scale":
+        patch(compression, "global_absmax", lambda amax, shard: amax)
+    else:
+        def token_denominators(labels, grad_accum, shard):
+            import torch
+
+            b = labels.shape[0]
+            mb = torch.arange(b, device=labels.device) // (b // grad_accum)
+            counts = (labels >= 0).sum(-1).float()
+            per_mb = counts.new_zeros(grad_accum).index_add_(0, mb, counts)
+            return per_mb.clamp(min=1.0)[mb]
+
+        patch(steps, "token_denominators", token_denominators)
+    try:
+        yield
+    finally:
+        for module, name, value in reversed(saved):
+            setattr(module, name, value)
+
+
+def fsdp_step_gate(got: list, want: list, rtol) -> dict:
+    """Each step's loss, grad norm and lr (``got``, ``want``: dicts a
+    step) against the one-card run's, relative: the worst of each and
+    the failures past ``rtol`` (a number, or one a key)."""
+    limits = rtol if isinstance(rtol, dict) else dict.fromkeys(
+        ("loss", "grad_norm", "lr"), rtol)
+    out = {"limits": limits, "failures": []}
+    for key, limit in limits.items():
+        errs = [abs(g[key] - w[key]) / max(abs(w[key]), 1e-30)
+                for g, w in zip(got, want, strict=True)]
+        out[key] = max(errs)
+        out["failures"] += [f"step {i} {key} {g[key]} vs {w[key]}"
+                            for i, (g, w, e) in enumerate(
+                                zip(got, want, errs)) if not e <= limit]
+    return out
+
+
+def fsdp_leaf_errs(torch, params, want, shard) -> dict:
+    """Each leaf's L2 error against ``want``'s whole leaf (on the host)
+    relative to its norm, over every rank's block: the rank's (err²,
+    norm²) of its block of a split leaf, rank 0's of a whole one, summed
+    over the group in one all-reduce -> {path: relative error}."""
+    from repro_torch.tree import leaves_with_paths
+
+    want = dict(leaves_with_paths(want))
+    paths, sums = [], []
+    for path, got in leaves_with_paths(params):
+        w = want[path]
+        mine = shard.rank == 0
+        if got.shape != w.shape:       # the rank's block of dim 0
+            w = w[shard.rank * got.shape[0]:(shard.rank + 1) * got.shape[0]]
+            mine = True
+        w = w.to(got.device).double()
+        d = got.detach().double() - w
+        sums.append(torch.stack([d.square().sum(), w.square().sum()])
+                    * float(mine))
+        paths.append(path)
+    tot = torch.stack(sums)
+    if shard.degree > 1:
+        tot = shard.all_reduce(tot, "all_reduce")
+    return {p: float(tot[i, 0].sqrt() / tot[i, 1].sqrt().clamp_min(1e-30))
+            for i, p in enumerate(paths)}
+
+
+def fsdp_leaves_gate(errs: dict, rtol: float) -> dict:
+    worst = max(errs, key=errs.get)
+    return {"limit": rtol, "worst_leaf": worst, "worst": errs[worst],
+            "failures": [f"leaf {p}: {e}" for p, e in errs.items()
+                         if not e <= rtol]}
+
+
+def fsdp_bytes(cfg, n: int, grad_accum: int, *, int8: bool) -> dict:
+    """One train step's bytes a rank sends (and receives) by kind under
+    fsdp at degree ``n``, from the shapes (``SeqShard``'s counting): per
+    microbatch each split leaf's block gathered in the compute dtype
+    once (a layer twice under remat: again in the backward) and
+    reduce-scattered in fp32 once, each counting its block × (n - 1);
+    per step the all-reduces of the microbatches' label
+    counts, of the whole leaves' fp32 gradients, of the loss and of the
+    squared norm (2 (n - 1) / n of each, rounded down), and int8's
+    absmax of each scale group."""
+    from repro_torch.distributed.sharding import split_specs
+    from repro_torch.models.transformer import init
+    from repro_torch.tree import leaves_with_paths
+    from repro_torch.weights import reference_leaf
+
+    out = dict.fromkeys(("weights", "reduce_scatter", "all_reduce",
+                         "all_reduce_max"), 0)
+    if n == 1:
+        return out
+    shapes = dict(leaves_with_paths(init(cfg, device="meta")))
+    specs = dict(leaves_with_paths(split_specs(cfg, n, "fsdp")))
+    gather = scatter = whole = 0
+    for path, leaf in shapes.items():
+        if specs[path] is None:
+            whole += leaf.numel()
+            continue
+        block = leaf.numel() // n
+        stacked = path.startswith(("layers/", "encoder/"))
+        gather += (2 if stacked and cfg.remat else 1) * block
+        scatter += block
+    dt = cfg.compute_dtype.itemsize
+    out["weights"] = grad_accum * gather * dt * (n - 1)
+    out["reduce_scatter"] = grad_accum * scatter * 4 * (n - 1)
+
+    def ar(nbytes: int) -> int:
+        return 2 * nbytes * (n - 1) // n
+
+    out["all_reduce"] = (ar(4 * grad_accum) + (ar(4 * whole) if whole else 0)
+                         + ar(4) + ar(4))
+    if int8:
+        groups = {reference_leaf(p, cfg) for p in shapes}
+        out["all_reduce_max"] = ar(4 * len(groups))
+    return out
+
+
+def state_digest(torch, tree, blocks=None, shard=None) -> dict:
+    """An exact checksum of each leaf of ``tree``, the same whatever the
+    degree it is split at: each element's bits times a weight of its
+    index in the whole leaf (row-major), summed mod DIGEST_MOD. With
+    ``shard`` a leaf ``blocks`` marks (dim 0, rank, degree) is the rank's
+    block of dim 0, whose part is summed over the group."""
+    from repro_torch.tree import leaves_with_paths
+
+    blocks = {} if blocks is None else dict(leaves_with_paths(blocks))
+    paths, parts, split = [], [], []
+    for path, t in leaves_with_paths(tree):
+        t = t.detach().contiguous().reshape(-1)
+        is_split = (shard is not None and shard.degree > 1
+                    and blocks.get(path) is not None)
+        start = shard.rank * t.numel() if is_split else 0
+        bits = t.view(torch.int32 if t.element_size() == 4
+                      else torch.int16).long() & 0xFFFFFFFF
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        step = 1 << 24
+        for at in range(0, bits.numel(), step):
+            chunk = bits[at:at + step]
+            idx = torch.arange(start + at, start + at + chunk.numel(),
+                               device=t.device)
+            w = (idx * 2654435761) % 65521 + 1
+            total += ((chunk * w) % DIGEST_MOD).sum()
+        paths.append(path)
+        parts.append(total % DIGEST_MOD)
+        split.append(is_split)
+    vec = torch.stack(parts)
+    if any(split):
+        mask = torch.tensor(split, device=vec.device)
+        vec = torch.where(mask, shard.all_reduce(torch.where(mask, vec, 0),
+                                                 "all_reduce"), vec)
+    return {p: int(v) % DIGEST_MOD for p, v in zip(paths, vec.tolist())}
+
+
+def uneven_labels(batch: dict, rank: int, degree: int) -> dict:
+    """``batch`` (a rank's rows, numpy) with, on the last rank, the second
+    half of every row's labels masked (-1): unmasked labels lie unevenly
+    over the ranks, so a per-rank mean is not the global one."""
+    if rank != degree - 1:
+        return batch
+    labels = batch["labels"].copy()
+    labels[:, labels.shape[1] // 2:] = -1
+    return {**batch, "labels": labels}
+
+
+def sharded_batches(data_of, degree: int, step: int, uneven: bool) -> list:
+    """The ranks' batches of ``step`` (``data_of(rank)``: a rank's
+    ``SyntheticLMData``), as numpy dicts in rank order, labels planted
+    unevenly where asked (``uneven_labels``)."""
+    out = []
+    for r in range(degree):
+        b = data_of(r).batch_at(step)
+        out.append(uneven_labels(b, r, degree) if uneven else b)
+    return out
+
+
+def concat_batches(parts: list) -> dict:
+    import numpy as np
+
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def train_sharded_cfg(plan: dict, kind: str = "bf16"):
+    """The phase's model config: internlm2-1.8b at full width, ``plan``'s
+    depth (fp32 kinds: FP32_LAYERS layers and fp32 compute, through
+    ``fp32_model``'s config), chunked attention with remat."""
+    from repro_torch.configs import get_arch
+
+    base = get_arch(ARCH)
+    if kind != "bf16":
+        import torch
+
+        return dataclasses.replace(
+            base, num_layers=FP32_LAYERS, compute_dtype=torch.float32,
+            attn_impl="chunked", attn_chunk=TRAIN_FP32_CHUNK, remat=True)
+    return dataclasses.replace(base, num_layers=plan["layers"],
+                               attn_impl="chunked", attn_chunk=TRAIN_CHUNK,
+                               remat=True)
+
+
+def train_sharded_data(cfg, seq: int, batch: int, degree: int):
+    """rank -> its ``SyntheticLMData(seed=17)`` of a ``batch`` global
+    batch over ``degree`` ranks."""
+    from repro_torch.data import SyntheticLMData
+
+    return lambda r: SyntheticLMData(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=17,
+        process_index=r, process_count=degree)
+
+
+def train_sharded_params(torch, cfg, kind: str):
+    """fp32 master weights from seed 0 on the current card: the train
+    phase's draw (bf16), or ``fp32_model``'s (norm scales from N(0,
+    4))."""
+    from repro_torch.models.api import build_model
+
+    if kind != "bf16":
+        return fp32_model(torch, cfg, FP32_LAYERS)[2]
+    return build_model(cfg).init(seed=0, device="cuda", dtype=torch.float32)
+
+
+def train_sharded_yardstick(torch, plan: dict, kind: str, degree: int,
+                            path: str) -> list:
+    """The one-card run a sharded run of ``kind`` is held to: the port's
+    ``make_train_step`` at the same depth, from the same seed, on the
+    ranks' batches concatenated (fp32 kinds: uneven labels), in a rank's
+    microbatches (bf16: the same rows a microbatch, so that their bf16
+    gradients round alike), or whole (fp32). Saves its
+    metrics a step and its trained weights (host) to ``path``; returns
+    the metrics."""
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    cfg = train_sharded_cfg(plan, kind)
+    seq, batch, steps = train_sharded_run_shape(plan, kind)
+    compression = TRAIN_SHARDED_KINDS[kind][1]
+    params = train_sharded_params(torch, cfg, kind)
+    opt = adamw_init(params)
+    if compression == "int8":
+        opt["err"] = init_error_feedback(params)
+    step_fn = make_train_step(build_model(cfg), train_sharded_opt(steps),
+                              compression, 1 if kind != "bf16" else
+                              degree * plan["accum"][degree])
+    data_of = train_sharded_data(cfg, seq, batch, degree)
+    metrics = []
+    for step in range(steps):
+        b = batch_on(concat_batches(sharded_batches(
+            data_of, degree, step, kind != "bf16")), "cuda")
+        params, opt, m = step_fn(params, opt, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.save({"metrics": metrics,
+                "params": tree_map(lambda t: t.detach().cpu(), params)},
+               path)
+    del params, opt
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def train_sharded_opt(steps: int):
+    from repro_torch.optim import OptConfig
+
+    return OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=steps)
+
+
+def train_sharded_run_shape(plan: dict, kind: str) -> tuple:
+    """(sequence, global batch, steps) of a run of ``kind``."""
+    if kind != "bf16":
+        return TRAIN_SHARDED_FP32_SEQ, TRAIN_SHARDED_FP32_BATCH, \
+            plan["fp32_steps"][kind]
+    return TRAIN_SEQ, plan["batch"], plan["steps"]
+
+
+def train_sharded_state(cfg, rank: int, degree: int) -> tuple:
+    """(the saved state's tree of paths, each leaf's fsdp block on rank
+    ``rank`` of ``degree``), from the shapes on the meta device."""
+    from repro_torch.launch.train import state_blocks
+    from repro_torch.models.transformer import init
+
+    shapes = init(cfg, device="meta")
+    blocks = state_blocks(cfg, "int8", rank, degree)
+    import torch
+
+    opt = {"mu": shapes, "nu": shapes, "err": shapes,
+           "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    return {"params": shapes, "opt": opt}, blocks
+
+
+def sharded_run(torch, plan: dict, shard, dev, kind: str, yard: dict,
+                *, fault: str | None = None, ckpt_dir: str | None = None,
+                final_dir: str | None = None) -> dict:
+    """One fsdp training run of ``kind`` (TRAIN_SHARDED_KINDS) on this rank
+    of ``shard``'s group: fp32 master weights from seed 0 cut to the
+    rank's blocks, AdamW with the kind's compression, the rank's
+    ``SyntheticLMData`` slice a step (``grad_accum`` the plan's at the
+    degree; fp32 kinds: uneven labels, whole), under
+    ``planted_fsdp_fault(fault)`` where given.
+    Each step: loss, grad norm, lr, device ms (CUDA events), wall, peak
+    memory, bytes by kind; with ``ckpt_dir`` an async sharded save after
+    step TRAIN_SHARDED_SAVE_AT (and the saved state's digest), with
+    ``final_dir`` a sharded save of the trained weights. The gates: the
+    steps against ``yard``'s metrics (fsdp_step_gate) and every leaf
+    against its trained weights (fsdp_leaf_errs)."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.distributed.sharding import local_params
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw_init
+
+    cfg = train_sharded_cfg(plan, kind)
+    seq, batch, steps = train_sharded_run_shape(plan, kind)
+    compression = TRAIN_SHARDED_KINDS[kind][1]
+    n = shard.degree
+    accum = 1 if kind != "bf16" else plan["accum"][n]
+    params = local_params(train_sharded_params(torch, cfg, kind),
+                          rank=shard.rank, degree=n, policy="fsdp",
+                          in_place=True)
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    if compression == "int8":
+        opt["err"] = init_error_feedback(params)
+    step_fn = make_train_step(build_model(cfg), train_sharded_opt(steps),
+                              compression, accum)
+    data = train_sharded_data(cfg, seq, batch, n)(shard.rank)
+    blocks = train_sharded_state(cfg, shard.rank, n)[1]
+    ckpt = final = None
+    if ckpt_dir is not None:
+        # every rank opens the directories before any rank saves
+        ckpt = CheckpointManager(ckpt_dir, keep=2, rank=shard.rank,
+                                 degree=n)
+        final = CheckpointManager(final_dir, keep=1, rank=shard.rank,
+                                  degree=n)
+        dist.barrier(group=shard.group)
+    rec = {"degree": n, "rank": shard.rank, "kind": kind, "fault": fault,
+           "layers": cfg.num_layers, "seq": seq, "global_batch": batch,
+           "grad_accum": accum, "steps": []}
+    fault_ctx = (planted_fsdp_fault(fault, layer_leaves=layer_split_leaves(
+        cfg, n)) if fault else contextlib.nullcontext())
+    with sharding_policy(shard, "fsdp"), fault_ctx:
+        for step in range(steps):
+            b = data.batch_at(step)
+            if kind != "bf16":
+                b = uneven_labels(b, shard.rank, n)
+            b = batch_on(b, dev)
+            shard.reset_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            (params, opt, m), wall, ms = timed_call(
+                torch, lambda: step_fn(params, opt, b))
+            rec["steps"].append({
+                **{k: float(v) for k, v in m.items()}, "wall_s": wall,
+                "device_ms": ms,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "sent": dict(shard.sent), "received": dict(shard.received),
+                "staged_bytes": shard.staged_bytes})
+            if ckpt is not None and step + 1 == TRAIN_SHARDED_SAVE_AT:
+                state = {"params": params, "opt": opt}
+                rec["saved_digest"] = state_digest(torch, state, blocks,
+                                                   shard)
+                t0 = time.perf_counter()
+                ckpt.save(step + 1, state, blocking=False, shardings=blocks)
+                rec["save_call_s"] = time.perf_counter() - t0
+        if ckpt is not None:
+            t0 = time.perf_counter()
+            ckpt.wait()
+            rec["write_wait_s"] = time.perf_counter() - t0
+            final.save(steps, {"params": params},
+                       shardings={"params": blocks["params"]})
+    want = torch.load(yard["path"], mmap=True)
+    steps_limit, leaf_limit = TRAIN_SHARDED_GATES[kind]
+    rec["step_gate"] = fsdp_step_gate(rec["steps"], want["metrics"],
+                                      steps_limit)
+    rec["leaf_gate"] = fsdp_leaves_gate(
+        fsdp_leaf_errs(torch, params, want["params"], shard), leaf_limit)
+    rec["bytes_from_shapes"] = fsdp_bytes(cfg, n, accum,
+                                          int8=compression == "int8")
+    del params, opt, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def layer_split_leaves(cfg, n: int) -> int:
+    """How many leaves of a decoder layer fsdp splits at degree ``n``."""
+    from repro_torch.distributed.sharding import split_specs
+    from repro_torch.tree import tree_leaves
+
+    return sum(s is not None for s in tree_leaves(
+        split_specs(cfg, n, "fsdp")["layers"][0]))
+
+
+def restore_check(torch, plan: dict, shard, dev, ckpt_dir: str,
+                  saved: dict, want_loss: float | None) -> dict:
+    """The degree-4 run's step-TRAIN_SHARDED_SAVE_AT checkpoint restored
+    on this rank of ``shard``'s group (or on one card with ``shard``
+    None): every leaf's digest against the saved one (bit for bit), and,
+    where ``want_loss`` is given, the next step's loss on the degree-4
+    ranks' batches of that step, concatenated and cut over this group,
+    within TRAIN_RESUME_ATOL of the uninterrupted run's."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.api import build_model
+
+    cfg = train_sharded_cfg(plan)
+    n, rank = (1, 0) if shard is None else (shard.degree, shard.rank)
+    paths, blocks = train_sharded_state(cfg, rank, n)
+    t0 = time.perf_counter()
+    state = CheckpointManager(ckpt_dir, rank=rank, degree=n).restore(
+        TRAIN_SHARDED_SAVE_AT, paths, device=dev,
+        shardings=blocks if n > 1 else None)
+    rec = {"degree": n, "rank": rank,
+           "restore_s": time.perf_counter() - t0}
+    got = state_digest(torch, state, blocks if n > 1 else None, shard)
+    rec["bit_for_bit"] = got == saved
+    rec["leaves_differing"] = sorted(p for p in saved if got[p] != saved[p])
+    if want_loss is not None:
+        _, batch, steps = train_sharded_run_shape(plan, "bf16")
+        parts = sharded_batches(train_sharded_data(cfg, TRAIN_SEQ, batch,
+                                                   4), 4,
+                                TRAIN_SHARDED_SAVE_AT, False)
+        per = 4 // n
+        mine = concat_batches(parts[rank * per:(rank + 1) * per])
+        rows = mine["tokens"].shape[0]
+        micro = batch // 4 // plan["accum"][4]    # the degree-4 run's
+        step_fn = make_train_step(build_model(cfg), train_sharded_opt(steps),
+                                  "int8", rows // micro)
+        policy = (contextlib.nullcontext() if shard is None
+                  else sharding_policy(shard, "fsdp"))
+        with policy:
+            _, _, m = step_fn(state["params"], state["opt"],
+                              batch_on(mine, dev))
+        rec.update(loss_resumed=float(m["loss"]),
+                   loss_uninterrupted=want_loss)
+        rec["resume_ok"] = abs(float(m["loss"]) - want_loss) \
+            <= TRAIN_RESUME_ATOL
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_sharded_rank(rank: int, world: int, backend: str, store: str,
+                       out_dir: str, plan: dict, yards: dict) -> None:
+    """One rank of the train_sharded phase (a process of its own): join
+    the group, probe its collectives, train at degree 4 (its checkpoint
+    after step TRAIN_SHARDED_SAVE_AT, its trained weights saved sharded)
+    and at 2, restore the checkpoint at 2 and 3 (the next step's loss at
+    2), then at degree 4 the fp32 kinds' clean runs and each planted
+    fault (FSDP_FAULTS, on its FAULT_KIND), each of which the gates must
+    reject. Rank 0 prints a line a run. Writes its report to
+    ``out_dir``, then fails on any gate."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import seq_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        groups = {d: seq_group(d) for d in (2, 3, 4)}
+        report = {"rank": rank, "device": str(dev), "backend": backend,
+                  "probe": collective_probe(torch, dist, dev, rank, world,
+                                            groups[world]),
+                  "runs": [], "restores": []}
+        failures = []
+        ckpt_dir = str(Path(out_dir) / "ckpt")
+        final_dir = str(Path(out_dir) / "final")
+        uninterrupted = None
+        for degree in TRAIN_SHARDED_DEGREES:
+            shard = groups[degree]
+            if shard is not None:
+                four = degree == 4
+                rec = sharded_run(
+                    torch, plan, shard, dev, "bf16", yards[degree],
+                    ckpt_dir=ckpt_dir if four else None,
+                    final_dir=final_dir if four else None)
+                if four:
+                    uninterrupted = rec["steps"][TRAIN_SHARDED_SAVE_AT][
+                        "loss"]
+                    report["saved_digest"] = rec["saved_digest"]
+                failures += train_sharded_failures(rec, f"rank {rank}")
+                report["runs"].append(rec)
+                run_line(rec)
+            dist.barrier()
+        for degree in (2, 3):
+            shard = groups[degree]
+            if shard is not None:
+                rec = restore_check(torch, plan, shard, dev, ckpt_dir,
+                                    report["saved_digest"],
+                                    uninterrupted if degree == 2 else None)
+                report["restores"].append(rec)
+                failures += [f"rank {rank}: restored at {degree}, leaves "
+                             f"{rec['leaves_differing'][:4]} differ"] \
+                    if not rec["bit_for_bit"] else []
+                failures += [f"rank {rank}: resumed loss "
+                             f"{rec['loss_resumed']} vs {uninterrupted}"] \
+                    if not rec.get("resume_ok", True) else []
+            dist.barrier()
+        shard = groups[4]
+        for kind in ("fp32", "fp32_int8"):
+            for fault in (None,) + tuple(f for f in FSDP_FAULTS
+                                         if FAULT_KIND[f] == kind):
+                rec = sharded_run(torch, plan, shard, dev, kind,
+                                  yards[kind], fault=fault)
+                report["runs"].append(rec)
+                rejected = bool(rec["step_gate"]["failures"]
+                                or rec["leaf_gate"]["failures"])
+                rec["rejected"] = rejected
+                if fault is None:
+                    failures += train_sharded_failures(rec, f"rank {rank}")
+                elif not rejected:
+                    failures.append(f"rank {rank}: the gates passed the "
+                                    f"planted fault {fault}")
+                run_line(rec)
+        dist.barrier()
+        report["failures"] = failures
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(report, f)
+        require(not failures, "; ".join(failures))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_line(rec: dict) -> None:
+    """Rank 0 prints a run's summary as it ends: its gates and each step's
+    wall and device ms."""
+    if rec["rank"] == 0:
+        emit({"phase": "train_sharded_run", **{
+            k: rec[k] for k in ("degree", "kind", "fault")},
+            "rejected": rec.get("rejected"),
+            "step_gate": rec["step_gate"],
+            "leaf_gate": {k: v for k, v in rec["leaf_gate"].items()
+                          if k != "failures"},
+            "leaf_failures": len(rec["leaf_gate"]["failures"]),
+            "wall_s": [s["wall_s"] for s in rec["steps"]],
+            "device_ms": [s["device_ms"] for s in rec["steps"]]})
+
+
+def train_sharded_failures(rec: dict, tag: str) -> list:
+    """A run's failed gates: its steps and leaves against the one-card
+    run, and its bytes by kind against the shapes' arithmetic, every
+    step."""
+    tag = f"{tag} degree {rec['degree']} {rec['kind']}"
+    out = [f"{tag}: {f}" for f in rec["step_gate"]["failures"]
+           + rec["leaf_gate"]["failures"]]
+    want = rec["bytes_from_shapes"]
+    for i, step in enumerate(rec["steps"]):
+        got = {k: step["sent"][k] for k in want}
+        out += [f"{tag} step {i}: bytes {got}, the shapes give {want}"] \
+            if got != want or got != {k: step["received"][k]
+                                      for k in want} else []
+    return out
+
+
+def phase_train_sharded(torch) -> dict:
+    """Training across ranks under the reference's fsdp policy (see the
+    module docstring, phase 20), one process a rank: NCCL with a card a
+    rank where the machine has four cards, else gloo with every rank on
+    card 0. The one-card yardsticks are computed here first; a rank's
+    failure fails the phase (``mp.spawn`` raises it here). Then the
+    degree-4 checkpoint restored on this one card (bit for bit, the next
+    loss), and the degree-4 run's trained weights, restored whole, served
+    through the kernels as in the train phase."""
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeCell
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import init
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.lifecycle import Request
+
+    world = max(TRAIN_SHARDED_DEGREES)
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    plan = TRAIN_SHARDED_PLANS[backend]
+    cfg = train_sharded_cfg(plan)
+    torch.cuda.empty_cache()
+    report = {"phase": "train_sharded", "arch": ARCH, "backend": backend,
+              "cards": world if backend == "nccl" else 1,
+              "layers": plan["layers"], "seq": TRAIN_SEQ,
+              "global_batch": plan["batch"], "steps": plan["steps"],
+              "grad_accum": plan["accum"],
+              "compression": "int8", "param_dtype": "fp32",
+              "compute_dtype": "bf16", "reduced": plan["reduced"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        # on disk: two yardsticks' weights, the checkpoint (weights, two
+        # moments, error feedback) and the trained weights, fp32
+        need = 8 * 4 * cfg.param_count()
+        report["disk_free_bytes"] = shutil.disk_usage(tmp).free
+        require(report["disk_free_bytes"] > need,
+                f"train_sharded: {report['disk_free_bytes']} bytes free under "
+                f"{tmp}, {need} needed")
+        t0 = time.perf_counter()
+        yards = {}
+        for degree in TRAIN_SHARDED_DEGREES:
+            path = str(Path(tmp) / f"yard{degree}.pt")
+            yards[degree] = {"path": path, "metrics": train_sharded_yardstick(
+                torch, plan, "bf16", degree, path)}
+        for kind in ("fp32", "fp32_int8"):
+            path = str(Path(tmp) / f"yard_{kind}.pt")
+            yards[kind] = {"path": path, "metrics": train_sharded_yardstick(
+                torch, plan, kind, 4, path)}
+        report["yardsticks_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(train_sharded_rank,
+                 args=(world, backend, str(Path(tmp) / "store"), tmp, plan,
+                       yards),
+                 nprocs=world, join=True)
+        report["spawn_s"] = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        uninterrupted = next(run["steps"][TRAIN_SHARDED_SAVE_AT]["loss"]
+                             for run in ranks[0]["runs"]
+                             if run["degree"] == 4 and run["kind"] == "bf16")
+        one = restore_check(torch, plan, None, torch.device("cuda"),
+                            str(Path(tmp) / "ckpt"),
+                            ranks[0]["saved_digest"], uninterrupted)
+        require(one["bit_for_bit"], f"train_sharded: restored on one card, "
+                                    f"leaves {one['leaves_differing'][:4]} "
+                                    f"differ")
+        require(one["resume_ok"], f"train_sharded: resumed loss on one card "
+                                  f"{one['loss_resumed']} vs {uninterrupted}")
+        params = CheckpointManager(str(Path(tmp) / "final")).restore(
+            plan["steps"], {"params": init(cfg, device="meta")},
+            device="cuda")["params"]
+    for degree in TRAIN_SHARDED_DEGREES:
+        runs = [run for rk in ranks for run in rk["runs"]
+                if run["degree"] == degree and run["kind"] == "bf16"]
+        losses = {json.dumps([s["loss"] for s in run["steps"]])
+                  for run in runs}
+        require(len(losses) == 1, f"train_sharded degree {degree}: the "
+                                  f"ranks' losses differ ({losses})")
+        ms = sorted(s["device_ms"] for s in runs[0]["steps"][1:])
+        line = {"phase": "train_sharded", "run": f"degree {degree}",
+                "backend": backend, "one_card": yards[degree]["metrics"],
+                "ranks": [{k: v for k, v in run.items()
+                           if k != "saved_digest"} for run in runs]}
+        line["mfu"] = roofline_line(
+            ARCH, ShapeCell(f"train {plan['batch']}x{TRAIN_SEQ}", TRAIN_SEQ,
+                            plan["batch"], "train"), ms[len(ms) // 2],
+            max(s["peak_mem_bytes"] for run in runs for s in run["steps"]),
+            layers=plan["layers"], timing=f"CUDA events, rank 0's median "
+            f"of steps 1-{plan['steps'] - 1}, degree {degree}")["mfu"]
+        emit(line)
+    fp32 = {f"{run['kind']} {run['fault'] or 'clean'}": {
+        "rejected": run["rejected"], "step_gate": run["step_gate"],
+        "leaf_gate": {k: v for k, v in run["leaf_gate"].items()
+                      if k != "failures"}}
+        for run in ranks[0]["runs"] if run["kind"] != "bf16"}
+    emit({"phase": "train_sharded", "run": "fp32 and planted faults",
+          "degree": 4, "layers": FP32_LAYERS, "seq": TRAIN_SHARDED_FP32_SEQ,
+          "one_card": {k: yards[k]["metrics"] for k in ("fp32", "fp32_int8")},
+          "runs": fp32})
+    emit({"phase": "train_sharded", "run": "checkpoint",
+          "restores": [r for rk in ranks for r in rk["restores"]] + [one],
+          "probe": [rk["probe"] for rk in ranks]})
+
+    # the trained weights, gathered whole, through the kernels
+    kernel_model = build_model(dataclasses.replace(cfg, attn_impl="kernel"))
+    model = build_model(cfg)
+    rng = np.random.default_rng(7)
+    prompts = [torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(1, n)))
+               .to("cuda") for n in TRAIN_PROMPTS]
+    ops.reset_launch_counts()
+    served = []
+    with torch.no_grad():
+        for prompt in prompts:
+            n = prompt.shape[1]
+            got, _ = kernel_model.prefill(params, kernel_model.cfg, prompt, n)
+            want, _ = model.prefill(params, cfg, prompt, n)
+            require(bool(torch.isfinite(got).all()),
+                    f"train_sharded: kernel logits at {n} not finite")
+            err = row_rel_err(got, want)
+            served.append({"prompt_len": n, "row_rel_err": err,
+                           "max_abs_err": max_err(got, want)})
+            require(err <= BF16_ROW_RTOL, f"train_sharded: kernel prefill "
+                                          f"logits at {n}: row error {err}")
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    3, cfg.vocab_size, size=(TRAIN_PROMPTS[0],))
+                    .astype(np.int32), max_new_tokens=TRAIN_NEW_TOKENS,
+                    eos_id=-1) for i in range(BATCH)]
+        outs = {}
+        for name, m_ in (("kernel", kernel_model), ("chunked", model)):
+            eng = ServingEngine(m_, params, max_len=TRAIN_PROMPTS[0]
+                                + TRAIN_NEW_TOKENS, batch_size=BATCH,
+                                device="cuda")
+            outs[name] = eng.serve(reqs)
+            if name == "kernel":
+                counts = ops.launch_counts()
+    for name in PATH_KERNELS["train_sharded"]:
+        require(counts[name] > 0, f"train_sharded: kernel {name} not "
+                                  f"launched")
+    report.update(trained_through_kernels={
+                      "prefill_vs_chunked": served, "limit": BF16_ROW_RTOL,
+                      "serve_token_agreement": agreement(outs["kernel"],
+                                                         outs["chunked"]),
+                      "launches": launched_kernels(counts)})
+    emit(report)
+    del params, kernel_model
+    torch.cuda.empty_cache()
+    return {**report, "launches": counts}
+
+
 def moe_routes(run):
     """``run()`` with every ``moe.moe_route`` call recorded: returns
     (run's result, [Route of each call in order])."""
@@ -7759,12 +8635,27 @@ def seq_sharded_alone(torch, device: dict, parts: tuple) -> int:
     return 0
 
 
+def train_sharded_alone(torch) -> int:
+    """``--only train_sharded``: the train_sharded phase alone, after the
+    device phase's build. Prints the same last three lines, its kernel
+    line holding the launches of B1, B2 and B4 on the trained weights."""
+    counts = phase_train_sharded(torch)["launches"]
+    print(json.dumps({"kernels": [], "train_sharded_launches": {
+        name: counts[name] for name in PATH_KERNELS["train_sharded"]}}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv not in (["--only", "sharded"],
+                             ["--only", "train_sharded"],
                              *(["--only", k] for k in SEQ_ONLY)):
         print("usage: chip_smoke.py [--only sharded|seq_sharded|"
-              "seq_recurrent|seq_frontend]", file=sys.stderr)
+              "seq_recurrent|seq_frontend|train_sharded]", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"error: no src/repro_torch beside {Path(__file__).name}",
@@ -7783,6 +8674,8 @@ def main(argv=None) -> int:
     device = phase_device(torch, build)
     if argv == ["--only", "sharded"]:
         return sharded_alone(torch)
+    if argv == ["--only", "train_sharded"]:
+        return train_sharded_alone(torch)
     if argv:
         return seq_sharded_alone(torch, device, SEQ_ONLY[argv[1]])
     phase_fp32(torch)
@@ -7824,6 +8717,8 @@ def main(argv=None) -> int:
     launches["vlm"] = phase_vlm(torch)["launches"]
     torch.cuda.empty_cache()
     launches["train"] = phase_train(torch)["launches"]
+    torch.cuda.empty_cache()
+    launches["train_sharded"] = phase_train_sharded(torch)["launches"]
     for row in rows:
         counter = ROW_COUNTER.get(row["name"], row["name"])
         row["launches"] = sum(launches[path][counter]

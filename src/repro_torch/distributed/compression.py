@@ -1,16 +1,21 @@
-"""Gradient compression with error feedback, on one process.
+"""Gradient compression with error feedback.
 
 Port of ``repro/distributed/compression.py``: gradients are quantized and
-dequantized where the reference's data-parallel all-reduce would carry
-them, so a run sees what the compressed all-reduce would give it.
+dequantized after the reduction over the ranks, where the reference's
+data-parallel all-reduce would carry them in the compressed dtype, so a
+run sees what the compressed all-reduce would give it.
 
 * ``"bf16"``: each gradient rounded to bf16 and back;
 * ``"int8"``: symmetric scaling to int8, one scale per array of the
   reference's tree, with error feedback: the quantization residual is
   carried into the next step's gradient.
 
-The all-reduce itself (``torch.distributed``) comes with multi-GPU
-training.
+Across ranks under ``fsdp`` (``shard``) each rank compresses its blocks
+of the reduced gradient: int8 takes each scale's absmax over every
+rank's blocks (one all-reduce of the scales' maxima, kind
+``all_reduce_max``), so the scale is the global gradient's; the error
+feedback stays a rank's, block by block. The wire still carries fp32
+(the reference's wire format is described, not run, there too).
 """
 
 from __future__ import annotations
@@ -36,6 +41,14 @@ def apply_compression(grads, err, mode: str | None, group_of=None):
     return grads, err
 
 
+def global_absmax(amax: torch.Tensor, shard) -> torch.Tensor:
+    """Each group's absmax (a vector, one entry a group) over the ranks'
+    blocks: the maxima all-reduced once (kind ``all_reduce_max``); as it
+    is on one process."""
+    return amax if shard is None else shard.all_reduce(
+        amax, "all_reduce_max", op="max")
+
+
 def compress_bf16(grads):
     return apply_compression(grads, None, "bf16")[0]
 
@@ -45,7 +58,8 @@ def compress_int8_with_feedback(grads, err, group_of=None):
 
 
 @torch.no_grad()
-def apply_compression_(grads, err, mode: str | None, group_of=None):
+def apply_compression_(grads, err, mode: str | None, group_of=None,
+                       shard=None):
     """``apply_compression`` written into the tensors of ``grads`` and
     ``err`` (one leaf's temporaries at a time).
 
@@ -53,7 +67,9 @@ def apply_compression_(grads, err, mode: str | None, group_of=None):
     g + err): ``group_of(path)`` names a leaf's group, by default the leaf
     itself. The reference scales each array of its tree, and stacks the
     layers at one position of its repeating unit into one array;
-    ``weights.reference_leaf`` groups the port's layers the same way."""
+    ``weights.reference_leaf`` groups the port's layers the same way.
+    With ``shard`` the leaves are a rank's blocks and the absmax is taken
+    over every rank's (``global_absmax``)."""
     if mode is None or mode == "none":
         return
     if mode not in ("bf16", "int8"):
@@ -68,9 +84,10 @@ def apply_compression_(grads, err, mode: str | None, group_of=None):
     for path, g in leaves:
         key = path if group_of is None else group_of(path)
         groups.setdefault(key, []).append((g, errs[path]))
-    for members in groups.values():
-        amax = torch.stack([(g.float() + e).abs().max()
-                            for g, e in members]).max()
+    amaxes = global_absmax(torch.stack([
+        torch.stack([(g.float() + e).abs().max() for g, e in members]).max()
+        for members in groups.values()]), shard)
+    for members, amax in zip(groups.values(), amaxes):
         scale = torch.clamp(amax, min=1e-12) / 127.0
         for g, e in members:
             g32 = g.float() + e

@@ -23,8 +23,14 @@ by a context manager, no thread-local state:
   recurrent layer: on its channels and heads, the results gathered);
   the MoE FFN dispatches tokens in rank-local groups and exchanges expert
   buffers (``models/moe.py``).
-  Under ``"fsdp"`` the batch rows split instead (the rows rule below);
-  the model refuses it until training across devices is ported.
+  Under ``"fsdp"`` (training across ranks) the batch rows split
+  instead: each rank trains on its own rows and holds dim 0 of every
+  matrix cut in n blocks (``sharding.local_params(policy="fsdp")``).
+  ``fsdp_state()`` gives its ``SeqShard``; ``gather_fsdp`` gathers a
+  layer's blocks whole in the compute dtype just before the layer
+  (``GatherLeaf``: all-gather forward, reduce-scatter of the fp32
+  gradient backward), and the train step all-reduces the gradients of
+  the leaves every rank holds whole (``launch/steps.py``).
 
 The reference's ``constrain`` places a global array; here a rank holds
 its part. ``seq_sharded_activations``, ``seq_sharded_heads`` and
@@ -39,10 +45,15 @@ expert exchange), ``gather`` (all-gathers of whole values), ``bcast``
 (the last row's logits), ``weights`` (a layer's ``tp_sp`` leaves
 gathered whole before the layer), ``halo`` (a layer's boundary rows: a
 causal conv's inputs, a window's K/V) and ``carry`` (a recurrent
-layer's scan state and decay, composed across the ranks). Point-to-point
-sends and all-to-alls of CUDA tensors over gloo, which has no GPU form
-of either, go through host buffers; ``staged_bytes`` counts the bytes
-copied so.
+layer's scan state and decay, composed across the ranks); under
+``fsdp`` also ``reduce_scatter`` (a gathered weight's fp32 gradient
+summed over the ranks, each keeping its block), ``all_reduce`` (sums:
+the gradients of whole leaves, the token count, the loss, the squared
+norm) and ``all_reduce_max`` (the int8 scales' absmax). Point-to-point
+sends, all-to-alls and reduce-scatters of CUDA tensors over gloo, which
+has no GPU form of them, go through host buffers, and so do its
+all-reduces; ``staged_bytes`` counts the bytes copied so. Over gloo a
+reduce-scatter is an all-to-all of the blocks and their sum.
 
 A recurrent layer under the policy (``models/ssm.py``,
 ``models/rglru.py``) exchanges no partial sums: ``halo`` gathers each
@@ -67,6 +78,13 @@ from repro_torch.kernels.ssd_scan import compose_states
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+# NCCL's reduce-scatter: ``reduce_scatter_single``, where torch has it,
+# is the new name of ``reduce_scatter_tensor`` (which then warns on every
+# call)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 
 @dataclasses.dataclass
@@ -191,7 +209,7 @@ def kv_shard_state() -> KVShard | None:
 
 POLICIES = ("tp_sp", "sp_rep", "fsdp")
 KINDS = ("ring", "combine", "a2a", "gather", "bcast", "weights", "halo",
-         "carry")
+         "carry", "reduce_scatter", "all_reduce", "all_reduce_max")
 
 
 @dataclasses.dataclass
@@ -343,6 +361,67 @@ class SeqShard(_Group):
                              f"ranks")
         return torch.cat(self.all_gather(tree, "weights"), dim)
 
+    def reduce_scatter(self, x: torch.Tensor, kind: str = "reduce_scatter"
+                       ) -> torch.Tensor:
+        """``x``'s dim 0 cut in ``degree`` equal blocks and summed over the
+        ranks; this rank's block of the sum. A rank sends and receives
+        degree - 1 blocks. Over gloo, an all-to-all of the blocks (through
+        pinned host buffers for CUDA tensors) and their sum in rank order
+        on the tensor's device: gloo's own reduce-scatter took 2.6 times as
+        long on one H100's four ranks (``scripts/gloo_transport.py``)."""
+        if self.degree == 1:
+            return x
+        if x.shape[0] % self.degree:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over "
+                             f"{self.degree} ranks")
+        x = x.contiguous()
+        per = (x.shape[0] // self.degree,) + x.shape[1:]
+        n = _nbytes(x) // self.degree * (self.degree - 1)
+        self._count(kind, n, n)
+        if dist.get_backend(self.group) != "gloo":
+            out = x.new_empty(per)
+            _REDUCE_SCATTER(out, x, group=self.group)
+            return out
+        src = self._to_host(x)
+        parts = torch.empty_like(src)
+        dist.all_to_all_single(parts, src, group=self.group)
+        parts = self._to_device(parts, x)
+        return parts.view((self.degree,) + per).sum(0)
+
+    def _to_host(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself on the CPU; a CUDA tensor copied into pinned host
+        memory (counted in ``staged_bytes``)."""
+        if not x.is_cuda:
+            return x
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        self.staged_bytes += _nbytes(x)
+        return host
+
+    def _to_device(self, host: torch.Tensor, like: torch.Tensor
+                   ) -> torch.Tensor:
+        """``host`` back on ``like``'s device (counted where it moves)."""
+        if not like.is_cuda:
+            return host
+        self.staged_bytes += _nbytes(host)
+        return host.to(like.device, non_blocking=True)
+
+    def all_reduce(self, x: torch.Tensor, kind: str = "all_reduce",
+                   op: str = "sum") -> torch.Tensor:
+        """``x`` summed (``op="max"``: its maximum) over the ranks,
+        elementwise; a new tensor, the same bits on every rank. Counted as
+        a reduce-scatter and an all-gather: 2 (n - 1) / n of its bytes each
+        way."""
+        if self.degree == 1:
+            return x.clone()
+        staged = self._staged(x)
+        out = self._to_host(x.detach()) if staged else x.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
+        n = 2 * _nbytes(x) * (self.degree - 1) // self.degree
+        self._count(kind, n, n)
+        return self._to_device(out, x) if staged else out
+
     def broadcast(self, x: torch.Tensor, src: int, kind: str = "bcast"
                   ) -> torch.Tensor:
         """``x`` of group rank ``src`` on every rank (in place)."""
@@ -378,6 +457,53 @@ def sharding_policy(shard: SeqShard, kind: str = "tp_sp"):
 def seq_shard_state() -> SeqShard | None:
     """The active policy's ``SeqShard``; None with no policy."""
     return None if _POLICY is None else _POLICY[0]
+
+
+def fsdp_state() -> SeqShard | None:
+    """The active policy's ``SeqShard`` under ``fsdp``; None otherwise."""
+    return _POLICY[0] if _POLICY is not None and _POLICY[1] == "fsdp" \
+        else None
+
+
+class GatherLeaf(torch.autograd.Function):
+    """A leaf split on dim 0 over ``shard``'s group, gathered whole in
+    ``dtype``: the rank's block cast to ``dtype`` and all-gathered in rank
+    order (kind ``weights``). Backward: the whole leaf's gradient in fp32,
+    summed over the ranks by a reduce-scatter (kind ``reduce_scatter``),
+    the rank's block of the sum as its block's gradient."""
+
+    @staticmethod
+    def forward(ctx_, block, shard, dtype):
+        ctx_.shard = shard
+        return torch.cat(shard.all_gather(block.detach().to(dtype),
+                                          "weights"), 0)
+
+    @staticmethod
+    def backward(ctx_, grad):
+        return ctx_.shard.reduce_scatter(grad.float()), None, None
+
+
+def gather_fsdp(tree, specs, shard: SeqShard, dtype):
+    """``tree`` (a part of a params tree) with each leaf that ``specs``
+    (``sharding.split_specs(cfg, n, "fsdp")``' matching part) marks (0,
+    whole size) and that holds the rank's block of it gathered whole
+    (``GatherLeaf``), and every other fp32 leaf of two or more dims cast
+    to ``dtype``, as ``Model.loss_fn`` casts weights on one card; 1-D
+    leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: gather_fsdp(v, specs[k], shard, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_fsdp(v, specs[i], shard, dtype)
+                for i, v in enumerate(tree)]
+    if specs is not None and tree.shape[0] != specs[1]:
+        if tree.shape[0] * shard.degree != specs[1]:
+            raise ValueError(f"a leaf of {tree.shape[0]} rows is no block of "
+                             f"{specs[1]} over {shard.degree} ranks")
+        return GatherLeaf.apply(tree, shard, dtype)
+    if tree.dtype == torch.float32 and tree.dim() >= 2:
+        return tree.to(dtype)
+    return tree
 
 
 def policy_kind() -> str:

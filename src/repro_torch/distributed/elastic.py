@@ -1,11 +1,16 @@
-"""Straggler and failure detection on the host.
+"""Elastic scaling, and straggler and failure detection on the host.
 
-Port of ``StepTimer`` and ``Watchdog`` from ``repro/distributed/
-elastic.py`` (``plan_remesh``, the degraded-mesh planner, comes with
-multi-GPU training). Every worker writes a heartbeat file a step;
-``Watchdog.status`` marks a worker a straggler after ``timeout_s`` and
-dead after ``dead_after`` missed beats. ``StepTimer`` flags a step slower
-than ``threshold`` times the EMA of the steps before it.
+Port of ``repro/distributed/elastic.py``. ``plan_remesh`` maps a
+degraded device count onto the best available (data, model) grid (model
+parallelism preserved first: TP shards hold unique weight slices; data
+ranks are interchangeable). A checkpoint restores onto the new grid
+through ``CheckpointManager.restore(..., shardings=)``, which rebuilds
+each leaf from the saved shards and cuts the new rank's block at any
+degree (``sharding.fsdp_blocks``). Every worker writes a heartbeat file
+a step; ``Watchdog.status`` marks a worker a straggler after
+``timeout_s`` and dead after ``dead_after`` missed beats. ``StepTimer``
+flags a step slower than ``threshold`` times the EMA of the steps before
+it.
 """
 
 from __future__ import annotations
@@ -14,6 +19,21 @@ import dataclasses
 import json
 import os
 import time
+
+
+def plan_remesh(n_devices: int, *, prefer_model: int = 16,
+                multi_pod_threshold: int = 512) -> dict:
+    """Largest usable (pod, data, model) grid for ``n_devices``."""
+    model = prefer_model
+    while model > 1 and n_devices % model:
+        model //= 2
+    rest = n_devices // model
+    if n_devices >= multi_pod_threshold and rest % 2 == 0:
+        return {"axes": ("pod", "data", "model"),
+                "shape": (2, rest // 2, model),
+                "devices_used": n_devices}
+    return {"axes": ("data", "model"), "shape": (rest, model),
+            "devices_used": rest * model}
 
 
 @dataclasses.dataclass

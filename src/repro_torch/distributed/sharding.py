@@ -19,10 +19,14 @@ RG-LRU width, a leaf whose dim the degree does not divide whole on every
 rank by ``fit_spec``'s rule; and ``local_params``:
 under ``sp_rep`` every weight whole but the MoE experts, split over the
 ranks; under ``tp_sp`` every leaf cut along its fitted tensor-parallel
-dim, which is what a rank holds at rest. The sequence route gathers a
-layer's split leaves whole just before the layer (``split_specs``,
-``ctx.SeqShard.gather_weights``). The ``fsdp`` rules are specs only, for
-training across devices (ROADMAP A10).
+dim, which is what a rank holds at rest; under ``fsdp`` (training) dim 0
+of every matrix, and ``local_opt_state`` cuts AdamW's moments and the
+int8 error feedback alike. The sequence route gathers a layer's split
+leaves whole just before the layer (``split_specs``,
+``ctx.SeqShard.gather_weights``); so does training under ``fsdp``
+(``split_specs(..., "fsdp")``, ``ctx.gather_fsdp``). ``fsdp_blocks``
+names each leaf's block for the sharded checkpoints
+(``checkpoint/manager.py``).
 
 One departure from the reference's rules (ROADMAP C17): its ``embed$``
 comes first and also matches ``unembed``, so an untied (D, V)
@@ -165,28 +169,30 @@ def batch_specs(*, policy: str = "tp_sp", batch: int | None = None,
 
 def local_params(params: dict, *, rank: int, degree: int,
                  policy: str = "sp_rep", in_place: bool = False) -> dict:
-    """Rank ``rank``'s parameters under the sequence-sharding ``policy``.
+    """Rank ``rank``'s parameters under the sharding ``policy``.
 
     ``sp_rep``: every weight whole (the same tensors) but each MoE layer's
     routed experts, [r·E/n, (r+1)·E/n) copied out. ``tp_sp``: every leaf
     cut to the rank's block along its fitted ``param_specs`` dim (a dim
     the degree does not divide stays whole), the experts as under
-    ``sp_rep``. With ``in_place`` the blocks replace the leaves in
-    ``params`` itself, each whole leaf released as its block is copied,
-    so a whole tree drawn on the device never lives beside its cut."""
+    ``sp_rep``. ``fsdp``: every leaf of two or more dims cut to the rank's
+    block of dim 0 where the degree divides it, the rest whole. With
+    ``in_place`` the blocks replace the leaves in ``params`` itself, each
+    whole leaf released as its block is copied, so a whole tree drawn on
+    the device never lives beside its cut."""
     if not 0 <= rank < degree:
         raise ValueError(f"rank {rank} is not in a group of {degree}")
-    if policy not in ("sp_rep", "tp_sp"):
-        raise ValueError(f"local_params serves sp_rep and tp_sp, not "
-                         f"{policy!r}")
-    dims = param_specs(params, policy="tp_sp", degree=degree)
+    if policy not in POLICIES:
+        raise ValueError(f"unknown policy {policy!r}")
+    dims = param_specs(params, policy="fsdp" if policy == "fsdp"
+                       else "tp_sp", degree=degree)
 
     def cut(path: str, leaf, dim):
-        expert = _is_expert(path, leaf)
+        expert = policy != "fsdp" and _is_expert(path, leaf)
         if expert and leaf.shape[0] % degree:
             raise ValueError(f"{leaf.shape[0]} experts do not split over "
                              f"{degree} ranks")
-        if dim is None or not (expert or policy == "tp_sp"):
+        if dim is None or not (expert or policy != "sp_rep"):
             return leaf
         per = leaf.shape[dim] // degree
         return leaf.narrow(dim, rank * per, per).clone()
@@ -205,17 +211,43 @@ def local_params(params: dict, *, rank: int, degree: int,
     return visit(params, dims, "")
 
 
+def local_opt_state(opt_state: dict, *, rank: int, degree: int,
+                    in_place: bool = False) -> dict:
+    """Rank ``rank``'s part of AdamW's state (``opt_specs``) under
+    ``fsdp``: ``mu``, ``nu`` and the int8 error feedback ``err`` cut as
+    ``local_params(policy="fsdp")`` cuts their parameters, ``step``
+    whole."""
+    out = opt_state if in_place else dict(opt_state)
+    for key in ("mu", "nu", "err"):
+        if key in opt_state:
+            out[key] = local_params(opt_state[key], rank=rank, degree=degree,
+                                    policy="fsdp", in_place=in_place)
+    return out
+
+
+def fsdp_blocks(tree, *, rank: int, degree: int):
+    """A tree shaped like ``tree`` (whole shapes: a whole tree, or one on
+    the meta device) holding, for each leaf ``fsdp`` splits over
+    ``degree`` ranks, (0, rank, degree): rank ``rank`` holds its block of
+    dim 0; None for a leaf every rank holds whole. ``CheckpointManager``
+    reads it as ``shardings``."""
+    return tree_map(lambda leaf: None if fit_dim(
+        0 if leaf.dim() >= 2 else None, leaf.shape, degree) is None
+        else (0, rank, degree), tree)
+
+
 @functools.lru_cache(maxsize=None)
-def split_specs(cfg, degree: int) -> dict:
+def split_specs(cfg, degree: int, policy: str = "tp_sp") -> dict:
     """A tree shaped like ``cfg``'s parameters holding, for each leaf that
-    ``tp_sp`` splits over ``degree`` ranks and the sequence route gathers
-    on use, (dim, whole size); None for a leaf held whole (the experts
-    too: their route exchanges tokens, not weights). From the shapes of
-    ``init`` on the meta device."""
+    ``policy`` splits over ``degree`` ranks and its route gathers on use,
+    (dim, whole size); None for a leaf held whole (under ``tp_sp`` the
+    experts too: their route exchanges tokens, not weights). ``tp_sp``:
+    the sequence route; ``fsdp``: training, dim 0 of every matrix. From
+    the shapes of ``init`` on the meta device."""
     from repro_torch.models.transformer import init
 
     shapes = init(cfg, device="meta")
-    dims = param_specs(shapes, policy="tp_sp", degree=degree)
+    dims = param_specs(shapes, policy=policy, degree=degree)
 
     def visit(node, spec, prefix: str):
         if isinstance(node, dict):
@@ -224,7 +256,8 @@ def split_specs(cfg, degree: int) -> dict:
         if isinstance(node, list):
             return [visit(v, spec[i], f"{prefix}{i}/")
                     for i, v in enumerate(node)]
-        if spec is None or _is_expert(prefix[:-1], node):
+        if spec is None or (policy == "tp_sp"
+                            and _is_expert(prefix[:-1], node)):
             return None
         return spec, node.shape[spec]
 

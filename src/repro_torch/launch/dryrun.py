@@ -20,8 +20,14 @@ holds the policy's cut of the weights (``sharding.local_params``): under
 step reaches them; under ``sp_rep`` every weight whole but the experts.
 The whole draw is cut in place, so it does not outlive the cut.
 
-A train cell raises: training across devices is not ported yet
-(ROADMAP A10).
+A train cell runs ``steps`` train steps under ``fsdp`` (a dense, ssm,
+hybrid, audio or vision stack at an even batch): each rank holds its
+``fsdp`` blocks of fp32 weights and AdamW state, draws its slice of
+seeded ``SyntheticLMData`` at the cell's sequence (a vision cell's F
+patch rows count toward it), and trains with ``"chunked"`` attention
+(the kernels have no backward); the record adds each step's loss and
+grad norm. A ``tp_sp`` train cell (MoE, or an odd batch) raises
+``NotImplementedError`` naming ROADMAP A10 item 3b.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from repro_torch.launch.steps import (
     choose_policy,
     make_decode_step,
     make_prefill_step,
+    make_train_step,
 )
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import (
@@ -149,6 +156,37 @@ def decode_steps(model, params, cache, tokens, start: int, dev) -> tuple:
     return torch.stack(logits), ms, wall
 
 
+def train_steps(model, params, shard: SeqShard, cell, *, seed: int,
+                steps: int, dev) -> tuple:
+    """``steps`` fsdp train steps of ``model`` on this rank's slice of
+    seeded ``SyntheticLMData`` (seed ``seed``) at ``cell``'s global batch
+    and sequence -> (metrics a step, device ms a step, wall s a step).
+    AdamW at the train launcher's defaults, no compression."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.train import batch_on
+    from repro_torch.optim import OptConfig, adamw_init
+
+    cfg = model.cfg
+    f = cfg.num_frontend_tokens if cfg.frontend else 0
+    data = SyntheticLMData(
+        vocab_size=cfg.vocab_size, global_batch=cell.global_batch,
+        seq_len=cell.seq_len - (f if cfg.frontend == "vision" else 0),
+        seed=seed, process_index=shard.rank, process_count=shard.degree,
+        frontend_tokens=f, d_model=cfg.d_model)
+    step = make_train_step(model, OptConfig(lr=3e-3, warmup_steps=0,
+                                            total_steps=steps))
+    opt = adamw_init(params)
+    metrics, ms, wall = [], [], []
+    for i in range(steps):
+        batch = batch_on(data.batch_at(i), dev)
+        (params, opt, m), t, w = _timed(lambda: step(params, opt, batch),
+                                        dev)
+        metrics.append({k: float(v) for k, v in m.items()})
+        ms.append(t)
+        wall.append(w)
+    return metrics, ms, wall
+
+
 def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
              params=None, seed: int = 0, device="cuda",
              max_len: int | None = None, steps: int = 1) -> tuple:
@@ -170,30 +208,75 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
     length holding its first ``seq_len - steps`` rows (an
     encoder-decoder's: its memories' F rows too) and decodes ``steps``
     seeded tokens to its end: outputs ``logits`` (steps, B, V) and
-    ``cache``. Every rank returns the same logits.
+    ``cache``. Every rank returns the same logits. A train cell runs
+    ``steps`` fsdp train steps (``train_steps``, data seed ``seed + 5``;
+    ``params`` fp32, the rank's blocks, trained in place): outputs
+    ``metrics`` a step, the same on every rank, and ``params``.
     """
     cell = SHAPES[shape] if isinstance(shape, str) else shape
-    if cell.kind == "train":
-        raise NotImplementedError("a train cell needs training across "
-                                  "devices, which is not ported (ROADMAP A10)")
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     runnable, why = cell_is_runnable(cfg.name, cell.name)
     if not runnable:
         raise ValueError(f"{cfg.name} x {cell.name}: {why}")
     cell = dataclasses.replace(cell, global_batch=batch or cell.global_batch)
     dev = resolve_device(device)
-    model = build_model(cfg)
     policy = choose_policy(cfg, cell)
+    if cell.kind == "train":
+        if policy != "fsdp":
+            raise NotImplementedError(
+                f"{cfg.name} x {cell.name} trains under {policy}, whose "
+                f"backward across ranks is not ported (ROADMAP A10 item 3b)")
+        if cell.global_batch % shard.degree:
+            raise ValueError(f"a global batch of {cell.global_batch} does "
+                             f"not split over {shard.degree} ranks")
+        if cfg.attn_impl == "kernel":
+            cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    model = build_model(cfg)
     if params is None:
-        params = local_params(model.init(seed, device=dev), rank=shard.rank,
-                              degree=shard.degree, policy=policy,
-                              in_place=True)
+        dtype = torch.float32 if cell.kind == "train" else None
+        params = local_params(model.init(seed, device=dev, dtype=dtype),
+                              rank=shard.rank, degree=shard.degree,
+                              policy=policy, in_place=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    b, s = cell.global_batch, cell.seq_len
     shard.reset_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    if cell.kind == "train":
+        with sharding_policy(shard, policy):
+            metrics, ms, wall = train_steps(model, params, shard, cell,
+                                            seed=seed + 5, steps=steps,
+                                            dev=dev)
+        outputs = {"metrics": metrics, "params": params}
+    else:
+        outputs, ms, wall = _serve_cell(model, params, shard, cell, policy,
+                                        seed=seed, dev=dev, max_len=max_len,
+                                        steps=steps)
+    b, s = cell.global_batch, cell.seq_len
+    record = {
+        "arch": cfg.name, "shape": cell.name, "kind": cell.kind,
+        "policy": policy, "degree": shard.degree, "rank": shard.rank,
+        "batch": b, "seq_len": s, "steps": len(ms),
+        "step_device_ms": ms if dev.type == "cuda" else "not measured",
+        "step_wall_s": wall,
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else "not measured"),
+        "model_flops": model_flops(cfg, cell, causal=True),
+        "sent_bytes": dict(shard.sent), "received_bytes": dict(shard.received),
+        "staged_bytes": shard.staged_bytes,
+    }
+    if cell.kind == "train":
+        record["losses"] = [m["loss"] for m in outputs["metrics"]]
+        record["grad_norms"] = [m["grad_norm"] for m in outputs["metrics"]]
+    return record, outputs
+
+
+def _serve_cell(model, params, shard, cell, policy: str, *, seed: int, dev,
+                max_len, steps: int) -> tuple:
+    """A prefill or decode cell's step(s) under the policy -> (outputs,
+    device ms a step, wall s a step); see ``run_cell``."""
+    cfg = model.cfg
+    b, s = cell.global_batch, cell.seq_len
     with torch.no_grad(), sharding_policy(shard, policy):
         if cell.kind == "prefill":
             batch = {}
@@ -215,16 +298,4 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
             logits, ms, wall = decode_steps(model, params, cache, tokens,
                                             s - steps, dev)
             outputs = {"logits": logits, "cache": cache}
-    record = {
-        "arch": cfg.name, "shape": cell.name, "kind": cell.kind,
-        "policy": policy, "degree": shard.degree, "rank": shard.rank,
-        "batch": b, "seq_len": s, "steps": len(ms),
-        "step_device_ms": ms if dev.type == "cuda" else "not measured",
-        "step_wall_s": wall,
-        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
-                           if dev.type == "cuda" else "not measured"),
-        "model_flops": model_flops(cfg, cell, causal=True),
-        "sent_bytes": dict(shard.sent), "received_bytes": dict(shard.received),
-        "staged_bytes": shard.staged_bytes,
-    }
-    return record, outputs
+    return outputs, ms, wall

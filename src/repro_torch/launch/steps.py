@@ -2,49 +2,94 @@
 the distribution policy of a cell.
 
 Port of the step functions and ``choose_policy`` of
-``repro/launch/steps.py``. The prefill and decode steps run on one card,
-or on a rank of a group under ``distributed/ctx.sharding_policy`` with
-the policy ``choose_policy`` names (``launch/dryrun.run_cell``). The
-reference's abstract input specs (``abstract_params``, ``batch_sds``,
-``abstract_cache``, ``cell_lowering_inputs``) lower its steps onto XLA
-meshes; the port runs a cell on real tensors instead.
+``repro/launch/steps.py``. The train step runs on one card, or on a rank
+of a group under ``sharding_policy(shard, "fsdp")`` (the reference's
+``fsdp`` train cells); the prefill and decode steps on one card, or on a
+rank under the policy ``choose_policy`` names
+(``launch/dryrun.run_cell``). The reference's abstract input specs
+(``abstract_params``, ``batch_sds``, ``abstract_cache``,
+``cell_lowering_inputs``) lower its steps onto XLA meshes; the port runs
+a cell on real tensors instead.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.compression import apply_compression_
+from repro_torch.distributed import compression as comp
+from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import split_specs
 from repro_torch.models.api import Model
 from repro_torch.optim import OptConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import reference_leaf
 
 
-def make_train_step(model: Model, opt_cfg: OptConfig,
-                    compression: str | None = None, grad_accum: int = 1):
-    """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``: the loss and gradients of the batch (as ``grad_accum``
-    contiguous microbatches, losses and gradients summed and then scaled
-    by 1 / grad_accum, as the reference's scan over its reshaped batch),
-    the gradients compressed (``"bf16"``, or ``"int8"`` with the error
-    feedback in ``opt_state["err"]`` and one scale over the layers the
-    reference stacks in one array), then one AdamW step.
+def token_denominators(labels: torch.Tensor, grad_accum: int,
+                       shard) -> torch.Tensor:
+    """(B,) fp32, for each of a rank's B rows the count of unmasked labels
+    (>= 0) in its microbatch of the global batch, the ranks' rows
+    concatenated in rank order and cut in ``grad_accum`` contiguous
+    microbatches (the reference's reshape of its batch), at least 1: the
+    rank's counts by microbatch, all-reduced once."""
+    b = labels.shape[0]
+    rows = torch.arange(b, device=labels.device) + shard.rank * b
+    mb = rows // (b * shard.degree // grad_accum)
+    counts = torch.zeros(grad_accum, dtype=torch.float32,
+                         device=labels.device).index_add_(
+        0, mb, (labels >= 0).sum(-1).float())
+    counts = shard.all_reduce(counts, "all_reduce")
+    return torch.clamp(counts, min=1.0)[mb]
 
-    The parameters are fp32 leaf tensors, updated in place; the step
-    sets their ``requires_grad`` and leaves it set, so a ``"kernel"``
-    forward on them afterwards runs under ``torch.no_grad()``. The
-    metrics (``loss``, ``grad_norm``, ``lr``) are fp32 tensors on the
-    device."""
-    if compression not in (None, "none", "bf16", "int8"):
-        raise ValueError(f"unknown compression {compression!r}")
-    cfg = model.cfg
 
-    def group_of(path: str) -> str:
-        # int8 shares a scale over the layers the reference stacks
-        return reference_leaf(path, cfg)
+def split_leaves(params, cfg, shard) -> dict:
+    """A tree shaped like ``params``: true for a leaf ``fsdp`` splits and
+    the rank holds a block of (``split_specs(..., "fsdp")``)."""
+    specs = split_specs(cfg, shard.degree, "fsdp")
 
-    def train_step(params, opt_state, batch):
+    def visit(node, spec):
+        if isinstance(node, dict):
+            return {k: visit(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v, spec[i]) for i, v in enumerate(node)]
+        return spec is not None and node.shape[0] != spec[1]
+
+    return visit(params, specs)
+
+
+def _sum_whole_grads(leaves, split, shard) -> None:
+    """The gradients of the leaves every rank holds whole, summed over the
+    ranks in one all-reduce of their concatenation (kind
+    ``all_reduce``)."""
+    whole = [p for p, s in zip(leaves, split) if not s]
+    if shard.degree == 1 or not whole:
+        return
+    flat = shard.all_reduce(torch.cat([p.grad.reshape(-1) for p in whole]),
+                            "all_reduce")
+    at = 0
+    for p in whole:
+        p.grad.copy_(flat[at:at + p.numel()].view_as(p.grad))
+        at += p.numel()
+
+
+def make_loss_and_grads(model: Model, grad_accum: int = 1):
+    """``(params, batch) -> (loss, grads)``: the batch's loss (fp32, no
+    grad) and a tree of its gradients, as ``grad_accum`` contiguous
+    microbatches, losses and gradients summed and then scaled by
+    1 / grad_accum, as the reference's scan over its reshaped batch. The
+    gradients are each parameter's ``.grad`` (zeros for a parameter the
+    loss never read), which the caller clears.
+
+    Under ``fsdp`` the batch is the rank's rows and the parameters its
+    blocks (``sharding.local_params(policy="fsdp")``): each microbatch's
+    loss divides by its global count of labels (``token_denominators``),
+    each gathered weight's gradient is reduce-scattered into the rank's
+    block in the backward (``ctx.GatherLeaf``) and summed over the
+    microbatches there, the whole leaves' gradients are all-reduced once
+    after the last microbatch, zeros included (no rank skips a
+    collective), and the loss is the ranks' losses all-reduced."""
+    def loss_and_grads(params, batch):
+        shard = ctx.fsdp_state()
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -54,10 +99,13 @@ def make_train_step(model: Model, opt_cfg: OptConfig,
             raise ValueError(f"batch {n} does not split into {grad_accum} "
                              "microbatches")
         m = n // grad_accum
+        denom = None if shard is None else token_denominators(
+            batch["labels"], grad_accum, shard)
         loss = None
         for i in range(grad_accum):
             mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-            mb_loss = model.loss_fn(params, mb)
+            mb_loss = model.loss_fn(params, mb) if shard is None else \
+                model.loss_fn(params, mb, denom=denom[i * m:(i + 1) * m])
             mb_loss.backward()      # sums into each parameter's .grad
             loss = mb_loss.detach() if loss is None \
                 else loss + mb_loss.detach()
@@ -65,16 +113,59 @@ def make_train_step(model: Model, opt_cfg: OptConfig,
             for p in leaves:
                 if p.grad is None:      # a parameter the loss never read
                     p.grad = torch.zeros_like(p)
-                elif grad_accum > 1:
+            if shard is not None:
+                _sum_whole_grads(leaves, tree_leaves(
+                    split_leaves(params, model.cfg, shard)), shard)
+                loss = shard.all_reduce(loss, "all_reduce")
+            if grad_accum > 1:
+                for p in leaves:
                     p.grad.mul_(1.0 / grad_accum)
-        if grad_accum > 1:
-            loss = loss * (1.0 / grad_accum)
-        grads = tree_map(lambda p: p.grad, params)
+                loss = loss * (1.0 / grad_accum)
+        return loss, tree_map(lambda p: p.grad, params)
+
+    return loss_and_grads
+
+
+def make_train_step(model: Model, opt_cfg: OptConfig,
+                    compression: str | None = None, grad_accum: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and gradients of the batch
+    (``make_loss_and_grads``), the gradients compressed (``"bf16"``, or
+    ``"int8"`` with the error feedback in ``opt_state["err"]`` and one
+    scale over the layers the reference stacks in one array), then one
+    AdamW step.
+
+    The parameters are fp32 leaf tensors, updated in place; the step
+    sets their ``requires_grad`` and leaves it set, so a ``"kernel"``
+    forward on them afterwards runs under ``torch.no_grad()``. The
+    metrics (``loss``, ``grad_norm``, ``lr``) are fp32 tensors on the
+    device.
+
+    Under ``sharding_policy(shard, "fsdp")`` the step works on the rank's
+    batch rows, its blocks of the parameters and its blocks of the
+    optimizer state (``sharding.local_opt_state``): the gradients are
+    the global batch's, reduced over the ranks before compression (int8's
+    scales over every rank's blocks), the clipping norm is global, and
+    AdamW runs on the blocks. Every rank returns the same metrics."""
+    if compression not in (None, "none", "bf16", "int8"):
+        raise ValueError(f"unknown compression {compression!r}")
+    cfg = model.cfg
+    loss_and_grads = make_loss_and_grads(model, grad_accum)
+
+    def group_of(path: str) -> str:
+        # int8 shares a scale over the layers the reference stacks
+        return reference_leaf(path, cfg)
+
+    def train_step(params, opt_state, batch):
+        shard = ctx.fsdp_state()
+        loss, grads = loss_and_grads(params, batch)
         err = opt_state["err"] if compression == "int8" else None
-        apply_compression_(grads, err, compression, group_of)
+        comp.apply_compression_(grads, err, compression, group_of, shard)
+        split = None if shard is None else split_leaves(params, cfg, shard)
         params, opt_state, metrics = adamw_update(grads, opt_state, params,
-                                                  opt_cfg)
-        for p in leaves:
+                                                  opt_cfg, shard=shard,
+                                                  split=split)
+        for p in tree_leaves(params):
             p.grad = None
         return params, opt_state, dict(metrics, loss=loss)
 

@@ -1,7 +1,9 @@
-"""Fault-tolerant training launcher on one device.
+"""Fault-tolerant training launcher, on one device or across ranks.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke --device cpu --steps 30
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen3-1.7b --smoke --device cpu --steps 30
 
 Port of ``repro/launch/train.py``: the same flags less ``--mesh``, plus
 ``--device`` (default ``cuda``, which raises where there is no CUDA
@@ -11,6 +13,20 @@ the seekable ``SyntheticLMData`` stream (a resumed run sees the batches
 an uninterrupted one saw), flags straggler steps (``StepTimer``), writes
 a heartbeat a step (``Watchdog``) and, with ``--metrics-file``, a JSON
 line a step. Weights are the port's own init from seed 0, in fp32.
+
+Across ranks: with a default ``torch.distributed`` group of more than
+one rank (initialized here from ``torchrun``'s environment when it is
+not yet: NCCL with a card a rank, ``cuda:LOCAL_RANK``; gloo with
+``--device cpu``), it trains under ``steps.choose_policy``'s policy at
+the group's degree. ``--batch`` is the global batch; each rank draws its
+slice (``SyntheticLMData(process_index=rank, process_count=n)``, as the
+reference's launcher), holds its ``fsdp`` blocks of the weights and the
+optimizer state, and saves and restores them sharded (a checkpoint
+saved at another degree restores onto this one). The heartbeat worker
+is ``proc<rank>``; rank 0 alone prints and writes ``--metrics-file``.
+Where the reference's launcher places parameters by the ``tp_sp`` rules
+whatever the cell, the port follows ``choose_policy``: ``tp_sp`` (an MoE
+stack, or an odd batch) above one rank raises ``NotImplementedError``.
 
 The kernels have no backward, so a config whose ``attn_impl`` is
 ``"kernel"`` trains on ``"chunked"`` (the reference's ``"xla"``), and
@@ -25,16 +41,22 @@ import json
 import os
 import time
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import get_arch, get_smoke
+from repro_torch.configs import ShapeCell, get_arch, get_smoke
 from repro_torch.data import SyntheticLMData
 from repro_torch.distributed.compression import init_error_feedback
+from repro_torch.distributed.ctx import SeqShard, sharding_policy
 from repro_torch.distributed.elastic import StepTimer, Watchdog
-from repro_torch.launch.steps import make_train_step
+from repro_torch.distributed.sharding import fsdp_blocks, local_params
+from repro_torch.launch.steps import choose_policy, make_train_step
 from repro_torch.models.api import build_model
+from repro_torch.models.transformer import init
 from repro_torch.optim import OptConfig, adamw_init
 
 
@@ -44,6 +66,33 @@ def batch_on(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(
         device, torch.float32 if k == "frontend" else torch.int64)
         for k, v in batch.items()}
+
+
+def join_group(device: str) -> tuple[int, int, bool]:
+    """(rank, ranks, whether this call initialized the default group): the
+    default group's, initialized from ``torchrun``'s environment where it
+    spans more than one rank and is not yet (NCCL, or gloo for a CPU
+    ``device``); (0, 1, False) with no group."""
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size(), False
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return 0, 1, False
+    backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
+    dist.init_process_group(backend)
+    return dist.get_rank(), dist.get_world_size(), True
+
+
+def state_blocks(cfg, compression: str, rank: int, degree: int) -> dict:
+    """Each leaf's ``fsdp`` block of the saved state ``{"params", "opt"}``
+    on rank ``rank`` of ``degree`` (``sharding.fsdp_blocks``), from the
+    shapes of ``init`` on the meta device."""
+    shapes = init(cfg, device="meta")
+    opt = {"mu": shapes, "nu": shapes,
+           "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    if compression == "int8":
+        opt["err"] = shapes
+    return fsdp_blocks({"params": shapes, "opt": opt}, rank=rank,
+                       degree=degree)
 
 
 def main(argv=None):
@@ -71,7 +120,20 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    rank, degree, joined = join_group(args.device)
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and degree > 1:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(dev)
+    try:
+        return _train(args, rank, degree, dev)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, rank: int, degree: int, dev) -> list:
+    lead = rank == 0
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     overrides = {}
     if args.d_model:
@@ -83,11 +145,21 @@ def main(argv=None):
     if args.layers:
         overrides["num_layers"] = args.layers
     if cfg.attn_impl == "kernel":
-        print('[train] the attention kernels have no backward: training '
-              'with attn_impl="chunked"')
+        if lead:
+            print('[train] the attention kernels have no backward: '
+                  'training with attn_impl="chunked"')
         overrides["attn_impl"] = "chunked"
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    policy = choose_policy(cfg, ShapeCell("train", args.seq, args.batch,
+                                          "train"))
+    if degree > 1 and policy != "fsdp":
+        raise NotImplementedError(
+            f"training {cfg.name} at batch {args.batch} takes the {policy} "
+            f"policy, whose backward across ranks is not ported (ROADMAP "
+            f"A10 item 3b); fsdp trains dense, ssm, hybrid, audio and "
+            f"vision stacks at an even batch")
+    shard = SeqShard(None, rank, degree)
 
     model = build_model(cfg)
     horizon = args.total_steps or args.steps
@@ -95,68 +167,84 @@ def main(argv=None):
                         total_steps=horizon)
     data = SyntheticLMData(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
-        global_batch=args.batch, seed=17,
+        global_batch=args.batch, seed=17, process_index=rank,
+        process_count=degree,
         frontend_tokens=cfg.num_frontend_tokens if cfg.frontend else 0,
         d_model=cfg.d_model,
     )
 
     params = model.init(seed=0, device=dev, dtype=torch.float32)
+    if degree > 1:
+        params = local_params(params, rank=rank, degree=degree,
+                              policy="fsdp", in_place=True)
     opt_state = adamw_init(params)
     if args.compression == "int8":
         opt_state["err"] = init_error_feedback(params)
+    blocks = (state_blocks(cfg, args.compression, rank, degree)
+              if degree > 1 else None)
 
     start_step = 0
     ckpt = None
     if args.ckpt_dir:
-        ckpt = CheckpointManager(args.ckpt_dir, keep=3)
+        ckpt = CheckpointManager(args.ckpt_dir, keep=3, rank=rank,
+                                 degree=degree)
+        if degree > 1:
+            dist.barrier()    # rank 0 has cleared interrupted saves
         state = {"params": params, "opt": opt_state}
-        step_found, restored = ckpt.restore_latest(state, device=dev)
+        step_found, restored = ckpt.restore_latest(state, device=dev,
+                                                   shardings=blocks)
         if step_found is not None:
             params = restored["params"]
             opt_state = restored["opt"]
             start_step = step_found
-            print(f"[train] restored checkpoint at step {start_step}")
+            if lead:
+                print(f"[train] restored checkpoint at step {start_step}")
 
     step_fn = make_train_step(model, opt_cfg, args.compression
                               if args.compression != "none" else None)
     timer = StepTimer()
     watchdog = (Watchdog(os.path.join(args.ckpt_dir, "hb"))
                 if args.ckpt_dir else None)
-    metrics_f = open(args.metrics_file, "a") if args.metrics_file else None
-    worker = "proc0"
+    metrics_f = (open(args.metrics_file, "a")
+                 if args.metrics_file and lead else None)
+    worker = f"proc{rank}"
+    policy_ctx = (sharding_policy(shard, "fsdp") if degree > 1
+                  else contextlib.nullcontext())
 
     losses = []
-    try:
-        for step in range(start_step, args.steps):
-            t0 = time.time()
-            batch = batch_on(data.batch_at(step), dev)
-            params, opt_state, m = step_fn(params, opt_state, batch)
-            loss = float(m["loss"])
-            dt = time.time() - t0
-            slow = timer.observe(dt)
-            losses.append(loss)
-            if watchdog:
-                watchdog.beat(worker, step)
-            if slow:
-                print(f"[train] step {step}: straggler step "
-                      f"({dt:.2f}s vs ema {timer.ema:.2f}s)")
-            if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"[train] step {step} loss={loss:.4f} "
-                      f"gnorm={float(m['grad_norm']):.3f} "
-                      f"lr={float(m['lr']):.2e} {dt:.2f}s", flush=True)
+    with policy_ctx:
+        try:
+            for step in range(start_step, args.steps):
+                t0 = time.time()
+                batch = batch_on(data.batch_at(step), dev)
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                loss = float(m["loss"])
+                dt = time.time() - t0
+                slow = timer.observe(dt)
+                losses.append(loss)
+                if watchdog:
+                    watchdog.beat(worker, step)
+                if slow and lead:
+                    print(f"[train] step {step}: straggler step "
+                          f"({dt:.2f}s vs ema {timer.ema:.2f}s)")
+                if lead and (step % args.log_every == 0
+                             or step == args.steps - 1):
+                    print(f"[train] step {step} loss={loss:.4f} "
+                          f"gnorm={float(m['grad_norm']):.3f} "
+                          f"lr={float(m['lr']):.2e} {dt:.2f}s", flush=True)
+                if metrics_f:
+                    metrics_f.write(json.dumps(
+                        {"step": step, "loss": loss, "dt": dt}) + "\n")
+                if ckpt and (step + 1) % args.save_every == 0:
+                    ckpt.save(step + 1, {"params": params, "opt": opt_state},
+                              blocking=False, shardings=blocks)
+            if ckpt:
+                ckpt.save(args.steps, {"params": params, "opt": opt_state},
+                          blocking=True, shardings=blocks)
+        finally:
             if metrics_f:
-                metrics_f.write(json.dumps(
-                    {"step": step, "loss": loss, "dt": dt}) + "\n")
-            if ckpt and (step + 1) % args.save_every == 0:
-                ckpt.save(step + 1, {"params": params, "opt": opt_state},
-                          blocking=False)
-        if ckpt:
-            ckpt.save(args.steps, {"params": params, "opt": opt_state},
-                      blocking=True)
-    finally:
-        if metrics_f:
-            metrics_f.close()
-    if losses:
+                metrics_f.close()
+    if losses and lead:
         print(f"[train] done. first loss={losses[0]:.4f} "
               f"last loss={losses[-1]:.4f}")
     return losses

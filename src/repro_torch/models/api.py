@@ -19,6 +19,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed import ctx
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ArchConfig
 from repro_torch.tree import tree_map
@@ -50,18 +51,28 @@ class Model:
     # (params, frames) -> encoder output; None without an encoder
     encode: Callable[..., Any] | None = None
 
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, *, denom=None):
         """Next-token cross-entropy (+ the MoE aux loss) of a batch:
         ``tokens`` and ``labels`` (B, S) integer tensors, labels < 0
         masked, and ``frontend`` (B, F, D) stub patches (vision) or frames
         (audio). Port of the reference's ``Model.loss_fn``: fp32 params
         of two or more dims cast to the compute dtype once (autograd
         carries the cast back to them), log-softmax in fp32 over the text
-        positions only."""
+        positions only.
+
+        Under ``fsdp`` the batch is the rank's rows of the global batch and
+        the mean is the global one: the rank's masked sum over the count
+        of unmasked labels on every rank (one all-reduce), so the ranks'
+        losses sum to the global batch's; the weights are cast where the
+        model gathers them (``ctx.gather_fsdp``). ``denom`` (one entry a
+        row) replaces that count, row by row: the train step's
+        microbatches (``launch/steps.py``)."""
         cfg = self.cfg
-        params = tree_map(
-            lambda p: p.to(cfg.compute_dtype)
-            if p.dtype == torch.float32 and p.dim() >= 2 else p, params)
+        shard = ctx.fsdp_state()
+        if shard is None:
+            params = tree_map(
+                lambda p: p.to(cfg.compute_dtype)
+                if p.dtype == torch.float32 and p.dim() >= 2 else p, params)
         kwargs = {}
         if cfg.frontend == "vision":
             kwargs["frontend_embeds"] = batch["frontend"]
@@ -74,7 +85,13 @@ class Model:
         logp = torch.log_softmax(logits.float(), dim=-1)
         ll = logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
         mask = (labels >= 0).float()
-        ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        if denom is not None:
+            ce = -((ll * mask).sum(-1) / denom).sum()
+        elif shard is not None:
+            count = shard.all_reduce(mask.sum(), "all_reduce")
+            ce = -(ll * mask).sum() / torch.clamp(count, min=1.0)
+        else:
+            ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         if cfg.moe is not None:
             ce = ce + cfg.moe.aux_loss_weight * aux / max(1, cfg.num_layers)
         return ce

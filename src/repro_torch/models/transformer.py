@@ -63,6 +63,19 @@ unembedding are then all-gathered whole just before their use and
 dropped after (``SeqShard.gather_weights``), so the results are the
 whole weights' bit for bit; whole weights pass through unchanged.
 
+Under ``sharding_policy(shard, "fsdp")`` (training across ranks, the
+reference's ``fsdp``) ``forward`` and ``encode`` run the single card's
+route on the rank's own batch rows, and each rank holds dim 0 of every
+matrix cut in n blocks (``local_params(policy="fsdp")``): the embedding
+is gathered whole in the compute dtype before the embedding lookup (a
+tied one kept for the unembedding, so its two uses' gradients sum in
+one reduce-scatter, as one card sums them), an untied unembedding
+before its use, each layer's blocks just before the layer, inside its
+``checkpoint`` region under remat, so the backward gathers them again
+and no gathered layer outlives its use (``ctx.gather_fsdp``; the
+backward reduce-scatters each gathered weight's gradient). ``prefill`` and ``decode_step`` refuse it, and so
+does an MoE stack (its train cells take ``tp_sp``, ROADMAP A10 item 3b).
+
 The encoder under the policy runs rank r's block of the F frames: each
 layer all-gathers its K/V whole (``SeqShard.whole``, kind ``gather``)
 and the rank's Q rows attend every frame non-causally on the
@@ -648,7 +661,11 @@ def encode(params, frames, cfg: ArchConfig):
 
     Under the sharding policy the rank's block of the output, (B, F/n,
     D), or all F rows where the degree n does not divide F
-    (``_seq_encode``)."""
+    (``_seq_encode``); under ``fsdp`` the rank's batch rows whole, each
+    layer's weights gathered on use (``_fsdp_encode``)."""
+    fsdp = ctx.fsdp_state()
+    if fsdp is not None:
+        return _fsdp_encode(params, frames, cfg, fsdp)
     shard = seq_shard_state()
     if shard is not None:
         return _seq_encode(params, frames, cfg, shard)
@@ -704,7 +721,12 @@ def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
     rank's block as ``encode`` gives it under the policy), and the final
     rows are all-gathered, so every rank returns the whole logits; aux
     is the groups' loss. It does not train: a backward cannot cross the
-    ring."""
+    ring. Under ``fsdp`` the rank's batch rows on the single card's route,
+    the weights gathered on use (``_fsdp_forward``)."""
+    fsdp = ctx.fsdp_state()
+    if fsdp is not None:
+        return _fsdp_forward(params, tokens, cfg, fsdp, frontend_embeds,
+                             encoder_out)
     shard = seq_shard_state()
     if shard is not None:
         return _seq_forward(params, tokens, cfg, shard, frontend_embeds,
@@ -921,11 +943,84 @@ def check_seq_support(cfg: ArchConfig) -> None:
     serves ``cfg``: every stack (dense, MoE, ssm, hybrid, the vision
     frontend's patch rows in the row split, the encoder-decoder's split
     encoder and cross memories) under ``tp_sp`` or ``sp_rep``; not
-    ``fsdp``, which splits the batch for training."""
+    ``fsdp``, which splits the batch for training (``forward`` and
+    ``encode`` only)."""
     if ctx.policy_kind() == "fsdp":
         raise NotImplementedError(
-            f"the fsdp policy splits the batch for training across devices "
-            f"(got {cfg.name}), ROADMAP A10")
+            f"the fsdp policy splits the batch for training across devices; "
+            f"{cfg.name} serves under tp_sp or sp_rep, ROADMAP A10")
+
+
+# ---------------------------------------------------------------------------
+# training under fsdp
+# ---------------------------------------------------------------------------
+
+
+def _fsdp_specs(cfg: ArchConfig, shard) -> dict:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"fsdp training of the MoE stack {cfg.name}: its train cells "
+            f"take tp_sp (experts over the group), ROADMAP A10 item 3b")
+    return split_specs(cfg, shard.degree, "fsdp")
+
+
+def _fsdp_layer(layer, spec, shard, x, cfg: ArchConfig, positions,
+                encoder_out):
+    """``_layer_train`` on the layer's blocks gathered whole."""
+    return _layer_train(ctx.gather_fsdp(layer, spec, shard,
+                                        cfg.compute_dtype),
+                        x, cfg, positions, encoder_out)
+
+
+def _fsdp_forward(params, tokens, cfg: ArchConfig, shard,
+                  frontend_embeds=None, encoder_out=None):
+    specs = _fsdp_specs(cfg, shard)
+    _need_memory(params, encoder_out)
+    dt = cfg.compute_dtype
+    embed = ctx.gather_fsdp({"embed": params["embed"]}, specs, shard, dt)
+    x = _embed(embed, tokens, cfg, frontend_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and attn_mod.tracks_grad(x)
+    for layer, spec in zip(params["layers"], specs["layers"], strict=True):
+        if remat:
+            x, a = checkpoint(_fsdp_layer, layer, spec, shard, x, cfg,
+                              positions, encoder_out, use_reentrant=False)
+        else:
+            x, a = _fsdp_layer(layer, spec, shard, x, cfg, positions,
+                               encoder_out)
+        aux = aux + a
+    if cfg.tie_embeddings:      # the gathered embedding, both uses' grads
+        head = {"final_norm": params["final_norm"], **embed}
+    else:
+        head = ctx.gather_fsdp(_head(params), specs, shard, dt)
+    return _unembed(head, x, cfg), aux
+
+
+def _fsdp_encoder_layer(layer, spec, shard, x, cfg: ArchConfig, positions):
+    layer = ctx.gather_fsdp(layer, spec, shard, cfg.compute_dtype)
+    x = x + attn_block(layer["attn"], x, cfg, positions=positions,
+                       causal=False)[0]
+    return x + mlp(layer["ffn"], x, cfg)
+
+
+def _fsdp_encode(params, frames, cfg: ArchConfig, shard):
+    """``encode`` on the rank's batch rows, each encoder layer's blocks
+    gathered inside its ``checkpoint`` region under remat."""
+    specs = _fsdp_specs(cfg, shard)
+    x = frames.to(cfg.compute_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if not cfg.rope:
+        x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
+    remat = cfg.remat and attn_mod.tracks_grad(
+        x, *tree_leaves(params["encoder"]))
+    for layer, spec in zip(params["encoder"], specs["encoder"], strict=True):
+        if remat:
+            x = checkpoint(_fsdp_encoder_layer, layer, spec, shard, x, cfg,
+                           positions, use_reentrant=False)
+        else:
+            x = _fsdp_encoder_layer(layer, spec, shard, x, cfg, positions)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def _refuse_grad(params) -> None:

@@ -3,7 +3,9 @@
 Port of ``repro/optim/adamw.py``: the same arithmetic in the same order,
 in fp32. The reference returns new trees; here ``adamw_update`` writes
 the new parameters and moments into the given tensors (no grad), which
-saves a copy of each at full width, and returns them.
+saves a copy of each at full width, and returns them. Under ``fsdp`` it
+runs on a rank's blocks (every step elementwise); only the clipping norm
+is global (``global_norm(..., shard=, split=)``).
 """
 
 from __future__ import annotations
@@ -54,20 +56,35 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def _squares(leaves) -> torch.Tensor:
+    return sum(x.float().square().sum() for x in leaves)
+
+
+def global_norm(tree, *, shard=None, split=None) -> torch.Tensor:
     """sqrt of the sum over leaves of their fp32 sums of squares, the
-    leaves added in turn."""
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in tree_leaves(tree)))
+    leaves added in turn. Across ranks (``shard``, a ``ctx.SeqShard``;
+    ``split`` a tree of bools shaped like ``tree``, true for a leaf each
+    rank holds a block of): the split leaves' sum all-reduced over the
+    group, the whole leaves, the same on every rank, counted once."""
+    if shard is None:
+        return torch.sqrt(_squares(tree_leaves(tree)))
+    parts = list(zip(tree_leaves(tree), tree_leaves(split)))
+    mine = _squares([x for x, s in parts if s]) + torch.zeros(
+        (), device=tree_leaves(tree)[0].device)
+    return torch.sqrt(shard.all_reduce(mine, "all_reduce")
+                      + _squares([x for x, s in parts if not s]))
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: OptConfig):
+def adamw_update(grads, opt_state, params, cfg: OptConfig, *, shard=None,
+                 split=None):
     """One AdamW step on clipped gradients. Writes the new parameters
     (in their own dtype) and moments in place; returns (params, new
-    opt_state, {"grad_norm", "lr"} fp32 tensors)."""
+    opt_state, {"grad_norm", "lr"} fp32 tensors). Across ranks the
+    leaves are the rank's blocks and whole leaves (``global_norm``'s
+    ``shard`` and ``split``)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shard=shard, split=split)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = cosine_lr(cfg, step)
     stepf = step.float()

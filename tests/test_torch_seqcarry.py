@@ -73,8 +73,9 @@ class _Hub:
 
 @dataclasses.dataclass
 class ThreadShard(SeqShard):
-    """A rank of a group of threads: ``all_gather`` through a ``_Hub``,
-    counted as ``SeqShard``'s."""
+    """A rank of a group of threads: ``all_gather``, ``reduce_scatter``
+    and ``all_reduce`` through a ``_Hub`` (sums in rank order), counted as
+    ``SeqShard``'s."""
 
     hub: _Hub | None = None
 
@@ -84,6 +85,31 @@ class ThreadShard(SeqShard):
         n = x.numel() * x.element_size() * (self.degree - 1)
         self._count(kind, n, n)
         return self.hub.exchange(self.rank, x.contiguous())
+
+    def reduce_scatter(self, x, kind="reduce_scatter"):
+        if self.degree == 1:
+            return x
+        parts = self.hub.exchange(self.rank, x.contiguous())
+        per = x.shape[0] // self.degree
+        mine = [p[self.rank * per:(self.rank + 1) * per] for p in parts]
+        out = mine[0].clone()
+        for p in mine[1:]:
+            out += p
+        n = out.numel() * out.element_size() * (self.degree - 1)
+        self._count(kind, n, n)
+        return out
+
+    def all_reduce(self, x, kind="all_reduce", op="sum"):
+        if self.degree == 1:
+            return x.clone()
+        parts = self.hub.exchange(self.rank, x.detach())
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out = torch.maximum(out, p) if op == "max" else out + p
+        n = 2 * x.numel() * x.element_size() * (self.degree - 1) \
+            // self.degree
+        self._count(kind, n, n)
+        return out
 
 
 def on_ranks(degree: int, fn) -> list:

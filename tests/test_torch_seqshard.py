@@ -121,7 +121,7 @@ KV_LENS_DEC = (1, 40, 96)
 REFUSED = FRONTEND      # archs the fsdp policy is refused for
 CELLS = (ShapeCell("prefill_tiny", 24, 2, "prefill"),
          ShapeCell("decode_tiny", 40, 2, "decode"),
-         ShapeCell("train_tiny", 24, 2, "train"))
+         ShapeCell("train_tiny", 24, 4, "train"))
 # the recurrent stacks' cells: a prompt of 64 rows (two mamba2 chunks,
 # blocks of 32 and 16), a decode past recurrentgemma's window of 32
 RECURRENT_CELLS = (ShapeCell("prefill_tiny", 64, 2, "prefill"),
@@ -701,19 +701,61 @@ def _one_card_cell(cell, steps: int, cfg=None) -> np.ndarray:
                             torch.device("cpu"))[0].numpy()
 
 
+def _one_card_train(cell, steps: int, degree: int) -> list:
+    """The losses of ``steps`` one-device train steps of internlm2-smoke
+    at fp32 from run_cell's seeds at seed 0, on the ``degree`` ranks'
+    batches concatenated."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.optim import OptConfig, adamw_init
+
+    cfg = dataclasses.replace(get_smoke("internlm2-1.8b"),
+                              compute_dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    state = adamw_init(params)
+    step = make_train_step(model, OptConfig(lr=3e-3, warmup_steps=0,
+                                            total_steps=steps))
+    losses = []
+    for i in range(steps):
+        parts = [SyntheticLMData(
+            vocab_size=cfg.vocab_size, seq_len=cell.seq_len,
+            global_batch=cell.global_batch, seed=5, process_index=r,
+            process_count=degree).batch_at(i) for r in range(degree)]
+        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        params, state, m = step(params, state, batch_on(batch, "cpu"))
+        losses.append(float(m["loss"]))
+    return losses
+
+
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 def test_run_cell(results, world, kind):
     """A prefill and a decode cell on the ranks give the one-device
     logits within 1e-4 and record the policy, degree, model flops and
     bytes by kind (device numbers "not measured" on the CPU); a train
-    cell raises."""
+    cell trains under fsdp, its losses within 1e-4 of the one-device
+    step's on the ranks' batches concatenated."""
     from repro_torch.analysis.flops import model_flops
 
     got, _ = results
     case, ranks = got[f"cell-{world}-{kind}"]
     if kind == "train":
-        assert all("ROADMAP A10" in rk["raised"] for rk in ranks)
+        want = _one_card_train(case["cell"], case["steps"], world)
+        for r, rk in enumerate(ranks):
+            rec = rk["record"]
+            np.testing.assert_allclose(rec["losses"], want, rtol=TOL)
+            assert rec["losses"] == ranks[0]["record"]["losses"]
+            assert (rec["policy"], rec["degree"], rec["rank"]) == (
+                "fsdp", world, r)
+            assert rec["model_flops"] == model_flops(case["cfg"],
+                                                     case["cell"],
+                                                     causal=True)
+            assert rec["step_device_ms"] == "not measured"
+            assert len(rec["step_wall_s"]) == case["steps"]
+            assert rec["sent_bytes"]["weights"] > 0
+            assert rec["sent_bytes"]["reduce_scatter"] > 0
         return
     want = _one_card_cell(case["cell"], case["steps"])
     for r, rk in enumerate(ranks):
@@ -936,21 +978,19 @@ def test_rows_rule():
 
 @pytest.mark.parametrize("arch", REFUSED)
 def test_policy_refuses_other_archs(arch):
-    """whisper and internvl2 run under tp_sp and sp_rep; fsdp, which
-    splits the batch for training, is refused for them before any
-    collective (encode, prefill)."""
+    """whisper and internvl2 serve under tp_sp and sp_rep; fsdp, which
+    splits the batch for training (``forward`` and ``encode``), is
+    refused for their prefill before any collective."""
     cfg = get_smoke(arch)
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     tokens = torch.ones((1, 4), dtype=torch.long)
     frames = torch.ones((1, cfg.num_frontend_tokens, cfg.d_model))
+    kwargs = ({"encoder_out": model.encode(params, frames)}
+              if cfg.encoder_layers else {"frontend_embeds": frames})
     with sharding_policy(SeqShard(None, 0, 1), "fsdp"):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            if cfg.encoder_layers:
-                model.encode(params, frames)
-            else:
-                model.prefill(params, cfg, tokens, 16,
-                              frontend_embeds=frames)
+            model.prefill(params, cfg, tokens, 16, **kwargs)
 
 
 def test_policy_refuses_fsdp_and_training():
@@ -1033,8 +1073,8 @@ def test_local_params_in_place_releases_the_whole_leaves():
     for (pa, a), (pb, b) in zip(leaves_with_paths(got),
                                 leaves_with_paths(want)):
         assert pa == pb and torch.equal(a, b)
-    with pytest.raises(ValueError, match="sp_rep and tp_sp"):
-        local_params(copy, rank=0, degree=2, policy="fsdp")
+    with pytest.raises(ValueError, match="unknown policy"):
+        local_params(copy, rank=0, degree=2, policy="dp")
 
 
 @pytest.mark.parametrize("degree,rank", [(4, 1), (4, 3), (2, 0)])

@@ -25,6 +25,13 @@ shape and on a chunk the degree divides, fp32 and int8, matches the
 reference's single-chip ``paged_prefill_attention`` within 1e-6 and the
 port's one-card call bit for bit (``tests/test_torch_paged_ring.py``
 holds the ring's tests that need no group).
+
+Training across ranks under the fsdp policy runs in the same spawns too:
+at degrees 2 and 4 the ranks train internlm2-smoke (int8 compression)
+as the one-process step on their batches concatenated, with the bytes
+by kind the shapes give, and their async sharded save restores whole;
+and two ranks resume ``launch/train.main`` from a one-rank checkpoint
+(``tests/test_torch_fsdp.py`` holds the rest, on threads).
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ from repro.serving import LeastLoadedRouter as JaxRouter
 from repro.serving import ScriptedFaults as JaxScriptedFaults
 from repro.serving.lifecycle import Request as JaxRequest
 from repro_torch.configs import get_smoke as torch_get_smoke
+from repro_torch.data import SyntheticLMData
+from repro_torch.launch import steps, train
 from repro_torch.core import autotune
 from repro_torch.distributed.ctx import KVShard, kv_shard, kv_shard_state
 from repro_torch.distributed.paged import head_sharded, replicated
@@ -117,7 +126,26 @@ def _ring_fn_cases(degree: int) -> list:
             for name in _ring_fn_names(degree)]
 
 
-def _cases2(vocab):
+FSDP_STEPS = 3
+FSDP_OPT = dict(lr=5e-3, warmup_steps=1, total_steps=FSDP_STEPS)
+# train.main resumed over two ranks from a one-rank checkpoint at step 10
+RESUME_ARGS = ["--arch", "internlm2-1.8b", "--smoke", "--total-steps", "20",
+               "--batch", "4", "--seq", "32", "--save-every", "10",
+               "--device", "cpu"]
+
+
+def _fsdp_cases(degree: int, root) -> list:
+    return [dict(name=f"fsdp-{degree}", kind="fsdp", degree=degree,
+                 arch="internlm2-1.8b", steps=FSDP_STEPS, opt=FSDP_OPT,
+                 batch=4, seq=16, ckpt=str(root / f"fsdp-{degree}"))]
+
+
+def _resume_case(root) -> dict:
+    return dict(name="resume", kind="resume", argv=RESUME_ARGS + [
+        "--steps", "20", "--ckpt-dir", str(root / "resume")])
+
+
+def _cases2(vocab, root):
     p, sp = _prompts(vocab), _spec_prompts(vocab)
     return [
         _case("fp32", "internlm2-1.8b", 2, p, trace=True),
@@ -135,10 +163,10 @@ def _cases2(vocab):
               like="fp32"),
         _case("ring_int8", "internlm2-1.8b", 2, p, chunk_route="ring",
               like="int8", engine_kw={"kv_dtype": "int8"}),
-    ] + _ring_fn_cases(2)
+    ] + _ring_fn_cases(2) + _fsdp_cases(2, root) + [_resume_case(root)]
 
 
-def _cases4(vocab):
+def _cases4(vocab, root):
     p = _prompts(vocab)
     return [
         _case("moe_fp32", "deepseek-moe-16b", 4, p),
@@ -149,25 +177,34 @@ def _cases4(vocab):
               like="moe_fp32"),
         _case("ring_moe_int8", "deepseek-moe-16b", 4, p, chunk_route="ring",
               like="moe_int8", engine_kw={"kv_dtype": "int8"}),
-    ] + _ring_fn_cases(4)
+    ] + _ring_fn_cases(4) + _fsdp_cases(4, root)
 
 
 @pytest.fixture(scope="module")
-def cases(pairs):
-    vocab = pairs["internlm2-1.8b"].tcfg.vocab_size
-    return {c["name"]: c for c in _cases2(vocab) + _cases4(vocab)}
+def root(tmp_path_factory):
+    """The checkpoints' directory of the fsdp and resume cases."""
+    return tmp_path_factory.mktemp("fsdp")
 
 
 @pytest.fixture(scope="module")
-def ranks(pairs, weights, cases, expected):
-    """Both spawns' results (world 2, world 4), every case's expected
-    tokens computed here while the ranks run."""
+def cases(pairs, root):
     vocab = pairs["internlm2-1.8b"].tcfg.vocab_size
-    spawns = {2: Ranks(2, _cases2(vocab), weights),
-              4: Ranks(4, _cases4(vocab), weights)}
+    return {c["name"]: c for c in _cases2(vocab, root) + _cases4(vocab, root)}
+
+
+@pytest.fixture(scope="module")
+def ranks(pairs, weights, cases, expected, root):
+    """Both spawns' results (world 2, world 4), every serving case's
+    expected tokens computed here while the ranks run. The resume case's
+    one-rank run to its step-10 checkpoint runs here first."""
+    vocab = pairs["internlm2-1.8b"].tcfg.vocab_size
+    train.main(RESUME_ARGS + ["--steps", "10", "--ckpt-dir",
+                              str(root / "resume")])
+    spawns = {2: Ranks(2, _cases2(vocab, root), weights),
+              4: Ranks(4, _cases4(vocab, root), weights)}
     try:
         for name, case in cases.items():
-            if case.get("kind") != "ring_fn":
+            if case.get("kind") is None:
                 expected(case, reference=name != "burst_int8")
         yield {world: r.results() for world, r in spawns.items()}
     finally:
@@ -689,3 +726,147 @@ def test_rank_models_are_the_harness_models(pairs):
     for (pa, a), (pb, b) in zip(leaves_with_paths(params),
                                 leaves_with_paths(pair.tparams)):
         assert pa == pb and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# training across ranks (the fsdp policy) in the same spawns
+# ---------------------------------------------------------------------------
+
+
+def _fsdp_one_card(pairs, case) -> tuple:
+    """The case's steps on one process: the port's ``make_train_step`` on
+    the ranks' batches concatenated -> (metrics a step, trained params,
+    optimizer state)."""
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.tree import tree_map
+
+    from test_torch_sharded_ranks import fsdp_model
+
+    model, whole = fsdp_model(case, {case["arch"]: jax.tree.map(
+        np.asarray, pairs[case["arch"]].jparams)})
+    params = tree_map(torch.clone, whole)
+    state = adamw_init(params)
+    state["err"] = init_error_feedback(params)
+    step = steps.make_train_step(model, OptConfig(**case["opt"]), "int8")
+    metrics = []
+    for i in range(case["steps"]):
+        parts = [SyntheticLMData(
+            vocab_size=model.cfg.vocab_size, seq_len=case["seq"],
+            global_batch=case["batch"], seed=17, process_index=r,
+            process_count=case["degree"]).batch_at(i)
+            for r in range(case["degree"])]
+        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        params, state, m = step(params, state, train.batch_on(batch, "cpu"))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, params, state
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+def test_fsdp_ranks_train_as_one_card(pairs, cases, ranks, degree):
+    """gloo ranks under the fsdp policy: every rank the same metrics,
+    within 1e-4 of the one-process step on their batches concatenated,
+    their blocks put together within 1e-4 of each trained leaf's norm,
+    and the last step's bytes by kind those the shapes give."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.tree import leaves_with_paths
+
+    case = cases[f"fsdp-{degree}"]
+    got = [r[case["name"]] for r in ranks[degree]]
+    want, params, _ = _fsdp_one_card(pairs, case)
+    for res in got:
+        assert res["metrics"] == got[0]["metrics"]
+    for s, w in enumerate(want):
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(got[0]["metrics"][s][key], w[key],
+                                       rtol=1e-4, err_msg=f"{s} {key}")
+    for path, w in leaves_with_paths(params):
+        blocks = [res["params"][path] for res in got]
+        whole = blocks[0] if blocks[0].shape == tuple(w.shape) \
+            else np.concatenate(blocks)
+        err = np.linalg.norm(whole.astype(np.float64)
+                             - w.detach().double().numpy())
+        assert err <= 1e-4 * float(w.detach().double().norm()), path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from test_torch_sharded_ranks import fsdp_model
+
+    model, _ = fsdp_model(case, {case["arch"]: jax.tree.map(
+        np.asarray, pairs[case["arch"]].jparams)})
+    bytes_ = smoke.fsdp_bytes(model.cfg, degree, 1, int8=True)
+    for res in got:
+        assert {k: res["sent"][k] for k in bytes_} == bytes_
+        assert {k: res["received"][k] for k in bytes_} == bytes_
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+def test_fsdp_ranks_save_sharded_and_it_restores_whole(pairs, cases, ranks,
+                                                       degree):
+    """The ranks' async sharded save, each rank writing its blocks, holds
+    after its manifest every rank's blocks: restored whole on one process
+    the parameters and first moments are the ranks' blocks put together,
+    bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.tree import leaves_with_paths
+
+    case = cases[f"fsdp-{degree}"]
+    got = [r[case["name"]] for r in ranks[degree]]
+    assert latest_step(case["ckpt"]) == case["steps"]
+    _, params, state = _fsdp_one_card(pairs, case)
+    restored = CheckpointManager(case["ckpt"]).restore(
+        case["steps"], {"params": params, "opt": state}, device="cpu")
+    for key, tree in (("params", restored["params"]),
+                      ("mu", restored["opt"]["mu"])):
+        for path, t in leaves_with_paths(tree):
+            blocks = [res[key][path] for res in got]
+            whole = blocks[0] if blocks[0].shape == tuple(t.shape) \
+                else np.concatenate(blocks)
+            np.testing.assert_array_equal(t.numpy(), whole,
+                                          err_msg=f"{key} {path}")
+    assert int(restored["opt"]["step"]) == case["steps"]
+
+
+def test_train_main_resumes_over_two_ranks_from_a_one_rank_checkpoint(
+        cases, ranks, root):
+    """``launch/train.main`` over two gloo ranks restores the one-rank
+    step-10 checkpoint onto the two ranks' fsdp blocks and trains to step
+    20 on their data: every rank the same losses, those of the
+    uninterrupted run on one process (the checkpoint's state, then steps
+    10-19 on the two ranks' batches concatenated) within 5e-3, as the
+    one-card resume test holds them; the two-rank save at step 20 is
+    whole again on one process."""
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.configs import get_smoke as smoke
+    from repro_torch.models.transformer import init
+    from repro_torch.optim import OptConfig
+
+    got = [r["resume"]["losses"] for r in ranks[2]]
+    assert len(got[0]) == 10 and got[0] == got[1]
+    cfg = smoke("internlm2-1.8b")
+    shapes = init(cfg, device="meta")
+    target = {"params": shapes, "opt": {"mu": shapes, "nu": shapes,
+                                        "step": torch.zeros(())}}
+    state = CheckpointManager(str(root / "resume")).restore(10, target,
+                                                            device="cpu")
+    step = steps.make_train_step(
+        torch_build_model(cfg),
+        OptConfig(lr=3e-3, warmup_steps=2, total_steps=20))
+    params, opt, want = state["params"], state["opt"], []
+    for i in range(10, 20):
+        parts = [SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32,
+                                 global_batch=4, seed=17, process_index=r,
+                                 process_count=2).batch_at(i)
+                 for r in range(2)]
+        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        params, opt, m = step(params, opt, train.batch_on(batch, "cpu"))
+        want.append(float(m["loss"]))
+    np.testing.assert_allclose(got[0], want, atol=5e-3)
+    assert latest_step(str(root / "resume")) == 20
+    whole = CheckpointManager(str(root / "resume")).restore(20, target,
+                                                            device="cpu")
+    assert whole["params"]["embed"].shape == shapes["embed"].shape
+    assert (root / "resume" / "hb" / "hb_proc1.json").exists()

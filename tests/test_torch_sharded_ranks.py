@@ -9,9 +9,11 @@ port. Each rank builds the port's smoke models from the numpy weights it
 is given, serves every case through ``ShardedContinuousBatchingEngine``
 on the CPU (a case of kind ``ring_fn`` instead runs
 ``distributed/paged.ring_paged_prefill`` on the rank's heads of the
-case's pools, ``ring_case``) and pickles what it saw; the caller
-compares. The ranks import no JAX: the reference's results are computed
-in the test's own process.
+case's pools, ``ring_case``; of kind ``fsdp`` trains under the fsdp
+policy and saves sharded, ``fsdp_case``; of kind ``resume`` runs
+``launch/train.main`` over the group, ``resume_case``) and pickles what
+it saw; the caller compares. The ranks import no JAX: the reference's
+results are computed in the test's own process.
 """
 
 from __future__ import annotations
@@ -151,6 +153,78 @@ def ring_case(case: dict) -> dict:
     return res
 
 
+def fsdp_case(case: dict, weights: dict) -> dict:
+    """``case["steps"]`` fsdp train steps of the case's smoke model
+    (chunked attention, int8 compression) on this rank's slice of
+    ``SyntheticLMData(seed=17)``, then an async sharded save of the state
+    into ``case["ckpt"]``: the metrics a step, the rank's trained blocks
+    and first moments, and the last step's bytes by kind."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.distributed.ctx import SeqShard, sharding_policy
+    from repro_torch.distributed.sharding import fsdp_blocks, local_params
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.tree import leaves_with_paths
+
+    model, whole = fsdp_model(case, weights)
+    rank, n = dist.get_rank(), case["degree"]
+    shard = SeqShard(None, rank, n)
+    params = local_params(whole, rank=rank, degree=n, policy="fsdp")
+    state = adamw_init(params)
+    state["err"] = init_error_feedback(params)
+    step = make_train_step(model, OptConfig(**case["opt"]), "int8")
+    data = SyntheticLMData(vocab_size=model.cfg.vocab_size,
+                           seq_len=case["seq"], global_batch=case["batch"],
+                           seed=17, process_index=rank, process_count=n)
+    mgr = CheckpointManager(case["ckpt"], rank=rank, degree=n)
+    dist.barrier()                  # every rank opened the directory
+    blocks = fsdp_blocks({"params": whole, "opt": {
+        "mu": whole, "nu": whole, "err": whole, "step": state["step"]}},
+        rank=rank, degree=n)
+    metrics = []
+    with sharding_policy(shard, "fsdp"):
+        for i in range(case["steps"]):
+            shard.reset_counts()
+            params, state, m = step(params, state,
+                                    batch_on(data.batch_at(i), "cpu"))
+            metrics.append({k: float(v) for k, v in m.items()})
+    mgr.save(case["steps"], {"params": params, "opt": state},
+             blocking=False, shardings=blocks)
+    mgr.wait()
+    return {"metrics": metrics, "sent": dict(shard.sent),
+            "received": dict(shard.received),
+            "params": {p: t.detach().numpy()
+                       for p, t in leaves_with_paths(params)},
+            "mu": {p: t.numpy() for p, t in leaves_with_paths(state["mu"])}}
+
+
+def fsdp_model(case: dict, weights: dict):
+    """The case's fp32 smoke model on the chunked attention route, which
+    trains, and its whole weights."""
+    from repro_torch.models.api import build_model
+
+    model, whole = port_model(case["arch"], weights[case["arch"]])
+    return build_model(dataclasses.replace(
+        model.cfg, attn_impl="chunked", attn_chunk=8)), whole
+
+
+def resume_case(case: dict) -> dict:
+    """``launch/train.main(case["argv"])`` on this rank of the default
+    group: it resumes from the newest checkpoint of its ``--ckpt-dir``
+    onto the group's degree and returns the losses of the steps it ran."""
+    from repro_torch.launch import train
+
+    return {"losses": train.main(case["argv"])}
+
+
+RANK_CASES = {"ring_fn": lambda case, weights: ring_case(case),
+              "fsdp": fsdp_case,
+              "resume": lambda case, weights: resume_case(case)}
+
+
 def refusals(weights: dict) -> dict:
     """Degrees the group cannot hold: what each raises on this rank."""
     from repro_torch.serving import ShardedContinuousBatchingEngine
@@ -176,10 +250,8 @@ def _rank_main(rank: int, world: int, store: str, out_dir: str,
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        res = {case["name"]: (ring_case(case)
-                              if case.get("kind") == "ring_fn"
-                              else serve_case(case, weights))
-               for case in cases}
+        res = {case["name"]: RANK_CASES.get(case.get("kind"), serve_case)(
+            case, weights) for case in cases}
         res["_refusals"] = refusals(weights)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
