@@ -387,6 +387,36 @@ Phases, each printing one JSON line:
    sharded and restored whole, serve through B1/B2 (prefill logits within
    BF16_ROW_RTOL of the chunked route's rows) and a wave on B4, with the
    launch counts set to 0 just before and read just after.
+21. train_tp_sp (after train_sharded) — deepseek-moe-16b at full width
+   trained across ranks under the reference's tp_sp policy
+   (``sharding_policy(shard, "tp_sp")``), one process a rank: NCCL with a
+   card a rank where the machine has four cards (8 of 28 layers, a global
+   batch of 2), else gloo with the four ranks on card 0 (2 layers, a
+   global batch of 1). Every rank draws the whole batch (train_4k's 4096
+   rows, ``SyntheticLMData(seed=17)``) and trains its rows of the
+   sequence on its ``tp_sp`` split (its own experts) with its AdamW state
+   and int8 error feedback, at degrees 4 and 2 (TRAIN_TP_SP_PLANS'
+   steps): every loss and grad norm finite, every rank's losses the same
+   bits, each step's bytes by kind equal to ``tp_sp_bytes``' arithmetic
+   (the remat recompute's second gathers and exchanges counted); device
+   ms, wall and peak a step and a rank, and a roofline line of each
+   degree. In fp32 at degree 4 (TRAIN_TP_SP_FP32: 2 layers, 1 × 512) the
+   same steps on one card under ``ctx.grouped_as(4)`` (the same MoE
+   groups) hold loss, grad norm, lr and every leaf within
+   TRAIN_TP_SP_GATES, the assignments routed apart from one card on the
+   first batch counted, and each of TP_SP_FAULTS planted (expert
+   gradients all-reduced as if whole, the router's left unreduced, the
+   aux loss counted n times, a split leaf's gradient left unreduced on a
+   rank) is rejected; internlm2-1.8b's odd batch (TRAIN_TP_SP_DENSE: 4
+   layers, 3 × 512, degree 2) against one card likewise. The degree-4
+   bf16 run's trained weights, saved sharded and restored whole, serve
+   through B1/B2 (prefill logits within LOGITS_RTOL of the chunked
+   route's where no (token, layer) routes apart) and a wave on B4, with
+   the launch counts set to 0 just before and read just after: every
+   B1/B2 call of each prefill, B4 call of a decode step and kernel call
+   of the wave held to the plain version on the same inputs beside a
+   planted zeroed V tile (``attention_gate``), and the wave's tokens
+   equal to the chunked route's.
 
 Roofline lines: inside the phases that build each full-width model
 (internlm2-1.8b in phase 4, qwen3-1.7b, phi4-mini-3.8b and
@@ -408,7 +438,8 @@ B4-B7 and the head-dim-256 forms of B3 and B4, each with the launches of
 its own paths: B1, B2 and B4 add the moe and dense-arch phases' to the
 waves', B5 and B6 the shared-prefix, moe and dense-arch phases' to the
 continuous phase's, the head-dim-256 forms the hybrid wave's, B1, B2 and
-B4 also the encdec and vlm phases'; ``mas_streamed_cross``, B2 at a
+B4 also the encdec and vlm phases' and the train phases' trained
+weights'; ``mas_streamed_cross``, B2 at a
 whisper decode step's cross-attention shape, counts the B2 launches of
 the encdec phase's decode steps; ``mas_streamed_enc_rank`` and
 ``mas_streamed_cross_rank``, B2 at a split whisper rank's encoder and
@@ -685,19 +716,21 @@ PATH_KERNELS = {
     "launcher": ("mas_resident", "decode"),
     "train": ("mas_resident", "mas_streamed", "decode"),
     "train_sharded": ("mas_resident", "mas_streamed", "decode"),
+    "train_tp_sp": ("mas_resident", "mas_streamed", "decode"),
     "sharded": ("paged_prefill", "paged_decode", "paged_verify",
                 "paged_prefill_int8", "paged_decode_int8",
                 "paged_verify_int8"),
     "seq_sharded": ("ssd_intra_chunk", "flash_e256", "mas_streamed"),
 }
 ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
-                             "launcher", "train", "train_sharded"),
+                             "launcher", "train", "train_sharded",
+                             "train_tp_sp"),
             "mas_streamed": ("waves", "moe", "dense_archs", "encdec",
-                             "vlm", "train", "train_sharded"),
+                             "vlm", "train", "train_sharded", "train_tp_sp"),
             "mas_streamed_cross": ("encdec",),
             "flash": ("waves",),
             "decode": ("waves", "moe", "dense_archs", "encdec", "vlm",
-                       "launcher", "train", "train_sharded"),
+                       "launcher", "train", "train_sharded", "train_tp_sp"),
             "decode_int8": ("int8_wave", "encdec"),
             "paged_decode": ("continuous", "shared_prefix", "moe",
                              "dense_archs"),
@@ -840,9 +873,54 @@ TRAIN_SHARDED_GATES = {
     "bf16": ({"loss": 2e-3, "grad_norm": 2e-2, "lr": 1e-6}, 5e-2),
     "fp32": ({"loss": 1e-4, "grad_norm": 1e-5, "lr": 1e-6}, 1e-4),
     "fp32_int8": ({"loss": 1e-4, "grad_norm": 1e-4, "lr": 1e-6}, 2e-3)}
+# Training across ranks under tp_sp (the train_tp_sp phase, after
+# train_sharded): deepseek-moe-16b at full width (587.9 M parameters a
+# layer, 553.6 M of them experts, and a tied 209.7 M embedding), fp32
+# master weights, bf16 compute, chunked attention with remat, int8
+# compression, train_4k's sequence of 4096 split over the ranks, every
+# rank the whole batch, its experts its own. Four cards (NCCL): 8 of 28
+# layers, a global batch of 2, 4 steps at degrees 4 and 2 (a rank's
+# state 1/n of 20 B a parameter: ~25 and ~49 GB). One card (gloo, the
+# ranks sharing it): 2 layers, a global batch of 1, 3 steps.
+TRAIN_TP_SP_DEGREES = (4, 2)
+# The MoE weights are ``bounded_moe``'s (the down projections × 1/16, C11)
+# and AdamW's rate is OptConfig's default 3e-4: at the launcher's 3e-3 the
+# first update, a step of ~lr on every element, is twice a scaled down
+# projection's elements, and at 8 layers (2 × 4096) the second step's
+# loss was NaN on an H100 at both degrees.
+TRAIN_TP_SP_LR = 3e-4
+TRAIN_TP_SP_PLANS = {
+    "nccl": {"layers": 8, "batch": 2, "steps": 4,
+             "reduced": "8 of 28 layers; train_4k's global batch of 256 "
+                        "cut to 2"},
+    "gloo": {"layers": 2, "batch": 1, "steps": 3,
+             "reduced": "2 of 28 layers (the ranks share one card); "
+                        "train_4k's global batch of 256 cut to 1"}}
+# The fp32 gates at degree 4: 2 full-width layers, a sequence of 512, 2
+# steps, against the same step on one card under ``ctx.grouped_as(4)``
+# (the same MoE groups), clean and with each of TP_SP_FAULTS; and the
+# dense odd-batch cell: internlm2-1.8b at 4 layers, a global batch of 3,
+# degree 2, against one card. Bands (steps, leaves), stated in PERF.md
+# before the first run: fp32 sums in another order (a rank's partial
+# gradients summed over the ranks); an MoE assignment whose router
+# scores tie within that order's noise may route to another expert, and
+# Adam's second update turns a near-zero gradient's rounding into a sign,
+# so the MoE leaves take 1e-3; the dense leaves 1e-4 (1.03e-5 on an H100
+# at TRAIN_TP_SP_LR).
+TRAIN_TP_SP_FP32 = {"layers": 2, "seq": 512, "batch": 1, "steps": 2,
+                    "degree": 4}
+TRAIN_TP_SP_DENSE = {"layers": 4, "seq": 512, "batch": 3, "steps": 2,
+                     "degree": 2}
+TRAIN_TP_SP_GATES = {
+    "fp32": ({"loss": 1e-4, "grad_norm": 1e-4, "lr": 1e-6}, 1e-3),
+    "dense_fp32": ({"loss": 1e-4, "grad_norm": 1e-5, "lr": 1e-6}, 1e-4)}
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a dict gets ``unix_s``, the host clock when it
+    is printed, so the log shows each phase's share of the run's wall."""
+    if isinstance(obj, dict):
+        obj = {**obj, "unix_s": round(time.time(), 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -6858,7 +6936,7 @@ def planted_fsdp_fault(fault: str, rank: int = 1, layer_leaves: int = 0):
             if shard.rank == rank and 2 <= calls["n"] <= layer_leaves + 1:
                 per = grad.shape[0] // shard.degree
                 return (grad.float()[rank * per:(rank + 1) * per],
-                        None, None)
+                        *out[1:])
             return out
 
         patch(ctx.GatherLeaf, "backward", staticmethod(backward))
@@ -6909,8 +6987,10 @@ def fsdp_step_gate(got: list, want: list, rtol) -> dict:
 def fsdp_leaf_errs(torch, params, want, shard) -> dict:
     """Each leaf's L2 error against ``want``'s whole leaf (on the host)
     relative to its norm, over every rank's block: the rank's (err²,
-    norm²) of its block of a split leaf, rank 0's of a whole one, summed
-    over the group in one all-reduce -> {path: relative error}."""
+    norm²) of its block of a split leaf (along the dim where its shape
+    differs: dim 0 under fsdp, the leaf's own under tp_sp), rank 0's of a
+    whole one, summed over the group in one all-reduce -> {path:
+    relative error}."""
     from repro_torch.tree import leaves_with_paths
 
     want = dict(leaves_with_paths(want))
@@ -6918,8 +6998,10 @@ def fsdp_leaf_errs(torch, params, want, shard) -> dict:
     for path, got in leaves_with_paths(params):
         w = want[path]
         mine = shard.rank == 0
-        if got.shape != w.shape:       # the rank's block of dim 0
-            w = w[shard.rank * got.shape[0]:(shard.rank + 1) * got.shape[0]]
+        if got.shape != w.shape:       # the rank's block
+            dim = next(d for d in range(w.dim())
+                       if got.shape[d] != w.shape[d])
+            w = w.narrow(dim, shard.rank * got.shape[dim], got.shape[dim])
             mine = True
         w = w.to(got.device).double()
         d = got.detach().double() - w
@@ -7019,6 +7101,148 @@ def state_digest(torch, tree, blocks=None, shard=None) -> dict:
         vec = torch.where(mask, shard.all_reduce(torch.where(mask, vec, 0),
                                                  "all_reduce"), vec)
     return {p: int(v) % DIGEST_MOD for p, v in zip(paths, vec.tolist())}
+
+
+# the planted faults the tp_sp gates must reject (``planted_tp_sp_fault``)
+TP_SP_FAULTS = ("experts_all_reduced", "router_unreduced", "aux_n_times",
+                "split_leaf_unreduced")
+
+
+@contextlib.contextmanager
+def planted_tp_sp_fault(fault: str, cfg, rank: int = 1):
+    """Plant one fault of TP_SP_FAULTS into the port's tp_sp training for
+    the context's duration (this process's modules; every collective
+    still runs): ``experts_all_reduced`` the rank's experts' gradients
+    all-reduced as if every rank held them whole; ``router_unreduced``
+    each rank keeps its own part of the router's gradient;
+    ``aux_n_times`` each rank adds the group's aux loss (n times its
+    term); ``split_leaf_unreduced`` rank ``rank`` keeps its own, unsummed
+    block of the first split leaf's gradient the backward reaches."""
+    from repro_torch.distributed import ctx
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+
+    if fault not in TP_SP_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    saved = []
+
+    def patch(module, name, value):
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, value)
+
+    if fault in ("experts_all_reduced", "router_unreduced"):
+        real_sum = steps._sum_whole_grads
+        router = (cfg.d_model, cfg.moe.num_experts)
+
+        def sum_whole(leaves, split, shard):
+            if fault == "experts_all_reduced":     # the 3-D expert stacks
+                split = [s and p.dim() != 3 for p, s in zip(leaves, split)]
+            else:
+                split = [s or tuple(p.shape) == router
+                         for p, s in zip(leaves, split)]
+            return real_sum(leaves, split, shard)
+
+        patch(steps, "_sum_whole_grads", sum_whole)
+    elif fault == "aux_n_times":
+        real_aux = moe.rank_aux_term
+        patch(moe, "rank_aux_term",
+              lambda r, shard: real_aux(r, shard) * shard.degree)
+    else:
+        real = ctx.GatherLeaf.backward
+        calls = {}
+
+        def backward(ctx_, grad):
+            out = real(ctx_, grad)
+            shard = ctx_.shard
+            if ctx_.kind != "weights" or shard.rank != rank:
+                return out
+            calls[rank] = calls.get(rank, 0) + 1
+            if calls[rank] != 1:
+                return out
+            per = grad.shape[ctx_.dim] // shard.degree
+            return (grad.float().narrow(ctx_.dim, rank * per, per)
+                    .to(ctx_.dtype), *out[1:])
+
+        patch(ctx.GatherLeaf, "backward", staticmethod(backward))
+    try:
+        yield
+    finally:
+        for module, name, value in reversed(saved):
+            setattr(module, name, value)
+
+
+def tp_sp_bytes(cfg, n: int, batch: int, seq: int, *, int8: bool,
+                grad_accum: int = 1) -> dict:
+    """One train step's bytes a rank sends (and receives) by kind under
+    tp_sp at degree ``n`` on a global batch of ``batch`` sequences of
+    ``seq`` rows, from the shapes (``SeqShard``'s counting). Per
+    microbatch of b = batch / grad_accum sequences: each split leaf's
+    block gathered in the compute dtype once (a layer's twice under
+    remat: again in the backward's recompute) and its fp32 gradient
+    reduce-scattered once (kinds ``weights``, ``reduce_scatter``), each
+    counting the block × (n - 1); a layer's K/V rows (2·b·Hkv·S/n·E)
+    gathered (``gather``, twice under remat) and their fp32 gradient
+    reduce-scattered; an MoE layer's (E, C, D) buffers exchanged twice
+    forward (again in the recompute) and twice backward (``a2a``, (n -
+    1) / n of each), C = max(4, int(cf · b·S/n · k / E)), and its
+    first-choice density all-reduced (again in the recompute). Per step
+    the all-reduces of the whole leaves' fp32 gradients, of the loss and
+    of the squared norm (2 (n - 1) / n of each, rounded down), and int8's
+    absmax of each scale group."""
+    from repro_torch.distributed.sharding import (
+        split_specs,
+        tp_sp_blocks,
+        whole_shapes,
+    )
+    from repro_torch.models.transformer import init
+    from repro_torch.tree import leaves_with_paths
+    from repro_torch.weights import reference_leaf
+
+    out = dict.fromkeys(("weights", "reduce_scatter", "gather", "a2a",
+                         "all_reduce", "all_reduce_max"), 0)
+    if n == 1:
+        return out
+    shapes = whole_shapes(cfg)
+    specs = dict(leaves_with_paths(split_specs(cfg, n)))
+    held = dict(leaves_with_paths(tp_sp_blocks(init(cfg, device="meta"),
+                                               rank=0, degree=n)))
+    again = 2 if cfg.remat else 1
+    gather = scatter = whole = 0
+    for path, shape in shapes.items():
+        numel = 1
+        for d in shape:
+            numel *= d
+        if held[path] is None:
+            whole += numel
+        if specs[path] is None:
+            continue
+        stacked = path.startswith("layers/")
+        gather += (again if stacked else 1) * (numel // n)
+        scatter += numel // n
+    dt = cfg.compute_dtype.itemsize
+    b = batch // grad_accum
+    layers = cfg.num_layers
+    kv = 2 * b * cfg.num_kv_heads * (seq // n) * cfg.hd
+    out["weights"] = grad_accum * gather * dt * (n - 1)
+    out["reduce_scatter"] = grad_accum * (scatter + layers * kv) * 4 * (n - 1)
+    out["gather"] = grad_accum * again * layers * kv * dt * (n - 1)
+
+    def ar(nbytes: int) -> int:
+        return 2 * nbytes * (n - 1) // n
+
+    out["all_reduce"] = ar(4 * whole) + ar(4) + ar(4)
+    if cfg.moe is not None:
+        m = cfg.moe
+        cap = max(4, int(m.capacity_factor * (b * seq // n) * m.top_k
+                         / m.num_experts))
+        buf = m.num_experts * cap * cfg.d_model * dt * (n - 1) // n
+        out["a2a"] = grad_accum * layers * (2 * again + 2) * buf
+        out["all_reduce"] += grad_accum * layers * again * ar(
+            4 * m.num_experts)
+    if int8:
+        groups = {reference_leaf(p, cfg) for p in shapes}
+        out["all_reduce_max"] = ar(4 * len(groups))
+    return out
 
 
 def uneven_labels(batch: dict, rank: int, degree: int) -> dict:
@@ -7581,6 +7805,465 @@ def phase_train_sharded(torch) -> dict:
                       "serve_token_agreement": agreement(outs["kernel"],
                                                          outs["chunked"]),
                       "launches": launched_kernels(counts)})
+    emit(report)
+    del params, kernel_model
+    torch.cuda.empty_cache()
+    return {**report, "launches": counts}
+
+
+# ---------------------------------------------------------------------------
+# train_tp_sp: training across ranks under the tp_sp policy
+# ---------------------------------------------------------------------------
+
+
+def train_tp_sp_cfg(layers: int):
+    """The bf16 runs' config: deepseek-moe-16b at full width and
+    ``layers`` layers, chunked attention with remat."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(MOE_ARCH), num_layers=layers,
+                               attn_impl="chunked", attn_chunk=TRAIN_CHUNK,
+                               remat=True)
+
+
+def tp_sp_fp32(torch, kind: str):
+    """(cfg, model, whole fp32 weights on the current card, the run's
+    shape) of an fp32 gate run: ``fp32`` deepseek-moe-16b at
+    TRAIN_TP_SP_FP32, ``dense_fp32`` internlm2-1.8b at TRAIN_TP_SP_DENSE;
+    ``fp32_model``'s draw, chunked attention with remat."""
+    from repro_torch.configs import get_arch
+
+    arch, run = ((MOE_ARCH, TRAIN_TP_SP_FP32) if kind == "fp32"
+                 else (ARCH, TRAIN_TP_SP_DENSE))
+    cfg, model, params = fp32_model(torch, get_arch(arch), run["layers"],
+                                    attn_impl="chunked",
+                                    attn_chunk=TRAIN_FP32_CHUNK, remat=True)
+    if cfg.moe is not None:
+        bounded_moe(params)
+    return cfg, model, params, run
+
+
+def tp_sp_opt(steps: int, lr: float = TRAIN_TP_SP_LR):
+    from repro_torch.optim import OptConfig
+
+    return OptConfig(lr=lr, warmup_steps=0, total_steps=steps)
+
+
+def tp_sp_data(cfg, seq: int, batch: int):
+    """The whole batch every rank draws: ``SyntheticLMData(seed=17)``."""
+    from repro_torch.data import SyntheticLMData
+
+    return SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
+                           global_batch=batch, seed=17)
+
+
+def expert_ids(torch, model, params, batch) -> list:
+    """Each MoE layer's expert ids of a no-grad loss of ``batch``
+    (``moe_routes``), on the host."""
+    with torch.no_grad():
+        _, routes = moe_routes(lambda: model.loss_fn(params, batch))
+    return [r.expert_ids.cpu() for r in routes]
+
+
+def assignments_apart(got: list, want: list) -> int:
+    """Assignments (token, expert) of ``got`` (each layer's (T, K) ids)
+    that ``want`` (the same tokens' ids) does not make."""
+    return sum(int((~(g[..., :, None] == w[..., None, :]).any(-1)).sum())
+               for g, w in zip(got, want, strict=True))
+
+
+def tp_sp_yardstick(torch, kind: str, path: str) -> list:
+    """The one-card run an fp32 gate run of ``kind`` is held to: the
+    port's ``make_train_step`` on the same draw and batches, its MoE
+    tokens in the degree's groups (``ctx.grouped_as``), and the expert
+    ids of a no-grad loss of the first batch. Saves the metrics a step,
+    the trained weights (host) and the ids to ``path``; returns the
+    metrics."""
+    from repro_torch.distributed import ctx
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    cfg, model, params, run = tp_sp_fp32(torch, kind)
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, tp_sp_opt(run["steps"]))
+    data = tp_sp_data(cfg, run["seq"], run["batch"])
+    metrics = []
+    with ctx.grouped_as(run["degree"]):
+        ids = (expert_ids(torch, model, params,
+                          batch_on(data.batch_at(0), "cuda"))
+               if cfg.moe is not None else None)
+        for step in range(run["steps"]):
+            params, opt, m = step_fn(params, opt,
+                                     batch_on(data.batch_at(step), "cuda"))
+            metrics.append({k: float(v) for k, v in m.items()})
+    torch.save({"metrics": metrics, "expert_ids": ids,
+                "params": tree_map(lambda t: t.detach().cpu(), params)},
+               path)
+    del params, opt
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def tp_sp_run(torch, plan: dict, shard, dev, kind: str, yard: dict | None,
+              *, fault: str | None = None,
+              final_dir: str | None = None) -> dict:
+    """One tp_sp training run of ``kind`` on this rank of ``shard``'s
+    group, every rank on the whole batch of each step: ``bf16`` the
+    plan's deepseek-moe-16b at TRAIN_SEQ, fp32 master weights from seed
+    0 (``bounded_moe`` unless the plan's ``bounded`` is false), int8
+    compression, at the plan's ``lr`` (TRAIN_TP_SP_LR by default);
+    ``fp32`` / ``dense_fp32`` ``tp_sp_fp32``'s model, no compression,
+    clean or under a planted fault (``planted_tp_sp_fault``). The rank
+    holds its ``local_params(policy="tp_sp")`` split and its AdamW state.
+    Each step: loss, grad norm, lr, device ms (CUDA events), wall, peak
+    memory, bytes by kind; with ``final_dir`` a sharded save of the
+    trained weights. bf16: the bytes against ``tp_sp_bytes``; fp32: the
+    steps and every leaf against ``yard``'s one-card run, and (clean
+    MoE) the assignments routed apart from it on the first batch."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.distributed.ctx import sharding_policy
+    from repro_torch.distributed.sharding import local_params, tp_sp_blocks
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import batch_on
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import init
+    from repro_torch.optim import adamw_init
+
+    n = shard.degree
+    lr = TRAIN_TP_SP_LR
+    if kind == "bf16":
+        cfg = train_tp_sp_cfg(plan["layers"])
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cuda", dtype=torch.float32)
+        if plan.get("bounded", True):
+            bounded_moe(params)
+        seq, batch, steps = TRAIN_SEQ, plan["batch"], plan["steps"]
+        compression, lr = "int8", plan.get("lr", lr)
+    else:
+        cfg, model, params, run = tp_sp_fp32(torch, kind)
+        seq, batch, steps = run["seq"], run["batch"], run["steps"]
+        compression = None
+    params = local_params(params, rank=shard.rank, degree=n,
+                          policy="tp_sp", in_place=True)
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    if compression == "int8":
+        opt["err"] = init_error_feedback(params)
+    step_fn = make_train_step(model, tp_sp_opt(steps, lr), compression)
+    data = tp_sp_data(cfg, seq, batch)
+    final = None
+    if final_dir is not None:
+        # every rank opens the directory before any rank saves
+        final = CheckpointManager(final_dir, keep=1, rank=shard.rank,
+                                  degree=n)
+        dist.barrier(group=shard.group)
+    rec = {"degree": n, "rank": shard.rank, "kind": kind, "fault": fault,
+           "arch": cfg.name, "layers": cfg.num_layers, "seq": seq,
+           "global_batch": batch, "steps": []}
+    fault_ctx = (planted_tp_sp_fault(fault, cfg) if fault
+                 else contextlib.nullcontext())
+    with sharding_policy(shard, "tp_sp"), fault_ctx:
+        if kind == "fp32" and fault is None:
+            got = expert_ids(torch, model, params,
+                             batch_on(data.batch_at(0), dev))
+            want = torch.load(yard["path"])["expert_ids"]
+            rec["assignments_routed_apart"] = assignments_apart(
+                got, [w[shard.rank] for w in want])
+            rec["assignments"] = sum(g.numel() for g in got)
+        for step in range(steps):
+            b = batch_on(data.batch_at(step), dev)
+            shard.reset_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            (params, opt, m), wall, ms = timed_call(
+                torch, lambda: step_fn(params, opt, b))
+            rec["steps"].append({
+                **{k: float(v) for k, v in m.items()}, "wall_s": wall,
+                "device_ms": ms,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "sent": dict(shard.sent), "received": dict(shard.received),
+                "staged_bytes": shard.staged_bytes})
+        if final is not None:
+            final.save(steps, {"params": params}, shardings={
+                "params": tp_sp_blocks(init(cfg, device="meta"),
+                                       rank=shard.rank, degree=n)})
+    if kind == "bf16":
+        rec["bytes_from_shapes"] = tp_sp_bytes(cfg, n, batch, seq, int8=True)
+    else:
+        want = torch.load(yard["path"], mmap=True)
+        steps_limit, leaf_limit = TRAIN_TP_SP_GATES[kind]
+        rec["step_gate"] = fsdp_step_gate(rec["steps"], want["metrics"],
+                                          steps_limit)
+        rec["leaf_gate"] = fsdp_leaves_gate(
+            fsdp_leaf_errs(torch, params, want["params"], shard), leaf_limit)
+        rec["rejected"] = bool(rec["step_gate"]["failures"]
+                               or rec["leaf_gate"]["failures"])
+        del want
+    del params, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_sp_failures(rec: dict, tag: str) -> list:
+    """A clean run's failed gates: bf16, a loss or grad norm not finite,
+    or a step's bytes by kind apart from the shapes' arithmetic; fp32,
+    the steps or leaves outside their bands."""
+    import math
+
+    tag = f"{tag} degree {rec['degree']} {rec['kind']}"
+    if rec["kind"] != "bf16":
+        return [f"{tag}: {f}" for f in rec["step_gate"]["failures"]
+                + rec["leaf_gate"]["failures"]]
+    out = []
+    want = rec["bytes_from_shapes"]
+    for i, step in enumerate(rec["steps"]):
+        if not (math.isfinite(step["loss"])
+                and math.isfinite(step["grad_norm"])):
+            out.append(f"{tag} step {i}: loss {step['loss']}, grad norm "
+                       f"{step['grad_norm']}")
+        got = {k: step["sent"][k] for k in want}
+        if got != want or got != {k: step["received"][k] for k in want}:
+            out.append(f"{tag} step {i}: bytes {got}, the shapes give "
+                       f"{want}")
+    return out
+
+
+def tp_sp_line(rec: dict) -> None:
+    """Rank 0 prints a run's summary as it ends."""
+    if rec["rank"] != 0:
+        return
+    line = {"phase": "train_tp_sp_run", **{
+        k: rec.get(k) for k in ("degree", "kind", "fault", "arch", "rejected",
+                                "assignments_routed_apart", "assignments")},
+        "loss": [s["loss"] for s in rec["steps"]],
+        "wall_s": [s["wall_s"] for s in rec["steps"]],
+        "device_ms": [s["device_ms"] for s in rec["steps"]]}
+    if rec["kind"] != "bf16":
+        line["step_gate"] = rec["step_gate"]
+        line["leaf_gate"] = {k: v for k, v in rec["leaf_gate"].items()
+                             if k != "failures"}
+        line["leaf_failures"] = len(rec["leaf_gate"]["failures"])
+    emit(line)
+
+
+def train_tp_sp_rank(rank: int, world: int, backend: str, store: str,
+                     out_dir: str, plan: dict, yards: dict) -> None:
+    """One rank of the train_tp_sp phase (a process of its own): join the
+    group, probe its collectives, train the bf16 runs at degrees 4 (its
+    trained weights saved sharded) and 2, then at degree 4 the MoE fp32
+    run clean and with each of TP_SP_FAULTS, which the gates must
+    reject, and at degree 2 the dense fp32 run. Writes its report to
+    ``out_dir``, then fails on any gate."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import seq_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        groups = {d: seq_group(d) for d in (2, 4)}
+        report = {"rank": rank, "device": str(dev), "backend": backend,
+                  "probe": collective_probe(torch, dist, dev, rank, world,
+                                            groups[world]),
+                  "runs": []}
+        failures = []
+
+        def run(degree, kind, **kw):
+            shard = groups[degree]
+            if shard is not None:
+                rec = tp_sp_run(torch, plan, shard, dev, kind,
+                                yards.get(kind), **kw)
+                report["runs"].append(rec)
+                if kw.get("fault") is None:
+                    failures.extend(tp_sp_failures(rec, f"rank {rank}"))
+                elif not rec["rejected"]:
+                    failures.append(f"rank {rank}: the gates passed the "
+                                    f"planted fault {kw['fault']}")
+                tp_sp_line(rec)
+            dist.barrier()
+
+        for degree in TRAIN_TP_SP_DEGREES:
+            run(degree, "bf16", final_dir=str(Path(out_dir) / "final")
+                if degree == 4 else None)
+        for fault in (None,) + TP_SP_FAULTS:
+            run(TRAIN_TP_SP_FP32["degree"], "fp32", fault=fault)
+        run(TRAIN_TP_SP_DENSE["degree"], "dense_fp32")
+        report["failures"] = failures
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(report, f)
+        require(not failures, "; ".join(failures))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_tp_sp(torch) -> dict:
+    """Training across ranks under the reference's tp_sp policy (see the
+    module docstring, phase 21), one process a rank: NCCL with a card a
+    rank where the machine has four cards, else gloo with every rank on
+    card 0. The fp32 yardsticks are computed here first; a rank's failure
+    fails the phase (``mp.spawn`` raises it here). Then the degree-4 bf16
+    run's trained weights, restored whole, serve through the kernels."""
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeCell
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import init
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.lifecycle import Request
+
+    world = max(TRAIN_TP_SP_DEGREES)
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    plan = TRAIN_TP_SP_PLANS[backend]
+    cfg = train_tp_sp_cfg(plan["layers"])
+    torch.cuda.empty_cache()
+    report = {"phase": "train_tp_sp", "arch": MOE_ARCH, "backend": backend,
+              "cards": world if backend == "nccl" else 1,
+              "layers": plan["layers"], "seq": TRAIN_SEQ,
+              "global_batch": plan["batch"], "steps": plan["steps"],
+              "compression": "int8", "param_dtype": "fp32",
+              "compute_dtype": "bf16", "reduced": plan["reduced"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        yards = {}
+        for kind in ("fp32", "dense_fp32"):
+            path = str(Path(tmp) / f"yard_{kind}.pt")
+            yards[kind] = {"path": path,
+                           "metrics": tp_sp_yardstick(torch, kind, path)}
+        report["yardsticks_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(train_tp_sp_rank,
+                 args=(world, backend, str(Path(tmp) / "store"), tmp, plan,
+                       yards),
+                 nprocs=world, join=True)
+        report["spawn_s"] = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        params = CheckpointManager(str(Path(tmp) / "final")).restore(
+            plan["steps"], {"params": init(cfg, device="meta")},
+            device="cuda")["params"]
+    for degree in TRAIN_TP_SP_DEGREES:
+        runs = [run for rk in ranks for run in rk["runs"]
+                if run["degree"] == degree and run["kind"] == "bf16"]
+        losses = {json.dumps([s["loss"] for s in run["steps"]])
+                  for run in runs}
+        require(len(losses) == 1, f"train_tp_sp degree {degree}: the "
+                                  f"ranks' losses differ ({losses})")
+        ms = sorted(s["device_ms"] for s in runs[0]["steps"][1:])
+        line = {"phase": "train_tp_sp", "run": f"degree {degree}",
+                "backend": backend, "losses": json.loads(losses.pop()),
+                "grad_norms": [s["grad_norm"] for s in runs[0]["steps"]],
+                "bytes_a_rank_a_step": runs[0]["bytes_from_shapes"],
+                "staged_bytes": runs[0]["steps"][-1]["staged_bytes"],
+                "ranks": [{"rank": run["rank"], **{k: [s[k] for s in run[
+                    "steps"]] for k in ("device_ms", "wall_s",
+                                        "peak_mem_bytes")}}
+                          for run in runs]}
+        line["mfu"] = roofline_line(
+            MOE_ARCH, ShapeCell(f"train {plan['batch']}x{TRAIN_SEQ}",
+                                TRAIN_SEQ, plan["batch"], "train"),
+            ms[len(ms) // 2],
+            max(s["peak_mem_bytes"] for run in runs for s in run["steps"]),
+            layers=plan["layers"], timing=f"CUDA events, rank 0's median "
+            f"of steps 1-{plan['steps'] - 1}, degree {degree}")["mfu"]
+        emit(line)
+    fp32 = {f"{run['kind']} {run['fault'] or 'clean'}": {
+        k: run.get(k) for k in ("rejected", "step_gate", "leaf_gate")}
+        for run in ranks[0]["runs"] if run["kind"] != "bf16"}
+    clean = [run for rk in ranks for run in rk["runs"]
+             if run["kind"] == "fp32" and run["fault"] is None]
+    fp32["fp32 clean"].update({k: sum(run[k] for run in clean) for k in (
+        "assignments_routed_apart", "assignments")})
+    emit({"phase": "train_tp_sp", "run": "fp32 and planted faults",
+          "moe": TRAIN_TP_SP_FP32, "dense": {"arch": ARCH,
+                                              **TRAIN_TP_SP_DENSE},
+          "one_card": {k: yards[k]["metrics"] for k in yards},
+          "runs": fp32, "probe": [rk["probe"] for rk in ranks]})
+
+    # the trained weights, gathered whole, through the kernels
+    kernel_model = build_model(dataclasses.replace(cfg, attn_impl="kernel"))
+    model = build_model(cfg)
+    rng = np.random.default_rng(7)
+    prompts = [torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(1, n)))
+               .to("cuda") for n in TRAIN_PROMPTS]
+    # every B1/B2 call of a prefill, B4 call of a decode step and kernel
+    # call of the wave serve held to the plain version on the same inputs
+    # beside its planted fault (``attention_gate``); the logits held to
+    # the chunked route's where no (token, layer) routes apart (a bf16
+    # rounding can flip a token's sixth expert), and the served tokens
+    ops.reset_launch_counts()
+    served = []
+    with torch.no_grad():
+        for prompt in prompts:
+            n = prompt.shape[1]
+            ((got, cache), got_routes), gate = attention_gate(
+                lambda: moe_routes(lambda: kernel_model.prefill(
+                    params, kernel_model.cfg, prompt, n + 1)))
+            tok = got[:, -1].argmax(-1, keepdim=True)
+            _, dgate = attention_gate(lambda: kernel_model.decode_step(
+                params, kernel_model.cfg, tok, cache, n))
+            del cache
+            (want, _), want_routes = moe_routes(lambda: model.prefill(
+                params, cfg, prompt, n + 1))
+            require(bool(torch.isfinite(got).all()),
+                    f"train_tp_sp: kernel logits at {n} not finite")
+            prefills = sum(gate["kernels"].get(k, 0)
+                           for k in ("mas_resident", "mas_streamed"))
+            require(prefills == cfg.num_layers,
+                    f"train_tp_sp: prefill at {n}: {gate['kernels']}")
+            require(dgate["kernels"].get("decode", 0) == cfg.num_layers,
+                    f"train_tp_sp: decode at {n}: {dgate['kernels']}")
+            apart = routing_differences(got_routes, want_routes)
+            err = row_rel_err(got, want)
+            served.append({"prompt_len": n, "row_rel_err": err,
+                           "max_abs_err": max_err(got, want),
+                           "routes_apart": apart, "prefill_gate": gate,
+                           "decode_gate": dgate})
+            require(apart or err <= LOGITS_RTOL,
+                    f"train_tp_sp: kernel prefill logits at {n}: row error "
+                    f"{err}")
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    3, cfg.vocab_size, size=(TRAIN_PROMPTS[0],))
+                    .astype(np.int32), max_new_tokens=TRAIN_NEW_TOKENS,
+                    eos_id=-1) for i in range(BATCH)]
+        outs = {}
+        for name, m_ in (("kernel", kernel_model), ("chunked", model)):
+            eng = ServingEngine(m_, params, max_len=TRAIN_PROMPTS[0]
+                                + TRAIN_NEW_TOKENS, batch_size=BATCH,
+                                device="cuda")
+            if name == "kernel":
+                outs[name], serve_gate = attention_gate(
+                    lambda: eng.serve(reqs))
+                counts = ops.launch_counts()
+            else:
+                outs[name] = eng.serve(reqs)
+    for name in PATH_KERNELS["train_tp_sp"]:
+        require(counts[name] > 0, f"train_tp_sp: kernel {name} not "
+                                  f"launched")
+    token_agreement = agreement(outs["kernel"], outs["chunked"])
+    report.update(trained_through_kernels={
+                      "prefill_vs_chunked": served, "limit": LOGITS_RTOL,
+                      "serve_gate": serve_gate,
+                      "serve_token_agreement": token_agreement,
+                      "launches": launched_kernels(counts)})
+    require(token_agreement == 1.0,
+            f"train_tp_sp: the kernel serve's tokens agree {token_agreement} "
+            f"with the chunked route's")
     emit(report)
     del params, kernel_model
     torch.cuda.empty_cache()
@@ -8635,13 +9318,16 @@ def seq_sharded_alone(torch, device: dict, parts: tuple) -> int:
     return 0
 
 
-def train_sharded_alone(torch) -> int:
-    """``--only train_sharded``: the train_sharded phase alone, after the
-    device phase's build. Prints the same last three lines, its kernel
-    line holding the launches of B1, B2 and B4 on the trained weights."""
-    counts = phase_train_sharded(torch)["launches"]
-    print(json.dumps({"kernels": [], "train_sharded_launches": {
-        name: counts[name] for name in PATH_KERNELS["train_sharded"]}}))
+def train_sharded_alone(torch, name: str = "train_sharded") -> int:
+    """``--only train_sharded`` (``train_tp_sp``): that phase alone, after
+    the device phase's build. Prints the same last three lines, its
+    kernel line holding the launches of B1, B2 and B4 on the trained
+    weights."""
+    phase = {"train_sharded": phase_train_sharded,
+             "train_tp_sp": phase_train_tp_sp}[name]
+    counts = phase(torch)["launches"]
+    print(json.dumps({"kernels": [], f"{name}_launches": {
+        k: counts[k] for k in PATH_KERNELS[name]}}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8653,9 +9339,11 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv not in (["--only", "sharded"],
                              ["--only", "train_sharded"],
+                             ["--only", "train_tp_sp"],
                              *(["--only", k] for k in SEQ_ONLY)):
         print("usage: chip_smoke.py [--only sharded|seq_sharded|"
-              "seq_recurrent|seq_frontend|train_sharded]", file=sys.stderr)
+              "seq_recurrent|seq_frontend|train_sharded|train_tp_sp]",
+              file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
         print(f"error: no src/repro_torch beside {Path(__file__).name}",
@@ -8674,8 +9362,8 @@ def main(argv=None) -> int:
     device = phase_device(torch, build)
     if argv == ["--only", "sharded"]:
         return sharded_alone(torch)
-    if argv == ["--only", "train_sharded"]:
-        return train_sharded_alone(torch)
+    if argv[1:] and argv[1] in ("train_sharded", "train_tp_sp"):
+        return train_sharded_alone(torch, argv[1])
     if argv:
         return seq_sharded_alone(torch, device, SEQ_ONLY[argv[1]])
     phase_fp32(torch)
@@ -8719,6 +9407,8 @@ def main(argv=None) -> int:
     launches["train"] = phase_train(torch)["launches"]
     torch.cuda.empty_cache()
     launches["train_sharded"] = phase_train_sharded(torch)["launches"]
+    torch.cuda.empty_cache()
+    launches["train_tp_sp"] = phase_train_tp_sp(torch)["launches"]
     for row in rows:
         counter = ROW_COUNTER.get(row["name"], row["name"])
         row["launches"] = sum(launches[path][counter]

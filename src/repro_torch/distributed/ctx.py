@@ -26,11 +26,19 @@ by a context manager, no thread-local state:
   Under ``"fsdp"`` (training across ranks) the batch rows split
   instead: each rank trains on its own rows and holds dim 0 of every
   matrix cut in n blocks (``sharding.local_params(policy="fsdp")``).
-  ``fsdp_state()`` gives its ``SeqShard``; ``gather_fsdp`` gathers a
+  ``fsdp_state()`` gives its ``SeqShard``; ``gather_split`` gathers a
   layer's blocks whole in the compute dtype just before the layer
   (``GatherLeaf``: all-gather forward, reduce-scatter of the fp32
   gradient backward), and the train step all-reduces the gradients of
   the leaves every rank holds whole (``launch/steps.py``).
+  Training under ``"tp_sp"`` (an MoE stack, or an odd batch) keeps the
+  sequence split: every rank holds the whole batch and its ``tp_sp``
+  split, and the model's train route (``transformer.tp_sp_forward``)
+  gathers each layer's split leaves along their own dims
+  (``gather_split``), its K/V rows whole (``gather_rows``, whose
+  backward reduce-scatters dK/dV) and exchanges MoE buffers through
+  ``AllToAll``, whose backward is the same exchange. ``train_shard()``
+  gives the training policy's shard and kind.
 
 The reference's ``constrain`` places a global array; here a rank holds
 its part. ``seq_sharded_activations``, ``seq_sharded_heads`` and
@@ -46,10 +54,11 @@ expert exchange), ``gather`` (all-gathers of whole values), ``bcast``
 gathered whole before the layer), ``halo`` (a layer's boundary rows: a
 causal conv's inputs, a window's K/V) and ``carry`` (a recurrent
 layer's scan state and decay, composed across the ranks); under
-``fsdp`` also ``reduce_scatter`` (a gathered weight's fp32 gradient
-summed over the ranks, each keeping its block), ``all_reduce`` (sums:
-the gradients of whole leaves, the token count, the loss, the squared
-norm) and ``all_reduce_max`` (the int8 scales' absmax). Point-to-point
+training also ``reduce_scatter`` (a gathered weight's or K/V block's
+fp32 gradient summed over the ranks, each keeping its block),
+``all_reduce`` (sums: the gradients of whole leaves, the token count,
+the loss, the squared norm, an MoE layer's first-choice density) and
+``all_reduce_max`` (the int8 scales' absmax). Point-to-point
 sends, all-to-alls and reduce-scatters of CUDA tensors over gloo, which
 has no GPU form of them, go through host buffers, and so do its
 all-reduces; ``staged_bytes`` counts the bytes copied so. Over gloo a
@@ -466,44 +475,88 @@ def fsdp_state() -> SeqShard | None:
 
 
 class GatherLeaf(torch.autograd.Function):
-    """A leaf split on dim 0 over ``shard``'s group, gathered whole in
-    ``dtype``: the rank's block cast to ``dtype`` and all-gathered in rank
-    order (kind ``weights``). Backward: the whole leaf's gradient in fp32,
-    summed over the ranks by a reduce-scatter (kind ``reduce_scatter``),
-    the rank's block of the sum as its block's gradient."""
+    """A tensor split along ``dim`` over ``shard``'s group, gathered
+    whole in ``dtype``: the rank's block cast to ``dtype`` and all-gathered
+    in rank order (kind ``kind``: ``weights`` for a split parameter,
+    ``gather`` for a sequence's K/V rows). Backward: the whole tensor's
+    gradient in fp32, summed over the ranks by a reduce-scatter along
+    ``dim`` (kind ``reduce_scatter``), the rank's block of the sum as its
+    block's gradient, in the block's dtype."""
 
     @staticmethod
-    def forward(ctx_, block, shard, dtype):
-        ctx_.shard = shard
-        return torch.cat(shard.all_gather(block.detach().to(dtype),
-                                          "weights"), 0)
+    def forward(ctx_, block, shard, dtype, dim=0, kind="weights"):
+        ctx_.shard, ctx_.dim, ctx_.dtype, ctx_.kind = (shard, dim,
+                                                       block.dtype, kind)
+        return torch.cat(shard.all_gather(block.detach().to(dtype), kind),
+                         dim)
 
     @staticmethod
     def backward(ctx_, grad):
-        return ctx_.shard.reduce_scatter(grad.float()), None, None
+        whole = grad.float().movedim(ctx_.dim, 0).contiguous()
+        block = ctx_.shard.reduce_scatter(whole).movedim(0, ctx_.dim)
+        return block.to(ctx_.dtype), None, None, None, None
 
 
-def gather_fsdp(tree, specs, shard: SeqShard, dtype):
+class AllToAll(torch.autograd.Function):
+    """``SeqShard.all_to_all`` (kind ``a2a``) with its backward: the
+    gradient's blocks sent back by the same exchange, which is its own
+    inverse over blocks of equal size."""
+
+    @staticmethod
+    def forward(ctx_, x, shard):
+        ctx_.shard = shard
+        return shard.all_to_all(x.detach())
+
+    @staticmethod
+    def backward(ctx_, grad):
+        return ctx_.shard.all_to_all(grad), None
+
+
+def gather_split(tree, specs, shard: SeqShard, dtype):
     """``tree`` (a part of a params tree) with each leaf that ``specs``
-    (``sharding.split_specs(cfg, n, "fsdp")``' matching part) marks (0,
+    (``sharding.split_specs(cfg, n, policy)``' matching part) marks (dim,
     whole size) and that holds the rank's block of it gathered whole
-    (``GatherLeaf``), and every other fp32 leaf of two or more dims cast
-    to ``dtype``, as ``Model.loss_fn`` casts weights on one card; 1-D
-    leaves as they are."""
+    along dim (``GatherLeaf``, kind ``weights``), and every other fp32
+    leaf of two or more dims cast to ``dtype``, as ``Model.loss_fn`` casts
+    weights on one card; 1-D leaves as they are. Training's gather: under
+    ``fsdp`` dim 0 of every matrix, under ``tp_sp`` the leaf's
+    tensor-parallel dim (a rank's experts are not marked: they stay its
+    own)."""
     if isinstance(tree, dict):
-        return {k: gather_fsdp(v, specs[k], shard, dtype)
+        return {k: gather_split(v, specs[k], shard, dtype)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [gather_fsdp(v, specs[i], shard, dtype)
+        return [gather_split(v, specs[i], shard, dtype)
                 for i, v in enumerate(tree)]
-    if specs is not None and tree.shape[0] != specs[1]:
-        if tree.shape[0] * shard.degree != specs[1]:
-            raise ValueError(f"a leaf of {tree.shape[0]} rows is no block of "
-                             f"{specs[1]} over {shard.degree} ranks")
-        return GatherLeaf.apply(tree, shard, dtype)
+    if specs is not None and tree.shape[specs[0]] != specs[1]:
+        dim, whole = specs
+        if tree.shape[dim] * shard.degree != whole:
+            raise ValueError(f"a leaf of {tree.shape[dim]} along dim {dim} "
+                             f"is no block of {whole} over {shard.degree} "
+                             f"ranks")
+        return GatherLeaf.apply(tree, shard, dtype, dim)
     if tree.dtype == torch.float32 and tree.dim() >= 2:
         return tree.to(dtype)
     return tree
+
+
+def gather_rows(x: torch.Tensor, shard: SeqShard, dim: int) -> torch.Tensor:
+    """``x``, the rank's block of a sequence split along ``dim``, made
+    whole by one all-gather in rank order (kind ``gather``); the backward
+    reduce-scatters its gradient (``GatherLeaf``)."""
+    return GatherLeaf.apply(x, shard, x.dtype, dim, "gather")
+
+
+def train_shard() -> tuple:
+    """(the active training policy's ``SeqShard``, its kind): under
+    ``fsdp``, or under ``tp_sp`` with a group; (None, None) otherwise."""
+    shard = fsdp_state()
+    if shard is not None:
+        return shard, "fsdp"
+    shard = seq_shard_state()
+    if shard is not None and policy_kind() == "tp_sp":
+        return shard, "tp_sp"
+    return None, None
 
 
 def policy_kind() -> str:

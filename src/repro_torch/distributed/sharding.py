@@ -19,14 +19,18 @@ RG-LRU width, a leaf whose dim the degree does not divide whole on every
 rank by ``fit_spec``'s rule; and ``local_params``:
 under ``sp_rep`` every weight whole but the MoE experts, split over the
 ranks; under ``tp_sp`` every leaf cut along its fitted tensor-parallel
-dim, which is what a rank holds at rest; under ``fsdp`` (training) dim 0
-of every matrix, and ``local_opt_state`` cuts AdamW's moments and the
-int8 error feedback alike. The sequence route gathers a layer's split
+dim, which is what a rank holds at rest (and trains under ``tp_sp``);
+under ``fsdp`` (training) dim 0 of every matrix. ``local_opt_state``
+cuts AdamW's moments and the int8 error feedback as their parameters
+under either training policy. The sequence route gathers a layer's split
 leaves whole just before the layer (``split_specs``,
-``ctx.SeqShard.gather_weights``); so does training under ``fsdp``
-(``split_specs(..., "fsdp")``, ``ctx.gather_fsdp``). ``fsdp_blocks``
-names each leaf's block for the sharded checkpoints
-(``checkpoint/manager.py``).
+``ctx.SeqShard.gather_weights``); so does training
+(``ctx.gather_split``: under ``fsdp`` with ``split_specs(..., "fsdp")``,
+under ``tp_sp`` with ``split_specs``, the experts staying the rank's).
+``fsdp_blocks`` and ``tp_sp_blocks`` name each leaf's block for the
+sharded checkpoints (``checkpoint/manager.py``); ``held_blocks`` tells a
+rank's blocks from its whole leaves (the train step's reductions and
+its global norm).
 
 One departure from the reference's rules (ROADMAP C17): its ``embed$``
 comes first and also matches ``unembed``, so an untied (D, V)
@@ -212,16 +216,18 @@ def local_params(params: dict, *, rank: int, degree: int,
 
 
 def local_opt_state(opt_state: dict, *, rank: int, degree: int,
-                    in_place: bool = False) -> dict:
-    """Rank ``rank``'s part of AdamW's state (``opt_specs``) under
-    ``fsdp``: ``mu``, ``nu`` and the int8 error feedback ``err`` cut as
-    ``local_params(policy="fsdp")`` cuts their parameters, ``step``
-    whole."""
+                    policy: str = "fsdp", in_place: bool = False) -> dict:
+    """Rank ``rank``'s part of AdamW's state (``opt_specs``) under the
+    training ``policy`` (``fsdp`` or ``tp_sp``): ``mu``, ``nu`` and the
+    int8 error feedback ``err`` cut as ``local_params(policy=policy)``
+    cuts their parameters, ``step`` whole."""
+    if policy not in ("fsdp", "tp_sp"):
+        raise ValueError(f"{policy!r} is no training policy")
     out = opt_state if in_place else dict(opt_state)
     for key in ("mu", "nu", "err"):
         if key in opt_state:
             out[key] = local_params(opt_state[key], rank=rank, degree=degree,
-                                    policy="fsdp", in_place=in_place)
+                                    policy=policy, in_place=in_place)
     return out
 
 
@@ -234,6 +240,39 @@ def fsdp_blocks(tree, *, rank: int, degree: int):
     return tree_map(lambda leaf: None if fit_dim(
         0 if leaf.dim() >= 2 else None, leaf.shape, degree) is None
         else (0, rank, degree), tree)
+
+
+def tp_sp_blocks(tree, *, rank: int, degree: int):
+    """``fsdp_blocks``' counterpart under ``tp_sp``: for each leaf of
+    ``tree`` (whole shapes; a params tree, or a state tree whose leaves'
+    paths end as their parameters', ``{"params", "opt": {"mu", ...}}``)
+    that ``local_params(policy="tp_sp")`` cuts over ``degree`` ranks,
+    (dim, rank, degree) with dim its fitted tensor-parallel dim, the
+    routed experts on dim 0; None for a leaf every rank holds whole."""
+    dims = param_specs(tree, policy="tp_sp", degree=degree)
+    return tree_map(lambda d: None if d is None else (d, rank, degree),
+                    dims)
+
+
+@functools.lru_cache(maxsize=None)
+def whole_shapes(cfg) -> dict:
+    """{path: shape} of ``cfg``'s whole parameters (``init`` on the meta
+    device)."""
+    from repro_torch.models.transformer import init
+    from repro_torch.tree import leaves_with_paths
+
+    return {p: tuple(t.shape) for p, t in leaves_with_paths(
+        init(cfg, device="meta"))}
+
+
+def held_blocks(params, cfg) -> dict:
+    """A tree shaped like ``params`` (a rank's training parameters):
+    true for a leaf the rank holds a block of (its shape is not the whole
+    leaf's: an ``fsdp`` or ``tp_sp`` block, or the rank's experts), false
+    for a leaf every rank holds whole."""
+    shapes = whole_shapes(cfg)
+    return tree_map_with_path(
+        lambda path, leaf: tuple(leaf.shape) != shapes[path], params)
 
 
 @functools.lru_cache(maxsize=None)

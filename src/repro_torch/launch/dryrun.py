@@ -20,14 +20,17 @@ holds the policy's cut of the weights (``sharding.local_params``): under
 step reaches them; under ``sp_rep`` every weight whole but the experts.
 The whole draw is cut in place, so it does not outlive the cut.
 
-A train cell runs ``steps`` train steps under ``fsdp`` (a dense, ssm,
-hybrid, audio or vision stack at an even batch): each rank holds its
-``fsdp`` blocks of fp32 weights and AdamW state, draws its slice of
+A train cell runs ``steps`` train steps under ``choose_policy``'s
+policy with ``"chunked"`` attention (the kernels have no backward); the
+record adds each step's loss and grad norm. Under ``fsdp`` (a dense,
+ssm, hybrid, audio or vision stack at an even batch) each rank holds its
+``fsdp`` blocks of fp32 weights and AdamW state and draws its slice of
 seeded ``SyntheticLMData`` at the cell's sequence (a vision cell's F
-patch rows count toward it), and trains with ``"chunked"`` attention
-(the kernels have no backward); the record adds each step's loss and
-grad norm. A ``tp_sp`` train cell (MoE, or an odd batch) raises
-``NotImplementedError`` naming ROADMAP A10 item 3b.
+patch rows count toward it). Under ``tp_sp`` (an MoE stack, or an odd
+batch) each rank holds its ``tp_sp`` split and draws the whole batch,
+of which the model takes its rows of the sequence; a stack or sequence
+``transformer.check_tp_sp_train`` refuses raises before any collective
+(ROADMAP A10 item 3c).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import (
+    check_tp_sp_train,
     keep_block,
     make_cache,
     rank_cache,
@@ -157,11 +161,12 @@ def decode_steps(model, params, cache, tokens, start: int, dev) -> tuple:
 
 
 def train_steps(model, params, shard: SeqShard, cell, *, seed: int,
-                steps: int, dev) -> tuple:
-    """``steps`` fsdp train steps of ``model`` on this rank's slice of
-    seeded ``SyntheticLMData`` (seed ``seed``) at ``cell``'s global batch
-    and sequence -> (metrics a step, device ms a step, wall s a step).
-    AdamW at the train launcher's defaults, no compression."""
+                steps: int, dev, policy: str = "fsdp") -> tuple:
+    """``steps`` train steps of ``model`` under ``policy`` on seeded
+    ``SyntheticLMData`` (seed ``seed``) at ``cell``'s global batch and
+    sequence, this rank's slice of the batch under ``fsdp``, the whole
+    batch under ``tp_sp`` -> (metrics a step, device ms a step, wall s a
+    step). AdamW at the train launcher's defaults, no compression."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.launch.train import batch_on
     from repro_torch.optim import OptConfig, adamw_init
@@ -171,7 +176,8 @@ def train_steps(model, params, shard: SeqShard, cell, *, seed: int,
     data = SyntheticLMData(
         vocab_size=cfg.vocab_size, global_batch=cell.global_batch,
         seq_len=cell.seq_len - (f if cfg.frontend == "vision" else 0),
-        seed=seed, process_index=shard.rank, process_count=shard.degree,
+        seed=seed, process_index=shard.rank if policy == "fsdp" else 0,
+        process_count=shard.degree if policy == "fsdp" else 1,
         frontend_tokens=f, d_model=cfg.d_model)
     step = make_train_step(model, OptConfig(lr=3e-3, warmup_steps=0,
                                             total_steps=steps))
@@ -209,9 +215,9 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
     encoder-decoder's: its memories' F rows too) and decodes ``steps``
     seeded tokens to its end: outputs ``logits`` (steps, B, V) and
     ``cache``. Every rank returns the same logits. A train cell runs
-    ``steps`` fsdp train steps (``train_steps``, data seed ``seed + 5``;
-    ``params`` fp32, the rank's blocks, trained in place): outputs
-    ``metrics`` a step, the same on every rank, and ``params``.
+    ``steps`` train steps under its policy (``train_steps``, data seed
+    ``seed + 5``; ``params`` fp32, the rank's blocks, trained in place):
+    outputs ``metrics`` a step, the same on every rank, and ``params``.
     """
     cell = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = get_arch(arch) if isinstance(arch, str) else arch
@@ -222,11 +228,9 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
     dev = resolve_device(device)
     policy = choose_policy(cfg, cell)
     if cell.kind == "train":
-        if policy != "fsdp":
-            raise NotImplementedError(
-                f"{cfg.name} x {cell.name} trains under {policy}, whose "
-                f"backward across ranks is not ported (ROADMAP A10 item 3b)")
-        if cell.global_batch % shard.degree:
+        if policy == "tp_sp":
+            check_tp_sp_train(cfg, cell.seq_len, shard.degree)
+        elif cell.global_batch % shard.degree:
             raise ValueError(f"a global batch of {cell.global_batch} does "
                              f"not split over {shard.degree} ranks")
         if cfg.attn_impl == "kernel":
@@ -246,7 +250,7 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
         with sharding_policy(shard, policy):
             metrics, ms, wall = train_steps(model, params, shard, cell,
                                             seed=seed + 5, steps=steps,
-                                            dev=dev)
+                                            dev=dev, policy=policy)
         outputs = {"metrics": metrics, "params": params}
     else:
         outputs, ms, wall = _serve_cell(model, params, shard, cell, policy,

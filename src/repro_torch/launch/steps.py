@@ -3,9 +3,9 @@ the distribution policy of a cell.
 
 Port of the step functions and ``choose_policy`` of
 ``repro/launch/steps.py``. The train step runs on one card, or on a rank
-of a group under ``sharding_policy(shard, "fsdp")`` (the reference's
-``fsdp`` train cells); the prefill and decode steps on one card, or on a
-rank under the policy ``choose_policy`` names
+of a group under ``sharding_policy(shard, "fsdp")`` or ``"tp_sp"`` (the
+reference's train cells, by ``choose_policy``); the prefill and decode
+steps on one card, or on a rank under the policy ``choose_policy`` names
 (``launch/dryrun.run_cell``). The reference's abstract input specs
 (``abstract_params``, ``batch_sds``, ``abstract_cache``,
 ``cell_lowering_inputs``) lower its steps onto XLA meshes; the port runs
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.distributed import compression as comp
 from repro_torch.distributed import ctx
-from repro_torch.distributed.sharding import split_specs
+from repro_torch.distributed.sharding import held_blocks
 from repro_torch.models.api import Model
 from repro_torch.optim import OptConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
@@ -40,21 +40,6 @@ def token_denominators(labels: torch.Tensor, grad_accum: int,
         0, mb, (labels >= 0).sum(-1).float())
     counts = shard.all_reduce(counts, "all_reduce")
     return torch.clamp(counts, min=1.0)[mb]
-
-
-def split_leaves(params, cfg, shard) -> dict:
-    """A tree shaped like ``params``: true for a leaf ``fsdp`` splits and
-    the rank holds a block of (``split_specs(..., "fsdp")``)."""
-    specs = split_specs(cfg, shard.degree, "fsdp")
-
-    def visit(node, spec):
-        if isinstance(node, dict):
-            return {k: visit(v, spec[k]) for k, v in node.items()}
-        if isinstance(node, list):
-            return [visit(v, spec[i]) for i, v in enumerate(node)]
-        return spec is not None and node.shape[0] != spec[1]
-
-    return visit(params, specs)
 
 
 def _sum_whole_grads(leaves, split, shard) -> None:
@@ -85,11 +70,16 @@ def make_loss_and_grads(model: Model, grad_accum: int = 1):
     loss divides by its global count of labels (``token_denominators``),
     each gathered weight's gradient is reduce-scattered into the rank's
     block in the backward (``ctx.GatherLeaf``) and summed over the
-    microbatches there, the whole leaves' gradients are all-reduced once
+    microbatches there. Under ``tp_sp`` the batch is whole on every rank
+    and the parameters its ``local_params(policy="tp_sp")`` split: the
+    loss is the rank's term (``Model.loss_fn``), a split leaf's gradient
+    arrives reduce-scattered and the rank's experts' complete (the
+    all-to-all's backward brings every group's part). Under either the
+    gradients of the leaves every rank holds whole are all-reduced once
     after the last microbatch, zeros included (no rank skips a
     collective), and the loss is the ranks' losses all-reduced."""
     def loss_and_grads(params, batch):
-        shard = ctx.fsdp_state()
+        shard, kind = ctx.train_shard()
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -99,12 +89,12 @@ def make_loss_and_grads(model: Model, grad_accum: int = 1):
             raise ValueError(f"batch {n} does not split into {grad_accum} "
                              "microbatches")
         m = n // grad_accum
-        denom = None if shard is None else token_denominators(
+        denom = None if kind != "fsdp" else token_denominators(
             batch["labels"], grad_accum, shard)
         loss = None
         for i in range(grad_accum):
             mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-            mb_loss = model.loss_fn(params, mb) if shard is None else \
+            mb_loss = model.loss_fn(params, mb) if denom is None else \
                 model.loss_fn(params, mb, denom=denom[i * m:(i + 1) * m])
             mb_loss.backward()      # sums into each parameter's .grad
             loss = mb_loss.detach() if loss is None \
@@ -115,7 +105,7 @@ def make_loss_and_grads(model: Model, grad_accum: int = 1):
                     p.grad = torch.zeros_like(p)
             if shard is not None:
                 _sum_whole_grads(leaves, tree_leaves(
-                    split_leaves(params, model.cfg, shard)), shard)
+                    held_blocks(params, model.cfg)), shard)
                 loss = shard.all_reduce(loss, "all_reduce")
             if grad_accum > 1:
                 for p in leaves:
@@ -141,12 +131,14 @@ def make_train_step(model: Model, opt_cfg: OptConfig,
     metrics (``loss``, ``grad_norm``, ``lr``) are fp32 tensors on the
     device.
 
-    Under ``sharding_policy(shard, "fsdp")`` the step works on the rank's
-    batch rows, its blocks of the parameters and its blocks of the
-    optimizer state (``sharding.local_opt_state``): the gradients are
-    the global batch's, reduced over the ranks before compression (int8's
-    scales over every rank's blocks), the clipping norm is global, and
-    AdamW runs on the blocks. Every rank returns the same metrics."""
+    Under ``sharding_policy(shard, "fsdp")`` or ``"tp_sp"`` the step
+    works on the rank's blocks of the parameters and of the optimizer
+    state (``sharding.local_opt_state(policy=)``): the gradients are the
+    global batch's, reduced over the ranks before compression (int8's
+    scales over every rank's blocks), the clipping norm is global (the
+    rank's blocks, experts included, summed over the ranks, the whole
+    leaves once: ``sharding.held_blocks``), and AdamW runs on the blocks.
+    Every rank returns the same metrics."""
     if compression not in (None, "none", "bf16", "int8"):
         raise ValueError(f"unknown compression {compression!r}")
     cfg = model.cfg
@@ -157,11 +149,11 @@ def make_train_step(model: Model, opt_cfg: OptConfig,
         return reference_leaf(path, cfg)
 
     def train_step(params, opt_state, batch):
-        shard = ctx.fsdp_state()
+        shard, _ = ctx.train_shard()
         loss, grads = loss_and_grads(params, batch)
         err = opt_state["err"] if compression == "int8" else None
         comp.apply_compression_(grads, err, compression, group_of, shard)
-        split = None if shard is None else split_leaves(params, cfg, shard)
+        split = None if shard is None else held_blocks(params, cfg)
         params, opt_state, metrics = adamw_update(grads, opt_state, params,
                                                   opt_cfg, shard=shard,
                                                   split=split)

@@ -4,6 +4,8 @@
         --smoke --device cpu --steps 30
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch qwen3-1.7b --smoke --device cpu --steps 30
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch deepseek-moe-16b --smoke --device cpu --steps 30
 
 Port of ``repro/launch/train.py``: the same flags less ``--mesh``, plus
 ``--device`` (default ``cuda``, which raises where there is no CUDA
@@ -18,15 +20,19 @@ Across ranks: with a default ``torch.distributed`` group of more than
 one rank (initialized here from ``torchrun``'s environment when it is
 not yet: NCCL with a card a rank, ``cuda:LOCAL_RANK``; gloo with
 ``--device cpu``), it trains under ``steps.choose_policy``'s policy at
-the group's degree. ``--batch`` is the global batch; each rank draws its
-slice (``SyntheticLMData(process_index=rank, process_count=n)``, as the
-reference's launcher), holds its ``fsdp`` blocks of the weights and the
-optimizer state, and saves and restores them sharded (a checkpoint
-saved at another degree restores onto this one). The heartbeat worker
-is ``proc<rank>``; rank 0 alone prints and writes ``--metrics-file``.
+the group's degree. ``--batch`` is the global batch. Under ``fsdp``
+each rank draws its slice (``SyntheticLMData(process_index=rank,
+process_count=n)``, as the reference's launcher) and holds its ``fsdp``
+blocks of the weights and the optimizer state; under ``tp_sp`` (an MoE
+stack, or an odd batch) each rank draws the whole batch, of which the
+model takes the rank's rows of the sequence, and holds its ``tp_sp``
+split (the experts its own). Either saves and restores sharded (a
+checkpoint saved at another degree restores onto this one). A stack or
+sequence ``tp_sp`` does not train yet raises ``NotImplementedError``
+(ROADMAP A10 item 3c) before any step. The heartbeat worker is
+``proc<rank>``; rank 0 alone prints and writes ``--metrics-file``.
 Where the reference's launcher places parameters by the ``tp_sp`` rules
-whatever the cell, the port follows ``choose_policy``: ``tp_sp`` (an MoE
-stack, or an odd batch) above one rank raises ``NotImplementedError``.
+whatever the cell, the port follows ``choose_policy``.
 
 The kernels have no backward, so a config whose ``attn_impl`` is
 ``"kernel"`` trains on ``"chunked"`` (the reference's ``"xla"``), and
@@ -53,10 +59,14 @@ from repro_torch.data import SyntheticLMData
 from repro_torch.distributed.compression import init_error_feedback
 from repro_torch.distributed.ctx import SeqShard, sharding_policy
 from repro_torch.distributed.elastic import StepTimer, Watchdog
-from repro_torch.distributed.sharding import fsdp_blocks, local_params
+from repro_torch.distributed.sharding import (
+    fsdp_blocks,
+    local_params,
+    tp_sp_blocks,
+)
 from repro_torch.launch.steps import choose_policy, make_train_step
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import init
+from repro_torch.models.transformer import check_tp_sp_train, init
 from repro_torch.optim import OptConfig, adamw_init
 
 
@@ -82,17 +92,19 @@ def join_group(device: str) -> tuple[int, int, bool]:
     return dist.get_rank(), dist.get_world_size(), True
 
 
-def state_blocks(cfg, compression: str, rank: int, degree: int) -> dict:
-    """Each leaf's ``fsdp`` block of the saved state ``{"params", "opt"}``
-    on rank ``rank`` of ``degree`` (``sharding.fsdp_blocks``), from the
-    shapes of ``init`` on the meta device."""
+def state_blocks(cfg, compression: str, rank: int, degree: int,
+                 policy: str = "fsdp") -> dict:
+    """Each leaf's block of the saved state ``{"params", "opt"}`` on rank
+    ``rank`` of ``degree`` under the training ``policy``
+    (``sharding.fsdp_blocks`` or ``tp_sp_blocks``), from the shapes of
+    ``init`` on the meta device."""
     shapes = init(cfg, device="meta")
     opt = {"mu": shapes, "nu": shapes,
            "step": torch.zeros((), dtype=torch.int32, device="meta")}
     if compression == "int8":
         opt["err"] = shapes
-    return fsdp_blocks({"params": shapes, "opt": opt}, rank=rank,
-                       degree=degree)
+    blocks = tp_sp_blocks if policy == "tp_sp" else fsdp_blocks
+    return blocks({"params": shapes, "opt": opt}, rank=rank, degree=degree)
 
 
 def main(argv=None):
@@ -153,13 +165,10 @@ def _train(args, rank: int, degree: int, dev) -> list:
         cfg = dataclasses.replace(cfg, **overrides)
     policy = choose_policy(cfg, ShapeCell("train", args.seq, args.batch,
                                           "train"))
-    if degree > 1 and policy != "fsdp":
-        raise NotImplementedError(
-            f"training {cfg.name} at batch {args.batch} takes the {policy} "
-            f"policy, whose backward across ranks is not ported (ROADMAP "
-            f"A10 item 3b); fsdp trains dense, ssm, hybrid, audio and "
-            f"vision stacks at an even batch")
+    if degree > 1 and policy == "tp_sp":
+        check_tp_sp_train(cfg, args.seq, degree)
     shard = SeqShard(None, rank, degree)
+    split_batch = degree > 1 and policy == "fsdp"
 
     model = build_model(cfg)
     horizon = args.total_steps or args.steps
@@ -167,8 +176,9 @@ def _train(args, rank: int, degree: int, dev) -> list:
                         total_steps=horizon)
     data = SyntheticLMData(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
-        global_batch=args.batch, seed=17, process_index=rank,
-        process_count=degree,
+        global_batch=args.batch, seed=17,
+        process_index=rank if split_batch else 0,
+        process_count=degree if split_batch else 1,
         frontend_tokens=cfg.num_frontend_tokens if cfg.frontend else 0,
         d_model=cfg.d_model,
     )
@@ -176,11 +186,11 @@ def _train(args, rank: int, degree: int, dev) -> list:
     params = model.init(seed=0, device=dev, dtype=torch.float32)
     if degree > 1:
         params = local_params(params, rank=rank, degree=degree,
-                              policy="fsdp", in_place=True)
+                              policy=policy, in_place=True)
     opt_state = adamw_init(params)
     if args.compression == "int8":
         opt_state["err"] = init_error_feedback(params)
-    blocks = (state_blocks(cfg, args.compression, rank, degree)
+    blocks = (state_blocks(cfg, args.compression, rank, degree, policy)
               if degree > 1 else None)
 
     start_step = 0
@@ -208,7 +218,7 @@ def _train(args, rank: int, degree: int, dev) -> list:
     metrics_f = (open(args.metrics_file, "a")
                  if args.metrics_file and lead else None)
     worker = f"proc{rank}"
-    policy_ctx = (sharding_policy(shard, "fsdp") if degree > 1
+    policy_ctx = (sharding_policy(shard, policy) if degree > 1
                   else contextlib.nullcontext())
 
     losses = []

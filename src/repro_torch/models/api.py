@@ -64,29 +64,47 @@ class Model:
         the mean is the global one: the rank's masked sum over the count
         of unmasked labels on every rank (one all-reduce), so the ranks'
         losses sum to the global batch's; the weights are cast where the
-        model gathers them (``ctx.gather_fsdp``). ``denom`` (one entry a
+        model gathers them (``ctx.gather_split``). ``denom`` (one entry a
         row) replaces that count, row by row: the train step's
-        microbatches (``launch/steps.py``)."""
+        microbatches (``launch/steps.py``).
+
+        Under ``tp_sp`` the batch is whole on every rank and the loss is
+        the rank's term (``transformer.tp_sp_forward``): the masked sum of
+        its rows' label columns over the batch's whole count of unmasked
+        labels (every rank holds every label, so the count needs no
+        exchange) plus its aux term, so the ranks' terms sum to the one
+        card's loss."""
         cfg = self.cfg
-        shard = ctx.fsdp_state()
+        shard, kind = ctx.train_shard()
         if shard is None:
             params = tree_map(
                 lambda p: p.to(cfg.compute_dtype)
                 if p.dtype == torch.float32 and p.dim() >= 2 else p, params)
-        kwargs = {}
-        if cfg.frontend == "vision":
-            kwargs["frontend_embeds"] = batch["frontend"]
-        if cfg.encoder_layers:
-            kwargs["encoder_out"] = tfm.encode(params, batch["frontend"], cfg)
-        logits, aux = self.forward(params, batch["tokens"], cfg, **kwargs)
         labels = batch["labels"].long()
-        if cfg.frontend == "vision":
-            logits = logits[:, -labels.shape[1]:]   # text positions only
+        if kind == "tp_sp":
+            logits, aux = tfm.tp_sp_forward(params, batch["tokens"], cfg,
+                                            shard)
+            count = (labels >= 0).sum()
+            s = labels.shape[1]
+            labels = labels[:, shard.span(s // shard.degree, s)]
+        else:
+            kwargs = {}
+            if cfg.frontend == "vision":
+                kwargs["frontend_embeds"] = batch["frontend"]
+            if cfg.encoder_layers:
+                kwargs["encoder_out"] = tfm.encode(params, batch["frontend"],
+                                                   cfg)
+            logits, aux = self.forward(params, batch["tokens"], cfg,
+                                       **kwargs)
+            if cfg.frontend == "vision":
+                logits = logits[:, -labels.shape[1]:]   # text positions only
         logp = torch.log_softmax(logits.float(), dim=-1)
         ll = logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
         mask = (labels >= 0).float()
         if denom is not None:
             ce = -((ll * mask).sum(-1) / denom).sum()
+        elif kind == "tp_sp":
+            ce = -(ll * mask).sum() / torch.clamp(count.float(), min=1.0)
         elif shard is not None:
             count = shard.all_reduce(mask.sum(), "all_reduce")
             ce = -(ll * mask).sum() / torch.clamp(count, min=1.0)

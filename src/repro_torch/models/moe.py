@@ -146,7 +146,18 @@ def _experts(params, buf, dt, shard, ne: int):
     return torch.bmm(h, w[2].to(dt))
 
 
-def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None):
+def rank_aux_term(r: Route, shard) -> torch.Tensor:
+    """A rank's term of its group's aux loss: E · Σ_e f_e · p_e^r / n,
+    f the first-choice density of every rank's tokens (the ranks'
+    densities all-reduced and averaged: it comes from an argmax and
+    carries no gradient) and p^r this rank's mean router probabilities,
+    so the ranks' terms sum to E · Σ_e f_e · p_e."""
+    density = shard.all_reduce(r.density) / shard.degree
+    return density.numel() * torch.sum(density * r.mean_probs) / shard.degree
+
+
+def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None, *,
+            rank_aux: bool = False):
     """x: (B, S, D) -> (y (B, S, D) in x's dtype, aux fp32).
 
     Tokens are dispatched in the reference's groups (``_token_groups`` of
@@ -166,6 +177,15 @@ def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None):
     all-gathered and averaged in rank order. With one group (a decode
     row, or a sequence the degree does not divide) every rank holds every
     token, runs its experts' slots and all-gathers the outputs.
+
+    Both all-to-alls are differentiable (``ctx.AllToAll``: the backward
+    sends the gradients' blocks back), so the split dispatch trains: a
+    rank's experts receive every group's gradient. With ``rank_aux`` (the
+    ``tp_sp`` train route) aux is the rank's term of the group's loss
+    instead: the first-choice density f, which carries no gradient, is
+    the ranks' densities all-reduced and averaged, and the rank adds E ·
+    Σ_e f_e · p_e^r / n, p^r its own mean router probabilities, so the
+    ranks' terms sum to the group's E · Σ_e f_e · p_e.
     """
     m = cfg.moe
     b, s, d = x.shape
@@ -200,11 +220,12 @@ def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None):
                            dt, None, ne).reshape(ne, g, cap, d).transpose(0, 1)
     elif local:
         n = shard.degree
-        mine = shard.all_to_all(buf[0])                       # (E, C, D)
+        mine = ctx.AllToAll.apply(buf[0], shard)              # (E, C, D)
         mine = mine.reshape(n, ne // n, cap, d).transpose(0, 1).reshape(
             ne // n, n * cap, d)
         out = _experts(params, mine, dt, shard, ne).reshape(ne // n, n, cap, d)
-        out_buf = shard.all_to_all(out.transpose(0, 1).reshape(ne, cap, d))
+        out_buf = ctx.AllToAll.apply(
+            out.transpose(0, 1).reshape(ne, cap, d), shard)
         out_buf = out_buf[None]
     else:
         out = _experts(params, _rank_experts(buf[0], shard, ne), dt, shard,
@@ -219,7 +240,9 @@ def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None):
         y = y.reshape(g_b, g_s, b // g_b, s // g_s, d).transpose(1, 2)
     y = y.reshape(b * s, d)
     aux = r.aux
-    if local:
+    if local and rank_aux:
+        aux = rank_aux_term(r, shard)
+    elif local:
         terms = shard.all_gather(torch.stack([r.density, r.mean_probs]),
                                  "gather")
         mean = terms[0]

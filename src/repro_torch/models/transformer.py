@@ -72,9 +72,25 @@ tied one kept for the unembedding, so its two uses' gradients sum in
 one reduce-scatter, as one card sums them), an untied unembedding
 before its use, each layer's blocks just before the layer, inside its
 ``checkpoint`` region under remat, so the backward gathers them again
-and no gathered layer outlives its use (``ctx.gather_fsdp``; the
-backward reduce-scatters each gathered weight's gradient). ``prefill`` and ``decode_step`` refuse it, and so
-does an MoE stack (its train cells take ``tp_sp``, ROADMAP A10 item 3b).
+and no gathered layer outlives its use (``ctx.gather_split``; the
+backward reduce-scatters each gathered weight's gradient). ``prefill``
+and ``decode_step`` refuse it, and so does an MoE stack (its train cells
+take ``tp_sp``).
+
+Under ``sharding_policy(shard, "tp_sp")`` a dense or MoE stack trains
+through ``tp_sp_forward`` (``Model.loss_fn`` takes it): every rank holds
+the whole batch, its ``local_params(policy="tp_sp")`` split and its rows
+[r·S/n, (r+1)·S/n) of the sequence. The embedding is gathered once (a
+tied one serves the unembedding too), each layer's split leaves inside
+its ``checkpoint`` region (``ctx.gather_split``, along each leaf's own
+dim), the rank's Q rows attend K/V gathered whole (``ctx.gather_rows``)
+on the full-sequence route at ``q_offset`` = the rank's first row (the
+reference's own trade in its chunked attention: the ring's bytes, one
+reduce-scatter back), the MoE FFN dispatches its group through the
+differentiable all-to-all with the rank's term of the aux loss, and only
+the rank's rows are unembedded. The ssm, hybrid, audio and vision stacks
+and a sequence the degree does not divide raise (ROADMAP A10 item 3c,
+``check_tp_sp_train``); the serving route still refuses a backward.
 
 The encoder under the policy runs rank r's block of the F frames: each
 layer all-gathers its K/V whole (``SeqShard.whole``, kind ``gather``)
@@ -271,12 +287,14 @@ def mlp(params, x, cfg: ArchConfig):
     return up @ params["w_down"].to(dt)
 
 
-def ffn(layer, x, cfg: ArchConfig, seq_len: int | None = None):
+def ffn(layer, x, cfg: ArchConfig, seq_len: int | None = None,
+        rank_aux: bool = False):
     """The layer's FFN over every row of ``x`` -> (y, aux): the dense MLP
     (aux 0.0), or the MoE FFN on the un-normalised ``x`` (``seq_len``: the
-    whole sequence's rows, of which ``x`` may hold the rank's block)."""
+    whole sequence's rows, of which ``x`` may hold the rank's block;
+    ``rank_aux``: the rank's term of the aux loss, ``moe.moe_ffn``)."""
     if cfg.moe is not None:
-        return moe.moe_ffn(layer["ffn"], x, cfg, seq_len)
+        return moe.moe_ffn(layer["ffn"], x, cfg, seq_len, rank_aux=rank_aux)
     return mlp(layer["ffn"], x, cfg), 0.0
 
 
@@ -308,31 +326,37 @@ def _qkv(params, x, cfg: ArchConfig, positions):
 
 def _whole_kv(k, v, rows: int) -> tuple:
     """K/V (B, Hkv, R, E), the rank's block of ``rows`` rows under the
-    sharding policy, made whole by one all-gather of both
-    (``SeqShard.whole``, kind ``gather``); as they are where whole."""
+    sharding policy, made whole by one all-gather of both (kind
+    ``gather``: ``SeqShard.whole``, or ``ctx.gather_rows`` where autograd
+    records the call, whose backward reduce-scatters dK/dV); as they are
+    where whole."""
     if k.shape[2] == rows:
         return k, v
-    kv = seq_shard_state().whole(torch.stack([k, v]), rows, dim=3)
+    shard = seq_shard_state()
+    kv = torch.stack([k, v])
+    kv = (ctx.gather_rows(kv, shard, 3) if attn_mod.tracks_grad(kv)
+          else shard.whole(kv, rows, dim=3))
     return kv[0], kv[1]
 
 
 def attn_block(params, x, cfg: ArchConfig, *, positions,
                window: int | None = None, causal: bool = True,
                ring: bool = False, on_block=None,
-               kv_rows: int | None = None):
+               kv_rows: int | None = None, q_offset: int = 0):
     """Self-attention over the full sequence (causal unless ``causal`` is
     false), each row over its last ``window`` positions when given ->
     (out, (k, v)). With ``ring`` the rows are the rank's block of a
     sequence the sharding policy split (``attention(ring=True)``); with
-    ``kv_rows`` (non-causal) the rank's block of a sequence of that many
-    rows, whose K/V are gathered whole before the rank's Q rows attend
-    them on the full-sequence route (``_whole_kv``); (k, v) stay the
-    rank's."""
+    ``kv_rows`` the rank's block, from row ``q_offset``, of a sequence of
+    that many rows, whose K/V are gathered whole before the rank's Q rows
+    attend them on the full-sequence route (``_whole_kv``); (k, v) stay
+    the rank's."""
     q, k, v = _qkv(params, x, cfg, positions)
     kk, vv = (k, v) if kv_rows is None else _whole_kv(k, v, kv_rows)
     o = attn_mod.attention(q, kk, vv, impl=cfg.attn_impl, causal=causal,
-                           window=window, chunk=cfg.attn_chunk,
-                           remat=cfg.remat, ring=ring, on_block=on_block)
+                           window=window, q_offset=q_offset,
+                           chunk=cfg.attn_chunk, remat=cfg.remat, ring=ring,
+                           on_block=on_block)
     return _merge_heads(o) @ params["wo"].to(x.dtype), (k, v)
 
 
@@ -638,8 +662,11 @@ def _embed(params, tokens, cfg: ArchConfig, frontend_embeds=None,
            start: int = 0):
     """Scaled token embeddings, after ``frontend_embeds`` (unscaled) when
     given; with ``cfg.rope`` false, plus the sinusoids of the rows'
-    positions, ``start`` onwards."""
-    x = params["embed"].to(cfg.compute_dtype)[tokens]
+    positions, ``start`` onwards. The lookup is ``F.embedding``, whose
+    CUDA backward sums a token's rows in fp32: indexing's sums them
+    through the bf16 gradient one row at a time, and a token that takes a
+    quarter of a batch's rows loses most of its sum."""
+    x = F.embedding(tokens, params["embed"].to(cfg.compute_dtype))
     x = x * embed_scale(cfg.d_model, x.dtype)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
@@ -687,20 +714,27 @@ def _unembed(params, x, cfg: ArchConfig):
     return h @ params["unembed"].to(h.dtype)
 
 
-def _layer_train(layer, x, cfg: ArchConfig, positions, encoder_out):
-    """One layer of the full-sequence forward -> (x, aux)."""
+def _layer_train(layer, x, cfg: ArchConfig, positions, encoder_out,
+                 split: tuple | None = None):
+    """One layer of the full-sequence forward -> (x, aux). With ``split``
+    = (first row, S) the rows are the rank's block of an S-row sequence
+    under ``tp_sp`` (a dense or MoE layer): its Q rows attend K/V
+    gathered whole (``attn_block(kv_rows=S)``), and its FFN gives the
+    rank's aux term (an MoE FFN's split dispatch)."""
     if "ssd" in layer:
         return x + ssm.ssd_block(layer["ssd"], x, cfg)[0], 0.0
+    start, s = split or (0, None)
     if "rec" in layer:
         x = x + rglru.rglru_block(layer["rec"], x, cfg)[0]
     else:
         x = x + attn_block(layer["attn"], x, cfg, positions=positions,
-                           window=cfg.attn_window, causal=cfg.causal)[0]
+                           window=cfg.attn_window, causal=cfg.causal,
+                           kv_rows=s, q_offset=start)[0]
         if "cross" in layer:
             mem_k, mem_v = cross_memory(layer["cross"], encoder_out, cfg)
             x = x + cross_attn_block(layer["cross"], x, cfg, mem_k=mem_k,
                                      mem_v=mem_v)
-    y, a = ffn(layer, x, cfg)
+    y, a = ffn(layer, x, cfg, s, rank_aux=split is not None)
     return x + y, a
 
 
@@ -720,9 +754,10 @@ def forward(params, tokens, cfg: ArchConfig, *, frontend_embeds=None,
     over the memories gathered whole (``encoder_out`` whole, or the
     rank's block as ``encode`` gives it under the policy), and the final
     rows are all-gathered, so every rank returns the whole logits; aux
-    is the groups' loss. It does not train: a backward cannot cross the
-    ring. Under ``fsdp`` the rank's batch rows on the single card's route,
-    the weights gathered on use (``_fsdp_forward``)."""
+    is the groups' loss. It does not train (the ring has no backward):
+    under ``tp_sp`` ``Model.loss_fn`` trains through ``tp_sp_forward``.
+    Under ``fsdp`` the rank's batch rows on the single card's route, the
+    weights gathered on use (``_fsdp_forward``)."""
     fsdp = ctx.fsdp_state()
     if fsdp is not None:
         return _fsdp_forward(params, tokens, cfg, fsdp, frontend_embeds,
@@ -964,41 +999,62 @@ def _fsdp_specs(cfg: ArchConfig, shard) -> dict:
     return split_specs(cfg, shard.degree, "fsdp")
 
 
-def _fsdp_layer(layer, spec, shard, x, cfg: ArchConfig, positions,
-                encoder_out):
-    """``_layer_train`` on the layer's blocks gathered whole."""
-    return _layer_train(ctx.gather_fsdp(layer, spec, shard,
-                                        cfg.compute_dtype),
-                        x, cfg, positions, encoder_out)
+def _gathered_layer(layer, spec, shard, x, cfg: ArchConfig, positions,
+                    encoder_out, split=None):
+    """``_layer_train`` on the layer's split blocks gathered whole."""
+    return _layer_train(ctx.gather_split(layer, spec, shard,
+                                         cfg.compute_dtype),
+                        x, cfg, positions, encoder_out, split)
+
+
+def _gathered_forward(params, tokens, cfg: ArchConfig, shard, specs, *,
+                      frontend_embeds=None, encoder_out=None,
+                      rows: slice | None = None):
+    """The train forward on split weights (``specs``: the policy's
+    ``split_specs``) -> (logits, aux): the embedding gathered once and,
+    tied, serving the unembedding too; each layer's blocks gathered
+    inside its ``checkpoint`` region under remat, so the backward gathers
+    them again. With ``rows`` only those rows of the whole ``tokens``
+    (``tp_sp``), at their positions, and only they are unembedded."""
+    dt = cfg.compute_dtype
+    embed = ctx.gather_split({"embed": params["embed"]}, specs, shard, dt)
+    if rows is None:
+        x = _embed(embed, tokens, cfg, frontend_embeds)
+        positions = torch.arange(x.shape[1], device=x.device)
+        split = None
+    else:
+        x = _embed(embed, tokens[:, rows], cfg, start=rows.start)
+        positions = torch.arange(rows.start, rows.stop, device=x.device)
+        split = (rows.start, tokens.shape[1])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and attn_mod.tracks_grad(x)
+    for layer, spec in zip(params["layers"], specs["layers"], strict=True):
+        if remat:
+            x, a = checkpoint(_gathered_layer, layer, spec, shard, x, cfg,
+                              positions, encoder_out, split,
+                              use_reentrant=False)
+        else:
+            x, a = _gathered_layer(layer, spec, shard, x, cfg, positions,
+                                   encoder_out, split)
+        aux = aux + a
+    if cfg.tie_embeddings:      # the gathered embedding, both uses' grads
+        head = {"final_norm": params["final_norm"], **embed}
+    else:
+        head = ctx.gather_split(_head(params), specs, shard, dt)
+    return _unembed(head, x, cfg), aux
 
 
 def _fsdp_forward(params, tokens, cfg: ArchConfig, shard,
                   frontend_embeds=None, encoder_out=None):
     specs = _fsdp_specs(cfg, shard)
     _need_memory(params, encoder_out)
-    dt = cfg.compute_dtype
-    embed = ctx.gather_fsdp({"embed": params["embed"]}, specs, shard, dt)
-    x = _embed(embed, tokens, cfg, frontend_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat and attn_mod.tracks_grad(x)
-    for layer, spec in zip(params["layers"], specs["layers"], strict=True):
-        if remat:
-            x, a = checkpoint(_fsdp_layer, layer, spec, shard, x, cfg,
-                              positions, encoder_out, use_reentrant=False)
-        else:
-            x, a = _fsdp_layer(layer, spec, shard, x, cfg, positions,
-                               encoder_out)
-        aux = aux + a
-    if cfg.tie_embeddings:      # the gathered embedding, both uses' grads
-        head = {"final_norm": params["final_norm"], **embed}
-    else:
-        head = ctx.gather_fsdp(_head(params), specs, shard, dt)
-    return _unembed(head, x, cfg), aux
+    return _gathered_forward(params, tokens, cfg, shard, specs,
+                             frontend_embeds=frontend_embeds,
+                             encoder_out=encoder_out)
 
 
 def _fsdp_encoder_layer(layer, spec, shard, x, cfg: ArchConfig, positions):
-    layer = ctx.gather_fsdp(layer, spec, shard, cfg.compute_dtype)
+    layer = ctx.gather_split(layer, spec, shard, cfg.compute_dtype)
     x = x + attn_block(layer["attn"], x, cfg, positions=positions,
                        causal=False)[0]
     return x + mlp(layer["ffn"], x, cfg)
@@ -1023,11 +1079,55 @@ def _fsdp_encode(params, frames, cfg: ArchConfig, shard):
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
+# ---------------------------------------------------------------------------
+# training under tp_sp
+# ---------------------------------------------------------------------------
+
+TP_SP_TRAIN_FAMILIES = ("dense", "moe")
+
+
+def check_tp_sp_train(cfg: ArchConfig, seq_len: int, degree: int) -> None:
+    """Raise ``NotImplementedError`` unless ``tp_sp`` trains ``cfg`` at
+    ``seq_len`` rows over ``degree`` ranks: a dense or MoE stack whose
+    sequence the degree divides. The other stacks and a sequence it does
+    not divide are ROADMAP A10 item 3c."""
+    if cfg.family not in TP_SP_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"tp_sp training of the {cfg.family} stack {cfg.name} is not "
+            f"ported (ROADMAP A10 item 3c)")
+    if seq_len % degree:
+        raise NotImplementedError(
+            f"tp_sp training of {seq_len} rows over {degree} ranks: a "
+            f"sequence the degree does not divide is not ported (ROADMAP "
+            f"A10 item 3c)")
+
+
+def tp_sp_forward(params, tokens, cfg: ArchConfig, shard):
+    """The ``tp_sp`` train route: tokens (B, S), whole on every rank ->
+    (logits of the rank's rows (B, S/n, V), the rank's aux term). The
+    rank holds its ``local_params(policy="tp_sp")`` split (or whole
+    leaves), gathered as ``_gathered_forward`` does; its Q rows attend
+    K/V gathered whole (``ctx.gather_rows``, whose backward
+    reduce-scatters dK/dV) on the full-sequence route at ``q_offset`` =
+    its first row. Only the rank's rows are unembedded, so every gradient
+    is a sum over the ranks' rows and each is reduced once: a gathered
+    leaf's by its reduce-scatter, the rank's experts' by the
+    all-to-all's backward, a whole leaf's by the train step's
+    all-reduce."""
+    s = tokens.shape[1]
+    check_tp_sp_train(cfg, s, shard.degree)
+    return _gathered_forward(params, tokens, cfg, shard,
+                             split_specs(cfg, shard.degree),
+                             rows=shard.span(s // shard.degree, s))
+
+
 def _refuse_grad(params) -> None:
     if attn_mod.tracks_grad(*tree_leaves(params)):
-        raise NotImplementedError("training across devices is not ported "
-                                  "(ROADMAP A10): a backward cannot cross "
-                                  "the ring")
+        raise NotImplementedError(
+            "training across devices under tp_sp goes through "
+            "Model.loss_fn (transformer.tp_sp_forward) for a dense or MoE "
+            "stack, ROADMAP A10 item 3c for the others; the sequence "
+            "route's forward serves only")
 
 
 def _seq_rows(s: int) -> tuple[slice, bool]:

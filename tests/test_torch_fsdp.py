@@ -20,8 +20,8 @@ per-thread stand-in for ``distributed/ctx.fsdp_state``:
   ``FSDP_FAULTS`` (``planted_fsdp_fault``), labels masked unevenly over
   the ranks, as the card runs them;
 * the bytes by kind against ``chip_smoke.fsdp_bytes``' arithmetic;
-* ``run_cell``'s train cells and the ``tp_sp`` refusals (``run_cell``,
-  the launcher);
+* ``run_cell``'s train cells and what ``tp_sp`` still refuses
+  (``run_cell``, the launcher: ROADMAP A10 item 3c);
 * sharded checkpoints: a degree-4 save restores at degrees 3, 2 and 1
   bit for bit, the reference's ``CheckpointManager.restore`` reads it
   into the one-card save's arrays, and no half-written step is seen;
@@ -473,23 +473,28 @@ def test_run_cell_trains_a_dense_cell_under_fsdp(monkeypatch):
     np.testing.assert_allclose(ranks[0][0]["losses"], want, rtol=STEP_RTOL)
 
 
-@pytest.mark.parametrize("arch,batch", [("deepseek-moe-16b", 4),
-                                        ("internlm2-1.8b", 3)])
+@pytest.mark.parametrize("arch,batch", [("mamba2-130m", 3),
+                                        ("whisper-large-v3", 3)])
 def test_tp_sp_train_cells_are_refused(arch, batch):
-    """An MoE stack or an odd batch trains under tp_sp, whose backward
-    across ranks is not ported: ``run_cell`` and the launcher raise,
-    naming ROADMAP, before any collective."""
+    """An odd batch trains under tp_sp, which trains dense and MoE stacks
+    only: ``run_cell`` raises for the other stacks, naming ROADMAP, before
+    any collective."""
     cell = ShapeCell("train_tiny", 24, batch, "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10 item 3b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10 item 3c"):
         dryrun.run_cell(get_smoke(arch), cell, ctx.SeqShard(None, 0, 2),
                         device="cpu")
 
 
 def test_the_launcher_refuses_tp_sp_across_ranks(monkeypatch):
+    """The launcher raises likewise for a stack tp_sp does not train and
+    for a sequence the degree does not divide, before any step."""
     monkeypatch.setattr(train, "join_group", lambda device: (0, 2, False))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10 item 3b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10 item 3c"):
+        train.main(["--arch", "recurrentgemma-9b", "--smoke", "--steps",
+                    "1", "--batch", "3", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10 item 3c"):
         train.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "1",
-                    "--batch", "3", "--device", "cpu"])
+                    "--batch", "3", "--seq", "25", "--device", "cpu"])
 
 
 def test_an_moe_forward_under_fsdp_is_refused():

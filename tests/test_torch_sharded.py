@@ -31,7 +31,13 @@ at degrees 2 and 4 the ranks train internlm2-smoke (int8 compression)
 as the one-process step on their batches concatenated, with the bytes
 by kind the shapes give, and their async sharded save restores whole;
 and two ranks resume ``launch/train.main`` from a one-rank checkpoint
-(``tests/test_torch_fsdp.py`` holds the rest, on threads).
+(``tests/test_torch_fsdp.py`` holds the rest, on threads). Under the
+tp_sp policy the 2-rank spawn trains deepseek-moe-smoke on the whole
+batch as the one-process step under the same MoE groups, with the bytes
+``tp_sp_bytes`` gives, its sharded save restoring whole bit for bit;
+and runs ``launch/train.main`` on moonshot-smoke over the two ranks to
+step 10, then resumed from that sharded checkpoint to step 20
+(``tests/test_torch_tp_sp_train.py`` holds the rest, on threads).
 """
 
 from __future__ import annotations
@@ -145,6 +151,24 @@ def _resume_case(root) -> dict:
         "--steps", "20", "--ckpt-dir", str(root / "resume")])
 
 
+# tp_sp over the 2-rank spawn: deepseek-moe-smoke's train steps saved
+# sharded, and train.main on moonshot-smoke to step 10 (saved sharded)
+# then resumed to 20
+TP_SP_RESUME_ARGS = ["--arch", "moonshot-v1-16b-a3b", "--smoke", "--total-steps", "20",
+                     "--batch", "2", "--seq", "32", "--save-every", "10",
+                     "--device", "cpu"]
+
+
+def _tp_sp_cases(root) -> list:
+    return [dict(name="tp_sp-2", kind="fsdp", policy="tp_sp", degree=2,
+                 arch="deepseek-moe-16b", steps=FSDP_STEPS, opt=FSDP_OPT, batch=2,
+                 seq=16, ckpt=str(root / "tp_sp-2"))] + [
+        dict(name=f"tp_sp_resume-{n}", kind="resume",
+             argv=TP_SP_RESUME_ARGS + ["--steps", str(n), "--ckpt-dir",
+                                       str(root / "tp_sp_resume")])
+        for n in (10, 20)]
+
+
 def _cases2(vocab, root):
     p, sp = _prompts(vocab), _spec_prompts(vocab)
     return [
@@ -163,7 +187,8 @@ def _cases2(vocab, root):
               like="fp32"),
         _case("ring_int8", "internlm2-1.8b", 2, p, chunk_route="ring",
               like="int8", engine_kw={"kv_dtype": "int8"}),
-    ] + _ring_fn_cases(2) + _fsdp_cases(2, root) + [_resume_case(root)]
+    ] + _ring_fn_cases(2) + _fsdp_cases(2, root) + [_resume_case(root)] \
+        + _tp_sp_cases(root)
 
 
 def _cases4(vocab, root):
@@ -735,8 +760,10 @@ def test_rank_models_are_the_harness_models(pairs):
 
 def _fsdp_one_card(pairs, case) -> tuple:
     """The case's steps on one process: the port's ``make_train_step`` on
-    the ranks' batches concatenated -> (metrics a step, trained params,
-    optimizer state)."""
+    the ranks' batches concatenated (tp_sp: on the whole batch, its MoE
+    tokens in the ranks' groups, ``ctx.grouped_as``) -> (metrics a step,
+    trained params, optimizer state)."""
+    from repro_torch.distributed import ctx
     from repro_torch.distributed.compression import init_error_feedback
     from repro_torch.optim import OptConfig, adamw_init
     from repro_torch.tree import tree_map
@@ -750,15 +777,19 @@ def _fsdp_one_card(pairs, case) -> tuple:
     state["err"] = init_error_feedback(params)
     step = steps.make_train_step(model, OptConfig(**case["opt"]), "int8")
     metrics = []
-    for i in range(case["steps"]):
-        parts = [SyntheticLMData(
-            vocab_size=model.cfg.vocab_size, seq_len=case["seq"],
-            global_batch=case["batch"], seed=17, process_index=r,
-            process_count=case["degree"]).batch_at(i)
-            for r in range(case["degree"])]
-        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-        params, state, m = step(params, state, train.batch_on(batch, "cpu"))
-        metrics.append({k: float(v) for k, v in m.items()})
+    split = case.get("policy", "fsdp") == "fsdp"
+    with ctx.grouped_as(1 if split else case["degree"]):
+        for i in range(case["steps"]):
+            parts = [SyntheticLMData(
+                vocab_size=model.cfg.vocab_size, seq_len=case["seq"],
+                global_batch=case["batch"], seed=17, process_index=r,
+                process_count=case["degree"] if split else 1).batch_at(i)
+                for r in range(case["degree"] if split else 1)]
+            batch = {k: np.concatenate([p[k] for p in parts])
+                     for k in parts[0]}
+            params, state, m = step(params, state,
+                                    train.batch_on(batch, "cpu"))
+            metrics.append({k: float(v) for k, v in m.items()})
     return metrics, params, state
 
 
@@ -870,3 +901,115 @@ def test_train_main_resumes_over_two_ranks_from_a_one_rank_checkpoint(
                                                             device="cpu")
     assert whole["params"]["embed"].shape == shapes["embed"].shape
     assert (root / "resume" / "hb" / "hb_proc1.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# training across ranks under tp_sp in the 2-rank spawn
+# ---------------------------------------------------------------------------
+
+
+def _blocks_whole(blocks: list, shape) -> np.ndarray:
+    """The ranks' blocks of a leaf put together along the dim where they
+    differ from the whole ``shape``; a whole leaf as rank 0 holds it."""
+    dims = [d for d, n in enumerate(blocks[0].shape) if n != shape[d]]
+    return np.concatenate(blocks, dims[0]) if dims else blocks[0]
+
+
+def test_tp_sp_ranks_train_as_one_card(pairs, cases, ranks):
+    """gloo ranks under tp_sp (deepseek-moe-smoke, the whole batch on each,
+    int8 compression): every rank the same metrics, within 1e-4 of the
+    one-process step under the same MoE groups, their blocks put together
+    within 1e-4 of each trained leaf's norm, and the last step's bytes by
+    kind those ``chip_smoke.tp_sp_bytes`` gives."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.tree import leaves_with_paths
+
+    from test_torch_sharded_ranks import fsdp_model
+
+    case = cases["tp_sp-2"]
+    got = [r[case["name"]] for r in ranks[2]]
+    want, params, _ = _fsdp_one_card(pairs, case)
+    for res in got:
+        assert res["metrics"] == got[0]["metrics"]
+    for s, w in enumerate(want):
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(got[0]["metrics"][s][key], w[key],
+                                       rtol=1e-4, err_msg=f"{s} {key}")
+    for path, w in leaves_with_paths(params):
+        whole = _blocks_whole([res["params"][path] for res in got], w.shape)
+        err = np.linalg.norm(whole.astype(np.float64)
+                             - w.detach().double().numpy())
+        assert err <= 1e-4 * float(w.detach().double().norm()), path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    model, _ = fsdp_model(case, {case["arch"]: jax.tree.map(
+        np.asarray, pairs[case["arch"]].jparams)})
+    bytes_ = smoke.tp_sp_bytes(model.cfg, 2, case["batch"], case["seq"],
+                               int8=True)
+    for res in got:
+        assert {k: res["sent"][k] for k in bytes_} == bytes_
+        assert {k: res["received"][k] for k in bytes_} == bytes_
+
+
+def test_a_degree_2_tp_sp_save_restores_on_one_rank_bit_for_bit(
+        pairs, cases, ranks):
+    """The two ranks' async tp_sp save restores whole on one process: the
+    parameters and first moments are the ranks' blocks put together along
+    their split dims, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.tree import leaves_with_paths
+
+    case = cases["tp_sp-2"]
+    got = [r[case["name"]] for r in ranks[2]]
+    assert latest_step(case["ckpt"]) == case["steps"]
+    _, params, state = _fsdp_one_card(pairs, case)
+    restored = CheckpointManager(case["ckpt"]).restore(
+        case["steps"], {"params": params, "opt": state}, device="cpu")
+    for key, tree in (("params", restored["params"]),
+                      ("mu", restored["opt"]["mu"])):
+        for path, t in leaves_with_paths(tree):
+            whole = _blocks_whole([res[key][path] for res in got], t.shape)
+            np.testing.assert_array_equal(t.numpy(), whole,
+                                          err_msg=f"{key} {path}")
+    assert int(restored["opt"]["step"]) == case["steps"]
+
+
+def test_train_main_trains_an_moe_stack_over_two_ranks_and_resumes(
+        cases, ranks, root):
+    """``launch/train.main`` on moonshot-smoke over two gloo ranks takes
+    tp_sp: to step 10, saved sharded, then resumed from that checkpoint
+    to step 20. Every rank the same losses; the resumed ones within 5e-3
+    of one process continuing the checkpoint (restored whole) on the same
+    batches under the same MoE groups."""
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.configs import get_smoke as smoke
+    from repro_torch.distributed import ctx
+    from repro_torch.models.transformer import init
+    from repro_torch.optim import OptConfig
+
+    first = [r["tp_sp_resume-10"]["losses"] for r in ranks[2]]
+    got = [r["tp_sp_resume-20"]["losses"] for r in ranks[2]]
+    assert len(first[0]) == 10 and first[0] == first[1]
+    assert len(got[0]) == 10 and got[0] == got[1]
+    cfg = smoke("moonshot-v1-16b-a3b")
+    shapes = init(cfg, device="meta")
+    target = {"params": shapes, "opt": {"mu": shapes, "nu": shapes,
+                                        "step": torch.zeros(())}}
+    directory = str(root / "tp_sp_resume")
+    state = CheckpointManager(directory).restore(10, target, device="cpu")
+    step = steps.make_train_step(
+        torch_build_model(cfg),
+        OptConfig(lr=3e-3, warmup_steps=2, total_steps=20))
+    params, opt, want = state["params"], state["opt"], []
+    with ctx.grouped_as(2):
+        for i in range(10, 20):
+            batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32,
+                                    global_batch=2, seed=17).batch_at(i)
+            params, opt, m = step(params, opt, train.batch_on(batch, "cpu"))
+            want.append(float(m["loss"]))
+    np.testing.assert_allclose(got[0], want, atol=5e-3)
+    assert latest_step(directory) == 20

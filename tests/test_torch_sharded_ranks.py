@@ -10,7 +10,7 @@ is given, serves every case through ``ShardedContinuousBatchingEngine``
 on the CPU (a case of kind ``ring_fn`` instead runs
 ``distributed/paged.ring_paged_prefill`` on the rank's heads of the
 case's pools, ``ring_case``; of kind ``fsdp`` trains under the fsdp
-policy and saves sharded, ``fsdp_case``; of kind ``resume`` runs
+(or the case's tp_sp) policy and saves sharded, ``fsdp_case``; of kind ``resume`` runs
 ``launch/train.main`` over the group, ``resume_case``) and pickles what
 it saw; the caller compares. The ranks import no JAX: the reference's
 results are computed in the test's own process.
@@ -154,16 +154,22 @@ def ring_case(case: dict) -> dict:
 
 
 def fsdp_case(case: dict, weights: dict) -> dict:
-    """``case["steps"]`` fsdp train steps of the case's smoke model
-    (chunked attention, int8 compression) on this rank's slice of
-    ``SyntheticLMData(seed=17)``, then an async sharded save of the state
-    into ``case["ckpt"]``: the metrics a step, the rank's trained blocks
-    and first moments, and the last step's bytes by kind."""
+    """``case["steps"]`` train steps of the case's smoke model (chunked
+    attention, int8 compression) under ``case["policy"]`` (default
+    ``fsdp``: on this rank's slice of ``SyntheticLMData(seed=17)``;
+    ``tp_sp``: on the whole batch, the rank's rows of the sequence), then
+    an async sharded save of the state into ``case["ckpt"]``: the metrics
+    a step, the rank's trained blocks and first moments, and the last
+    step's bytes by kind."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import SyntheticLMData
     from repro_torch.distributed.compression import init_error_feedback
     from repro_torch.distributed.ctx import SeqShard, sharding_policy
-    from repro_torch.distributed.sharding import fsdp_blocks, local_params
+    from repro_torch.distributed.sharding import (
+        fsdp_blocks,
+        local_params,
+        tp_sp_blocks,
+    )
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import batch_on
     from repro_torch.optim import OptConfig, adamw_init
@@ -171,21 +177,25 @@ def fsdp_case(case: dict, weights: dict) -> dict:
 
     model, whole = fsdp_model(case, weights)
     rank, n = dist.get_rank(), case["degree"]
+    policy = case.get("policy", "fsdp")
     shard = SeqShard(None, rank, n)
-    params = local_params(whole, rank=rank, degree=n, policy="fsdp")
+    params = local_params(whole, rank=rank, degree=n, policy=policy)
     state = adamw_init(params)
     state["err"] = init_error_feedback(params)
     step = make_train_step(model, OptConfig(**case["opt"]), "int8")
+    split = policy == "fsdp"
     data = SyntheticLMData(vocab_size=model.cfg.vocab_size,
                            seq_len=case["seq"], global_batch=case["batch"],
-                           seed=17, process_index=rank, process_count=n)
+                           seed=17, process_index=rank if split else 0,
+                           process_count=n if split else 1)
     mgr = CheckpointManager(case["ckpt"], rank=rank, degree=n)
     dist.barrier()                  # every rank opened the directory
-    blocks = fsdp_blocks({"params": whole, "opt": {
-        "mu": whole, "nu": whole, "err": whole, "step": state["step"]}},
+    blocks = (fsdp_blocks if split else tp_sp_blocks)({
+        "params": whole, "opt": {"mu": whole, "nu": whole, "err": whole,
+                                 "step": state["step"]}},
         rank=rank, degree=n)
     metrics = []
-    with sharding_policy(shard, "fsdp"):
+    with sharding_policy(shard, policy):
         for i in range(case["steps"]):
             shard.reset_counts()
             params, state, m = step(params, state,
