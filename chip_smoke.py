@@ -117,9 +117,11 @@ Phases, each printing one JSON line:
    CUDA all-gather and broadcast are probed first): degree 2 on bf16 and
    int8 pools and speculative (``spec_depth=4``, both pools), degree 4 on
    bf16 pools, the continuous (or speculative) phase's 16 requests and
-   settings. Each rank builds the weights from seed 0 (their checksum
-   must equal the parent's), and its tokens must equal the single-card
-   serve's bit for bit, no step's result may differ from rank 0's and
+   settings, at full depth with a card a rank and at SHARD_SHARED_LAYERS
+   (2 of 24) where the ranks share one card. Each rank builds the
+   weights from seed 0 (their checksum must equal the parent's), and its
+   tokens must equal the single-card serve's at the same depth bit for
+   bit, no step's result may differ from rank 0's and
    its B5/B6/B7 launch counts must rise. One line a run: backend, cards,
    degree, gathered bytes, mismatches, peak memory and wall a rank. The
    kernels phase adds B5, B6 and B7 (bf16 and int8 pools) on 4 and 2 of
@@ -130,7 +132,7 @@ Phases, each printing one JSON line:
    ring_paged_prefill``: every chunk's Q rows split over the ranks, each
    rank's heads' pages gathered into a slab that passes round the ring,
    a hop of B5 on each slab for its head slot) on the continuous phase's
-   16 requests at 6 of the 24 layers (RING_LAYERS): degree 2 on bf16 and
+   16 requests at 2 of the 24 layers (RING_LAYERS): degree 2 on bf16 and
    int8 pools, degree 4 on bf16, and degree 2 at FP32_LAYERS in fp32;
    the tokens must equal the single-card serve's at that depth bit for
    bit where the B5_ring rows (below) found a hop's rows the single
@@ -168,8 +170,9 @@ Phases, each printing one JSON line:
    decode_32k's split logits bitwise those of the same cell on whole
    weights, its weight gathers the bytes the shapes give; an fp32 run at
    2 layers, a 4096-token prompt, whose greedy tokens equal the single
-   card's plain route's; then deepseek-moe-16b at full width and depth
-   at degree 2, each rank holding 32 of the 64 experts and its split of
+   card's plain route's; then deepseek-moe-16b at full width at degree
+   2 (full depth with a card a rank, SEQ_MOE_SHARED_LAYERS of its 28
+   layers where the ranks share one card), each rank holding 32 of the 64 experts and its split of
    the dense leaves (drawn whole in turn from seed 0, so two ranks fit
    one card), 4 x 2048 and 4 decode steps (16 before its dense weights
    were split), against the single card's plain route in the same token
@@ -361,7 +364,7 @@ Phases, each printing one JSON line:
    trained across ranks under the reference's fsdp policy
    (``sharding_policy(shard, "fsdp")``), one process a rank: NCCL with a
    card a rank where the machine has four cards (full depth, a global
-   batch of 8), else gloo with the four ranks on card 0 (4 of 24 layers,
+   batch of 8), else gloo with the four ranks on card 0 (2 of 24 layers,
    a global batch of 4; every gather and reduce-scatter through host
    memory). Each rank holds dim 0 of every matrix cut in n blocks, with
    its AdamW moments and int8 error feedback, and draws its own
@@ -416,7 +419,26 @@ Phases, each printing one JSON line:
    B1/B2 call of each prefill, B4 call of a decode step and kernel call
    of the wave held to the plain version on the same inputs beside a
    planted zeroed V tile (``attention_gate``), and the wave's tokens
-   equal to the chunked route's.
+   equal to the chunked route's. Then the other stacks at full width
+   (TRAIN_TP_SP_STACKS: mamba2-130m at full depth, recurrentgemma-9b's
+   one (rec, rec, attn) period, whisper-large-v3 at 2 + 2 layers and
+   internvl2-2b at 2 where the ranks share one card; a global batch of
+   1, no compression),
+   each at degree 4 in bf16 (finite losses, every rank the same bits,
+   bytes by kind as ``tp_sp_bytes`` gives them, the halo and carry kinds
+   and their backwards, whisper's encoder and memory gathers included;
+   device ms, peak and a roofline line) and in fp32 against one card
+   (TRAIN_TP_SP_STACK_FP32; the first batch's gradients too, mamba2's
+   also under each of RECURRENT_FAULTS, a dropped halo or carry
+   gradient, which that gate must reject by FAULT_MARGIN times); and
+   internlm2-1.8b at a sequence degree 4 does not divide
+   (TRAIN_TP_SP_ODD: 3 x 510, the rows whole on every rank). Each
+   stack's trained weights, restored whole, serve through its kernels:
+   every B8 call of a prefill (``b8_gate``), every B3 (head dim 256)
+   call of recurrentgemma's prefill and B4 call of its decode step,
+   whisper's B2 calls of the encoder and of the cross blocks and its B1,
+   B2 and B4 calls, internvl2's prefill and B4 calls, each held to its
+   plain version beside its planted fault.
 
 Roofline lines: inside the phases that build each full-width model
 (internlm2-1.8b in phase 4, qwen3-1.7b, phi4-mini-3.8b and
@@ -608,8 +630,14 @@ SHARD_RING_RUNS = (
     ("continuous", 4, None),
     ("fp32", 2, None),
 )
-RING_LAYERS = 6
+RING_LAYERS = 2
 RING_DEGREE = 2
+# The SHARD_RUNS' depth where the ranks share one card (gloo: every step's
+# output all-gathers and broadcasts through host memory; at 24 layers the
+# phase took 229 s on one H100, at 6 166 s): the ring's, whose bf16 and
+# int8 single-card serves they share as yardsticks. Full depth with a
+# card a rank.
+SHARD_SHARED_LAYERS = RING_LAYERS
 # A 1024-token table (64 pages): at batch 8 a rank's own split plan for
 # B6 and B7 differs there from the model's, (8, 2) or (16, 1) against
 # (4, 4); at the 4096-token table all three are (16, 4).
@@ -625,7 +653,7 @@ SHARD_SHORT_PAGES = 64
 # degree 2, experts and dense leaves split, on the moe phase's 4 x 2048.
 SEQ_DEGREES = (2, 4)
 SEQ_PREFILL_BATCH = 1
-SEQ_PREFILL_NEW = 16
+SEQ_PREFILL_NEW = 8     # the whole script has 1,200 s on one card
 SEQ_DECODE_BATCH = 8
 # 8 steps before the weights were split; each step's gathers go through
 # host memory under gloo (4-11 s a step on one H100), so the split runs
@@ -636,6 +664,14 @@ SEQ_FP32_PROMPT = 4096
 SEQ_FP32_NEW = 16
 SEQ_MOE_DEGREE = 2
 SEQ_MOE_WAVE = (4, 2048)
+# where the two ranks share one card (gloo), 8 of its 28 layers: each rank
+# draws the whole model in turn and keeps its cut, and every layer's
+# gathers and all-to-alls pass through host memory
+SEQ_MOE_SHARED_LAYERS = 8
+# likewise internlm2-1.8b's prefill_32k and decode_32k runs, 8 of its 24
+# layers where the ranks share one card (its ring passes, combines and
+# weight gathers through host memory)
+SEQ_DENSE_SHARED_LAYERS = 8
 SEQ_MOE_NEW = 4       # 16 before its dense weights were split (3 s a step
                       # on one H100 over gloo, the gathers through host
                       # memory)
@@ -691,7 +727,7 @@ SEQ_WARM_ROWS = 256     # a rank's rows of the untimed warm-up prefill
 # share one card over gloo (ring passes, gathers and the split decode's
 # weight gathers through host memory).
 FRONTEND_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
-SEQ_FRONTEND_SHARED_LAYERS = 4
+SEQ_FRONTEND_SHARED_LAYERS = 2
 SEQ_FRONTEND_FP32_LAYERS = 2
 SEQ_FRONTEND_FP32_PROMPT = 1024
 # Each path of the port, the kernels it must launch, and the path whose
@@ -716,7 +752,8 @@ PATH_KERNELS = {
     "launcher": ("mas_resident", "decode"),
     "train": ("mas_resident", "mas_streamed", "decode"),
     "train_sharded": ("mas_resident", "mas_streamed", "decode"),
-    "train_tp_sp": ("mas_resident", "mas_streamed", "decode"),
+    "train_tp_sp": ("mas_resident", "mas_streamed", "decode",
+                    "ssd_intra_chunk", "flash_e256", "decode_e256"),
     "sharded": ("paged_prefill", "paged_decode", "paged_verify",
                 "paged_prefill_int8", "paged_decode_int8",
                 "paged_verify_int8"),
@@ -740,8 +777,9 @@ ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
             "paged_prefill_int8": ("int8_continuous", "shared_prefix_int8"),
             "paged_verify": ("speculative",),
             "paged_verify_int8": ("speculative_int8",),
-            "ssd_intra_chunk": ("ssm_wave", "seq_sharded"),
-            "flash_e256": ("hybrid_wave",), "decode_e256": ("hybrid_wave",),
+            "ssd_intra_chunk": ("ssm_wave", "seq_sharded", "train_tp_sp"),
+            "flash_e256": ("hybrid_wave", "train_tp_sp"),
+            "decode_e256": ("hybrid_wave", "train_tp_sp"),
             "flash_e256_halo": ("seq_sharded",),
             "mas_streamed_enc_rank": ("seq_sharded",),
             "mas_streamed_cross_rank": ("seq_sharded",),
@@ -828,7 +866,8 @@ TRAIN_NEW_TOKENS = 8
 # of 8 (2 sequences a rank at degree 4, grad_accum 2 at 2), 4 steps, the
 # fp32 runs 2. One card (gloo, the ranks sharing it, every gather and
 # reduce-scatter through host memory: a degree-2 step of 4 layers at
-# grad_accum 2 took 17-22 s on an H100): 4 of 24 layers, a global batch of 4
+# grad_accum 2 took 17-22 s on an H100): 2 of 24 layers (4 before the
+# tp_sp phase grew; the whole script has 1,200 s), a global batch of 4
 # (1 sequence a rank at degree 4, 2 at 2 in one microbatch), 3 steps, the
 # fp32 runs without compression 1 (each fault planted there shows at
 # step 0; a rank-local int8 scale moves the leaves from the first update
@@ -838,9 +877,9 @@ TRAIN_SHARDED_PLANS = {
     "nccl": {"layers": 24, "batch": 8, "accum": {4: 1, 2: 2},
              "steps": 4, "fp32_steps": {"fp32": 2, "fp32_int8": 2},
              "reduced": "train_4k's global batch of 256 cut to 8"},
-    "gloo": {"layers": 4, "batch": 4, "accum": {4: 1, 2: 1},
+    "gloo": {"layers": 2, "batch": 4, "accum": {4: 1, 2: 1},
              "steps": 3, "fp32_steps": {"fp32": 1, "fp32_int8": 2},
-             "reduced": "4 of 24 layers, 3 steps, the fp32 runs without "
+             "reduced": "2 of 24 layers, 3 steps, the fp32 runs without "
                         "compression 1 (the "
                         "ranks share one card; their gathers pass "
                         "through host memory); train_4k's global batch "
@@ -893,9 +932,9 @@ TRAIN_TP_SP_PLANS = {
     "nccl": {"layers": 8, "batch": 2, "steps": 4,
              "reduced": "8 of 28 layers; train_4k's global batch of 256 "
                         "cut to 2"},
-    "gloo": {"layers": 2, "batch": 1, "steps": 3,
-             "reduced": "2 of 28 layers (the ranks share one card); "
-                        "train_4k's global batch of 256 cut to 1"}}
+    "gloo": {"layers": 2, "batch": 1, "steps": 2,
+             "reduced": "2 of 28 layers, 2 steps (the ranks share one "
+                        "card); train_4k's global batch of 256 cut to 1"}}
 # The fp32 gates at degree 4: 2 full-width layers, a sequence of 512, 2
 # steps, against the same step on one card under ``ctx.grouped_as(4)``
 # (the same MoE groups), clean and with each of TP_SP_FAULTS; and the
@@ -909,11 +948,74 @@ TRAIN_TP_SP_PLANS = {
 # at TRAIN_TP_SP_LR).
 TRAIN_TP_SP_FP32 = {"layers": 2, "seq": 512, "batch": 1, "steps": 2,
                     "degree": 4}
-TRAIN_TP_SP_DENSE = {"layers": 4, "seq": 512, "batch": 3, "steps": 2,
+TRAIN_TP_SP_DENSE = {"layers": 4, "seq": 512, "batch": 3, "steps": 1,
                      "degree": 2}
 TRAIN_TP_SP_GATES = {
     "fp32": ({"loss": 1e-4, "grad_norm": 1e-4, "lr": 1e-6}, 1e-3),
     "dense_fp32": ({"loss": 1e-4, "grad_norm": 1e-5, "lr": 1e-6}, 1e-4)}
+# The other stacks under tp_sp (the same phase, after the MoE and dense
+# runs): mamba2-130m, recurrentgemma-9b, whisper-large-v3 and
+# internvl2-2b at full width, chunked attention with remat, fp32 master
+# weights from seed 0, bf16 compute, no compression, a global batch of 1
+# (train_4k's 256 cut), TRAIN_TP_SP_STACK_STEPS steps at degree 4, every
+# rank the whole batch and its rows of the sequence (internvl2: of its
+# 256 patch rows and the tokens; whisper: its block of the 1500 frames
+# through the encoder too). The depth and sequence a run takes by backend
+# (one card: the four ranks share it over gloo; four cards: NCCL):
+# mamba2 at full depth; recurrentgemma one (rec, rec, attn) period (no
+# tail), so that its trained weights serve through B3 and B4 at head dim
+# 256, and
+# on one card 512 of train_4k's 4096 rows (four ranks' whole tied
+# 256000-row embeddings and their gradients, 2.1 GB bf16 and 4.2 GB fp32
+# each, share the card: a step of 1024 rows took 13.2-14.6 s on one H100);
+# whisper 4 of its 32 decoder and encoder layers and internvl2 4 of 24
+# (one card: 2 of each).
+TRAIN_TP_SP_STACKS = {
+    "gloo": {SSM_ARCH: {"layers": 24, "seq": 4096},
+             HYBRID_ARCH: {"layers": 3, "pattern_tail": (), "seq": 512},
+             ENCDEC_ARCH: {"layers": 2, "encoder_layers": 2, "seq": 4096},
+             VLM_ARCH: {"layers": 2, "seq": 4096}},
+    "nccl": {SSM_ARCH: {"layers": 24, "seq": 4096},
+             HYBRID_ARCH: {"layers": 3, "pattern_tail": (), "seq": 4096},
+             ENCDEC_ARCH: {"layers": 4, "encoder_layers": 4, "seq": 4096},
+             VLM_ARCH: {"layers": 4, "seq": 4096}}}
+TRAIN_TP_SP_STACK_STEPS = 2
+TRAIN_TP_SP_STACK_DEGREE = 4
+# Their fp32 gates at degree 4 (recurrentgemma's at 2: four ranks' whole
+# fp32 256000-row embeddings and their gradients, 4.2 GB each, do not fit
+# one card beside their states): TRAIN_TP_SP_STACK_FP32's layers
+# (whisper: as many encoder layers), 1 x 512 tokens, one step (the first
+# batch's gradients are held too; a second step of recurrentgemma's took
+# 17 s over gloo on one H100), against the same step on one card (an SSD
+# scan at the chunk a rank's 128 rows run on both), at
+# TRAIN_TP_SP_GATES["fp32"]; mamba2's first-batch gradients also under
+# each of RECURRENT_FAULTS, in the same run (recurrentgemma's too took 30 s
+# more on one H100; tests/test_torch_tp_sp_train.py plants them in the
+# hybrid on the CPU). And a
+# sequence the degree does not divide (TRAIN_TP_SP_ODD: internlm2-1.8b, 2
+# layers, 3 x 510 at degree 4: every rank the whole rows, its loss a share
+# of the label columns) at TRAIN_TP_SP_GATES["dense_fp32"].
+TRAIN_TP_SP_STACK_FP32 = {"seq": 512, "batch": 1, "steps": 1,
+                          "degree": {SSM_ARCH: 4, HYBRID_ARCH: 2,
+                                     ENCDEC_ARCH: 4, VLM_ARCH: 4},
+                          "layers": {SSM_ARCH: 2, HYBRID_ARCH: 3,
+                                     ENCDEC_ARCH: 2, VLM_ARCH: 2}}
+TRAIN_TP_SP_ODD = {"layers": 2, "seq": 510, "batch": 3, "steps": 1,
+                   "degree": 4}
+TRAIN_TP_SP_GATES.update(stack_fp32=TRAIN_TP_SP_GATES["fp32"],
+                         odd_fp32=TRAIN_TP_SP_GATES["dense_fp32"])
+# Those runs also hold the first batch's gradient, before any update,
+# leaf by leaf (the rank's blocks) to one card's within this of its norm
+# (the gradient gate): a dropped halo or carry gradient leaves the loss
+# and the first update's signs as they were, but not the gradients of the
+# layers whose rows it joins (fp32 sums in another order:
+# tests/test_torch_tp_sp_train.py holds the smoke stacks at 1e-5)
+TRAIN_TP_SP_GRAD_RTOL = 1e-4
+GRAD_GATED = ("stack_fp32", "odd_fp32")
+# The stacks' trained weights through their kernels: a prompt of this
+# many tokens (whisper: after one 1500-frame clip; internvl2: after its
+# 256 patch rows) and one decode step
+TRAIN_TP_SP_STACK_PROMPT = 1024
 
 
 def emit(obj) -> None:
@@ -4234,15 +4336,19 @@ def one_card_record(eng, prompts, out, wall: float) -> dict:
             **step_split(eng)}
 
 
-def shard_yardstick(torch, full: dict, path: str) -> dict:
-    """The ``one_card_record`` of the single-card serve of ``path``: the
-    one its phase recorded, else served here at the same settings (when
-    the sharded phase runs alone)."""
+def shard_yardstick(torch, full: dict, path: str,
+                    layers: int | None = None) -> dict:
+    """The ``one_card_record`` of the single-card serve of ``path`` (at
+    ``layers`` of the model's layers: default all): the one its phase
+    recorded, else served here at the same settings (when the sharded
+    phase runs alone, or at a cut depth)."""
     from repro_torch.serving import ContinuousBatchingEngine
 
     tokens = full.setdefault("one_card", {})
-    if path not in tokens:
-        model, params = full["model"], full["params"]
+    key = path if layers is None else f"{path} at {layers} layers"
+    if key not in tokens:
+        model, params = (full["model"], full["params"]) if layers is None \
+            else cut_depth(full, layers)
         vocab = model.cfg.vocab_size
         prompts = continuous_prompts(vocab)
         if not tokens:
@@ -4262,9 +4368,9 @@ def shard_yardstick(torch, full: dict, path: str) -> dict:
         t0 = time.perf_counter()
         out = eng.serve(reqs)
         torch.cuda.synchronize()
-        tokens[path] = one_card_record(eng, prompts, out,
-                                       time.perf_counter() - t0)
-    return tokens[path]
+        tokens[key] = one_card_record(eng, prompts, out,
+                                      time.perf_counter() - t0)
+    return tokens[key]
 
 
 def collective_probe(torch, dist, dev, rank: int, degree: int,
@@ -4353,7 +4459,7 @@ def sharded_rank(rank: int, degree: int, backend: str, store: str,
             f"rank {rank}: weights checksum {mine} != the parent's "
             f"{checksum}"]
         ShardedContinuousBatchingEngine(
-            full["model"], full["params"], shard=degree, device=dev,
+            *cut_depth(full, runs[0]["layers"]), shard=degree, device=dev,
             **CONT).serve(warm_up_requests(
                 [np.asarray(p, np.int32) for p in runs[0]["prompts"]]))
         fp32 = None
@@ -4363,10 +4469,8 @@ def sharded_rank(rank: int, degree: int, backend: str, store: str,
                 if fp32 is None:
                     fp32 = fp32_model(torch, full["model"].cfg)[1:]
                 model, params = fp32
-            elif route == "ring":
-                model, params = cut_depth(full, RING_LAYERS)
             else:
-                model, params = full["model"], full["params"]
+                model, params = cut_depth(full, run["layers"])
             eng = ShardedContinuousBatchingEngine(
                 model, params, shard=degree, device=dev, kv_dtype=kv_dtype,
                 spec_depth=run["spec"], chunk_route=route, **CONT)
@@ -4505,15 +4609,26 @@ def phase_sharded(torch, full: dict, ring_bitwise: dict) -> dict:
     lines = []
     degrees = sorted({d for _, d, _, _ in SHARD_RUNS}
                      | {d for _, d, _ in SHARD_RING_RUNS})
+    depth = full["model"].cfg.num_layers
     for degree in degrees:
         runs = []
+        cards = torch.cuda.device_count()
+        backend = "nccl" if cards >= degree else "gloo"
+        local = depth if backend == "nccl" else SHARD_SHARED_LAYERS
         todo = [(path, kv_dtype, spec, "local")
                 for path, d, kv_dtype, spec in SHARD_RUNS if d == degree]
         todo += [(path, kv_dtype, None, "ring")
                  for path, d, kv_dtype in SHARD_RING_RUNS if d == degree]
         for path, kv_dtype, spec, route in todo:
-            rec = (ring_yard[path] if route == "ring"
-                   else shard_yardstick(torch, full, path))
+            if route == "ring":
+                rec = ring_yard[path]
+            elif local == RING_LAYERS and path in ring_yard:
+                rec = ring_yard[path]
+            else:
+                rec = shard_yardstick(torch, full, path,
+                                      None if local == depth else local)
+            layers = (FP32_LAYERS if path == "fp32" else RING_LAYERS
+                      if route == "ring" else local)
             one_card[path, route] = {k: rec[k] for k in (
                 "wall_s", "step_mean_s", "host_sync_s")}
             ring = route == "ring" and path != "fp32"
@@ -4521,7 +4636,7 @@ def phase_sharded(torch, full: dict, ring_bitwise: dict) -> dict:
                                                    else "bf16"]
             runs.append({
                 "path": path, "kv_dtype": kv_dtype, "spec": spec,
-                "route": route,
+                "route": route, "layers": layers,
                 "prompts": [p.tolist() for p in rec["prompts"]],
                 "want": [rec["tokens"][rid].tolist()
                          for rid in range(len(rec["prompts"]))],
@@ -4529,8 +4644,6 @@ def phase_sharded(torch, full: dict, ring_bitwise: dict) -> dict:
                 "first_logits": ring_yard["first_logits"] if ring else None,
                 "logits_rtol": (None if tokens_gate else INT8_LOGITS_RTOL
                                 if kv_dtype else LOGITS_RTOL)})
-        cards = torch.cuda.device_count()
-        backend = "nccl" if cards >= degree else "gloo"
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             mp.spawn(sharded_rank,
@@ -4566,9 +4679,7 @@ def phase_sharded(torch, full: dict, ring_bitwise: dict) -> dict:
                 "step_mean_s": [rk["step_mean_s"] for rk in per],
                 "host_sync_s": [rk["host_sync_s"] for rk in per],
                 "one_card": one_card[run["path"], route],
-                "layers": (FP32_LAYERS if run["path"] == "fp32" else
-                           RING_LAYERS if route == "ring" else
-                           full["model"].cfg.num_layers),
+                "layers": run["layers"],
                 "steps": per[0]["steps"], "tokens": per[0]["tokens"],
                 "launches": [{k: v for k, v in rk["launches"].items() if v}
                              for rk in per],
@@ -4611,15 +4722,28 @@ def seq_logits(got, want) -> dict:
             "argmax_equal": bool(got.argmax(-1).eq(want.argmax(-1)).all())}
 
 
-def seq_yardsticks(torch, full: dict, path) -> dict:
+def seq_moe_cfg(layers: int | None = None):
+    """deepseek-moe-16b at full width, at ``layers`` layers (default
+    all)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(MOE_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def seq_yardsticks(torch, full: dict, path, moe_layers=None,
+                   dense_layers=None) -> dict:
     """The single-card port's results the seq_sharded ranks are held to,
-    saved to ``path`` (CPU tensors): internlm2-1.8b's prefill_32k on the
+    saved to ``path`` (CPU tensors): internlm2-1.8b's (``dense_layers``
+    of its layers, default all) prefill_32k on the
     kernel route (first-token logits, layer 0's attention output, the
     logits of SEQ_PREFILL_NEW decode steps of seeded tokens after it),
     decode_32k's SEQ_DECODE_STEPS steps on the same seeded cache (logits,
     layer 0's attention output at step 0), the fp32 run's greedy tokens
-    on the plain route, and deepseek-moe-16b's 4 x 2048 prefill and
-    decode steps on the plain route in the ranks' token groups
+    on the plain route, and deepseek-moe-16b's (``moe_layers`` of its
+    layers, default all) 4 x 2048 prefill and decode steps on the plain
+    route in the ranks' token groups
     (``ctx.grouped_as``), with each layer's routes. Seeds as
     ``launch/dryrun.run_cell``'s at seed 0. Returns the single card's
     times."""
@@ -4631,7 +4755,8 @@ def seq_yardsticks(torch, full: dict, path) -> dict:
     from repro_torch.models.api import build_model
 
     dev = torch.device("cuda")
-    model, params = full["model"], full["params"]
+    model, params = ((full["model"], full["params"]) if dense_layers is None
+                     else cut_depth(full, dense_layers))
     cfg = model.cfg
     s = SHAPES["prefill_32k"].seq_len
     d = SHAPES["decode_32k"].seq_len
@@ -4674,7 +4799,7 @@ def seq_yardsticks(torch, full: dict, path) -> dict:
             max_len=SEQ_FP32_PROMPT + SEQ_FP32_NEW)["tokens"].cpu()}
         del m32, p32, plain32
 
-        moe = full_width_model(torch, MOE_ARCH)
+        moe = full_width_model(torch, cfg=seq_moe_cfg(moe_layers))
         mcfg = dataclasses.replace(moe["model"].cfg, attn_impl="plain")
         mmodel, mparams = build_model(mcfg), bounded_moe(moe["params"])
         b, n = SEQ_MOE_WAVE
@@ -5046,12 +5171,14 @@ def weights_gather_bytes(cfg, params, n: int, encoder: bool = True) -> int:
     return total
 
 
-def seq_moe_run(torch, shard, yard: dict, failures: list) -> dict:
+def seq_moe_run(torch, shard, yard: dict, failures: list,
+                layers: int | None = None) -> dict:
     """deepseek-moe-16b on this rank of a degree-SEQ_MOE_DEGREE group, its
     experts and its dense leaves split (``local_params(policy="tp_sp")``;
     the dense leaves gathered whole a layer at a time on use): each rank
-    in turn draws the whole model from seed 0 and keeps its cut; the
-    4 x 2048 prefill and SEQ_MOE_NEW decode
+    in turn draws the whole model from seed 0 (``layers`` of its
+    layers: all, or SEQ_MOE_SHARED_LAYERS where the ranks share a card)
+    and keeps its cut; the 4 x 2048 prefill and SEQ_MOE_NEW decode
     steps of seeded tokens, held to the single card's grouped run: each
     layer's dropped assignments in the rank's group within 2·top_k of the
     single card's per token whose top-k set differs (equal where none
@@ -5061,7 +5188,6 @@ def seq_moe_run(torch, shard, yard: dict, failures: list) -> dict:
     sixth choices of the router."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_arch
     from repro_torch.distributed.ctx import sharding_policy
     from repro_torch.distributed.sharding import local_params
     from repro_torch.launch.dryrun import cell_tokens, decode_steps
@@ -5069,13 +5195,13 @@ def seq_moe_run(torch, shard, yard: dict, failures: list) -> dict:
 
     n, r = shard.degree, shard.rank
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_arch(MOE_ARCH)
+    cfg = seq_moe_cfg(layers)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = None
     for turn in range(n):
         if turn == r:
-            full = full_width_model(torch, MOE_ARCH)
+            full = full_width_model(torch, cfg=cfg)
             params = local_params(bounded_moe(full["params"]), rank=r,
                                   degree=n, policy="tp_sp")
             del full
@@ -6258,8 +6384,8 @@ def seq_dense_part(torch, rank: int, groups: dict, yard_path: str,
                    report: dict) -> None:
     """The dense stacks of the seq_sharded phase on this rank: build
     internlm2-1.8b from seed 0 (its checksum the parent's), run
-    ``seq_dense_runs`` at each degree of SEQ_DEGREES (ranks past a degree
-    wait), then ranks 0..SEQ_MOE_DEGREE-1 run ``seq_moe_run`` and the
+    ``seq_dense_runs`` (at ``plan["dense_layers"]`` of its layers, where
+    given) at each degree of SEQ_DEGREES (ranks past a degree wait), then ranks 0..SEQ_MOE_DEGREE-1 run ``seq_moe_run`` and the
     coder group ``seq_coder_run``. Adds its runs to ``report``."""
     import torch.distributed as dist
 
@@ -6270,17 +6396,21 @@ def seq_dense_part(torch, rank: int, groups: dict, yard_path: str,
         failures.append(f"rank {rank}: weights checksum {mine} != the "
                         f"parent's {checksum}")
     report["weights_checksum"] = mine
+    model, params = ((full["model"], full["params"])
+                     if plan.get("dense_layers") is None
+                     else cut_depth(full, plan["dense_layers"]))
     for degree in SEQ_DEGREES:
         if groups[degree] is not None:
-            report["runs"] += seq_dense_runs(
-                torch, full["model"], full["params"], groups[degree], yard,
-                failures)
+            report["runs"] += seq_dense_runs(torch, model, params,
+                                             groups[degree], yard, failures)
         dist.barrier()
+    del model, params
     full.clear()
     torch.cuda.empty_cache()
     if groups[SEQ_MOE_DEGREE] is not None:
         report["runs"].append(seq_moe_run(torch, groups[SEQ_MOE_DEGREE],
-                                          yard, failures))
+                                          yard, failures,
+                                          plan.get("moe_layers")))
     dist.barrier()
     torch.cuda.empty_cache()
     if groups[SEQ_CODER_DEGREE] is not None:
@@ -6382,6 +6512,8 @@ def phase_seq_sharded(torch, full: dict | None,
 
     world = max(SEQ_DEGREES)
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    moe_layers = None if backend == "nccl" else SEQ_MOE_SHARED_LAYERS
+    dense_layers = None if backend == "nccl" else SEQ_DENSE_SHARED_LAYERS
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         yard_path = checksum = plan = rec_path = rec_plan = None
@@ -6391,7 +6523,8 @@ def phase_seq_sharded(torch, full: dict | None,
         if "dense" in parts:
             checksum = weights_checksum(torch, full["params"])
             yard_path = str(Path(tmp) / "yard.pt")
-            one_card = seq_yardsticks(torch, full, yard_path)
+            one_card = seq_yardsticks(torch, full, yard_path, moe_layers,
+                                      dense_layers)
             torch.cuda.empty_cache()
         if "recurrent" in parts:
             rec_path, rec_plan = str(Path(tmp) / "recurrent.pt"), \
@@ -6409,8 +6542,9 @@ def phase_seq_sharded(torch, full: dict | None,
         yard_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         if "dense" in parts:
-            plan = coder_plan(torch, 1 if backend == "nccl"
-                              else SEQ_CODER_DEGREE)
+            plan = dict(coder_plan(torch, 1 if backend == "nccl"
+                                   else SEQ_CODER_DEGREE),
+                        moe_layers=moe_layers, dense_layers=dense_layers)
         t0 = time.perf_counter()
         mp.spawn(seq_rank, args=(world, backend, str(Path(tmp) / "store"),
                                  tmp, yard_path, checksum, plan, rec_path,
@@ -6443,7 +6577,9 @@ def phase_seq_sharded(torch, full: dict | None,
                                         f"the split {part} runs")
     emit({"phase": "seq_sharded", "parts": list(parts),
           "yardsticks_s": yard_s, "spawn_s": spawn_s, "launches": launches,
-          "recurrent_plan": rec_plan, "frontend_plan": front_plan})
+          "recurrent_plan": rec_plan, "frontend_plan": front_plan,
+          "moe_layers": moe_layers or seq_moe_cfg().num_layers,
+          "dense_layers": dense_layers})
     return {"phase": "seq_sharded", "runs": lines, "launches": launches}
 
 
@@ -7015,6 +7151,16 @@ def fsdp_leaf_errs(torch, params, want, shard) -> dict:
             for i, p in enumerate(paths)}
 
 
+def gate_margin(step_gate: dict, leaf_gate: dict,
+                grad_gate: dict | None = None) -> float:
+    """How far a run is past its gates: the largest of its worst step
+    metric's, its worst leaf's and (given) its worst gradient leaf's
+    error over their limits."""
+    return max([step_gate[k] / v for k, v in step_gate["limits"].items()]
+               + [g["worst"] / g["limit"] for g in (leaf_gate, grad_gate)
+                  if g is not None])
+
+
 def fsdp_leaves_gate(errs: dict, rtol: float) -> dict:
     worst = max(errs, key=errs.get)
     return {"limit": rtol, "worst_leaf": worst, "worst": errs[worst],
@@ -7103,9 +7249,15 @@ def state_digest(torch, tree, blocks=None, shard=None) -> dict:
     return {p: int(v) % DIGEST_MOD for p, v in zip(paths, vec.tolist())}
 
 
-# the planted faults the tp_sp gates must reject (``planted_tp_sp_fault``)
+# the planted faults the tp_sp gates must reject (``planted_tp_sp_fault``):
+# the MoE stack's, then the split recurrent layers', which an MoE stack
+# cannot show (RECURRENT_FAULTS: planted into the recurrent stacks' runs,
+# each rejected by at least FAULT_MARGIN times a gate's limit; on the card
+# the gradient gate of mamba2's fp32 run)
+RECURRENT_FAULTS = ("halo_grad_dropped", "carry_grad_dropped")
 TP_SP_FAULTS = ("experts_all_reduced", "router_unreduced", "aux_n_times",
-                "split_leaf_unreduced")
+                "split_leaf_unreduced") + RECURRENT_FAULTS
+FAULT_MARGIN = 10.0
 
 
 @contextlib.contextmanager
@@ -7117,7 +7269,11 @@ def planted_tp_sp_fault(fault: str, cfg, rank: int = 1):
     each rank keeps its own part of the router's gradient;
     ``aux_n_times`` each rank adds the group's aux loss (n times its
     term); ``split_leaf_unreduced`` rank ``rank`` keeps its own, unsummed
-    block of the first split leaf's gradient the backward reaches."""
+    block of the first split leaf's gradient the backward reaches;
+    ``halo_grad_dropped`` / ``carry_grad_dropped`` every rank drops the
+    gradient its halo rows / its scan's carry (final state and log decay)
+    got from the other ranks' use of them (the reduce-scatter still
+    runs)."""
     from repro_torch.distributed import ctx
     from repro_torch.launch import steps
     from repro_torch.models import moe
@@ -7147,6 +7303,17 @@ def planted_tp_sp_fault(fault: str, cfg, rank: int = 1):
         real_aux = moe.rank_aux_term
         patch(moe, "rank_aux_term",
               lambda r, shard: real_aux(r, shard) * shard.degree)
+    elif fault in RECURRENT_FAULTS:
+        real = ctx.GatherLeaf.backward
+        dropped = fault.split("_")[0]
+
+        def backward(ctx_, grad):
+            out = real(ctx_, grad)
+            if ctx_.kind != dropped:
+                return out
+            return (out[0].new_zeros(out[0].shape), *out[1:])
+
+        patch(ctx.GatherLeaf, "backward", staticmethod(backward))
     else:
         real = ctx.GatherLeaf.backward
         calls = {}
@@ -7175,19 +7342,33 @@ def tp_sp_bytes(cfg, n: int, batch: int, seq: int, *, int8: bool,
                 grad_accum: int = 1) -> dict:
     """One train step's bytes a rank sends (and receives) by kind under
     tp_sp at degree ``n`` on a global batch of ``batch`` sequences of
-    ``seq`` rows, from the shapes (``SeqShard``'s counting). Per
+    ``seq`` tokens, from the shapes (``SeqShard``'s counting). The rows
+    are the F + ``seq`` of a vision input (F patch rows), else ``seq``,
+    split in blocks of L = rows / n where n divides them (else whole on
+    every rank, and no row moves); each exchange below counts (n - 1)
+    times its per-rank part, a layer's forward exchanges twice under
+    remat (again in the backward's recompute), and each backward
+    reduce-scatters an fp32 gradient of the gathered shape. Per
     microbatch of b = batch / grad_accum sequences: each split leaf's
-    block gathered in the compute dtype once (a layer's twice under
-    remat: again in the backward's recompute) and its fp32 gradient
-    reduce-scattered once (kinds ``weights``, ``reduce_scatter``), each
-    counting the block × (n - 1); a layer's K/V rows (2·b·Hkv·S/n·E)
-    gathered (``gather``, twice under remat) and their fp32 gradient
-    reduce-scattered; an MoE layer's (E, C, D) buffers exchanged twice
-    forward (again in the recompute) and twice backward (``a2a``, (n -
-    1) / n of each), C = max(4, int(cf · b·S/n · k / E)), and its
-    first-choice density all-reduced (again in the recompute). Per step
-    the all-reduces of the whole leaves' fp32 gradients, of the loss and
-    of the squared norm (2 (n - 1) / n of each, rounded down), and int8's
+    block gathered in the compute dtype (``weights``; a decoder or
+    encoder layer's twice under remat) and its fp32 gradient
+    reduce-scattered once (``reduce_scatter``). With the rows split: a
+    full attention layer's K/V rows (2·b·Hkv·L·E) gathered (``gather``)
+    and their gradient reduce-scattered; a windowed layer's K/V halo of
+    min(W, L) rows a rank (``halo``, ``halo_grad``); an SSD layer's conv
+    halo of min(K - 1, L) rows of its conv channels and its scan carry,
+    the final state and log decay of each head (``carry``,
+    ``carry_grad``); an RG-LRU layer's halo of min(3, L) rows of its
+    width and its carry, state and log decay of each channel; an MoE
+    layer's (E, C, D) buffers exchanged twice forward and twice backward
+    (``a2a``, (n - 1) / n of each), C = max(4, int(cf · b·L · k / E)),
+    and its first-choice density all-reduced. With the rows whole an MoE
+    layer gathers its experts' (E/n, C, D) outputs instead (``gather``),
+    C from b·rows. An encoder-decoder's encoder layers gather their K/V
+    over blocks of F / n frames, and each decoder layer its cross
+    memories, (2·b·Hkv·F/n·E), where n divides F. Per step the
+    all-reduces of the whole leaves' fp32 gradients, of the loss and of
+    the squared norm (2 (n - 1) / n of each, rounded down), and int8's
     absmax of each scale group."""
     from repro_torch.distributed.sharding import (
         split_specs,
@@ -7199,6 +7380,7 @@ def tp_sp_bytes(cfg, n: int, batch: int, seq: int, *, int8: bool,
     from repro_torch.weights import reference_leaf
 
     out = dict.fromkeys(("weights", "reduce_scatter", "gather", "a2a",
+                         "halo", "halo_grad", "carry", "carry_grad",
                          "all_reduce", "all_reduce_max"), 0)
     if n == 1:
         return out
@@ -7216,28 +7398,64 @@ def tp_sp_bytes(cfg, n: int, batch: int, seq: int, *, int8: bool,
             whole += numel
         if specs[path] is None:
             continue
-        stacked = path.startswith("layers/")
+        stacked = path.startswith(("layers/", "encoder/"))
         gather += (again if stacked else 1) * (numel // n)
         scatter += numel // n
     dt = cfg.compute_dtype.itemsize
     b = batch // grad_accum
-    layers = cfg.num_layers
-    kv = 2 * b * cfg.num_kv_heads * (seq // n) * cfg.hd
+    rows = seq + (cfg.num_frontend_tokens if cfg.frontend == "vision" else 0)
+    split = rows % n == 0
+    per = rows // n
+    # elements a rank sends forward (each counted ``again`` times) and
+    # gathers whose fp32 gradient it reduce-scatters, by kind
+    fwd = dict.fromkeys(("gather", "halo", "carry"), 0)
+    kv = 2 * b * cfg.num_kv_heads * cfg.hd
+    f = cfg.num_frontend_tokens
+    if cfg.encoder_layers and f % n == 0:
+        fwd["gather"] += (cfg.encoder_layers + cfg.num_layers) * kv * (f // n)
+    m = cfg.moe
+    for kind in cfg.layer_kinds:
+        if kind == "ssd":
+            sc = cfg.ssm
+            di = sc.expand * cfg.d_model
+            heads = di // sc.head_dim
+            if split:
+                fwd["halo"] += b * min(sc.conv_width - 1, per) * (
+                    di + 2 * sc.n_groups * sc.d_state)
+                fwd["carry"] += b * heads * (sc.head_dim * sc.d_state + 1)
+        elif kind == "rec":
+            w = cfg.lru_width or cfg.d_model
+            if split:
+                fwd["halo"] += b * min(3, per) * w
+                fwd["carry"] += 2 * b * w
+        elif split and cfg.attn_window is not None:
+            fwd["halo"] += kv * min(cfg.attn_window, per)
+        elif split:
+            fwd["gather"] += kv * per
+        if kind == "attn" and m is not None and not split:
+            cap = max(4, int(m.capacity_factor * b * rows * m.top_k
+                             / m.num_experts))
+            fwd["gather"] += m.num_experts // n * cap * cfg.d_model
+    carried = fwd["carry"] * 4          # the carry goes in fp32
     out["weights"] = grad_accum * gather * dt * (n - 1)
-    out["reduce_scatter"] = grad_accum * (scatter + layers * kv) * 4 * (n - 1)
-    out["gather"] = grad_accum * again * layers * kv * dt * (n - 1)
+    out["reduce_scatter"] = grad_accum * (scatter + fwd["gather"]) * 4 * (
+        n - 1)
+    out["gather"] = grad_accum * again * fwd["gather"] * dt * (n - 1)
+    out["halo"] = grad_accum * again * fwd["halo"] * dt * (n - 1)
+    out["halo_grad"] = grad_accum * fwd["halo"] * 4 * (n - 1)
+    out["carry"] = grad_accum * again * carried * (n - 1)
+    out["carry_grad"] = grad_accum * carried * (n - 1)
 
     def ar(nbytes: int) -> int:
         return 2 * nbytes * (n - 1) // n
 
     out["all_reduce"] = ar(4 * whole) + ar(4) + ar(4)
-    if cfg.moe is not None:
-        m = cfg.moe
-        cap = max(4, int(m.capacity_factor * (b * seq // n) * m.top_k
+    if m is not None and split:
+        cap = max(4, int(m.capacity_factor * (b * per) * m.top_k
                          / m.num_experts))
         buf = m.num_experts * cap * cfg.d_model * dt * (n - 1) // n
-        out["a2a"] = grad_accum * layers * (2 * again + 2) * buf
-        out["all_reduce"] += grad_accum * layers * again * ar(
+        out["a2a"] = grad_accum * cfg.num_layers * (2 * again + 2) * buf
+        out["all_reduce"] += grad_accum * cfg.num_layers * again * ar(
             4 * m.num_experts)
     if int8:
         groups = {reference_leaf(p, cfg) for p in shapes}
@@ -7826,18 +8044,55 @@ def train_tp_sp_cfg(layers: int):
                                remat=True)
 
 
-def tp_sp_fp32(torch, kind: str):
-    """(cfg, model, whole fp32 weights on the current card, the run's
-    shape) of an fp32 gate run: ``fp32`` deepseek-moe-16b at
-    TRAIN_TP_SP_FP32, ``dense_fp32`` internlm2-1.8b at TRAIN_TP_SP_DENSE;
-    ``fp32_model``'s draw, chunked attention with remat."""
+def tp_sp_stack_cfg(arch: str, backend: str):
+    """A stack's bf16 run config: full width at TRAIN_TP_SP_STACKS' depth,
+    chunked attention with remat."""
     from repro_torch.configs import get_arch
 
-    arch, run = ((MOE_ARCH, TRAIN_TP_SP_FP32) if kind == "fp32"
-                 else (ARCH, TRAIN_TP_SP_DENSE))
-    cfg, model, params = fp32_model(torch, get_arch(arch), run["layers"],
-                                    attn_impl="chunked",
-                                    attn_chunk=TRAIN_FP32_CHUNK, remat=True)
+    plan = TRAIN_TP_SP_STACKS[backend][arch]
+    extra = {k: plan[k] for k in ("encoder_layers", "pattern_tail")
+             if k in plan}
+    return dataclasses.replace(get_arch(arch), num_layers=plan["layers"],
+                               attn_impl="chunked", attn_chunk=TRAIN_CHUNK,
+                               remat=True, **extra)
+
+
+def tp_sp_total_rows(cfg, seq: int) -> int:
+    """The rows a sequence of ``seq`` tokens takes: a vision input's patch
+    rows too."""
+    return seq + (cfg.num_frontend_tokens if cfg.frontend == "vision"
+                  else 0)
+
+
+def tp_sp_fp32(torch, kind: str, arch: str | None = None):
+    """(cfg, model, whole fp32 weights on the current card, the run's
+    shape) of an fp32 gate run: ``fp32`` deepseek-moe-16b at
+    TRAIN_TP_SP_FP32, ``dense_fp32`` internlm2-1.8b at TRAIN_TP_SP_DENSE,
+    ``odd_fp32`` internlm2-1.8b at TRAIN_TP_SP_ODD, ``stack_fp32``
+    ``arch`` at TRAIN_TP_SP_STACK_FP32 (an SSD scan's chunk the rows a
+    rank runs); ``fp32_model``'s draw, chunked attention with remat."""
+    from repro_torch.configs import get_arch
+
+    run = {"fp32": TRAIN_TP_SP_FP32, "dense_fp32": TRAIN_TP_SP_DENSE,
+           "odd_fp32": TRAIN_TP_SP_ODD,
+           "stack_fp32": TRAIN_TP_SP_STACK_FP32}[kind]
+    arch = {"fp32": MOE_ARCH, "stack_fp32": arch}.get(kind, ARCH)
+    base = get_arch(arch)
+    layers = run["layers"]
+    extra = {}
+    if kind == "stack_fp32":
+        layers = layers[arch]
+        run = dict(run, degree=run["degree"][arch], layers=layers)
+        if base.encoder_layers:
+            extra["encoder_layers"] = layers
+        if base.block_pattern is not None:        # one period, no tail
+            extra["pattern_tail"] = ()
+        if base.ssm is not None:
+            extra["ssm"] = dataclasses.replace(base.ssm, chunk=min(
+                base.ssm.chunk, run["seq"] // run["degree"]))
+    cfg, model, params = fp32_model(torch, base, layers, attn_impl="chunked",
+                                    attn_chunk=TRAIN_FP32_CHUNK, remat=True,
+                                    **extra)
     if cfg.moe is not None:
         bounded_moe(params)
     return cfg, model, params, run
@@ -7850,11 +8105,14 @@ def tp_sp_opt(steps: int, lr: float = TRAIN_TP_SP_LR):
 
 
 def tp_sp_data(cfg, seq: int, batch: int):
-    """The whole batch every rank draws: ``SyntheticLMData(seed=17)``."""
+    """The whole batch every rank draws: ``SyntheticLMData(seed=17)``, a
+    frontend stack's with its stub frames or patch embeddings."""
     from repro_torch.data import SyntheticLMData
 
     return SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
-                           global_batch=batch, seed=17)
+                           global_batch=batch, seed=17,
+                           frontend_tokens=cfg.num_frontend_tokens
+                           if cfg.frontend else 0, d_model=cfg.d_model)
 
 
 def expert_ids(torch, model, params, batch) -> list:
@@ -7872,33 +8130,38 @@ def assignments_apart(got: list, want: list) -> int:
                for g, w in zip(got, want, strict=True))
 
 
-def tp_sp_yardstick(torch, kind: str, path: str) -> list:
-    """The one-card run an fp32 gate run of ``kind`` is held to: the
-    port's ``make_train_step`` on the same draw and batches, its MoE
-    tokens in the degree's groups (``ctx.grouped_as``), and the expert
-    ids of a no-grad loss of the first batch. Saves the metrics a step,
-    the trained weights (host) and the ids to ``path``; returns the
-    metrics."""
+def tp_sp_yardstick(torch, kind: str, path: str,
+                    arch: str | None = None) -> list:
+    """The one-card run an fp32 gate run of ``kind`` (and ``arch``) is
+    held to: the port's ``make_train_step`` on the same draw and
+    batches, its MoE tokens in the degree's groups (``ctx.grouped_as``),
+    and the expert ids of a no-grad loss of the first batch. Saves the
+    metrics a step, the trained weights (host) and the ids to ``path``;
+    returns the metrics."""
     from repro_torch.distributed import ctx
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import batch_on
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_map
 
-    cfg, model, params, run = tp_sp_fp32(torch, kind)
+    cfg, model, params, run = tp_sp_fp32(torch, kind, arch)
     opt = adamw_init(params)
     step_fn = make_train_step(model, tp_sp_opt(run["steps"]))
     data = tp_sp_data(cfg, run["seq"], run["batch"])
-    metrics = []
+    metrics, grads = [], None
     with ctx.grouped_as(run["degree"]):
         ids = (expert_ids(torch, model, params,
                           batch_on(data.batch_at(0), "cuda"))
                if cfg.moe is not None else None)
+        if kind in GRAD_GATED:
+            grads = first_grads(torch, model, params,
+                                batch_on(data.batch_at(0), "cuda"),
+                                host=True)
         for step in range(run["steps"]):
             params, opt, m = step_fn(params, opt,
                                      batch_on(data.batch_at(step), "cuda"))
             metrics.append({k: float(v) for k, v in m.items()})
-    torch.save({"metrics": metrics, "expert_ids": ids,
+    torch.save({"metrics": metrics, "expert_ids": ids, "grads": grads,
                 "params": tree_map(lambda t: t.detach().cpu(), params)},
                path)
     del params, opt
@@ -7906,18 +8169,40 @@ def tp_sp_yardstick(torch, kind: str, path: str) -> list:
     return metrics
 
 
+def first_grads(torch, model, params, batch, host: bool = False) -> dict:
+    """The gradients of ``batch``'s loss before any update
+    (``make_loss_and_grads``; under a training policy the rank's reduced
+    blocks), copies on the device (``host``: on the host); the parameters'
+    ``.grad`` cleared."""
+    from repro_torch.launch.steps import make_loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_map
+
+    _, grads = make_loss_and_grads(model)(params, batch)
+    out = tree_map(lambda g: (g.detach().cpu() if host else g.detach())
+                   .clone(), grads)
+    for p in tree_leaves(params):
+        p.grad = None
+    return out
+
+
 def tp_sp_run(torch, plan: dict, shard, dev, kind: str, yard: dict | None,
-              *, fault: str | None = None,
-              final_dir: str | None = None) -> dict:
+              *, fault: str | None = None, final_dir: str | None = None,
+              arch: str | None = None, backend: str = "gloo",
+              grad_faults: tuple = ()) -> dict:
     """One tp_sp training run of ``kind`` on this rank of ``shard``'s
     group, every rank on the whole batch of each step: ``bf16`` the
     plan's deepseek-moe-16b at TRAIN_SEQ, fp32 master weights from seed
     0 (``bounded_moe`` unless the plan's ``bounded`` is false), int8
-    compression, at the plan's ``lr`` (TRAIN_TP_SP_LR by default);
-    ``fp32`` / ``dense_fp32`` ``tp_sp_fp32``'s model, no compression,
-    clean or under a planted fault (``planted_tp_sp_fault``). The rank
-    holds its ``local_params(policy="tp_sp")`` split and its AdamW state.
-    Each step: loss, grad norm, lr, device ms (CUDA events), wall, peak
+    compression, at the plan's ``lr`` (TRAIN_TP_SP_LR by default), or
+    with ``arch`` that stack at its TRAIN_TP_SP_STACKS plan for
+    ``backend``, no compression, TRAIN_TP_SP_STACK_STEPS steps;
+    ``fp32`` / ``dense_fp32`` / ``odd_fp32`` / ``stack_fp32``
+    ``tp_sp_fp32``'s model, no compression, clean or under a planted
+    fault (``planted_tp_sp_fault``); ``stack_fp32`` and ``odd_fp32`` first
+    hold the first batch's gradients to one card's (the gradient gate),
+    clean and under each of ``grad_faults``. The rank holds its
+    ``local_params(policy="tp_sp")`` split and its AdamW state. Each
+    step: loss, grad norm, lr, device ms (CUDA events), wall, peak
     memory, bytes by kind; with ``final_dir`` a sharded save of the
     trained weights. bf16: the bytes against ``tp_sp_bytes``; fp32: the
     steps and every leaf against ``yard``'s one-card run, and (clean
@@ -7936,7 +8221,13 @@ def tp_sp_run(torch, plan: dict, shard, dev, kind: str, yard: dict | None,
 
     n = shard.degree
     lr = TRAIN_TP_SP_LR
-    if kind == "bf16":
+    if kind == "bf16" and arch is not None:
+        cfg = tp_sp_stack_cfg(arch, backend)
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cuda", dtype=torch.float32)
+        seq = TRAIN_TP_SP_STACKS[backend][arch]["seq"]
+        batch, steps, compression = 1, TRAIN_TP_SP_STACK_STEPS, None
+    elif kind == "bf16":
         cfg = train_tp_sp_cfg(plan["layers"])
         model = build_model(cfg)
         params = model.init(seed=0, device="cuda", dtype=torch.float32)
@@ -7945,7 +8236,7 @@ def tp_sp_run(torch, plan: dict, shard, dev, kind: str, yard: dict | None,
         seq, batch, steps = TRAIN_SEQ, plan["batch"], plan["steps"]
         compression, lr = "int8", plan.get("lr", lr)
     else:
-        cfg, model, params, run = tp_sp_fp32(torch, kind)
+        cfg, model, params, run = tp_sp_fp32(torch, kind, arch)
         seq, batch, steps = run["seq"], run["batch"], run["steps"]
         compression = None
     params = local_params(params, rank=shard.rank, degree=n,
@@ -7963,18 +8254,38 @@ def tp_sp_run(torch, plan: dict, shard, dev, kind: str, yard: dict | None,
                                   degree=n)
         dist.barrier(group=shard.group)
     rec = {"degree": n, "rank": shard.rank, "kind": kind, "fault": fault,
-           "arch": cfg.name, "layers": cfg.num_layers, "seq": seq,
-           "global_batch": batch, "steps": []}
+           "arch": cfg.name, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers,
+           "pattern_tail": list(cfg.pattern_tail), "seq": seq,
+           "rows": tp_sp_total_rows(cfg, seq), "global_batch": batch,
+           "compression": compression, "steps": []}
     fault_ctx = (planted_tp_sp_fault(fault, cfg) if fault
                  else contextlib.nullcontext())
     with sharding_policy(shard, "tp_sp"), fault_ctx:
         if kind == "fp32" and fault is None:
             got = expert_ids(torch, model, params,
                              batch_on(data.batch_at(0), dev))
-            want = torch.load(yard["path"])["expert_ids"]
+            want = torch.load(yard["path"], mmap=True)["expert_ids"]
             rec["assignments_routed_apart"] = assignments_apart(
                 got, [w[shard.rank] for w in want])
             rec["assignments"] = sum(g.numel() for g in got)
+        if kind in GRAD_GATED:
+            want = torch.load(yard["path"], mmap=True)["grads"]
+            b0 = batch_on(data.batch_at(0), dev)
+            rec["grad_gate"] = fsdp_leaves_gate(fsdp_leaf_errs(
+                torch, first_grads(torch, model, params, b0), want, shard),
+                TRAIN_TP_SP_GRAD_RTOL)
+            rec["fault_gates"] = {}
+            for planted in grad_faults:
+                with planted_tp_sp_fault(planted, cfg):
+                    gate = fsdp_leaves_gate(fsdp_leaf_errs(
+                        torch, first_grads(torch, model, params, b0), want,
+                        shard), TRAIN_TP_SP_GRAD_RTOL)
+                rec["fault_gates"][planted] = {
+                    "rejected": bool(gate["failures"]),
+                    "margin": gate["worst"] / gate["limit"],
+                    **{k: gate[k] for k in ("worst_leaf", "worst")}}
+            del want
         for step in range(steps):
             b = batch_on(data.batch_at(step), dev)
             shard.reset_counts()
@@ -7992,7 +8303,8 @@ def tp_sp_run(torch, plan: dict, shard, dev, kind: str, yard: dict | None,
                 "params": tp_sp_blocks(init(cfg, device="meta"),
                                        rank=shard.rank, degree=n)})
     if kind == "bf16":
-        rec["bytes_from_shapes"] = tp_sp_bytes(cfg, n, batch, seq, int8=True)
+        rec["bytes_from_shapes"] = tp_sp_bytes(cfg, n, batch, seq,
+                                               int8=compression == "int8")
     else:
         want = torch.load(yard["path"], mmap=True)
         steps_limit, leaf_limit = TRAIN_TP_SP_GATES[kind]
@@ -8000,8 +8312,12 @@ def tp_sp_run(torch, plan: dict, shard, dev, kind: str, yard: dict | None,
                                           steps_limit)
         rec["leaf_gate"] = fsdp_leaves_gate(
             fsdp_leaf_errs(torch, params, want["params"], shard), leaf_limit)
+        grad_gate = rec.get("grad_gate", {"failures": []})
         rec["rejected"] = bool(rec["step_gate"]["failures"]
-                               or rec["leaf_gate"]["failures"])
+                               or rec["leaf_gate"]["failures"]
+                               or grad_gate["failures"])
+        rec["margin"] = gate_margin(rec["step_gate"], rec["leaf_gate"],
+                                    rec.get("grad_gate"))
         del want
     del params, opt
     torch.cuda.empty_cache()
@@ -8014,10 +8330,11 @@ def tp_sp_failures(rec: dict, tag: str) -> list:
     the steps or leaves outside their bands."""
     import math
 
-    tag = f"{tag} degree {rec['degree']} {rec['kind']}"
+    tag = f"{tag} degree {rec['degree']} {rec['kind']} {rec['arch']}"
     if rec["kind"] != "bf16":
         return [f"{tag}: {f}" for f in rec["step_gate"]["failures"]
-                + rec["leaf_gate"]["failures"]]
+                + rec["leaf_gate"]["failures"]
+                + rec.get("grad_gate", {"failures": []})["failures"]]
     out = []
     want = rec["bytes_from_shapes"]
     for i, step in enumerate(rec["steps"]):
@@ -8038,7 +8355,8 @@ def tp_sp_line(rec: dict) -> None:
         return
     line = {"phase": "train_tp_sp_run", **{
         k: rec.get(k) for k in ("degree", "kind", "fault", "arch", "rejected",
-                                "assignments_routed_apart", "assignments")},
+                                "margin", "assignments_routed_apart",
+                                "assignments")},
         "loss": [s["loss"] for s in rec["steps"]],
         "wall_s": [s["wall_s"] for s in rec["steps"]],
         "device_ms": [s["device_ms"] for s in rec["steps"]]}
@@ -8047,6 +8365,11 @@ def tp_sp_line(rec: dict) -> None:
         line["leaf_gate"] = {k: v for k, v in rec["leaf_gate"].items()
                              if k != "failures"}
         line["leaf_failures"] = len(rec["leaf_gate"]["failures"])
+        if "grad_gate" in rec:
+            line["grad_gate"] = {k: v for k, v in rec["grad_gate"].items()
+                                 if k != "failures"}
+            line["grad_failures"] = len(rec["grad_gate"]["failures"])
+            line["fault_gates"] = rec["fault_gates"]
     emit(line)
 
 
@@ -8055,8 +8378,12 @@ def train_tp_sp_rank(rank: int, world: int, backend: str, store: str,
     """One rank of the train_tp_sp phase (a process of its own): join the
     group, probe its collectives, train the bf16 runs at degrees 4 (its
     trained weights saved sharded) and 2, then at degree 4 the MoE fp32
-    run clean and with each of TP_SP_FAULTS, which the gates must
-    reject, and at degree 2 the dense fp32 run. Writes its report to
+    run clean and with each of its TP_SP_FAULTS, which the gates must
+    reject, and at degree 2 the dense fp32 run; then each of
+    TRAIN_TP_SP_STACKS' bf16 run at degree 4 (saved sharded) and its fp32
+    run, mamba2's gradient gate also under each of RECURRENT_FAULTS, which
+    it must reject by FAULT_MARGIN; then the dense run at a sequence the
+    degree does not divide. Writes its report to
     ``out_dir``, then fails on any gate."""
     import torch
     import torch.distributed as dist
@@ -8078,26 +8405,45 @@ def train_tp_sp_rank(rank: int, world: int, backend: str, store: str,
                   "runs": []}
         failures = []
 
-        def run(degree, kind, **kw):
+        def run(degree, kind, arch=None, **kw):
             shard = groups[degree]
             if shard is not None:
+                t0 = time.perf_counter()
                 rec = tp_sp_run(torch, plan, shard, dev, kind,
-                                yards.get(kind), **kw)
+                                yards.get(f"{kind} {arch}"), arch=arch,
+                                backend=backend, **kw)
+                rec["run_s"] = time.perf_counter() - t0
                 report["runs"].append(rec)
-                if kw.get("fault") is None:
+                fault = kw.get("fault")
+                if fault is None:
                     failures.extend(tp_sp_failures(rec, f"rank {rank}"))
                 elif not rec["rejected"]:
                     failures.append(f"rank {rank}: the gates passed the "
-                                    f"planted fault {kw['fault']}")
+                                    f"planted fault {fault} ({arch})")
+                for planted, gate in rec.get("fault_gates", {}).items():
+                    if not gate["rejected"] or gate["margin"] < FAULT_MARGIN:
+                        failures.append(
+                            f"rank {rank}: the gradient gate took the "
+                            f"planted fault {planted} ({arch}) by "
+                            f"{gate['margin']} times its limit, under "
+                            f"{FAULT_MARGIN}")
                 tp_sp_line(rec)
+            release_host_buffers(torch)
             dist.barrier()
 
         for degree in TRAIN_TP_SP_DEGREES:
             run(degree, "bf16", final_dir=str(Path(out_dir) / "final")
                 if degree == 4 else None)
-        for fault in (None,) + TP_SP_FAULTS:
+        moe_faults = [f for f in TP_SP_FAULTS if f not in RECURRENT_FAULTS]
+        for fault in [None] + moe_faults:
             run(TRAIN_TP_SP_FP32["degree"], "fp32", fault=fault)
         run(TRAIN_TP_SP_DENSE["degree"], "dense_fp32")
+        for arch in TRAIN_TP_SP_STACKS[backend]:
+            run(TRAIN_TP_SP_STACK_DEGREE, "bf16", arch,
+                final_dir=str(Path(out_dir) / f"final_{arch}"))
+            run(TRAIN_TP_SP_STACK_FP32["degree"][arch], "stack_fp32", arch,
+                grad_faults=RECURRENT_FAULTS if arch == SSM_ARCH else ())
+        run(TRAIN_TP_SP_ODD["degree"], "odd_fp32")
         report["failures"] = failures
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(report, f)
@@ -8106,13 +8452,93 @@ def train_tp_sp_rank(rank: int, world: int, backend: str, store: str,
         dist.destroy_process_group()
 
 
+def release_host_buffers(torch) -> None:
+    """Return the pinned host blocks the CUDA host allocator keeps after
+    gloo's staged collectives (four ranks' gathers of a 256000-row fp32
+    embedding would otherwise keep ~5 GB each past their run)."""
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def serve_trained_stack(torch, arch: str, cfg, params) -> dict:
+    """A stack's trained weights (restored whole) through its kernels, no
+    grad: a TRAIN_TP_SP_STACK_PROMPT-token prompt and one decode step
+    after it, every kernel call held to its plain version on the same
+    inputs beside its planted fault: mamba2's B8 calls of the prefill
+    (``b8_gate``); recurrentgemma's B3 (head dim 256, windowed) calls of
+    the prefill and B4 calls of the decode step (``attention_gate``);
+    whisper's B2 calls of the encoder over one 1500-frame clip, its
+    self- and cross-attention calls of the prefill and its B4 and cross
+    calls of the decode step; internvl2's prefill after its 256 patch rows
+    and its B4 calls. -> {gates by call}."""
+    import numpy as np
+
+    from repro_torch.models.api import build_model
+
+    kcfg = dataclasses.replace(cfg, attn_impl="kernel")
+    model = build_model(kcfg)
+    rng = np.random.default_rng(11)
+    n = TRAIN_TP_SP_STACK_PROMPT
+    prompt = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(1, n))
+                              ).to("cuda")
+    attn_layers = sum(k == "attn" for k in cfg.layer_kinds)
+    out = {}
+    with torch.no_grad():
+        if arch == SSM_ARCH:
+            logits, gate = b8_gate(model, params, prompt)
+            require(gate["calls"] > 0 and gate["row_rel_err"]
+                    <= gate["limit"] < gate["fault_row_rel_err"],
+                    f"train_tp_sp {arch}: B8 gate {gate}")
+            out["prefill_b8"] = gate
+        else:
+            kw, start = {}, 0
+            if cfg.frontend == "vision":
+                kw["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+                    (1, cfg.num_frontend_tokens, cfg.d_model))
+                    .astype(np.float32)).to("cuda")
+                start = cfg.num_frontend_tokens
+            if cfg.encoder_layers:
+                frames = torch.from_numpy(rng.standard_normal(
+                    (1, cfg.num_frontend_tokens, cfg.d_model))
+                    .astype(np.float32)).to("cuda")
+                kw["encoder_out"], out["encode"] = attention_gate(
+                    lambda: model.encode(params, frames))
+                require(out["encode"]["kernels"].get("mas_streamed", 0)
+                        == cfg.encoder_layers,
+                        f"train_tp_sp {arch}: encode {out['encode']}")
+            plain = ({"attention": flash_plain} if cfg.attn_window
+                     else None)
+            (logits, cache), out["prefill"] = attention_gate(
+                lambda: model.prefill(params, kcfg, prompt, start + n + 1,
+                                      **kw), plain_fns=plain)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            _, out["decode"] = attention_gate(
+                lambda: model.decode_step(params, kcfg, tok, cache,
+                                          start + n))
+            del cache
+            want = ({"flash_e256"} if cfg.attn_window else
+                    {"mas_resident", "mas_streamed"})
+            require(set(out["prefill"]["kernels"]) <= want
+                    and sum(out["prefill"]["kernels"].values())
+                    >= attn_layers * (2 if cfg.encoder_layers else 1),
+                    f"train_tp_sp {arch}: prefill {out['prefill']}")
+            dec = "decode_e256" if cfg.attn_window else "decode"
+            require(out["decode"]["kernels"].get(dec, 0) == attn_layers,
+                    f"train_tp_sp {arch}: decode {out['decode']}")
+        require(bool(torch.isfinite(logits).all()),
+                f"train_tp_sp {arch}: kernel logits not finite")
+    del model
+    return out
+
+
 def phase_train_tp_sp(torch) -> dict:
     """Training across ranks under the reference's tp_sp policy (see the
     module docstring, phase 21), one process a rank: NCCL with a card a
     rank where the machine has four cards, else gloo with every rank on
     card 0. The fp32 yardsticks are computed here first; a rank's failure
     fails the phase (``mp.spawn`` raises it here). Then the degree-4 bf16
-    run's trained weights, restored whole, serve through the kernels."""
+    runs' trained weights, restored whole, serve through the kernels."""
     import tempfile
 
     import numpy as np
@@ -8129,6 +8555,7 @@ def phase_train_tp_sp(torch) -> dict:
     world = max(TRAIN_TP_SP_DEGREES)
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     plan = TRAIN_TP_SP_PLANS[backend]
+    stacks = TRAIN_TP_SP_STACKS[backend]
     cfg = train_tp_sp_cfg(plan["layers"])
     torch.cuda.empty_cache()
     report = {"phase": "train_tp_sp", "arch": MOE_ARCH, "backend": backend,
@@ -8137,13 +8564,16 @@ def phase_train_tp_sp(torch) -> dict:
               "global_batch": plan["batch"], "steps": plan["steps"],
               "compression": "int8", "param_dtype": "fp32",
               "compute_dtype": "bf16", "reduced": plan["reduced"]}
+    gates = [("fp32", None), ("dense_fp32", None), ("odd_fp32", None)] + [
+        ("stack_fp32", arch) for arch in stacks]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         yards = {}
-        for kind in ("fp32", "dense_fp32"):
-            path = str(Path(tmp) / f"yard_{kind}.pt")
-            yards[kind] = {"path": path,
-                           "metrics": tp_sp_yardstick(torch, kind, path)}
+        for kind, arch in gates:
+            path = str(Path(tmp) / f"yard_{kind}_{arch}.pt")
+            yards[f"{kind} {arch}"] = {
+                "path": path, "metrics": tp_sp_yardstick(torch, kind, path,
+                                                         arch)}
         report["yardsticks_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -8154,104 +8584,150 @@ def phase_train_tp_sp(torch) -> dict:
         report["spawn_s"] = time.perf_counter() - t0
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(world)]
+        for yard in yards.values():         # the serves below need none
+            Path(yard["path"]).unlink()
         params = CheckpointManager(str(Path(tmp) / "final")).restore(
             plan["steps"], {"params": init(cfg, device="meta")},
             device="cuda")["params"]
-    for degree in TRAIN_TP_SP_DEGREES:
-        runs = [run for rk in ranks for run in rk["runs"]
-                if run["degree"] == degree and run["kind"] == "bf16"]
-        losses = {json.dumps([s["loss"] for s in run["steps"]])
-                  for run in runs}
-        require(len(losses) == 1, f"train_tp_sp degree {degree}: the "
-                                  f"ranks' losses differ ({losses})")
-        ms = sorted(s["device_ms"] for s in runs[0]["steps"][1:])
-        line = {"phase": "train_tp_sp", "run": f"degree {degree}",
-                "backend": backend, "losses": json.loads(losses.pop()),
-                "grad_norms": [s["grad_norm"] for s in runs[0]["steps"]],
-                "bytes_a_rank_a_step": runs[0]["bytes_from_shapes"],
-                "staged_bytes": runs[0]["steps"][-1]["staged_bytes"],
-                "ranks": [{"rank": run["rank"], **{k: [s[k] for s in run[
-                    "steps"]] for k in ("device_ms", "wall_s",
-                                        "peak_mem_bytes")}}
-                          for run in runs]}
-        line["mfu"] = roofline_line(
-            MOE_ARCH, ShapeCell(f"train {plan['batch']}x{TRAIN_SEQ}",
-                                TRAIN_SEQ, plan["batch"], "train"),
-            ms[len(ms) // 2],
-            max(s["peak_mem_bytes"] for run in runs for s in run["steps"]),
-            layers=plan["layers"], timing=f"CUDA events, rank 0's median "
-            f"of steps 1-{plan['steps'] - 1}, degree {degree}")["mfu"]
-        emit(line)
-    fp32 = {f"{run['kind']} {run['fault'] or 'clean'}": {
-        k: run.get(k) for k in ("rejected", "step_gate", "leaf_gate")}
-        for run in ranks[0]["runs"] if run["kind"] != "bf16"}
-    clean = [run for rk in ranks for run in rk["runs"]
-             if run["kind"] == "fp32" and run["fault"] is None]
-    fp32["fp32 clean"].update({k: sum(run[k] for run in clean) for k in (
-        "assignments_routed_apart", "assignments")})
-    emit({"phase": "train_tp_sp", "run": "fp32 and planted faults",
-          "moe": TRAIN_TP_SP_FP32, "dense": {"arch": ARCH,
-                                              **TRAIN_TP_SP_DENSE},
-          "one_card": {k: yards[k]["metrics"] for k in yards},
-          "runs": fp32, "probe": [rk["probe"] for rk in ranks]})
+        trained = {}
+        for arch in stacks:
+            scfg = tp_sp_stack_cfg(arch, backend)
+            trained[arch] = (scfg, str(Path(tmp) / f"final_{arch}"))
+        report["runs_s"] = {f"{run['kind']} {run['arch']} "
+                            f"{run['fault'] or 'clean'} {run['degree']}":
+                            run["run_s"] for run in ranks[0]["runs"]}
+        for degree, arch in [(d, None) for d in TRAIN_TP_SP_DEGREES] + [
+                (TRAIN_TP_SP_STACK_DEGREE, a) for a in stacks]:
+            runs = [run for rk in ranks for run in rk["runs"]
+                    if run["degree"] == degree and run["kind"] == "bf16"
+                    and (run["arch"] == cfg.name if arch is None else
+                         run["arch"] == trained[arch][0].name)]
+            losses = {json.dumps([s["loss"] for s in run["steps"]])
+                      for run in runs}
+            name = arch or MOE_ARCH
+            require(len(losses) == 1, f"train_tp_sp {name} degree {degree}: "
+                                      f"the ranks' losses differ ({losses})")
+            ms = sorted(s["device_ms"] for s in runs[0]["steps"][1:])
+            first = runs[0]
+            line = {"phase": "train_tp_sp", "run": f"degree {degree}",
+                    "arch": name, "backend": backend,
+                    "layers": first["layers"],
+                    "encoder_layers": first["encoder_layers"],
+                    "seq": first["seq"], "rows": first["rows"],
+                    "global_batch": first["global_batch"],
+                    "compression": first["compression"],
+                    "losses": json.loads(losses.pop()),
+                    "grad_norms": [s["grad_norm"] for s in first["steps"]],
+                    "bytes_a_rank_a_step": first["bytes_from_shapes"],
+                    "staged_bytes": first["steps"][-1]["staged_bytes"],
+                    "ranks": [{"rank": run["rank"], **{k: [s[k] for s in run[
+                        "steps"]] for k in ("device_ms", "wall_s",
+                                            "peak_mem_bytes")}}
+                              for run in runs]}
+            line["mfu"] = roofline_line(
+                name, ShapeCell(f"train {first['global_batch']}x"
+                                f"{first['rows']}", first["rows"],
+                                first["global_batch"], "train"),
+                ms[len(ms) // 2],
+                max(s["peak_mem_bytes"] for run in runs for s in run["steps"]),
+                layers=first["layers"],
+                encoder_layers=first["encoder_layers"] or None,
+                pattern_tail=(tuple(first["pattern_tail"])
+                              if arch == HYBRID_ARCH else None),
+                timing=f"CUDA events, rank 0's median of steps 1-"
+                f"{len(first['steps']) - 1}, degree {degree}")["mfu"]
+            emit(line)
+        fp32 = {f"{run['kind']} {run['arch']} {run['fault'] or 'clean'}": {
+            k: run.get(k) for k in ("rejected", "margin", "step_gate",
+                                    "leaf_gate", "grad_gate", "fault_gates")}
+            for run in ranks[0]["runs"] if run["kind"] != "bf16"}
+        clean = [run for rk in ranks for run in rk["runs"]
+                 if run["kind"] == "fp32" and run["fault"] is None]
+        fp32[f"fp32 {cfg.name} clean"].update({k: sum(
+            run[k] for run in clean) for k in ("assignments_routed_apart",
+                                               "assignments")})
+        emit({"phase": "train_tp_sp", "run": "fp32 and planted faults",
+              "moe": TRAIN_TP_SP_FP32, "dense": {"arch": ARCH,
+                                                  **TRAIN_TP_SP_DENSE},
+              "odd": {"arch": ARCH, **TRAIN_TP_SP_ODD},
+              "stacks": TRAIN_TP_SP_STACK_FP32,
+              "one_card": {k: yards[k]["metrics"] for k in yards},
+              "runs": fp32, "probe": [rk["probe"] for rk in ranks]})
 
-    # the trained weights, gathered whole, through the kernels
-    kernel_model = build_model(dataclasses.replace(cfg, attn_impl="kernel"))
-    model = build_model(cfg)
-    rng = np.random.default_rng(7)
-    prompts = [torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(1, n)))
-               .to("cuda") for n in TRAIN_PROMPTS]
-    # every B1/B2 call of a prefill, B4 call of a decode step and kernel
-    # call of the wave serve held to the plain version on the same inputs
-    # beside its planted fault (``attention_gate``); the logits held to
-    # the chunked route's where no (token, layer) routes apart (a bf16
-    # rounding can flip a token's sixth expert), and the served tokens
-    ops.reset_launch_counts()
-    served = []
-    with torch.no_grad():
-        for prompt in prompts:
-            n = prompt.shape[1]
-            ((got, cache), got_routes), gate = attention_gate(
-                lambda: moe_routes(lambda: kernel_model.prefill(
-                    params, kernel_model.cfg, prompt, n + 1)))
-            tok = got[:, -1].argmax(-1, keepdim=True)
-            _, dgate = attention_gate(lambda: kernel_model.decode_step(
-                params, kernel_model.cfg, tok, cache, n))
-            del cache
-            (want, _), want_routes = moe_routes(lambda: model.prefill(
-                params, cfg, prompt, n + 1))
-            require(bool(torch.isfinite(got).all()),
-                    f"train_tp_sp: kernel logits at {n} not finite")
-            prefills = sum(gate["kernels"].get(k, 0)
-                           for k in ("mas_resident", "mas_streamed"))
-            require(prefills == cfg.num_layers,
-                    f"train_tp_sp: prefill at {n}: {gate['kernels']}")
-            require(dgate["kernels"].get("decode", 0) == cfg.num_layers,
-                    f"train_tp_sp: decode at {n}: {dgate['kernels']}")
-            apart = routing_differences(got_routes, want_routes)
-            err = row_rel_err(got, want)
-            served.append({"prompt_len": n, "row_rel_err": err,
-                           "max_abs_err": max_err(got, want),
-                           "routes_apart": apart, "prefill_gate": gate,
-                           "decode_gate": dgate})
-            require(apart or err <= LOGITS_RTOL,
-                    f"train_tp_sp: kernel prefill logits at {n}: row error "
-                    f"{err}")
-        reqs = [Request(rid=i, prompt=rng.integers(
-                    3, cfg.vocab_size, size=(TRAIN_PROMPTS[0],))
-                    .astype(np.int32), max_new_tokens=TRAIN_NEW_TOKENS,
-                    eos_id=-1) for i in range(BATCH)]
-        outs = {}
-        for name, m_ in (("kernel", kernel_model), ("chunked", model)):
-            eng = ServingEngine(m_, params, max_len=TRAIN_PROMPTS[0]
-                                + TRAIN_NEW_TOKENS, batch_size=BATCH,
-                                device="cuda")
-            if name == "kernel":
-                outs[name], serve_gate = attention_gate(
-                    lambda: eng.serve(reqs))
-                counts = ops.launch_counts()
-            else:
-                outs[name] = eng.serve(reqs)
+        # the trained weights, gathered whole, through the kernels
+        kernel_model = build_model(dataclasses.replace(cfg,
+                                                       attn_impl="kernel"))
+        model = build_model(cfg)
+        rng = np.random.default_rng(7)
+        prompts = [torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                                 size=(1, n))).to("cuda")
+                   for n in TRAIN_PROMPTS]
+        # every B1/B2 call of a prefill, B4 call of a decode step and kernel
+        # call of the wave serve held to the plain version on the same
+        # inputs beside its planted fault (``attention_gate``); the logits
+        # held to the chunked route's where no (token, layer) routes apart
+        # (a bf16 rounding can flip a token's sixth expert), and the served
+        # tokens; then each stack's trained weights through its kernels
+        # (``serve_trained_stack``)
+        ops.reset_launch_counts()
+        served = []
+        with torch.no_grad():
+            for prompt in prompts:
+                n = prompt.shape[1]
+                ((got, cache), got_routes), gate = attention_gate(
+                    lambda: moe_routes(lambda: kernel_model.prefill(
+                        params, kernel_model.cfg, prompt, n + 1)))
+                tok = got[:, -1].argmax(-1, keepdim=True)
+                _, dgate = attention_gate(lambda: kernel_model.decode_step(
+                    params, kernel_model.cfg, tok, cache, n))
+                del cache
+                (want, _), want_routes = moe_routes(lambda: model.prefill(
+                    params, cfg, prompt, n + 1))
+                require(bool(torch.isfinite(got).all()),
+                        f"train_tp_sp: kernel logits at {n} not finite")
+                prefills = sum(gate["kernels"].get(k, 0)
+                               for k in ("mas_resident", "mas_streamed"))
+                require(prefills == cfg.num_layers,
+                        f"train_tp_sp: prefill at {n}: {gate['kernels']}")
+                require(dgate["kernels"].get("decode", 0) == cfg.num_layers,
+                        f"train_tp_sp: decode at {n}: {dgate['kernels']}")
+                apart = routing_differences(got_routes, want_routes)
+                err = row_rel_err(got, want)
+                served.append({"prompt_len": n, "row_rel_err": err,
+                               "max_abs_err": max_err(got, want),
+                               "routes_apart": apart, "prefill_gate": gate,
+                               "decode_gate": dgate})
+                require(apart or err <= LOGITS_RTOL,
+                        f"train_tp_sp: kernel prefill logits at {n}: row "
+                        f"error {err}")
+            reqs = [Request(rid=i, prompt=rng.integers(
+                        3, cfg.vocab_size, size=(TRAIN_PROMPTS[0],))
+                        .astype(np.int32), max_new_tokens=TRAIN_NEW_TOKENS,
+                        eos_id=-1) for i in range(BATCH)]
+            outs = {}
+            for name, m_ in (("kernel", kernel_model), ("chunked", model)):
+                eng = ServingEngine(m_, params, max_len=TRAIN_PROMPTS[0]
+                                    + TRAIN_NEW_TOKENS, batch_size=BATCH,
+                                    device="cuda")
+                if name == "kernel":
+                    outs[name], serve_gate = attention_gate(
+                        lambda: eng.serve(reqs))
+                else:
+                    outs[name] = eng.serve(reqs)
+        del params, kernel_model, model, eng
+        torch.cuda.empty_cache()
+        stack_gates = {}
+        for arch, (scfg, path) in trained.items():
+            sparams = CheckpointManager(path).restore(
+                TRAIN_TP_SP_STACK_STEPS, {"params": init(scfg,
+                                                         device="meta")},
+                device="cuda")["params"]
+            stack_gates[arch] = serve_trained_stack(torch, arch, scfg,
+                                                    sparams)
+            del sparams
+            shutil.rmtree(path)
+            torch.cuda.empty_cache()
+        counts = ops.launch_counts()
     for name in PATH_KERNELS["train_tp_sp"]:
         require(counts[name] > 0, f"train_tp_sp: kernel {name} not "
                                   f"launched")
@@ -8260,13 +8736,17 @@ def phase_train_tp_sp(torch) -> dict:
                       "prefill_vs_chunked": served, "limit": LOGITS_RTOL,
                       "serve_gate": serve_gate,
                       "serve_token_agreement": token_agreement,
-                      "launches": launched_kernels(counts)})
+                      "stacks": stack_gates,
+                      "launches": launched_kernels(counts)},
+                  stacks={arch: {**TRAIN_TP_SP_STACKS[backend][arch],
+                                 "degree": TRAIN_TP_SP_STACK_DEGREE,
+                                 "steps": TRAIN_TP_SP_STACK_STEPS,
+                                 "global_batch": 1}
+                          for arch in stacks})
     require(token_agreement == 1.0,
             f"train_tp_sp: the kernel serve's tokens agree {token_agreement} "
             f"with the chunked route's")
     emit(report)
-    del params, kernel_model
-    torch.cuda.empty_cache()
     return {**report, "launches": counts}
 
 
@@ -8774,16 +9254,21 @@ def timed_call(torch, fn):
 
 
 def roofline_line(arch: str, cell, ms: float, peak: int, *,
-                  layers: int | None = None, **extra) -> dict:
+                  layers: int | None = None,
+                  encoder_layers: int | None = None,
+                  pattern_tail: tuple | None = None, **extra) -> dict:
     """Print one ``{"phase": "roofline", ...}`` line: ``cell_roofline`` of
     a step that took ``ms`` on the card (CUDA events) at ``peak`` bytes of
-    device memory; fail unless 0 < roofline_share <= ROOFLINE_MAX and
-    0 < mfu <= ROOFLINE_MAX (a count that reads above it is wrong)."""
+    device memory (``layers``, ``encoder_layers``, ``pattern_tail``: the
+    depth run, where cut); fail unless 0 < roofline_share <= ROOFLINE_MAX and 0 < mfu <=
+    ROOFLINE_MAX (a count that reads above it is wrong)."""
     from repro_torch.analysis.roofline import cell_roofline
 
     line = {"phase": "roofline", **cell_roofline({
         "arch": arch, "cell": cell, "device_s": ms / 1e3,
-        "peak_memory_bytes": peak, "layers": layers}), **extra}
+        "peak_memory_bytes": peak, "layers": layers,
+        "encoder_layers": encoder_layers, "pattern_tail": pattern_tail}),
+        **extra}
     emit(line)
     for key in ("roofline_share", "mfu"):
         require(0 < line[key] <= ROOFLINE_MAX,

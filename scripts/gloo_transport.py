@@ -10,7 +10,8 @@ process a rank on card 0, this prints one JSON line each: the seconds
 copy of a 96M-element fp32 gradient through pinned memory; its
 reduce-scatter by gloo's own ``reduce_scatter_tensor`` and by an
 all-to-all of its blocks summed on the card (both staged through pinned
-memory: the route ``SeqShard.reduce_scatter`` takes over gloo); and the
+memory; ``SeqShard.reduce_scatter`` takes the all-to-all over gloo and
+sums the blocks on the host); and the
 all-gather of a 48M-element bf16 tensor's blocks by gloo's CUDA
 ``all_gather`` and staged through pinned memory. The last line is the
 card's name and power limit.

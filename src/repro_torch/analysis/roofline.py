@@ -44,11 +44,17 @@ def cell_roofline(rec: dict) -> dict:
     """Roofline terms of one measured step. ``rec``: ``arch`` (an arch
     id), ``cell`` (the ``ShapeCell`` of the traffic actually run, or its
     dict), ``device_s`` (the step's time on the card), and
-    ``peak_memory_bytes``; optional ``layers`` (the depth run, where cut)
-    and ``kv_bytes`` (the KV cache's itemsize, default 2)."""
+    ``peak_memory_bytes``; optional ``layers``, ``encoder_layers`` and
+    ``pattern_tail`` (the depth run, where cut) and ``kv_bytes`` (the KV
+    cache's itemsize, default 2)."""
     cfg = get_arch(rec["arch"])
-    if rec.get("layers") is not None:
-        cfg = dataclasses.replace(cfg, num_layers=rec["layers"])
+    for key, field in (("layers", "num_layers"),
+                       ("encoder_layers", "encoder_layers"),
+                       ("pattern_tail", "pattern_tail")):
+        if rec.get(key) is not None:
+            cfg = dataclasses.replace(cfg, **{field: tuple(rec[key])
+                                              if key == "pattern_tail"
+                                              else rec[key]})
     cell = _cell(rec["cell"])
     device_s = rec["device_s"]
     mf = model_flops(cfg, cell, causal=True)
@@ -61,6 +67,7 @@ def cell_roofline(rec: dict) -> dict:
         "arch": rec["arch"],
         "cell": dataclasses.asdict(cell),
         "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers,
         "kv_bytes": kv_bytes,
         "device_s": device_s,
         "peak_memory_bytes": rec["peak_memory_bytes"],

@@ -31,12 +31,15 @@ by a context manager, no thread-local state:
   (``GatherLeaf``: all-gather forward, reduce-scatter of the fp32
   gradient backward), and the train step all-reduces the gradients of
   the leaves every rank holds whole (``launch/steps.py``).
-  Training under ``"tp_sp"`` (an MoE stack, or an odd batch) keeps the
-  sequence split: every rank holds the whole batch and its ``tp_sp``
-  split, and the model's train route (``transformer.tp_sp_forward``)
-  gathers each layer's split leaves along their own dims
-  (``gather_split``), its K/V rows whole (``gather_rows``, whose
-  backward reduce-scatters dK/dV) and exchanges MoE buffers through
+  Training under ``"tp_sp"`` (an MoE stack, or an odd batch of any
+  stack) keeps the sequence split: every rank holds the whole batch and
+  its ``tp_sp`` split, and the model's train route
+  (``transformer.tp_sp_forward``) gathers each layer's split leaves
+  along their own dims (``gather_split``), its K/V rows whole
+  (``gather_rows``, whose backward reduce-scatters dK/dV), a recurrent
+  layer's ``halo`` and ``carry`` (each through ``GatherLeaf`` where
+  autograd records it, whose backward reduce-scatters the gradient back
+  to the rank that sent the rows) and exchanges MoE buffers through
   ``AllToAll``, whose backward is the same exchange. ``train_shard()``
   gives the training policy's shard and kind.
 
@@ -56,6 +59,8 @@ causal conv's inputs, a window's K/V) and ``carry`` (a recurrent
 layer's scan state and decay, composed across the ranks); under
 training also ``reduce_scatter`` (a gathered weight's or K/V block's
 fp32 gradient summed over the ranks, each keeping its block),
+``halo_grad`` and ``carry_grad`` (the same for a halo's rows and a
+carry's parts),
 ``all_reduce`` (sums: the gradients of whole leaves, the token count,
 the loss, the squared norm, an MoE layer's first-choice density) and
 ``all_reduce_max`` (the int8 scales' absmax). Point-to-point
@@ -88,6 +93,10 @@ from repro_torch.kernels.ssd_scan import compose_states
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
+
+# the elements of a gloo reduce-scatter staged through host memory at a
+# time (``SeqShard.reduce_scatter``): 256 MB of fp32
+_STAGE = 1 << 26
 
 # NCCL's reduce-scatter: ``reduce_scatter_single``, where torch has it,
 # is the new name of ``reduce_scatter_tensor`` (which then warns on every
@@ -218,7 +227,8 @@ def kv_shard_state() -> KVShard | None:
 
 POLICIES = ("tp_sp", "sp_rep", "fsdp")
 KINDS = ("ring", "combine", "a2a", "gather", "bcast", "weights", "halo",
-         "carry", "reduce_scatter", "all_reduce", "all_reduce_max")
+         "carry", "reduce_scatter", "halo_grad", "carry_grad", "all_reduce",
+         "all_reduce_max")
 
 
 @dataclasses.dataclass
@@ -297,30 +307,36 @@ class SeqShard(_Group):
         min(rows, block) rows, all-gathered once (kind ``halo``). Returns
         (the up to ``rows`` rows just before this rank's first row, fewer
         near the sequence's start, none on rank 0; the sequence's last
-        min(rows, S) rows). Either is contiguous: every rank's part is its
-        whole block, or the last part alone holds ``rows`` rows."""
+        min(rows, S) rows). The gather is ``GatherLeaf``'s: where autograd
+        records the call its backward reduce-scatters the gathered rows'
+        fp32 gradient (kind ``halo_grad``), so each rank's rows receive
+        what every later rank's use of them gave."""
         k = min(rows, x.shape[dim])
-        parts = self.all_gather(x.narrow(dim, x.shape[dim] - k, k), "halo")
+        every = GatherLeaf.apply(x.narrow(dim, x.shape[dim] - k, k), self,
+                                 x.dtype, dim, "halo", "halo_grad")
 
-        def last(ps):
-            t = torch.cat(ps, dim)
+        def last(t):
             n = min(rows, t.shape[dim])
             return t.narrow(dim, t.shape[dim] - n, n)
 
-        return last([x.narrow(dim, 0, 0)] + parts[:self.rank]), last(parts)
+        return last(every.narrow(dim, 0, self.rank * k)), last(every)
 
     def carry(self, final: torch.Tensor, log_decay: torch.Tensor) -> tuple:
         """Compose a scan split by rows over the group: ``final`` (*batch,
         *feat) this rank's state after its rows from a zero state,
         ``log_decay`` (*batch) the log of the factor its rows apply to a
         state entering them. Both are all-gathered in one fp32 exchange
-        (kind ``carry``). Returns (the state entering this rank's rows,
-        the state after the sequence's last row), fp32: every rank
-        composes the same parts in rank order (``compose_states``)."""
+        (kind ``carry``, through ``GatherLeaf``, whose backward, where
+        autograd records the call, reduce-scatters the parts' gradients,
+        kind ``carry_grad``). Returns (the state entering this
+        rank's rows, the state after the sequence's last row), fp32:
+        every rank composes the same parts in rank order
+        (``compose_states``)."""
         nb = log_decay.dim()
         flat = torch.cat([final.float().reshape(-1),
                           log_decay.float().reshape(-1)])
-        parts = self.all_gather(flat, "carry")
+        parts = GatherLeaf.apply(flat, self, torch.float32, 0, "carry",
+                                 "carry_grad").view(self.degree, -1)
         n_final = final.numel()
         finals = torch.stack([p[:n_final].reshape(final.shape)
                               for p in parts], dim=nb)
@@ -374,10 +390,16 @@ class SeqShard(_Group):
                        ) -> torch.Tensor:
         """``x``'s dim 0 cut in ``degree`` equal blocks and summed over the
         ranks; this rank's block of the sum. A rank sends and receives
-        degree - 1 blocks. Over gloo, an all-to-all of the blocks (through
-        pinned host buffers for CUDA tensors) and their sum in rank order
-        on the tensor's device: gloo's own reduce-scatter took 2.6 times as
-        long on one H100's four ranks (``scripts/gloo_transport.py``)."""
+        degree - 1 blocks. Over gloo, in pieces of at most ``_STAGE``
+        elements of every block: an all-to-all of the pieces (through
+        pinned host buffers for CUDA tensors), their sum in rank order on
+        the host, and the rank's piece alone back on the tensor's device.
+        A rank so holds neither the n received blocks on the card nor
+        more than a piece's buffers on the host (four ranks of
+        recurrentgemma-9b's whole 256000-row embedding gradient, 4.2 GB
+        fp32 each, ran out of the card's memory, then of the host's, on
+        one H100): gloo's own reduce-scatter took 2.6 times as long on one
+        H100's four ranks (``scripts/gloo_transport.py``)."""
         if self.degree == 1:
             return x
         if x.shape[0] % self.degree:
@@ -391,11 +413,19 @@ class SeqShard(_Group):
             out = x.new_empty(per)
             _REDUCE_SCATTER(out, x, group=self.group)
             return out
-        src = self._to_host(x)
-        parts = torch.empty_like(src)
-        dist.all_to_all_single(parts, src, group=self.group)
-        parts = self._to_device(parts, x)
-        return parts.view((self.degree,) + per).sum(0)
+        blocks = x.view(self.degree, -1)
+        out = x.new_empty(per)
+        flat = out.view(-1)
+        step = max(1, _STAGE // self.degree)
+        for at in range(0, blocks.shape[1], step):
+            src = self._to_host(blocks[:, at:at + step].contiguous())
+            parts = torch.empty_like(src)
+            dist.all_to_all_single(parts, src, group=self.group)
+            piece = parts[0].clone()
+            for part in parts[1:]:
+                piece += part
+            flat[at:at + step].copy_(self._to_device(piece, x))
+        return out
 
     def _to_host(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` itself on the CPU; a CUDA tensor copied into pinned host
@@ -478,23 +508,27 @@ class GatherLeaf(torch.autograd.Function):
     """A tensor split along ``dim`` over ``shard``'s group, gathered
     whole in ``dtype``: the rank's block cast to ``dtype`` and all-gathered
     in rank order (kind ``kind``: ``weights`` for a split parameter,
-    ``gather`` for a sequence's K/V rows). Backward: the whole tensor's
-    gradient in fp32, summed over the ranks by a reduce-scatter along
-    ``dim`` (kind ``reduce_scatter``), the rank's block of the sum as its
+    ``gather`` for a sequence's K/V rows, ``halo`` and ``carry`` for a
+    split layer's boundary rows and scan state). Backward: the whole
+    tensor's gradient in fp32, summed over the ranks by a reduce-scatter
+    along ``dim`` (kind ``grad_kind``), the rank's block of the sum as its
     block's gradient, in the block's dtype."""
 
     @staticmethod
-    def forward(ctx_, block, shard, dtype, dim=0, kind="weights"):
+    def forward(ctx_, block, shard, dtype, dim=0, kind="weights",
+                grad_kind="reduce_scatter"):
         ctx_.shard, ctx_.dim, ctx_.dtype, ctx_.kind = (shard, dim,
                                                        block.dtype, kind)
+        ctx_.grad_kind = grad_kind
         return torch.cat(shard.all_gather(block.detach().to(dtype), kind),
                          dim)
 
     @staticmethod
     def backward(ctx_, grad):
         whole = grad.float().movedim(ctx_.dim, 0).contiguous()
-        block = ctx_.shard.reduce_scatter(whole).movedim(0, ctx_.dim)
-        return block.to(ctx_.dtype), None, None, None, None
+        block = ctx_.shard.reduce_scatter(whole, ctx_.grad_kind).movedim(
+            0, ctx_.dim)
+        return block.to(ctx_.dtype), None, None, None, None, None
 
 
 class AllToAll(torch.autograd.Function):

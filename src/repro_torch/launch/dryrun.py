@@ -27,10 +27,10 @@ ssm, hybrid, audio or vision stack at an even batch) each rank holds its
 ``fsdp`` blocks of fp32 weights and AdamW state and draws its slice of
 seeded ``SyntheticLMData`` at the cell's sequence (a vision cell's F
 patch rows count toward it). Under ``tp_sp`` (an MoE stack, or an odd
-batch) each rank holds its ``tp_sp`` split and draws the whole batch,
-of which the model takes its rows of the sequence; a stack or sequence
-``transformer.check_tp_sp_train`` refuses raises before any collective
-(ROADMAP A10 item 3c).
+batch, of any stack) each rank holds its ``tp_sp`` split and draws the
+whole batch, of which the model takes its rows of the sequence (all of
+them where the degree does not divide it, its loss a share of the
+label columns: ``transformer.tp_sp_rows``).
 """
 
 from __future__ import annotations
@@ -53,7 +53,6 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import (
-    check_tp_sp_train,
     keep_block,
     make_cache,
     rank_cache,
@@ -228,9 +227,7 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
     dev = resolve_device(device)
     policy = choose_policy(cfg, cell)
     if cell.kind == "train":
-        if policy == "tp_sp":
-            check_tp_sp_train(cfg, cell.seq_len, shard.degree)
-        elif cell.global_batch % shard.degree:
+        if policy == "fsdp" and cell.global_batch % shard.degree:
             raise ValueError(f"a global batch of {cell.global_batch} does "
                              f"not split over {shard.degree} ranks")
         if cfg.attn_impl == "kernel":

@@ -24,12 +24,12 @@ the group's degree. ``--batch`` is the global batch. Under ``fsdp``
 each rank draws its slice (``SyntheticLMData(process_index=rank,
 process_count=n)``, as the reference's launcher) and holds its ``fsdp``
 blocks of the weights and the optimizer state; under ``tp_sp`` (an MoE
-stack, or an odd batch) each rank draws the whole batch, of which the
-model takes the rank's rows of the sequence, and holds its ``tp_sp``
-split (the experts its own). Either saves and restores sharded (a
-checkpoint saved at another degree restores onto this one). A stack or
-sequence ``tp_sp`` does not train yet raises ``NotImplementedError``
-(ROADMAP A10 item 3c) before any step. The heartbeat worker is
+stack, or an odd batch, of any stack) each rank draws the whole batch,
+of which the model takes the rank's rows of the sequence (all of them
+where the degree does not divide it, the rank's loss a share of the
+label columns), and holds its ``tp_sp`` split (the experts its own).
+Either saves and restores sharded (a checkpoint saved at another degree
+restores onto this one). The heartbeat worker is
 ``proc<rank>``; rank 0 alone prints and writes ``--metrics-file``.
 Where the reference's launcher places parameters by the ``tp_sp`` rules
 whatever the cell, the port follows ``choose_policy``.
@@ -66,7 +66,7 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.launch.steps import choose_policy, make_train_step
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import check_tp_sp_train, init
+from repro_torch.models.transformer import init
 from repro_torch.optim import OptConfig, adamw_init
 
 
@@ -165,8 +165,6 @@ def _train(args, rank: int, degree: int, dev) -> list:
         cfg = dataclasses.replace(cfg, **overrides)
     policy = choose_policy(cfg, ShapeCell("train", args.seq, args.batch,
                                           "train"))
-    if degree > 1 and policy == "tp_sp":
-        check_tp_sp_train(cfg, args.seq, degree)
     shard = SeqShard(None, rank, degree)
     split_batch = degree > 1 and policy == "fsdp"
 

@@ -69,11 +69,13 @@ class Model:
         microbatches (``launch/steps.py``).
 
         Under ``tp_sp`` the batch is whole on every rank and the loss is
-        the rank's term (``transformer.tp_sp_forward``): the masked sum of
-        its rows' label columns over the batch's whole count of unmasked
-        labels (every rank holds every label, so the count needs no
-        exchange) plus its aux term, so the ranks' terms sum to the one
-        card's loss."""
+        the rank's term (``transformer.tp_sp_forward``, any stack): the
+        masked sum of its label columns (``transformer.tp_sp_rows``: the
+        text among its rows of the F + S, or where the degree does not
+        divide them its share of the columns) over the batch's whole count
+        of unmasked labels (every rank holds every label, so the count
+        needs no exchange) plus its aux term, so the ranks' terms sum to
+        the one card's loss."""
         cfg = self.cfg
         shard, kind = ctx.train_shard()
         if shard is None:
@@ -82,11 +84,10 @@ class Model:
                 if p.dtype == torch.float32 and p.dim() >= 2 else p, params)
         labels = batch["labels"].long()
         if kind == "tp_sp":
-            logits, aux = tfm.tp_sp_forward(params, batch["tokens"], cfg,
-                                            shard)
+            logits, aux, cols = tfm.tp_sp_forward(
+                params, batch["tokens"], cfg, shard, batch.get("frontend"))
             count = (labels >= 0).sum()
-            s = labels.shape[1]
-            labels = labels[:, shard.span(s // shard.degree, s)]
+            labels = labels[:, cols]
         else:
             kwargs = {}
             if cfg.frontend == "vision":

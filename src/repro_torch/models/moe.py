@@ -176,7 +176,8 @@ def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None, *,
     all-to-all brings its group's outputs back; the aux terms are
     all-gathered and averaged in rank order. With one group (a decode
     row, or a sequence the degree does not divide) every rank holds every
-    token, runs its experts' slots and all-gathers the outputs.
+    token, runs its experts' slots and all-gathers the outputs
+    (``ctx.gather_rows``, whose backward reduce-scatters their gradient).
 
     Both all-to-alls are differentiable (``ctx.AllToAll``: the backward
     sends the gradients' blocks back), so the split dispatch trains: a
@@ -185,7 +186,8 @@ def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None, *,
     instead: the first-choice density f, which carries no gradient, is
     the ranks' densities all-reduced and averaged, and the rank adds E ·
     Σ_e f_e · p_e^r / n, p^r its own mean router probabilities, so the
-    ranks' terms sum to the group's E · Σ_e f_e · p_e.
+    ranks' terms sum to the group's E · Σ_e f_e · p_e; with one group
+    (every rank holding every token) the rank's term is aux / n.
     """
     m = cfg.moe
     b, s, d = x.shape
@@ -230,7 +232,7 @@ def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None, *,
     else:
         out = _experts(params, _rank_experts(buf[0], shard, ne), dt, shard,
                        ne)
-        out_buf = torch.cat(shard.all_gather(out, "gather"))[None]
+        out_buf = ctx.gather_rows(out, shard, 0)[None]
     safe_pos = torch.where(keep, pos, 0)
     gathered = torch.where(keep[..., None], out_buf[grp, flat_ids, safe_pos],
                            0)
@@ -242,6 +244,8 @@ def moe_ffn(params, x, cfg: ArchConfig, seq_len: int | None = None, *,
     aux = r.aux
     if local and rank_aux:
         aux = rank_aux_term(r, shard)
+    elif shard is not None and rank_aux:       # every rank holds every token
+        aux = aux / shard.degree
     elif local:
         terms = shard.all_gather(torch.stack([r.density, r.mean_probs]),
                                  "gather")

@@ -77,20 +77,27 @@ backward reduce-scatters each gathered weight's gradient). ``prefill``
 and ``decode_step`` refuse it, and so does an MoE stack (its train cells
 take ``tp_sp``).
 
-Under ``sharding_policy(shard, "tp_sp")`` a dense or MoE stack trains
-through ``tp_sp_forward`` (``Model.loss_fn`` takes it): every rank holds
-the whole batch, its ``local_params(policy="tp_sp")`` split and its rows
-[r·S/n, (r+1)·S/n) of the sequence. The embedding is gathered once (a
-tied one serves the unembedding too), each layer's split leaves inside
-its ``checkpoint`` region (``ctx.gather_split``, along each leaf's own
-dim), the rank's Q rows attend K/V gathered whole (``ctx.gather_rows``)
-on the full-sequence route at ``q_offset`` = the rank's first row (the
+Under ``sharding_policy(shard, "tp_sp")`` every stack trains through
+``tp_sp_forward`` (``Model.loss_fn`` takes it): every rank holds the
+whole batch, its ``local_params(policy="tp_sp")`` split and its rows
+[r·T/n, (r+1)·T/n) of the T = F + S rows (``tp_sp_rows``; a vision
+input's F patch rows first). The embedding is gathered once (a tied one
+serves the unembedding too), each layer's split leaves inside its
+``checkpoint`` region (``ctx.gather_split``, along each leaf's own dim),
+the rank's Q rows attend K/V gathered whole (``ctx.gather_rows``) on the
+full-sequence route at ``q_offset`` = the rank's first row (the
 reference's own trade in its chunked attention: the ring's bytes, one
-reduce-scatter back), the MoE FFN dispatches its group through the
+reduce-scatter back), a windowed layer's the K/V halo before them
+(``_seq_window``), an SSD or RG-LRU layer takes its conv's halo and its
+scan's carry (``SeqShard.halo``/``carry``, differentiable where autograd
+records them), an encoder-decoder's encoder runs the rank's block of
+the frames and each cross block gathers its memories whole
+(``_gathered_encode``), the MoE FFN dispatches its group through the
 differentiable all-to-all with the rank's term of the aux loss, and only
-the rank's rows are unembedded. The ssm, hybrid, audio and vision stacks
-and a sequence the degree does not divide raise (ROADMAP A10 item 3c,
-``check_tp_sp_train``); the serving route still refuses a backward.
+the rank's label columns are unembedded. A sequence the degree does not
+divide stays whole on every rank, each rank's loss a share of the label
+columns. The serving route still refuses a backward (its ring has
+none).
 
 The encoder under the policy runs rank r's block of the F frames: each
 layer all-gathers its K/V whole (``SeqShard.whole``, kind ``gather``)
@@ -327,15 +334,11 @@ def _qkv(params, x, cfg: ArchConfig, positions):
 def _whole_kv(k, v, rows: int) -> tuple:
     """K/V (B, Hkv, R, E), the rank's block of ``rows`` rows under the
     sharding policy, made whole by one all-gather of both (kind
-    ``gather``: ``SeqShard.whole``, or ``ctx.gather_rows`` where autograd
-    records the call, whose backward reduce-scatters dK/dV); as they are
-    where whole."""
+    ``gather``: ``ctx.gather_rows``, whose backward, where autograd
+    records the call, reduce-scatters dK/dV); as they are where whole."""
     if k.shape[2] == rows:
         return k, v
-    shard = seq_shard_state()
-    kv = torch.stack([k, v])
-    kv = (ctx.gather_rows(kv, shard, 3) if attn_mod.tracks_grad(kv)
-          else shard.whole(kv, rows, dim=3))
+    kv = ctx.gather_rows(torch.stack([k, v]), seq_shard_state(), 3)
     return kv[0], kv[1]
 
 
@@ -717,23 +720,33 @@ def _unembed(params, x, cfg: ArchConfig):
 def _layer_train(layer, x, cfg: ArchConfig, positions, encoder_out,
                  split: tuple | None = None):
     """One layer of the full-sequence forward -> (x, aux). With ``split``
-    = (first row, S) the rows are the rank's block of an S-row sequence
-    under ``tp_sp`` (a dense or MoE layer): its Q rows attend K/V
-    gathered whole (``attn_block(kv_rows=S)``), and its FFN gives the
-    rank's aux term (an MoE FFN's split dispatch)."""
-    if "ssd" in layer:
-        return x + ssm.ssd_block(layer["ssd"], x, cfg)[0], 0.0
+    = (first row, S) the rows are the rank's under ``tp_sp``, of an S-row
+    sequence: where they are a block of it, an SSD or RG-LRU layer takes
+    its conv's halo and its scan's carry from the other ranks
+    (``ssd_block``/``rglru_block`` with the shard), a windowed attention
+    layer the K/V halo before its rows (``_seq_window``), a full one
+    attends K/V gathered whole (``attn_block(kv_rows=S)``); a cross block
+    gathers its memories whole (``encoder_out`` the rank's block of the
+    encoder's rows, or all of them); the FFN gives the rank's aux term
+    (an MoE FFN's split dispatch)."""
     start, s = split or (0, None)
+    shard = seq_shard_state() if split is not None and x.shape[1] < s \
+        else None                                   # the rows are a block
+    if "ssd" in layer:
+        return x + ssm.ssd_block(layer["ssd"], x, cfg, shard=shard)[0], 0.0
     if "rec" in layer:
-        x = x + rglru.rglru_block(layer["rec"], x, cfg)[0]
+        x = x + rglru.rglru_block(layer["rec"], x, cfg, shard=shard)[0]
+    elif shard is not None and cfg.attn_window is not None:
+        x = x + _seq_window(layer["attn"], x, cfg, shard, positions, True, s)
     else:
         x = x + attn_block(layer["attn"], x, cfg, positions=positions,
                            window=cfg.attn_window, causal=cfg.causal,
                            kv_rows=s, q_offset=start)[0]
-        if "cross" in layer:
-            mem_k, mem_v = cross_memory(layer["cross"], encoder_out, cfg)
-            x = x + cross_attn_block(layer["cross"], x, cfg, mem_k=mem_k,
-                                     mem_v=mem_v)
+    if "cross" in layer:
+        mem_k, mem_v = cross_memory(layer["cross"], encoder_out, cfg)
+        x = x + cross_attn_block(
+            layer["cross"], x, cfg, mem_k=mem_k, mem_v=mem_v,
+            mem_rows=None if split is None else cfg.num_frontend_tokens)
     y, a = ffn(layer, x, cfg, s, rank_aux=split is not None)
     return x + y, a
 
@@ -1009,13 +1022,14 @@ def _gathered_layer(layer, spec, shard, x, cfg: ArchConfig, positions,
 
 def _gathered_forward(params, tokens, cfg: ArchConfig, shard, specs, *,
                       frontend_embeds=None, encoder_out=None,
-                      rows: slice | None = None):
+                      rows: slice | None = None, keep: slice | None = None):
     """The train forward on split weights (``specs``: the policy's
     ``split_specs``) -> (logits, aux): the embedding gathered once and,
     tied, serving the unembedding too; each layer's blocks gathered
     inside its ``checkpoint`` region under remat, so the backward gathers
-    them again. With ``rows`` only those rows of the whole ``tokens``
-    (``tp_sp``), at their positions, and only they are unembedded."""
+    them again. With ``rows`` only those rows of the F + S (``tp_sp``: a
+    vision input's F patch rows, then the tokens), at their positions,
+    and of them only the ``keep`` rows are unembedded."""
     dt = cfg.compute_dtype
     embed = ctx.gather_split({"embed": params["embed"]}, specs, shard, dt)
     if rows is None:
@@ -1023,9 +1037,11 @@ def _gathered_forward(params, tokens, cfg: ArchConfig, shard, specs, *,
         positions = torch.arange(x.shape[1], device=x.device)
         split = None
     else:
-        x = _embed(embed, tokens[:, rows], cfg, start=rows.start)
+        f = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+        front, mine = _input_rows(tokens, frontend_embeds, rows)
+        x = _embed(embed, mine, cfg, front, start=rows.start)
         positions = torch.arange(rows.start, rows.stop, device=x.device)
-        split = (rows.start, tokens.shape[1])
+        split = (rows.start, f + tokens.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and attn_mod.tracks_grad(x)
     for layer, spec in zip(params["layers"], specs["layers"], strict=True):
@@ -1041,7 +1057,7 @@ def _gathered_forward(params, tokens, cfg: ArchConfig, shard, specs, *,
         head = {"final_norm": params["final_norm"], **embed}
     else:
         head = ctx.gather_split(_head(params), specs, shard, dt)
-    return _unembed(head, x, cfg), aux
+    return _unembed(head, x if keep is None else x[:, keep], cfg), aux
 
 
 def _fsdp_forward(params, tokens, cfg: ArchConfig, shard,
@@ -1053,81 +1069,117 @@ def _fsdp_forward(params, tokens, cfg: ArchConfig, shard,
                              encoder_out=encoder_out)
 
 
-def _fsdp_encoder_layer(layer, spec, shard, x, cfg: ArchConfig, positions):
+def _gathered_encoder_layer(layer, spec, shard, x, cfg: ArchConfig,
+                            positions, kv_rows=None):
     layer = ctx.gather_split(layer, spec, shard, cfg.compute_dtype)
     x = x + attn_block(layer["attn"], x, cfg, positions=positions,
-                       causal=False)[0]
+                       causal=False, kv_rows=kv_rows)[0]
     return x + mlp(layer["ffn"], x, cfg)
 
 
-def _fsdp_encode(params, frames, cfg: ArchConfig, shard):
-    """``encode`` on the rank's batch rows, each encoder layer's blocks
-    gathered inside its ``checkpoint`` region under remat."""
-    specs = _fsdp_specs(cfg, shard)
-    x = frames.to(cfg.compute_dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
+def _gathered_encode(params, frames, cfg: ArchConfig, shard, specs,
+                     rows: slice | None = None):
+    """``encode`` on split weights, each encoder layer's blocks gathered
+    inside its ``checkpoint`` region under remat: every frame (``fsdp``:
+    the rank's batch rows), or with ``rows`` those frames of the F at
+    their positions (``tp_sp``), whose Q rows attend K/V gathered whole
+    (``attn_block(kv_rows=F)``). Returns the output's rows it ran."""
+    f = frames.shape[1]
+    rows = rows or slice(0, f)
+    x = frames[:, rows].to(cfg.compute_dtype)
+    positions = torch.arange(rows.start, rows.stop, device=x.device)
     if not cfg.rope:
         x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
+    kv_rows = f if rows.stop - rows.start < f else None
     remat = cfg.remat and attn_mod.tracks_grad(
         x, *tree_leaves(params["encoder"]))
     for layer, spec in zip(params["encoder"], specs["encoder"], strict=True):
         if remat:
-            x = checkpoint(_fsdp_encoder_layer, layer, spec, shard, x, cfg,
-                           positions, use_reentrant=False)
+            x = checkpoint(_gathered_encoder_layer, layer, spec, shard, x, cfg,
+                           positions, kv_rows, use_reentrant=False)
         else:
-            x = _fsdp_encoder_layer(layer, spec, shard, x, cfg, positions)
+            x = _gathered_encoder_layer(layer, spec, shard, x, cfg, positions,
+                                        kv_rows)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _fsdp_encode(params, frames, cfg: ArchConfig, shard):
+    """``encode`` on the rank's batch rows (``_gathered_encode``)."""
+    return _gathered_encode(params, frames, cfg, shard,
+                            _fsdp_specs(cfg, shard))
 
 
 # ---------------------------------------------------------------------------
 # training under tp_sp
 # ---------------------------------------------------------------------------
 
-TP_SP_TRAIN_FAMILIES = ("dense", "moe")
+def tp_sp_rows(total: int, texts: int, shard) -> tuple:
+    """What rank ``shard.rank`` trains of a sequence of ``total`` rows
+    whose last ``texts`` are text (a vision input's F patch rows first)
+    under ``tp_sp`` -> (its rows of the ``total``, the label columns its
+    loss covers, those columns' rows among its rows). Where the degree n
+    divides ``total`` the rows are its block [r·T/n, (r+1)·T/n) and the
+    columns the text among them (none on a rank of patch rows only);
+    where it does not, the rows stay whole on every rank (the
+    reference's ``fit_spec`` rule) and each rank's loss covers its share
+    [r·S/n, (r+1)·S/n) of the S label columns, so the ranks' terms still
+    sum to the batch's loss and every gradient is reduced once."""
+    n, r, f = shard.degree, shard.rank, total - texts
+    if total % n:
+        rows = slice(0, total)
+        cols = slice(r * texts // n, (r + 1) * texts // n)
+    else:
+        rows = shard.span(total // n, total)
+        cols = slice(max(rows.start - f, 0), max(rows.stop - f, 0))
+    keep = slice(f + cols.start - rows.start, f + cols.stop - rows.start)
+    return rows, cols, keep
 
 
-def check_tp_sp_train(cfg: ArchConfig, seq_len: int, degree: int) -> None:
-    """Raise ``NotImplementedError`` unless ``tp_sp`` trains ``cfg`` at
-    ``seq_len`` rows over ``degree`` ranks: a dense or MoE stack whose
-    sequence the degree divides. The other stacks and a sequence it does
-    not divide are ROADMAP A10 item 3c."""
-    if cfg.family not in TP_SP_TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"tp_sp training of the {cfg.family} stack {cfg.name} is not "
-            f"ported (ROADMAP A10 item 3c)")
-    if seq_len % degree:
-        raise NotImplementedError(
-            f"tp_sp training of {seq_len} rows over {degree} ranks: a "
-            f"sequence the degree does not divide is not ported (ROADMAP "
-            f"A10 item 3c)")
-
-
-def tp_sp_forward(params, tokens, cfg: ArchConfig, shard):
-    """The ``tp_sp`` train route: tokens (B, S), whole on every rank ->
-    (logits of the rank's rows (B, S/n, V), the rank's aux term). The
-    rank holds its ``local_params(policy="tp_sp")`` split (or whole
-    leaves), gathered as ``_gathered_forward`` does; its Q rows attend
-    K/V gathered whole (``ctx.gather_rows``, whose backward
-    reduce-scatters dK/dV) on the full-sequence route at ``q_offset`` =
-    its first row. Only the rank's rows are unembedded, so every gradient
-    is a sum over the ranks' rows and each is reduced once: a gathered
-    leaf's by its reduce-scatter, the rank's experts' by the
-    all-to-all's backward, a whole leaf's by the train step's
-    all-reduce."""
+def tp_sp_forward(params, tokens, cfg: ArchConfig, shard, frontend=None):
+    """The ``tp_sp`` train route: tokens (B, S) and ``frontend`` (B, F, D)
+    (a vision input's patch embeddings, an encoder-decoder's frames),
+    whole on every rank -> (logits of the rank's label columns (B, C, V),
+    the rank's aux term, those columns). The rank holds its
+    ``local_params(policy="tp_sp")`` split (or whole leaves), gathered as
+    ``_gathered_forward`` does, and runs its rows of the F + S
+    (``tp_sp_rows``): its Q rows attend K/V gathered whole
+    (``ctx.gather_rows``, whose backward reduce-scatters dK/dV) on the
+    full-sequence route at ``q_offset`` = its first row, a windowed layer
+    its rows and the K/V halo before them, a recurrent layer its rows with
+    the conv's halo and the scan's carry (``SeqShard.halo``/``carry``,
+    whose backwards send each gradient to the rank whose rows it is). An
+    encoder-decoder's encoder runs the rank's block of the F frames
+    (``_gathered_encode``; all F where the degree does not divide them)
+    and each cross block gathers its memories whole. Only the rank's
+    label columns are unembedded, so every gradient is a sum over the
+    ranks' terms and each is reduced once: a gathered leaf's or row's by
+    its reduce-scatter, the rank's experts' by the all-to-all's backward,
+    a whole leaf's by the train step's all-reduce."""
+    n = shard.degree
+    specs = split_specs(cfg, n)
+    vision = cfg.frontend == "vision"
     s = tokens.shape[1]
-    check_tp_sp_train(cfg, s, shard.degree)
-    return _gathered_forward(params, tokens, cfg, shard,
-                             split_specs(cfg, shard.degree),
-                             rows=shard.span(s // shard.degree, s))
+    rows, cols, keep = tp_sp_rows(
+        s + (frontend.shape[1] if vision else 0), s, shard)
+    encoder_out = None
+    if cfg.encoder_layers:
+        f = frontend.shape[1]
+        encoder_out = _gathered_encode(
+            params, frontend, cfg, shard, specs,
+            rows=slice(0, f) if f % n else shard.span(f // n, f))
+    logits, aux = _gathered_forward(
+        params, tokens, cfg, shard, specs,
+        frontend_embeds=frontend if vision else None,
+        encoder_out=encoder_out, rows=rows, keep=keep)
+    return logits, aux, cols
 
 
 def _refuse_grad(params) -> None:
     if attn_mod.tracks_grad(*tree_leaves(params)):
         raise NotImplementedError(
             "training across devices under tp_sp goes through "
-            "Model.loss_fn (transformer.tp_sp_forward) for a dense or MoE "
-            "stack, ROADMAP A10 item 3c for the others; the sequence "
-            "route's forward serves only")
+            "Model.loss_fn (transformer.tp_sp_forward); the sequence "
+            "route's forward serves only (its ring has no backward)")
 
 
 def _seq_rows(s: int) -> tuple[slice, bool]:

@@ -20,8 +20,10 @@ per-thread stand-in for ``distributed/ctx.fsdp_state``:
   ``FSDP_FAULTS`` (``planted_fsdp_fault``), labels masked unevenly over
   the ranks, as the card runs them;
 * the bytes by kind against ``chip_smoke.fsdp_bytes``' arithmetic;
-* ``run_cell``'s train cells and what ``tp_sp`` still refuses
-  (``run_cell``, the launcher: ROADMAP A10 item 3c);
+* ``run_cell``'s train cells, and an odd batch of an ssm and an audio
+  stack and the launcher on a hybrid stack and on a sequence the degree
+  does not divide, which take ``tp_sp`` (on thread ranks of
+  ``tests/test_torch_tp_sp_train.py``);
 * sharded checkpoints: a degree-4 save restores at degrees 3, 2 and 1
   bit for bit, the reference's ``CheckpointManager.restore`` reads it
   into the one-card save's arrays, and no half-written step is seen;
@@ -70,6 +72,8 @@ from repro_torch.tree import leaves_with_paths, tree_map
 from repro_torch.weights import params_from_jax
 from test_torch_harness import model_pair
 from test_torch_seqcarry import SMOKE, ThreadShard, _Hub
+from test_torch_tp_sp_train import _LOCAL as TP_SP_LOCAL
+from test_torch_tp_sp_train import on_ranks as tp_sp_ranks
 from test_torch_train_step import OPT, STEP_RTOL, STEPS
 
 GRAD_RTOL = 1e-5
@@ -475,26 +479,64 @@ def test_run_cell_trains_a_dense_cell_under_fsdp(monkeypatch):
 
 @pytest.mark.parametrize("arch,batch", [("mamba2-130m", 3),
                                         ("whisper-large-v3", 3)])
-def test_tp_sp_train_cells_are_refused(arch, batch):
-    """An odd batch trains under tp_sp, which trains dense and MoE stacks
-    only: ``run_cell`` raises for the other stacks, naming ROADMAP, before
-    any collective."""
+def test_tp_sp_train_cells_are_refused(arch, batch, monkeypatch):
+    """An odd batch trains under tp_sp, for every stack (the name is the
+    case's older one): ``run_cell`` trains the cell of an ssm and an
+    audio stack on two thread ranks, its exchanges counted (an SSD
+    layer's halo and carry, the encoder's and memories' gathers), the
+    same losses on every rank, within STEP_RTOL of the one-card step on
+    the same batches."""
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype=torch.float32)
     cell = ShapeCell("train_tiny", 24, batch, "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10 item 3c"):
-        dryrun.run_cell(get_smoke(arch), cell, ctx.SeqShard(None, 0, 2),
-                        device="cpu")
+    monkeypatch.setattr(dryrun, "sharding_policy",
+                        lambda shard, kind: contextlib.nullcontext())
+    ranks = tp_sp_ranks(2, lambda sh: dryrun.run_cell(cfg, cell, sh,
+                                                      device="cpu", steps=2))
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    step = steps.make_train_step(model, OptConfig(lr=3e-3, warmup_steps=0,
+                                                  total_steps=2))
+    state = adamw_init(params)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=24,
+                           global_batch=batch, seed=5,
+                           frontend_tokens=cfg.num_frontend_tokens
+                           if cfg.frontend else 0, d_model=cfg.d_model)
+    want = []
+    for i in range(2):
+        params, state, m = step(params, state,
+                                train.batch_on(data.batch_at(i), "cpu"))
+        want.append(float(m["loss"]))
+    kinds = ("halo", "carry") if cfg.ssm is not None else ("gather",)
+    for r, (rec, _) in enumerate(ranks):
+        assert (rec["policy"], rec["degree"], rec["rank"]) == ("tp_sp", 2, r)
+        assert all(rec["sent_bytes"][k] > 0 for k in kinds)
+        assert rec["losses"] == ranks[0][0]["losses"]
+    np.testing.assert_allclose(ranks[0][0]["losses"], want, rtol=STEP_RTOL)
 
 
 def test_the_launcher_refuses_tp_sp_across_ranks(monkeypatch):
-    """The launcher raises likewise for a stack tp_sp does not train and
-    for a sequence the degree does not divide, before any step."""
-    monkeypatch.setattr(train, "join_group", lambda device: (0, 2, False))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10 item 3c"):
-        train.main(["--arch", "recurrentgemma-9b", "--smoke", "--steps",
-                    "1", "--batch", "3", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10 item 3c"):
-        train.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "1",
-                    "--batch", "3", "--seq", "25", "--device", "cpu"])
+    """The launcher trains under tp_sp across ranks a hybrid stack at an
+    odd batch and a dense one at a sequence the degree does not divide
+    (the name is the case's older one): on two thread ranks (the group's
+    rank and ``SeqShard`` the thread's), every rank the same losses,
+    within STEP_RTOL of one process's."""
+    def thread_shard():
+        return getattr(TP_SP_LOCAL, "shard", None)
+
+    monkeypatch.setattr(train, "sharding_policy",
+                        lambda shard, kind: contextlib.nullcontext())
+    monkeypatch.setattr(train, "join_group", lambda device: (
+        (thread_shard().rank, 2, False) if thread_shard() else (0, 1, False)))
+    monkeypatch.setattr(train, "SeqShard", lambda group, rank, degree: (
+        thread_shard() or ctx.SeqShard(group, rank, degree)))
+    for argv in (["--arch", "recurrentgemma-9b", "--seq", "32"],
+                 ["--arch", "qwen3-1.7b", "--seq", "25"]):
+        argv = argv + ["--smoke", "--steps", "2", "--batch", "3",
+                       "--device", "cpu"]
+        want = train.main(argv)
+        got = tp_sp_ranks(2, lambda sh: train.main(argv))
+        assert got[0] == got[1] and len(got[0]) == 2
+        np.testing.assert_allclose(got[0], want, rtol=STEP_RTOL)
 
 
 def test_an_moe_forward_under_fsdp_is_refused():

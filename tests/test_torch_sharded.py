@@ -36,7 +36,8 @@ tp_sp policy the 2-rank spawn trains deepseek-moe-smoke on the whole
 batch as the one-process step under the same MoE groups, with the bytes
 ``tp_sp_bytes`` gives, its sharded save restoring whole bit for bit;
 and runs ``launch/train.main`` on moonshot-smoke over the two ranks to
-step 10, then resumed from that sharded checkpoint to step 20
+step 10, then resumed from that sharded checkpoint to step 20, and on
+recurrentgemma-smoke at an odd batch
 (``tests/test_torch_tp_sp_train.py`` holds the rest, on threads).
 """
 
@@ -159,6 +160,12 @@ TP_SP_RESUME_ARGS = ["--arch", "moonshot-v1-16b-a3b", "--smoke", "--total-steps"
                      "--device", "cpu"]
 
 
+# and train.main on recurrentgemma-smoke at an odd batch, which takes tp_sp
+# (the conv halos, scan carries and window halo through their backwards)
+TP_SP_HYBRID_ARGS = ["--arch", "recurrentgemma-9b", "--smoke", "--steps", "4",
+                     "--batch", "3", "--seq", "32", "--device", "cpu"]
+
+
 def _tp_sp_cases(root) -> list:
     return [dict(name="tp_sp-2", kind="fsdp", policy="tp_sp", degree=2,
                  arch="deepseek-moe-16b", steps=FSDP_STEPS, opt=FSDP_OPT, batch=2,
@@ -166,7 +173,8 @@ def _tp_sp_cases(root) -> list:
         dict(name=f"tp_sp_resume-{n}", kind="resume",
              argv=TP_SP_RESUME_ARGS + ["--steps", str(n), "--ckpt-dir",
                                        str(root / "tp_sp_resume")])
-        for n in (10, 20)]
+        for n in (10, 20)] + [
+        dict(name="tp_sp_hybrid", kind="resume", argv=TP_SP_HYBRID_ARGS)]
 
 
 def _cases2(vocab, root):
@@ -1013,3 +1021,16 @@ def test_train_main_trains_an_moe_stack_over_two_ranks_and_resumes(
             want.append(float(m["loss"]))
     np.testing.assert_allclose(got[0], want, atol=5e-3)
     assert latest_step(directory) == 20
+
+
+def test_train_main_trains_a_hybrid_stack_over_two_ranks(ranks):
+    """``launch/train.main`` on recurrentgemma-smoke at a global batch of 3
+    over two gloo ranks takes tp_sp, each rank its rows of the sequence
+    (the halo and carry exchanges and their backwards over gloo): every
+    rank the same losses, within 5e-3 of one process's, as the resumed
+    moonshot run (the launcher's rate of 3e-3 with no warmup at 4 steps:
+    the first two steps agree within 4e-5, the fourth within 2.5e-4)."""
+    got = [r["tp_sp_hybrid"]["losses"] for r in ranks[2]]
+    assert len(got[0]) == 4 and got[0] == got[1]
+    np.testing.assert_allclose(got[0], train.main(TP_SP_HYBRID_ARGS),
+                               atol=5e-3)
