@@ -231,11 +231,32 @@ Phases, each printing one JSON line:
    run and rank: peak memory, prefill and decode-step device ms and
    wall, bytes sent by collective (ring, combine, a2a, gather, bcast,
    weights, halo, carry) and the bytes staged through host buffers.
+   Last in the same spawn, the pipeline (``distributed/pipeline.py``,
+   the reference's GPipe pipeline): deepseek-coder-33b at full width,
+   bf16, seed-0 weights, 8 of its 62 layers (PIPE_LAYERS; the same with
+   a card a rank), 2 a stage over the four ranks, drawn in turn; the
+   embedded rows of 8 seeded sequences of 2048 tokens in 8 microbatches
+   of 1, each block the full-sequence layer (``transformer._layer_
+   train``, B2 at GQA group 7): a run with every B2 call held to its
+   plain version beside a zeroed V tile (``attention_gate``), then a
+   timed run with the launch counts and bytes set to 0 just before and
+   read just after, then a run a planted fault (a stage that keeps its
+   previous buffer at one tick; the stages holding their blocks in
+   reverse order). Gates: every microbatch bit for bit the single card's
+   ``sequential_apply`` of the same layers on it (computed here first),
+   each fault failing that, the bytes by kind ``pipeline_bytes``' (11
+   microbatches each way a rank, kind ``pipe``; the last stage's outputs
+   broadcast, ``bcast``), B2 launched once a block. One ``{"phase":
+   "pipeline", ...}`` line: per rank the device ms, wall, peak, the
+   largest difference from ``sequential_apply`` of the whole batch
+   (not gated), the stages' busy device ms and bubble share with a card
+   a rank ("not measured" where the stages share one card), the card's
+   name and power limit.
    ``python3 chip_smoke.py --only seq_sharded`` runs the build, the B3
    halo row, the B2 rank rows and this phase alone, ``--only
    seq_recurrent`` the same with the recurrent runs only (the halo row),
    ``--only seq_frontend`` with the frontend runs only (the B2 rank
-   rows);
+   rows), ``--only seq_pipeline`` with the pipeline only;
 12. moe — full-width, full-depth deepseek-moe-16b (28 layers, 64
    routed experts top-6 and 2 shared, capacity factor 1.25; bf16, random
    weights from seed 0 with the experts' down projections scaled by 1/16,
@@ -335,7 +356,13 @@ Phases, each printing one JSON line:
 18. launcher — ``repro_torch.launch.serve.main`` (the documented entry
    point) at full width, internlm2-1.8b, 8 requests on ``cuda``: each
    returns ``--max-new`` tokens in the vocabulary (run after phase 11,
-   once internlm2's bf16 weights are freed);
+   once internlm2's bf16 weights are freed); then the dry-run command
+   line ``repro_torch.launch.dryrun.main``: its abstract mode over every
+   cell at degree 4 (a record a cell, ok or skipped, each printing a
+   rank's argument bytes and whether they fit the card), and ``--run``
+   of mamba2-130m decode_32k at 8 sequences (its 128 cut) at degree 1 on
+   ``cuda`` and at degree 2 (NCCL with two cards, else gloo on card 0),
+   each with finite logits;
 19. train (last, after every serving model is freed) — internlm2-1.8b
    at full width and depth trained by ``launch/steps.make_train_step``:
    fp32 master weights, bf16 compute, attention ``"chunked"`` (the
@@ -458,7 +485,7 @@ before it and read just after, and fails unless its kernels launched.
 The last three lines are the kernel table (B1-B8, the int8 branches of
 B4-B7 and the head-dim-256 forms of B3 and B4, each with the launches of
 its own paths: B1, B2 and B4 add the moe and dense-arch phases' to the
-waves', B5 and B6 the shared-prefix, moe and dense-arch phases' to the
+waves' (B2 also the pipeline's timed run's), B5 and B6 the shared-prefix, moe and dense-arch phases' to the
 continuous phase's, the head-dim-256 forms the hybrid wave's, B1, B2 and
 B4 also the encdec and vlm phases' and the train phases' trained
 weights'; ``mas_streamed_cross``, B2 at a
@@ -730,6 +757,25 @@ FRONTEND_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
 SEQ_FRONTEND_SHARED_LAYERS = 2
 SEQ_FRONTEND_FP32_LAYERS = 2
 SEQ_FRONTEND_FP32_PROMPT = 1024
+# The pipeline part of the seq_sharded spawn (``distributed/pipeline.py``,
+# the reference's GPipe pipeline): deepseek-coder-33b, the depth-dominant
+# model the reference names, at full width, bf16, seed-0 weights,
+# PIPE_LAYERS of its 62 layers (four gloo ranks share one card; the same 8
+# with a card a rank), PIPE_LAYERS / PIPE_DEGREE a stage, on the embedded
+# rows of PIPE_BATCH sequences of PIPE_SEQ seeded tokens in
+# PIPE_MICROBATCHES microbatches. A block is the full-sequence layer
+# (``transformer._layer_train``): B2 at 1 x 2048, GQA group 7.
+PIPE_ARCH = SEQ_CODER_ARCH
+PIPE_DEGREE = 4
+PIPE_LAYERS = 8
+PIPE_BATCH = 8
+PIPE_SEQ = 2048
+PIPE_MICROBATCHES = 8
+PIPE_TOKEN_SEED = 11
+# Faults the pipeline gate must reject: a stage that keeps its previous
+# buffer at one tick (a dropped hop), and the stages holding their layer
+# blocks in reverse order.
+PIPE_FAULTS = ("dropped_hop", "reversed_blocks")
 # Each path of the port, the kernels it must launch, and the path whose
 # launch count each row of the kernel line reports.
 PATH_KERNELS = {
@@ -758,12 +804,14 @@ PATH_KERNELS = {
                 "paged_prefill_int8", "paged_decode_int8",
                 "paged_verify_int8"),
     "seq_sharded": ("ssd_intra_chunk", "flash_e256", "mas_streamed"),
+    "pipeline": ("mas_streamed",),
 }
 ROW_PATH = {"mas_resident": ("waves", "moe", "dense_archs", "encdec",
                              "launcher", "train", "train_sharded",
                              "train_tp_sp"),
             "mas_streamed": ("waves", "moe", "dense_archs", "encdec",
-                             "vlm", "train", "train_sharded", "train_tp_sp"),
+                             "vlm", "train", "train_sharded", "train_tp_sp",
+                             "pipeline"),
             "mas_streamed_cross": ("encdec",),
             "flash": ("waves",),
             "decode": ("waves", "moe", "dense_archs", "encdec", "vlm",
@@ -833,6 +881,12 @@ ROOFLINE_MAX = 1.05
 ROOFLINE_STEPS = 3          # decode steps timed after the probe's prefill
 # The calibration serve: the continuous phase's first requests, traced.
 CALIBRATION_REQUESTS = 8
+# The dry-run command line (``repro_torch.launch.dryrun.main``) in the
+# launcher phase: its abstract records at degree 4, and DRYRUN_RUN run at
+# degrees 1 and 2, its batch of 128 cut to DRYRUN_BATCH.
+DRYRUN_DEGREE = 4
+DRYRUN_RUN = ("mamba2-130m", "decode_32k")
+DRYRUN_BATCH = 8
 # The serving launcher at full width: requests through
 # ``repro_torch.launch.serve.main``, its other flags at their defaults.
 LAUNCHER_ARCH = ARCH
@@ -6419,6 +6473,220 @@ def seq_dense_part(torch, rank: int, groups: dict, yard_path: str,
     dist.barrier()
 
 
+def pipe_cfg():
+    """PIPE_ARCH at full width, PIPE_LAYERS layers, on the kernels."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(PIPE_ARCH), num_layers=PIPE_LAYERS)
+
+
+def pipe_body(cfg, positions):
+    """A pipeline stage's block: ``transformer._layer_train`` on the full
+    sequence (the reference's ``apply_block_train``)."""
+    from repro_torch.models.transformer import _layer_train
+
+    def body(layer, h):
+        return _layer_train(layer, h, cfg, positions, None)[0]
+    return body
+
+
+def pipeline_yardstick(torch, path: str) -> dict:
+    """The pipeline part's one-card yardstick, saved to ``path``: ``x``,
+    the embedded rows (PIPE_BATCH, PIPE_SEQ, D) of seeded tokens through
+    PIPE_LAYERS seed-0 layers' embedding; ``micro``, ``sequential_apply``
+    of the layers on each microbatch alone; ``whole``, on the whole
+    batch. Returns the two's device ms and the init's seconds."""
+    from repro_torch.distributed.pipeline import sequential_apply
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import _embed
+
+    cfg = pipe_cfg()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(seed=0, device="cuda",
+                                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(PIPE_TOKEN_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_BATCH, PIPE_SEQ),
+                           device="cuda", generator=gen)
+    body = pipe_body(cfg, torch.arange(PIPE_SEQ, device="cuda"))
+    per = PIPE_BATCH // PIPE_MICROBATCHES
+    with torch.no_grad():
+        x = _embed(params, tokens, cfg)
+        micro, _, micro_ms = timed_call(torch, lambda: torch.stack([
+            sequential_apply(params["layers"], x[i * per:(i + 1) * per],
+                             body) for i in range(PIPE_MICROBATCHES)]))
+        whole, _, whole_ms = timed_call(
+            torch, lambda: sequential_apply(params["layers"], x, body))
+    torch.save({"x": x, "micro": micro, "whole": whole}, path)
+    del params
+    torch.cuda.empty_cache()
+    return {"init_s": init_s, "microbatches_device_ms": micro_ms,
+            "whole_batch_device_ms": whole_ms}
+
+
+class DroppedHop:
+    """``shard`` (a ``SeqShard``) but that on rank ``rank`` its ring pass
+    at tick ``tick`` hands back the buffer of the tick before (the bytes
+    still move): a pipeline stage that dropped a hop."""
+
+    def __init__(self, shard, rank: int, tick: int):
+        self.shard, self.faulty, self.tick = shard, rank, tick
+        self.calls, self.prev = 0, None
+
+    def __getattr__(self, name):
+        return getattr(self.shard, name)
+
+    def ring_pass(self, tensors, kind="ring"):
+        got = self.shard.ring_pass(tensors, kind)()
+        if self.calls == self.tick and self.shard.rank == self.faulty:
+            got = self.prev
+        self.calls += 1
+        self.prev = got
+        return lambda: got
+
+
+def pipeline_bytes(x, rank: int, degree: int) -> dict:
+    """The bytes by kind a rank of the pipeline sends and receives, from
+    the shapes: (M + S - 1) microbatches each way (``pipe``), and the
+    last stage's outputs, the size of ``x``, sent to every other rank
+    (``bcast``); kinds it does not use left out."""
+    whole = x.numel() * x.element_size()
+    pipe = (PIPE_MICROBATCHES + degree - 1) * whole // PIPE_MICROBATCHES
+    if rank == degree - 1:
+        return {"sent": {"pipe": pipe, "bcast": whole * (degree - 1)},
+                "received": {"pipe": pipe}}
+    return {"sent": {"pipe": pipe}, "received": {"pipe": pipe,
+                                                 "bcast": whole}}
+
+
+def pipeline_rank(torch, shard, path: str, backend: str,
+                  failures: list) -> tuple[dict, dict]:
+    """This rank's stage of the pipeline part: draw the PIPE_LAYERS
+    layers from seed 0 in turn (one whole draw on the card at a time) and
+    keep its block (``stage_layers``) and, for a planted fault, the block
+    of the stage opposite; then ``pipelined_apply`` on the yardstick's
+    ``x``: a run with every attention call held to its plain version
+    (``attention_gate``; untimed, also the warm-up), a timed run with the
+    launch counts and bytes set to 0 just before and read just after, and
+    one run a fault of PIPE_FAULTS. Gates: each microbatch's output bit
+    for bit the one-card ``sequential_apply``'s, the bytes by kind
+    ``pipeline_bytes``', B2 launched 2 a block, each fault failing the
+    first gate. Returns (its record, the timed run's launches)."""
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.pipeline import pipelined_apply, stage_layers
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+
+    n, r = shard.degree, shard.rank
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = pipe_cfg()
+    mine = opposite = None
+    for turn in range(n):
+        if turn == r:
+            layers = build_model(cfg).init(seed=0, device=dev,
+                                           dtype=torch.bfloat16)["layers"]
+            mine = stage_layers(layers, shard)
+            opposite = stage_layers(layers, types.SimpleNamespace(
+                rank=n - 1 - r, degree=n))
+            del layers
+            torch.cuda.empty_cache()
+        dist.barrier(group=shard.group)
+    yard = torch.load(path, map_location=dev)
+    x = yard["x"]
+    want = yard["micro"].reshape(x.shape)
+    body = pipe_body(cfg, torch.arange(PIPE_SEQ, device=dev))
+    per = PIPE_BATCH // PIPE_MICROBATCHES
+    busy = []
+
+    def timed_body(layer, h):           # each block between CUDA events
+        a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = body(layer, h)
+        z.record()
+        busy.append((a, z))
+        return out
+
+    def run(layers, sh=shard, fn=body):
+        with torch.no_grad():
+            return pipelined_apply(layers, x, fn, sh,
+                                   num_microbatches=PIPE_MICROBATCHES)
+
+    def equal_microbatches(y) -> int:
+        return sum(bool(torch.equal(y[i * per:(i + 1) * per],
+                                    want[i * per:(i + 1) * per]))
+                   for i in range(PIPE_MICROBATCHES))
+
+    tag = f"pipeline rank {r} of {n}"
+    gated, gate = attention_gate(lambda: run(mine))
+    shard.reset_counts()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    measure = backend == "nccl"         # on one card the stages share it
+    y, wall, ms = timed_call(torch, lambda: run(
+        mine, fn=timed_body if measure else body))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    sent = {k: v for k, v in shard.sent.items() if v}
+    received = {k: v for k, v in shard.received.items() if v}
+    predicted = pipeline_bytes(x, r, n)
+    equal = equal_microbatches(y)
+    if equal != PIPE_MICROBATCHES or not torch.equal(y, gated):
+        failures.append(f"{tag}: {equal} of {PIPE_MICROBATCHES} "
+                        "microbatches bit for bit the one card's")
+    if (sent, received) != (predicted["sent"], predicted["received"]):
+        failures.append(f"{tag}: bytes {sent} / {received}, the shapes "
+                        f"give {predicted}")
+    blocks = len(mine) * PIPE_MICROBATCHES
+    if counts["mas_streamed"] != blocks:
+        failures.append(f"{tag}: B2 launched {counts['mas_streamed']} "
+                        f"times, {blocks} blocks")
+    faults = {}
+    for fault in PIPE_FAULTS:
+        yf = (run(mine, DroppedHop(shard, 1, 1)) if fault == "dropped_hop"
+              else run(opposite))
+        faults[fault] = {"equal_microbatches": equal_microbatches(yf),
+                         "max_abs_err": max_err(yf, want)}
+        if faults[fault]["equal_microbatches"] == PIPE_MICROBATCHES:
+            failures.append(f"{tag}: the gate passes the fault {fault}")
+    stage_ms = (sum(a.elapsed_time(z) for a, z in busy) if measure
+                else "not measured")
+    rec = {"rank": r, "device": str(dev), "stage_layers": len(mine),
+           "equal_microbatches": equal, "bytes_sent": sent,
+           "bytes_received": received, "bytes_from_shapes": predicted,
+           "device_ms": ms, "wall_s": wall, "peak_mem_bytes": peak,
+           "busy_device_ms": stage_ms,
+           "bubble_share": ("not measured" if not measure
+                            else 1.0 - stage_ms / ms),
+           "whole_batch_max_abs_err": max_err(y, yard["whole"]),
+           "attention_gate": gate, "faults": faults,
+           "launches": launched_kernels(counts)}
+    del mine, opposite, yard, x, want, y, gated
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def pipeline_line(ranks: list, backend: str, one_card: dict) -> dict:
+    """The pipeline part's ``{"phase": "pipeline", ...}`` line from each
+    rank's record."""
+    from repro_torch.configs import get_arch
+
+    s, m = PIPE_DEGREE, PIPE_MICROBATCHES
+    full = get_arch(PIPE_ARCH).num_layers
+    line = {"phase": "pipeline", "arch": PIPE_ARCH, "degree": s,
+            "backend": backend, "cards": s if backend == "nccl" else 1,
+            "layers": PIPE_LAYERS, "reduced": f"{PIPE_LAYERS} of {full} "
+            f"layers, {PIPE_LAYERS // s} a stage",
+            "batch": PIPE_BATCH, "seq": PIPE_SEQ, "microbatches": m,
+            "bubble_share_theory": (s - 1) / (m + s - 1),
+            "one_card": one_card, "ranks": ranks, "card": nvidia_smi()}
+    emit(line)
+    return line
+
+
 # the seq_sharded phase's launch counters: its kernels, and B2's launches
 # inside the split encoder and inside the cross blocks
 SEQ_COUNTERS = PATH_KERNELS["seq_sharded"] + ("mas_streamed_enc_rank",
@@ -6426,19 +6694,22 @@ SEQ_COUNTERS = PATH_KERNELS["seq_sharded"] + ("mas_streamed_enc_rank",
 # the counters each part of the phase must raise
 PART_COUNTERS = {"dense": (), "recurrent": ("ssd_intra_chunk", "flash_e256"),
                  "frontend": ("mas_streamed", "mas_streamed_enc_rank",
-                              "mas_streamed_cross_rank")}
+                              "mas_streamed_cross_rank"),
+                 "pipeline": ()}     # its own count (``pipeline_rank``)
 
 
 def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
              yard_path: str, checksum: int, plan: dict, rec_path: str,
-             rec_plan: dict, front_path: str, front_plan: dict) -> None:
+             rec_plan: dict, front_path: str, front_plan: dict,
+             pipe_path: str) -> None:
     """One rank of the seq_sharded phase (a process of its own): join the
     group, run the dense stacks (``seq_dense_part``), then
     ``seq_recurrent_runs`` of mamba2-130m and recurrentgemma-9b
     (``rec_plan``'s depth and weights), then ``seq_frontend_runs`` of
-    whisper-large-v3 and internvl2-2b (``front_plan``'s depth); a part
-    whose yardsticks' path is None is skipped. Writes its report to
-    ``out_dir``, then fails on any gate."""
+    whisper-large-v3 and internvl2-2b (``front_plan``'s depth), then its
+    stage of the pipeline (``pipeline_rank``); a part whose yardsticks'
+    path is None is skipped. Writes its report to ``out_dir``, then fails
+    on any gate."""
     import torch
     import torch.distributed as dist
 
@@ -6453,7 +6724,8 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
                             rank=rank, world_size=world)
     try:
         groups = {d: seq_group(d) for d in sorted(
-            set(SEQ_DEGREES) | {SEQ_MOE_DEGREE, SEQ_CODER_DEGREE})}
+            set(SEQ_DEGREES) | {SEQ_MOE_DEGREE, SEQ_CODER_DEGREE,
+                                PIPE_DEGREE})}
         failures = []
         report = {"rank": rank, "device": str(dev), "backend": backend,
                   "runs": [], "launches": dict.fromkeys(SEQ_COUNTERS, 0)}
@@ -6477,6 +6749,10 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
                     report["launches"][name] += count
                 torch.cuda.empty_cache()
                 dist.barrier()
+        if pipe_path is not None and groups[PIPE_DEGREE] is not None:
+            report["pipeline"], counts = pipeline_rank(
+                torch, groups[PIPE_DEGREE], pipe_path, backend, failures)
+            report["pipeline_launches"] = counts
         report["failures"] = failures
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(report, f)
@@ -6485,7 +6761,7 @@ def seq_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
         dist.destroy_process_group()
 
 
-SEQ_PARTS = ("dense", "recurrent", "frontend")
+SEQ_PARTS = ("dense", "recurrent", "frontend", "pipeline")
 
 
 def phase_seq_sharded(torch, full: dict | None,
@@ -6517,7 +6793,7 @@ def phase_seq_sharded(torch, full: dict | None,
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         yard_path = checksum = plan = rec_path = rec_plan = None
-        front_path = front_plan = None
+        front_path = front_plan = pipe_path = None
         t0 = time.perf_counter()
         one_card = {}
         if "dense" in parts:
@@ -6539,6 +6815,9 @@ def phase_seq_sharded(torch, full: dict | None,
             for arch, times in frontend_yardsticks(torch, front_path,
                                                    front_plan).items():
                 one_card[f"{arch} prefill_32k"] = times
+        if "pipeline" in parts:
+            pipe_path = str(Path(tmp) / "pipeline.pt")
+            one_card["pipeline"] = pipeline_yardstick(torch, pipe_path)
         yard_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         if "dense" in parts:
@@ -6548,7 +6827,8 @@ def phase_seq_sharded(torch, full: dict | None,
         t0 = time.perf_counter()
         mp.spawn(seq_rank, args=(world, backend, str(Path(tmp) / "store"),
                                  tmp, yard_path, checksum, plan, rec_path,
-                                 rec_plan, front_path, front_plan),
+                                 rec_plan, front_path, front_plan,
+                                 pipe_path),
                  nprocs=world, join=True)
         spawn_s = time.perf_counter() - t0
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
@@ -6575,12 +6855,22 @@ def phase_seq_sharded(torch, full: dict | None,
         for name in PART_COUNTERS[part]:
             require(launches[name] > 0, f"kernel {name} not launched on "
                                         f"the split {part} runs")
+    pipe_launches = dict.fromkeys(PATH_KERNELS["pipeline"], 0)
+    if "pipeline" in parts:
+        pipeline_line([rk["pipeline"] for rk in ranks], backend,
+                      one_card.pop("pipeline"))
+        pipe_launches = {name: sum(rk["pipeline_launches"][name]
+                                   for rk in ranks) for name in pipe_launches}
+        for name, count in pipe_launches.items():
+            require(count > 0, f"kernel {name} not launched on the "
+                               "pipeline")
     emit({"phase": "seq_sharded", "parts": list(parts),
           "yardsticks_s": yard_s, "spawn_s": spawn_s, "launches": launches,
           "recurrent_plan": rec_plan, "frontend_plan": front_plan,
           "moe_layers": moe_layers or seq_moe_cfg().num_layers,
           "dense_layers": dense_layers})
-    return {"phase": "seq_sharded", "runs": lines, "launches": launches}
+    return {"phase": "seq_sharded", "runs": lines, "launches": launches,
+            "pipeline_launches": pipe_launches}
 
 
 def decode_step_events(torch, eng) -> list:
@@ -6753,9 +7043,59 @@ def phase_launcher(torch) -> dict:
     report = {"phase": "launcher", "argv": argv, "wall_s": wall,
               "tokens": sum(len(t) for t in out.values()),
               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-              "launches": launched_kernels(counts)}
+              "launches": launched_kernels(counts),
+              "dryrun": launcher_dryrun(torch)}
     emit(report)
     return {**report, "launches": counts}
+
+
+def launcher_dryrun(torch) -> dict:
+    """``repro_torch.launch.dryrun.main``, the dry-run command line: its
+    abstract mode over every cell at degree DRYRUN_DEGREE (each cell's
+    argument bytes a rank and whether they fit the card, printed by the
+    command), then ``--run`` of DRYRUN_RUN (cut to DRYRUN_BATCH
+    sequences) at degree 1 on ``cuda`` and at degree 2 (NCCL where two
+    cards exist, else gloo on card 0). Every cell must have a record, ok
+    or skipped, and the runs must succeed with finite logits."""
+    import tempfile
+
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--degree", str(DRYRUN_DEGREE), "--out", tmp])
+        records = {p.stem: json.loads(p.read_text())
+                   for p in (Path(tmp) / f"deg{DRYRUN_DEGREE}").glob("*")}
+        require(rc == 0 and len(records) == len(list(all_cells()))
+                and all(r["ok"] or r.get("skipped")
+                        for r in records.values()),
+                f"dryrun --abstract: exit {rc}, {len(records)} records")
+        out["abstract"] = {
+            "wall_s": time.perf_counter() - t0, "cells": len(records),
+            "skipped": sum(bool(r.get("skipped")) for r in records.values()),
+            "fit": sum(r.get("fits_device_memory") is True
+                       for r in records.values())}
+        arch, shape = DRYRUN_RUN
+        for degree in (1, 2):
+            t0 = time.perf_counter()
+            rc = dryrun.main(["--run", "--device", "cuda", "--arch", arch,
+                              "--shape", shape, "--degree", str(degree),
+                              "--batch", str(DRYRUN_BATCH), "--out", tmp])
+            rec = json.loads((Path(tmp) / f"deg{degree}"
+                              / f"{arch}__{shape}.json").read_text())
+            require(rc == 0 and rec["ok"],
+                    f"dryrun --run at degree {degree}: exit {rc}, {rec}")
+            out[f"run_deg{degree}"] = {
+                "wall_s": time.perf_counter() - t0,
+                "backend": rec.get("backend"), "policy": rec["policy"],
+                "reduced": rec["reduced"],
+                "step_device_ms": rec["step_device_ms"],
+                "peak_mem_bytes": rec["peak_mem_bytes"],
+                "sent_bytes": {k: v for k, v in rec["sent_bytes"].items()
+                               if v}}
+    return out
 
 
 def loss_and_grads(torch, model, params, batch):
@@ -9765,7 +10105,7 @@ def sharded_alone(torch) -> int:
 
 # ``--only`` choices of the seq_sharded phase: the parts each runs
 SEQ_ONLY = {"seq_sharded": SEQ_PARTS, "seq_recurrent": ("recurrent",),
-            "seq_frontend": ("frontend",)}
+            "seq_frontend": ("frontend",), "seq_pipeline": ("pipeline",)}
 
 
 def seq_sharded_alone(torch, device: dict, parts: tuple) -> int:
@@ -9788,9 +10128,10 @@ def seq_sharded_alone(torch, device: dict, parts: tuple) -> int:
     if "frontend" in parts:
         rows += rank_b2_rows(torch, rnd, device)
     emit({"phase": "kernels", "row_rtol": BF16_ROW_RTOL, "kernels": rows})
-    launches = {"seq_sharded": phase_seq_sharded(
-        torch, full_width_model(torch) if "dense" in parts else None,
-        parts)["launches"]}
+    report = phase_seq_sharded(
+        torch, full_width_model(torch) if "dense" in parts else None, parts)
+    launches = {"seq_sharded": report["launches"],
+                "pipeline": report["pipeline_launches"]}
     for row in rows:
         counter = ROW_COUNTER.get(row["name"], row["name"])
         row["launches"] = sum(launches[path][counter]
@@ -9827,7 +10168,8 @@ def main(argv=None) -> int:
                              ["--only", "train_tp_sp"],
                              *(["--only", k] for k in SEQ_ONLY)):
         print("usage: chip_smoke.py [--only sharded|seq_sharded|"
-              "seq_recurrent|seq_frontend|train_sharded|train_tp_sp]",
+              "seq_recurrent|seq_frontend|seq_pipeline|train_sharded|"
+              "train_tp_sp]",
               file=sys.stderr)
         return 2
     if not (SRC / "repro_torch").is_dir():
@@ -9872,7 +10214,9 @@ def main(argv=None) -> int:
     report = phase_sharded(torch, full, ring_verdicts(rows))
     launches["sharded"] = report["launches"]
     launches["sharded_ring"] = report["ring_launches"]
-    launches["seq_sharded"] = phase_seq_sharded(torch, full)["launches"]
+    report = phase_seq_sharded(torch, full)
+    launches["seq_sharded"] = report["launches"]
+    launches["pipeline"] = report["pipeline_launches"]
     full.clear()              # internlm2's weights out of the later peaks
     torch.cuda.empty_cache()
     launches["launcher"] = phase_launcher(torch)["launches"]

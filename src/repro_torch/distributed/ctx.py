@@ -63,7 +63,10 @@ fp32 gradient summed over the ranks, each keeping its block),
 carry's parts),
 ``all_reduce`` (sums: the gradients of whole leaves, the token count,
 the loss, the squared norm, an MoE layer's first-choice density) and
-``all_reduce_max`` (the int8 scales' absmax). Point-to-point
+``all_reduce_max`` (the int8 scales' absmax); and ``pipe``, a
+pipeline stage's microbatch passed to the next stage
+(``distributed/pipeline.py``; its outputs' hand-out is ``bcast``).
+Point-to-point
 sends, all-to-alls and reduce-scatters of CUDA tensors over gloo, which
 has no GPU form of them, go through host buffers, and so do its
 all-reduces; ``staged_bytes`` counts the bytes copied so. Over gloo a
@@ -228,7 +231,7 @@ def kv_shard_state() -> KVShard | None:
 POLICIES = ("tp_sp", "sp_rep", "fsdp")
 KINDS = ("ring", "combine", "a2a", "gather", "bcast", "weights", "halo",
          "carry", "reduce_scatter", "halo_grad", "carry_grad", "all_reduce",
-         "all_reduce_max")
+         "all_reduce_max", "pipe")
 
 
 @dataclasses.dataclass

@@ -1,6 +1,27 @@
-"""Run one (arch x shape) cell's step across the ranks of a group.
+"""The dry run: every (arch x shape) cell, abstractly or run across the
+ranks of a group.
 
-Port of ``repro/launch/dryrun.py::run_cell``. The reference lowers and
+Port of ``repro/launch/dryrun.py``. ``abstract_cell`` is what the
+reference's record holds without compiling: the policy, a rank's
+argument bytes (``launch/steps.cell_lowering_inputs``, by part), the
+cell's ``model_flops`` and whether the arguments fit the card; what only
+XLA's compile gives (temp and code sizes, collective bytes) is "not
+measured". ``main`` is the command line:
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
+        [--shape S] [--degree N] [--out DIR] [--fail-fast]
+        [--abstract | --run [--device cuda|cpu] [--batch B] [--layers L]]
+
+It walks ``configs.all_cells()`` and writes one JSON record a cell,
+``<out>/deg<N>/<arch>__<shape>.json``: a skip record with
+``cell_is_runnable``'s reason, a failure with the exception's repr, or
+the record of an ``abstract_cell`` (the default) or of ``run_cell``
+(``--run``: at degree N > 1, N processes, one a rank; NCCL with a card a
+rank where the machine has N cards, else gloo with every rank on card 0,
+or on the CPU). ``--batch`` and ``--layers`` cut a run's cell, and the
+record's ``reduced`` says so. It exits 1 if any cell failed.
+
+``run_cell`` runs one cell's step across the ranks of a group. The reference lowers and
 compiles each cell on a production mesh and reads XLA's memory and cost
 analysis; the port runs the cell's step on real tensors, SPMD, one
 process a rank, under the policy ``launch/steps.choose_policy`` names,
@@ -35,21 +56,29 @@ label columns: ``transformer.tp_sp_rows``).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+import os
+import tempfile
 import time
+import traceback
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.analysis.flops import model_flops
-from repro_torch.configs import SHAPES, cell_is_runnable, get_arch
+from repro_torch.configs import SHAPES, all_cells, cell_is_runnable, get_arch
 from repro_torch.distributed.ctx import SeqShard, sharding_policy
 from repro_torch.distributed.sharding import local_params
 from repro_torch.launch.steps import (
+    argument_bytes,
+    cell_lowering_inputs,
     choose_policy,
     make_decode_step,
     make_prefill_step,
     make_train_step,
+    train_cfg,
 )
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import (
@@ -230,8 +259,7 @@ def run_cell(arch, shape, shard: SeqShard, *, batch: int | None = None,
         if policy == "fsdp" and cell.global_batch % shard.degree:
             raise ValueError(f"a global batch of {cell.global_batch} does "
                              f"not split over {shard.degree} ranks")
-        if cfg.attn_impl == "kernel":
-            cfg = dataclasses.replace(cfg, attn_impl="chunked")
+        cfg = train_cfg(cfg)
     model = build_model(cfg)
     if params is None:
         dtype = torch.float32 if cell.kind == "train" else None
@@ -300,3 +328,212 @@ def _serve_cell(model, params, shard, cell, policy: str, *, seed: int, dev,
                                             s - steps, dev)
             outputs = {"logits": logits, "cache": cache}
     return outputs, ms, wall
+
+
+# ---------------------------------------------------------------------------
+# the abstract record and the command line
+# ---------------------------------------------------------------------------
+
+NOT_MEASURED = "not measured"
+# the part of a step's arguments each one is, by the cell's kind
+_PARTS = {"train": ("params", "opt", "batch"), "prefill": ("params", "batch"),
+          "decode": ("params", "cache", "batch", "batch")}
+
+
+def abstract_cell(arch_id: str, shape_id: str, degree: int, *,
+                  device_bytes: int | None = None) -> dict:
+    """The reference's record fields of a cell over ``degree`` ranks that
+    need no compile and no run: the policy, ``memory.
+    argument_size_in_bytes`` (a rank's arguments, also by part), the
+    cell's ``model_flops`` (causal) and whether the arguments fit
+    ``device_bytes`` of device memory (``"not measured"`` without it).
+    XLA's output, temp, code and alias sizes and the collectives'
+    bytes are "not measured"."""
+    cell = SHAPES[shape_id]
+    cfg = get_arch(arch_id)
+    _, args, donate, policy = cell_lowering_inputs(cfg, cell, degree)
+    sizes = argument_bytes(args)
+    by_part: dict[str, int] = {}
+    for part, n in zip(_PARTS[cell.kind], sizes):
+        by_part[part] = by_part.get(part, 0) + n
+    total = sum(sizes)
+    memory = {"argument_size_in_bytes": total,
+              "argument_bytes_by_part": by_part}
+    for field in ("output_size_in_bytes", "temp_size_in_bytes",
+                  "generated_code_size_in_bytes", "alias_size_in_bytes"):
+        memory[field] = NOT_MEASURED
+    return {"arch": arch_id, "shape": shape_id, "mesh": f"deg{degree}",
+            "policy": policy, "num_devices": degree, "donate": list(donate),
+            "memory": memory, "model_flops": model_flops(cfg, cell,
+                                                         causal=True),
+            "collectives": NOT_MEASURED,
+            "device_memory_bytes": (NOT_MEASURED if device_bytes is None
+                                    else device_bytes),
+            "fits_device_memory": (NOT_MEASURED if device_bytes is None
+                                   else total <= device_bytes),
+            "ok": True}
+
+
+def cut_arch(arch_id: str, layers: int | None) -> tuple:
+    """(``arch_id``'s config with ``layers`` decoder layers (an
+    encoder-decoder's encoder cut alike), the cut as {field: [published,
+    run]}); the config itself with ``layers`` None."""
+    cfg = get_arch(arch_id)
+    if layers is None:
+        return cfg, {}
+    cut = {"num_layers": layers}
+    if cfg.encoder_layers:
+        cut["encoder_layers"] = min(layers, cfg.encoder_layers)
+    return dataclasses.replace(cfg, **cut), {
+        k: [getattr(cfg, k), v] for k, v in cut.items()}
+
+
+def run_record(arch_id: str, shape_id: str, shard: SeqShard, *, device,
+               batch: int | None = None, layers: int | None = None) -> dict:
+    """``run_cell`` of the cell on this rank, cut to ``batch`` and
+    ``layers``: its record, with ``reduced`` (the cuts), ``mesh`` and
+    ``ok``, true when every logit (a train cell: every loss) is
+    finite."""
+    cfg, reduced = cut_arch(arch_id, layers)
+    published = SHAPES[shape_id].global_batch
+    if batch is not None and batch != published:
+        reduced["global_batch"] = [published, batch]
+    record, outputs = run_cell(cfg, shape_id, shard, batch=batch,
+                               device=device)
+    if "logits" in outputs:
+        finite = bool(outputs["logits"].isfinite().all())
+    else:
+        finite = bool(torch.tensor(record["losses"]).isfinite().all())
+    return dict(record, arch=arch_id, mesh=f"deg{shard.degree}",
+                reduced=reduced, ok=finite)
+
+
+def _rank_main(rank: int, world: int, backend: str, store: str, out: str,
+               arch_id: str, shape_id: str, device: str,
+               batch: int | None, layers: int | None) -> None:
+    """One rank of a ``--run`` cell (a process of its own): join the
+    group, run the cell, write its record to ``out``/rank<r>.json."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        rec = run_record(arch_id, shape_id, SeqShard(None, rank, world),
+                         device=dev, batch=batch, layers=layers)
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(arch_id: str, shape_id: str, degree: int, *, device,
+              batch: int | None = None, layers: int | None = None) -> dict:
+    """``run_record`` of the cell at ``degree``: in this process at degree
+    1, else on ``degree`` spawned ranks (NCCL with a card a rank where
+    there are as many cards, else gloo, every rank on card 0 or on the
+    CPU). Rank 0's record, ``ok`` only if every rank's is, and each
+    rank's record under ``ranks``. A rank's exception is raised here."""
+    import torch.multiprocessing as mp
+
+    dev = resolve_device(device)
+    if degree == 1:
+        return run_record(arch_id, shape_id, SeqShard(None, 0, 1),
+                          device=dev, batch=batch, layers=layers)
+    backend = ("nccl" if dev.type == "cuda"
+               and torch.cuda.device_count() >= degree else "gloo")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main, args=(degree, backend,
+                                   os.path.join(tmp, "store"), tmp, arch_id,
+                                   shape_id, dev.type, batch, layers),
+                 nprocs=degree, join=True)
+        ranks = []
+        for r in range(degree):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return dict(ranks[0], backend=backend, ranks=ranks,
+                ok=all(rec["ok"] for rec in ranks))
+
+
+def _summary(rec: dict) -> str:
+    if "memory" in rec:
+        return (f"args/rank={rec['memory']['argument_size_in_bytes']}B "
+                f"fits={rec['fits_device_memory']}")
+    return (f"step_device_ms={rec['step_device_ms']} "
+            f"peak={rec['peak_mem_bytes']}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--degree", type=int, default=4)
+    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--fail-fast", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--abstract", action="store_true",
+                      help="a rank's argument bytes, from the shapes "
+                           "(the default)")
+    mode.add_argument("--run", action="store_true",
+                      help="run each cell's step on --device")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None)
+    args = ap.parse_args(argv)
+    if not args.run and (args.batch or args.layers):
+        ap.error("--batch and --layers cut a --run")
+    if args.degree < 1:
+        ap.error("--degree must be at least 1")
+    device_bytes = (torch.cuda.get_device_properties(0).total_memory
+                    if not args.run and torch.cuda.is_available() else None)
+    mesh = f"deg{args.degree}"
+    outdir = os.path.join(args.out, mesh)
+    os.makedirs(outdir, exist_ok=True)
+    n_ok = n_fail = n_skip = 0
+    for arch_id, shape_id, runnable, why in all_cells():
+        if args.arch and arch_id != args.arch:
+            continue
+        if args.shape and shape_id != args.shape:
+            continue
+        path = os.path.join(outdir, f"{arch_id}__{shape_id}.json")
+        if not runnable:
+            rec = {"arch": arch_id, "shape": shape_id, "mesh": mesh,
+                   "ok": False, "skipped": True, "reason": why}
+            print(f"[skip] {mesh} {arch_id} {shape_id}: {why}", flush=True)
+            n_skip += 1
+        else:
+            try:
+                if args.run:
+                    rec = run_ranks(arch_id, shape_id, args.degree,
+                                    device=args.device, batch=args.batch,
+                                    layers=args.layers)
+                else:
+                    rec = abstract_cell(arch_id, shape_id, args.degree,
+                                        device_bytes=device_bytes)
+                if not rec["ok"]:
+                    raise FloatingPointError("non-finite outputs")
+                print(f"[ ok ] {mesh} {arch_id} {shape_id}: "
+                      f"{_summary(rec)}", flush=True)
+                n_ok += 1
+            except Exception as e:  # noqa: BLE001  a cell's failure is its record
+                n_fail += 1
+                rec = {"arch": arch_id, "shape": shape_id, "mesh": mesh,
+                       "ok": False, "error": repr(e)}
+                print(f"[FAIL] {mesh} {arch_id} {shape_id}: {e!r}",
+                      flush=True)
+                traceback.print_exc()
+                if args.fail_fast:
+                    with open(path, "w") as f:
+                        json.dump(rec, f, indent=1)
+                    raise
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+    print(f"dryrun done: ok={n_ok} fail={n_fail} skip={n_skip}")
+    return 1 if n_fail else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,20 +6,35 @@ Port of the step functions and ``choose_policy`` of
 of a group under ``sharding_policy(shard, "fsdp")`` or ``"tp_sp"`` (the
 reference's train cells, by ``choose_policy``); the prefill and decode
 steps on one card, or on a rank under the policy ``choose_policy`` names
-(``launch/dryrun.run_cell``). The reference's abstract input specs
-(``abstract_params``, ``batch_sds``, ``abstract_cache``,
-``cell_lowering_inputs``) lower its steps onto XLA meshes; the port runs
-a cell on real tensors instead.
+(``launch/dryrun.run_cell``).
+
+The reference's abstract input specs, under its names: each argument of
+a cell's step as shapes and dtypes on the meta device, with no memory
+allocated (the reference's ``jax.eval_shape``), whole and as one rank of
+a group of ``degree`` holds it (``AbstractArg``; the reference's
+``ShapeDtypeStruct`` with its ``NamedSharding`` on a ``(1, degree)``
+mesh). ``launch/dryrun.abstract_cell`` sums a rank's bytes from them.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.distributed import compression as comp
 from repro_torch.distributed import ctx
-from repro_torch.distributed.sharding import held_blocks
-from repro_torch.models.api import Model
+from repro_torch.distributed.ctx import SeqShard
+from repro_torch.distributed.sharding import (
+    batch_specs,
+    held_blocks,
+    local_opt_state,
+    local_params,
+    param_specs,
+)
+from repro_torch.models import transformer as tfm
+from repro_torch.models.api import Model, build_model
 from repro_torch.optim import OptConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import reference_leaf
@@ -164,6 +179,14 @@ def make_train_step(model: Model, opt_cfg: OptConfig,
     return train_step
 
 
+def train_cfg(cfg):
+    """``cfg`` as a train step runs it: the ``"kernel"`` route, which has
+    no backward, on ``"chunked"`` attention."""
+    if cfg.attn_impl == "kernel":
+        return dataclasses.replace(cfg, attn_impl="chunked")
+    return cfg
+
+
 def choose_policy(cfg, cell) -> str:
     """The reference's distribution policy of an (arch, cell): a prefill
     replicates weights (``sp_rep``) when the model is dense and its bf16
@@ -206,3 +229,137 @@ def make_decode_step(model: Model):
         return model.decode_step(params, cfg, token, cache, pos)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract specs
+# ---------------------------------------------------------------------------
+
+
+class AbstractArg(NamedTuple):
+    """One argument of a cell's step, on the meta device: ``whole``, the
+    global tree (the reference's shapes and dtypes), and ``rank``, the
+    block of it that one rank of the group holds (the reference's shard
+    shapes; every rank's are the same)."""
+
+    whole: Any
+    rank: Any
+
+
+def _cut(tree: dict, specs: dict, degree: int) -> dict:
+    """Rank 0's block of each leaf of ``tree`` along its ``specs`` dim
+    (None: whole)."""
+    return {k: v if specs[k] is None else
+            v.narrow(specs[k], 0, v.shape[specs[k]] // degree)
+            for k, v in tree.items()}
+
+
+def abstract_params(model: Model, degree: int, policy: str = "tp_sp"
+                    ) -> tuple:
+    """(the whole parameter tree on the meta device, its
+    ``sharding.param_specs`` over ``degree`` ranks under ``policy``)."""
+    params = model.init(device="meta")
+    return params, param_specs(params, policy=policy, degree=degree)
+
+
+def abstract_opt_state(params) -> dict:
+    """AdamW's state for ``params`` (a meta tree): ``mu`` and ``nu`` like
+    the parameters, ``step`` an int32 scalar."""
+    def like(p):
+        return torch.empty(p.shape, dtype=p.dtype, device="meta")
+
+    return {"mu": tree_map(like, params), "nu": tree_map(like, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def batch_sds(cfg, cell, degree: int, *, kind: str, policy: str = "tp_sp"
+              ) -> tuple:
+    """(a train or prefill cell's batch on the meta device, the dim each
+    tensor splits over ``degree`` ranks): int32 ``tokens`` (and
+    ``labels`` for a train step) of the cell's batch and length, an
+    audio or vision stack's fp32 ``frontend`` rows (B, F, D), whose F
+    patch rows count toward a vision cell's length. Under ``fsdp`` the
+    batch splits over the group where the degree divides it
+    (``sharding.batch_specs``)."""
+    b, s = cell.global_batch, cell.seq_len
+    f = cfg.num_frontend_tokens
+    if cfg.frontend == "vision":
+        s -= f
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out = {"tokens": meta(b, s)}
+    if cfg.frontend is not None:
+        out["frontend"] = meta(b, f, cfg.d_model, dtype=torch.float32)
+    if kind == "train":
+        out["labels"] = meta(b, s)
+    specs = batch_specs(policy=policy, batch=b, degree=degree,
+                        with_frontend=cfg.frontend is not None)
+    return out, {k: specs[k] for k in out}
+
+
+def abstract_cache(model: Model, cell, degree: int) -> dict:
+    """The decode cache one rank of ``degree`` holds, on the meta device
+    (``transformer.rank_cache``): the cell's batch and length, an
+    encoder-decoder's cross memories of F rows."""
+    cfg = model.cfg
+    mem_len = cfg.num_frontend_tokens if cfg.encoder_layers else 0
+    return tfm.rank_cache(cfg, cell.global_batch, cell.seq_len,
+                          SeqShard(None, 0, degree), device="meta",
+                          mem_len=mem_len)
+
+
+def cell_lowering_inputs(arch, cell, degree: int,
+                         opt_cfg: OptConfig | None = None) -> tuple:
+    """(step, args, donate, policy) of ``arch`` (an id or an
+    ``ArchConfig``) at ``cell`` over ``degree`` ranks: the step of the
+    cell's kind, each of its arguments an ``AbstractArg``, the indices of
+    the arguments the step updates in place (the reference's
+    ``donate_argnums``: a train step's parameters and optimizer state,
+    whose int32 step count it returns anew, a decode step's cache) and
+    ``choose_policy``'s policy. A train step
+    runs ``train_cfg``'s route; its parameters and state are the rank's
+    ``local_params`` and ``local_opt_state`` under the policy. A decode
+    step's ``token`` is int32 (B, 1) and its ``pos`` an int32 scalar, as
+    the reference's; the port's step takes ``pos`` as a host int."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
+    policy = choose_policy(cfg, cell)
+    if cell.kind == "train":
+        cfg = train_cfg(cfg)
+    model = build_model(cfg)
+    whole, _ = abstract_params(model, degree, policy)
+    params = AbstractArg(whole, local_params(whole, rank=0, degree=degree,
+                                             policy=policy))
+    if cell.kind in ("train", "prefill"):
+        batch, specs = batch_sds(cfg, cell, degree, kind=cell.kind,
+                                 policy=policy)
+        batch = AbstractArg(batch, _cut(batch, specs, degree))
+    if cell.kind == "train":
+        opt = abstract_opt_state(whole)
+        opt = AbstractArg(opt, local_opt_state(opt, rank=0, degree=degree,
+                                               policy=policy))
+        step = make_train_step(model, opt_cfg or OptConfig())
+        return step, (params, opt, batch), (0, 1), policy
+    if cell.kind == "prefill":
+        return (make_prefill_step(model, max_len=cell.seq_len),
+                (params, batch), (), policy)
+    mem_len = cfg.num_frontend_tokens if cfg.encoder_layers else 0
+    cache = AbstractArg(tfm.make_cache(cfg, cell.global_batch, cell.seq_len,
+                                       device="meta", mem_len=mem_len),
+                        abstract_cache(model, cell, degree))
+    token = torch.empty((cell.global_batch, 1), dtype=torch.int32,
+                        device="meta")
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    return (make_decode_step(model),
+            (params, cache, AbstractArg(token, token), AbstractArg(pos, pos)),
+            (1,), policy)
+
+
+def argument_bytes(args) -> list[int]:
+    """Each argument's bytes on one rank (its ``rank`` tree's leaves)."""
+    return [sum(t.numel() * t.element_size() for t in tree_leaves(a.rank)
+                if isinstance(t, torch.Tensor))      # not a cache's flags
+            for a in args]

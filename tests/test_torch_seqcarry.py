@@ -73,11 +73,29 @@ class _Hub:
 
 @dataclasses.dataclass
 class ThreadShard(SeqShard):
-    """A rank of a group of threads: ``all_gather``, ``reduce_scatter``
-    and ``all_reduce`` through a ``_Hub`` (sums in rank order), counted as
-    ``SeqShard``'s."""
+    """A rank of a group of threads: ``all_gather``, ``reduce_scatter``,
+    ``all_reduce`` (sums in rank order), ``ring_pass`` and ``broadcast``
+    through a ``_Hub``, counted as ``SeqShard``'s."""
 
     hub: _Hub | None = None
+
+    def ring_pass(self, tensors, kind="ring"):
+        if self.degree == 1:
+            return lambda: tensors
+        got = [self.hub.exchange(self.rank, t.contiguous())[self.rank - 1]
+               for t in tensors]
+        n = sum(t.numel() * t.element_size() for t in tensors)
+        self._count(kind, n, n)
+        return lambda: got
+
+    def broadcast(self, x, src, kind="bcast"):
+        if self.degree == 1:
+            return x
+        x.copy_(self.hub.exchange(self.rank, x)[src])
+        n = x.numel() * x.element_size()
+        self._count(kind, n * (self.degree - 1) if self.rank == src else 0,
+                    0 if self.rank == src else n)
+        return x
 
     def all_gather(self, x, kind):
         if self.degree == 1:

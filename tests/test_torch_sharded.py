@@ -39,6 +39,12 @@ and runs ``launch/train.main`` on moonshot-smoke over the two ranks to
 step 10, then resumed from that sharded checkpoint to step 20, and on
 recurrentgemma-smoke at an odd batch
 (``tests/test_torch_tp_sp_train.py`` holds the rest, on threads).
+
+The 4-rank spawn also runs the GPipe pipeline (``distributed/pipeline.
+pipelined_apply``) over ``SeqShard``'s own ring and broadcast: bit for
+bit ``sequential_apply`` on each microbatch, with the bytes by kind the
+shapes give (``tests/test_torch_pipeline.py`` holds the rest, on
+threads).
 """
 
 from __future__ import annotations
@@ -210,7 +216,17 @@ def _cases4(vocab, root):
               like="moe_fp32"),
         _case("ring_moe_int8", "deepseek-moe-16b", 4, p, chunk_route="ring",
               like="moe_int8", engine_kw={"kv_dtype": "int8"}),
-    ] + _ring_fn_cases(4) + _fsdp_cases(4, root)
+    ] + _ring_fn_cases(4) + _fsdp_cases(4, root) + [_pipeline_case()]
+
+
+def _pipeline_case() -> dict:
+    """8 layers of ``tanh(h @ w)`` at D 16 over the 4 ranks as stages, a
+    batch of 8 in 4 microbatches (the reference test's case)."""
+    rng = np.random.default_rng(0)
+    return dict(name="pipeline-4", kind="pipeline", microbatches=4,
+                layers=(rng.standard_normal((8, 16, 16)) * 0.2).astype(
+                    np.float32),
+                x=rng.standard_normal((8, 16)).astype(np.float32))
 
 
 @pytest.fixture(scope="module")
@@ -1034,3 +1050,30 @@ def test_train_main_trains_a_hybrid_stack_over_two_ranks(ranks):
     assert len(got[0]) == 4 and got[0] == got[1]
     np.testing.assert_allclose(got[0], train.main(TP_SP_HYBRID_ARGS),
                                atol=5e-3)
+
+
+def test_pipeline_over_four_gloo_ranks_is_sequential_bit_for_bit(cases,
+                                                                 four_ranks):
+    """``pipelined_apply`` over four gloo ranks, ``SeqShard``'s own ring
+    and broadcast: every rank's output is ``sequential_apply`` on each
+    microbatch bit for bit, with (M + S - 1) microbatches each way a rank
+    (kind ``pipe``) and the last stage's outputs broadcast (``bcast``)."""
+    from repro_torch.distributed.pipeline import sequential_apply
+
+    case = cases["pipeline-4"]
+    layers = list(torch.from_numpy(case["layers"]))
+    x = torch.from_numpy(case["x"])
+    m, s = case["microbatches"], 4
+    per = x.shape[0] // m
+    want = torch.cat([sequential_apply(layers, x[i * per:(i + 1) * per],
+                                       lambda w, h: torch.tanh(h @ w))
+                      for i in range(m)])
+    whole = x.numel() * 4
+    for rank, res in enumerate(four_ranks):
+        got = res["pipeline-4"]
+        assert np.array_equal(got["out"], want.numpy()), rank
+        pipe = (m + s - 1) * per * x.shape[1] * 4
+        assert got["sent"]["pipe"] == got["received"]["pipe"] == pipe
+        last = rank == s - 1
+        assert got["sent"]["bcast"] == (whole * (s - 1) if last else 0)
+        assert got["received"]["bcast"] == (0 if last else whole)

@@ -230,7 +230,25 @@ def resume_case(case: dict) -> dict:
     return {"losses": train.main(case["argv"])}
 
 
+def pipeline_case(case: dict) -> dict:
+    """``distributed/pipeline.pipelined_apply`` of the case's layers
+    (numpy (L, D, D), ``tanh(h @ w)`` a layer) on its batch, this rank
+    a stage of the default group: the output and the bytes by kind."""
+    from repro_torch.distributed.ctx import SeqShard
+    from repro_torch.distributed.pipeline import pipelined_apply, stage_layers
+
+    shard = SeqShard(None, dist.get_rank(), dist.get_world_size())
+    layers = stage_layers(list(torch.from_numpy(case["layers"])), shard)
+    with torch.no_grad():
+        y = pipelined_apply(layers, torch.from_numpy(case["x"]),
+                            lambda w, h: torch.tanh(h @ w), shard,
+                            num_microbatches=case["microbatches"])
+    return {"out": y.numpy(), "sent": dict(shard.sent),
+            "received": dict(shard.received)}
+
+
 RANK_CASES = {"ring_fn": lambda case, weights: ring_case(case),
+              "pipeline": lambda case, weights: pipeline_case(case),
               "fsdp": fsdp_case,
               "resume": lambda case, weights: resume_case(case)}
 
